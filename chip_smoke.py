@@ -5,32 +5,52 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels (``ops/csrc/*.cu``, one ``nvcc`` each, in
-   parallel) and print ptxas' register / shared-memory / spill lines;
-3. hold each kernel against its plain PyTorch version at the serving
-   slice's full-width shapes (float32, max |error| <= 1e-4);
-4. time kernel, plain version and, for flash, the library call
-   (``F.scaled_dot_product_attention``, a yardstick the port never calls),
-   with CUDA events, L2 flushed between launches;
-5. the main path: the full-width transformer LM (vocab 32000, dim 512,
+2. build the three CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
+   flash backward, paged decode; one ``nvcc`` each, in parallel) and print
+   ptxas' register / shared-memory / spill lines;
+3. hold each kernel against its plain PyTorch version at the main paths'
+   full-width shapes (float32): the forward and the decode kernel within
+   max |error| <= 1e-4; the backward kernels' dQ, dK and dV against
+   autograd through the plain attention within 1e-4 * max(1, max |ref|)
+   each (the training shape [8, 4096, 4, 128] causal, a kv_lens case, an
+   offset-causal case, a cross-attention case, a return_lse case with a
+   nonzero LSE cotangent);
+4. time kernel, plain version and the library call (the forward and
+   backward of ``F.scaled_dot_product_attention``, a yardstick the port
+   never calls), with CUDA events, L2 flushed between launches, each
+   beside its bound;
+5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
    4 x 128 heads, 8 layers, max_len 4096; random weights from a numpy
    seed) written as a checkpoint, loaded, and served through
    ``PagedDecoder`` + ``InferenceEngine`` over HTTP; 8 concurrent requests
-   of 32 tokens; both kernels' launch counters must move, and every stream
-   must equal a plain-PyTorch (``decode_kernel="torch"``) run on the card
-   except where that run's top-2 logit margin was below 1e-4 (reported);
-6. one JSON line listing each kernel's numbers, then the card line again
+   of 32 tokens; the flash forward and paged decode counters must move,
+   and every stream must equal a plain-PyTorch (``decode_kernel="torch"``)
+   run on the card except where that run's top-2 logit margin was below
+   1e-4 (reported);
+6. the training path: the same LM built with the layer DSL
+   (``transformer.build``) from the same seeded weights.  At batch 1 the
+   kernel path and the plain attention (``attention_impl="torch"``) agree
+   on the first loss (1e-5 relative), every parameter gradient
+   (1e-4 * max(1, max |g|)) and a 3-step Adam trajectory (1e-4 relative).
+   Then ``trainer.SGD.train`` takes TRAIN_STEPS Adam steps (lr 1e-4) at
+   batch 8 x 4096 on a fixed seeded set of sequences whose targets are the
+   tokens shifted by one: every loss finite, the last below the first, and
+   each attention kernel launched 8 times a step.  One more step is split
+   by CUDA events into attention kernels, dense products, loss, optimizer
+   and the rest, and one is traced by ``torch.profiler`` for the device's
+   idle share.  The trained ``Parameters`` then serve one greedy request
+   through ``PagedDecoder``;
+7. one JSON line listing each kernel's numbers, then the card line again
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
-checkout.  The tokens/s and time-to-first-token it prints are a smoke
-figure, not a benchmark.
+checkout.  The tokens/s, time-to-first-token and training step time it
+prints are a smoke figure, not a benchmark.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import tempfile
@@ -49,6 +69,9 @@ VOCAB, DIM, HEADS, LAYERS, FFN_MULT, MAX_LEN = 32000, 512, 4, 8, 4, 4096
 SLOTS, BLOCK = 8, 16
 MAX_TOKENS = 32
 SEED = 1234
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 6, 1e-4
+SERVE_KERNELS = ("flash_fwd", "paged_decode")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def card_line() -> str:
@@ -207,6 +230,131 @@ def paged_phase(dev, gen, flush):
                          pos=pos_list)
 
 
+# ---------------------------------------------------------- flash backward
+def _attn_grads(fa, q, k, v, lens, go, gl, kw, impl):
+    """dQ, dK, dV of sum(O * go) (+ sum(LSE * gl)) through
+    ``flash_attention`` on ``impl``."""
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o, lse = fa.flash_attention(*qkv, kv_lens=lens, return_lse=True,
+                                impl=impl, **kw)
+    obj = (o * go).sum()
+    if gl is not None:
+        obj = obj + (lse * gl).sum()
+    return torch.autograd.grad(obj, qkv)
+
+
+def flash_bwd_phase(dev, gen, flush):
+    """Hold the backward kernels against autograd through the plain
+    attention, then time forward, dK/dV and dQ at the training shape
+    beside the plain version and the library call."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    D = DIM // HEADS
+    # name, B, Lq, Lk, causal, kv_lens, q_offset, kv_offset, LSE cotangent
+    cases = [
+        ("training shape", TRAIN_BATCH, MAX_LEN, MAX_LEN, True, None, 0, 0,
+         False),
+        ("kv_lens", 4, 1024, 1024, True, [1024, 700, 333, 65], 0, 0, False),
+        ("offset causal", 2, 512, 1536, True, None, 1000, 200, False),
+        ("cross attention", 2, 300, 1100, False, None, 0, 0, False),
+        ("return_lse", 2, 1024, 1024, True, None, 0, 0, True),
+    ]
+    errs = {"dq": [0.0, 0.0], "dkdv": [0.0, 0.0]}   # max abs, max relative
+    for name, b, lq, lk, causal, lens, qo, ko, with_lse in cases:
+        q = torch.randn(b, lq, HEADS, D, device=dev, generator=gen)
+        k = torch.randn(b, lk, HEADS, D, device=dev, generator=gen)
+        v = torch.randn(b, lk, HEADS, D, device=dev, generator=gen)
+        go = torch.randn(b, lq, HEADS, D, device=dev, generator=gen)
+        gl = (torch.randn(b, HEADS, lq, device=dev, generator=gen)
+              if with_lse else None)
+        lens_t = torch.tensor(lens or [lk] * b, dtype=torch.int32,
+                              device=dev)
+        kw = dict(causal=causal, scale=D ** -0.5, q_offset=qo,
+                  kv_offset=ko)
+        got = _attn_grads(fa, q, k, v, lens_t, go, gl, kw, "cuda")
+        ref = _attn_grads(fa, q, k, v, lens_t, go, gl, kw, "torch")
+        torch.cuda.synchronize()
+        line = []
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (a - r).abs().max().item()
+            rel = err / max(1.0, r.abs().max().item())
+            key = "dq" if gname == "dq" else "dkdv"
+            errs[key] = [max(errs[key][0], err), max(errs[key][1], rel)]
+            line.append(f"{gname} {err:.3e} ({rel:.2e} of max(1, |ref|))")
+            if not (rel <= TOL and torch.isfinite(a).all()):
+                raise AssertionError(
+                    f"flash_bwd {name}: {gname} disagrees with autograd "
+                    f"through the plain version: {rel} > {TOL}")
+        print(f"flash_bwd {name} [B {b}, Lq {lq}, Lk {lk}, causal "
+              f"{causal}, kv_lens {lens}, q_offset {qo}, kv_offset {ko}, "
+              f"g_lse {with_lse}]: " + ", ".join(line), flush=True)
+        del got, ref
+
+    B, T = TRAIN_BATCH, MAX_LEN
+    q, k, v, go = (torch.randn(B, T, HEADS, D, device=dev, generator=gen)
+                   for _ in range(4))
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=D ** -0.5)
+    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    delta = (go * o).sum(-1).transpose(1, 2).contiguous()
+    t = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
+                        flush),
+         "dkdv": time_ms(lambda: fa.flash_bwd_dkdv_cuda(
+             q, k, v, go, lse, delta, lens, **kw), flush),
+         "dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
+             q, k, v, go, lse, delta, lens, **kw), flush)}
+    # the plain version: its forward, and autograd's backward through it
+    # (one backward computes dQ, dK and dV)
+    with torch.no_grad():
+        t["plain_fwd"] = time_ms(
+            lambda: fa._torch_attention(q, k, v, lens, **kw), flush,
+            iters=5, warmup=1)
+    qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa._torch_attention(*qkv, lens, **kw)
+    t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(
+        out, qkv, go, retain_graph=True), flush, iters=5, warmup=1)
+    del out
+    # the library yardstick on [B, H, T, D] views, never called by the port
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+    with torch.no_grad():
+        t["lib_fwd"] = time_ms(lambda: sdpa(*qt, is_causal=True,
+                                            scale=kw["scale"]), flush)
+    so = sdpa(*qt, is_causal=True, scale=kw["scale"])
+    t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+        so, qt, go.transpose(1, 2), retain_graph=True), flush)
+    del so
+
+    pairs = B * HEADS * T * (T + 1) // 2      # visible (q, k) pairs, causal
+    row = 4.0 * B * T * HEADS * D             # one [B, T, H, D] float32
+    vec = 4.0 * B * HEADS * T                 # one [B, H, T] float32
+    bounds = {"fwd": bound(4.0 * D * pairs, 4 * row + vec + 4 * B),
+              "dkdv": bound(8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
+              "dq": bound(6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
+    for name in ("fwd", "dkdv", "dq"):
+        plain, lib = (("plain_fwd", "lib_fwd") if name == "fwd"
+                      else ("plain_bwd", "lib_bwd"))
+        print(f"flash {name} at [{B}, {T}, {HEADS}, {D}] causal: ms "
+              f"{t[name]:.4f}  bound_ms {bounds[name][0]:.4f} "
+              f"({bounds[name][1]})  plain_ms {t[plain]:.4f}  library_ms "
+              f"(scaled_dot_product_attention "
+              f"{'forward' if name == 'fwd' else 'backward'}) "
+              f"{t[lib]:.4f}", flush=True)
+
+    def entry(name, plain, lib, err=None):
+        d = dict(ms=t[name], plain_ms=t[plain], bound_ms=bounds[name][0],
+                 bound_by=bounds[name][1], library_ms=t[lib])
+        if err is not None:
+            d.update(max_abs_err=err[0], max_rel_err=err[1])
+        return d
+
+    return {"shape": {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
+                      "causal": True},
+            "fwd": entry("fwd", "plain_fwd", "lib_fwd"),
+            "dkdv": entry("dkdv", "plain_bwd", "lib_bwd", errs["dkdv"]),
+            "dq": entry("dq", "plain_bwd", "lib_bwd", errs["dq"])}
+
+
 # -------------------------------------------------------------- main path
 def random_values(seed: int) -> dict:
     """The full-width LM's parameter tree under the JAX package's names,
@@ -358,8 +506,9 @@ def main_path():
         if code != 200 or len(toks) != MAX_TOKENS \
                 or not all(0 <= t < VOCAB for t in toks):
             raise AssertionError(f"request {i}: {code} {body}")
-    if stats["kernels"] != launches or min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the main "
+    if stats["kernels"] != launches or min(
+            launches[k] for k in SERVE_KERNELS) < 1:
+        raise AssertionError(f"a kernel was not launched on the serving "
                              f"path: {launches} (/stats {stats['kernels']})")
     gen = sum(len(b["outputs"]["tokens"]) for _, b in results)
     print(f"main path: {len(reqs)} HTTP requests, prompts "
@@ -401,6 +550,297 @@ def main_path():
     return launches, stats, iters
 
 
+# ----------------------------------------------------------- training path
+def _train_model():
+    """The LM's training graph through the port's DSL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.ir import reset_name_counters
+    from paddle_tpu_torch.models import transformer
+
+    reset_name_counters()
+    paddle.init(seed=SEED)
+    cost, _ = transformer.build(vocab_size=VOCAB, max_len=MAX_LEN, dim=DIM,
+                                num_heads=HEADS, num_layers=LAYERS,
+                                ffn_mult=FFN_MULT)
+    return paddle, paddle.Topology(cost)
+
+
+def _trainer(paddle, topo, values):
+    params = paddle.parameters.from_numpy(topo, values)
+    return paddle.trainer.SGD(topo, params,
+                              paddle.optimizer.Adam(learning_rate=TRAIN_LR))
+
+
+def trainer_feed(tokens, targets):
+    """The feed the DataFeeder builds for the training batch."""
+    lens = np.full(len(tokens), tokens.shape[1], np.int32)
+    return {"tokens": tokens, "tokens@len": lens, "targets": targets,
+            "targets@len": lens}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_parity(paddle, topo, values, tokens, targets):
+    """Batch 1, from the same weights: the kernel path against the plain
+    attention (``attention_impl="torch"``) on the card - the first loss,
+    every parameter gradient, and a 3-step Adam trajectory."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+
+    feed = {"tokens": tokens[:1], "targets": targets[:1]}
+    runs = {}
+    for impl in (None, "torch"):
+        config.set_option("attention_impl", impl)
+        try:
+            ops.reset_launch_counts()
+            tr = _trainer(paddle, topo, values)
+            loss, grads = tr.forward_backward(feed)
+            losses = []
+            tr.train(lambda: iter([feed] * 3), event_handler=lambda e: (
+                losses.append(e.cost)
+                if isinstance(e, paddle.event.EndIteration) else None))
+            runs[impl] = (float(loss), grads, losses)
+            del tr
+        finally:
+            config.set_option("attention_impl", None)
+        # 1 + 3 forward-backward passes of LAYERS attention layers each
+        want = 0 if impl == "torch" else 4 * LAYERS
+        if any(n != want for k, n in ops.launch_counts().items()
+               if k in TRAIN_KERNELS):
+            raise AssertionError(f"attention_impl={impl!r}: launches "
+                                 f"{ops.launch_counts()}, expected {want} "
+                                 f"of each attention kernel")
+    (loss_k, grads_k, traj_k), (loss_t, grads_t, traj_t) = (runs[None],
+                                                             runs["torch"])
+    if not _rel(loss_k, loss_t) <= 1e-5:
+        raise AssertionError(f"first loss: kernel path {loss_k} vs plain "
+                             f"{loss_t}")
+    worst = (0.0, "")
+    for lname, ps in grads_t.items():
+        for pname, ref in ps.items():
+            rel = ((grads_k[lname][pname] - ref).abs().max().item()
+                   / max(1.0, ref.abs().max().item()))
+            worst = max(worst, (rel, f"{lname}.{pname}"))
+    if not worst[0] <= TOL:
+        raise AssertionError(f"gradient {worst[1]}: kernel path vs plain "
+                             f"{worst[0]} > {TOL} of max(1, max |g|)")
+    traj = max(_rel(a, b) for a, b in zip(traj_k, traj_t))
+    if len(traj_k) != 3 or not traj <= TOL:
+        raise AssertionError(f"Adam trajectory: kernel path {traj_k} vs "
+                             f"plain {traj_t}")
+    print(f"training parity at batch 1 x {MAX_LEN}: first loss {loss_k:.6f}"
+          f" vs plain {loss_t:.6f} ({_rel(loss_k, loss_t):.2e} relative); "
+          f"worst gradient {worst[1]} at {worst[0]:.2e} of max(1, max |g|)"
+          f"; 3-step Adam losses {[round(x, 6) for x in traj_k]} vs "
+          f"{[round(x, 6) for x in traj_t]} ({traj:.2e} relative)",
+          flush=True)
+    return {"loss_rel": _rel(loss_k, loss_t), "grad_rel": worst[0],
+            "traj_rel": traj}
+
+
+def _gemm_ms(n, din, dout, dev, gen):
+    """CUDA-event time of one fc's three products at N rows: y = x W, and
+    the backward's dx = dy W^T and dW = x^T dy (full float32)."""
+    x = torch.randn(n, din, device=dev, generator=gen)
+    w = torch.randn(din, dout, device=dev, generator=gen)
+    dy = torch.randn(n, dout, device=dev, generator=gen)
+    fns = (lambda: x @ w, lambda: dy @ w.T, lambda: x.T @ dy)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        for fn in fns:
+            fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def step_breakdown(trainer, feed, attn_ms):
+    """Where one full-width training step's device time goes, from CUDA
+    events: the whole step, forward + backward, the optimizer update, the
+    loss (``_SoftmaxNLL`` forward and backward on logits of the step's
+    shape), the dense products (each fc's three products at the step's
+    shapes, times their count) and the attention kernels (their times at
+    the training shape, times LAYERS); the rest is elementwise work and
+    gaps.  Then ``torch.profiler`` over one more step, for the device's
+    busy share and the kernels by device time."""
+    from paddle_tpu_torch.layers.cost import _SoftmaxNLL
+
+    dev = trainer.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, grads = trainer.forward_backward(feed)
+    ev[1].record()
+    trainer.optimizer.update(trainer._trainable, grads, trainer._opt_state,
+                             trainer.parameters.meta)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    fb_ms, upd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    n = TRAIN_BATCH * MAX_LEN
+    logits = torch.randn(n, VOCAB, device=dev, generator=gen,
+                         requires_grad=True)
+    labels = torch.randint(0, VOCAB, (n,), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.autograd.grad(_SoftmaxNLL.apply(logits, labels).mean(), logits)
+    ev[1].record()
+    torch.cuda.synchronize()
+    loss_ms = ev[0].elapsed_time(ev[1])
+    del logits
+    hid = DIM * FFN_MULT
+    dense = {(DIM, DIM): 4 * LAYERS, (DIM, hid): LAYERS,
+             (hid, DIM): LAYERS, (DIM, VOCAB): 1}
+    dense_ms = sum(count * _gemm_ms(n, a, b, dev, gen)
+                   for (a, b), count in dense.items())
+    attn = LAYERS * attn_ms
+    step = fb_ms + upd_ms
+    parts = {"attention kernels": attn, "dense products": dense_ms,
+             "loss": loss_ms, "optimizer": upd_ms,
+             "rest (elementwise, embedding, gaps)":
+                 step - attn - dense_ms - loss_ms - upd_ms}
+    print(f"step breakdown (CUDA events): step {step:.1f} ms = forward + "
+          f"backward {fb_ms:.1f} + update {upd_ms:.1f}; " + "; ".join(
+              f"{k} {v:.1f} ms ({v / step:.0%})" for k, v in parts.items()),
+          flush=True)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        trainer._step(feed)
+        ev[1].record()
+        torch.cuda.synchronize()
+    wall = ev[0].elapsed_time(ev[1])
+    # the device's own activity (kernels, copies, fills), not the host ops
+    # that launched it; busy = the union of their intervals
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end_us = 0.0, float("-inf")
+    for start, stop in spans:
+        busy_us += max(0.0, stop - max(start, end_us))
+        end_us = max(end_us, stop)
+    busy = busy_us / 1e3
+    if busy:
+        share = max(0.0, 1.0 - busy / wall)
+        per_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms, n = per_name.get(e.name, (0.0, 0))
+                per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                    n + 1)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+        print(f"torch.profiler: device busy {busy:.1f} of {wall:.1f} ms, "
+              f"idle share {share:.1%}; top kernels: " + "; ".join(
+                  f"{name[:60]} x{n} {ms:.1f} ms"
+                  for name, (ms, n) in top), flush=True)
+    else:
+        share = None
+        print("torch.profiler saw no device time: idle share not measured",
+              flush=True)
+    return dict(parts, step_ms=step, forward_backward_ms=fb_ms,
+                idle_share=share)
+
+
+def train_path(attn_ms):
+    """The training main path at full width: ``trainer.SGD.train`` at
+    batch TRAIN_BATCH x MAX_LEN, then the hand-over to serving."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models.transformer import (PagedDecoder,
+                                                     params_from_jax)
+
+    paddle, topo = _train_model()
+    values = random_values(SEED)
+    seqs = np.random.RandomState(SEED + 1).randint(
+        0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)).astype(np.int32)
+    tokens, targets = seqs[:, :-1], seqs[:, 1:]
+    parity = train_parity(paddle, topo, values, tokens, targets)
+    torch.cuda.empty_cache()
+
+    trainer = _trainer(paddle, topo, values)
+
+    def samples():
+        for _ in range(TRAIN_STEPS):
+            yield from zip(tokens, targets)
+
+    losses, step_s = [], []
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter())
+        elif isinstance(e, paddle.event.EndIteration):
+            losses.append(e.cost)          # reading it waits for the step
+            step_s[-1] = time.perf_counter() - step_s[-1]
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(paddle.batch(samples, TRAIN_BATCH), num_passes=1,
+                  event_handler=handler,
+                  feeding={"tokens": 0, "targets": 1})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if (len(losses) != TRAIN_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    want = LAYERS * TRAIN_STEPS
+    if any(launches[k] != want for k in TRAIN_KERNELS):
+        raise AssertionError(f"the attention kernels did not run "
+                             f"{LAYERS} times a step: {launches}")
+    warm = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"training path: {TRAIN_STEPS} Adam steps (lr {TRAIN_LR}) at "
+          f"batch {TRAIN_BATCH} x {MAX_LEN}, losses "
+          f"{[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms "
+          f"= {TRAIN_BATCH * MAX_LEN / warm:.0f} tokens/s (smoke figure, "
+          f"not a benchmark); peak memory {peak_gb:.2f} GB; launches "
+          f"{launches}", flush=True)
+
+    breakdown = step_breakdown(trainer, trainer_feed(tokens, targets),
+                               attn_ms)
+
+    # hand-over: the trained Parameters serve through PagedDecoder, and
+    # its first token is the training graph's argmax at the prompt's end
+    prompt = tokens[0][:MAX_LEN // 2]
+    with torch.no_grad():
+        outs, _ = topo.forward(trainer.parameters.values, {},
+                               {"tokens": prompt[None],
+                                "targets": prompt[None]},
+                               outputs=["logits"])
+    top2 = torch.topk(outs["logits"][0, -1], 2).values
+    model = params_from_jax(trainer.parameters, num_heads=HEADS)
+    dec = PagedDecoder(model, max_slots=1, block_size=BLOCK,
+                       device=trainer.device)
+    stream = [dec.prefill(0, prompt)]
+    for pos in range(len(prompt), len(prompt) + MAX_TOKENS - 1):
+        stream.append(int(dec.step(1, [stream[-1]], [pos])[0]))
+    dec.release_sequence(0)
+    want_first = int(torch.argmax(outs["logits"][0, -1]))
+    if not all(0 <= x < VOCAB for x in stream) or (
+            stream[0] != want_first and float(top2[0] - top2[1]) >= TOL):
+        raise AssertionError(f"served stream {stream[:4]}... does not start "
+                             f"with the training graph's {want_first}")
+    print(f"hand-over: the trained parameters served {len(stream)} greedy "
+          f"tokens through PagedDecoder, first {stream[0]} (training "
+          f"graph's argmax {want_first})", flush=True)
+    return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3, "peak_gb": peak_gb,
+            "parity": parity, "breakdown": breakdown}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -420,8 +860,9 @@ def main() -> int:
           torch.cuda.get_device_name(0), flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_fwd", "paged_decode"])
-    print(f"built both kernels in {time.perf_counter() - t0:.1f}s", flush=True)
+    logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode"])
+    print(f"built {len(logs)} kernel sources in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
@@ -434,6 +875,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
     flash_err, flash_t = flash_phase(dev, gen, flush)
     paged_err, paged_t = paged_phase(dev, gen, flush)
+    bwd = flash_bwd_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -441,6 +883,10 @@ def main() -> int:
     share = LAYERS * paged_t["kernel_ms"] / iters["kernels"][0]
     print(f"paged_decode kernel launches (alone, timed above) cover about "
           f"{share:.1%} of a decode-only iteration", flush=True)
+    torch.cuda.empty_cache()
+    train = train_path(bwd["fwd"]["ms"] + bwd["dkdv"]["ms"]
+                       + bwd["dq"]["ms"])
+    tl = train["launches"]
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -451,7 +897,19 @@ def main() -> int:
          "library_ms": flash_t["library_ms"],
          "shape": {"B": 1, "H": HEADS, "D": DIM // HEADS,
                    "Lq": flash_t["lq"], "Lk": MAX_LEN, "causal": True,
-                   "q_offset": flash_t["q_offset"]}},
+                   "q_offset": flash_t["q_offset"]},
+         "launches_train": tl["flash_fwd"],
+         "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
+        {"name": "flash_bwd_dkdv", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:285",
+         "launches": tl["flash_bwd_dkdv"], **bwd["dkdv"],
+         "shape": bwd["shape"]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:370",
+         "launches": tl["flash_bwd_dq"], **bwd["dq"],
+         "shape": bwd["shape"]},
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:59",
@@ -463,6 +921,10 @@ def main() -> int:
                    "MB": MAX_LEN // BLOCK, "NB": 1 + SLOTS * MAX_LEN // BLOCK,
                    "pos": paged_t["pos"], "kv_splits": paged_t["kv_splits"]}},
     ]
+    print(json.dumps({"training": {
+        k: train[k] for k in ("losses", "first_step_ms", "step_ms",
+                              "peak_gb", "parity", "breakdown")}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

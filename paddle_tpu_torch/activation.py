@@ -1,0 +1,89 @@
+"""Activation functions (counterpart of ``paddle_tpu/activation.py``).
+
+Each activation is a named torch function under the JAX package's names,
+so ``resolve`` writes the same ``act`` attribute into the IR.  ``gelu`` is
+the tanh form, as ``jax.nn.gelu`` defaults to.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+class BaseActivation:
+    name: str = None
+
+    def __call__(self, x):
+        return apply(self.name, x)
+
+
+def _make(name):
+    return type(name.capitalize() + "Activation", (BaseActivation,),
+                {"name": name})
+
+
+_FNS = {
+    "linear": lambda x: x,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "brelu": lambda x: torch.clamp(x, 0.0, 24.0),
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "sequence_softmax": lambda x: torch.softmax(x, dim=-1),
+    "exp": torch.exp,
+    "log": torch.log,
+    "abs": torch.abs,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "reciprocal": lambda x: 1.0 / x,
+    "softrelu": lambda x: torch.log(1.0 + torch.exp(torch.clamp(x, -40.0,
+                                                                40.0))),
+    "stanh": lambda x: 1.7159 * torch.tanh(2.0 / 3.0 * x),
+    "softsign": lambda x: x / (1.0 + torch.abs(x)),
+    "swish": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "elu": F.elu,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+}
+
+
+def apply(name: str, x):
+    try:
+        return _FNS[name](x)
+    except KeyError:
+        raise KeyError(f"unknown activation {name!r}; have "
+                       f"{sorted(_FNS)}") from None
+
+
+def resolve(act) -> str:
+    """Accept an activation object, a name string, or None (linear)."""
+    if act is None:
+        return "linear"
+    if isinstance(act, str):
+        if act not in _FNS:
+            raise KeyError(f"unknown activation {act!r}")
+        return act
+    if isinstance(act, BaseActivation) or hasattr(act, "name"):
+        return act.name
+    raise TypeError(f"cannot resolve activation from {act!r}")
+
+
+# class-style API parity with trainer_config_helpers.activations
+Linear = LinearActivation = _make("linear")
+Sigmoid = SigmoidActivation = _make("sigmoid")
+Tanh = TanhActivation = _make("tanh")
+Relu = ReluActivation = _make("relu")
+BRelu = BReluActivation = _make("brelu")
+Softmax = SoftmaxActivation = _make("softmax")
+SequenceSoftmax = SequenceSoftmaxActivation = _make("sequence_softmax")
+Exp = ExpActivation = _make("exp")
+Log = LogActivation = _make("log")
+Abs = AbsActivation = _make("abs")
+Square = SquareActivation = _make("square")
+SoftRelu = SoftReluActivation = _make("softrelu")
+STanh = STanhActivation = _make("stanh")
+Identity = IdentityActivation = _make("linear")
+Sqrt = SqrtActivation = _make("sqrt")
+Reciprocal = ReciprocalActivation = _make("reciprocal")
+SoftSign = SoftSignActivation = _make("softsign")

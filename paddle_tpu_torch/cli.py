@@ -1,10 +1,16 @@
-"""Command line: ``python -m paddle_tpu_torch serve ...``.
+"""Command line: ``python -m paddle_tpu_torch {train,serve} ...``.
 
-Serves a transformer LM checkpoint through the paged decoder, as
+``train --config CFG --num_passes N [--device cpu]`` is the counterpart of
+``python -m paddle_tpu train`` (``cmd_train``): the config defines
+``cost``, ``train_reader`` and optionally ``optimizer`` (default Momentum,
+lr 0.01, momentum 0.9) and ``feeding``, and is trained through
+``trainer.SGD``.  The JAX command's checkpoint, telemetry, prefetch,
+bucketing and steps-per-dispatch flags are not ported yet and raise.
+
+``serve`` serves a transformer LM checkpoint through the paged decoder, as
 ``python -m paddle_tpu serve --decode --paged_kv`` does.  The JAX command
-builds the model from a DSL config (``--model cfg.py``), which is not
-ported yet; here the dims come from the parameter shapes and the caller
-names ``--num_heads``.
+builds the model from a DSL config (``--model cfg.py``); here the dims
+come from the parameter shapes and the caller names ``--num_heads``.
 """
 
 from __future__ import annotations
@@ -12,8 +18,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import runpy
 import sys
 import threading
+
+# flags of the JAX ``train`` verb this port does not have yet
+_UNPORTED_TRAIN_FLAGS = ("save_dir", "telemetry_dir", "metrics_port",
+                         "prefetch_depth", "seq_buckets",
+                         "steps_per_dispatch", "precision",
+                         "compile_cache_dir")
 
 
 def _serve_ready_line(role, host, port, **extra):
@@ -62,9 +75,62 @@ def cmd_serve(args) -> None:
         engine.close()
 
 
+def _load_config(path: str) -> dict:
+    """Run a config file (it builds its graph with the DSL) and return its
+    globals, as ``paddle_tpu/cli.py`` ``_load_config`` does for the v2
+    declaration style."""
+    path = os.path.abspath(path)
+    cfg_dir = os.path.dirname(path)
+    if cfg_dir not in sys.path:
+        sys.path.insert(0, cfg_dir)
+    return runpy.run_path(path)
+
+
+def cmd_train(args) -> None:
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import config
+
+    unported = [f"--{f}" for f in _UNPORTED_TRAIN_FLAGS
+                if getattr(args, f) not in (None, 0)]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)}: not ported to paddle_tpu_torch yet "
+            f"(ROADMAP.md section 1)")
+    # before the config runs: its own paddle.init() keeps this device
+    config.set_option("device", args.device)
+    config.default_device()
+    cfg = _load_config(args.config)
+    cost = cfg["cost"]
+    topo = paddle.Topology(cost)
+    params = paddle.parameters.create(topo)
+    opt = cfg.get("optimizer") or paddle.optimizer.Momentum(
+        learning_rate=0.01, momentum=0.9)
+    trainer = paddle.trainer.SGD(topo, params, opt)
+    reader = cfg.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define train_reader for train")
+    config.set_option("log_period", args.log_period)
+    trainer.train(reader, num_passes=args.num_passes,
+                  feeding=cfg.get("feeding"))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    tr = sub.add_parser("train", help="train a DSL config through "
+                                      "trainer.SGD")
+    tr.add_argument("--config", required=True,
+                    help="python file defining cost and train_reader "
+                         "(optimizer, feeding optional)")
+    tr.add_argument("--num_passes", type=int, default=1)
+    tr.add_argument("--log_period", type=int, default=100,
+                    help="print the cost every N batches")
+    tr.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises with no card) or 'cpu'")
+    for flag in _UNPORTED_TRAIN_FLAGS:
+        tr.add_argument(f"--{flag}", default=None,
+                        help="not ported yet: raises")
+    tr.set_defaults(fn=cmd_train)
     sv = sub.add_parser("serve", help="serve a transformer LM checkpoint "
                                       "through the paged decoder")
     sv.add_argument("--params", required=True,

@@ -1,0 +1,69 @@
+"""Layer registry: name -> LayerDef.
+
+Counterpart of ``paddle_tpu/core/registry.py``.  A LayerDef does three jobs:
+shape inference, parameter specs, and ``apply()`` - here eager PyTorch
+under autograd, so the backward comes from ``loss.backward()`` (or
+``torch.autograd.grad``) over the whole topology.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+_LAYER_REGISTRY: Dict[str, "LayerDef"] = {}
+
+
+class ApplyContext:
+    """Per-forward context threaded through layer ``apply()`` calls: train
+    or test mode, the ``torch.Generator`` of the forward (for layers that
+    draw random numbers; none of the ported ones does), the device, and the
+    full parameter tree (tied weights).  The JAX context's running-state
+    namespace comes with the first ported layer that keeps state."""
+
+    def __init__(self, train: bool, generator: Optional[torch.Generator]
+                 = None, device=None):
+        self.train = train
+        self.generator = generator
+        self.device = device
+        self.params_tree: dict = {}   # full parameter tree (tied weights)
+
+
+class LayerDef:
+    """Base class for layer definitions: subclass and register."""
+
+    kind: str = None
+
+    def infer_shape(self, attrs: dict, in_shapes: Sequence[tuple]) -> tuple:
+        """Per-sample output shape (batch dim excluded)."""
+        raise NotImplementedError
+
+    def param_specs(self, attrs: dict, in_shapes: Sequence[tuple]):
+        """Return list[ParamSpec] (possibly empty)."""
+        return []
+
+    def apply(self, attrs: dict, params: dict, inputs: list,
+              ctx: ApplyContext):
+        """Forward computation. inputs/outputs carry a leading batch dim."""
+        raise NotImplementedError
+
+
+def register_layer(layer_def) -> LayerDef:
+    if isinstance(layer_def, type):
+        layer_def = layer_def()
+    kind = layer_def.kind
+    assert kind, f"LayerDef {layer_def} must set .kind"
+    if kind in _LAYER_REGISTRY:
+        raise ValueError(f"layer kind {kind!r} already registered")
+    _LAYER_REGISTRY[kind] = layer_def
+    return layer_def
+
+
+def get_layer_def(kind: str) -> LayerDef:
+    try:
+        return _LAYER_REGISTRY[kind]
+    except KeyError:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported to paddle_tpu_torch yet; "
+            f"ported: {sorted(_LAYER_REGISTRY)}") from None

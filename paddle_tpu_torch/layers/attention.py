@@ -1,5 +1,14 @@
-"""The serving half of ``paddle_tpu/layers/attention.py``: the KV-slot and
-paged-KV inner loop of the decoders (models/transformer.py).
+"""``paddle_tpu/layers/attention.py`` on the port: the attention layers of
+the DSL (``PositionEmbeddingLayer``, ``MultiHeadAttentionLayer``) and the
+KV-slot and paged-KV inner loop of the decoders (models/transformer.py).
+
+``MultiHeadAttentionLayer`` keeps its projections as ``torch.matmul`` (the
+JAX package leaves them to XLA) and runs the attention itself through
+``flash_attention``: the CUDA forward and backward kernels on the card,
+the plain version on the CPU, or the plain version anywhere when the
+``attention_impl`` option is ``"torch"``.  Padded batches ride the kernels
+through per-sample ``kv_lens`` derived from the key mask.  Ring attention
+(``context_parallel=True``) is not ported yet and raises.
 
 KV slots: per-layer caches ``[max_slots, max_len, heads, dh]``, one slot per
 resident sequence.  Paged KV: one pool ``[num_blocks, block_size, heads,
@@ -15,6 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core import config as cfg
+from paddle_tpu_torch.core.ir import ParamSpec
+from paddle_tpu_torch.core.registry import register_layer
+from paddle_tpu_torch.layers.sequence import SeqLayerDef
 from paddle_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -72,3 +85,80 @@ def paged_chunk_attention(q, ck, cv, q_offset: int, scale, *, impl=None):
     out = flash_attention(q[None], ck[None], cv[None], causal=True,
                           scale=scale, q_offset=int(q_offset), impl=impl)
     return out[0]
+
+
+@register_layer
+class PositionEmbeddingLayer(SeqLayerDef):
+    """Learnable absolute position embeddings broadcast over the batch.
+    Input: any sequence [B, T, D]; output [B, T, size] (size defaults to
+    D).  The table covers max_len rows; T must not exceed it."""
+
+    kind = "position_embedding"
+    out_is_seq = True
+
+    def infer_shape(self, attrs, in_shapes):
+        t, d = in_shapes[0][0], in_shapes[0][-1]
+        return (t, attrs.get("size") or d)
+
+    def param_specs(self, attrs, in_shapes):
+        size = attrs.get("size") or in_shapes[0][-1]
+        return [ParamSpec("w", (attrs["max_len"], size), "normal")]
+
+    def apply_seq(self, attrs, params, inputs, masks, ctx):
+        x = inputs[0]
+        t = x.shape[1]
+        if t > params["w"].shape[0]:
+            raise ValueError(
+                f"sequence length {t} exceeds position_embedding "
+                f"max_len {params['w'].shape[0]}")
+        pos = params["w"][:t]
+        return pos[None].expand((x.shape[0],) + tuple(pos.shape))
+
+
+@register_layer
+class MultiHeadAttentionLayer(SeqLayerDef):
+    """inputs: [query_seq, key_seq, value_seq] (self-attention passes the
+    same layer thrice).  attrs: size (output width), num_heads, causal."""
+
+    kind = "multi_head_attention"
+    out_is_seq = True
+
+    def infer_shape(self, attrs, in_shapes):
+        return (in_shapes[0][0], attrs["size"])
+
+    def param_specs(self, attrs, in_shapes):
+        size = attrs["size"]
+        heads = attrs["num_heads"]
+        if size % heads:
+            raise ValueError(f"attention size {size} not divisible by "
+                             f"num_heads {heads}")
+        return [
+            ParamSpec("wq", (in_shapes[0][-1], size), "xavier"),
+            ParamSpec("wk", (in_shapes[1][-1], size), "xavier"),
+            ParamSpec("wv", (in_shapes[2][-1], size), "xavier"),
+            ParamSpec("wo", (size, size), "xavier"),
+        ]
+
+    def apply_seq(self, attrs, params, inputs, masks, ctx):
+        if attrs.get("context_parallel", False):
+            raise NotImplementedError(
+                "context_parallel attention (ring attention over a device "
+                "mesh) is not ported to paddle_tpu_torch yet")
+        q_in, k_in, v_in = inputs
+        kv_mask = masks[1]
+        heads = attrs["num_heads"]
+        size = attrs["size"]
+        dh = size // heads
+        b, lq = q_in.shape[0], q_in.shape[1]
+        lk = k_in.shape[1]
+        q = (q_in @ params["wq"]).reshape(b, lq, heads, dh)
+        k = (k_in @ params["wk"]).reshape(b, lk, heads, dh)
+        v = (v_in @ params["wv"]).reshape(b, lk, heads, dh)
+        # prefix masks (the only kind Topology builds, from @len) reduce
+        # to per-sample KV lengths
+        kv_lens = (kv_mask.sum(dim=-1).to(torch.int32)
+                   if kv_mask is not None else None)
+        out = flash_attention(q, k, v, causal=attrs.get("causal", False),
+                              kv_lens=kv_lens,
+                              impl=cfg.get_option("attention_impl"))
+        return out.reshape(b, lq, size) @ params["wo"]

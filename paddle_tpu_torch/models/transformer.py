@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM: the serving half of
-``paddle_tpu/models/transformer.py``.
+"""Decoder-only transformer LM (counterpart of
+``paddle_tpu/models/transformer.py``): ``build``, the training graph in the
+layer DSL, and the serving half.
 
 ``TransformerLM`` holds the parameter tree under the JAX package's names and
 ``[in, out]`` weight layout (``tok_emb.w``, ``pos_emb.w``,
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch import data_type, layer
 from paddle_tpu_torch.core.config import resolve_device
 from paddle_tpu_torch.layers.attention import (paged_chunk_attention,
                                                paged_gather,
@@ -39,6 +41,49 @@ from paddle_tpu_torch.ops.paged_attention import paged_decode_attention
 from paddle_tpu_torch.serving.blocks import BlockAllocator, chain_hash
 
 DECODE_KERNELS = ("auto", "torch")
+
+
+def build(vocab_size: int = 1000, max_len: int = 128, dim: int = 128,
+          num_heads: int = 4, num_layers: int = 2, ffn_mult: int = 4,
+          context_parallel: bool = False, fused_head: bool = False):
+    """Next-token LM, pre-LN blocks over ``multi_head_attention``: the same
+    graph, names and JSON as the JAX package's ``build``.  Feeds: tokens
+    [B,T] (+ tokens@len), targets [B,T].  Returns (cost, logits_seq).
+
+    ``fused_head`` (the chunked-CE head, ``ops/chunked_ce.py``) and
+    ``context_parallel`` (ring attention) are not ported yet and raise."""
+    if fused_head:
+        raise NotImplementedError(
+            "fused_head (the chunked cross-entropy head) is not ported to "
+            "paddle_tpu_torch yet")
+    if context_parallel:
+        raise NotImplementedError(
+            "context_parallel (ring attention) is not ported to "
+            "paddle_tpu_torch yet")
+    seq = data_type.integer_value_sequence
+    tokens = layer.data("tokens", seq(vocab_size, max_len=max_len))
+    targets = layer.data("targets", seq(vocab_size, max_len=max_len))
+
+    x = layer.embedding(tokens, size=dim, name="tok_emb")
+    pos = layer.position_embedding(x, max_len=max_len, name="pos_emb")
+    x = layer.addto([x, pos], act=None, name="h0")
+
+    for i in range(num_layers):
+        ln1 = layer.layer_norm(x, name=f"ln1_{i}")
+        att = layer.multi_head_attention(
+            ln1, size=dim, num_heads=num_heads, causal=True,
+            context_parallel=context_parallel, name=f"attn_{i}")
+        x = layer.addto([x, att], act=None, name=f"res_a{i}")
+        ln2 = layer.layer_norm(x, name=f"ln2_{i}")
+        ffn = layer.fc(layer.fc(ln2, size=dim * ffn_mult, act="gelu",
+                                name=f"ffn_up{i}"),
+                       size=dim, act=None, name=f"ffn_down{i}")
+        x = layer.addto([x, ffn], act=None, name=f"res_f{i}")
+
+    x = layer.layer_norm(x, name="ln_f")
+    logits = layer.fc(x, size=vocab_size, act=None, name="logits")
+    cost = layer.classification_cost(logits, targets, name="cost")
+    return cost, logits
 
 
 class TransformerLM(nn.Module):
@@ -97,18 +142,26 @@ class TransformerLM(nn.Module):
         return att.reshape(att.shape[0], self.dim) @ self.p[f"attn_{i}"]["wo"]
 
 
-def params_from_jax(values: dict, *, num_heads: int,
+def params_from_jax(values, *, num_heads: int,
                     eps: float = 1e-5) -> TransformerLM:
-    """Carry a JAX parameter tree (``{layer: {param: array}}``, e.g.
-    ``Parameters.values`` or a checkpoint's ``trainable``) across as a
-    float32 ``TransformerLM`` on the CPU."""
+    """A float32 ``TransformerLM`` from a parameter tree: a JAX one
+    (``{layer: {param: array}}``, e.g. ``Parameters.values`` or a
+    checkpoint's ``trainable``), copied onto the CPU, or the port's own
+    ``Parameters`` (e.g. after ``trainer.SGD.train``), whose tensors are
+    shared where they lie, with no copy."""
+    from paddle_tpu_torch.parameters import Parameters
+
+    if isinstance(values, Parameters):
+        values = {lname: {name: t.detach() for name, t in params.items()}
+                  for lname, params in values.values.items()}
     tree = {}
-    for layer, params in values.items():
+    for lname, params in values.items():
         if not isinstance(params, dict):
-            raise ValueError(f"{layer!r}: expected a dict of parameters")
-        tree[layer] = {name: torch.from_numpy(
-            np.array(arr, dtype=np.float32, copy=True))
-            for name, arr in params.items()}
+            raise ValueError(f"{lname!r}: expected a dict of parameters")
+        tree[lname] = {name: (arr.float() if torch.is_tensor(arr)
+                              else torch.from_numpy(np.array(
+                                  arr, dtype=np.float32, copy=True)))
+                       for name, arr in params.items()}
     for need in ("tok_emb", "pos_emb", "attn_0", "ln_f", "logits"):
         if need not in tree:
             raise ValueError(f"not a transformer LM parameter tree: no "

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``_build/lib<name>-<sha>.so`` (the digest of the source
-names the file, so an edited source never loads a stale build), and is
-loaded with ``ctypes``.  Every C entry returns ``cudaGetLastError()`` after
-its launch; ``check`` turns a nonzero code into an exception.  A failed
-build raises: nothing falls back to the plain PyTorch path.
+and of every shared ``csrc/*.cuh`` header names the file, so an edited
+source never loads a stale build), and is loaded with ``ctypes``.  Every C
+entry returns ``cudaGetLastError()`` after its launch; ``check`` turns a
+nonzero code into an exception.  A failed build raises: nothing falls back
+to the plain PyTorch path.
 
 Building happens at first use, never at import: the CPU tests import every
 module on machines that have no ``nvcc``.
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names) -> dict:

@@ -24,51 +24,19 @@
 // offset t reads about t keys, not the whole gathered cache.  Inputs are
 // read through their strides: no transposed copy is made.  The TPU kernel's
 // unmasked interior loop is not split out here; every tile is masked.
+// flash_common.cuh holds the tile loader and the visibility rule, shared
+// with the backward kernels (flash_bwd.cu).
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;           // core/config.py NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBq = 64;                     // q rows per block
-constexpr int kBk = 64;                     // keys per streamed tile
-constexpr int kDMax = 128;                  // widest head the tiles hold
-constexpr int kThreads = 256;               // 16 x 16 threads
-constexpr int kQs = kDMax + 4;              // padded row stride of sQ, sK
-constexpr int kPs = kBk + 4;                // padded row stride of sP
+using namespace flash;
+
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBq * kQs + kBk * kQs + kBk * kDMax + kBq * kPs);
-static_assert(kBq == kBk, "load_tile fills kBk rows for the q tile too");
-static_assert(kThreads == 16 * 16 && kBq == 4 * 16 && kDMax == 8 * 16,
-              "each thread owns 4 rows x 4 keys and 4 rows x 8 columns");
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// Load `rows` rows of a [*, D] slice (row stride `ld` floats) starting at
-// row `r0` into shared memory with row stride `sld`, zero past `nrows` and
-// past D.  D and every stride are multiples of 4 (the wrapper checks).
-__device__ __forceinline__ void load_tile(float* dst, int sld,
-                                          const float* src, long long ld,
-                                          int r0, int nrows, int D,
-                                          float mul) {
-  constexpr int kVecs = kDMax / 4;
-  for (int idx = threadIdx.x; idx < kBk * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = idx % kVecs;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < nrows && c * 4 < D) {
-      val = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c * 4);
-      val.x *= mul; val.y *= mul; val.z *= mul; val.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * sld + c * 4) = val;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -96,16 +64,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile(sQ, kQs, qb, sql, q0, Lq, D, scale_log2);
 
-  // KV tiles this q tile can see: the causal diagonal of its last row,
-  // then the row's true length (_causal_nk_eff and the row_len cap)
-  const int nk = (Lk + kBk - 1) / kBk;
-  int nk_eff = nk;
-  if (causal) {
-    const long long num =
-        (long long)q_off - kv_off + (long long)(qi + 1) * kBq + kBk - 1;
-    nk_eff = num <= 0 ? 0 : (int)min((long long)nk, num / kBk);
-  }
-  nk_eff = min(nk_eff, (row_len + kBk - 1) / kBk);
+  // KV tiles this q tile can see (flash_common.cuh kv_tiles)
+  const int nk_eff =
+      kv_tiles(qi, (Lk + kBk - 1) / kBk, row_len, causal, q_off, kv_off);
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -154,7 +115,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int kp = k0 + tx + 16 * jj;
-        ok[jj] = kp < row_len && (!causal || (long long)kv_off + kp <= qpos);
+        ok[jj] = visible(qpos, kp, row_len, causal, kv_off);
         if (!ok[jj]) sc[i][jj] = kNegInf;
         mx = fmaxf(mx, sc[i][jj]);
       }

@@ -1,15 +1,19 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+``csrc/flash_bwd.cu`` (dK/dV and dQ), and their plain PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  Layout [B, L, H, D]
 as there.  ``impl=None`` routes by where the tensors lie: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version.
-``impl="torch"`` forces the plain version on any device (the reference
-``chip_smoke.py`` holds the kernel against).  The backward kernels come
-with the training slice; this module is forward-only.
+runs the kernels (or raises), a CPU tensor takes the plain version, whose
+gradient is autograd through it.  ``impl="torch"`` forces the plain version
+on any device (the reference ``chip_smoke.py`` holds the kernels against).
+On the kernel route ``_FlashAttention`` (the counterpart of the custom-vjp
+``_flash``) runs the forward kernel and, for the backward, computes
+``delta = rowsum(dO * O) - g_lse`` in plain torch ops before launching the
+two backward kernels: LSE is a differentiable output, as in JAX.
 
-The TPU wrapper's KV windowing past 32768 rows works around VMEM; the
-CUDA kernel streams K/V from device memory and needs none.
+The TPU wrapper's KV windowing past 32768 rows and the dK/dV kernel's q
+windowing past 32768 rows work around VMEM; the CUDA kernels stream from
+device memory and need neither.
 """
 
 from __future__ import annotations
@@ -123,6 +127,135 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
 
 flash_fwd_cuda.launches = 0
 
+_BWD_SIGNATURES = {
+    "flash_bwd_dkdv_f32": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_bwd_dq_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                         + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                         + [ctypes.c_float, ctypes.c_void_p]),
+}
+
+
+def _check_bwd_operands(q, k, v, g, lse, delta, kv_lens):
+    """What both backward kernels take: the forward's operands, dO shaped
+    like q, and contiguous float32 LSE and delta [B, H, Lq]."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash backward wants q [B,Lq,H,D], k/v "
+                         f"[B,Lk,H,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, lq, h, d = q.shape
+    if k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if g.shape != q.shape:
+        raise ValueError(f"dO {tuple(g.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if d > D_MAX or d % 4:
+        raise ValueError(f"head dim {d}: the kernels take D <= {D_MAX}, "
+                         f"a multiple of 4")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", g)):
+        check_kernel_operand(name, t, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (b, h, lq)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"[B, H, Lq] tensor on the device of q")
+    if (kv_lens.dtype != torch.int32 or kv_lens.shape != (b,)
+            or kv_lens.device != q.device or not kv_lens.is_contiguous()):
+        raise ValueError("kv_lens must be a contiguous int32 [B] tensor on "
+                         "the device of q")
+
+
+def _bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset):
+    """The C entries' arguments after the pointers."""
+    b, lq, h, d = q.shape
+    return (b, lq, k.shape[1], h, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *g.stride()[:3], int(q_offset),
+            int(kv_offset), int(bool(causal)), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
+                        scale: float, q_offset: int = 0,
+                        kv_offset: int = 0):
+    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``: returns (dK, dV)
+    [B, Lk, H, D] float32.  ``g`` is dO [B, Lq, H, D]; ``lse`` the
+    forward's natural-log LSE and ``delta`` = rowsum(dO * O) - g_lse, both
+    [B, H, Lq] float32."""
+    _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
+    # every key tile's block writes all of its rows (zeros where no query
+    # sees them), so the outputs need no clearing
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    if dk.numel() == 0 or q.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.flash_bwd_dkdv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_lens.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
+    _build.check(lib, err, "flash_bwd_dkdv")
+    flash_bwd_dkdv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
+                      scale: float, q_offset: int = 0, kv_offset: int = 0):
+    """Launch the dQ kernel of ``csrc/flash_bwd.cu``: returns dQ
+    [B, Lq, H, D] float32 (operands as ``flash_bwd_dkdv_cuda``)."""
+    _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0 or k.shape[1] == 0:
+        return dq.zero_()
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.flash_bwd_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_lens.data_ptr(),
+        dq.data_ptr(),
+        *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
+    _build.check(lib, err, "flash_bwd_dq")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel route with its gradient (counterpart of ``_flash`` and
+    its custom vjp): returns (O, LSE); both outputs are differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, scale, q_offset, kv_offset):
+        o, lse = flash_fwd_cuda(q, k, v, kv_lens, causal=causal,
+                                scale=scale, q_offset=q_offset,
+                                kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, kv_lens, o, lse)
+        ctx.args = dict(causal=causal, scale=scale, q_offset=q_offset,
+                        kv_offset=kv_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        g = torch.zeros_like(o) if g is None else g.contiguous()
+        # delta = rowsum(dO * O) - g_lse, [B, H, Lq]: the LSE output's
+        # cotangent folds in here (d lse / d s = p)
+        delta = (g * o).sum(-1).transpose(1, 2)
+        if g_lse is not None:
+            delta = delta - g_lse
+        delta = delta.contiguous()
+        dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, **ctx.args)
+        dk, dv = flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens,
+                                     **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
 
 def merge_partial(o_acc, lse_acc, o_new, lse_new):
     """logaddexp fold of two normalized partial softmax results.
@@ -144,8 +277,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     kv_lens: optional [B] per-sample true KV length; keys at positions
     >= kv_lens[b] are masked.  q_offset / kv_offset: global positions of
     q[:, 0] / k[:, 0] for the causal rule ``kv_offset + k <= q_offset +
-    q``.  impl: ``"cuda"`` (the kernel), ``"torch"`` (plain version) or
-    None (by the device of ``q``)."""
+    q``.  impl: ``"cuda"`` (the kernels), ``"torch"`` (plain version) or
+    None (by the device of ``q``).  Differentiable on both routes: the
+    kernel route's backward is ``csrc/flash_bwd.cu``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_lens is None:
@@ -158,6 +292,6 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return _torch_attention(q, k, v, kv_lens, causal=causal,
                                 scale=scale, q_offset=q_offset,
                                 kv_offset=kv_offset, return_lse=return_lse)
-    out, lse = flash_fwd_cuda(q, k, v, kv_lens, causal=causal, scale=scale,
-                              q_offset=q_offset, kv_offset=kv_offset)
+    out, lse = _FlashAttention.apply(q, k, v, kv_lens, causal, scale,
+                                     int(q_offset), int(kv_offset))
     return (out, lse) if return_lse else out

@@ -130,3 +130,194 @@ def test_merge_partial_matches_jax(seed):
                                  for a in (o1, l1, o2, l2)))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+# ------------------------------------------------------------ the backward
+# The gradient cases of tests/test_flash_attention.py, one case each:
+# name -> (shape of q, shape of k/v, input scale, causal, kv_lens,
+#          q_offset, kv_offset, loss, LSE term)
+GRAD_CASES = {
+    "grads_noncausal": ((1, 32, 2, 8), (1, 32, 2, 8), 1.0, False, None, 0,
+                        0, "square", False),
+    "grads_causal": ((1, 32, 2, 8), (1, 32, 2, 8), 1.0, True, None, 0, 0,
+                     "square", False),
+    "kv_lens_noncausal": ((3, 24, 2, 8), (3, 24, 2, 8), 1.0, False,
+                          [24, 10, 17], 0, 0, "square", False),
+    "kv_lens_causal": ((3, 24, 2, 8), (3, 24, 2, 8), 1.0, True,
+                       [24, 10, 17], 0, 0, "square", False),
+    "cross_40x8": ((2, 40, 2, 8), (2, 8, 2, 8), 1.0, False, None, 0, 0,
+                   "sin", False),
+    "cross_40x8_causal": ((2, 40, 2, 8), (2, 8, 2, 8), 1.0, True, None, 0,
+                          0, "sin", False),
+    "cross_8x40": ((2, 8, 2, 8), (2, 40, 2, 8), 1.0, False, None, 0, 0,
+                   "sin", False),
+    "cross_8x40_causal": ((2, 8, 2, 8), (2, 40, 2, 8), 1.0, True, None, 0,
+                          0, "sin", False),
+    "cross_37x21": ((2, 37, 2, 8), (2, 21, 2, 8), 1.0, False, None, 0, 0,
+                    "sin", False),
+    "cross_37x21_causal": ((2, 37, 2, 8), (2, 21, 2, 8), 1.0, True, None,
+                           0, 0, "sin", False),
+    "offset_kv_ahead": ((1, 64, 2, 8), (1, 32, 2, 8), 0.5, True, None, 0,
+                        32, "sin", False),
+    "offset_q_ahead": ((1, 64, 2, 8), (1, 32, 2, 8), 0.5, True, None, 32, 0,
+                       "sin", False),
+    "offset_aligned": ((1, 64, 2, 8), (1, 32, 2, 8), 0.5, True, None, 24,
+                       24, "sin", False),
+    "offset_fully_masked": ((1, 64, 2, 8), (1, 32, 2, 8), 0.5, True, None,
+                            0, 200, "sin", False),
+    "lse_cotangent": ((2, 16, 2, 8), (2, 16, 2, 8), 0.4, True, None, 0, 0,
+                      "square", True),
+}
+# JAX block sizes of each source test (the kernel's tiling, not the math)
+_JAX_BLOCKS = {"grads": 16, "kv_lens": 8, "cross": 16, "offset": 8,
+               "lse": 8}
+
+
+def _grad_inputs(case):
+    qs, ks, mul, _, lens, *_ = GRAD_CASES[case]
+    rng = np.random.RandomState(sorted(GRAD_CASES).index(case))
+    q, k, v = ((rng.randn(*s) * mul).astype(np.float32)
+               for s in (qs, ks, ks))
+    if lens is not None:
+        # junk past each row's length must stay invisible
+        for b, n in enumerate(lens):
+            k[b, n:] = 77.0
+            v[b, n:] = -55.0
+    return q, k, v
+
+
+def _jax_grads(case, impl):
+    import jax
+    import jax.numpy as jnp
+
+    _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
+    blk = next(b for p, b in _JAX_BLOCKS.items() if case.startswith(p))
+
+    def f(q, k, v):
+        out, lse = jfa.flash_attention(
+            q, k, v, causal=causal, kv_lens=lens, impl=impl, block_q=blk,
+            block_k=blk, q_offset=q_off, kv_offset=kv_off, return_lse=True)
+        obj = jnp.sum(out ** 2) if loss == "square" else jnp.sum(
+            jnp.sin(out))
+        return obj + jnp.sum(jnp.tanh(lse)) if with_lse else obj
+
+    return [np.asarray(g) for g in
+            jax.grad(f, argnums=(0, 1, 2))(*_grad_inputs(case))]
+
+
+def _torch_grads(case, **kw):
+    _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _grad_inputs(case))
+    out, lse = tfa.flash_attention(q, k, v, causal=causal, kv_lens=lens,
+                                   q_offset=q_off, kv_offset=kv_off,
+                                   return_lse=True, **kw)
+    obj = (out ** 2).sum() if loss == "square" else torch.sin(out).sum()
+    if with_lse:
+        obj = obj + torch.tanh(lse).sum()
+    return [g.numpy() for g in torch.autograd.grad(obj, (q, k, v))]
+
+
+@pytest.mark.parametrize("jimpl", ["xla", "interpret"])
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_flash_grads_match_jax(case, jimpl):
+    """dQ, dK, dV of the port's CPU route (autograd through the plain
+    version) against ``jax.grad`` through the JAX package's xla path and
+    its Pallas kernels under the interpreter, at 1e-5."""
+    want = _jax_grads(case, jimpl)
+    got = _torch_grads(case)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+    lens = GRAD_CASES[case][4]
+    for b, n in enumerate(lens or ()):
+        # masked KV rows receive exactly zero gradient
+        assert not got[1][b, n:].any() and not got[2][b, n:].any()
+
+
+def _kernel_math_fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0,
+                     kv_offset=0):
+    """What csrc/flash_fwd.cu returns, from the plain version."""
+    return tfa._torch_attention(q, k, v, kv_lens, causal=causal, scale=scale,
+                                q_offset=q_offset, kv_offset=kv_offset,
+                                return_lse=True)
+
+
+def _kernel_math_p(q, k, lse, kv_lens, causal, scale, q_offset, kv_offset):
+    """P as the backward kernels recompute it from q, k and the LSE, under
+    the same mask: [B, H, Lq, Lk]."""
+    lq, lk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    kpos = torch.arange(lk)
+    mask = kpos[None, None, None, :] < kv_lens[:, None, None, None]
+    if causal:
+        qpos = torch.arange(lq)
+        mask = mask & (kv_offset + kpos[None, :]
+                       <= q_offset + qpos[:, None])[None, None]
+    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+
+
+def _kernel_math_dkdv(q, k, v, g, lse, delta, kv_lens, *, causal, scale,
+                      q_offset=0, kv_offset=0):
+    p = _kernel_math_p(q, k, lse, kv_lens, causal, scale, q_offset,
+                       kv_offset)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - delta[..., None])
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, g))
+
+
+def _kernel_math_dq(q, k, v, g, lse, delta, kv_lens, *, causal, scale,
+                    q_offset=0, kv_offset=0):
+    p = _kernel_math_p(q, k, lse, kv_lens, causal, scale, q_offset,
+                       kv_offset)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g, v) - delta[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+
+
+@pytest.mark.parametrize("case", ["grads_causal", "kv_lens_causal",
+                                  "cross_37x21_causal", "offset_q_ahead",
+                                  "offset_fully_masked", "lse_cotangent"])
+def test_kernel_route_autograd_matches_jax(case, monkeypatch):
+    """The kernel route's autograd wiring (``_FlashAttention``: saved
+    tensors, delta = rowsum(dO * O) - g_lse, the two backward launches),
+    with each kernel replaced by the formula it implements, against
+    ``jax.grad`` through the JAX package's xla path, at 1e-5."""
+    calls = []
+
+    def spy(fn, name):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
+    monkeypatch.setattr(tfa, "flash_fwd_cuda",
+                        spy(_kernel_math_fwd, "fwd"))
+    monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda",
+                        spy(_kernel_math_dkdv, "dkdv"))
+    monkeypatch.setattr(tfa, "flash_bwd_dq_cuda",
+                        spy(_kernel_math_dq, "dq"))
+    got = _torch_grads(case)
+    assert calls == ["fwd", "dq", "dkdv"]
+    for g, w in zip(got, _jax_grads(case, "xla")):
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_backward_wrappers_refuse_what_they_cannot_take():
+    """The backward wrappers' checks fire before any build."""
+    q = torch.zeros(1, 4, 1, 8)
+    lse = torch.zeros(1, 1, 4)
+    lens = torch.full((1,), 4, dtype=torch.int32)
+    kw = dict(causal=True, scale=1.0)
+    for fn in (tfa.flash_bwd_dkdv_cuda, tfa.flash_bwd_dq_cuda):
+        with pytest.raises(ValueError, match="dO"):
+            fn(q, q, q, torch.zeros(1, 5, 1, 8), lse, lse, lens, **kw)
+        with pytest.raises(ValueError, match="delta"):
+            fn(q, q, q, q, lse, torch.zeros(1, 1, 5), lens, **kw)
+        with pytest.raises(TypeError, match="float32"):
+            fn(q, q, q, q.double(), lse, lse, lens, **kw)
+        with pytest.raises(ValueError, match="head dim"):
+            z = torch.zeros(1, 4, 1, 6)
+            fn(z, z, z, z, lse, lse, lens, **kw)
+    assert tfa.flash_bwd_dkdv_cuda.launches == 0
+    assert tfa.flash_bwd_dq_cuda.launches == 0

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no module under paddle_tpu_torch/ imports
-JAX or anything of the JAX package ``paddle_tpu``, by source (an AST scan)
-and at run time (importing every port module in a fresh interpreter adds no
-such entry to ``sys.modules``)."""
+"""The PyTorch port stands alone: no module under paddle_tpu_torch/, and not
+``chip_smoke.py``, imports JAX or anything of the JAX package
+``paddle_tpu``, by source (an AST scan) and at run time (importing every
+port module, or ``chip_smoke``, in a fresh interpreter adds no such entry
+to ``sys.modules``)."""
 
 import ast
 import json
@@ -27,33 +28,51 @@ def _forbidden(name: str) -> bool:
     return top.startswith("jax") or top == "paddle_tpu"
 
 
+def _forbidden_imports(path: str) -> list:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    return bad
+
+
 def test_no_port_source_imports_jax_or_the_jax_package():
     bad = []
     for path, _ in _modules():
-        with open(path) as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+        bad += _forbidden_imports(path)
     assert not bad, bad
     assert len(list(_modules())) >= 15
 
 
-def test_importing_every_port_module_loads_no_jax():
-    mods = [m for _, m in _modules()]
-    code = ("import json, sys\n"
-            f"for m in {mods!r}:\n"
-            "    __import__(m)\n"
-            "print(json.dumps(sorted(sys.modules)))\n")
+def _loaded_after(code: str) -> list:
+    """sys.modules of a fresh interpreter after running ``code``."""
+    code += "\nimport json, sys\nprint(json.dumps(sorted(sys.modules)))\n"
     env = dict(os.environ, PYTHONPATH="")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    path = os.path.join(REPO, "chip_smoke.py")
+    assert not _forbidden_imports(path)
+    loaded = _loaded_after("import chip_smoke\n"
+                           "chip_smoke.flash_bwd_phase, chip_smoke.train_path")
+    assert "chip_smoke" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = [m for _, m in _modules()]
+    loaded = _loaded_after(f"for m in {mods!r}:\n    __import__(m)\n")
     assert "paddle_tpu_torch.serving.engine" in loaded
+    assert "paddle_tpu_torch.trainer" in loaded
     assert not [m for m in loaded if _forbidden(m)]

@@ -137,7 +137,8 @@ def test_http_infer_matches_jax_engine(snap):
         stats = json.loads(raw)
         assert stats["requests"] == len(PROMPTS)
         assert stats["iterations"] > 0 and stats["tokens"] > 0
-        assert set(stats["kernels"]) == {"flash_fwd", "paged_decode"}
+        assert set(stats["kernels"]) == {"flash_fwd", "flash_bwd_dkdv",
+                                         "flash_bwd_dq", "paged_decode"}
         assert stats["kv"]["used"] == 0          # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400
