@@ -5,20 +5,27 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
-   flash backward, paged decode; one ``nvcc`` each, in parallel) and print
-   ptxas' register / shared-memory / spill lines;
+2. build the four CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
+   flash backward, paged decode, the LSTM and GRU steps; one ``nvcc``
+   each, in parallel) and print ptxas' register / shared-memory / spill
+   lines;
 3. hold each kernel against its plain PyTorch version at the main paths'
    full-width shapes (float32): the forward and the decode kernel within
    max |error| <= 1e-4; the backward kernels' dQ, dK and dV against
    autograd through the plain attention within 1e-4 * max(1, max |ref|)
    each (the training shape [8, 4096, 4, 128] causal, a kv_lens case, an
    offset-causal case, a cross-attention case, a return_lse case with a
-   nonzero LSE cotangent);
+   nonzero LSE cotangent); the LSTM step (B 128, H 512) and the GRU step
+   (B 256, H 512), each with a mask of about 30% zeros and at two ragged
+   shapes, on h' (and c') and on the autograd.Function's gradients of
+   every input but the mask, within 1e-4 * max(1, max |ref|), masked rows
+   copied bit for bit;
 4. time kernel, plain version and the library call (the forward and
    backward of ``F.scaled_dot_product_attention``, a yardstick the port
-   never calls), with CUDA events, L2 flushed between launches, each
-   beside its bound;
+   never calls; for the recurrent steps, which no one PyTorch call
+   computes, the cuBLAS product alone, ``torch.addmm``, as the product's
+   floor), with CUDA events, L2 flushed between launches, each beside its
+   bound;
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
    4 x 128 heads, 8 layers, max_len 4096; random weights from a numpy
    seed) written as a checkpoint, loaded, and served through
@@ -27,7 +34,7 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    and every stream must equal a plain-PyTorch (``decode_kernel="torch"``)
    run on the card except where that run's top-2 logit margin was below
    1e-4 (reported);
-6. the training path: the same LM built with the layer DSL
+6. the LM training path: the same LM built with the layer DSL
    (``transformer.build``) from the same seeded weights.  At batch 1 the
    kernel path and the plain attention (``attention_impl="torch"``) agree
    on the first loss (1e-5 relative), every parameter gradient
@@ -40,11 +47,27 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    and the rest, and one is traced by ``torch.profiler`` for the device's
    idle share.  The trained ``Parameters`` then serve one greedy request
    through ``PagedDecoder``;
-7. one JSON line listing each kernel's numbers, then the card line again
-   and, last, ``{"ok": true, "device": {...}}``.
+7. the NMT training path: ``seq2seq.build`` at ``bench_nmt``'s widths
+   (vocab 30000 both sides, emb/enc/dec 512, src = trg = 50) with weights
+   from a numpy seed.  At batch 8 on a padded feed (one length-1 row) the
+   GRU kernel route and ``use_fused_rnn=False`` agree on the first loss
+   (1e-5 relative), every gradient (1e-4 * max(1, max |g|)) and a 3-step
+   Adam trajectory (1e-4 relative).  Then NMT_STEPS Adam steps (lr 1e-3)
+   at batch 256 x 50 + 50: losses finite and falling, the GRU kernel
+   launched 100 times a step (2 directions x 50); a CUDA-event breakdown
+   of one step (encoder, decoder group, vocab head + loss, Adam, rest) and
+   the ``torch.profiler`` idle share;
+8. the LSTM route: ``bench_lstm``'s graph with ``lstmemory(peephole=
+   False)`` (embedding 128, 2 x (fc 4h, lstmemory) at h 512, last_seq,
+   fc 2; B 128, T 100, Adam 2e-3): the same parity at batch 8, then
+   LSTM_STEPS steps with finite losses and the LSTM kernel launched 200
+   times a step;
+9. one JSON line each for the LM training, NMT and LSTM runs, the card
+   line again, one JSON line listing each kernel's numbers and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
-checkout.  The tokens/s, time-to-first-token and training step time it
+checkout.  The tokens/s, time-to-first-token and training step times it
 prints are a smoke figure, not a benchmark.
 """
 
@@ -71,6 +94,11 @@ MAX_TOKENS = 32
 SEED = 1234
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 6, 1e-4
 SERVE_KERNELS = ("flash_fwd", "paged_decode")
+# the recurrent slice: bench.py bench_nmt's and bench_lstm's widths
+RNN_H = 512
+NMT_VOCAB, NMT_DIM, NMT_LEN, NMT_BATCH, NMT_STEPS, NMT_LR = (30000, 512, 50,
+                                                             256, 4, 1e-3)
+LSTM_LEN, LSTM_BATCH, LSTM_STEPS, LSTM_LR = 100, 128, 3, 2e-3
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
@@ -87,11 +115,17 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, flush, iters=20, warmup=3) -> float:
-    """Median device time of one call, L2 flushed before each."""
+def time_ms(fn, flush, iters=20, warmup=3, lead=False) -> float:
+    """Median device time of one call, L2 flushed before each.  With
+    ``lead`` the device first spins for ~10 ms (``torch.cuda._sleep``), so
+    the host has enqueued every call before the device reaches them and a
+    call shorter than its own launch overhead is timed on the device
+    alone, not at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(20_000_000)
     events = []
     for _ in range(iters):
         flush.zero_()
@@ -713,43 +747,18 @@ def step_breakdown(trainer, feed, attn_ms):
               f"{k} {v:.1f} ms ({v / step:.0%})" for k, v in parts.items()),
           flush=True)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ev[0].record()
-        trainer._step(feed)
-        ev[1].record()
-        torch.cuda.synchronize()
-    wall = ev[0].elapsed_time(ev[1])
-    # the device's own activity (kernels, copies, fills), not the host ops
-    # that launched it; busy = the union of their intervals
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end_us = 0.0, float("-inf")
-    for start, stop in spans:
-        busy_us += max(0.0, stop - max(start, end_us))
-        end_us = max(end_us, stop)
-    busy = busy_us / 1e3
-    if busy:
-        share = max(0.0, 1.0 - busy / wall)
-        per_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                ms, n = per_name.get(e.name, (0.0, 0))
-                per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                    n + 1)
-        top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
-        print(f"torch.profiler: device busy {busy:.1f} of {wall:.1f} ms, "
-              f"idle share {share:.1%}; top kernels: " + "; ".join(
-                  f"{name[:60]} x{n} {ms:.1f} ms"
-                  for name, (ms, n) in top), flush=True)
-    else:
-        share = None
+    prof = profile_step(trainer, feed)
+    if prof["idle_share"] is None:
         print("torch.profiler saw no device time: idle share not measured",
               flush=True)
+    else:
+        print(f"torch.profiler: device busy {prof['busy_ms']:.1f} of "
+              f"{prof['step_ms']:.1f} ms, idle share "
+              f"{prof['idle_share']:.1%}; top kernels: " + "; ".join(
+                  f"{name} x{n} {ms:.1f} ms" for name, n, ms in prof["top"]),
+              flush=True)
     return dict(parts, step_ms=step, forward_backward_ms=fb_ms,
-                idle_share=share)
+                idle_share=prof["idle_share"])
 
 
 def train_path(attn_ms):
@@ -841,6 +850,498 @@ def train_path(attn_ms):
             "parity": parity, "breakdown": breakdown}
 
 
+# ------------------------------------------------------- recurrent kernels
+def _rnn_args(kind, b, h, dev, gen):
+    """One step's operands: x, h, (c), weights, bias, a [B, 1] mask with
+    about 30% zeros."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    m = (torch.rand(b, 1, device=dev, generator=gen) > 0.3).float()
+    if kind == "lstm":
+        return (randn(b, 4 * h), randn(b, h, scale=0.5), randn(b, h),
+                randn(h, 4 * h, scale=h ** -0.5), randn(4 * h, scale=0.1),
+                m)
+    return (randn(b, 3 * h), randn(b, h, scale=0.5),
+            randn(h, 2 * h, scale=h ** -0.5), randn(h, h, scale=h ** -0.5),
+            randn(3 * h, scale=0.1), m)
+
+
+def _rnn_check(kind, b, h, dev, gen):
+    """The kernel against its plain version at [B, H]: values (masked rows
+    copied bit for bit) and, through the autograd.Function, the gradients
+    of every input but the mask.  Returns (max abs error, max error
+    relative to max(1, max |ref|))."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    step = fr.lstm_step if kind == "lstm" else fr.gru_step
+    args = _rnn_args(kind, b, h, dev, gen)
+    leaves = [t.requires_grad_(True) for t in args[:-1]]
+    got = step(*leaves, args[-1], impl="cuda")
+    ref = step(*leaves, args[-1], impl="torch")
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    cot = [torch.randn(r.shape, device=dev, generator=gen) for r in ref]
+    g_got = torch.autograd.grad(got, leaves, cot)
+    g_ref = torch.autograd.grad(ref, leaves, cot)
+    torch.cuda.synchronize()
+    dead = args[-1][:, 0] == 0
+    state = (args[1], args[2]) if kind == "lstm" else (args[1],)
+    if not all(torch.equal(o[dead], s[dead]) for o, s in zip(got, state)):
+        raise AssertionError(f"{kind}_step B={b} H={h}: masked rows are "
+                             f"not copied bit for bit")
+    names = (("h'", "c'") if kind == "lstm" else ("h'",)) + tuple(
+        f"d{n}" for n in (("x", "h", "c", "w", "b") if kind == "lstm"
+                          else ("x", "h", "w_g", "w_c", "b")))
+    worst_abs, worst_rel, line = 0.0, 0.0, []
+    for n, a, r in zip(names, got + g_got, ref + g_ref):
+        err = (a - r).abs().max().item()
+        rel = err / max(1.0, r.abs().max().item())
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        line.append(f"{n} {rel:.1e}")
+        if not (rel <= TOL and torch.isfinite(a).all()):
+            raise AssertionError(f"{kind}_step B={b} H={h}: {n} disagrees "
+                                 f"with the plain version: {rel} > {TOL}")
+    print(f"{kind}_step B={b} H={h} ({int(dead.sum())} masked rows): "
+          f"error / max(1, max |ref|): " + ", ".join(line), flush=True)
+    return worst_abs, worst_rel
+
+
+def rnn_phase(dev, gen, flush):
+    """Kernels 5 and 6 against their plain versions (values and the
+    autograd.Function's gradients) at the routes' shapes and at ragged
+    ones, then their device times (``time_ms(lead=True)``: a step is
+    about as short as its launch) beside their bounds, the plain step's
+    and the cuBLAS product's alone (``torch.addmm``, the product's floor -
+    no one PyTorch call computes either step)."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    out = {}
+    for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
+        errs = [_rnn_check(kind, bb, hh, dev, gen)
+                for bb, hh in ((b, RNN_H), (8, RNN_H), (37, 128))]
+        x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen)
+        m = rest[-1]
+        live = int((m > 0).sum())
+        H = RNN_H
+        if kind == "lstm":
+            c, w, bias = rest[:3]
+            kernel = lambda: fr.lstm_step_cuda(x, h, c, w, bias, m)  # noqa
+            plain = lambda: fr._lstm_step_ref(x, h, c, w, bias, m)   # noqa
+            floor = lambda: torch.addmm(bias, h, w)                  # noqa
+            flops = 2.0 * live * H * 4 * H
+            nbytes = 4.0 * (b * 4 * H + 4 * b * H + 4 * H * H + 4 * H + b)
+        else:
+            wg, wc, bias = rest[:3]
+            kernel = lambda: fr.gru_step_cuda(x, h, wg, wc, bias, m)  # noqa
+            plain = lambda: fr._gru_step_ref(x, h, wg, wc, bias, m)   # noqa
+            floor = lambda: (torch.addmm(bias[:2 * H], h, wg),        # noqa
+                             torch.addmm(bias[2 * H:], h, wc))
+            flops = 2.0 * live * H * 3 * H
+            nbytes = 4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b)
+        with torch.no_grad():
+            t = {"ms": time_ms(kernel, flush, lead=True),
+                 "plain_ms": time_ms(plain, flush, lead=True),
+                 "addmm_ms": time_ms(floor, flush, lead=True)}
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"{kind}_step at B {b}, H {H} ({live} live rows): ms "
+              f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  plain_ms "
+              f"{t['plain_ms']:.4f}  library_ms none (no one PyTorch call "
+              f"computes the step); the product alone (torch.addmm, its "
+              f"floor) {t['addmm_ms']:.4f}", flush=True)
+        out[kind] = dict(t, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         max_abs_err=max(e[0] for e in errs),
+                         max_rel_err=max(e[1] for e in errs),
+                         shape={"B": b, "H": H, "live_rows": live})
+    return out
+
+
+# ------------------------------------------------------- recurrent routes
+def seeded_values(topo, seed: int) -> dict:
+    """A numpy parameter tree for ``topo`` from a seed: N(0, 1/fan_in)
+    matrices, N(0, 0.01) vectors (biases included, so the parity checks
+    see them)."""
+    rng = np.random.default_rng(seed)
+    vals = {}
+    for spec in topo.specs:
+        for p in topo.param_specs[spec.name]:
+            scale = p.shape[0] ** -0.5 if len(p.shape) == 2 else 0.1
+            vals.setdefault(spec.name, {})[p.name] = (
+                rng.standard_normal(p.shape, dtype=np.float32) * scale)
+    return vals
+
+
+def _fresh(paddle):
+    from paddle_tpu_torch.core.ir import reset_name_counters
+    reset_name_counters()
+    paddle.init(seed=SEED)
+
+
+def nmt_model():
+    """``seq2seq.build`` at ``bench_nmt``'s widths, through the DSL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import seq2seq
+
+    _fresh(paddle)
+    cost = seq2seq.build(NMT_VOCAB, NMT_VOCAB, emb_dim=NMT_DIM,
+                         enc_dim=NMT_DIM, dec_dim=NMT_DIM,
+                         max_src_len=NMT_LEN, max_trg_len=NMT_LEN)
+    return paddle, paddle.Topology(cost)
+
+
+def lstm_model():
+    """``bench_lstm``'s graph with one change, ``lstmemory(peephole=
+    False)``: embedding 128, 2 x (fc 4h, lstmemory) at h 512, last_seq,
+    fc 2, classification cost."""
+    import paddle_tpu_torch as paddle
+
+    _fresh(paddle)
+    layer = paddle.layer
+    words = layer.data("data", paddle.data_type.integer_value_sequence(
+        NMT_VOCAB, max_len=LSTM_LEN))
+    net = layer.embedding(words, size=128, vocab_size=NMT_VOCAB)
+    for _ in range(2):
+        net = layer.lstmemory(layer.fc(net, size=4 * RNN_H, act=None,
+                                       bias_attr=False), peephole=False)
+    net = layer.fc(layer.last_seq(net), size=2)
+    lab = layer.data("label", paddle.data_type.integer_value(2))
+    return paddle, paddle.Topology(layer.classification_cost(net, lab))
+
+
+def nmt_feed(b, src_lens=None, trg_lens=None, seed=SEED):
+    """Seeded token ids as ``bench_nmt`` feeds them, with @len."""
+    rng = np.random.RandomState(seed)
+    full = np.full(b, NMT_LEN, np.int32)
+    trg = np.asarray(trg_lens if trg_lens is not None else full, np.int32)
+    return {"source_words": rng.randint(3, NMT_VOCAB, (b, NMT_LEN))
+            .astype(np.int32),
+            "source_words@len": np.asarray(
+                src_lens if src_lens is not None else full, np.int32),
+            "target_words": rng.randint(3, NMT_VOCAB, (b, NMT_LEN))
+            .astype(np.int32), "target_words@len": trg,
+            "target_next_words": rng.randint(3, NMT_VOCAB, (b, NMT_LEN))
+            .astype(np.int32), "target_next_words@len": trg}
+
+
+def lstm_feed(b, lens=None, seed=SEED):
+    rng = np.random.RandomState(seed)
+    return {"data": rng.randint(0, NMT_VOCAB, (b, LSTM_LEN)).astype(np.int32),
+            "data@len": np.asarray(lens if lens is not None
+                                   else np.full(b, LSTM_LEN), np.int32),
+            "label": rng.randint(0, 2, b).astype(np.int32)}
+
+
+def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr):
+    """Batch 8, from the same weights: the kernel route against the plain
+    one (``use_fused_rnn=False``) on the card - the first loss (1e-5
+    relative), every parameter gradient (1e-4 of max(1, max |g|)) and a
+    3-step Adam trajectory (1e-4 relative).  The kernel's counter must
+    move ``per_pass`` a forward on the kernel route and not at all on
+    the plain one."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+
+    runs = {}
+    for fused in (True, False):
+        config.set_option("use_fused_rnn", fused)
+        try:
+            ops.reset_launch_counts()
+            tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Adam(learning_rate=lr))
+            loss, grads = tr.forward_backward(feed)
+            losses = []
+            tr.train(lambda: iter([feed] * 3), event_handler=lambda e: (
+                losses.append(e.cost)
+                if isinstance(e, paddle.event.EndIteration) else None))
+            runs[fused] = (float(loss), grads, losses)
+            del tr
+        finally:
+            config.set_option("use_fused_rnn", True)
+        want = 4 * per_pass if fused else 0
+        if ops.launch_counts()[kernel] != want:
+            raise AssertionError(f"{name} use_fused_rnn={fused}: launches "
+                                 f"{ops.launch_counts()}, expected {want} "
+                                 f"of {kernel}")
+    (loss_k, grads_k, traj_k), (loss_t, grads_t, traj_t) = runs[True], \
+        runs[False]
+    if not _rel(loss_k, loss_t) <= 1e-5:
+        raise AssertionError(f"{name} first loss: kernel route {loss_k} vs "
+                             f"plain {loss_t}")
+    worst = (0.0, "")
+    for lname, ps in grads_t.items():
+        for pname, ref in ps.items():
+            rel = ((grads_k[lname][pname] - ref).abs().max().item()
+                   / max(1.0, ref.abs().max().item()))
+            worst = max(worst, (rel, f"{lname}.{pname}"))
+    if not worst[0] <= TOL:
+        raise AssertionError(f"{name} gradient {worst[1]}: kernel route vs "
+                             f"plain {worst[0]} > {TOL} of max(1, max |g|)")
+    traj = max(_rel(a, b) for a, b in zip(traj_k, traj_t))
+    if len(traj_k) != 3 or not traj <= TOL:
+        raise AssertionError(f"{name} Adam trajectory: kernel route "
+                             f"{traj_k} vs plain {traj_t}")
+    print(f"{name} parity at batch {len(next(iter(feed.values())))}, kernel "
+          f"route vs use_fused_rnn=False: first loss {loss_k:.6f} vs "
+          f"{loss_t:.6f} ({_rel(loss_k, loss_t):.2e} relative); worst "
+          f"gradient {worst[1]} at {worst[0]:.2e} of max(1, max |g|); "
+          f"3-step Adam losses {[round(x, 6) for x in traj_k]} vs "
+          f"{[round(x, 6) for x in traj_t]} ({traj:.2e} relative)",
+          flush=True)
+    return {"loss_rel": _rel(loss_k, loss_t), "grad_rel": worst[0],
+            "traj_rel": traj}
+
+
+def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
+                falling=True):
+    """``trainer.SGD.train`` over ``steps`` copies of one batch: every
+    loss finite (and, with ``falling``, the last below the first), the
+    kernel's counter moving ``per_step`` a step; returns losses, step
+    times and peak memory."""
+    from paddle_tpu_torch import ops
+
+    losses, step_s = [], []
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter())
+        elif isinstance(e, paddle.event.EndIteration):
+            losses.append(e.cost)          # reading it waits for the step
+            step_s[-1] = time.perf_counter() - step_s[-1]
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(lambda: iter([feed] * steps), event_handler=handler)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if (len(losses) != steps or not all(np.isfinite(x) for x in losses)
+            or (falling and not losses[-1] < losses[0])):
+        raise AssertionError(f"{name} losses not finite"
+                             f"{' and falling' if falling else ''}: "
+                             f"{losses}")
+    if launches[kernel] != per_step * steps:
+        raise AssertionError(f"{name}: {kernel} launched "
+                             f"{launches[kernel]} times in {steps} steps, "
+                             f"expected {per_step} a step")
+    warm = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    return losses, step_s, warm, peak_gb, launches
+
+
+def _events_ms(fns: dict, rounds=3) -> dict:
+    """CUDA-event time of one call of each of ``fns``: one warm round (a
+    host-bound part's first call is dominated by the allocator and the
+    libraries), then ``rounds`` rounds calling each once in turn, so that
+    every part samples the same host conditions; the median per part."""
+    times = {name: [] for name in fns}
+    for r in range(rounds + 1):
+        for name, fn in fns.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            if r:
+                times[name].append(ev[0].elapsed_time(ev[1]))
+    return {name: sorted(t)[rounds // 2] for name, t in times.items()}
+
+
+def profile_step(trainer, feed, match=None):
+    """``torch.profiler`` over one training step: the step's CUDA-event
+    time, the device's busy time (the union of the intervals of its own
+    activity - kernels, copies, fills - not of the host ops that launched
+    it), the idle share, the device time of the kernels whose name
+    contains ``match``, and the top 10 kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        trainer._step(feed)
+        ev[1].record()
+        torch.cuda.synchronize()
+    wall = ev[0].elapsed_time(ev[1])
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy_us, end_us = 0.0, float("-inf")
+    for start, stop in spans:
+        busy_us += max(0.0, stop - max(start, end_us))
+        end_us = max(end_us, stop)
+    per_name = {}
+    for e in dev_events:
+        ms, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    matched = sum(ms for name, (ms, _) in per_name.items()
+                  if match is not None and match in name)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    busy = busy_us / 1e3
+    return {"step_ms": wall, "busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall) if busy else None,
+            "matched_ms": matched,
+            "top": [(name[:60], n, ms) for name, (ms, n) in top]}
+
+
+def nmt_breakdown(topo, trainer, feed):
+    """Where one NMT training step's time goes, from CUDA events on the
+    step's own shapes, each part and the whole step the median of three
+    interleaved rounds after a warm one: the encoder (embedding, both projections, the bigru, boot and
+    enc_proj, forward + backward), the decoder group (forward + backward
+    from the encoder's outputs), the vocab head with the loss, Adam, and
+    the rest (target embedding, gaps); the GRU kernel's own sum and the
+    idle share from ``torch.profiler``.  The encoder and the decoder loop
+    are host-bound, so their parts are the host's pace as much as the
+    device's."""
+    from paddle_tpu_torch.core.ir import collect_topology
+    from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
+    from paddle_tpu_torch.layers.cost import _SoftmaxNLL
+
+    dev = trainer.device
+    params = {l: {p: t.detach().requires_grad_(True) for p, t in ps.items()}
+              for l, ps in trainer.parameters.values.items()}
+    nodes = {n.name: n for n in collect_topology(topo.outputs)}
+    enc_names = ["encoded_sequence", "encoded_proj", "decoder_boot"]
+    enc_topo = type(topo)([nodes[n] for n in enc_names])
+    enc_params = [t for l in enc_topo.param_specs for t in
+                  params.get(l, {}).values()]
+
+    def encoder():
+        outs, _ = enc_topo.forward(params, {}, feed, train=True,
+                                   outputs=enc_names)
+        torch.autograd.grad(sum(o.sum() for o in outs.values()), enc_params)
+
+    with torch.no_grad():
+        enc_outs, _ = enc_topo.forward(params, {}, feed, outputs=enc_names)
+    spec = topo.get_layer("decoder_group")
+    ldef = get_layer_def("recurrent_group")
+    lens = lambda k: torch.as_tensor(feed[k + "@len"], device=dev)  # noqa
+    pos = torch.arange(NMT_LEN, device=dev)
+    src_mask = (pos[None] < lens("source_words")[:, None]).float()
+    trg_mask = (pos[None] < lens("target_words")[:, None]).float()
+    trg_ids = torch.as_tensor(feed["target_words"], device=dev).long()
+    inputs = [params["trg_embedding"]["w"].detach()[trg_ids]] + [
+        enc_outs[n].detach().requires_grad_(True) for n in enc_names]
+    group_params = list(params["decoder_group"].values())
+
+    def decoder():
+        ctx = ApplyContext(train=True, device=dev)
+        y = ldef.apply_seq(spec.attrs, params["decoder_group"], inputs,
+                           [trg_mask, src_mask, src_mask, None], ctx)
+        torch.autograd.grad(y.sum(), group_params + inputs[1:])
+
+    n = feed["target_words"].shape[0] * NMT_LEN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n, NMT_DIM, device=dev, generator=gen,
+                    requires_grad=True)
+    labels = torch.randint(0, NMT_VOCAB, (n,), device=dev, generator=gen)
+    head_w = params["dec_out"]["w0"]
+    head_b = params["dec_out"]["b"]
+
+    def head():
+        loss = _SoftmaxNLL.apply(x @ head_w + head_b, labels).mean()
+        torch.autograd.grad(loss, [x, head_w, head_b])
+
+    _, grads = trainer.forward_backward(feed)
+    parts = _events_ms({
+        "encoder": encoder, "decoder group": decoder,
+        "vocab head + loss": head,
+        "Adam": lambda: trainer.optimizer.update(
+            trainer._trainable, grads, trainer._opt_state,
+            trainer.parameters.meta),
+        "step": lambda: trainer._step(feed)})
+    del x, grads
+    step = parts.pop("step")
+    prof = profile_step(trainer, feed, "gru_")
+    parts["rest (target embedding, gaps)"] = step - sum(parts.values())
+    print(f"NMT step breakdown (CUDA events; parts timed alone at the "
+          f"step's shapes): step {step:.1f} ms; " + "; ".join(
+              f"{k} {v:.1f} ms ({v / step:.0%})" for k, v in parts.items())
+          + f"; the GRU kernel's own sum in the step {prof['matched_ms']:.2f}"
+          f" ms", flush=True)
+    if prof["idle_share"] is None:
+        print("torch.profiler saw no device time: idle share not measured",
+              flush=True)
+    else:
+        print(f"torch.profiler over one NMT step: device busy "
+              f"{prof['busy_ms']:.1f} of {prof['step_ms']:.1f} ms, idle share "
+              f"{prof['idle_share']:.1%} (against the unprofiled step's "
+              f"{step:.1f} ms: {max(0.0, 1 - prof['busy_ms'] / step):.1%}); "
+              f"top kernels: " + "; ".join(
+                  f"{nm} x{k} {ms:.1f} ms" for nm, k, ms in prof["top"]),
+              flush=True)
+    return dict(parts, step_ms=step, gru_kernel_ms=prof["matched_ms"],
+                busy_ms=prof["busy_ms"], profiled_step_ms=prof["step_ms"],
+                idle_share=prof["idle_share"])
+
+
+def nmt_path():
+    """The slice's main path: the NMT model at ``bench_nmt``'s widths,
+    kernel-route parity at batch 8, then ``trainer.SGD.train`` at batch
+    NMT_BATCH x NMT_LEN + NMT_LEN."""
+    paddle, topo = nmt_model()
+    values = seeded_values(topo, SEED)
+    n_params = sum(v.size for ps in values.values() for v in ps.values())
+    print(f"NMT model: vocab {NMT_VOCAB}, emb/enc/dec {NMT_DIM}, src = trg "
+          f"= {NMT_LEN}; {n_params / 1e6:.1f}M float32 parameters from a "
+          f"numpy seed", flush=True)
+    parity = route_parity(
+        "NMT", paddle, topo, values,
+        nmt_feed(8, [50, 37, 1, 12, 50, 25, 3, 44],
+                 [50, 1, 20, 33, 7, 50, 16, 2]),
+        "gru_step", 2 * NMT_LEN, NMT_LR)
+    torch.cuda.empty_cache()
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=NMT_LR))
+    feed = nmt_feed(NMT_BATCH)
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        "NMT", paddle, trainer, feed, NMT_STEPS, "gru_step", 2 * NMT_LEN)
+    toks = NMT_BATCH * 2 * NMT_LEN
+    print(f"NMT training: {NMT_STEPS} Adam steps (lr {NMT_LR}) at batch "
+          f"{NMT_BATCH} x {NMT_LEN} + {NMT_LEN}, losses "
+          f"{[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{toks / warm:.0f} tokens/s (smoke figure, not a benchmark); peak "
+          f"memory {peak_gb:.2f} GB; gru_step launches "
+          f"{launches['gru_step']} ({2 * NMT_LEN} a step: 2 directions x "
+          f"{NMT_LEN})", flush=True)
+    breakdown = nmt_breakdown(topo, trainer, feed)
+    return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3, "tokens_per_s": toks / warm,
+            "peak_gb": peak_gb, "parity": parity, "breakdown": breakdown}
+
+
+def lstm_path():
+    """The LSTM route: ``bench_lstm``'s graph with ``peephole=False``,
+    parity at batch 8, then LSTM_STEPS Adam steps at LSTM_BATCH x
+    LSTM_LEN.  Its losses must be finite; they need not fall in three
+    steps (random labels, Adam at 2e-3 overshoots on its second step, on
+    the plain route alike), so the route's correctness is the parity
+    check's."""
+    paddle, topo = lstm_model()
+    values = seeded_values(topo, SEED + 2)
+    parity = route_parity("LSTM route", paddle, topo, values,
+                          lstm_feed(8, [100, 1, 57, 100, 9, 33, 100, 80]),
+                          "lstm_step", 2 * LSTM_LEN, LSTM_LR)
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        "LSTM route", paddle, trainer, lstm_feed(LSTM_BATCH), LSTM_STEPS,
+        "lstm_step", 2 * LSTM_LEN, falling=False)
+    print(f"LSTM route training: {LSTM_STEPS} Adam steps (lr {LSTM_LR}) at "
+          f"batch {LSTM_BATCH} x {LSTM_LEN}, losses "
+          f"{[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms; "
+          f"peak memory {peak_gb:.2f} GB; lstm_step launches "
+          f"{launches['lstm_step']} ({2 * LSTM_LEN} a step: 2 layers x "
+          f"{LSTM_LEN})", flush=True)
+    return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3, "peak_gb": peak_gb,
+            "parity": parity}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -860,7 +1361,8 @@ def main() -> int:
           torch.cuda.get_device_name(0), flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode"])
+    logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
+                         "rnn_step"])
     print(f"built {len(logs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
@@ -876,6 +1378,7 @@ def main() -> int:
     flash_err, flash_t = flash_phase(dev, gen, flush)
     paged_err, paged_t = paged_phase(dev, gen, flush)
     bwd = flash_bwd_phase(dev, gen, flush)
+    rnn = rnn_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -887,6 +1390,10 @@ def main() -> int:
     train = train_path(bwd["fwd"]["ms"] + bwd["dkdv"]["ms"]
                        + bwd["dq"]["ms"])
     tl = train["launches"]
+    torch.cuda.empty_cache()
+    nmt = nmt_path()
+    torch.cuda.empty_cache()
+    lstm = lstm_path()
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -920,11 +1427,26 @@ def main() -> int:
          "shape": {"S": SLOTS, "H": HEADS, "D": DIM // HEADS, "BS": BLOCK,
                    "MB": MAX_LEN // BLOCK, "NB": 1 + SLOTS * MAX_LEN // BLOCK,
                    "pos": paged_t["pos"], "kv_splits": paged_t["kv_splits"]}},
+        {"name": "lstm_step", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
+         "replaces": "paddle_tpu/ops/fused_rnn.py:44",
+         "launches": lstm["launches"]["lstm_step"], **rnn["lstm"]},
+        {"name": "gru_step", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
+         "replaces": "paddle_tpu/ops/fused_rnn.py:144",
+         "launches": nmt["launches"]["gru_step"], **rnn["gru"]},
     ]
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
                               "peak_gb", "parity", "breakdown")}}),
           flush=True)
+    print(json.dumps({"nmt": {
+        k: nmt[k] for k in ("losses", "first_step_ms", "step_ms",
+                            "tokens_per_s", "peak_gb", "parity",
+                            "breakdown")},
+        "lstm_route": {k: lstm[k] for k in ("losses", "first_step_ms",
+                                            "step_ms", "peak_gb",
+                                            "parity")}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

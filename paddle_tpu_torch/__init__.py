@@ -18,6 +18,7 @@ from paddle_tpu_torch import data_type
 from paddle_tpu_torch import event
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import layer
+from paddle_tpu_torch import networks
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import parameters
 from paddle_tpu_torch import reader
@@ -41,6 +42,12 @@ def init(seed: int = 0, precision: str = "fp32", device=None, **options):
     card, and with no card ``init`` raises.  Like every option it persists
     until set again.  Only the ``fp32`` precision policy is ported: the
     bf16 policies and their loss scaling are ROADMAP.md section 1, item 1.
+
+    ``use_fused_rnn`` (default True) sends the standard LSTM and GRU cells
+    on the card to their CUDA step kernels (``ops/fused_rnn.py``); False
+    keeps them on the plain step.  ``scan_unroll`` is accepted so configs
+    written for the JAX package run, and has no effect: each recurrence
+    here is an eager loop over T, one step an iteration.
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(

@@ -26,6 +26,14 @@ _options: dict = {
     # device; "torch" forces the plain version on the card (the reference
     # the kernels are held against)
     "attention_impl": None,
+    # the recurrent layers' switch to their CUDA step kernels
+    # (ops/fused_rnn.py): True routes a standard cell on the card to the
+    # kernel, False runs the plain step (the reference's escape hatch)
+    "use_fused_rnn": True,
+    # accepted so configs written for the JAX package run: there it is
+    # lax.scan's unroll factor; the port's recurrences are eager loops
+    # over T, which it does not change
+    "scan_unroll": 1,
 }
 
 

@@ -54,13 +54,14 @@ def _flatten(tree, prefix=""):
 
 
 def _unflatten(flat):
+    """Flat ``layer::param`` keys -> ``{layer: {param: array}}``.  Split at
+    the first separator only: a recurrent group's parameters are named
+    ``<step layer>::<param>`` under the group's layer (every tree this
+    module reads is two levels deep)."""
     tree = {}
     for key, val in flat.items():
-        parts = key.split(_SEP)
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
+        layer, _, pname = key.partition(_SEP)
+        tree.setdefault(layer, {})[pname] = val
     return tree
 
 

@@ -15,10 +15,18 @@ from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.core.ir import LayerOutput
 from paddle_tpu_torch.data_type import DataKind, InputType, SeqType
+from paddle_tpu_torch.layers.rnn_group import (GeneratedInput, StaticInput,
+                                               SubsequenceInput, beam_search,
+                                               memory, recurrent_group)
 
 __all__ = [
-    "data", "fc", "embedding", "addto", "layer_norm",
-    "classification_cost", "position_embedding", "multi_head_attention",
+    "data", "fc", "embedding", "concat", "addto", "slice", "layer_norm",
+    "first_seq", "last_seq",
+    "recurrent", "lstmemory", "grumemory", "bigru", "recurrent_group",
+    "memory", "beam_search", "StaticInput", "GeneratedInput",
+    "SubsequenceInput", "gru_step_layer", "lstm_step_layer",
+    "classification_cost", "sum_cost",
+    "position_embedding", "bahdanau_attention", "multi_head_attention",
 ]
 
 
@@ -106,6 +114,15 @@ def embedding(input, size: int, vocab_size: Optional[int] = None,
     return LayerOutput("embedding", inputs, attrs, name=name, size=size)
 
 
+def concat(input, act=None, axis: int = -1, name=None):
+    """concat along a per-sample axis (the feature axis by default)."""
+    inputs = _norm_inputs(input)
+    return LayerOutput("concat", inputs,
+                       {"act": act_mod.resolve(act), "axis": axis},
+                       name=name,
+                       size=sum(i.size or 0 for i in inputs) or None)
+
+
 def addto(input, act=None, bias_attr=False, name=None):
     inputs = _norm_inputs(input)
     attrs = _attrs_from(None, bias_attr, None, {"act": act_mod.resolve(act)})
@@ -119,6 +136,97 @@ def layer_norm(input, epsilon=1e-5, name=None):
                        name=name, size=inputs[0].size)
 
 
+def slice(input, start, end, name=None):
+    """features [start, end) of the last axis."""
+    return LayerOutput("slice", _norm_inputs(input),
+                       {"start": start, "end": end}, name=name,
+                       size=end - start)
+
+
+# ----------------------------------------------------------------- sequence
+def first_seq(input, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("first_seq", inputs, {}, name=name,
+                       size=inputs[0].size)
+
+
+def last_seq(input, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("last_seq", inputs, {}, name=name,
+                       size=inputs[0].size)
+
+
+# ---------------------------------------------------------------- recurrent
+def recurrent(input, act="tanh", reverse=False, bias_attr=None, name=None):
+    inputs = _norm_inputs(input)
+    attrs = _attrs_from(None, bias_attr, None,
+                        {"act": act_mod.resolve(act), "reverse": reverse})
+    return LayerOutput("recurrent", inputs, attrs, name=name,
+                       size=inputs[0].size)
+
+
+def lstmemory(input, reverse=False, act="tanh", gate_act="sigmoid",
+              peephole=True, bias_attr=None, name=None):
+    """input must be the 4h-wide gate projection (reference: lstmemory).
+    ``peephole=False`` with the default activations is the cell the CUDA
+    step kernel takes (h % 128 == 0)."""
+    inputs = _norm_inputs(input)
+    attrs = _attrs_from(None, bias_attr, None, {
+        "act": act_mod.resolve(act), "gate_act": act_mod.resolve(gate_act),
+        "reverse": reverse, "peephole": peephole})
+    return LayerOutput("lstmemory", inputs, attrs, name=name,
+                       size=(inputs[0].size or 0) // 4 or None)
+
+
+def grumemory(input, reverse=False, act="tanh", gate_act="sigmoid",
+              bias_attr=None, name=None):
+    """input must be the 3h-wide gate projection (reference: grumemory)."""
+    inputs = _norm_inputs(input)
+    attrs = _attrs_from(None, bias_attr, None, {
+        "act": act_mod.resolve(act), "gate_act": act_mod.resolve(gate_act),
+        "reverse": reverse})
+    return LayerOutput("grumemory", inputs, attrs, name=name,
+                       size=(inputs[0].size or 0) // 3 or None)
+
+
+def bigru(fwd_proj, bwd_proj, act="tanh", gate_act="sigmoid", name=None):
+    """fused bidirectional GRU over two 3h gate projections: one loop
+    advances both directions (layers/recurrent.py BiGruMemoryLayer)."""
+    size = 2 * ((fwd_proj.size or 0) // 3)
+    return LayerOutput("bigru", [fwd_proj, bwd_proj],
+                       {"act": act_mod.resolve(act),
+                        "gate_act": act_mod.resolve(gate_act)},
+                       name=name, size=size or None)
+
+
+def gru_step_layer(input, output_mem, size=None, act="tanh",
+                   gate_act="sigmoid", bias_attr=None, name=None):
+    """One GRU step inside a recurrent_group step function: ``input`` is
+    the 3h gate projection, ``output_mem`` the memory() of this layer's
+    output (reference: gru_step_layer)."""
+    attrs = _attrs_from(None, bias_attr, None, {
+        "act": act_mod.resolve(act), "gate_act": act_mod.resolve(gate_act)})
+    size = size or (input.size or 0) // 3 or None
+    return LayerOutput("gru_step", [input, output_mem], attrs, name=name,
+                       size=size)
+
+
+def lstm_step_layer(input, state_mem, size=None, act="tanh",
+                    gate_act="sigmoid", state_act=None, bias_attr=None,
+                    name=None):
+    """One LSTM step on a combined [h|c] state memory of width 2h;
+    ``input`` is the 4h gate projection.  ``size`` (and LayerOutput.size)
+    is h, the reference convention, though the tensor is the 2h combined
+    state."""
+    attrs = _attrs_from(None, bias_attr, None, {
+        "act": act_mod.resolve(act), "gate_act": act_mod.resolve(gate_act),
+        "state_act": act_mod.resolve(state_act) if state_act else None})
+    size = size or (input.size or 0) // 4 or None
+    return LayerOutput("lstm_step", [input, state_mem], attrs, name=name,
+                       size=size)
+
+
+# -------------------------------------------------------------------- costs
 def classification_cost(input, label, weight=None, name=None):
     """softmax cross-entropy on logits; if the input layer ends in a
     softmax activation (the reference idiom) it takes the prob-space form
@@ -127,6 +235,20 @@ def classification_cost(input, label, weight=None, name=None):
     is_prob = input.attrs.get("act") == "softmax"
     return LayerOutput("classification_cost", inputs,
                        {"input_is_prob": is_prob}, name=name)
+
+
+def sum_cost(input, name=None):
+    return LayerOutput("sum_cost", _norm_inputs(input), {}, name=name)
+
+
+def bahdanau_attention(encoded_sequence, encoded_proj, decoder_state,
+                       name=None):
+    """Fused additive-attention step (simple_attention's math in one
+    layer with a recompute backward - see layers/attention.py)."""
+    return LayerOutput(
+        "bahdanau_attention",
+        [encoded_sequence, encoded_proj, decoder_state], {},
+        name=name, size=encoded_sequence.size)
 
 
 def position_embedding(input, max_len, size=None, name=None):

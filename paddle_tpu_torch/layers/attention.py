@@ -1,6 +1,7 @@
 """``paddle_tpu/layers/attention.py`` on the port: the attention layers of
-the DSL (``PositionEmbeddingLayer``, ``MultiHeadAttentionLayer``) and the
-KV-slot and paged-KV inner loop of the decoders (models/transformer.py).
+the DSL (``PositionEmbeddingLayer``, ``BahdanauAttentionLayer``,
+``MultiHeadAttentionLayer``) and the KV-slot and paged-KV inner loop of
+the decoders (models/transformer.py).
 
 ``MultiHeadAttentionLayer`` keeps its projections as ``torch.matmul`` (the
 JAX package leaves them to XLA) and runs the attention itself through
@@ -28,6 +29,7 @@ from paddle_tpu_torch.core import config as cfg
 from paddle_tpu_torch.core.ir import ParamSpec
 from paddle_tpu_torch.core.registry import register_layer
 from paddle_tpu_torch.layers.sequence import SeqLayerDef
+from paddle_tpu_torch.ops.bahdanau import bahdanau_step
 from paddle_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -113,6 +115,33 @@ class PositionEmbeddingLayer(SeqLayerDef):
                 f"max_len {params['w'].shape[0]}")
         pos = params["w"][:t]
         return pos[None].expand((x.shape[0],) + tuple(pos.shape))
+
+
+@register_layer
+class BahdanauAttentionLayer(SeqLayerDef):
+    """Fused additive-attention step: inputs [enc_seq, enc_proj_seq,
+    decoder_state] -> context [B, De], one layer in place of the
+    simple_attention composite inside a recurrent group; its backward
+    recomputes the [B, Te, H] tanh row (ops/bahdanau.py)."""
+
+    kind = "bahdanau_attention"
+    out_is_seq = False
+
+    def infer_shape(self, attrs, in_shapes):
+        return (in_shapes[0][-1],)
+
+    def param_specs(self, attrs, in_shapes):
+        return [ParamSpec("w_dp", (in_shapes[2][-1], in_shapes[1][-1]),
+                          "xavier"),
+                ParamSpec("v", (in_shapes[1][-1],), "xavier")]
+
+    def apply_seq(self, attrs, params, inputs, masks, ctx):
+        enc, enc_proj, state = inputs
+        mask = masks[0]
+        if mask is None:
+            mask = torch.ones(enc.shape[:2], device=enc.device)
+        return bahdanau_step(enc, enc_proj, state, params["w_dp"],
+                             params["v"], mask)
 
 
 @register_layer

@@ -1,5 +1,5 @@
-"""Core dense layers: data, fc, embedding, addto (the part of
-``paddle_tpu/layers/common.py`` the transformer LM and the MLP need).
+"""Core dense layers: data, fc, embedding, addto, concat, slice (the part
+of ``paddle_tpu/layers/common.py`` the ported models need).
 
 ``fc`` lowers to one ``torch.matmul`` per input, as the JAX package leaves
 it to XLA; ``embedding`` is a row gather whose backward is autograd's
@@ -10,6 +10,8 @@ ported yet and raise.
 from __future__ import annotations
 
 import math
+
+import torch
 
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.ir import ParamSpec
@@ -147,3 +149,40 @@ class AddtoLayer(LayerDef):
         if "b" in params:
             out = out + params["b"].reshape((1,) + tuple(out.shape[1:]))
         return act_mod.apply(attrs.get("act", "linear"), out)
+
+
+@register_layer
+class ConcatLayer(LayerDef):
+    """concat along a per-sample axis, the feature (last) axis by default
+    (reference: ConcatenateLayer)."""
+
+    kind = "concat"
+
+    def infer_shape(self, attrs, in_shapes):
+        axis = attrs.get("axis", -1)
+        base = list(in_shapes[0])
+        base[axis] = sum(s[axis] for s in in_shapes)
+        return tuple(base)
+
+    def apply(self, attrs, params, inputs, ctx):
+        axis = attrs.get("axis", -1)
+        # per-sample axis -> batched axis
+        if axis >= 0:
+            axis += 1
+        return act_mod.apply(attrs.get("act", "linear"),
+                             torch.cat(inputs, dim=axis))
+
+
+@register_layer
+class SliceLayer(LayerDef):
+    """slice features along the last axis."""
+
+    kind = "slice"
+
+    def infer_shape(self, attrs, in_shapes):
+        s = list(in_shapes[0])
+        s[-1] = attrs["end"] - attrs["start"]
+        return tuple(s)
+
+    def apply(self, attrs, params, inputs, ctx):
+        return inputs[0][..., attrs["start"]:attrs["end"]]

@@ -1,5 +1,5 @@
-"""Cost (loss) layers: ``classification_cost`` (the part of
-``paddle_tpu/layers/cost.py`` the transformer LM and the MLP need).
+"""Cost (loss) layers: ``classification_cost`` and ``sum_cost`` (the part
+of ``paddle_tpu/layers/cost.py`` the ported models need).
 
 All costs reduce to per-sample losses, then a (weighted) mean over the
 batch.  ``classification_cost`` takes logits and fuses log-softmax and NLL
@@ -69,3 +69,14 @@ class ClassificationCost(_CostBase):
         else:
             nll = _SoftmaxNLL.apply(logits, label)
         return _weighted_mean(nll, weight)
+
+
+@register_layer
+class SumCost(_CostBase):
+    """sum of the input over the batch's rows, divided by their count
+    (reference: SumCostLayer)."""
+
+    kind = "sum_cost"
+
+    def apply(self, attrs, params, inputs, ctx):
+        return torch.sum(inputs[0].float()) / inputs[0].shape[0]

@@ -7,11 +7,14 @@ def _wrappers() -> dict:
     from paddle_tpu_torch.ops.flash_attention import (flash_bwd_dkdv_cuda,
                                                       flash_bwd_dq_cuda,
                                                       flash_fwd_cuda)
+    from paddle_tpu_torch.ops.fused_rnn import gru_step_cuda, lstm_step_cuda
     from paddle_tpu_torch.ops.paged_attention import paged_decode_cuda
     return {"flash_fwd": flash_fwd_cuda,
             "flash_bwd_dkdv": flash_bwd_dkdv_cuda,
             "flash_bwd_dq": flash_bwd_dq_cuda,
-            "paged_decode": paged_decode_cuda}
+            "paged_decode": paged_decode_cuda,
+            "lstm_step": lstm_step_cuda,
+            "gru_step": gru_step_cuda}
 
 
 def launch_counts() -> dict:
