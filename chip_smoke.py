@@ -5,10 +5,10 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
-   flash backward, paged decode, the LSTM and GRU steps; one ``nvcc``
-   each, in parallel) and print ptxas' register / shared-memory / spill
-   lines;
+2. build the six CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
+   flash backward, paged decode, the LSTM and GRU steps, the batch-norm
+   statistics, the conv + statistic products; one ``nvcc`` each, in
+   parallel) and print ptxas' register / shared-memory / spill lines;
 3. hold each kernel against its plain PyTorch version at the main paths'
    full-width shapes (float32): the forward and the decode kernel within
    max |error| <= 1e-4; the backward kernels' dQ, dK and dV against
@@ -19,13 +19,22 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    (B 256, H 512), each with a mask of about 30% zeros and at two ragged
    shapes, on h' (and c') and on the autograd.Function's gradients of
    every input but the mask, within 1e-4 * max(1, max |ref|), masked rows
-   copied bit for bit;
+   copied bit for bit; the conv kernels (7a, 7b: the batch-norm
+   statistic passes; 8, 9: the 1x1 and 3x3 convs with the statistics in
+   their epilogue) at every distinct shape ResNet-50 gives them at batch
+   128, at ragged shapes and (7a, 7b) at rank 2, on y, sum, sum of
+   squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|);
+   7b's relu boundary (folds exactly 0 are dropped as the forward drops
+   them); the autograd Functions' gradients against autograd through the
+   plain versions;
 4. time kernel, plain version and the library call (the forward and
    backward of ``F.scaled_dot_product_attention``, a yardstick the port
    never calls; for the recurrent steps, which no one PyTorch call
    computes, the cuBLAS product alone, ``torch.addmm``, as the product's
-   floor), with CUDA events, L2 flushed between launches, each beside its
-   bound;
+   floor; for the conv kernels ``torch.var_mean``,
+   ``torch.batch_norm_backward_reduce``, ``torch.mm`` alone and
+   ``F.conv2d`` alone), with CUDA events, L2 flushed between launches,
+   each beside its bound;
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
    4 x 128 heads, 8 layers, max_len 4096; random weights from a numpy
    seed) written as a checkpoint, loaded, and served through
@@ -62,9 +71,27 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    fc 2; B 128, T 100, Adam 2e-3): the same parity at batch 8, then
    LSTM_STEPS steps with finite losses and the LSTM kernel launched 200
    times a step;
-9. one JSON line each for the LM training, NMT and LSTM runs, the card
-   line again, one JSON line listing each kernel's numbers and, last,
-   ``{"ok": true, "device": {...}}``.
+9. the ResNet path: ``resnet.build(depth=50, image_size=224,
+   num_classes=1000, space_to_depth=True)`` under ``fuse_conv_bn="all"``
+   and ``fused_bn_impl="pallas"`` with seeded weights, TF32 off for cuDNN
+   and cuBLAS.  At batch 8 (cuDNN deterministic), each fused conv and
+   batch norm on the plain route's own inputs: the kernel route and the
+   plain route (``fused_bn_impl`` and every ``conv_bn_impl`` "xla") agree
+   on its output and moving statistics (1e-4 * max(1, max |ref|)) and
+   gradients (1e-3 * max(1, max |g|)).  End to end they agree on the
+   first loss (1e-4 relative), every gradient (1e-3 * max(1, max |g|)),
+   the moving statistics after one step (1e-4 * max(1, max |ref|)) and a
+   3-step Momentum trajectory (1e-3 relative), each or within twice
+   float32's own spread for that number (the plain route on images
+   nudged by 2^-22 and on the batch reversed).  Then 4 Momentum
+   steps (0.1, 0.9) at batch 128 x 224^2: finite losses, kernels 8 / 9 /
+   7a / 7b launched 30 / 16 / 4 / 4 times a step; the step and Momentum
+   on CUDA events, the step's device time by part and the idle share
+   from ``torch.profiler``; ``SGD.test`` on the trained state (the eval
+   branch, no kernel launched);
+10. one JSON line each for the LM training, NMT and LSTM, and ResNet
+   runs, the card line again, one JSON line listing each kernel's numbers
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The tokens/s, time-to-first-token and training step times it
@@ -100,6 +127,9 @@ NMT_VOCAB, NMT_DIM, NMT_LEN, NMT_BATCH, NMT_STEPS, NMT_LR = (30000, 512, 50,
                                                              256, 4, 1e-3)
 LSTM_LEN, LSTM_BATCH, LSTM_STEPS, LSTM_LR = 100, 128, 3, 2e-3
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# the conv slice: bench.py bench_resnet's model and optimizer, float32
+RESNET_IMAGE, RESNET_CLASSES, RESNET_LR = 224, 1000, 0.1
+RESNET_BATCH, RESNET_STEPS, RESNET_PARITY_BATCH = 128, 4, 8
 
 
 def card_line() -> str:
@@ -965,6 +995,8 @@ def seeded_values(topo, seed: int) -> dict:
     vals = {}
     for spec in topo.specs:
         for p in topo.param_specs[spec.name]:
+            if p.is_state:
+                continue
             scale = p.shape[0] ** -0.5 if len(p.shape) == 2 else 0.1
             vals.setdefault(spec.name, {})[p.name] = (
                 rng.standard_normal(p.shape, dtype=np.float32) * scale)
@@ -1182,7 +1214,8 @@ def profile_step(trainer, feed, match=None):
     return {"step_ms": wall, "busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall) if busy else None,
             "matched_ms": matched,
-            "top": [(name[:60], n, ms) for name, (ms, n) in top]}
+            "top": [(name[:60], n, ms) for name, (ms, n) in top],
+            "per_name": per_name}
 
 
 def nmt_breakdown(topo, trainer, feed):
@@ -1342,6 +1375,673 @@ def lstm_path():
             "parity": parity}
 
 
+# ------------------------------------------------------------ conv kernels
+CONV_KERNELS = ("matmul_stats", "conv3x3_stats", "bn_fwd_stats",
+                "bn_bwd_stats")
+
+
+def resnet_model():
+    """ResNet-50 at full width (224 px, 1000 classes, s2d stem) through
+    the DSL, with both fusions of the JAX package on: ``fuse_conv_bn=
+    "all"`` and ``fused_bn_impl="pallas"``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import resnet
+
+    _fresh(paddle)
+    paddle.init(seed=SEED, fuse_conv_bn="all", fused_bn_impl="pallas")
+    cost, _ = resnet.build(depth=50, image_size=RESNET_IMAGE,
+                           num_classes=RESNET_CLASSES, space_to_depth=True)
+    return paddle, paddle.Topology(cost)
+
+
+def resnet_shapes(topo, batch):
+    """The shapes each conv-slice kernel meets in one training step of
+    ``topo`` at ``batch``, with their counts: kernel 8 (P, Ci, Co), kernel
+    9 (N, H, W, Ci, Co), kernels 7a and 7b (N, H, W, C) of the relu batch
+    norms (the linear ones take the plain statistics)."""
+    from collections import Counter
+
+    conv1, conv3, bn = Counter(), Counter(), Counter()
+    for spec in topo.specs:
+        if spec.kind == "conv_bn":
+            h, w, ci = topo.shapes[spec.inputs[0]]
+            co = spec.attrs["num_filters"]
+            if spec.attrs.get("filter_size", 1) == 1:
+                conv1[(batch * h * w, ci, co)] += 1
+            else:
+                conv3[(batch, h, w, ci, co)] += 1
+        elif spec.kind == "batch_norm" and spec.attrs.get("act") == "relu":
+            bn[(batch,) + tuple(topo.shapes[spec.inputs[0]])] += 1
+    return conv1, conv3, bn
+
+
+def _rel_err(got, ref) -> float:
+    return ((got - ref).abs().max().item()
+            / max(1.0, ref.abs().max().item()))
+
+
+def _hold(what, pairs):
+    """Each (name, kernel value, plain value) within TOL of max(1, max
+    |plain|), finite; returns (max abs error, max relative error)."""
+    worst_abs = worst_rel = 0.0
+    for name, got, ref in pairs:
+        rel = _rel_err(got, ref)
+        if not (rel <= TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: {name} disagrees with the plain "
+                                 f"version: {rel} > {TOL} of max(1, max "
+                                 f"|ref|)")
+        worst_abs = max(worst_abs, (got - ref).abs().max().item())
+        worst_rel = max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def _grad_hold(what, fn, leaves, gen):
+    """The kernel route's autograd Function against autograd through the
+    plain version: ``fn(leaves, impl)`` returns outputs; cotangents on
+    each; the gradients of every leaf within TOL of max(1, max |ref|)."""
+    outs = {impl: fn(leaves, impl) for impl in ("cuda", "torch")}
+    cots = [torch.randn(o.shape, device=o.device, generator=gen)
+            for o in outs["torch"]]
+    grads = {impl: torch.autograd.grad(o, leaves, cots)
+             for impl, o in outs.items()}
+    return _hold(what, [(f"d{i}", g, r) for i, (g, r) in enumerate(
+        zip(grads["cuda"], grads["torch"]))])
+
+
+def conv_phase(dev, gen, flush):
+    """Kernels 7a, 7b, 8 and 9 against their plain versions at every
+    distinct shape ResNet-50 gives them at batch RESNET_BATCH, at ragged
+    shapes and (7a, 7b) at rank 2; 7b's relu boundary; the autograd
+    Functions' gradients; then each shape's device time (``time_ms(lead=
+    True)``) beside its bound, the plain version's and a library
+    yardstick the port never calls (``torch.var_mean``;
+    ``torch.batch_norm_backward_reduce``, which takes the same two sums
+    without the relu mask; ``torch.mm`` and ``F.conv2d`` alone, the
+    products' floors).  Returns per kernel its representative shape's
+    numbers and the sums over one step's launches."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import conv_bn as cb
+    from paddle_tpu_torch.ops import fused_bn as fb
+
+    _, topo = resnet_model()
+    conv1, conv3, bn = resnet_shapes(topo, RESNET_BATCH)
+    counts = {"matmul_stats": sum(conv1.values()),
+              "conv3x3_stats": sum(conv3.values()),
+              "bn_fwd_stats": sum(bn.values()),
+              "bn_bwd_stats": sum(bn.values())}
+    print(f"ResNet-50 at batch {RESNET_BATCH}: launches a step by the "
+          f"graph {counts}; distinct shapes: kernel 8 {len(conv1)}, "
+          f"kernel 9 {len(conv3)}, kernels 7a/7b {len(bn)}", flush=True)
+    if counts != {"matmul_stats": 30, "conv3x3_stats": 16,
+                  "bn_fwd_stats": 4, "bn_bwd_stats": 4}:
+        raise AssertionError(f"the graph's launch counts {counts}")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    errs = {k: (0.0, 0.0) for k in CONV_KERNELS}
+
+    def note(k, e):
+        errs[k] = (max(errs[k][0], e[0]), max(errs[k][1], e[1]))
+
+    def bn_args(shape):
+        c = shape[-1]
+        x = randn(*shape)
+        x2 = x.view(-1, c)
+        mean = x2.mean(0)
+        inv = torch.rsqrt(x2.var(0, unbiased=False) + 1e-5)
+        w = randn(c, scale=0.5) * inv
+        b = randn(c, scale=0.2) - mean * w
+        return x2, randn(*x2.shape), w, b, mean, inv
+
+    # ---- values at every shape, ragged shapes and rank 2
+    for shape in list(bn) + [(3, 37, 41, 64), (6272, 512), (1337, 40)]:
+        x2, dout, w, b, mean, inv = bn_args(shape)
+        note("bn_fwd_stats", _hold(f"bn_fwd_stats {shape}", zip(
+            ("sum x", "sum x^2"), fb.bn_fwd_stats_cuda(x2),
+            fb._fwd_stats_ref(x2))))
+        for relu in (True, False):
+            note("bn_bwd_stats", _hold(
+                f"bn_bwd_stats {shape} relu={relu}",
+                zip(("sum dy", "sum dy*xhat"),
+                    fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, relu),
+                    fb._bwd_stats_ref(dout, x2, w, b, mean, inv, relu))))
+    # the relu boundary: b = -fl(x w) on one element of each channel, so
+    # the fold is exactly 0 there and relu drops it; its dout is large,
+    # so a kernel that kept it would miss by ~1000
+    x2, dout, w, b, mean, inv = bn_args((4096, 96))
+    rows = torch.randint(0, 4096, (96,), device=dev, generator=gen)
+    cols = torch.arange(96, device=dev)
+    b = -(x2[rows, cols] * w)
+    dout[rows, cols] = 1000.0
+    if not bool((fb._fold(x2, w, b)[rows, cols] == 0).all()):
+        raise AssertionError("relu boundary case: the fold is not 0")
+    e = _hold("bn_bwd_stats relu boundary", zip(
+        ("sum dy", "sum dy*xhat"),
+        fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, True),
+        fb._bwd_stats_ref(dout, x2, w, b, mean, inv, True)))
+    note("bn_bwd_stats", e)
+    print(f"bn_bwd_stats relu boundary (96 folds exactly 0, dout 1000 "
+          f"there): dropped as the forward drops them, error {e[1]:.1e} "
+          f"of max(1, max |ref|)", flush=True)
+    for p, ci, co in list(conv1) + [(1000, 37, 70), (4099, 64, 200)]:
+        x2, w2 = randn(p, ci), randn(ci, co, scale=ci ** -0.5)
+        note("matmul_stats", _hold(f"matmul_stats {(p, ci, co)}", zip(
+            ("y", "s", "ss"), cb.matmul_stats_cuda(x2, w2),
+            cb._matmul_stats_ref(x2, w2))))
+    for n, h, w_, ci, co in list(conv3) + [(3, 7, 9, 5, 7),
+                                           (2, 13, 11, 64, 72)]:
+        x4 = randn(n, h, w_, ci)
+        w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+        note("conv3x3_stats", _hold(
+            f"conv3x3_stats {(n, h, w_, ci, co)}",
+            zip(("y", "s", "ss"), cb.conv3x3_stats_cuda(x4, w4),
+                cb._conv3x3_stats_ref(x4, w4))))
+    # ---- gradients of the autograd Functions
+    x = randn(16, 28, 28, 128).requires_grad_(True)
+    sc = (randn(128, scale=0.2) + 1).requires_grad_(True)
+    bi = randn(128, scale=0.2).requires_grad_(True)
+    note("bn_bwd_stats", _grad_hold(
+        "bn_act_train gradients", lambda lv, impl: fb.bn_act_train(
+            *lv, 1e-5, "relu", impl), [x, sc, bi], gen))
+    x2 = randn(4096, 256).requires_grad_(True)
+    w2 = randn(256, 512, scale=1 / 16).requires_grad_(True)
+    note("matmul_stats", _grad_hold(
+        "matmul_stats gradients", lambda lv, impl: cb.matmul_stats(
+            *lv, impl), [x2, w2], gen))
+    x4 = randn(8, 14, 14, 256).requires_grad_(True)
+    w4 = randn(3, 3, 256, 256, scale=1 / 48).requires_grad_(True)
+    note("conv3x3_stats", _grad_hold(
+        "conv3x3_stats gradients", lambda lv, impl: cb.conv3x3_stats(
+            *lv, impl), [x4, w4], gen))
+    del x, x2, w2, x4, w4
+    torch.cuda.synchronize()
+    print("conv kernels against their plain versions (values at every "
+          "ResNet-50 shape, ragged shapes, rank 2; gradients): worst "
+          "error / max(1, max |ref|) " + ", ".join(
+              f"{k} {e[1]:.1e}" for k, e in errs.items()), flush=True)
+
+    # ---- times at every main-path shape
+    rows_out = {k: [] for k in CONV_KERNELS}
+    with torch.no_grad():
+        for shape, count in bn.items():
+            x2, dout, w, b, mean, inv = bn_args(shape)
+            p, c = x2.shape
+            xn = x2.view(shape).permute(0, 3, 1, 2)
+            dn = dout.view(shape).permute(0, 3, 1, 2)
+            rows_out["bn_fwd_stats"].append(dict(
+                shape=list(shape), count=count,
+                ms=time_ms(lambda: fb.bn_fwd_stats_cuda(x2), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: fb._fwd_stats_ref(x2), flush,
+                                 lead=True),
+                library_ms=time_ms(lambda: torch.var_mean(
+                    x2, dim=0, correction=0), flush, lead=True),
+                bound=bound(3.0 * p * c, 4.0 * (p * c + 2 * c))))
+            rows_out["bn_bwd_stats"].append(dict(
+                shape=list(shape), count=count,
+                ms=time_ms(lambda: fb.bn_bwd_stats_cuda(
+                    dout, x2, w, b, mean, inv, True), flush, lead=True),
+                plain_ms=time_ms(lambda: fb._bwd_stats_ref(
+                    dout, x2, w, b, mean, inv, True), flush, lead=True),
+                library_ms=time_ms(lambda: torch.batch_norm_backward_reduce(
+                    dn, xn, mean, inv, None, True, False, False), flush,
+                    lead=True),
+                bound=bound(8.0 * p * c, 4.0 * (2 * p * c + 6 * c))))
+            del x2, dout, xn, dn
+        for (p, ci, co), count in conv1.items():
+            x2, w2 = randn(p, ci), randn(ci, co, scale=ci ** -0.5)
+            rows_out["matmul_stats"].append(dict(
+                shape=[p, ci, co], count=count,
+                ms=time_ms(lambda: cb.matmul_stats_cuda(x2, w2), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: cb._matmul_stats_ref(x2, w2),
+                                 flush, lead=True),
+                library_ms=time_ms(lambda: torch.mm(x2, w2), flush,
+                                   lead=True),
+                bound=bound(2.0 * p * ci * co + 3.0 * p * co,
+                            4.0 * (p * ci + ci * co + p * co + 2 * co))))
+            del x2, w2
+        for (n, h, w_, ci, co), count in conv3.items():
+            x4 = randn(n, h, w_, ci)
+            w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+            xn, wn = x4.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
+            p = n * h * w_
+            rows_out["conv3x3_stats"].append(dict(
+                shape=[n, h, w_, ci, co], count=count,
+                ms=time_ms(lambda: cb.conv3x3_stats_cuda(x4, w4), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: cb._conv3x3_stats_ref(x4, w4),
+                                 flush, lead=True),
+                library_ms=time_ms(lambda: F.conv2d(xn, wn, padding=1),
+                                   flush, lead=True),
+                bound=bound(2.0 * p * 9 * ci * co + 3.0 * p * co,
+                            4.0 * (p * ci + 9 * ci * co + p * co
+                                   + 2 * co))))
+            del x4, w4, xn, wn
+    torch.cuda.empty_cache()
+    library = {"bn_fwd_stats": "torch.var_mean",
+               "bn_bwd_stats": "torch.batch_norm_backward_reduce (the two "
+                               "sums, no relu mask)",
+               "matmul_stats": "torch.mm alone (the product's floor)",
+               "conv3x3_stats": "F.conv2d alone (the conv's floor)"}
+    # the issue's representative shapes: res2 expand, res2 3x3, the stem
+    rep = {"matmul_stats": [RESNET_BATCH * 56 * 56, 64, 256],
+           "conv3x3_stats": [RESNET_BATCH, 56, 56, 64, 64],
+           "bn_fwd_stats": [RESNET_BATCH, 112, 112, 64],
+           "bn_bwd_stats": [RESNET_BATCH, 112, 112, 64]}
+    out = {}
+    for k, rows in rows_out.items():
+        for r in rows:
+            b_ms, b_by = r.pop("bound")
+            r.update(bound_ms=b_ms, bound_by=b_by)
+            print(f"{k} {r['shape']} x{r['count']} a step: ms {r['ms']:.4f}"
+                  f"  bound_ms {b_ms:.4f} ({b_by})  plain_ms "
+                  f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f} "
+                  f"({library[k]})", flush=True)
+        main = next(r for r in rows if r["shape"] == rep[k])
+        step = {f: sum(r[f] * r["count"] for r in rows)
+                for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        print(f"{k}: one step's {counts[k]} launches sum to ms "
+              f"{step['ms']:.3f}, bound {step['bound_ms']:.3f}, plain "
+              f"{step['plain_ms']:.3f}, library {step['library_ms']:.3f}",
+              flush=True)
+        out[k] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                      bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                      library_ms=main["library_ms"], library=library[k],
+                      max_abs_err=errs[k][0], max_rel_err=errs[k][1],
+                      shape=main["shape"], per_step=step, shapes=rows)
+    return out
+
+
+# -------------------------------------------------------------- ResNet path
+def resnet_values(topo, seed: int) -> dict:
+    """A numpy parameter tree for ResNet from a seed: He-normal conv
+    kernels, N(0, 1/fan_in) fc weights, batch-norm scales 1 + N(0, 0.1^2),
+    biases N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+    vals = {}
+    for spec in topo.specs:
+        for p in topo.param_specs[spec.name]:
+            if p.is_state:
+                continue
+            shape = tuple(p.shape)
+            if len(shape) == 4:
+                std = (2.0 / (shape[0] * shape[1] * shape[2])) ** 0.5
+            elif len(shape) == 2:
+                std = shape[0] ** -0.5
+            else:
+                std = 0.1
+            v = rng.standard_normal(shape, dtype=np.float32) * std
+            if p.name == "scale":
+                v += 1.0
+            vals.setdefault(spec.name, {})[p.name] = v
+    return vals
+
+
+def resnet_feed(b, seed=SEED):
+    """Seeded images in [0, 1) and labels, as ``bench_resnet`` makes
+    them."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(b, RESNET_IMAGE, RESNET_IMAGE, 3)
+            .astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, b).astype(np.int32)}
+
+
+def _set_route(topo, kernel: bool) -> None:
+    """The kernel route (the graph as built, ``fused_bn_impl="pallas"``)
+    or the plain one, through the JAX package's own attributes:
+    ``fused_bn_impl`` and every conv_bn's ``conv_bn_impl`` set to
+    "xla"."""
+    from paddle_tpu_torch.core import config
+
+    config.set_option("fused_bn_impl", "pallas" if kernel else "xla")
+    for spec in topo.specs:
+        if spec.kind == "conv_bn":
+            if kernel:
+                spec.attrs.pop("conv_bn_impl", None)
+            else:
+                spec.attrs["conv_bn_impl"] = "xla"
+
+
+def resnet_parity(paddle, topo, values, feed):
+    """Batch RESNET_PARITY_BATCH, from the same weights, cuDNN
+    deterministic: the kernel route against the plain one on the card -
+    the first loss (1e-4 relative), every gradient (1e-3 of max(1, max
+    |g|)), the moving statistics after one step (1e-4 of max(1, max
+    |ref|)) and a 3-step Momentum trajectory (1e-3 relative).  The
+    counters move 30 / 16 / 4 / 4 a forward-backward on the kernel route
+    and not at all on the plain one.
+
+    The plain route runs twice more on inputs that change nothing but
+    float32 rounding: the images nudged by 2^-22 relative, and the batch
+    in reverse order (every batch-norm sum and reduction taken in another
+    order, as the kernels take them).  How far those move each number is
+    float32's own spread for this net: the backward amplifies rounding
+    through 50 batch norms at batch 8, so early layers' gradients move by
+    ~3e-2 of max(1, max |g|).  Each number is held within the larger of
+    its bound and twice that spread (for a gradient, the largest spread in
+    its stage: stem, res2 to res5, head); the printout says which bound
+    held where.  ``resnet_layer_parity`` holds every layer at the fixed
+    bounds without the amplification."""
+    from paddle_tpu_torch import ops
+
+    per_pass = {"matmul_stats": 30, "conv3x3_stats": 16,
+                "bn_fwd_stats": 4, "bn_bwd_stats": 4}
+    nudged = dict(feed, image=feed["image"] * np.float32(1 + 2 ** -22))
+    reversed_ = {k: np.ascontiguousarray(v[::-1]) for k, v in feed.items()}
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, kernel, fd in (("kernel", True, feed),
+                                 ("plain", False, feed),
+                                 ("nudged", False, nudged),
+                                 ("reversed", False, reversed_)):
+            _set_route(topo, kernel)
+            ops.reset_launch_counts()
+            tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Momentum(
+                    learning_rate=RESNET_LR, momentum=0.9))
+            loss, grads = tr.forward_backward(fd)
+            state = tr.model_state
+            tr.model_state = tr.topology.create_state()
+            losses = []
+            tr.train(lambda: iter([fd] * 3), event_handler=lambda e: (
+                losses.append(e.cost)
+                if isinstance(e, paddle.event.EndIteration) else None))
+            runs[name] = (float(loss), grads, state, losses)
+            del tr
+            got = {k: ops.launch_counts()[k] for k in per_pass}
+            want = {k: 4 * n if kernel else 0 for k, n in per_pass.items()}
+            if got != want:
+                raise AssertionError(f"ResNet parity, {name} route: "
+                                     f"launches {got}, expected {want}")
+    finally:
+        _set_route(topo, True)
+        torch.backends.cudnn.deterministic = False
+    (loss_k, grads_k, state_k, traj_k), (loss_t, grads_t, state_t,
+                                         traj_t) = (runs["kernel"],
+                                                    runs["plain"])
+    spread_runs = [runs["nudged"], runs["reversed"]]
+
+    def stage(lname):
+        return lname[:4] if lname.startswith("res") else (
+            "stem" if lname.startswith("stem") else "head")
+
+    checks = []     # (what, error, spread, fixed bound)
+    checks.append(("first loss", _rel(loss_k, loss_t), max(
+        _rel(r[0], loss_t) for r in spread_runs), 1e-4))
+    grad_spread, grad_err = {}, {}
+    for lname, ps in grads_t.items():
+        grad_err[lname] = max(_rel_err(grads_k[lname][p], r)
+                              for p, r in ps.items())
+        sp = max(_rel_err(run[1][lname][p], r) for run in spread_runs
+                 for p, r in ps.items())
+        grad_spread[stage(lname)] = max(grad_spread.get(stage(lname), 0.0),
+                                        sp)
+    for lname, err in grad_err.items():
+        checks.append((f"d {lname}", err, grad_spread[stage(lname)], 1e-3))
+    for lname, ks in state_t.items():
+        spread = max(_rel_err(run[2][lname][k], r) for run in spread_runs
+                     for k, r in ks.items())
+        err = max(_rel_err(state_k[lname][k], r) for k, r in ks.items())
+        checks.append((f"moving statistics {lname}", err, spread, 1e-4))
+    if len(traj_k) != 3:
+        raise AssertionError(f"ResNet Momentum trajectory {traj_k}")
+    checks.append(("3-step Momentum losses",
+                   max(_rel(a, b) for a, b in zip(traj_k, traj_t)),
+                   max(_rel(a, b) for run in spread_runs
+                       for a, b in zip(run[3], traj_t)), 1e-3))
+    held_fixed, held_spread = [], []
+    for what, err, spread, fixed in checks:
+        if err <= fixed:
+            held_fixed.append(what)
+        elif err <= 2 * spread:
+            held_spread.append((what, err, spread))
+        else:
+            raise AssertionError(
+                f"ResNet parity: {what}: kernel route vs plain {err:.3e}, "
+                f"beyond its bound {fixed} and twice float32's spread "
+                f"{spread:.3e} (the plain route on nudged or reversed "
+                f"inputs)")
+    worst = max(checks[1:-1], key=lambda c: c[1])
+    print(f"ResNet-50 parity at batch {len(feed['label'])} x "
+          f"{RESNET_IMAGE}^2, kernel route vs the plain route (fused_bn_impl"
+          f" and conv_bn_impl 'xla'): first loss {loss_k:.6f} vs "
+          f"{loss_t:.6f} ({_rel(loss_k, loss_t):.2e} relative); 3-step "
+          f"Momentum losses {[round(x, 6) for x in traj_k]} vs "
+          f"{[round(x, 6) for x in traj_t]}; worst {worst[0]} at "
+          f"{worst[1]:.2e} (spread {worst[2]:.2e}); {len(held_fixed)} of "
+          f"{len(checks)} numbers within their fixed bounds, "
+          f"{len(held_spread)} within twice the spread; by stage, the "
+          f"gradients' spread " + ", ".join(
+              f"{k} {v:.1e}" for k, v in grad_spread.items())
+          + "; held by the spread: " + ", ".join(
+              f"{w} {e:.1e} (spread {sp:.1e})"
+              for w, e, sp in held_spread[:12]), flush=True)
+    return {"loss_rel": checks[0][1], "grad_rel": max(
+                c[1] for c in checks if c[0].startswith("d ")),
+            "state_rel": max(c[1] for c in checks
+                             if c[0].startswith("moving")),
+            "traj_rel": checks[-1][1],
+            "held_fixed": len(held_fixed),
+            "held_spread": [list(h) for h in held_spread],
+            "grad_spread_by_stage": grad_spread}
+
+
+def resnet_layer_parity(paddle, topo, values, feed, gen):
+    """Each layer whose route differs (the 46 conv_bn layers and the 7
+    batch norms) on the same inputs, the plain route's own activations at
+    batch RESNET_PARITY_BATCH: the kernel route against the plain one on
+    its output and moving statistics (1e-4 of max(1, max |ref|)) and,
+    under one random cotangent, the gradients of its parameters and input
+    (1e-3 of max(1, max |g|)), with no amplification through the rest of
+    the net.
+
+    The two routes' statistics differ by rounding, so a relu output whose
+    fold lies within a rounding of 0 can be kept by one route and dropped
+    by the other; its gradient then differs by its whole cotangent.  Such
+    flips must be rare (at most 1e-5 of the outputs) and tiny (the kept
+    value within 1e-4 of max(1, max |y|)), and the cotangent is zero at
+    them."""
+    from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
+
+    params = paddle.parameters.from_numpy(topo, values).values
+    state = topo.create_state()
+    names = [s.name for s in topo.specs if s.kind != "data"]
+    _set_route(topo, False)
+    try:
+        with torch.no_grad():
+            acts, _ = topo.forward(params, state, feed, train=True,
+                                   outputs=names)
+        worst = {"output": (0.0, ""), "state": (0.0, ""),
+                 "grad": (0.0, "")}
+        n = flips = 0
+        for spec in topo.specs:
+            if spec.kind not in ("conv_bn", "batch_norm"):
+                continue
+            x = acts[spec.inputs[0]]
+            run = {}
+            for kernel in (True, False):
+                _set_route(topo, kernel)
+                ctx = ApplyContext(train=True, device=x.device)
+                ctx.state_in, ctx._cur_layer = state, spec.name
+                xi = x.detach().requires_grad_(True)
+                lp = {k: v.detach().requires_grad_(True)
+                      for k, v in params[spec.name].items()}
+                y = get_layer_def(spec.kind).apply(spec.attrs, lp, [xi],
+                                                   ctx)
+                run[kernel] = (y, ctx.state_out[spec.name], lp, xi)
+            yk, yp = run[True][0], run[False][0]
+            flip = (yk > 0) != (yp > 0)
+            n_flip = int(flip.sum())
+            if n_flip:
+                kept = torch.maximum(yk, yp)[flip].abs().max().item()
+                if (n_flip > 1e-5 * flip.numel()
+                        or kept > TOL * max(1.0, yp.abs().max().item())):
+                    raise AssertionError(
+                        f"ResNet layer parity: {spec.name}: relu decides "
+                        f"{n_flip} outputs differently, the largest kept "
+                        f"at {kept}")
+            flips += n_flip
+            cot = torch.randn(yp.shape, device=yp.device, generator=gen)
+            cot[flip] = 0.0
+            grads = {}
+            for kernel, (y, _, lp, xi) in run.items():
+                g = torch.autograd.grad(y, list(lp.values()) + [xi], cot)
+                grads[kernel] = dict(zip(list(lp) + ["input"], g))
+            checks = [("output", spec.name, yk.detach(), yp.detach(), TOL)]
+            checks += [("state", f"{spec.name}.{k}", run[True][1][k], v,
+                        TOL) for k, v in run[False][1].items()]
+            checks += [("grad", f"{spec.name} d{k}", grads[True][k], v,
+                        1e-3) for k, v in grads[False].items()]
+            for kind, what, a, r, bound_ in checks:
+                err = _rel_err(a, r)
+                if not (err <= bound_ and torch.isfinite(a).all()):
+                    raise AssertionError(f"ResNet layer parity: {what}: "
+                                         f"kernel route vs plain {err} > "
+                                         f"{bound_}")
+                worst[kind] = max(worst[kind], (err, what))
+            n += 1
+            del run, grads
+    finally:
+        _set_route(topo, True)
+    print(f"ResNet-50 layer by layer at batch {len(feed['label'])} ({n} "
+          f"layers whose route differs, each on the plain route's inputs): "
+          f"worst output {worst['output'][1]} {worst['output'][0]:.1e}, "
+          f"moving statistics {worst['state'][1]} {worst['state'][0]:.1e} "
+          f"(bound {TOL}); worst gradient {worst['grad'][1]} "
+          f"{worst['grad'][0]:.1e} (bound 1e-3); relu decided {flips} "
+          f"outputs differently (folds within a rounding of 0, cotangent "
+          f"zero there)", flush=True)
+    return dict({k: v[0] for k, v in worst.items()}, relu_flips=flips)
+
+
+# device kernels of a ResNet step by part, from their names: the port's
+# own kernels; cuDNN's and cuBLAS's products (the plain convs, the fused
+# convs' backward, and fc's ~0.05 ms of products); pooling; the host-to-
+# device copy of the feed; the rest is elementwise passes and reductions
+# (batch-norm apply and backward, relu, residual adds, the loss's
+# logsumexp and gather, Momentum)
+_PARTS = (("the kernels (7a, 7b, 8, 9)", ("gemm_stats_kernel",
+                                          "fwd_partial_kernel",
+                                          "bwd_partial_kernel",
+                                          "finish_kernel")),
+          ("plain convs and their backward, fc (cuDNN, cuBLAS)",
+           ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad",
+            "implicit", "winograd", "fft", "sm90", "sm80", "ampere")),
+          ("pool", ("pool", "Pool")),
+          ("feed copy (host to device)", ("Memcpy HtoD",)))
+_REST = ("elementwise and reductions (BN apply and backward, relu, adds, "
+         "loss, Momentum)")
+
+
+def resnet_breakdown(trainer, feed):
+    """Where one ResNet step's time goes: the step and the Momentum update
+    alone on CUDA events (median of 3 interleaved rounds after a warm
+    one); the step's device time by part from ``torch.profiler``, by
+    kernel name (``_PARTS``), and the device's idle share."""
+    _, grads = trainer.forward_backward(feed)
+    t = _events_ms({
+        "Momentum": lambda: trainer.optimizer.update(
+            trainer._trainable, grads, trainer._opt_state,
+            trainer.parameters.meta),
+        "step": lambda: trainer._step(feed)})
+    del grads
+    prof = profile_step(trainer, feed)
+    parts = {name: 0.0 for name, _ in _PARTS}
+    parts[_REST] = 0.0
+    for kname, (ms, _) in prof["per_name"].items():
+        for name, keys in _PARTS:
+            if any(k in kname for k in keys):
+                parts[name] += ms
+                break
+        else:
+            parts[_REST] += ms
+    step = t["step"]
+    print(f"ResNet-50 step breakdown at batch {len(feed['label'])}: step "
+          f"{step:.1f} ms (CUDA events); Momentum alone {t['Momentum']:.1f}"
+          f" ms; device time by part (torch.profiler, one step of "
+          f"{prof['step_ms']:.1f} ms): " + "; ".join(
+              f"{k} {v:.1f} ms ({v / prof['step_ms']:.0%})"
+              for k, v in parts.items()) + f"; device idle "
+          f"{prof['step_ms'] - prof['busy_ms']:.1f} ms", flush=True)
+    if prof["idle_share"] is None:
+        print("torch.profiler saw no device time: idle share not measured",
+              flush=True)
+    else:
+        print(f"torch.profiler over one ResNet step: device busy "
+              f"{prof['busy_ms']:.1f} of {prof['step_ms']:.1f} ms, idle "
+              f"share {prof['idle_share']:.1%}; top kernels: " + "; ".join(
+                  f"{nm} x{k} {ms:.1f} ms" for nm, k, ms in prof["top"]),
+              flush=True)
+    return dict(parts, step_ms=step, momentum_ms=t["Momentum"],
+                busy_ms=prof["busy_ms"], profiled_step_ms=prof["step_ms"],
+                idle_share=prof["idle_share"])
+
+
+def resnet_path():
+    """The conv slice's main path: ResNet-50 at full width, kernel-route
+    parity at batch RESNET_PARITY_BATCH, then ``trainer.SGD.train`` with
+    Momentum(RESNET_LR, 0.9) at RESNET_BATCH x RESNET_IMAGE^2, the launch
+    counts a step, a breakdown, and ``SGD.test`` on the trained state."""
+    from paddle_tpu_torch import ops
+
+    paddle, topo = resnet_model()
+    values = resnet_values(topo, SEED + 4)
+    n_params = sum(v.size for ps in values.values() for v in ps.values())
+    print(f"ResNet-50: {RESNET_IMAGE} px, {RESNET_CLASSES} classes, s2d "
+          f"stem, fuse_conv_bn='all', fused_bn_impl='pallas'; "
+          f"{n_params / 1e6:.1f}M float32 parameters from a numpy seed; "
+          f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+    parity_feed = resnet_feed(RESNET_PARITY_BATCH, SEED + 5)
+    torch.backends.cudnn.deterministic = True
+    try:
+        layers = resnet_layer_parity(paddle, topo, values, parity_feed,
+                                     torch.Generator(device="cuda")
+                                     .manual_seed(SEED))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    parity = dict(resnet_parity(paddle, topo, values, parity_feed),
+                  layers=layers)
+    torch.cuda.empty_cache()
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                                 momentum=0.9))
+    feed = resnet_feed(RESNET_BATCH)
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        "ResNet-50", paddle, trainer, feed, RESNET_STEPS, "matmul_stats",
+        30, falling=False)
+    per_step = {k: launches[k] / RESNET_STEPS for k in CONV_KERNELS}
+    if per_step != {"matmul_stats": 30, "conv3x3_stats": 16,
+                    "bn_fwd_stats": 4, "bn_bwd_stats": 4}:
+        raise AssertionError(f"ResNet-50 launches a step {per_step}")
+    print(f"ResNet-50 training: {RESNET_STEPS} Momentum steps (lr "
+          f"{RESNET_LR}, 0.9) at batch {RESNET_BATCH} x {RESNET_IMAGE}^2, "
+          f"losses {[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{RESNET_BATCH / warm:.1f} images/s (smoke figure, not a "
+          f"benchmark); peak memory {peak_gb:.2f} GB; launches a step "
+          f"{per_step}", flush=True)
+    breakdown = resnet_breakdown(trainer, feed)
+    ops.reset_launch_counts()
+    result = trainer.test(lambda: iter([resnet_feed(32, SEED + 6)]))
+    eval_launches = {k: ops.launch_counts()[k] for k in CONV_KERNELS}
+    if not np.isfinite(result.cost) or any(eval_launches.values()):
+        raise AssertionError(f"ResNet-50 eval: cost {result.cost}, "
+                             f"launches {eval_launches}")
+    print(f"ResNet-50 eval (SGD.test, batch 32, the moving statistics): "
+          f"cost {result.cost:.5f}, no kernel launched", flush=True)
+    return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3,
+            "images_per_s": RESNET_BATCH / warm, "peak_gb": peak_gb,
+            "parity": parity, "breakdown": breakdown,
+            "eval_cost": result.cost}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1362,7 +2062,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
-                         "rnn_step"])
+                         "rnn_step", "bn_stats", "conv_bn"])
     print(f"built {len(logs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
@@ -1379,6 +2079,7 @@ def main() -> int:
     paged_err, paged_t = paged_phase(dev, gen, flush)
     bwd = flash_bwd_phase(dev, gen, flush)
     rnn = rnn_phase(dev, gen, flush)
+    conv = conv_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1394,6 +2095,8 @@ def main() -> int:
     nmt = nmt_path()
     torch.cuda.empty_cache()
     lstm = lstm_path()
+    torch.cuda.empty_cache()
+    resnet = resnet_path()
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1435,6 +2138,26 @@ def main() -> int:
          "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
          "replaces": "paddle_tpu/ops/fused_rnn.py:144",
          "launches": nmt["launches"]["gru_step"], **rnn["gru"]},
+        {"name": "bn_fwd_stats", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
+         "replaces": "paddle_tpu/ops/fused_bn.py:58",
+         "launches": resnet["launches"]["bn_fwd_stats"],
+         **conv["bn_fwd_stats"]},
+        {"name": "bn_bwd_stats", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
+         "replaces": "paddle_tpu/ops/fused_bn.py:145",
+         "launches": resnet["launches"]["bn_bwd_stats"],
+         **conv["bn_bwd_stats"]},
+        {"name": "matmul_stats", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/conv_bn.cu",
+         "replaces": "paddle_tpu/ops/conv_bn.py:46",
+         "launches": resnet["launches"]["matmul_stats"],
+         **conv["matmul_stats"]},
+        {"name": "conv3x3_stats", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/conv_bn.cu",
+         "replaces": "paddle_tpu/ops/conv_bn.py:180",
+         "launches": resnet["launches"]["conv3x3_stats"],
+         **conv["conv3x3_stats"]},
     ]
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
@@ -1447,6 +2170,10 @@ def main() -> int:
         "lstm_route": {k: lstm[k] for k in ("losses", "first_step_ms",
                                             "step_ms", "peak_gb",
                                             "parity")}}), flush=True)
+    print(json.dumps({"resnet": {
+        k: resnet[k] for k in ("losses", "first_step_ms", "step_ms",
+                               "images_per_s", "peak_gb", "parity",
+                               "breakdown", "eval_cost")}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from paddle_tpu_torch import layer
 from paddle_tpu_torch import networks
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import parameters
+from paddle_tpu_torch import pooling
 from paddle_tpu_torch import reader
 from paddle_tpu_torch import topology
 from paddle_tpu_torch import trainer
@@ -48,6 +49,14 @@ def init(seed: int = 0, precision: str = "fp32", device=None, **options):
     keeps them on the plain step.  ``scan_unroll`` is accepted so configs
     written for the JAX package run, and has no effect: each recurrence
     here is an eager loop over T, one step an iteration.
+
+    The conv slice's two opt-in fusions take the JAX package's values:
+    ``fuse_conv_bn`` (False; True: ``models/resnet.py`` builds the 1x1
+    stride-1 conv + BN pairs as ``conv_bn`` layers, kernel 8; ``"all"``:
+    the 3x3 stride-1 ones too, kernel 9) and ``fused_bn_impl`` (None or
+    ``"xla"`` / ``"interpret"``: batch norm takes the plain statistics;
+    ``"pallas"``: a relu batch norm on the card takes the CUDA statistic
+    kernels 7a and 7b).
     """
     if precision not in PRECISIONS:
         raise NotImplementedError(

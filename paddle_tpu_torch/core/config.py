@@ -34,6 +34,15 @@ _options: dict = {
     # lax.scan's unroll factor; the port's recurrences are eager loops
     # over T, which it does not change
     "scan_unroll": 1,
+    # the conv slice's two opt-in fusions, with the JAX package's values:
+    # fuse_conv_bn False / True (1x1 stride-1 conv+BN pairs become
+    # conv_bn layers, kernel 8) / "all" (the 3x3 stride-1 ones too,
+    # kernel 9), read by models/resnet.py when it builds the graph;
+    # fused_bn_impl None (the default: plain statistics) / "xla" /
+    # "interpret" (the plain statistics) / "pallas" (the relu BatchNorms
+    # on the card take the CUDA statistic kernels 7a and 7b)
+    "fuse_conv_bn": False,
+    "fused_bn_impl": None,
 }
 
 

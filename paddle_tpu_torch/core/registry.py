@@ -18,9 +18,11 @@ _LAYER_REGISTRY: Dict[str, "LayerDef"] = {}
 class ApplyContext:
     """Per-forward context threaded through layer ``apply()`` calls: train
     or test mode, the ``torch.Generator`` of the forward (for layers that
-    draw random numbers; none of the ported ones does), the device, and the
-    full parameter tree (tied weights).  The JAX context's running-state
-    namespace comes with the first ported layer that keeps state."""
+    draw random numbers; none of the ported ones does), the device, the
+    full parameter tree (tied weights), and the running-state namespace
+    (batch-norm moving mean and variance): a layer reads its own entries
+    of ``state_in`` with ``get_state`` and writes new ones to ``state_out``
+    with ``set_state``; ``Topology.forward`` sets the current layer."""
 
     def __init__(self, train: bool, generator: Optional[torch.Generator]
                  = None, device=None):
@@ -28,6 +30,16 @@ class ApplyContext:
         self.generator = generator
         self.device = device
         self.params_tree: dict = {}   # full parameter tree (tied weights)
+        self.state_in: dict = {}      # {layer_name: {key: tensor}}
+        self.state_out: dict = {}
+        self._cur_layer: Optional[str] = None
+
+    # -- running state (BN et al.) -------------------------------------
+    def get_state(self, key: str):
+        return self.state_in[self._cur_layer][key]
+
+    def set_state(self, key: str, value) -> None:
+        self.state_out.setdefault(self._cur_layer, {})[key] = value
 
 
 class LayerDef:

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from paddle_tpu_torch import activation as act_mod
+from paddle_tpu_torch import pooling as pool_mod
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.core.ir import LayerOutput
 from paddle_tpu_torch.data_type import DataKind, InputType, SeqType
@@ -27,6 +28,7 @@ __all__ = [
     "SubsequenceInput", "gru_step_layer", "lstm_step_layer",
     "classification_cost", "sum_cost",
     "position_embedding", "bahdanau_attention", "multi_head_attention",
+    "img_conv", "img_pool", "global_pool", "batch_norm", "img_cmrnorm",
 ]
 
 
@@ -141,6 +143,51 @@ def slice(input, start, end, name=None):
     return LayerOutput("slice", _norm_inputs(input),
                        {"start": start, "end": end}, name=name,
                        size=end - start)
+
+
+# -------------------------------------------------------------------- image
+def img_conv(input, filter_size, num_filters, stride=1, padding=0, groups=1,
+             dilation=1, act=None, bias_attr=None, param_attr=None,
+             name=None, num_channels=None):
+    """2-D convolution over NHWC images with an HWIO kernel."""
+    inputs = _norm_inputs(input)
+    attrs = _attrs_from(param_attr, bias_attr, None, {
+        "filter_size": filter_size, "num_filters": num_filters,
+        "stride": stride, "padding": padding, "groups": groups,
+        "dilation": dilation, "act": act_mod.resolve(act)})
+    return LayerOutput("conv", inputs, attrs, name=name, size=num_filters)
+
+
+def img_pool(input, pool_size, stride=None, padding=0, pool_type=None,
+             ceil_mode=True, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("pool", inputs, {
+        "pool_size": pool_size, "stride": stride or pool_size,
+        "padding": padding, "pool_type": pool_mod.resolve(pool_type),
+        "ceil_mode": ceil_mode}, name=name, size=inputs[0].size)
+
+
+def global_pool(input, pool_type="avg", name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("global_pool", inputs, {"pool_type": pool_type},
+                       name=name, size=inputs[0].size)
+
+
+def batch_norm(input, act=None, epsilon=1e-5, moving_average_fraction=0.9,
+               use_global_stats=None, name=None, param_attr=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("batch_norm", inputs, {
+        "act": act_mod.resolve(act), "epsilon": epsilon,
+        "moving_average_fraction": moving_average_fraction,
+        "use_global_stats": use_global_stats}, name=name,
+        size=inputs[0].size)
+
+
+def img_cmrnorm(input, size=5, scale=0.0001, power=0.75, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("img_cmrnorm", inputs, {
+        "size": size, "alpha": scale, "beta": power}, name=name,
+        size=inputs[0].size)
 
 
 # ----------------------------------------------------------------- sequence

@@ -9,12 +9,20 @@ def _wrappers() -> dict:
                                                       flash_fwd_cuda)
     from paddle_tpu_torch.ops.fused_rnn import gru_step_cuda, lstm_step_cuda
     from paddle_tpu_torch.ops.paged_attention import paged_decode_cuda
+    from paddle_tpu_torch.ops.conv_bn import (conv3x3_stats_cuda,
+                                              matmul_stats_cuda)
+    from paddle_tpu_torch.ops.fused_bn import (bn_bwd_stats_cuda,
+                                               bn_fwd_stats_cuda)
     return {"flash_fwd": flash_fwd_cuda,
             "flash_bwd_dkdv": flash_bwd_dkdv_cuda,
             "flash_bwd_dq": flash_bwd_dq_cuda,
             "paged_decode": paged_decode_cuda,
             "lstm_step": lstm_step_cuda,
-            "gru_step": gru_step_cuda}
+            "gru_step": gru_step_cuda,
+            "bn_fwd_stats": bn_fwd_stats_cuda,
+            "bn_bwd_stats": bn_bwd_stats_cuda,
+            "matmul_stats": matmul_stats_cuda,
+            "conv3x3_stats": conv3x3_stats_cuda}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,185 @@
+// Batch-norm statistic passes, float32, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/fused_bn.py:
+//   kernel 7a  _fwd_stats (_fwd4_kernel, _fwd2_kernel): per channel, sum x
+//              and sum x^2 in one pass over x;
+//   kernel 7b  _bwd_stats (_bwd4_kernel, _bwd2_kernel, _bwd_body): per
+//              channel, sum dy and sum dy * xhat in one pass over (dout, x),
+//              with dy = relu'(x * w + b) * dout (or dout, linear) and
+//              xhat = (x - mean) * inv recomputed in the kernel from
+//              per-channel w, b, mean and inv, so the post-BN tensor and
+//              the relu mask are never stored.
+// Any [..., C] tensor is a row-major [P, C] matrix here, so one kernel
+// serves the TPU's rank-4 and rank-2 variants.
+//
+// What bounds them on the H100: bytes.  At the stem BN of ResNet-50 (batch
+// 128, [128, 112, 112, 64]) 7a reads 411 MB (0.123 ms at 3.35 TB/s) and 7b
+// 822 MB (0.245 ms) for ~2 flops a byte.  The design aims at full-rate,
+// coalesced reads and a result that is the same on every run:
+//
+// - The TPU kernels add into one output block along a sequential grid; on
+//   the H100 blocks run in parallel, so each block writes its partial sums
+//   to [R, C] scratch and a second small launch (stat_reduce.cuh) adds the
+//   R rows in a fixed order.  No float atomics.
+// - A block owns 32 channels (a warp's lanes read 128 consecutive bytes of
+//   a row) and a slab of rows; its 8 warps take every 8th row of the slab,
+//   four rows in flight a thread, and meet in shared memory in warp order.
+//   The wrapper picks R so that ~1000 blocks cover the card.
+// - Rows past P are never read: a slab ends at P.
+// - 7b's relu mask must keep exactly the elements the forward kept.  The
+//   forward folds x * w + b as two PyTorch ops, rounding twice; nvcc would
+//   contract the same expression into one FMA, which rounds once and can
+//   disagree in sign where the fold lies within a rounding of 0.  So the
+//   fold is __fmul_rn then __fadd_rn, bit-equal to the forward.
+
+#include <cuda_runtime.h>
+
+#include "stat_reduce.cuh"
+
+namespace {
+
+constexpr int kCh = 32;                 // channels a block owns
+constexpr int kRowLanes = 8;            // warps, each on every 8th row
+constexpr int kThreads = kCh * kRowLanes;
+constexpr int kUnroll = 4;              // rows in flight a thread
+
+// The block's per-warp sums of (a, b) met in warp order and written as row
+// blockIdx.y of the partials.
+__device__ __forceinline__ void write_partials(float a, float b, int lane,
+                                               int wy, int c, int C,
+                                               float* __restrict__ part_a,
+                                               float* __restrict__ part_b) {
+  __shared__ float red[2][kRowLanes][kCh];
+  red[0][wy][lane] = a;
+  red[1][wy][lane] = b;
+  __syncthreads();
+  if (wy == 0 && c < C) {
+    float ta = 0.f, tb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowLanes; ++i) {
+      ta += red[0][i][lane];
+      tb += red[1][i][lane];
+    }
+    part_a[(long long)blockIdx.y * C + c] = ta;
+    part_b[(long long)blockIdx.y * C + c] = tb;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fwd_partial_kernel(const float* __restrict__ x, long long P, int C,
+                   long long slab, float* __restrict__ part_s,
+                   float* __restrict__ part_sq) {
+  const int lane = threadIdx.x % kCh, wy = threadIdx.x / kCh;
+  const int c = blockIdx.x * kCh + lane;
+  const long long r0 = (long long)blockIdx.y * slab;
+  const long long r1 = r0 + slab < P ? r0 + slab : P;
+  float s = 0.f, sq = 0.f;
+  if (c < C) {
+    long long r = r0 + wy;
+    for (; r + (kUnroll - 1) * kRowLanes < r1; r += kUnroll * kRowLanes) {
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = x[(r + u * kRowLanes) * C + c];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s += v[u];
+        sq = fmaf(v[u], v[u], sq);
+      }
+    }
+    for (; r < r1; r += kRowLanes) {
+      const float v = x[r * C + c];
+      s += v;
+      sq = fmaf(v, v, sq);
+    }
+  }
+  write_partials(s, sq, lane, wy, c, C, part_s, part_sq);
+}
+
+template <bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bwd_partial_kernel(const float* __restrict__ dout,
+                   const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ inv, long long P, int C,
+                   long long slab, float* __restrict__ part_dy,
+                   float* __restrict__ part_dyx) {
+  const int lane = threadIdx.x % kCh, wy = threadIdx.x / kCh;
+  const int c = blockIdx.x * kCh + lane;
+  const long long r0 = (long long)blockIdx.y * slab;
+  const long long r1 = r0 + slab < P ? r0 + slab : P;
+  float sdy = 0.f, sdyx = 0.f;
+  if (c < C) {
+    const float wc = w[c], bc = b[c], mc = mean[c], ic = inv[c];
+    auto add = [&](float xv, float dv) {
+      // the forward's fold, rounded as the forward rounds it
+      const float dy =
+          (!kRelu || __fadd_rn(__fmul_rn(xv, wc), bc) > 0.f) ? dv : 0.f;
+      sdy += dy;
+      sdyx = fmaf(dy, __fmul_rn(__fsub_rn(xv, mc), ic), sdyx);
+    };
+    long long r = r0 + wy;
+    for (; r + (kUnroll - 1) * kRowLanes < r1; r += kUnroll * kRowLanes) {
+      float xv[kUnroll], dv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        xv[u] = x[(r + u * kRowLanes) * C + c];
+        dv[u] = dout[(r + u * kRowLanes) * C + c];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add(xv[u], dv[u]);
+    }
+    for (; r < r1; r += kRowLanes) add(x[r * C + c], dout[r * C + c]);
+  }
+  write_partials(sdy, sdyx, lane, wy, c, C, part_dy, part_dyx);
+}
+
+}  // namespace
+
+// x [P, C]; partials [2, R, C] scratch; s, sq [C].  R slabs of `slab` rows
+// cover P (the wrapper picks both).
+extern "C" int bn_fwd_stats_f32(const void* x, long long P, int C, int R,
+                                long long slab, void* part, void* s,
+                                void* sq, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* pa = (float*)part;
+  float* pb = pa + (long long)R * C;
+  fwd_partial_kernel<<<dim3((C + kCh - 1) / kCh, R), kThreads, 0, st>>>(
+      (const float*)x, P, C, slab, pa, pb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)stat_reduce::finish(pa, pb, R, C, (float*)s, (float*)sq, st);
+}
+
+// dout, x [P, C]; w, b, mean, inv [C]; relu 0 or 1; partials [2, R, C];
+// sum_dy, sum_dyx [C].
+extern "C" int bn_bwd_stats_f32(const void* dout, const void* x,
+                                const void* w, const void* b,
+                                const void* mean, const void* inv,
+                                long long P, int C, int relu, int R,
+                                long long slab, void* part, void* sum_dy,
+                                void* sum_dyx, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* pa = (float*)part;
+  float* pb = pa + (long long)R * C;
+  const dim3 grid((C + kCh - 1) / kCh, R);
+  if (relu)
+    bwd_partial_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const float*)dout, (const float*)x, (const float*)w,
+        (const float*)b, (const float*)mean, (const float*)inv, P, C, slab,
+        pa, pb);
+  else
+    bwd_partial_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const float*)dout, (const float*)x, (const float*)w,
+        (const float*)b, (const float*)mean, (const float*)inv, P, C, slab,
+        pa, pb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)stat_reduce::finish(pa, pb, R, C, (float*)sum_dy,
+                                  (float*)sum_dyx, st);
+}
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

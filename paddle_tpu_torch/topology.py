@@ -184,10 +184,39 @@ class Topology:
                                  f"{extra[:8]}")
         return Parameters(out, meta)
 
-    def create_state(self) -> dict:
-        """Initial running-state tree: empty, no ported layer keeps
-        running state."""
-        return {}
+    def create_state(self, *, device=None,
+                     values: Optional[dict] = None) -> dict:
+        """Initial running-state tree (batch-norm moving statistics) on
+        ``device`` (default: the ``device`` option, else the card), from
+        each ``is_state`` spec's initializer; with ``values`` (a numpy tree
+        ``{layer: {name: ndarray}}``, e.g. the JAX package's
+        ``trainer.model_state``) those arrays instead, which must match
+        the specs exactly."""
+        dev = cfg.default_device(device)
+        state: dict = {}
+        for spec in self.specs:
+            for p in self.param_specs[spec.name]:
+                if not p.is_state:
+                    continue
+                if values is None:
+                    t = init_mod.resolve(p.initializer)(None, p.shape)
+                else:
+                    t = torch.from_numpy(np.array(
+                        values[spec.name][p.name], np.float32))
+                    if tuple(t.shape) != tuple(p.shape):
+                        raise ValueError(
+                            f"{spec.name}.{p.name}: got state of shape "
+                            f"{tuple(t.shape)}, the topology wants "
+                            f"{tuple(p.shape)}")
+                state.setdefault(spec.name, {})[p.name] = t.to(
+                    dev, torch.float32)
+        if values is not None:
+            extra = sorted(f"{l}.{k}" for l, ks in values.items()
+                           for k in ks if k not in state.get(l, {}))
+            if extra:
+                raise ValueError(f"state the topology does not have: "
+                                 f"{extra[:8]}")
+        return state
 
     # ---------------------------------------------------------------- forward
     def forward(self, params: dict, state: dict, feed: dict, *,
@@ -195,8 +224,9 @@ class Topology:
                 outputs: Optional[Sequence[str]] = None, remat=None,
                 generator: Optional[torch.Generator] = None, device=None):
         """Eager forward under autograd.  Returns ({name: value},
-        new_state); no ported layer keeps running state, so ``new_state``
-        is ``state``.
+        new_state): ``state`` with the entries the layers wrote (train-mode
+        batch norm's moving statistics) replaced by detached tensors, so
+        no autograd graph lives from one step to the next.
 
         ``feed`` maps data-layer names to arrays or tensors; sequence data
         layers also accept ``<name>@len`` (default: full length).  Feeds
@@ -207,6 +237,7 @@ class Topology:
                 "remat is not ported to paddle_tpu_torch yet")
         dev = cfg.default_device(device)
         ctx = ApplyContext(train=train, generator=generator, device=dev)
+        ctx.state_in = state
         ctx.params_tree = params   # cross-layer access (tied weights)
         values: Dict[str, torch.Tensor] = {}
         masks: Dict[str, Optional[torch.Tensor]] = {}
@@ -227,7 +258,8 @@ class Topology:
                 pos = torch.arange(x.shape[1], device=dev)
                 masks[spec.name] = (pos[None, :]
                                     < lens[:, None]).to(torch.float32)
-        return {name: values[name] for name in want}, state
+        return ({name: values[name] for name in want},
+                _merge_state(state, ctx.state_out))
 
     def _run_spec(self, spec, params, values, masks, ctx):
         """Execute one non-data spec, writing its value and mask."""
@@ -236,6 +268,7 @@ class Topology:
         in_masks = [masks[i] for i in spec.inputs]
         in_seq = [self.is_seq[i] for i in spec.inputs]
         lparams = params.get(spec.name, {})
+        ctx._cur_layer = spec.name
         with _layer_error_context(spec, in_vals):
             if isinstance(ldef, SeqLayerDef):
                 out = ldef.apply_seq(spec.attrs, lparams, in_vals,
@@ -284,3 +317,14 @@ class Topology:
 
     def get_layer(self, name: str) -> LayerSpec:
         return self._spec_by_name[name]
+
+
+def _merge_state(state: dict, updates: dict) -> dict:
+    """``state`` with ``updates`` laid over it, detached."""
+    if not updates:
+        return state
+    new = {l: dict(ps) for l, ps in state.items()}
+    for l, ps in updates.items():
+        for k, v in ps.items():
+            new.setdefault(l, {})[k] = v.detach()
+    return new

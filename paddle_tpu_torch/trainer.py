@@ -4,7 +4,9 @@
 The step mirrors the JAX package's ``_build_step`` on its fp32, no-sparse,
 no-probe path: ``Topology.forward`` under autograd, the gradient of the
 cost with respect to every trainable parameter (``torch.autograd.grad``),
-then ``optimizer.update`` in place.  Where the JAX step is one jitted
+then ``optimizer.update`` in place.  The running state (batch-norm moving
+statistics) is ``model_state``: each training step's forward replaces it
+with the new, detached state, and ``test`` runs on it in eval mode.  Where the JAX step is one jitted
 program with donated buffers, here each layer's kernels launch eagerly
 from the Python loop; the attention layers reach the CUDA flash kernels
 (forward, dK/dV, dQ) on the card.
@@ -69,7 +71,7 @@ class SGD:
                     f"parameter {key} lies on "
                     f"{parameters.values[layer][pname].device}, the "
                     f"trainer runs on {self.device}")
-        self.model_state = self.topology.create_state()
+        self.model_state = self.topology.create_state(device=self.device)
         self._mask = parameters.trainable_mask()
         self._trainable, self._frozen = params_mod.partition(
             parameters.values, self._mask)
