@@ -5,10 +5,11 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the six CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
+2. build the seven CUDA kernel sources (``ops/csrc/*.cu``: flash forward,
    flash backward, paged decode, the LSTM and GRU steps, the batch-norm
-   statistics, the conv + statistic products; one ``nvcc`` each, in
-   parallel) and print ptxas' register / shared-memory / spill lines;
+   statistics, the conv + statistic products, the forward sweep's
+   tensor-core variants; one ``nvcc`` each, in parallel) and print ptxas'
+   register / shared-memory / spill lines;
 3. hold each kernel against its plain PyTorch version at the main paths'
    full-width shapes (float32): the forward and the decode kernel within
    max |error| <= 1e-4; the backward kernels' dQ, dK and dV against
@@ -26,15 +27,25 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|);
    7b's relu boundary (folds exactly 0 are dropped as the forward drops
    them); the autograd Functions' gradients against autograd through the
-   plain versions;
+   plain versions; kernel 1 on bf16 q/k/v (O bf16, LSE float32) at the
+   forward sweep's shape [8, 4096, 8, 64] and the LM shape
+   [8, 4096, 4, 128], causal, against the plain attention on the float32
+   upcast with O rounded to bf16, and every variant of the sweep
+   (``ops/flash_variants.py``: bf16 dots, exp2, split, pipelined, each at
+   two tiles; the f32-dot instances at kernel 1's tile) at both shapes
+   against its plain version at the same block_k, each launch moving the
+   counter: O within 2^-6 * max(1, max |ref|), LSE within
+   1e-4 * max(1, max |ref|);
 4. time kernel, plain version and the library call (the forward and
    backward of ``F.scaled_dot_product_attention``, a yardstick the port
    never calls; for the recurrent steps, which no one PyTorch call
    computes, the cuBLAS product alone, ``torch.addmm``, as the product's
    floor; for the conv kernels ``torch.var_mean``,
    ``torch.batch_norm_backward_reduce``, ``torch.mm`` alone and
-   ``F.conv2d`` alone), with CUDA events, L2 flushed between launches,
-   each beside its bound;
+   ``F.conv2d`` alone; for kernel 1 at bf16 and the sweep's variants
+   ``F.scaled_dot_product_attention`` at bf16), with CUDA events, L2
+   flushed between launches, each beside its bound (float32 FMAs at 67
+   TFLOP/s, bf16 tensor cores at 989 TFLOP/s, or bytes at 3.35 TB/s);
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
    4 x 128 heads, 8 layers, max_len 4096; random weights from a numpy
    seed) written as a checkpoint, loaded, and served through
@@ -89,7 +100,11 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    on CUDA events, the step's device time by part and the idle share
    from ``torch.profiler``; ``SGD.test`` on the trained state (the eval
    branch, no kernel launched);
-10. one JSON line each for the LM training, NMT and LSTM, and ResNet
+10. the forward ablation sweep (``paddle_tpu_torch.tools.flash_variants``,
+   ``run``) at the JAX tool's shape and ``--shape lm``: its ten rows with
+   their times, rates and errors against row A; kernel 1 and the
+   variants' wrapper must both launch;
+11. one JSON line each for the LM training, NMT and LSTM, sweep and ResNet
    runs, the card line again, one JSON line listing each kernel's numbers
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -113,6 +128,7 @@ import torch
 
 TOL = 1e-4
 PEAK_F32_FLOPS = 67e12        # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 # the serving slice's model: bench.py bench_transformer defaults
 VOCAB, DIM, HEADS, LAYERS, FFN_MULT, MAX_LEN = 32000, 512, 4, 8, 4, 4096
@@ -139,8 +155,8 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -417,6 +433,174 @@ def flash_bwd_phase(dev, gen, flush):
             "fwd": entry("fwd", "plain_fwd", "lib_fwd"),
             "dkdv": entry("dkdv", "plain_bwd", "lib_bwd", errs["dkdv"]),
             "dq": entry("dq", "plain_bwd", "lib_bwd", errs["dq"])}
+
+
+# ------------------------------------------------ the forward ablation sweep
+# O within one bf16 ulp at the largest output and one more for the order of
+# the sums; the LSE is float32 throughout
+VAR_O_TOL, VAR_LSE_TOL = 2.0 ** -6, 1e-4
+_VD = dict(bf16_dots=True, use_exp2=True, split_loop=True)
+# every flag set run_fwd takes, each at its default tile and one more (the
+# f32-dot instances have one tile, kernel 1's 64 x 64)
+VARIANTS = (
+    ("B bf16 bq128 bk64", dict(bf16_dots=True)),
+    ("B bf16 bq64 bk64", dict(bf16_dots=True, block_q=64)),
+    ("C bf16+exp2 bq128 bk64", dict(bf16_dots=True, use_exp2=True)),
+    ("C bf16+exp2 bq64 bk64", dict(bf16_dots=True, use_exp2=True,
+                                   block_q=64)),
+    ("D bf16+exp2+split bq128 bk64", _VD),
+    ("F D bq128 bk128", dict(_VD, block_k=128)),
+    ("F' D bq64 bk128", dict(_VD, block_q=64, block_k=128)),
+    ("bf16+split bq128 bk64", dict(bf16_dots=True, split_loop=True)),
+    ("bf16+split bq64 bk64", dict(bf16_dots=True, split_loop=True,
+                                  block_q=64)),
+    ("G pipe bq128 bk64", dict(pipelined=True)),
+    ("G pipe bq64 bk64", dict(pipelined=True, block_q=64)),
+    ("G pipe bq128 bk128", dict(pipelined=True, block_k=128)),
+    ("G pipe bq64 bk128", dict(pipelined=True, block_q=64, block_k=128)),
+    ("f32 bq64 bk64", dict()),
+    ("f32+exp2 bq64 bk64", dict(use_exp2=True)),
+    ("f32+split bq64 bk64", dict(split_loop=True)),
+    ("f32+exp2+split bq64 bk64", dict(use_exp2=True, split_loop=True)),
+)
+
+
+def _hold_bf16(what, o, lse, ro, rlse):
+    """O and LSE against the plain version's within VAR_O_TOL and
+    VAR_LSE_TOL of max(1, max |ref|); returns (err O, err LSE)."""
+    eo = (o.float() - ro.float()).abs().max().item()
+    el = (lse - rlse).abs().max().item()
+    so = max(1.0, ro.float().abs().max().item())
+    sl = max(1.0, rlse.abs().max().item())
+    ok = (eo <= VAR_O_TOL * so and el <= VAR_LSE_TOL * sl
+          and torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
+    if not ok:
+        raise AssertionError(f"{what} disagrees with its plain version: O "
+                             f"{eo} (limit {VAR_O_TOL * so}), LSE {el} "
+                             f"(limit {VAR_LSE_TOL * sl})")
+    return eo, el
+
+
+def variants_phase(dev, gen, flush):
+    """Kernel 1 on bf16 operands and every variant of the forward sweep
+    (``ops/flash_variants.py``) at the JAX tool's shape and the LM's
+    training shape, causal: each held against its plain version and timed
+    beside it, its bound and the library's bf16 attention."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_variants as fv
+    from paddle_tpu_torch.tools.flash_variants import SHAPES, flops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"kernel1_bf16": {}, "variants": {}, "sdpa_bf16_ms": {}}
+    for shape in ("tool", "lm"):
+        b, h, l, d = SHAPES[shape]
+        q, k, v = (torch.randn(b, l, h, d, device=dev, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        lens = torch.full((b,), l, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, scale=d ** -0.5)
+        pairs = b * h * l * (l + 1) // 2
+        # q, k, v bf16 read once, O bf16 and the LSE float32 written once
+        nbytes = 4 * b * l * h * d * 2 + b * h * l * 4
+        work = 4.0 * d * pairs
+
+        # kernel 1 on bf16 against the plain version on the float32
+        # upcast, O rounded to bf16: the kernel's own arithmetic
+        o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+        ro, rlse = fa._torch_attention(q.float(), k.float(), v.float(),
+                                       lens, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+            raise AssertionError(f"kernel 1 at bf16 gave {o.dtype}, "
+                                 f"{lse.dtype}")
+        eo, el = _hold_bf16(f"flash_fwd bf16 {shape}", o,
+                            lse, ro.to(torch.bfloat16), rlse)
+        ref_a = o.float()
+        del ro, rlse
+        ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw), flush)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: fa._torch_attention(q, k, v, lens,
+                                                           **kw),
+                               flush, iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      scale=kw["scale"]), flush)
+        out["sdpa_bf16_ms"][shape] = lib_ms
+        b_ms, b_by = bound(work, nbytes)
+        shape_d = {"B": b, "L": l, "H": h, "D": d, "causal": True}
+        out["kernel1_bf16"][shape] = dict(
+            max_abs_err=max(eo, el), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, shape=shape_d)
+        print(f"flash_fwd bf16 at [{b}, {l}, {h}, {d}] causal: max|err| O "
+              f"{eo:.3e} LSE {el:.3e}; ms {ms:.4f}  bound_ms {b_ms:.4f} "
+              f"({b_by}, float32 FMAs)  plain_ms {plain_ms:.4f}  "
+              f"library_ms (scaled_dot_product_attention, bf16) "
+              f"{lib_ms:.4f}", flush=True)
+
+        for name, vkw in VARIANTS:
+            flags = fv.variant_flags(vkw.get("bf16_dots", False),
+                                     vkw.get("use_exp2", False),
+                                     vkw.get("split_loop", False),
+                                     vkw.get("pipelined", False))
+            tile = fv.DEFAULT_TILE[flags[0]]
+            args = dict(causal=True, block_q=tile[0], block_k=tile[1],
+                        bf16_dots=False, use_exp2=False, split_loop=False,
+                        pipelined=False)
+            args.update(vkw)
+            before = fv.run_fwd_cuda.launches
+            o, lse = fv.run_fwd_cuda(q, k, v, **args)
+            if fv.run_fwd_cuda.launches != before + 1:
+                raise AssertionError(f"{name}: the launch counter did not "
+                                     f"move")
+            ro, rlse = fv._torch_run_fwd(q, k, v, **args)
+            torch.cuda.synchronize()
+            eo, el = _hold_bf16(f"{name} {shape}", o, lse, ro, rlse)
+            err_a = (o.float() - ref_a).abs().max().item()
+            ms = time_ms(lambda: fv.run_fwd_cuda(q, k, v, **args), flush)
+            plain_ms = time_ms(lambda: fv._torch_run_fwd(q, k, v, **args),
+                               flush, iters=3, warmup=1)
+            b_ms, b_by = bound(work, nbytes,
+                               PEAK_BF16_FLOPS if flags[0]
+                               else PEAK_F32_FLOPS)
+            out["variants"].setdefault(name, {})[shape] = dict(
+                max_abs_err=max(eo, el), err_vs_A=err_a, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                source=("paddle_tpu_torch/ops/csrc/flash_variants.cu"
+                        if flags[0] else
+                        "paddle_tpu_torch/ops/csrc/flash_fwd.cu"),
+                shape=shape_d)
+            print(f"  {name:28s} [{shape}] max|err| O {eo:.3e} LSE "
+                  f"{el:.3e}, vs row A {err_a:.4f}; ms {ms:.4f}  bound_ms "
+                  f"{b_ms:.4f} ({b_by}, "
+                  f"{'bf16' if flags[0] else 'float32'})  plain_ms "
+                  f"{plain_ms:.4f}  library_ms {lib_ms:.4f}", flush=True)
+            del o, lse, ro, rlse
+        del q, k, v, ref_a
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep_path():
+    """This slice's path: the sweep's entry point,
+    ``paddle_tpu_torch.tools.flash_variants``, at the JAX tool's shape and
+    at the LM's (``--shape lm``), with every count set to 0 just before and
+    read just after: kernel 1 (row A) and the variants' wrapper (rows B to
+    G) must both have launched."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.tools import flash_variants as tool
+
+    ops.reset_launch_counts()
+    rows = {}
+    for shape in ("tool", "lm"):
+        print(f"the sweep (python -m paddle_tpu_torch.tools.flash_variants "
+              f"--shape {shape}):", flush=True)
+        rows[shape] = tool.run(shape, seed=SEED)
+    launches = ops.launch_counts()
+    if not (launches["flash_fwd"] and launches["flash_variants"]):
+        raise AssertionError(f"the sweep launched {launches}")
+    print(f"sweep launches: flash_fwd {launches['flash_fwd']}, "
+          f"flash_variants {launches['flash_variants']}", flush=True)
+    return launches, rows
 
 
 # -------------------------------------------------------------- main path
@@ -2062,7 +2246,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
-                         "rnn_step", "bn_stats", "conv_bn"])
+                         "rnn_step", "bn_stats", "conv_bn", "flash_variants"])
     print(f"built {len(logs)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
@@ -2080,6 +2264,7 @@ def main() -> int:
     bwd = flash_bwd_phase(dev, gen, flush)
     rnn = rnn_phase(dev, gen, flush)
     conv = conv_phase(dev, gen, flush)
+    var = variants_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -2097,6 +2282,8 @@ def main() -> int:
     lstm = lstm_path()
     torch.cuda.empty_cache()
     resnet = resnet_path()
+    torch.cuda.empty_cache()
+    sweep_launches, sweep_rows = sweep_path()
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2158,6 +2345,19 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/conv_bn.py:180",
          "launches": resnet["launches"]["conv3x3_stats"],
          **conv["conv3x3_stats"]},
+        dict(var["kernel1_bf16"]["tool"], name="flash_fwd_bf16",
+             route="cuda", source="paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="paddle_tpu/ops/flash_attention.py:90",
+             launches=sweep_launches["flash_fwd"],
+             lm_shape=var["kernel1_bf16"]["lm"]),
+        dict(var["variants"]["D bf16+exp2+split bq128 bk64"]["tool"],
+             name="flash_variants", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/flash_variants.cu",
+             replaces="tools/flash_variants.py:229",
+             launches=sweep_launches["flash_variants"],
+             headline="D bf16+exp2+split bq128 bk64",
+             max_abs_err=max(r["max_abs_err"] for vs in
+                             var["variants"].values() for r in vs.values())),
     ]
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
@@ -2170,6 +2370,10 @@ def main() -> int:
         "lstm_route": {k: lstm[k] for k in ("losses", "first_step_ms",
                                             "step_ms", "peak_gb",
                                             "parity")}}), flush=True)
+    print(json.dumps({"sweep": {"rows": sweep_rows,
+                                "variants": var["variants"],
+                                "sdpa_bf16_ms": var["sdpa_bf16_ms"]}}),
+          flush=True)
     print(json.dumps({"resnet": {
         k: resnet[k] for k in ("losses", "first_step_ms", "step_ms",
                                "images_per_s", "peak_gb", "parity",

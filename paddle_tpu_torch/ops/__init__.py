@@ -13,6 +13,7 @@ def _wrappers() -> dict:
                                               matmul_stats_cuda)
     from paddle_tpu_torch.ops.fused_bn import (bn_bwd_stats_cuda,
                                                bn_fwd_stats_cuda)
+    from paddle_tpu_torch.ops.flash_variants import run_fwd_cuda
     return {"flash_fwd": flash_fwd_cuda,
             "flash_bwd_dkdv": flash_bwd_dkdv_cuda,
             "flash_bwd_dq": flash_bwd_dq_cuda,
@@ -22,7 +23,8 @@ def _wrappers() -> dict:
             "bn_fwd_stats": bn_fwd_stats_cuda,
             "bn_bwd_stats": bn_bwd_stats_cuda,
             "matmul_stats": matmul_stats_cuda,
-            "conv3x3_stats": conv3x3_stats_cuda}
+            "conv3x3_stats": conv3x3_stats_cuda,
+            "flash_variants": run_fwd_cuda}
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
-// What the float32 flash-attention kernels share (flash_fwd.cu and
+// What the flash-attention kernels on CUDA cores share (flash_fwd.cu and
 // flash_bwd.cu): the tile geometry, the masked-score sentinel and exp2
-// fold, the tile loader, and the visibility rule - which KV tiles a q tile
-// sees and which q tiles see a KV tile - as one definition, the way
+// fold, the tile loader (float32 or bf16 in, float32 in shared memory),
+// and the visibility rule - which KV tiles a q tile sees and which q tiles
+// see a KV tile - as one definition, the way
 // paddle_tpu/ops/flash_attention.py keeps _causal_nk_eff and _causal_i0.
 //
 // The rule: query row q (global position q_off + q) sees key k (global
@@ -10,6 +11,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -33,20 +35,33 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// Load kBk rows of a [*, D] slice (row stride `ld` floats) starting at row
-// `r0` into shared memory with row stride `sld`, scaled by `mul`, zero
-// past `nrows` and past D.  D and every stride are multiples of 4 (the
-// wrappers check).
-__device__ __forceinline__ void load_tile(float* dst, int sld,
-                                          const float* src, long long ld,
-                                          int r0, int nrows, int D,
-                                          float mul) {
+// Four consecutive elements of a row as float: one 16-byte load for
+// float, one 8-byte load converted with __bfloat162float for bf16.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
+                     __bfloat162float(hi.x), __bfloat162float(hi.y));
+}
+
+// Load kBk rows of a [*, D] slice (row stride `ld` elements of T, float or
+// __nv_bfloat16) starting at row `r0` into float shared memory with row
+// stride `sld`, scaled by `mul`, zero past `nrows` and past D.  D and every
+// stride are multiples of 4 (the wrappers check).
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int sld, const T* src,
+                                          long long ld, int r0, int nrows,
+                                          int D, float mul) {
   constexpr int kVecs = kDMax / 4;
   for (int idx = threadIdx.x; idx < kBk * kVecs; idx += kThreads) {
     const int r = idx / kVecs, c = idx % kVecs;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < nrows && c * 4 < D) {
-      val = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c * 4);
+      val = load4(src + (r0 + r) * ld + c * 4);
       val.x *= mul; val.y *= mul; val.z *= mul; val.w *= mul;
     }
     *reinterpret_cast<float4*>(dst + r * sld + c * 4) = val;

@@ -1,12 +1,16 @@
-// Flash attention forward, float32, for Hopper (sm_90a).
+// Flash attention forward on CUDA cores, float32 or bf16 in, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/flash_attention.py::_fwd_kernel
 // (launched by _flash_fwd).  Same function: blockwise attention over
 // q,k,v [B, L, H, D] with an online softmax in the exp2 domain, per-batch
 // kv_lens, runtime q_offset / kv_offset for the causal rule
-// kv_offset + k_pos <= q_offset + q_pos, output O [B, Lq, H, D] and the
-// natural-log LSE [B, H, Lq].  Fully-masked rows give O = 0 and
-// LSE = NEG_INF / LOG2E + log(1e-30), like l_safe in the TPU kernel.
+// kv_offset + k_pos <= q_offset + q_pos, output O [B, Lq, H, D] in the
+// inputs' type and the natural-log LSE [B, H, Lq] in float32.  bf16 inputs
+// are converted to float32 as they are staged into shared memory (the TPU
+// kernel upcasts before its dots); all arithmetic is float32.  Fully-masked
+// rows give O = 0 and LSE = NEG_INF / LOG2E + log(1e-30), like l_safe in
+// the TPU kernel.
 //
 // What bounds it on the H100: operations.  A prefill chunk of c rows against
 // a gathered cache does 4 * D * (visible q,k pairs) flops per head on
@@ -22,8 +26,17 @@
 // The KV sweep stops at the causal diagonal of the tile's last row (the
 // bound of _causal_nk_eff) and at the row's kv_len, so an 8-row chunk at
 // offset t reads about t keys, not the whole gathered cache.  Inputs are
-// read through their strides: no transposed copy is made.  The TPU kernel's
-// unmasked interior loop is not split out here; every tile is masked.
+// read through their strides: no transposed copy is made.
+//
+// The body is a template on <T, EXP2, SPLIT>.  Kernel 1 is the <exp2,
+// unsplit> instance (every tile masked), at float32 and at bf16.  The other
+// bf16 instances are the f32-dot rows of the forward ablation sweep
+// (tools/flash_variants.py::_fwd_kernel_v2 with bf16_dots=False, ported in
+// ops/flash_variants.py): EXP2 off works in the natural-exp domain (q
+// scaled by `scale`, expf, LSE = m + log l), and SPLIT runs the tiles that
+// every row of the q tile sees whole (below the causal diagonal of its
+// first row and inside kv_len) without the visibility test, then the
+// boundary tiles with it, as the TPU kernel's two loops do.
 // flash_common.cuh holds the tile loader and the visibility rule, shared
 // with the backward kernels (flash_bwd.cu).
 
@@ -38,15 +51,33 @@ using namespace flash;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBq * kQs + kBk * kQs + kBk * kDMax + kBq * kPs);
 
+// Four floats stored as four elements of T.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// scale_q folds into q as it is staged: scale * log2(e) with EXP2, scale
+// without.
+template <typename T, bool EXP2, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const int* __restrict__ kv_lens, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v,
+                 const int* __restrict__ kv_lens, T* __restrict__ o,
                  float* __restrict__ lse, int Lq, int Lk, int H, int D,
                  long long sqb, long long sql, long long sqh,
                  long long skb, long long skl, long long skh,
                  long long svb, long long svl, long long svh,
-                 int q_off, int kv_off, int causal, float scale_log2) {
+                 int q_off, int kv_off, int causal, float scale_q) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);   // [kBq][kQs]
   float* sK = sQ + kBq * kQs;                    // [kBk][kQs]
@@ -58,15 +89,26 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qi * kBq;
   const int row_len = min(kv_lens[b], Lk);
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
 
-  load_tile(sQ, kQs, qb, sql, q0, Lq, D, scale_log2);
+  load_tile(sQ, kQs, qb, sql, q0, Lq, D, scale_q);
 
   // KV tiles this q tile can see (flash_common.cuh kv_tiles)
   const int nk_eff =
       kv_tiles(qi, (Lk + kBk - 1) / kBk, row_len, causal, q_off, kv_off);
+  // SPLIT: tiles [0, j_full) are visible to every row of the q tile
+  // (tools/flash_variants.py j_full; division truncates as lax.div does)
+  int j_full = 0;
+  if (SPLIT) {
+    long long jf = nk_eff;
+    if (causal) {
+      jf = ((long long)q_off - kv_off + (long long)q0 + 1) / kBk;
+      jf = jf < 0 ? 0 : min(jf, (long long)nk_eff);
+    }
+    j_full = (int)min(jf, (long long)(row_len / kBk));
+  }
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -107,6 +149,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // masked online softmax; a row's 64 keys live on the 16 threads that
     // share its ty (one half-warp), reduced with xor shuffles 8..1
+    const bool masked = !SPLIT || j >= j_full;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const long long qpos = (long long)q_off + q0 + ty + 16 * i;
@@ -115,7 +158,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int kp = k0 + tx + 16 * jj;
-        ok[jj] = visible(qpos, kp, row_len, causal, kv_off);
+        ok[jj] = !masked || visible(qpos, kp, row_len, causal, kv_off);
         if (!ok[jj]) sc[i][jj] = kNegInf;
         mx = fmaxf(mx, sc[i][jj]);
       }
@@ -123,11 +166,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float corr = exp2f(m[i] - m_new);
+      const float corr = EXP2 ? exp2f(m[i] - m_new) : expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float p = ok[jj] ? exp2f(sc[i][jj] - m_new) : 0.f;
+        const float p = !ok[jj] ? 0.f
+                        : EXP2  ? exp2f(sc[i][jj] - m_new)
+                                : expf(sc[i][jj] - m_new);
         sP[(ty + 16 * i) * kPs + tx + 16 * jj] = p;
         rs += p;
       }
@@ -167,39 +212,68 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= Lq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
     const float inv = 1.f / l_safe;
-    float* out = o + (((long long)b * Lq + row) * H + h) * D;
+    T* out = o + (((long long)b * Lq + row) * H + h) * D;
     if (tx * 4 < D)
-      *reinterpret_cast<float4*>(out + tx * 4) = make_float4(
-          acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      store4(out + tx * 4, acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+             acc[i][3] * inv);
     if (64 + tx * 4 < D)
-      *reinterpret_cast<float4*>(out + 64 + tx * 4) = make_float4(
-          acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
+      store4(out + 64 + tx * 4, acc[i][4] * inv, acc[i][5] * inv,
+             acc[i][6] * inv, acc[i][7] * inv);
     if (tx == 0)
       lse[((long long)b * H + h) * Lq + row] =
-          m[i] * (1.f / kLog2e) + logf(l_safe);
+          EXP2 ? m[i] * (1.f / kLog2e) + logf(l_safe) : m[i] + logf(l_safe);
   }
+}
+
+template <typename T, bool EXP2, bool SPLIT>
+int launch(const void* q, const void* k, const void* v, const void* kv_lens,
+           void* o, void* lse, int B, int Lq, int Lk, int H, int D,
+           long long sqb, long long sql, long long sqh, long long skb,
+           long long skl, long long skh, long long svb, long long svl,
+           long long svh, int q_off, int kv_off, int causal, float scale_q,
+           void* stream) {
+  auto kernel = flash_fwd_kernel<T, EXP2, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lq + kBq - 1) / kBq, B * H);
+  kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_lens, (T*)o,
+      (float*)lse, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+      q_off, kv_off, causal, scale_q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
-                             const void* kv_lens, void* o, void* lse, int B,
-                             int Lq, int Lk, int H, int D, long long sqb,
-                             long long sql, long long sqh, long long skb,
-                             long long skl, long long skh, long long svb,
-                             long long svl, long long svh, int q_off,
-                             int kv_off, int causal, float scale_log2,
-                             void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBq - 1) / kBq, B * H);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)kv_lens,
-      (float*)o, (float*)lse, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh, svb,
-      svl, svh, q_off, kv_off, causal, scale_log2);
-  return (int)cudaGetLastError();
+#define FLASH_FWD_ARGS                                                      \
+  const void *q, const void *k, const void *v, const void *kv_lens, void *o, \
+      void *lse, int B, int Lq, int Lk, int H, int D, long long sqb,         \
+      long long sql, long long sqh, long long skb, long long skl,            \
+      long long skh, long long svb, long long svl, long long svh, int q_off, \
+      int kv_off, int causal, float scale_q, void *stream
+#define FLASH_FWD_PASS                                                       \
+  q, k, v, kv_lens, o, lse, B, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh,  \
+      svb, svl, svh, q_off, kv_off, causal, scale_q, stream
+
+// Kernel 1 (scale_q = scale * log2 e), float32 in and out.
+extern "C" int flash_fwd_f32(FLASH_FWD_ARGS) {
+  return launch<float, true, false>(FLASH_FWD_PASS);
+}
+
+// Kernel 1 on bf16 q/k/v: O in bf16, LSE in float32.
+extern "C" int flash_fwd_bf16(FLASH_FWD_ARGS) {
+  return launch<__nv_bfloat16, true, false>(FLASH_FWD_PASS);
+}
+
+// The sweep's f32-dot rows on bf16 q/k/v: scale_q is scale * log2 e with
+// exp2, scale without.
+extern "C" int flash_fwd_f32dots_bf16(FLASH_FWD_ARGS, int exp2, int split) {
+  if (exp2)
+    return split ? launch<__nv_bfloat16, true, true>(FLASH_FWD_PASS)
+                 : launch<__nv_bfloat16, true, false>(FLASH_FWD_PASS);
+  return split ? launch<__nv_bfloat16, false, true>(FLASH_FWD_PASS)
+               : launch<__nv_bfloat16, false, false>(FLASH_FWD_PASS);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,6 +1,12 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
 ``csrc/flash_bwd.cu`` (dK/dV and dQ), and their plain PyTorch version.
 
+The forward takes float32 or bf16 q/k/v, as ``_flash_fwd`` does: O comes
+back in q's dtype and the LSE in float32, with all arithmetic in float32
+(the kernel converts bf16 as it stages the tiles).  The backward kernels
+take float32 only; the bf16 gradient waits for the bf16 precision policy
+(``ROADMAP.md`` item 1).
+
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  Layout [B, L, H, D]
 as there.  ``impl=None`` routes by where the tensors lie: a CUDA tensor
 runs the kernels (or raises), a CPU tensor takes the plain version, whose
@@ -42,11 +48,19 @@ def resolve_impl(impl: Optional[str], t: torch.Tensor) -> str:
     return impl
 
 
-def check_kernel_operand(name: str, t: torch.Tensor, device) -> None:
-    """What the float4 loads of both kernels need: float32 on the launch
-    device, unit inner stride, 16-byte aligned rows."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)   # the forward's operands
+
+
+def check_kernel_operand(name: str, t: torch.Tensor, device,
+                         dtypes=(torch.float32,)) -> None:
+    """What the vector loads of the kernels need: one of ``dtypes``
+    (float32, or float32 and bfloat16 for the forward) on the launch
+    device, unit inner stride, strides that are multiples of 4 elements,
+    16-byte aligned data."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
+                        f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]):
@@ -80,16 +94,22 @@ def _torch_attention(q, k, v, kv_lens, *, causal: bool, scale: float,
     return out, lse
 
 
-_SIGNATURES = {"flash_fwd_f32": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])}
+_FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+             + [ctypes.c_float, ctypes.c_void_p])
+# every entry of csrc/flash_fwd.cu: kernel 1 at float32 and bf16, and the
+# forward sweep's f32-dot rows (ops/flash_variants.py), which add the exp2
+# and split flags
+_SIGNATURES = {"flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
+               "flash_fwd_f32dots_bf16": _FWD_ARGS + [ctypes.c_int] * 2}
 
 
 def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
                    q_offset: int = 0, kv_offset: int = 0):
-    """Launch ``csrc/flash_fwd.cu``: returns (O [B,Lq,H,D], LSE [B,H,Lq]),
-    both float32.  ``q_offset``/``kv_offset`` are host ints (no device
-    sync); ``kv_lens`` is an int32 tensor [B] on the same device."""
+    """Launch ``csrc/flash_fwd.cu``: returns (O [B,Lq,H,D] in q's dtype,
+    float32 or bf16; LSE [B,H,Lq] float32).  ``q_offset``/``kv_offset``
+    are host ints (no device sync); ``kv_lens`` is an int32 tensor [B] on
+    the same device."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_fwd wants q [B,Lq,H,D], k/v [B,Lk,H,D]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -103,17 +123,22 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
         raise ValueError(f"head dim {d}: the kernel takes D <= {D_MAX}, "
                          f"a multiple of 4")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_operand(name, t, q.device)
+        check_kernel_operand(name, t, q.device, KERNEL_DTYPES)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if (kv_lens.dtype != torch.int32 or kv_lens.shape != (b,)
             or kv_lens.device != q.device or not kv_lens.is_contiguous()):
         raise ValueError("kv_lens must be a contiguous int32 [B] tensor on "
                          "the device of q")
-    o = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     lib = _build.load("flash_fwd", _SIGNATURES)
-    err = lib.flash_fwd_f32(
+    entry = (lib.flash_fwd_f32 if q.dtype == torch.float32
+             else lib.flash_fwd_bf16)
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, lq, lk, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -138,8 +163,9 @@ _BWD_SIGNATURES = {
 
 
 def _check_bwd_operands(q, k, v, g, lse, delta, kv_lens):
-    """What both backward kernels take: the forward's operands, dO shaped
-    like q, and contiguous float32 LSE and delta [B, H, Lq]."""
+    """What both backward kernels take: the forward's operands and dO
+    shaped like q, all float32, and contiguous float32 LSE and delta
+    [B, H, Lq]."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash backward wants q [B,Lq,H,D], k/v "
                          f"[B,Lk,H,D]; got {tuple(q.shape)}, "
@@ -244,6 +270,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        if q.dtype != torch.float32:
+            raise TypeError(
+                f"the flash backward kernels take float32, got {q.dtype}: "
+                f"bf16 gradients wait for the bf16 precision policy "
+                f"(ROADMAP.md item 1)")
         g = torch.zeros_like(o) if g is None else g.contiguous()
         # delta = rowsum(dO * O) - g_lse, [B, H, Lq]: the LSE output's
         # cotangent folds in here (d lse / d s = p)

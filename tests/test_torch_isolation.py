@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package
-``paddle_tpu``, by source (an AST scan) and at run time (importing every
+``chip_smoke.py``, imports JAX, anything of the JAX package ``paddle_tpu``
+or its ``tools``, by source (an AST scan) and at run time (importing every
 port module, or ``chip_smoke``, in a fresh interpreter adds no such entry
 to ``sys.modules``)."""
 
@@ -25,7 +25,7 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top.startswith("jax") or top == "paddle_tpu"
+    return top.startswith("jax") or top in ("paddle_tpu", "tools")
 
 
 def _forbidden_imports(path: str) -> list:
@@ -75,4 +75,13 @@ def test_importing_every_port_module_loads_no_jax():
     loaded = _loaded_after(f"for m in {mods!r}:\n    __import__(m)\n")
     assert "paddle_tpu_torch.serving.engine" in loaded
     assert "paddle_tpu_torch.trainer" in loaded
+    assert "paddle_tpu_torch.tools.flash_variants" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_the_sweep_entry_point_loads_no_jax():
+    """``python -m paddle_tpu_torch.tools.flash_variants`` imports only the
+    port: neither JAX nor the JAX package's own ``tools``."""
+    loaded = _loaded_after("import paddle_tpu_torch.tools.flash_variants")
+    assert "paddle_tpu_torch.ops.flash_variants" in loaded
     assert not [m for m in loaded if _forbidden(m)]

@@ -141,7 +141,8 @@ def test_http_infer_matches_jax_engine(snap):
                                          "flash_bwd_dq", "paged_decode",
                                          "lstm_step", "gru_step",
                                          "bn_fwd_stats", "bn_bwd_stats",
-                                         "matmul_stats", "conv3x3_stats"}
+                                         "matmul_stats", "conv3x3_stats",
+                                         "flash_variants"}
         assert stats["kv"]["used"] == 0          # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400
