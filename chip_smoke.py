@@ -34,8 +34,10 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    (``ops/flash_variants.py``: bf16 dots, exp2, split, pipelined, each at
    two tiles; the f32-dot instances at kernel 1's tile) at both shapes
    against its plain version at the same block_k, each launch moving the
-   counter: O within 2^-6 * max(1, max |ref|), LSE within
-   1e-4 * max(1, max |ref|);
+   counter: each row of O within 2^-7 of its norm (every element within
+   one bf16 ulp) and O within 2^-6 * max(1, max |ref|), LSE within
+   1e-4 * max(1, max |ref|); at both shapes a planted fault (the first 64
+   keys' P . V left out of the last 64 rows) must fail the O check;
 4. time kernel, plain version and the library call (the forward and
    backward of ``F.scaled_dot_product_attention``, a yardstick the port
    never calls; for the recurrent steps, which no one PyTorch call
@@ -43,7 +45,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    floor; for the conv kernels ``torch.var_mean``,
    ``torch.batch_norm_backward_reduce``, ``torch.mm`` alone and
    ``F.conv2d`` alone; for kernel 1 at bf16 and the sweep's variants
-   ``F.scaled_dot_product_attention`` at bf16), with CUDA events, L2
+   ``F.scaled_dot_product_attention`` at bf16; the sweep's own rows are
+   timed by the sweep, phase 10), with CUDA events, L2
    flushed between launches, each beside its bound (float32 FMAs at 67
    TFLOP/s, bf16 tensor cores at 989 TFLOP/s, or bytes at 3.35 TB/s);
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
@@ -103,7 +106,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
 10. the forward ablation sweep (``paddle_tpu_torch.tools.flash_variants``,
    ``run``) at the JAX tool's shape and ``--shape lm``: its ten rows with
    their times, rates and errors against row A; kernel 1 and the
-   variants' wrapper must both launch;
+   variants' wrapper must both launch; each row's time then stands beside
+   its bound, plain and library time;
 11. one JSON line each for the LM training, NMT and LSTM, sweep and ResNet
    runs, the card line again, one JSON line listing each kernel's numbers
    and, last, ``{"ok": true, "device": {...}}``.
@@ -126,10 +130,15 @@ import urllib.request
 import numpy as np
 import torch
 
+try:
+    from paddle_tpu_torch.tools import flash_variants as sweep_tool
+    from paddle_tpu_torch.tools.timing import (PEAK_BF16_FLOPS,
+                                               PEAK_F32_FLOPS, bound,
+                                               time_ms)
+except ImportError as e:
+    sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
+
 TOL = 1e-4
-PEAK_F32_FLOPS = 67e12        # H100 SXM, float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 on the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 # the serving slice's model: bench.py bench_transformer defaults
 VOCAB, DIM, HEADS, LAYERS, FFN_MULT, MAX_LEN = 32000, 512, 4, 8, 4, 4096
 SLOTS, BLOCK = 8, 16
@@ -153,36 +162,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def time_ms(fn, flush, iters=20, warmup=3, lead=False) -> float:
-    """Median device time of one call, L2 flushed before each.  With
-    ``lead`` the device first spins for ~10 ms (``torch.cuda._sleep``), so
-    the host has enqueued every call before the device reaches them and a
-    call shorter than its own launch overhead is timed on the device
-    alone, not at the host's pace."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if lead:
-        torch.cuda._sleep(20_000_000)
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in events)[iters // 2]
 
 
 # ---------------------------------------------------------------- kernels
@@ -436,28 +415,23 @@ def flash_bwd_phase(dev, gen, flush):
 
 
 # ------------------------------------------------ the forward ablation sweep
-# O within one bf16 ulp at the largest output and one more for the order of
-# the sums; the LSE is float32 throughout
-VAR_O_TOL, VAR_LSE_TOL = 2.0 ** -6, 1e-4
-_VD = dict(bf16_dots=True, use_exp2=True, split_loop=True)
-# every flag set run_fwd takes, each at its default tile and one more (the
-# f32-dot instances have one tile, kernel 1's 64 x 64)
-VARIANTS = (
-    ("B bf16 bq128 bk64", dict(bf16_dots=True)),
+# O, each row (b, l, h) within 2^-7 of its norm: one bf16 ulp is at most
+# 2^-7 of an element, so a row rounded one ulp apart in every element
+# passes, while a kernel that leaves one 64-key tile's P . V out of a row of
+# N keys moves it by about sqrt(64 / N), 1/8 at N 4096 (_planted_fault);
+# and the whole within 2^-6 * max(1, max |ref|).  The LSE is float32
+# throughout.
+VAR_O_ROW_TOL, VAR_O_TOL, VAR_LSE_TOL = 2.0 ** -7, 2.0 ** -6, 1e-4
+# flag sets and tiles that the sweep's rows (sweep_tool.ROWS) do not run,
+# held and timed here; the sweep's own rows are held here and timed by the
+# sweep.  The f32-dot instances have one tile, kernel 1's 64 x 64.
+EXTRA_VARIANTS = (
     ("B bf16 bq64 bk64", dict(bf16_dots=True, block_q=64)),
-    ("C bf16+exp2 bq128 bk64", dict(bf16_dots=True, use_exp2=True)),
     ("C bf16+exp2 bq64 bk64", dict(bf16_dots=True, use_exp2=True,
                                    block_q=64)),
-    ("D bf16+exp2+split bq128 bk64", _VD),
-    ("F D bq128 bk128", dict(_VD, block_k=128)),
-    ("F' D bq64 bk128", dict(_VD, block_q=64, block_k=128)),
     ("bf16+split bq128 bk64", dict(bf16_dots=True, split_loop=True)),
     ("bf16+split bq64 bk64", dict(bf16_dots=True, split_loop=True,
                                   block_q=64)),
-    ("G pipe bq128 bk64", dict(pipelined=True)),
-    ("G pipe bq64 bk64", dict(pipelined=True, block_q=64)),
-    ("G pipe bq128 bk128", dict(pipelined=True, block_k=128)),
-    ("G pipe bq64 bk128", dict(pipelined=True, block_q=64, block_k=128)),
     ("f32 bq64 bk64", dict()),
     ("f32+exp2 bq64 bk64", dict(use_exp2=True)),
     ("f32+split bq64 bk64", dict(split_loop=True)),
@@ -465,35 +439,65 @@ VARIANTS = (
 )
 
 
+def _o_row_err(o, ref) -> float:
+    """Largest ||o_r - ref_r|| / ||ref_r|| over the rows (b, l, h) of O."""
+    o, ref = o.float(), ref.float()
+    return (torch.linalg.vector_norm(o - ref, dim=-1)
+            / torch.linalg.vector_norm(ref, dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
 def _hold_bf16(what, o, lse, ro, rlse):
-    """O and LSE against the plain version's within VAR_O_TOL and
-    VAR_LSE_TOL of max(1, max |ref|); returns (err O, err LSE)."""
+    """O and LSE against the plain version's: O's rows within
+    VAR_O_ROW_TOL, O within VAR_O_TOL and the LSE within VAR_LSE_TOL of
+    max(1, max |ref|).  Returns (max |err| O, O's row error, max |err|
+    LSE)."""
     eo = (o.float() - ro.float()).abs().max().item()
+    er = _o_row_err(o, ro)
     el = (lse - rlse).abs().max().item()
     so = max(1.0, ro.float().abs().max().item())
     sl = max(1.0, rlse.abs().max().item())
-    ok = (eo <= VAR_O_TOL * so and el <= VAR_LSE_TOL * sl
+    ok = (er <= VAR_O_ROW_TOL and eo <= VAR_O_TOL * so
+          and el <= VAR_LSE_TOL * sl
           and torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
     if not ok:
         raise AssertionError(f"{what} disagrees with its plain version: O "
+                             f"row error {er} (limit {VAR_O_ROW_TOL}), O "
                              f"{eo} (limit {VAR_O_TOL * so}), LSE {el} "
                              f"(limit {VAR_LSE_TOL * sl})")
-    return eo, el
+    return eo, er, el
+
+
+def _planted_fault(q, k, v, ro, rlse, scale, n=64):
+    """The plain output ``ro`` (float32 [B, L, H, D]) with the first n
+    keys' share of P . V left out of the last n query rows, each key
+    weighted exp(s - lse) by the plain LSE ``rlse`` [B, H, L]: what a
+    kernel returns that skips one KV tile's product on its last q tile."""
+    qs, ks, vs = (x.float().transpose(1, 2)
+                  for x in (q[:, -n:], k[:, :n], v[:, :n]))
+    w = torch.exp(qs @ ks.transpose(-1, -2) * scale - rlse[:, :, -n:, None])
+    bad = ro.clone()
+    bad[:, -n:] -= (w @ vs).transpose(1, 2)
+    return bad
 
 
 def variants_phase(dev, gen, flush):
     """Kernel 1 on bf16 operands and every variant of the forward sweep
-    (``ops/flash_variants.py``) at the JAX tool's shape and the LM's
-    training shape, causal: each held against its plain version and timed
-    beside it, its bound and the library's bf16 attention."""
+    (``ops/flash_variants.py``: the sweep's rows and EXTRA_VARIANTS) at the
+    JAX tool's shape and the LM's training shape, causal: each held against
+    its plain version with its launch counted, and the O check shown to
+    reject a planted fault.  Times the plain versions, the library's bf16
+    attention and EXTRA_VARIANTS; the sweep times its own rows
+    (``sweep_path``, ``merge_sweep_times``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_variants as fv
-    from paddle_tpu_torch.tools.flash_variants import SHAPES, flops
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {"kernel1_bf16": {}, "variants": {}, "sdpa_bf16_ms": {}}
+    extra = {name for name, _ in EXTRA_VARIANTS}
+    out = {"kernel1_bf16": {}, "variants": {}, "sdpa_bf16_ms": {},
+           "planted_fault": {}}
     for shape in ("tool", "lm"):
-        b, h, l, d = SHAPES[shape]
+        b, h, l, d = sweep_tool.SHAPES[shape]
         q, k, v = (torch.randn(b, l, h, d, device=dev, generator=gen,
                                dtype=torch.bfloat16) for _ in range(3))
         lens = torch.full((b,), l, dtype=torch.int32, device=dev)
@@ -512,11 +516,27 @@ def variants_phase(dev, gen, flush):
         if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
             raise AssertionError(f"kernel 1 at bf16 gave {o.dtype}, "
                                  f"{lse.dtype}")
-        eo, el = _hold_bf16(f"flash_fwd bf16 {shape}", o,
-                            lse, ro.to(torch.bfloat16), rlse)
+        ro16 = ro.to(torch.bfloat16)
+        eo, er, el = _hold_bf16(f"flash_fwd bf16 {shape}", o, lse, ro16,
+                                rlse)
+        bad = _planted_fault(q, k, v, ro, rlse, kw["scale"])
+        bad = bad.to(torch.bfloat16)
+        fault = dict(row_err=_o_row_err(bad, ro16),
+                     max_abs_err=(bad.float() - ro16.float()).abs().max()
+                     .item(),
+                     whole_limit=VAR_O_TOL * max(
+                         1.0, ro16.float().abs().max().item()))
+        print(f"planted fault at [{b}, {l}, {h}, {d}] (the first 64 keys' "
+              f"P . V left out of the last 64 rows): O row error "
+              f"{fault['row_err']:.3e} (limit {VAR_O_ROW_TOL:.3e}), max|err| "
+              f"{fault['max_abs_err']:.3e} (whole-tensor limit "
+              f"{fault['whole_limit']:.3e})", flush=True)
+        if fault["row_err"] <= VAR_O_ROW_TOL:
+            raise AssertionError(f"the O check passes a planted fault: "
+                                 f"{fault}")
+        out["planted_fault"][shape] = fault
         ref_a = o.float()
-        del ro, rlse
-        ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw), flush)
+        del ro, rlse, ro16, bad
         with torch.no_grad():
             plain_ms = time_ms(lambda: fa._torch_attention(q, k, v, lens,
                                                            **kw),
@@ -528,15 +548,16 @@ def variants_phase(dev, gen, flush):
         b_ms, b_by = bound(work, nbytes)
         shape_d = {"B": b, "L": l, "H": h, "D": d, "causal": True}
         out["kernel1_bf16"][shape] = dict(
-            max_abs_err=max(eo, el), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms, shape=shape_d)
+            max_abs_err=max(eo, el), o_row_err=er, ms=None,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=shape_d)
         print(f"flash_fwd bf16 at [{b}, {l}, {h}, {d}] causal: max|err| O "
-              f"{eo:.3e} LSE {el:.3e}; ms {ms:.4f}  bound_ms {b_ms:.4f} "
+              f"{eo:.3e} (row {er:.3e}) LSE {el:.3e}; bound_ms {b_ms:.4f} "
               f"({b_by}, float32 FMAs)  plain_ms {plain_ms:.4f}  "
               f"library_ms (scaled_dot_product_attention, bf16) "
               f"{lib_ms:.4f}", flush=True)
 
-        for name, vkw in VARIANTS:
+        for name, vkw in sweep_tool.ROWS[1:] + EXTRA_VARIANTS:
             flags = fv.variant_flags(vkw.get("bf16_dots", False),
                                      vkw.get("use_exp2", False),
                                      vkw.get("split_loop", False),
@@ -553,28 +574,28 @@ def variants_phase(dev, gen, flush):
                                      f"move")
             ro, rlse = fv._torch_run_fwd(q, k, v, **args)
             torch.cuda.synchronize()
-            eo, el = _hold_bf16(f"{name} {shape}", o, lse, ro, rlse)
+            eo, er, el = _hold_bf16(f"{name} {shape}", o, lse, ro, rlse)
             err_a = (o.float() - ref_a).abs().max().item()
-            ms = time_ms(lambda: fv.run_fwd_cuda(q, k, v, **args), flush)
+            del o, lse, ro, rlse
+            ms = (time_ms(lambda: fv.run_fwd_cuda(q, k, v, **args), flush)
+                  if name in extra else None)
             plain_ms = time_ms(lambda: fv._torch_run_fwd(q, k, v, **args),
                                flush, iters=3, warmup=1)
             b_ms, b_by = bound(work, nbytes,
                                PEAK_BF16_FLOPS if flags[0]
                                else PEAK_F32_FLOPS)
             out["variants"].setdefault(name, {})[shape] = dict(
-                max_abs_err=max(eo, el), err_vs_A=err_a, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max(eo, el), o_row_err=er, err_vs_A=err_a,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms,
                 source=("paddle_tpu_torch/ops/csrc/flash_variants.cu"
                         if flags[0] else
                         "paddle_tpu_torch/ops/csrc/flash_fwd.cu"),
                 shape=shape_d)
-            print(f"  {name:28s} [{shape}] max|err| O {eo:.3e} LSE "
-                  f"{el:.3e}, vs row A {err_a:.4f}; ms {ms:.4f}  bound_ms "
-                  f"{b_ms:.4f} ({b_by}, "
-                  f"{'bf16' if flags[0] else 'float32'})  plain_ms "
-                  f"{plain_ms:.4f}  library_ms {lib_ms:.4f}", flush=True)
-            del o, lse, ro, rlse
+            print(f"  {name:28s} [{shape}] max|err| O {eo:.3e} (row "
+                  f"{er:.3e}) LSE {el:.3e}, vs row A {err_a:.4f}; plain_ms "
+                  f"{plain_ms:.4f}"
+                  + ("" if ms is None else f"  ms {ms:.4f}"), flush=True)
         del q, k, v, ref_a
         torch.cuda.empty_cache()
     return out
@@ -587,20 +608,40 @@ def sweep_path():
     read just after: kernel 1 (row A) and the variants' wrapper (rows B to
     G) must both have launched."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.tools import flash_variants as tool
 
     ops.reset_launch_counts()
     rows = {}
     for shape in ("tool", "lm"):
         print(f"the sweep (python -m paddle_tpu_torch.tools.flash_variants "
               f"--shape {shape}):", flush=True)
-        rows[shape] = tool.run(shape, seed=SEED)
+        rows[shape] = sweep_tool.run(shape, seed=SEED)
     launches = ops.launch_counts()
     if not (launches["flash_fwd"] and launches["flash_variants"]):
         raise AssertionError(f"the sweep launched {launches}")
     print(f"sweep launches: flash_fwd {launches['flash_fwd']}, "
           f"flash_variants {launches['flash_variants']}", flush=True)
     return launches, rows
+
+
+def merge_sweep_times(var, rows):
+    """The sweep's times into ``variants_phase``'s record (row A is kernel
+    1 at bf16), printed beside each one's bound, plain and library time."""
+    for shape, shape_rows in rows.items():
+        ms = {r["name"]: r["ms"] for r in shape_rows}
+        k1 = var["kernel1_bf16"][shape]
+        k1["ms"] = ms[sweep_tool.ROWS[0][0]]
+        print(f"[{shape}] {'kernel 1 at bf16 (row A)':28s} ms "
+              f"{k1['ms']:.4f}  bound_ms {k1['bound_ms']:.4f}  plain_ms "
+              f"{k1['plain_ms']:.4f}  library_ms {k1['library_ms']:.4f}",
+              flush=True)
+        for name, per in var["variants"].items():
+            r = per[shape]
+            if r["ms"] is None:
+                r["ms"] = ms[name]
+            print(f"[{shape}] {name:28s} ms {r['ms']:.4f}  bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})  plain_ms "
+                  f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f}",
+                  flush=True)
 
 
 # -------------------------------------------------------------- main path
@@ -2230,12 +2271,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    try:
-        from paddle_tpu_torch.ops import _build
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a checkout ({e})",
-              file=sys.stderr)
-        return 2
+    from paddle_tpu_torch.ops import _build
     # the plain versions are the reference: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2284,6 +2320,7 @@ def main() -> int:
     resnet = resnet_path()
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
+    merge_sweep_times(var, sweep_rows)
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2357,7 +2394,9 @@ def main() -> int:
              launches=sweep_launches["flash_variants"],
              headline="D bf16+exp2+split bq128 bk64",
              max_abs_err=max(r["max_abs_err"] for vs in
-                             var["variants"].values() for r in vs.values())),
+                             var["variants"].values() for r in vs.values()),
+             o_row_err=max(r["o_row_err"] for vs in
+                           var["variants"].values() for r in vs.values())),
     ]
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
@@ -2372,7 +2411,8 @@ def main() -> int:
                                             "parity")}}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
-                                "sdpa_bf16_ms": var["sdpa_bf16_ms"]}}),
+                                "sdpa_bf16_ms": var["sdpa_bf16_ms"],
+                                "planted_fault": var["planted_fault"]}}),
           flush=True)
     print(json.dumps({"resnet": {
         k: resnet[k] for k in ("losses", "first_step_ms", "step_ms",

@@ -50,9 +50,9 @@ from paddle_tpu_torch.ops.flash_attention import flash_attention, resolve_impl
 from paddle_tpu_torch.ops.flash_variants import (DEFAULT_TILE,
                                                  _torch_run_fwd,
                                                  run_fwd_cuda, variant_flags)
+from paddle_tpu_torch.tools.timing import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
+                                           time_ms)
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 on the tensor cores
-PEAK_F32_FLOPS = 67e12        # H100 SXM, float32 outside the tensor cores
 # (B, H, L, D)
 SHAPES = {"tool": (8, 8, 4096, 64), "lm": (8, 4, 4096, 128)}
 _D = dict(bf16_dots=True, use_exp2=True, split_loop=True)
@@ -101,31 +101,14 @@ def inputs(shape: str, device, seed: int = 0):
                              dtype=torch.bfloat16) for _ in range(3))
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call on CUDA events, L2 flushed before
-    each call."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in events)[iters // 2]
-
-
 def sweep(q, k, v, *, timed: bool = True) -> list:
     """The ten rows on q, k, v (causal): each row's output against row A's,
     and with ``timed`` its time on the card."""
     b, l, h, d = q.shape
     work = flops(b, h, l, d)
     ref = flash_attention(q, k, v, causal=True).float()
+    flush = (torch.empty(64 << 20, dtype=torch.uint8, device=q.device)
+             if timed else None)          # larger than L2
     rows = []
     for name, kw in ROWS:
         if kw is None:
@@ -141,7 +124,7 @@ def sweep(q, k, v, *, timed: bool = True) -> list:
                    peak_share=None,
                    peak="bf16" if bf16 else "float32")
         if timed:
-            ms = time_ms(fn)
+            ms = time_ms(fn, flush)
             rate = work / (ms * 1e-3)
             row.update(ms=ms, tflops=rate / 1e12, peak_share=rate / (
                 PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS))

@@ -8,7 +8,9 @@ The JAX tool's Pallas kernels run under the interpreter: the test points
 duration.  Inputs are numpy-seeded values rounded to bf16 once, so both
 packages see the same bf16 numbers.  Tolerances: O within
 2^-6 * max(1, max |ref|) (one bf16 ulp at the largest output and one more
-for the order of the sums), LSE within 1e-4 * max(1, max |ref|)."""
+for the order of the sums) and each of its rows within 2^-7 of the row's
+norm (a row one ulp off in every element), LSE within
+1e-4 * max(1, max |ref|)."""
 
 import functools
 import importlib
@@ -27,6 +29,7 @@ jtool = importlib.import_module("tools.flash_variants")
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 
 O_TOL = 2.0 ** -6
+O_ROW_TOL = 2.0 ** -7
 LSE_TOL = 1e-4
 
 # every flag set run_fwd accepts: bf16_dots x use_exp2 x split_loop, and
@@ -62,6 +65,15 @@ def _assert_close(got, want, tol):
     assert err <= tol * max(1.0, np.abs(want).max()), err
 
 
+def _assert_rows_close(got, want):
+    """Each row of O (over its last axis) within O_ROW_TOL of its norm."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = (np.linalg.norm(got - want, axis=-1)
+           / np.maximum(np.linalg.norm(want, axis=-1), 1e-30))
+    assert err.max() <= O_ROW_TOL, err.max()
+
+
 @pytest.fixture
 def interpret_pallas(monkeypatch):
     orig = pl.pallas_call
@@ -83,6 +95,7 @@ def test_run_fwd_matches_the_jax_tool(flags, geometry, causal,
     assert to.dtype == torch.bfloat16 and tl.dtype == torch.float32
     assert tuple(tl.shape) == (b * h, l, 1)
     _assert_close(to.float().numpy(), jo.astype(jnp.float32), O_TOL)
+    _assert_rows_close(to.float().numpy(), jo.astype(jnp.float32))
     _assert_close(tl.numpy(), jl, LSE_TOL)
 
 
@@ -110,6 +123,7 @@ def test_bf16_flash_attention_matches_jax(case):
     assert to.dtype == torch.bfloat16 and tl.dtype == torch.float32
     jo, jl = jfa.flash_attention(jq, jk, jv, impl="xla", **kw)
     _assert_close(to.float().numpy(), jo.astype(jnp.float32), 2.0 ** -7)
+    _assert_rows_close(to.float().numpy(), jo.astype(jnp.float32))
     _assert_close(tl.numpy(), jl, LSE_TOL)
     ko = jfa.flash_attention(jq, jk, jv, impl="interpret", block_q=8,
                              block_k=8, **kw)[0]
@@ -237,3 +251,55 @@ def test_instance_table_matches_the_cuda_source():
                           re.M)
     assert {tuple(int(x) for x in r) for r in rows} == tfv.VARIANT_INSTANCES
     assert len(rows) == len(tfv.VARIANT_INSTANCES)
+
+
+SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+\tcode for sm_90a
+\t\tFunction : _Z6kernAPKf
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   EXIT ;                   /* 0x000000000000794d */
+\t\t..........
+
+\t\tFunction : _Z6kernBPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe40000000800 */
+        /*0010*/                   EXIT ;                   /* 0x000000000000794d */
+\t\t..........
+"""
+
+
+def test_sass_diff_reads_and_compares_cuobjdump_listings():
+    """The SASS comparison takes each kernel's lines from a cuobjdump
+    listing by a part of its name and finds the first line that differs,
+    scheduling bits included."""
+    from paddle_tpu_torch.tools import sass_diff
+
+    table = sass_diff.kernels(SASS)
+    assert sorted(table) == ["_Z6kernAPKf", "_Z6kernBPKf"]
+    a, b = sass_diff.pick(table, "kernA"), sass_diff.pick(table, "kernB")
+    assert len(a) == 4 and len(b) == 3
+    assert sass_diff.first_difference(a, a) is None
+    assert sass_diff.first_difference(a[1:], b)[0] == 1
+    with pytest.raises(SystemExit, match="2 kernels match"):
+        sass_diff.pick(table, "kern")
+
+
+def test_bound_is_set_by_the_slower_of_operations_and_bytes():
+    """At the sweep's shape: 137.4 GFLOP over ~135 MB is bound by
+    operations on float32 FMAs (2.05 ms) and on bf16 tensor cores
+    (0.139 ms); a copy is bound by bytes."""
+    from paddle_tpu_torch.tools import timing
+
+    work = ttool.flops(8, 8, 4096, 64)
+    nbytes = 4 * 8 * 4096 * 8 * 64 * 2 + 8 * 8 * 4096 * 4
+    ms, by = timing.bound(work, nbytes)
+    assert by == "operations" and ms == pytest.approx(2.051, rel=1e-3)
+    ms, by = timing.bound(work, nbytes, timing.PEAK_BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.139, rel=1e-2)
+    ms, by = timing.bound(0.0, 3.35e9)
+    assert by == "bytes" and ms == pytest.approx(1.0)
