@@ -108,9 +108,31 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    their times, rates and errors against row A; kernel 1 and the
    variants' wrapper must both launch; each row's time then stands beside
    its bound, plain and library time;
-11. one JSON line each for the LM training, NMT and LSTM, sweep and ResNet
-   runs, the card line again, one JSON line listing each kernel's numbers
-   and, last, ``{"ok": true, "device": {...}}``.
+11. the bf16 precision policy: kernels 2 and 3 at bf16 at [8, 4096, 4,
+   128] causal (after the float32 backward checks), dQ, dK and dV held per
+   row within 2^-7 of the norm against ``_upcast_bwd`` (the Pallas
+   kernels' arithmetic, float32 on the bf16 operands) on the forward
+   kernel's own O and LSE, a planted fault (the last q tile left out of
+   dK/dV) shown to fail that check, the distance to the bf16 plain route
+   reported, each timed beside its bound, the plain route's backward and
+   SDPA's at bf16; kernels 5 and 6 at each bf16 instance (x bf16, the mask
+   float32 or bf16) against the plain step, timed (after the float32
+   recurrent checks).  After the LSTM route: the LM under ``bf16`` and
+   ``mixed`` (6 Adam steps at 8 x 4096 from the seeded weights, kernels
+   1, 2 and 3 launching their bf16 instances 8 times a step, the losses
+   within LM_BF16_BAND of the plain route's, the step breakdown, idle
+   share and peak memory); NMT and the LSTM route under ``bf16``
+   (kernel-route parity at batch 8 within RNN_BF16_TOLS, then their steps
+   with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
+   ``mixed`` on the card (an inf batch skips the step bit for bit and
+   halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
+   of ``flash_bwd.cu`` and ``rnn_step.cu`` against an earlier build:
+   SASS_BASE_DIR, or ``git archive`` of SASS_BASE_REV when the checkout
+   has its history; otherwise reported as not compared);
+12. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, sweep and ResNet runs, the card line again, one JSON line
+   listing each kernel's numbers and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The tokens/s, time-to-first-token and training step times it
@@ -929,12 +951,13 @@ def train_parity(paddle, topo, values, tokens, targets):
             "traj_rel": traj}
 
 
-def _gemm_ms(n, din, dout, dev, gen):
+def _gemm_ms(n, din, dout, dev, gen, dtype=torch.float32):
     """CUDA-event time of one fc's three products at N rows: y = x W, and
-    the backward's dx = dy W^T and dW = x^T dy (full float32)."""
-    x = torch.randn(n, din, device=dev, generator=gen)
-    w = torch.randn(din, dout, device=dev, generator=gen)
-    dy = torch.randn(n, dout, device=dev, generator=gen)
+    the backward's dx = dy W^T and dW = x^T dy (full float32, or bf16 on
+    the tensor cores)."""
+    x = torch.randn(n, din, device=dev, generator=gen).to(dtype)
+    w = torch.randn(din, dout, device=dev, generator=gen).to(dtype)
+    dy = torch.randn(n, dout, device=dev, generator=gen).to(dtype)
     fns = (lambda: x @ w, lambda: dy @ w.T, lambda: x.T @ dy)
     for fn in fns:
         fn()
@@ -950,34 +973,40 @@ def _gemm_ms(n, din, dout, dev, gen):
     return start.elapsed_time(end) / 3
 
 
-def step_breakdown(trainer, feed, attn_ms):
+def step_breakdown(trainer, feed, attn_ms, dtype=torch.float32):
     """Where one full-width training step's device time goes, from CUDA
     events: the whole step, forward + backward, the optimizer update, the
     loss (``_SoftmaxNLL`` forward and backward on logits of the step's
     shape), the dense products (each fc's three products at the step's
     shapes, times their count) and the attention kernels (their times at
     the training shape, times LAYERS); the rest is elementwise work and
-    gaps.  Then ``torch.profiler`` over one more step, for the device's
-    busy share and the kernels by device time."""
+    gaps.  ``dtype`` is the compute dtype of the logits and the products
+    (bf16 under the bf16 policies).  Then ``torch.profiler`` over one
+    more step, for the device's busy share and the kernels by device
+    time."""
     from paddle_tpu_torch.layers.cost import _SoftmaxNLL
 
     dev = trainer.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ls = trainer._opt_state.get("loss_scale")
     torch.cuda.synchronize()
     ev[0].record()
-    loss, grads = trainer.forward_backward(feed)
+    loss, grads, found = trainer._grads(feed,
+                                        None if ls is None else ls["scale"])
     ev[1].record()
-    trainer.optimizer.update(trainer._trainable, grads, trainer._opt_state,
-                             trainer.parameters.meta)
+    trainer.optimizer.update(
+        trainer._trainable, grads, trainer._opt_state,
+        trainer.parameters.meta,
+        finite=None if ls is None else torch.isfinite(loss) & (found[0] == 0))
     ev[2].record()
     torch.cuda.synchronize()
     del grads
     fb_ms, upd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     n = TRAIN_BATCH * MAX_LEN
-    logits = torch.randn(n, VOCAB, device=dev, generator=gen,
-                         requires_grad=True)
+    logits = torch.randn(n, VOCAB, device=dev, generator=gen).to(
+        dtype).requires_grad_(True)
     labels = torch.randint(0, VOCAB, (n,), device=dev, generator=gen)
     torch.cuda.synchronize()
     ev[0].record()
@@ -989,7 +1018,7 @@ def step_breakdown(trainer, feed, attn_ms):
     hid = DIM * FFN_MULT
     dense = {(DIM, DIM): 4 * LAYERS, (DIM, hid): LAYERS,
              (hid, DIM): LAYERS, (DIM, VOCAB): 1}
-    dense_ms = sum(count * _gemm_ms(n, a, b, dev, gen)
+    dense_ms = sum(count * _gemm_ms(n, a, b, dev, gen, dtype)
                    for (a, b), count in dense.items())
     attn = LAYERS * attn_ms
     step = fb_ms + upd_ms
@@ -1106,31 +1135,36 @@ def train_path(attn_ms):
 
 
 # ------------------------------------------------------- recurrent kernels
-def _rnn_args(kind, b, h, dev, gen):
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _rnn_args(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
     """One step's operands: x, h, (c), weights, bias, a [B, 1] mask with
-    about 30% zeros."""
+    about 30% zeros; x and the mask in ``dtypes``, the rest float32."""
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    m = (torch.rand(b, 1, device=dev, generator=gen) > 0.3).float()
+    m = (torch.rand(b, 1, device=dev, generator=gen) > 0.3).to(dtypes[1])
     if kind == "lstm":
-        return (randn(b, 4 * h), randn(b, h, scale=0.5), randn(b, h),
-                randn(h, 4 * h, scale=h ** -0.5), randn(4 * h, scale=0.1),
-                m)
-    return (randn(b, 3 * h), randn(b, h, scale=0.5),
+        return (randn(b, 4 * h).to(dtypes[0]), randn(b, h, scale=0.5),
+                randn(b, h), randn(h, 4 * h, scale=h ** -0.5),
+                randn(4 * h, scale=0.1), m)
+    return (randn(b, 3 * h).to(dtypes[0]), randn(b, h, scale=0.5),
             randn(h, 2 * h, scale=h ** -0.5), randn(h, h, scale=h ** -0.5),
             randn(3 * h, scale=0.1), m)
 
 
-def _rnn_check(kind, b, h, dev, gen):
-    """The kernel against its plain version at [B, H]: values (masked rows
-    copied bit for bit) and, through the autograd.Function, the gradients
-    of every input but the mask.  Returns (max abs error, max error
-    relative to max(1, max |ref|))."""
+def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
+    """The kernel against its plain version at [B, H] on x and the mask in
+    ``dtypes`` (the rest float32): values (masked rows copied bit for bit)
+    and, through the autograd.Function, the gradients of every input but
+    the mask.  Returns (max abs error, max error relative to max(1, max
+    |ref|))."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
     step = fr.lstm_step if kind == "lstm" else fr.gru_step
-    args = _rnn_args(kind, b, h, dev, gen)
+    args = _rnn_args(kind, b, h, dev, gen, dtypes)
     leaves = [t.requires_grad_(True) for t in args[:-1]]
     got = step(*leaves, args[-1], impl="cuda")
     ref = step(*leaves, args[-1], impl="torch")
@@ -1157,7 +1191,9 @@ def _rnn_check(kind, b, h, dev, gen):
         if not (rel <= TOL and torch.isfinite(a).all()):
             raise AssertionError(f"{kind}_step B={b} H={h}: {n} disagrees "
                                  f"with the plain version: {rel} > {TOL}")
-    print(f"{kind}_step B={b} H={h} ({int(dead.sum())} masked rows): "
+    tag = "" if dtypes[0] == torch.float32 else (
+        f" x {_dt(dtypes[0])}, mask {_dt(dtypes[1])}")
+    print(f"{kind}_step{tag} B={b} H={h} ({int(dead.sum())} masked rows): "
           f"error / max(1, max |ref|): " + ", ".join(line), flush=True)
     return worst_abs, worst_rel
 
@@ -1288,13 +1324,14 @@ def lstm_feed(b, lens=None, seed=SEED):
             "label": rng.randint(0, 2, b).astype(np.int32)}
 
 
-def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr):
+def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr,
+                 tols=(1e-5, TOL, TOL)):
     """Batch 8, from the same weights: the kernel route against the plain
     one (``use_fused_rnn=False``) on the card - the first loss (1e-5
     relative), every parameter gradient (1e-4 of max(1, max |g|)) and a
-    3-step Adam trajectory (1e-4 relative).  The kernel's counter must
-    move ``per_pass`` a forward on the kernel route and not at all on
-    the plain one."""
+    3-step Adam trajectory (1e-4 relative), or the limits ``tols`` gives
+    in that order.  The kernel's counter must move ``per_pass`` a forward
+    on the kernel route and not at all on the plain one."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.core import config
 
@@ -1321,7 +1358,8 @@ def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr):
                                  f"of {kernel}")
     (loss_k, grads_k, traj_k), (loss_t, grads_t, traj_t) = runs[True], \
         runs[False]
-    if not _rel(loss_k, loss_t) <= 1e-5:
+    loss_tol, grad_tol, traj_tol = tols
+    if not _rel(loss_k, loss_t) <= loss_tol:
         raise AssertionError(f"{name} first loss: kernel route {loss_k} vs "
                              f"plain {loss_t}")
     worst = (0.0, "")
@@ -1330,11 +1368,12 @@ def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr):
             rel = ((grads_k[lname][pname] - ref).abs().max().item()
                    / max(1.0, ref.abs().max().item()))
             worst = max(worst, (rel, f"{lname}.{pname}"))
-    if not worst[0] <= TOL:
+    if not worst[0] <= grad_tol:
         raise AssertionError(f"{name} gradient {worst[1]}: kernel route vs "
-                             f"plain {worst[0]} > {TOL} of max(1, max |g|)")
+                             f"plain {worst[0]} > {grad_tol} of max(1, max "
+                             f"|g|)")
     traj = max(_rel(a, b) for a, b in zip(traj_k, traj_t))
-    if len(traj_k) != 3 or not traj <= TOL:
+    if len(traj_k) != 3 or not traj <= traj_tol:
         raise AssertionError(f"{name} Adam trajectory: kernel route "
                              f"{traj_k} vs plain {traj_t}")
     print(f"{name} parity at batch {len(next(iter(feed.values())))}, kernel "
@@ -1453,6 +1492,7 @@ def nmt_breakdown(topo, trainer, feed):
     idle share from ``torch.profiler``.  The encoder and the decoder loop
     are host-bound, so their parts are the host's pace as much as the
     device's."""
+    from paddle_tpu_torch.core import config
     from paddle_tpu_torch.core.ir import collect_topology
     from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
     from paddle_tpu_torch.layers.cost import _SoftmaxNLL
@@ -1498,8 +1538,11 @@ def nmt_breakdown(topo, trainer, feed):
     head_w = params["dec_out"]["w0"]
     head_b = params["dec_out"]["b"]
 
+    dt = config.precision_policy().ctx_compute_dtype() or torch.float32
+
     def head():
-        loss = _SoftmaxNLL.apply(x @ head_w + head_b, labels).mean()
+        logits = x.to(dt) @ head_w.to(dt) + head_b.to(dt)
+        loss = _SoftmaxNLL.apply(logits, labels).mean()
         torch.autograd.grad(loss, [x, head_w, head_b])
 
     _, grads = trainer.forward_backward(feed)
@@ -1598,6 +1641,514 @@ def lstm_path():
     return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
             "first_step_ms": step_s[0] * 1e3, "peak_gb": peak_gb,
             "parity": parity}
+
+
+# ---------------------------------------------------- the bf16 policy slice
+# dQ, dK and dV of the bf16 backward kernels against the plain version of
+# the Pallas kernels' arithmetic (``_upcast_bwd``) on the same bf16
+# operands and the forward kernel's own O and LSE: each row (b, l, h)
+# within 2^-7 of its norm, one bf16 ulp of every element, as O is held in
+# the sweep (_grad_row_err).  A planted fault (one 64-row q tile's share
+# of dK and dV left out) must fail it.
+BWD_ROW_TOL = 2.0 ** -7
+# the bf16 routes against their plain routes on the card.  Recurrent
+# kernels: the same float32 arithmetic as the plain step, but each
+# product's sums in another order move a float32 h by ~1e-7, which can
+# flip the rounding of a downstream bf16 activation (2^-8 of it): the
+# first loss within 1e-4 relative, gradients within 1e-3 of max(1,
+# max |g|), a 3-step trajectory within 1e-3 (readings on the H100: at
+# most 5.8e-6, 1.5e-5 and 1.5e-4, the last the LSTM route's Adam at 2e-3
+# amplifying its second step).  The LM's plain route rounds P to bf16
+# before P . V (the JAX xla path), the kernels keep it float32: its 6-step
+# losses within LM_BF16_BAND relative of the kernel route's (readings: at
+# most 7.3e-6).
+RNN_BF16_TOLS = (1e-4, 1e-3, 1e-3)
+LM_BF16_BAND = 1e-4
+BF16_POLICIES = ("bf16", "mixed")
+
+
+def _grad_row_err(a, ref) -> float:
+    """Largest ||a_r - ref_r|| / max(||ref_r||, 2^-7 m) over the rows
+    (b, l, h), m the median row norm of ``ref``: a row whose gradient
+    cancels to rounding noise (dQ's first query rows, where dP - delta is
+    a difference of two equal sums) is held against that floor, not
+    against its own noise."""
+    a, ref = a.float(), ref.float()
+    norms = torch.linalg.vector_norm(ref, dim=-1)
+    floor = BWD_ROW_TOL * norms.median().item()
+    return (torch.linalg.vector_norm(a - ref, dim=-1)
+            / norms.clamp_min(max(floor, 1e-30))).max().item()
+
+
+def flash_bwd_bf16_phase(dev, gen, flush):
+    """Kernels 2 and 3 at bf16 at the LM's training shape, causal: dQ, dK
+    and dV held per row against ``_upcast_bwd`` on the kernels' operands,
+    the planted fault shown to fail that check, the distance to the bf16
+    plain route's autograd reported; each kernel's time beside its bound
+    (bf16 bytes, float32 FMAs), the bf16 plain route's backward and the
+    library's bf16 backward; and kernel 1's bf16 time at this shape (the
+    LM step breakdown's attention share)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, T, D = TRAIN_BATCH, MAX_LEN, DIM // HEADS
+    bf = torch.bfloat16
+    q, k, v, go = (torch.randn(B, T, HEADS, D, device=dev, generator=gen,
+                               dtype=bf) for _ in range(4))
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=D ** -0.5)
+    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    delta = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw)
+    ref = fa._upcast_bwd(q, k, v, lens, o, lse, go, **kw)
+    torch.cuda.synchronize()
+    if any(t.dtype != bf for t in (dq, dk, dv)):
+        raise AssertionError(f"bf16 backward gave {dq.dtype}, {dk.dtype}, "
+                             f"{dv.dtype}")
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        row = _grad_row_err(a, r)
+        err = (a.float() - r.float()).abs().max().item()
+        errs[name] = (err, row)
+        if not (row <= BWD_ROW_TOL and torch.isfinite(a.float()).all()):
+            raise AssertionError(f"flash_bwd bf16 {name}: row error {row} "
+                                 f"> {BWD_ROW_TOL} against _upcast_bwd")
+    # the planted fault: the last q tile's rows of dO zeroed leaves their
+    # share out of every dK and dV row (and the last 64 keys, which only
+    # that tile sees under causal masking, with none)
+    go_bad = go.clone()
+    go_bad[:, -64:] = 0
+    _, bad_k, bad_v = fa._upcast_bwd(q, k, v, lens, o, lse, go_bad, **kw)
+    fault = {n: _grad_row_err(b_, r) for n, b_, r in
+             (("dk", bad_k, ref[1]), ("dv", bad_v, ref[2]))}
+    if min(fault.values()) <= BWD_ROW_TOL:
+        raise AssertionError(f"the bf16 backward check passes a planted "
+                             f"fault: {fault}")
+    del go_bad, bad_k, bad_v
+    # the distance to the bf16 plain route (P rounded to bf16, autograd)
+    plain = _attn_grads(fa, q, k, v, lens, go, None, kw, "torch")
+    dist = {n: _grad_row_err(a, p) for n, a, p in
+            zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
+    del plain, ref
+    print(f"flash_bwd bf16 at [{B}, {T}, {HEADS}, {D}] causal against "
+          f"_upcast_bwd: " + ", ".join(
+              f"{n} max|err| {e:.3e} row {r:.3e}" for n, (e, r) in
+              errs.items())
+          + f" (row limit {BWD_ROW_TOL:.3e}); planted fault (the last q "
+          f"tile left out of dK/dV): row error dk {fault['dk']:.3e} dv "
+          f"{fault['dv']:.3e}; distance to the bf16 plain route's autograd "
+          f"(P rounded to bf16): " + ", ".join(
+              f"{n} row {r:.3e}" for n, r in dist.items()), flush=True)
+
+    t = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
+                        flush),
+         "dkdv": time_ms(lambda: fa.flash_bwd_dkdv_cuda(
+             q, k, v, go, lse, delta, lens, **kw), flush),
+         "dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
+             q, k, v, go, lse, delta, lens, **kw), flush)}
+    qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa._torch_attention(*qkv, lens, **kw)
+    t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(
+        out, qkv, go, retain_graph=True), flush, iters=5, warmup=1)
+    del out
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+    so = sdpa(*qt, is_causal=True, scale=kw["scale"])
+    t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+        so, qt, go.transpose(1, 2), retain_graph=True), flush)
+    del so
+    pairs = B * HEADS * T * (T + 1) // 2
+    row = 2.0 * B * T * HEADS * D             # one [B, T, H, D] bf16
+    vec = 4.0 * B * HEADS * T                 # one [B, H, T] float32
+    bounds = {"dkdv": bound(8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
+              "dq": bound(6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
+    out = {}
+    for name in ("dkdv", "dq"):
+        b_ms, b_by = bounds[name]
+        print(f"flash {name} bf16 at [{B}, {T}, {HEADS}, {D}] causal: ms "
+              f"{t[name]:.4f}  bound_ms {b_ms:.4f} ({b_by}, float32 FMAs)  "
+              f"plain_ms (the bf16 plain route's backward, whole) "
+              f"{t['plain_bwd']:.4f}  library_ms "
+              f"(scaled_dot_product_attention backward, bf16) "
+              f"{t['lib_bwd']:.4f}", flush=True)
+        e = (max(errs["dk"], errs["dv"]) if name == "dkdv" else errs["dq"])
+        out[name] = dict(ms=t[name], plain_ms=t["plain_bwd"], bound_ms=b_ms,
+                         bound_by=b_by, library_ms=t["lib_bwd"],
+                         max_abs_err=e[0], row_err=e[1])
+    out["fwd_ms"] = t["fwd"]
+    out["planted_fault"] = fault
+    out["distance_to_plain"] = dist
+    out["shape"] = {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
+                    "causal": True, "dtype": "bfloat16"}
+    return out
+
+
+def rnn_bf16_phase(dev, gen, flush):
+    """Kernels 5 and 6 at every bf16 instance (``fused_rnn.KERNEL_DTYPES``:
+    x bf16, the mask float32 or bf16) against the plain step on the same
+    operands, values and gradients within 1e-4 of max(1, max |ref|) with
+    masked rows copied bit for bit, at the routes' shapes and a ragged
+    one; each timed as the float32 rows are, its bytes counting x (and the
+    mask) at 2 bytes.  Every check moves the bf16 counters."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    out = {}
+    for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
+        wrapper = fr.lstm_step_cuda if kind == "lstm" else fr.gru_step_cuda
+        for dts in fr.KERNEL_DTYPES:
+            if dts[0] != torch.bfloat16:
+                continue
+            before = wrapper.launches_bf16
+            errs = [_rnn_check(kind, bb, hh, dev, gen, dts)
+                    for bb, hh in ((b, RNN_H), (37, 128))]
+            if wrapper.launches_bf16 == before:
+                raise AssertionError(f"{kind}_step {dts}: the bf16 counter "
+                                     f"did not move")
+            x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen, dts)
+            m = rest[-1]
+            live = int((m > 0).sum())
+            H = RNN_H
+            xb, mb = x.element_size(), m.element_size()
+            if kind == "lstm":
+                c, w, bias = rest[:3]
+                kernel = lambda: fr.lstm_step_cuda(x, h, c, w, bias, m)  # noqa
+                plain = lambda: fr._lstm_step_ref(x, h, c, w, bias, m)   # noqa
+                floor = lambda: torch.addmm(bias, h, w)                  # noqa
+                flops = 2.0 * live * H * 4 * H
+                nbytes = (xb * b * 4 * H + 4.0 * (4 * b * H + 4 * H * H
+                                                  + 4 * H) + mb * b)
+            else:
+                wg, wc, bias = rest[:3]
+                kernel = lambda: fr.gru_step_cuda(x, h, wg, wc, bias, m)  # noqa
+                plain = lambda: fr._gru_step_ref(x, h, wg, wc, bias, m)   # noqa
+                floor = lambda: (torch.addmm(bias[:2 * H], h, wg),        # noqa
+                                 torch.addmm(bias[2 * H:], h, wc))
+                flops = 2.0 * live * H * 3 * H
+                nbytes = (xb * b * 3 * H + 4.0 * (2 * b * H + 3 * H * H
+                                                  + 3 * H) + mb * b)
+            with torch.no_grad():
+                t = {"ms": time_ms(kernel, flush, lead=True),
+                     "plain_ms": time_ms(plain, flush, lead=True),
+                     "addmm_ms": time_ms(floor, flush, lead=True)}
+            b_ms, b_by = bound(flops, nbytes)
+            key = f"x {_dt(dts[0])}, mask {_dt(dts[1])}"
+            print(f"{kind}_step bf16 ({key}) at B {b}, H {H} ({live} live "
+                  f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
+                  f"plain_ms {t['plain_ms']:.4f}  library_ms none; the "
+                  f"product alone (torch.addmm) {t['addmm_ms']:.4f}",
+                  flush=True)
+            out.setdefault(kind, {})[key] = dict(
+                t, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=max(e[0] for e in errs),
+                max_rel_err=max(e[1] for e in errs),
+                shape={"B": b, "H": H, "live_rows": live})
+    return out
+
+
+def _policy(name):
+    """Make ``name`` the precision policy (every path sets its own)."""
+    from paddle_tpu_torch.core import precision
+    precision.apply_policy_name(name)
+
+
+def _lm_policy_run(paddle, topo, values, feed, policy, impl):
+    """TRAIN_STEPS Adam steps of ``trainer.SGD.train`` at batch
+    TRAIN_BATCH x MAX_LEN under ``policy`` with the attention on ``impl``
+    (None: the kernels; "torch": the plain route), counts set to 0 just
+    before and read just after."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+
+    _policy(policy)
+    config.set_option("attention_impl", impl)
+    try:
+        trainer = _trainer(paddle, topo, values)
+        losses, step_s, warm, peak_gb, launches = train_steps(
+            f"LM {policy} {'kernels' if impl is None else 'plain'}", paddle,
+            trainer, feed, TRAIN_STEPS, "flash_fwd",
+            LAYERS if impl is None else 0)
+    finally:
+        config.set_option("attention_impl", None)
+    return trainer, losses, step_s, warm, peak_gb, launches
+
+
+def lm_bf16_path(attn_bf16_ms, f32):
+    """The LM under ``bf16`` and ``mixed`` at ``bench_transformer`` widths,
+    8 x 4096, Adam 1e-4, from the seeded weights: TRAIN_STEPS steps on
+    the kernels, whose bf16 instances (kernels 1, 2 and 3) must each
+    launch LAYERS times a step, and on the plain route, whose losses must
+    stay within LM_BF16_BAND of theirs; the step time, the step breakdown,
+    the idle share and the peak memory beside the float32 run's."""
+    paddle, topo = _train_model()
+    values = random_values(SEED)
+    seqs = np.random.RandomState(SEED + 1).randint(
+        0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)).astype(np.int32)
+    feed = trainer_feed(seqs[:, :-1], seqs[:, 1:])
+    out = {}
+    try:
+        for policy in BF16_POLICIES:
+            tr, losses, step_s, warm, peak_gb, launches = _lm_policy_run(
+                paddle, topo, values, feed, policy, None)
+            want = LAYERS * TRAIN_STEPS
+            bf16 = {k: launches[k + "_bf16"] for k in TRAIN_KERNELS}
+            if any(n != want for n in bf16.values()) or any(
+                    launches[k] != want for k in TRAIN_KERNELS):
+                raise AssertionError(f"LM {policy}: the bf16 attention "
+                                     f"kernels did not run {LAYERS} times a "
+                                     f"step: {launches}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"LM {policy} losses not falling: "
+                                     f"{losses}")
+            scale = None
+            if policy == "mixed":
+                ls = tr._opt_state["loss_scale"]
+                scale = (float(ls["scale"]), int(ls["skipped"]))
+                if scale[1]:
+                    raise AssertionError(f"LM mixed skipped {scale[1]} of "
+                                         f"{TRAIN_STEPS} clean steps")
+            breakdown = step_breakdown(tr, feed, attn_bf16_ms, torch.bfloat16)
+            del tr
+            torch.cuda.empty_cache()
+            ptr, plain, _, plain_warm, plain_peak, plain_launches = \
+                _lm_policy_run(paddle, topo, values, feed, policy, "torch")
+            del ptr
+            torch.cuda.empty_cache()
+            if any(plain_launches[k] for k in TRAIN_KERNELS):
+                raise AssertionError(f"LM {policy} plain route launched "
+                                     f"{plain_launches}")
+            band = max(_rel(a, b) for a, b in zip(losses, plain))
+            if not band <= LM_BF16_BAND:
+                raise AssertionError(f"LM {policy}: kernel route {losses} "
+                                     f"vs plain route {plain}: {band} > "
+                                     f"{LM_BF16_BAND}")
+            print(f"LM {policy}: {TRAIN_STEPS} Adam steps (lr {TRAIN_LR}) "
+                  f"at batch {TRAIN_BATCH} x {MAX_LEN}, losses "
+                  f"{[round(x, 5) for x in losses]}, plain route "
+                  f"{[round(x, 5) for x in plain]} ({band:.2e} relative, "
+                  f"band {LM_BF16_BAND}); step time first "
+                  f"{step_s[0] * 1e3:.1f} ms, median after it "
+                  f"{warm * 1e3:.1f} ms = {TRAIN_BATCH * MAX_LEN / warm:.0f}"
+                  f" tokens/s (float32: {f32['step_ms']:.1f} ms; plain route"
+                  f" {plain_warm * 1e3:.1f} ms); peak memory {peak_gb:.2f} "
+                  f"GB (float32 {f32['peak_gb']:.2f}, plain route "
+                  f"{plain_peak:.2f}); bf16 launches {bf16}"
+                  + ("" if scale is None else
+                     f"; loss scale {scale[0]:g}, skipped {scale[1]}"),
+                  flush=True)
+            out[policy] = {"losses": losses, "plain_losses": plain,
+                           "band": band, "step_ms": warm * 1e3,
+                           "first_step_ms": step_s[0] * 1e3,
+                           "plain_step_ms": plain_warm * 1e3,
+                           "peak_gb": peak_gb, "plain_peak_gb": plain_peak,
+                           "launches": launches, "breakdown": breakdown,
+                           "loss_scale": scale}
+    finally:
+        _policy("fp32")
+    return out
+
+
+def rnn_bf16_paths():
+    """NMT and the LSTM route under ``bf16``: kernel-route parity against
+    ``use_fused_rnn=False`` at batch 8 (RNN_BF16_TOLS), then the steps of
+    the float32 paths with the bf16 instances' counters moving as the
+    float32 ones did (kernel 6: 100 a step; kernel 5: 200), the step time,
+    and for NMT the breakdown and the idle share."""
+    out = {}
+    paddle, topo = nmt_model()
+    values = seeded_values(topo, SEED)
+    try:
+        _policy("bf16")
+        parity = route_parity(
+            "NMT bf16", paddle, topo, values,
+            nmt_feed(8, [50, 37, 1, 12, 50, 25, 3, 44],
+                     [50, 1, 20, 33, 7, 50, 16, 2]),
+            "gru_step_bf16", 2 * NMT_LEN, NMT_LR, RNN_BF16_TOLS)
+        torch.cuda.empty_cache()
+        trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+            topo, values), paddle.optimizer.Adam(learning_rate=NMT_LR))
+        feed = nmt_feed(NMT_BATCH)
+        losses, step_s, warm, peak_gb, launches = train_steps(
+            "NMT bf16", paddle, trainer, feed, NMT_STEPS, "gru_step_bf16",
+            2 * NMT_LEN)
+        toks = NMT_BATCH * 2 * NMT_LEN
+        print(f"NMT bf16 training: {NMT_STEPS} Adam steps, losses "
+              f"{[round(x, 5) for x in losses]}; step time first "
+              f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} "
+              f"ms = {toks / warm:.0f} tokens/s (smoke figure); peak memory "
+              f"{peak_gb:.2f} GB; gru_step bf16 launches "
+              f"{launches['gru_step_bf16']}", flush=True)
+        breakdown = nmt_breakdown(topo, trainer, feed)
+        out["nmt"] = {"losses": losses, "step_ms": warm * 1e3,
+                      "first_step_ms": step_s[0] * 1e3,
+                      "tokens_per_s": toks / warm, "peak_gb": peak_gb,
+                      "parity": parity, "breakdown": breakdown,
+                      "launches": launches}
+        del trainer
+        torch.cuda.empty_cache()
+
+        paddle, topo = lstm_model()
+        _policy("bf16")
+        values = seeded_values(topo, SEED + 2)
+        parity = route_parity(
+            "LSTM route bf16", paddle, topo, values,
+            lstm_feed(8, [100, 1, 57, 100, 9, 33, 100, 80]),
+            "lstm_step_bf16", 2 * LSTM_LEN, LSTM_LR, RNN_BF16_TOLS)
+        trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+            topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
+        feed = lstm_feed(LSTM_BATCH)
+        losses, step_s, warm, peak_gb, launches = train_steps(
+            "LSTM route bf16", paddle, trainer, feed, LSTM_STEPS,
+            "lstm_step_bf16", 2 * LSTM_LEN, falling=False)
+        prof = profile_step(trainer, feed, "lstm_step")
+        print(f"LSTM route bf16 training: {LSTM_STEPS} Adam steps, losses "
+              f"{[round(x, 5) for x in losses]}; step time first "
+              f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} "
+              f"ms; peak memory {peak_gb:.2f} GB; lstm_step bf16 launches "
+              f"{launches['lstm_step_bf16']}; idle share "
+              + ("not measured" if prof["idle_share"] is None
+                 else f"{prof['idle_share']:.1%}"), flush=True)
+        out["lstm_route"] = {"losses": losses, "step_ms": warm * 1e3,
+                             "first_step_ms": step_s[0] * 1e3,
+                             "peak_gb": peak_gb, "parity": parity,
+                             "idle_share": prof["idle_share"],
+                             "launches": launches}
+    finally:
+        _policy("fp32")
+    return out
+
+
+def mixed_skip_phase(dev):
+    """``mixed`` on the card: an MLP (1024 -> 4096 relu -> 1000) takes two
+    clean Momentum steps, then a batch with one inf sample, which must
+    leave the parameters, the Momentum slots and the step counter bit for
+    bit, halve the loss scale and count one skipped step, with no host
+    read inside the step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.ir import reset_name_counters
+
+    reset_name_counters()
+    paddle.init(seed=SEED, precision="mixed")
+    try:
+        layer = paddle.layer
+        x = layer.data("x", paddle.data_type.dense_vector(1024))
+        y = layer.data("y", paddle.data_type.integer_value(1000))
+        h = layer.fc(x, size=4096, act="relu")
+        topo = paddle.Topology(layer.classification_cost(
+            layer.fc(h, size=1000), y))
+        tr = paddle.trainer.SGD(topo, paddle.parameters.create(topo),
+                                paddle.optimizer.Momentum(
+                                    learning_rate=0.01, momentum=0.9))
+        rng = np.random.RandomState(SEED)
+        xs = rng.randn(256, 1024).astype(np.float32)
+        ys = rng.randint(0, 1000, 256).astype(np.int32)
+        for _ in range(2):
+            tr._step({"x": xs, "y": ys})
+        before = [t.clone() for ps in tr._trainable.values()
+                  for t in ps.values()]
+        slots = [s.clone() for ps in tr._opt_state["slots"].values()
+                 for ss in ps.values() for s in ss.values()]
+        ls = {k: v.clone() for k, v in tr._opt_state["loss_scale"].items()}
+        t = tr._opt_state["t"].clone()
+        bad = xs.copy()
+        bad[7, 3] = np.inf
+        loss = tr._step({"x": bad, "y": ys})
+        torch.cuda.synchronize()
+        after = [t_ for ps in tr._trainable.values() for t_ in ps.values()]
+        slots_after = [s for ps in tr._opt_state["slots"].values()
+                       for ss in ps.values() for s in ss.values()]
+        new = tr._opt_state["loss_scale"]
+        ok = (not torch.isfinite(loss)
+              and all(torch.equal(a, b) for a, b in zip(after, before))
+              and all(torch.equal(a, b) for a, b in zip(slots_after, slots))
+              and torch.equal(tr._opt_state["t"], t)
+              and float(new["scale"]) == float(ls["scale"]) * 0.5
+              and int(new["skipped"]) == 1 and int(new["good_steps"]) == 0)
+        print(f"mixed on the card: two clean steps (loss scale "
+              f"{float(ls['scale']):g}, good steps {int(ls['good_steps'])}), "
+              f"then a batch with one inf sample: loss {float(loss)}, "
+              f"parameters, Momentum slots and step counter "
+              f"{'unchanged' if ok else 'CHANGED'}, loss scale "
+              f"{float(new['scale']):g}, skipped {int(new['skipped'])}",
+              flush=True)
+        if not ok:
+            raise AssertionError("mixed: the planted inf batch did not skip "
+                                 "the step and halve the scale")
+        return {"scale_before": float(ls["scale"]),
+                "scale_after": float(new["scale"]),
+                "skipped": int(new["skipped"])}
+    finally:
+        paddle.init(seed=SEED, precision="fp32")
+
+
+# the float32 instances the bf16 templates must leave alone:
+# (source, the kernel's name in the earlier build, in the new one)
+SASS_KERNELS = (
+    ("flash_bwd.cu", "flash_bwd_dkdv_kernelEPKf", "flash_bwd_dkdv_kernelIfE"),
+    ("flash_bwd.cu", "flash_bwd_dq_kernelEPKf", "flash_bwd_dq_kernelIfE"),
+    ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
+    ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
+    ("rnn_step.cu", "gru_cand_kernelEPKf", "gru_cand_kernelIffE"),
+)
+# the revision whose sources the float32 instances are compared with: the
+# last one before the bf16 instances (override with SASS_BASE_REV, or
+# point SASS_BASE_DIR at a directory holding that revision's ops/csrc)
+SASS_BASE_REV = "704dbc822bcc64241779e3b269892a62eb6b8e70"
+
+
+def sass_phase():
+    """``tools/sass_diff.py`` over SASS_KERNELS: each float32 instance's
+    machine code against the earlier revision's build, line for line.  The
+    earlier sources come from SASS_BASE_DIR or ``git archive`` of
+    SASS_BASE_REV; where neither is at hand (a copy of the tree without
+    its history) the comparison is reported as not made."""
+    import concurrent.futures
+    import os
+    import tarfile
+    from io import BytesIO
+
+    from paddle_tpu_torch.tools import sass_diff
+
+    csrc = "paddle_tpu_torch/ops/csrc"
+    base = os.environ.get("SASS_BASE_DIR")
+    tmp = tempfile.mkdtemp(prefix="sass_base_")
+    if base is None:
+        rev = os.environ.get("SASS_BASE_REV", SASS_BASE_REV)
+        try:
+            tar = subprocess.run(["git", "archive", rev, csrc], check=True,
+                                 capture_output=True, timeout=60).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"sass_diff: not compared - no earlier sources at hand "
+                  f"(git archive {rev[:12]}: "
+                  f"{getattr(e, 'stderr', b'') or e!s}".strip()[:300]
+                  + "; set SASS_BASE_DIR)", flush=True)
+            return {"compared": False}
+        tarfile.open(fileobj=BytesIO(tar)).extractall(tmp, filter="data")
+        base = os.path.join(tmp, csrc)
+    srcs = sorted({src for src, _, _ in SASS_KERNELS})
+    jobs = {}
+    with concurrent.futures.ThreadPoolExecutor(2 * len(srcs)) as pool:
+        for src in srcs:
+            stem = src.removesuffix(".cu")
+            jobs[("old", src)] = pool.submit(
+                sass_diff.sass_of, os.path.join(base, src), f"old_{stem}")
+            jobs[("new", src)] = pool.submit(
+                sass_diff.sass_of, os.path.join(csrc, src), f"new_{stem}")
+        listings = {key: sass_diff.kernels(f.result())
+                    for key, f in jobs.items()}
+    out = {}
+    for src, old_name, new_name in SASS_KERNELS:
+        old = sass_diff.pick(listings[("old", src)], old_name)
+        new = sass_diff.pick(listings[("new", src)], new_name)
+        diff = sass_diff.first_difference(old, new)
+        out[new_name] = len(old) if diff is None else diff
+        print(f"sass_diff {src} {new_name}: " + (
+            f"identical to the earlier build, {len(old)} SASS lines"
+            if diff is None else f"differs at line {diff[0]}: old "
+            f"{diff[1]!r}, new {diff[2]!r}"), flush=True)
+        if diff is not None:
+            raise AssertionError(f"{src}: the float32 instance "
+                                 f"{new_name} changed")
+    return {"compared": True, "lines": out}
 
 
 # ------------------------------------------------------------ conv kernels
@@ -2298,7 +2849,9 @@ def main() -> int:
     flash_err, flash_t = flash_phase(dev, gen, flush)
     paged_err, paged_t = paged_phase(dev, gen, flush)
     bwd = flash_bwd_phase(dev, gen, flush)
+    bwd16 = flash_bwd_bf16_phase(dev, gen, flush)
     rnn = rnn_phase(dev, gen, flush)
+    rnn16 = rnn_bf16_phase(dev, gen, flush)
     conv = conv_phase(dev, gen, flush)
     var = variants_phase(dev, gen, flush)
     del flush
@@ -2317,6 +2870,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     lstm = lstm_path()
     torch.cuda.empty_cache()
+    # the bf16 policy slice: the LM on kernels 1, 2 and 3 at bf16 (their
+    # times at the training shape from the bf16 backward phase)
+    lm16 = lm_bf16_path(bwd16["fwd_ms"] + bwd16["dkdv"]["ms"]
+                        + bwd16["dq"]["ms"], train)
+    torch.cuda.empty_cache()
+    rnn16_paths = rnn_bf16_paths()
+    torch.cuda.empty_cache()
+    mixed = mixed_skip_phase(dev)
+    torch.cuda.empty_cache()
+    sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
@@ -2385,8 +2948,34 @@ def main() -> int:
         dict(var["kernel1_bf16"]["tool"], name="flash_fwd_bf16",
              route="cuda", source="paddle_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="paddle_tpu/ops/flash_attention.py:90",
-             launches=sweep_launches["flash_fwd"],
+             launches=lm16["bf16"]["launches"]["flash_fwd_bf16"],
+             launches_mixed=lm16["mixed"]["launches"]["flash_fwd_bf16"],
+             launches_sweep=sweep_launches["flash_fwd"],
              lm_shape=var["kernel1_bf16"]["lm"]),
+        {"name": "flash_bwd_dkdv_bf16", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:285",
+         "launches": lm16["bf16"]["launches"]["flash_bwd_dkdv_bf16"],
+         "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dkdv_bf16"],
+         **{k: v for k, v in bwd16["dkdv"].items()},
+         "shape": bwd16["shape"]},
+        {"name": "flash_bwd_dq_bf16", "route": "cuda",
+         "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:370",
+         "launches": lm16["bf16"]["launches"]["flash_bwd_dq_bf16"],
+         "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dq_bf16"],
+         **{k: v for k, v in bwd16["dq"].items()},
+         "shape": bwd16["shape"]},
+        dict(rnn16["lstm"]["x bfloat16, mask float32"], name="lstm_step_bf16",
+             route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
+             replaces="paddle_tpu/ops/fused_rnn.py:44",
+             launches=rnn16_paths["lstm_route"]["launches"]["lstm_step_bf16"],
+             instances=rnn16["lstm"]),
+        dict(rnn16["gru"]["x bfloat16, mask float32"], name="gru_step_bf16",
+             route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
+             replaces="paddle_tpu/ops/fused_rnn.py:144",
+             launches=rnn16_paths["nmt"]["launches"]["gru_step_bf16"],
+             instances=rnn16["gru"]),
         dict(var["variants"]["D bf16+exp2+split bq128 bk64"]["tool"],
              name="flash_variants", route="cuda",
              source="paddle_tpu_torch/ops/csrc/flash_variants.cu",
@@ -2409,6 +2998,16 @@ def main() -> int:
         "lstm_route": {k: lstm[k] for k in ("losses", "first_step_ms",
                                             "step_ms", "peak_gb",
                                             "parity")}}), flush=True)
+    print(json.dumps({"bf16": {
+        "lm": {p: {k: v for k, v in r.items() if k != "launches"}
+               for p, r in lm16.items()},
+        "nmt": {k: v for k, v in rnn16_paths["nmt"].items()
+                if k != "launches"},
+        "lstm_route": {k: v for k, v in rnn16_paths["lstm_route"].items()
+                       if k != "launches"},
+        "flash_bwd": {k: bwd16[k] for k in ("planted_fault",
+                                            "distance_to_plain")},
+        "mixed_skip": mixed, "sass": sass}}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

@@ -31,18 +31,28 @@ from paddle_tpu_torch.topology import Topology
 
 __version__ = "0.1.0"
 
-PRECISIONS = ("fp32",)
+PRECISIONS = ("fp32", "bf16", "fp16", "mixed")
 
 
-def init(seed: int = 0, precision: str = "fp32", device=None, **options):
+def init(seed: int = 0, device=None, **options):
     """Framework initialisation (reference: paddle.init): records the rng
     seed and options, as ``paddle_tpu.init`` does.
 
     ``device`` becomes the default of every entry point (``Topology``
     forward, ``parameters.create``, ``trainer.SGD``); left unset it is the
     card, and with no card ``init`` raises.  Like every option it persists
-    until set again.  Only the ``fp32`` precision policy is ported: the
-    bf16 policies and their loss scaling are ROADMAP.md section 1, item 1.
+    until set again.
+
+    ``precision`` names the precision policy (``core/precision.py``), one
+    of ``PRECISIONS``: ``fp32`` (the default), ``bf16`` and ``fp16``
+    (reduced-precision compute on float32 master parameters) and
+    ``mixed`` (bf16 compute with dynamic loss scaling, tuned by
+    ``loss_scale_init``, ``loss_scale_growth_interval``,
+    ``loss_scale_growth_factor``, ``loss_scale_backoff_factor``,
+    ``loss_scale_max`` and ``loss_scale_min``).  ``compute_dtype`` is its
+    deprecated alias (``"bfloat16"`` means ``bf16``; warned once).  The
+    two apply in the order given, so the later spelling wins, and the
+    policy persists until named again.
 
     ``use_fused_rnn`` (default True) sends the standard LSTM and GRU cells
     on the card to their CUDA step kernels (``ops/fused_rnn.py``); False
@@ -58,19 +68,16 @@ def init(seed: int = 0, precision: str = "fp32", device=None, **options):
     ``"pallas"``: a relu batch norm on the card takes the CUDA statistic
     kernels 7a and 7b).
     """
-    if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision policy {precision!r} is not ported to "
-            f"paddle_tpu_torch yet (ROADMAP.md section 1, item 1); only "
-            f"{PRECISIONS} is")
-    if options.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={options['compute_dtype']!r}: only float32 is "
-            f"ported to paddle_tpu_torch")
+    from paddle_tpu_torch.core import precision as _precision
+
     if device is not None:
         _config.set_option("device", device)
     _config.default_device()          # no card and no device: raise
     _config.set_seed(seed)
-    _config.set_option("precision", precision)
     for k, v in options.items():
-        _config.set_option(k, v)
+        if k == "precision":
+            _precision.apply_policy_name(v)
+        elif k == "compute_dtype":
+            _precision.apply_legacy_compute_dtype(v)
+        else:
+            _config.set_option(k, v)

@@ -2,10 +2,15 @@
 
 Each activation is a named torch function under the JAX package's names,
 so ``resolve`` writes the same ``act`` attribute into the IR.  ``gelu`` is
-the tanh form, as ``jax.nn.gelu`` defaults to.
+the tanh form, as ``jax.nn.gelu`` defaults to; on a reduced-precision
+input it is ``jax.nn.gelu``'s formula evaluated op by op in that dtype,
+its constants rounded to it, which is how XLA evaluates it (bit-equal on
+bf16), where ``F.gelu`` would round once at the end.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +21,17 @@ class BaseActivation:
 
     def __call__(self, x):
         return apply(self.name, x)
+
+
+def _gelu(x):
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
 def _make(name):
@@ -42,7 +58,7 @@ _FNS = {
     "stanh": lambda x: 1.7159 * torch.tanh(2.0 / 3.0 * x),
     "softsign": lambda x: x / (1.0 + torch.abs(x)),
     "swish": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": _gelu,
     "elu": F.elu,
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
 }

@@ -4,7 +4,8 @@
 ``python -m paddle_tpu train`` (``cmd_train``): the config defines
 ``cost``, ``train_reader`` and optionally ``optimizer`` (default Momentum,
 lr 0.01, momentum 0.9) and ``feeding``, and is trained through
-``trainer.SGD``.  The JAX command's checkpoint, telemetry, prefetch,
+``trainer.SGD``; ``--precision`` names the precision policy, which wins
+over the config's own ``init``.  The JAX command's checkpoint, telemetry, prefetch,
 bucketing and steps-per-dispatch flags are not ported yet and raise.
 
 ``serve`` serves a transformer LM checkpoint through the paged decoder, as
@@ -25,8 +26,7 @@ import threading
 # flags of the JAX ``train`` verb this port does not have yet
 _UNPORTED_TRAIN_FLAGS = ("save_dir", "telemetry_dir", "metrics_port",
                          "prefetch_depth", "seq_buckets",
-                         "steps_per_dispatch", "precision",
-                         "compile_cache_dir")
+                         "steps_per_dispatch", "compile_cache_dir")
 
 
 def _serve_ready_line(role, host, port, **extra):
@@ -100,6 +100,11 @@ def cmd_train(args) -> None:
     config.set_option("device", args.device)
     config.default_device()
     cfg = _load_config(args.config)
+    if args.precision:
+        # after the config ran its own init (the flag wins), before the
+        # trainer is built under the policy
+        from paddle_tpu_torch.core import precision
+        precision.apply_policy_name(args.precision)
     cost = cfg["cost"]
     topo = paddle.Topology(cost)
     params = paddle.parameters.create(topo)
@@ -127,6 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print the cost every N batches")
     tr.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises with no card) or 'cpu'")
+    tr.add_argument("--precision", default=None,
+                    choices=["fp32", "bf16", "fp16", "mixed"],
+                    help="precision policy (overrides the config's init): "
+                         "fp32 = full precision; bf16/fp16 = "
+                         "reduced-precision compute on float32 master "
+                         "parameters; mixed = bf16 compute with dynamic "
+                         "loss scaling")
     for flag in _UNPORTED_TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", default=None,
                         help="not ported yet: raises")

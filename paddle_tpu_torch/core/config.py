@@ -1,8 +1,8 @@
-"""Global options, device resolution and the constants the attention kernels
-share.
+"""Global options, the precision policy, device resolution and the
+constants the attention kernels share.
 
 Counterpart of ``paddle_tpu/core/config.py`` (the options dict and its
-setters; backend detection) and of the constants at the top of
+setters, ``precision_policy``; backend detection) and of the constants at the top of
 ``paddle_tpu/ops/flash_attention.py``.
 """
 
@@ -43,7 +43,15 @@ _options: dict = {
     # on the card take the CUDA statistic kernels 7a and 7b)
     "fuse_conv_bn": False,
     "fused_bn_impl": None,
+    # the legacy spelling of the precision policy, kept in step with the
+    # "precision" option (core/precision.py), which is unset until init
+    # names a policy
+    "compute_dtype": "float32",
 }
+
+# the resolved precision Policy, cached until any option changes (every
+# Topology.forward and trainer step reads it)
+_policy_cache = None
 
 
 def set_seed(seed: int) -> None:
@@ -51,11 +59,32 @@ def set_seed(seed: int) -> None:
 
 
 def set_option(key: str, value) -> None:
+    global _policy_cache
     _options[key] = value
+    _policy_cache = None
 
 
 def get_option(key: str, default=None):
     return _options.get(key, default)
+
+
+def compute_dtype() -> torch.dtype:
+    """The legacy ``compute_dtype`` option as a torch dtype."""
+    from paddle_tpu_torch.core import precision
+
+    return precision.torch_dtype(_options["compute_dtype"])
+
+
+def precision_policy():
+    """The active precision policy (``core.precision.Policy``), resolved
+    from the ``precision`` option, or from the legacy ``compute_dtype``
+    option when no policy was named."""
+    global _policy_cache
+    if _policy_cache is None:
+        from paddle_tpu_torch.core import precision
+
+        _policy_cache = precision.resolve(_options)
+    return _policy_cache
 
 
 def resolve_device(device=None) -> torch.device:

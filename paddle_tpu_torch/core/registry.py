@@ -19,16 +19,19 @@ class ApplyContext:
     """Per-forward context threaded through layer ``apply()`` calls: train
     or test mode, the ``torch.Generator`` of the forward (for layers that
     draw random numbers; none of the ported ones does), the device, the
-    full parameter tree (tied weights), and the running-state namespace
+    compute dtype of the precision policy (None under float32: the layers
+    then cast nothing), the full parameter tree (tied weights), and the
+    running-state namespace
     (batch-norm moving mean and variance): a layer reads its own entries
     of ``state_in`` with ``get_state`` and writes new ones to ``state_out``
     with ``set_state``; ``Topology.forward`` sets the current layer."""
 
     def __init__(self, train: bool, generator: Optional[torch.Generator]
-                 = None, device=None):
+                 = None, device=None, compute_dtype=None):
         self.train = train
         self.generator = generator
         self.device = device
+        self.compute_dtype = compute_dtype
         self.params_tree: dict = {}   # full parameter tree (tied weights)
         self.state_in: dict = {}      # {layer_name: {key: tensor}}
         self.state_out: dict = {}

@@ -3,6 +3,11 @@ the DSL (``PositionEmbeddingLayer``, ``BahdanauAttentionLayer``,
 ``MultiHeadAttentionLayer``) and the KV-slot and paged-KV inner loop of
 the decoders (models/transformer.py).
 
+Under a reduced-precision policy the three layers cast as the JAX package
+does: the position table, the Bahdanau step's operands and weights, and
+the attention's q, k, v inputs and all four projections go to the compute
+dtype.
+
 ``MultiHeadAttentionLayer`` keeps its projections as ``torch.matmul`` (the
 JAX package leaves them to XLA) and runs the attention itself through
 ``flash_attention``: the CUDA forward and backward kernels on the card,
@@ -114,6 +119,8 @@ class PositionEmbeddingLayer(SeqLayerDef):
                 f"sequence length {t} exceeds position_embedding "
                 f"max_len {params['w'].shape[0]}")
         pos = params["w"][:t]
+        if ctx.compute_dtype is not None:
+            pos = pos.to(ctx.compute_dtype)
         return pos[None].expand((x.shape[0],) + tuple(pos.shape))
 
 
@@ -140,8 +147,12 @@ class BahdanauAttentionLayer(SeqLayerDef):
         mask = masks[0]
         if mask is None:
             mask = torch.ones(enc.shape[:2], device=enc.device)
-        return bahdanau_step(enc, enc_proj, state, params["w_dp"],
-                             params["v"], mask)
+        w_dp, v = params["w_dp"], params["v"]
+        dt = ctx.compute_dtype
+        if dt is not None:
+            enc, enc_proj, state, w_dp, v = (
+                x.to(dt) for x in (enc, enc_proj, state, w_dp, v))
+        return bahdanau_step(enc, enc_proj, state, w_dp, v, mask)
 
 
 @register_layer
@@ -180,6 +191,10 @@ class MultiHeadAttentionLayer(SeqLayerDef):
         dh = size // heads
         b, lq = q_in.shape[0], q_in.shape[1]
         lk = k_in.shape[1]
+        dt = ctx.compute_dtype
+        if dt is not None:
+            q_in, k_in, v_in = (x.to(dt) for x in (q_in, k_in, v_in))
+            params = {n: p.to(dt) for n, p in params.items()}
         q = (q_in @ params["wq"]).reshape(b, lq, heads, dh)
         k = (k_in @ params["wk"]).reshape(b, lk, heads, dh)
         v = (v_in @ params["wv"]).reshape(b, lk, heads, dh)

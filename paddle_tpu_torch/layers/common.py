@@ -2,8 +2,10 @@
 of ``paddle_tpu/layers/common.py`` the ported models need).
 
 ``fc`` lowers to one ``torch.matmul`` per input, as the JAX package leaves
-it to XLA; ``embedding`` is a row gather whose backward is autograd's
-scatter-add.  Sparse (ids + values) inputs and sparse-update tables are not
+it to XLA; under a reduced-precision policy each input and weight is cast
+to the compute dtype first, and the bias to the product's dtype.
+``embedding`` is a row gather of the float32 table (no cast, as in the JAX
+package) whose backward is autograd's scatter-add.  Sparse (ids + values) inputs and sparse-update tables are not
 ported yet and raise.
 """
 
@@ -83,10 +85,14 @@ class FCLayer(LayerDef):
                 raise ValueError(
                     f"fc share_from: source weights {tuple(w.shape)} don't "
                     f"fit input {x2.shape[1]} -> size {attrs['size']}")
+            if ctx.compute_dtype is not None:
+                x2 = x2.to(ctx.compute_dtype)
+                w = w.to(ctx.compute_dtype)
             y = x2 @ w
             out = y if out is None else out + y
         if "b" in params:
-            out = out + params["b"]
+            # in the product's dtype: the output stays in the compute dtype
+            out = out + params["b"].to(out.dtype)
         return act_mod.apply(attrs.get("act", "linear"), out)
 
 

@@ -12,7 +12,10 @@ and 7b, ``ops/fused_bn.py``) and ``conv_bn`` (kernels 8 and 9,
 ``ops/conv_bn.py``).
 
 Not ported yet: conv_transpose, maxout, bilinear_interp, pad, crop, spp,
-featmap_expand and the 3-D layers.
+featmap_expand and the 3-D layers; and the conv layers under a
+reduced-precision policy (the JAX package casts their x and w to the
+compute dtype; ResNet-50 at bf16 is ``ROADMAP.md`` section 2, K3 and K4),
+which raise rather than compute at float32.
 """
 
 from __future__ import annotations
@@ -33,6 +36,14 @@ def _pair(v):
     if isinstance(v, (tuple, list)):
         return tuple(v)
     return (v, v)
+
+
+def _refuse_reduced_precision(ctx, kind: str) -> None:
+    if ctx.compute_dtype is not None:
+        raise NotImplementedError(
+            f"{kind} under a {ctx.compute_dtype} compute dtype is not "
+            f"ported to paddle_tpu_torch yet (ROADMAP.md section 2, K3 "
+            f"and K4: ResNet-50 at bf16)")
 
 
 def _conv_out(n, k, s, p):
@@ -69,6 +80,7 @@ class ConvLayer(LayerDef):
         return specs
 
     def apply(self, attrs, params, inputs, ctx):
+        _refuse_reduced_precision(ctx, "conv")
         x = inputs[0]
         sh, sw = _pair(attrs.get("stride", 1))
         ph, pw = _pair(attrs.get("padding", 0))
@@ -335,6 +347,7 @@ class ConvBNLayer(LayerDef):
         ]
 
     def apply(self, attrs, params, inputs, ctx):
+        _refuse_reduced_precision(ctx, "conv_bn")
         x = inputs[0]
         eps = attrs.get("epsilon", 1e-5)
         momentum = attrs.get("moving_average_fraction", 0.9)

@@ -7,6 +7,11 @@ in ``_SoftmaxNLL``, which saves the logits and the [N] logsumexp, never a
 log-prob matrix: at the LM's full width (32768 tokens x 32000 classes)
 ``F.cross_entropy`` would keep another 4.2 GB float32 log-softmax for the
 backward.
+
+Under every precision policy the costs compute in float32 and return a
+float32 scalar (the policy's ``output_dtype``), as the JAX cost layers
+do: ``_SoftmaxNLL`` upcasts bf16 logits in its forward and returns their
+gradient in their own dtype.
 """
 
 from __future__ import annotations

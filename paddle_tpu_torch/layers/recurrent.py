@@ -44,20 +44,24 @@ def _kernel_route(x, h_dim: int, standard: bool) -> bool:
             and cfg.get_option("use_fused_rnn", True) and _on_card(x))
 
 
-def _time_major(x, mask):
-    """[B, T, ...] input and [B, T] mask (None: all real) as contiguous
-    time-major [T, B, ...] and [T, B], so each step's slice is contiguous."""
+def _time_major(x, mask, ones_dtype=torch.float32):
+    """[B, T, ...] input and [B, T] mask (None: all real, ones of
+    ``ones_dtype``) as contiguous time-major [T, B, ...] and [T, B], so
+    each step's slice is contiguous."""
     xs = x.transpose(0, 1).contiguous()
     if mask is None:
-        return xs, torch.ones(xs.shape[:2], dtype=torch.float32,
+        return xs, torch.ones(xs.shape[:2], dtype=ones_dtype,
                               device=x.device)
     return xs, mask.transpose(0, 1).contiguous()
 
 
 def _scan_time_major(step, carry, x, mask, reverse=False):
     """Loop ``step(carry, x_t, m_t) -> (carry, out_t)`` over the T axis of
-    ``x`` [B, T, ...]; returns the outputs stacked as [B, T, ...]."""
-    xs, ms = _time_major(x, mask)
+    ``x`` [B, T, ...]; returns the outputs stacked as [B, T, ...].  With no
+    mask every step is real, and the ones are in x's dtype, as the JAX
+    package makes them (so a bf16 input with no ``@len`` feed gives the
+    LSTM kernel a bf16 mask)."""
+    xs, ms = _time_major(x, mask, x.dtype)
     t_len = xs.shape[0]
     ys = [None] * t_len
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):

@@ -29,10 +29,19 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict:
     """Launches of each kernel so far in this process (the plain versions
-    are not counted)."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    are not counted): ``name`` counts every launch of the wrapper, at any
+    dtype; ``name_bf16`` those of its bf16 instances alone, for the
+    wrappers that have them."""
+    counts = {}
+    for name, fn in _wrappers().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            counts[name + "_bf16"] = fn.launches_bf16
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0

@@ -68,7 +68,8 @@ _SIGNATURES = {
 def _check(name, t, device, shape):
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{t.dtype}")
+                        f"{t.dtype} (bf16 instances: ROADMAP.md section 2, "
+                        f"K4; float16: K5)")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):

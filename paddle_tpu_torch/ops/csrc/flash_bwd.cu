@@ -1,4 +1,5 @@
-// Flash attention backward, float32, for Hopper (sm_90a): dK/dV and dQ.
+// Flash attention backward for Hopper (sm_90a): dK/dV and dQ, on float32
+// or bf16 operands.
 //
 // Replaces the Pallas TPU kernels paddle_tpu/ops/flash_attention.py::
 // _bwd_dkdv_kernel (launched by _flash_bwd.dkdv_call) and _bwd_dq_kernel
@@ -36,6 +37,19 @@
 //
 // Inputs are read through their strides: no transposed copy is made.
 // Every tile is masked (no unmasked interior split, as in flash_fwd.cu).
+//
+// bf16: both kernels are templates on the operand type T of q, k, v, dO
+// and of the outputs; LSE and delta are float32 at every T (the wrapper
+// computes delta in float32 from dO and O).  A bf16 tile is converted to
+// float32 as load_tile stages it (flash_common.cuh), so every product and
+// every FMA stays float32, as in the Pallas kernels, which upcast their
+// tiles before each dot: the bf16 instances do the float32 instances'
+// arithmetic on the rounded operands and read half the bytes, which
+// changes nothing at this shape, where operations bound the kernels.  The
+// accumulators are float32 to the end; the kernels write dK, dV and dQ in
+// T, each rounded once (store4), as the Pallas kernels write theirs in
+// k's, v's and q's dtype.  The float32 instances are the code before the
+// templates: the same loads, the same float4 stores.
 
 #include <math.h>
 
@@ -102,34 +116,34 @@ __device__ __forceinline__ void fma4(float* acc, float w, float4 x) {
 }
 
 // Write rows r0 + ty + 16a (< nrows) of a 4x8 accumulator patch, times
-// `mul`, into a [B, L, H, D] float32 tensor at (b, h).
-__device__ __forceinline__ void store_patch(float* out, float acc[4][8],
-                                           int r0, int nrows, int b, int h,
-                                           int H, int D, int tx, int ty,
+// `mul`, into a contiguous [B, L, H, D] tensor of T at (b, h).
+template <typename T>
+__device__ __forceinline__ void store_patch(T* out, float acc[4][8], int r0,
+                                           int nrows, int b, int h, int H,
+                                           int D, int tx, int ty,
                                            float mul) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = r0 + ty + 16 * a;
     if (row >= nrows) continue;
-    float* dst = out + (((long long)b * nrows + row) * H + h) * D;
+    T* dst = out + (((long long)b * nrows + row) * H + h) * D;
     if (tx * 4 < D)
-      *reinterpret_cast<float4*>(dst + tx * 4) =
-          make_float4(acc[a][0] * mul, acc[a][1] * mul, acc[a][2] * mul,
-                      acc[a][3] * mul);
+      store4(dst + tx * 4, acc[a][0] * mul, acc[a][1] * mul,
+             acc[a][2] * mul, acc[a][3] * mul);
     if (64 + tx * 4 < D)
-      *reinterpret_cast<float4*>(dst + 64 + tx * 4) =
-          make_float4(acc[a][4] * mul, acc[a][5] * mul, acc[a][6] * mul,
-                      acc[a][7] * mul);
+      store4(dst + 64 + tx * 4, acc[a][4] * mul, acc[a][5] * mul,
+             acc[a][6] * mul, acc[a][7] * mul);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int* __restrict__ kv_lens, float* __restrict__ dk,
-                      float* __restrict__ dv, int Lq, int Lk, int H, int D,
+                      const int* __restrict__ kv_lens, T* __restrict__ dk,
+                      T* __restrict__ dv, int Lq, int Lk, int H, int D,
                       long long sqb, long long sql, long long sqh,
                       long long skb, long long skl, long long skh,
                       long long svb, long long svl, long long svh,
@@ -150,10 +164,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = kj * kBk;
   const int row_len = min(kv_lens[b], Lk);
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
-  const float* gb = g + b * sgb + h * sgh;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const T* gb = g + b * sgb + h * sgh;
   const float* lb = lse + ((long long)b * H + h) * Lq;
   const float* db = delta + ((long long)b * H + h) * Lq;
   const float scale_log2 = scale * kLog2e;
@@ -224,12 +238,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_patch(dv, acc_v, k0, Lk, b, h, H, D, tx, ty, 1.f);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ g,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ kv_lens, float* __restrict__ dq,
+                    const int* __restrict__ kv_lens, T* __restrict__ dq,
                     int Lq, int Lk, int H, int D, long long sqb,
                     long long sql, long long sqh, long long skb,
                     long long skl, long long skh, long long svb,
@@ -248,10 +263,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qi * kBq;
   const int row_len = min(kv_lens[b], Lk);
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
-  const float* gb = g + b * sgb + h * sgh;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const T* gb = g + b * sgb + h * sgh;
   const float* lb = lse + ((long long)b * H + h) * Lq;
   const float* db = delta + ((long long)b * H + h) * Lq;
 
@@ -315,50 +330,80 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_patch(dq, acc, q0, Lq, b, h, H, D, tx, ty, scale);
 }
 
-}  // namespace
+#define FLASH_BWD_STRIDES                                                 \
+  long long sqb, long long sql, long long sqh, long long skb, long long skl, \
+      long long skh, long long svb, long long svl, long long svh,           \
+      long long sgb, long long sgl, long long sgh, int q_off, int kv_off,   \
+      int causal, float scale, void *stream
+#define FLASH_BWD_PASS                                                     \
+  sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sgb, sgl, sgh, q_off, kv_off, \
+      causal, scale
 
-extern "C" int flash_bwd_dkdv_f32(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, const void* kv_lens, void* dk,
-    void* dv, int B, int Lq, int Lk, int H, int D, long long sqb,
-    long long sql, long long sqh, long long skb, long long skl,
-    long long skh, long long svb, long long svl, long long svh,
-    long long sgb, long long sgl, long long sgh, int q_off, int kv_off,
-    int causal, float scale, void* stream) {
+template <typename T>
+int dkdv_launch(const void* q, const void* k, const void* v, const void* g,
+                const void* lse, const void* delta, const void* kv_lens,
+                void* dk, void* dv, int B, int Lq, int Lk, int H, int D,
+                FLASH_BWD_STRIDES) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kDkdvSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lk + kBk - 1) / kBk, B * H);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, kDkdvSmemBytes,
-                          (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      (const float*)lse, (const float*)delta, (const int*)kv_lens,
-      (float*)dk, (float*)dv, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh,
-      svb, svl, svh, sgb, sgl, sgh, q_off, kv_off, causal, scale);
+  flash_bwd_dkdv_kernel<T><<<grid, kThreads, kDkdvSmemBytes,
+                             (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
+      (const float*)delta, (const int*)kv_lens, (T*)dk, (T*)dv, Lq, Lk, H, D,
+      FLASH_BWD_PASS);
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_bwd_dq_f32(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, const void* kv_lens, void* dq,
-    int B, int Lq, int Lk, int H, int D, long long sqb, long long sql,
-    long long sqh, long long skb, long long skl, long long skh,
-    long long svb, long long svl, long long svh, long long sgb,
-    long long sgl, long long sgh, int q_off, int kv_off, int causal,
-    float scale, void* stream) {
+template <typename T>
+int dq_launch(const void* q, const void* k, const void* v, const void* g,
+              const void* lse, const void* delta, const void* kv_lens,
+              void* dq, int B, int Lq, int Lk, int H, int D,
+              FLASH_BWD_STRIDES) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kDqSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + kBq - 1) / kBq, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, kDqSmemBytes,
-                        (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      (const float*)lse, (const float*)delta, (const int*)kv_lens,
-      (float*)dq, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
-      sgb, sgl, sgh, q_off, kv_off, causal, scale);
+  flash_bwd_dq_kernel<T><<<grid, kThreads, kDqSmemBytes,
+                           (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const float*)lse,
+      (const float*)delta, (const int*)kv_lens, (T*)dq, Lq, Lk, H, D,
+      FLASH_BWD_PASS);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One C entry per instance and kernel: q, k, v, dO and the outputs
+// float32 (_f32) or bf16 (_bf16); LSE and delta float32 in both.
+#define DKDV_ARGS                                                          \
+  const void *q, const void *k, const void *v, const void *g,             \
+      const void *lse, const void *delta, const void *kv_lens, void *dk,  \
+      void *dv, int B, int Lq, int Lk, int H, int D, FLASH_BWD_STRIDES
+#define DKDV_PASS                                                          \
+  q, k, v, g, lse, delta, kv_lens, dk, dv, B, Lq, Lk, H, D, FLASH_BWD_PASS, \
+      stream
+#define DQ_ARGS                                                            \
+  const void *q, const void *k, const void *v, const void *g,             \
+      const void *lse, const void *delta, const void *kv_lens, void *dq,  \
+      int B, int Lq, int Lk, int H, int D, FLASH_BWD_STRIDES
+#define DQ_PASS                                                            \
+  q, k, v, g, lse, delta, kv_lens, dq, B, Lq, Lk, H, D, FLASH_BWD_PASS, stream
+
+extern "C" int flash_bwd_dkdv_f32(DKDV_ARGS) {
+  return dkdv_launch<float>(DKDV_PASS);
+}
+extern "C" int flash_bwd_dkdv_bf16(DKDV_ARGS) {
+  return dkdv_launch<__nv_bfloat16>(DKDV_PASS);
+}
+extern "C" int flash_bwd_dq_f32(DQ_ARGS) {
+  return dq_launch<float>(DQ_PASS);
+}
+extern "C" int flash_bwd_dq_bf16(DQ_ARGS) {
+  return dq_launch<__nv_bfloat16>(DQ_PASS);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,7 +1,8 @@
 // What the flash-attention kernels on CUDA cores share (flash_fwd.cu and
 // flash_bwd.cu): the tile geometry, the masked-score sentinel and exp2
 // fold, the tile loader (float32 or bf16 in, float32 in shared memory),
-// and the visibility rule - which KV tiles a q tile sees and which q tiles
+// the store of four float32 results as float32 or bf16, and the
+// visibility rule - which KV tiles a q tile sees and which q tiles
 // see a KV tile - as one definition, the way
 // paddle_tpu/ops/flash_attention.py keeps _causal_nk_eff and _causal_i0.
 //
@@ -66,6 +67,22 @@ __device__ __forceinline__ void load_tile(float* dst, int sld, const T* src,
     }
     *reinterpret_cast<float4*>(dst + r * sld + c * 4) = val;
   }
+}
+
+// Four floats stored as four consecutive elements of T: one 16-byte store
+// for float, one 8-byte store of round-to-nearest bf16 pairs for bf16.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Whether the query at global position qpos sees key kp of this call.

@@ -37,8 +37,8 @@
 // every row of the q tile sees whole (below the causal diagonal of its
 // first row and inside kv_len) without the visibility test, then the
 // boundary tiles with it, as the TPU kernel's two loops do.
-// flash_common.cuh holds the tile loader and the visibility rule, shared
-// with the backward kernels (flash_bwd.cu).
+// flash_common.cuh holds the tile loader, the store of four outputs and
+// the visibility rule, shared with the backward kernels (flash_bwd.cu).
 
 #include <math.h>
 
@@ -50,21 +50,6 @@ using namespace flash;
 
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBq * kQs + kBk * kQs + kBk * kDMax + kBq * kPs);
-
-// Four floats stored as four elements of T.
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 // scale_q folds into q as it is staged: scale * log2(e) with EXP2, scale
 // without.

@@ -1,4 +1,5 @@
-// One LSTM step and one GRU step, float32, for Hopper (sm_90a).
+// One LSTM step and one GRU step, for Hopper (sm_90a): float32, and the
+// bf16 instances the bf16 precision policy reaches.
 //
 // Replaces the Pallas TPU kernels paddle_tpu/ops/fused_rnn.py::_lstm_kernel
 // (launched by _lstm_pallas) and ::_gru_kernel (launched by _gru_pallas).
@@ -43,10 +44,20 @@
 // - Ragged edges (B not a multiple of 16, H not a multiple of 32 or 128)
 //   read zeros and skip their writes, so any B and H launch.
 //
-// Every operand is a contiguous row-major float32 array; b is read at an
-// offset of 2H for the GRU's candidate bias (the TPU wrapper passes it
-// pre-split), and the mask is [B] floats.
+// Every operand is a contiguous row-major array; b is read at an offset of
+// 2H for the GRU's candidate bias (the TPU wrapper passes it pre-split),
+// and the mask is [B] values.  h, c, the weights and the bias are float32;
+// x and the mask are float32 or bf16 (template parameters X and M), the
+// combinations the JAX package reaches under its bf16 policy: x is an fc
+// output in the compute dtype, the mask float32 from an @len feed or in
+// x's dtype when the recurrence makes its own ones.  A bf16 value is read
+// with __bfloat162float where it enters the gate sums, so all arithmetic
+// stays float32, as in the Pallas kernels, which upcast every operand; the
+// outputs follow h and are float32.  The products read h (or r h) and W
+// only, so the bf16 instances run the same tile_product as the float32
+// ones; the float32 instances are the code before the templates.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -68,6 +79,12 @@ constexpr int kUnits = kBN / 4;         // LSTM: hidden units per block
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// An x or mask element as float.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Column maps: tile column jj -> column of W, or -1 outside the matrix.
@@ -185,10 +202,11 @@ __device__ __forceinline__ bool tile_product(const float* __restrict__ A,
   return true;
 }
 
+template <typename X, typename M>
 __global__ void __launch_bounds__(kThreads)
-lstm_step_kernel(const float* __restrict__ x, const float* __restrict__ h,
+lstm_step_kernel(const X* __restrict__ x, const float* __restrict__ h,
                  const float* __restrict__ c, const float* __restrict__ w,
-                 const float* __restrict__ b, const float* __restrict__ m,
+                 const float* __restrict__ b, const M* __restrict__ m,
                  float* __restrict__ h_out, float* __restrict__ c_out, int B,
                  int H) {
   const int row0 = blockIdx.y * kBM, u0 = blockIdx.x * kUnits;
@@ -201,8 +219,8 @@ lstm_step_kernel(const float* __restrict__ x, const float* __restrict__ h,
   for (int i = 0; i < kTM; ++i) {
     const int row = row0 + ty * kTM + i;
     if (row >= B) continue;
-    const bool live = m[row] > 0.f;
-    const float* xr = x + (long long)row * 4 * H;
+    const bool live = to_f(m[row]) > 0.f;
+    const X* xr = x + (long long)row * 4 * H;
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
       // thread column j = g * kQ + q is tile column kUnits * g + kTX * q
@@ -216,10 +234,12 @@ lstm_step_kernel(const float* __restrict__ x, const float* __restrict__ h,
         c_out[at] = cv;
         continue;
       }
-      const float gi = xr[u] + acc[i][q] + b[u];
-      const float gf = xr[H + u] + acc[i][kQ + q] + b[H + u];
-      const float gc = xr[2 * H + u] + acc[i][2 * kQ + q] + b[2 * H + u];
-      const float go = xr[3 * H + u] + acc[i][3 * kQ + q] + b[3 * H + u];
+      const float gi = to_f(xr[u]) + acc[i][q] + b[u];
+      const float gf = to_f(xr[H + u]) + acc[i][kQ + q] + b[H + u];
+      const float gc =
+          to_f(xr[2 * H + u]) + acc[i][2 * kQ + q] + b[2 * H + u];
+      const float go =
+          to_f(xr[3 * H + u]) + acc[i][3 * kQ + q] + b[3 * H + u];
       const float c_new = sigmoid_f(gf) * cv + sigmoid_f(gi) * tanhf(gc);
       h_out[at] = sigmoid_f(go) * tanhf(c_new);
       c_out[at] = c_new;
@@ -227,8 +247,9 @@ lstm_step_kernel(const float* __restrict__ x, const float* __restrict__ h,
   }
 }
 
+template <typename X>
 __global__ void __launch_bounds__(kThreads)
-gru_gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
+gru_gates_kernel(const X* __restrict__ x, const float* __restrict__ h,
                  const float* __restrict__ wg, const float* __restrict__ b,
                  float* __restrict__ z, float* __restrict__ rh, int B,
                  int H) {
@@ -245,8 +266,8 @@ gru_gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
     for (int j = 0; j < kTN; ++j) {
       const int col = c0 + tx + kTX * j;
       if (col >= 2 * H) continue;
-      const float v =
-          sigmoid_f(x[(long long)row * 3 * H + col] + acc[i][j] + b[col]);
+      const float v = sigmoid_f(to_f(x[(long long)row * 3 * H + col]) +
+                                acc[i][j] + b[col]);
       if (col < H) {
         z[(long long)row * H + col] = v;
       } else {
@@ -257,11 +278,12 @@ gru_gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
   }
 }
 
+template <typename X, typename M>
 __global__ void __launch_bounds__(kThreads)
-gru_cand_kernel(const float* __restrict__ x, const float* __restrict__ h,
+gru_cand_kernel(const X* __restrict__ x, const float* __restrict__ h,
                 const float* __restrict__ z, const float* __restrict__ rh,
                 const float* __restrict__ wc, const float* __restrict__ b,
-                const float* __restrict__ m, float* __restrict__ h_out,
+                const M* __restrict__ m, float* __restrict__ h_out,
                 int B, int H) {
   const int row0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN;
   float acc[kTM][kTN];
@@ -272,7 +294,7 @@ gru_cand_kernel(const float* __restrict__ x, const float* __restrict__ h,
   for (int i = 0; i < kTM; ++i) {
     const int row = row0 + ty * kTM + i;
     if (row >= B) continue;
-    const bool live = m[row] > 0.f;
+    const bool live = to_f(m[row]) > 0.f;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int u = c0 + tx + kTX * j;
@@ -283,7 +305,7 @@ gru_cand_kernel(const float* __restrict__ x, const float* __restrict__ h,
         h_out[at] = hv;
         continue;
       }
-      const float cand = tanhf(x[(long long)row * 3 * H + 2 * H + u] +
+      const float cand = tanhf(to_f(x[(long long)row * 3 * H + 2 * H + u]) +
                                acc[i][j] + b[2 * H + u]);
       const float zv = z[at];
       h_out[at] = (1.f - zv) * hv + zv * cand;
@@ -291,36 +313,67 @@ gru_cand_kernel(const float* __restrict__ x, const float* __restrict__ h,
   }
 }
 
-}  // namespace
-
-extern "C" int lstm_step_f32(const void* x, const void* h, const void* c,
-                             const void* w, const void* b, const void* m,
-                             void* h_out, void* c_out, int B, int H,
-                             void* stream) {
+template <typename X, typename M>
+int lstm_launch(const void* x, const void* h, const void* c, const void* w,
+                const void* b, const void* m, void* h_out, void* c_out,
+                int B, int H, void* stream) {
   dim3 grid((H + kUnits - 1) / kUnits, (B + kBM - 1) / kBM);
-  lstm_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)h, (const float*)c, (const float*)w,
-      (const float*)b, (const float*)m, (float*)h_out, (float*)c_out, B, H);
+  lstm_step_kernel<X, M><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const X*)x, (const float*)h, (const float*)c, (const float*)w,
+      (const float*)b, (const M*)m, (float*)h_out, (float*)c_out, B, H);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gru_step_f32(const void* x, const void* h, const void* wg,
-                            const void* wc, const void* b, const void* m,
-                            void* z, void* rh, void* h_out, int B, int H,
-                            void* stream) {
+template <typename X, typename M>
+int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
+               const void* b, const void* m, void* z, void* rh, void* h_out,
+               int B, int H, void* stream) {
   const int rows = (B + kBM - 1) / kBM;
-  gru_gates_kernel<<<dim3((2 * H + kBN - 1) / kBN, rows), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)h, (const float*)wg, (const float*)b,
+  gru_gates_kernel<X><<<dim3((2 * H + kBN - 1) / kBN, rows), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const X*)x, (const float*)h, (const float*)wg, (const float*)b,
       (float*)z, (float*)rh, B, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gru_cand_kernel<<<dim3((H + kBN - 1) / kBN, rows), kThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)h, (const float*)z, (const float*)rh,
-      (const float*)wc, (const float*)b, (const float*)m, (float*)h_out, B,
-      H);
+  gru_cand_kernel<X, M><<<dim3((H + kBN - 1) / kBN, rows), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const X*)x, (const float*)h, (const float*)z, (const float*)rh,
+      (const float*)wc, (const float*)b, (const M*)m, (float*)h_out, B, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One C entry per instance: x and the mask float32 (f32), x bf16 with a
+// float32 mask (bf16), both bf16 (bf16_mbf16).
+#define LSTM_ARGS                                                        \
+  const void *x, const void *h, const void *c, const void *w,           \
+      const void *b, const void *m, void *h_out, void *c_out, int B,    \
+      int H, void *stream
+#define LSTM_PASS x, h, c, w, b, m, h_out, c_out, B, H, stream
+#define GRU_ARGS                                                         \
+  const void *x, const void *h, const void *wg, const void *wc,         \
+      const void *b, const void *m, void *z, void *rh, void *h_out,     \
+      int B, int H, void *stream
+#define GRU_PASS x, h, wg, wc, b, m, z, rh, h_out, B, H, stream
+
+extern "C" int lstm_step_f32(LSTM_ARGS) {
+  return lstm_launch<float, float>(LSTM_PASS);
+}
+extern "C" int lstm_step_bf16(LSTM_ARGS) {
+  return lstm_launch<__nv_bfloat16, float>(LSTM_PASS);
+}
+extern "C" int lstm_step_bf16_mbf16(LSTM_ARGS) {
+  return lstm_launch<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
+}
+extern "C" int gru_step_f32(GRU_ARGS) {
+  return gru_launch<float, float>(GRU_PASS);
+}
+extern "C" int gru_step_bf16(GRU_ARGS) {
+  return gru_launch<__nv_bfloat16, float>(GRU_PASS);
+}
+extern "C" int gru_step_bf16_mbf16(GRU_ARGS) {
+  return gru_launch<__nv_bfloat16, __nv_bfloat16>(GRU_PASS);
 }
 
 extern "C" const char* error_string(int code) {

@@ -29,7 +29,7 @@ import torch
 
 from paddle_tpu_torch.core.config import LOG2E, NEG_INF
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import (_SIGNATURES,
+from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, _SIGNATURES,
                                                   check_kernel_operand)
 
 # (head dim, block_k, exp2, split, pipelined): the instances of
@@ -83,7 +83,9 @@ def run_fwd_cuda(q, k, v, *, causal: bool, block_q: int, block_k: int,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: run_fwd_cuda takes bfloat16, got "
-                            f"{t.dtype}")
+                            f"{t.dtype}"
+                            + (f"; {FP16_ROW}" if t.dtype == torch.float16
+                               else ""))
     bf16_dots, exp2, split, pipe = variant_flags(bf16_dots, use_exp2,
                                                  split_loop, pipelined)
     b, l, h, d = q.shape

@@ -78,7 +78,8 @@ def _slabs(p: int, c: int):
 def _check(name, t, device, shape=None):
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{t.dtype}")
+                        f"{t.dtype} (bf16 instances: ROADMAP.md section 2, "
+                        f"K3; float16: K5)")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -8,6 +8,16 @@ gates ``[input, forget, candidate, output]``, each a block of H columns of
 ``b`` [3H] split ``[2H | H]``.  ``m_t`` is a [B, 1] float mask: a row with
 ``m_t == 0`` keeps its old state exactly (a select, not a blend).
 
+Operand dtypes: the kernels have an instance for every combination the
+JAX package reaches under its policies (``KERNEL_DTYPES``): all float32,
+and under ``bf16`` / ``mixed`` the x projection in bf16 (an fc output)
+with h, c, the weights and the bias float32, and the mask float32 (from an
+``@len`` feed) or in x's dtype (no ``@len``: the recurrence's ones).  All
+arithmetic is float32, as in the Pallas kernels, which upcast every
+operand; h' and c' come back in h's and c's dtype, float32.  Any other
+combination on a CUDA tensor raises TypeError, float16 included
+(``ROADMAP.md`` section 2, the ``__half`` instances).
+
 ``impl=None`` routes by where the tensors lie: a CUDA tensor runs the
 kernel (or raises), a CPU tensor takes the plain version; ``impl="torch"``
 forces the plain version on any device.  On the kernel route
@@ -26,7 +36,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import resolve_impl
+from paddle_tpu_torch.ops.flash_attention import FP16_ROW, resolve_impl
 
 
 # --------------------------------------------------------------------- LSTM
@@ -51,21 +61,43 @@ def _gru_step_ref(x_t, h, w_g, w_c, b, m_t):
 
 
 # ------------------------------------------------------------------ kernels
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (x dtype, mask dtype) -> the C entries' suffix, for both steps; every
+# other operand is float32
+KERNEL_DTYPES = {(_F32, _F32): "f32", (_BF16, _F32): "bf16",
+                 (_BF16, _BF16): "bf16_mbf16"}
 _SIGNATURES = {
-    "lstm_step_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                     + [ctypes.c_void_p],
-    "gru_step_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p],
+    **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+       + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
+    **{f"gru_step_{sfx}": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+       + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
 }
 
 
+def _entry(kind: str, x_t, m_t, floats) -> str:
+    """The C entry for these operand dtypes: x_t and m_t as
+    ``KERNEL_DTYPES`` lists them, every tensor of ``floats`` float32;
+    anything else raises TypeError."""
+    for name, t in floats.items():
+        if t.dtype != _F32:
+            raise TypeError(
+                f"{kind}: {name} must be float32, got {t.dtype}"
+                + (f"; {FP16_ROW}" if t.dtype == torch.float16 else ""))
+    sfx = KERNEL_DTYPES.get((x_t.dtype, m_t.dtype))
+    if sfx is None:
+        fp16 = torch.float16 in (x_t.dtype, m_t.dtype)
+        raise TypeError(
+            f"{kind}: no CUDA instance for x_t {x_t.dtype} with m_t "
+            f"{m_t.dtype}; the kernel takes (x_t, m_t) in "
+            f"{sorted((str(a), str(b)) for a, b in KERNEL_DTYPES)}"
+            + (f"; {FP16_ROW}" if fp16 else ""))
+    return f"{kind}_{sfx}"
+
+
 def _check_operands(device, **operands) -> None:
-    """Every kernel operand: contiguous float32 of the stated shape on the
-    launch device."""
+    """Every kernel operand: contiguous, of the stated shape, on the
+    launch device (dtypes: ``_entry``)."""
     for name, (t, shape) in operands.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if tuple(t.shape) != shape:
@@ -78,8 +110,10 @@ def _check_operands(device, **operands) -> None:
 
 def lstm_step_cuda(x_t, h, c, w, b, m_t):
     """Launch the LSTM step of ``csrc/rnn_step.cu``: returns (h', c'),
-    float32 [B, H] each."""
+    float32 [B, H] each.  x_t and m_t float32 or bf16 (``KERNEL_DTYPES``),
+    the rest float32."""
     bsz, hd = h.shape
+    entry = _entry("lstm_step", x_t, m_t, dict(h=h, c=c, w=w, b=b))
     _check_operands(h.device, x_t=(x_t, (bsz, 4 * hd)), h=(h, (bsz, hd)),
                     c=(c, (bsz, hd)), w=(w, (hd, 4 * hd)), b=(b, (4 * hd,)),
                     m_t=(m_t, (bsz, 1)))
@@ -87,23 +121,27 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
     if h.numel() == 0:
         return h_out, c_out
     lib = _build.load("rnn_step", _SIGNATURES)
-    err = lib.lstm_step_f32(
+    err = getattr(lib, entry)(
         x_t.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         bsz, hd, torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "lstm_step")
     lstm_step_cuda.launches += 1
+    lstm_step_cuda.launches_bf16 += x_t.dtype == _BF16
     return h_out, c_out
 
 
-lstm_step_cuda.launches = 0
+# every launch, and those of the bf16 instances alone
+lstm_step_cuda.launches = lstm_step_cuda.launches_bf16 = 0
 
 
 def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
     """Launch the GRU step of ``csrc/rnn_step.cu`` (its two kernels, gates
     then candidate, through [B, H] scratch for z and r*h): returns h',
-    float32 [B, H].  One call counts one launch."""
+    float32 [B, H].  One call counts one launch, at every dtype.  Operand
+    dtypes as ``lstm_step_cuda``."""
     bsz, hd = h.shape
+    entry = _entry("gru_step", x_t, m_t, dict(h=h, w_g=w_g, w_c=w_c, b=b))
     _check_operands(h.device, x_t=(x_t, (bsz, 3 * hd)), h=(h, (bsz, hd)),
                     w_g=(w_g, (hd, 2 * hd)), w_c=(w_c, (hd, hd)),
                     b=(b, (3 * hd,)), m_t=(m_t, (bsz, 1)))
@@ -112,17 +150,18 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
         return h_out
     z, rh = torch.empty_like(h), torch.empty_like(h)
     lib = _build.load("rnn_step", _SIGNATURES)
-    err = lib.gru_step_f32(
+    err = getattr(lib, entry)(
         x_t.data_ptr(), h.data_ptr(), w_g.data_ptr(), w_c.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), z.data_ptr(), rh.data_ptr(),
         h_out.data_ptr(), bsz, hd,
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "gru_step")
     gru_step_cuda.launches += 1
+    gru_step_cuda.launches_bf16 += x_t.dtype == _BF16
     return h_out
 
 
-gru_step_cuda.launches = 0
+gru_step_cuda.launches = gru_step_cuda.launches_bf16 = 0
 
 
 def _recompute_grads(ref, inputs, m_t, grads):

@@ -13,6 +13,13 @@ optimizer state (at the LM's full width, 0.7 GB of Adam slots).
 
 The step counter ``t`` is a host int, so the bias corrections and the
 learning-rate schedules are computed on the host with no device sync.
+Under dynamic loss scaling (the ``mixed`` precision policy) the trainer
+makes it a 0-dim int32 tensor on the device instead, and passes
+``update`` a device boolean ``finite``: every leaf's new value and slots,
+and ``t``, are then selected against the old ones with ``torch.where``,
+so a skipped step leaves the masters, the slots and the counter bit for
+bit as they were, with no host read.  Masters and slots are float32 under
+every policy.
 """
 
 from __future__ import annotations
@@ -23,10 +30,20 @@ from typing import Callable, Optional
 import torch
 
 
+def _floor(x):
+    return torch.floor(x) if isinstance(x, torch.Tensor) else math.floor(x)
+
+
+def _at_least(x, lo):
+    return (torch.clamp(x, min=lo) if isinstance(x, torch.Tensor)
+            else max(x, lo))
+
+
 def _lr_schedule(args: dict) -> Callable:
     """Learning-rate decay schedules (reference:
     parameter/LearningRateScheduler.cpp registry: constant, poly, exp,
-    discexp, linear, inv)."""
+    discexp, linear, inv), of a float step (host) or a tensor step
+    (device, under loss scaling)."""
     a = args.get("learning_rate_decay_a", 0.0)
     b = args.get("learning_rate_decay_b", 0.0)
     kind = args.get("learning_rate_schedule", "constant")
@@ -34,13 +51,13 @@ def _lr_schedule(args: dict) -> Callable:
     if kind == "constant":
         return lambda t: base
     if kind == "poly":
-        return lambda t: base * math.pow(1.0 + a * t, -b)
+        return lambda t: base * (1.0 + a * t) ** -b
     if kind == "exp":
-        return lambda t: base * math.pow(a, t / b)
+        return lambda t: base * a ** (t / b)
     if kind == "discexp":
-        return lambda t: base * math.pow(a, math.floor(t / b))
+        return lambda t: base * a ** _floor(t / b)
     if kind == "linear":
-        return lambda t: max(base - a * t, b)
+        return lambda t: _at_least(base - a * t, b)
     if kind == "inv":
         return lambda t: base / (1.0 + a * t) ** b
     raise ValueError(f"unknown learning_rate_schedule {kind!r}")
@@ -85,15 +102,19 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict,
-               meta: Optional[dict] = None, sparse_grads=None):
+               meta: Optional[dict] = None, sparse_grads=None,
+               finite: Optional[torch.Tensor] = None):
         """One step over every parameter with a gradient, in place.
-        Returns ``(params, state)`` (the same trees, updated)."""
+        Returns ``(params, state)`` (the same trees, updated).  With
+        ``finite`` (a 0-dim bool tensor; ``state["t"]`` then a tensor too)
+        the step takes effect only where it is true: otherwise every
+        parameter, slot and ``t`` keeps its old value."""
         if sparse_grads:
             raise NotImplementedError(
                 "sparse (SelectedRows) updates are not ported to "
                 "paddle_tpu_torch yet")
         t = state["t"] + 1
-        lr_t = self.lr_fn(float(t))
+        lr_t = self.lr_fn(t if isinstance(t, torch.Tensor) else float(t))
         if self.global_clip and self.global_clip > 0:
             leaves = [g for ps in grads.values() for g in ps.values()
                       if g is not None]
@@ -102,25 +123,34 @@ class Optimizer:
             scale = torch.clamp(self.global_clip / (gnorm + 1e-12), max=1.0)
         else:
             scale = None
-        for l, ps in params.items():
-            for pn, p in ps.items():
-                if p is None or grads[l][pn] is None:
-                    continue
-                g = grads[l][pn]
-                if scale is not None:
-                    g = g * scale
-                m = _leaf_meta(meta, l, pn)
-                clip = m.get("clip", 0.0)
-                if clip and clip > 0:
-                    g = torch.clamp(g, -clip, clip)
-                l2 = m.get("l2", 0.0) or self.l2
-                l1 = m.get("l1", 0.0) or self.l1
-                if l2:
-                    g = g + l2 * p
-                if l1:
-                    g = g + l1 * torch.sign(p)
-                lr = lr_t * m.get("learning_rate", 1.0)
-                self.leaf_update(p, g, state["slots"][l][pn], lr, t)
+        work = [(l, pn, p, grads[l][pn]) for l, ps in params.items()
+                for pn, p in ps.items()
+                if p is not None and grads[l][pn] is not None]
+        if finite is not None:
+            # every tensor the step writes, and a copy of each (one
+            # multi-tensor launch; x * 1 is x bit for bit)
+            kept = [x for l, pn, p, _ in work
+                    for x in (p, *state["slots"][l][pn].values())]
+            old = torch._foreach_mul(kept, 1.0)
+        for l, pn, p, g in work:
+            if scale is not None:
+                g = g * scale
+            m = _leaf_meta(meta, l, pn)
+            clip = m.get("clip", 0.0)
+            if clip and clip > 0:
+                g = torch.clamp(g, -clip, clip)
+            l2 = m.get("l2", 0.0) or self.l2
+            l1 = m.get("l1", 0.0) or self.l1
+            if l2:
+                g = g + l2 * p
+            if l1:
+                g = g + l1 * torch.sign(p)
+            lr = lr_t * m.get("learning_rate", 1.0)
+            self.leaf_update(p, g, state["slots"][l][pn], lr, t)
+        if finite is not None:
+            for new, was in zip(kept, old):
+                torch.where(finite, new, was, out=new)
+            t = torch.where(finite, t, state["t"])
         state["t"] = t
         return params, state
 
@@ -169,9 +199,21 @@ class Adam(Optimizer):
         m, v = s["momentum"], s["second_momentum"]
         m.mul_(self.b1).add_(g, alpha=1 - self.b1)
         v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-        mhat = m / (1 - self.b1 ** t)
-        denom = torch.sqrt(v / (1 - self.b2 ** t)).add_(self.eps)
+        bc1, bc2 = self._bias_corrections(t)
+        mhat = m / bc1
+        denom = torch.sqrt(v / bc2).add_(self.eps)
         p.sub_(mhat.mul_(lr).div_(denom))
+
+    def _bias_corrections(self, t):
+        """(1 - b1^t, 1 - b2^t): host floats for a host step; for a
+        device step (loss scaling) two device scalars, computed once per
+        update rather than once per parameter."""
+        if not isinstance(t, torch.Tensor):
+            return 1 - self.b1 ** t, 1 - self.b2 ** t
+        if getattr(self, "_bc_step", None) is not t:
+            self._bc_step = t
+            self._bc = (1 - self.b1 ** t, 1 - self.b2 ** t)
+        return self._bc
 
 
 class L2Regularization:

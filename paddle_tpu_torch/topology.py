@@ -231,12 +231,18 @@ class Topology:
         ``feed`` maps data-layer names to arrays or tensors; sequence data
         layers also accept ``<name>@len`` (default: full length).  Feeds
         move to ``device`` (default: the ``device`` option, else the
-        card), where ``params`` must already lie."""
+        card), where ``params`` must already lie.  A float feed becomes
+        float32 unless it is bf16 (or float16 under the ``fp16`` policy),
+        which it keeps.  The layers compute in the precision policy's
+        compute dtype (``ApplyContext.compute_dtype``); ``params`` stay
+        float32."""
         if remat:
             raise NotImplementedError(
                 "remat is not ported to paddle_tpu_torch yet")
         dev = cfg.default_device(device)
-        ctx = ApplyContext(train=train, generator=generator, device=dev)
+        policy = cfg.precision_policy()
+        ctx = ApplyContext(train=train, generator=generator, device=dev,
+                           compute_dtype=policy.ctx_compute_dtype())
         ctx.state_in = state
         ctx.params_tree = params   # cross-layer access (tied weights)
         values: Dict[str, torch.Tensor] = {}
@@ -247,8 +253,15 @@ class Topology:
                 self._run_spec(spec, params, values, masks, ctx)
                 continue
             x = torch.as_tensor(feed[spec.name], device=dev)
-            x = (x.long() if spec.attrs.get("is_index", False)
-                 else x.float())
+            if spec.attrs.get("is_index", False):
+                x = x.long()
+            elif not (x.dtype in (torch.bfloat16, torch.float32)
+                      or (policy.compute_dtype == "float16"
+                          and x.dtype == torch.float16)):
+                # feeds normalise to float32 except the compute dtypes,
+                # which keep theirs, as in the JAX package: a recurrent
+                # group's step feeds its bf16 statics back in here
+                x = x.float()
             values[spec.name] = x
             masks[spec.name] = None
             lens = feed.get(spec.name + "@len")

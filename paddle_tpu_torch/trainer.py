@@ -11,6 +11,18 @@ program with donated buffers, here each layer's kernels launch eagerly
 from the Python loop; the attention layers reach the CUDA flash kernels
 (forward, dK/dV, dQ) on the card.
 
+The precision policy (``core/precision.py``) is read at every step, as
+the JAX trainer's ``_sync_precision_policy`` does: under ``bf16`` the
+layers compute in bf16 on the float32 masters; under ``mixed`` the step
+also scales the float32 loss by the loss scale before the backward,
+divides the gradients by it, and tests the loss and every gradient for
+finiteness.  A non-finite step keeps the parameters, the optimizer slots,
+Adam's step counter and ``model_state`` bit for bit, and backs the scale
+off; ``growth_interval`` clean steps in a row grow it.  That state lives
+in the optimizer state under ``"loss_scale"`` (``scale``, ``good_steps``,
+``skipped``) and every decision is a ``torch.where`` on the device, so a
+step reads nothing back to the host.  Under ``fp32`` none of this runs.
+
 Events fire in the JAX package's order: ``BeginPass``, then per batch
 ``BeginIteration``, ``EndForwardBackward``, ``EndIteration`` (with the
 cost, read lazily), and ``EndPass``.  Parameters are updated in place, so
@@ -84,11 +96,21 @@ class SGD:
         return [(l, pn, p) for l, ps in self._trainable.items()
                 for pn, p in ps.items() if p is not None]
 
-    def forward_backward(self, feed):
+    def forward_backward(self, feed, scale: Optional[torch.Tensor] = None):
         """Cost and gradients of one batch, parameters untouched: returns
         (cost tensor, ``{layer: {param: grad}}`` over the trainable
         parameters; zeros for a parameter the cost does not reach, as
-        ``jax.grad`` gives)."""
+        ``jax.grad`` gives).  With ``scale`` (the loss scale, a float32
+        tensor) the backward runs on the float32 cost times ``scale`` and
+        the gradients come back divided by it; the cost is unscaled."""
+        loss, tree, _ = self._grads(feed, scale)
+        return loss, tree
+
+    def _grads(self, feed, scale):
+        """``forward_backward``, and under a loss scale a float32 [1]
+        flag on the device, nonzero when a gradient is not finite (the
+        division by the scale and the test are one multi-tensor pass:
+        ``torch.amp``'s unscale)."""
         leaves = self._leaves()
         tensors = [p.detach().requires_grad_(True) for _, _, p in leaves]
         trainable = {l: dict(ps) for l, ps in self._trainable.items()}
@@ -100,17 +122,76 @@ class SGD:
             outputs=[self.cost_name], generator=self._generator,
             device=self.device)
         loss = outs[self.cost_name]
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        # scaled after the float32 cost, so the backward carries the
+        # scaled cotangent through the whole bf16 stack
+        obj = loss if scale is None else loss.float() * scale
+        grads = list(torch.autograd.grad(obj, tensors, allow_unused=True))
+        found = None
+        if scale is not None:
+            found = torch.zeros(1, device=self.device)
+            live = [g for g in grads if g is not None]
+            if live:
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    live, found, (1.0 / scale).reshape(1))
         tree = {l: {pn: None for pn in ps}
                 for l, ps in self._trainable.items()}
         for (l, pn, p), g in zip(leaves, grads):
             tree[l][pn] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), tree
+        return loss.detach(), tree, found
+
+    def _sync_precision_policy(self):
+        """Align the optimizer state with the active policy: attach the
+        loss-scale state (and move the step counter to the device) when
+        the policy scales, drop it (and bring the counter back to the
+        host) when it does not."""
+        policy = cfg.precision_policy()
+        state = self._opt_state
+        if policy.loss_scaling and "loss_scale" not in state:
+            state["loss_scale"] = policy.init_loss_scale_state(self.device)
+            state["t"] = torch.tensor(state["t"], dtype=torch.int32,
+                                      device=self.device)
+        elif not policy.loss_scaling and "loss_scale" in state:
+            del state["loss_scale"]
+            state["t"] = int(state["t"])
+        return policy
 
     def _step(self, feed):
-        loss, grads = self.forward_backward(feed)
+        policy = self._sync_precision_policy()
+        if not policy.loss_scaling:
+            loss, grads = self.forward_backward(feed)
+            self.optimizer.update(self._trainable, grads, self._opt_state,
+                                  self.parameters.meta)
+            return loss
+        return self._scaled_step(feed, policy)
+
+    @torch.no_grad()
+    def _scaled_step(self, feed, policy):
+        """One step under dynamic loss scaling (the JAX step's
+        ``scaling`` branch), every decision on the device."""
+        ls = self._opt_state["loss_scale"]
+        scale = ls["scale"]
+        old_state = self.model_state
+        with torch.enable_grad():
+            loss, grads, found = self._grads(feed, scale)
+        finite = torch.isfinite(loss).all() & (found[0] == 0)
         self.optimizer.update(self._trainable, grads, self._opt_state,
-                              self.parameters.meta)
+                              self.parameters.meta, finite=finite)
+        self.model_state = {
+            l: {k: torch.where(finite, v, old_state[l][k])
+                for k, v in ps.items()}
+            for l, ps in self.model_state.items()}
+        good = torch.where(finite, ls["good_steps"] + 1, 0)
+        grow = good >= policy.growth_interval
+        new_scale = torch.where(
+            finite,
+            torch.where(grow, torch.clamp(scale * policy.growth_factor,
+                                          max=policy.max_scale), scale),
+            torch.clamp(scale * policy.backoff_factor,
+                        min=policy.min_scale))
+        self._opt_state["loss_scale"] = {
+            "scale": new_scale,
+            "good_steps": torch.where(grow & finite, 0, good),
+            "skipped": ls["skipped"] + (~finite).to(torch.int32)}
         return loss
 
     # ------------------------------------------------------------ train

@@ -321,3 +321,134 @@ def test_backward_wrappers_refuse_what_they_cannot_take():
             fn(z, z, z, z, lse, lse, lens, **kw)
     assert tfa.flash_bwd_dkdv_cuda.launches == 0
     assert tfa.flash_bwd_dq_cuda.launches == 0
+
+
+# ----------------------------------------------------------- bf16 backward
+# bf16 limits, set from readings over every GRAD_CASES geometry: each
+# gradient element within 2^-8 * max(1, max |ref|) (one bf16 ulp at the
+# top of the range; readings 0 to 2.4e-4) and each gradient row within
+# 2^-7 of its norm (a row one ulp off in every element; readings 0 to
+# 1.7e-3); O within 2^-8 * max(1, max |ref|), the LSE within 1e-5
+BF16_ELEM, BF16_ROW = 2.0 ** -8, 2.0 ** -7
+
+
+def _bf16_grad_inputs(case):
+    """``_grad_inputs`` rounded once to bf16, as float32 numpy arrays."""
+    import jax.numpy as jnp
+
+    return [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+            for a in _grad_inputs(case)]
+
+
+def _bf16_jax(case, impl):
+    """O, LSE and dQ, dK, dV of the JAX package on the bf16 inputs,
+    through ``impl`` ("xla" or "interpret": ``_flash_bwd`` under the
+    Pallas interpreter), the objective taken on O upcast to float32."""
+    import jax
+    import jax.numpy as jnp
+
+    _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
+    blk = next(b for p, b in _JAX_BLOCKS.items() if case.startswith(p))
+
+    def run(q, k, v):
+        return jfa.flash_attention(
+            q, k, v, causal=causal, kv_lens=lens, impl=impl, block_q=blk,
+            block_k=blk, q_offset=q_off, kv_offset=kv_off, return_lse=True)
+
+    def f(q, k, v):
+        out, lse = run(q, k, v)
+        out = out.astype(jnp.float32)
+        obj = jnp.sum(out ** 2) if loss == "square" else jnp.sum(
+            jnp.sin(out))
+        return obj + jnp.sum(jnp.tanh(lse)) if with_lse else obj
+
+    args = [jnp.asarray(a, jnp.bfloat16) for a in _bf16_grad_inputs(case)]
+    out, lse = run(*args)
+    grads = jax.grad(f, argnums=(0, 1, 2))(*args)
+    assert all(g.dtype == jnp.bfloat16 for g in grads)
+    return ([np.asarray(out.astype(jnp.float32)), np.asarray(lse)]
+            + [np.asarray(g.astype(jnp.float32)) for g in grads])
+
+
+def _bf16_torch(case, attention):
+    """The same through the port's ``attention`` (``_torch_attention`` or
+    ``_torch_attention_upcast``) with its autograd."""
+    _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+               for a in _bf16_grad_inputs(case))
+    kv_lens = torch.as_tensor(
+        lens if lens is not None else [k.shape[1]] * k.shape[0],
+        dtype=torch.int32)
+    out, lse = attention(q, k, v, kv_lens, causal=causal,
+                         scale=q.shape[-1] ** -0.5, q_offset=q_off,
+                         kv_offset=kv_off, return_lse=True)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    of = out.float()
+    obj = (of ** 2).sum() if loss == "square" else torch.sin(of).sum()
+    if with_lse:
+        obj = obj + torch.tanh(lse).sum()
+    grads = torch.autograd.grad(obj, (q, k, v))
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    return ([of.detach().numpy(), lse.detach().numpy()]
+            + [g.float().numpy() for g in grads])
+
+
+def _assert_bf16_close(got, want, what):
+    assert np.abs(got - want).max() <= BF16_ELEM * max(
+        1.0, np.abs(want).max()), what
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    norms = np.linalg.norm(w, axis=1)
+    live = norms > 0
+    rel = np.linalg.norm(g - w, axis=1)[live] / norms[live]
+    assert rel.max(initial=0.0) <= BF16_ROW, (what, rel.max())
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_bf16_plain_backward_matches_jax_xla(case):
+    """At bf16, the port's plain route (autograd through
+    ``_torch_attention``, P rounded to bf16 before P . V) against
+    ``jax.grad`` through ``_xla_attention``: O, the LSE and dQ, dK, dV
+    (bf16 both sides), within the bf16 limits above."""
+    got, want = _bf16_torch(case, tfa._torch_attention), _bf16_jax(case,
+                                                                   "xla")
+    for name, g, w in zip(("O", "LSE", "dQ", "dK", "dV"), got, want):
+        if name == "LSE":
+            _assert_lse_close(g, w)
+        else:
+            _assert_bf16_close(g, w, f"{case} {name}")
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_bf16_upcast_reference_matches_pallas_interpret(case):
+    """``_torch_attention_upcast``, the yardstick of the bf16 kernels on
+    the card, against the JAX package's Pallas forward and ``_flash_bwd``
+    under the interpreter at bf16 (causal, kv_lens, both offsets and an
+    LSE cotangent among the cases), within the bf16 limits above."""
+    got = _bf16_torch(case, tfa._torch_attention_upcast)
+    want = _bf16_jax(case, "interpret")
+    for name, g, w in zip(("O", "LSE", "dQ", "dK", "dV"), got, want):
+        if name == "LSE":
+            _assert_lse_close(g, w)
+        else:
+            _assert_bf16_close(g, w, f"{case} {name}")
+    lens = GRAD_CASES[case][4]
+    for b, n in enumerate(lens or ()):
+        # masked KV rows receive exactly zero gradient
+        assert not got[3][b, n:].any() and not got[4][b, n:].any()
+
+
+def test_upcast_reference_is_the_float32_path_at_float32():
+    """At float32 the upcast reference computes what the plain version
+    computes: O, LSE and gradients within float32 rounding."""
+    case = "lse_cotangent"
+    want = _torch_grads(case, impl="torch")
+    _, _, _, causal, lens, q_off, kv_off, _, _ = GRAD_CASES[case]
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _grad_inputs(case))
+    kv_lens = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32)
+    out, lse = tfa._torch_attention_upcast(
+        q, k, v, kv_lens, causal=causal, scale=q.shape[-1] ** -0.5,
+        return_lse=True)
+    obj = (out ** 2).sum() + torch.tanh(lse).sum()
+    for g, w in zip(torch.autograd.grad(obj, (q, k, v)), want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)

@@ -161,8 +161,10 @@ def test_variant_wrapper_refuses_before_any_build():
 
 
 def test_kernel_one_takes_bf16_and_refuses_float16():
-    """Kernel 1's wrapper now takes bf16 (O in q's dtype); float16, mixed
-    dtypes and bf16 backward operands are refused before any build."""
+    """Kernel 1's wrapper takes bf16 (O in q's dtype); float16 and mixed
+    dtypes are refused before any build, by the forward and by both
+    backward wrappers (whose bf16 instances the precision policy
+    brought)."""
     lens = torch.full((1,), 4, dtype=torch.int32)
     q = torch.zeros(1, 4, 1, 8, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
@@ -173,26 +175,51 @@ def test_kernel_one_takes_bf16_and_refuses_float16():
     lse = torch.zeros(1, 1, 4)
     for fn in (tfa.flash_bwd_dkdv_cuda, tfa.flash_bwd_dq_cuda):
         with pytest.raises(TypeError, match="float32"):
-            fn(b, b, b, b, lse, lse, lens, causal=True, scale=1.0)
+            fn(q, q, q, q, lse, lse, lens, causal=True, scale=1.0)
+        with pytest.raises(TypeError, match="share a dtype"):
+            fn(b, b, b, b.float(), lse, lse, lens, causal=True, scale=1.0)
     assert tfa.flash_fwd_cuda.launches == 0
 
 
 def test_bf16_backward_raises_for_the_precision_policy(monkeypatch):
-    """The kernel route's forward runs on bf16; its backward refuses to
-    upcast and names the bf16 policy (ROADMAP.md item 1)."""
+    """The kernel route's backward on bf16, which raised until the bf16
+    precision policy was ported, now hands the bf16 instances bf16 q, k,
+    v and dO with a float32 delta, and returns bf16 gradients; a float16
+    operand still raises, naming the ROADMAP row of its instances.  The
+    kernels are stood in for by the upcast plain version's backward."""
+    seen = []
+
     def fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0, kv_offset=0):
-        o, lse = tfa._torch_attention(q, k, v, kv_lens, causal=causal,
-                                      scale=scale, return_lse=True)
+        o, lse = tfa._torch_attention_upcast(
+            q, k, v, kv_lens, causal=causal, scale=scale, return_lse=True)
         return o, lse
+
+    def bwd(which):
+        def run(q, k, v, g, lse, delta, kv_lens, *, causal, scale,
+                q_offset=0, kv_offset=0):
+            seen.append((which, q.dtype, g.dtype, delta.dtype))
+            # O = 0 and g_lse = -delta: the reference's delta is delta
+            o = torch.zeros_like(q)
+            dq, dk, dv = tfa._upcast_bwd(q, k, v, kv_lens, o, lse, g,
+                                         -delta, causal=causal, scale=scale)
+            return dq if which == "dq" else (dk, dv)
+        return run
 
     monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
     monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
+    monkeypatch.setattr(tfa, "flash_bwd_dq_cuda", bwd("dq"))
+    monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda", bwd("dkdv"))
     _, (q, k, v) = _bf16_inputs(1, 8, 8, 2, 8, seed=3)
     q.requires_grad_(True)
     out = tfa.flash_attention(q, k, v, causal=True)
     assert out.dtype == torch.bfloat16
-    with pytest.raises(TypeError, match="ROADMAP.md item 1"):
-        out.float().sum().backward()
+    (dq,) = torch.autograd.grad(out.float().sum(), (q,))
+    assert dq.dtype == torch.bfloat16
+    assert seen == [(w, torch.bfloat16, torch.bfloat16, torch.float32)
+                    for w in ("dq", "dkdv")]
+    h = q.detach().half()
+    with pytest.raises(TypeError, match="ROADMAP.md section 2, K5"):
+        tfa.check_kernel_operand("q", h, h.device, tfa.KERNEL_DTYPES)
 
 
 def test_cpu_run_fwd_routes_to_the_plain_version():

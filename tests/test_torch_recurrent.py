@@ -436,3 +436,229 @@ def test_recurrent_golden_proto_is_byte_equal(name):
     path = os.path.join(os.path.dirname(__file__), "goldens", f"{name}.json")
     with open(path) as f:
         assert text == f.read()
+
+
+# ------------------------------------------------------- bf16 step kernels
+def _bf16(a):
+    """A float32 array rounded to bf16, as float32 numpy."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("m_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bf16_step_matches_pallas_interpret(kind, m_dtype):
+    """Every (x, mask) dtype combination the kernels have a bf16 instance
+    for (``fused_rnn.KERNEL_DTYPES``, the combinations the JAX package
+    reaches: see the next test): x bf16, h, c, the weights and the bias
+    float32, the mask float32 or bf16.  The port's plain step against
+    ``_lstm_pallas`` / ``_gru_pallas`` under the interpreter (which
+    upcast every operand): h' and c' float32 in both within 1e-5, the
+    gradients in their operands' dtypes (dx bf16) within 1e-5 and one
+    bf16 ulp of max(1, max |g|) for dx."""
+    import jax
+    import jax.numpy as jnp
+
+    args = _step_args(kind, 12, 16, seed=3)
+    args[0] = _bf16(args[0])
+    m = args[-1]
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[m_dtype]
+    tdt = getattr(torch, m_dtype)
+    assert (torch.bfloat16, tdt) in trnn.KERNEL_DTYPES
+    jstep = jrnn.lstm_step if kind == "lstm" else jrnn.gru_step
+    tstep = trnn.lstm_step if kind == "lstm" else trnn.gru_step
+    n_out = 2 if kind == "lstm" else 1
+    cots = [np.random.default_rng(7).standard_normal((12, 16)).astype(
+        np.float32) for _ in range(n_out)]
+    jargs = [jnp.asarray(args[0], jnp.bfloat16)] + [jnp.asarray(a) for a in
+                                                    args[1:-1]]
+
+    def jloss(*xs):
+        outs = jstep(*xs, jnp.asarray(m, jdt), impl="interpret", block_b=8)
+        outs = outs if n_out == 2 else (outs,)
+        return sum((o * c).sum() for o, c in zip(outs, cots)), outs
+
+    (_, jouts), jgrads = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(*jargs)
+    leaves = ([torch.from_numpy(args[0]).to(torch.bfloat16)
+               .requires_grad_(True)]
+              + [_t(a).requires_grad_(True) for a in args[1:-1]])
+    touts = tstep(*leaves, _t(m).to(tdt))
+    touts = touts if n_out == 2 else (touts,)
+    tgrads = torch.autograd.grad(
+        sum((o * _t(c)).sum() for o, c in zip(touts, cots)), leaves)
+    for j, t in zip(jouts, touts):
+        assert t.dtype == torch.float32 and j.dtype == jnp.float32
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
+    for i, (j, t) in enumerate(zip(jgrads, tgrads)):
+        assert str(t.dtype) == "torch." + str(j.dtype)
+        want = np.asarray(j.astype(jnp.float32))
+        tol = (2.0 ** -8 * max(1.0, np.abs(want).max()) if i == 0
+               else 1e-5)
+        np.testing.assert_allclose(t.float().numpy(), want, atol=tol,
+                                   rtol=1e-5)
+    dead = m[:, 0] == 0
+    np.testing.assert_array_equal(touts[0].detach().numpy()[dead],
+                                  args[1][dead])
+
+
+def _record_step_dtypes(monkeypatch):
+    """Route the JAX package's recurrent layers to its step functions
+    (declaring its backend the TPU) and record each call's operand
+    dtypes; and record the port's kernel-route calls the same way
+    (declaring the CPU the card).  Both run the plain step."""
+    from paddle_tpu.core import config as jcfg
+
+    seen = {"jax": set(), "port": set()}
+
+    def recorder(pkg, kind, fn, **fixed):
+        def rec(*a, **kw):
+            seen[pkg].add((kind,) + tuple(
+                str(x.dtype).removeprefix("torch.") for x in a))
+            return fn(*a, **{**kw, **fixed})
+        return rec
+
+    monkeypatch.setattr(jcfg, "is_tpu_backend", lambda: True)
+    for kind in ("lstm", "gru"):
+        monkeypatch.setattr(jrnn, f"{kind}_step", recorder(
+            "jax", kind, getattr(jrnn, f"{kind}_step"), impl="xla"))
+        monkeypatch.setattr(trnn, f"{kind}_step", recorder(
+            "port", kind, getattr(trnn, f"{kind}_step")))
+    monkeypatch.setattr(trecurrent, "_on_card", lambda x: True)
+    return seen
+
+
+def _recorded_models(paddle):
+    """The NMT model (kernel-wide encoder), the LSTM route (two
+    lstmemory(peephole=False) layers) and a grumemory, h 128, in either
+    package."""
+    from paddle_tpu.models import seq2seq as jseq2seq
+    from paddle_tpu_torch.models import seq2seq as tseq2seq
+
+    seq2seq = tseq2seq if paddle is pt else jseq2seq
+    layer = paddle.layer
+    nmt = seq2seq.build(50, 40, emb_dim=16, enc_dim=128, dec_dim=32,
+                        max_src_len=6, max_trg_len=6)
+    words = layer.data("data", paddle.data_type.integer_value_sequence(
+        50, max_len=5))
+    net = layer.embedding(words, size=8, vocab_size=50)
+    for _ in range(2):
+        net = layer.lstmemory(layer.fc(net, size=4 * 128, act=None,
+                                       bias_attr=False), peephole=False)
+    lab = layer.data("label", paddle.data_type.integer_value(2))
+    lstm = layer.classification_cost(layer.fc(layer.last_seq(net), size=2),
+                                     lab)
+    gru = layer.sum_cost(layer.last_seq(layer.grumemory(
+        layer.fc(layer.embedding(words, size=8, vocab_size=50), size=384,
+                 act=None))))
+    return [nmt, lstm, gru]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "mixed"])
+def test_bf16_step_dtypes_are_the_kernel_instances(precision, monkeypatch):
+    """Which operand dtypes reach the step kernels under ``precision``:
+    the JAX NMT model, the LSTM route and a grumemory, with and without
+    ``@len`` feeds, each run forward and backward with a recording hook
+    on the step's inputs.  The combinations found are exactly the
+    kernels' instances (``fused_rnn.KERNEL_DTYPES``: x bf16, the mask
+    float32 with ``@len`` or bf16 without, everything else float32), and
+    the port's layers reach exactly the same ones."""
+    import jax
+
+    from paddle_tpu_torch.core import config as tconfig
+
+    seen = _record_step_dtypes(monkeypatch)
+    rng = np.random.RandomState(0)
+    nmt_feed = {
+        "source_words": rng.randint(0, 50, (4, 6)).astype(np.int32),
+        "target_words": rng.randint(0, 40, (4, 6)).astype(np.int32),
+        "target_next_words": rng.randint(0, 40, (4, 6)).astype(np.int32)}
+    seq_feed = {"data": rng.randint(0, 50, (3, 5)).astype(np.int32),
+                "label": np.array([0, 1, 1], np.int32)}
+    lens = {"source_words@len": np.array([6, 1, 4, 5], np.int32),
+            "target_words@len": np.array([3, 6, 1, 5], np.int32),
+            "target_next_words@len": np.array([3, 6, 1, 5], np.int32),
+            "data@len": np.array([5, 2, 4], np.int32)}
+    saved = dict(tconfig._options)
+    try:
+        for paddle in (pj, pt):
+            reset_jax_names()
+            reset_port_names()
+            if paddle is pj:
+                pj.init(seed=0, precision=precision)
+            else:
+                pt.init(seed=0, device="cpu", precision=precision)
+            for cost, feed in zip(_recorded_models(paddle),
+                                  (nmt_feed, seq_feed, seq_feed)):
+                if paddle is pj:
+                    topo = pj.Topology(cost, collect_evaluators=False)
+                else:
+                    topo = pt.Topology(cost)
+                values = (pj.parameters.create(topo) if paddle is pj else
+                          pt.parameters.create(topo, device="cpu")).values
+                for with_lens in (True, False):
+                    f = dict(feed, **{k: v for k, v in lens.items()
+                                      if with_lens and k.split("@")[0]
+                                      in feed})
+                    if paddle is pj:
+                        jax.grad(lambda v: topo.forward(
+                            v, {}, f, train=True)[0][topo.output_names[0]])(
+                                values)
+                    else:
+                        tr = pt.trainer.SGD(
+                            topo, pt.parameters.from_numpy(
+                                topo, {l: {p: t.numpy() for p, t in
+                                           ps.items()}
+                                       for l, ps in values.items()},
+                                device="cpu"), pt.optimizer.Adam())
+                        tr.forward_backward(f)
+    finally:
+        pj.init(seed=0, precision="fp32")
+        tconfig._options.clear()
+        tconfig._options.update(saved)
+        tconfig._policy_cache = None
+    want = set()
+    for kind in ("lstm", "gru"):
+        for x_dt, m_dt in trnn.KERNEL_DTYPES:
+            if x_dt != torch.bfloat16:
+                continue
+            rest = ["float32"] * 4          # h (c), the weights, b
+            want.add((kind, "bfloat16", *rest,
+                      str(m_dt).removeprefix("torch.")))
+    assert seen["jax"] == want, sorted(seen["jax"])
+    assert seen["port"] == want, sorted(seen["port"])
+
+
+def test_bf16_bahdanau_step_matches_jax():
+    """On the operands the attention layer casts to bf16 (enc, enc_proj,
+    state, w_dp, v; the mask float32): the context bf16 in both, and each
+    gradient in its operand's dtype, values within one bf16 ulp of
+    max(1, max |ref|) (read: bit-equal)."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(5)
+    b, te, de, hp, hs = 4, 6, 5, 7, 3
+    args = [_bf16(rng.standard_normal(s).astype(np.float32)) for s in
+            ((b, te, de), (b, te, hp), (b, hs), (hs, hp), (hp,))]
+    mask = (np.arange(te)[None] < np.array([6, 2, 0, 1])[:, None]).astype(
+        np.float32)
+    cot = _bf16(rng.standard_normal((b, de)).astype(np.float32))
+
+    def jloss(*xs):
+        out = jbahdanau.bahdanau_step(*xs, jnp.asarray(mask))
+        return (out.astype(jnp.float32) * cot).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(
+            *(jnp.asarray(a, jnp.bfloat16) for a in args))
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in args]
+    tout = tbahdanau.bahdanau_step(*leaves, _t(mask))
+    tgrads = torch.autograd.grad((tout.float() * _t(cot)).sum(), leaves)
+    assert tout.dtype == torch.bfloat16 and jout.dtype == jnp.bfloat16
+    for t, j in [(tout, jout)] + list(zip(tgrads, jgrads)):
+        assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        want = np.asarray(j.astype(jnp.float32))
+        np.testing.assert_allclose(
+            t.detach().float().numpy(), want, rtol=0,
+            atol=2.0 ** -8 * max(1.0, np.abs(want).max()))

@@ -142,7 +142,10 @@ def test_http_infer_matches_jax_engine(snap):
                                          "lstm_step", "gru_step",
                                          "bn_fwd_stats", "bn_bwd_stats",
                                          "matmul_stats", "conv3x3_stats",
-                                         "flash_variants"}
+                                         "flash_variants", "flash_fwd_bf16",
+                                         "flash_bwd_dkdv_bf16",
+                                         "flash_bwd_dq_bf16",
+                                         "lstm_step_bf16", "gru_step_bf16"}
         assert stats["kv"]["used"] == 0          # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400

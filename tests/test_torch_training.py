@@ -86,12 +86,26 @@ def _mnist_mlp(paddle):
     return layer.classification_cost(pred, lbl, name="cost")
 
 
-# the goldens whose configs use only ported layers (fc_variants needs
-# sum_cost, attention_transformer pooling and sum_cost: later slices)
-@pytest.mark.parametrize("name", ["mnist_mlp"])
+def _fc_variants(paddle):
+    """tests/test_golden_ir.py's fc_variants config, in either package."""
+    layer = paddle.layer
+    x = layer.data("x", paddle.data_type.dense_vector(100))
+    f1 = layer.fc(x, size=32, act="tanh", bias_attr=False, name="no_bias")
+    f2 = layer.fc(f1, size=16, act="relu",
+                  param_attr=paddle.attr.ParamAttr(initializer="xavier"),
+                  name="with_attr")
+    return layer.sum_cost(f2)
+
+
+# the goldens whose configs use only ported layers (sum_cost landed with
+# the NMT slice; attention_transformer needs pooling, a later slice)
+GOLDEN_CONFIGS = {"mnist_mlp": _mnist_mlp, "fc_variants": _fc_variants}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_CONFIGS))
 def test_golden_proto_is_byte_equal(name):
     _init_both()
-    text = pt.Topology(_mnist_mlp(pt)).proto() + "\n"
+    text = pt.Topology(GOLDEN_CONFIGS[name](pt)).proto() + "\n"
     with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as f:
         assert text == f.read()
 
@@ -360,8 +374,9 @@ def test_cli_train_on_the_cpu(tmp_path, capsys, monkeypatch):
 def test_unported_options_raise_rather_than_fall_through(monkeypatch):
     ttopo, _ = _lm_both(**SMALL)
     params = pt.parameters.create(ttopo, device="cpu")
-    with pytest.raises(NotImplementedError, match="precision"):
-        pt.init(precision="bf16")
+    # the precision policy is ported: only a name it does not know raises
+    with pytest.raises(ValueError, match="unknown precision"):
+        pt.init(precision="int8")
     with pytest.raises(NotImplementedError, match="fused_head"):
         tt.build(fused_head=True)
     with pytest.raises(NotImplementedError, match="context_parallel"):
