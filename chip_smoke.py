@@ -126,9 +126,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
-   of ``flash_bwd.cu`` and ``rnn_step.cu`` against an earlier build:
-   SASS_BASE_DIR, or ``git archive`` of SASS_BASE_REV when the checkout
-   has its history; otherwise reported as not compared);
+   of ``flash_bwd.cu`` and ``rnn_step.cu`` against the build of their
+   sources before the bf16 instances, kept in SASS_BASE);
 12. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, sweep and ResNet runs, the card line again, one JSON line
    listing each kernel's numbers and, last, ``{"ok": true, "device":
@@ -2089,48 +2088,42 @@ SASS_KERNELS = (
     ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
     ("rnn_step.cu", "gru_cand_kernelEPKf", "gru_cand_kernelIffE"),
 )
-# the revision whose sources the float32 instances are compared with: the
-# last one before the bf16 instances (override with SASS_BASE_REV, or
-# point SASS_BASE_DIR at a directory holding that revision's ops/csrc)
+# their sources as of the last revision before the bf16 instances
+# (SASS_BASE_REV), kept in SASS_BASE so that a checkout without history
+# compares them too, each file pinned by its git blob id at that revision
 SASS_BASE_REV = "704dbc822bcc64241779e3b269892a62eb6b8e70"
+SASS_BASE = "paddle_tpu_torch/tools/sass_base"
+SASS_BASE_BLOBS = {
+    "flash_bwd.cu": "f9b8a77ef1567ea7eb23229367e4559e3e1faea8",
+    "flash_common.cuh": "b1635bb2bcf22f838fcc6636dd32c01fd59f12a8",
+    "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
+}
 
 
 def sass_phase():
     """``tools/sass_diff.py`` over SASS_KERNELS: each float32 instance's
-    machine code against the earlier revision's build, line for line.  The
-    earlier sources come from SASS_BASE_DIR or ``git archive`` of
-    SASS_BASE_REV; where neither is at hand (a copy of the tree without
-    its history) the comparison is reported as not made."""
+    machine code against SASS_BASE's build, line for line.  Fails when a
+    file of SASS_BASE is missing or is not SASS_BASE_REV's."""
     import concurrent.futures
     import os
-    import tarfile
-    from io import BytesIO
 
     from paddle_tpu_torch.tools import sass_diff
 
     csrc = "paddle_tpu_torch/ops/csrc"
-    base = os.environ.get("SASS_BASE_DIR")
-    tmp = tempfile.mkdtemp(prefix="sass_base_")
-    if base is None:
-        rev = os.environ.get("SASS_BASE_REV", SASS_BASE_REV)
-        try:
-            tar = subprocess.run(["git", "archive", rev, csrc], check=True,
-                                 capture_output=True, timeout=60).stdout
-        except (OSError, subprocess.SubprocessError) as e:
-            print(f"sass_diff: not compared - no earlier sources at hand "
-                  f"(git archive {rev[:12]}: "
-                  f"{getattr(e, 'stderr', b'') or e!s}".strip()[:300]
-                  + "; set SASS_BASE_DIR)", flush=True)
-            return {"compared": False}
-        tarfile.open(fileobj=BytesIO(tar)).extractall(tmp, filter="data")
-        base = os.path.join(tmp, csrc)
+    for name, blob in SASS_BASE_BLOBS.items():
+        got = sass_diff.git_blob_id(os.path.join(SASS_BASE, name))
+        if got != blob:
+            raise AssertionError(
+                f"{SASS_BASE}/{name} is blob {got}, not {blob} "
+                f"({SASS_BASE_REV[:12]}'s)")
     srcs = sorted({src for src, _, _ in SASS_KERNELS})
     jobs = {}
     with concurrent.futures.ThreadPoolExecutor(2 * len(srcs)) as pool:
         for src in srcs:
             stem = src.removesuffix(".cu")
             jobs[("old", src)] = pool.submit(
-                sass_diff.sass_of, os.path.join(base, src), f"old_{stem}")
+                sass_diff.sass_of, os.path.join(SASS_BASE, src),
+                f"old_{stem}")
             jobs[("new", src)] = pool.submit(
                 sass_diff.sass_of, os.path.join(csrc, src), f"new_{stem}")
         listings = {key: sass_diff.kernels(f.result())
@@ -2148,7 +2141,7 @@ def sass_phase():
         if diff is not None:
             raise AssertionError(f"{src}: the float32 instance "
                                  f"{new_name} changed")
-    return {"compared": True, "lines": out}
+    return out
 
 
 # ------------------------------------------------------------ conv kernels

@@ -49,19 +49,12 @@ _options: dict = {
     "compute_dtype": "float32",
 }
 
-# the resolved precision Policy, cached until any option changes (every
-# Topology.forward and trainer step reads it)
-_policy_cache = None
-
-
 def set_seed(seed: int) -> None:
     _options["seed"] = int(seed)
 
 
 def set_option(key: str, value) -> None:
-    global _policy_cache
     _options[key] = value
-    _policy_cache = None
 
 
 def get_option(key: str, default=None):
@@ -79,12 +72,9 @@ def precision_policy():
     """The active precision policy (``core.precision.Policy``), resolved
     from the ``precision`` option, or from the legacy ``compute_dtype``
     option when no policy was named."""
-    global _policy_cache
-    if _policy_cache is None:
-        from paddle_tpu_torch.core import precision
+    from paddle_tpu_torch.core import precision
 
-        _policy_cache = precision.resolve(_options)
-    return _policy_cache
+    return precision.resolve(_options)
 
 
 def resolve_device(device=None) -> torch.device:

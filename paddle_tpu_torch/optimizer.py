@@ -88,8 +88,14 @@ class Optimizer:
     def slots(self, p: torch.Tensor) -> dict:
         return {}
 
-    def leaf_update(self, p, g, s: dict, lr: float, t: int) -> None:
-        """Update ``p`` and the slot tensors of ``s`` in place."""
+    def step_terms(self, t):
+        """What ``leaf_update`` needs of the step count ``t`` (an int, or a
+        device scalar under loss scaling), computed once per update."""
+        return t
+
+    def leaf_update(self, p, g, s: dict, lr: float, terms) -> None:
+        """Update ``p`` and the slot tensors of ``s`` in place; ``terms``
+        is ``step_terms(t)``."""
         raise NotImplementedError
 
     # ---- tree plumbing ----
@@ -132,6 +138,7 @@ class Optimizer:
             kept = [x for l, pn, p, _ in work
                     for x in (p, *state["slots"][l][pn].values())]
             old = torch._foreach_mul(kept, 1.0)
+        terms = self.step_terms(t)
         for l, pn, p, g in work:
             if scale is not None:
                 g = g * scale
@@ -146,7 +153,7 @@ class Optimizer:
             if l1:
                 g = g + l1 * torch.sign(p)
             lr = lr_t * m.get("learning_rate", 1.0)
-            self.leaf_update(p, g, state["slots"][l][pn], lr, t)
+            self.leaf_update(p, g, state["slots"][l][pn], lr, terms)
         if finite is not None:
             for new, was in zip(kept, old):
                 torch.where(finite, new, was, out=new)
@@ -169,7 +176,7 @@ class Momentum(Optimizer):
     def slots(self, p):
         return {"momentum": torch.zeros_like(p)} if self.mom else {}
 
-    def leaf_update(self, p, g, s, lr, t):
+    def leaf_update(self, p, g, s, lr, terms):
         if not self.mom:
             p.sub_(lr * g)
             return
@@ -195,25 +202,18 @@ class Adam(Optimizer):
         return {"momentum": torch.zeros_like(p),
                 "second_momentum": torch.zeros_like(p)}
 
-    def leaf_update(self, p, g, s, lr, t):
+    def step_terms(self, t):
+        """The bias corrections (1 - b1^t, 1 - b2^t)."""
+        return 1 - self.b1 ** t, 1 - self.b2 ** t
+
+    def leaf_update(self, p, g, s, lr, terms):
         m, v = s["momentum"], s["second_momentum"]
         m.mul_(self.b1).add_(g, alpha=1 - self.b1)
         v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-        bc1, bc2 = self._bias_corrections(t)
+        bc1, bc2 = terms
         mhat = m / bc1
         denom = torch.sqrt(v / bc2).add_(self.eps)
         p.sub_(mhat.mul_(lr).div_(denom))
-
-    def _bias_corrections(self, t):
-        """(1 - b1^t, 1 - b2^t): host floats for a host step; for a
-        device step (loss scaling) two device scalars, computed once per
-        update rather than once per parameter."""
-        if not isinstance(t, torch.Tensor):
-            return 1 - self.b1 ** t, 1 - self.b2 ** t
-        if getattr(self, "_bc_step", None) is not t:
-            self._bc_step = t
-            self._bc = (1 - self.b1 ** t, 1 - self.b2 ** t)
-        return self._bc
 
 
 class L2Regularization:

@@ -21,6 +21,7 @@ Kernel 1's float32 instance against an earlier checkout's, for example:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import subprocess
 
@@ -58,6 +59,14 @@ def first_difference(old: list, new: list):
         if a != b:
             return i, a, b
     return None
+
+
+def git_blob_id(path: str) -> str:
+    """The id git gives the file's content as a blob (``git hash-object``),
+    computed without git."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest()
 
 
 def sass_of(src: str, tag: str) -> str:

@@ -14,6 +14,7 @@ norm (a row one ulp off in every element), LSE within
 
 import functools
 import importlib
+import importlib.util
 
 import jax.numpy as jnp
 import numpy as np
@@ -314,6 +315,32 @@ def test_sass_diff_reads_and_compares_cuobjdump_listings():
     assert sass_diff.first_difference(a[1:], b)[0] == 1
     with pytest.raises(SystemExit, match="2 kernels match"):
         sass_diff.pick(table, "kern")
+
+
+def test_sass_base_holds_the_float32_sources_before_the_bf16_instances(
+        tmp_path):
+    """chip_smoke.py compares the float32 instances of flash_bwd.cu and
+    rnn_step.cu with a build of SASS_BASE: every file there is, by its git
+    blob id (computed as ``git hash-object`` does), SASS_BASE_REV's."""
+    import os
+
+    from paddle_tpu_torch.tools import sass_diff
+
+    hello = tmp_path / "hello"
+    hello.write_bytes(b"hello\n")
+    assert (sass_diff.git_blob_id(str(hello))
+            == "ce013625030ba8dba906f756967f9e9ca394464a")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    base = os.path.join(repo, smoke.SASS_BASE)
+    assert sorted(os.listdir(base)) == sorted(smoke.SASS_BASE_BLOBS)
+    for name, blob in smoke.SASS_BASE_BLOBS.items():
+        assert sass_diff.git_blob_id(os.path.join(base, name)) == blob
+    assert ({src for src, _, _ in smoke.SASS_KERNELS}
+            <= set(smoke.SASS_BASE_BLOBS))
 
 
 def test_bound_is_set_by_the_slower_of_operations_and_bytes():

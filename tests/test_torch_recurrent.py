@@ -615,7 +615,6 @@ def test_bf16_step_dtypes_are_the_kernel_instances(precision, monkeypatch):
         pj.init(seed=0, precision="fp32")
         tconfig._options.clear()
         tconfig._options.update(saved)
-        tconfig._policy_cache = None
     want = set()
     for kind in ("lstm", "gru"):
         for x_dt, m_dt in trnn.KERNEL_DTYPES:
