@@ -126,12 +126,31 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
-   of ``flash_bwd.cu`` and ``rnn_step.cu`` against the build of their
-   sources before the bf16 instances, kept in SASS_BASE);
-12. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, sweep and ResNet runs, the card line again, one JSON line
-   listing each kernel's numbers and, last, ``{"ok": true, "device":
-   {...}}``.
+   of ``flash_bwd.cu``, ``rnn_step.cu``, ``bn_stats.cu`` and
+   ``conv_bn.cu`` against the build of their sources before the bf16
+   instances, kept in SASS_BASE);
+12. ResNet-50 under ``bf16`` (the bench's precision): after the float32
+   conv kernels, the bf16 instances of kernels 7a, 7b, 8 and 9 at the
+   same shapes against their plain versions (``conv_bf16_phase``: 7a's
+   and 7b's sums within CONV_STAT_TOL of max(1, max |ref|) and 7b's kept
+   count equal, at bf16's relu boundary too; each row of 8's and 9's y
+   within 2^-7 of its norm, their statistics within CONV_STAT_TOL;
+   planted faults - 8's last K slice, one of 9's taps, 7b's mask on the
+   float32 fold - shown to fail), each timed beside its bound, plain
+   version and bf16 library call; after the float32 ResNet path, the same
+   model under ``bf16`` (``resnet_bf16_path``): every fused layer at batch
+   8 on the plain route's inputs within RESNET_BF16_LAYER_TOLS, the kernel
+   route against the plain route end to end within the larger of the
+   fixed bounds and twice the plain route's own spread, 4 Momentum steps
+   at batch 256 with the bf16 instances launched 30 / 16 / 4 / 4 times a
+   step and no float32 launch, the breakdown, idle share and peak memory,
+   ``SGD.test`` launching none; then ``bench_resnet``'s configuration
+   (``bf16``, no fusion, plain statistics: no kernel of this repo) for
+   the same 4 steps, as a smoke figure;
+13. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, sweep, ResNet and ResNet-under-bf16 runs, the card line again,
+   one JSON line listing each kernel's numbers and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The tokens/s, time-to-first-token and training step times it
@@ -2087,16 +2106,32 @@ SASS_KERNELS = (
     ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
     ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
     ("rnn_step.cu", "gru_cand_kernelEPKf", "gru_cand_kernelIffE"),
+    ("bn_stats.cu", "fwd_partial_kernelEPKf", "fwd_partial_kernelIfE"),
+    ("bn_stats.cu", "bwd_partial_kernelILb1E", "bwd_partial_kernelIfLb1E"),
+    ("bn_stats.cu", "bwd_partial_kernelILb0E", "bwd_partial_kernelIfLb0E"),
+    ("conv_bn.cu", "gemm_stats_kernelINS_6DenseAELb1E",
+     "gemm_stats_kernelINS_6DenseAIfEELb1E"),
+    ("conv_bn.cu", "gemm_stats_kernelINS_6DenseAELb0E",
+     "gemm_stats_kernelINS_6DenseAIfEELb0E"),
+    ("conv_bn.cu", "gemm_stats_kernelINS_8Conv3x3AELb1E",
+     "gemm_stats_kernelINS_8Conv3x3AIfEELb1E"),
+    ("conv_bn.cu", "gemm_stats_kernelINS_8Conv3x3AELb0E",
+     "gemm_stats_kernelINS_8Conv3x3AIfEELb0E"),
 )
 # their sources as of the last revision before the bf16 instances
-# (SASS_BASE_REV), kept in SASS_BASE so that a checkout without history
-# compares them too, each file pinned by its git blob id at that revision
+# (SASS_BASE_REV; bn_stats.cu, conv_bn.cu and stat_reduce.cuh are the same
+# blobs there as at the revision before their own bf16 instances), kept in
+# SASS_BASE so that a checkout without history compares them too, each
+# file pinned by its git blob id at that revision
 SASS_BASE_REV = "704dbc822bcc64241779e3b269892a62eb6b8e70"
 SASS_BASE = "paddle_tpu_torch/tools/sass_base"
 SASS_BASE_BLOBS = {
+    "bn_stats.cu": "2688c2245abea33ec34e0b2db2c5f561604ef115",
+    "conv_bn.cu": "ac3775887f4e8d0ce30fdb4d9895792ea06f49ba",
     "flash_bwd.cu": "f9b8a77ef1567ea7eb23229367e4559e3e1faea8",
     "flash_common.cuh": "b1635bb2bcf22f838fcc6636dd32c01fd59f12a8",
     "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
+    "stat_reduce.cuh": "cbe135e3f7369ea805b038fccfe2ea71076bcf06",
 }
 
 
@@ -2185,19 +2220,20 @@ def resnet_shapes(topo, batch):
 
 
 def _rel_err(got, ref) -> float:
+    got, ref = got.float(), ref.float()
     return ((got - ref).abs().max().item()
             / max(1.0, ref.abs().max().item()))
 
 
-def _hold(what, pairs):
-    """Each (name, kernel value, plain value) within TOL of max(1, max
+def _hold(what, pairs, tol=TOL):
+    """Each (name, kernel value, plain value) within ``tol`` of max(1, max
     |plain|), finite; returns (max abs error, max relative error)."""
     worst_abs = worst_rel = 0.0
     for name, got, ref in pairs:
         rel = _rel_err(got, ref)
-        if not (rel <= TOL and torch.isfinite(got).all()):
+        if not (rel <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"{what}: {name} disagrees with the plain "
-                                 f"version: {rel} > {TOL} of max(1, max "
+                                 f"version: {rel} > {tol} of max(1, max "
                                  f"|ref|)")
         worst_abs = max(worst_abs, (got - ref).abs().max().item())
         worst_rel = max(worst_rel, rel)
@@ -2424,6 +2460,298 @@ def conv_phase(dev, gen, flush):
     return out
 
 
+# ------------------------------------------------- conv kernels at bf16
+# the statistics' limit, the float32 kernels' largest reading on the H100
+# (sums of the same values in another order), and the per-row limit on a
+# bf16 y (every element within one bf16 rounding of the plain version's)
+CONV_STAT_TOL = 3.8e-6
+CONV_ROW_TOL = 2.0 ** -7
+
+
+def _hold_conv_bf16(what, got, ref):
+    """Kernel 8's or 9's (y, s, ss) at bf16 against the plain version's:
+    each row (output pixel) of y within CONV_ROW_TOL of its norm, s and ss
+    within CONV_STAT_TOL.  Returns (y's row error, max abs error of y and
+    the statistics, the statistics' max relative error)."""
+    co = ref[0].shape[-1]
+    row = _o_row_err(got[0].reshape(-1, co), ref[0].reshape(-1, co))
+    if not (row <= CONV_ROW_TOL and got[0].dtype == torch.bfloat16
+            and torch.isfinite(got[0].float()).all()):
+        raise AssertionError(f"{what}: y's rows disagree with the plain "
+                             f"version: {row} > {CONV_ROW_TOL} "
+                             f"({got[0].dtype})")
+    e_abs, e_rel = _hold(what, zip(("s", "ss"), got[1:], ref[1:]),
+                         CONV_STAT_TOL)
+    y_abs = (got[0].float() - ref[0].float()).abs().max().item()
+    return row, max(y_abs, e_abs), e_rel
+
+
+def _bf16_boundary(x2, w, gen, rows_per_channel=16):
+    """b [C] and rows that put ``rows_per_channel`` elements of each
+    channel of bf16 x2 [P, C] where the fold in bf16 (w and b rounded to
+    bf16, the product rounded, then the sum) is exactly 0 while the
+    float32 fold x * w + b is not: those elements take the value of one
+    whose product x * bf16(w) is not a bf16 number, and b = -bf16(that
+    product).  Returns (x2 changed in place, b, rows [k, C])."""
+    p, c = x2.shape
+    wb = w.to(torch.bfloat16).float()
+    prod = x2.float() * wb
+    inexact = prod != prod.to(torch.bfloat16).float()
+    src = inexact.float().argmax(dim=0)                 # one such row each
+    cols = torch.arange(c, device=x2.device)
+    rows = torch.randint(0, p, (rows_per_channel, c), device=x2.device,
+                         generator=gen)
+    x2[rows, cols] = x2[src, cols]
+    b = -(x2[src, cols].float() * wb).to(torch.bfloat16).float()
+    return x2, b, rows
+
+
+def conv_bf16_phase(dev, gen, flush):
+    """The bf16 instances of kernels 7a, 7b, 8 and 9 against their plain
+    versions at every shape ``conv_phase`` runs (each distinct ResNet-50
+    shape at batch RESNET_BATCH, ragged shapes, rank 2), on bf16 operands:
+    7a's and 7b's sums within CONV_STAT_TOL of max(1, max |ref|) and 7b's
+    kept count (its sum dy on a dout of ones) equal to the plain mask's;
+    8's and 9's y per row within CONV_ROW_TOL of its norm, s and ss within
+    CONV_STAT_TOL.  Planted faults must fail those checks: for 8 the last
+    K slice (8 input channels) left out, for 9 one of the nine taps, for
+    7b the relu mask taken on the float32 fold, on activations planted
+    where it and the bf16 fold disagree.  Then each shape's device time
+    beside its bound (bf16 bytes; the FMAs are float32, at 67 TFLOP/s),
+    the plain version's and a library call's on the same bf16 inputs
+    (``torch.var_mean``, ``torch.batch_norm_backward_reduce``, bf16
+    ``torch.mm`` and ``F.conv2d`` on tensor cores).  Returns per kernel
+    the representative shape's numbers and one step's sums."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import conv_bn as cb
+    from paddle_tpu_torch.ops import fused_bn as fb
+
+    bf = torch.bfloat16
+    _, topo = resnet_model()
+    conv1, conv3, bn = resnet_shapes(topo, RESNET_BATCH)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def bn_args(shape):
+        c = shape[-1]
+        x2 = randn(*shape).view(-1, c).to(bf)
+        xf = x2.float()
+        mean = xf.mean(0)
+        inv = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+        w = randn(c, scale=0.5) * inv
+        b = randn(c, scale=0.2) - mean * w
+        return x2, randn(*x2.shape).to(bf), w, b, mean, inv
+
+    errs = {k: (0.0, 0.0) for k in CONV_KERNELS}   # (max abs, max rel)
+    rows_err = {"matmul_stats": 0.0, "conv3x3_stats": 0.0}
+    faults = {}
+
+    def note(k, e):
+        errs[k] = (max(errs[k][0], e[0]), max(errs[k][1], e[1]))
+
+    for shape in list(bn) + [(3, 37, 41, 64), (6272, 512), (1337, 40)]:
+        x2, dout, w, b, mean, inv = bn_args(shape)
+        note("bn_fwd_stats", _hold(
+            f"bn_fwd_stats bf16 {shape}", zip(
+                ("sum x", "sum x^2"), fb.bn_fwd_stats_cuda(x2),
+                fb._fwd_stats_ref(x2)), CONV_STAT_TOL))
+        for relu in (True, False):
+            note("bn_bwd_stats", _hold(
+                f"bn_bwd_stats bf16 {shape} relu={relu}", zip(
+                    ("sum dy", "sum dy*xhat"),
+                    fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, relu),
+                    fb._bwd_stats_ref(dout, x2, w, b, mean, inv, relu)),
+                CONV_STAT_TOL))
+        ones = torch.ones_like(dout)
+        kept = fb.bn_bwd_stats_cuda(ones, x2, w, b, mean, inv, True)[0]
+        want = (fb._fold(x2, w, b) > 0).sum(0).float()
+        if not torch.equal(kept, want):
+            raise AssertionError(f"bn_bwd_stats bf16 {shape}: the kernel "
+                                 f"kept {kept.sum().item()} elements, the "
+                                 f"plain mask {want.sum().item()}")
+        del x2, dout, ones
+    # the relu boundary at the stem's shape: 16 elements of each channel
+    # where the bf16 fold is exactly 0 and the float32 fold is not, dout
+    # 1000 there; the kernel drops them as the forward does, a mask on the
+    # float32 fold keeps those whose float32 fold is > 0
+    stem = max(bn, key=lambda s: s[0] * s[1] * s[2])
+    x2, dout, w, _, mean, inv = bn_args(stem)
+    x2, b, rows = _bf16_boundary(x2, w, gen)
+    cols = torch.arange(x2.shape[1], device=dev)
+    dout[rows, cols] = 1000.0
+    got = fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, True)
+    ref = fb._bwd_stats_ref(dout, x2, w, b, mean, inv, True)
+    e = _hold("bn_bwd_stats bf16 relu boundary", zip(
+        ("sum dy", "sum dy*xhat"), got, ref), CONV_STAT_TOL)
+    note("bn_bwd_stats", e)
+    fold32 = x2.float() * w + b
+    if not bool((fb._fold(x2, w, b)[rows, cols] == 0).all()):
+        raise AssertionError("bf16 relu boundary: the bf16 fold is not 0")
+    f32_kept = int((fold32[rows, cols] > 0).sum())
+    bad = fb._bwd_stats_ref(dout, x2.float(), w, b, mean, inv, True)
+    fault = max(_rel_err(g, r) for g, r in zip(bad, ref))
+    kept = fb.bn_bwd_stats_cuda(torch.ones_like(dout), x2, w, b, mean,
+                                inv, True)[0].sum().item()
+    kept32 = int((fold32 > 0).sum())
+    if not (fault > CONV_STAT_TOL and f32_kept and kept != kept32):
+        raise AssertionError(f"bn_bwd_stats bf16 planted fault (the mask "
+                             f"on the float32 fold) passed: {fault}")
+    faults["bn_bwd_stats"] = fault
+    print(f"bn_bwd_stats bf16 relu boundary at {list(stem)} ({rows.numel()} "
+          f"elements with the bf16 fold exactly 0, dout 1000): error "
+          f"{e[1]:.1e}; the mask on the float32 fold keeps {f32_kept} of them "
+          f"({kept32} kept in all against the kernel's {kept:.0f}) and "
+          f"misses by {fault:.3e} of max(1, max |ref|) (limit "
+          f"{CONV_STAT_TOL}): fails, as it must", flush=True)
+    del x2, dout, fold32, bad
+    for p, ci, co in list(conv1) + [(1000, 37, 70), (4099, 64, 200)]:
+        x2 = randn(p, ci).to(bf)
+        w2 = randn(ci, co, scale=ci ** -0.5).to(bf)
+        ref = cb._matmul_stats_ref(x2, w2)
+        r, *e = _hold_conv_bf16(f"matmul_stats bf16 {(p, ci, co)}",
+                                cb.matmul_stats_cuda(x2, w2), ref)
+        rows_err["matmul_stats"] = max(rows_err["matmul_stats"], r)
+        note("matmul_stats", e)
+        if (p, ci, co) == (RESNET_BATCH * 56 * 56, 64, 256):
+            cut = x2.clone()
+            cut[:, -8:] = 0          # the last K slice left out
+            got = cb.matmul_stats_cuda(cut, w2)
+            faults["matmul_stats"] = _o_row_err(got[0], ref[0])
+            if faults["matmul_stats"] <= CONV_ROW_TOL:
+                raise AssertionError("matmul_stats bf16 planted fault "
+                                     "passed the row check")
+            del cut, got
+        del x2, w2, ref
+    for n, h, w_, ci, co in list(conv3) + [(3, 7, 9, 5, 7),
+                                           (2, 13, 11, 64, 72)]:
+        x4 = randn(n, h, w_, ci).to(bf)
+        w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(bf)
+        ref = cb._conv3x3_stats_ref(x4, w4)
+        r, *e = _hold_conv_bf16(f"conv3x3_stats bf16 {(n, h, w_, ci, co)}",
+                                cb.conv3x3_stats_cuda(x4, w4), ref)
+        rows_err["conv3x3_stats"] = max(rows_err["conv3x3_stats"], r)
+        note("conv3x3_stats", e)
+        if (n, h, w_, ci, co) == (RESNET_BATCH, 56, 56, 64, 64):
+            cut = w4.clone()
+            cut[2, 2] = 0            # one of the nine taps left out
+            got = cb.conv3x3_stats_cuda(x4, cut)
+            faults["conv3x3_stats"] = _o_row_err(
+                got[0].reshape(-1, co), ref[0].reshape(-1, co))
+            if faults["conv3x3_stats"] <= CONV_ROW_TOL:
+                raise AssertionError("conv3x3_stats bf16 planted fault "
+                                     "passed the row check")
+            del cut, got
+        del x4, w4, ref
+    torch.cuda.synchronize()
+    print("conv kernels at bf16 against their plain versions (every "
+          "ResNet-50 shape, ragged shapes, rank 2): statistics' worst error "
+          "/ max(1, max |ref|) " + ", ".join(
+              f"{k} {e[1]:.1e}" for k, e in errs.items())
+          + f" (limit {CONV_STAT_TOL}); y's worst row error " + ", ".join(
+              f"{k} {e:.1e}" for k, e in rows_err.items())
+          + f" (limit {CONV_ROW_TOL:.2e}); planted faults (row error, or "
+          f"the statistics' for 7b): " + ", ".join(
+              f"{k} {e:.3f}" for k, e in faults.items())
+          + ", each failing the check", flush=True)
+
+    rows_out = {k: [] for k in CONV_KERNELS}
+    with torch.no_grad():
+        for shape, count in bn.items():
+            x2, dout, w, b, mean, inv = bn_args(shape)
+            p, c = x2.shape
+            xn = x2.view(shape).permute(0, 3, 1, 2)
+            dn = dout.view(shape).permute(0, 3, 1, 2)
+            rows_out["bn_fwd_stats"].append(dict(
+                shape=list(shape), count=count,
+                ms=time_ms(lambda: fb.bn_fwd_stats_cuda(x2), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: fb._fwd_stats_ref(x2), flush,
+                                 lead=True),
+                library_ms=time_ms(lambda: torch.var_mean(
+                    x2, dim=0, correction=0), flush, lead=True),
+                bound=bound(3.0 * p * c, 2.0 * p * c + 4.0 * 2 * c)))
+            rows_out["bn_bwd_stats"].append(dict(
+                shape=list(shape), count=count,
+                ms=time_ms(lambda: fb.bn_bwd_stats_cuda(
+                    dout, x2, w, b, mean, inv, True), flush, lead=True),
+                plain_ms=time_ms(lambda: fb._bwd_stats_ref(
+                    dout, x2, w, b, mean, inv, True), flush, lead=True),
+                library_ms=time_ms(lambda: torch.batch_norm_backward_reduce(
+                    dn, xn, mean, inv, None, True, False, False), flush,
+                    lead=True),
+                bound=bound(8.0 * p * c, 2.0 * 2 * p * c + 4.0 * 6 * c)))
+            del x2, dout, xn, dn
+        for (p, ci, co), count in conv1.items():
+            x2 = randn(p, ci).to(bf)
+            w2 = randn(ci, co, scale=ci ** -0.5).to(bf)
+            rows_out["matmul_stats"].append(dict(
+                shape=[p, ci, co], count=count,
+                ms=time_ms(lambda: cb.matmul_stats_cuda(x2, w2), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: cb._matmul_stats_ref(x2, w2),
+                                 flush, lead=True),
+                library_ms=time_ms(lambda: torch.mm(x2, w2), flush,
+                                   lead=True),
+                bound=bound(2.0 * p * ci * co + 3.0 * p * co,
+                            2.0 * (p * ci + ci * co + p * co) + 4.0 * 2 * co)))
+            del x2, w2
+        for (n, h, w_, ci, co), count in conv3.items():
+            x4 = randn(n, h, w_, ci).to(bf)
+            w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(bf)
+            xn, wn = x4.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
+            p = n * h * w_
+            rows_out["conv3x3_stats"].append(dict(
+                shape=[n, h, w_, ci, co], count=count,
+                ms=time_ms(lambda: cb.conv3x3_stats_cuda(x4, w4), flush,
+                           lead=True),
+                plain_ms=time_ms(lambda: cb._conv3x3_stats_ref(x4, w4),
+                                 flush, lead=True),
+                library_ms=time_ms(lambda: F.conv2d(xn, wn, padding=1),
+                                   flush, lead=True),
+                bound=bound(2.0 * p * 9 * ci * co + 3.0 * p * co,
+                            2.0 * (p * ci + 9 * ci * co + p * co)
+                            + 4.0 * 2 * co)))
+            del x4, w4, xn, wn
+    torch.cuda.empty_cache()
+    library = {"bn_fwd_stats": "torch.var_mean on bf16",
+               "bn_bwd_stats": "torch.batch_norm_backward_reduce on bf16 "
+                               "(the two sums, no relu mask)",
+               "matmul_stats": "bf16 torch.mm alone (tensor cores)",
+               "conv3x3_stats": "bf16 F.conv2d alone (tensor cores)"}
+    rep = {"matmul_stats": [RESNET_BATCH * 56 * 56, 64, 256],
+           "conv3x3_stats": [RESNET_BATCH, 56, 56, 64, 64],
+           "bn_fwd_stats": [RESNET_BATCH, 112, 112, 64],
+           "bn_bwd_stats": [RESNET_BATCH, 112, 112, 64]}
+    out = {}
+    for k, rows in rows_out.items():
+        for r in rows:
+            b_ms, b_by = r.pop("bound")
+            r.update(bound_ms=b_ms, bound_by=b_by)
+            print(f"{k}_bf16 {r['shape']} x{r['count']} a step: ms "
+                  f"{r['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  plain_ms "
+                  f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f} "
+                  f"({library[k]})", flush=True)
+        main = next(r for r in rows if r["shape"] == rep[k])
+        step = {f: sum(r[f] * r["count"] for r in rows)
+                for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        print(f"{k}_bf16: one batch-{RESNET_BATCH} step's launches sum to "
+              f"ms {step['ms']:.3f}, bound {step['bound_ms']:.3f}, plain "
+              f"{step['plain_ms']:.3f}, library {step['library_ms']:.3f}",
+              flush=True)
+        out[k] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                      bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                      library_ms=main["library_ms"], library=library[k],
+                      max_abs_err=errs[k][0], max_rel_err=errs[k][1],
+                      shape=main["shape"], per_step=step, shapes=rows)
+        if k in rows_err:
+            out[k]["y_row_err"] = rows_err[k]
+        if k in faults:
+            out[k]["planted_fault"] = faults[k]
+    return out
+
+
 # -------------------------------------------------------------- ResNet path
 def resnet_values(topo, seed: int) -> dict:
     """A numpy parameter tree for ResNet from a seed: He-normal conv
@@ -2474,31 +2802,36 @@ def _set_route(topo, kernel: bool) -> None:
                 spec.attrs["conv_bn_impl"] = "xla"
 
 
-def resnet_parity(paddle, topo, values, feed):
+def resnet_parity(paddle, topo, values, feed, nudge=2.0 ** -22,
+                  bf16=False):
     """Batch RESNET_PARITY_BATCH, from the same weights, cuDNN
     deterministic: the kernel route against the plain one on the card -
     the first loss (1e-4 relative), every gradient (1e-3 of max(1, max
     |g|)), the moving statistics after one step (1e-4 of max(1, max
     |ref|)) and a 3-step Momentum trajectory (1e-3 relative).  The
     counters move 30 / 16 / 4 / 4 a forward-backward on the kernel route
+    (with ``bf16``, the bf16 instances' counters, and no float32 launch)
     and not at all on the plain one.
 
     The plain route runs twice more on inputs that change nothing but
-    float32 rounding: the images nudged by 2^-22 relative, and the batch
-    in reverse order (every batch-norm sum and reduction taken in another
-    order, as the kernels take them).  How far those move each number is
-    float32's own spread for this net: the backward amplifies rounding
-    through 50 batch norms at batch 8, so early layers' gradients move by
-    ~3e-2 of max(1, max |g|).  Each number is held within the larger of
-    its bound and twice that spread (for a gradient, the largest spread in
-    its stage: stem, res2 to res5, head); the printout says which bound
-    held where.  ``resnet_layer_parity`` holds every layer at the fixed
+    rounding: the images nudged by ``nudge`` relative (2^-22 at float32;
+    under the bf16 policy the stem casts the images to bf16, so the nudge
+    is 2^-8, about half of them a bf16 ulp), and the batch in reverse
+    order (every batch-norm sum and reduction taken in another order, as
+    the kernels take them).  How far those move each number is the plain
+    route's own spread for this net at its precision: the backward
+    amplifies rounding through 50 batch norms at batch 8, so early
+    layers' gradients move by ~3e-2 of max(1, max |g|) at float32.  Each
+    number is held within the larger of its bound and twice that spread
+    (for a gradient, the largest spread in its stage: stem, res2 to res5,
+    head); the printout says which bound held where.
+    ``resnet_layer_parity`` holds every layer at float32 at the fixed
     bounds without the amplification."""
     from paddle_tpu_torch import ops
 
     per_pass = {"matmul_stats": 30, "conv3x3_stats": 16,
                 "bn_fwd_stats": 4, "bn_bwd_stats": 4}
-    nudged = dict(feed, image=feed["image"] * np.float32(1 + 2 ** -22))
+    nudged = dict(feed, image=feed["image"] * np.float32(1 + nudge))
     reversed_ = {k: np.ascontiguousarray(v[::-1]) for k, v in feed.items()}
     torch.backends.cudnn.deterministic = True
     runs = {}
@@ -2521,8 +2854,13 @@ def resnet_parity(paddle, topo, values, feed):
                 if isinstance(e, paddle.event.EndIteration) else None))
             runs[name] = (float(loss), grads, state, losses)
             del tr
-            got = {k: ops.launch_counts()[k] for k in per_pass}
+            counts = ops.launch_counts()
+            got = {k: counts[k] for k in per_pass}
             want = {k: 4 * n if kernel else 0 for k, n in per_pass.items()}
+            if bf16:
+                got.update({k + "_bf16": counts[k + "_bf16"]
+                            for k in per_pass})
+                want.update({k + "_bf16": n for k, n in want.items()})
             if got != want:
                 raise AssertionError(f"ResNet parity, {name} route: "
                                      f"launches {got}, expected {want}")
@@ -2571,11 +2909,11 @@ def resnet_parity(paddle, topo, values, feed):
         else:
             raise AssertionError(
                 f"ResNet parity: {what}: kernel route vs plain {err:.3e}, "
-                f"beyond its bound {fixed} and twice float32's spread "
-                f"{spread:.3e} (the plain route on nudged or reversed "
-                f"inputs)")
+                f"beyond its bound {fixed} and twice the plain route's "
+                f"spread {spread:.3e} (on nudged or reversed inputs)")
     worst = max(checks[1:-1], key=lambda c: c[1])
-    print(f"ResNet-50 parity at batch {len(feed['label'])} x "
+    print(f"ResNet-50 {'bf16 ' if bf16 else ''}parity at batch "
+          f"{len(feed['label'])} x "
           f"{RESNET_IMAGE}^2, kernel route vs the plain route (fused_bn_impl"
           f" and conv_bn_impl 'xla'): first loss {loss_k:.6f} vs "
           f"{loss_t:.6f} ({_rel(loss_k, loss_t):.2e} relative); 3-step "
@@ -2599,7 +2937,7 @@ def resnet_parity(paddle, topo, values, feed):
             "grad_spread_by_stage": grad_spread}
 
 
-def resnet_layer_parity(paddle, topo, values, feed, gen):
+def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
     """Each layer whose route differs (the 46 conv_bn layers and the 7
     batch norms) on the same inputs, the plain route's own activations at
     batch RESNET_PARITY_BATCH: the kernel route against the plain one on
@@ -2613,9 +2951,15 @@ def resnet_layer_parity(paddle, topo, values, feed, gen):
     by the other; its gradient then differs by its whole cotangent.  Such
     flips must be rare (at most 1e-5 of the outputs) and tiny (the kept
     value within 1e-4 of max(1, max |y|)), and the cotangent is zero at
-    them."""
+    them.  ``tols`` (output, moving statistics, gradients, flip share)
+    replaces those limits under a reduced policy (RESNET_BF16_LAYER_TOLS),
+    whose compute dtype each layer is applied under."""
+    from paddle_tpu_torch.core import config
     from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
 
+    out_tol, state_tol, grad_tol, flip_share = tols or (TOL, TOL, 1e-3,
+                                                        1e-5)
+    compute_dtype = config.precision_policy().ctx_compute_dtype()
     params = paddle.parameters.from_numpy(topo, values).values
     state = topo.create_state()
     names = [s.name for s in topo.specs if s.kind != "data"]
@@ -2634,7 +2978,8 @@ def resnet_layer_parity(paddle, topo, values, feed, gen):
             run = {}
             for kernel in (True, False):
                 _set_route(topo, kernel)
-                ctx = ApplyContext(train=True, device=x.device)
+                ctx = ApplyContext(train=True, device=x.device,
+                                   compute_dtype=compute_dtype)
                 ctx.state_in, ctx._cur_layer = state, spec.name
                 xi = x.detach().requires_grad_(True)
                 lp = {k: v.detach().requires_grad_(True)
@@ -2647,24 +2992,27 @@ def resnet_layer_parity(paddle, topo, values, feed, gen):
             n_flip = int(flip.sum())
             if n_flip:
                 kept = torch.maximum(yk, yp)[flip].abs().max().item()
-                if (n_flip > 1e-5 * flip.numel()
-                        or kept > TOL * max(1.0, yp.abs().max().item())):
+                if (n_flip > flip_share * flip.numel()
+                        or kept > out_tol * max(
+                            1.0, yp.abs().max().item())):
                     raise AssertionError(
                         f"ResNet layer parity: {spec.name}: relu decides "
                         f"{n_flip} outputs differently, the largest kept "
                         f"at {kept}")
             flips += n_flip
-            cot = torch.randn(yp.shape, device=yp.device, generator=gen)
+            cot = torch.randn(yp.shape, device=yp.device,
+                              generator=gen).to(yp.dtype)
             cot[flip] = 0.0
             grads = {}
             for kernel, (y, _, lp, xi) in run.items():
                 g = torch.autograd.grad(y, list(lp.values()) + [xi], cot)
                 grads[kernel] = dict(zip(list(lp) + ["input"], g))
-            checks = [("output", spec.name, yk.detach(), yp.detach(), TOL)]
+            checks = [("output", spec.name, yk.detach(), yp.detach(),
+                       out_tol)]
             checks += [("state", f"{spec.name}.{k}", run[True][1][k], v,
-                        TOL) for k, v in run[False][1].items()]
+                        state_tol) for k, v in run[False][1].items()]
             checks += [("grad", f"{spec.name} d{k}", grads[True][k], v,
-                        1e-3) for k, v in grads[False].items()]
+                        grad_tol) for k, v in grads[False].items()]
             for kind, what, a, r, bound_ in checks:
                 err = _rel_err(a, r)
                 if not (err <= bound_ and torch.isfinite(a).all()):
@@ -2677,11 +3025,13 @@ def resnet_layer_parity(paddle, topo, values, feed, gen):
     finally:
         _set_route(topo, True)
     print(f"ResNet-50 layer by layer at batch {len(feed['label'])} ({n} "
-          f"layers whose route differs, each on the plain route's inputs): "
-          f"worst output {worst['output'][1]} {worst['output'][0]:.1e}, "
-          f"moving statistics {worst['state'][1]} {worst['state'][0]:.1e} "
-          f"(bound {TOL}); worst gradient {worst['grad'][1]} "
-          f"{worst['grad'][0]:.1e} (bound 1e-3); relu decided {flips} "
+          f"layers whose route differs, each on the plain route's inputs"
+          f"{', compute dtype ' + str(compute_dtype) if compute_dtype else ''}"
+          f"): worst output {worst['output'][1]} {worst['output'][0]:.1e} "
+          f"(bound {out_tol:.2e}), moving statistics {worst['state'][1]} "
+          f"{worst['state'][0]:.1e} (bound {state_tol}); worst gradient "
+          f"{worst['grad'][1]} {worst['grad'][0]:.1e} (bound "
+          f"{grad_tol:.2e}); relu decided {flips} "
           f"outputs differently (folds within a rounding of 0, cotangent "
           f"zero there)", flush=True)
     return dict({k: v[0] for k, v in worst.items()}, relu_flips=flips)
@@ -2811,6 +3161,130 @@ def resnet_path():
             "eval_cost": result.cost}
 
 
+# -------------------------------------------------- ResNet path at bf16
+RESNET_BF16_BATCH = 256      # bench_resnet's batch
+RESNET_BF16_NUDGE = 2.0 ** -8
+# resnet_layer_parity's limits under bf16 (output, moving statistics,
+# gradients, relu flip share): the bf16 output and the gradients within a
+# few bf16 roundings of max(1, max |ref|) (read on the H100: 6.3e-3 and
+# 9.3e-3), the float32 moving statistics as at float32 (read 1.1e-6), a
+# relu flip where the two routes' folds round apart (read: 1 output)
+RESNET_BF16_LAYER_TOLS = (2.0 ** -6, TOL, 2.0 ** -5, 1e-4)
+
+
+def _bf16_train(name, paddle, topo, values, kernels: bool):
+    """RESNET_STEPS Momentum steps of ``trainer.SGD.train`` under the
+    current policy at RESNET_BF16_BATCH x RESNET_IMAGE^2, counts set to 0
+    just before and read just after: with ``kernels`` the bf16 instances
+    of 8 / 9 / 7a / 7b launch 30 / 16 / 4 / 4 times a step and the float32
+    ones never, else none of the four; then the step breakdown and the
+    idle share.  Returns the trainer and its numbers."""
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                                 momentum=0.9))
+    feed = resnet_feed(RESNET_BF16_BATCH)
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        name, paddle, trainer, feed, RESNET_STEPS, "matmul_stats_bf16",
+        30 if kernels else 0, falling=False)
+    per_step = {k: launches[k + "_bf16"] / RESNET_STEPS for k in CONV_KERNELS}
+    f32 = {k: launches[k] - launches[k + "_bf16"] for k in CONV_KERNELS}
+    want = ({"matmul_stats": 30, "conv3x3_stats": 16, "bn_fwd_stats": 4,
+             "bn_bwd_stats": 4} if kernels else dict.fromkeys(CONV_KERNELS, 0))
+    if per_step != want or any(f32.values()):
+        raise AssertionError(f"{name}: bf16 launches a step {per_step}, "
+                             f"float32 launches {f32}")
+    print(f"{name}: {RESNET_STEPS} Momentum steps (lr {RESNET_LR}, 0.9) at "
+          f"batch {RESNET_BF16_BATCH} x {RESNET_IMAGE}^2, losses "
+          f"{[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{RESNET_BF16_BATCH / warm:.1f} images/s (smoke figure, not a "
+          f"benchmark); peak memory {peak_gb:.2f} GB; bf16 launches a step "
+          f"{per_step}, float32 launches {f32}", flush=True)
+    breakdown = resnet_breakdown(trainer, feed)
+    return trainer, {"losses": losses, "step_ms": warm * 1e3,
+                     "first_step_ms": step_s[0] * 1e3,
+                     "images_per_s": RESNET_BF16_BATCH / warm,
+                     "peak_gb": peak_gb, "launches": launches,
+                     "breakdown": breakdown}
+
+
+def resnet_bf16_path():
+    """ResNet-50 at full width under ``precision="bf16"`` (the bench's):
+    first the model ``resnet_model()`` builds, both fusions on, whose
+    kernel route must agree with its plain route at batch
+    RESNET_PARITY_BATCH within the larger of the fixed bounds and twice
+    the plain route's own spread (``resnet_parity`` with a bf16 nudge),
+    then trains RESNET_STEPS steps at RESNET_BF16_BATCH on the kernels'
+    bf16 instances (``_bf16_train``), and ``SGD.test`` on the trained
+    state must launch none of them.  Then ``bench_resnet``'s own
+    configuration: ``bf16``, ``fuse_conv_bn`` off, ``fused_bn_impl`` left
+    at its default (no kernel of this repo on the path), the same steps,
+    a smoke figure of what the bench will measure."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+    from paddle_tpu_torch.models import resnet
+
+    paddle, topo = resnet_model()
+    values = resnet_values(topo, SEED + 4)
+    _policy("bf16")
+    out = {}
+    try:
+        parity_feed = resnet_feed(RESNET_PARITY_BATCH, SEED + 5)
+        torch.backends.cudnn.deterministic = True
+        try:
+            layers = resnet_layer_parity(
+                paddle, topo, values, parity_feed,
+                torch.Generator(device="cuda").manual_seed(SEED),
+                tols=RESNET_BF16_LAYER_TOLS)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["parity"] = dict(resnet_parity(
+            paddle, topo, values, parity_feed, nudge=RESNET_BF16_NUDGE,
+            bf16=True), layers=layers)
+        torch.cuda.empty_cache()
+        trainer, out["fused"] = _bf16_train(
+            "ResNet-50 bf16 (fuse_conv_bn='all', fused_bn_impl='pallas')",
+            paddle, topo, values, kernels=True)
+        ops.reset_launch_counts()
+        result = trainer.test(lambda: iter([resnet_feed(32, SEED + 6)]))
+        eval_launches = {k: v for k, v in ops.launch_counts().items()
+                         if k.removesuffix("_bf16") in CONV_KERNELS}
+        if not np.isfinite(result.cost) or any(eval_launches.values()):
+            raise AssertionError(f"ResNet-50 bf16 eval: cost {result.cost},"
+                                 f" launches {eval_launches}")
+        print(f"ResNet-50 bf16 eval (SGD.test, batch 32, the moving "
+              f"statistics): cost {result.cost:.5f}, no kernel launched",
+              flush=True)
+        out["fused"]["eval_cost"] = result.cost
+        del trainer
+        torch.cuda.empty_cache()
+
+        _fresh(paddle)
+        paddle.init(seed=SEED, fuse_conv_bn=False, fused_bn_impl=None)
+        cost, _ = resnet.build(depth=50, image_size=RESNET_IMAGE,
+                               num_classes=RESNET_CLASSES,
+                               space_to_depth=True)
+        bench_topo = paddle.Topology(cost)
+        if any(spec.kind == "conv_bn" for spec in bench_topo.specs):
+            raise AssertionError("the bench configuration fused a conv")
+        trainer, out["bench"] = _bf16_train(
+            "ResNet-50 bf16, bench_resnet's configuration (no fusion, "
+            "plain statistics)", paddle, bench_topo,
+            resnet_values(bench_topo, SEED + 4), kernels=False)
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        _policy("fp32")
+        config.set_option("fuse_conv_bn", False)
+        config.set_option("fused_bn_impl", None)
+    fused, bench = out["fused"]["step_ms"], out["bench"]["step_ms"]
+    print(f"ResNet-50 at bf16, batch {RESNET_BF16_BATCH}: the fused path "
+          f"{fused:.1f} ms a step, the bench's configuration {bench:.1f} ms "
+          f"({'fused' if fused < bench else 'unfused'} faster by "
+          f"{abs(fused - bench):.1f} ms; smoke figures)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2846,6 +3320,7 @@ def main() -> int:
     rnn = rnn_phase(dev, gen, flush)
     rnn16 = rnn_bf16_phase(dev, gen, flush)
     conv = conv_phase(dev, gen, flush)
+    conv16 = conv_bf16_phase(dev, gen, flush)
     var = variants_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
@@ -2874,6 +3349,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sass = sass_phase()
     resnet = resnet_path()
+    torch.cuda.empty_cache()
+    resnet16 = resnet_bf16_path()
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
@@ -2969,6 +3446,16 @@ def main() -> int:
              replaces="paddle_tpu/ops/fused_rnn.py:144",
              launches=rnn16_paths["nmt"]["launches"]["gru_step_bf16"],
              instances=rnn16["gru"]),
+        *(dict(conv16[k], name=f"{k}_bf16", route="cuda",
+               source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=site,
+               launches=resnet16["fused"]["launches"][f"{k}_bf16"])
+          for k, src, site in (
+              ("bn_fwd_stats", "bn_stats.cu", "paddle_tpu/ops/fused_bn.py:58"),
+              ("bn_bwd_stats", "bn_stats.cu",
+               "paddle_tpu/ops/fused_bn.py:145"),
+              ("matmul_stats", "conv_bn.cu", "paddle_tpu/ops/conv_bn.py:46"),
+              ("conv3x3_stats", "conv_bn.cu",
+               "paddle_tpu/ops/conv_bn.py:180"))),
         dict(var["variants"]["D bf16+exp2+split bq128 bk64"]["tool"],
              name="flash_variants", route="cuda",
              source="paddle_tpu_torch/ops/csrc/flash_variants.cu",
@@ -3010,6 +3497,10 @@ def main() -> int:
         k: resnet[k] for k in ("losses", "first_step_ms", "step_ms",
                                "images_per_s", "peak_gb", "parity",
                                "breakdown", "eval_cost")}}), flush=True)
+    print(json.dumps({"resnet_bf16": {
+        "parity": resnet16["parity"],
+        **{path: {k: v for k, v in resnet16[path].items() if k != "launches"}
+           for path in ("fused", "bench")}}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,15 @@ card: a relu ``batch_norm`` under ``fused_bn_impl="pallas"`` (kernels 7a
 and 7b, ``ops/fused_bn.py``) and ``conv_bn`` (kernels 8 and 9,
 ``ops/conv_bn.py``).
 
+Under a reduced-precision policy (``ApplyContext.compute_dtype``, bf16
+under ``bf16`` and ``mixed``) the layers keep the JAX package's dtypes:
+conv and conv_bn cast x and w to the compute dtype (conv's bias to its
+output's), so activations stay bf16 between the convs; batch norm folds
+its float32 scalars into x's dtype and keeps float32 statistics and
+moving state; pooling keeps its input's dtype.
+
 Not ported yet: conv_transpose, maxout, bilinear_interp, pad, crop, spp,
-featmap_expand and the 3-D layers; and the conv layers under a
-reduced-precision policy (the JAX package casts their x and w to the
-compute dtype; ResNet-50 at bf16 is ``ROADMAP.md`` section 2, K3 and K4),
-which raise rather than compute at float32.
+featmap_expand and the 3-D layers.
 """
 
 from __future__ import annotations
@@ -38,12 +42,11 @@ def _pair(v):
     return (v, v)
 
 
-def _refuse_reduced_precision(ctx, kind: str) -> None:
-    if ctx.compute_dtype is not None:
-        raise NotImplementedError(
-            f"{kind} under a {ctx.compute_dtype} compute dtype is not "
-            f"ported to paddle_tpu_torch yet (ROADMAP.md section 2, K3 "
-            f"and K4: ResNet-50 at bf16)")
+def _compute_cast(ctx, x, w):
+    """x and w in the compute dtype, where a policy sets one."""
+    if ctx.compute_dtype is None:
+        return x, w
+    return x.to(ctx.compute_dtype), w.to(ctx.compute_dtype)
 
 
 def _conv_out(n, k, s, p):
@@ -80,12 +83,10 @@ class ConvLayer(LayerDef):
         return specs
 
     def apply(self, attrs, params, inputs, ctx):
-        _refuse_reduced_precision(ctx, "conv")
-        x = inputs[0]
         sh, sw = _pair(attrs.get("stride", 1))
         ph, pw = _pair(attrs.get("padding", 0))
         dh, dw = _pair(attrs.get("dilation", 1))
-        w = params["w"]
+        x, w = _compute_cast(ctx, inputs[0], params["w"])
         if (attrs.get("space_to_depth") and (sh, sw) == (2, 2)
                 and (dh, dw) == (1, 1) and attrs.get("groups", 1) == 1
                 and w.shape[0] % 2 == 1 and w.shape[1] % 2 == 1
@@ -101,7 +102,7 @@ class ConvLayer(LayerDef):
             out = cb.conv2d_nhwc(x, w, (sh, sw), (ph, pw), (dh, dw),
                                  attrs.get("groups", 1))
         if "b" in params:
-            out = out + params["b"]
+            out = out + params["b"].to(out.dtype)
         return act_mod.apply(attrs.get("act", "linear"), out)
 
 
@@ -185,11 +186,12 @@ class GlobalPoolLayer(LayerDef):
 
 
 def _bn_fold(x, scale, bias, mean, var, eps):
-    """Normalisation folded into per-channel scalars, then one multiply and
-    one add over x: the train path's and the eval path's single form."""
+    """Normalisation folded into per-channel float32 scalars, cast to x's
+    dtype, then one multiply and one add over x in that dtype: the train
+    path's and the eval path's single form."""
     inv = torch.rsqrt(var + eps)
-    w = scale * inv
-    b = bias - mean * scale * inv
+    w = (scale * inv).to(x.dtype)
+    b = (bias - mean * scale * inv).to(x.dtype)
     return x * w + b
 
 
@@ -301,18 +303,22 @@ class _BnApplyStats(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # float32 throughout: g and y upcast; dy back in y's dtype
         y, mean, var, scale = ctx.saved_tensors
         inv = torch.rsqrt(var + ctx.eps)
         red = tuple(range(y.ndim - 1))
-        xhat = (y - mean) * inv
+        g = g.float()
+        yf = y.float()
+        xhat = (yf - mean) * inv
         dbias = g.sum(dim=red)
         dscale = (g * xhat).sum(dim=red)
-        dy = g * (scale * inv)
+        dy = (g * (scale * inv)).to(y.dtype)
         # d/dmean of (y - mean) * inv * scale = -inv * scale, over pixels
         dmean = -g.sum(dim=red) * scale * inv
         # d/dvar: (y - mean) * scale * d(inv)/dvar = -0.5 inv^3 (y - mean)
-        dvar = (g * (y - mean)).sum(dim=red) * scale * (-0.5) * inv ** 3
-        return dy, dmean, dvar, dscale, dbias, None
+        dvar = (g * (yf - mean)).sum(dim=red) * scale * (-0.5) * inv ** 3
+        return (dy, dmean.float(), dvar.float(), dscale.to(scale.dtype),
+                dbias.to(scale.dtype), None)
 
 
 @register_layer
@@ -347,15 +353,14 @@ class ConvBNLayer(LayerDef):
         ]
 
     def apply(self, attrs, params, inputs, ctx):
-        _refuse_reduced_precision(ctx, "conv_bn")
-        x = inputs[0]
         eps = attrs.get("epsilon", 1e-5)
         momentum = attrs.get("moving_average_fraction", 0.9)
         act = attrs.get("act", "linear") or "linear"
         use_global = attrs.get("use_global_stats", None)
         if use_global is None:
             use_global = not ctx.train
-        w = params["w"]
+        # the fused product runs on the operands the unfused conv would
+        x, w = _compute_cast(ctx, inputs[0], params["w"])
         fs = w.shape[0]
         if use_global:
             # eval: plain conv + folded stats (no statistics computed)

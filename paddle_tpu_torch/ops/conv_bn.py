@@ -19,6 +19,16 @@ backward - ``torch.matmul`` for the 1x1, ``torch.nn.grad.conv2d_input`` /
 tensor launches the kernel, or raises; a CPU tensor takes the plain
 version), ``"xla"``, ``"interpret"`` and ``"torch"`` take the plain
 version on any device, ``"cuda"`` launches the kernel.
+
+Dtypes, as in the JAX package: x and w are float32 or, under the bf16
+policy, both bf16.  y is computed in float32 (bf16 products are exact in
+float32, the sums float32), s and ss are taken from that unrounded y,
+and only then is y rounded to x's dtype.  The backward folds the
+statistics' cotangents in float32, casts the effective dy to x's dtype,
+and runs the products on operands of that dtype, so dx and dw come back
+in x's and w's.  The CUDA kernels have an instance for each: float32
+operands or bf16 ones; a float16 operand raises (``ROADMAP.md`` section
+2, K5).
 """
 
 from __future__ import annotations
@@ -30,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.fused_bn import resolve
+from paddle_tpu_torch.ops.flash_attention import FP16_ROW
+from paddle_tpu_torch.ops.fused_bn import on_card, resolve
 
 _BM = 128    # output pixels a block of the kernels owns
 
@@ -47,29 +58,33 @@ def conv2d_nhwc(x, w, stride=(1, 1), padding=(0, 0), dilation=(1, 1),
 
 # ----------------------------------------------------------- plain versions
 def _matmul_stats_ref(x2, w2):
-    y = x2 @ w2
-    return y, y.sum(dim=0), (y * y).sum(dim=0)
+    y = x2.float() @ w2.float()
+    return y.to(x2.dtype), y.sum(dim=0), (y * y).sum(dim=0)
 
 
 def _conv3x3_stats_ref(x4, w4):
-    y = conv2d_nhwc(x4, w4, padding=(1, 1)).contiguous()
-    return y, y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))
+    y = conv2d_nhwc(x4.float(), w4.float(), padding=(1, 1)).contiguous()
+    return y.to(x4.dtype), y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))
 
 
 # ------------------------------------------------------------------ kernels
+_F32, _BF16 = torch.float32, torch.bfloat16
+# x's and w's dtype -> the C entries' suffix
+KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16"}
 _SIGNATURES = {
-    "matmul_stats_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                        + [ctypes.c_void_p] * 5,
-    "conv3x3_stats_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p] * 5,
+    **{f"matmul_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+       + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
+    **{f"conv3x3_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+       + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
 }
 
 
-def _check(name, t, device, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{t.dtype} (bf16 instances: ROADMAP.md section 2, "
-                        f"K4; float16: K5)")
+def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
+                        f"{t.dtype}" + (f"; {FP16_ROW}"
+                                        if t.dtype == torch.float16 else ""))
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
@@ -84,13 +99,16 @@ def _check(name, t, device, shape):
 
 
 def _vec(ci, co, *tensors) -> int:
-    """1 where the kernel may use 16-byte loads and stores."""
+    """1 where the kernel may move 4 elements a load and store (16 bytes of
+    float32, 8 of bf16): Ci and Co multiples of 4, every operand aligned
+    to 4 elements."""
+    align = 4 * tensors[0].element_size()
     return int(ci % 4 == 0 and co % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in tensors))
+               and all(t.data_ptr() % align == 0 for t in tensors))
 
 
-def _outputs(rows, co, shape, device):
-    y = torch.empty(shape, device=device)
+def _outputs(rows, co, shape, device, dtype):
+    y = torch.empty(shape, device=device, dtype=dtype)
     s = torch.zeros(co, device=device)
     ss = torch.zeros(co, device=device)
     part = torch.empty(2, -(-rows // _BM), co, device=device)
@@ -98,64 +116,71 @@ def _outputs(rows, co, shape, device):
 
 
 def matmul_stats_cuda(x2, w2):
-    """Kernel 8: (y = x2 @ w2, sum y, sum y^2) for x2 [P, Ci], w2 [Ci, Co].
-    One call is two launches (the product with its partial statistics,
-    then their fixed-order sum), counted as one."""
+    """Kernel 8: (y = x2 @ w2, sum y, sum y^2) for x2 [P, Ci], w2 [Ci, Co],
+    both float32 or both bf16; y in their dtype, the sums float32 of the
+    unrounded y.  One call is two launches (the product with its partial
+    statistics, then their fixed-order sum), counted as one."""
     p, ci = x2.shape
     co = w2.shape[1]
     dev = x2.device
     _check("x", x2, dev, (p, ci))
-    _check("w", w2, dev, (ci, co))
-    y, s, ss, part = _outputs(p, co, (p, co), dev)
+    _check("w", w2, dev, (ci, co), dtypes=(x2.dtype,))
+    on_card(x2)
+    y, s, ss, part = _outputs(p, co, (p, co), dev, x2.dtype)
     if p == 0 or co == 0:
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
-    err = lib.matmul_stats_f32(
+    err = getattr(lib, f"matmul_stats_{KERNEL_DTYPES[x2.dtype]}")(
         x2.data_ptr(), w2.data_ptr(), p, ci, co, _vec(ci, co, x2, w2, y),
         y.data_ptr(), part.data_ptr(), s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "matmul_stats")
     matmul_stats_cuda.launches += 1
+    matmul_stats_cuda.launches_bf16 += x2.dtype == _BF16
     return y, s, ss
 
 
-matmul_stats_cuda.launches = 0
+# every launch, and those of the bf16 instance alone
+matmul_stats_cuda.launches = matmul_stats_cuda.launches_bf16 = 0
 
 
 def conv3x3_stats_cuda(x4, w4):
     """Kernel 9: the 3x3 stride-1 SAME conv of x4 [N, H, W, Ci] with w4
-    [3, 3, Ci, Co], with sum y and sum y^2 per channel.  Two launches,
-    counted as one."""
+    [3, 3, Ci, Co] (both float32 or both bf16; y in their dtype), with sum
+    y and sum y^2 per channel, float32.  Two launches, counted as one."""
     n, h, w, ci = x4.shape
     co = w4.shape[-1]
     dev = x4.device
     _check("x", x4, dev, (n, h, w, ci))
-    _check("w", w4, dev, (3, 3, ci, co))
-    y, s, ss, part = _outputs(n * h * w, co, (n, h, w, co), dev)
+    _check("w", w4, dev, (3, 3, ci, co), dtypes=(x4.dtype,))
+    on_card(x4)
+    y, s, ss, part = _outputs(n * h * w, co, (n, h, w, co), dev, x4.dtype)
     if y.numel() == 0:
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
-    err = lib.conv3x3_stats_f32(
+    err = getattr(lib, f"conv3x3_stats_{KERNEL_DTYPES[x4.dtype]}")(
         x4.data_ptr(), w4.data_ptr(), n, h, w, ci, co,
         _vec(ci, co, x4, w4, y), y.data_ptr(), part.data_ptr(),
         s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "conv3x3_stats")
     conv3x3_stats_cuda.launches += 1
+    conv3x3_stats_cuda.launches_bf16 += x4.dtype == _BF16
     return y, s, ss
 
 
-conv3x3_stats_cuda.launches = 0
+conv3x3_stats_cuda.launches = conv3x3_stats_cuda.launches_bf16 = 0
 
 
-def _dy_eff(dy, ds, dss, y):
-    """dy with the statistics' cotangents folded in (channel last)."""
-    g = torch.zeros_like(y) if dy is None else dy
+def _dy_eff(dy, ds, dss, y, dtype):
+    """dy with the statistics' cotangents folded in (channel last), in
+    float32, then cast to the operands' ``dtype``."""
+    g = torch.zeros_like(y, dtype=torch.float32) if dy is None else dy.float()
     if ds is not None:
         g = g + ds
     if dss is not None:
-        g = g + 2.0 * y * dss
-    return g
+        g = g + 2.0 * y.float() * dss
+    return g.to(dtype)
 
 
 # --------------------------------------------------------------- autograd
@@ -174,7 +199,7 @@ class _MatmulStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds, dss):
         x2, w2, y = ctx.saved_tensors
-        g = _dy_eff(dy, ds, dss, y)
+        g = _dy_eff(dy, ds, dss, y, x2.dtype)
         return g @ w2.t(), x2.t() @ g, None
 
 
@@ -193,7 +218,7 @@ class _Conv3x3Stats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds, dss):
         x4, w4, y = ctx.saved_tensors
-        g = _dy_eff(dy, ds, dss, y).permute(0, 3, 1, 2)
+        g = _dy_eff(dy, ds, dss, y, x4.dtype).permute(0, 3, 1, 2)
         xn, wn = x4.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
         dx = torch.nn.grad.conv2d_input(xn.shape, wn, g, padding=1)
         dw = torch.nn.grad.conv2d_weight(xn, wn.shape, g, padding=1)

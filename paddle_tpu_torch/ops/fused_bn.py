@@ -16,6 +16,22 @@ kernels, or raises; a CPU tensor takes the plain version); ``"xla"``,
 ``"interpret"`` and ``"torch"`` take the plain version on any device;
 ``"cuda"`` launches the kernels.  Ranks other than 2 and 4 take the plain
 version, as the JAX package routes them.
+
+Dtypes, as in the JAX package: x is float32 or, under the bf16 policy,
+bf16; scale, bias and the statistics are float32.  y = act(x * w + b) is
+in x's dtype, w and b cast to it first (``_fold``); mean and var are
+float32 sums of the upcast x.  At bf16 the JAX package's two routes
+differ in the backward's sums, and each has its plain version here:
+``"xla"`` and ``"torch"`` reproduce the JAX "xla" branch (x-hat and
+dy * x-hat computed in bf16, summed in float32; ``_bwd_stats_xla``),
+while ``_fwd_stats_ref`` and ``_bwd_stats_ref`` reproduce the Pallas
+kernels' arithmetic (x and dout upcast, x-hat in float32; the relu mask
+on the fold in x's dtype) and are the kernels' yardstick, taken on a CPU
+tensor under ``"pallas"`` or None and under ``"interpret"`` (the JAX
+package's name for running its kernels' arithmetic off the TPU).  At
+float32 the two are the same arithmetic.  The CUDA kernels take x (and
+dout) float32 or bf16, the rest float32; a float16 operand raises
+(``ROADMAP.md`` section 2, K5).
 """
 
 from __future__ import annotations
@@ -27,7 +43,7 @@ import torch
 
 from paddle_tpu_torch.core import config
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import resolve_impl
+from paddle_tpu_torch.ops.flash_attention import FP16_ROW, resolve_impl
 
 JAX_IMPLS = {"pallas": None, "xla": "torch", "interpret": "torch"}
 _CH = 32              # channels a block of the statistic kernels owns
@@ -36,33 +52,57 @@ _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of 132 SMs
 
 # ----------------------------------------------------------- plain versions
 def _fold(x, w, b):
-    """x * w + b as two rounded ops (the kernel's relu mask matches it)."""
-    return x * w + b
+    """x * w + b in x's own dtype, w and b cast to it first, as two rounded
+    ops (the kernel's relu mask matches it)."""
+    return x * w.to(x.dtype) + b.to(x.dtype)
 
 
 def _fwd_stats_ref(x2):
-    """sum x and sum x^2 over the rows of x2 [P, C]."""
-    return x2.sum(dim=0), (x2 * x2).sum(dim=0)
+    """sum x and sum x^2 over the rows of x2 [P, C], float32 on the upcast
+    x (the JAX package's kernel and its "xla" branch alike)."""
+    xf = x2.float()
+    return xf.sum(dim=0), (xf * xf).sum(dim=0)
+
+
+def _relu_dy(dout2, x2, w, b, relu: bool):
+    """dout where the fold is > 0 (relu), or dout (linear)."""
+    if not relu:
+        return dout2
+    return torch.where(_fold(x2, w, b) > 0, dout2, torch.zeros_like(dout2))
 
 
 def _bwd_stats_ref(dout2, x2, w, b, mean, inv, relu: bool):
-    """sum dy and sum dy * xhat over the rows of [P, C], dy the activation's
-    backward of dout."""
-    dy = (torch.where(_fold(x2, w, b) > 0, dout2, torch.zeros_like(dout2))
-          if relu else dout2)
-    xhat = (x2 - mean) * inv
+    """sum dy and sum dy * xhat over the rows of [P, C] as the Pallas
+    kernel takes them: the mask on the fold in x's dtype, then dout and x
+    upcast, xhat float32."""
+    dy = _relu_dy(dout2, x2, w, b, relu).float()
+    xhat = (x2.float() - mean) * inv
     return dy.sum(dim=0), (dy * xhat).sum(dim=0)
 
 
+def _bwd_stats_xla(dout2, x2, w, b, mean, inv, relu: bool):
+    """The same two sums as the JAX package's "xla" branch takes them:
+    xhat and dy * xhat in x's dtype, each sum accumulated in float32."""
+    dy = _relu_dy(dout2, x2, w, b, relu)
+    xhat = (x2 - mean.to(x2.dtype)) * inv.to(x2.dtype)
+    return (dy.sum(dim=0, dtype=torch.float32),
+            (dy * xhat).sum(dim=0, dtype=torch.float32))
+
+
 # ------------------------------------------------------------------ kernels
+_F32, _BF16 = torch.float32, torch.bfloat16
+# x's (and dout's) dtype -> the C entries' suffix; w, b, mean and inv are
+# float32 at either
+KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16"}
 _SIGNATURES = {
-    "bn_fwd_stats_f32": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_longlong]
-                        + [ctypes.c_void_p] * 4,
-    "bn_bwd_stats_f32": [ctypes.c_void_p] * 6
-                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_longlong]
-                        + [ctypes.c_void_p] * 4,
+    **{f"bn_fwd_stats_{sfx}": [ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_int,
+                               ctypes.c_longlong] + [ctypes.c_void_p] * 4
+       for sfx in KERNEL_DTYPES.values()},
+    **{f"bn_bwd_stats_{sfx}": [ctypes.c_void_p] * 6
+       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+          ctypes.c_longlong] + [ctypes.c_void_p] * 4
+       for sfx in KERNEL_DTYPES.values()},
 }
 
 
@@ -75,11 +115,12 @@ def _slabs(p: int, c: int):
     return -(-p // slab), slab
 
 
-def _check(name, t, device, shape=None):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{t.dtype} (bf16 instances: ROADMAP.md section 2, "
-                        f"K3; float16: K5)")
+def _check(name, t, device, shape=None, dtypes=(_F32,)):
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
+                        f"{t.dtype}" + (f"; {FP16_ROW}"
+                                        if t.dtype == torch.float16 else ""))
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -90,12 +131,21 @@ def _check(name, t, device, shape=None):
                          f"tensor")
 
 
+def on_card(x) -> None:
+    """Raise unless x (to whose device the other operands were held) lies
+    on a CUDA device: the launch wrappers never take a CPU tensor."""
+    if not x.is_cuda:
+        raise ValueError(f"the CUDA kernel takes tensors on a CUDA device, "
+                         f"got {x.device}")
+
+
 def bn_fwd_stats_cuda(x2):
-    """Kernel 7a on x2 [P, C]: (sum x, sum x^2), float32 [C] each.  One
-    call is two launches (partials, then their fixed-order sum), counted
-    as one."""
+    """Kernel 7a on x2 [P, C], float32 or bf16: (sum x, sum x^2), float32
+    [C] each.  One call is two launches (partials, then their fixed-order
+    sum), counted as one."""
     p, c = x2.shape
-    _check("x", x2, x2.device)
+    _check("x", x2, x2.device, dtypes=tuple(KERNEL_DTYPES))
+    on_card(x2)
     s = torch.zeros(c, device=x2.device)
     sq = torch.zeros(c, device=x2.device)
     if p == 0 or c == 0:
@@ -103,28 +153,31 @@ def bn_fwd_stats_cuda(x2):
     r, slab = _slabs(p, c)
     part = torch.empty(2, r, c, device=x2.device)
     lib = _build.load("bn_stats", _SIGNATURES)
-    err = lib.bn_fwd_stats_f32(
+    err = getattr(lib, f"bn_fwd_stats_{KERNEL_DTYPES[x2.dtype]}")(
         x2.data_ptr(), p, c, r, slab, part.data_ptr(), s.data_ptr(),
         sq.data_ptr(), torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(lib, err, "bn_fwd_stats")
     bn_fwd_stats_cuda.launches += 1
+    bn_fwd_stats_cuda.launches_bf16 += x2.dtype == _BF16
     return s, sq
 
 
-bn_fwd_stats_cuda.launches = 0
+# every launch, and those of the bf16 instance alone
+bn_fwd_stats_cuda.launches = bn_fwd_stats_cuda.launches_bf16 = 0
 
 
 def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
-    """Kernel 7b on dout2, x2 [P, C] with per-channel w, b, mean, inv [C]:
-    (sum dy, sum dy * xhat), float32 [C] each; dy = dout where the fold
-    x * w + b is > 0 (relu) or everywhere (linear).  Two launches, counted
-    as one."""
+    """Kernel 7b on dout2, x2 [P, C] (both float32 or both bf16) with
+    per-channel float32 w, b, mean, inv [C]: (sum dy, sum dy * xhat),
+    float32 [C] each; dy = dout where the fold x * w + b, in x's dtype, is
+    > 0 (relu) or everywhere (linear).  Two launches, counted as one."""
     p, c = x2.shape
     dev = x2.device
-    _check("x", x2, dev)
-    _check("dout", dout2, dev, (p, c))
+    _check("x", x2, dev, dtypes=tuple(KERNEL_DTYPES))
+    _check("dout", dout2, dev, (p, c), dtypes=(x2.dtype,))
     for name, t in (("w", w), ("b", b), ("mean", mean), ("inv", inv)):
         _check(name, t, dev, (c,))
+    on_card(x2)
     sdy = torch.zeros(c, device=dev)
     sdyx = torch.zeros(c, device=dev)
     if p == 0 or c == 0:
@@ -132,17 +185,18 @@ def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
     r, slab = _slabs(p, c)
     part = torch.empty(2, r, c, device=dev)
     lib = _build.load("bn_stats", _SIGNATURES)
-    err = lib.bn_bwd_stats_f32(
+    err = getattr(lib, f"bn_bwd_stats_{KERNEL_DTYPES[x2.dtype]}")(
         dout2.data_ptr(), x2.data_ptr(), w.data_ptr(), b.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), p, c, int(relu), r, slab,
         part.data_ptr(), sdy.data_ptr(), sdyx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "bn_bwd_stats")
     bn_bwd_stats_cuda.launches += 1
+    bn_bwd_stats_cuda.launches_bf16 += x2.dtype == _BF16
     return sdy, sdyx
 
 
-bn_bwd_stats_cuda.launches = 0
+bn_bwd_stats_cuda.launches = bn_bwd_stats_cuda.launches_bf16 = 0
 
 
 def fwd_stats(x2, *, impl: Optional[str] = None):
@@ -156,10 +210,13 @@ def fwd_stats(x2, *, impl: Optional[str] = None):
 def bwd_stats(dout2, x2, w, b, mean, inv, relu: bool, *,
               impl: Optional[str] = None):
     """(sum dy, sum dy * xhat) over the rows of [P, C]; impl as
-    ``fwd_stats``."""
-    if resolve(impl, x2) == "torch":
-        return _bwd_stats_ref(dout2, x2, w, b, mean, inv, relu)
-    return bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu)
+    ``fwd_stats``, "xla" and "torch" with the JAX "xla" branch's
+    arithmetic (``_bwd_stats_xla``)."""
+    if resolve(impl, x2) == "cuda":
+        return bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu)
+    if impl in ("xla", "torch"):
+        return _bwd_stats_xla(dout2, x2, w, b, mean, inv, relu)
+    return _bwd_stats_ref(dout2, x2, w, b, mean, inv, relu)
 
 
 # --------------------------------------------------------------- public op
@@ -171,10 +228,14 @@ def resolve(impl, x) -> str:
 
 
 def _check_impl(impl, x) -> str:
-    """``resolve``, with ranks other than 2 and 4 on the plain route (the
-    JAX package's routing, not a fallback)."""
+    """bn_act_train's route for tensor x: ``"cuda"`` (the kernels),
+    ``"interpret"`` (their plain versions) or ``"xla"`` (the JAX "xla"
+    branch's arithmetic); ranks other than 2 and 4 take ``"xla"``, the JAX
+    package's routing, not a fallback."""
     route = resolve(impl, x)
-    return route if x.ndim in (2, 4) else "torch"
+    if x.ndim not in (2, 4) or impl in ("xla", "torch"):
+        return "xla"
+    return route if route == "cuda" else "interpret"
 
 
 def _fwd_stats(x, impl):
@@ -198,15 +259,16 @@ def _act_apply(act, y):
 
 class _BnActTrain(torch.autograd.Function):
     """act(bn(x)) -> (y, mean, var) with the JAX package's custom vjp
-    (``_bn_act_fwd`` / ``_bn_act_bwd``)."""
+    (``_bn_act_fwd`` / ``_bn_act_bwd``) and its dtypes: y and dx in x's,
+    mean and var float32, dscale and dbias in the scale's."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, act, impl):
         mean, mean2 = _fwd_stats(x, impl)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
-        w = scale * inv
-        b = bias - mean * w
+        w = scale.float() * inv
+        b = bias.float() - mean * w
         y = _act_apply(act, _fold(x, w, b))
         ctx.save_for_backward(x, scale, bias, mean, inv)
         ctx.act, ctx.impl = act, impl
@@ -220,30 +282,33 @@ class _BnActTrain(torch.autograd.Function):
         n = x.numel() // x.shape[-1]
         if dout is None:
             dout = torch.zeros_like(x)
-        w = scale * inv
-        b = bias - mean * w
+        w = scale.float() * inv
+        b = bias.float() - mean * w
         sum_dy, sum_dy_xhat = _bwd_stats(dout, x, w, b, mean, inv, act,
                                          ctx.impl)
-        # dx: one elementwise pass, dy recomputed here
-        dy = (torch.where(_fold(x, w, b) > 0, dout, torch.zeros_like(dout))
-              if act == "relu" else dout)
-        xhat = (x - mean) * inv
-        dx = w * (dy - sum_dy / n - xhat * (sum_dy_xhat / n))
+        # dx: one elementwise pass in x's dtype, dy recomputed here
+        dy = _relu_dy(dout, x, w, b, act == "relu")
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        c1 = (sum_dy / n).to(x.dtype)
+        c2 = (sum_dy_xhat / n).to(x.dtype)
+        dx = w.to(x.dtype) * (dy - c1 - xhat * c2)
         # the mean and var outputs' cotangents (None in a train step)
         if dmean is not None:
-            dx = dx + dmean / n
+            dx = dx + (dmean / n).to(x.dtype)
         if dvar is not None:
-            dx = dx + (2.0 / n) * dvar * (x - mean)
-        return dx, sum_dy_xhat, sum_dy, None, None, None
+            dx = dx + ((2.0 / n) * dvar).to(x.dtype) * (x - mean.to(x.dtype))
+        return (dx, sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
+                None, None, None)
 
 
 def bn_act_train(x, scale, bias, eps: float, act: str,
                  impl: Optional[str] = None):
     """Training BN with folded activation: act(bn(x)) -> (y, mean, var).
 
-    x [..., C] float32; act ``"linear"`` or ``"relu"``; impl as in the
-    module docstring.  Biased variance
-    E[x^2] - mean^2, clamped at 0; eps under the rsqrt."""
+    x [..., C] float32 or bf16 (y in x's dtype; mean and var float32);
+    scale and bias float32; act ``"linear"`` or ``"relu"``; impl as in the
+    module docstring.  Biased variance E[x^2] - mean^2, clamped at 0; eps
+    under the rsqrt."""
     if act not in ("linear", "relu"):
         raise ValueError(f"bn_act_train folds 'linear' or 'relu', got "
                          f"{act!r}")

@@ -319,9 +319,10 @@ def test_sass_diff_reads_and_compares_cuobjdump_listings():
 
 def test_sass_base_holds_the_float32_sources_before_the_bf16_instances(
         tmp_path):
-    """chip_smoke.py compares the float32 instances of flash_bwd.cu and
-    rnn_step.cu with a build of SASS_BASE: every file there is, by its git
-    blob id (computed as ``git hash-object`` does), SASS_BASE_REV's."""
+    """chip_smoke.py compares the float32 instances of flash_bwd.cu,
+    rnn_step.cu, bn_stats.cu and conv_bn.cu with a build of SASS_BASE:
+    every file there is, by its git blob id (computed as ``git
+    hash-object`` does), SASS_BASE_REV's."""
     import os
 
     from paddle_tpu_torch.tools import sass_diff

@@ -13,7 +13,8 @@ heads, L 32), the seq2seq NMT model (vocab 50 / 40, emb 16, enc 24, dec
 width 24), from the same numpy-seeded weights in both packages under ``bf16`` and ``mixed``: every layer's output dtype equal,
 its values within one bf16 ulp, the first step's gradients and a 5-step
 Adam trajectory.  And the refusals: a float16 operand at every kernel
-wrapper, bf16 at kernels 7a to 9 and at the conv layers.
+wrapper; bf16 reaches kernels 7a to 9 and the conv layers (ResNet under
+``bf16`` is in tests/test_torch_resnet_bf16.py).
 
 Tolerances, from readings on the CPU: bf16 layer outputs within
 2^-8 * max(1, max |ref|) (one bf16 ulp at the top of the range; read:
@@ -592,33 +593,56 @@ def test_float16_operand_raises_at_every_kernel_wrapper(kernel):
     assert not any(ops.launch_counts().values())
 
 
-def test_bf16_refused_by_kernels_7a_to_9_and_the_conv_layers():
-    """ResNet-50 at bf16 is the next slice: kernels 7a, 7b, 8 and 9 raise
-    TypeError on bf16 naming their ROADMAP rows, and the conv layers
-    refuse a reduced-precision policy rather than compute at float32."""
+def test_bf16_reaches_kernels_7a_to_9_and_the_conv_layers():
+    """Kernels 7a, 7b, 8 and 9 take bf16 operands: on a CPU tensor each
+    wrapper's route takes its plain version (bf16 y, float32 sums) and
+    counts no launch; the launch wrappers themselves still raise on a CPU
+    tensor; and the conv layers compute under ``bf16``, their outputs
+    bf16."""
+    from paddle_tpu_torch import ops
     from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
     from paddle_tpu_torch.ops import conv_bn, fused_bn
 
     b = torch.bfloat16
-    for fn, args, row in (
-            (fused_bn.bn_fwd_stats_cuda, (torch.zeros(16, 8, dtype=b),),
-             "K3"),
-            (fused_bn.bn_bwd_stats_cuda,
-             (torch.zeros(16, 8, dtype=b), torch.zeros(16, 8),
-              torch.ones(8), torch.zeros(8), torch.zeros(8),
-              torch.ones(8), True), "K3"),
-            (conv_bn.matmul_stats_cuda,
-             (torch.zeros(16, 8, dtype=b), torch.zeros(8, 8)), "K4"),
+    ops.reset_launch_counts()
+    x2 = torch.randn(16, 8).to(b)
+    v = torch.ones(8)
+    s, sq = fused_bn.fwd_stats(x2)
+    assert s.dtype == sq.dtype == torch.float32
+    sdy, sdyx = fused_bn.bwd_stats(x2, x2, v, v * 0, v * 0, v, True)
+    assert sdy.dtype == sdyx.dtype == torch.float32
+    y, s, ss = conv_bn.matmul_stats(x2, torch.randn(8, 4).to(b))
+    assert y.dtype == b and s.dtype == ss.dtype == torch.float32
+    y, s, ss = conv_bn.conv3x3_stats(torch.randn(2, 4, 4, 8).to(b),
+                                     torch.randn(3, 3, 8, 4).to(b))
+    assert y.dtype == b and s.dtype == ss.dtype == torch.float32
+    assert not any(ops.launch_counts().values())
+    for fn, args in (
+            (fused_bn.bn_fwd_stats_cuda, (x2,)),
+            (fused_bn.bn_bwd_stats_cuda, (x2, x2, v, v, v, v, True)),
+            (conv_bn.matmul_stats_cuda, (x2, torch.zeros(8, 8, dtype=b))),
             (conv_bn.conv3x3_stats_cuda,
-             (torch.zeros(2, 4, 4, 8, dtype=b), torch.zeros(3, 3, 8, 8)),
-             "K4")):
-        with pytest.raises(TypeError, match=row):
+             (torch.zeros(2, 4, 4, 8, dtype=b),
+              torch.zeros(3, 3, 8, 8, dtype=b)))):
+        with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_bn.matmul_stats(x2, torch.zeros(8, 8, dtype=b), "cuda")
+    assert not any(ops.launch_counts().values())
     ctx = ApplyContext(train=True, compute_dtype=b)
-    for kind in ("conv", "conv_bn"):
-        with pytest.raises(NotImplementedError, match="K3 and K4"):
-            get_layer_def(kind).apply({}, {"w": torch.zeros(1, 1, 8, 8)},
-                                      [torch.zeros(2, 4, 4, 8)], ctx)
+    x = torch.randn(2, 4, 4, 8)
+    out = get_layer_def("conv").apply(
+        {"num_filters": 8, "filter_size": 1},
+        {"w": torch.randn(1, 1, 8, 8), "b": torch.zeros(8)}, [x], ctx)
+    assert out.dtype == b
+    ctx.state_in, ctx._cur_layer = {"l": {
+        "moving_mean": torch.zeros(8), "moving_var": torch.ones(8)}}, "l"
+    out = get_layer_def("conv_bn").apply(
+        {"num_filters": 8, "filter_size": 3},
+        {"w": torch.randn(3, 3, 8, 8), "scale": torch.ones(8),
+         "bias": torch.zeros(8)}, [x], ctx)
+    assert out.dtype == b
+    assert ctx.state_out["l"]["moving_mean"].dtype == torch.float32
 
 
 CLI_CONFIG = '''

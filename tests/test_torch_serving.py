@@ -145,7 +145,11 @@ def test_http_infer_matches_jax_engine(snap):
                                          "flash_variants", "flash_fwd_bf16",
                                          "flash_bwd_dkdv_bf16",
                                          "flash_bwd_dq_bf16",
-                                         "lstm_step_bf16", "gru_step_bf16"}
+                                         "lstm_step_bf16", "gru_step_bf16",
+                                         "bn_fwd_stats_bf16",
+                                         "bn_bwd_stats_bf16",
+                                         "matmul_stats_bf16",
+                                         "conv3x3_stats_bf16"}
         assert stats["kv"]["used"] == 0          # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400
