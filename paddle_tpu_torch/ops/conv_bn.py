@@ -40,8 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import FP16_ROW
-from paddle_tpu_torch.ops.fused_bn import on_card, resolve
+from paddle_tpu_torch.ops.fused_bn import (_BF16, KERNEL_DTYPES,
+                                           check_operand, on_card, resolve)
 
 _BM = 128    # output pixels a block of the kernels owns
 
@@ -68,9 +68,6 @@ def _conv3x3_stats_ref(x4, w4):
 
 
 # ------------------------------------------------------------------ kernels
-_F32, _BF16 = torch.float32, torch.bfloat16
-# x's and w's dtype -> the C entries' suffix
-KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16"}
 _SIGNATURES = {
     **{f"matmul_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
@@ -80,19 +77,7 @@ _SIGNATURES = {
 
 
 def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
-    if t.dtype not in dtypes:
-        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-        raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
-                        f"{t.dtype}" + (f"; {FP16_ROW}"
-                                        if t.dtype == torch.float16 else ""))
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the CUDA kernel takes a contiguous "
-                         f"tensor")
+    check_operand(name, t, device, shape, dtypes)
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name}: {t.numel()} elements overflow the "
                          f"kernel's 32-bit indices")

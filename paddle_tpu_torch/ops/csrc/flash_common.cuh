@@ -15,6 +15,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace flash {
 
 constexpr float kNegInf = -1e30f;           // core/config.py NEG_INF
@@ -34,19 +36,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-// Four consecutive elements of a row as float: one 16-byte load for
-// float, one 8-byte load converted with __bfloat162float for bf16.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
-                     __bfloat162float(hi.x), __bfloat162float(hi.y));
 }
 
 // Load kBk rows of a [*, D] slice (row stride `ld` elements of T, float or

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dtype.cuh"
+
 namespace {
 
 constexpr int kBM = 16;                 // batch rows per tile
@@ -79,12 +81,6 @@ constexpr int kUnits = kBN / 4;         // LSTM: hidden units per block
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// An x or mask element as float.
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
 }
 
 // Column maps: tile column jj -> column of W, or -1 outside the matrix.

@@ -62,17 +62,22 @@ FP16_ROW = ("float16 operands wait for the __half instances "
             "(ROADMAP.md section 2, K5)")
 
 
-def check_kernel_operand(name: str, t: torch.Tensor, device,
-                         dtypes=(torch.float32,)) -> None:
-    """What the vector loads of the kernels need: one of ``dtypes``
-    (float32 alone by default) on the launch device, unit inner stride, strides that are multiples of 4
-    elements, 16-byte aligned data."""
+def check_dtype(name: str, t: torch.Tensor, dtypes) -> None:
+    """TypeError unless t is one of ``dtypes``; a float16 one names K5."""
     if t.dtype not in dtypes:
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
                         f"{t.dtype}"
                         + (f"; {FP16_ROW}" if t.dtype == torch.float16
                            else ""))
+
+
+def check_kernel_operand(name: str, t: torch.Tensor, device,
+                         dtypes=(torch.float32,)) -> None:
+    """What the vector loads of the kernels need: one of ``dtypes``
+    (float32 alone by default) on the launch device, unit inner stride, strides that are multiples of 4
+    elements, 16-byte aligned data."""
+    check_dtype(name, t, dtypes)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]):

@@ -43,7 +43,7 @@ import torch
 
 from paddle_tpu_torch.core import config
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import FP16_ROW, resolve_impl
+from paddle_tpu_torch.ops.flash_attention import check_dtype, resolve_impl
 
 JAX_IMPLS = {"pallas": None, "xla": "torch", "interpret": "torch"}
 _CH = 32              # channels a block of the statistic kernels owns
@@ -91,8 +91,8 @@ def _bwd_stats_xla(dout2, x2, w, b, mean, inv, relu: bool):
 
 # ------------------------------------------------------------------ kernels
 _F32, _BF16 = torch.float32, torch.bfloat16
-# x's (and dout's) dtype -> the C entries' suffix; w, b, mean and inv are
-# float32 at either
+# the activation's dtype (x and dout here; x and w in ops/conv_bn.py) ->
+# the C entries' suffix; per-channel vectors and statistics are float32
 KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16"}
 _SIGNATURES = {
     **{f"bn_fwd_stats_{sfx}": [ctypes.c_void_p, ctypes.c_longlong,
@@ -115,12 +115,10 @@ def _slabs(p: int, c: int):
     return -(-p // slab), slab
 
 
-def _check(name, t, device, shape=None, dtypes=(_F32,)):
-    if t.dtype not in dtypes:
-        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-        raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
-                        f"{t.dtype}" + (f"; {FP16_ROW}"
-                                        if t.dtype == torch.float16 else ""))
+def check_operand(name, t, device, shape=None, dtypes=(_F32,)):
+    """What the statistic and conv kernels take: one of ``dtypes`` on the
+    launch device, of ``shape`` when given, contiguous."""
+    check_dtype(name, t, dtypes)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -144,7 +142,7 @@ def bn_fwd_stats_cuda(x2):
     [C] each.  One call is two launches (partials, then their fixed-order
     sum), counted as one."""
     p, c = x2.shape
-    _check("x", x2, x2.device, dtypes=tuple(KERNEL_DTYPES))
+    check_operand("x", x2, x2.device, dtypes=tuple(KERNEL_DTYPES))
     on_card(x2)
     s = torch.zeros(c, device=x2.device)
     sq = torch.zeros(c, device=x2.device)
@@ -173,10 +171,10 @@ def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
     > 0 (relu) or everywhere (linear).  Two launches, counted as one."""
     p, c = x2.shape
     dev = x2.device
-    _check("x", x2, dev, dtypes=tuple(KERNEL_DTYPES))
-    _check("dout", dout2, dev, (p, c), dtypes=(x2.dtype,))
+    check_operand("x", x2, dev, dtypes=tuple(KERNEL_DTYPES))
+    check_operand("dout", dout2, dev, (p, c), dtypes=(x2.dtype,))
     for name, t in (("w", w), ("b", b), ("mean", mean), ("inv", inv)):
-        _check(name, t, dev, (c,))
+        check_operand(name, t, dev, (c,))
     on_card(x2)
     sdy = torch.zeros(c, device=dev)
     sdyx = torch.zeros(c, device=dev)
