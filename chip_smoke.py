@@ -108,14 +108,19 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    their times, rates and errors against row A; kernel 1 and the
    variants' wrapper must both launch; each row's time then stands beside
    its bound, plain and library time;
-11. the bf16 precision policy: kernels 2 and 3 at bf16 at [8, 4096, 4,
-   128] causal (after the float32 backward checks), dQ, dK and dV held per
-   row within 2^-7 of the norm against ``_upcast_bwd`` (the Pallas
-   kernels' arithmetic, float32 on the bf16 operands) on the forward
-   kernel's own O and LSE, a planted fault (the last q tile left out of
-   dK/dV) shown to fail that check, the distance to the bf16 plain route
-   reported, each timed beside its bound, the plain route's backward and
-   SDPA's at bf16; kernels 5 and 6 at each bf16 instance (x bf16, the mask
+11. the bf16 precision policy: kernels 2 and 3 at bf16 (the tensor-core
+   kernels) at [8, 4096, 4, 128] causal (after the float32 backward
+   checks) and at BF16_BWD_CASES (the four ragged cases, D 64, D 100), dQ,
+   dK and dV held per row on the forward kernel's own O and LSE against
+   ``_upcast_bwd`` (the Pallas kernels' arithmetic, float32 on the bf16
+   operands; every row within 2^-7 of its norm) and ``_mma_bwd`` (the
+   kernels' own, P and dS rounded to bf16; 99% of the rows within 2^-9,
+   every row within 2^-7), two planted faults (the last q tile's dO
+   zeroed; one 16-deep k-step of the score product left out) shown to
+   fail both checks, the distance to the bf16 plain route reported, each
+   kernel's registers and local memory (a spill fails), each timed beside
+   its bound, the plain route's backward and SDPA's at bf16; kernels 5
+   and 6 at each bf16 instance (x bf16, the mask
    float32 or bf16) against the plain step, timed (after the float32
    recurrent checks).  After the LSTM route: the LM under ``bf16`` and
    ``mixed`` (6 Adam steps at 8 x 4096 from the seeded weights, kernels
@@ -1665,13 +1670,31 @@ def lstm_path():
 
 
 # ---------------------------------------------------- the bf16 policy slice
-# dQ, dK and dV of the bf16 backward kernels against the plain version of
-# the Pallas kernels' arithmetic (``_upcast_bwd``) on the same bf16
-# operands and the forward kernel's own O and LSE: each row (b, l, h)
-# within 2^-7 of its norm, one bf16 ulp of every element, as O is held in
-# the sweep (_grad_row_err).  A planted fault (one 64-row q tile's share
-# of dK and dV left out) must fail it.
+# dQ, dK and dV of the bf16 backward kernels held per row (b, l, h), on the
+# same bf16 operands and the forward kernel's own O and LSE, against two
+# plain versions (_row_errs, each row's error over its norm):
+# - ``_upcast_bwd``, the Pallas kernels' arithmetic (float32 products on
+#   the upcast operands): every row within BWD_ROW_TOL = 2^-7, one bf16
+#   ulp of every element, as O is held in the sweep.  The tensor-core
+#   kernels round P and dS to bf16 before three of their products (at
+#   most 2^-8 of each term), and both sides round each output once
+#   (readings at the LM shape on the H100: median 2.5e-3, 99th percentile
+#   3.6e-3, max 5.1e-3);
+# - ``_mma_bwd``, the kernels' own arithmetic (P and dS rounded to bf16):
+#   the 99th percentile of the row errors within BWD_MMA_ROW_TOL = 2^-9,
+#   every row within 2^-7.  The two compute dS in float32 ~1e-7 apart
+#   (the order of the sums, the MUFU's exp2 against exp), which flips the
+#   bf16 rounding of a term now and then; one flipped dominant term moves
+#   a row by up to ~2^-8, so the tighter limit is on the percentile
+#   (readings: median 0, most rows bit for bit, 99th percentile 9.3e-4 to
+#   9.9e-4, max 5.4e-3).  ``_mma_bwd`` against ``_upcast_bwd`` reads
+#   3.5e-3 at the 99th percentile: this check tells the two arithmetics
+#   apart, which a limit on the largest row cannot.
+# Two planted faults must fail both checks: one 64-row q tile's dO zeroed
+# (its share of every dK and dV row left out) and one 16-deep k-step of
+# the score product left out (``_mma_bwd(drop_score_kstep=1)``).
 BWD_ROW_TOL = 2.0 ** -7
+BWD_MMA_ROW_TOL, BWD_MMA_ROW_Q = 2.0 ** -9, 0.99
 # the bf16 routes against their plain routes on the card.  Recurrent
 # kernels: the same float32 arithmetic as the plain step, but each
 # product's sums in another order move a float32 h by ~1e-7, which can
@@ -1680,36 +1703,150 @@ BWD_ROW_TOL = 2.0 ** -7
 # max |g|), a 3-step trajectory within 1e-3 (readings on the H100: at
 # most 5.8e-6, 1.5e-5 and 1.5e-4, the last the LSTM route's Adam at 2e-3
 # amplifying its second step).  The LM's plain route rounds P to bf16
-# before P . V (the JAX xla path), the kernels keep it float32: its 6-step
-# losses within LM_BF16_BAND relative of the kernel route's (readings: at
-# most 7.3e-6).
+# before P . V (the JAX xla path) where the forward kernel keeps it
+# float32, and the backward kernels round P and dS where autograd through
+# the plain route rounds dP's operands instead: its 6-step losses within
+# LM_BF16_BAND relative of the kernel route's (readings: at most 7.3e-6
+# with the float32-arithmetic backward, 6.0e-6 with the tensor-core one).
 RNN_BF16_TOLS = (1e-4, 1e-3, 1e-3)
 LM_BF16_BAND = 1e-4
 BF16_POLICIES = ("bf16", "mixed")
+# the bf16 backward's cases beyond the LM shape: flash_bwd_phase's four
+# ragged ones at the LM's heads, the sweep's head width, and a head width
+# whose rows are 8-byte aligned only (the kernels' narrower copies):
+# name, B, Lq, Lk, H, D, causal, kv_lens, q_offset, kv_offset, LSE
+# cotangent
+BF16_BWD_CASES = (
+    ("kv_lens", 4, 1024, 1024, HEADS, DIM // HEADS, True,
+     [1024, 700, 333, 65], 0, 0, False),
+    ("offset causal", 2, 512, 1536, HEADS, DIM // HEADS, True, None, 1000,
+     200, False),
+    ("cross attention", 2, 300, 1100, HEADS, DIM // HEADS, False, None, 0,
+     0, False),
+    ("return_lse", 2, 1024, 1024, HEADS, DIM // HEADS, True, None, 0, 0,
+     True),
+    ("D 64", 2, 1000, 1000, 8, 64, True, [1000, 613], 0, 0, False),
+    ("D 100", 2, 300, 300, 2, 100, False, [300, 129], 0, 0, True),
+)
 
 
-def _grad_row_err(a, ref) -> float:
-    """Largest ||a_r - ref_r|| / max(||ref_r||, 2^-7 m) over the rows
-    (b, l, h), m the median row norm of ``ref``: a row whose gradient
-    cancels to rounding noise (dQ's first query rows, where dP - delta is
-    a difference of two equal sums) is held against that floor, not
-    against its own noise."""
+def _row_errs(a, ref):
+    """||a_r - ref_r|| / max(||ref_r||, 2^-7 m) for every row (b, l, h),
+    m the median row norm of ``ref``: a row whose gradient cancels to
+    rounding noise (dQ's first query rows, where dP - delta is a
+    difference of two equal sums) is held against that floor, not against
+    its own noise."""
     a, ref = a.float(), ref.float()
     norms = torch.linalg.vector_norm(ref, dim=-1)
     floor = BWD_ROW_TOL * norms.median().item()
     return (torch.linalg.vector_norm(a - ref, dim=-1)
-            / norms.clamp_min(max(floor, 1e-30))).max().item()
+            / norms.clamp_min(max(floor, 1e-30))).flatten()
+
+
+def _grad_row_err(a, ref) -> float:
+    """The largest of ``_row_errs``."""
+    return _row_errs(a, ref).max().item()
+
+
+def _bwd_holds(ref_name, a, ref) -> tuple:
+    """(largest row error, its BWD_MMA_ROW_Q quantile, whether the check
+    against ``_{ref_name}_bwd`` holds)."""
+    rows = _row_errs(a, ref)
+    worst = rows.max().item()
+    q = torch.quantile(rows, BWD_MMA_ROW_Q).item()
+    ok = worst <= BWD_ROW_TOL and (ref_name != "mma"
+                                   or q <= BWD_MMA_ROW_TOL)
+    return worst, q, ok
+
+
+def _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw):
+    """The two plain versions' (dQ, dK, dV)."""
+    args = (q, k, v, lens, o, lse, go, gl)
+    return {"upcast": fa._upcast_bwd(*args, **kw),
+            "mma": fa._mma_bwd(*args, **kw)}
+
+
+def _bf16_bwd_case(fa, name, q, k, v, lens, go, gl, kw):
+    """Kernel 1 then kernels 2 and 3 on bf16 operands, as the kernel
+    route's backward runs them, held per row against ``_upcast_bwd`` and
+    ``_mma_bwd``.  Returns the operands the timing and the planted faults
+    reuse, the references and the errors."""
+    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    delta = (go.float() * o.float()).sum(-1).transpose(1, 2)
+    if gl is not None:
+        delta = delta - gl
+    delta = delta.contiguous()
+    got = (fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw),
+           *fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw))
+    refs = _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw)
+    torch.cuda.synchronize()
+    if any(t.dtype != torch.bfloat16 for t in got):
+        raise AssertionError(f"flash_bwd bf16 {name} gave "
+                             f"{[t.dtype for t in got]}")
+    errs = {}
+    for ref_name, ref in refs.items():
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            worst, q99, ok = _bwd_holds(ref_name, a, r)
+            errs.setdefault(ref_name, {})[gname] = (worst, q99)
+            if not (ok and torch.isfinite(a.float()).all()):
+                raise AssertionError(
+                    f"flash_bwd bf16 {name}: {gname} row errors (largest "
+                    f"{worst}, {BWD_MMA_ROW_Q:.0%} {q99}) fail the check "
+                    f"against _{ref_name}_bwd")
+    errs["max_abs"] = {g: (a.float() - r.float()).abs().max().item()
+                       for g, a, r in zip(("dq", "dk", "dv"), got,
+                                          refs["upcast"])}
+    print(f"flash_bwd bf16 {name} [B {q.shape[0]}, Lq {q.shape[1]}, Lk "
+          f"{k.shape[1]}, H {q.shape[2]}, D {q.shape[3]}, causal "
+          f"{kw['causal']}, q_offset {kw.get('q_offset', 0)}, kv_offset "
+          f"{kw.get('kv_offset', 0)}, g_lse {gl is not None}]: row errors "
+          f"(largest, {BWD_MMA_ROW_Q:.0%}) against _upcast_bwd " + ", ".join(
+              f"{g} {w:.3e} {p:.3e}" for g, (w, p) in errs["upcast"].items())
+          + f" (limit {BWD_ROW_TOL:.3e} on the largest), against _mma_bwd "
+          + ", ".join(f"{g} {w:.3e} {p:.3e}"
+                      for g, (w, p) in errs["mma"].items())
+          + f" (limits {BWD_ROW_TOL:.3e}, {BWD_MMA_ROW_TOL:.3e}); max|err| "
+          "against _upcast_bwd " + ", ".join(
+              f"{g} {e:.3e}" for g, e in errs["max_abs"].items()),
+          flush=True)
+    return o, lse, delta, got, refs, errs
+
+
+def _planted_bwd_faults(fa, q, k, v, lens, o, lse, go, kw, refs):
+    """Each planted fault's row errors against both references; raises
+    unless every one of dQ, dK and dV fails both limits."""
+    go_bad = go.clone()
+    go_bad[:, -64:] = 0
+    faults = {
+        "the last q tile's dO zeroed":
+            fa._mma_bwd(q, k, v, lens, o, lse, go_bad, **kw),
+        "one score k-step left out":
+            fa._mma_bwd(q, k, v, lens, o, lse, go, drop_score_kstep=1,
+                        **kw)}
+    out = {}
+    for fname, bad in faults.items():
+        for ref_name, ref in refs.items():
+            held = {g: _bwd_holds(ref_name, b_, r) for g, b_, r in
+                    zip(("dq", "dk", "dv"), bad, ref)}
+            out.setdefault(fname, {})[ref_name] = {
+                g: (w, p) for g, (w, p, _) in held.items()}
+            if any(ok for _, _, ok in held.values()):
+                raise AssertionError(f"the bf16 backward check against "
+                                     f"_{ref_name}_bwd passes a planted "
+                                     f"fault ({fname}): {held}")
+    return out
 
 
 def flash_bwd_bf16_phase(dev, gen, flush):
-    """Kernels 2 and 3 at bf16 at the LM's training shape, causal: dQ, dK
-    and dV held per row against ``_upcast_bwd`` on the kernels' operands,
-    the planted fault shown to fail that check, the distance to the bf16
-    plain route's autograd reported; each kernel's time beside its bound
-    (bf16 bytes, the bf16 peak; ``fma_bound_ms`` at the float32 FMAs the
-    kernels run), the bf16 plain route's backward and the
-    library's bf16 backward; and kernel 1's bf16 time at this shape (the
-    LM step breakdown's attention share)."""
+    """Kernels 2 and 3 at bf16 (the tensor-core kernels): at the LM's
+    training shape, causal, and at BF16_BWD_CASES, dQ, dK and dV held per
+    row against ``_upcast_bwd`` and ``_mma_bwd``; the two planted faults
+    shown to fail both checks; the distance to the bf16 plain route's
+    autograd reported; each kernel's registers and local memory (spills
+    fail the run); each kernel's time beside its bound (bf16 bytes, the
+    bf16 peak), the bf16 plain route's backward and the library's bf16
+    backward; and kernel 1's bf16 time at the LM shape (the LM step
+    breakdown's attention share)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, T, D = TRAIN_BATCH, MAX_LEN, DIM // HEADS
@@ -1718,49 +1855,44 @@ def flash_bwd_bf16_phase(dev, gen, flush):
                                dtype=bf) for _ in range(4))
     lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     kw = dict(causal=True, scale=D ** -0.5)
-    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
-    delta = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw)
-    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw)
-    ref = fa._upcast_bwd(q, k, v, lens, o, lse, go, **kw)
-    torch.cuda.synchronize()
-    if any(t.dtype != bf for t in (dq, dk, dv)):
-        raise AssertionError(f"bf16 backward gave {dq.dtype}, {dk.dtype}, "
-                             f"{dv.dtype}")
-    errs = {}
-    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        row = _grad_row_err(a, r)
-        err = (a.float() - r.float()).abs().max().item()
-        errs[name] = (err, row)
-        if not (row <= BWD_ROW_TOL and torch.isfinite(a.float()).all()):
-            raise AssertionError(f"flash_bwd bf16 {name}: row error {row} "
-                                 f"> {BWD_ROW_TOL} against _upcast_bwd")
-    # the planted fault: the last q tile's rows of dO zeroed leaves their
-    # share out of every dK and dV row (and the last 64 keys, which only
-    # that tile sees under causal masking, with none)
-    go_bad = go.clone()
-    go_bad[:, -64:] = 0
-    _, bad_k, bad_v = fa._upcast_bwd(q, k, v, lens, o, lse, go_bad, **kw)
-    fault = {n: _grad_row_err(b_, r) for n, b_, r in
-             (("dk", bad_k, ref[1]), ("dv", bad_v, ref[2]))}
-    if min(fault.values()) <= BWD_ROW_TOL:
-        raise AssertionError(f"the bf16 backward check passes a planted "
-                             f"fault: {fault}")
-    del go_bad, bad_k, bad_v
+    o, lse, delta, (dq, dk, dv), refs, errs = _bf16_bwd_case(
+        fa, "LM shape", q, k, v, lens, go, None, kw)
+    fault = _planted_bwd_faults(fa, q, k, v, lens, o, lse, go, kw, refs)
+    del refs
+    print("flash_bwd bf16 planted faults (row errors, largest and "
+          f"{BWD_MMA_ROW_Q:.0%}; each must fail both checks): " + "; ".join(
+              f"{f}: " + ", ".join(f"against _{r}_bwd " + " ".join(
+                  f"{g} {w:.3e} {p:.3e}" for g, (w, p) in es.items())
+                  for r, es in by_ref.items())
+              for f, by_ref in fault.items()), flush=True)
     # the distance to the bf16 plain route (P rounded to bf16, autograd)
     plain = _attn_grads(fa, q, k, v, lens, go, None, kw, "torch")
     dist = {n: _grad_row_err(a, p) for n, a, p in
             zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
-    del plain, ref
-    print(f"flash_bwd bf16 at [{B}, {T}, {HEADS}, {D}] causal against "
-          f"_upcast_bwd: " + ", ".join(
-              f"{n} max|err| {e:.3e} row {r:.3e}" for n, (e, r) in
-              errs.items())
-          + f" (row limit {BWD_ROW_TOL:.3e}); planted fault (the last q "
-          f"tile left out of dK/dV): row error dk {fault['dk']:.3e} dv "
-          f"{fault['dv']:.3e}; distance to the bf16 plain route's autograd "
-          f"(P rounded to bf16): " + ", ".join(
-              f"{n} row {r:.3e}" for n, r in dist.items()), flush=True)
+    del plain
+    print("flash_bwd bf16 distance to the bf16 plain route's autograd (row "
+          "error): " + ", ".join(f"{n} {r:.3e}" for n, r in dist.items()),
+          flush=True)
+    cases = {"LM shape": errs}
+    for (name, b, lq, lk, h, d, causal, kvl, qo, ko,
+         with_lse) in BF16_BWD_CASES:
+        xq, xg = (torch.randn(b, lq, h, d, device=dev, generator=gen,
+                              dtype=bf) for _ in range(2))
+        xk, xv = (torch.randn(b, lk, h, d, device=dev, generator=gen,
+                              dtype=bf) for _ in range(2))
+        gl = (torch.randn(b, h, lq, device=dev, generator=gen)
+              if with_lse else None)
+        xl = torch.tensor(kvl or [lk] * b, dtype=torch.int32, device=dev)
+        ckw = dict(causal=causal, scale=d ** -0.5, q_offset=qo,
+                   kv_offset=ko)
+        cases[name] = _bf16_bwd_case(fa, name, xq, xk, xv, xl, xg, gl,
+                                     ckw)[-1]
+    res = fa.bwd_mma_resources()
+    print("flash_bwd bf16 kernels' resources (cudaFuncGetAttributes): "
+          + ", ".join(f"{n} {r} registers, {l} bytes local"
+                      for n, (r, l) in res.items()), flush=True)
+    if any(l for _, l in res.values()):
+        raise AssertionError(f"a bf16 backward kernel spills: {res}")
 
     t = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
                         flush),
@@ -1782,29 +1914,32 @@ def flash_bwd_bf16_phase(dev, gen, flush):
     pairs = B * HEADS * T * (T + 1) // 2
     row = 2.0 * B * T * HEADS * D             # one [B, T, H, D] bf16
     vec = 4.0 * B * HEADS * T                 # one [B, H, T] float32
-    # bf16 operands: the bound at the card's bf16 peak, and beside it the
-    # floor at the float32 FMA rate the kernels' arithmetic runs at
     work = {"dkdv": (8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
             "dq": (6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
     out = {}
     for name in ("dkdv", "dq"):
         b_ms, b_by = bound(*work[name], PEAK_BF16_FLOPS)
-        fma_ms = bound(*work[name], PEAK_F32_FLOPS)[0]
+        regs, local = res[f"{name}_d{D}"]
         print(f"flash {name} bf16 at [{B}, {T}, {HEADS}, {D}] causal: ms "
-              f"{t[name]:.4f}  bound_ms {b_ms:.4f} ({b_by}, bf16 peak; at "
-              f"float32 FMAs {fma_ms:.4f})  "
+              f"{t[name]:.4f}  bound_ms {b_ms:.4f} ({b_by}, bf16 peak)  "
               f"plain_ms (the bf16 plain route's backward, whole) "
               f"{t['plain_bwd']:.4f}  library_ms "
               f"(scaled_dot_product_attention backward, bf16) "
-              f"{t['lib_bwd']:.4f}", flush=True)
-        e = (max(errs["dk"], errs["dv"]) if name == "dkdv" else errs["dq"])
+              f"{t['lib_bwd']:.4f}; {regs} registers, {local} bytes "
+              f"local", flush=True)
+        gs = ("dk", "dv") if name == "dkdv" else ("dq",)
         out[name] = dict(ms=t[name], plain_ms=t["plain_bwd"], bound_ms=b_ms,
-                         bound_by=b_by, fma_bound_ms=fma_ms,
-                         library_ms=t["lib_bwd"],
-                         max_abs_err=e[0], row_err=e[1])
+                         bound_by=b_by, library_ms=t["lib_bwd"],
+                         max_abs_err=max(errs["max_abs"][g] for g in gs),
+                         row_err=max(errs["upcast"][g][0] for g in gs),
+                         mma_row_err=max(errs["mma"][g][0] for g in gs),
+                         mma_row_err_q99=max(errs["mma"][g][1] for g in gs),
+                         registers=regs, local_bytes=local)
     out["fwd_ms"] = t["fwd"]
     out["planted_fault"] = fault
     out["distance_to_plain"] = dist
+    out["cases"] = cases
+    out["resources"] = res
     out["shape"] = {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
                     "causal": True, "dtype": "bfloat16"}
     return out
@@ -3357,7 +3492,8 @@ def main() -> int:
         "lstm_route": {k: v for k, v in rnn16_paths["lstm_route"].items()
                        if k != "launches"},
         "flash_bwd": {k: bwd16[k] for k in ("planted_fault",
-                                            "distance_to_plain")},
+                                            "distance_to_plain", "cases",
+                                            "resources")},
         "mixed_skip": mixed, "sass": sass}}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],

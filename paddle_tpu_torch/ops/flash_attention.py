@@ -3,18 +3,30 @@
 
 The kernels take float32 or bf16 q/k/v (and dO), as ``_flash_fwd`` and
 ``_flash_bwd`` do: O comes back in q's dtype and the LSE in float32; dQ,
-dK and dV in q's, k's and v's dtype; delta is float32.  All arithmetic is
-float32 (the kernels convert bf16 as they stage the tiles), as in the
-Pallas kernels, which upcast before every product.  float16 raises
-(``ROADMAP.md`` section 2, K5).
+dK and dV in q's, k's and v's dtype; delta is float32.  float16 raises
+(``ROADMAP.md`` section 2, K5).  The arithmetic:
+- float32 operands: every product float32, as in the Pallas kernels,
+  which upcast before every product;
+- the forward on bf16 operands: the same float32 arithmetic on the
+  operands converted as the kernel stages its tiles;
+- the backward on bf16 operands: the tensor cores.  S = QK^T and
+  dP = dO V^T take the bf16 operands with float32 accumulation (exact
+  products, so only the order of the sums differs from the Pallas
+  kernels); P and dS are rounded once to bf16 before dV = P^T dO,
+  dK = dS^T Q and dQ = dS K, accumulated in float32; each output is
+  rounded once.
 
-Two plain versions, for the two bf16 semantics of the JAX package:
+Three plain versions, for the two bf16 semantics of the JAX package and
+the tensor-core backward:
 ``_torch_attention`` is the counterpart of ``_xla_attention`` (on bf16 the
 probabilities are rounded to bf16 before P . V), the CPU route and the
 ``attention_impl="torch"`` route; ``_torch_attention_upcast`` does the
 Pallas kernels' arithmetic (float32 throughout on the upcast operands,
 outputs rounded once to the operands' dtype), the yardstick the bf16
-kernels are held against on the card.
+kernels are held against on the card; ``_mma_bwd`` is the bf16 backward
+kernels' own arithmetic (P and dS rounded to bf16), which the CPU tests
+hold to the Pallas kernels within its rounding model's bound and the
+card's check holds the kernels to within a tighter limit.
 
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  Layout [B, L, H, D]
 as there.  ``impl=None`` routes by where the tensors lie: a CUDA tensor
@@ -88,18 +100,25 @@ def check_kernel_operand(name: str, t: torch.Tensor, device,
         raise ValueError(f"{name}: data is not 16-byte aligned")
 
 
+def _visible(lq, lk, kv_lens, causal, q_offset, kv_offset, device):
+    """[B, 1, Lq, Lk] (or [B, 1, 1, Lk]) bool: query q sees key k when
+    k < kv_lens[b] and, causal, kv_offset + k <= q_offset + q."""
+    kpos = torch.arange(lk, device=device)
+    mask = kpos[None, None, None, :] < kv_lens[:, None, None, None]
+    if causal:
+        qpos = torch.arange(lq, device=device)
+        cm = kv_offset + kpos[None, :] <= q_offset + qpos[:, None]
+        mask = mask & cm[None, None]
+    return mask
+
+
 def _torch_attention(q, k, v, kv_lens, *, causal: bool, scale: float,
                      q_offset=0, kv_offset=0, return_lse: bool = False):
     """The plain version (counterpart of ``_xla_attention``): dense
     scores, one mask for kv_lens and the offset causal rule."""
     lq, lk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    kpos = torch.arange(lk, device=q.device)
-    mask = kpos[None, None, None, :] < kv_lens[:, None, None, None]
-    if causal:
-        qpos = torch.arange(lq, device=q.device)
-        cm = kv_offset + kpos[None, :] <= q_offset + qpos[:, None]
-        mask = mask & cm[None, None]
+    mask = _visible(lq, lk, kv_lens, causal, q_offset, kv_offset, q.device)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)   # masked rows -> 0
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
@@ -119,20 +138,53 @@ def _upcast_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
     the same masks, delta = rowsum(dO * O) - g_lse in float32, every
     product float32; dQ, dK and dV returned in q's, k's and v's dtype."""
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-    lq, lk = q.shape[1], k.shape[1]
-    kpos = torch.arange(lk, device=q.device)
-    mask = kpos[None, None, None, :] < kv_lens[:, None, None, None]
-    if causal:
-        qpos = torch.arange(lq, device=q.device)
-        cm = kv_offset + kpos[None, :] <= q_offset + qpos[:, None]
-        mask = mask & cm[None, None]
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p, ds = _p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal,
+                      scale, q_offset, kv_offset, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal, scale,
+              q_offset, kv_offset, q_score):
+    """P recomputed from the scores of ``q_score`` and k and the
+    natural-log LSE under the masks, and dS = P * (dO V^T - delta) with
+    delta = rowsum(dO * O) - g_lse, both [B, H, Lq, Lk] float32."""
+    mask = _visible(qf.shape[1], kf.shape[1], kv_lens, causal, q_offset,
+                    kv_offset, qf.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q_score, kf) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
     delta = (gf * o.float()).sum(-1).transpose(1, 2)           # [B, H, Lq]
     if g_lse is not None:
         delta = delta - g_lse.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    return p, ds
+
+
+def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
+             scale: float, q_offset=0, kv_offset=0,
+             drop_score_kstep: Optional[int] = None):
+    """The arithmetic of the bf16 backward kernels (the tensor-core
+    ``flash_bwd_{dkdv,dq}_mma_kernel`` of ``csrc/flash_bwd.cu``) in plain
+    torch: ``_upcast_bwd``'s steps, with P rounded to bf16 before P^T dO
+    and dS rounded to bf16 before dS^T Q and dS K, every product
+    accumulated in float32, dQ, dK and dV rounded once to q's, k's and
+    v's dtype.  Never on the kernel route: the tests hold it against the
+    JAX package, ``chip_smoke.py`` the kernels against it.
+
+    ``drop_score_kstep=j`` leaves head columns 16j to 16j+15 out of the
+    score product S = QK^T, one 16-deep step of the kernels' mma: a
+    planted fault, which the checks must catch."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    q_score = qf
+    if drop_score_kstep is not None:
+        q_score = qf.clone()
+        q_score[..., 16 * drop_score_kstep:16 * drop_score_kstep + 16] = 0
+    p, ds = _p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal,
+                      scale, q_offset, kv_offset, q_score)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -245,7 +297,11 @@ _DQ_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
 _BWD_SIGNATURES = {"flash_bwd_dkdv_f32": _DKDV_ARGS,
                    "flash_bwd_dkdv_bf16": _DKDV_ARGS,
                    "flash_bwd_dq_f32": _DQ_ARGS,
-                   "flash_bwd_dq_bf16": _DQ_ARGS}
+                   "flash_bwd_dq_bf16": _DQ_ARGS,
+                   "flash_bwd_mma_resources": [
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -296,9 +352,11 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
                         scale: float, q_offset: int = 0,
                         kv_offset: int = 0):
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``: returns (dK, dV)
-    [B, Lk, H, D] in the operands' dtype (float32 or bf16).  ``g`` is dO
-    [B, Lq, H, D]; ``lse`` the forward's natural-log LSE and ``delta`` =
-    rowsum(dO * O) - g_lse, both [B, H, Lq] float32."""
+    [B, Lk, H, D] in the operands' dtype.  float32 operands run the
+    CUDA-core kernel (float32 products), bf16 ones the tensor-core kernel
+    (``_mma_bwd``'s arithmetic).  ``g`` is dO [B, Lq, H, D]; ``lse`` the
+    forward's natural-log LSE and ``delta`` = rowsum(dO * O) - g_lse, both
+    [B, H, Lq] float32."""
     _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
     # every key tile's block writes all of its rows (zeros where no query
     # sees them), so the outputs need no clearing
@@ -324,7 +382,8 @@ flash_bwd_dkdv_cuda.launches = flash_bwd_dkdv_cuda.launches_bf16 = 0
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
                       scale: float, q_offset: int = 0, kv_offset: int = 0):
     """Launch the dQ kernel of ``csrc/flash_bwd.cu``: returns dQ
-    [B, Lq, H, D] in q's dtype (operands as ``flash_bwd_dkdv_cuda``)."""
+    [B, Lq, H, D] in q's dtype (operands and the two instances as
+    ``flash_bwd_dkdv_cuda``)."""
     _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or k.shape[1] == 0:
@@ -342,6 +401,23 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
 
 
 flash_bwd_dq_cuda.launches = flash_bwd_dq_cuda.launches_bf16 = 0
+
+
+def bwd_mma_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the bf16 tensor-core kernels at
+    each head tile, from ``cudaFuncGetAttributes``:
+    ``{"dkdv_d64": (regs, local_bytes), ...}``.  Needs a card."""
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    out = {}
+    for name, dkdv in (("dkdv", 1), ("dq", 0)):
+        for dt in (64, 128):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            _build.check(lib, lib.flash_bwd_mma_resources(
+                dkdv, dt, ctypes.byref(regs), ctypes.byref(local)),
+                "flash_bwd_mma_resources")
+            out[f"{name}_d{dt}"] = (regs.value, local.value)
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -398,8 +474,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q[:, 0] / k[:, 0] for the causal rule ``kv_offset + k <= q_offset +
     q``.  impl: ``"cuda"`` (the kernels), ``"torch"`` (plain version) or
     None (by the device of ``q``).  Differentiable on both routes: the
-    kernel route's backward is ``csrc/flash_bwd.cu``, at float32 or bf16
-    (q, k and v share a dtype)."""
+    kernel route's backward is ``csrc/flash_bwd.cu``, at float32 (CUDA
+    cores) or bf16 (tensor cores); q, k and v share a dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_lens is None:

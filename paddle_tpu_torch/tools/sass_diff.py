@@ -6,7 +6,8 @@ Each source compiles as ``ops/_build`` compiles it (``NVCC_FLAGS``, with
 the headers beside it) into ``ops/_build/sass_diff/``; ``cuobjdump -sass``
 lists its kernels, and the one whose mangled name contains OLD_KERNEL
 (NEW_KERNEL) is taken.  The two are compared line for line, addresses,
-encodings and scheduling bits included, only the kernel's name left out:
+encodings and scheduling bits included, only the kernel's name and the
+listing's column padding left out:
 exit 0 and "identical" when the machine code is the same, else exit 1 and
 the first line that differs.  Needs the CUDA toolkit's ``nvcc`` and
 ``cuobjdump``, not a card.
@@ -30,10 +31,14 @@ from paddle_tpu_torch.ops import _build
 
 def kernels(sass: str) -> dict:
     """``{mangled name: [SASS lines]}`` from ``cuobjdump -sass`` output,
-    each line stripped, blank and closing dotted lines dropped."""
+    each line stripped and its runs of blanks collapsed to one, blank and
+    closing dotted lines dropped.  cuobjdump pads the instruction column
+    to the widest instruction of the whole file, so a kernel added beside
+    the compared one can move every comment column without changing an
+    instruction, an encoding or a scheduling word."""
     out, lines = {}, None
     for line in sass.splitlines():
-        line = line.strip()
+        line = " ".join(line.split())
         if line.startswith("Function :"):
             lines = out.setdefault(line.split(":", 1)[1].strip(), [])
         elif lines is not None and line and line.strip(".") != "":

@@ -4,8 +4,11 @@ flash_attention.py) against the JAX package: the port's plain version
 ``impl=None``) on the same numpy-seeded inputs as JAX ``impl="xla"`` and the
 Pallas kernel under the interpreter (``impl="interpret"``).  Float32
 throughout; tolerance 1e-5, the float32 rounding of two sums taken in a
-different order."""
+different order.  Then the backward (float32, then the two bf16
+semantics, each with its limits), and the tensor-core bf16 backward's
+arithmetic (``_mma_bwd``) held to its rounding model's bound."""
 
+import functools
 import importlib
 
 import numpy as np
@@ -340,10 +343,13 @@ def _bf16_grad_inputs(case):
             for a in _grad_inputs(case)]
 
 
+@functools.lru_cache(maxsize=None)
 def _bf16_jax(case, impl):
     """O, LSE and dQ, dK, dV of the JAX package on the bf16 inputs,
     through ``impl`` ("xla" or "interpret": ``_flash_bwd`` under the
-    Pallas interpreter), the objective taken on O upcast to float32."""
+    Pallas interpreter), the objective taken on O upcast to float32.
+    Cached: the upcast and tensor-core references share it (callers
+    only read the arrays)."""
     import jax
     import jax.numpy as jnp
 
@@ -452,3 +458,190 @@ def test_upcast_reference_is_the_float32_path_at_float32():
     obj = (out ** 2).sum() + torch.tanh(lse).sum()
     for g, w in zip(torch.autograd.grad(obj, (q, k, v)), want):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+# ------------------------------------------- the tensor-core bf16 backward
+# The tensor-core kernels' arithmetic (``_mma_bwd``) rounds P and dS to
+# bf16 before dV = P^T dO, dK = dS^T Q and dQ = dS K, where the Pallas
+# kernels keep them float32: each term of a gradient element moves by at
+# most 2^-8 of itself (bf16's unit roundoff), so the element moves by at
+# most 2^-8 of M, the sum of its terms' magnitudes, and each side's one
+# rounding of the output adds at most half an ulp, 2^-8 of the element.
+# Held against the Pallas interpreter: |got - want| <= 2^-8 (M + 2 |want|)
+# + 2^-16 max(1, max |want|) elementwise, the last term the float32
+# rounding of dP - delta where the two cancel (a query row that sees one
+# key has dS = 0 up to that rounding, on both sides).  Readings: at most
+# 0.67 of the limit over GRAD_CASES; the planted k-step fault 220x to
+# 240x.  The flat limits
+# above do not bound this arithmetic at D 8, where a row's few terms
+# cancel: readings up to 1.8x BF16_ELEM and 1.3x BF16_ROW.
+MMA_UNIT, MMA_F32_FLOOR = 2.0 ** -8, 2.0 ** -16
+
+
+class _MmaAttention(tfa._UpcastAttention):
+    """The kernel route's arithmetic at bf16 in plain torch: the Pallas
+    forward's (``_torch_attention_upcast``), the backward of the
+    tensor-core kernels (``_mma_bwd``).  Each backward records its
+    operands' term magnitudes in ``terms``."""
+
+    terms = []
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        g = torch.zeros_like(o) if g is None else g
+        _MmaAttention.terms.append(_term_magnitudes(
+            q, k, v, kv_lens, o, lse, g, g_lse, **ctx.args))
+        return (*tfa._mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse,
+                              **ctx.args), None, None, None, None, None)
+
+
+def _mma_attention(q, k, v, kv_lens, *, causal, scale, q_offset=0,
+                   kv_offset=0, return_lse=False):
+    o, lse = _MmaAttention.apply(q, k, v, kv_lens, causal, scale, q_offset,
+                                 kv_offset)
+    return (o, lse) if return_lse else o
+
+
+def _term_magnitudes(q, k, v, kv_lens, o, lse, g, g_lse, *, causal, scale,
+                     q_offset=0, kv_offset=0):
+    """M of every element of dQ, dK and dV: scale |dS| |K|, scale
+    |dS|^T |Q| and P^T |dO|, from the float32 P and dS of the backward."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p, ds = tfa._p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal,
+                          scale, q_offset, kv_offset, qf)
+    ds = ds.abs()
+    return [torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs()).numpy() * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs()).numpy() * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, gf.abs()).numpy()]
+
+
+def _assert_mma_close(got, want, m, what):
+    limit = (MMA_UNIT * (m + 2 * np.abs(want))
+             + MMA_F32_FLOOR * max(1.0, np.abs(want).max()))
+    err = np.abs(got - want)
+    assert (err <= limit).all(), (what, (err / limit).max())
+
+
+def _assert_mma_matches_pallas(got, want, terms, case):
+    """O and the LSE (the forward's) within the bf16 limits above; dQ, dK
+    and dV within the rounding model's bound."""
+    _assert_bf16_close(got[0], want[0], f"{case} O")
+    _assert_lse_close(got[1], want[1])
+    for name, g, w, m in zip(("dQ", "dK", "dV"), got[2:], want[2:], terms):
+        _assert_mma_close(g, w, m, f"{case} {name}")
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_bf16_mma_backward_matches_pallas_interpret(case):
+    """``_mma_bwd``, the arithmetic of the tensor-core bf16 backward
+    kernels (P and dS rounded to bf16 before the three gradient
+    products), against the JAX package's Pallas forward and
+    ``_flash_bwd`` under the interpreter at bf16, within the rounding
+    model's bound; masked KV rows get exactly zero gradient."""
+    _MmaAttention.terms.clear()
+    got = _bf16_torch(case, _mma_attention)
+    (terms,) = _MmaAttention.terms
+    _assert_mma_matches_pallas(got, _bf16_jax(case, "interpret"), terms,
+                               case)
+    lens = GRAD_CASES[case][4]
+    for b, n in enumerate(lens or ()):
+        assert not got[3][b, n:].any() and not got[4][b, n:].any()
+
+
+def _kstep_case(drop):
+    """q, k, v [1, 32, 2, 32] bf16 (two 16-deep k-steps), causal: dQ, dK,
+    dV of sum(O^2) through ``_mma_bwd`` with k-step ``drop`` of the score
+    product left out (None: none), the term magnitudes, and the JAX
+    package's gradients under the interpreter."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(7)
+    jargs = [jnp.asarray(rng.randn(1, 32, 2, 32), jnp.bfloat16)
+             for _ in range(3)]
+
+    def f(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=True, impl="interpret",
+                                  block_q=16, block_k=16)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    want = [np.asarray(g.astype(jnp.float32)) for g in
+            jax.grad(f, argnums=(0, 1, 2))(*jargs)]
+    q, k, v = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in jargs)
+    lens = torch.full((1,), 32, dtype=torch.int32)
+    kw = dict(causal=True, scale=32 ** -0.5)
+    o, lse = tfa._torch_attention_upcast(q, k, v, lens, return_lse=True,
+                                         **kw)
+    g = (2 * o.float()).to(torch.bfloat16)
+    got = tfa._mma_bwd(q, k, v, lens, o, lse, g, drop_score_kstep=drop,
+                       **kw)
+    terms = _term_magnitudes(q, k, v, lens, o, lse, g, None, **kw)
+    return [x.float().numpy() for x in got], terms, want
+
+
+def test_mma_backward_planted_kstep_fault_fails_the_limits():
+    """The planted fault of the card's check: ``_mma_bwd`` with one
+    16-deep k-step of the score product left out fails the bound against
+    the Pallas interpreter on every gradient, on inputs the intact
+    version holds."""
+    got, terms, want = _kstep_case(None)
+    for name, g, w, m in zip(("dQ", "dK", "dV"), got, want, terms):
+        _assert_mma_close(g, w, m, name)
+    bad, _, _ = _kstep_case(1)
+    for name, g, w, m in zip(("dQ", "dK", "dV"), bad, want, terms):
+        with pytest.raises(AssertionError):
+            _assert_mma_close(g, w, m, name)
+
+
+def _mma_wrappers(calls, terms):
+    """Stand-ins for the bf16 kernels with the wrappers' signatures: the
+    forward by ``_torch_attention_upcast``, each backward kernel by
+    ``_mma_bwd`` (O = 0 and g_lse = -delta make its delta the wrapper's
+    delta); the dQ stand-in records the term magnitudes."""
+    def fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0, kv_offset=0):
+        calls.append("fwd")
+        return tfa._torch_attention_upcast(
+            q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset,
+            kv_offset=kv_offset, return_lse=True)
+
+    def bwd(which):
+        def run(q, k, v, g, lse, delta, kv_lens, **kw):
+            calls.append(which)
+            assert q.dtype == g.dtype == torch.bfloat16
+            assert delta.dtype == torch.float32
+            args = (q, k, v, kv_lens, torch.zeros_like(q), lse, g, -delta)
+            if which == "dq":
+                terms.append(_term_magnitudes(*args, **kw))
+            dq, dk, dv = tfa._mma_bwd(*args, **kw)
+            return dq if which == "dq" else (dk, dv)
+        return run
+
+    return fwd, bwd("dq"), bwd("dkdv")
+
+
+@pytest.mark.parametrize("case", ["grads_causal", "kv_lens_causal",
+                                  "cross_37x21_causal", "offset_q_ahead",
+                                  "offset_fully_masked", "lse_cotangent"])
+def test_bf16_kernel_route_with_mma_backward_matches_pallas(case,
+                                                            monkeypatch):
+    """The kernel route's wiring at bf16 (``_FlashAttention``: bf16 q, k,
+    v and dO with a float32 delta into both backward launches), the
+    kernels stood in for by their plain versions with the tensor-core
+    backward's arithmetic, against the JAX package under the Pallas
+    interpreter at bf16, within the rounding model's bound."""
+    calls, terms = [], []
+    fwd, dq, dkdv = _mma_wrappers(calls, terms)
+    monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
+    monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
+    monkeypatch.setattr(tfa, "flash_bwd_dq_cuda", dq)
+    monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda", dkdv)
+
+    def route(q, k, v, kv_lens, **kw):
+        return tfa.flash_attention(q, k, v, kv_lens=kv_lens, **kw)
+
+    got = _bf16_torch(case, route)
+    assert calls == ["fwd", "dq", "dkdv"]
+    _assert_mma_matches_pallas(got, _bf16_jax(case, "interpret"), terms[0],
+                               case)

@@ -317,6 +317,21 @@ def test_sass_diff_reads_and_compares_cuobjdump_listings():
         sass_diff.pick(table, "kern")
 
 
+def test_sass_diff_ignores_the_listing_padding_only():
+    """A kernel added to a source widens cuobjdump's instruction column
+    for the whole file: the same instructions padded differently compare
+    identical, while one changed scheduling word still differs."""
+    from paddle_tpu_torch.tools import sass_diff
+
+    wide = SASS.replace(";   /*", ";            /*").replace(
+        "            /* 0x000f", "                     /* 0x000f")
+    a = sass_diff.pick(sass_diff.kernels(SASS), "kernA")
+    w = sass_diff.pick(sass_diff.kernels(wide), "kernA")
+    assert wide != SASS and sass_diff.first_difference(a, w) is None
+    w[2] = w[2].replace("0x000fe2", "0x000fe4")
+    assert sass_diff.first_difference(a, w)[0] == 2
+
+
 def test_sass_base_holds_the_float32_sources_before_the_bf16_instances(
         tmp_path):
     """chip_smoke.py compares the float32 instances of flash_bwd.cu,

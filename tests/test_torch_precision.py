@@ -12,7 +12,10 @@ heads, L 32), the seq2seq NMT model (vocab 50 / 40, emb 16, enc 24, dec
 32, lengths <= 6) and the LSTM route (two lstmemory(peephole=False) of
 width 24), from the same numpy-seeded weights in both packages under ``bf16`` and ``mixed``: every layer's output dtype equal,
 its values within one bf16 ulp, the first step's gradients and a 5-step
-Adam trajectory.  And the refusals: a float16 operand at every kernel
+Adam trajectory; the LM once more on the port's kernel route, its kernels
+stood in for by their plain versions (the bf16 backward's tensor-core
+arithmetic, ``_mma_bwd``), against the JAX package on its Pallas kernels
+under the interpreter.  And the refusals: a float16 operand at every kernel
 wrapper; bf16 reaches kernels 7a to 9 and the conv layers (ResNet under
 ``bf16`` is in tests/test_torch_resnet_bf16.py).
 
@@ -33,6 +36,7 @@ matches exactly, already differ by that much on the first loss: XLA
 rounds the fused bf16 ops of a jitted step differently from eager ones).
 """
 
+import importlib
 import warnings
 
 import numpy as np
@@ -482,6 +486,54 @@ def test_training_matches_jax(model, precision):
     leaf within 2^-4 of its own norm, then 5
     Adam steps of ``SGD.train`` on one batch with losses within 2e-3
     relative; masters and Adam slots float32 throughout."""
+    _hold_training(model, precision)
+
+
+def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch):
+    """The small LM under ``bf16`` on the port's kernel route
+    (``_FlashAttention``), each kernel stood in for by its plain version
+    with the kernel's arithmetic: the forward by
+    ``_torch_attention_upcast``, both backward kernels by ``_mma_bwd``
+    (P and dS rounded to bf16, as the tensor-core kernels do), against
+    the JAX package on its Pallas kernels under the interpreter
+    (``default_impl`` patched to "interpret"): the limits of
+    ``test_training_matches_jax``."""
+    from paddle_tpu_torch.ops import flash_attention as tfa
+
+    jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
+    calls = []
+
+    def fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0, kv_offset=0):
+        calls.append(("fwd", q.dtype))
+        return tfa._torch_attention_upcast(
+            q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset,
+            kv_offset=kv_offset, return_lse=True)
+
+    def bwd(which):
+        def run(q, k, v, g, lse, delta, kv_lens, **kw):
+            calls.append((which, g.dtype))
+            # O = 0 and g_lse = -delta: _mma_bwd's delta is the wrapper's
+            dq, dk, dv = tfa._mma_bwd(q, k, v, kv_lens, torch.zeros_like(q),
+                                      lse, g, -delta, **kw)
+            return dq if which == "dq" else (dk, dv)
+        return run
+
+    def interpret():
+        calls.append(("jax", "interpret"))
+        return "interpret"
+
+    monkeypatch.setattr(jfa, "default_impl", interpret)
+    monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
+    monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
+    monkeypatch.setattr(tfa, "flash_bwd_dq_cuda", bwd("dq"))
+    monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda", bwd("dkdv"))
+    _hold_training("lm", "bf16")
+    assert set(calls) == {("fwd", torch.bfloat16), ("dq", torch.bfloat16),
+                          ("dkdv", torch.bfloat16), ("jax", "interpret")}
+
+
+def _hold_training(model, precision):
+    """The comparison of ``test_training_matches_jax``."""
     jtopo, ttopo, values = _both(model, precision)
     feed = MODELS[model][1]()
     jgrads = _grads_jax(jtopo, values, feed)
