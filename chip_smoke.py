@@ -27,17 +27,21 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|);
    7b's relu boundary (folds exactly 0 are dropped as the forward drops
    them); the autograd Functions' gradients against autograd through the
-   plain versions; kernel 1 on bf16 q/k/v (O bf16, LSE float32) at the
-   forward sweep's shape [8, 4096, 8, 64] and the LM shape
-   [8, 4096, 4, 128], causal, against the plain attention on the float32
-   upcast with O rounded to bf16, and every variant of the sweep
-   (``ops/flash_variants.py``: bf16 dots, exp2, split, pipelined, each at
-   two tiles; the f32-dot instances at kernel 1's tile) at both shapes
-   against its plain version at the same block_k, each launch moving the
-   counter: each row of O within 2^-7 of its norm (every element within
-   one bf16 ulp) and O within 2^-6 * max(1, max |ref|), LSE within
-   1e-4 * max(1, max |ref|); at both shapes a planted fault (the first 64
-   keys' P . V left out of the last 64 rows) must fail the O check;
+   plain versions; kernel 1 on bf16 q/k/v (the tensor-core kernel; O
+   bf16, LSE float32) at the forward sweep's shape [8, 4096, 8, 64] and
+   the LM shape [8, 4096, 4, 128], causal, against the plain attention on
+   the float32 upcast with O rounded to bf16 and against ``_mma_fwd``
+   (its own arithmetic; 99% of O's rows within FWD_MMA_ROW_TOL), its
+   registers and local memory (a spill fails), and every variant of the
+   sweep (``ops/flash_variants.py``: bf16 dots, exp2, split, pipelined,
+   each at two tiles; the f32-dot instances at kernel 1's float32 tile)
+   at both shapes against its plain version at the same block_k, each
+   launch moving the counter: each row of O within 2^-7 of its norm
+   (every element within one bf16 ulp) and O within 2^-6 * max(1, max
+   |ref|), LSE within 1e-4 * max(1, max |ref|); at both shapes two
+   planted faults (the first 64 keys' P . V left out of the last 64 rows;
+   one 16-deep k-step of the score product left out) must fail both of
+   kernel 1's checks;
 4. time kernel, plain version and the library call (the forward and
    backward of ``F.scaled_dot_product_attention``, a yardstick the port
    never calls; for the recurrent steps, which no one PyTorch call
@@ -110,7 +114,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    its bound, plain and library time;
 11. the bf16 precision policy: kernels 2 and 3 at bf16 (the tensor-core
    kernels) at [8, 4096, 4, 128] causal (after the float32 backward
-   checks) and at BF16_BWD_CASES (the four ragged cases, D 64, D 100), dQ,
+   checks) and at BF16_BWD_CASES (the four ragged cases, D 64, D 100),
+   kernel 1's O and LSE held as in phase 3 (``_hold_fwd_bf16``), dQ,
    dK and dV held per row on the forward kernel's own O and LSE against
    ``_upcast_bwd`` (the Pallas kernels' arithmetic, float32 on the bf16
    operands; every row within 2^-7 of its norm) and ``_mma_bwd`` (the
@@ -133,17 +138,22 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
    of ``flash_bwd.cu``, ``rnn_step.cu``, ``bn_stats.cu`` and
    ``conv_bn.cu`` against the build of their sources before the bf16
-   instances, kept in SASS_BASE);
+   instances, kept in SASS_BASE; kernel 1's float32 instance and the
+   sweep's four f32-dot instances against ``flash_fwd.cu`` before its
+   tensor-core bf16 kernel, kept in FWD_SASS_BASE);
 12. ResNet-50 under ``bf16`` (the bench's precision): after the float32
    conv kernels, the bf16 instances of kernels 7a, 7b, 8 and 9 against
    their plain versions at every shape the bf16 path gives them, batch
    256 (``conv_phase`` on bf16: 7a's and 7b's sums within CONV_STAT_TOL
    of max(1, max |ref|) and 7b's kept count equal, at bf16's relu
    boundary too; each row of 8's and 9's y within 2^-7 of its norm,
-   their statistics within CONV_STAT_TOL; planted faults - 8's last K
-   slice, one of 9's taps, 7b's mask on the float32 fold - shown to
-   fail), each timed beside its bound (bf16 bytes, the bf16 peak), plain
-   version and bf16 library call; after the float32 ResNet path, the same
+   their statistics within CONV_STAT_TOL; 9 also at a shape with Ci = 4
+   mod 8 (its 8-byte copies); planted faults - 8's last K slice, one of
+   9's taps, 16 input channels of one of 9's taps, 7b's mask on the
+   float32 fold - shown to fail; 9's tensor-core kernel's registers and
+   local memory, a spill failing), each timed beside its bound (bf16
+   bytes, the bf16 peak), plain version and bf16 library call; after the
+   float32 ResNet path, the same
    model under ``bf16`` (``resnet_bf16_path``): every fused layer at batch
    8 on the plain route's inputs within RESNET_BF16_LAYER_TOLS, 4
    Momentum steps at batch 256 with the bf16 instances launched 30 / 16 /
@@ -485,12 +495,18 @@ EXTRA_VARIANTS = (
 )
 
 
-def _o_row_err(o, ref) -> float:
-    """Largest ||o_r - ref_r|| / ||ref_r|| over the rows (b, l, h) of O."""
+def _o_row_errs(o, ref):
+    """||o_r - ref_r|| / ||ref_r|| for every row (b, l, h) of O (0 on a
+    row that is 0 on both sides)."""
     o, ref = o.float(), ref.float()
     return (torch.linalg.vector_norm(o - ref, dim=-1)
             / torch.linalg.vector_norm(ref, dim=-1).clamp_min(1e-30)
-            ).max().item()
+            ).flatten()
+
+
+def _o_row_err(o, ref) -> float:
+    """Largest ||o_r - ref_r|| / ||ref_r|| over the rows (b, l, h) of O."""
+    return _o_row_errs(o, ref).max().item()
 
 
 def _hold_bf16(what, o, lse, ro, rlse):
@@ -527,14 +543,126 @@ def _planted_fault(q, k, v, ro, rlse, scale, n=64):
     return bad
 
 
+# Kernel 1 at bf16 (the tensor-core forward) is held two ways, each row
+# (b, l, h) of O by its norm: against the upcast plain version (the Pallas
+# kernel's arithmetic, P float32) with _hold_bf16's limits, and against
+# ``_mma_fwd`` (its own arithmetic, P rounded to bf16) with every row
+# within VAR_O_ROW_TOL and FWD_MMA_ROW_Q of the rows within
+# FWD_MMA_ROW_TOL.  Both sides round O once to bf16, so a float32 value
+# near a rounding midpoint can land one ulp apart (2^-8 of the element)
+# however close the sums: the largest row reads up to 3.3e-3 against
+# ``_mma_fwd``, near the upcast version's 4.8e-3, and only a percentile
+# tells the two arithmetics apart (first readings on the H100: 99th
+# percentile at most 9.8e-4 against ``_mma_fwd``).  The LSE is float32
+# on both sides, held on the rows that see a key (the others carry the
+# sentinel, below -1e29 on both).  Two planted faults must fail both
+# checks: the first 64 keys' P . V left out of the last 64 rows
+# (_planted_fault) and one 16-deep k-step of the score product left out
+# (``_mma_fwd(drop_score_kstep=1)``).
+FWD_MMA_ROW_TOL, FWD_MMA_ROW_Q = 2.0 ** -9, 0.99
+
+
+def _rows_hold(ref_name, rows, row_tol, mma_tol, mma_q) -> tuple:
+    """(largest of the row errors ``rows``, their ``mma_q`` quantile,
+    whether the check against the ``ref_name`` plain version holds: every
+    row within ``row_tol`` and, against the kernels' own arithmetic
+    ("mma"), the quantile within ``mma_tol``)."""
+    worst = rows.max().item()
+    q = torch.quantile(rows, mma_q).item()
+    return worst, q, worst <= row_tol and (ref_name != "mma"
+                                           or q <= mma_tol)
+
+
+def _fwd_rows_hold(ref_name, rows) -> tuple:
+    """``_rows_hold`` at kernel 1's limits."""
+    return _rows_hold(ref_name, rows, VAR_O_ROW_TOL, FWD_MMA_ROW_TOL,
+                      FWD_MMA_ROW_Q)
+
+
+def _hold_fwd_bf16(fa, what, q, k, v, lens, o, lse, kw):
+    """Kernel 1's bf16 O and LSE held against the upcast plain version
+    and ``_mma_fwd``: O's rows (``_fwd_rows_hold``), O within VAR_O_TOL
+    and the live rows' LSE within VAR_LSE_TOL of max(1, max |ref|), the
+    other rows' LSE below -1e29.  Returns ({reference: errors}, {reference:
+    (O, LSE)})."""
+    ro, rlse = fa._torch_attention(q.float(), k.float(), v.float(), lens,
+                                   return_lse=True, **kw)
+    refs = {"upcast": (ro.to(torch.bfloat16), rlse),
+            "mma": fa._mma_fwd(q, k, v, lens, **kw)}
+    del ro
+    if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+        raise AssertionError(f"{what}: kernel 1 at bf16 gave {o.dtype}, "
+                             f"{lse.dtype}")
+    errs = {}
+    for ref_name, (r_o, r_l) in refs.items():
+        worst, q99, rows_ok = _fwd_rows_hold(ref_name,
+                                             _o_row_errs(o, r_o))
+        live = r_l > -1e29
+        el = (lse - r_l)[live].abs().max().item() if live.any() else 0.0
+        eo = (o.float() - r_o.float()).abs().max().item()
+        so = max(1.0, r_o.float().abs().max().item())
+        sl = max(1.0, r_l[live].abs().max().item()) if live.any() else 1.0
+        ok = (rows_ok and eo <= VAR_O_TOL * so and el <= VAR_LSE_TOL * sl
+              and bool((lse[~live] < -1e29).all())
+              and torch.isfinite(o.float()).all()
+              and torch.isfinite(lse[live]).all())
+        if not ok:
+            raise AssertionError(
+                f"{what}: kernel 1 at bf16 disagrees with the "
+                f"{ref_name} plain version: O rows largest {worst} (limit "
+                f"{VAR_O_ROW_TOL}), {FWD_MMA_ROW_Q:.0%} {q99} (limit "
+                f"{FWD_MMA_ROW_TOL} against _mma_fwd), O {eo} (limit "
+                f"{VAR_O_TOL * so}), LSE {el} (limit {VAR_LSE_TOL * sl})")
+        errs[ref_name] = dict(row_err=worst, row_err_q99=q99,
+                              max_abs_err=eo, lse_err=el)
+    print(f"{what} [B {q.shape[0]}, Lq {q.shape[1]}, Lk {k.shape[1]}, H "
+          f"{q.shape[2]}, D {q.shape[3]}, causal {kw['causal']}, q_offset "
+          f"{kw.get('q_offset', 0)}, kv_offset {kw.get('kv_offset', 0)}]: "
+          "kernel 1 at bf16, O rows (largest, "
+          f"{FWD_MMA_ROW_Q:.0%}) / max|err| O / LSE against the upcast "
+          "version " + " ".join(f"{errs['upcast'][k_]:.3e}" for k_ in (
+              "row_err", "row_err_q99", "max_abs_err", "lse_err"))
+          + ", against _mma_fwd " + " ".join(
+              f"{errs['mma'][k_]:.3e}" for k_ in (
+                  "row_err", "row_err_q99", "max_abs_err", "lse_err"))
+          + f" (limits: rows {VAR_O_ROW_TOL:.3e}, 99% against _mma_fwd "
+          f"{FWD_MMA_ROW_TOL:.3e})", flush=True)
+    return errs, refs
+
+
+def _planted_fwd_faults(fa, q, k, v, lens, kw, refs):
+    """Each planted fault's O row errors against both references; raises
+    unless each fails both checks."""
+    rlse = refs["upcast"][1]
+    faults = {
+        "the first 64 keys' P . V left out of the last 64 rows":
+            _planted_fault(q, k, v, refs["upcast"][0].float(), rlse,
+                           kw["scale"]).to(torch.bfloat16),
+        "one score k-step left out":
+            fa._mma_fwd(q, k, v, lens, drop_score_kstep=1, **kw)[0]}
+    out = {}
+    for fname, bad in faults.items():
+        for ref_name, (r_o, _) in refs.items():
+            worst, q99, ok = _fwd_rows_hold(ref_name,
+                                            _o_row_errs(bad, r_o))
+            out.setdefault(fname, {})[ref_name] = (worst, q99)
+            if ok:
+                raise AssertionError(f"kernel 1's bf16 check against "
+                                     f"{ref_name} passes a planted fault "
+                                     f"({fname}): {worst}, {q99}")
+    return out
+
+
 def variants_phase(dev, gen, flush):
-    """Kernel 1 on bf16 operands and every variant of the forward sweep
-    (``ops/flash_variants.py``: the sweep's rows and EXTRA_VARIANTS) at the
-    JAX tool's shape and the LM's training shape, causal: each held against
-    its plain version with its launch counted, and the O check shown to
-    reject a planted fault.  Times the plain versions, the library's bf16
-    attention and EXTRA_VARIANTS; the sweep times its own rows
-    (``sweep_path``, ``merge_sweep_times``)."""
+    """Kernel 1 on bf16 operands (the tensor-core forward) and every
+    variant of the forward sweep (``ops/flash_variants.py``: the sweep's
+    rows and EXTRA_VARIANTS) at the JAX tool's shape and the LM's training
+    shape, causal: each held against its plain version with its launch
+    counted; kernel 1 also against ``_mma_fwd`` (``_hold_fwd_bf16``), its
+    registers and local memory read (a spill fails), two planted faults
+    shown to fail both of its checks.  Times kernel 1, the plain versions,
+    the library's bf16 attention and EXTRA_VARIANTS; the sweep times its
+    own rows (``sweep_path``, ``merge_sweep_times``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_variants as fv
 
@@ -542,6 +670,13 @@ def variants_phase(dev, gen, flush):
     extra = {name for name, _ in EXTRA_VARIANTS}
     out = {"kernel1_bf16": {}, "variants": {}, "sdpa_bf16_ms": {},
            "planted_fault": {}}
+    res = fa.fwd_mma_resources()
+    print("flash_fwd bf16 kernel's resources (cudaFuncGetAttributes): "
+          + ", ".join(f"{n} {r} registers, {l_} bytes local"
+                      for n, (r, l_) in res.items()), flush=True)
+    if any(l_ for _, l_ in res.values()):
+        raise AssertionError(f"the bf16 forward kernel spills: {res}")
+    out["resources"] = res
     for shape in ("tool", "lm"):
         b, h, l, d = sweep_tool.SHAPES[shape]
         q, k, v = (torch.randn(b, l, h, d, device=dev, generator=gen,
@@ -553,36 +688,28 @@ def variants_phase(dev, gen, flush):
         nbytes = 4 * b * l * h * d * 2 + b * h * l * 4
         work = 4.0 * d * pairs
 
-        # kernel 1 on bf16 against the plain version on the float32
-        # upcast, O rounded to bf16: the kernel's own arithmetic
+        # kernel 1 on bf16 (the tensor-core forward) against the upcast
+        # plain version and its own arithmetic, ``_mma_fwd``
+        before = fa.flash_fwd_cuda.launches_bf16
         o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
-        ro, rlse = fa._torch_attention(q.float(), k.float(), v.float(),
-                                       lens, return_lse=True, **kw)
         torch.cuda.synchronize()
-        if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-            raise AssertionError(f"kernel 1 at bf16 gave {o.dtype}, "
-                                 f"{lse.dtype}")
-        ro16 = ro.to(torch.bfloat16)
-        eo, er, el = _hold_bf16(f"flash_fwd bf16 {shape}", o, lse, ro16,
-                                rlse)
-        bad = _planted_fault(q, k, v, ro, rlse, kw["scale"])
-        bad = bad.to(torch.bfloat16)
-        fault = dict(row_err=_o_row_err(bad, ro16),
-                     max_abs_err=(bad.float() - ro16.float()).abs().max()
-                     .item(),
-                     whole_limit=VAR_O_TOL * max(
-                         1.0, ro16.float().abs().max().item()))
-        print(f"planted fault at [{b}, {l}, {h}, {d}] (the first 64 keys' "
-              f"P . V left out of the last 64 rows): O row error "
-              f"{fault['row_err']:.3e} (limit {VAR_O_ROW_TOL:.3e}), max|err| "
-              f"{fault['max_abs_err']:.3e} (whole-tensor limit "
-              f"{fault['whole_limit']:.3e})", flush=True)
-        if fault["row_err"] <= VAR_O_ROW_TOL:
-            raise AssertionError(f"the O check passes a planted fault: "
-                                 f"{fault}")
+        if fa.flash_fwd_cuda.launches_bf16 != before + 1:
+            raise AssertionError("kernel 1 at bf16: the counter did not "
+                                 "move")
+        errs, refs = _hold_fwd_bf16(fa, f"flash_fwd bf16 {shape}", q, k, v,
+                                    lens, o, lse, kw)
+        fault = _planted_fwd_faults(fa, q, k, v, lens, kw, refs)
+        print(f"kernel 1 bf16 planted faults at [{b}, {l}, {h}, {d}] (O "
+              f"row errors, largest and {FWD_MMA_ROW_Q:.0%}; each must fail "
+              "both checks): " + "; ".join(
+                  f"{f}: " + ", ".join(f"against {r} {w:.3e} {p:.3e}"
+                                       for r, (w, p) in by_ref.items())
+                  for f, by_ref in fault.items()), flush=True)
         out["planted_fault"][shape] = fault
         ref_a = o.float()
-        del ro, rlse, ro16, bad
+        del refs, o, lse
+        k1_ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
+                        flush)
         with torch.no_grad():
             plain_ms = time_ms(lambda: fa._torch_attention(q, k, v, lens,
                                                            **kw),
@@ -591,21 +718,25 @@ def variants_phase(dev, gen, flush):
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       scale=kw["scale"]), flush)
         out["sdpa_bf16_ms"][shape] = lib_ms
-        # bf16 operands: the bound at the card's bf16 peak, and beside it
-        # the floor at the float32 FMA rate kernel 1's arithmetic runs at
+        # bf16 operands: the bound at the card's bf16 peak
         b_ms, b_by = bound(work, nbytes, PEAK_BF16_FLOPS)
-        fma_ms = bound(work, nbytes, PEAK_F32_FLOPS)[0]
+        regs, local = res[f"fwd_d{d}"]
         shape_d = {"B": b, "L": l, "H": h, "D": d, "causal": True}
         out["kernel1_bf16"][shape] = dict(
-            max_abs_err=max(eo, el), o_row_err=er, ms=None,
+            max_abs_err=max(errs["upcast"]["max_abs_err"],
+                            errs["upcast"]["lse_err"]),
+            o_row_err=errs["upcast"]["row_err"],
+            o_row_err_q99=errs["upcast"]["row_err_q99"],
+            mma_row_err=errs["mma"]["row_err"],
+            mma_row_err_q99=errs["mma"]["row_err_q99"], ms=k1_ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            fma_bound_ms=fma_ms, library_ms=lib_ms, shape=shape_d)
-        print(f"flash_fwd bf16 at [{b}, {l}, {h}, {d}] causal: max|err| O "
-              f"{eo:.3e} (row {er:.3e}) LSE {el:.3e}; bound_ms {b_ms:.4f} "
-              f"({b_by}, bf16 peak; at float32 FMAs {fma_ms:.4f})  "
-              f"plain_ms {plain_ms:.4f}  "
-              f"library_ms (scaled_dot_product_attention, bf16) "
-              f"{lib_ms:.4f}", flush=True)
+            library_ms=lib_ms, registers=regs, local_bytes=local,
+            shape=shape_d)
+        print(f"flash_fwd bf16 at [{b}, {l}, {h}, {d}] causal (tensor "
+              f"cores): ms {k1_ms:.4f}  bound_ms {b_ms:.4f} ({b_by}, bf16 "
+              f"peak)  plain_ms {plain_ms:.4f}  library_ms "
+              f"(scaled_dot_product_attention, bf16) {lib_ms:.4f}; {regs} "
+              f"registers, {local} bytes local", flush=True)
 
         for name, vkw in sweep_tool.ROWS[1:] + EXTRA_VARIANTS:
             flags = fv.variant_flags(vkw.get("bf16_dots", False),
@@ -673,13 +804,15 @@ def sweep_path():
 
 def merge_sweep_times(var, rows):
     """The sweep's times into ``variants_phase``'s record (row A is kernel
-    1 at bf16), printed beside each one's bound, plain and library time."""
+    1 at bf16, timed there too), printed beside each one's bound, plain and
+    library time."""
     for shape, shape_rows in rows.items():
         ms = {r["name"]: r["ms"] for r in shape_rows}
         k1 = var["kernel1_bf16"][shape]
-        k1["ms"] = ms[sweep_tool.ROWS[0][0]]
+        k1["row_a_ms"] = ms[sweep_tool.ROWS[0][0]]
         print(f"[{shape}] {'kernel 1 at bf16 (row A)':28s} ms "
-              f"{k1['ms']:.4f}  bound_ms {k1['bound_ms']:.4f}  plain_ms "
+              f"{k1['row_a_ms']:.4f} (variants_phase: {k1['ms']:.4f})  "
+              f"bound_ms {k1['bound_ms']:.4f}  plain_ms "
               f"{k1['plain_ms']:.4f}  library_ms {k1['library_ms']:.4f}",
               flush=True)
         for name, per in var["variants"].items():
@@ -1703,11 +1836,13 @@ BWD_MMA_ROW_TOL, BWD_MMA_ROW_Q = 2.0 ** -9, 0.99
 # max |g|), a 3-step trajectory within 1e-3 (readings on the H100: at
 # most 5.8e-6, 1.5e-5 and 1.5e-4, the last the LSTM route's Adam at 2e-3
 # amplifying its second step).  The LM's plain route rounds P to bf16
-# before P . V (the JAX xla path) where the forward kernel keeps it
-# float32, and the backward kernels round P and dS where autograd through
-# the plain route rounds dP's operands instead: its 6-step losses within
-# LM_BF16_BAND relative of the kernel route's (readings: at most 7.3e-6
-# with the float32-arithmetic backward, 6.0e-6 with the tensor-core one).
+# before P . V (the JAX xla path), as the tensor-core forward does but
+# against the row's final max where the kernel rounds each tile's p
+# against the running one, and the backward kernels round P and dS where
+# autograd through the plain route rounds dP's operands instead: its
+# 6-step losses within LM_BF16_BAND relative of the kernel route's
+# (readings: at most 7.3e-6 with the float32-arithmetic backward, 6.0e-6
+# with the tensor-core one and the float32-arithmetic forward).
 RNN_BF16_TOLS = (1e-4, 1e-3, 1e-3)
 LM_BF16_BAND = 1e-4
 BF16_POLICIES = ("bf16", "mixed")
@@ -1751,12 +1886,8 @@ def _grad_row_err(a, ref) -> float:
 def _bwd_holds(ref_name, a, ref) -> tuple:
     """(largest row error, its BWD_MMA_ROW_Q quantile, whether the check
     against ``_{ref_name}_bwd`` holds)."""
-    rows = _row_errs(a, ref)
-    worst = rows.max().item()
-    q = torch.quantile(rows, BWD_MMA_ROW_Q).item()
-    ok = worst <= BWD_ROW_TOL and (ref_name != "mma"
-                                   or q <= BWD_MMA_ROW_TOL)
-    return worst, q, ok
+    return _rows_hold(ref_name, _row_errs(a, ref), BWD_ROW_TOL,
+                      BWD_MMA_ROW_TOL, BWD_MMA_ROW_Q)
 
 
 def _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw):
@@ -1768,10 +1899,15 @@ def _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw):
 
 def _bf16_bwd_case(fa, name, q, k, v, lens, go, gl, kw):
     """Kernel 1 then kernels 2 and 3 on bf16 operands, as the kernel
-    route's backward runs them, held per row against ``_upcast_bwd`` and
-    ``_mma_bwd``.  Returns the operands the timing and the planted faults
-    reuse, the references and the errors."""
+    route's backward runs them: kernel 1's O and LSE held two ways
+    (``_hold_fwd_bf16``), dQ, dK and dV per row against ``_upcast_bwd``
+    and ``_mma_bwd``.  Returns the operands the timing and the planted
+    faults reuse, the references and the errors (the forward's under
+    "fwd")."""
     o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    fwd_errs, _ = _hold_fwd_bf16(fa, f"flash_fwd bf16 {name}", q, k, v,
+                                 lens, o, lse, kw)
     delta = (go.float() * o.float()).sum(-1).transpose(1, 2)
     if gl is not None:
         delta = delta - gl
@@ -1796,6 +1932,7 @@ def _bf16_bwd_case(fa, name, q, k, v, lens, go, gl, kw):
     errs["max_abs"] = {g: (a.float() - r.float()).abs().max().item()
                        for g, a, r in zip(("dq", "dk", "dv"), got,
                                           refs["upcast"])}
+    errs["fwd"] = fwd_errs
     print(f"flash_bwd bf16 {name} [B {q.shape[0]}, Lq {q.shape[1]}, Lk "
           f"{k.shape[1]}, H {q.shape[2]}, D {q.shape[3]}, causal "
           f"{kw['causal']}, q_offset {kw.get('q_offset', 0)}, kv_offset "
@@ -1839,8 +1976,10 @@ def _planted_bwd_faults(fa, q, k, v, lens, o, lse, go, kw, refs):
 
 def flash_bwd_bf16_phase(dev, gen, flush):
     """Kernels 2 and 3 at bf16 (the tensor-core kernels): at the LM's
-    training shape, causal, and at BF16_BWD_CASES, dQ, dK and dV held per
-    row against ``_upcast_bwd`` and ``_mma_bwd``; the two planted faults
+    training shape, causal, and at BF16_BWD_CASES, kernel 1's O and LSE
+    held against the upcast plain version and ``_mma_fwd``
+    (``_hold_fwd_bf16``), dQ, dK and dV per row against ``_upcast_bwd``
+    and ``_mma_bwd``; the two planted faults
     shown to fail both checks; the distance to the bf16 plain route's
     autograd reported; each kernel's registers and local memory (spills
     fail the run); each kernel's time beside its bound (bf16 bytes, the
@@ -2277,49 +2416,76 @@ SASS_BASE_BLOBS = {
     "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
     "stat_reduce.cuh": "cbe135e3f7369ea805b038fccfe2ea71076bcf06",
 }
+# kernel 1's float32 instance and the forward sweep's f32-dot bf16
+# instances, which kernel 1's tensor-core bf16 kernel must leave alone:
+# their sources as of the revision before it (FWD_SASS_BASE_REV, whose
+# flash_common.cuh is newer than SASS_BASE's), in a folder of their own,
+# pinned the same way
+FWD_SASS_KERNELS = tuple(
+    ("flash_fwd.cu", name, name) for name in (
+        "flash_fwd_kernelIfLb1ELb0E",
+        "flash_fwd_kernelI13__nv_bfloat16Lb1ELb0E",
+        "flash_fwd_kernelI13__nv_bfloat16Lb1ELb1E",
+        "flash_fwd_kernelI13__nv_bfloat16Lb0ELb0E",
+        "flash_fwd_kernelI13__nv_bfloat16Lb0ELb1E"))
+FWD_SASS_BASE_REV = "f7641f94db667444e7390f307109dec8b0211e5f"
+FWD_SASS_BASE = "paddle_tpu_torch/tools/sass_base/f7641f9"
+FWD_SASS_BASE_BLOBS = {
+    "dtype.cuh": "b21690e89c4c42806e10384d69920c3403b96654",
+    "flash_common.cuh": "62fb58e19cbb02e94f149679fbe2d7e69a12f3ae",
+    "flash_fwd.cu": "9245ac04de53eda9b598f39550dfbeb08d0c4f32",
+}
+# (folder, its revision, its pinned blobs, the kernels built from it)
+SASS_BASES = ((SASS_BASE, SASS_BASE_REV, SASS_BASE_BLOBS, SASS_KERNELS),
+              (FWD_SASS_BASE, FWD_SASS_BASE_REV, FWD_SASS_BASE_BLOBS,
+               FWD_SASS_KERNELS))
 
 
 def sass_phase():
-    """``tools/sass_diff.py`` over SASS_KERNELS: each float32 instance's
-    machine code against SASS_BASE's build, line for line.  Fails when a
-    file of SASS_BASE is missing or is not SASS_BASE_REV's."""
+    """``tools/sass_diff.py`` over SASS_BASES: each pinned instance's
+    machine code against its base folder's build, line for line.  Fails
+    when a file of a base folder is missing or is not its revision's."""
     import concurrent.futures
     import os
 
     from paddle_tpu_torch.tools import sass_diff
 
     csrc = "paddle_tpu_torch/ops/csrc"
-    for name, blob in SASS_BASE_BLOBS.items():
-        got = sass_diff.git_blob_id(os.path.join(SASS_BASE, name))
-        if got != blob:
-            raise AssertionError(
-                f"{SASS_BASE}/{name} is blob {got}, not {blob} "
-                f"({SASS_BASE_REV[:12]}'s)")
-    srcs = sorted({src for src, _, _ in SASS_KERNELS})
+    for base, rev, blobs, _ in SASS_BASES:
+        for name, blob in blobs.items():
+            got = sass_diff.git_blob_id(os.path.join(base, name))
+            if got != blob:
+                raise AssertionError(f"{base}/{name} is blob {got}, not "
+                                     f"{blob} ({rev[:12]}'s)")
     jobs = {}
-    with concurrent.futures.ThreadPoolExecutor(2 * len(srcs)) as pool:
+    srcs = sorted({src for _, _, _, ks in SASS_BASES for src, _, _ in ks})
+    olds = sorted({(base, src) for base, _, _, ks in SASS_BASES
+                   for src, _, _ in ks})
+    with concurrent.futures.ThreadPoolExecutor(len(srcs) + len(olds)) as pool:
+        for base, src in olds:
+            jobs[(base, src)] = pool.submit(
+                sass_diff.sass_of, os.path.join(base, src),
+                f"old_{os.path.basename(base)}_{src.removesuffix('.cu')}")
         for src in srcs:
-            stem = src.removesuffix(".cu")
-            jobs[("old", src)] = pool.submit(
-                sass_diff.sass_of, os.path.join(SASS_BASE, src),
-                f"old_{stem}")
             jobs[("new", src)] = pool.submit(
-                sass_diff.sass_of, os.path.join(csrc, src), f"new_{stem}")
+                sass_diff.sass_of, os.path.join(csrc, src),
+                f"new_{src.removesuffix('.cu')}")
         listings = {key: sass_diff.kernels(f.result())
                     for key, f in jobs.items()}
     out = {}
-    for src, old_name, new_name in SASS_KERNELS:
-        old = sass_diff.pick(listings[("old", src)], old_name)
-        new = sass_diff.pick(listings[("new", src)], new_name)
-        diff = sass_diff.first_difference(old, new)
-        out[new_name] = len(old) if diff is None else diff
-        print(f"sass_diff {src} {new_name}: " + (
-            f"identical to the earlier build, {len(old)} SASS lines"
-            if diff is None else f"differs at line {diff[0]}: old "
-            f"{diff[1]!r}, new {diff[2]!r}"), flush=True)
-        if diff is not None:
-            raise AssertionError(f"{src}: the float32 instance "
-                                 f"{new_name} changed")
+    for base, _, _, kernels in SASS_BASES:
+        for src, old_name, new_name in kernels:
+            old = sass_diff.pick(listings[(base, src)], old_name)
+            new = sass_diff.pick(listings[("new", src)], new_name)
+            diff = sass_diff.first_difference(old, new)
+            out[new_name] = len(old) if diff is None else diff
+            print(f"sass_diff {src} {new_name} (base {base}): " + (
+                f"identical to the earlier build, {len(old)} SASS lines"
+                if diff is None else f"differs at line {diff[0]}: old "
+                f"{diff[1]!r}, new {diff[2]!r}"), flush=True)
+            if diff is not None:
+                raise AssertionError(f"{src}: the pinned instance "
+                                     f"{new_name} changed")
     return out
 
 
@@ -2456,10 +2622,13 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     planted faults that must fail the checks: 8's last K slice (8 input
     channels) left out, one of 9's nine taps, 7b's mask taken on the
     float32 fold on activations placed where it and the bf16 fold
-    disagree.  Then each shape's device time (``time_ms(lead=True)``)
-    beside its bound (the operands' bytes, the operations at the card's
-    peak for their type; at bf16 also ``fma_bound_ms``, the floor at the
-    67 TFLOP/s of the float32 FMAs the instances run), the plain
+    disagree, and 16 input channels of one of 9's taps (one 16-deep
+    k-step of its tensor-core product); 9's bf16 kernel's registers and
+    local memory by copy width (a spill fails).  Then each shape's device
+    time (``time_ms(lead=True)``) beside its bound (the operands' bytes,
+    the operations at the card's peak for their type; at bf16 also
+    ``fma_bound_ms``, the floor at the 67 TFLOP/s of the float32 FMAs,
+    for the instances that run them: all but 9's), the plain
     version's, and a library yardstick the port never calls on the same
     inputs (``torch.var_mean``; ``torch.batch_norm_backward_reduce``,
     which takes the same two sums without the relu mask; ``torch.mm`` and
@@ -2616,23 +2785,34 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                                      "passed the row check")
             del cut, got
         del x2, w2, ref
+    # the ragged shapes: every staging of the bf16 instance (one element,
+    # 16-byte copies with Co past the 64-wide tile, 8-byte copies: Ci = 4
+    # mod 8)
     for n, h, w_, ci, co in list(conv3) + [(3, 7, 9, 5, 7),
-                                           (2, 13, 11, 64, 72)]:
+                                           (2, 13, 11, 64, 72),
+                                           (2, 9, 10, 36, 40)]:
         x4 = randn(n, h, w_, ci).to(dtype)
         w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
         ref = cb._conv3x3_stats_ref(x4, w4)
         hold_conv("conv3x3_stats", f"conv3x3_stats{sfx} "
                   f"{(n, h, w_, ci, co)}", cb.conv3x3_stats_cuda(x4, w4), ref)
         if bf16 and [n, h, w_, ci, co] == rep["conv3x3_stats"]:
-            cut = w4.clone()
-            cut[2, 2] = 0            # one of the nine taps left out
-            got = cb.conv3x3_stats_cuda(x4, cut)
-            faults["conv3x3_stats"] = _o_row_err(
-                got[0].reshape(-1, co), ref[0].reshape(-1, co))
-            if faults["conv3x3_stats"] <= CONV_ROW_TOL:
-                raise AssertionError("conv3x3_stats bf16 planted fault "
-                                     "passed the row check")
-            del cut, got
+            faults["conv3x3_stats"] = {}
+            # one of the nine taps left out; one 16-deep k-step of the
+            # tensor cores' product (16 input channels of one tap)
+            for fname, sl in (("tap (2, 2)", (2, 2)),
+                              ("tap (1, 1), channels 16-31",
+                               (1, 1, slice(16, 32)))):
+                cut = w4.clone()
+                cut[sl] = 0
+                got = cb.conv3x3_stats_cuda(x4, cut)
+                err = _o_row_err(got[0].reshape(-1, co),
+                                 ref[0].reshape(-1, co))
+                faults["conv3x3_stats"][fname] = err
+                if err <= CONV_ROW_TOL:
+                    raise AssertionError(f"conv3x3_stats bf16 planted fault "
+                                         f"({fname}) passed the row check")
+                del cut, got
         del x4, w4, ref
     if not bf16:
         # ---- gradients of the autograd Functions
@@ -2663,14 +2843,25 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
               + ", ".join(f"{k} {e:.1e}" for k, e in rows_err.items())
               + f" (limit {CONV_ROW_TOL:.2e}); planted faults (row error, "
               f"or the statistics' for 7b): " + ", ".join(
-                  f"{k} {e:.3f}" for k, e in faults.items())
+                  f"{k} {e:.3f}" if not isinstance(e, dict) else ", ".join(
+                      f"{k} {f} {v:.3f}" for f, v in e.items())
+                  for k, e in faults.items())
               + ", each failing the check") if bf16 else ""), flush=True)
+    mma_res = None
+    if bf16:
+        mma_res = cb.conv_mma_resources()
+        print("conv3x3_stats bf16 tensor-core kernel's resources "
+              "(cudaFuncGetAttributes, by copy width): " + ", ".join(
+                  f"{n} {r} registers, {l_} bytes local"
+                  for n, (r, l_) in mma_res.items()), flush=True)
+        if any(l_ for _, l_ in mma_res.values()):
+            raise AssertionError(f"the bf16 kernel 9 spills: {mma_res}")
 
     # ---- times at every main-path shape
-    def bounds(flops, nbytes):
+    def bounds(flops, nbytes, fma=bf16):
         b_ms, b_by = bound(flops, nbytes, peak)
         extra = ({"fma_bound_ms": bound(flops, nbytes, PEAK_F32_FLOPS)[0]}
-                 if bf16 else {})
+                 if fma else {})
         return dict(extra, bound_ms=b_ms, bound_by=b_by)
 
     rows_out = {k: [] for k in CONV_KERNELS}
@@ -2729,7 +2920,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                                    flush, lead=True),
                 **bounds(2.0 * p * 9 * ci * co + 3.0 * p * co,
                          es * (p * ci + 9 * ci * co + p * co)
-                         + 4.0 * 2 * co)))
+                         + 4.0 * 2 * co, fma=False)))
             del x4, w4, xn, wn
     torch.cuda.empty_cache()
     on = " on bf16" if bf16 else ""
@@ -2741,16 +2932,16 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                "conv3x3_stats": ("bf16 F.conv2d alone (tensor cores)"
                                  if bf16 else
                                  "F.conv2d alone (the conv's floor)")}
-    sums = ("ms", "bound_ms", "plain_ms", "library_ms") + (
-        ("fma_bound_ms",) if bf16 else ())
     out = {}
     for k, rows in rows_out.items():
+        sums = ("ms", "bound_ms", "plain_ms", "library_ms") + (
+            ("fma_bound_ms",) if "fma_bound_ms" in rows[0] else ())
         for r in rows:
             print(f"{k}{sfx} {r['shape']} x{r['count']} a step: ms "
                   f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
                   f"({r['bound_by']})"
-                  + (f"  fma_bound_ms {r['fma_bound_ms']:.4f}" if bf16
-                     else "")
+                  + (f"  fma_bound_ms {r['fma_bound_ms']:.4f}"
+                     if "fma_bound_ms" in r else "")
                   + f"  plain_ms {r['plain_ms']:.4f}  library_ms "
                   f"{r['library_ms']:.4f} ({library[k]})", flush=True)
         main = next(r for r in rows if r["shape"] == rep[k])
@@ -2767,6 +2958,10 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
             out[k]["y_row_err"] = rows_err[k]
         if k in faults:
             out[k]["planted_fault"] = faults[k]
+    if mma_res is not None:
+        regs, local = mma_res["conv3x3_w8"]
+        out["conv3x3_stats"].update(registers=regs, local_bytes=local,
+                                    resources=mma_res)
     return out
 
 

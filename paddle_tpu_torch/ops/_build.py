@@ -111,3 +111,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.error_string(code).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def resources(lib: ctypes.CDLL, entry, *args) -> tuple:
+    """(registers, local bytes a thread) of the kernel that ``args`` name,
+    as a ``*_resources`` C entry reads them with ``cudaFuncGetAttributes``;
+    local bytes past 0 mean the kernel spills or keeps a stack."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    check(lib, entry(*args, ctypes.byref(regs), ctypes.byref(local)),
+          entry.__name__)
+    return regs.value, local.value

@@ -28,7 +28,9 @@ statistics' cotangents in float32, casts the effective dy to x's dtype,
 and runs the products on operands of that dtype, so dx and dw come back
 in x's and w's.  The CUDA kernels have an instance for each: float32
 operands or bf16 ones; a float16 operand raises (``ROADMAP.md`` section
-2, K5).
+2, K5).  Kernel 9's bf16 instance runs on the tensor cores (bf16
+products accumulated in float32: the same y up to the order of the
+sums), the others on the CUDA cores' float32 FMAs.
 """
 
 from __future__ import annotations
@@ -73,7 +75,11 @@ _SIGNATURES = {
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
     **{f"conv3x3_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
+    "conv3x3_mma_resources": [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_int)],
 }
+# kernel 9's bf16 instance: elements a copy, for _vec(wide=True) = 2, 1, 0
+CONV_MMA_WIDTHS = (8, 4, 1)
 
 
 def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
@@ -83,13 +89,21 @@ def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
                          f"kernel's 32-bit indices")
 
 
-def _vec(ci, co, *tensors) -> int:
-    """1 where the kernel may move 4 elements a load and store (16 bytes of
-    float32, 8 of bf16): Ci and Co multiples of 4, every operand aligned
-    to 4 elements."""
-    align = 4 * tensors[0].element_size()
-    return int(ci % 4 == 0 and co % 4 == 0
-               and all(t.data_ptr() % align == 0 for t in tensors))
+def _vec(ci, co, *tensors, wide: bool = False) -> int:
+    """How the kernel may stage its operands: 1 where it may move 4
+    elements a load and store (16 bytes of float32, 8 of bf16), Ci and Co
+    multiples of 4 and every operand aligned to 4 elements, else 0 (one
+    element at a time).  With ``wide`` (kernel 9's bf16 instance, whose
+    cp.async copies also take 16 bytes of bf16) 2 where Ci and Co are
+    multiples of 8 and every operand is aligned to 8 elements."""
+    def fits(n):
+        align = n * tensors[0].element_size()
+        return (ci % n == 0 and co % n == 0
+                and all(t.data_ptr() % align == 0 for t in tensors))
+
+    if wide and fits(8):
+        return 2
+    return int(fits(4))
 
 
 def _outputs(rows, co, shape, device, dtype):
@@ -132,7 +146,9 @@ matmul_stats_cuda.launches = matmul_stats_cuda.launches_bf16 = 0
 def conv3x3_stats_cuda(x4, w4):
     """Kernel 9: the 3x3 stride-1 SAME conv of x4 [N, H, W, Ci] with w4
     [3, 3, Ci, Co] (both float32 or both bf16; y in their dtype), with sum
-    y and sum y^2 per channel, float32.  Two launches, counted as one."""
+    y and sum y^2 per channel, float32.  float32 runs the CUDA-core tile,
+    bf16 the tensor-core kernel, copying 16 bytes, 8 or one element at a
+    time as ``_vec(wide=True)`` finds.  Two launches, counted as one."""
     n, h, w, ci = x4.shape
     co = w4.shape[-1]
     dev = x4.device
@@ -145,8 +161,8 @@ def conv3x3_stats_cuda(x4, w4):
     lib = _build.load("conv_bn", _SIGNATURES)
     err = getattr(lib, f"conv3x3_stats_{KERNEL_DTYPES[x4.dtype]}")(
         x4.data_ptr(), w4.data_ptr(), n, h, w, ci, co,
-        _vec(ci, co, x4, w4, y), y.data_ptr(), part.data_ptr(),
-        s.data_ptr(), ss.data_ptr(),
+        _vec(ci, co, x4, w4, y, wide=x4.dtype == _BF16), y.data_ptr(),
+        part.data_ptr(), s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "conv3x3_stats")
     conv3x3_stats_cuda.launches += 1
@@ -155,6 +171,18 @@ def conv3x3_stats_cuda(x4, w4):
 
 
 conv3x3_stats_cuda.launches = conv3x3_stats_cuda.launches_bf16 = 0
+
+
+def conv_mma_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of kernel 9's bf16 tensor-core
+    instance at each copy width, from ``cudaFuncGetAttributes``:
+    ``{"conv3x3_w8": (regs, local_bytes), "conv3x3_w4": ..., ...}``.
+    Needs a card."""
+    lib = _build.load("conv_bn", _SIGNATURES)
+    return {f"conv3x3_w{width}": _build.resources(
+        lib, lib.conv3x3_mma_resources, width)
+        for width in CONV_MMA_WIDTHS}
 
 
 def _dy_eff(dy, ds, dss, y, dtype):

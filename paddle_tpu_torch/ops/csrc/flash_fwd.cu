@@ -1,48 +1,84 @@
-// Flash attention forward on CUDA cores, float32 or bf16 in, for Hopper
-// (sm_90a).
+// Flash attention forward for Hopper (sm_90a): float32 operands on the
+// CUDA cores, bf16 operands on the tensor cores.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/flash_attention.py::_fwd_kernel
 // (launched by _flash_fwd).  Same function: blockwise attention over
 // q,k,v [B, L, H, D] with an online softmax in the exp2 domain, per-batch
 // kv_lens, runtime q_offset / kv_offset for the causal rule
 // kv_offset + k_pos <= q_offset + q_pos, output O [B, Lq, H, D] in the
-// inputs' type and the natural-log LSE [B, H, Lq] in float32.  bf16 inputs
-// are converted to float32 as they are staged into shared memory (the TPU
-// kernel upcasts before its dots); all arithmetic is float32.  Fully-masked
+// inputs' type and the natural-log LSE [B, H, Lq] in float32.  Fully-masked
 // rows give O = 0 and LSE = NEG_INF / LOG2E + log(1e-30), like l_safe in
-// the TPU kernel.
+// the TPU kernel.  The visibility rule (which KV tiles a q tile sweeps:
+// the causal diagonal of its last row, then the row's kv_len) is
+// flash_common.cuh's kv_tiles, so an 8-row chunk at offset t reads about
+// t keys, not the whole gathered cache.  Inputs are read through their
+// strides: no transposed copy is made.
 //
 // What bounds it on the H100: operations.  A prefill chunk of c rows against
 // a gathered cache does 4 * D * (visible q,k pairs) flops per head on
-// O(c + visible keys) bytes, far above the float32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte).  Float32 here has no tensor-core path that keeps
-// the 1e-4 agreement with the plain version (TF32 keeps ~3 digits), so both
-// products run as CUDA-core FMAs.
+// O(c + visible keys) bytes, far above the ridge of either peak (float32
+// 67 TFLOP/s or bf16 989 TFLOP/s over 3.35 TB/s: 20 or 295 flop/byte).
 //
-// Design: one block of 256 threads per (64-row q tile, batch*head).  The q
-// tile (pre-scaled by scale*log2e) stays in shared memory; 64-row K and V
-// tiles stream through shared memory; each thread owns a 4x4 patch of the
-// 64x64 score tile and a 4x8 patch of the 64xD output accumulator.
-// The KV sweep stops at the causal diagonal of the tile's last row (the
-// bound of _causal_nk_eff) and at the row's kv_len, so an 8-row chunk at
-// offset t reads about t keys, not the whole gathered cache.  Inputs are
-// read through their strides: no transposed copy is made.
-//
-// The body is a template on <T, EXP2, SPLIT>.  Kernel 1 is the <exp2,
-// unsplit> instance (every tile masked), at float32 and at bf16.  The other
-// bf16 instances are the f32-dot rows of the forward ablation sweep
+// float32 (flash_fwd_kernel<float, true, false>).  Float32 has no
+// tensor-core path that keeps the 1e-4 agreement with the plain version
+// (TF32 keeps ~3 digits), so both products run as CUDA-core FMAs: one block
+// of 256 threads per (64-row q tile, batch*head); the q tile (pre-scaled by
+// scale*log2e) stays in shared memory; 64-row K and V tiles stream through
+// shared memory; each thread owns a 4x4 patch of the 64x64 score tile and a
+// 4x8 patch of the 64xD output accumulator.  Every tile is masked.  The
+// body is a template on <T, EXP2, SPLIT>; the other instances are bf16 in,
+// converted to float32 as they are staged (flash_common.cuh load_tile),
+// and are the f32-dot rows of the forward ablation sweep
 // (tools/flash_variants.py::_fwd_kernel_v2 with bf16_dots=False, ported in
 // ops/flash_variants.py): EXP2 off works in the natural-exp domain (q
 // scaled by `scale`, expf, LSE = m + log l), and SPLIT runs the tiles that
 // every row of the q tile sees whole (below the causal diagonal of its
 // first row and inside kv_len) without the visibility test, then the
-// boundary tiles with it, as the TPU kernel's two loops do.
-// flash_common.cuh holds the tile loader, the store of four outputs and
-// the visibility rule, shared with the backward kernels (flash_bwd.cu).
+// boundary tiles with it, as the TPU kernel's two loops do.  These
+// instances keep their machine code (chip_smoke.py pins it against
+// tools/sass_base/).
+//
+// bf16, kernel 1 (flash_fwd_mma_kernel<DT>, DT the head tile: 64 for
+// D <= 64, else 128).  Both products are mma.sync m16n8k16 on bf16
+// operands with float32 accumulation (mma_bf16.cuh, flash_mma.cuh): the
+// tensor cores' 989 TFLOP/s, where the float32 FMAs of the instance
+// before it peaked at 67 (its floor alone was 15x the bf16 bound).  The
+// Pallas kernel upcasts q, k and v and runs both dots in float32; here
+// S = QK^T takes the bf16 operands as they are, whose products are exact
+// in float32, so it differs only in the order of the sums, and is scaled
+// by scale * log2e in float32 after the product (q is not pre-scaled,
+// which would round it a second time).  P is rounded once to bf16 for
+// O += P V, as SDPA and FlashAttention-2 do; the row sum l adds the
+// float32 p, so the LSE = m / log2e + log(max(l, 1e-30)) is float32
+// throughout; O is rounded to bf16 once, at its store.
+// ops/flash_attention.py::_mma_fwd is this arithmetic in plain torch.
+//   A block of 4 warps owns a 64-row q tile of the Pallas grid, 16 rows a
+//   warp, end to end; heavy q tiles (the causal bottom rows) are scheduled
+//   first.  The q tile arrives by cp.async into padded shared memory and
+//   each warp keeps its Q fragments in registers (ldmatrix) for the whole
+//   sweep; 64-key K and V tiles stream through two cp.async stages, tile
+//   j+1's copy in flight while tile j is computed, one barrier a tile.
+//   Per tile: S (K through ldmatrix), the online softmax in the exp2
+//   domain with 2^x from the MUFU and each row's max reduced over its quad
+//   by shuffles (the sum stays a per-thread partial to the end), then P
+//   re-packed in registers as the A operand of O += P V (V through
+//   ldmatrix.trans): P never touches shared memory.  A tile pair that
+//   every query sees whole (tile_full: the causal interior, unpadded
+//   rows) skips the visibility test, as the TPU kernel's unmasked interior
+//   loop does; on the backward kernels the test was most of the
+//   elementwise work between the products.
+//   Edges: rows past Lq, keys past the row's kv_len and head columns past
+//   D are zero-filled in shared memory; every masked score is a select to
+//   NEG_INF and its p to 0, so nothing past kv_len reaches O; a row that
+//   is not 16-byte aligned (D or a stride not a multiple of 8) is copied 8
+//   bytes at a time.  Shared memory: q and two stages of K and V, 87,040
+//   bytes at DT 128 (two blocks an SM).  wgmma, TMA, warp specialisation
+//   and a pipelined variant (the sweep's row G) are later work.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -229,6 +265,227 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16, on tensor cores
+// Shared memory at head tile DT: the q tile and two stages of K and V.
+template <int DT>
+constexpr size_t kFwdMmaSmem = sizeof(bf16) * 5 * kBq * kMs<DT>;
+
+// The online softmax of one key tile in place of its score accumulator
+// (element e of n-tile n is row row0 (+ 8 for e >= 2), key k0 + 8n + 2t +
+// (e & 1)): S * scale_log2 (masked to NEG_INF where MASKED and the row
+// does not see the key), each row's running max over its quad, p =
+// 2^(s - m) (0 where masked), the row sum's per-thread partial and the
+// rescale factor of the rows' earlier sums.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBk / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int row0,
+                                             int k0, int t, int q_off,
+                                             int row_len, int causal,
+                                             int kv_off, float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * scale_log2;
+      if (MASKED && !visible((long long)q_off + row0 + (e >> 1) * 8,
+                             k0 + n * 8 + 2 * t + (e & 1), row_len, causal,
+                             kv_off))
+        x = kNegInf;
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
+    mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(s[n][e] - mx[e >> 1]);
+      if (MASKED && !visible((long long)q_off + row0 + (e >> 1) * 8,
+                             k0 + n * 8 + 2 * t + (e & 1), row_len, causal,
+                             kv_off))
+        p = 0.f;
+      s[n][e] = p;
+      rs[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    corr[i] = ex2(m[i] - mx[i]);
+    m[i] = mx[i];
+    l[i] = l[i] * corr[i] + rs[i];
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const int* __restrict__ kv_lens, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Lq, int Lk, int H, int D,
+                     long long sqb, long long sql, long long sqh,
+                     long long skb, long long skl, long long skh,
+                     long long svb, long long svl, long long svh, int q_off,
+                     int kv_off, int causal, float scale_log2, int vec16) {
+  constexpr int S = kMs<DT>;
+  constexpr int KD = DT / 16;               // 16-deep steps over the head
+  constexpr int ND = DT / 8;                // 8-wide n-tiles of O
+  constexpr int NK = kBk / 8;               // 8-wide n-tiles of S
+  extern __shared__ uint4 smem_u4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);   // [kBq][S]
+  bf16* sK = sQ + kBq * S;                       // [2][kBk][S]
+  bf16* sV = sK + 2 * kBk * S;                   // [2][kBk][S]
+
+  const int qi = gridDim.x - 1 - blockIdx.x;     // heavy tiles first
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int q0 = qi * kBq;
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // and row0 + 8
+  const int row_len = min(kv_lens[b], Lk);
+  const bf16* qb = q + b * sqb + h * sqh;
+  const bf16* kb = k + b * skb + h * skh;
+  const bf16* vb = v + b * svb + h * svh;
+  const int nk_eff =
+      kv_tiles(qi, (Lk + kBk - 1) / kBk, row_len, causal, q_off, kv_off);
+
+  auto load_kv_tile = [&](int j, int st) {
+    load_tile_async<DT>(sK + st * kBk * S, kb, skl, j * kBk, row_len, D,
+                        vec16);
+    load_tile_async<DT>(sV + st * kBk * S, vb, svl, j * kBk, row_len, D,
+                        vec16);
+  };
+  load_tile_async<DT>(sQ, qb, sql, q0, Lq, D, vec16);
+  if (nk_eff > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[KD][4];
+  const int a_off = warp * 16 * S + frag_a_offset<DT>(lane);
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) ldmatrix_x4(qa[kd], sQ + a_off + kd * 16);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < nk_eff; ++j) {
+    const int st = j & 1;
+    if (j > 0) {
+      cp_async_wait<0>();                // tile j has landed
+      __syncthreads();                   // and every warp is done with j-1
+    }
+    if (j + 1 < nk_eff) {
+      load_kv_tile(j + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const int k0 = j * kBk;
+    const bf16* sKs = sK + st * kBk * S;
+    const bf16* sVs = sV + st * kBk * S;
+    // S = Q K^T of the warp's 16 rows x the tile's 64 keys
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sKs + np * 16 * S + frag_b_offset<DT>(lane)
+                            + kd * 16);
+        mma_bf16(s[2 * np], qa[kd], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa[kd], kf[2], kf[3]);
+      }
+    float corr[2];
+    if (tile_full(q0, k0, Lq, row_len, causal, q_off, kv_off))
+      softmax_tile<false>(s, m, l, corr, row0, k0, t, q_off, row_len,
+                          causal, kv_off, scale_log2);
+    else
+      softmax_tile<true>(s, m, l, corr, row0, k0, t, q_off, row_len, causal,
+                         kv_off, scale_log2);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V over the tile's keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      const int off = kk * 16 * S + frag_a_offset<DT>(lane);
+#pragma unroll
+      for (int nd = 0; nd < KD; ++nd) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sVs + off + nd * 16);
+        mma_bf16(acc[2 * nd], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * nd + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // the rows' sums over their quads; O = acc / l_safe, rounded once
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l[i];
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    acc[n][0] *= inv[0];
+    acc[n][1] *= inv[0];
+    acc[n][2] *= inv[1];
+    acc[n][3] *= inv[1];
+  }
+  store_rows<DT>(o, acc, row0, Lq, b, h, H, D, t, 1.f);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r < Lq)
+        lse[((long long)b * H + h) * Lq + r] =
+            m[i] * (1.f / kLog2e) + logf(l[i]);
+    }
+  }
+}
+
+template <int DT>
+int fwd_mma_launch(const void* q, const void* k, const void* v,
+                   const void* kv_lens, void* o, void* lse, int B, int Lq,
+                   int Lk, int H, int D, long long sqb, long long sql,
+                   long long sqh, long long skb, long long skl, long long skh,
+                   long long svb, long long svl, long long svh, int q_off,
+                   int kv_off, int causal, float scale_log2, void* stream) {
+  auto kernel = flash_fwd_mma_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kFwdMmaSmem<DT>);
+  if (err != cudaSuccess) return (int)err;
+  const long long st[9] = {sqb, sql, sqh, skb, skl, skh, svb, svl, svh};
+  const int vec16 = rows_16b(D, st);
+  dim3 grid((Lq + kBq - 1) / kBq, B * H);
+  kernel<<<grid, kMmaThreads, kFwdMmaSmem<DT>, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kv_lens,
+      (bf16*)o, (float*)lse, Lq, Lk, H, D, sqb, sql, sqh, skb, skl, skh, svb,
+      svl, svh, q_off, kv_off, causal, scale_log2, vec16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define FLASH_FWD_ARGS                                                      \
@@ -246,9 +503,25 @@ extern "C" int flash_fwd_f32(FLASH_FWD_ARGS) {
   return launch<float, true, false>(FLASH_FWD_PASS);
 }
 
-// Kernel 1 on bf16 q/k/v: O in bf16, LSE in float32.
+// Kernel 1 on bf16 q/k/v, on the tensor cores at the head tile D fits:
+// O in bf16, LSE in float32.
 extern "C" int flash_fwd_bf16(FLASH_FWD_ARGS) {
-  return launch<__nv_bfloat16, true, false>(FLASH_FWD_PASS);
+  return D <= 64 ? fwd_mma_launch<64>(FLASH_FWD_PASS)
+                 : fwd_mma_launch<128>(FLASH_FWD_PASS);
+}
+
+// Registers and local memory (bytes a thread: stack and spills) of the
+// bf16 tensor-core kernel at head tile `dt` (64 or 128).
+extern "C" int flash_fwd_mma_resources(int dt, int* regs,
+                                       int* local_bytes) {
+  const void* fn = dt == 64 ? (const void*)flash_fwd_mma_kernel<64>
+                            : (const void*)flash_fwd_mma_kernel<128>;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
 }
 
 // The sweep's f32-dot rows on bf16 q/k/v: scale_q is scale * log2 e with

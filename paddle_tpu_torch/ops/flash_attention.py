@@ -7,26 +7,26 @@ dK and dV in q's, k's and v's dtype; delta is float32.  float16 raises
 (``ROADMAP.md`` section 2, K5).  The arithmetic:
 - float32 operands: every product float32, as in the Pallas kernels,
   which upcast before every product;
-- the forward on bf16 operands: the same float32 arithmetic on the
-  operands converted as the kernel stages its tiles;
-- the backward on bf16 operands: the tensor cores.  S = QK^T and
-  dP = dO V^T take the bf16 operands with float32 accumulation (exact
+- bf16 operands: the tensor cores.  S = QK^T (and in the backward
+  dP = dO V^T) take the bf16 operands with float32 accumulation (exact
   products, so only the order of the sums differs from the Pallas
-  kernels); P and dS are rounded once to bf16 before dV = P^T dO,
-  dK = dS^T Q and dQ = dS K, accumulated in float32; each output is
-  rounded once.
+  kernels); the forward rounds P once to bf16 before O += P V, its row
+  sum and LSE staying float32; the backward rounds P and dS once to bf16
+  before dV = P^T dO, dK = dS^T Q and dQ = dS K, accumulated in float32;
+  each output is rounded once.
 
-Three plain versions, for the two bf16 semantics of the JAX package and
-the tensor-core backward:
+Four plain versions, for the two bf16 semantics of the JAX package and
+the tensor-core kernels:
 ``_torch_attention`` is the counterpart of ``_xla_attention`` (on bf16 the
 probabilities are rounded to bf16 before P . V), the CPU route and the
 ``attention_impl="torch"`` route; ``_torch_attention_upcast`` does the
 Pallas kernels' arithmetic (float32 throughout on the upcast operands,
 outputs rounded once to the operands' dtype), the yardstick the bf16
-kernels are held against on the card; ``_mma_bwd`` is the bf16 backward
-kernels' own arithmetic (P and dS rounded to bf16), which the CPU tests
-hold to the Pallas kernels within its rounding model's bound and the
-card's check holds the kernels to within a tighter limit.
+kernels are held against on the card; ``_mma_fwd`` and ``_mma_bwd`` are
+the bf16 kernels' own arithmetic (the forward's online softmax over key
+tiles with P rounded to bf16; P and dS rounded to bf16 in the backward),
+which the CPU tests hold to the Pallas kernels within their rounding's
+bounds and the card's check holds the kernels to within tighter limits.
 
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  Layout [B, L, H, D]
 as there.  ``impl=None`` routes by where the tensors lie: a CUDA tensor
@@ -190,6 +190,52 @@ def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _mma_fwd(q, k, v, kv_lens, *, causal: bool, scale: float, q_offset=0,
+             kv_offset=0, block_k: int = 64,
+             drop_score_kstep: Optional[int] = None):
+    """The arithmetic of the bf16 forward kernel (the tensor-core
+    ``flash_fwd_mma_kernel`` of ``csrc/flash_fwd.cu``) in plain torch:
+    S = QK^T as a float32 product of the upcast operands, times scale *
+    log2(e); the online softmax over key tiles of ``block_k`` (the
+    kernel's 64) in the exp2 domain under ``_visible``'s masks, each
+    tile's p = 2^(s - m) with m the running row max; the row sum l adds
+    the float32 p and O += P V takes p rounded to bf16; O = acc /
+    max(l, 1e-30) rounded once to q's dtype and the natural-log LSE
+    m / log2(e) + log(max(l, 1e-30)), float32 [B, H, Lq].  Returns
+    (O, LSE).  Never on the kernel route: the tests hold it against the
+    JAX package, ``chip_smoke.py`` the kernel against it.
+
+    ``drop_score_kstep=j`` leaves head columns 16j to 16j+15 out of the
+    score product, one 16-deep step of the kernel's mma: a planted
+    fault, which the checks must catch."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    if drop_score_kstep is not None:
+        qf = qf.clone()
+        qf[..., 16 * drop_score_kstep:16 * drop_score_kstep + 16] = 0
+    mask = _visible(lq, lk, kv_lens, causal, q_offset, kv_offset, q.device)
+    acc = torch.zeros(b, h, lq, d, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, lq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    lsum = torch.zeros_like(m)
+    for k0 in range(0, lk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        mt = mask[..., k0:k0 + block_k]
+        s = torch.where(mt, qf @ kt.transpose(-1, -2) * (scale * LOG2E),
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mt, torch.exp2(s - m_new), 0.0)
+        corr = torch.exp2(m - m_new)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    l_safe = torch.clamp(lsum, min=1e-30)
+    o = (acc / l_safe).to(q.dtype).transpose(1, 2)
+    lse = (m * (1.0 / LOG2E) + torch.log(l_safe))[..., 0]
+    return o, lse
+
+
 class _UpcastAttention(torch.autograd.Function):
     """``_torch_attention_upcast`` with its gradient: the float32 forward
     on the upcast operands, O rounded to q's dtype; the backward is
@@ -235,15 +281,20 @@ _FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 # forward sweep's f32-dot rows (ops/flash_variants.py), which add the exp2
 # and split flags
 _SIGNATURES = {"flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
-               "flash_fwd_f32dots_bf16": _FWD_ARGS + [ctypes.c_int] * 2}
+               "flash_fwd_f32dots_bf16": _FWD_ARGS + [ctypes.c_int] * 2,
+               "flash_fwd_mma_resources": [ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_int)]}
 
 
 def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
                    q_offset: int = 0, kv_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: returns (O [B,Lq,H,D] in q's dtype,
-    float32 or bf16; LSE [B,H,Lq] float32).  ``q_offset``/``kv_offset``
-    are host ints (no device sync); ``kv_lens`` is an int32 tensor [B] on
-    the same device."""
+    float32 or bf16; LSE [B,H,Lq] float32).  float32 operands run the
+    CUDA-core kernel (float32 products), bf16 ones the tensor-core kernel
+    (``_mma_fwd``'s arithmetic).  ``q_offset``/``kv_offset`` are host ints
+    (no device sync); ``kv_lens`` is an int32 tensor [B] on the same
+    device."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_fwd wants q [B,Lq,H,D], k/v [B,Lk,H,D]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -403,21 +454,25 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
 flash_bwd_dq_cuda.launches = flash_bwd_dq_cuda.launches_bf16 = 0
 
 
+def fwd_mma_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the bf16 tensor-core forward at
+    each head tile, from ``cudaFuncGetAttributes``: ``{"fwd_d64": (regs,
+    local_bytes), "fwd_d128": ...}``.  Needs a card."""
+    lib = _build.load("flash_fwd", _SIGNATURES)
+    return {f"fwd_d{dt}": _build.resources(
+        lib, lib.flash_fwd_mma_resources, dt) for dt in (64, 128)}
+
+
 def bwd_mma_resources() -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
     kernel spills or keeps a stack) of the bf16 tensor-core kernels at
     each head tile, from ``cudaFuncGetAttributes``:
     ``{"dkdv_d64": (regs, local_bytes), ...}``.  Needs a card."""
     lib = _build.load("flash_bwd", _BWD_SIGNATURES)
-    out = {}
-    for name, dkdv in (("dkdv", 1), ("dq", 0)):
-        for dt in (64, 128):
-            regs, local = ctypes.c_int(), ctypes.c_int()
-            _build.check(lib, lib.flash_bwd_mma_resources(
-                dkdv, dt, ctypes.byref(regs), ctypes.byref(local)),
-                "flash_bwd_mma_resources")
-            out[f"{name}_d{dt}"] = (regs.value, local.value)
-    return out
+    return {f"{name}_d{dt}": _build.resources(
+        lib, lib.flash_bwd_mma_resources, dkdv, dt)
+        for name, dkdv in (("dkdv", 1), ("dq", 0)) for dt in (64, 128)}
 
 
 class _FlashAttention(torch.autograd.Function):

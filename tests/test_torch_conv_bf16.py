@@ -337,6 +337,58 @@ def test_bf16_conv3x3_stats_matches_jax(shape, co, jax_impl):
         shape[:-1] + (co,), 4))
 
 
+def _at_offset(shape, dtype, offset):
+    """A tensor of ``shape`` starting ``offset`` elements into a fresh
+    buffer (the allocator's buffers are at least 64-byte aligned)."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 16, dtype=dtype)
+    assert buf.data_ptr() % 64 == 0
+    return buf[offset:offset + n].view(shape)
+
+
+# (Ci, Co, the operands' offset in elements, dtype, wide) -> the staging
+# ``_vec`` chooses: for kernel 9's bf16 instance (wide) 2 = 16-byte copies,
+# 1 = 8-byte, 0 = one element; for the other kernels 1 = 4-element
+# vectors, 0 = scalar.  The bf16 rows with offset 0 are the kernel-9 shapes
+# chip_smoke.py holds on the card: ResNet-50's four at batch 256
+# ((256, 56, 56, 64) -> 64 to (256, 7, 7, 512) -> 512), and the ragged
+# (3, 7, 9, 5, 7), (2, 13, 11, 64, 72) and (2, 9, 10, 36, 40).
+COPY_WIDTHS = [
+    ((64, 64, 0, torch.bfloat16, True), 2),
+    ((128, 128, 0, torch.bfloat16, True), 2),
+    ((256, 256, 0, torch.bfloat16, True), 2),
+    ((512, 512, 0, torch.bfloat16, True), 2),
+    ((5, 7, 0, torch.bfloat16, True), 0),
+    ((64, 72, 0, torch.bfloat16, True), 2),
+    ((36, 40, 0, torch.bfloat16, True), 1),
+    ((64, 64, 4, torch.bfloat16, True), 1),     # 8-byte aligned only
+    ((64, 64, 1, torch.bfloat16, True), 0),     # 2-byte aligned
+    ((64, 60, 0, torch.bfloat16, True), 1),
+    ((64, 64, 0, torch.bfloat16, False), 1),    # kernel 8 at bf16
+    ((64, 64, 4, torch.bfloat16, False), 1),
+    ((64, 64, 0, torch.float32, False), 1),     # the float32 instances
+    ((64, 64, 2, torch.float32, False), 0),
+    ((5, 7, 0, torch.float32, False), 0),
+]
+
+
+@pytest.mark.parametrize("case,want", COPY_WIDTHS,
+                         ids=[f"ci{c[0]}-co{c[1]}-off{c[2]}-"
+                              f"{str(c[3])[6:]}{'-wide' if c[4] else ''}"
+                              for c, _ in COPY_WIDTHS])
+def test_copy_width_by_channels_and_alignment(case, want):
+    """The wrapper's staging choice (``_vec``) by Ci, Co and the operands'
+    alignment: kernel 9's bf16 instance takes 16-byte copies where Ci and
+    Co are multiples of 8 and x, w and y are 16-byte aligned, 8-byte
+    copies where multiples of 4 and 8-byte aligned, else one element; the
+    shapes the card's check runs reach each of the three."""
+    ci, co, off, dtype, wide = case
+    x = _at_offset((1, 2, 2, ci), dtype, off)
+    w = _at_offset((3, 3, ci, co), dtype, off)
+    y = _at_offset((1, 2, 2, co), dtype, off)
+    assert tcb._vec(ci, co, x, w, y, wide=wide) == want
+
+
 # ------------------------------------------------------------------ layers
 def _conv(p, x):
     return p.layer.img_conv(x, filter_size=3, num_filters=5, padding=1,

@@ -5,8 +5,9 @@ flash_attention.py) against the JAX package: the port's plain version
 Pallas kernel under the interpreter (``impl="interpret"``).  Float32
 throughout; tolerance 1e-5, the float32 rounding of two sums taken in a
 different order.  Then the backward (float32, then the two bf16
-semantics, each with its limits), and the tensor-core bf16 backward's
-arithmetic (``_mma_bwd``) held to its rounding model's bound."""
+semantics, each with its limits), and the tensor-core bf16 kernels'
+arithmetic (``_mma_fwd``, ``_mma_bwd``) held to their roundings'
+bounds."""
 
 import functools
 import importlib
@@ -402,6 +403,11 @@ def _bf16_torch(case, attention):
 def _assert_bf16_close(got, want, what):
     assert np.abs(got - want).max() <= BF16_ELEM * max(
         1.0, np.abs(want).max()), what
+    _assert_rows_close(got, want, what)
+
+
+def _assert_rows_close(got, want, what):
+    """Each row (last axis) within BF16_ROW of its norm."""
     g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
     norms = np.linalg.norm(w, axis=1)
     live = norms > 0
@@ -645,3 +651,171 @@ def test_bf16_kernel_route_with_mma_backward_matches_pallas(case,
     assert calls == ["fwd", "dq", "dkdv"]
     _assert_mma_matches_pallas(got, _bf16_jax(case, "interpret"), terms[0],
                                case)
+
+
+# -------------------------------------------- the tensor-core bf16 forward
+# ``_mma_fwd`` rounds each tile's P to bf16 before O += P V, where the
+# Pallas forward keeps it float32: each term p_k v_k / l moves by at most
+# 2^-8 of itself, so an element of O by at most 2^-8 of M = sum_k p_k
+# |v_k| / l, and each side's one rounding of O adds at most 2^-8 of the
+# element.  Held against the Pallas interpreter: each row of O within
+# BF16_ROW of its norm, and each element within the model's bound
+# (``_assert_mma_close``: 2^-8 (M + 2 |want|) + 2^-16 max(1, max |want|)).
+# The flat BF16_ELEM does not bound this arithmetic where an element is
+# a few terms that cancel (readings up to 1.47x it at D 8, 1.13x at D
+# 32); readings over MMA_FWD_CASES at most 0.65 of the model's bound and
+# 0.83 of BF16_ROW; the planted k-step fault 280x and 109x.  The LSE
+# is float32 on both sides (l sums the unrounded p), within
+# ``_assert_lse_close``'s 1e-5.  Both tiles: the kernel's 64 keys (one
+# tile at these sizes) and 8, so that the running max and the rescale of
+# earlier tiles run.
+MMA_FWD_CASES = dict(CASES, cross_ragged=(37, 21, False, [21, 9], 0, 0))
+
+
+def _bf16_fwd_inputs(lq, lk, seed):
+    """``_inputs`` rounded once to bf16: (numpy float32 arrays, the same
+    as bf16 torch tensors)."""
+    import jax.numpy as jnp
+
+    arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+            for a in _inputs(lq, lk, seed)]
+    return arrs, [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+
+
+def _pallas_bf16_fwd(arrs, causal, kv_lens, q_off, kv_off, block=8):
+    """O (as float32) and the LSE of the JAX package's Pallas forward
+    under the interpreter on bf16 operands."""
+    import jax.numpy as jnp
+
+    o, lse = jfa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrs), causal=causal,
+        kv_lens=kv_lens, q_offset=q_off, kv_offset=kv_off, block_q=block,
+        block_k=block, return_lse=True, impl="interpret")
+    assert o.dtype == jnp.bfloat16
+    return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
+
+
+def _fwd_term_magnitudes(q, k, v, kv_lens, *, causal, scale, q_offset=0,
+                         kv_offset=0):
+    """M = sum_k p_k |v_k| / l of every element of O, [B, Lq, H, D], from
+    the float32 probabilities of the upcast operands (0 on rows that see
+    no key)."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    mask = tfa._visible(q.shape[1], k.shape[1], kv_lens, causal, q_offset,
+                        kv_offset, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), -1).masked_fill(~mask,
+                                                                      0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf.abs()).numpy()
+
+
+def _assert_mma_fwd_close(o, want, m, what):
+    """O (float32 numpy) within BF16_ROW per row and the rounding
+    model's bound per element."""
+    _assert_rows_close(o, want, what)
+    _assert_mma_close(o, want, m, what)
+
+
+@pytest.mark.parametrize("case", sorted(MMA_FWD_CASES))
+def test_bf16_mma_forward_matches_pallas_interpret(case):
+    """``_mma_fwd``, the arithmetic of the tensor-core bf16 forward (P
+    rounded to bf16 before P . V, the LSE float32), against the JAX
+    package's Pallas forward under the interpreter on the same bf16
+    inputs: O per row within BF16_ROW of its norm and per element within
+    the rounding model's bound, the LSE within 1e-5; rows that see no key
+    give O = 0 and the sentinel LSE."""
+    lq, lk, causal, kv_lens, q_off, kv_off = MMA_FWD_CASES[case]
+    arrs, (q, k, v) = _bf16_fwd_inputs(lq, lk, seed=len(case))
+    want_o, want_lse = _pallas_bf16_fwd(arrs, causal, kv_lens, q_off,
+                                        kv_off)
+    lens = torch.as_tensor(kv_lens or [lk] * B, dtype=torch.int32)
+    kw = dict(causal=causal, scale=D ** -0.5, q_offset=q_off,
+              kv_offset=kv_off)
+    m = _fwd_term_magnitudes(q, k, v, lens, **kw)
+    for block_k in (64, 8):
+        o, lse = tfa._mma_fwd(q, k, v, lens, block_k=block_k, **kw)
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        _assert_mma_fwd_close(o.float().numpy(), want_o, m,
+                              f"{case} O, block_k {block_k}")
+        _assert_lse_close(lse.numpy(), want_lse)
+    if case == "fully_masked_rows":
+        assert not o[:, :kv_off - q_off].float().any()
+
+
+def test_mma_forward_planted_kstep_fault_fails_the_limits():
+    """The planted fault of the card's check: ``_mma_fwd`` with one
+    16-deep k-step of the score product left out fails the O limits
+    against the Pallas interpreter, on inputs the intact version holds
+    (q, k, v [1, 32, 2, 32] bf16: two k-steps)."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(7)
+    arrs = [np.array(jnp.asarray(rng.randn(1, 32, 2, 32), jnp.bfloat16)
+                     .astype(jnp.float32)) for _ in range(3)]
+    want_o, _ = _pallas_bf16_fwd(arrs, True, None, 0, 0, block=16)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    lens = torch.full((1,), 32, dtype=torch.int32)
+    kw = dict(causal=True, scale=32 ** -0.5)
+    m = _fwd_term_magnitudes(q, k, v, lens, **kw)
+    o, _ = tfa._mma_fwd(q, k, v, lens, **kw)
+    _assert_mma_fwd_close(o.float().numpy(), want_o, m, "intact")
+    bad, _ = tfa._mma_fwd(q, k, v, lens, drop_score_kstep=1, **kw)
+    for check in (_assert_rows_close, functools.partial(_assert_mma_close,
+                                                        m=m)):
+        with pytest.raises(AssertionError):
+            check(bad.float().numpy(), want_o, what="k-step left out")
+
+
+@pytest.mark.parametrize("case", ["grads_causal", "kv_lens_causal",
+                                  "cross_37x21_causal", "offset_q_ahead",
+                                  "offset_fully_masked", "lse_cotangent"])
+def test_bf16_kernel_route_with_mma_forward_matches_pallas(case,
+                                                           monkeypatch):
+    """The kernel route's wiring at bf16 with all three kernels stood in
+    for by the tensor-core arithmetic (the forward by ``_mma_fwd``, both
+    backward kernels by ``_mma_bwd``): O within the forward's limits and
+    the LSE within 1e-5 of the JAX package under the Pallas interpreter
+    at bf16, and dQ, dK, dV those of ``_mma_bwd`` on ``_mma_fwd``'s own O
+    and LSE with the objective's cotangents, within 1e-5.  (The
+    gradients are held to the Pallas backward by
+    ``test_bf16_mma_backward_matches_pallas_interpret``; here O differs
+    from the Pallas forward's by the forward's rounding, which reaches
+    the gradients through dO and delta, outside that test's bound.)"""
+    calls, terms = [], []
+    _, dq, dkdv = _mma_wrappers(calls, terms)
+
+    def fwd(q, k, v, kv_lens, **kw):
+        calls.append("fwd")
+        return tfa._mma_fwd(q, k, v, kv_lens, **kw)
+
+    monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
+    monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
+    monkeypatch.setattr(tfa, "flash_bwd_dq_cuda", dq)
+    monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda", dkdv)
+
+    def route(q, k, v, kv_lens, **kw):
+        return tfa.flash_attention(q, k, v, kv_lens=kv_lens, **kw)
+
+    got = _bf16_torch(case, route)
+    assert calls == ["fwd", "dq", "dkdv"]
+    want = _bf16_jax(case, "interpret")
+    _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _bf16_grad_inputs(case))
+    kv_lens = torch.as_tensor(lens or [k.shape[1]] * k.shape[0],
+                              dtype=torch.int32)
+    kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, q_offset=q_off,
+              kv_offset=kv_off)
+    _assert_mma_fwd_close(got[0], want[0],
+                          _fwd_term_magnitudes(q, k, v, kv_lens, **kw),
+                          f"{case} O")
+    _assert_lse_close(got[1], want[1])
+    o, lse = tfa._mma_fwd(q, k, v, kv_lens, **kw)
+    of = o.float()
+    g = (2 * of if loss == "square" else torch.cos(of)).to(torch.bfloat16)
+    g_lse = 1 - torch.tanh(lse) ** 2 if with_lse else None
+    for name, a, r in zip(("dQ", "dK", "dV"), got[2:],
+                          tfa._mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse,
+                                       **kw)):
+        np.testing.assert_allclose(a, r.float().numpy(), **TOL,
+                                   err_msg=f"{case} {name}")

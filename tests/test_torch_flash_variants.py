@@ -261,7 +261,8 @@ def test_sweep_runs_every_row_on_the_cpu():
     assert len({r["name"] for r in rows}) == 10
     for r in rows:
         assert r["ms"] is None and 0.0 <= r["max_abs_err_vs_A"] < 0.1
-        assert r["peak"] == ("float32" if r["name"][0] == "A" else "bf16")
+        # kernel 1 (row A) runs on the tensor cores too
+        assert r["peak"] == "bf16"
     assert rows[0]["max_abs_err_vs_A"] == 0.0
     assert ttool.flops(8, 8, 4096, 64) == pytest.approx(137.4e9, rel=1e-3)
 
@@ -335,9 +336,11 @@ def test_sass_diff_ignores_the_listing_padding_only():
 def test_sass_base_holds_the_float32_sources_before_the_bf16_instances(
         tmp_path):
     """chip_smoke.py compares the float32 instances of flash_bwd.cu,
-    rnn_step.cu, bn_stats.cu and conv_bn.cu with a build of SASS_BASE:
-    every file there is, by its git blob id (computed as ``git
-    hash-object`` does), SASS_BASE_REV's."""
+    rnn_step.cu, bn_stats.cu and conv_bn.cu with a build of SASS_BASE,
+    and kernel 1's float32 and f32-dot instances with a build of
+    FWD_SASS_BASE (a folder inside it): every file of each base folder
+    of SASS_BASES is, by its git blob id (computed as ``git hash-object``
+    does), its revision's, and holds every source its kernels name."""
     import os
 
     from paddle_tpu_torch.tools import sass_diff
@@ -351,12 +354,16 @@ def test_sass_base_holds_the_float32_sources_before_the_bf16_instances(
         "chip_smoke", os.path.join(repo, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    base = os.path.join(repo, smoke.SASS_BASE)
-    assert sorted(os.listdir(base)) == sorted(smoke.SASS_BASE_BLOBS)
-    for name, blob in smoke.SASS_BASE_BLOBS.items():
-        assert sass_diff.git_blob_id(os.path.join(base, name)) == blob
-    assert ({src for src, _, _ in smoke.SASS_KERNELS}
-            <= set(smoke.SASS_BASE_BLOBS))
+    assert smoke.SASS_BASES[0] == (smoke.SASS_BASE, smoke.SASS_BASE_REV,
+                                   smoke.SASS_BASE_BLOBS, smoke.SASS_KERNELS)
+    for folder, _, blobs, kernels in smoke.SASS_BASES:
+        base = os.path.join(repo, folder)
+        files = [f for f in os.listdir(base)
+                 if os.path.isfile(os.path.join(base, f))]
+        assert sorted(files) == sorted(blobs)
+        for name, blob in blobs.items():
+            assert sass_diff.git_blob_id(os.path.join(base, name)) == blob
+        assert {src for src, _, _ in kernels} <= set(blobs)
 
 
 def test_bound_is_set_by_the_slower_of_operations_and_bytes():

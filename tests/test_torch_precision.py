@@ -489,15 +489,23 @@ def test_training_matches_jax(model, precision):
     _hold_training(model, precision)
 
 
-def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch):
+@pytest.mark.parametrize("fwd_impl", ["upcast", "mma"])
+def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch, fwd_impl):
     """The small LM under ``bf16`` on the port's kernel route
     (``_FlashAttention``), each kernel stood in for by its plain version
     with the kernel's arithmetic: the forward by
-    ``_torch_attention_upcast``, both backward kernels by ``_mma_bwd``
-    (P and dS rounded to bf16, as the tensor-core kernels do), against
-    the JAX package on its Pallas kernels under the interpreter
-    (``default_impl`` patched to "interpret"): the limits of
-    ``test_training_matches_jax``."""
+    ``_torch_attention_upcast`` (the Pallas forward's arithmetic) or by
+    ``_mma_fwd`` (the tensor-core forward's: P rounded to bf16 before
+    P . V), both backward kernels by ``_mma_bwd`` (P and dS rounded to
+    bf16, as the tensor-core kernels do), against the JAX package on its
+    Pallas kernels under the interpreter (``default_impl`` patched to
+    "interpret"): the limits of ``test_training_matches_jax``.  With
+    ``_mma_fwd`` a leaf whose gradient is below the rounding noise of a
+    bf16 P is held within twice the JAX package's own spread on it, the
+    distance between its xla route (P rounded to bf16, as here) and its
+    Pallas route: ``attn_1``'s wq and wk (norms 2.7e-4 and 3.0e-4) read
+    0.48 and 0.45 of their norm here, 0.65 each between the JAX package's
+    two routes; every other leaf within GRAD_LEAF_RTOL as before."""
     from paddle_tpu_torch.ops import flash_attention as tfa
 
     jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
@@ -505,9 +513,12 @@ def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch):
 
     def fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0, kv_offset=0):
         calls.append(("fwd", q.dtype))
-        return tfa._torch_attention_upcast(
-            q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset,
-            kv_offset=kv_offset, return_lse=True)
+        kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+                  kv_offset=kv_offset)
+        if fwd_impl == "mma":
+            return tfa._mma_fwd(q, k, v, kv_lens, **kw)
+        return tfa._torch_attention_upcast(q, k, v, kv_lens,
+                                           return_lse=True, **kw)
 
     def bwd(which):
         def run(q, k, v, g, lse, delta, kv_lens, **kw):
@@ -522,21 +533,31 @@ def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch):
         calls.append(("jax", "interpret"))
         return "interpret"
 
+    def xla_grads(jtopo, values, feed):
+        with monkeypatch.context() as m:
+            m.setattr(jfa, "default_impl", lambda: "xla")
+            return _grads_jax(jtopo, values, feed)
+
     monkeypatch.setattr(jfa, "default_impl", interpret)
     monkeypatch.setattr(tfa, "resolve_impl", lambda impl, t: "cuda")
     monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
     monkeypatch.setattr(tfa, "flash_bwd_dq_cuda", bwd("dq"))
     monkeypatch.setattr(tfa, "flash_bwd_dkdv_cuda", bwd("dkdv"))
-    _hold_training("lm", "bf16")
+    _hold_training("lm", "bf16",
+                   spread_grads=xla_grads if fwd_impl == "mma" else None)
     assert set(calls) == {("fwd", torch.bfloat16), ("dq", torch.bfloat16),
                           ("dkdv", torch.bfloat16), ("jax", "interpret")}
 
 
-def _hold_training(model, precision):
-    """The comparison of ``test_training_matches_jax``."""
+def _hold_training(model, precision, spread_grads=None):
+    """The comparison of ``test_training_matches_jax``.  With
+    ``spread_grads(jtopo, values, feed)``, the JAX package's gradients on
+    another of its routes, each leaf is held within the larger of
+    GRAD_LEAF_RTOL and twice the two JAX routes' distance on it."""
     jtopo, ttopo, values = _both(model, precision)
     feed = MODELS[model][1]()
     jgrads = _grads_jax(jtopo, values, feed)
+    alt = None if spread_grads is None else spread_grads(jtopo, values, feed)
     tr = pt.trainer.SGD(ttopo, pt.parameters.from_numpy(ttopo, values,
                                                         device="cpu"),
                         pt.optimizer.Adam(learning_rate=1e-3))
@@ -553,8 +574,13 @@ def _hold_training(model, precision):
             assert err <= GRAD_TOL * max(1.0, np.abs(want).max()), (
                 lname, pname, err)
             dist = np.linalg.norm(g.numpy().astype(np.float64) - want)
-            assert dist <= GRAD_LEAF_RTOL * np.linalg.norm(want), (
-                lname, pname, dist / np.linalg.norm(want))
+            rtol = GRAD_LEAF_RTOL
+            if alt is not None:
+                rtol = max(rtol, 2 * np.linalg.norm(
+                    np.asarray(alt[lname][pname]).astype(np.float64) - want)
+                    / np.linalg.norm(want))
+            assert dist <= rtol * np.linalg.norm(want), (
+                lname, pname, dist / np.linalg.norm(want), rtol)
 
     jparams = pj.parameters.create(jtopo)
     for key in jparams.keys():
