@@ -12,7 +12,11 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    register / shared-memory / spill lines;
 3. hold each kernel against its plain PyTorch version at the main paths'
    full-width shapes (float32): the forward and the decode kernel within
-   max |error| <= 1e-4; the backward kernels' dQ, dK and dV against
+   max |error| <= 1e-4 (the decode kernel in the pool and the slab
+   layout, a hole row among its 8, at kv_splits 1, 3, 8 and the default;
+   one call traced by ``torch.profiler`` must hold exactly one CUDA
+   kernel, the split fold inside it; its registers and local memory, a
+   spill failing); the backward kernels' dQ, dK and dV against
    autograd through the plain attention within 1e-4 * max(1, max |ref|)
    each (the training shape [8, 4096, 4, 128] causal, a kv_lens case, an
    offset-causal case, a cross-attention case, a return_lse case with a
@@ -60,7 +64,9 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    of 32 tokens; the flash forward and paged decode counters must move,
    and every stream must equal a plain-PyTorch (``decode_kernel="torch"``)
    run on the card except where that run's top-2 logit margin was below
-   1e-4 (reported);
+   1e-4 (reported); a decode-only and a chunk iteration at 8 residents
+   on the kernel path and the plain path (host clock), and the
+   decode-only iteration's device idle share (``torch.profiler``);
 6. the LM training path: the same LM built with the layer DSL
    (``transformer.build``) from the same seeded weights.  At batch 1 the
    kernel path and the plain attention (``attention_impl="torch"``) agree
@@ -147,13 +153,14 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    256 (``conv_phase`` on bf16: 7a's and 7b's sums within CONV_STAT_TOL
    of max(1, max |ref|) and 7b's kept count equal, at bf16's relu
    boundary too; each row of 8's and 9's y within 2^-7 of its norm,
-   their statistics within CONV_STAT_TOL; 9 also at a shape with Ci = 4
-   mod 8 (its 8-byte copies); planted faults - 8's last K slice, one of
-   9's taps, 16 input channels of one of 9's taps, 7b's mask on the
-   float32 fold - shown to fail; 9's tensor-core kernel's registers and
-   local memory, a spill failing), each timed beside its bound (bf16
-   bytes, the bf16 peak), plain version and bf16 library call; after the
-   float32 ResNet path, the same
+   their statistics within CONV_STAT_TOL; 8 and 9 also at shapes with
+   Ci = 4 mod 8 (their 8-byte copies); planted faults - 8's last 8 input
+   channels, 8's channels 16-31 (one 16-deep k-step), one of 9's taps, 16
+   input channels of one of 9's taps, 7b's mask on the float32 fold -
+   shown to fail; 8's and 9's tensor-core kernels' registers and local
+   memory at each copy width, a spill failing), each timed beside its
+   bound (bf16 bytes, the bf16 peak), plain version and bf16 library
+   call; after the float32 ResNet path, the same
    model under ``bf16`` (``resnet_bf16_path``): every fused layer at batch
    8 on the plain route's inputs within RESNET_BF16_LAYER_TOLS, 4
    Momentum steps at batch 256 with the bf16 instances launched 30 / 16 /
@@ -187,6 +194,13 @@ import torch
 
 try:
     from paddle_tpu_torch.tools import flash_variants as sweep_tool
+    # the serving slice's model (bench.py bench_transformer's defaults),
+    # its prompts and its iteration timing
+    from paddle_tpu_torch.tools.decode_iters import (BLOCK, DIM, FFN_MULT,
+                                                     HEADS, LAYERS, MAX_LEN,
+                                                     MAX_TOKENS, SEED, SLOTS,
+                                                     VOCAB, iteration_ms,
+                                                     prompts, random_values)
     from paddle_tpu_torch.tools.timing import (PEAK_BF16_FLOPS,
                                                PEAK_F32_FLOPS, bound,
                                                time_ms)
@@ -194,11 +208,6 @@ except ImportError as e:
     sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
 
 TOL = 1e-4
-# the serving slice's model: bench.py bench_transformer defaults
-VOCAB, DIM, HEADS, LAYERS, FFN_MULT, MAX_LEN = 32000, 512, 4, 8, 4, 4096
-SLOTS, BLOCK = 8, 16
-MAX_TOKENS = 32
-SEED = 1234
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 6, 1e-4
 SERVE_KERNELS = ("flash_fwd", "paged_decode")
 # the recurrent slice: bench.py bench_nmt's and bench_lstm's widths
@@ -271,7 +280,18 @@ def flash_phase(dev, gen, flush):
 
 
 def paged_phase(dev, gen, flush):
-    from paddle_tpu_torch.ops import _build
+    """Kernel 4 against its plain version at the serving shape (8 slots,
+    positions 0 to 4095, row 0 a hole row on scratch block 0), in the pool
+    layout and the slab layout (BS = max_len, identity table), at
+    kv_splits 1, 3 (an uneven cut), 8 and the default; a ``torch.profiler``
+    trace of one call, which must hold exactly one CUDA kernel (the split
+    fold is inside it); the kernel's registers and local memory (a spill
+    fails); then the call's time on the device (``ms``) and as the host
+    paces back-to-back calls (``host_ms``), beside its bound and the plain
+    version's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.layers.attention import (paged_gather,
                                                    slot_decode_attention)
@@ -302,47 +322,58 @@ def paged_phase(dev, gen, flush):
     max_err = 0.0
     for name, k_, v_, t_ in (("pool BS=16", pk, pv, table),
                              ("slab BS=4096", slab_k, slab_v, ident)):
-        g = pa._default_kv_splits(t_.shape[1])
-        out = pa.paged_decode_cuda(q, k_, v_, t_, pos, scale=scale,
-                                   kv_splits=g)
         ref = plain(k_, v_, t_)
+        for g in sorted({1, 3, 8, pa._default_kv_splits(t_.shape[1])}):
+            out = pa.paged_decode_cuda(q, k_, v_, t_, pos, scale=scale,
+                                       kv_splits=g)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            print(f"paged_decode {name} kv_splits={g} (cut to "
+                  f"{max(1, min(g, t_.shape[1]))}): max|err| {err:.3e}",
+                  flush=True)
+            if not (err <= TOL and torch.isfinite(out).all()):
+                raise AssertionError(f"paged_decode disagrees with its "
+                                     f"plain version: {err} > {TOL}")
+            max_err = max(max_err, err)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pa.paged_decode_cuda(q, pk, pv, table, pos, scale=scale,
+                             kv_splits=splits)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        print(f"paged_decode {name} kv_splits={g}: max|err| {err:.3e}",
-              flush=True)
-        if not (err <= TOL and torch.isfinite(out).all()):
-            raise AssertionError(f"paged_decode disagrees with its plain "
-                                 f"version: {err} > {TOL}")
-        max_err = max(max_err, err)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    print(f"paged_decode kv_splits={splits}: one call's device activity "
+          f"(torch.profiler): {kernels}", flush=True)
+    if len(kernels) != 1 or "paged_decode" not in kernels[0]:
+        raise AssertionError(f"one paged_decode_cuda call ran {kernels}, "
+                             f"not the one kernel")
+    regs, local = pa.paged_decode_resources()
+    print(f"paged_decode kernel's resources (cudaFuncGetAttributes): "
+          f"{regs} registers, {local} bytes local", flush=True)
+    if local:
+        raise AssertionError(f"paged_decode spills: {local} bytes local")
 
-    ms = time_ms(lambda: pa.paged_decode_cuda(
-        q, pk, pv, table, pos, scale=scale, kv_splits=splits), flush)
+    def call():
+        return pa.paged_decode_cuda(q, pk, pv, table, pos, scale=scale,
+                                    kv_splits=splits)
+
+    # on the device alone, and as the host paces back-to-back calls
+    ms = time_ms(call, flush, lead=True)
+    host_ms = time_ms(call, flush)
     plain_ms = time_ms(lambda: plain(pk, pv, table), flush)
-    # the kernel launch alone, without the merge_partial fold
-    lib = _build.load("paged_decode", pa._SIGNATURES)
-    o_part = torch.empty(SLOTS, splits, HEADS, D, device=dev)
-    lse_part = torch.empty(SLOTS, splits, HEADS, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def kernel_only():
-        _build.check(lib, lib.paged_decode_f32(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), SLOTS,
-            HEADS, D, BLOCK, mb, splits, float(scale * 1.4426950408889634),
-            stream), "paged_decode")
-
-    kernel_ms = time_ms(kernel_only, flush)
     keys = sum(p + 1 for p in pos_list)
     flops = 4.0 * HEADS * D * keys
     nbytes = 4.0 * (2 * SLOTS * HEADS * D + 2 * keys * HEADS * D + SLOTS
                     + sum(-(-(p + 1) // BLOCK) for p in pos_list))
     b_ms, b_by = bound(flops, nbytes)
     print(f"paged_decode S={SLOTS} pos={pos_list} kv_splits={splits}: ms "
-          f"{ms:.4f} (kernel alone {kernel_ms:.4f})  plain_ms "
-          f"{plain_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})", flush=True)
-    return max_err, dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+          f"{ms:.4f} (one launch, the fold inside; host_ms {host_ms:.4f} "
+          f"as the host paces a call)  plain_ms {plain_ms:.4f}  bound_ms "
+          f"{b_ms:.4f} ({b_by})", flush=True)
+    return max_err, dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, kv_splits=splits,
-                         pos=pos_list)
+                         pos=pos_list, registers=regs, local_bytes=local)
 
 
 # ---------------------------------------------------------- flash backward
@@ -826,46 +857,6 @@ def merge_sweep_times(var, rows):
 
 
 # -------------------------------------------------------------- main path
-def random_values(seed: int) -> dict:
-    """The full-width LM's parameter tree under the JAX package's names,
-    N(0, 0.02) matrices, unit LayerNorm scales, zero biases."""
-    rng = np.random.default_rng(seed)
-
-    def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * 0.02
-
-    def ln():
-        return {"scale": np.ones(DIM, np.float32),
-                "bias": np.zeros(DIM, np.float32)}
-
-    hid = DIM * FFN_MULT
-    vals = {"tok_emb": {"w": normal(VOCAB, DIM)},
-            "pos_emb": {"w": normal(MAX_LEN, DIM)}}
-    for i in range(LAYERS):
-        vals[f"ln1_{i}"] = ln()
-        vals[f"attn_{i}"] = {n: normal(DIM, DIM)
-                             for n in ("wq", "wk", "wv", "wo")}
-        vals[f"ln2_{i}"] = ln()
-        vals[f"ffn_up{i}"] = {"w0": normal(DIM, hid),
-                              "b": np.zeros(hid, np.float32)}
-        vals[f"ffn_down{i}"] = {"w0": normal(hid, DIM),
-                                "b": np.zeros(DIM, np.float32)}
-    vals["ln_f"] = ln()
-    vals["logits"] = {"w0": normal(DIM, VOCAB),
-                      "b": np.zeros(VOCAB, np.float32)}
-    return vals
-
-
-def prompts():
-    rng = np.random.RandomState(SEED)
-    shared = rng.randint(0, VOCAB, size=64)
-    out = [rng.randint(0, VOCAB, size=n) for n in (5, 17, 200, 513, 1000,
-                                                   1500)]
-    out.insert(2, np.concatenate([shared, rng.randint(0, VOCAB, size=7)]))
-    out.insert(3, np.concatenate([shared, rng.randint(0, VOCAB, size=30)]))
-    return [p.astype(np.int32) for p in out]
-
-
 def post(url, doc, timeout=900):
     req = urllib.request.Request(url + "/infer",
                                  data=json.dumps(doc).encode(),
@@ -892,35 +883,6 @@ def reference_streams(dec, reqs):
         top2 = [torch.topk(m, 2).values for m in margins]
         out.append((toks, [float(t[0] - t[1]) for t in top2]))
     return out
-
-
-def iteration_ms(dec, reqs):
-    """Host-clock median of one mixed iteration at full residency (8 rows
-    decoding just past their prompts), alone and with the longest
-    prompt's prefill chunk fused in.  Leaves the decoder reset."""
-    dec.reset()
-    pos = np.array([len(p) + MAX_TOKENS // 2 for p in reqs], np.int32)
-    for s, p in enumerate(reqs):
-        dec.alloc_sequence(s, p)
-        dec.ensure_blocks(s, int(pos[s]))
-    toks = np.ones(SLOTS, np.int32)
-    live = np.ones(SLOTS, bool)
-
-    def median_ms(chunk):
-        times = []
-        for i in range(13):
-            t0 = time.perf_counter()
-            dec.mixed_step(SLOTS, toks, pos, live=live, chunk=chunk)
-            torch.cuda.synchronize()
-            if i >= 3:                                # 3 warm-up calls
-                times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[len(times) // 2]
-
-    decode = median_ms(None)
-    longest = int(np.argmax([len(p) for p in reqs]))
-    chunk = median_ms((longest, reqs[longest], 0))
-    dec.reset()
-    return decode, chunk
 
 
 def main_path():
@@ -1013,10 +975,13 @@ def main_path():
           f"{len(reqs)}", flush=True)
     iters = {"kernels": iteration_ms(decoder, reqs),
              "plain": iteration_ms(ref_dec, reqs)}
-    for name, (dec_ms, chunk_ms) in iters.items():
+    for name, it in iters.items():
         print(f"mixed iteration, {SLOTS} residents, {name} path: decode "
-              f"only {dec_ms:.3f} ms; with a {max(map(len, reqs))}-token "
-              f"prefill chunk {chunk_ms:.3f} ms", flush=True)
+              f"only {it['decode_ms']:.3f} ms (device busy "
+              f"{it['decode_busy_ms']:.3f} ms of it, idle share "
+              f"{it['decode_idle_share']:.1%}, torch.profiler over 5); with "
+              f"a {max(map(len, reqs))}-token prefill chunk "
+              f"{it['chunk_ms']:.3f} ms", flush=True)
     return launches, stats, iters
 
 
@@ -2619,16 +2584,17 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     within TOL at float32, each row within CONV_ROW_TOL of its norm at
     bf16.  7b's relu boundary: folds exactly 0 dropped as the forward
     drops them.  At float32 the autograd Functions' gradients; at bf16
-    planted faults that must fail the checks: 8's last K slice (8 input
-    channels) left out, one of 9's nine taps, 7b's mask taken on the
+    planted faults that must fail the checks: 8's last 8 input channels
+    left out, and its channels 16-31 (one 16-deep k-step of its
+    tensor-core product), one of 9's nine taps, 7b's mask taken on the
     float32 fold on activations placed where it and the bf16 fold
     disagree, and 16 input channels of one of 9's taps (one 16-deep
-    k-step of its tensor-core product); 9's bf16 kernel's registers and
-    local memory by copy width (a spill fails).  Then each shape's device
-    time (``time_ms(lead=True)``) beside its bound (the operands' bytes,
-    the operations at the card's peak for their type; at bf16 also
-    ``fma_bound_ms``, the floor at the 67 TFLOP/s of the float32 FMAs,
-    for the instances that run them: all but 9's), the plain
+    k-step of its tensor-core product); 8's and 9's bf16 kernels'
+    registers and local memory by copy width (a spill fails).  Then each
+    shape's device time (``time_ms(lead=True)``) beside its bound (the
+    operands' bytes, the operations at the card's peak for their type; at
+    bf16 also ``fma_bound_ms``, the floor at the 67 TFLOP/s of the float32
+    FMAs, for 7a and 7b, which sum on the CUDA cores), the plain
     version's, and a library yardstick the port never calls on the same
     inputs (``torch.var_mean``; ``torch.batch_norm_backward_reduce``,
     which takes the same two sums without the relu mask; ``torch.mm`` and
@@ -2769,21 +2735,31 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
               f"max |ref|) (limit {tol}): fails, as it must", flush=True)
         del fold32, bad
     del x2, dout
-    for p, ci, co in list(conv1) + [(1000, 37, 70), (4099, 64, 200)]:
+    # the ragged shapes: every copy width of the bf16 instance (one
+    # element, 16-byte copies with Co past a 64-wide tile, 8-byte copies)
+    for p, ci, co in list(conv1) + [(1000, 37, 70), (4099, 64, 200),
+                                    (2000, 36, 100)]:
         x2 = randn(p, ci).to(dtype)
         w2 = randn(ci, co, scale=ci ** -0.5).to(dtype)
         ref = cb._matmul_stats_ref(x2, w2)
         hold_conv("matmul_stats", f"matmul_stats{sfx} {(p, ci, co)}",
                   cb.matmul_stats_cuda(x2, w2), ref)
         if bf16 and [p, ci, co] == rep["matmul_stats"]:
-            cut = x2.clone()
-            cut[:, -8:] = 0          # the last K slice left out
-            got = cb.matmul_stats_cuda(cut, w2)
-            faults["matmul_stats"] = _o_row_err(got[0], ref[0])
-            if faults["matmul_stats"] <= CONV_ROW_TOL:
-                raise AssertionError("matmul_stats bf16 planted fault "
-                                     "passed the row check")
-            del cut, got
+            faults["matmul_stats"] = {}
+            # the last 8 input channels left out; one 16-deep k-step of
+            # the tensor cores' product (channels 16-31, the first slice's
+            # second k-step, in the middle of K)
+            for fname, sl in (("last 8 channels", slice(ci - 8, ci)),
+                              ("channels 16-31", slice(16, 32))):
+                cut = x2.clone()
+                cut[:, sl] = 0
+                got = cb.matmul_stats_cuda(cut, w2)
+                err = _o_row_err(got[0], ref[0])
+                faults["matmul_stats"][fname] = err
+                if err <= CONV_ROW_TOL:
+                    raise AssertionError(f"matmul_stats bf16 planted fault "
+                                         f"({fname}) passed the row check")
+                del cut, got
         del x2, w2, ref
     # the ragged shapes: every staging of the bf16 instance (one element,
     # 16-byte copies with Co past the 64-wide tile, 8-byte copies: Ci = 4
@@ -2850,12 +2826,12 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     mma_res = None
     if bf16:
         mma_res = cb.conv_mma_resources()
-        print("conv3x3_stats bf16 tensor-core kernel's resources "
-              "(cudaFuncGetAttributes, by copy width): " + ", ".join(
-                  f"{n} {r} registers, {l_} bytes local"
-                  for n, (r, l_) in mma_res.items()), flush=True)
+        print("matmul_stats and conv3x3_stats bf16 tensor-core kernels' "
+              "resources (cudaFuncGetAttributes, by copy width): "
+              + ", ".join(f"{n} {r} registers, {l_} bytes local"
+                          for n, (r, l_) in mma_res.items()), flush=True)
         if any(l_ for _, l_ in mma_res.values()):
-            raise AssertionError(f"the bf16 kernel 9 spills: {mma_res}")
+            raise AssertionError(f"a bf16 kernel 8 or 9 spills: {mma_res}")
 
     # ---- times at every main-path shape
     def bounds(flops, nbytes, fma=bf16):
@@ -2903,7 +2879,8 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                 library_ms=time_ms(lambda: torch.mm(x2, w2), flush,
                                    lead=True),
                 **bounds(2.0 * p * ci * co + 3.0 * p * co,
-                         es * (p * ci + ci * co + p * co) + 4.0 * 2 * co)))
+                         es * (p * ci + ci * co + p * co) + 4.0 * 2 * co,
+                         fma=False)))
             del x2, w2
         for (n, h, w_, ci, co), count in conv3.items():
             x4 = randn(n, h, w_, ci).to(dtype)
@@ -2959,9 +2936,11 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
         if k in faults:
             out[k]["planted_fault"] = faults[k]
     if mma_res is not None:
-        regs, local = mma_res["conv3x3_w8"]
-        out["conv3x3_stats"].update(registers=regs, local_bytes=local,
-                                    resources=mma_res)
+        for k, name in (("matmul_stats", "matmul"),
+                        ("conv3x3_stats", "conv3x3")):
+            regs, local = mma_res[f"{name}_w8"]
+            out[k].update(registers=regs, local_bytes=local, resources={
+                n: r for n, r in mma_res.items() if n.startswith(name)})
     return out
 
 
@@ -3246,7 +3225,10 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
 # device copy of the feed; the rest is elementwise passes and reductions
 # (batch-norm apply and backward, relu, residual adds, the loss's
 # logsumexp and gather, Momentum)
+# a kernel's part: the first whose keys its name holds (the conv kernels'
+# bf16 instance, conv_mma_stats_kernel, before "conv" takes it for cuDNN)
 _PARTS = (("the kernels (7a, 7b, 8, 9)", ("gemm_stats_kernel",
+                                          "mma_stats_kernel",
                                           "fwd_partial_kernel",
                                           "bwd_partial_kernel",
                                           "finish_kernel")),
@@ -3257,6 +3239,12 @@ _PARTS = (("the kernels (7a, 7b, 8, 9)", ("gemm_stats_kernel",
           ("feed copy (host to device)", ("Memcpy HtoD",)))
 _REST = ("elementwise and reductions (BN apply and backward, relu, adds, "
          "loss, Momentum)")
+
+
+def part_of(kname: str) -> str:
+    """The part of a ResNet step a device activity of that name is in."""
+    return next((name for name, keys in _PARTS
+                 if any(k in kname for k in keys)), _REST)
 
 
 def resnet_breakdown(trainer, feed):
@@ -3275,12 +3263,7 @@ def resnet_breakdown(trainer, feed):
     parts = {name: 0.0 for name, _ in _PARTS}
     parts[_REST] = 0.0
     for kname, (ms, _) in prof["per_name"].items():
-        for name, keys in _PARTS:
-            if any(k in kname for k in keys):
-                parts[name] += ms
-                break
-        else:
-            parts[_REST] += ms
+        parts[part_of(kname)] += ms
     step = t["step"]
     print(f"ResNet-50 step breakdown at batch {len(feed['label'])}: step "
           f"{step:.1f} ms (CUDA events); Momentum alone {t['Momentum']:.1f}"
@@ -3527,8 +3510,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches, _, iters = main_path()
-    share = LAYERS * paged_t["kernel_ms"] / iters["kernels"][0]
-    print(f"paged_decode kernel launches (alone, timed above) cover about "
+    share = LAYERS * paged_t["ms"] / iters["kernels"]["decode_ms"]
+    print(f"paged_decode calls (one launch each, timed above) cover about "
           f"{share:.1%} of a decode-only iteration", flush=True)
     torch.cuda.empty_cache()
     train = train_path(bwd["fwd"]["ms"] + bwd["dkdv"]["ms"]
@@ -3582,9 +3565,11 @@ def main() -> int:
          "source": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:59",
          "launches": launches["paged_decode"], "max_abs_err": paged_err,
-         "ms": paged_t["ms"], "kernel_ms": paged_t["kernel_ms"],
-         "plain_ms": paged_t["plain_ms"], "bound_ms": paged_t["bound_ms"],
-         "bound_by": paged_t["bound_by"], "library_ms": None,
+         "ms": paged_t["ms"], "host_ms": paged_t["host_ms"],
+         "plain_ms": paged_t["plain_ms"],
+         "bound_ms": paged_t["bound_ms"], "bound_by": paged_t["bound_by"],
+         "library_ms": None, "registers": paged_t["registers"],
+         "local_bytes": paged_t["local_bytes"],
          "shape": {"S": SLOTS, "H": HEADS, "D": DIM // HEADS, "BS": BLOCK,
                    "MB": MAX_LEN // BLOCK, "NB": 1 + SLOTS * MAX_LEN // BLOCK,
                    "pos": paged_t["pos"], "kv_splits": paged_t["kv_splits"]}},
@@ -3668,6 +3653,7 @@ def main() -> int:
              o_row_err=max(r["o_row_err"] for vs in
                            var["variants"].values() for r in vs.values())),
     ]
+    print(json.dumps({"serving": {"iterations": iters}}), flush=True)
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
                               "peak_gb", "parity", "breakdown")}}),

@@ -28,9 +28,9 @@ statistics' cotangents in float32, casts the effective dy to x's dtype,
 and runs the products on operands of that dtype, so dx and dw come back
 in x's and w's.  The CUDA kernels have an instance for each: float32
 operands or bf16 ones; a float16 operand raises (``ROADMAP.md`` section
-2, K5).  Kernel 9's bf16 instance runs on the tensor cores (bf16
-products accumulated in float32: the same y up to the order of the
-sums), the others on the CUDA cores' float32 FMAs.
+2, K5).  The bf16 instances of both kernels run on the tensor cores
+(bf16 products accumulated in float32: the same y up to the order of the
+sums), the float32 ones on the CUDA cores' float32 FMAs.
 """
 
 from __future__ import annotations
@@ -75,11 +75,14 @@ _SIGNATURES = {
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
     **{f"conv3x3_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
-    "conv3x3_mma_resources": [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                              ctypes.POINTER(ctypes.c_int)],
+    "conv_mma_resources": [ctypes.c_int] * 2
+                          + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
-# kernel 9's bf16 instance: elements a copy, for _vec(wide=True) = 2, 1, 0
+# the bf16 instances: elements a copy, for _vec(wide=True) = 2, 1, 0
 CONV_MMA_WIDTHS = (8, 4, 1)
+# their A operand: taps gathered a pixel (kernel 8's dense x, kernel 9's
+# 3x3 patches)
+CONV_MMA_TAPS = {"matmul": 1, "conv3x3": 9}
 
 
 def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
@@ -93,7 +96,7 @@ def _vec(ci, co, *tensors, wide: bool = False) -> int:
     """How the kernel may stage its operands: 1 where it may move 4
     elements a load and store (16 bytes of float32, 8 of bf16), Ci and Co
     multiples of 4 and every operand aligned to 4 elements, else 0 (one
-    element at a time).  With ``wide`` (kernel 9's bf16 instance, whose
+    element at a time).  With ``wide`` (the bf16 instances, whose
     cp.async copies also take 16 bytes of bf16) 2 where Ci and Co are
     multiples of 8 and every operand is aligned to 8 elements."""
     def fits(n):
@@ -117,8 +120,11 @@ def _outputs(rows, co, shape, device, dtype):
 def matmul_stats_cuda(x2, w2):
     """Kernel 8: (y = x2 @ w2, sum y, sum y^2) for x2 [P, Ci], w2 [Ci, Co],
     both float32 or both bf16; y in their dtype, the sums float32 of the
-    unrounded y.  One call is two launches (the product with its partial
-    statistics, then their fixed-order sum), counted as one."""
+    unrounded y.  float32 runs the CUDA-core tile, bf16 the tensor-core
+    kernel, copying 16 bytes, 8 or one element at a time as
+    ``_vec(wide=True)`` finds.  One call is two launches (the product with
+    its partial statistics, then their fixed-order sum; three at bf16,
+    where the sum runs over chunks of rows first), counted as one."""
     p, ci = x2.shape
     co = w2.shape[1]
     dev = x2.device
@@ -130,8 +136,9 @@ def matmul_stats_cuda(x2, w2):
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
     err = getattr(lib, f"matmul_stats_{KERNEL_DTYPES[x2.dtype]}")(
-        x2.data_ptr(), w2.data_ptr(), p, ci, co, _vec(ci, co, x2, w2, y),
-        y.data_ptr(), part.data_ptr(), s.data_ptr(), ss.data_ptr(),
+        x2.data_ptr(), w2.data_ptr(), p, ci, co,
+        _vec(ci, co, x2, w2, y, wide=x2.dtype == _BF16), y.data_ptr(),
+        part.data_ptr(), s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "matmul_stats")
     matmul_stats_cuda.launches += 1
@@ -148,7 +155,8 @@ def conv3x3_stats_cuda(x4, w4):
     [3, 3, Ci, Co] (both float32 or both bf16; y in their dtype), with sum
     y and sum y^2 per channel, float32.  float32 runs the CUDA-core tile,
     bf16 the tensor-core kernel, copying 16 bytes, 8 or one element at a
-    time as ``_vec(wide=True)`` finds.  Two launches, counted as one."""
+    time as ``_vec(wide=True)`` finds.  Two launches (three at bf16),
+    counted as one."""
     n, h, w, ci = x4.shape
     co = w4.shape[-1]
     dev = x4.device
@@ -175,13 +183,14 @@ conv3x3_stats_cuda.launches = conv3x3_stats_cuda.launches_bf16 = 0
 
 def conv_mma_resources() -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
-    kernel spills or keeps a stack) of kernel 9's bf16 tensor-core
-    instance at each copy width, from ``cudaFuncGetAttributes``:
-    ``{"conv3x3_w8": (regs, local_bytes), "conv3x3_w4": ..., ...}``.
+    kernel spills or keeps a stack) of the bf16 tensor-core instances of
+    kernels 8 and 9 at each copy width, from ``cudaFuncGetAttributes``:
+    ``{"matmul_w8": (regs, local_bytes), ..., "conv3x3_w1": ...}``.
     Needs a card."""
     lib = _build.load("conv_bn", _SIGNATURES)
-    return {f"conv3x3_w{width}": _build.resources(
-        lib, lib.conv3x3_mma_resources, width)
+    return {f"{name}_w{width}": _build.resources(
+        lib, lib.conv_mma_resources, taps, width)
+        for name, taps in CONV_MMA_TAPS.items()
         for width in CONV_MMA_WIDTHS}
 
 

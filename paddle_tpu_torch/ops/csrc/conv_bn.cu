@@ -17,46 +17,51 @@
 // kernel needed its h-tile to divide H and fetched clamped halo rows).
 // Statistics, every instance: each block writes one row of [R, Co]
 // partial sums (R = ceil(P / 128): a block owns 128 output pixels) taken
-// from the float32 accumulators in a fixed order, and a second small
-// launch (stat_reduce.cuh) adds the R rows in a fixed order.  No float
-// atomics: the statistics are the same on every run.  Rows of A past P
+// from the float32 accumulators in a fixed order, and stat_reduce.cuh
+// adds the R rows in a fixed order: one more launch for the float32
+// instances (finish), two for the bf16 ones (finish_chunked: runs of 64
+// rows first, so the pass is spread over the card).  No float atomics:
+// the statistics are the same on every run.  Rows of A past P
 // (or pixels outside the image) and columns of W past Co load zeros, so
 // they add nothing to the statistics; y is written only inside [P, Co].
 //
-// What bounds them on the H100: operations, at float32.  ResNet-50's res2
+// What bounds them on the H100.  At float32, operations: ResNet-50's res2
 // expand ([401408, 64] x [64, 256]) is 13.2 GFLOP against 0.27 GB (0.196
 // ms of float32 FMAs at 67 TFLOP/s against 0.080 ms of bytes); its res2
 // 3x3 ([128, 56, 56, 64] -> 64) 29.6 GFLOP.  At bf16 on the tensor cores
-// (989 TFLOP/s) the res2 3x3 at batch 256 is bound by its bytes: 59.2
-// GFLOP (0.060 ms) against x and y, 0.21 GB (0.061 ms).
+// (989 TFLOP/s), bytes: the res2 expand at batch 256 ([802816, 64] x
+// [64, 256]) is 26.3 GFLOP (0.027 ms) against 0.51 GB (0.153 ms), of
+// which y is 0.41 GB; the res2 3x3 59.2 GFLOP (0.060 ms) against x and
+// y, 0.21 GB (0.061 ms).
 //
-// The SIMT tile (gemm_stats_kernel): kernel 8 at float32 and bf16,
-// kernel 9 at float32.  The products run in full float32 on the CUDA
-// cores (no TF32: y must agree with its plain version to 1e-4 of its
-// scale).  A block owns a 128 x 128 tile of y (output pixels x output
-// channels) and walks K in slices of 8: each slice of A (transposed,
-// padded against bank conflicts) and of W is staged in shared memory, the
-// next slice's loads in flight in registers while the current one is
-// multiplied (two buffers, one barrier a slice).  256 threads each hold
-// 8 x 8 sums; each sums its 8 rows per column and the 16 threads of a
-// column meet in shared memory.  Where Ci and Co are multiples of 4 the
-// loads and the y stores are vectors (16 bytes of float32, 8 of bf16);
-// otherwise scalar.  Kernel 8's bf16 instance converts each element to
-// float as it is staged and runs float32 FMAs: a product of two bf16
-// values is exact in float32, so this is the MXU's arithmetic; y is
-// rounded to bf16 once, at its store.  Its tensor-core instance is later
-// work; the float32 instances are the code before the templates.
+// The float32 instances (gemm_stats_kernel<DenseA<float>> for kernel 8,
+// <Conv3x3A<float>> for kernel 9) are the SIMT tile.  The products run in
+// full float32 on the CUDA cores (no TF32: y must agree with its plain
+// version to 1e-4 of its scale).  A block owns a 128 x 128 tile of y
+// (output pixels x output channels) and walks K in slices of 8: each
+// slice of A (transposed, padded against bank conflicts) and of W is
+// staged in shared memory, the next slice's loads in flight in registers
+// while the current one is multiplied (two buffers, one barrier a slice).
+// 256 threads each hold 8 x 8 sums; each sums its 8 rows per column and
+// the 16 threads of a column meet in shared memory.  Where Ci and Co are
+// multiples of 4 the loads and the y stores are 16-byte vectors;
+// otherwise scalar.
 //
-// Kernel 9 at bf16 (conv3x3_mma_stats_kernel<W>), on the tensor cores.
-// The JAX kernel computes y in float32 from bf16 operands; mma.sync
-// m16n8k16 bf16 -> float32 computes the same, up to the order of the
-// sums, and the statistics come from the same unrounded accumulators.
-// A block of 8 warps owns 128 pixels x 64 channels of y (so Co = 64, all
-// of res2, wastes nothing; ResNet-50's Co are multiples of 64), each warp
-// 32 x 32.  K is walked a tap at a time in slices of 32 input channels:
-// a slice of A, [128 pixels, 32 channels of one tap], is gathered by
-// cp.async straight from x's NHWC rows (a pixel's 32 channels are
-// contiguous), the matching [32, 64] slice of W by cp.async, both into
+// The bf16 instances of both (conv_mma_stats_kernel<kTaps, W>: kTaps 1
+// for kernel 8's dense A, 9 for kernel 9's 3x3 patches) run on the tensor
+// cores.  The JAX kernels compute y in float32 from bf16 operands;
+// mma.sync m16n8k16 bf16 -> float32 computes the same, up to the order of
+// the sums, and the statistics come from the same unrounded accumulators.
+// A block of 8 warps owns 128 pixels x 64 channels of y, each warp
+// 32 x 32 (ResNet-50's Co are multiples of 64, so no column is wasted).
+// 64 channels and not 128 where Co >= 128: with the per-slice sums below
+// a 32 x 64 warp tile would hold 64 accumulators and their slice's, one
+// block an SM; a 64-wide tile re-reads A once for each 64 of Co, from L2,
+// since a row tile's column tiles are neighbours in the grid.  K is walked
+// a tap at a time in slices of 32 input channels: a slice of A, [128
+// pixels, 32 channels of one tap], is copied by cp.async straight from
+// x's rows (a pixel's channels are contiguous; for kernel 8 row m is at
+// x + m Ci), the matching [32, 64] slice of W by cp.async, both into
 // shared memory with rows padded by 16 bytes (ldmatrix's eight row
 // addresses fall in distinct banks); three stages, two slices in flight
 // while one is multiplied, one barrier a slice.  A fragments come by
@@ -64,20 +69,29 @@
 // elements (16 bytes; Ci and Co multiples of 8, operands 16-byte
 // aligned), 4 (8 bytes; multiples of 4) or 1 (plain loads and stores),
 // as the wrapper chooses; a tap's channels past Ci and columns past Co
-// are zero-filled.  Epilogue: y rounded to bf16 once and stored as bf16
-// pairs; each column's sum and sum of squares over the thread's 4 rows,
-// then over the 8 lanes that share the column (shuffles), then over the
-// 4 warps along the pixels in shared memory, in a fixed order.  Each
-// slice's products accumulate on the tensor cores into fresh registers,
-// which join the running sums in float32 adds: the tensor cores' own
-// accumulation, run through all of K, moved the statistics by a bias that
-// grew with K, past the plain version's spread at res5 (K = 4608).  wgmma
-// with TMA im2col is later work.
+// are zero-filled by the copy itself.  The first slice's products
+// accumulate on the tensor cores into acc; each later slice's, a quarter
+// of the warp's tile at a time, into 8 fresh registers, which join the
+// running sums in float32 adds: the tensor cores' own accumulation, run
+// through all of K, moved the statistics by a bias that grew with K, past
+// the plain version's spread at res5 (K = 4608 for kernel 9; kernel 8's K
+// reaches 2048).  Epilogue: y rounded to bf16 once and staged in the
+// operands' shared memory; each column's sum and sum of squares over the
+// thread's 4 rows, then over the 8 lanes that share the column (a halving
+// exchange: 14 shuffles for the thread's 16 sums), then over the 4 warps
+// along the pixels in shared memory, in a fixed order; then y stored in
+// row order, W elements a store (at W 8, eight threads write a row's 128
+// bytes: y is most of kernel 8's bytes).  Kernel 8 at W 8 fits in 80
+// registers, so three blocks share an SM (two for the others): at K 64
+// its blocks are short, and a third block on the SM hides more of each
+// one's load and epilogue.  wgmma, TMA loads (im2col for kernel 9) and a
+// persistent grid are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "dtype.cuh"
 #include "mma_bf16.cuh"
@@ -152,7 +166,7 @@ struct Conv3x3A {
 
 // y [M, Co] = A [M, K] B [K, Co], with per-column sum y and sum y^2 of this
 // block's rows written to row (tile / n_col_tiles) of part_s and part_ss.
-// A, B and y are of the loader's element type T.  kVec: K and Co are
+// A, B and y are float32 (the loader's element type).  kVec: K and Co are
 // multiples of 4 and every operand is aligned to 4 elements.
 template <class ALoader, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -161,6 +175,8 @@ gemm_stats_kernel(ALoader A, const typename ALoader::Elem* __restrict__ B,
                   typename ALoader::Elem* __restrict__ y,
                   float* __restrict__ part_s, float* __restrict__ part_ss) {
   using T = typename ALoader::Elem;
+  static_assert(std::is_same_v<T, float>,
+                "the bf16 instances are conv_mma_stats_kernel");
   __shared__ Smem sm;
   const int rt = blockIdx.x / n_col_tiles, ct = blockIdx.x % n_col_tiles;
   const int m0 = rt * kBM, c0 = ct * kBN;
@@ -256,30 +272,15 @@ gemm_stats_kernel(ALoader A, const typename ALoader::Elem* __restrict__ B,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + h * 64 + tx * 4;
-      if constexpr (kVec && std::is_same_v<T, float>) {
+      if constexpr (kVec) {
         if (c < Co)
           *reinterpret_cast<float4*>(yr + c) =
               make_float4(acc[i][h * 4], acc[i][h * 4 + 1],
                           acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-      } else if constexpr (kVec) {
-        if (c < Co) {
-          const __nv_bfloat162 lo =
-              __floats2bfloat162_rn(acc[i][h * 4], acc[i][h * 4 + 1]);
-          const __nv_bfloat162 hi =
-              __floats2bfloat162_rn(acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-          uint2 u;
-          u.x = *reinterpret_cast<const unsigned*>(&lo);
-          u.y = *reinterpret_cast<const unsigned*>(&hi);
-          *reinterpret_cast<uint2*>(yr + c) = u;
-        }
-      } else if constexpr (std::is_same_v<T, float>) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < Co) yr[c + j] = acc[i][h * 4 + j];
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (c + j < Co) yr[c + j] = __float2bfloat16_rn(acc[i][h * 4 + j]);
+          if (c + j < Co) yr[c + j] = acc[i][h * 4 + j];
       }
     }
   }
@@ -348,7 +349,7 @@ int conv3x3_stats(const void* x, const void* w, int N, int H, int W, int Ci,
   return launch(a, w, M, K, Co, vec, y, part, s, ss, (cudaStream_t)stream);
 }
 
-// ------------------------------------------ kernel 9 at bf16, tensor cores
+// ------------------------------- kernels 8 and 9 at bf16, tensor cores
 using mma::bf16;
 
 constexpr int kMmaBM = 128;     // output pixels a block: R = ceil(P / 128)
@@ -358,20 +359,79 @@ constexpr int kMmaThreads = 256;   // 8 warps: 4 along pixels x 2 channels
 constexpr int kStages = 3;
 constexpr int kAS = kMmaBK + 8;    // padded row of an A slice (bf16)
 constexpr int kBS = kMmaBN + 8;    // padded row of a W slice
+constexpr int kYS = kMmaBN + 8;    // padded row of the staged y tile
 constexpr int kStageElems = kMmaBM * kAS + kMmaBK * kBS;
 static_assert(kMmaBM == kBM, "the partial statistics keep R = ceil(P / 128)");
+static_assert(kMmaBM * kYS <= kStages * kStageElems,
+              "y's tile is staged in the operands' buffers");
+
+// W bytes (16 or 8) from src to the shared address smem + kOff, or zeros
+// where !ok (a source size of 0 reads nothing; src must still be a valid
+// address).  The immediate offset lets one base address serve a thread's
+// rows.
+template <int kBytes, int kOff>
+__device__ __forceinline__ void copy_or_zero(uint32_t smem, const void* src,
+                                             bool ok) {
+  static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte copies");
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0+%3], [%1], 16, %2;\n" ::"r"(
+                     smem),
+                 "l"(src), "r"(ok ? 16 : 0), "n"(kOff)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0+%3], [%1], 8, %2;\n" ::"r"(
+                     smem),
+                 "l"(src), "r"(ok ? 8 : 0), "n"(kOff)
+                 : "memory");
+}
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, i a constant in f
+template <class F, int... I>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// c ? a : b, a select on the values
+__device__ __forceinline__ float pick(bool c, float a, float b) {
+  float r;
+  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\nselp.f32 %0, %1, %2, p;\n}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((int)c));
+  return r;
+}
+
+// One step of the halving exchange of v[0 .. 2W) over the lanes xor 2W: a
+// lane keeps the lower half (or, with lane bit 2W set, the upper half),
+// adding its partner's copy of it, into v[0 .. W).
+template <int kW>
+__device__ __forceinline__ void halve(float (&v)[16], int lane) {
+  const bool hi = lane & (2 * kW);
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    const float keep = pick(hi, v[kW + k], v[k]);
+    const float give = pick(hi, v[k], v[kW + k]);
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, give, 2 * kW);
+  }
+}
 
 // y [M, Co] and the per-column partial statistics of this block's rows
-// (row blockIdx.x / n_col_tiles of part_s and part_ss) for the 3x3 SAME
-// conv of x [N, H, Wd, Ci] (M = N H Wd pixels) with w [3, 3, Ci, Co], W
-// elements a copy.
-template <int W>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-conv3x3_mma_stats_kernel(const bf16* __restrict__ x,
-                         const bf16* __restrict__ w, int M, int H, int Wd,
-                         int Ci, int Co, int n_col_tiles,
-                         bf16* __restrict__ y, float* __restrict__ part_s,
-                         float* __restrict__ part_ss) {
+// (row blockIdx.x / n_col_tiles of part_s and part_ss), W elements a copy.
+// kTaps says how A is gathered from x: 1, A is x [M, Ci] itself (kernel 8,
+// H and Wd unused); 9, A is the 3x3 SAME patches of x [N, H, Wd, Ci] with
+// w [3, 3, Ci, Co] (kernel 9, M = N H Wd).
+template <int kTaps, int W>
+__global__ void __launch_bounds__(kMmaThreads, kTaps == 1 && W == 8 ? 3 : 2)
+conv_mma_stats_kernel(const bf16* __restrict__ x,
+                      const bf16* __restrict__ w, int M, int H, int Wd,
+                      int Ci, int Co, int n_col_tiles,
+                      bf16* __restrict__ y, float* __restrict__ part_s,
+                      float* __restrict__ part_ss) {
+  static_assert(kTaps == 1 || kTaps == 9, "a dense A or the 3x3 patches");
   __shared__ __align__(16) bf16 smem[kStages * kStageElems];
   __shared__ float red[2][4][kMmaBN];
   const int rt = blockIdx.x / n_col_tiles, ct = blockIdx.x % n_col_tiles;
@@ -380,82 +440,83 @@ conv3x3_mma_stats_kernel(const bf16* __restrict__ x,
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
   const int cpt = (Ci + kMmaBK - 1) / kMmaBK;    // slices a tap
-  const int n_slices = 9 * cpt;
+  const int n_slices = kTaps * cpt;
 
   // A: a thread copies channels ac..ac+W-1 of rows tid / kCpr + j kRStep;
-  // each row's pixel index (-1 past M) and (h << 16 | w), kept for W 8
-  // and 4, recomputed for W 1
+  // each row's pixel index (-1 past M) and, for the 3x3 patches,
+  // (h << 16 | w), kept for W 8 and 4, recomputed for W 1
   constexpr int kCpr = kMmaBK / W;
   constexpr int kRStep = kMmaThreads / kCpr;
   constexpr int kNR = kMmaBM / kRStep;
-  constexpr bool kKeep = W > 1;
-  const int ac = (tid % kCpr) * W;
+  constexpr bool kKeep = kTaps == 9 && W > 1;
+  const int ar = tid / kCpr, ac = (tid % kCpr) * W;
   int pix[kKeep ? kNR : 1], phw[kKeep ? kNR : 1];
   auto pixel = [&](int r, int& m, int& hw) {
     m = m0 + r;
+    hw = 0;
     if (m >= M) {
       m = -1;
-      hw = 0;
       return;
     }
-    const int ww = m % Wd, hh = (m / Wd) % H;
-    hw = (hh << 16) | ww;
+    if constexpr (kTaps == 9) {
+      const int ww = m % Wd, hh = (m / Wd) % H;
+      hw = (hh << 16) | ww;
+    }
   };
   if constexpr (kKeep) {
 #pragma unroll
-    for (int j = 0; j < kNR; ++j) pixel(tid / kCpr + j * kRStep, pix[j], phw[j]);
+    for (int j = 0; j < kNR; ++j) pixel(ar + j * kRStep, pix[j], phw[j]);
   }
   // W: a thread copies columns of rows idx / kBCpr, idx = tid + j threads
   constexpr int kBCpr = kMmaBN / W;
   constexpr int kBIters = kMmaBK * kBCpr / kMmaThreads;
 
   auto load_slice = [&](int sl, int st) {
-    const int tap = sl / cpt, cb = (sl - tap * cpt) * kMmaBK;
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    const int tap = kTaps == 1 ? 0 : sl / cpt;
+    const int cb = (sl - tap * cpt) * kMmaBK;
+    const int dh = kTaps == 1 ? 0 : tap / 3 - 1;
+    const int dw = kTaps == 1 ? 0 : tap % 3 - 1;
     bf16* sA = smem + st * kStageElems;
     bf16* sB = sA + kMmaBM * kAS;
     const int ci = cb + ac;
-#pragma unroll
-    for (int j = 0; j < kNR; ++j) {
-      const int r = tid / kCpr + j * kRStep;
+    // shared addresses: this thread's first row, the others at immediate
+    // offsets from it
+    const uint32_t a_dst = mma::smem_u32(sA + ar * kAS + ac);
+    static_for<kNR>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
       int m, hw;
       if constexpr (kKeep) {
         m = pix[j];
         hw = phw[j];
       } else {
-        pixel(r, m, hw);
+        pixel(ar + j * kRStep, m, hw);
       }
-      const int hh = (hw >> 16) + dh, ww = (hw & 0xffff) + dw;
-      const bool ok = m >= 0 && ci < Ci && (unsigned)hh < (unsigned)H &&
-                      (unsigned)ww < (unsigned)Wd;
-      const bf16* src = x + ((long long)m + dh * Wd + dw) * Ci + ci;
-      bf16* dst = sA + r * kAS + ac;
-      if constexpr (W == 8) {
-        if (ok) mma::cp_async16(dst, src);
-        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      } else if constexpr (W == 4) {
-        if (ok) mma::cp_async8(dst, src);
-        else *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      bool ok = m >= 0 && ci < Ci;
+      if constexpr (kTaps == 9) {
+        const int hh = (hw >> 16) + dh, ww = (hw & 0xffff) + dw;
+        ok = ok && (unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)Wd;
+      }
+      // 32-bit offsets: x and w have fewer than 2^31 elements (the wrapper
+      // checks)
+      const bf16* src = x + ((m + dh * Wd + dw) * Ci + ci);
+      if constexpr (W > 1) {
+        copy_or_zero<W * 2, j * kRStep * kAS * 2>(a_dst, ok ? src : x, ok);
       } else {
+        bf16* dst = sA + (ar + j * kRStep) * kAS + ac;
         *dst = ok ? *src : __float2bfloat16_rn(0.f);
       }
-    }
+    });
 #pragma unroll
     for (int j = 0; j < kBIters; ++j) {
       const int idx = tid + j * kMmaThreads;
       const int kk = idx / kBCpr, cc = idx % kBCpr * W;
       const bool ok = cb + kk < Ci && c0 + cc < Co;
-      const bf16* src = w + ((long long)tap * Ci + cb + kk) * Co + c0 + cc;
+      const bf16* src = w + ((tap * Ci + cb + kk) * Co + c0 + cc);
       bf16* dst = sB + kk * kBS + cc;
-      if constexpr (W == 8) {
-        if (ok) mma::cp_async16(dst, src);
-        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      } else if constexpr (W == 4) {
-        if (ok) mma::cp_async8(dst, src);
-        else *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-      } else {
+      if constexpr (W > 1)
+        copy_or_zero<W * 2, 0>(mma::smem_u32(dst), ok ? src : w, ok);
+      else
         *dst = ok ? *src : __float2bfloat16_rn(0.f);
-      }
     }
   };
 
@@ -472,105 +533,134 @@ conv3x3_mma_stats_kernel(const bf16* __restrict__ x,
     if (sl < n_slices) load_slice(sl, sl);
     mma::cp_async_commit();
   }
+  // the stages slice it is in, and slice it + kStages - 1 goes to
+  int st_use = 0, st_load = kStages - 1;
   for (int it = 0; it < n_slices; ++it) {
     mma::cp_async_wait<kStages - 2>();   // slice it has landed
     __syncthreads();                     // and every warp is done with it-1
-    if (it + kStages - 1 < n_slices)
-      load_slice(it + kStages - 1, (it + kStages - 1) % kStages);
+    if (it + kStages - 1 < n_slices) load_slice(it + kStages - 1, st_load);
     mma::cp_async_commit();
-    const bf16* sA = smem + (it % kStages) * kStageElems;
+    st_load = st_load == kStages - 1 ? 0 : st_load + 1;
+    const bf16* sA = smem + st_use * kStageElems;
+    st_use = st_use == kStages - 1 ? 0 : st_use + 1;
     const bf16* sB = sA + kMmaBM * kAS;
-    float sl_acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sl_acc[i][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t af[2][4], bfr[2][4];
+    // a slice's products join the running sums in float32 adds, the first
+    // slice's straight into acc, which holds zeros: run through all of K,
+    // the tensor cores' own accumulation moved the statistics by a bias
+    // that grew with K (on the H100, up to 1.2e-6 of their scale at res2,
+    // 7.5e-6 at res5).  A quarter of the warp's tile at a time (16 rows x
+    // 16 columns), so the fresh sums take 8 registers and, for kernel 8 at
+    // W 8, three blocks fit an SM
+    if (it == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        mma::ldmatrix_x4(af[i], sA + (wm * 32 + i * 16 + (lane & 15)) * kAS
-                                    + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int jp = 0; jp < 2; ++jp)
-        mma::ldmatrix_x4_trans(bfr[jp], sB + (kk * 16 + (lane & 15)) * kBS
+        for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+          for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+            uint32_t af[4], bfr[4];
+            mma::ldmatrix_x4(af, sA + (wm * 32 + i * 16 + (lane & 15)) * kAS
+                                     + kk * 16 + (lane >> 4) * 8);
+            mma::ldmatrix_x4_trans(bfr, sB + (kk * 16 + (lane & 15)) * kBS
                                             + wn * 32 + jp * 16
                                             + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          mma::mma_bf16(sl_acc[i][2 * jp], af[i], bfr[jp][0], bfr[jp][1]);
-          mma::mma_bf16(sl_acc[i][2 * jp + 1], af[i], bfr[jp][2],
-                        bfr[jp][3]);
-        }
+            mma::mma_bf16(acc[i][2 * jp], af, bfr[0], bfr[1]);
+            mma::mma_bf16(acc[i][2 * jp + 1], af, bfr[2], bfr[3]);
+          }
+      continue;
     }
-    // the slice's sums join the running ones in float32 adds: run through
-    // all of K, the tensor cores' own accumulation moved the statistics
-    // by a bias that grew with K (on the H100, up to 1.2e-6 of their
-    // scale at res2, 7.5e-6 at res5)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int jp = 0; jp < 2; ++jp) {
+        float sl[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] += sl_acc[i][n][e];
+        for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+          uint32_t af[4], bfr[4];
+          mma::ldmatrix_x4(af, sA + (wm * 32 + i * 16 + (lane & 15)) * kAS
+                                   + kk * 16 + (lane >> 4) * 8);
+          mma::ldmatrix_x4_trans(bfr, sB + (kk * 16 + (lane & 15)) * kBS
+                                          + wn * 32 + jp * 16
+                                          + (lane >> 4) * 8);
+          mma::mma_bf16(sl[0], af, bfr[0], bfr[1]);
+          mma::mma_bf16(sl[1], af, bfr[2], bfr[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][2 * jp][e] += sl[0][e];
+          acc[i][2 * jp + 1][e] += sl[1][e];
+        }
+      }
   }
   mma::cp_async_wait<0>();               // no copy outlives the block
+  __syncthreads();                       // every warp is done with the slices
 
-  // y: rows m0 + 32 wm + 16 i + g (+ 8), columns c0 + 32 wn + 8 n + 2t (+ 1)
+  // y, rounded to bf16 once, staged in shared memory: rows 32 wm + 16 i +
+  // g (+ 8), columns 32 wn + 8 n + 2t (+ 1) of the tile
+  bf16* sY = smem;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + i * 16 + g + 8 * half;
-      if (m >= M) continue;
-      bf16* yr = y + (long long)m * Co;
+      const int r = wm * 32 + i * 16 + g + 8 * half;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int c = c0 + wn * 32 + n * 8 + 2 * t;
-        const float a = acc[i][n][2 * half], b = acc[i][n][2 * half + 1];
-        if constexpr (W > 1) {         // Co even: c < Co puts c + 1 inside
-          if (c < Co)
-            *reinterpret_cast<uint32_t*>(yr + c) = mma::pack_bf16(a, b);
-        } else {
-          if (c < Co) yr[c] = __float2bfloat16_rn(a);
-          if (c + 1 < Co) yr[c + 1] = __float2bfloat16_rn(b);
-        }
-      }
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<uint32_t*>(sY + r * kYS + wn * 32 + n * 8 + 2 * t) =
+            mma::pack_bf16(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
     }
 
-  // statistics: the thread's 4 rows of each of its 8 columns, then the 8
-  // lanes of a column (xor 4, 8, 16), then the 4 warps along the pixels
-  // in wm order (rows past M and columns past Co hold zeros)
+  // statistics, from the unrounded sums: the thread's 4 rows of each of
+  // its 8 columns (v[2c], v[2c + 1]: sum and sum of squares of column
+  // c = 2n + par), then the 8 lanes that share the columns (g = 0..7) in
+  // a halving exchange: at xor 16, 8 and 4 a lane keeps half of its
+  // values, adding its partner's, so lane g ends with column g's two sums
+  // (14 shuffles where a shuffle a value a step takes 48); then the 4
+  // warps along the pixels in wm order (rows past M and columns past Co
+  // hold zeros)
+  float v[16];
 #pragma unroll
   for (int n = 0; n < 4; ++n)
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
-      float s = 0.f, ss = 0.f;
+      float sm_ = 0.f, sq = 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const float v = acc[i][n][2 * half + par];
-          s += v;
-          ss = fmaf(v, v, ss);
+          const float a = acc[i][n][2 * half + par];
+          sm_ += a;
+          sq = fmaf(a, a, sq);
         }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      }
-      if (g == 0) {
-        const int col = wn * 32 + n * 8 + 2 * t + par;
-        red[0][wm][col] = s;
-        red[1][wm][col] = ss;
-      }
+      v[2 * (2 * n + par)] = sm_;
+      v[2 * (2 * n + par) + 1] = sq;
     }
-  __syncthreads();
+  halve<8>(v, lane);                     // lane bit 4: g's bit 2
+  halve<4>(v, lane);                     // lane bit 3: g's bit 1
+  halve<2>(v, lane);                     // lane bit 2: g's bit 0
+  {
+    const int col = wn * 32 + (g >> 1) * 8 + 2 * t + (g & 1);
+    red[0][wm][col] = v[0];
+    red[1][wm][col] = v[1];
+  }
+  __syncthreads();                       // y's tile and red are complete
+  // y out in row order, W elements a store (16 bytes at W 8: 8 threads
+  // write a row's 128 bytes), only inside [M, Co]
+  constexpr int kYCpr = kMmaBN / W;
+#pragma unroll 4
+  for (int idx = tid; idx < kMmaBM * kYCpr; idx += kMmaThreads) {
+    const int r = idx / kYCpr, cc = idx % kYCpr * W;
+    const int m = m0 + r, c = c0 + cc;
+    if (m >= M || c >= Co) continue;     // Co a multiple of W
+    const bf16* src = sY + r * kYS + cc;
+    bf16* dst = y + (long long)m * Co + c;
+    if constexpr (W == 8)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    else if constexpr (W == 4)
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+    else
+      *dst = *src;
+  }
+  // the 4 warps along the pixels, in wm order
   if (tid < kMmaBN && c0 + tid < Co) {
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -583,28 +673,43 @@ conv3x3_mma_stats_kernel(const bf16* __restrict__ x,
   }
 }
 
-template <int W>
-int conv3x3_mma_launch(const void* x, const void* w, int N, int H, int Wd,
-                       int Ci, int Co, void* y, void* part, void* s,
-                       void* ss, cudaStream_t st) {
-  const int M = N * H * Wd;
+// The bf16 tensor-core instances of both kernels: M output pixels (P for
+// kernel 8, N H Wd for kernel 9), `vec` the copy width (2: 16 bytes, 1:
+// 8, 0: one element).
+template <int kTaps>
+int conv_mma_launch(const void* x, const void* w, int M, int H, int Wd,
+                    int Ci, int Co, int vec, void* y, void* part, void* s,
+                    void* ss, cudaStream_t st) {
   const int n_row = (M + kMmaBM - 1) / kMmaBM;
   const int n_col = (Co + kMmaBN - 1) / kMmaBN;
   float* pa = (float*)part;
   float* pb = pa + (long long)n_row * Co;
-  conv3x3_mma_stats_kernel<W><<<n_row * n_col, kMmaThreads, 0, st>>>(
+  auto* kernel = vec == 2   ? conv_mma_stats_kernel<kTaps, 8>
+                 : vec == 1 ? conv_mma_stats_kernel<kTaps, 4>
+                            : conv_mma_stats_kernel<kTaps, 1>;
+  kernel<<<n_row * n_col, kMmaThreads, 0, st>>>(
       (const bf16*)x, (const bf16*)w, M, H, Wd, Ci, Co, n_col, (bf16*)y, pa,
       pb);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)stat_reduce::finish(pa, pb, n_row, Co, (float*)s, (float*)ss,
-                                  st);
+  return (int)stat_reduce::finish_chunked(pa, pb, n_row, Co, (float*)s,
+                                          (float*)ss, st);
+}
+
+template <int kTaps>
+const void* conv_mma_fn(int width) {
+  return width == 8   ? (const void*)conv_mma_stats_kernel<kTaps, 8>
+         : width == 4 ? (const void*)conv_mma_stats_kernel<kTaps, 4>
+                      : (const void*)conv_mma_stats_kernel<kTaps, 1>;
 }
 
 }  // namespace
 
 // One C entry per instance: x and w float32 (f32) or bf16 (bf16); y in
-// their type, s and ss float32.
+// their type, s and ss float32.  The bf16 instances run on the tensor
+// cores, and their `vec` is the copy width: 2 for 16 bytes, 1 for 8, 0 for
+// one element; the float32 ones take 1 for 4-element vectors, 0 for
+// scalars.
 // x [P, Ci], w [Ci, Co] -> y [P, Co], s and ss [Co]; part is [2, R, Co]
 // scratch with R = ceil(P / 128).
 #define MM_ARGS                                                            \
@@ -615,7 +720,8 @@ extern "C" int matmul_stats_f32(MM_ARGS) {
   return matmul_stats<float>(MM_PASS);
 }
 extern "C" int matmul_stats_bf16(MM_ARGS) {
-  return matmul_stats<__nv_bfloat16>(MM_PASS);
+  return conv_mma_launch<1>(x, w, P, 1, 1, Ci, Co, vec, y, part, s, ss,
+                            (cudaStream_t)stream);
 }
 
 // x [N, H, W, Ci], w [3, 3, Ci, Co] -> y [N, H, W, Co], s and ss [Co];
@@ -627,27 +733,19 @@ extern "C" int matmul_stats_bf16(MM_ARGS) {
 extern "C" int conv3x3_stats_f32(C3_ARGS) {
   return conv3x3_stats<float>(C3_PASS);
 }
-// The bf16 instance runs on the tensor cores; `vec` is its copy width:
-// 2 for 16 bytes, 1 for 8, 0 for one element.
 extern "C" int conv3x3_stats_bf16(C3_ARGS) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 2)
-    return conv3x3_mma_launch<8>(x, w, N, H, W, Ci, Co, y, part, s, ss, st);
-  if (vec == 1)
-    return conv3x3_mma_launch<4>(x, w, N, H, W, Ci, Co, y, part, s, ss, st);
-  return conv3x3_mma_launch<1>(x, w, N, H, W, Ci, Co, y, part, s, ss, st);
+  return conv_mma_launch<9>(x, w, N * H * W, H, W, Ci, Co, vec, y, part, s,
+                            ss, (cudaStream_t)stream);
 }
 
 // Registers and local memory (bytes a thread: stack and spills) of the
-// bf16 tensor-core kernel 9 at copy width `width` (8, 4 or 1 elements).
-extern "C" int conv3x3_mma_resources(int width, int* regs,
-                                     int* local_bytes) {
-  const void* fn =
-      width == 8 ? (const void*)conv3x3_mma_stats_kernel<8>
-      : width == 4 ? (const void*)conv3x3_mma_stats_kernel<4>
-                   : (const void*)conv3x3_mma_stats_kernel<1>;
+// bf16 tensor-core kernel: `taps` 1 (kernel 8) or 9 (kernel 9), copy width
+// `width` (8, 4 or 1 elements).
+extern "C" int conv_mma_resources(int taps, int width, int* regs,
+                                  int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, taps == 1 ? conv_mma_fn<1>(width) : conv_mma_fn<9>(width));
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

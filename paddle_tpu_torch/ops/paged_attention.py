@@ -11,6 +11,12 @@ kernel serves both decode surfaces.
 The plain version IS ``paged_gather`` + ``slot_decode_attention``, as the
 JAX ``impl="xla"`` path is.  ``impl=None`` routes by device: the kernel
 for CUDA tensors, the plain version for CPU ones.
+
+The kernel cuts each row's live blocks into ``kv_splits`` splits and folds
+them itself, in split order, so a call is one launch.  ``_split_bounds``
+(its cut) and ``fold_splits`` (its fold) are the plain model of that
+split arithmetic, which the CPU tests hold against the JAX package; they
+are not on the card path.
 """
 
 from __future__ import annotations
@@ -26,7 +32,6 @@ from paddle_tpu_torch.layers.attention import (paged_gather,
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.flash_attention import (D_MAX,
                                                   check_kernel_operand,
-                                                  merge_partial,
                                                   resolve_impl)
 
 
@@ -36,16 +41,30 @@ def _default_kv_splits(mb: int) -> int:
     return max(1, min(8, mb // 8))
 
 
-_SIGNATURES = {"paged_decode_f32": (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p])}
+_SIGNATURES = {
+    "paged_decode_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p]),
+    "paged_decode_resources": [ctypes.POINTER(ctypes.c_int)] * 2,
+}
+# per (device, stream): the kernel's arrival counters, one a (sequence,
+# head), zero between launches (the launch that uses them puts them back)
+_ARRIVED: dict = {}
+
+
+def _arrived(dev, stream: int, n: int):
+    buf = _ARRIVED.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _ARRIVED[(dev, stream)] = buf
+    return buf
 
 
 def paged_decode_cuda(q, pk, pv, table, pos, *, scale: float,
                       kv_splits: int):
-    """Launch ``csrc/paged_decode.cu`` over ``kv_splits`` splits and fold
-    the per-split partials with ``merge_partial``.  Returns [S, H, D]
-    float32."""
+    """Launch ``csrc/paged_decode.cu`` over ``kv_splits`` splits (at most
+    max_blocks) of each row's live blocks; the kernel folds the splits
+    itself, so a call is one launch and no torch op after it.  Returns
+    [S, H, D] float32."""
     s, h, d = q.shape
     mb = table.shape[1]
     if pk.shape != pv.shape or pk.shape[2:] != (h, d):
@@ -64,41 +83,65 @@ def paged_decode_cuda(q, pk, pv, table, pos, *, scale: float,
             raise ValueError(f"{name} must be a contiguous int32 {shape} "
                              f"tensor on the device of q")
     g = max(1, min(int(kv_splits), mb))
-    o_part = torch.empty((s, g, h, d), dtype=torch.float32, device=q.device)
-    lse_part = torch.empty((s, g, h), dtype=torch.float32, device=q.device)
+    out = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
     if s == 0:
-        return o_part[:, 0]
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = arrived = None
+    if g > 1:
+        # each split's state: acc [D], then its (m, l)
+        part = torch.empty((s, g, h, d + 2), dtype=torch.float32,
+                           device=q.device)
+        arrived = _arrived(q.device, stream, s * h)
     lib = _build.load("paged_decode", _SIGNATURES)
     err = lib.paged_decode_f32(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
-        pos.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), s, h, d,
-        pk.shape[1], mb, g, float(scale * LOG2E),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in (part, arrived)),
+        s, h, d, pk.shape[1], mb, g, float(scale * LOG2E), stream)
     _build.check(lib, err, "paged_decode")
     paged_decode_cuda.launches += 1
-    return fold_splits(o_part, lse_part)
+    return out
 
 
 paged_decode_cuda.launches = 0
 
 
+def paged_decode_resources() -> tuple:
+    """(registers, local bytes a thread) of the kernel, from
+    ``cudaFuncGetAttributes``; local bytes past 0 mean it spills.  Needs a
+    card."""
+    lib = _build.load("paged_decode", _SIGNATURES)
+    return _build.resources(lib, lib.paged_decode_resources)
+
+
+def _split_bounds(pos, bs: int, mb: int, g: int):
+    """The kernel's cut (``split_blocks`` in ``csrc/paged_decode.cu``):
+    row s's live blocks [0, n), n = min(mb, pos[s] // bs + 1), split j
+    takes blocks [j n // g, (j + 1) n // g).  Returns the splits' key
+    bounds [S, g, 2] (lo, hi), hi cut at pos[s] + 1; lo >= hi is an empty
+    split."""
+    pos = torch.as_tensor(pos, dtype=torch.int64)
+    n = torch.clamp(pos // bs + 1, max=mb)[:, None]
+    edges = torch.arange(g + 1) * n // g                  # [S, g + 1]
+    return torch.stack([edges[:, :-1] * bs,
+                        torch.minimum(edges[:, 1:] * bs, pos[:, None] + 1)],
+                       dim=-1)
+
+
 def fold_splits(o_part, lse_part):
-    """Fold the kernel's per-split partials (O [S, G, H, D], natural-log
-    LSE [S, G, H]) into [S, H, D] with ``merge_partial``.  The splits
-    ride merge_partial's L axis and fold pairwise, halves against halves:
-    ceil(log2 G) merges instead of the TPU wrapper's G - 1 sequential
-    ones (each merge is a handful of small launches on the host's
-    critical path)."""
-    o, lse = o_part, lse_part.transpose(1, 2)         # [S,G,H,D], [S,H,G]
-    while o.shape[1] > 1:
-        half = o.shape[1] // 2
-        mo, ml = merge_partial(o[:, :half], lse[..., :half],
-                               o[:, half:2 * half], lse[..., half:2 * half])
-        if o.shape[1] % 2:                            # odd one rides along
-            mo = torch.cat([mo, o[:, 2 * half:]], dim=1)
-            ml = torch.cat([ml, lse[..., 2 * half:]], dim=-1)
-        o, lse = mo, ml
-    return o[:, 0]
+    """The kernel's fold of the per-split partials, as a plain model (the
+    card path folds inside the kernel): O [S, G, H, D] normalised per
+    split, natural-log LSE [S, G, H] -> [S, H, D].  With m the largest
+    LSE, split j weighs exp(LSE_j - m), and the weighted sums run in split
+    order, j = 0 .. G-1; an empty split (LSE about -1e30) weighs 0."""
+    w = torch.exp(lse_part - lse_part.max(dim=1, keepdim=True).values)
+    num = torch.zeros_like(o_part[:, 0])
+    den = torch.zeros_like(lse_part[:, 0])
+    for j in range(o_part.shape[1]):
+        num = num + o_part[:, j] * w[:, j, :, None]
+        den = den + w[:, j]
+    return num / den[..., None]
 
 
 def paged_decode_attention(q, pk, pv, table, pos, *,
@@ -112,7 +155,8 @@ def paged_decode_attention(q, pk, pv, table, pos, *,
     t_max: logical axis length of the plain version (the model's
     max_len; defaults to max_blocks * block_size) - the kernel masks by
     position and never builds the logical view.  kv_splits: splits over
-    a row's KV blocks (default ``_default_kv_splits``).  impl:
+    a row's live KV blocks, at most max_blocks (default
+    ``_default_kv_splits``).  impl:
     ``"cuda"``, ``"torch"`` or None (by the device of ``q``)."""
     if q.ndim != 3 or pk.ndim != 4 or torch.as_tensor(table).ndim != 2:
         raise ValueError(

@@ -307,7 +307,7 @@ def _hold_conv_stats(touts, tgrads, jouts, jgrads):
 
 @pytest.mark.parametrize("jax_impl", ["interpret", "xla"])
 @pytest.mark.parametrize("p,ci,co", [(133, 6, 7), (64, 16, 24),
-                                     (200, 64, 40)])
+                                     (200, 64, 40), (57, 5, 7)])
 def test_bf16_matmul_stats_matches_jax(p, ci, co, jax_impl):
     """Kernel 8's plain version at bf16 (x, w bf16; y bf16, the sums
     float32 of the unrounded y) and its backward (dy folded in float32,
@@ -387,6 +387,68 @@ def test_copy_width_by_channels_and_alignment(case, want):
     w = _at_offset((3, 3, ci, co), dtype, off)
     y = _at_offset((1, 2, 2, co), dtype, off)
     assert tcb._vec(ci, co, x, w, y, wide=wide) == want
+
+
+# kernel 8's bf16 instance (wide), x [P, Ci], w [Ci, Co], y [P, Co]:
+# (Ci, Co, the operands' offset in elements) -> 2 = 16-byte copies, 1 =
+# 8-byte, 0 = one element.  The offset-0 rows are the shapes chip_smoke.py
+# holds on the card: ResNet-50's 1x1 convs at batch 256 (every Ci and Co a
+# multiple of 64) and the ragged (1000, 37, 70), (4099, 64, 200) and
+# (2000, 36, 100).
+MATMUL_COPY_WIDTHS = [
+    ((64, 256, 0), 2), ((256, 64, 0), 2), ((256, 128, 0), 2),
+    ((512, 128, 0), 2), ((1024, 256, 0), 2), ((2048, 512, 0), 2),
+    ((37, 70, 0), 0), ((64, 200, 0), 2), ((36, 100, 0), 1),
+    ((64, 256, 4), 1),                          # 8-byte aligned only
+    ((64, 256, 2), 0),                          # 4-byte aligned
+    ((5, 7, 0), 0),
+]
+
+
+@pytest.mark.parametrize("case,want", MATMUL_COPY_WIDTHS,
+                         ids=[f"ci{c[0]}-co{c[1]}-off{c[2]}"
+                              for c, _ in MATMUL_COPY_WIDTHS])
+def test_kernel8_bf16_copy_width(case, want):
+    """Kernel 8's bf16 instance runs on the tensor cores with kernel 9's
+    copies: ``matmul_stats_cuda`` asks ``_vec`` with ``wide``, which gives
+    16-byte copies where Ci and Co are multiples of 8 and x, w and y are
+    16-byte aligned, 8-byte where multiples of 4 and 8-byte aligned, else
+    one element; the shapes the card's check runs reach all three."""
+    ci, co, off = case
+    x = _at_offset((3, ci), torch.bfloat16, off)
+    w = _at_offset((ci, co), torch.bfloat16, off)
+    y = _at_offset((3, co), torch.bfloat16, off)
+    assert tcb._vec(ci, co, x, w, y, wide=True) == want
+
+
+def test_resnet_breakdown_files_the_tensor_core_conv_kernels_as_kernels():
+    """chip_smoke.py's ResNet step breakdown files each device activity
+    under the first part whose keys its name holds: the bf16 tensor-core
+    instance of kernels 8 and 9 (whose name holds "conv") under the
+    kernels, not under cuDNN's convs, as the SIMT tile and the statistic
+    passes are."""
+    import importlib.util
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kernels, convs = smoke._PARTS[0][0], smoke._PARTS[1][0]
+    for name in (
+            "void (anonymous namespace)::conv_mma_stats_kernel<1, 8>("
+            "__nv_bfloat16 const*, __nv_bfloat16 const*, int, int, int, "
+            "int, int, int, int, __nv_bfloat16*, float*, float*)",
+            "void (anonymous namespace)::conv_mma_stats_kernel<9, 4>(...)",
+            "void (anonymous namespace)::gemm_stats_kernel<(anonymous "
+            "namespace)::DenseA<float>, true>(...)",
+            "void stat_reduce::(anonymous namespace)::finish_kernel(...)",
+            "void (anonymous namespace)::bwd_partial_kernel<float, true>()"):
+        assert smoke.part_of(name) == kernels, name
+    assert smoke.part_of("sm90_xmma_fprop_implicit_gemm_bf16") == convs
+    assert smoke.part_of("void at::native::elementwise_kernel<128, 4>") \
+        == smoke._REST
 
 
 # ------------------------------------------------------------------ layers

@@ -4,9 +4,11 @@ tests/test_paged_attention.py: geometry sweep, kv-splits (even and uneven),
 scratch-block hole rows, prefix-shared blocks, post-COW divergence and the
 slab identity table.  The port's plain version (``impl="torch"``, and the
 CPU route of ``impl=None``) is held against JAX ``impl="xla"`` and the
-Pallas kernel under the interpreter.  The split bookkeeping of the CUDA
-wrapper (``fold_splits``) is checked on the CPU against a numpy model of
-what the kernel writes per split.  Float32; tolerance 1e-5."""
+Pallas kernel under the interpreter.  The split arithmetic of the CUDA
+kernel - its cut of each row's live blocks (``_split_bounds``), the
+per-split state and its fixed-order fold (``fold_splits``) - is checked
+on the CPU through a numpy model of each split's state, against the JAX
+kernel at every case and split count.  Float32; tolerance 1e-5."""
 
 import importlib
 
@@ -114,20 +116,32 @@ def test_paged_decode_matches_jax(case):
         assert np.abs(got[0] - got[1]).max() > 1e-6
 
 
-def _kernel_partials(q, pk, pv, table, pos, g):
-    """Numpy model of what csrc/paged_decode.cu writes: per (sequence,
-    split, head) the normalized attention over the split's positions
-    ``<= pos`` and its natural-log LSE, with the empty-split sentinel."""
+def _logical_bounds(pos, bs, mb, g):
+    """The cut of the JAX kernel (and of the CUDA kernel before it folded
+    its own splits): the logical blocks [0, MB) in ranges of ceil(MB / g),
+    each cut at pos + 1."""
+    bps = -(-mb // g)
+    return np.array([[(gi * bps * bs,
+                       min(min((gi + 1) * bps, mb) * bs, int(p) + 1))
+                      for gi in range(g)] for p in pos])
+
+
+def _kernel_partials(q, pk, pv, table, pos, g, cut="logical"):
+    """Numpy model of each split's state: per (sequence, split, head) the
+    normalized attention over the split's positions ``<= pos`` and its
+    natural-log LSE, with the empty-split sentinel.  ``cut``: "logical"
+    (``_logical_bounds``) or "live", the CUDA kernel's cut of the live
+    blocks (``tpa._split_bounds``)."""
     s, h, d = q.shape
     bs, mb = pk.shape[1], table.shape[1]
-    bps = -(-mb // g)
+    bounds = (tpa._split_bounds(pos, bs, mb, g).numpy() if cut == "live"
+              else _logical_bounds(pos, bs, mb, g))
     scale = d ** -0.5
     o = np.zeros((s, g, h, d), np.float32)
     lse = np.zeros((s, g, h), np.float32)
     for si in range(s):
         for gi in range(g):
-            lo = gi * bps * bs
-            hi = min(min((gi + 1) * bps, mb) * bs, pos[si] + 1)
+            lo, hi = bounds[si, gi]
             t = np.arange(lo, max(lo, hi))
             rows = table[si, t // bs] if len(t) else np.zeros(0, int)
             k = pk[rows, t % bs]                       # [n, h, d]
@@ -146,8 +160,8 @@ def _kernel_partials(q, pk, pv, table, pos, g):
 
 @pytest.mark.parametrize("kv_splits", [1, 2, 3, 8])
 def test_split_partials_fold_to_the_plain_version(kv_splits):
-    """The CUDA wrapper's fold of per-split partials (uneven tail split
-    at 3, empty splits past short rows) gives the single-pass answer,
+    """The fold of per-split partials (uneven tail split at 3, empty
+    splits past short rows), at both cuts, gives the single-pass answer,
     and the JAX kernel agrees at every split count."""
     rng = np.random.RandomState(7)
     s, h, d, bs, mb = 2, 2, 8, 4, 8
@@ -158,12 +172,51 @@ def test_split_partials_fold_to_the_plain_version(kv_splits):
     want = tpa.paged_decode_attention(*_torch(q, pk, pv, table, pos),
                                       impl="torch").numpy()
     g = max(1, min(kv_splits, mb))
-    o_part, lse_part = _kernel_partials(q, pk, pv, table, pos, g)
-    got = tpa.fold_splits(*_torch(o_part, lse_part)).numpy()
-    np.testing.assert_allclose(got, want, **TOL)
+    for cut in ("logical", "live"):
+        o_part, lse_part = _kernel_partials(q, pk, pv, table, pos, g, cut)
+        got = tpa.fold_splits(*_torch(o_part, lse_part)).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
     jint = jpa.paged_decode_attention(q, pk, pv, table, pos,
                                       impl="interpret", kv_splits=kv_splits)
     np.testing.assert_allclose(np.asarray(jint), want, **TOL)
+
+
+@pytest.mark.parametrize("kv_splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_live_cut_and_fold_match_jax(case, kv_splits):
+    """The CUDA kernel's split arithmetic on the CPU - the cut of each
+    row's live blocks, each split's state, the fold in split order -
+    against the JAX kernel (interpret) at the same split count, on every
+    case: rows with fewer live blocks than splits, hole rows, the slab."""
+    q, pk, pv, table, pos, t_max = CASES[case]()
+    g = max(1, min(kv_splits, table.shape[1]))
+    o_part, lse_part = _kernel_partials(q, pk, pv, table, pos, g, "live")
+    got = tpa.fold_splits(*_torch(o_part, lse_part)).numpy()
+    want = jpa.paged_decode_attention(q, pk, pv, table, pos, t_max=t_max,
+                                      impl="interpret", kv_splits=kv_splits)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("bs,mb", [(1, 9), (4, 8), (16, 256), (4096, 1)])
+def test_split_bounds_tile_each_rows_live_blocks(bs, mb):
+    """Each row's splits tile [0, pos + 1) in split order, start on block
+    edges, hold at most ceil(n / G) of the row's n live blocks each, and
+    only min(G, n) of them are non-empty."""
+    t_max = bs * mb
+    pos = np.unique(np.clip([0, 1, bs - 1, bs, 3 * bs + 1, t_max // 2,
+                             t_max - 2, t_max - 1], 0, t_max - 1))
+    for g in sorted({1, 2, 3, 8, mb}):
+        b = tpa._split_bounds(pos, bs, mb, g).numpy()
+        assert b.shape == (len(pos), g, 2)
+        for p, row in zip(pos, b):
+            n = min(mb, p // bs + 1)
+            live = [(lo, hi) for lo, hi in row if hi > lo]
+            assert len(live) == min(g, n)
+            assert live[0][0] == 0 and live[-1][1] == p + 1
+            assert all(a[1] == c[0] for a, c in zip(live, live[1:]))
+            assert all(lo % bs == 0 and hi - lo <= -(-n // g) * bs
+                       for lo, hi in live)
 
 
 def test_default_kv_splits_policy_matches_jax():
