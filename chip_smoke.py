@@ -169,8 +169,23 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    ``SGD.test`` launching none; then ``bench_resnet``'s configuration
    (``bf16``, no fusion, plain statistics: no kernel of this repo) for
    the same 4 steps, as a smoke figure;
-13. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, sweep, ResNet and ResNet-under-bf16 runs, the card line again,
+13. the fp16 precision policy (K5): the float16 instances of kernels 1
+   to 3 (``flash_bwd_bf16_phase`` on float16: the LM shape and
+   BF16_BWD_CASES, kernel 1's planted faults there too), 5 and 6
+   (``rnn_bf16_phase``) and 7a to 9 (``conv_phase`` at batch 256), each
+   held against its plain versions at HALF_TOLS' float16 limits, with
+   its planted faults, its registers (a spill fails) and its time beside
+   its bound (the dense 16-bit peak), plain version and the library's
+   float16 call; the LM, NMT, the LSTM route and the fused ResNet-50
+   under ``fp16`` (``lm_bf16_path``, ``rnn_bf16_paths`` and
+   ``resnet_bf16_path`` with the policy: kernel route against plain
+   route, the f16 counters' launches a step as under ``bf16``, the step
+   time and breakdown; no loss scaling, so a non-finite loss is printed
+   and the LM's routes are held on the steps before it); the 12 bf16
+   tensor-core instances' SASS against MMA_SASS_BASE;
+14. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, sweep, ResNet and ResNet-under-bf16 runs, the
+   card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -591,6 +606,37 @@ def _planted_fault(q, k, v, ro, rlse, scale, n=64):
 # (_planted_fault) and one 16-deep k-step of the score product left out
 # (``_mma_fwd(drop_score_kstep=1)``).
 FWD_MMA_ROW_TOL, FWD_MMA_ROW_Q = 2.0 ** -9, 0.99
+# The float16 instances (the same templates on f16 operands) are held by
+# the same checks, by operand dtype: kernel 1's O rows against the upcast
+# version and _mma_fwd (o_row), O elementwise (o), its 99% rows against
+# _mma_fwd (fwd_mma); kernels 2 and 3's rows against _upcast_bwd and
+# _mma_bwd (bwd_row, which also sets the floor of a row whose gradient
+# cancels, ``_row_errs``) and their 99% against _mma_bwd (bwd_mma); the
+# rows of kernels 8's and 9's y (conv_row).  f16 keeps 11 significant
+# bits where bf16 keeps 8, and P, dS, O and y each round once to the
+# operands' dtype, so each limit is bf16's over 8, but bwd_row: the
+# largest row of dQ is one whose gradient cancels (dP - delta, float32
+# sums of terms that agree to f16's rounding of O), where float32 noise,
+# not the dtype, sets the error.  Readings at float16 on the H100 at the
+# LM shape and every BF16_BWD_CASES case: kernel 1 rows at most 5.4e-4
+# (upcast) and 4.8e-4 (_mma_fwd), 99% 2.0e-4 to 2.2e-4 against _mma_fwd
+# (4.1e-4 to 4.5e-4 against the upcast version, which the limit refuses);
+# kernels 2 and 3 rows at most 4.1e-3 (dQ at the LM shape; the others
+# 7.4e-4), 99% 1.6e-4 to 2.3e-4 against _mma_bwd (4.3e-4 to 5.0e-4
+# against _upcast_bwd); y rows 4.4e-4 and 3.5e-4.
+HALF_TOLS = {
+    torch.bfloat16: dict(o_row=VAR_O_ROW_TOL, o=VAR_O_TOL,
+                         fwd_mma=FWD_MMA_ROW_TOL, bwd_row=2.0 ** -7,
+                         bwd_mma=2.0 ** -9, conv_row=2.0 ** -7),
+    torch.float16: dict(o_row=2.0 ** -10, o=2.0 ** -9, fwd_mma=2.0 ** -12,
+                        bwd_row=2.0 ** -7, bwd_mma=2.0 ** -12,
+                        conv_row=2.0 ** -10)}
+
+
+def _short(dtype) -> str:
+    """"bf16" or "f16": the counters' and C entries' suffix of a 16-bit
+    dtype."""
+    return {torch.bfloat16: "bf16", torch.float16: "f16"}[dtype]
 
 
 def _rows_hold(ref_name, rows, row_tol, mma_tol, mma_q) -> tuple:
@@ -604,60 +650,62 @@ def _rows_hold(ref_name, rows, row_tol, mma_tol, mma_q) -> tuple:
                                            or q <= mma_tol)
 
 
-def _fwd_rows_hold(ref_name, rows) -> tuple:
-    """``_rows_hold`` at kernel 1's limits."""
-    return _rows_hold(ref_name, rows, VAR_O_ROW_TOL, FWD_MMA_ROW_TOL,
+def _fwd_rows_hold(ref_name, rows, dtype=torch.bfloat16) -> tuple:
+    """``_rows_hold`` at kernel 1's limits for ``dtype`` operands."""
+    t = HALF_TOLS[dtype]
+    return _rows_hold(ref_name, rows, t["o_row"], t["fwd_mma"],
                       FWD_MMA_ROW_Q)
 
 
 def _hold_fwd_bf16(fa, what, q, k, v, lens, o, lse, kw):
-    """Kernel 1's bf16 O and LSE held against the upcast plain version
-    and ``_mma_fwd``: O's rows (``_fwd_rows_hold``), O within VAR_O_TOL
-    and the live rows' LSE within VAR_LSE_TOL of max(1, max |ref|), the
-    other rows' LSE below -1e29.  Returns ({reference: errors}, {reference:
-    (O, LSE)})."""
+    """Kernel 1's bf16 (or float16: q's dtype) O and LSE held against the
+    upcast plain version and ``_mma_fwd``: O's rows (``_fwd_rows_hold``),
+    O within VAR_O_TOL (HALF_TOLS' "o") and the live rows' LSE within
+    VAR_LSE_TOL of max(1, max |ref|), the other rows' LSE below -1e29.
+    Returns ({reference: errors}, {reference: (O, LSE)})."""
+    dt, t = q.dtype, HALF_TOLS[q.dtype]
     ro, rlse = fa._torch_attention(q.float(), k.float(), v.float(), lens,
                                    return_lse=True, **kw)
-    refs = {"upcast": (ro.to(torch.bfloat16), rlse),
+    refs = {"upcast": (ro.to(dt), rlse),
             "mma": fa._mma_fwd(q, k, v, lens, **kw)}
     del ro
-    if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise AssertionError(f"{what}: kernel 1 at bf16 gave {o.dtype}, "
-                             f"{lse.dtype}")
+    if o.dtype != dt or lse.dtype != torch.float32:
+        raise AssertionError(f"{what}: kernel 1 at {_short(dt)} gave "
+                             f"{o.dtype}, {lse.dtype}")
     errs = {}
     for ref_name, (r_o, r_l) in refs.items():
         worst, q99, rows_ok = _fwd_rows_hold(ref_name,
-                                             _o_row_errs(o, r_o))
+                                             _o_row_errs(o, r_o), dt)
         live = r_l > -1e29
         el = (lse - r_l)[live].abs().max().item() if live.any() else 0.0
         eo = (o.float() - r_o.float()).abs().max().item()
         so = max(1.0, r_o.float().abs().max().item())
         sl = max(1.0, r_l[live].abs().max().item()) if live.any() else 1.0
-        ok = (rows_ok and eo <= VAR_O_TOL * so and el <= VAR_LSE_TOL * sl
+        ok = (rows_ok and eo <= t["o"] * so and el <= VAR_LSE_TOL * sl
               and bool((lse[~live] < -1e29).all())
               and torch.isfinite(o.float()).all()
               and torch.isfinite(lse[live]).all())
         if not ok:
             raise AssertionError(
-                f"{what}: kernel 1 at bf16 disagrees with the "
+                f"{what}: kernel 1 at {_short(dt)} disagrees with the "
                 f"{ref_name} plain version: O rows largest {worst} (limit "
-                f"{VAR_O_ROW_TOL}), {FWD_MMA_ROW_Q:.0%} {q99} (limit "
-                f"{FWD_MMA_ROW_TOL} against _mma_fwd), O {eo} (limit "
-                f"{VAR_O_TOL * so}), LSE {el} (limit {VAR_LSE_TOL * sl})")
+                f"{t['o_row']}), {FWD_MMA_ROW_Q:.0%} {q99} (limit "
+                f"{t['fwd_mma']} against _mma_fwd), O {eo} (limit "
+                f"{t['o'] * so}), LSE {el} (limit {VAR_LSE_TOL * sl})")
         errs[ref_name] = dict(row_err=worst, row_err_q99=q99,
                               max_abs_err=eo, lse_err=el)
     print(f"{what} [B {q.shape[0]}, Lq {q.shape[1]}, Lk {k.shape[1]}, H "
           f"{q.shape[2]}, D {q.shape[3]}, causal {kw['causal']}, q_offset "
           f"{kw.get('q_offset', 0)}, kv_offset {kw.get('kv_offset', 0)}]: "
-          "kernel 1 at bf16, O rows (largest, "
+          f"kernel 1 at {_short(dt)}, O rows (largest, "
           f"{FWD_MMA_ROW_Q:.0%}) / max|err| O / LSE against the upcast "
           "version " + " ".join(f"{errs['upcast'][k_]:.3e}" for k_ in (
               "row_err", "row_err_q99", "max_abs_err", "lse_err"))
           + ", against _mma_fwd " + " ".join(
               f"{errs['mma'][k_]:.3e}" for k_ in (
                   "row_err", "row_err_q99", "max_abs_err", "lse_err"))
-          + f" (limits: rows {VAR_O_ROW_TOL:.3e}, 99% against _mma_fwd "
-          f"{FWD_MMA_ROW_TOL:.3e})", flush=True)
+          + f" (limits: rows {t['o_row']:.3e}, 99% against _mma_fwd "
+          f"{t['fwd_mma']:.3e})", flush=True)
     return errs, refs
 
 
@@ -668,17 +716,18 @@ def _planted_fwd_faults(fa, q, k, v, lens, kw, refs):
     faults = {
         "the first 64 keys' P . V left out of the last 64 rows":
             _planted_fault(q, k, v, refs["upcast"][0].float(), rlse,
-                           kw["scale"]).to(torch.bfloat16),
+                           kw["scale"]).to(q.dtype),
         "one score k-step left out":
             fa._mma_fwd(q, k, v, lens, drop_score_kstep=1, **kw)[0]}
     out = {}
     for fname, bad in faults.items():
         for ref_name, (r_o, _) in refs.items():
             worst, q99, ok = _fwd_rows_hold(ref_name,
-                                            _o_row_errs(bad, r_o))
+                                            _o_row_errs(bad, r_o), q.dtype)
             out.setdefault(fname, {})[ref_name] = (worst, q99)
             if ok:
-                raise AssertionError(f"kernel 1's bf16 check against "
+                raise AssertionError(f"kernel 1's {_short(q.dtype)} check "
+                                     f"against "
                                      f"{ref_name} passes a planted fault "
                                      f"({fname}): {worst}, {q99}")
     return out
@@ -1512,11 +1561,13 @@ def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr,
 
 
 def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
-                falling=True):
+                falling=True, finite=True):
     """``trainer.SGD.train`` over ``steps`` copies of one batch: every
     loss finite (and, with ``falling``, the last below the first), the
     kernel's counter moving ``per_step`` a step; returns losses, step
-    times and peak memory."""
+    times and peak memory.  With ``finite=False`` (``fp16``, which has no
+    loss scaling) a non-finite loss is printed, not raised, and
+    ``falling`` holds over the losses before the first of them."""
     from paddle_tpu_torch import ops
 
     losses, step_s = [], []
@@ -1535,8 +1586,14 @@ def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if (len(losses) != steps or not all(np.isfinite(x) for x in losses)
-            or (falling and not losses[-1] < losses[0])):
+    ok = _finite_prefix(losses)
+    if not finite and ok < steps:
+        print(f"{name}: a non-finite loss at step {ok} of {steps}: "
+              f"{losses}", flush=True)
+    elif ok < steps:
+        ok = 0
+    if (len(losses) != steps or ok < 2
+            or (falling and not losses[ok - 1] < losses[0])):
         raise AssertionError(f"{name} losses not finite"
                              f"{' and falling' if falling else ''}: "
                              f"{losses}")
@@ -1546,6 +1603,12 @@ def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
                              f"expected {per_step} a step")
     warm = sorted(step_s[1:])[len(step_s[1:]) // 2]
     return losses, step_s, warm, peak_gb, launches
+
+
+def _finite_prefix(losses) -> int:
+    """How many losses lead ``losses`` before the first non-finite one."""
+    return next((i for i, x in enumerate(losses) if not np.isfinite(x)),
+                len(losses))
 
 
 def _events_ms(fns: dict, rounds=3) -> dict:
@@ -1810,6 +1873,10 @@ BWD_MMA_ROW_TOL, BWD_MMA_ROW_Q = 2.0 ** -9, 0.99
 # with the tensor-core one and the float32-arithmetic forward).
 RNN_BF16_TOLS = (1e-4, 1e-3, 1e-3)
 LM_BF16_BAND = 1e-4
+# under fp16 the two routes' 6-step losses part faster: 4.4e-7 relative at
+# the first step, 2.2e-4 at the sixth (reading on the H100), where bf16's
+# stay within 7.3e-6
+LM_FP16_BAND = 1e-3
 BF16_POLICIES = ("bf16", "mixed")
 # the bf16 backward's cases beyond the LM shape: flash_bwd_phase's four
 # ragged ones at the LM's heads, the sweep's head width, and a head width
@@ -1830,15 +1897,15 @@ BF16_BWD_CASES = (
 )
 
 
-def _row_errs(a, ref):
+def _row_errs(a, ref, row_tol=BWD_ROW_TOL):
     """||a_r - ref_r|| / max(||ref_r||, 2^-7 m) for every row (b, l, h),
-    m the median row norm of ``ref``: a row whose gradient cancels to
-    rounding noise (dQ's first query rows, where dP - delta is a
-    difference of two equal sums) is held against that floor, not against
-    its own noise."""
+    m the median row norm of ``ref`` (``row_tol`` m for ``row_tol``): a
+    row whose gradient cancels to rounding noise (dQ's first query rows,
+    where dP - delta is a difference of two equal sums) is held against
+    that floor, not against its own noise."""
     a, ref = a.float(), ref.float()
     norms = torch.linalg.vector_norm(ref, dim=-1)
-    floor = BWD_ROW_TOL * norms.median().item()
+    floor = row_tol * norms.median().item()
     return (torch.linalg.vector_norm(a - ref, dim=-1)
             / norms.clamp_min(max(floor, 1e-30))).flatten()
 
@@ -1848,11 +1915,12 @@ def _grad_row_err(a, ref) -> float:
     return _row_errs(a, ref).max().item()
 
 
-def _bwd_holds(ref_name, a, ref) -> tuple:
+def _bwd_holds(ref_name, a, ref, dtype=torch.bfloat16) -> tuple:
     """(largest row error, its BWD_MMA_ROW_Q quantile, whether the check
-    against ``_{ref_name}_bwd`` holds)."""
-    return _rows_hold(ref_name, _row_errs(a, ref), BWD_ROW_TOL,
-                      BWD_MMA_ROW_TOL, BWD_MMA_ROW_Q)
+    against ``_{ref_name}_bwd`` holds at ``dtype``'s limits)."""
+    t = HALF_TOLS[dtype]
+    return _rows_hold(ref_name, _row_errs(a, ref, t["bwd_row"]),
+                      t["bwd_row"], t["bwd_mma"], BWD_MMA_ROW_Q)
 
 
 def _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw):
@@ -1863,15 +1931,17 @@ def _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw):
 
 
 def _bf16_bwd_case(fa, name, q, k, v, lens, go, gl, kw):
-    """Kernel 1 then kernels 2 and 3 on bf16 operands, as the kernel
-    route's backward runs them: kernel 1's O and LSE held two ways
-    (``_hold_fwd_bf16``), dQ, dK and dV per row against ``_upcast_bwd``
-    and ``_mma_bwd``.  Returns the operands the timing and the planted
-    faults reuse, the references and the errors (the forward's under
-    "fwd")."""
+    """Kernel 1 then kernels 2 and 3 on bf16 (or float16: q's dtype)
+    operands, as the kernel route's backward runs them: kernel 1's O and
+    LSE held two ways (``_hold_fwd_bf16``), dQ, dK and dV per row against
+    ``_upcast_bwd`` and ``_mma_bwd``.  Returns the operands the timing and
+    the planted faults reuse, the references and the errors (the
+    forward's under "fwd")."""
+    dt = q.dtype
+    tag, t = _short(dt), HALF_TOLS[dt]
     o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
     torch.cuda.synchronize()
-    fwd_errs, _ = _hold_fwd_bf16(fa, f"flash_fwd bf16 {name}", q, k, v,
+    fwd_errs, _ = _hold_fwd_bf16(fa, f"flash_fwd {tag} {name}", q, k, v,
                                  lens, o, lse, kw)
     delta = (go.float() * o.float()).sum(-1).transpose(1, 2)
     if gl is not None:
@@ -1881,33 +1951,33 @@ def _bf16_bwd_case(fa, name, q, k, v, lens, go, gl, kw):
            *fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw))
     refs = _bf16_bwd_refs(fa, q, k, v, lens, o, lse, go, gl, kw)
     torch.cuda.synchronize()
-    if any(t.dtype != torch.bfloat16 for t in got):
-        raise AssertionError(f"flash_bwd bf16 {name} gave "
-                             f"{[t.dtype for t in got]}")
+    if any(x.dtype != dt for x in got):
+        raise AssertionError(f"flash_bwd {tag} {name} gave "
+                             f"{[x.dtype for x in got]}")
     errs = {}
     for ref_name, ref in refs.items():
         for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
-            worst, q99, ok = _bwd_holds(ref_name, a, r)
+            worst, q99, ok = _bwd_holds(ref_name, a, r, dt)
             errs.setdefault(ref_name, {})[gname] = (worst, q99)
             if not (ok and torch.isfinite(a.float()).all()):
                 raise AssertionError(
-                    f"flash_bwd bf16 {name}: {gname} row errors (largest "
+                    f"flash_bwd {tag} {name}: {gname} row errors (largest "
                     f"{worst}, {BWD_MMA_ROW_Q:.0%} {q99}) fail the check "
                     f"against _{ref_name}_bwd")
     errs["max_abs"] = {g: (a.float() - r.float()).abs().max().item()
                        for g, a, r in zip(("dq", "dk", "dv"), got,
                                           refs["upcast"])}
     errs["fwd"] = fwd_errs
-    print(f"flash_bwd bf16 {name} [B {q.shape[0]}, Lq {q.shape[1]}, Lk "
+    print(f"flash_bwd {tag} {name} [B {q.shape[0]}, Lq {q.shape[1]}, Lk "
           f"{k.shape[1]}, H {q.shape[2]}, D {q.shape[3]}, causal "
           f"{kw['causal']}, q_offset {kw.get('q_offset', 0)}, kv_offset "
           f"{kw.get('kv_offset', 0)}, g_lse {gl is not None}]: row errors "
           f"(largest, {BWD_MMA_ROW_Q:.0%}) against _upcast_bwd " + ", ".join(
               f"{g} {w:.3e} {p:.3e}" for g, (w, p) in errs["upcast"].items())
-          + f" (limit {BWD_ROW_TOL:.3e} on the largest), against _mma_bwd "
-          + ", ".join(f"{g} {w:.3e} {p:.3e}"
-                      for g, (w, p) in errs["mma"].items())
-          + f" (limits {BWD_ROW_TOL:.3e}, {BWD_MMA_ROW_TOL:.3e}); max|err| "
+          + f" (limit {t['bwd_row']:.3e} on the largest), against "
+          "_mma_bwd " + ", ".join(f"{g} {w:.3e} {p:.3e}"
+                                  for g, (w, p) in errs["mma"].items())
+          + f" (limits {t['bwd_row']:.3e}, {t['bwd_mma']:.3e}); max|err| "
           "against _upcast_bwd " + ", ".join(
               f"{g} {e:.3e}" for g, e in errs["max_abs"].items()),
           flush=True)
@@ -1928,33 +1998,38 @@ def _planted_bwd_faults(fa, q, k, v, lens, o, lse, go, kw, refs):
     out = {}
     for fname, bad in faults.items():
         for ref_name, ref in refs.items():
-            held = {g: _bwd_holds(ref_name, b_, r) for g, b_, r in
+            held = {g: _bwd_holds(ref_name, b_, r, q.dtype) for g, b_, r in
                     zip(("dq", "dk", "dv"), bad, ref)}
             out.setdefault(fname, {})[ref_name] = {
                 g: (w, p) for g, (w, p, _) in held.items()}
             if any(ok for _, _, ok in held.values()):
-                raise AssertionError(f"the bf16 backward check against "
+                raise AssertionError(f"the {_short(q.dtype)} backward check "
+                                     f"against "
                                      f"_{ref_name}_bwd passes a planted "
                                      f"fault ({fname}): {held}")
     return out
 
 
-def flash_bwd_bf16_phase(dev, gen, flush):
-    """Kernels 2 and 3 at bf16 (the tensor-core kernels): at the LM's
-    training shape, causal, and at BF16_BWD_CASES, kernel 1's O and LSE
-    held against the upcast plain version and ``_mma_fwd``
-    (``_hold_fwd_bf16``), dQ, dK and dV per row against ``_upcast_bwd``
-    and ``_mma_bwd``; the two planted faults
-    shown to fail both checks; the distance to the bf16 plain route's
-    autograd reported; each kernel's registers and local memory (spills
-    fail the run); each kernel's time beside its bound (bf16 bytes, the
-    bf16 peak), the bf16 plain route's backward and the library's bf16
-    backward; and kernel 1's bf16 time at the LM shape (the LM step
-    breakdown's attention share)."""
+def flash_bwd_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
+    """Kernels 2 and 3 at bf16 (or float16: ``dtype``; the tensor-core
+    kernels): at the LM's training shape, causal, and at BF16_BWD_CASES,
+    kernel 1's O and LSE held against the upcast plain version and
+    ``_mma_fwd`` (``_hold_fwd_bf16``), dQ, dK and dV per row against
+    ``_upcast_bwd`` and ``_mma_bwd``; the two planted faults of the
+    backward, and at float16 kernel 1's two (``_planted_fwd_faults``; at
+    bf16 ``variants_phase`` holds them), shown to fail both checks; the
+    distance to the plain route's autograd at that dtype reported; each
+    kernel's registers and local memory (spills fail the run); each
+    kernel's time beside its bound (16-bit bytes, the tensor cores' dense
+    peak, the same 989 TFLOP/s at bf16 and float16), the plain route's
+    backward and the library's backward at that dtype; and kernel 1's
+    time at the LM shape (the LM step breakdown's attention share), at
+    float16 beside its bound, the upcast plain forward and the library's
+    forward."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, T, D = TRAIN_BATCH, MAX_LEN, DIM // HEADS
-    bf = torch.bfloat16
+    bf, tag = dtype, _short(dtype)
     q, k, v, go = (torch.randn(B, T, HEADS, D, device=dev, generator=gen,
                                dtype=bf) for _ in range(4))
     lens = torch.full((B,), T, dtype=torch.int32, device=dev)
@@ -1963,19 +2038,31 @@ def flash_bwd_bf16_phase(dev, gen, flush):
         fa, "LM shape", q, k, v, lens, go, None, kw)
     fault = _planted_bwd_faults(fa, q, k, v, lens, o, lse, go, kw, refs)
     del refs
-    print("flash_bwd bf16 planted faults (row errors, largest and "
+    print(f"flash_bwd {tag} planted faults (row errors, largest and "
           f"{BWD_MMA_ROW_Q:.0%}; each must fail both checks): " + "; ".join(
               f"{f}: " + ", ".join(f"against _{r}_bwd " + " ".join(
                   f"{g} {w:.3e} {p:.3e}" for g, (w, p) in es.items())
                   for r, es in by_ref.items())
               for f, by_ref in fault.items()), flush=True)
-    # the distance to the bf16 plain route (P rounded to bf16, autograd)
+    fwd_fault = None
+    if dtype != torch.bfloat16:
+        _, frefs = _hold_fwd_bf16(fa, f"flash_fwd {tag} LM shape", q, k, v,
+                                  lens, o, lse, kw)
+        fwd_fault = _planted_fwd_faults(fa, q, k, v, lens, kw, frefs)
+        del frefs
+        print(f"kernel 1 {tag} planted faults at [{B}, {T}, {HEADS}, {D}] (O "
+              f"row errors, largest and {FWD_MMA_ROW_Q:.0%}; each must fail "
+              "both checks): " + "; ".join(
+                  f"{f}: " + ", ".join(f"against {r} {w:.3e} {p:.3e}"
+                                       for r, (w, p) in by_ref.items())
+                  for f, by_ref in fwd_fault.items()), flush=True)
+    # the distance to the plain route (P rounded to the dtype, autograd)
     plain = _attn_grads(fa, q, k, v, lens, go, None, kw, "torch")
     dist = {n: _grad_row_err(a, p) for n, a, p in
             zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
     del plain
-    print("flash_bwd bf16 distance to the bf16 plain route's autograd (row "
-          "error): " + ", ".join(f"{n} {r:.3e}" for n, r in dist.items()),
+    print(f"flash_bwd {tag} distance to the {tag} plain route's autograd "
+          "(row error): " + ", ".join(f"{n} {r:.3e}" for n, r in dist.items()),
           flush=True)
     cases = {"LM shape": errs}
     for (name, b, lq, lk, h, d, causal, kvl, qo, ko,
@@ -1991,84 +2078,111 @@ def flash_bwd_bf16_phase(dev, gen, flush):
                    kv_offset=ko)
         cases[name] = _bf16_bwd_case(fa, name, xq, xk, xv, xl, xg, gl,
                                      ckw)[-1]
-    res = fa.bwd_mma_resources()
-    print("flash_bwd bf16 kernels' resources (cudaFuncGetAttributes): "
+    res = fa.bwd_mma_resources(dtype)
+    print(f"flash_bwd {tag} kernels' resources (cudaFuncGetAttributes): "
           + ", ".join(f"{n} {r} registers, {l} bytes local"
                       for n, (r, l) in res.items()), flush=True)
     if any(l for _, l in res.values()):
-        raise AssertionError(f"a bf16 backward kernel spills: {res}")
+        raise AssertionError(f"a {tag} backward kernel spills: {res}")
+    fres = fa.fwd_mma_resources(dtype)
+    if any(l for _, l in fres.values()):
+        raise AssertionError(f"the {tag} forward kernel spills: {fres}")
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = [x.detach().transpose(1, 2) for x in (q, k, v)]
     t = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
                         flush),
          "dkdv": time_ms(lambda: fa.flash_bwd_dkdv_cuda(
              q, k, v, go, lse, delta, lens, **kw), flush),
          "dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
              q, k, v, go, lse, delta, lens, **kw), flush)}
+    with torch.no_grad():
+        t["plain_fwd"] = time_ms(lambda: fa._torch_attention(
+            q, k, v, lens, **kw), flush, iters=3, warmup=1)
+        t["lib_fwd"] = time_ms(lambda: sdpa(*qt, is_causal=True,
+                                            scale=kw["scale"]), flush)
     qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
     out = fa._torch_attention(*qkv, lens, **kw)
     t["plain_bwd"] = time_ms(lambda: torch.autograd.grad(
         out, qkv, go, retain_graph=True), flush, iters=5, warmup=1)
     del out
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+    qt = [x.requires_grad_(True) for x in qt]
     so = sdpa(*qt, is_causal=True, scale=kw["scale"])
     t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
         so, qt, go.transpose(1, 2), retain_graph=True), flush)
     del so
     pairs = B * HEADS * T * (T + 1) // 2
-    row = 2.0 * B * T * HEADS * D             # one [B, T, H, D] bf16
+    row = 2.0 * B * T * HEADS * D             # one [B, T, H, D], 16-bit
     vec = 4.0 * B * HEADS * T                 # one [B, H, T] float32
-    work = {"dkdv": (8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
+    work = {"fwd": (4.0 * D * pairs, 4 * row + vec + 4 * B),
+            "dkdv": (8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
             "dq": (6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
     out = {}
-    for name in ("dkdv", "dq"):
+    for name in ("fwd", "dkdv", "dq"):
         b_ms, b_by = bound(*work[name], PEAK_BF16_FLOPS)
-        regs, local = res[f"{name}_d{D}"]
-        print(f"flash {name} bf16 at [{B}, {T}, {HEADS}, {D}] causal: ms "
-              f"{t[name]:.4f}  bound_ms {b_ms:.4f} ({b_by}, bf16 peak)  "
-              f"plain_ms (the bf16 plain route's backward, whole) "
-              f"{t['plain_bwd']:.4f}  library_ms "
-              f"(scaled_dot_product_attention backward, bf16) "
-              f"{t['lib_bwd']:.4f}; {regs} registers, {local} bytes "
-              f"local", flush=True)
-        gs = ("dk", "dv") if name == "dkdv" else ("dq",)
-        out[name] = dict(ms=t[name], plain_ms=t["plain_bwd"], bound_ms=b_ms,
-                         bound_by=b_by, library_ms=t["lib_bwd"],
-                         max_abs_err=max(errs["max_abs"][g] for g in gs),
-                         row_err=max(errs["upcast"][g][0] for g in gs),
-                         mma_row_err=max(errs["mma"][g][0] for g in gs),
-                         mma_row_err_q99=max(errs["mma"][g][1] for g in gs),
+        regs, local = (fres if name == "fwd" else res)[f"{name}_d{D}"]
+        plain, lib = (("plain_fwd", "lib_fwd") if name == "fwd"
+                      else ("plain_bwd", "lib_bwd"))
+        print(f"flash {name} {tag} at [{B}, {T}, {HEADS}, {D}] causal: ms "
+              f"{t[name]:.4f}  bound_ms {b_ms:.4f} ({b_by}, the tensor "
+              f"cores' dense peak)  plain_ms (the {tag} plain route's "
+              f"{'forward' if name == 'fwd' else 'backward, whole'}) "
+              f"{t[plain]:.4f}  library_ms (scaled_dot_product_attention"
+              f"{'' if name == 'fwd' else ' backward'}, {tag}) "
+              f"{t[lib]:.4f}; {regs} registers, {local} bytes local",
+              flush=True)
+        gs = {"fwd": (), "dkdv": ("dk", "dv"), "dq": ("dq",)}[name]
+        out[name] = dict(ms=t[name], plain_ms=t[plain], bound_ms=b_ms,
+                         bound_by=b_by, library_ms=t[lib],
                          registers=regs, local_bytes=local)
+        if gs:
+            out[name].update(
+                max_abs_err=max(errs["max_abs"][g] for g in gs),
+                row_err=max(errs["upcast"][g][0] for g in gs),
+                mma_row_err=max(errs["mma"][g][0] for g in gs),
+                mma_row_err_q99=max(errs["mma"][g][1] for g in gs))
+        else:
+            fe = errs["fwd"]
+            out[name].update(
+                max_abs_err=max(fe["upcast"]["max_abs_err"],
+                                fe["upcast"]["lse_err"]),
+                row_err=fe["upcast"]["row_err"],
+                mma_row_err=fe["mma"]["row_err"],
+                mma_row_err_q99=fe["mma"]["row_err_q99"])
     out["fwd_ms"] = t["fwd"]
     out["planted_fault"] = fault
+    if fwd_fault is not None:
+        out["fwd"]["planted_fault"] = fwd_fault
     out["distance_to_plain"] = dist
     out["cases"] = cases
-    out["resources"] = res
+    out["resources"] = dict(res, **fres)
     out["shape"] = {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
-                    "causal": True, "dtype": "bfloat16"}
+                    "causal": True, "dtype": _dt(dtype)}
     return out
 
 
-def rnn_bf16_phase(dev, gen, flush):
-    """Kernels 5 and 6 at every bf16 instance (``fused_rnn.KERNEL_DTYPES``:
-    x bf16, the mask float32 or bf16) against the plain step on the same
-    operands, values and gradients within 1e-4 of max(1, max |ref|) with
-    masked rows copied bit for bit, at the routes' shapes and a ragged
-    one; each timed as the float32 rows are, its bytes counting x (and the
-    mask) at 2 bytes.  Every check moves the bf16 counters."""
+def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
+    """Kernels 5 and 6 at every bf16 (or float16: ``dtype``) instance
+    (``fused_rnn.KERNEL_DTYPES``: x in that dtype, the mask float32 or in
+    x's) against the plain step on the same operands, values and
+    gradients within 1e-4 of max(1, max |ref|) with masked rows copied
+    bit for bit, at the routes' shapes and a ragged one; each timed as the
+    float32 rows are, its bytes counting x (and the mask) at 2 bytes.
+    Every check moves the instances' counter."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
+    tag = _short(dtype)
     out = {}
     for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
         wrapper = fr.lstm_step_cuda if kind == "lstm" else fr.gru_step_cuda
         for dts in fr.KERNEL_DTYPES:
-            if dts[0] != torch.bfloat16:
+            if dts[0] != dtype:
                 continue
-            before = wrapper.launches_bf16
+            before = getattr(wrapper, "launches_" + tag)
             errs = [_rnn_check(kind, bb, hh, dev, gen, dts)
                     for bb, hh in ((b, RNN_H), (37, 128))]
-            if wrapper.launches_bf16 == before:
-                raise AssertionError(f"{kind}_step {dts}: the bf16 counter "
+            if getattr(wrapper, "launches_" + tag) == before:
+                raise AssertionError(f"{kind}_step {dts}: the {tag} counter "
                                      f"did not move")
             x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen, dts)
             m = rest[-1]
@@ -2098,7 +2212,7 @@ def rnn_bf16_phase(dev, gen, flush):
                      "addmm_ms": time_ms(floor, flush, lead=True)}
             b_ms, b_by = bound(flops, nbytes)
             key = f"x {_dt(dts[0])}, mask {_dt(dts[1])}"
-            print(f"{kind}_step bf16 ({key}) at B {b}, H {H} ({live} live "
+            print(f"{kind}_step {tag} ({key}) at B {b}, H {H} ({live} live "
                   f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
                   f"plain_ms {t['plain_ms']:.4f}  library_ms none; the "
                   f"product alone (torch.addmm) {t['addmm_ms']:.4f}",
@@ -2132,19 +2246,28 @@ def _lm_policy_run(paddle, topo, values, feed, policy, impl):
         losses, step_s, warm, peak_gb, launches = train_steps(
             f"LM {policy} {'kernels' if impl is None else 'plain'}", paddle,
             trainer, feed, TRAIN_STEPS, "flash_fwd",
-            LAYERS if impl is None else 0)
+            LAYERS if impl is None else 0, finite=policy != "fp16")
     finally:
         config.set_option("attention_impl", None)
     return trainer, losses, step_s, warm, peak_gb, launches
 
 
-def lm_bf16_path(attn_bf16_ms, f32):
-    """The LM under ``bf16`` and ``mixed`` at ``bench_transformer`` widths,
-    8 x 4096, Adam 1e-4, from the seeded weights: TRAIN_STEPS steps on
-    the kernels, whose bf16 instances (kernels 1, 2 and 3) must each
-    launch LAYERS times a step, and on the plain route, whose losses must
-    stay within LM_BF16_BAND of theirs; the step time, the step breakdown,
-    the idle share and the peak memory beside the float32 run's."""
+def _policy_sfx(policy) -> str:
+    """The launch counters' suffix of a 16-bit policy's kernel instances:
+    "f16" under ``fp16``, "bf16" under ``bf16`` and ``mixed``."""
+    return "f16" if policy == "fp16" else "bf16"
+
+
+def lm_bf16_path(attn_bf16_ms, f32, policies=BF16_POLICIES):
+    """The LM under ``bf16`` and ``mixed`` (or ``policies``: ``fp16``) at
+    ``bench_transformer`` widths, 8 x 4096, Adam 1e-4, from the seeded
+    weights: TRAIN_STEPS steps on the kernels, whose bf16 (float16)
+    instances (kernels 1, 2 and 3) must each launch LAYERS times a step,
+    and on the plain route, whose losses must stay within LM_BF16_BAND of
+    theirs (under ``fp16`` a non-finite loss is reported and the two
+    routes are held on the steps before it); the step time, the step
+    breakdown, the idle share and the peak memory beside the float32
+    run's."""
     paddle, topo = _train_model()
     values = random_values(SEED)
     seqs = np.random.RandomState(SEED + 1).randint(
@@ -2152,19 +2275,17 @@ def lm_bf16_path(attn_bf16_ms, f32):
     feed = trainer_feed(seqs[:, :-1], seqs[:, 1:])
     out = {}
     try:
-        for policy in BF16_POLICIES:
+        for policy in policies:
+            sfx = _policy_sfx(policy)
             tr, losses, step_s, warm, peak_gb, launches = _lm_policy_run(
                 paddle, topo, values, feed, policy, None)
             want = LAYERS * TRAIN_STEPS
-            bf16 = {k: launches[k + "_bf16"] for k in TRAIN_KERNELS}
+            bf16 = {k: launches[f"{k}_{sfx}"] for k in TRAIN_KERNELS}
             if any(n != want for n in bf16.values()) or any(
                     launches[k] != want for k in TRAIN_KERNELS):
-                raise AssertionError(f"LM {policy}: the bf16 attention "
+                raise AssertionError(f"LM {policy}: the {sfx} attention "
                                      f"kernels did not run {LAYERS} times a "
                                      f"step: {launches}")
-            if not losses[-1] < losses[0]:
-                raise AssertionError(f"LM {policy} losses not falling: "
-                                     f"{losses}")
             scale = None
             if policy == "mixed":
                 ls = tr._opt_state["loss_scale"]
@@ -2172,7 +2293,9 @@ def lm_bf16_path(attn_bf16_ms, f32):
                 if scale[1]:
                     raise AssertionError(f"LM mixed skipped {scale[1]} of "
                                          f"{TRAIN_STEPS} clean steps")
-            breakdown = step_breakdown(tr, feed, attn_bf16_ms, torch.bfloat16)
+            breakdown = step_breakdown(
+                tr, feed, attn_bf16_ms,
+                torch.float16 if sfx == "f16" else torch.bfloat16)
             del tr
             torch.cuda.empty_cache()
             ptr, plain, _, plain_warm, plain_peak, plain_launches = \
@@ -2182,22 +2305,29 @@ def lm_bf16_path(attn_bf16_ms, f32):
             if any(plain_launches[k] for k in TRAIN_KERNELS):
                 raise AssertionError(f"LM {policy} plain route launched "
                                      f"{plain_launches}")
-            band = max(_rel(a, b) for a, b in zip(losses, plain))
-            if not band <= LM_BF16_BAND:
+            held = min(_finite_prefix(losses), _finite_prefix(plain))
+            band = max(_rel(a, b) for a, b in zip(losses[:held],
+                                                  plain[:held]))
+            if held < len(losses) or held < len(plain):
+                print(f"LM {policy}: a non-finite loss (kernel route "
+                      f"{losses}, plain route {plain}); the routes are held "
+                      f"on the {held} steps before it", flush=True)
+            limit = LM_FP16_BAND if policy == "fp16" else LM_BF16_BAND
+            if not band <= limit:
                 raise AssertionError(f"LM {policy}: kernel route {losses} "
                                      f"vs plain route {plain}: {band} > "
-                                     f"{LM_BF16_BAND}")
+                                     f"{limit}")
             print(f"LM {policy}: {TRAIN_STEPS} Adam steps (lr {TRAIN_LR}) "
                   f"at batch {TRAIN_BATCH} x {MAX_LEN}, losses "
                   f"{[round(x, 5) for x in losses]}, plain route "
                   f"{[round(x, 5) for x in plain]} ({band:.2e} relative, "
-                  f"band {LM_BF16_BAND}); step time first "
+                  f"band {limit}); step time first "
                   f"{step_s[0] * 1e3:.1f} ms, median after it "
                   f"{warm * 1e3:.1f} ms = {TRAIN_BATCH * MAX_LEN / warm:.0f}"
                   f" tokens/s (float32: {f32['step_ms']:.1f} ms; plain route"
                   f" {plain_warm * 1e3:.1f} ms); peak memory {peak_gb:.2f} "
                   f"GB (float32 {f32['peak_gb']:.2f}, plain route "
-                  f"{plain_peak:.2f}); bf16 launches {bf16}"
+                  f"{plain_peak:.2f}); {sfx} launches {bf16}"
                   + ("" if scale is None else
                      f"; loss scale {scale[0]:g}, skipped {scale[1]}"),
                   flush=True)
@@ -2207,42 +2337,44 @@ def lm_bf16_path(attn_bf16_ms, f32):
                            "plain_step_ms": plain_warm * 1e3,
                            "peak_gb": peak_gb, "plain_peak_gb": plain_peak,
                            "launches": launches, "breakdown": breakdown,
-                           "loss_scale": scale}
+                           "loss_scale": scale, "finite_steps": held}
     finally:
         _policy("fp32")
     return out
 
 
-def rnn_bf16_paths():
-    """NMT and the LSTM route under ``bf16``: kernel-route parity against
-    ``use_fused_rnn=False`` at batch 8 (RNN_BF16_TOLS), then the steps of
-    the float32 paths with the bf16 instances' counters moving as the
-    float32 ones did (kernel 6: 100 a step; kernel 5: 200), the step time,
-    and for NMT the breakdown and the idle share."""
+def rnn_bf16_paths(policy="bf16"):
+    """NMT and the LSTM route under ``bf16`` (or ``policy``: ``fp16``):
+    kernel-route parity against ``use_fused_rnn=False`` at batch 8
+    (RNN_BF16_TOLS), then the steps of the float32 paths with the bf16
+    (float16) instances' counters moving as the float32 ones did (kernel
+    6: 100 a step; kernel 5: 200), the step time, and for NMT the
+    breakdown and the idle share."""
+    sfx = _policy_sfx(policy)
     out = {}
     paddle, topo = nmt_model()
     values = seeded_values(topo, SEED)
     try:
-        _policy("bf16")
+        _policy(policy)
         parity = route_parity(
-            "NMT bf16", paddle, topo, values,
+            f"NMT {policy}", paddle, topo, values,
             nmt_feed(8, [50, 37, 1, 12, 50, 25, 3, 44],
                      [50, 1, 20, 33, 7, 50, 16, 2]),
-            "gru_step_bf16", 2 * NMT_LEN, NMT_LR, RNN_BF16_TOLS)
+            f"gru_step_{sfx}", 2 * NMT_LEN, NMT_LR, RNN_BF16_TOLS)
         torch.cuda.empty_cache()
         trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
             topo, values), paddle.optimizer.Adam(learning_rate=NMT_LR))
         feed = nmt_feed(NMT_BATCH)
         losses, step_s, warm, peak_gb, launches = train_steps(
-            "NMT bf16", paddle, trainer, feed, NMT_STEPS, "gru_step_bf16",
-            2 * NMT_LEN)
+            f"NMT {policy}", paddle, trainer, feed, NMT_STEPS,
+            f"gru_step_{sfx}", 2 * NMT_LEN)
         toks = NMT_BATCH * 2 * NMT_LEN
-        print(f"NMT bf16 training: {NMT_STEPS} Adam steps, losses "
+        print(f"NMT {policy} training: {NMT_STEPS} Adam steps, losses "
               f"{[round(x, 5) for x in losses]}; step time first "
               f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} "
               f"ms = {toks / warm:.0f} tokens/s (smoke figure); peak memory "
-              f"{peak_gb:.2f} GB; gru_step bf16 launches "
-              f"{launches['gru_step_bf16']}", flush=True)
+              f"{peak_gb:.2f} GB; gru_step {sfx} launches "
+              f"{launches['gru_step_' + sfx]}", flush=True)
         breakdown = nmt_breakdown(topo, trainer, feed)
         out["nmt"] = {"losses": losses, "step_ms": warm * 1e3,
                       "first_step_ms": step_s[0] * 1e3,
@@ -2253,24 +2385,25 @@ def rnn_bf16_paths():
         torch.cuda.empty_cache()
 
         paddle, topo = lstm_model()
-        _policy("bf16")
+        _policy(policy)
         values = seeded_values(topo, SEED + 2)
         parity = route_parity(
-            "LSTM route bf16", paddle, topo, values,
+            f"LSTM route {policy}", paddle, topo, values,
             lstm_feed(8, [100, 1, 57, 100, 9, 33, 100, 80]),
-            "lstm_step_bf16", 2 * LSTM_LEN, LSTM_LR, RNN_BF16_TOLS)
+            f"lstm_step_{sfx}", 2 * LSTM_LEN, LSTM_LR, RNN_BF16_TOLS)
         trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
             topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
         feed = lstm_feed(LSTM_BATCH)
         losses, step_s, warm, peak_gb, launches = train_steps(
-            "LSTM route bf16", paddle, trainer, feed, LSTM_STEPS,
-            "lstm_step_bf16", 2 * LSTM_LEN, falling=False)
+            f"LSTM route {policy}", paddle, trainer, feed, LSTM_STEPS,
+            f"lstm_step_{sfx}", 2 * LSTM_LEN, falling=False)
         prof = profile_step(trainer, feed, "lstm_step")
-        print(f"LSTM route bf16 training: {LSTM_STEPS} Adam steps, losses "
+        print(f"LSTM route {policy} training: {LSTM_STEPS} Adam steps, "
+              f"losses "
               f"{[round(x, 5) for x in losses]}; step time first "
               f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} "
-              f"ms; peak memory {peak_gb:.2f} GB; lstm_step bf16 launches "
-              f"{launches['lstm_step_bf16']}; idle share "
+              f"ms; peak memory {peak_gb:.2f} GB; lstm_step {sfx} launches "
+              f"{launches['lstm_step_' + sfx]}; idle share "
               + ("not measured" if prof["idle_share"] is None
                  else f"{prof['idle_share']:.1%}"), flush=True)
         out["lstm_route"] = {"losses": losses, "step_ms": warm * 1e3,
@@ -2400,10 +2533,39 @@ FWD_SASS_BASE_BLOBS = {
     "flash_common.cuh": "62fb58e19cbb02e94f149679fbe2d7e69a12f3ae",
     "flash_fwd.cu": "9245ac04de53eda9b598f39550dfbeb08d0c4f32",
 }
+# the bf16 tensor-core instances of kernels 1, 2, 3, 8 and 9, which the
+# float16 instances (the same templates on another element type) must
+# leave alone: (source, the kernel in the build before the element type
+# became a template parameter, the kernel's bf16 instance now), against
+# their sources and headers of MMA_SASS_BASE_REV, pinned the same way
+_BF16_MANGLED = "I13__nv_bfloat16"
+MMA_SASS_KERNELS = (
+    *(("flash_fwd.cu", f"flash_fwd_mma_kernelILi{dt}EE",
+       f"flash_fwd_mma_kernel{_BF16_MANGLED}Li{dt}EE") for dt in (64, 128)),
+    *(("flash_bwd.cu", f"flash_bwd_{k}_mma_kernelILi{dt}EE",
+       f"flash_bwd_{k}_mma_kernel{_BF16_MANGLED}Li{dt}EE")
+      for k in ("dkdv", "dq") for dt in (64, 128)),
+    *(("conv_bn.cu", f"conv_mma_stats_kernelILi{taps}ELi{w}EE",
+       f"conv_mma_stats_kernel{_BF16_MANGLED}Li{taps}ELi{w}EE")
+      for taps in (1, 9) for w in (8, 4, 1)))
+MMA_SASS_BASE_REV = "bd128be7a4db68f1fb1582c86a7287b83bec2dd2"
+MMA_SASS_BASE = "paddle_tpu_torch/tools/sass_base/bd128be"
+MMA_SASS_BASE_BLOBS = {
+    "conv_bn.cu": "ba12bbe64fc462798c5856519a49a6d7bc4244dc",
+    "dtype.cuh": "b21690e89c4c42806e10384d69920c3403b96654",
+    "flash_bwd.cu": "104dc4f00499fa62d3f9d8301d6517f6591d2cda",
+    "flash_common.cuh": "62fb58e19cbb02e94f149679fbe2d7e69a12f3ae",
+    "flash_fwd.cu": "3950aa26250787a931d568cf39d2c08403abd9cb",
+    "flash_mma.cuh": "bf96eac44bb5d40f7715db33dd99a6e623f02241",
+    "mma_bf16.cuh": "45dab0fdb421741b5c75af10d9a7feb13b01c8e5",
+    "stat_reduce.cuh": "9e66188fe6f7fd297e44343e554810745607ab13",
+}
 # (folder, its revision, its pinned blobs, the kernels built from it)
 SASS_BASES = ((SASS_BASE, SASS_BASE_REV, SASS_BASE_BLOBS, SASS_KERNELS),
               (FWD_SASS_BASE, FWD_SASS_BASE_REV, FWD_SASS_BASE_BLOBS,
-               FWD_SASS_KERNELS))
+               FWD_SASS_KERNELS),
+              (MMA_SASS_BASE, MMA_SASS_BASE_REV, MMA_SASS_BASE_BLOBS,
+               MMA_SASS_KERNELS))
 
 
 def sass_phase():
@@ -2528,24 +2690,26 @@ def _grad_hold(what, fn, leaves, gen):
         zip(grads["cuda"], grads["torch"]))])
 
 
-# the bf16 instances' limits: the statistics within the float32 kernels'
-# largest reading on the H100 (sums of the same values in another order),
-# a bf16 y's rows each within one bf16 rounding of the plain version's
+# the 16-bit instances' limits: the statistics within the float32
+# kernels' largest reading on the H100 (sums of the same values in another
+# order); y's rows each within one rounding to its dtype of the plain
+# version's (HALF_TOLS' "conv_row": 2^-7 at bf16, 2^-10 at float16)
 CONV_STAT_TOL = 3.8e-6
-CONV_ROW_TOL = 2.0 ** -7
 
 
 def _hold_conv_bf16(what, got, ref):
-    """Kernel 8's or 9's (y, s, ss) at bf16 against the plain version's:
-    each row (output pixel) of y within CONV_ROW_TOL of its norm, s and ss
+    """Kernel 8's or 9's (y, s, ss) at bf16 (or float16: the plain y's
+    dtype) against the plain version's: each row (output pixel) of y
+    within HALF_TOLS' "conv_row" of its norm, s and ss
     within CONV_STAT_TOL.  Returns (y's row error, max abs error of y and
     the statistics, the statistics' max relative error)."""
     co = ref[0].shape[-1]
+    row_tol = HALF_TOLS[ref[0].dtype]["conv_row"]
     row = _o_row_err(got[0].reshape(-1, co), ref[0].reshape(-1, co))
-    if not (row <= CONV_ROW_TOL and got[0].dtype == torch.bfloat16
+    if not (row <= row_tol and got[0].dtype == ref[0].dtype
             and torch.isfinite(got[0].float()).all()):
         raise AssertionError(f"{what}: y's rows disagree with the plain "
-                             f"version: {row} > {CONV_ROW_TOL} "
+                             f"version: {row} > {row_tol} "
                              f"({got[0].dtype})")
     e_abs, e_rel = _hold(what, zip(("s", "ss"), got[1:], ref[1:]),
                          CONV_STAT_TOL)
@@ -2555,34 +2719,38 @@ def _hold_conv_bf16(what, got, ref):
 
 def _bf16_boundary(x2, w, gen, rows_per_channel=16):
     """b [C] and rows that put ``rows_per_channel`` elements of each
-    channel of bf16 x2 [P, C] where the fold in bf16 (w and b rounded to
-    bf16, the product rounded, then the sum) is exactly 0 while the
-    float32 fold x * w + b is not: those elements take the value of one
-    whose product x * bf16(w) is not a bf16 number, and b = -bf16(that
-    product).  Returns (x2 changed in place, b, rows [k, C])."""
+    channel of bf16 (or float16) x2 [P, C] where the fold in x2's dtype
+    (w and b rounded to it, the product rounded, then the sum) is exactly
+    0 while the float32 fold x * w + b is not: those elements take the
+    value of one whose product x * dt(w) is not a number of x2's dtype dt,
+    and b = -dt(that product).  (At float16 the fold rounds once, so there
+    it is the product's rounding residual, whose sign the float32 fold
+    does not always share.)  Returns (x2 changed in place, b, rows
+    [k, C])."""
     p, c = x2.shape
-    wb = w.to(torch.bfloat16).float()
+    dt = x2.dtype
+    wb = w.to(dt).float()
     prod = x2.float() * wb
-    inexact = prod != prod.to(torch.bfloat16).float()
+    inexact = prod != prod.to(dt).float()
     src = inexact.float().argmax(dim=0)                 # one such row each
     cols = torch.arange(c, device=x2.device)
     rows = torch.randint(0, p, (rows_per_channel, c), device=x2.device,
                          generator=gen)
     x2[rows, cols] = x2[src, cols]
-    b = -(x2[src, cols].float() * wb).to(torch.bfloat16).float()
+    b = -(x2[src, cols].float() * wb).to(dt).float()
     return x2, b, rows
 
 
 def conv_phase(dev, gen, flush, dtype=torch.float32):
     """Kernels 7a, 7b, 8 and 9 on ``dtype`` operands (float32, or the bf16
-    instances) against their plain versions, at every distinct shape
-    ResNet-50 gives them on its main path at that precision (batch
-    RESNET_BATCH at float32, RESNET_BF16_BATCH under bf16), at ragged
-    shapes and (7a, 7b) at rank 2: sums within TOL (float32) or
-    CONV_STAT_TOL (bf16) of max(1, max |ref|), and 7b's kept count (its
-    sum dy on a dout of ones) equal to the plain mask's; 8's and 9's y
-    within TOL at float32, each row within CONV_ROW_TOL of its norm at
-    bf16.  7b's relu boundary: folds exactly 0 dropped as the forward
+    or float16 instances, "bf16" below for either) against their plain
+    versions, at every distinct shape ResNet-50 gives them on its main
+    path at that precision (batch RESNET_BATCH at float32,
+    RESNET_BF16_BATCH under bf16 and fp16), at ragged shapes and (7a, 7b)
+    at rank 2: sums within TOL (float32) or CONV_STAT_TOL (bf16) of max(1,
+    max |ref|), and 7b's kept count (its sum dy on a dout of ones) equal
+    to the plain mask's; 8's and 9's y within TOL at float32, each row
+    within HALF_TOLS' "conv_row" of its norm at bf16.  7b's relu boundary: folds exactly 0 dropped as the forward
     drops them.  At float32 the autograd Functions' gradients; at bf16
     planted faults that must fail the checks: 8's last 8 input channels
     left out, and its channels 16-31 (one 16-deep k-step of its
@@ -2606,10 +2774,13 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     from paddle_tpu_torch.ops import conv_bn as cb
     from paddle_tpu_torch.ops import fused_bn as fb
 
-    bf16 = dtype == torch.bfloat16
-    sfx = "_bf16" if bf16 else ""
+    bf16 = dtype != torch.float32          # either 16-bit instance
+    tag = _short(dtype) if bf16 else ""
+    sfx = f"_{tag}" if bf16 else ""
+    row_tol = HALF_TOLS[dtype]["conv_row"] if bf16 else None
     batch = RESNET_BF16_BATCH if bf16 else RESNET_BATCH
     es = torch.empty(0, dtype=dtype).element_size()
+    # the dense 16-bit tensor-core peak: the same at bf16 and float16
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     tol = CONV_STAT_TOL if bf16 else TOL
     _, topo = resnet_model()
@@ -2709,13 +2880,16 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
         dout[rows, cols] = 1000.0
         got = fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, True)
         ref = fb._bwd_stats_ref(dout, x2, w, b, mean, inv, True)
-        e = _hold("bn_bwd_stats bf16 relu boundary", zip(
+        e = _hold(f"bn_bwd_stats {tag} relu boundary", zip(
             ("sum dy", "sum dy*xhat"), got, ref), tol)
         note("bn_bwd_stats", e)
         fold32 = x2.float() * w + b
-        if not bool((fb._fold(x2, w, b)[rows, cols] == 0).all()):
-            raise AssertionError("bf16 relu boundary: the bf16 fold is "
-                                 "not 0")
+        planted = fb._fold(x2, w, b)[rows, cols]
+        if not (bool((planted == 0).all()) if dtype == torch.bfloat16 else
+                bool(((planted > 0) != (fold32[rows, cols] > 0)).any())):
+            raise AssertionError(f"{tag} relu boundary: the planted folds "
+                                 f"do not part the {tag} fold from the "
+                                 "float32 one")
         f32_kept = int((fold32[rows, cols] > 0).sum())
         bad = fb._bwd_stats_ref(dout, x2.float(), w, b, mean, inv, True)
         fault = max(_rel_err(g, r) for g, r in zip(bad, ref))
@@ -2723,12 +2897,14 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                                     inv, True)[0].sum().item()
         kept32 = int((fold32 > 0).sum())
         if not (fault > tol and f32_kept and kept != kept32):
-            raise AssertionError(f"bn_bwd_stats bf16 planted fault (the "
+            raise AssertionError(f"bn_bwd_stats {tag} planted fault (the "
                                  f"mask on the float32 fold) passed: "
                                  f"{fault}")
         faults["bn_bwd_stats"] = fault
-        print(f"bn_bwd_stats bf16 relu boundary at {rep['bn_bwd_stats']} "
-              f"({rows.numel()} elements with the bf16 fold exactly 0, "
+        print(f"bn_bwd_stats {tag} relu boundary at {rep['bn_bwd_stats']} "
+              f"({rows.numel()} elements with the {tag} fold "
+              + ("exactly 0" if dtype == torch.bfloat16 else
+                 "at the product's rounding residual") + ", "
               f"dout 1000): error {e[1]:.1e}; the mask on the float32 fold "
               f"keeps {f32_kept} of them ({kept32} kept in all against the "
               f"kernel's {kept:.0f}) and misses by {fault:.3e} of max(1, "
@@ -2756,8 +2932,8 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                 got = cb.matmul_stats_cuda(cut, w2)
                 err = _o_row_err(got[0], ref[0])
                 faults["matmul_stats"][fname] = err
-                if err <= CONV_ROW_TOL:
-                    raise AssertionError(f"matmul_stats bf16 planted fault "
+                if err <= row_tol:
+                    raise AssertionError(f"matmul_stats {tag} planted fault "
                                          f"({fname}) passed the row check")
                 del cut, got
         del x2, w2, ref
@@ -2785,8 +2961,8 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                 err = _o_row_err(got[0].reshape(-1, co),
                                  ref[0].reshape(-1, co))
                 faults["conv3x3_stats"][fname] = err
-                if err <= CONV_ROW_TOL:
-                    raise AssertionError(f"conv3x3_stats bf16 planted fault "
+                if err <= row_tol:
+                    raise AssertionError(f"conv3x3_stats {tag} planted fault "
                                          f"({fname}) passed the row check")
                 del cut, got
         del x4, w4, ref
@@ -2810,14 +2986,14 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                 *lv, impl), [x4, w4], gen))
         del x, x2, w2, x4, w4
     torch.cuda.synchronize()
-    print(f"conv kernels{' at bf16' if bf16 else ''} against their plain "
+    print(f"conv kernels{' at ' + tag if bf16 else ''} against their plain "
           f"versions (values at every ResNet-50 shape at batch {batch}, "
           f"ragged shapes, rank 2{'' if bf16 else '; gradients'}): worst "
           f"error / max(1, max |ref|) " + ", ".join(
               f"{k} {e[1]:.1e}" for k, e in errs.items())
           + ((f" (statistics' limit {tol}); y's worst row error "
               + ", ".join(f"{k} {e:.1e}" for k, e in rows_err.items())
-              + f" (limit {CONV_ROW_TOL:.2e}); planted faults (row error, "
+              + f" (limit {row_tol:.2e}); planted faults (row error, "
               f"or the statistics' for 7b): " + ", ".join(
                   f"{k} {e:.3f}" if not isinstance(e, dict) else ", ".join(
                       f"{k} {f} {v:.3f}" for f, v in e.items())
@@ -2825,13 +3001,13 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
               + ", each failing the check") if bf16 else ""), flush=True)
     mma_res = None
     if bf16:
-        mma_res = cb.conv_mma_resources()
-        print("matmul_stats and conv3x3_stats bf16 tensor-core kernels' "
+        mma_res = cb.conv_mma_resources(dtype)
+        print(f"matmul_stats and conv3x3_stats {tag} tensor-core kernels' "
               "resources (cudaFuncGetAttributes, by copy width): "
               + ", ".join(f"{n} {r} registers, {l_} bytes local"
                           for n, (r, l_) in mma_res.items()), flush=True)
         if any(l_ for _, l_ in mma_res.values()):
-            raise AssertionError(f"a bf16 kernel 8 or 9 spills: {mma_res}")
+            raise AssertionError(f"a {tag} kernel 8 or 9 spills: {mma_res}")
 
     # ---- times at every main-path shape
     def bounds(flops, nbytes, fma=bf16):
@@ -2900,13 +3076,14 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                          + 4.0 * 2 * co, fma=False)))
             del x4, w4, xn, wn
     torch.cuda.empty_cache()
-    on = " on bf16" if bf16 else ""
+    on = f" on {tag}" if bf16 else ""
     library = {"bn_fwd_stats": f"torch.var_mean{on}",
                "bn_bwd_stats": f"torch.batch_norm_backward_reduce{on} (the "
                                f"two sums, no relu mask)",
-               "matmul_stats": ("bf16 torch.mm alone (tensor cores)" if bf16
-                                else "torch.mm alone (the product's floor)"),
-               "conv3x3_stats": ("bf16 F.conv2d alone (tensor cores)"
+               "matmul_stats": (f"{tag} torch.mm alone (tensor cores)"
+                                if bf16 else
+                                "torch.mm alone (the product's floor)"),
+               "conv3x3_stats": (f"{tag} F.conv2d alone (tensor cores)"
                                  if bf16 else
                                  "F.conv2d alone (the conv's floor)")}
     out = {}
@@ -3356,34 +3533,36 @@ def resnet_path():
 RESNET_BF16_LAYER_TOLS = (2.0 ** -6, TOL, 2.0 ** -5, 1e-4)
 
 
-def _bf16_train(name, paddle, topo, values, kernels: bool):
+def _bf16_train(name, paddle, topo, values, kernels: bool, sfx="bf16"):
     """RESNET_STEPS Momentum steps of ``trainer.SGD.train`` under the
     current policy at RESNET_BF16_BATCH x RESNET_IMAGE^2, counts set to 0
-    just before and read just after: with ``kernels`` the bf16 instances
-    of 8 / 9 / 7a / 7b launch 30 / 16 / 4 / 4 times a step and the float32
-    ones never, else none of the four; then the step breakdown and the
-    idle share.  Returns the trainer and its numbers."""
+    just before and read just after: with ``kernels`` the bf16 (``sfx``
+    "f16": float16) instances of 8 / 9 / 7a / 7b launch 30 / 16 / 4 / 4
+    times a step and no other instance, else none of the four; then the
+    step breakdown and the idle share.  Returns the trainer and its
+    numbers."""
     trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
         topo, values), paddle.optimizer.Momentum(learning_rate=RESNET_LR,
                                                  momentum=0.9))
     feed = resnet_feed(RESNET_BF16_BATCH)
     losses, step_s, warm, peak_gb, launches = train_steps(
-        name, paddle, trainer, feed, RESNET_STEPS, "matmul_stats_bf16",
+        name, paddle, trainer, feed, RESNET_STEPS, f"matmul_stats_{sfx}",
         30 if kernels else 0, falling=False)
-    per_step = {k: launches[k + "_bf16"] / RESNET_STEPS for k in CONV_KERNELS}
-    f32 = {k: launches[k] - launches[k + "_bf16"] for k in CONV_KERNELS}
+    per_step = {k: launches[f"{k}_{sfx}"] / RESNET_STEPS
+                for k in CONV_KERNELS}
+    f32 = {k: launches[k] - launches[f"{k}_{sfx}"] for k in CONV_KERNELS}
     want = ({"matmul_stats": 30, "conv3x3_stats": 16, "bn_fwd_stats": 4,
              "bn_bwd_stats": 4} if kernels else dict.fromkeys(CONV_KERNELS, 0))
     if per_step != want or any(f32.values()):
-        raise AssertionError(f"{name}: bf16 launches a step {per_step}, "
-                             f"float32 launches {f32}")
+        raise AssertionError(f"{name}: {sfx} launches a step {per_step}, "
+                             f"other launches {f32}")
     print(f"{name}: {RESNET_STEPS} Momentum steps (lr {RESNET_LR}, 0.9) at "
           f"batch {RESNET_BF16_BATCH} x {RESNET_IMAGE}^2, losses "
           f"{[round(x, 5) for x in losses]}; step time first "
           f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
           f"{RESNET_BF16_BATCH / warm:.1f} images/s (smoke figure, not a "
-          f"benchmark); peak memory {peak_gb:.2f} GB; bf16 launches a step "
-          f"{per_step}, float32 launches {f32}", flush=True)
+          f"benchmark); peak memory {peak_gb:.2f} GB; {sfx} launches a step "
+          f"{per_step}, other launches {f32}", flush=True)
     breakdown = resnet_breakdown(trainer, feed)
     return trainer, {"losses": losses, "step_ms": warm * 1e3,
                      "first_step_ms": step_s[0] * 1e3,
@@ -3392,8 +3571,10 @@ def _bf16_train(name, paddle, topo, values, kernels: bool):
                      "breakdown": breakdown}
 
 
-def resnet_bf16_path():
-    """ResNet-50 at full width under ``precision="bf16"`` (the bench's):
+def resnet_bf16_path(policy="bf16"):
+    """ResNet-50 at full width under ``precision="bf16"`` (the bench's; or
+    ``policy``: ``fp16``, on the float16 instances, without the bench's
+    configuration, which runs no kernel of this repo):
     first the model ``resnet_model()`` builds, both fusions on, whose
     kernel route must agree with its plain route layer by layer at batch
     RESNET_PARITY_BATCH within RESNET_BF16_LAYER_TOLS
@@ -3412,7 +3593,8 @@ def resnet_bf16_path():
 
     paddle, topo = resnet_model()
     values = resnet_values(topo, SEED + 4)
-    _policy("bf16")
+    sfx = _policy_sfx(policy)
+    _policy(policy)
     out = {}
     try:
         parity_feed = resnet_feed(RESNET_PARITY_BATCH, SEED + 5)
@@ -3427,21 +3609,24 @@ def resnet_bf16_path():
         out["layer_parity"] = layers
         torch.cuda.empty_cache()
         trainer, out["fused"] = _bf16_train(
-            "ResNet-50 bf16 (fuse_conv_bn='all', fused_bn_impl='pallas')",
-            paddle, topo, values, kernels=True)
+            f"ResNet-50 {policy} (fuse_conv_bn='all', "
+            "fused_bn_impl='pallas')", paddle, topo, values, kernels=True,
+            sfx=sfx)
         ops.reset_launch_counts()
         result = trainer.test(lambda: iter([resnet_feed(32, SEED + 6)]))
         eval_launches = {k: v for k, v in ops.launch_counts().items()
-                         if k.removesuffix("_bf16") in CONV_KERNELS}
+                         if k.removesuffix("_" + sfx) in CONV_KERNELS}
         if not np.isfinite(result.cost) or any(eval_launches.values()):
-            raise AssertionError(f"ResNet-50 bf16 eval: cost {result.cost},"
-                                 f" launches {eval_launches}")
-        print(f"ResNet-50 bf16 eval (SGD.test, batch 32, the moving "
+            raise AssertionError(f"ResNet-50 {policy} eval: cost "
+                                 f"{result.cost}, launches {eval_launches}")
+        print(f"ResNet-50 {policy} eval (SGD.test, batch 32, the moving "
               f"statistics): cost {result.cost:.5f}, no kernel launched",
               flush=True)
         out["fused"]["eval_cost"] = result.cost
         del trainer
         torch.cuda.empty_cache()
+        if policy != "bf16":
+            return out
 
         _fresh(paddle)
         paddle.init(seed=SEED, fuse_conv_bn=False, fused_bn_impl=None)
@@ -3501,10 +3686,13 @@ def main() -> int:
     paged_err, paged_t = paged_phase(dev, gen, flush)
     bwd = flash_bwd_phase(dev, gen, flush)
     bwd16 = flash_bwd_bf16_phase(dev, gen, flush)
+    bwd_f16 = flash_bwd_bf16_phase(dev, gen, flush, torch.float16)
     rnn = rnn_phase(dev, gen, flush)
     rnn16 = rnn_bf16_phase(dev, gen, flush)
+    rnn_f16 = rnn_bf16_phase(dev, gen, flush, torch.float16)
     conv = conv_phase(dev, gen, flush)
     conv16 = conv_phase(dev, gen, flush, torch.bfloat16)
+    conv_f16 = conv_phase(dev, gen, flush, torch.float16)
     var = variants_phase(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
@@ -3527,7 +3715,13 @@ def main() -> int:
     lm16 = lm_bf16_path(bwd16["fwd_ms"] + bwd16["dkdv"]["ms"]
                         + bwd16["dq"]["ms"], train)
     torch.cuda.empty_cache()
+    # the fp16 policy slice: the LM on kernels 1, 2 and 3 at float16
+    lm_f16 = lm_bf16_path(bwd_f16["fwd_ms"] + bwd_f16["dkdv"]["ms"]
+                          + bwd_f16["dq"]["ms"], train, ("fp16",))["fp16"]
+    torch.cuda.empty_cache()
     rnn16_paths = rnn_bf16_paths()
+    torch.cuda.empty_cache()
+    rnn_f16_paths = rnn_bf16_paths("fp16")
     torch.cuda.empty_cache()
     mixed = mixed_skip_phase(dev)
     torch.cuda.empty_cache()
@@ -3535,6 +3729,8 @@ def main() -> int:
     resnet = resnet_path()
     torch.cuda.empty_cache()
     resnet16 = resnet_bf16_path()
+    torch.cuda.empty_cache()
+    resnet_f16 = resnet_bf16_path("fp16")
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
@@ -3642,6 +3838,36 @@ def main() -> int:
               ("matmul_stats", "conv_bn.cu", "paddle_tpu/ops/conv_bn.py:46"),
               ("conv3x3_stats", "conv_bn.cu",
                "paddle_tpu/ops/conv_bn.py:180"))),
+        *(dict(bwd_f16[k], name=f"{name}_f16", route="cuda",
+               source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=site,
+               launches=lm_f16["launches"][f"{name}_f16"],
+               shape=bwd_f16["shape"])
+          for k, name, src, site in (
+              ("fwd", "flash_fwd", "flash_fwd.cu",
+               "paddle_tpu/ops/flash_attention.py:90"),
+              ("dkdv", "flash_bwd_dkdv", "flash_bwd.cu",
+               "paddle_tpu/ops/flash_attention.py:285"),
+              ("dq", "flash_bwd_dq", "flash_bwd.cu",
+               "paddle_tpu/ops/flash_attention.py:370"))),
+        *(dict(rnn_f16[kind]["x float16, mask float32"], name=f"{name}_f16",
+               route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
+               replaces=site, launches=rnn_f16_paths[path]["launches"][
+                   f"{name}_f16"], instances=rnn_f16[kind])
+          for kind, name, path, site in (
+              ("lstm", "lstm_step", "lstm_route",
+               "paddle_tpu/ops/fused_rnn.py:44"),
+              ("gru", "gru_step", "nmt",
+               "paddle_tpu/ops/fused_rnn.py:144"))),
+        *(dict(conv_f16[k], name=f"{k}_f16", route="cuda",
+               source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=site,
+               launches=resnet_f16["fused"]["launches"][f"{k}_f16"])
+          for k, src, site in (
+              ("bn_fwd_stats", "bn_stats.cu", "paddle_tpu/ops/fused_bn.py:58"),
+              ("bn_bwd_stats", "bn_stats.cu",
+               "paddle_tpu/ops/fused_bn.py:145"),
+              ("matmul_stats", "conv_bn.cu", "paddle_tpu/ops/conv_bn.py:46"),
+              ("conv3x3_stats", "conv_bn.cu",
+               "paddle_tpu/ops/conv_bn.py:180"))),
         dict(var["variants"]["D bf16+exp2+split bq128 bk64"]["tool"],
              name="flash_variants", route="cuda",
              source="paddle_tpu_torch/ops/csrc/flash_variants.cu",
@@ -3676,6 +3902,18 @@ def main() -> int:
                                             "distance_to_plain", "cases",
                                             "resources")},
         "mixed_skip": mixed, "sass": sass}}), flush=True)
+    print(json.dumps({"fp16": {
+        "lm": {k: v for k, v in lm_f16.items() if k != "launches"},
+        "nmt": {k: v for k, v in rnn_f16_paths["nmt"].items()
+                if k != "launches"},
+        "lstm_route": {k: v for k, v in rnn_f16_paths["lstm_route"].items()
+                       if k != "launches"},
+        "resnet": {"layer_parity": resnet_f16["layer_parity"],
+                   **{k: v for k, v in resnet_f16["fused"].items()
+                      if k != "launches"}},
+        "flash": {k: bwd_f16[k] for k in ("planted_fault",
+                                          "distance_to_plain", "cases",
+                                          "resources")}}}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

@@ -4,8 +4,12 @@ Each activation is a named torch function under the JAX package's names,
 so ``resolve`` writes the same ``act`` attribute into the IR.  ``gelu`` is
 the tanh form, as ``jax.nn.gelu`` defaults to; on a reduced-precision
 input it is ``jax.nn.gelu``'s formula evaluated op by op in that dtype,
-its constants rounded to it, which is how XLA evaluates it (bit-equal on
-bf16), where ``F.gelu`` would round once at the end.
+its constants rounded to it, which is how XLA evaluates it under ``jit``
+(bit-equal on bf16 and float16: at float16 the term ``x + 0.044715 x^3``
+is one float32 multiply-add rounded once, as XLA's CPU backend contracts
+it), where ``F.gelu`` would round once at the end.  The gradient is
+autograd through those ops, which rounds at other places than XLA's
+fused backward (within a few ulps of it, not bit-equal).
 """
 
 from __future__ import annotations
@@ -30,7 +34,15 @@ def _gelu(x):
     def c(v):
         return torch.tensor(v, dtype=x.dtype, device=x.device)
 
-    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    if x.dtype == torch.float16:
+        # XLA's CPU backend contracts this one term of the jitted formula
+        # into a float32 multiply-add on the float16 x^3, rounded once
+        # (bf16 it evaluates op by op, as below)
+        t = (c(0.044715).float() * (x * x * x).float() + x.float()).to(
+            x.dtype)
+    else:
+        t = x + c(0.044715) * (x * x * x)
+    inner = c(math.sqrt(2.0 / math.pi)) * t
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 

@@ -30,18 +30,24 @@ def _wrappers() -> dict:
 def launch_counts() -> dict:
     """Launches of each kernel so far in this process (the plain versions
     are not counted): ``name`` counts every launch of the wrapper, at any
-    dtype; ``name_bf16`` those of its bf16 instances alone, for the
-    wrappers that have them."""
+    dtype; ``name_bf16`` and ``name_f16`` those of its bf16 and float16
+    instances alone, for the wrappers that have them."""
     counts = {}
     for name, fn in _wrappers().items():
         counts[name] = fn.launches
-        if hasattr(fn, "launches_bf16"):
-            counts[name + "_bf16"] = fn.launches_bf16
+        for sfx in _DTYPE_COUNTS:
+            if hasattr(fn, "launches_" + sfx):
+                counts[f"{name}_{sfx}"] = getattr(fn, "launches_" + sfx)
     return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+        for sfx in _DTYPE_COUNTS:
+            if hasattr(fn, "launches_" + sfx):
+                setattr(fn, "launches_" + sfx, 0)
+
+
+# the per-instance counts a wrapper may keep beside ``launches``
+_DTYPE_COUNTS = ("bf16", "f16")

@@ -21,16 +21,17 @@ version), ``"xla"``, ``"interpret"`` and ``"torch"`` take the plain
 version on any device, ``"cuda"`` launches the kernel.
 
 Dtypes, as in the JAX package: x and w are float32 or, under the bf16
-policy, both bf16.  y is computed in float32 (bf16 products are exact in
-float32, the sums float32), s and ss are taken from that unrounded y,
-and only then is y rounded to x's dtype.  The backward folds the
+(fp16) policy, both bf16 (float16).  y is computed in float32 (16-bit
+products are exact in float32, the sums float32), s and ss are taken from
+that unrounded y, and only then is y rounded to x's dtype (at float16 a
+y past 65504 becomes inf, as in the JAX package).  The backward folds the
 statistics' cotangents in float32, casts the effective dy to x's dtype,
 and runs the products on operands of that dtype, so dx and dw come back
-in x's and w's.  The CUDA kernels have an instance for each: float32
-operands or bf16 ones; a float16 operand raises (``ROADMAP.md`` section
-2, K5).  The bf16 instances of both kernels run on the tensor cores
-(bf16 products accumulated in float32: the same y up to the order of the
-sums), the float32 ones on the CUDA cores' float32 FMAs.
+in x's and w's.  The CUDA kernels have an instance for each: float32,
+bf16 or float16 operands.  The bf16 and float16 instances of both
+kernels run on the tensor cores (16-bit products accumulated in float32:
+the same y up to the order of the sums), the float32 ones on the CUDA
+cores' float32 FMAs.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.fused_bn import (_BF16, KERNEL_DTYPES,
+from paddle_tpu_torch.ops.flash_attention import count_launch
+from paddle_tpu_torch.ops.fused_bn import (_F32, KERNEL_DTYPES,
                                            check_operand, on_card, resolve)
 
 _BM = 128    # output pixels a block of the kernels owns
@@ -75,10 +77,10 @@ _SIGNATURES = {
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
     **{f"conv3x3_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
-    "conv_mma_resources": [ctypes.c_int] * 2
+    "conv_mma_resources": [ctypes.c_int] * 3
                           + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
-# the bf16 instances: elements a copy, for _vec(wide=True) = 2, 1, 0
+# the 16-bit instances: elements a copy, for _vec(wide=True) = 2, 1, 0
 CONV_MMA_WIDTHS = (8, 4, 1)
 # their A operand: taps gathered a pixel (kernel 8's dense x, kernel 9's
 # 3x3 patches)
@@ -94,10 +96,10 @@ def _check(name, t, device, shape, dtypes=tuple(KERNEL_DTYPES)):
 
 def _vec(ci, co, *tensors, wide: bool = False) -> int:
     """How the kernel may stage its operands: 1 where it may move 4
-    elements a load and store (16 bytes of float32, 8 of bf16), Ci and Co
-    multiples of 4 and every operand aligned to 4 elements, else 0 (one
-    element at a time).  With ``wide`` (the bf16 instances, whose
-    cp.async copies also take 16 bytes of bf16) 2 where Ci and Co are
+    elements a load and store (16 bytes of float32, 8 of bf16 or float16),
+    Ci and Co multiples of 4 and every operand aligned to 4 elements, else
+    0 (one element at a time).  With ``wide`` (the 16-bit instances, whose
+    cp.async copies also take 16 bytes of 16-bit elements) 2 where Ci and Co are
     multiples of 8 and every operand is aligned to 8 elements."""
     def fits(n):
         align = n * tensors[0].element_size()
@@ -119,12 +121,13 @@ def _outputs(rows, co, shape, device, dtype):
 
 def matmul_stats_cuda(x2, w2):
     """Kernel 8: (y = x2 @ w2, sum y, sum y^2) for x2 [P, Ci], w2 [Ci, Co],
-    both float32 or both bf16; y in their dtype, the sums float32 of the
-    unrounded y.  float32 runs the CUDA-core tile, bf16 the tensor-core
-    kernel, copying 16 bytes, 8 or one element at a time as
-    ``_vec(wide=True)`` finds.  One call is two launches (the product with
-    its partial statistics, then their fixed-order sum; three at bf16,
-    where the sum runs over chunks of rows first), counted as one."""
+    both float32, bf16 or float16; y in their dtype, the sums float32 of
+    the unrounded y.  float32 runs the CUDA-core tile, bf16 and float16
+    the tensor-core kernel, copying 16 bytes, 8 or one element at a time
+    as ``_vec(wide=True)`` finds.  One call is two launches (the product
+    with its partial statistics, then their fixed-order sum; three at 16
+    bits, where the sum runs over chunks of rows first), counted as
+    one."""
     p, ci = x2.shape
     co = w2.shape[1]
     dev = x2.device
@@ -137,26 +140,26 @@ def matmul_stats_cuda(x2, w2):
     lib = _build.load("conv_bn", _SIGNATURES)
     err = getattr(lib, f"matmul_stats_{KERNEL_DTYPES[x2.dtype]}")(
         x2.data_ptr(), w2.data_ptr(), p, ci, co,
-        _vec(ci, co, x2, w2, y, wide=x2.dtype == _BF16), y.data_ptr(),
+        _vec(ci, co, x2, w2, y, wide=x2.dtype != _F32), y.data_ptr(),
         part.data_ptr(), s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "matmul_stats")
-    matmul_stats_cuda.launches += 1
-    matmul_stats_cuda.launches_bf16 += x2.dtype == _BF16
+    count_launch(matmul_stats_cuda, x2.dtype)
     return y, s, ss
 
 
-# every launch, and those of the bf16 instance alone
+# every launch, and those of the bf16 and float16 instances alone
 matmul_stats_cuda.launches = matmul_stats_cuda.launches_bf16 = 0
+matmul_stats_cuda.launches_f16 = 0
 
 
 def conv3x3_stats_cuda(x4, w4):
     """Kernel 9: the 3x3 stride-1 SAME conv of x4 [N, H, W, Ci] with w4
-    [3, 3, Ci, Co] (both float32 or both bf16; y in their dtype), with sum
-    y and sum y^2 per channel, float32.  float32 runs the CUDA-core tile,
-    bf16 the tensor-core kernel, copying 16 bytes, 8 or one element at a
-    time as ``_vec(wide=True)`` finds.  Two launches (three at bf16),
-    counted as one."""
+    [3, 3, Ci, Co] (both float32, bf16 or float16; y in their dtype),
+    with sum y and sum y^2 per channel, float32.  float32 runs the
+    CUDA-core tile, bf16 and float16 the tensor-core kernel, copying 16
+    bytes, 8 or one element at a time as ``_vec(wide=True)`` finds.  Two
+    launches (three at 16 bits), counted as one."""
     n, h, w, ci = x4.shape
     co = w4.shape[-1]
     dev = x4.device
@@ -169,27 +172,28 @@ def conv3x3_stats_cuda(x4, w4):
     lib = _build.load("conv_bn", _SIGNATURES)
     err = getattr(lib, f"conv3x3_stats_{KERNEL_DTYPES[x4.dtype]}")(
         x4.data_ptr(), w4.data_ptr(), n, h, w, ci, co,
-        _vec(ci, co, x4, w4, y, wide=x4.dtype == _BF16), y.data_ptr(),
+        _vec(ci, co, x4, w4, y, wide=x4.dtype != _F32), y.data_ptr(),
         part.data_ptr(), s.data_ptr(), ss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "conv3x3_stats")
-    conv3x3_stats_cuda.launches += 1
-    conv3x3_stats_cuda.launches_bf16 += x4.dtype == _BF16
+    count_launch(conv3x3_stats_cuda, x4.dtype)
     return y, s, ss
 
 
 conv3x3_stats_cuda.launches = conv3x3_stats_cuda.launches_bf16 = 0
+conv3x3_stats_cuda.launches_f16 = 0
 
 
-def conv_mma_resources() -> dict:
+def conv_mma_resources(dtype=torch.bfloat16) -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
-    kernel spills or keeps a stack) of the bf16 tensor-core instances of
-    kernels 8 and 9 at each copy width, from ``cudaFuncGetAttributes``:
-    ``{"matmul_w8": (regs, local_bytes), ..., "conv3x3_w1": ...}``.
-    Needs a card."""
+    kernel spills or keeps a stack) of the tensor-core instances of
+    kernels 8 and 9 on ``dtype`` (bf16 or float16) at each copy width,
+    from ``cudaFuncGetAttributes``: ``{"matmul_w8": (regs, local_bytes),
+    ..., "conv3x3_w1": ...}``.  Needs a card."""
     lib = _build.load("conv_bn", _SIGNATURES)
+    half = int(dtype == torch.float16)
     return {f"{name}_w{width}": _build.resources(
-        lib, lib.conv_mma_resources, taps, width)
+        lib, lib.conv_mma_resources, taps, width, half)
         for name, taps in CONV_MMA_TAPS.items()
         for width in CONV_MMA_WIDTHS}
 

@@ -1,5 +1,6 @@
 // Batch-norm statistic passes for Hopper (sm_90a): float32 instances and
-// the bf16 instances the bf16 precision policy reaches.
+// the bf16 and float16 instances the bf16 and fp16 precision policies
+// reach.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/fused_bn.py:
 //   kernel 7a  _fwd_stats (_fwd4_kernel, _fwd2_kernel): per channel, sum x
@@ -34,19 +35,25 @@
 //   fold is __fmul_rn then __fadd_rn, bit-equal to the forward.
 //
 // Operand types (template parameter T, the activation type of x and dout):
-// float32, and bf16 for both, the combination the JAX package's kernels
-// meet in a bf16 ResNet step (x and dout bf16; w, b, mean and inv float32
-// per channel).  A bf16 element is converted to float as it is loaded and
+// float32, and bf16 or float16 for both, the combinations the JAX
+// package's kernels meet in a bf16 or fp16 ResNet step (x and dout 16-bit;
+// w, b, mean and inv float32 per channel).  A 16-bit element is converted
+// to float as it is loaded and
 // every sum is float32, as in the Pallas kernels, which upcast x and dout;
 // the partials and their fixed-order finish are the float32 instances'.
 // At bf16 the mask is the JAX package's fold in x's own dtype: w and b
 // rounded to bf16, the product rounded to bf16 (a product of two bf16
 // values is exact in float32, so that is one correct rounding), then the
 // sum rounded to bf16, then compared with 0.  xhat stays float32, as in
-// the Pallas kernel.  The float32 instances are the code before the
-// templates.
+// the Pallas kernel.  At float16 the mask is the fold as XLA evaluates it
+// in the JAX package's jitted steps: w and b rounded to f16, then x * w + b
+// as one float32 multiply-add (the product of two f16 values is exact in
+// float32) rounded once to f16, where its CPU backend contracts the two
+// ops (bf16 it rounds op by op; ops/fused_bn.py::_fold does the same).
+// The float32 instances are the code before the templates.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -61,26 +68,37 @@ constexpr int kRowLanes = 8;            // warps, each on every 8th row
 constexpr int kThreads = kCh * kRowLanes;
 constexpr int kUnroll = 4;              // rows in flight a thread
 
+// v rounded to T (bf16 or f16) and back to float.
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float round_to(float v, __half) {
+  return __half2float(__float2half_rn(v));
+}
+
 // A per-channel scalar as the fold in T uses it: itself at float32,
-// rounded to bf16 at bf16 (the JAX fold casts w and b to x's dtype).
+// rounded to T at bf16 or f16 (the JAX fold casts w and b to x's dtype).
 template <typename T>
 __device__ __forceinline__ float in_t(float v) {
   if constexpr (std::is_same_v<T, float>)
     return v;
   else
-    return __bfloat162float(__float2bfloat16_rn(v));
+    return round_to(v, T{});
 }
 
 // The forward's fold x * w + b, rounded as the forward rounds it: two
-// float32 roundings, or at bf16 each op's result rounded to bf16 (w and b
+// float32 roundings; at bf16 each op's result rounded to bf16; at f16 the
+// float32 sum of the exact product and b, rounded once to f16 (w and b
 // come in already rounded, in_t).
 template <typename T>
 __device__ __forceinline__ float fold(float xv, float w, float b) {
   if constexpr (std::is_same_v<T, float>) {
     return __fadd_rn(__fmul_rn(xv, w), b);
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return round_to(__fadd_rn(__fmul_rn(xv, w), b), T{});
   } else {
-    const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(xv, w)));
-    return __bfloat162float(__float2bfloat16_rn(__fadd_rn(p, b)));
+    const float p = round_to(__fmul_rn(xv, w), T{});
+    return round_to(__fadd_rn(p, b), T{});
   }
 }
 
@@ -216,7 +234,8 @@ int bwd_stats(const void* dout, const void* x, const void* w, const void* b,
 
 }  // namespace
 
-// One C entry per instance: x (and dout) float32 (f32) or bf16 (bf16).
+// One C entry per instance: x (and dout) float32 (f32), bf16 (bf16) or
+// float16 (f16).
 // x [P, C]; partials [2, R, C] scratch; s, sq [C].  R slabs of `slab` rows
 // cover P (the wrapper picks both).
 #define FWD_ARGS                                                         \
@@ -228,6 +247,9 @@ extern "C" int bn_fwd_stats_f32(FWD_ARGS) {
 }
 extern "C" int bn_fwd_stats_bf16(FWD_ARGS) {
   return fwd_stats<__nv_bfloat16>(FWD_PASS);
+}
+extern "C" int bn_fwd_stats_f16(FWD_ARGS) {
+  return fwd_stats<__half>(FWD_PASS);
 }
 
 // dout, x [P, C]; w, b, mean, inv [C] float32; relu 0 or 1; partials
@@ -244,6 +266,9 @@ extern "C" int bn_bwd_stats_f32(BWD_ARGS) {
 }
 extern "C" int bn_bwd_stats_bf16(BWD_ARGS) {
   return bwd_stats<__nv_bfloat16>(BWD_PASS);
+}
+extern "C" int bn_bwd_stats_f16(BWD_ARGS) {
+  return bwd_stats<__half>(BWD_PASS);
 }
 
 extern "C" const char* error_string(int code) {

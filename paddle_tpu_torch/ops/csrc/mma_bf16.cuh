@@ -1,20 +1,25 @@
-// The warp-level bf16 tensor-core building blocks that the hand-written
-// kernels share (flash_variants.cu, the forward sweep; flash_bwd.cu, the
-// bf16 backward): cp.async copies into shared memory, ldmatrix (plain and
-// transposed) fragment loads, mma.sync m16n8k16 bf16 -> float32, and the
-// packing of two floats into a bf16 pair, which re-packs a float32
-// accumulator as the A operand of the next product in registers.  PTX for
-// sm_80 and later; every build here targets sm_90a.
+// The warp-level 16-bit tensor-core building blocks that the hand-written
+// kernels share (flash_variants.cu, the forward sweep; flash_fwd.cu,
+// flash_bwd.cu and conv_bn.cu at bf16 and float16): cp.async copies into
+// shared memory, ldmatrix (plain and transposed) fragment loads, which
+// move 16-bit lanes whatever their type, mma.sync m16n8k16 bf16 or f16 ->
+// float32, and the packing of two floats into a bf16 or f16 pair, which
+// re-packs a float32 accumulator as the A operand of the next product in
+// registers.  Elem16<E> selects the product and the packing by element
+// type, so one kernel template serves both.  PTX for sm_80 and later;
+// every build here targets sm_90a.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mma {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -36,7 +41,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -45,7 +50,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
+                                                  const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -69,6 +74,56 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// c += a . b on the tensor cores: a 16 x 16 f16 (row), b 16 x 8 f16 (col),
+// c 16 x 8 float32.
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as an f16 pair, `lo` in the low half, each rounded to
+// nearest (a value below f16's range rounds to a subnormal or 0).
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The 16-bit element type E of a tensor-core kernel: its product (mma),
+// the packing of two floats as an E pair (pack) and one float as E (from).
+template <typename E>
+struct Elem16;
+template <>
+struct Elem16<bf16> {
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ bf16 from(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+template <>
+struct Elem16<f16> {
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_f16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ f16 from(float v) {
+    return __float2half_rn(v);
+  }
+};
 
 // The narrower copies of the same kind: 8 bytes (a row of bf16 that is
 // only 8-byte aligned) and 4 bytes (one float), through L1 (cp.async.cg

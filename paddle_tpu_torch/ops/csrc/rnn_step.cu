@@ -1,5 +1,5 @@
 // One LSTM step and one GRU step, for Hopper (sm_90a): float32, and the
-// bf16 instances the bf16 precision policy reaches.
+// bf16 and float16 instances the bf16 and fp16 precision policies reach.
 //
 // Replaces the Pallas TPU kernels paddle_tpu/ops/fused_rnn.py::_lstm_kernel
 // (launched by _lstm_pallas) and ::_gru_kernel (launched by _gru_pallas).
@@ -47,17 +47,19 @@
 // Every operand is a contiguous row-major array; b is read at an offset of
 // 2H for the GRU's candidate bias (the TPU wrapper passes it pre-split),
 // and the mask is [B] values.  h, c, the weights and the bias are float32;
-// x and the mask are float32 or bf16 (template parameters X and M), the
-// combinations the JAX package reaches under its bf16 policy: x is an fc
-// output in the compute dtype, the mask float32 from an @len feed or in
-// x's dtype when the recurrence makes its own ones.  A bf16 value is read
-// with __bfloat162float where it enters the gate sums, so all arithmetic
+// x and the mask are float32, bf16 or float16 (template parameters X and
+// M), the combinations the JAX package reaches under its bf16 and fp16
+// policies: x is an fc output in the compute dtype, the mask float32 from
+// an @len feed or in x's dtype when the recurrence makes its own ones.  A
+// 16-bit value is read as float where it enters the gate sums, so all
+// arithmetic
 // stays float32, as in the Pallas kernels, which upcast every operand; the
 // outputs follow h and are float32.  The products read h (or r h) and W
-// only, so the bf16 instances run the same tile_product as the float32
+// only, so the 16-bit instances run the same tile_product as the float32
 // ones; the float32 instances are the code before the templates.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -341,7 +343,8 @@ int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
 }  // namespace
 
 // One C entry per instance: x and the mask float32 (f32), x bf16 with a
-// float32 mask (bf16), both bf16 (bf16_mbf16).
+// float32 mask (bf16), both bf16 (bf16_mbf16), x float16 with a float32
+// mask (f16), both float16 (f16_mf16).
 #define LSTM_ARGS                                                        \
   const void *x, const void *h, const void *c, const void *w,           \
       const void *b, const void *m, void *h_out, void *c_out, int B,    \
@@ -362,6 +365,12 @@ extern "C" int lstm_step_bf16(LSTM_ARGS) {
 extern "C" int lstm_step_bf16_mbf16(LSTM_ARGS) {
   return lstm_launch<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
 }
+extern "C" int lstm_step_f16(LSTM_ARGS) {
+  return lstm_launch<__half, float>(LSTM_PASS);
+}
+extern "C" int lstm_step_f16_mf16(LSTM_ARGS) {
+  return lstm_launch<__half, __half>(LSTM_PASS);
+}
 extern "C" int gru_step_f32(GRU_ARGS) {
   return gru_launch<float, float>(GRU_PASS);
 }
@@ -370,6 +379,12 @@ extern "C" int gru_step_bf16(GRU_ARGS) {
 }
 extern "C" int gru_step_bf16_mbf16(GRU_ARGS) {
   return gru_launch<__nv_bfloat16, __nv_bfloat16>(GRU_PASS);
+}
+extern "C" int gru_step_f16(GRU_ARGS) {
+  return gru_launch<__half, float>(GRU_PASS);
+}
+extern "C" int gru_step_f16_mf16(GRU_ARGS) {
+  return gru_launch<__half, __half>(GRU_PASS);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,19 +1,20 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
 ``csrc/flash_bwd.cu`` (dK/dV and dQ), and their plain PyTorch versions.
 
-The kernels take float32 or bf16 q/k/v (and dO), as ``_flash_fwd`` and
-``_flash_bwd`` do: O comes back in q's dtype and the LSE in float32; dQ,
-dK and dV in q's, k's and v's dtype; delta is float32.  float16 raises
-(``ROADMAP.md`` section 2, K5).  The arithmetic:
+The kernels take float32, bf16 or float16 q/k/v (and dO), as
+``_flash_fwd`` and ``_flash_bwd`` do: O comes back in q's dtype and the
+LSE in float32; dQ, dK and dV in q's, k's and v's dtype; delta is
+float32.  The arithmetic:
 - float32 operands: every product float32, as in the Pallas kernels,
   which upcast before every product;
-- bf16 operands: the tensor cores.  S = QK^T (and in the backward
-  dP = dO V^T) take the bf16 operands with float32 accumulation (exact
-  products, so only the order of the sums differs from the Pallas
-  kernels); the forward rounds P once to bf16 before O += P V, its row
-  sum and LSE staying float32; the backward rounds P and dS once to bf16
-  before dV = P^T dO, dK = dS^T Q and dQ = dS K, accumulated in float32;
-  each output is rounded once.
+- bf16 and float16 operands: the tensor cores, one kernel template on
+  either 16-bit type.  S = QK^T (and in the backward dP = dO V^T) take
+  the 16-bit operands with float32 accumulation (exact products, so only
+  the order of the sums differs from the Pallas kernels); the forward
+  rounds P once to the operands' dtype before O += P V, its row sum and
+  LSE staying float32; the backward rounds P and dS once to it before
+  dV = P^T dO, dK = dS^T Q and dQ = dS K, accumulated in float32; each
+  output is rounded once.
 
 Four plain versions, for the two bf16 semantics of the JAX package and
 the tensor-core kernels:
@@ -21,10 +22,11 @@ the tensor-core kernels:
 probabilities are rounded to bf16 before P . V), the CPU route and the
 ``attention_impl="torch"`` route; ``_torch_attention_upcast`` does the
 Pallas kernels' arithmetic (float32 throughout on the upcast operands,
-outputs rounded once to the operands' dtype), the yardstick the bf16
+outputs rounded once to the operands' dtype), the yardstick the 16-bit
 kernels are held against on the card; ``_mma_fwd`` and ``_mma_bwd`` are
-the bf16 kernels' own arithmetic (the forward's online softmax over key
-tiles with P rounded to bf16; P and dS rounded to bf16 in the backward),
+the 16-bit kernels' own arithmetic (the forward's online softmax over key
+tiles with P rounded to the operands' dtype; P and dS rounded to it in
+the backward),
 which the CPU tests hold to the Pallas kernels within their rounding's
 bounds and the card's check holds the kernels to within tighter limits.
 
@@ -69,13 +71,15 @@ def resolve_impl(impl: Optional[str], t: torch.Tensor) -> str:
     return impl
 
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)   # q, k, v and dO
-FP16_ROW = ("float16 operands wait for the __half instances "
-            "(ROADMAP.md section 2, K5)")
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # q, k, v, dO
+FP16_ROW = ("this kernel has no float16 instance for these operands "
+            "(ROADMAP.md section 2, K5: kernel 4 and row T at float16 are "
+            "still to port)")
 
 
 def check_dtype(name: str, t: torch.Tensor, dtypes) -> None:
-    """TypeError unless t is one of ``dtypes``; a float16 one names K5."""
+    """TypeError unless t is one of ``dtypes``; a float16 one names the
+    rows of K5 still to port."""
     if t.dtype not in dtypes:
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise TypeError(f"{name}: the CUDA kernel takes {names}, got "
@@ -165,10 +169,11 @@ def _p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal, scale,
 def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
              scale: float, q_offset=0, kv_offset=0,
              drop_score_kstep: Optional[int] = None):
-    """The arithmetic of the bf16 backward kernels (the tensor-core
+    """The arithmetic of the 16-bit backward kernels (the tensor-core
     ``flash_bwd_{dkdv,dq}_mma_kernel`` of ``csrc/flash_bwd.cu``) in plain
-    torch: ``_upcast_bwd``'s steps, with P rounded to bf16 before P^T dO
-    and dS rounded to bf16 before dS^T Q and dS K, every product
+    torch: ``_upcast_bwd``'s steps, with P rounded to the operands' dtype
+    (bf16 or float16) before P^T dO and dS rounded to it before dS^T Q
+    and dS K, every product
     accumulated in float32, dQ, dK and dV rounded once to q's, k's and
     v's dtype.  Never on the kernel route: the tests hold it against the
     JAX package, ``chip_smoke.py`` the kernels against it.
@@ -183,7 +188,7 @@ def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
         q_score[..., 16 * drop_score_kstep:16 * drop_score_kstep + 16] = 0
     p, ds = _p_and_ds(qf, kf, vf, gf, kv_lens, o, lse, g_lse, causal,
                       scale, q_offset, kv_offset, q_score)
-    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    p, ds = (x.to(q.dtype).float() for x in (p, ds))
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
@@ -193,13 +198,14 @@ def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
 def _mma_fwd(q, k, v, kv_lens, *, causal: bool, scale: float, q_offset=0,
              kv_offset=0, block_k: int = 64,
              drop_score_kstep: Optional[int] = None):
-    """The arithmetic of the bf16 forward kernel (the tensor-core
+    """The arithmetic of the 16-bit forward kernel (the tensor-core
     ``flash_fwd_mma_kernel`` of ``csrc/flash_fwd.cu``) in plain torch:
     S = QK^T as a float32 product of the upcast operands, times scale *
     log2(e); the online softmax over key tiles of ``block_k`` (the
     kernel's 64) in the exp2 domain under ``_visible``'s masks, each
     tile's p = 2^(s - m) with m the running row max; the row sum l adds
-    the float32 p and O += P V takes p rounded to bf16; O = acc /
+    the float32 p and O += P V takes p rounded to q's dtype (bf16 or
+    float16); O = acc /
     max(l, 1e-30) rounded once to q's dtype and the natural-log LSE
     m / log2(e) + log(max(l, 1e-30)), float32 [B, H, Lq].  Returns
     (O, LSE).  Never on the kernel route: the tests hold it against the
@@ -228,7 +234,7 @@ def _mma_fwd(q, k, v, kv_lens, *, causal: bool, scale: float, q_offset=0,
         p = torch.where(mt, torch.exp2(s - m_new), 0.0)
         corr = torch.exp2(m - m_new)
         lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + p.to(torch.bfloat16).float() @ vt
+        acc = acc * corr + p.to(q.dtype).float() @ vt
         m = m_new
     l_safe = torch.clamp(lsum, min=1e-30)
     o = (acc / l_safe).to(q.dtype).transpose(1, 2)
@@ -281,18 +287,22 @@ _FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 # forward sweep's f32-dot rows (ops/flash_variants.py), which add the exp2
 # and split flags
 _SIGNATURES = {"flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
+               "flash_fwd_f16": _FWD_ARGS,
                "flash_fwd_f32dots_bf16": _FWD_ARGS + [ctypes.c_int] * 2,
-               "flash_fwd_mma_resources": [ctypes.c_int,
+               "flash_fwd_mma_resources": [ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int),
                                            ctypes.POINTER(ctypes.c_int)]}
+# the C entries' suffix by operand dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 
 
 def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
                    q_offset: int = 0, kv_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: returns (O [B,Lq,H,D] in q's dtype,
-    float32 or bf16; LSE [B,H,Lq] float32).  float32 operands run the
-    CUDA-core kernel (float32 products), bf16 ones the tensor-core kernel
-    (``_mma_fwd``'s arithmetic).  ``q_offset``/``kv_offset`` are host ints
+    float32, bf16 or float16; LSE [B,H,Lq] float32).  float32 operands run
+    the CUDA-core kernel (float32 products), bf16 and float16 ones the
+    tensor-core kernel (``_mma_fwd``'s arithmetic).  ``q_offset``/``kv_offset`` are host ints
     (no device sync); ``kv_lens`` is an int32 tensor [B] on the same
     device."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
@@ -321,9 +331,7 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
     if o.numel() == 0:
         return o, lse
     lib = _build.load("flash_fwd", _SIGNATURES)
-    entry = (lib.flash_fwd_f32 if q.dtype == torch.float32
-             else lib.flash_fwd_bf16)
-    err = entry(
+    err = getattr(lib, f"flash_fwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, lq, lk, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -331,13 +339,21 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
         float(scale * LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd")
-    flash_fwd_cuda.launches += 1
-    flash_fwd_cuda.launches_bf16 += q.dtype == torch.bfloat16
+    count_launch(flash_fwd_cuda, q.dtype)
     return o, lse
 
 
-# every launch, and those of the bf16 instance alone
+def count_launch(wrapper, dtype) -> None:
+    """One launch more on ``wrapper``'s counts: every launch, and those of
+    its bf16 or float16 instance alone."""
+    wrapper.launches += 1
+    wrapper.launches_bf16 += dtype == torch.bfloat16
+    wrapper.launches_f16 += dtype == torch.float16
+
+
+# every launch, and those of the bf16 and float16 instances alone
 flash_fwd_cuda.launches = flash_fwd_cuda.launches_bf16 = 0
+flash_fwd_cuda.launches_f16 = 0
 
 _DKDV_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
               + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
@@ -345,20 +361,17 @@ _DKDV_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
 _DQ_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.c_void_p])
-_BWD_SIGNATURES = {"flash_bwd_dkdv_f32": _DKDV_ARGS,
-                   "flash_bwd_dkdv_bf16": _DKDV_ARGS,
-                   "flash_bwd_dq_f32": _DQ_ARGS,
-                   "flash_bwd_dq_bf16": _DQ_ARGS,
-                   "flash_bwd_mma_resources": [
-                       ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int)]}
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BWD_SIGNATURES = {
+    **{f"flash_bwd_dkdv_{sfx}": _DKDV_ARGS for sfx in _SUFFIX.values()},
+    **{f"flash_bwd_dq_{sfx}": _DQ_ARGS for sfx in _SUFFIX.values()},
+    "flash_bwd_mma_resources": [ctypes.c_int] * 3
+                               + [ctypes.POINTER(ctypes.c_int)] * 2}
 
 
 def _check_bwd_operands(q, k, v, g, lse, delta, kv_lens):
     """What both backward kernels take: the forward's operands and dO
-    shaped like q, all float32 or all bf16, and contiguous float32 LSE
+    shaped like q, all float32, all bf16 or all float16, and contiguous
+    float32 LSE
     and delta [B, H, Lq]."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash backward wants q [B,Lq,H,D], k/v "
@@ -404,8 +417,8 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
                         kv_offset: int = 0):
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``: returns (dK, dV)
     [B, Lk, H, D] in the operands' dtype.  float32 operands run the
-    CUDA-core kernel (float32 products), bf16 ones the tensor-core kernel
-    (``_mma_bwd``'s arithmetic).  ``g`` is dO [B, Lq, H, D]; ``lse`` the
+    CUDA-core kernel (float32 products), bf16 and float16 ones the
+    tensor-core kernel (``_mma_bwd``'s arithmetic).  ``g`` is dO [B, Lq, H, D]; ``lse`` the
     forward's natural-log LSE and ``delta`` = rowsum(dO * O) - g_lse, both
     [B, H, Lq] float32."""
     _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
@@ -422,12 +435,12 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
         dk.data_ptr(), dv.data_ptr(),
         *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
     _build.check(lib, err, "flash_bwd_dkdv")
-    flash_bwd_dkdv_cuda.launches += 1
-    flash_bwd_dkdv_cuda.launches_bf16 += q.dtype == torch.bfloat16
+    count_launch(flash_bwd_dkdv_cuda, q.dtype)
     return dk, dv
 
 
 flash_bwd_dkdv_cuda.launches = flash_bwd_dkdv_cuda.launches_bf16 = 0
+flash_bwd_dkdv_cuda.launches_f16 = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
@@ -446,32 +459,36 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
         dq.data_ptr(),
         *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
     _build.check(lib, err, "flash_bwd_dq")
-    flash_bwd_dq_cuda.launches += 1
-    flash_bwd_dq_cuda.launches_bf16 += q.dtype == torch.bfloat16
+    count_launch(flash_bwd_dq_cuda, q.dtype)
     return dq
 
 
 flash_bwd_dq_cuda.launches = flash_bwd_dq_cuda.launches_bf16 = 0
+flash_bwd_dq_cuda.launches_f16 = 0
 
 
-def fwd_mma_resources() -> dict:
+def fwd_mma_resources(dtype=torch.bfloat16) -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
-    kernel spills or keeps a stack) of the bf16 tensor-core forward at
-    each head tile, from ``cudaFuncGetAttributes``: ``{"fwd_d64": (regs,
-    local_bytes), "fwd_d128": ...}``.  Needs a card."""
+    kernel spills or keeps a stack) of the tensor-core forward's
+    ``dtype`` instance (bf16 or float16) at each head tile, from
+    ``cudaFuncGetAttributes``: ``{"fwd_d64": (regs, local_bytes),
+    "fwd_d128": ...}``.  Needs a card."""
     lib = _build.load("flash_fwd", _SIGNATURES)
+    half = int(dtype == torch.float16)
     return {f"fwd_d{dt}": _build.resources(
-        lib, lib.flash_fwd_mma_resources, dt) for dt in (64, 128)}
+        lib, lib.flash_fwd_mma_resources, dt, half) for dt in (64, 128)}
 
 
-def bwd_mma_resources() -> dict:
+def bwd_mma_resources(dtype=torch.bfloat16) -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
-    kernel spills or keeps a stack) of the bf16 tensor-core kernels at
-    each head tile, from ``cudaFuncGetAttributes``:
-    ``{"dkdv_d64": (regs, local_bytes), ...}``.  Needs a card."""
+    kernel spills or keeps a stack) of the tensor-core kernels' ``dtype``
+    instances (bf16 or float16) at each head tile, from
+    ``cudaFuncGetAttributes``: ``{"dkdv_d64": (regs, local_bytes), ...}``.
+    Needs a card."""
     lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    half = int(dtype == torch.float16)
     return {f"{name}_d{dt}": _build.resources(
-        lib, lib.flash_bwd_mma_resources, dkdv, dt)
+        lib, lib.flash_bwd_mma_resources, dkdv, dt, half)
         for name, dkdv in (("dkdv", 1), ("dq", 0)) for dt in (64, 128)}
 
 
@@ -530,7 +547,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q``.  impl: ``"cuda"`` (the kernels), ``"torch"`` (plain version) or
     None (by the device of ``q``).  Differentiable on both routes: the
     kernel route's backward is ``csrc/flash_bwd.cu``, at float32 (CUDA
-    cores) or bf16 (tensor cores); q, k and v share a dtype."""
+    cores), bf16 or float16 (tensor cores); q, k and v share a dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_lens is None:

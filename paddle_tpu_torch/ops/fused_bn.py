@@ -17,8 +17,8 @@ kernels, or raises; a CPU tensor takes the plain version); ``"xla"``,
 ``"cuda"`` launches the kernels.  Ranks other than 2 and 4 take the plain
 version, as the JAX package routes them.
 
-Dtypes, as in the JAX package: x is float32 or, under the bf16 policy,
-bf16; scale, bias and the statistics are float32.  y = act(x * w + b) is
+Dtypes, as in the JAX package: x is float32 or, under the bf16 (fp16)
+policy, bf16 (float16); scale, bias and the statistics are float32.  y = act(x * w + b) is
 in x's dtype, w and b cast to it first (``_fold``); mean and var are
 float32 sums of the upcast x.  At bf16 the JAX package's two routes
 differ in the backward's sums, and each has its plain version here:
@@ -26,12 +26,12 @@ differ in the backward's sums, and each has its plain version here:
 dy * x-hat computed in bf16, summed in float32; ``_bwd_stats_xla``),
 while ``_fwd_stats_ref`` and ``_bwd_stats_ref`` reproduce the Pallas
 kernels' arithmetic (x and dout upcast, x-hat in float32; the relu mask
-on the fold in x's dtype) and are the kernels' yardstick, taken on a CPU
+on the fold in x's dtype, ``_fold``) and are the kernels' yardstick, taken on a CPU
 tensor under ``"pallas"`` or None and under ``"interpret"`` (the JAX
 package's name for running its kernels' arithmetic off the TPU).  At
-float32 the two are the same arithmetic.  The CUDA kernels take x (and
-dout) float32 or bf16, the rest float32; a float16 operand raises
-(``ROADMAP.md`` section 2, K5).
+float32 the two are the same arithmetic; at float16 they differ as at
+bf16.  The CUDA kernels take x (and dout) float32, bf16 or float16, the
+rest float32.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ import torch
 
 from paddle_tpu_torch.core import config
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import check_dtype, resolve_impl
+from paddle_tpu_torch.ops.flash_attention import (check_dtype, count_launch,
+                                                  resolve_impl)
 
 JAX_IMPLS = {"pallas": None, "xla": "torch", "interpret": "torch"}
 _CH = 32              # channels a block of the statistic kernels owns
@@ -52,8 +53,14 @@ _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of 132 SMs
 
 # ----------------------------------------------------------- plain versions
 def _fold(x, w, b):
-    """x * w + b in x's own dtype, w and b cast to it first, as two rounded
-    ops (the kernel's relu mask matches it)."""
+    """x * w + b in x's own dtype, w and b cast to it first, as the JAX
+    package's jitted steps evaluate it (the kernel's relu mask matches
+    it): two rounded ops, except at float16, where XLA's CPU backend
+    contracts the two into one float32 multiply-add rounded once (the
+    product of two float16 values is exact in float32)."""
+    if x.dtype == torch.float16:
+        return (x.float() * w.to(x.dtype).float()
+                + b.to(x.dtype).float()).to(x.dtype)
     return x * w.to(x.dtype) + b.to(x.dtype)
 
 
@@ -90,10 +97,10 @@ def _bwd_stats_xla(dout2, x2, w, b, mean, inv, relu: bool):
 
 
 # ------------------------------------------------------------------ kernels
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 # the activation's dtype (x and dout here; x and w in ops/conv_bn.py) ->
 # the C entries' suffix; per-channel vectors and statistics are float32
-KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16"}
+KERNEL_DTYPES = {_F32: "f32", _BF16: "bf16", _F16: "f16"}
 _SIGNATURES = {
     **{f"bn_fwd_stats_{sfx}": [ctypes.c_void_p, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int,
@@ -138,7 +145,8 @@ def on_card(x) -> None:
 
 
 def bn_fwd_stats_cuda(x2):
-    """Kernel 7a on x2 [P, C], float32 or bf16: (sum x, sum x^2), float32
+    """Kernel 7a on x2 [P, C], float32, bf16 or float16: (sum x, sum x^2),
+    float32
     [C] each.  One call is two launches (partials, then their fixed-order
     sum), counted as one."""
     p, c = x2.shape
@@ -155,17 +163,17 @@ def bn_fwd_stats_cuda(x2):
         x2.data_ptr(), p, c, r, slab, part.data_ptr(), s.data_ptr(),
         sq.data_ptr(), torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(lib, err, "bn_fwd_stats")
-    bn_fwd_stats_cuda.launches += 1
-    bn_fwd_stats_cuda.launches_bf16 += x2.dtype == _BF16
+    count_launch(bn_fwd_stats_cuda, x2.dtype)
     return s, sq
 
 
-# every launch, and those of the bf16 instance alone
+# every launch, and those of the bf16 and float16 instances alone
 bn_fwd_stats_cuda.launches = bn_fwd_stats_cuda.launches_bf16 = 0
+bn_fwd_stats_cuda.launches_f16 = 0
 
 
 def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
-    """Kernel 7b on dout2, x2 [P, C] (both float32 or both bf16) with
+    """Kernel 7b on dout2, x2 [P, C] (both float32, bf16 or float16) with
     per-channel float32 w, b, mean, inv [C]: (sum dy, sum dy * xhat),
     float32 [C] each; dy = dout where the fold x * w + b, in x's dtype, is
     > 0 (relu) or everywhere (linear).  Two launches, counted as one."""
@@ -189,12 +197,12 @@ def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
         part.data_ptr(), sdy.data_ptr(), sdyx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "bn_bwd_stats")
-    bn_bwd_stats_cuda.launches += 1
-    bn_bwd_stats_cuda.launches_bf16 += x2.dtype == _BF16
+    count_launch(bn_bwd_stats_cuda, x2.dtype)
     return sdy, sdyx
 
 
 bn_bwd_stats_cuda.launches = bn_bwd_stats_cuda.launches_bf16 = 0
+bn_bwd_stats_cuda.launches_f16 = 0
 
 
 def fwd_stats(x2, *, impl: Optional[str] = None):
@@ -303,7 +311,8 @@ def bn_act_train(x, scale, bias, eps: float, act: str,
                  impl: Optional[str] = None):
     """Training BN with folded activation: act(bn(x)) -> (y, mean, var).
 
-    x [..., C] float32 or bf16 (y in x's dtype; mean and var float32);
+    x [..., C] float32, bf16 or float16 (y in x's dtype; mean and var
+    float32);
     scale and bias float32; act ``"linear"`` or ``"relu"``; impl as in the
     module docstring.  Biased variance E[x^2] - mean^2, clamped at 0; eps
     under the rsqrt."""

@@ -10,13 +10,13 @@ gates ``[input, forget, candidate, output]``, each a block of H columns of
 
 Operand dtypes: the kernels have an instance for every combination the
 JAX package reaches under its policies (``KERNEL_DTYPES``): all float32,
-and under ``bf16`` / ``mixed`` the x projection in bf16 (an fc output)
-with h, c, the weights and the bias float32, and the mask float32 (from an
-``@len`` feed) or in x's dtype (no ``@len``: the recurrence's ones).  All
-arithmetic is float32, as in the Pallas kernels, which upcast every
-operand; h' and c' come back in h's and c's dtype, float32.  Any other
-combination on a CUDA tensor raises TypeError, float16 included
-(``ROADMAP.md`` section 2, the ``__half`` instances).
+and under ``bf16`` / ``mixed`` (``fp16``) the x projection in bf16
+(float16; an fc output) with h, c, the weights and the bias float32, and
+the mask float32 (from an ``@len`` feed) or in x's dtype (no ``@len``:
+the recurrence's ones).  All arithmetic is float32, as in the Pallas
+kernels, which upcast every operand; h' and c' come back in h's and c's
+dtype, float32.  Any other combination on a CUDA tensor raises
+TypeError.
 
 ``impl=None`` routes by where the tensors lie: a CUDA tensor runs the
 kernel (or raises), a CPU tensor takes the plain version; ``impl="torch"``
@@ -36,7 +36,8 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import FP16_ROW, resolve_impl
+from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, count_launch,
+                                                  resolve_impl)
 
 
 # --------------------------------------------------------------------- LSTM
@@ -61,11 +62,12 @@ def _gru_step_ref(x_t, h, w_g, w_c, b, m_t):
 
 
 # ------------------------------------------------------------------ kernels
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 # (x dtype, mask dtype) -> the C entries' suffix, for both steps; every
 # other operand is float32
 KERNEL_DTYPES = {(_F32, _F32): "f32", (_BF16, _F32): "bf16",
-                 (_BF16, _BF16): "bf16_mbf16"}
+                 (_BF16, _BF16): "bf16_mbf16", (_F16, _F32): "f16",
+                 (_F16, _F16): "f16_mf16"}
 _SIGNATURES = {
     **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
@@ -110,8 +112,8 @@ def _check_operands(device, **operands) -> None:
 
 def lstm_step_cuda(x_t, h, c, w, b, m_t):
     """Launch the LSTM step of ``csrc/rnn_step.cu``: returns (h', c'),
-    float32 [B, H] each.  x_t and m_t float32 or bf16 (``KERNEL_DTYPES``),
-    the rest float32."""
+    float32 [B, H] each.  x_t and m_t float32, bf16 or float16
+    (``KERNEL_DTYPES``), the rest float32."""
     bsz, hd = h.shape
     entry = _entry("lstm_step", x_t, m_t, dict(h=h, c=c, w=w, b=b))
     _check_operands(h.device, x_t=(x_t, (bsz, 4 * hd)), h=(h, (bsz, hd)),
@@ -126,13 +128,13 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
         b.data_ptr(), m_t.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         bsz, hd, torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "lstm_step")
-    lstm_step_cuda.launches += 1
-    lstm_step_cuda.launches_bf16 += x_t.dtype == _BF16
+    count_launch(lstm_step_cuda, x_t.dtype)
     return h_out, c_out
 
 
-# every launch, and those of the bf16 instances alone
+# every launch, and those of the bf16 and float16 instances alone
 lstm_step_cuda.launches = lstm_step_cuda.launches_bf16 = 0
+lstm_step_cuda.launches_f16 = 0
 
 
 def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
@@ -156,12 +158,12 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
         h_out.data_ptr(), bsz, hd,
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "gru_step")
-    gru_step_cuda.launches += 1
-    gru_step_cuda.launches_bf16 += x_t.dtype == _BF16
+    count_launch(gru_step_cuda, x_t.dtype)
     return h_out
 
 
 gru_step_cuda.launches = gru_step_cuda.launches_bf16 = 0
+gru_step_cuda.launches_f16 = 0
 
 
 def _recompute_grads(ref, inputs, m_t, grads):

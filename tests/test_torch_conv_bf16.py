@@ -62,10 +62,10 @@ def _restore_options():
     jconfig._policy_cache = None
 
 
-def _bf16_np(a):
-    """numpy float32 values rounded to bf16 (as float32)."""
-    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float(
-        ).numpy()
+def _bf16_np(a, dt="bfloat16"):
+    """numpy float32 values rounded to bf16 (or ``dt``; as float32)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, dt)).float().numpy()
 
 
 def _jnp(a, dtype=None):
@@ -96,9 +96,14 @@ def _same_dtype(t, j, what=""):
 
 
 def _within_ulp(t, j, what=""):
-    """Each element of bf16 t within one bf16 ulp of the JAX value."""
+    """Each element of bf16 (or float16) t within one ulp of its dtype of
+    the JAX value (float16's ulp no finer than its subnormals', 2^-24)."""
     got, want = t.detach().float().numpy(), _np(j)
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    bits, emin = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}[
+        t.dtype]
+    ulp = 2.0 ** (np.maximum(np.floor(np.log2(np.maximum(np.abs(want),
+                                                          1e-30))),
+                             emin) - bits)
     bad = np.abs(got - want) > ulp
     assert not bad.any(), (what, int(bad.sum()), got[bad][:5], want[bad][:5])
 
@@ -115,18 +120,22 @@ STAT_SHAPES = [(4, 5, 5, 3), (133, 1, 1, 6), (133, 6), (37, 40),
                (2, 3, 7, 33)]
 
 
+HALF = ["bfloat16", "float16"]
+
+
+@pytest.mark.parametrize("dt", HALF)
 @pytest.mark.parametrize("shape", STAT_SHAPES)
-def test_bf16_fwd_stats_match_jax_kernel(shape):
-    """(mean, E[x^2]) of bf16 x, float32, from the port's plain version of
-    kernel 7a against the JAX package's kernel in interpret mode and its
-    "xla" formulation."""
+def test_bf16_fwd_stats_match_jax_kernel(shape, dt):
+    """(mean, E[x^2]) of bf16 (and float16) x, float32, from the port's
+    plain version of kernel 7a against the JAX package's kernel in
+    interpret mode and its "xla" formulation."""
     import jax.numpy as jnp
 
     x = np.random.default_rng(len(shape) + shape[0]).standard_normal(
         shape).astype(np.float32) * 2 + 0.3
-    xj = _jnp(x, jnp.bfloat16)
+    xj = _jnp(x, dt)
     jm, jm2 = jbn._fwd_stats(xj, True)
-    tm, tm2 = tbn._fwd_stats(_t(x, torch.bfloat16), "interpret")
+    tm, tm2 = tbn._fwd_stats(_t(x, getattr(torch, dt)), "interpret")
     assert tm.dtype == tm2.dtype == torch.float32
     _close(tm, jm)
     _close(tm2, jm2)
@@ -135,28 +144,29 @@ def test_bf16_fwd_stats_match_jax_kernel(shape):
     _close(tm2, jnp.mean(jnp.square(xj.astype(jnp.float32)), axis=red))
 
 
-def _bwd_inputs(shape, seed):
+def _bwd_inputs(shape, seed, dt="bfloat16"):
     rng = np.random.default_rng(seed)
     c = shape[-1]
-    x, dout = (_bf16_np(rng.standard_normal(shape)) for _ in range(2))
+    x, dout = (_bf16_np(rng.standard_normal(shape), dt) for _ in range(2))
     w, b, mean = (rng.standard_normal(c).astype(np.float32)
                   for _ in range(3))
     inv = (rng.random(c) + 0.5).astype(np.float32)
     return x, dout, w, b, mean, inv
 
 
+@pytest.mark.parametrize("dt", HALF)
 @pytest.mark.parametrize("act", ["linear", "relu"])
 @pytest.mark.parametrize("shape", STAT_SHAPES)
-def test_bf16_bwd_stats_match_jax_kernel(shape, act):
-    """(sum dy, sum dy * xhat) on bf16 dout and x from the port's plain
-    version of kernel 7b against the JAX package's kernel in interpret
-    mode: float32, within 1e-5."""
-    import jax.numpy as jnp
-
-    x, dout, w, b, mean, inv = _bwd_inputs(shape, shape[-1] + len(shape))
-    j = jbn._bwd_stats(_jnp(dout, jnp.bfloat16), _jnp(x, jnp.bfloat16),
+def test_bf16_bwd_stats_match_jax_kernel(shape, act, dt):
+    """(sum dy, sum dy * xhat) on bf16 (and float16) dout and x from the
+    port's plain version of kernel 7b against the JAX package's kernel in
+    interpret mode: float32, within 1e-5."""
+    x, dout, w, b, mean, inv = _bwd_inputs(shape, shape[-1] + len(shape),
+                                           dt)
+    tdt = getattr(torch, dt)
+    j = jbn._bwd_stats(_jnp(dout, dt), _jnp(x, dt),
                        *(_jnp(a) for a in (w, b, mean, inv)), act, True)
-    t = tbn._bwd_stats(_t(dout, torch.bfloat16), _t(x, torch.bfloat16),
+    t = tbn._bwd_stats(_t(dout, tdt), _t(x, tdt),
                        *(_t(a) for a in (w, b, mean, inv)), act,
                        "interpret")
     for got, want in zip(t, j):
@@ -164,23 +174,24 @@ def test_bf16_bwd_stats_match_jax_kernel(shape, act):
         _close(got, want)
 
 
-def _boundary_case(shape, seed):
-    """bf16 x, dout, float32 per-channel w, b, mean, inv, with one element
-    a channel planted where the fold in bf16 (w and b cast to bf16, the
-    product rounded, then the sum) is exactly 0 while the float32 fold
-    x * w + b (w and b unrounded) is not.  dout is 1000 there, so a mask
-    that decides such an element otherwise misses by 1000."""
+def _boundary_case(shape, seed, dt="bfloat16"):
+    """bf16 (or ``dt``) x, dout, float32 per-channel w, b, mean, inv, with
+    one element a channel planted where the fold in that dtype (w and b
+    cast to it, the product rounded, then the sum) is exactly 0 while the
+    float32 fold x * w + b (w and b unrounded) is not.  dout is 1000
+    there, so a mask that decides such an element otherwise misses by
+    1000."""
     rng = np.random.default_rng(seed)
     c = shape[-1]
-    x2 = _bf16_np(rng.standard_normal(shape)).reshape(-1, c)
+    x2 = _bf16_np(rng.standard_normal(shape), dt).reshape(-1, c)
     w = rng.standard_normal(c).astype(np.float32)
-    prod = x2 * _bf16_np(w)                         # exact in float32
-    prod16 = _bf16_np(prod)
+    prod = x2 * _bf16_np(w, dt)                     # exact in float32
+    prod16 = _bf16_np(prod, dt)
     rows = np.array([np.nonzero(prod[:, j] != prod16[:, j])[0][0]
                      for j in range(c)])
     cols = np.arange(c)
-    b = -prod16[rows, cols]                         # bf16 values
-    dout2 = _bf16_np(rng.standard_normal(x2.shape))
+    b = -prod16[rows, cols]                         # values of dt
+    dout2 = _bf16_np(rng.standard_normal(x2.shape), dt)
     dout2[rows, cols] = 1000.0
     inv = (rng.random(c) + 0.5).astype(np.float32)
     mean = rng.standard_normal(c).astype(np.float32)
@@ -188,36 +199,48 @@ def _boundary_case(shape, seed):
             rows)
 
 
+@pytest.mark.parametrize("dt", HALF)
 @pytest.mark.parametrize("shape", [(4096, 40), (8, 9, 9, 24)])
-def test_bf16_relu_mask_is_the_jax_fold_bit_for_bit(shape):
-    """The relu mask of the port's fold at bf16 is the JAX package's, bit
-    for bit, including activations planted at the boundary: XLA on the
-    CPU rounds the fold after each op (eagerly, jitted and inside the
-    interpreted kernel), as the port does.  There the float32 fold decides
-    otherwise, so the check can tell the two apart; and the sums of kernel
-    7b's plain version equal the interpreted kernel's, dout of 1000 on
-    each planted element."""
+def test_bf16_relu_mask_is_the_jax_fold_bit_for_bit(shape, dt):
+    """The relu mask of the port's fold at bf16 (and float16) is the JAX
+    package's, bit for bit, including activations planted at the
+    boundary.  At bf16 XLA on the CPU rounds the fold after each op
+    (eagerly, jitted and inside the interpreted kernel), as the port does,
+    and the planted folds are exactly 0 while the float32 fold decides
+    otherwise, so the check can tell the two apart.  At float16 the jitted
+    fold (and the interpreted kernel's) is one float32 multiply-add
+    rounded once, as the port's is, where the eager one rounds twice: the
+    planted folds are the product's rounding residual (0 eagerly), and
+    the float32 fold decides some of them otherwise.  The sums of kernel 7b's
+    plain version equal the interpreted kernel's, dout of 1000 on each
+    planted element."""
     import jax
-    import jax.numpy as jnp
 
-    x, dout, w, b, mean, inv, rows = _boundary_case(shape, 11)
+    x, dout, w, b, mean, inv, rows = _boundary_case(shape, 11, dt)
+    tdt = getattr(torch, dt)
     c = shape[-1]
     cols = np.arange(c)
-    xj, wj, bj = _jnp(x, jnp.bfloat16), _jnp(w), _jnp(b)
+    xj, wj, bj = _jnp(x, dt), _jnp(w), _jnp(b)
     mask_j = np.asarray(jbn._fold(xj, wj, bj) > 0)
     mask_jit = np.asarray(jax.jit(jbn._fold)(xj, wj, bj) > 0)
-    fold16 = tbn._fold(_t(x, torch.bfloat16), _t(w), _t(b))
+    fold16 = tbn._fold(_t(x, tdt), _t(w), _t(b))
     mask_t = (fold16 > 0).numpy()
-    assert (mask_t == mask_j).all() and (mask_t == mask_jit).all()
-    assert (fold16.float().numpy().reshape(-1, c)[rows, cols] == 0).all()
+    assert (mask_t == mask_jit).all()
+    planted = fold16.float().numpy().reshape(-1, c)[rows, cols]
     fold32 = (x * w + b).reshape(-1, c)[rows, cols]
-    # the float32 fold keeps some planted elements: a mask taken on it
-    # would be 1000 off
-    assert (fold32 != 0).all() and (fold32 > 0).any()
-    j = jbn._bwd_stats(_jnp(dout, jnp.bfloat16), xj, wj, bj, _jnp(mean),
+    assert (fold32 != 0).all()
+    if dt == "bfloat16":
+        assert (mask_t == mask_j).all() and (planted == 0).all()
+        # the float32 fold keeps some planted elements: a mask taken on it
+        # would be 1000 off
+        assert (fold32 > 0).any()
+    else:
+        assert not (mask_t == mask_j).all()
+        assert ((planted > 0) != (fold32 > 0)).any()
+    j = jbn._bwd_stats(_jnp(dout, dt), xj, wj, bj, _jnp(mean),
                        _jnp(inv), "relu", True)
-    t = tbn._bwd_stats(_t(dout, torch.bfloat16), _t(x, torch.bfloat16),
-                       _t(w), _t(b), _t(mean), _t(inv), "relu", "interpret")
+    t = tbn._bwd_stats(_t(dout, tdt), _t(x, tdt), _t(w), _t(b), _t(mean),
+                       _t(inv), "relu", "interpret")
     for got, want in zip(t, j):
         _close(got, want)
 
@@ -266,35 +289,35 @@ def test_bf16_bn_act_train_matches_jax(shape, act, jax_impl):
 
 
 # -------------------------------------------------------- conv + statistics
-def _grads_and_outputs(jfn, tfn, x, w, cot_shape, seed):
-    """Both packages' (y, s, ss) and (dx, dw) on bf16 x and w under
-    cotangents on all three outputs."""
+def _grads_and_outputs(jfn, tfn, x, w, cot_shape, seed, dt="bfloat16"):
+    """Both packages' (y, s, ss) and (dx, dw) on bf16 (or ``dt``) x and w
+    under cotangents on all three outputs."""
     import jax
-    import jax.numpy as jnp
 
     rng = np.random.default_rng(seed)
     co = cot_shape[-1]
-    cy = _bf16_np(rng.standard_normal(cot_shape))
+    tdt = getattr(torch, dt)
+    cy = _bf16_np(rng.standard_normal(cot_shape), dt)
     cs, css = (rng.standard_normal(co).astype(np.float32) * 0.1
                for _ in range(2))
-    jouts, vjp = jax.vjp(jfn, _jnp(x, jnp.bfloat16), _jnp(w, jnp.bfloat16))
-    jgrads = vjp((_jnp(cy, jnp.bfloat16), _jnp(cs), _jnp(css)))
-    leaves = [_t(x, torch.bfloat16, True), _t(w, torch.bfloat16, True)]
+    jouts, vjp = jax.vjp(jfn, _jnp(x, dt), _jnp(w, dt))
+    jgrads = vjp((_jnp(cy, dt), _jnp(cs), _jnp(css)))
+    leaves = [_t(x, tdt, True), _t(w, tdt, True)]
     touts = tfn(*leaves)
-    tgrads = torch.autograd.grad(touts, leaves, [_t(cy, torch.bfloat16),
-                                                 _t(cs), _t(css)])
+    tgrads = torch.autograd.grad(touts, leaves, [_t(cy, tdt), _t(cs),
+                                                 _t(css)])
     return touts, tgrads, jouts, jgrads
 
 
 def _hold_conv_stats(touts, tgrads, jouts, jgrads):
-    """y, dx, dw bf16 within one bf16 ulp; s, ss float32 within 1e-5, and
-    taken from the unrounded y: closer to JAX than sums of the rounded y
-    come."""
+    """y, dx, dw bf16 (float16) within one ulp of their dtype; s, ss
+    float32 within 1e-5, and taken from the unrounded y: closer to JAX
+    than sums of the rounded y come."""
     for name, t, j in zip(("y", "s", "ss", "dx", "dw"),
                           tuple(touts) + tuple(tgrads),
                           tuple(jouts) + tuple(jgrads)):
         _same_dtype(t, j, name)
-        if t.dtype == torch.bfloat16:
+        if t.dtype in (torch.bfloat16, torch.float16):
             _within_ulp(t, j, name)
         else:
             _close(t, j, name)
@@ -305,36 +328,40 @@ def _hold_conv_stats(touts, tgrads, jouts, jgrads):
     assert err < np.abs(rounded - _np(jouts[2])).max() / 10
 
 
+@pytest.mark.parametrize("dt", HALF)
 @pytest.mark.parametrize("jax_impl", ["interpret", "xla"])
 @pytest.mark.parametrize("p,ci,co", [(133, 6, 7), (64, 16, 24),
                                      (200, 64, 40), (57, 5, 7)])
-def test_bf16_matmul_stats_matches_jax(p, ci, co, jax_impl):
-    """Kernel 8's plain version at bf16 (x, w bf16; y bf16, the sums
-    float32 of the unrounded y) and its backward (dy folded in float32,
-    cast to bf16, bf16 products; dx, dw bf16) against the JAX package's
-    custom vjp; ragged P and Co."""
+def test_bf16_matmul_stats_matches_jax(p, ci, co, jax_impl, dt):
+    """Kernel 8's plain version at bf16 (and float16: x, w in that dtype;
+    y too, the sums float32 of the unrounded y) and its backward (dy
+    folded in float32, cast to x's dtype, products in it; dx, dw in it)
+    against the JAX package's custom vjp; ragged P and Co."""
     rng = np.random.default_rng(p + ci)
-    x = _bf16_np(rng.standard_normal((p, ci)))
-    w = _bf16_np(rng.standard_normal((ci, co)) * 0.4)
+    x = _bf16_np(rng.standard_normal((p, ci)), dt)
+    w = _bf16_np(rng.standard_normal((ci, co)) * 0.4, dt)
     _hold_conv_stats(*_grads_and_outputs(
         lambda x, w: jcb.matmul_stats(x, w, jax_impl),
-        lambda x, w: tcb.matmul_stats(x, w, "pallas"), x, w, (p, co), 3))
+        lambda x, w: tcb.matmul_stats(x, w, "pallas"), x, w, (p, co), 3,
+        dt))
 
 
+@pytest.mark.parametrize("dt", HALF)
 @pytest.mark.parametrize("jax_impl", ["interpret", "xla"])
 @pytest.mark.parametrize("shape,co", [((2, 8, 5, 6), 7), ((1, 4, 4, 3), 4),
                                       ((2, 6, 7, 16), 12)])
-def test_bf16_conv3x3_stats_matches_jax(shape, co, jax_impl):
-    """Kernel 9's plain version at bf16 (the conv of the upcast operands,
-    statistics before y is rounded) and its backward (the conv's own
-    transposes on bf16 operands) against the JAX package."""
+def test_bf16_conv3x3_stats_matches_jax(shape, co, jax_impl, dt):
+    """Kernel 9's plain version at bf16 (and float16: the conv of the
+    upcast operands, statistics before y is rounded) and its backward
+    (the conv's own transposes on operands of that dtype) against the JAX
+    package."""
     rng = np.random.default_rng(shape[1] + co)
-    x = _bf16_np(rng.standard_normal(shape) * 0.5)
-    w = _bf16_np(rng.standard_normal((3, 3, shape[-1], co)) * 0.3)
+    x = _bf16_np(rng.standard_normal(shape) * 0.5, dt)
+    w = _bf16_np(rng.standard_normal((3, 3, shape[-1], co)) * 0.3, dt)
     _hold_conv_stats(*_grads_and_outputs(
         lambda x, w: jcb.conv3x3_stats(x, w, jax_impl),
         lambda x, w: tcb.conv3x3_stats(x, w, "pallas"), x, w,
-        shape[:-1] + (co,), 4))
+        shape[:-1] + (co,), 4, dt))
 
 
 def _at_offset(shape, dtype, offset):

@@ -334,21 +334,39 @@ def test_backward_wrappers_refuse_what_they_cannot_take():
 # 2^-7 of its norm (a row one ulp off in every element; readings 0 to
 # 1.7e-3); O within 2^-8 * max(1, max |ref|), the LSE within 1e-5
 BF16_ELEM, BF16_ROW = 2.0 ** -8, 2.0 ** -7
+# the 16-bit operand types of the tensor-core kernels' tests, by name:
+# (torch dtype, element limit, row limit, the rounding model's unit
+# below).  float16 keeps 11 significant bits where bf16 keeps 8, so its
+# element limit and unit are bf16's over 8; its row limit is bf16's over
+# 4, 2^-9: where a row's few terms cancel (D 8), the rounding of P and of
+# O, each up to 2^-11 of a term or of the element, reach past 2^-10 of
+# the row's norm (readings up to 1.22e-3, in ``_mma_fwd``'s noncausal
+# case, which the elementwise model holds at 0.5 of its bound).
+HALF = {"bfloat16": (torch.bfloat16, BF16_ELEM, BF16_ROW, 2.0 ** -8),
+        "float16": (torch.float16, 2.0 ** -11, 2.0 ** -9, 2.0 ** -11)}
 
 
-def _bf16_grad_inputs(case):
-    """``_grad_inputs`` rounded once to bf16, as float32 numpy arrays."""
+def _half_params(cases):
+    """``(case, dt)`` parameters: every case at bf16 under its own id, then
+    at float16 under ``f16-<case>``."""
+    return ([pytest.param(c, "bfloat16", id=c) for c in cases]
+            + [pytest.param(c, "float16", id=f"f16-{c}") for c in cases])
+
+
+def _bf16_grad_inputs(case, dt="bfloat16"):
+    """``_grad_inputs`` rounded once to bf16 (or ``dt``), as float32 numpy
+    arrays."""
     import jax.numpy as jnp
 
-    return [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    return [np.array(jnp.asarray(a, dt).astype(jnp.float32))
             for a in _grad_inputs(case)]
 
 
 @functools.lru_cache(maxsize=None)
-def _bf16_jax(case, impl):
-    """O, LSE and dQ, dK, dV of the JAX package on the bf16 inputs,
-    through ``impl`` ("xla" or "interpret": ``_flash_bwd`` under the
-    Pallas interpreter), the objective taken on O upcast to float32.
+def _bf16_jax(case, impl, dt="bfloat16"):
+    """O, LSE and dQ, dK, dV of the JAX package on the bf16 (``dt``)
+    inputs, through ``impl`` ("xla" or "interpret": ``_flash_bwd`` under
+    the Pallas interpreter), the objective taken on O upcast to float32.
     Cached: the upcast and tensor-core references share it (callers
     only read the arrays)."""
     import jax
@@ -369,50 +387,52 @@ def _bf16_jax(case, impl):
             jnp.sin(out))
         return obj + jnp.sum(jnp.tanh(lse)) if with_lse else obj
 
-    args = [jnp.asarray(a, jnp.bfloat16) for a in _bf16_grad_inputs(case)]
+    args = [jnp.asarray(a, dt) for a in _bf16_grad_inputs(case, dt)]
     out, lse = run(*args)
     grads = jax.grad(f, argnums=(0, 1, 2))(*args)
-    assert all(g.dtype == jnp.bfloat16 for g in grads)
+    assert all(g.dtype == jnp.dtype(dt) for g in grads)
     return ([np.asarray(out.astype(jnp.float32)), np.asarray(lse)]
             + [np.asarray(g.astype(jnp.float32)) for g in grads])
 
 
-def _bf16_torch(case, attention):
+def _bf16_torch(case, attention, dt="bfloat16"):
     """The same through the port's ``attention`` (``_torch_attention`` or
     ``_torch_attention_upcast``) with its autograd."""
     _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
-               for a in _bf16_grad_inputs(case))
+    tdt = HALF[dt][0]
+    q, k, v = (torch.from_numpy(a).to(tdt).requires_grad_(True)
+               for a in _bf16_grad_inputs(case, dt))
     kv_lens = torch.as_tensor(
         lens if lens is not None else [k.shape[1]] * k.shape[0],
         dtype=torch.int32)
     out, lse = attention(q, k, v, kv_lens, causal=causal,
                          scale=q.shape[-1] ** -0.5, q_offset=q_off,
                          kv_offset=kv_off, return_lse=True)
-    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert out.dtype == tdt and lse.dtype == torch.float32
     of = out.float()
     obj = (of ** 2).sum() if loss == "square" else torch.sin(of).sum()
     if with_lse:
         obj = obj + torch.tanh(lse).sum()
     grads = torch.autograd.grad(obj, (q, k, v))
-    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert all(g.dtype == tdt for g in grads)
     return ([of.detach().numpy(), lse.detach().numpy()]
             + [g.float().numpy() for g in grads])
 
 
-def _assert_bf16_close(got, want, what):
-    assert np.abs(got - want).max() <= BF16_ELEM * max(
+def _assert_bf16_close(got, want, what, dt="bfloat16"):
+    assert np.abs(got - want).max() <= HALF[dt][1] * max(
         1.0, np.abs(want).max()), what
-    _assert_rows_close(got, want, what)
+    _assert_rows_close(got, want, what, dt)
 
 
-def _assert_rows_close(got, want, what):
-    """Each row (last axis) within BF16_ROW of its norm."""
+def _assert_rows_close(got, want, what, dt="bfloat16"):
+    """Each row (last axis) within BF16_ROW (``dt``'s row limit) of its
+    norm."""
     g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
     norms = np.linalg.norm(w, axis=1)
     live = norms > 0
     rel = np.linalg.norm(g - w, axis=1)[live] / norms[live]
-    assert rel.max(initial=0.0) <= BF16_ROW, (what, rel.max())
+    assert rel.max(initial=0.0) <= HALF[dt][2], (what, rel.max())
 
 
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
@@ -480,7 +500,9 @@ def test_upcast_reference_is_the_float32_path_at_float32():
 # 0.67 of the limit over GRAD_CASES; the planted k-step fault 220x to
 # 240x.  The flat limits
 # above do not bound this arithmetic at D 8, where a row's few terms
-# cancel: readings up to 1.8x BF16_ELEM and 1.3x BF16_ROW.
+# cancel: readings up to 1.8x BF16_ELEM and 1.3x BF16_ROW.  At float16
+# the same model with f16's unit, 2^-11 (``HALF``), P and dS rounded to
+# float16: the tensor-core kernels' float16 instances.
 MMA_UNIT, MMA_F32_FLOOR = 2.0 ** -8, 2.0 ** -16
 
 
@@ -522,50 +544,50 @@ def _term_magnitudes(q, k, v, kv_lens, o, lse, g, g_lse, *, causal, scale,
             torch.einsum("bhqk,bqhd->bkhd", p, gf.abs()).numpy()]
 
 
-def _assert_mma_close(got, want, m, what):
-    limit = (MMA_UNIT * (m + 2 * np.abs(want))
+def _assert_mma_close(got, want, m, what, dt="bfloat16"):
+    limit = (HALF[dt][3] * (m + 2 * np.abs(want))
              + MMA_F32_FLOOR * max(1.0, np.abs(want).max()))
     err = np.abs(got - want)
     assert (err <= limit).all(), (what, (err / limit).max())
 
 
-def _assert_mma_matches_pallas(got, want, terms, case):
-    """O and the LSE (the forward's) within the bf16 limits above; dQ, dK
-    and dV within the rounding model's bound."""
-    _assert_bf16_close(got[0], want[0], f"{case} O")
+def _assert_mma_matches_pallas(got, want, terms, case, dt="bfloat16"):
+    """O and the LSE (the forward's) within the bf16 (``dt``) limits
+    above; dQ, dK and dV within the rounding model's bound."""
+    _assert_bf16_close(got[0], want[0], f"{case} O", dt)
     _assert_lse_close(got[1], want[1])
     for name, g, w, m in zip(("dQ", "dK", "dV"), got[2:], want[2:], terms):
-        _assert_mma_close(g, w, m, f"{case} {name}")
+        _assert_mma_close(g, w, m, f"{case} {name}", dt)
 
 
-@pytest.mark.parametrize("case", sorted(GRAD_CASES))
-def test_bf16_mma_backward_matches_pallas_interpret(case):
-    """``_mma_bwd``, the arithmetic of the tensor-core bf16 backward
-    kernels (P and dS rounded to bf16 before the three gradient
-    products), against the JAX package's Pallas forward and
-    ``_flash_bwd`` under the interpreter at bf16, within the rounding
-    model's bound; masked KV rows get exactly zero gradient."""
+@pytest.mark.parametrize("case,dt", _half_params(sorted(GRAD_CASES)))
+def test_bf16_mma_backward_matches_pallas_interpret(case, dt):
+    """``_mma_bwd``, the arithmetic of the tensor-core backward kernels'
+    bf16 (and float16) instances (P and dS rounded to the operands' dtype
+    before the three gradient products), against the JAX package's Pallas
+    forward and ``_flash_bwd`` under the interpreter on the same bf16
+    (float16) inputs, within the rounding model's bound at that dtype's
+    unit; masked KV rows get exactly zero gradient."""
     _MmaAttention.terms.clear()
-    got = _bf16_torch(case, _mma_attention)
+    got = _bf16_torch(case, _mma_attention, dt)
     (terms,) = _MmaAttention.terms
-    _assert_mma_matches_pallas(got, _bf16_jax(case, "interpret"), terms,
-                               case)
+    _assert_mma_matches_pallas(got, _bf16_jax(case, "interpret", dt), terms,
+                               case, dt)
     lens = GRAD_CASES[case][4]
     for b, n in enumerate(lens or ()):
         assert not got[3][b, n:].any() and not got[4][b, n:].any()
 
 
-def _kstep_case(drop):
-    """q, k, v [1, 32, 2, 32] bf16 (two 16-deep k-steps), causal: dQ, dK,
-    dV of sum(O^2) through ``_mma_bwd`` with k-step ``drop`` of the score
-    product left out (None: none), the term magnitudes, and the JAX
-    package's gradients under the interpreter."""
+def _kstep_case(drop, dt="bfloat16"):
+    """q, k, v [1, 32, 2, 32] bf16 (or ``dt``; two 16-deep k-steps),
+    causal: dQ, dK, dV of sum(O^2) through ``_mma_bwd`` with k-step
+    ``drop`` of the score product left out (None: none), the term
+    magnitudes, and the JAX package's gradients under the interpreter."""
     import jax
     import jax.numpy as jnp
 
     rng = np.random.RandomState(7)
-    jargs = [jnp.asarray(rng.randn(1, 32, 2, 32), jnp.bfloat16)
-             for _ in range(3)]
+    jargs = [jnp.asarray(rng.randn(1, 32, 2, 32), dt) for _ in range(3)]
 
     def f(q, k, v):
         out = jfa.flash_attention(q, k, v, causal=True, impl="interpret",
@@ -575,30 +597,31 @@ def _kstep_case(drop):
     want = [np.asarray(g.astype(jnp.float32)) for g in
             jax.grad(f, argnums=(0, 1, 2))(*jargs)]
     q, k, v = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
-        torch.bfloat16) for a in jargs)
+        HALF[dt][0]) for a in jargs)
     lens = torch.full((1,), 32, dtype=torch.int32)
     kw = dict(causal=True, scale=32 ** -0.5)
     o, lse = tfa._torch_attention_upcast(q, k, v, lens, return_lse=True,
                                          **kw)
-    g = (2 * o.float()).to(torch.bfloat16)
+    g = (2 * o.float()).to(HALF[dt][0])
     got = tfa._mma_bwd(q, k, v, lens, o, lse, g, drop_score_kstep=drop,
                        **kw)
     terms = _term_magnitudes(q, k, v, lens, o, lse, g, None, **kw)
     return [x.float().numpy() for x in got], terms, want
 
 
-def test_mma_backward_planted_kstep_fault_fails_the_limits():
+@pytest.mark.parametrize("dt", list(HALF))
+def test_mma_backward_planted_kstep_fault_fails_the_limits(dt):
     """The planted fault of the card's check: ``_mma_bwd`` with one
     16-deep k-step of the score product left out fails the bound against
     the Pallas interpreter on every gradient, on inputs the intact
-    version holds."""
-    got, terms, want = _kstep_case(None)
+    version holds, at bf16 and at float16."""
+    got, terms, want = _kstep_case(None, dt)
     for name, g, w, m in zip(("dQ", "dK", "dV"), got, want, terms):
-        _assert_mma_close(g, w, m, name)
-    bad, _, _ = _kstep_case(1)
+        _assert_mma_close(g, w, m, name, dt)
+    bad, _, _ = _kstep_case(1, dt)
     for name, g, w, m in zip(("dQ", "dK", "dV"), bad, want, terms):
         with pytest.raises(AssertionError):
-            _assert_mma_close(g, w, m, name)
+            _assert_mma_close(g, w, m, name, dt)
 
 
 def _mma_wrappers(calls, terms):
@@ -615,7 +638,8 @@ def _mma_wrappers(calls, terms):
     def bwd(which):
         def run(q, k, v, g, lse, delta, kv_lens, **kw):
             calls.append(which)
-            assert q.dtype == g.dtype == torch.bfloat16
+            assert q.dtype == g.dtype and q.dtype in (torch.bfloat16,
+                                                      torch.float16)
             assert delta.dtype == torch.float32
             args = (q, k, v, kv_lens, torch.zeros_like(q), lse, g, -delta)
             if which == "dq":
@@ -672,26 +696,27 @@ def test_bf16_kernel_route_with_mma_backward_matches_pallas(case,
 MMA_FWD_CASES = dict(CASES, cross_ragged=(37, 21, False, [21, 9], 0, 0))
 
 
-def _bf16_fwd_inputs(lq, lk, seed):
-    """``_inputs`` rounded once to bf16: (numpy float32 arrays, the same
-    as bf16 torch tensors)."""
+def _bf16_fwd_inputs(lq, lk, seed, dt="bfloat16"):
+    """``_inputs`` rounded once to bf16 (or ``dt``): (numpy float32
+    arrays, the same as torch tensors of that dtype)."""
     import jax.numpy as jnp
 
-    arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    arrs = [np.array(jnp.asarray(a, dt).astype(jnp.float32))
             for a in _inputs(lq, lk, seed)]
-    return arrs, [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    return arrs, [torch.from_numpy(a).to(HALF[dt][0]) for a in arrs]
 
 
-def _pallas_bf16_fwd(arrs, causal, kv_lens, q_off, kv_off, block=8):
+def _pallas_bf16_fwd(arrs, causal, kv_lens, q_off, kv_off, block=8,
+                     dt="bfloat16"):
     """O (as float32) and the LSE of the JAX package's Pallas forward
-    under the interpreter on bf16 operands."""
+    under the interpreter on bf16 (``dt``) operands."""
     import jax.numpy as jnp
 
     o, lse = jfa.flash_attention(
-        *(jnp.asarray(a, jnp.bfloat16) for a in arrs), causal=causal,
+        *(jnp.asarray(a, dt) for a in arrs), causal=causal,
         kv_lens=kv_lens, q_offset=q_off, kv_offset=kv_off, block_q=block,
         block_k=block, return_lse=True, impl="interpret")
-    assert o.dtype == jnp.bfloat16
+    assert o.dtype == jnp.dtype(dt)
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
 
@@ -709,67 +734,69 @@ def _fwd_term_magnitudes(q, k, v, kv_lens, *, causal, scale, q_offset=0,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf.abs()).numpy()
 
 
-def _assert_mma_fwd_close(o, want, m, what):
-    """O (float32 numpy) within BF16_ROW per row and the rounding
-    model's bound per element."""
-    _assert_rows_close(o, want, what)
-    _assert_mma_close(o, want, m, what)
+def _assert_mma_fwd_close(o, want, m, what, dt="bfloat16"):
+    """O (float32 numpy) within BF16_ROW (``dt``'s row limit) per row and
+    the rounding model's bound per element."""
+    _assert_rows_close(o, want, what, dt)
+    _assert_mma_close(o, want, m, what, dt)
 
 
-@pytest.mark.parametrize("case", sorted(MMA_FWD_CASES))
-def test_bf16_mma_forward_matches_pallas_interpret(case):
-    """``_mma_fwd``, the arithmetic of the tensor-core bf16 forward (P
-    rounded to bf16 before P . V, the LSE float32), against the JAX
-    package's Pallas forward under the interpreter on the same bf16
-    inputs: O per row within BF16_ROW of its norm and per element within
-    the rounding model's bound, the LSE within 1e-5; rows that see no key
-    give O = 0 and the sentinel LSE."""
+@pytest.mark.parametrize("case,dt", _half_params(sorted(MMA_FWD_CASES)))
+def test_bf16_mma_forward_matches_pallas_interpret(case, dt):
+    """``_mma_fwd``, the arithmetic of the tensor-core forward's bf16 (and
+    float16) instance (P rounded to the operands' dtype before P . V, the
+    LSE float32), against the JAX package's Pallas forward under the
+    interpreter on the same bf16 (float16) inputs: O per row within that
+    dtype's row limit of its norm and per element within the rounding
+    model's bound, the LSE within 1e-5; rows that see no key give O = 0
+    and the sentinel LSE."""
     lq, lk, causal, kv_lens, q_off, kv_off = MMA_FWD_CASES[case]
-    arrs, (q, k, v) = _bf16_fwd_inputs(lq, lk, seed=len(case))
+    arrs, (q, k, v) = _bf16_fwd_inputs(lq, lk, seed=len(case), dt=dt)
     want_o, want_lse = _pallas_bf16_fwd(arrs, causal, kv_lens, q_off,
-                                        kv_off)
+                                        kv_off, dt=dt)
     lens = torch.as_tensor(kv_lens or [lk] * B, dtype=torch.int32)
     kw = dict(causal=causal, scale=D ** -0.5, q_offset=q_off,
               kv_offset=kv_off)
     m = _fwd_term_magnitudes(q, k, v, lens, **kw)
     for block_k in (64, 8):
         o, lse = tfa._mma_fwd(q, k, v, lens, block_k=block_k, **kw)
-        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        assert o.dtype == HALF[dt][0] and lse.dtype == torch.float32
         _assert_mma_fwd_close(o.float().numpy(), want_o, m,
-                              f"{case} O, block_k {block_k}")
+                              f"{case} O, block_k {block_k}", dt)
         _assert_lse_close(lse.numpy(), want_lse)
     if case == "fully_masked_rows":
         assert not o[:, :kv_off - q_off].float().any()
 
 
-def test_mma_forward_planted_kstep_fault_fails_the_limits():
+@pytest.mark.parametrize("dt", list(HALF))
+def test_mma_forward_planted_kstep_fault_fails_the_limits(dt):
     """The planted fault of the card's check: ``_mma_fwd`` with one
     16-deep k-step of the score product left out fails the O limits
     against the Pallas interpreter, on inputs the intact version holds
-    (q, k, v [1, 32, 2, 32] bf16: two k-steps)."""
+    (q, k, v [1, 32, 2, 32] bf16 or float16: two k-steps)."""
     import jax.numpy as jnp
 
     rng = np.random.RandomState(7)
-    arrs = [np.array(jnp.asarray(rng.randn(1, 32, 2, 32), jnp.bfloat16)
+    arrs = [np.array(jnp.asarray(rng.randn(1, 32, 2, 32), dt)
                      .astype(jnp.float32)) for _ in range(3)]
-    want_o, _ = _pallas_bf16_fwd(arrs, True, None, 0, 0, block=16)
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    want_o, _ = _pallas_bf16_fwd(arrs, True, None, 0, 0, block=16, dt=dt)
+    q, k, v = (torch.from_numpy(a).to(HALF[dt][0]) for a in arrs)
     lens = torch.full((1,), 32, dtype=torch.int32)
     kw = dict(causal=True, scale=32 ** -0.5)
     m = _fwd_term_magnitudes(q, k, v, lens, **kw)
     o, _ = tfa._mma_fwd(q, k, v, lens, **kw)
-    _assert_mma_fwd_close(o.float().numpy(), want_o, m, "intact")
+    _assert_mma_fwd_close(o.float().numpy(), want_o, m, "intact", dt)
     bad, _ = tfa._mma_fwd(q, k, v, lens, drop_score_kstep=1, **kw)
-    for check in (_assert_rows_close, functools.partial(_assert_mma_close,
-                                                        m=m)):
+    for check in (functools.partial(_assert_rows_close, dt=dt),
+                  functools.partial(_assert_mma_close, m=m, dt=dt)):
         with pytest.raises(AssertionError):
             check(bad.float().numpy(), want_o, what="k-step left out")
 
 
-@pytest.mark.parametrize("case", ["grads_causal", "kv_lens_causal",
-                                  "cross_37x21_causal", "offset_q_ahead",
-                                  "offset_fully_masked", "lse_cotangent"])
-def test_bf16_kernel_route_with_mma_forward_matches_pallas(case,
+@pytest.mark.parametrize("case,dt", _half_params([
+    "grads_causal", "kv_lens_causal", "cross_37x21_causal", "offset_q_ahead",
+    "offset_fully_masked", "lse_cotangent"]))
+def test_bf16_kernel_route_with_mma_forward_matches_pallas(case, dt,
                                                            monkeypatch):
     """The kernel route's wiring at bf16 with all three kernels stood in
     for by the tensor-core arithmetic (the forward by ``_mma_fwd``, both
@@ -796,23 +823,23 @@ def test_bf16_kernel_route_with_mma_forward_matches_pallas(case,
     def route(q, k, v, kv_lens, **kw):
         return tfa.flash_attention(q, k, v, kv_lens=kv_lens, **kw)
 
-    got = _bf16_torch(case, route)
+    got = _bf16_torch(case, route, dt)
     assert calls == ["fwd", "dq", "dkdv"]
-    want = _bf16_jax(case, "interpret")
+    want = _bf16_jax(case, "interpret", dt)
     _, _, _, causal, lens, q_off, kv_off, loss, with_lse = GRAD_CASES[case]
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
-               for a in _bf16_grad_inputs(case))
+    q, k, v = (torch.from_numpy(a).to(HALF[dt][0])
+               for a in _bf16_grad_inputs(case, dt))
     kv_lens = torch.as_tensor(lens or [k.shape[1]] * k.shape[0],
                               dtype=torch.int32)
     kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, q_offset=q_off,
               kv_offset=kv_off)
     _assert_mma_fwd_close(got[0], want[0],
                           _fwd_term_magnitudes(q, k, v, kv_lens, **kw),
-                          f"{case} O")
+                          f"{case} O", dt)
     _assert_lse_close(got[1], want[1])
     o, lse = tfa._mma_fwd(q, k, v, kv_lens, **kw)
     of = o.float()
-    g = (2 * of if loss == "square" else torch.cos(of)).to(torch.bfloat16)
+    g = (2 * of if loss == "square" else torch.cos(of)).to(HALF[dt][0])
     g_lse = 1 - torch.tanh(lse) ** 2 if with_lse else None
     for name, a, r in zip(("dQ", "dK", "dV"), got[2:],
                           tfa._mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse,

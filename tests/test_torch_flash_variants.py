@@ -162,32 +162,47 @@ def test_variant_wrapper_refuses_before_any_build():
 
 
 def test_kernel_one_takes_bf16_and_refuses_float16():
-    """Kernel 1's wrapper takes bf16 (O in q's dtype); float16 and mixed
-    dtypes are refused before any build, by the forward and by both
-    backward wrappers (whose bf16 instances the precision policy
-    brought)."""
+    """Kernel 1's wrapper takes bf16 (O in q's dtype) and, since its
+    float16 instance, float16; a dtype with no instance (float64) and
+    mixed dtypes are refused before any build, by the forward and by both
+    backward wrappers (whose bf16 instances the precision policy brought).
+    The forward sweep's variants (row T) still refuse float16, naming the
+    row of ``ROADMAP.md`` section 2 (K5) left to port."""
     lens = torch.full((1,), 4, dtype=torch.int32)
-    q = torch.zeros(1, 4, 1, 8, dtype=torch.float16)
+    q = torch.zeros(1, 4, 1, 8, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         tfa.flash_fwd_cuda(q, q, q, lens, causal=True, scale=1.0)
     b = q.to(torch.bfloat16)
     with pytest.raises(TypeError, match="share a dtype"):
         tfa.flash_fwd_cuda(b, b.float(), b, lens, causal=True, scale=1.0)
+    h = q.to(torch.float16)
+    with pytest.raises(TypeError, match="share a dtype"):
+        tfa.flash_fwd_cuda(h, b, h, lens, causal=True, scale=1.0)
     lse = torch.zeros(1, 1, 4)
     for fn in (tfa.flash_bwd_dkdv_cuda, tfa.flash_bwd_dq_cuda):
         with pytest.raises(TypeError, match="float32"):
             fn(q, q, q, q, lse, lse, lens, causal=True, scale=1.0)
         with pytest.raises(TypeError, match="share a dtype"):
             fn(b, b, b, b.float(), lse, lse, lens, causal=True, scale=1.0)
+        with pytest.raises(TypeError, match="share a dtype"):
+            fn(h, h, h, b, lse, lse, lens, causal=True, scale=1.0)
+    q64 = torch.zeros(1, 64, 1, 64, dtype=torch.float16)
+    with pytest.raises(TypeError, match="K5"):
+        tfv.run_fwd_cuda(q64, q64, q64, causal=True, block_q=64, block_k=64,
+                         bf16_dots=True, use_exp2=True, split_loop=False,
+                         pipelined=False)
     assert tfa.flash_fwd_cuda.launches == 0
+    assert tfv.run_fwd_cuda.launches == 0
 
 
 def test_bf16_backward_raises_for_the_precision_policy(monkeypatch):
     """The kernel route's backward on bf16, which raised until the bf16
     precision policy was ported, now hands the bf16 instances bf16 q, k,
     v and dO with a float32 delta, and returns bf16 gradients; a float16
-    operand still raises, naming the ROADMAP row of its instances.  The
-    kernels are stood in for by the upcast plain version's backward."""
+    operand passes the kernels' dtype check (their float16 instances) and
+    still raises where only float32 is taken (kernel 4), naming the
+    ROADMAP row left to port.  The kernels are stood in for by the upcast
+    plain version's backward."""
     seen = []
 
     def fwd(q, k, v, kv_lens, *, causal, scale, q_offset=0, kv_offset=0):
@@ -218,9 +233,13 @@ def test_bf16_backward_raises_for_the_precision_policy(monkeypatch):
     assert dq.dtype == torch.bfloat16
     assert seen == [(w, torch.bfloat16, torch.bfloat16, torch.float32)
                     for w in ("dq", "dkdv")]
+    # float16 is one of the kernels' dtypes now (their float16
+    # instances); a check that takes float32 alone (kernel 4's) refuses
+    # it, naming the row of K5 left to port
     h = q.detach().half()
+    tfa.check_kernel_operand("q", h, h.device, tfa.KERNEL_DTYPES)
     with pytest.raises(TypeError, match="ROADMAP.md section 2, K5"):
-        tfa.check_kernel_operand("q", h, h.device, tfa.KERNEL_DTYPES)
+        tfa.check_kernel_operand("q", h, h.device)
 
 
 def test_cpu_run_fwd_routes_to_the_plain_version():
