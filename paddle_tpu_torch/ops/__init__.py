@@ -27,6 +27,10 @@ def _wrappers() -> dict:
             "flash_variants": run_fwd_cuda}
 
 
+# the per-instance counts a wrapper may keep beside ``launches``
+_DTYPE_COUNTS = ("bf16", "f16")
+
+
 def launch_counts() -> dict:
     """Launches of each kernel so far in this process (the plain versions
     are not counted): ``name`` counts every launch of the wrapper, at any
@@ -47,7 +51,3 @@ def reset_launch_counts() -> None:
         for sfx in _DTYPE_COUNTS:
             if hasattr(fn, "launches_" + sfx):
                 setattr(fn, "launches_" + sfx, 0)
-
-
-# the per-instance counts a wrapper may keep beside ``launches``
-_DTYPE_COUNTS = ("bf16", "f16")

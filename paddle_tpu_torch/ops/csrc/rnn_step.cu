@@ -52,9 +52,8 @@
 // policies: x is an fc output in the compute dtype, the mask float32 from
 // an @len feed or in x's dtype when the recurrence makes its own ones.  A
 // 16-bit value is read as float where it enters the gate sums, so all
-// arithmetic
-// stays float32, as in the Pallas kernels, which upcast every operand; the
-// outputs follow h and are float32.  The products read h (or r h) and W
+// arithmetic stays float32, as in the Pallas kernels, which upcast every
+// operand; the outputs follow h and are float32.  The products read h (or r h) and W
 // only, so the 16-bit instances run the same tile_product as the float32
 // ones; the float32 instances are the code before the templates.
 

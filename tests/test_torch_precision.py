@@ -10,14 +10,19 @@ gauge reads the loss scale these tests read the trainer's state.  Then
 the models of the slice, the transformer LM (2 layers, width 64, 2
 heads, L 32), the seq2seq NMT model (vocab 50 / 40, emb 16, enc 24, dec
 32, lengths <= 6) and the LSTM route (two lstmemory(peephole=False) of
-width 24), from the same numpy-seeded weights in both packages under ``bf16`` and ``mixed``: every layer's output dtype equal,
-its values within one bf16 ulp, the first step's gradients and a 5-step
-Adam trajectory; the LM once more on the port's kernel route, its kernels
-stood in for by their plain versions (the bf16 backward's tensor-core
-arithmetic, ``_mma_bwd``), against the JAX package on its Pallas kernels
-under the interpreter.  And the refusals: a float16 operand at every kernel
-wrapper; bf16 reaches kernels 7a to 9 and the conv layers (ResNet under
-``bf16`` is in tests/test_torch_resnet_bf16.py).
+width 24), from the same numpy-seeded weights in both packages under
+``bf16``, ``mixed`` and ``fp16``: every layer's output dtype equal, its
+values within one bf16 ulp (two float16 ulps under ``fp16``), the first
+step's gradients and a 5-step Adam trajectory; the LM once more on the
+port's kernel route, its kernels stood in for by their plain versions
+(the tensor-core backward's arithmetic, ``_mma_bwd``, at bf16 and
+float16), against the JAX package on its Pallas kernels under the
+interpreter.  The reduced-precision GELU bit for bit against the jitted
+JAX one.  And the float16 operands: the nine kernel wrappers with a
+float16 instance take their ``*_f16`` entry, the two without one (kernel
+4, the forward sweep) refuse it; bf16 reaches kernels 7a to 9 and the
+conv layers (ResNet under ``bf16`` and ``fp16`` is in
+tests/test_torch_resnet_bf16.py).
 
 Tolerances, from readings on the CPU: bf16 layer outputs within
 2^-8 * max(1, max |ref|) (one bf16 ulp at the top of the range; read:

@@ -439,38 +439,47 @@ def test_recurrent_golden_proto_is_byte_equal(name):
 
 
 # ------------------------------------------------------- bf16 step kernels
-def _bf16(a):
-    """A float32 array rounded to bf16, as float32 numpy."""
-    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+def _bf16(a, dt=torch.bfloat16):
+    """A float32 array rounded to bf16 (or ``dt``), as float32 numpy."""
+    return torch.from_numpy(a).to(dt).float().numpy()
 
 
-@pytest.mark.parametrize("m_dtype", ["float32", "bfloat16"])
+# (x dtype, mask dtype): the bf16 instances under their own ids, the
+# float16 ones after them
+STEP_DTYPES = [pytest.param("bfloat16", "float32", id="float32"),
+               pytest.param("bfloat16", "bfloat16", id="bfloat16"),
+               pytest.param("float16", "float32", id="f16-float32"),
+               pytest.param("float16", "float16", id="f16-float16")]
+
+
+@pytest.mark.parametrize("x_dtype,m_dtype", STEP_DTYPES)
 @pytest.mark.parametrize("kind", ["lstm", "gru"])
-def test_bf16_step_matches_pallas_interpret(kind, m_dtype):
-    """Every (x, mask) dtype combination the kernels have a bf16 instance
-    for (``fused_rnn.KERNEL_DTYPES``, the combinations the JAX package
-    reaches: see the next test): x bf16, h, c, the weights and the bias
-    float32, the mask float32 or bf16.  The port's plain step against
-    ``_lstm_pallas`` / ``_gru_pallas`` under the interpreter (which
-    upcast every operand): h' and c' float32 in both within 1e-5, the
-    gradients in their operands' dtypes (dx bf16) within 1e-5 and one
-    bf16 ulp of max(1, max |g|) for dx."""
+def test_bf16_step_matches_pallas_interpret(kind, x_dtype, m_dtype):
+    """Every (x, mask) dtype combination the kernels have a bf16 or
+    float16 instance for (``fused_rnn.KERNEL_DTYPES``, the combinations
+    the JAX package reaches: see the next test): x bf16 (float16), h, c,
+    the weights and the bias float32, the mask float32 or in x's dtype.
+    The port's plain step against ``_lstm_pallas`` / ``_gru_pallas`` under
+    the interpreter (which upcast every operand): h' and c' float32 in
+    both within 1e-5, the gradients in their operands' dtypes (dx in x's)
+    within 1e-5 and one ulp of x's dtype of max(1, max |g|) for dx."""
     import jax
     import jax.numpy as jnp
 
+    xdt = getattr(torch, x_dtype)
     args = _step_args(kind, 12, 16, seed=3)
-    args[0] = _bf16(args[0])
+    args[0] = _bf16(args[0], xdt)
     m = args[-1]
-    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[m_dtype]
+    jdt = getattr(jnp, m_dtype)
     tdt = getattr(torch, m_dtype)
-    assert (torch.bfloat16, tdt) in trnn.KERNEL_DTYPES
+    assert (xdt, tdt) in trnn.KERNEL_DTYPES
     jstep = jrnn.lstm_step if kind == "lstm" else jrnn.gru_step
     tstep = trnn.lstm_step if kind == "lstm" else trnn.gru_step
     n_out = 2 if kind == "lstm" else 1
     cots = [np.random.default_rng(7).standard_normal((12, 16)).astype(
         np.float32) for _ in range(n_out)]
-    jargs = [jnp.asarray(args[0], jnp.bfloat16)] + [jnp.asarray(a) for a in
-                                                    args[1:-1]]
+    jargs = [jnp.asarray(args[0], x_dtype)] + [jnp.asarray(a) for a in
+                                               args[1:-1]]
 
     def jloss(*xs):
         outs = jstep(*xs, jnp.asarray(m, jdt), impl="interpret", block_b=8)
@@ -479,8 +488,7 @@ def test_bf16_step_matches_pallas_interpret(kind, m_dtype):
 
     (_, jouts), jgrads = jax.value_and_grad(
         jloss, argnums=tuple(range(5)), has_aux=True)(*jargs)
-    leaves = ([torch.from_numpy(args[0]).to(torch.bfloat16)
-               .requires_grad_(True)]
+    leaves = ([torch.from_numpy(args[0]).to(xdt).requires_grad_(True)]
               + [_t(a).requires_grad_(True) for a in args[1:-1]])
     touts = tstep(*leaves, _t(m).to(tdt))
     touts = touts if n_out == 2 else (touts,)
@@ -492,8 +500,8 @@ def test_bf16_step_matches_pallas_interpret(kind, m_dtype):
     for i, (j, t) in enumerate(zip(jgrads, tgrads)):
         assert str(t.dtype) == "torch." + str(j.dtype)
         want = np.asarray(j.astype(jnp.float32))
-        tol = (2.0 ** -8 * max(1.0, np.abs(want).max()) if i == 0
-               else 1e-5)
+        ulp = 2.0 ** -8 if xdt == torch.bfloat16 else 2.0 ** -11
+        tol = ulp * max(1.0, np.abs(want).max()) if i == 0 else 1e-5
         np.testing.assert_allclose(t.float().numpy(), want, atol=tol,
                                    rtol=1e-5)
     dead = m[:, 0] == 0
@@ -553,15 +561,16 @@ def _recorded_models(paddle):
     return [nmt, lstm, gru]
 
 
-@pytest.mark.parametrize("precision", ["bf16", "mixed"])
+@pytest.mark.parametrize("precision", ["bf16", "mixed", "fp16"])
 def test_bf16_step_dtypes_are_the_kernel_instances(precision, monkeypatch):
     """Which operand dtypes reach the step kernels under ``precision``:
     the JAX NMT model, the LSTM route and a grumemory, with and without
     ``@len`` feeds, each run forward and backward with a recording hook
     on the step's inputs.  The combinations found are exactly the
-    kernels' instances (``fused_rnn.KERNEL_DTYPES``: x bf16, the mask
-    float32 with ``@len`` or bf16 without, everything else float32), and
-    the port's layers reach exactly the same ones."""
+    kernels' instances (``fused_rnn.KERNEL_DTYPES``: x bf16, or float16
+    under ``fp16``, the mask float32 with ``@len`` or in x's dtype
+    without, everything else float32), and the port's layers reach
+    exactly the same ones."""
     import jax
 
     from paddle_tpu_torch.core import config as tconfig
@@ -616,12 +625,13 @@ def test_bf16_step_dtypes_are_the_kernel_instances(precision, monkeypatch):
         tconfig._options.clear()
         tconfig._options.update(saved)
     want = set()
+    x_want = torch.float16 if precision == "fp16" else torch.bfloat16
     for kind in ("lstm", "gru"):
         for x_dt, m_dt in trnn.KERNEL_DTYPES:
-            if x_dt != torch.bfloat16:
+            if x_dt != x_want:
                 continue
             rest = ["float32"] * 4          # h (c), the weights, b
-            want.add((kind, "bfloat16", *rest,
+            want.add((kind, str(x_dt).removeprefix("torch."), *rest,
                       str(m_dt).removeprefix("torch.")))
     assert seen["jax"] == want, sorted(seen["jax"])
     assert seen["port"] == want, sorted(seen["port"])

@@ -149,7 +149,15 @@ def test_http_infer_matches_jax_engine(snap):
                                          "bn_fwd_stats_bf16",
                                          "bn_bwd_stats_bf16",
                                          "matmul_stats_bf16",
-                                         "conv3x3_stats_bf16"}
+                                         "conv3x3_stats_bf16",
+                                         "flash_fwd_f16",
+                                         "flash_bwd_dkdv_f16",
+                                         "flash_bwd_dq_f16",
+                                         "lstm_step_f16", "gru_step_f16",
+                                         "bn_fwd_stats_f16",
+                                         "bn_bwd_stats_f16",
+                                         "matmul_stats_f16",
+                                         "conv3x3_stats_f16"}
         assert stats["kv"]["used"] == 0          # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400
