@@ -380,12 +380,13 @@ def test_gelu_is_jitted_jax_gelu_bit_for_bit(dtype):
     which the JAX package's jitted steps evaluate, on 100,000 seeded
     normals at four scales: bit for bit (at float16 XLA's CPU backend
     contracts ``x + 0.044715 x^3`` into one float32 multiply-add; the port
-    evaluated it op by op before, 524 of the 100,000 at scale 3 one ulp
-    off).  The float16 gradient, autograd through those ops against
-    ``jax.vjp`` of the jitted GELU, which XLA fuses and rounds elsewhere,
-    is not bit-equal, nor within one ulp: each element within two float16
-    ulps of the largest |ref| (readings over 8 seeds and these scales: 1
-    to 2 ulps; bf16's gradient differs as much in its own ulps)."""
+    evaluated it op by op before, and read 464 to 640 of 100,000 one ulp
+    off at scales 1 and 3).  The float16 gradient, autograd through those
+    ops against ``jax.vjp`` of the jitted GELU, which XLA fuses and rounds
+    elsewhere, is not bit-equal, nor within one ulp: each element within
+    two float16 ulps of the largest |ref| (readings over 8 seeds and these
+    scales: 1 to 2 ulps; bf16's gradient differs as much in its own
+    ulps)."""
     import jax
     import jax.numpy as jnp
 
