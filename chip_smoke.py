@@ -20,7 +20,12 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    autograd through the plain attention within 1e-4 * max(1, max |ref|)
    each (the training shape [8, 4096, 4, 128] causal, a kv_lens case, an
    offset-causal case, a cross-attention case, a return_lse case with a
-   nonzero LSE cotangent); the LSTM step (B 128, H 512) and the GRU step
+   nonzero LSE cotangent, D 64 and D 100), and at the training shape the
+   float32 (3xTF32) pair per row against ``_tf32x3_bwd``, its own
+   arithmetic (every row within 2^-7 of its norm, 99% within 2^-16), one
+   TF32 product (``terms=1``, a planted fault) shown to fail that check,
+   their registers and local memory at both head tiles (a spill fails);
+   the LSTM step (B 128, H 512) and the GRU step
    (B 256, H 512), each with a mask of about 30% zeros and at two ragged
    shapes, on h' (and c') and on the autograd.Function's gradients of
    every input but the mask, within 1e-4 * max(1, max |ref|), masked rows
@@ -56,7 +61,12 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    ``F.scaled_dot_product_attention`` at bf16; the sweep's own rows are
    timed by the sweep, phase 10), with CUDA events, L2
    flushed between launches, each beside its bound (float32 FMAs at 67
-   TFLOP/s, bf16 tensor cores at 989 TFLOP/s, or bytes at 3.35 TB/s);
+   TFLOP/s, bf16 tensor cores at 989 TFLOP/s, three TF32 products at 495
+   TFLOP/s for the float32 backward pair, beside its FMA floor, or bytes
+   at 3.35 TB/s); the float32 backward pair also beside the parent's SIMT
+   pair (built from MMA_SASS_BASE's ``flash_bwd.cu``) and the kernels
+   ``torch.profiler`` sees SDPA's float32 backward launch, with its error
+   against the plain version;
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
    4 x 128 heads, 8 layers, max_len 4096; random weights from a numpy
    seed) written as a checkpoint, loaded, and served through
@@ -142,7 +152,7 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
-   of ``flash_bwd.cu``, ``rnn_step.cu``, ``bn_stats.cu`` and
+   of ``rnn_step.cu``, ``bn_stats.cu`` and
    ``conv_bn.cu`` against the build of their sources before the bf16
    instances, kept in SASS_BASE; kernel 1's float32 instance and the
    sweep's four f32-dot instances against ``flash_fwd.cu`` before its
@@ -217,7 +227,8 @@ try:
                                                      VOCAB, iteration_ms,
                                                      prompts, random_values)
     from paddle_tpu_torch.tools.timing import (PEAK_BF16_FLOPS,
-                                               PEAK_F32_FLOPS, bound,
+                                               PEAK_F32_FLOPS,
+                                               PEAK_TF32_FLOPS, bound,
                                                time_ms)
 except ImportError as e:
     sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
@@ -404,33 +415,139 @@ def _attn_grads(fa, q, k, v, lens, go, gl, kw, impl):
     return torch.autograd.grad(obj, qkv)
 
 
-def flash_bwd_phase(dev, gen, flush):
+# kernels 2 and 3 at float32 (the 3xTF32 kernels) against their own
+# arithmetic in plain torch, ``_tf32x3_bwd``, per row (``_row_errs``):
+# every row within TF32_ROW_TOL of its norm (float32's own cancellation in
+# dQ's early rows sets the largest, as at 16 bits) and 99% of the rows
+# within TF32_ROW_Q99_TOL.  The limit sits between what the CPU test
+# tests/test_torch_flash_tf32.py::test_one_tf32_product_fails_the_row_limit
+# reads at [2, 256, 2, 128]: 3xTF32 against a float64 backward, 99% of the
+# rows within 2^-19, and one TF32 product (terms=1) past 2^-12.
+TF32_ROW_TOL, TF32_ROW_Q99_TOL = 2.0 ** -7, 2.0 ** -16
+# the parent's float32 backward pair (the CUDA-core kernels the 3xTF32 ones
+# replace), timed beside them: MMA_SASS_BASE's flash_bwd.cu, whose float32
+# instances are the parent's source and were pinned to the same machine
+# code (sass_phase) until they went, built as ops/_build builds a source
+SIMT_PAIR_SO = "parent_simt_flash_bwd.so"
+
+
+def start_simt_pair_build():
+    """Start ``nvcc`` on the parent's SIMT pair: (the process, its .so)."""
+    import os
+
+    from paddle_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    so = os.path.join(_build.BUILD_DIR, SIMT_PAIR_SO)
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+         os.path.join(MMA_SASS_BASE, "flash_bwd.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def simt_pair(build):
+    """The loaded library of ``start_simt_pair_build``'s build, its two
+    float32 entries typed as the port's."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    proc, so = build
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's SIMT pair:\n{log}")
+    lib = ctypes.CDLL(so)
+    for name in ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32"):
+        entry = getattr(lib, name)
+        entry.argtypes = list(fa._BWD_SIGNATURES[name])
+        entry.restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _simt_call(lib, fa, which, q, k, v, go, lse, delta, lens, kw):
+    """One launch of the parent's SIMT ``which`` ("dkdv" or "dq")."""
+    from paddle_tpu_torch.ops import _build
+
+    outs = [torch.empty_like(x) for x in ((k, v) if which == "dkdv"
+                                          else (q,))]
+    err = getattr(lib, f"flash_bwd_{which}_f32")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lens.data_ptr(),
+        *(x.data_ptr() for x in outs),
+        *fa._bwd_args(q, k, v, go, kw["causal"], kw["scale"], 0, 0))
+    _build.check(lib, err, f"the parent's flash_bwd_{which}_f32")
+    return outs
+
+
+def _tf32_holds(a, ref) -> tuple:
+    """(largest row error, its BWD_MMA_ROW_Q quantile, whether they are
+    within TF32_ROW_TOL and TF32_ROW_Q99_TOL)."""
+    return _rows_hold("mma", _row_errs(a, ref, TF32_ROW_TOL), TF32_ROW_TOL,
+                      TF32_ROW_Q99_TOL, BWD_MMA_ROW_Q)
+
+
+def _sdpa_kernels(sdpa, qt, go_t, scale) -> list:
+    """The CUDA kernels one float32 backward of ``sdpa`` launches, from
+    ``torch.profiler``: [(name, calls, device ms)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    so = sdpa(*qt, is_causal=True, scale=scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(so, qt, go_t)
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = per.get(e.name, (0, 0.0))
+            per[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return sorted(((name, n, ms) for name, (n, ms) in per.items()),
+                  key=lambda x: -x[2])
+
+
+def flash_bwd_phase(dev, gen, flush, simt_build=None):
     """Hold the backward kernels against autograd through the plain
-    attention, then time forward, dK/dV and dQ at the training shape
-    beside the plain version and the library call."""
+    attention; at the training shape hold the float32 (3xTF32) kernels
+    per row against ``_tf32x3_bwd`` and show that one TF32 product
+    (``terms=1``) fails that check; read their registers (a spill fails);
+    then time forward, dK/dV and dQ at the training shape beside the plain
+    version, the library call (whose backward kernels ``torch.profiler``
+    names, and whose error against the plain version is printed), both
+    bounds and, from ``simt_build``, the parent's SIMT pair."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     D = DIM // HEADS
-    # name, B, Lq, Lk, causal, kv_lens, q_offset, kv_offset, LSE cotangent
+    # name, B, Lq, Lk, H, D, causal, kv_lens, q_offset, kv_offset, LSE
+    # cotangent: the LM's heads, then the float32 kernels' other head tile
+    # (D 64) and a head narrower than its tile (D 100), as BF16_BWD_CASES
     cases = [
-        ("training shape", TRAIN_BATCH, MAX_LEN, MAX_LEN, True, None, 0, 0,
+        ("training shape", TRAIN_BATCH, MAX_LEN, MAX_LEN, HEADS, D, True,
+         None, 0, 0, False),
+        ("kv_lens", 4, 1024, 1024, HEADS, D, True, [1024, 700, 333, 65], 0,
+         0, False),
+        ("offset causal", 2, 512, 1536, HEADS, D, True, None, 1000, 200,
          False),
-        ("kv_lens", 4, 1024, 1024, True, [1024, 700, 333, 65], 0, 0, False),
-        ("offset causal", 2, 512, 1536, True, None, 1000, 200, False),
-        ("cross attention", 2, 300, 1100, False, None, 0, 0, False),
-        ("return_lse", 2, 1024, 1024, True, None, 0, 0, True),
+        ("cross attention", 2, 300, 1100, HEADS, D, False, None, 0, 0,
+         False),
+        ("return_lse", 2, 1024, 1024, HEADS, D, True, None, 0, 0, True),
+        *BF16_BWD_CASES[-2:],
     ]
     errs = {"dq": [0.0, 0.0], "dkdv": [0.0, 0.0]}   # max abs, max relative
-    for name, b, lq, lk, causal, lens, qo, ko, with_lse in cases:
-        q = torch.randn(b, lq, HEADS, D, device=dev, generator=gen)
-        k = torch.randn(b, lk, HEADS, D, device=dev, generator=gen)
-        v = torch.randn(b, lk, HEADS, D, device=dev, generator=gen)
-        go = torch.randn(b, lq, HEADS, D, device=dev, generator=gen)
-        gl = (torch.randn(b, HEADS, lq, device=dev, generator=gen)
+    for name, b, lq, lk, h, d, causal, lens, qo, ko, with_lse in cases:
+        q = torch.randn(b, lq, h, d, device=dev, generator=gen)
+        k = torch.randn(b, lk, h, d, device=dev, generator=gen)
+        v = torch.randn(b, lk, h, d, device=dev, generator=gen)
+        go = torch.randn(b, lq, h, d, device=dev, generator=gen)
+        gl = (torch.randn(b, h, lq, device=dev, generator=gen)
               if with_lse else None)
         lens_t = torch.tensor(lens or [lk] * b, dtype=torch.int32,
                               device=dev)
-        kw = dict(causal=causal, scale=D ** -0.5, q_offset=qo,
+        kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo,
                   kv_offset=ko)
         got = _attn_grads(fa, q, k, v, lens_t, go, gl, kw, "cuda")
         ref = _attn_grads(fa, q, k, v, lens_t, go, gl, kw, "torch")
@@ -446,9 +563,9 @@ def flash_bwd_phase(dev, gen, flush):
                 raise AssertionError(
                     f"flash_bwd {name}: {gname} disagrees with autograd "
                     f"through the plain version: {rel} > {TOL}")
-        print(f"flash_bwd {name} [B {b}, Lq {lq}, Lk {lk}, causal "
-              f"{causal}, kv_lens {lens}, q_offset {qo}, kv_offset {ko}, "
-              f"g_lse {with_lse}]: " + ", ".join(line), flush=True)
+        print(f"flash_bwd {name} [B {b}, Lq {lq}, Lk {lk}, H {h}, D {d}, "
+              f"causal {causal}, kv_lens {lens}, q_offset {qo}, kv_offset "
+              f"{ko}, g_lse {with_lse}]: " + ", ".join(line), flush=True)
         del got, ref
 
     B, T = TRAIN_BATCH, MAX_LEN
@@ -458,12 +575,83 @@ def flash_bwd_phase(dev, gen, flush):
     kw = dict(causal=True, scale=D ** -0.5)
     o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
     delta = (go * o).sum(-1).transpose(1, 2).contiguous()
+
+    # the 3xTF32 kernels against their own arithmetic, per row, and one
+    # TF32 product (terms=1, the planted fault) against the same
+    got = (fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw),
+           *fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw))
+    plain = _attn_grads(fa, q, k, v, lens, go, None, kw, "torch")
+    ref = fa._tf32x3_bwd(q, k, v, lens, o, lse, go, **kw)
+    bad = fa._tf32x3_bwd(q, k, v, lens, o, lse, go, terms=1, **kw)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    tf32 = {"kernels": {}, "terms_1": {}}
+    for gname, a, r, x, p in zip(names, got, ref, bad, plain):
+        worst, q99, ok = _tf32_holds(a, r)
+        bworst, bq99, bok = _tf32_holds(x, r)
+        tf32["kernels"][gname] = dict(
+            row_err=worst, row_err_q99=q99,
+            plain_rel=(a - p).abs().max().item()
+            / max(1.0, p.abs().max().item()))
+        tf32["terms_1"][gname] = dict(
+            row_err=bworst, row_err_q99=bq99,
+            plain_rel=(x - p).abs().max().item()
+            / max(1.0, p.abs().max().item()))
+        if not (ok and torch.isfinite(a).all()):
+            raise AssertionError(
+                f"flash_bwd float32: {gname} row errors against _tf32x3_bwd "
+                f"(largest {worst}, {BWD_MMA_ROW_Q:.0%} {q99}) past "
+                f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL}")
+        if bok:
+            raise AssertionError(
+                f"the float32 backward check passes the planted fault (one "
+                f"TF32 product): {gname} {bworst}, {bq99}")
+    print(f"flash_bwd float32 (3xTF32) at [{B}, {T}, {HEADS}, {D}] causal: "
+          f"row errors (largest, {BWD_MMA_ROW_Q:.0%}) against _tf32x3_bwd "
+          + ", ".join(f"{g} {e['row_err']:.3e} {e['row_err_q99']:.3e}"
+                      for g, e in tf32["kernels"].items())
+          + f" (limits {TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e}); "
+          "planted fault (one TF32 product, terms=1; must fail): "
+          + ", ".join(f"{g} {e['row_err']:.3e} {e['row_err_q99']:.3e}"
+                      for g, e in tf32["terms_1"].items())
+          + "; max|err| against autograd through the plain version, of "
+          "max(1, |ref|) (gate 1e-4): kernels " + ", ".join(
+              f"{g} {e['plain_rel']:.2e}" for g, e in tf32["kernels"].items())
+          + ", planted fault " + ", ".join(
+              f"{g} {e['plain_rel']:.2e}" for g, e in tf32["terms_1"].items()),
+          flush=True)
+    del ref, bad
+    res = fa.bwd_f32_resources()
+    print("flash_bwd float32 (3xTF32) kernels' resources "
+          "(cudaFuncGetAttributes): " + ", ".join(
+              f"{n} {r} registers, {l} bytes local"
+              for n, (r, l) in res.items()), flush=True)
+    if any(l for _, l in res.values()):
+        raise AssertionError(f"a float32 backward kernel spills: {res}")
+
     t = {"fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
                         flush),
          "dkdv": time_ms(lambda: fa.flash_bwd_dkdv_cuda(
              q, k, v, go, lse, delta, lens, **kw), flush),
          "dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
              q, k, v, go, lse, delta, lens, **kw), flush)}
+    simt = {}
+    if simt_build is not None:
+        lib = simt_pair(simt_build)
+        sgot = (*_simt_call(lib, fa, "dq", q, k, v, go, lse, delta, lens, kw),
+                *_simt_call(lib, fa, "dkdv", q, k, v, go, lse, delta, lens,
+                            kw))
+        torch.cuda.synchronize()
+        for gname, a, p in zip(names, sgot, plain):
+            rel = (a - p).abs().max().item() / max(1.0, p.abs().max().item())
+            simt[f"{gname}_plain_rel"] = rel
+            if not rel <= TOL:
+                raise AssertionError(f"the parent's SIMT {gname} disagrees "
+                                     f"with the plain version: {rel}")
+        del sgot
+        for which in ("dkdv", "dq"):
+            simt[f"{which}_ms"] = time_ms(lambda which=which: _simt_call(
+                lib, fa, which, q, k, v, go, lse, delta, lens, kw), flush)
     # the plain version: its forward, and autograd's backward through it
     # (one backward computes dQ, dK and dV)
     with torch.no_grad():
@@ -484,36 +672,76 @@ def flash_bwd_phase(dev, gen, flush):
     so = sdpa(*qt, is_causal=True, scale=kw["scale"])
     t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
         so, qt, go.transpose(1, 2), retain_graph=True), flush)
+    lib_grads = [x.transpose(1, 2) for x in torch.autograd.grad(
+        so, qt, go.transpose(1, 2))]
     del so
+    sdpa_kernels = _sdpa_kernels(sdpa, qt, go.transpose(1, 2), kw["scale"])
+    sdpa_rel = {g: (a - p).abs().max().item()
+                / max(1.0, p.abs().max().item())
+                for g, a, p in zip(names, lib_grads, plain)}
+    del lib_grads, plain
+    print("scaled_dot_product_attention's float32 backward at "
+          f"[{B}, {T}, {HEADS}, {D}] causal (torch.profiler): " + "; ".join(
+              f"{name} x{n} {ms:.4f} ms" for name, n, ms in sdpa_kernels)
+          + "; max|err| against autograd through the plain version, of "
+          "max(1, |ref|): " + ", ".join(f"{g} {e:.2e}"
+                                       for g, e in sdpa_rel.items()),
+          flush=True)
 
     pairs = B * HEADS * T * (T + 1) // 2      # visible (q, k) pairs, causal
     row = 4.0 * B * T * HEADS * D             # one [B, T, H, D] float32
     vec = 4.0 * B * HEADS * T                 # one [B, H, T] float32
-    bounds = {"fwd": bound(4.0 * D * pairs, 4 * row + vec + 4 * B),
-              "dkdv": bound(8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
-              "dq": bound(6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
+    work = {"fwd": (4.0 * D * pairs, 4 * row + vec + 4 * B),
+            "dkdv": (8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
+            "dq": (6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
+    bounds = {"fwd": bound(*work["fwd"])}
+    for name in ("dkdv", "dq"):
+        # three TF32 products for each float32 one at TF32's dense peak
+        bounds[name] = bound(3 * work[name][0], work[name][1],
+                             PEAK_TF32_FLOPS)
     for name in ("fwd", "dkdv", "dq"):
-        plain, lib = (("plain_fwd", "lib_fwd") if name == "fwd"
-                      else ("plain_bwd", "lib_bwd"))
+        plain_n, lib = (("plain_fwd", "lib_fwd") if name == "fwd"
+                        else ("plain_bwd", "lib_bwd"))
+        extra = ""
+        if name != "fwd":
+            regs, local = res[f"{name}_d{D}"]
+            extra = (f"  fma_bound_ms {bound(*work[name])[0]:.4f}"
+                     + (f"  parent_simt_ms {simt[name + '_ms']:.4f}"
+                        if simt else "")
+                     + f"; {regs} registers, {local} bytes local")
         print(f"flash {name} at [{B}, {T}, {HEADS}, {D}] causal: ms "
               f"{t[name]:.4f}  bound_ms {bounds[name][0]:.4f} "
-              f"({bounds[name][1]})  plain_ms {t[plain]:.4f}  library_ms "
+              f"({bounds[name][1]}"
+              f"{'' if name == 'fwd' else ', 3xTF32 at the TF32 peak'})  "
+              f"plain_ms {t[plain_n]:.4f}  library_ms "
               f"(scaled_dot_product_attention "
               f"{'forward' if name == 'fwd' else 'backward'}) "
-              f"{t[lib]:.4f}", flush=True)
+              f"{t[lib]:.4f}" + extra, flush=True)
 
-    def entry(name, plain, lib, err=None):
-        d = dict(ms=t[name], plain_ms=t[plain], bound_ms=bounds[name][0],
+    def entry(name, plain_n, lib, err=None):
+        d = dict(ms=t[name], plain_ms=t[plain_n], bound_ms=bounds[name][0],
                  bound_by=bounds[name][1], library_ms=t[lib])
         if err is not None:
-            d.update(max_abs_err=err[0], max_rel_err=err[1])
+            regs, local = res[f"{name}_d{D}"]
+            gs = ("dq",) if name == "dq" else ("dk", "dv")
+            d.update(max_abs_err=err[0], max_rel_err=err[1],
+                     fma_bound_ms=bound(*work[name])[0],
+                     row_err=max(tf32["kernels"][g]["row_err"] for g in gs),
+                     row_err_q99=max(tf32["kernels"][g]["row_err_q99"]
+                                     for g in gs),
+                     registers=regs, local_bytes=local)
+            if simt:
+                d["parent_simt_ms"] = simt[name + "_ms"]
         return d
 
     return {"shape": {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
                       "causal": True},
             "fwd": entry("fwd", "plain_fwd", "lib_fwd"),
             "dkdv": entry("dkdv", "plain_bwd", "lib_bwd", errs["dkdv"]),
-            "dq": entry("dq", "plain_bwd", "lib_bwd", errs["dq"])}
+            "dq": entry("dq", "plain_bwd", "lib_bwd", errs["dq"]),
+            "tf32": tf32, "resources": res, "parent_simt": simt,
+            "sdpa": {"kernels": [[n, c, ms] for n, c, ms in sdpa_kernels],
+                     "plain_rel": sdpa_rel}}
 
 
 # ------------------------------------------------ the forward ablation sweep
@@ -2506,10 +2734,10 @@ def mixed_skip_phase(dev):
 
 
 # the float32 instances the bf16 templates must leave alone:
-# (source, the kernel's name in the earlier build, in the new one)
+# (source, the kernel's name in the earlier build, in the new one).  The
+# float32 flash backward pair was pinned here until the 3xTF32 kernels
+# replaced it.
 SASS_KERNELS = (
-    ("flash_bwd.cu", "flash_bwd_dkdv_kernelEPKf", "flash_bwd_dkdv_kernelIfE"),
-    ("flash_bwd.cu", "flash_bwd_dq_kernelEPKf", "flash_bwd_dq_kernelIfE"),
     ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
     ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
     ("rnn_step.cu", "gru_cand_kernelEPKf", "gru_cand_kernelIffE"),
@@ -2535,8 +2763,6 @@ SASS_BASE = "paddle_tpu_torch/tools/sass_base"
 SASS_BASE_BLOBS = {
     "bn_stats.cu": "2688c2245abea33ec34e0b2db2c5f561604ef115",
     "conv_bn.cu": "ac3775887f4e8d0ce30fdb4d9895792ea06f49ba",
-    "flash_bwd.cu": "f9b8a77ef1567ea7eb23229367e4559e3e1faea8",
-    "flash_common.cuh": "b1635bb2bcf22f838fcc6636dd32c01fd59f12a8",
     "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
     "stat_reduce.cuh": "cbe135e3f7369ea805b038fccfe2ea71076bcf06",
 }
@@ -3700,6 +3926,7 @@ def main() -> int:
           torch.cuda.get_device_name(0), flush=True)
 
     t0 = time.perf_counter()
+    simt_build = start_simt_pair_build()    # beside the port's own builds
     logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
                          "rnn_step", "bn_stats", "conv_bn", "flash_variants"])
     print(f"built {len(logs)} kernel sources in "
@@ -3716,7 +3943,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
     flash_err, flash_t = flash_phase(dev, gen, flush)
     paged_err, paged_t = paged_phase(dev, gen, flush)
-    bwd = flash_bwd_phase(dev, gen, flush)
+    bwd = flash_bwd_phase(dev, gen, flush, simt_build)
     bwd16 = flash_bwd_bf16_phase(dev, gen, flush)
     bwd_f16 = flash_bwd_bf16_phase(dev, gen, flush, torch.float16)
     rnn = rnn_phase(dev, gen, flush)
@@ -3912,6 +4139,9 @@ def main() -> int:
                            var["variants"].values() for r in vs.values())),
     ]
     print(json.dumps({"serving": {"iterations": iters}}), flush=True)
+    print(json.dumps({"fp32_bwd": {
+        k: bwd[k] for k in ("tf32", "resources", "parent_simt", "sdpa")}}),
+          flush=True)
     print(json.dumps({"training": {
         k: train[k] for k in ("losses", "first_step_ms", "step_ms",
                               "peak_gb", "parity", "breakdown")}}),

@@ -187,12 +187,12 @@ class GlobalPoolLayer(LayerDef):
 
 def _bn_fold(x, scale, bias, mean, var, eps):
     """Normalisation folded into per-channel float32 scalars, cast to x's
-    dtype, then one multiply and one add over x in that dtype: the train
-    path's and the eval path's single form."""
+    dtype, then x * w + b as ``fused_bn._fold`` evaluates it (one multiply
+    and one add in x's dtype; one float32 multiply-add rounded once at
+    float16, as the JAX package's jitted steps and ``SGD.test`` evaluate
+    its fold): the train path's and the eval path's single form."""
     inv = torch.rsqrt(var + eps)
-    w = (scale * inv).to(x.dtype)
-    b = (bias - mean * scale * inv).to(x.dtype)
-    return x * w + b
+    return fused_bn._fold(x, scale * inv, bias - mean * scale * inv)
 
 
 def _bn_train(x, scale, bias, eps):

@@ -5,8 +5,12 @@ The kernels take float32, bf16 or float16 q/k/v (and dO), as
 ``_flash_fwd`` and ``_flash_bwd`` do: O comes back in q's dtype and the
 LSE in float32; dQ, dK and dV in q's, k's and v's dtype; delta is
 float32.  The arithmetic:
-- float32 operands: every product float32, as in the Pallas kernels,
-  which upcast before every product;
+- float32 operands: the forward's every product float32, as in the Pallas
+  kernels, which upcast before every product; the backward's every
+  product split TF32 on the tensor cores (3xTF32: each operand x = hi +
+  lo, both parts rounded to TF32 to nearest with ties away from zero, and
+  a . b = lo_a . hi_b + hi_a . lo_b + hi_a . hi_b summed in float32, within
+  3 * 2^-22 of |a||b|);
 - bf16 and float16 operands: the tensor cores, one kernel template on
   either 16-bit type.  S = QK^T (and in the backward dP = dO V^T) take
   the 16-bit operands with float32 accumulation (exact products, so only
@@ -16,7 +20,7 @@ float32.  The arithmetic:
   dV = P^T dO, dK = dS^T Q and dQ = dS K, accumulated in float32; each
   output is rounded once.
 
-Four plain versions, for the two bf16 semantics of the JAX package and
+Five plain versions, for the two bf16 semantics of the JAX package and
 the tensor-core kernels:
 ``_torch_attention`` is the counterpart of ``_xla_attention`` (on bf16 the
 probabilities are rounded to bf16 before P . V), the CPU route and the
@@ -26,7 +30,8 @@ outputs rounded once to the operands' dtype), the yardstick the 16-bit
 kernels are held against on the card; ``_mma_fwd`` and ``_mma_bwd`` are
 the 16-bit kernels' own arithmetic (the forward's online softmax over key
 tiles with P rounded to the operands' dtype; P and dS rounded to it in
-the backward),
+the backward), and ``_tf32x3_bwd`` the float32 backward kernels' (every
+product as three TF32 products),
 which the CPU tests hold to the Pallas kernels within their rounding's
 bounds and the card's check holds the kernels to within tighter limits.
 
@@ -192,6 +197,78 @@ def _mma_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _tf32_rna(x):
+    """float32 ``x`` rounded to TF32 (float32's exponent, 10 mantissa
+    bits), to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
+    rounds it: on the bit pattern, half a unit of the 13 dropped bits added
+    to the magnitude, then those bits cleared.  A value past TF32's largest
+    becomes inf, a subnormal rounds on the same bits, a NaN comes back as
+    it was."""
+    bits = x.contiguous().view(torch.int32)
+    mag = torch.clamp(bits & 0x7FFFFFFF, max=0x7F800000)
+    out = ((mag + 0x1000) & -0x2000) | (bits & -0x80000000)
+    return torch.where(torch.isnan(x), x, out.view(torch.float32))
+
+
+def _tf32_split(x):
+    """(hi, lo): hi = x rounded to TF32, lo = (x - hi) rounded to TF32
+    (``_tf32_rna``); x - hi is exact, and hi + lo is x within 2^-22 of
+    |x|."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32x3(spec, a, b, terms=3):
+    """``torch.einsum(spec, a, b)`` on float32 as the 3xTF32 kernels take
+    it: each operand split (``_tf32_split``), lo_a . hi_b + hi_a . lo_b +
+    hi_a . hi_b, each product of TF32 parts exact in float32 and summed in
+    float32.  ``terms=1`` keeps hi_a . hi_b alone: one TF32 product, the
+    planted fault."""
+    a_hi, a_lo = _tf32_split(a)
+    b_hi, b_lo = _tf32_split(b)
+    big = torch.einsum(spec, a_hi, b_hi)
+    if terms == 1:
+        return big
+    return (torch.einsum(spec, a_lo, b_hi)
+            + torch.einsum(spec, a_hi, b_lo)) + big
+
+
+def _tf32x3_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
+                scale: float, q_offset=0, kv_offset=0, terms: int = 3):
+    """The arithmetic of the float32 backward kernels (the 3xTF32
+    ``flash_bwd_{dkdv,dq}_tf32_kernel`` of ``csrc/flash_bwd.cu``) in plain
+    torch: every product (S = QK^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
+    dQ = dS K) as ``_tf32x3``, P = exp2(S * scale * log2(e) - LSE *
+    log2(e)) and dS = P * (dP - delta) in float32, both zero outside
+    ``_visible``'s masks, delta = rowsum(dO * O) - g_lse; dK and dQ scaled
+    after their products.  Never on the kernel route: the tests hold it
+    against the JAX package, ``chip_smoke.py`` the kernels against it.
+
+    ``terms=1`` takes every product as one TF32 product (hi . hi): a
+    planted fault, which the checks must catch."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    mask = _visible(qf.shape[1], kf.shape[1], kv_lens, causal, q_offset,
+                    kv_offset, qf.device)
+
+    def x3(spec, a, b):
+        return _tf32x3(spec, a, b, terms)
+
+    s = x3("bqhd,bkhd->bhqk", qf, kf)
+    p = torch.exp2(s * (scale * LOG2E) - lse[..., None] * LOG2E)
+    p = p.masked_fill(~mask, 0.0)
+    del s
+    delta = (gf * o.float()).sum(-1).transpose(1, 2)           # [B, H, Lq]
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    ds = (p * (x3("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+          ).masked_fill(~mask, 0.0)
+    dv = x3("bhqk,bqhd->bkhd", p, gf)
+    del p
+    dq = x3("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = x3("bhqk,bqhd->bkhd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -365,6 +442,8 @@ _BWD_SIGNATURES = {
     **{f"flash_bwd_dkdv_{sfx}": _DKDV_ARGS for sfx in _SUFFIX.values()},
     **{f"flash_bwd_dq_{sfx}": _DQ_ARGS for sfx in _SUFFIX.values()},
     "flash_bwd_mma_resources": [ctypes.c_int] * 3
+                               + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "flash_bwd_f32_resources": [ctypes.c_int] * 2
                                + [ctypes.POINTER(ctypes.c_int)] * 2}
 
 
@@ -416,9 +495,9 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
                         scale: float, q_offset: int = 0,
                         kv_offset: int = 0):
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``: returns (dK, dV)
-    [B, Lk, H, D] in the operands' dtype.  float32 operands run the
-    CUDA-core kernel (float32 products), bf16 and float16 ones the
-    tensor-core kernel (``_mma_bwd``'s arithmetic).  ``g`` is dO [B, Lq, H, D]; ``lse`` the
+    [B, Lk, H, D] in the operands' dtype.  float32 operands run the 3xTF32
+    tensor-core kernel (``_tf32x3_bwd``'s arithmetic), bf16 and float16
+    ones the 16-bit tensor-core kernel (``_mma_bwd``'s).  ``g`` is dO [B, Lq, H, D]; ``lse`` the
     forward's natural-log LSE and ``delta`` = rowsum(dO * O) - g_lse, both
     [B, H, Lq] float32."""
     _check_bwd_operands(q, k, v, g, lse, delta, kv_lens)
@@ -492,6 +571,17 @@ def bwd_mma_resources(dtype=torch.bfloat16) -> dict:
         for name, dkdv in (("dkdv", 1), ("dq", 0)) for dt in (64, 128)}
 
 
+def bwd_f32_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the float32 (3xTF32) backward
+    kernels at each head tile, from ``cudaFuncGetAttributes``:
+    ``{"dkdv_d64": (regs, local_bytes), ...}``.  Needs a card."""
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    return {f"{name}_d{dt}": _build.resources(
+        lib, lib.flash_bwd_f32_resources, dkdv, dt)
+        for name, dkdv in (("dkdv", 1), ("dq", 0)) for dt in (64, 128)}
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernel route with its gradient (counterpart of ``_flash`` and
     its custom vjp): returns (O, LSE); both outputs are differentiable."""
@@ -546,8 +636,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q[:, 0] / k[:, 0] for the causal rule ``kv_offset + k <= q_offset +
     q``.  impl: ``"cuda"`` (the kernels), ``"torch"`` (plain version) or
     None (by the device of ``q``).  Differentiable on both routes: the
-    kernel route's backward is ``csrc/flash_bwd.cu``, at float32 (CUDA
-    cores), bf16 or float16 (tensor cores); q, k and v share a dtype."""
+    kernel route's backward is ``csrc/flash_bwd.cu``, on the tensor cores
+    at float32 (split TF32), bf16 or float16; q, k and v share a dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_lens is None:

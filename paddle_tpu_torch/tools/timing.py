@@ -7,6 +7,7 @@ import torch
 
 PEAK_F32_FLOPS = 67e12        # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12      # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
 

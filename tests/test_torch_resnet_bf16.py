@@ -32,6 +32,7 @@ import paddle_tpu as pj
 import paddle_tpu_torch as pt
 from paddle_tpu.core import config as jconfig
 from paddle_tpu.core.ir import reset_name_counters as reset_jax_names
+from paddle_tpu.layers import conv as jconv
 from paddle_tpu.models import resnet as jresnet
 from paddle_tpu.ops import conv_bn as jcb
 from paddle_tpu.ops import fused_bn as jbn
@@ -125,15 +126,18 @@ def test_small_resnet_first_step_matches_jax(fuse, precision, monkeypatch):
     through the trainer's loss scale under ``mixed``) within 2^-7 of
     max(1, max |g|) and each leaf within 2^-4 of its own norm, and the new
     moving statistics, float32, within 2^-7 of max(1, max |ref|).  Under
-    ``fp16`` the JAX package's batch-norm fold is evaluated as its jitted
-    step evaluates it (``jax.jit``: one rounding of x * w + b, as its
-    interpreted 7b kernel's mask and the port's fold take it; eagerly it
-    rounds twice, and the gradients of the stem read 1.2x to 2.4x the
+    ``fp16`` the JAX package's batch-norm folds (``ops/fused_bn.py``'s and
+    ``layers/conv.py``'s, the conv_bn path's) are evaluated as its jitted
+    step evaluates them (``jax.jit``: one rounding of x * w + b, as its
+    interpreted 7b kernel's mask and the port's folds take it; eagerly it
+    rounds twice, and the gradients of the stem read 1.2x to 2.6x the
     limit from that alone); at bf16 the two evaluations are the same."""
     import jax
 
     if precision == "fp16":
         monkeypatch.setattr(jbn, "_fold", jax.jit(jbn._fold))
+        monkeypatch.setattr(jconv, "_bn_fold",
+                            jax.jit(jconv._bn_fold, static_argnums=5))
 
     jtopo, ttopo = _init(fuse, precision)
     values = _values(jtopo, 1)
