@@ -12,7 +12,12 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    register / shared-memory / spill lines;
 3. hold each kernel against its plain PyTorch version at the main paths'
    full-width shapes (float32): the forward and the decode kernel within
-   max |error| <= 1e-4 (the decode kernel in the pool and the slab
+   max |error| <= 1e-4, the forward (3xTF32 on the tensor cores) also per
+   row against ``_tf32x3_fwd``, its own arithmetic, at the serving shapes,
+   the training shape, D 64 and D 100 (every row of O within 2^-7 of its
+   norm, 99% within 2^-16, the LSE within 1e-5), one TF32 product
+   (``terms=1``) shown to fail that check, its registers and local memory
+   (a spill fails) (the decode kernel in the pool and the slab
    layout, a hole row among its 8, at kv_splits 1, 3, 8 and the default;
    one call traced by ``torch.profiler`` must hold exactly one CUDA
    kernel, the split fold inside it; its registers and local memory, a
@@ -33,7 +38,10 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    statistic passes; 8, 9: the 1x1 and 3x3 convs with the statistics in
    their epilogue) at every distinct shape ResNet-50 gives them at batch
    128, at ragged shapes and (7a, 7b) at rank 2, on y, sum, sum of
-   squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|);
+   squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|),
+   and 9 (3xTF32 on the tensor cores) per row against
+   ``_tf32x3_conv3x3_stats`` (y's rows as the forward's, the sums within
+   1e-4) with ``terms=1`` shown to fail, its registers and local memory;
    7b's relu boundary (folds exactly 0 are dropped as the forward drops
    them); the autograd Functions' gradients against autograd through the
    plain versions; kernel 1 on bf16 q/k/v (the tensor-core kernel; O
@@ -57,14 +65,16 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    computes, the cuBLAS product alone, ``torch.addmm``, as the product's
    floor; for the conv kernels ``torch.var_mean``,
    ``torch.batch_norm_backward_reduce``, ``torch.mm`` alone and
-   ``F.conv2d`` alone; for kernel 1 at bf16 and the sweep's variants
+   ``F.conv2d`` alone (TF32 off); for kernel 1 at bf16 and the sweep's
+   variants
    ``F.scaled_dot_product_attention`` at bf16; the sweep's own rows are
    timed by the sweep, phase 10), with CUDA events, L2
    flushed between launches, each beside its bound (float32 FMAs at 67
    TFLOP/s, bf16 tensor cores at 989 TFLOP/s, three TF32 products at 495
-   TFLOP/s for the float32 backward pair, beside its FMA floor, or bytes
-   at 3.35 TB/s); the float32 backward pair also beside the parent's SIMT
-   pair (built from MMA_SASS_BASE's ``flash_bwd.cu``) and the kernels
+   TFLOP/s for the float32 kernels 1, 2, 3 and 9, beside their FMA floor,
+   or bytes at 3.35 TB/s); those four also beside the parent's CUDA-core
+   kernels they replaced (built from MMA_SASS_BASE's ``flash_bwd.cu``,
+   ``flash_fwd.cu`` and ``conv_bn.cu``: PARENT_SIMT), and the kernels
    ``torch.profiler`` sees SDPA's float32 backward launch, with its error
    against the plain version;
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
@@ -151,12 +161,12 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    (kernel-route parity at batch 8 within RNN_BF16_TOLS, then their steps
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
-   halves the loss scale); ``tools/sass_diff.py`` (the float32 instances
-   of ``rnn_step.cu``, ``bn_stats.cu`` and
-   ``conv_bn.cu`` against the build of their sources before the bf16
-   instances, kept in SASS_BASE; kernel 1's float32 instance and the
-   sweep's four f32-dot instances against ``flash_fwd.cu`` before its
-   tensor-core bf16 kernel, kept in FWD_SASS_BASE);
+   halves the loss scale); ``tools/sass_diff.py`` (the float32 CUDA-core
+   instances of ``rnn_step.cu``, ``bn_stats.cu`` and ``conv_bn.cu``
+   (kernel 8's) against the build of their sources before the bf16
+   instances, kept in SASS_BASE; the sweep's four f32-dot instances
+   against ``flash_fwd.cu`` before its tensor-core bf16 kernel, kept in
+   FWD_SASS_BASE);
 12. ResNet-50 under ``bf16`` (the bench's precision): after the float32
    conv kernels, the bf16 instances of kernels 7a, 7b, 8 and 9 against
    their plain versions at every shape the bf16 path gives them, batch
@@ -256,15 +266,119 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- kernels
-def flash_phase(dev, gen, flush):
+# kernel 1 at float32 (the 3xTF32 kernel) against its own arithmetic in
+# plain torch, ``_tf32x3_fwd``: each row of O as the backward's rows are
+# held (_tf32_holds: every row within TF32_ROW_TOL of its norm, 99% within
+# TF32_ROW_Q99_TOL), the LSE within FWD_TF32_LSE_TOL of max(1, max |ref|)
+# on the rows that see a key (the others carry the sentinel, below -1e29
+# on both sides); one TF32 product (``terms=1``, a planted fault) must fail
+# the row check
+FWD_TF32_LSE_TOL = 1e-5
+
+
+def _hold_fwd_tf32(fa, what, q, k, v, lens, o, lse, kw, fault=False):
+    """Kernel 1's float32 O and LSE against ``_tf32x3_fwd``; with
+    ``fault`` the planted fault (``terms=1``) too, which must fail.
+    Returns {row_err, row_err_q99, lse_err[, terms_1_row_err,
+    terms_1_row_err_q99]}."""
+    ro, rlse = fa._tf32x3_fwd(q, k, v, lens, **kw)
+    worst, q99, rows_ok = _tf32_holds(o, ro)
+    live = rlse > -1e29
+    el = ((lse - rlse)[live].abs().max().item()
+          / max(1.0, rlse[live].abs().max().item())) if live.any() else 0.0
+    ok = (rows_ok and el <= FWD_TF32_LSE_TOL
+          and bool((lse[~live] < -1e29).all()) and torch.isfinite(o).all()
+          and torch.isfinite(lse[live]).all())
+    if not ok:
+        raise AssertionError(
+            f"{what}: kernel 1 at float32 disagrees with _tf32x3_fwd: O rows "
+            f"largest {worst} (limit {TF32_ROW_TOL}), {BWD_MMA_ROW_Q:.0%} "
+            f"{q99} (limit {TF32_ROW_Q99_TOL}), LSE {el} (limit "
+            f"{FWD_TF32_LSE_TOL})")
+    out = dict(row_err=worst, row_err_q99=q99, lse_err=el)
+    if fault:
+        bad, _ = fa._tf32x3_fwd(q, k, v, lens, terms=1, **kw)
+        bworst, bq99, bok = _tf32_holds(bad, ro)
+        if bok:
+            raise AssertionError(f"{what}: the float32 forward check passes "
+                                 f"the planted fault (one TF32 product): "
+                                 f"{bworst}, {bq99}")
+        out.update(terms_1_row_err=bworst, terms_1_row_err_q99=bq99)
+        del bad
+    print(f"{what} [B {q.shape[0]}, Lq {q.shape[1]}, Lk {k.shape[1]}, H "
+          f"{q.shape[2]}, D {q.shape[3]}, causal {kw['causal']}, q_offset "
+          f"{kw.get('q_offset', 0)}, kv_offset {kw.get('kv_offset', 0)}]: "
+          f"kernel 1 at float32 (3xTF32) against _tf32x3_fwd: O rows "
+          f"(largest, {BWD_MMA_ROW_Q:.0%}) {worst:.3e} {q99:.3e} (limits "
+          f"{TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e}), LSE {el:.3e} (limit "
+          f"{FWD_TF32_LSE_TOL:.0e})" + (
+              f"; planted fault (one TF32 product, terms=1; must fail): O "
+              f"rows {bworst:.3e} {bq99:.3e}" if fault else ""), flush=True)
+    return out
+
+
+def _fwd_f32_work(b, lq, h, d, pairs, kneed):
+    """(flops, bytes) of kernel 1 at float32: two products over the
+    visible (q, k) pairs (``pairs`` of one batch row and head); q and O,
+    the keys the rows need of K and V, the LSE and kv_lens."""
+    return (4.0 * d * h * b * pairs,
+            4.0 * (2 * b * lq * h * d + 2 * b * kneed * h * d + b * h * lq
+                   + b))
+
+
+def _fwd_bounds(flops, nbytes) -> dict:
+    """Kernel 1's float32 bound (three TF32 products for each float32 one
+    at TF32's dense peak) and its FMA floor (67 TFLOP/s)."""
+    b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                fma_bound_ms=bound(flops, nbytes)[0])
+
+
+def _parent_fwd(lib, q, k, v, lens, kw):
+    """One launch of the parent's CUDA-core float32 forward (O, LSE)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.core.config import LOG2E
+
+    b, lq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    err = lib.flash_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, lq, k.shape[1], h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(kw.get("q_offset", 0)), int(kw.get("kv_offset", 0)),
+        int(bool(kw["causal"])), float(kw["scale"] * LOG2E),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "the parent's flash_fwd_f32")
+    return o, lse
+
+
+def flash_phase(dev, gen, flush, parents=None):
+    """Kernel 1 at float32 (the 3xTF32 kernel) at the serving shapes (B 1,
+    the LM's heads, chunks of 8 to 2048 rows over a 4096-key cache) and at
+    D 64 and D 100 (BF16_BWD_CASES' last two): against the plain version
+    within TOL, and per row against ``_tf32x3_fwd`` (``_hold_fwd_tf32``;
+    the planted fault at the 2048-row chunk and the D 64 case); its
+    registers and local memory (a spill fails); each serving case timed
+    beside the plain version and its bounds, the 2048-row chunk also beside
+    SDPA at float32 and, from ``parents``, the parent's CUDA-core
+    forward."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
+    res = fa.fwd_f32_resources()
+    print("flash_fwd float32 (3xTF32) kernel's resources "
+          "(cudaFuncGetAttributes): " + ", ".join(
+              f"{n} {r} registers, {l_} bytes local"
+              for n, (r, l_) in res.items()), flush=True)
+    if any(l_ for _, l_ in res.values()):
+        raise AssertionError(f"the float32 forward spills: {res}")
+    parent = parent_lib(parents, "flash_fwd") if parents else None
     B, LK, D = 1, MAX_LEN, DIM // HEADS
     k = torch.randn(B, LK, HEADS, D, device=dev, generator=gen)
     v = torch.randn(B, LK, HEADS, D, device=dev, generator=gen)
     cases = [(lq, off, None) for lq in (8, 256, 2048) for off in (0, 1000)]
     cases.append((256, 1000, 1100))
-    max_err, timed = 0.0, None
+    max_err, timed, tf32 = 0.0, None, {}
     for lq, off, kv_len in cases:
         q = torch.randn(B, lq, HEADS, D, device=dev, generator=gen)
         lens = torch.full((B,), kv_len or LK, dtype=torch.int32, device=dev)
@@ -280,28 +394,68 @@ def flash_phase(dev, gen, flush):
             raise AssertionError(f"flash_fwd disagrees with its plain "
                                  f"version: {err} > {TOL}")
         max_err = max(max_err, err)
+        rep = (lq, off, kv_len) == (2048, 0, None)
+        tf32[f"Lq {lq} q_offset {off} kv_len {kv_len or LK}"] = (
+            _hold_fwd_tf32(fa, "flash_fwd serving", q, k, v, lens, o, lse,
+                           kw, fault=rep))
         ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw), flush)
         plain_ms = time_ms(lambda: fa._torch_attention(q, k, v, lens, **kw),
                            flush)
         kl = kv_len or LK
         pairs = sum(min(max(off + r + 1, 0), kl) for r in range(lq))
         kneed = min(kl, off + lq)
-        flops = 4.0 * D * HEADS * B * pairs
-        nbytes = 4.0 * (2 * B * lq * HEADS * D + 2 * B * kneed * HEADS * D
-                        + B * HEADS * lq + B)
-        b_ms, b_by = bound(flops, nbytes)
+        bnd = _fwd_bounds(*_fwd_f32_work(B, lq, HEADS, D, pairs, kneed))
         print(f"  ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
-              f"{b_ms:.4f} ({b_by})", flush=True)
-        if (lq, off, kv_len) == (2048, 0, None):
+              f"{bnd['bound_ms']:.4f} ({bnd['bound_by']}, 3xTF32 at the "
+              f"TF32 peak)  fma_bound_ms {bnd['fma_bound_ms']:.4f}",
+              flush=True)
+        if rep:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = time_ms(lambda: torch.nn.functional
                              .scaled_dot_product_attention(
                                  qt, kt, vt, is_causal=True,
                                  scale=D ** -0.5), flush)
-            print(f"  library_ms (scaled_dot_product_attention, causal, "
-                  f"same shapes) {lib_ms:.4f}", flush=True)
+            extra = {}
+            if parent is not None:
+                po, plse = _parent_fwd(parent, q, k, v, lens, kw)
+                torch.cuda.synchronize()
+                extra = dict(
+                    parent_simt_ms=time_ms(lambda: _parent_fwd(
+                        parent, q, k, v, lens, kw), flush),
+                    parent_simt_err=max((po - ro).abs().max().item(),
+                                        (plse - rlse).abs().max().item()))
+            print(f"  library_ms (scaled_dot_product_attention at float32, "
+                  f"causal, same shapes) {lib_ms:.4f}" + (
+                      f"  parent_simt_ms {extra['parent_simt_ms']:.4f} (the "
+                      f"parent's CUDA-core forward, max|err| "
+                      f"{extra['parent_simt_err']:.3e})" if extra else ""),
+                  flush=True)
+            regs, local = res[f"fwd_d{D}"]
             timed = dict(lq=lq, q_offset=off, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                         library_ms=lib_ms, registers=regs,
+                         local_bytes=local, **bnd, **extra)
+        del o, lse, ro, rlse
+    # the other head tile (D 64) and a head narrower than its tile (D 100)
+    for name, b, lq, lk, h, d, causal, lens_, qo, ko, _ in BF16_BWD_CASES[-2:]:
+        q, k_, v_ = (torch.randn(b, n, h, d, device=dev, generator=gen)
+                     for n in (lq, lk, lk))
+        lens = torch.tensor(lens_ or [lk] * b, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, kv_offset=ko)
+        o, lse = fa.flash_fwd_cuda(q, k_, v_, lens, **kw)
+        ro, rlse = fa._torch_attention(q, k_, v_, lens, return_lse=True,
+                                       **kw)
+        torch.cuda.synchronize()
+        err = max((o - ro).abs().max().item(),
+                  (lse - rlse).abs().max().item())
+        if not err <= TOL:
+            raise AssertionError(f"flash_fwd {name} disagrees with its "
+                                 f"plain version: {err} > {TOL}")
+        max_err = max(max_err, err)
+        tf32[name] = _hold_fwd_tf32(fa, f"flash_fwd {name}", q, k_, v_, lens,
+                                    o, lse, kw, fault=name == "D 64")
+        tf32[name]["plain_max_abs_err"] = err
+    timed["tf32"] = tf32
+    timed["resources"] = res
     return max_err, timed
 
 
@@ -424,43 +578,54 @@ def _attn_grads(fa, q, k, v, lens, go, gl, kw, impl):
 # reads at [2, 256, 2, 128]: 3xTF32 against a float64 backward, 99% of the
 # rows within 2^-19, and one TF32 product (terms=1) past 2^-12.
 TF32_ROW_TOL, TF32_ROW_Q99_TOL = 2.0 ** -7, 2.0 ** -16
-# the parent's float32 backward pair (the CUDA-core kernels the 3xTF32 ones
-# replace), timed beside them: MMA_SASS_BASE's flash_bwd.cu, whose float32
-# instances are the parent's source and were pinned to the same machine
-# code (sass_phase) until they went, built as ops/_build builds a source
-SIMT_PAIR_SO = "parent_simt_flash_bwd.so"
+# the CUDA-core float32 kernels the 3xTF32 ones replaced, timed beside them:
+# MMA_SASS_BASE's flash_bwd.cu (the backward pair, replaced in PR 12),
+# flash_fwd.cu (kernel 1's float32 instance) and conv_bn.cu (kernel 9's),
+# whose float32 instances are the SIMT kernels as they last ran and were
+# pinned to the same machine code (sass_phase) until they went, each built
+# as ops/_build builds a source
+PARENT_SIMT = {"flash_bwd": ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32"),
+               "flash_fwd": ("flash_fwd_f32",),
+               "conv_bn": ("conv3x3_stats_f32",)}
 
 
-def start_simt_pair_build():
-    """Start ``nvcc`` on the parent's SIMT pair: (the process, its .so)."""
+def start_parent_builds() -> dict:
+    """Start ``nvcc`` on each PARENT_SIMT source: {name: (the process, its
+    .so)}."""
     import os
 
     from paddle_tpu_torch.ops import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    so = os.path.join(_build.BUILD_DIR, SIMT_PAIR_SO)
-    proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-         os.path.join(MMA_SASS_BASE, "flash_bwd.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, so
+    builds = {}
+    for name in PARENT_SIMT:
+        so = os.path.join(_build.BUILD_DIR, f"parent_simt_{name}.so")
+        builds[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(MMA_SASS_BASE, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return builds
 
 
-def simt_pair(build):
-    """The loaded library of ``start_simt_pair_build``'s build, its two
+def parent_lib(builds, name):
+    """The loaded library of ``start_parent_builds``' build of ``name``, its
     float32 entries typed as the port's."""
     import ctypes
 
+    from paddle_tpu_torch.ops import conv_bn as cb
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    proc, so = build
-    log, _ = proc.communicate()
+    proc, so = builds[name]
+    if proc.returncode is None:
+        proc.log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the parent's SIMT pair:\n{log}")
+        raise RuntimeError(f"nvcc failed for the parent's {name}:\n"
+                           f"{proc.log}")
+    sigs = {**fa._SIGNATURES, **fa._BWD_SIGNATURES, **cb._SIGNATURES}
     lib = ctypes.CDLL(so)
-    for name in ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32"):
-        entry = getattr(lib, name)
-        entry.argtypes = list(fa._BWD_SIGNATURES[name])
+    for entry_name in PARENT_SIMT[name]:
+        entry = getattr(lib, entry_name)
+        entry.argtypes = list(sigs[entry_name])
         entry.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
@@ -510,15 +675,16 @@ def _sdpa_kernels(sdpa, qt, go_t, scale) -> list:
                   key=lambda x: -x[2])
 
 
-def flash_bwd_phase(dev, gen, flush, simt_build=None):
+def flash_bwd_phase(dev, gen, flush, parents=None):
     """Hold the backward kernels against autograd through the plain
-    attention; at the training shape hold the float32 (3xTF32) kernels
-    per row against ``_tf32x3_bwd`` and show that one TF32 product
-    (``terms=1``) fails that check; read their registers (a spill fails);
-    then time forward, dK/dV and dQ at the training shape beside the plain
-    version, the library call (whose backward kernels ``torch.profiler``
-    names, and whose error against the plain version is printed), both
-    bounds and, from ``simt_build``, the parent's SIMT pair."""
+    attention; at the training shape hold the float32 (3xTF32) forward
+    per row against ``_tf32x3_fwd`` and the backward kernels against
+    ``_tf32x3_bwd``, and show that one TF32 product (``terms=1``) fails
+    those checks; read their registers (a spill fails); then time forward,
+    dK/dV and dQ at the training shape beside the plain version, the
+    library call (whose backward kernels ``torch.profiler`` names, and
+    whose error against the plain version is printed), both bounds and,
+    from ``parents``, the parent's CUDA-core kernels."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     D = DIM // HEADS
@@ -574,6 +740,8 @@ def flash_bwd_phase(dev, gen, flush, simt_build=None):
     lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     kw = dict(causal=True, scale=D ** -0.5)
     o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    fwd_tf32 = _hold_fwd_tf32(fa, "flash_fwd training shape", q, k, v, lens,
+                              o, lse, kw, fault=True)
     delta = (go * o).sum(-1).transpose(1, 2).contiguous()
 
     # the 3xTF32 kernels against their own arithmetic, per row, and one
@@ -636,8 +804,11 @@ def flash_bwd_phase(dev, gen, flush, simt_build=None):
          "dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
              q, k, v, go, lse, delta, lens, **kw), flush)}
     simt = {}
-    if simt_build is not None:
-        lib = simt_pair(simt_build)
+    if parents is not None:
+        plib = parent_lib(parents, "flash_fwd")
+        simt["fwd_ms"] = time_ms(lambda: _parent_fwd(plib, q, k, v, lens, kw),
+                                 flush)
+        lib = parent_lib(parents, "flash_bwd")
         sgot = (*_simt_call(lib, fa, "dq", q, k, v, go, lse, delta, lens, kw),
                 *_simt_call(lib, fa, "dkdv", q, k, v, go, lse, delta, lens,
                             kw))
@@ -694,49 +865,47 @@ def flash_bwd_phase(dev, gen, flush, simt_build=None):
     work = {"fwd": (4.0 * D * pairs, 4 * row + vec + 4 * B),
             "dkdv": (8.0 * D * pairs, 6 * row + 2 * vec + 4 * B),
             "dq": (6.0 * D * pairs, 5 * row + 2 * vec + 4 * B)}
-    bounds = {"fwd": bound(*work["fwd"])}
-    for name in ("dkdv", "dq"):
-        # three TF32 products for each float32 one at TF32's dense peak
-        bounds[name] = bound(3 * work[name][0], work[name][1],
-                             PEAK_TF32_FLOPS)
+    # three TF32 products for each float32 one at TF32's dense peak
+    bounds = {name: bound(3 * work[name][0], work[name][1], PEAK_TF32_FLOPS)
+              for name in ("fwd", "dkdv", "dq")}
+    res["fwd_d128"], res["fwd_d64"] = (fa.fwd_f32_resources()[f"fwd_d{dt}"]
+                                       for dt in (128, 64))
     for name in ("fwd", "dkdv", "dq"):
         plain_n, lib = (("plain_fwd", "lib_fwd") if name == "fwd"
                         else ("plain_bwd", "lib_bwd"))
-        extra = ""
-        if name != "fwd":
-            regs, local = res[f"{name}_d{D}"]
-            extra = (f"  fma_bound_ms {bound(*work[name])[0]:.4f}"
-                     + (f"  parent_simt_ms {simt[name + '_ms']:.4f}"
-                        if simt else "")
-                     + f"; {regs} registers, {local} bytes local")
+        regs, local = res[f"{name}_d{D}"]
+        extra = (f"  fma_bound_ms {bound(*work[name])[0]:.4f}"
+                 + (f"  parent_simt_ms {simt[name + '_ms']:.4f}"
+                    if simt else "")
+                 + f"; {regs} registers, {local} bytes local")
         print(f"flash {name} at [{B}, {T}, {HEADS}, {D}] causal: ms "
               f"{t[name]:.4f}  bound_ms {bounds[name][0]:.4f} "
-              f"({bounds[name][1]}"
-              f"{'' if name == 'fwd' else ', 3xTF32 at the TF32 peak'})  "
+              f"({bounds[name][1]}, 3xTF32 at the TF32 peak)  "
               f"plain_ms {t[plain_n]:.4f}  library_ms "
               f"(scaled_dot_product_attention "
               f"{'forward' if name == 'fwd' else 'backward'}) "
               f"{t[lib]:.4f}" + extra, flush=True)
 
     def entry(name, plain_n, lib, err=None):
+        regs, local = res[f"{name}_d{D}"]
         d = dict(ms=t[name], plain_ms=t[plain_n], bound_ms=bounds[name][0],
-                 bound_by=bounds[name][1], library_ms=t[lib])
+                 bound_by=bounds[name][1], library_ms=t[lib],
+                 fma_bound_ms=bound(*work[name])[0], registers=regs,
+                 local_bytes=local)
+        if simt:
+            d["parent_simt_ms"] = simt[name + "_ms"]
         if err is not None:
-            regs, local = res[f"{name}_d{D}"]
             gs = ("dq",) if name == "dq" else ("dk", "dv")
             d.update(max_abs_err=err[0], max_rel_err=err[1],
-                     fma_bound_ms=bound(*work[name])[0],
                      row_err=max(tf32["kernels"][g]["row_err"] for g in gs),
                      row_err_q99=max(tf32["kernels"][g]["row_err_q99"]
-                                     for g in gs),
-                     registers=regs, local_bytes=local)
-            if simt:
-                d["parent_simt_ms"] = simt[name + "_ms"]
+                                     for g in gs))
         return d
 
     return {"shape": {"B": B, "Lq": T, "Lk": T, "H": HEADS, "D": D,
                       "causal": True},
-            "fwd": entry("fwd", "plain_fwd", "lib_fwd"),
+            "fwd": dict(entry("fwd", "plain_fwd", "lib_fwd"),
+                        tf32=fwd_tf32),
             "dkdv": entry("dkdv", "plain_bwd", "lib_bwd", errs["dkdv"]),
             "dq": entry("dq", "plain_bwd", "lib_bwd", errs["dq"]),
             "tf32": tf32, "resources": res, "parent_simt": simt,
@@ -2735,8 +2904,9 @@ def mixed_skip_phase(dev):
 
 # the float32 instances the bf16 templates must leave alone:
 # (source, the kernel's name in the earlier build, in the new one).  The
-# float32 flash backward pair was pinned here until the 3xTF32 kernels
-# replaced it.
+# float32 flash backward pair and kernel 9's float32 instance
+# (gemm_stats_kernel<Conv3x3A<float>>) were pinned here until the 3xTF32
+# kernels replaced them.
 SASS_KERNELS = (
     ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
     ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
@@ -2748,10 +2918,6 @@ SASS_KERNELS = (
      "gemm_stats_kernelINS_6DenseAIfEELb1E"),
     ("conv_bn.cu", "gemm_stats_kernelINS_6DenseAELb0E",
      "gemm_stats_kernelINS_6DenseAIfEELb0E"),
-    ("conv_bn.cu", "gemm_stats_kernelINS_8Conv3x3AELb1E",
-     "gemm_stats_kernelINS_8Conv3x3AIfEELb1E"),
-    ("conv_bn.cu", "gemm_stats_kernelINS_8Conv3x3AELb0E",
-     "gemm_stats_kernelINS_8Conv3x3AIfEELb0E"),
 )
 # their sources as of the last revision before the bf16 instances
 # (SASS_BASE_REV; bn_stats.cu, conv_bn.cu and stat_reduce.cuh are the same
@@ -2766,14 +2932,14 @@ SASS_BASE_BLOBS = {
     "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
     "stat_reduce.cuh": "cbe135e3f7369ea805b038fccfe2ea71076bcf06",
 }
-# kernel 1's float32 instance and the forward sweep's f32-dot bf16
-# instances, which kernel 1's tensor-core bf16 kernel must leave alone:
-# their sources as of the revision before it (FWD_SASS_BASE_REV, whose
-# flash_common.cuh is newer than SASS_BASE's), in a folder of their own,
-# pinned the same way
+# the forward sweep's f32-dot bf16 instances, which kernel 1's tensor-core
+# kernels must leave alone: their sources as of the revision before the
+# bf16 one (FWD_SASS_BASE_REV, whose flash_common.cuh is newer than
+# SASS_BASE's), in a folder of their own, pinned the same way.  Kernel 1's
+# float32 instance of the same template (flash_fwd_kernel<float, true,
+# false>) was pinned here until the 3xTF32 kernel replaced it.
 FWD_SASS_KERNELS = tuple(
     ("flash_fwd.cu", name, name) for name in (
-        "flash_fwd_kernelIfLb1ELb0E",
         "flash_fwd_kernelI13__nv_bfloat16Lb1ELb0E",
         "flash_fwd_kernelI13__nv_bfloat16Lb1ELb1E",
         "flash_fwd_kernelI13__nv_bfloat16Lb0ELb0E",
@@ -2993,7 +3159,61 @@ def _bf16_boundary(x2, w, gen, rows_per_channel=16):
     return x2, b, rows
 
 
-def conv_phase(dev, gen, flush, dtype=torch.float32):
+def _hold_conv_tf32(cb, what, x4, w4, got, fault=False):
+    """Kernel 9's float32 (y, s, ss) against ``_tf32x3_conv3x3_stats``: each
+    row (output pixel) of y as ``_tf32_holds`` holds the flash kernels'
+    rows, s and ss within TOL of max(1, max |ref|); with ``fault`` the
+    planted fault (``terms=1``, one TF32 product), which must fail the row
+    check.  Returns {row_err, row_err_q99, stat_err[, terms_1_...]}."""
+    co = w4.shape[-1]
+    ref = cb._tf32x3_conv3x3_stats(x4, w4)
+    worst, q99, ok = _tf32_holds(got[0].reshape(-1, co), ref[0].reshape(-1, co))
+    stat = max(_rel_err(g, r) for g, r in zip(got[1:], ref[1:]))
+    if not (ok and stat <= TOL):
+        raise AssertionError(f"{what}: kernel 9 at float32 disagrees with "
+                             f"_tf32x3_conv3x3_stats: y rows largest {worst}, "
+                             f"{BWD_MMA_ROW_Q:.0%} {q99} (limits "
+                             f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL}), "
+                             f"statistics {stat} (limit {TOL})")
+    out = dict(row_err=worst, row_err_q99=q99, stat_err=stat)
+    if fault:
+        bad = cb._tf32x3_conv3x3_stats(x4, w4, terms=1)[0]
+        bworst, bq99, bok = _tf32_holds(bad.reshape(-1, co),
+                                        ref[0].reshape(-1, co))
+        if bok:
+            raise AssertionError(f"{what}: the float32 conv check passes the "
+                                 f"planted fault (one TF32 product): "
+                                 f"{bworst}, {bq99}")
+        out.update(terms_1_row_err=bworst, terms_1_row_err_q99=bq99)
+        del bad
+    print(f"{what}: kernel 9 at float32 (3xTF32) against "
+          f"_tf32x3_conv3x3_stats: y rows (largest, {BWD_MMA_ROW_Q:.0%}) "
+          f"{worst:.3e} {q99:.3e} (limits {TF32_ROW_TOL:.3e}, "
+          f"{TF32_ROW_Q99_TOL:.3e}), statistics {stat:.3e}" + (
+              f"; planted fault (one TF32 product, terms=1; must fail): y "
+              f"rows {bworst:.3e} {bq99:.3e}" if fault else ""), flush=True)
+    del ref
+    return out
+
+
+def _parent_conv3x3(lib, x4, w4):
+    """One call of the parent's CUDA-core float32 kernel 9 (y, s, ss)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import conv_bn as cb
+
+    n, h, w, ci = x4.shape
+    co = w4.shape[-1]
+    y, s, ss, part = cb._outputs(n * h * w, co, (n, h, w, co), x4.device,
+                                 x4.dtype)
+    err = lib.conv3x3_stats_f32(
+        x4.data_ptr(), w4.data_ptr(), n, h, w, ci, co,
+        cb._vec(ci, co, x4, w4, y), y.data_ptr(), part.data_ptr(),
+        s.data_ptr(), ss.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "the parent's conv3x3_stats_f32")
+    return y, s, ss
+
+
+def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     """Kernels 7a, 7b, 8 and 9 on ``dtype`` operands (float32, or the bf16
     or float16 instances, "bf16" below for either) against their plain
     versions, at every distinct shape ResNet-50 gives them on its main
@@ -3010,7 +3230,12 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     float32 fold on activations placed where it and the bf16 fold
     disagree, and 16 input channels of one of 9's taps (one 16-deep
     k-step of its tensor-core product); 8's and 9's bf16 kernels'
-    registers and local memory by copy width (a spill fails).  Then each
+    registers and local memory by copy width (a spill fails).  At float32
+    kernel 9 (3xTF32) also per row against ``_tf32x3_conv3x3_stats``
+    (``_hold_conv_tf32``, one TF32 product shown to fail at res2), its
+    registers and local memory, and each shape timed beside its bound at
+    three TF32 products a float32 one, the FMA floor and, from ``parents``,
+    the parent's CUDA-core instance.  Then each
     shape's device time (``time_ms(lead=True)``) beside its bound (the
     operands' bytes, the operations at the card's peak for their type; at
     bf16 also ``fma_bound_ms``, the floor at the 67 TFLOP/s of the float32
@@ -3059,6 +3284,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
     errs = {k: (0.0, 0.0) for k in CONV_KERNELS}   # (max abs, max rel)
     rows_err = {"matmul_stats": 0.0, "conv3x3_stats": 0.0}
     faults = {}
+    conv_tf32 = {}          # kernel 9 at float32 against its arithmetic
 
     def note(k, e):
         errs[k] = (max(errs[k][0], e[0]), max(errs[k][1], e[1]))
@@ -3198,8 +3424,14 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
         x4 = randn(n, h, w_, ci).to(dtype)
         w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
         ref = cb._conv3x3_stats_ref(x4, w4)
+        got = cb.conv3x3_stats_cuda(x4, w4)
         hold_conv("conv3x3_stats", f"conv3x3_stats{sfx} "
-                  f"{(n, h, w_, ci, co)}", cb.conv3x3_stats_cuda(x4, w4), ref)
+                  f"{(n, h, w_, ci, co)}", got, ref)
+        if not bf16:
+            conv_tf32[(n, h, w_, ci, co)] = _hold_conv_tf32(
+                cb, f"conv3x3_stats {(n, h, w_, ci, co)}", x4, w4, got,
+                fault=[n, h, w_, ci, co] == rep["conv3x3_stats"])
+        del got
         if bf16 and [n, h, w_, ci, co] == rep["conv3x3_stats"]:
             faults["conv3x3_stats"] = {}
             # one of the nine taps left out; one 16-deep k-step of the
@@ -3252,6 +3484,16 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                   for k, e in faults.items())
               + ", each failing the check") if bf16 else ""), flush=True)
     mma_res = None
+    if not bf16:
+        tf32_res = cb.conv_tf32_resources()
+        print("conv3x3_stats float32 (3xTF32) kernel's resources "
+              "(cudaFuncGetAttributes, by copy width): " + ", ".join(
+                  f"{n} {r} registers, {l_} bytes local"
+                  for n, (r, l_) in tf32_res.items()), flush=True)
+        if any(l_ for _, l_ in tf32_res.values()):
+            raise AssertionError(f"kernel 9's float32 kernel spills: "
+                                 f"{tf32_res}")
+        parent = parent_lib(parents, "conv_bn") if parents else None
     if bf16:
         mma_res = cb.conv_mma_resources(dtype)
         print(f"matmul_stats and conv3x3_stats {tag} tensor-core kernels' "
@@ -3315,6 +3557,28 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
             w4 = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
             xn, wn = x4.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
             p = n * h * w_
+            prod = 2.0 * p * 9 * ci * co
+            flops = prod + 3.0 * p * co
+            nbytes = es * (p * ci + 9 * ci * co + p * co) + 4.0 * 2 * co
+            if bf16:
+                bnd = bounds(flops, nbytes, fma=False)
+            else:
+                # the product as three TF32 products at TF32's dense peak
+                # (the statistics' adds, 0.3% of the work, run beside it
+                # on the CUDA cores), beside the float32 FMA floor; the
+                # parent's CUDA-core instance timed on the same inputs
+                b_ms, b_by = bound(3 * prod, nbytes, PEAK_TF32_FLOPS)
+                bnd = dict(bound_ms=b_ms, bound_by=b_by,
+                           fma_bound_ms=bound(flops, nbytes)[0])
+                if parent is not None:
+                    if [n, h, w_, ci, co] == rep["conv3x3_stats"]:
+                        _hold("the parent's conv3x3_stats_f32",
+                              zip(("y", "s", "ss"),
+                                  _parent_conv3x3(parent, x4, w4),
+                                  cb._conv3x3_stats_ref(x4, w4)))
+                    bnd["parent_simt_ms"] = time_ms(
+                        lambda: _parent_conv3x3(parent, x4, w4), flush,
+                        lead=True)
             rows_out["conv3x3_stats"].append(dict(
                 shape=[n, h, w_, ci, co], count=count,
                 ms=time_ms(lambda: cb.conv3x3_stats_cuda(x4, w4), flush,
@@ -3323,9 +3587,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                                  flush, lead=True),
                 library_ms=time_ms(lambda: F.conv2d(xn, wn, padding=1),
                                    flush, lead=True),
-                **bounds(2.0 * p * 9 * ci * co + 3.0 * p * co,
-                         es * (p * ci + 9 * ci * co + p * co)
-                         + 4.0 * 2 * co, fma=False)))
+                **bnd))
             del x4, w4, xn, wn
     torch.cuda.empty_cache()
     on = f" on {tag}" if bf16 else ""
@@ -3338,24 +3600,35 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
                "conv3x3_stats": (f"{tag} F.conv2d alone (tensor cores)"
                                  if bf16 else
                                  "F.conv2d alone (the conv's floor)")}
+    if not bf16:
+        library["conv3x3_stats"] = ("F.conv2d alone at float32, TF32 off "
+                                    "(the conv's floor)")
     out = {}
     for k, rows in rows_out.items():
-        sums = ("ms", "bound_ms", "plain_ms", "library_ms") + (
-            ("fma_bound_ms",) if "fma_bound_ms" in rows[0] else ())
+        sums = ("ms", "bound_ms", "plain_ms", "library_ms") + tuple(
+            f for f in ("fma_bound_ms", "parent_simt_ms") if f in rows[0])
+        tf32_k = not bf16 and k == "conv3x3_stats"
         for r in rows:
             print(f"{k}{sfx} {r['shape']} x{r['count']} a step: ms "
                   f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
-                  f"({r['bound_by']})"
+                  f"({r['bound_by']}"
+                  + (", 3xTF32 at the TF32 peak" if tf32_k else "") + ")"
                   + (f"  fma_bound_ms {r['fma_bound_ms']:.4f}"
                      if "fma_bound_ms" in r else "")
                   + f"  plain_ms {r['plain_ms']:.4f}  library_ms "
-                  f"{r['library_ms']:.4f} ({library[k]})", flush=True)
+                  f"{r['library_ms']:.4f} ({library[k]})"
+                  + (f"  parent_simt_ms {r['parent_simt_ms']:.4f} (the "
+                     f"parent's CUDA-core instance)"
+                     if "parent_simt_ms" in r else ""), flush=True)
         main = next(r for r in rows if r["shape"] == rep[k])
         step = {f: sum(r[f] * r["count"] for r in rows) for f in sums}
         print(f"{k}{sfx}: one batch-{batch} step's {counts[k]} launches sum "
               f"to ms {step['ms']:.3f}, bound {step['bound_ms']:.3f}, plain "
-              f"{step['plain_ms']:.3f}, library {step['library_ms']:.3f}",
-              flush=True)
+              f"{step['plain_ms']:.3f}, library {step['library_ms']:.3f}"
+              + (f", FMA floor {step['fma_bound_ms']:.3f}"
+                 if "fma_bound_ms" in step else "")
+              + (f", the parent's {step['parent_simt_ms']:.3f}"
+                 if "parent_simt_ms" in step else ""), flush=True)
         out[k] = dict({f: main[f] for f in sums}, bound_by=main["bound_by"],
                       library=library[k], max_abs_err=errs[k][0],
                       max_rel_err=errs[k][1], shape=main["shape"],
@@ -3364,6 +3637,12 @@ def conv_phase(dev, gen, flush, dtype=torch.float32):
             out[k]["y_row_err"] = rows_err[k]
         if k in faults:
             out[k]["planted_fault"] = faults[k]
+    if not bf16:
+        regs, local = tf32_res["conv3x3_w4"]
+        out["conv3x3_stats"].update(registers=regs, local_bytes=local,
+                                    resources=tf32_res, tf32={
+                                        str(list(sh)): e for sh, e in
+                                        conv_tf32.items()})
     if mma_res is not None:
         for k, name in (("matmul_stats", "matmul"),
                         ("conv3x3_stats", "conv3x3")):
@@ -3926,7 +4205,7 @@ def main() -> int:
           torch.cuda.get_device_name(0), flush=True)
 
     t0 = time.perf_counter()
-    simt_build = start_simt_pair_build()    # beside the port's own builds
+    parents = start_parent_builds()    # beside the port's own builds
     logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
                          "rnn_step", "bn_stats", "conv_bn", "flash_variants"])
     print(f"built {len(logs)} kernel sources in "
@@ -3941,15 +4220,15 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
-    flash_err, flash_t = flash_phase(dev, gen, flush)
+    flash_err, flash_t = flash_phase(dev, gen, flush, parents)
     paged_err, paged_t = paged_phase(dev, gen, flush)
-    bwd = flash_bwd_phase(dev, gen, flush, simt_build)
+    bwd = flash_bwd_phase(dev, gen, flush, parents)
     bwd16 = flash_bwd_bf16_phase(dev, gen, flush)
     bwd_f16 = flash_bwd_bf16_phase(dev, gen, flush, torch.float16)
     rnn = rnn_phase(dev, gen, flush)
     rnn16 = rnn_bf16_phase(dev, gen, flush)
     rnn_f16 = rnn_bf16_phase(dev, gen, flush, torch.float16)
-    conv = conv_phase(dev, gen, flush)
+    conv = conv_phase(dev, gen, flush, parents=parents)
     conv16 = conv_phase(dev, gen, flush, torch.bfloat16)
     conv_f16 = conv_phase(dev, gen, flush, torch.float16)
     var = variants_phase(dev, gen, flush)

@@ -30,7 +30,10 @@ and runs the products on operands of that dtype, so dx and dw come back
 in x's and w's.  The CUDA kernels have an instance for each: float32,
 bf16 or float16 operands.  The bf16 and float16 instances of both
 kernels run on the tensor cores (16-bit products accumulated in float32:
-the same y up to the order of the sums), the float32 ones on the CUDA
+the same y up to the order of the sums); kernel 9's float32 instance runs
+there too, as split TF32 (3xTF32: every product three TF32 products of
+the operands' hi and lo parts, within 3 * 2^-22 of |a||b|,
+``_tf32x3_conv3x3_stats`` in plain torch), and kernel 8's on the CUDA
 cores' float32 FMAs.
 """
 
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import count_launch
+from paddle_tpu_torch.ops.flash_attention import _tf32x3, count_launch
 from paddle_tpu_torch.ops.fused_bn import (_F32, KERNEL_DTYPES,
                                            check_operand, on_card, resolve)
 
@@ -71,6 +74,26 @@ def _conv3x3_stats_ref(x4, w4):
     return y.to(x4.dtype), y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))
 
 
+def _tf32x3_conv3x3_stats(x4, w4, terms: int = 3):
+    """The arithmetic of kernel 9's float32 instance (the 3xTF32
+    ``conv3x3_tf32_stats_kernel`` of ``csrc/conv_bn.cu``) in plain torch:
+    y = the im2col patches of float32 x4 [N, H, W, Ci] (3x3, SAME, column
+    (dh * 3 + dw) * Ci + ci, zeros outside the image) times w4 [3, 3, Ci,
+    Co] read as [9 Ci, Co], the product as ``_tf32x3``; the sums of y and
+    y^2 per channel from that unrounded y.  Never on the kernel route: the
+    tests hold it against the JAX package, ``chip_smoke.py`` the kernel
+    against it.  ``terms=1`` takes the product as one TF32 product (hi .
+    hi): a planted fault, which the checks must catch."""
+    n, h, w, ci = x4.shape
+    co = w4.shape[-1]
+    xp = F.pad(x4.float(), (0, 0, 1, 1, 1, 1))
+    patches = torch.cat([xp[:, dh:dh + h, dw:dw + w] for dh in range(3)
+                         for dw in range(3)], dim=-1)
+    y = _tf32x3("pk,kc->pc", patches.reshape(n * h * w, 9 * ci),
+                w4.float().reshape(9 * ci, co), terms)
+    return y.reshape(n, h, w, co), y.sum(dim=0), (y * y).sum(dim=0)
+
+
 # ------------------------------------------------------------------ kernels
 _SIGNATURES = {
     **{f"matmul_stats_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
@@ -79,6 +102,8 @@ _SIGNATURES = {
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
     "conv_mma_resources": [ctypes.c_int] * 3
                           + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "conv_tf32_resources": [ctypes.c_int]
+                           + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 # the 16-bit instances: elements a copy, for _vec(wide=True) = 2, 1, 0
 CONV_MMA_WIDTHS = (8, 4, 1)
@@ -111,12 +136,21 @@ def _vec(ci, co, *tensors, wide: bool = False) -> int:
     return int(fits(4))
 
 
-def _outputs(rows, co, shape, device, dtype):
+def _outputs(rows, co, shape, device, dtype, extra: int = 0):
+    """y, the two sums and the kernels' scratch: the [2, R, Co] partial
+    statistics and ``extra`` floats after them."""
     y = torch.empty(shape, device=device, dtype=dtype)
     s = torch.zeros(co, device=device)
     ss = torch.zeros(co, device=device)
-    part = torch.empty(2, -(-rows // _BM), co, device=device)
+    part = torch.empty(2 * -(-rows // _BM) * co + extra, device=device)
     return y, s, ss, part
+
+
+def _w_planes_floats(ci, co) -> int:
+    """Scratch of kernel 9's float32 instance after its partial statistics:
+    up to 3 floats to a 16-byte boundary, then w's two TF32 planes [9,
+    Co rounded up to 64, Ci rounded up to 32]."""
+    return 4 + 2 * 9 * (-(-co // 64) * 64) * (-(-ci // 32) * 32)
 
 
 def matmul_stats_cuda(x2, w2):
@@ -156,17 +190,23 @@ matmul_stats_cuda.launches_f16 = 0
 def conv3x3_stats_cuda(x4, w4):
     """Kernel 9: the 3x3 stride-1 SAME conv of x4 [N, H, W, Ci] with w4
     [3, 3, Ci, Co] (both float32, bf16 or float16; y in their dtype),
-    with sum y and sum y^2 per channel, float32.  float32 runs the
-    CUDA-core tile, bf16 and float16 the tensor-core kernel, copying 16
-    bytes, 8 or one element at a time as ``_vec(wide=True)`` finds.  Two
-    launches (three at 16 bits), counted as one."""
+    with sum y and sum y^2 per channel, float32.  float32 runs the 3xTF32
+    tensor-core kernel (``_tf32x3_conv3x3_stats``' arithmetic), copying 16
+    bytes or one float at a time as ``_vec`` finds; bf16 and float16 the
+    16-bit tensor-core kernel, copying 16 bytes, 8 or one element at a
+    time as ``_vec(wide=True)`` finds.  Three launches (the product with
+    its partial statistics, then their fixed-order sum over chunks of rows
+    and over the chunks; at float32 a fourth first, which splits w into
+    TF32 planes in the scratch after the partials), counted as one."""
     n, h, w, ci = x4.shape
     co = w4.shape[-1]
     dev = x4.device
     _check("x", x4, dev, (n, h, w, ci))
     _check("w", w4, dev, (3, 3, ci, co), dtypes=(x4.dtype,))
     on_card(x4)
-    y, s, ss, part = _outputs(n * h * w, co, (n, h, w, co), dev, x4.dtype)
+    y, s, ss, part = _outputs(
+        n * h * w, co, (n, h, w, co), dev, x4.dtype,
+        _w_planes_floats(ci, co) if x4.dtype == _F32 else 0)
     if y.numel() == 0:
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
@@ -196,6 +236,16 @@ def conv_mma_resources(dtype=torch.bfloat16) -> dict:
         lib, lib.conv_mma_resources, taps, width, half)
         for name, taps in CONV_MMA_TAPS.items()
         for width in CONV_MMA_WIDTHS}
+
+
+def conv_tf32_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of kernel 9's float32 (3xTF32) kernel
+    at each copy width, from ``cudaFuncGetAttributes``: ``{"conv3x3_w4":
+    (regs, local_bytes), "conv3x3_w1": ...}``.  Needs a card."""
+    lib = _build.load("conv_bn", _SIGNATURES)
+    return {f"conv3x3_w{width}": _build.resources(
+        lib, lib.conv_tf32_resources, width) for width in (4, 1)}
 
 
 def _dy_eff(dy, ds, dss, y, dtype):

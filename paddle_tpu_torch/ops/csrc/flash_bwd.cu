@@ -31,8 +31,8 @@
 // which ran every product as float32 FMAs at 67 TFLOP/s).  Every product is
 // three mma.sync m16n8k8 TF32 products with float32 accumulation, lo.hi +
 // hi.lo + hi.hi of each operand's split x = hi + lo (mma_tf32.cuh: hi =
-// cvt.rna.tf32.f32(x), lo = cvt.rna.tf32.f32(x - hi)), which keeps each
-// product within 3 * 2^-22 of its magnitude where one TF32 product keeps
+// rna(x), lo = rna(x - hi), rounded as cvt.rna.tf32.f32 rounds), which
+// keeps each product within 3 * 2^-22 of its magnitude where one TF32 product keeps
 // 2^-10.  The bound is three products at TF32's 495 TFLOP/s, 165 TFLOP/s
 // of float32 work: 1.666 ms for dK/dV and 1.250 for dQ at the LM shape,
 // where float32 FMAs take 4.104 and 3.078.  P = exp2(s * scale * log2e -

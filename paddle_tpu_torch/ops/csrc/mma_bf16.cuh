@@ -1,11 +1,13 @@
 // The warp-level 16-bit tensor-core building blocks that the hand-written
 // kernels share (flash_variants.cu, the forward sweep; flash_fwd.cu,
-// flash_bwd.cu and conv_bn.cu at bf16 and float16): cp.async copies into
-// shared memory, ldmatrix (plain and transposed) fragment loads, which
-// move 16-bit lanes whatever their type, mma.sync m16n8k16 bf16 or f16 ->
-// float32, and the packing of two floats into a bf16 or f16 pair, which
-// re-packs a float32 accumulator as the A operand of the next product in
-// registers.  Elem16<E> selects the product and the packing by element
+// flash_bwd.cu and conv_bn.cu at bf16 and float16; the copies also serve
+// the float32 kernels): cp.async copies into shared memory (with a
+// zero-filling form at an immediate offset, and the compile-time loop that
+// unrolls a thread's copies), ldmatrix (plain and transposed) fragment
+// loads, which move 16-bit lanes whatever their type, mma.sync m16n8k16
+// bf16 or f16 -> float32, and the packing of two floats into a bf16 or f16
+// pair, which re-packs a float32 accumulator as the A operand of the next
+// product in registers.  Elem16<E> selects the product and the packing by element
 // type, so one kernel template serves both.  PTX for sm_80 and later;
 // every build here targets sm_90a.
 
@@ -15,6 +17,9 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace mma {
 
@@ -140,6 +145,43 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                    smem_u32(smem)),
                "l"(gmem)
                : "memory");
+}
+
+// kBytes (16, 8 or 4) from src to the shared address smem + kOff, or zeros
+// where !ok (a source size of 0 reads nothing; src must still be a valid
+// address).  The immediate offset lets one base address serve a thread's
+// rows.
+template <int kBytes, int kOff>
+__device__ __forceinline__ void copy_or_zero(uint32_t smem, const void* src,
+                                             bool ok) {
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4,
+                "16-, 8- or 4-byte copies");
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0+%3], [%1], 16, %2;\n" ::"r"(
+                     smem),
+                 "l"(src), "r"(ok ? 16 : 0), "n"(kOff)
+                 : "memory");
+  else if constexpr (kBytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0+%3], [%1], 8, %2;\n" ::"r"(
+                     smem),
+                 "l"(src), "r"(ok ? 8 : 0), "n"(kOff)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0+%3], [%1], 4, %2;\n" ::"r"(
+                     smem),
+                 "l"(src), "r"(ok ? 4 : 0), "n"(kOff)
+                 : "memory");
+}
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, i a constant in f
+template <class F, int... I>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
 }
 
 }  // namespace mma

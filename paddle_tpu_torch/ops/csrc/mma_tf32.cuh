@@ -1,14 +1,16 @@
 // The split-TF32 ("3xTF32") tensor-core building blocks of the float32
-// flash backward kernels (flash_bwd.cu's flash_bwd_{dkdv,dq}_tf32_kernel):
-// the split of a float32 value into two TF32 parts, mma.sync m16n8k8 on
-// TF32 operands with float32 accumulation, the three products that stand
-// for one float32 product, the fragment loads from padded float32 tiles in
-// shared memory, the cp.async tile loader, the split of a landed tile into
-// TF32 planes, the exchange of a warp pair's partial sums and the store of
-// a warp's float32 rows.
+// kernels on the tensor cores (flash_bwd.cu's flash_bwd_{dkdv,dq}_tf32_kernel,
+// flash_fwd.cu's flash_fwd_tf32_kernel, conv_bn.cu's
+// conv3x3_tf32_stats_kernel): the split of a float32 value into two TF32
+// parts, mma.sync m16n8k8 on TF32 operands with float32 accumulation, the
+// three products that stand for one float32 product, the fragment loads
+// from padded float32 tiles (or their TF32 planes) in shared memory, the
+// cp.async tile loader, the split of a landed tile into TF32 planes, the
+// exchange of a warp pair's partial sums and the store of a warp's float32
+// rows.
 //
-// The split: hi = cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(x - hi),
-// both rounded to nearest with ties away from zero (PTX's .rna; TF32 keeps
+// The split: hi = rna(x) and lo = rna(x - hi), both rounded to nearest
+// with ties away from zero as PTX's cvt.rna.tf32.f32 rounds (TF32 keeps
 // float32's exponent and 10 mantissa bits, held in a 32-bit register with
 // the 13 low bits zero).  x - hi is exact in float32, and hi + lo is x
 // within 2^-22 of |x|.  A product a.b is taken as lo_a.hi_b + hi_a.lo_b +
@@ -61,11 +63,16 @@ constexpr int kSub = 32;                    // rows of a streamed sub-tile
 template <int DT>
 constexpr int kTs = DT + 4;                 // padded row of a float32 tile
 
-// x rounded to TF32, to nearest with ties away from zero.
+// x rounded to TF32, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds it, on the bit pattern: half a unit of the 13
+// dropped bits added to the magnitude (a carry into the exponent is the
+// rounding up, past the largest finite value to inf), then those bits
+// cleared (ops/flash_attention.py::_tf32_rna is the same on the CPU; a NaN
+// may come back as inf, and its lo part, x - hi, is NaN).  Two integer
+// instructions at the integer ALU's rate, where cvt runs at the far lower
+// rate of the conversions (PERF.md, PR 13).
 __device__ __forceinline__ uint32_t rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // An A fragment (four elements) and a B fragment (two), each element as
@@ -125,6 +132,14 @@ __device__ __forceinline__ void load_a(SplitA& a, const float* p) {
   mma::ldmatrix_x4(r, p);
 #pragma unroll
   for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), a.hi[i], a.lo[i]);
+}
+
+// The A fragment of a tile held as its TF32 parts (split_rows): hi and lo
+// are the planes' fragment corners plus a_lane.
+__device__ __forceinline__ void load_a_planes(SplitA& a, const float* hi,
+                                              const float* lo) {
+  mma::ldmatrix_x4(a.hi, hi);
+  mma::ldmatrix_x4(a.lo, lo);
 }
 
 // The B fragments of two n-tiles from an [n][k] tile held as its TF32
@@ -204,7 +219,10 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ld, int r0, int nrows,
                                           int D) {
   constexpr int kChunks = DT / 4;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
+  static_assert(ROWS * kChunks % kThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
     const int r = idx / kChunks, c = idx % kChunks * 4;
     float* d = dst + r * kTs<DT> + c;
     if (r0 + r < nrows && c < D)
@@ -214,17 +232,25 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// Split ROWS padded rows of float32 (`raw`, as they landed) into their
-// TF32 parts, `hi` and `lo` in the same layout: each streamed sub-tile is
-// split once by the whole block, where each of the four warp pairs would
-// split every element it reads again.
+// Split ROWS padded rows of float32 (`raw`, as they landed, times `mul`)
+// into their TF32 parts, `hi` and `lo` in the same layout: each streamed
+// sub-tile is split once by the whole block, where each of the four warp
+// pairs would split every element it reads again.
 template <int DT, int ROWS>
 __device__ __forceinline__ void split_rows(float* hi, float* lo,
-                                           const float* raw) {
+                                           const float* raw,
+                                           float mul = 1.f) {
   constexpr int kChunks = DT / 4;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
+  static_assert(ROWS * kChunks % kThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
     const int o = idx / kChunks * kTs<DT> + idx % kChunks * 4;
-    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    float4 x = *reinterpret_cast<const float4*>(raw + o);
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
     uint4 h, l;
     split(x.x, h.x, l.x);
     split(x.y, h.y, l.y);
@@ -282,6 +308,26 @@ __device__ __forceinline__ void store_rows(float* out,
         *reinterpret_cast<float2*>(dst + c) =
             make_float2(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
     }
+  }
+}
+
+// A warp's 16 partial sums of S (its half of the head) handed to the other
+// warp of its pair through `mine` and `theirs` ([4][32][4] floats each,
+// laid out as below), and the pair's sums formed: own + other.
+__device__ __forceinline__ void pair_sum(float (&s)[4][4], float* mine,
+                                         const float* theirs, int pair) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    *reinterpret_cast<float4*>(mine + n * 128) =
+        make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+  pair_sync(pair);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const float4 x = *reinterpret_cast<const float4*>(theirs + n * 128);
+    s[n][0] += x.x;
+    s[n][1] += x.y;
+    s[n][2] += x.z;
+    s[n][3] += x.w;
   }
 }
 

@@ -5,12 +5,13 @@ The kernels take float32, bf16 or float16 q/k/v (and dO), as
 ``_flash_fwd`` and ``_flash_bwd`` do: O comes back in q's dtype and the
 LSE in float32; dQ, dK and dV in q's, k's and v's dtype; delta is
 float32.  The arithmetic:
-- float32 operands: the forward's every product float32, as in the Pallas
-  kernels, which upcast before every product; the backward's every
-  product split TF32 on the tensor cores (3xTF32: each operand x = hi +
-  lo, both parts rounded to TF32 to nearest with ties away from zero, and
-  a . b = lo_a . hi_b + hi_a . lo_b + hi_a . hi_b summed in float32, within
-  3 * 2^-22 of |a||b|);
+- float32 operands: every product of the forward and the backward split
+  TF32 on the tensor cores (3xTF32: each operand x = hi + lo, both parts
+  rounded to TF32 to nearest with ties away from zero, and a . b = lo_a .
+  hi_b + hi_a . lo_b + hi_a . hi_b summed in float32, within 3 * 2^-22 of
+  |a||b|, where the Pallas kernels upcast and take float32 products); the
+  forward scales q by scale * log2(e) in float32 before its product, as
+  the Pallas kernel does;
 - bf16 and float16 operands: the tensor cores, one kernel template on
   either 16-bit type.  S = QK^T (and in the backward dP = dO V^T) take
   the 16-bit operands with float32 accumulation (exact products, so only
@@ -20,7 +21,7 @@ float32.  The arithmetic:
   dV = P^T dO, dK = dS^T Q and dQ = dS K, accumulated in float32; each
   output is rounded once.
 
-Five plain versions, for the two bf16 semantics of the JAX package and
+Six plain versions, for the two bf16 semantics of the JAX package and
 the tensor-core kernels:
 ``_torch_attention`` is the counterpart of ``_xla_attention`` (on bf16 the
 probabilities are rounded to bf16 before P . V), the CPU route and the
@@ -30,8 +31,8 @@ outputs rounded once to the operands' dtype), the yardstick the 16-bit
 kernels are held against on the card; ``_mma_fwd`` and ``_mma_bwd`` are
 the 16-bit kernels' own arithmetic (the forward's online softmax over key
 tiles with P rounded to the operands' dtype; P and dS rounded to it in
-the backward), and ``_tf32x3_bwd`` the float32 backward kernels' (every
-product as three TF32 products),
+the backward), and ``_tf32x3_fwd`` and ``_tf32x3_bwd`` the float32
+kernels' (every product as three TF32 products),
 which the CPU tests hold to the Pallas kernels within their rounding's
 bounds and the card's check holds the kernels to within tighter limits.
 
@@ -272,6 +273,48 @@ def _tf32x3_bwd(q, k, v, kv_lens, o, lse, g, g_lse=None, *, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tf32x3_fwd(q, k, v, kv_lens, *, causal: bool, scale: float,
+                q_offset=0, kv_offset=0, block_k: int = 32, terms: int = 3):
+    """The arithmetic of the float32 forward kernel (the 3xTF32
+    ``flash_fwd_tf32_kernel`` of ``csrc/flash_fwd.cu``) in plain torch: q
+    scaled by scale * log2(e) in float32, then S = QK^T as ``_tf32x3`` (in
+    the log2 domain as it leaves the product); the online softmax over key
+    tiles of ``block_k`` (the kernel's 32-key sub-tiles) under
+    ``_visible``'s masks, each tile's p = 2^(s - m) with m the running row
+    max, the row sum l adding p, and O = O * corr + P V with P V as
+    ``_tf32x3`` on the float32 p; O = acc / max(l, 1e-30) and the
+    natural-log LSE m / log2(e) + log(max(l, 1e-30)), float32 [B, H, Lq].
+    Returns (O, LSE).  Never on the kernel route: the tests hold it against
+    the JAX package, ``chip_smoke.py`` the kernel against it.
+
+    ``terms=1`` takes both products as one TF32 product (hi . hi): a
+    planted fault, which the checks must catch."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    qs = (q.float() * (scale * LOG2E)).transpose(1, 2)
+    kf, vf = (t.float().transpose(1, 2) for t in (k, v))
+    mask = _visible(lq, lk, kv_lens, causal, q_offset, kv_offset, q.device)
+    acc = torch.zeros(b, h, lq, d, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, lq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    lsum = torch.zeros_like(m)
+    for k0 in range(0, lk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        mt = mask[..., k0:k0 + block_k]
+        s = torch.where(mt, _tf32x3("bhqd,bhkd->bhqk", qs, kt, terms),
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mt, torch.exp2(s - m_new), 0.0)
+        corr = torch.exp2(m - m_new)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _tf32x3("bhqk,bhkd->bhqd", p, vt, terms)
+        m = m_new
+    l_safe = torch.clamp(lsum, min=1e-30)
+    o = (acc / l_safe).transpose(1, 2)
+    lse = (m * (1.0 / LOG2E) + torch.log(l_safe))[..., 0]
+    return o, lse
+
+
 def _mma_fwd(q, k, v, kv_lens, *, causal: bool, scale: float, q_offset=0,
              kv_offset=0, block_k: int = 64,
              drop_score_kstep: Optional[int] = None):
@@ -368,6 +411,9 @@ _SIGNATURES = {"flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
                "flash_fwd_f32dots_bf16": _FWD_ARGS + [ctypes.c_int] * 2,
                "flash_fwd_mma_resources": [ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_int)],
+               "flash_fwd_f32_resources": [ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int),
                                            ctypes.POINTER(ctypes.c_int)]}
 # the C entries' suffix by operand dtype
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -378,8 +424,9 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
                    q_offset: int = 0, kv_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu``: returns (O [B,Lq,H,D] in q's dtype,
     float32, bf16 or float16; LSE [B,H,Lq] float32).  float32 operands run
-    the CUDA-core kernel (float32 products), bf16 and float16 ones the
-    tensor-core kernel (``_mma_fwd``'s arithmetic).  ``q_offset``/``kv_offset`` are host ints
+    the 3xTF32 tensor-core kernel (``_tf32x3_fwd``'s arithmetic), bf16 and
+    float16 ones the 16-bit tensor-core kernel (``_mma_fwd``'s).
+    ``q_offset``/``kv_offset`` are host ints
     (no device sync); ``kv_lens`` is an int32 tensor [B] on the same
     device."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
@@ -558,6 +605,16 @@ def fwd_mma_resources(dtype=torch.bfloat16) -> dict:
         lib, lib.flash_fwd_mma_resources, dt, half) for dt in (64, 128)}
 
 
+def fwd_f32_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the float32 (3xTF32) forward at
+    each head tile, from ``cudaFuncGetAttributes``: ``{"fwd_d64": (regs,
+    local_bytes), "fwd_d128": ...}``.  Needs a card."""
+    lib = _build.load("flash_fwd", _SIGNATURES)
+    return {f"fwd_d{dt}": _build.resources(
+        lib, lib.flash_fwd_f32_resources, dt) for dt in (64, 128)}
+
+
 def bwd_mma_resources(dtype=torch.bfloat16) -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
     kernel spills or keeps a stack) of the tensor-core kernels' ``dtype``
@@ -636,8 +693,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q[:, 0] / k[:, 0] for the causal rule ``kv_offset + k <= q_offset +
     q``.  impl: ``"cuda"`` (the kernels), ``"torch"`` (plain version) or
     None (by the device of ``q``).  Differentiable on both routes: the
-    kernel route's backward is ``csrc/flash_bwd.cu``, on the tensor cores
-    at float32 (split TF32), bf16 or float16; q, k and v share a dtype."""
+    kernel route's forward and backward (``csrc/flash_fwd.cu``,
+    ``csrc/flash_bwd.cu``) run on the tensor cores at float32 (split TF32),
+    bf16 or float16; q, k and v share a dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kv_lens is None:

@@ -12,11 +12,13 @@ exit 0 and "identical" when the machine code is the same, else exit 1 and
 the first line that differs.  Needs the CUDA toolkit's ``nvcc`` and
 ``cuobjdump``, not a card.
 
-Kernel 1's float32 instance against an earlier checkout's, for example:
+Kernel 8's float32 instance against an earlier checkout's, for example:
 
     python -m paddle_tpu_torch.tools.sass_diff \\
-        OLD/paddle_tpu_torch/ops/csrc/flash_fwd.cu flash_fwd_kernelEPKf \\
-        paddle_tpu_torch/ops/csrc/flash_fwd.cu flash_fwd_kernelIfLb1ELb0E
+        OLD/paddle_tpu_torch/ops/csrc/conv_bn.cu \\
+        gemm_stats_kernelINS_6DenseAELb1E \\
+        paddle_tpu_torch/ops/csrc/conv_bn.cu \\
+        gemm_stats_kernelINS_6DenseAIfEELb1E
 """
 
 from __future__ import annotations
