@@ -26,22 +26,28 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    each (the training shape [8, 4096, 4, 128] causal, a kv_lens case, an
    offset-causal case, a cross-attention case, a return_lse case with a
    nonzero LSE cotangent, D 64 and D 100), and at the training shape the
-   float32 (3xTF32) pair per row against ``_tf32x3_bwd``, its own
-   arithmetic (every row within 2^-7 of its norm, 99% within 2^-16), one
-   TF32 product (``terms=1``, a planted fault) shown to fail that check,
-   their registers and local memory at both head tiles (a spill fails);
-   the LSTM step (B 128, H 512) and the GRU step
-   (B 256, H 512), each with a mask of about 30% zeros and at two ragged
-   shapes, on h' (and c') and on the autograd.Function's gradients of
-   every input but the mask, within 1e-4 * max(1, max |ref|), masked rows
-   copied bit for bit; the conv kernels (7a, 7b: the batch-norm
+   float32 (3xTF32) pair per row against a float64 backward of its own
+   inputs (``_f64_bwd``; every row within 2^-7 of its norm, 99% within
+   2^-16; the reading against ``_tf32x3_bwd``, its arithmetic in float32,
+   printed beside it), one TF32 product (``terms=1``, a planted fault)
+   shown to fail that check, their registers and local memory at both
+   head tiles (a spill fails); the LSTM step (B 128, H 512) and the GRU
+   step (B 256, H 512), each with a mask of about 30% zeros and at three
+   other shapes (B 8; B 37 at H 128; B 5 at H 37, the kernels' one-float
+   copies), on h' (and c') and on the
+   autograd.Function's gradients of every input but the mask, within 1e-4
+   * max(1, max |ref|), masked rows copied bit for bit, the GRU (3xTF32 on
+   the tensor cores) also per row against ``_tf32x3_gru_step`` with
+   ``terms=1`` shown to fail at B 256, its registers and local memory (a
+   spill fails); the conv kernels (7a, 7b: the batch-norm
    statistic passes; 8, 9: the 1x1 and 3x3 convs with the statistics in
    their epilogue) at every distinct shape ResNet-50 gives them at batch
    128, at ragged shapes and (7a, 7b) at rank 2, on y, sum, sum of
    squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|),
-   and 9 (3xTF32 on the tensor cores) per row against
-   ``_tf32x3_conv3x3_stats`` (y's rows as the forward's, the sums within
-   1e-4) with ``terms=1`` shown to fail, its registers and local memory;
+   and 8 and 9 (3xTF32 on the tensor cores) per row against
+   ``_tf32x3_matmul_stats`` and ``_tf32x3_conv3x3_stats`` (y's rows as
+   the forward's, the sums within 1e-4) with ``terms=1`` shown to fail at
+   res2, their registers and local memory;
    7b's relu boundary (folds exactly 0 are dropped as the forward drops
    them); the autograd Functions' gradients against autograd through the
    plain versions; kernel 1 on bf16 q/k/v (the tensor-core kernel; O
@@ -71,10 +77,11 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    timed by the sweep, phase 10), with CUDA events, L2
    flushed between launches, each beside its bound (float32 FMAs at 67
    TFLOP/s, bf16 tensor cores at 989 TFLOP/s, three TF32 products at 495
-   TFLOP/s for the float32 kernels 1, 2, 3 and 9, beside their FMA floor,
-   or bytes at 3.35 TB/s); those four also beside the parent's CUDA-core
-   kernels they replaced (built from MMA_SASS_BASE's ``flash_bwd.cu``,
-   ``flash_fwd.cu`` and ``conv_bn.cu``: PARENT_SIMT), and the kernels
+   TFLOP/s for the float32 kernels 1, 2, 3, 6, 8 and 9, beside their FMA
+   floor, or bytes at 3.35 TB/s); those six also beside the parent's
+   CUDA-core kernels they replaced (built from MMA_SASS_BASE's
+   ``flash_bwd.cu``, ``flash_fwd.cu`` and ``conv_bn.cu`` and SASS_BASE's
+   ``rnn_step.cu``: PARENT_SIMT), and the kernels
    ``torch.profiler`` sees SDPA's float32 backward launch, with its error
    against the plain version;
 5. the serving path: the full-width transformer LM (vocab 32000, dim 512,
@@ -162,9 +169,9 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 CUDA-core
-   instances of ``rnn_step.cu``, ``bn_stats.cu`` and ``conv_bn.cu``
-   (kernel 8's) against the build of their sources before the bf16
-   instances, kept in SASS_BASE; the sweep's four f32-dot instances
+   instances of ``rnn_step.cu`` (the LSTM's) and ``bn_stats.cu`` against
+   the build of their sources before the bf16 instances, kept in
+   SASS_BASE; the sweep's four f32-dot instances
    against ``flash_fwd.cu`` before its tensor-core bf16 kernel, kept in
    FWD_SASS_BASE);
 12. ResNet-50 under ``bf16`` (the bench's precision): after the float32
@@ -216,6 +223,7 @@ prints are a smoke figure, not a benchmark.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -569,24 +577,35 @@ def _attn_grads(fa, q, k, v, lens, go, gl, kw, impl):
     return torch.autograd.grad(obj, qkv)
 
 
-# kernels 2 and 3 at float32 (the 3xTF32 kernels) against their own
-# arithmetic in plain torch, ``_tf32x3_bwd``, per row (``_row_errs``):
-# every row within TF32_ROW_TOL of its norm (float32's own cancellation in
-# dQ's early rows sets the largest, as at 16 bits) and 99% of the rows
-# within TF32_ROW_Q99_TOL.  The limit sits between what the CPU test
+# the float32 (3xTF32) kernels against their own arithmetic in plain torch
+# (``_tf32x3_fwd``, ``_tf32x3_conv3x3_stats``, ``_tf32x3_matmul_stats``,
+# ``_tf32x3_gru_step``) and kernels 2 and 3 against a float64 backward of
+# the same inputs (``_f64_bwd``), per row (``_row_errs``): every row within
+# TF32_ROW_TOL of its norm (float32's own cancellation in dQ's early rows
+# sets the largest, as at 16 bits) and 99% of the rows within
+# TF32_ROW_Q99_TOL.  The limit sits between what the CPU test
 # tests/test_torch_flash_tf32.py::test_one_tf32_product_fails_the_row_limit
 # reads at [2, 256, 2, 128]: 3xTF32 against a float64 backward, 99% of the
 # rows within 2^-19, and one TF32 product (terms=1) past 2^-12.
 TF32_ROW_TOL, TF32_ROW_Q99_TOL = 2.0 ** -7, 2.0 ** -16
 # the CUDA-core float32 kernels the 3xTF32 ones replaced, timed beside them:
 # MMA_SASS_BASE's flash_bwd.cu (the backward pair, replaced in PR 12),
-# flash_fwd.cu (kernel 1's float32 instance) and conv_bn.cu (kernel 9's),
-# whose float32 instances are the SIMT kernels as they last ran and were
-# pinned to the same machine code (sass_phase) until they went, each built
-# as ops/_build builds a source
-PARENT_SIMT = {"flash_bwd": ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32"),
-               "flash_fwd": ("flash_fwd_f32",),
-               "conv_bn": ("conv3x3_stats_f32",)}
+# flash_fwd.cu (kernel 1's float32 instance) and conv_bn.cu (kernels 9's
+# and 8's), whose float32 instances are the SIMT kernels as they last ran
+# and were pinned to the same machine code (sass_phase) until they went,
+# and SASS_BASE's rnn_step.cu (kernel 6, pinned the same way until its
+# tensor-core kernel), each built as ops/_build builds a source: {name:
+# (the folder of its source, its entries)}
+PARENT_SIMT = {"flash_bwd": ("bd128be", ("flash_bwd_dkdv_f32",
+                                         "flash_bwd_dq_f32")),
+               "flash_fwd": ("bd128be", ("flash_fwd_f32",)),
+               "conv_bn": ("bd128be", ("conv3x3_stats_f32",
+                                       "matmul_stats_f32")),
+               "rnn_step": ("", ("gru_step_f32",))}
+# a parent entry whose arguments are not the port's: the GRU's, which took
+# z and r h scratch and no split
+PARENT_SIGNATURES = {"gru_step_f32": [ctypes.c_void_p] * 9
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 def start_parent_builds() -> dict:
@@ -598,20 +617,18 @@ def start_parent_builds() -> dict:
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     builds = {}
-    for name in PARENT_SIMT:
+    for name, (folder, _) in PARENT_SIMT.items():
         so = os.path.join(_build.BUILD_DIR, f"parent_simt_{name}.so")
         builds[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-             os.path.join(MMA_SASS_BASE, f"{name}.cu")],
+             os.path.join(SASS_BASE, folder, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     return builds
 
 
 def parent_lib(builds, name):
     """The loaded library of ``start_parent_builds``' build of ``name``, its
-    float32 entries typed as the port's."""
-    import ctypes
-
+    float32 entries typed as the port's (or as PARENT_SIGNATURES says)."""
     from paddle_tpu_torch.ops import conv_bn as cb
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -621,9 +638,10 @@ def parent_lib(builds, name):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the parent's {name}:\n"
                            f"{proc.log}")
-    sigs = {**fa._SIGNATURES, **fa._BWD_SIGNATURES, **cb._SIGNATURES}
+    sigs = {**fa._SIGNATURES, **fa._BWD_SIGNATURES, **cb._SIGNATURES,
+            **PARENT_SIGNATURES}
     lib = ctypes.CDLL(so)
-    for entry_name in PARENT_SIMT[name]:
+    for entry_name in PARENT_SIMT[name][1]:
         entry = getattr(lib, entry_name)
         entry.argtypes = list(sigs[entry_name])
         entry.restype = ctypes.c_int
@@ -652,6 +670,33 @@ def _tf32_holds(a, ref) -> tuple:
     within TF32_ROW_TOL and TF32_ROW_Q99_TOL)."""
     return _rows_hold("mma", _row_errs(a, ref, TF32_ROW_TOL), TF32_ROW_TOL,
                       TF32_ROW_Q99_TOL, BWD_MMA_ROW_Q)
+
+
+def _f64_bwd(fa, q, k, v, lens, lse, delta, go, kw):
+    """dQ, dK and dV, float64, of the backward kernels' own inputs (q, k, v,
+    dO and the forward's LSE and delta = rowsum(dO * O), each taken as it
+    is, in float64): P = exp(S scale - LSE) and dS = P (dO V^T - delta)
+    under ``_visible``'s masks, one batch row at a time.  A row that cancels
+    (dQ's first query rows, where dO V^T and delta are the same sum) holds
+    no float32 noise here, only what the inputs carry."""
+    out = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
+           for t in (q, k, v)]
+    scale = kw["scale"]
+    for i in range(q.shape[0]):
+        qd, kd, vd, gd = (t[i:i + 1].double() for t in (q, k, v, go))
+        mask = fa._visible(q.shape[1], k.shape[1], lens[i:i + 1],
+                           kw["causal"], kw.get("q_offset", 0),
+                           kw.get("kv_offset", 0), q.device)
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+                      - lse[i:i + 1].double()[..., None])
+        p = p.masked_fill(~mask, 0.0)
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", gd, vd)
+                  - delta[i:i + 1].double()[..., None])
+        out[0][i:i + 1] = torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale
+        out[1][i:i + 1] = torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale
+        out[2][i:i + 1] = torch.einsum("bhqk,bqhd->bkhd", p, gd)
+        del p, ds
+    return out
 
 
 def _sdpa_kernels(sdpa, qt, go_t, scale) -> list:
@@ -744,21 +789,27 @@ def flash_bwd_phase(dev, gen, flush, parents=None):
                               o, lse, kw, fault=True)
     delta = (go * o).sum(-1).transpose(1, 2).contiguous()
 
-    # the 3xTF32 kernels against their own arithmetic, per row, and one
-    # TF32 product (terms=1, the planted fault) against the same
+    # the 3xTF32 kernels per row against a float64 backward of their own
+    # inputs, and one TF32 product (terms=1, the planted fault) against the
+    # same; their reading against _tf32x3_bwd, the kernels' arithmetic in
+    # float32 (whose own cancellation noise in dQ's first query rows it
+    # carries), beside it
     got = (fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw),
            *fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw))
     plain = _attn_grads(fa, q, k, v, lens, go, None, kw, "torch")
-    ref = fa._tf32x3_bwd(q, k, v, lens, o, lse, go, **kw)
+    ref = _f64_bwd(fa, q, k, v, lens, lse, delta, go, kw)
+    model = fa._tf32x3_bwd(q, k, v, lens, o, lse, go, **kw)
     bad = fa._tf32x3_bwd(q, k, v, lens, o, lse, go, terms=1, **kw)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv")
     tf32 = {"kernels": {}, "terms_1": {}}
-    for gname, a, r, x, p in zip(names, got, ref, bad, plain):
+    for gname, a, r, mo, x, p in zip(names, got, ref, model, bad, plain):
         worst, q99, ok = _tf32_holds(a, r)
         bworst, bq99, bok = _tf32_holds(x, r)
+        mworst, mq99, _ = _tf32_holds(a, mo)
         tf32["kernels"][gname] = dict(
-            row_err=worst, row_err_q99=q99,
+            row_err=worst, row_err_q99=q99, model_row_err=mworst,
+            model_row_err_q99=mq99,
             plain_rel=(a - p).abs().max().item()
             / max(1.0, p.abs().max().item()))
         tf32["terms_1"][gname] = dict(
@@ -767,19 +818,24 @@ def flash_bwd_phase(dev, gen, flush, parents=None):
             / max(1.0, p.abs().max().item()))
         if not (ok and torch.isfinite(a).all()):
             raise AssertionError(
-                f"flash_bwd float32: {gname} row errors against _tf32x3_bwd "
-                f"(largest {worst}, {BWD_MMA_ROW_Q:.0%} {q99}) past "
+                f"flash_bwd float32: {gname} row errors against the float64 "
+                f"backward (largest {worst}, {BWD_MMA_ROW_Q:.0%} {q99}) past "
                 f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL}")
         if bok:
             raise AssertionError(
                 f"the float32 backward check passes the planted fault (one "
                 f"TF32 product): {gname} {bworst}, {bq99}")
+    del ref, model
     print(f"flash_bwd float32 (3xTF32) at [{B}, {T}, {HEADS}, {D}] causal: "
-          f"row errors (largest, {BWD_MMA_ROW_Q:.0%}) against _tf32x3_bwd "
+          f"row errors (largest, {BWD_MMA_ROW_Q:.0%}) against the float64 "
+          f"backward of the same inputs "
           + ", ".join(f"{g} {e['row_err']:.3e} {e['row_err_q99']:.3e}"
                       for g, e in tf32["kernels"].items())
-          + f" (limits {TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e}); "
-          "planted fault (one TF32 product, terms=1; must fail): "
+          + f" (limits {TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e}), against "
+          "_tf32x3_bwd " + ", ".join(
+              f"{g} {e['model_row_err']:.3e} {e['model_row_err_q99']:.3e}"
+              for g, e in tf32["kernels"].items())
+          + "; planted fault (one TF32 product, terms=1; must fail): "
           + ", ".join(f"{g} {e['row_err']:.3e} {e['row_err_q99']:.3e}"
                       for g, e in tf32["terms_1"].items())
           + "; max|err| against autograd through the plain version, of "
@@ -788,7 +844,7 @@ def flash_bwd_phase(dev, gen, flush, parents=None):
           + ", planted fault " + ", ".join(
               f"{g} {e['plain_rel']:.2e}" for g, e in tf32["terms_1"].items()),
           flush=True)
-    del ref, bad
+    del bad
     res = fa.bwd_f32_resources()
     print("flash_bwd float32 (3xTF32) kernels' resources "
           "(cudaFuncGetAttributes): " + ", ".join(
@@ -1725,12 +1781,46 @@ def _rnn_args(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
             randn(3 * h, scale=0.1), m)
 
 
-def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
+def _hold_gru_tf32(fr, what, args, got, fault=False) -> dict:
+    """Kernel 6's h' (3xTF32) against its arithmetic in plain torch,
+    ``_tf32x3_gru_step``, on the same operands: each row as ``_tf32_holds``
+    holds the flash kernels' rows; with ``fault`` the planted fault
+    (``terms=1``, one TF32 product), which must fail.  Returns {row_err,
+    row_err_q99[, terms_1_...]}."""
+    with torch.no_grad():
+        ref = fr._tf32x3_gru_step(*args)
+        worst, q99, ok = _tf32_holds(got, ref)
+        if not ok:
+            raise AssertionError(f"{what}: kernel 6 disagrees with "
+                                 f"_tf32x3_gru_step: rows largest {worst}, "
+                                 f"{BWD_MMA_ROW_Q:.0%} {q99} (limits "
+                                 f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL})")
+        out = dict(row_err=worst, row_err_q99=q99)
+        if fault:
+            bworst, bq99, bok = _tf32_holds(
+                fr._tf32x3_gru_step(*args, terms=1), ref)
+            if bok:
+                raise AssertionError(f"{what}: the kernel 6 check passes the "
+                                     f"planted fault (one TF32 product): "
+                                     f"{bworst}, {bq99}")
+            out.update(terms_1_row_err=bworst, terms_1_row_err_q99=bq99)
+    print(f"{what}: kernel 6 (3xTF32) against _tf32x3_gru_step: h' rows "
+          f"(largest, {BWD_MMA_ROW_Q:.0%}) {worst:.3e} {q99:.3e} (limits "
+          f"{TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e})" + (
+              f"; planted fault (one TF32 product, terms=1; must fail): "
+              f"{bworst:.3e} {bq99:.3e}" if fault else ""), flush=True)
+    return out
+
+
+def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32),
+               fault=False):
     """The kernel against its plain version at [B, H] on x and the mask in
     ``dtypes`` (the rest float32): values (masked rows copied bit for bit)
     and, through the autograd.Function, the gradients of every input but
-    the mask.  Returns (max abs error, max error relative to max(1, max
-    |ref|))."""
+    the mask; the GRU also per row against ``_tf32x3_gru_step``
+    (``_hold_gru_tf32``, with ``fault`` its planted fault).  Returns (max
+    abs error, max error relative to max(1, max |ref|), the GRU's row
+    errors or None)."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
     step = fr.lstm_step if kind == "lstm" else fr.gru_step
@@ -1765,22 +1855,44 @@ def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
         f" x {_dt(dtypes[0])}, mask {_dt(dtypes[1])}")
     print(f"{kind}_step{tag} B={b} H={h} ({int(dead.sum())} masked rows): "
           f"error / max(1, max |ref|): " + ", ".join(line), flush=True)
-    return worst_abs, worst_rel
+    rows = None if kind == "lstm" else _hold_gru_tf32(
+        fr, f"gru_step{tag} B={b} H={h}", [t.detach() for t in args],
+        got[0].detach(), fault)
+    return worst_abs, worst_rel, rows
 
 
-def rnn_phase(dev, gen, flush):
+def _gru_parent(lib, fr, x, h, wg, wc, bias, m):
+    """One call of the parent's CUDA-core GRU step (its two kernels through
+    z and r h scratch): h'."""
+    from paddle_tpu_torch.ops import _build
+
+    bsz, hd = h.shape
+    out, z, rh = (torch.empty_like(h) for _ in range(3))
+    err = lib.gru_step_f32(
+        x.data_ptr(), h.data_ptr(), wg.data_ptr(), wc.data_ptr(),
+        bias.data_ptr(), m.data_ptr(), z.data_ptr(), rh.data_ptr(),
+        out.data_ptr(), bsz, hd, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "the parent's gru_step_f32")
+    return out
+
+
+def rnn_phase(dev, gen, flush, parents=None):
     """Kernels 5 and 6 against their plain versions (values and the
     autograd.Function's gradients) at the routes' shapes and at ragged
-    ones, then their device times (``time_ms(lead=True)``: a step is
-    about as short as its launch) beside their bounds, the plain step's
-    and the cuBLAS product's alone (``torch.addmm``, the product's floor -
-    no one PyTorch call computes either step)."""
+    ones, kernel 6 (3xTF32) also per row against ``_tf32x3_gru_step`` with
+    its planted fault and its registers and local memory (a spill fails);
+    then their device times (``time_ms(lead=True)``: a step is about as
+    short as its launch) beside their bounds (kernel 6's at three TF32
+    products a float32 one, beside the FMA floor), the plain step's, the
+    cuBLAS product's alone (``torch.addmm``, the product's floor - no one
+    PyTorch call computes either step) and, from ``parents``, the parent's
+    CUDA-core GRU step."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
     out = {}
     for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
-        errs = [_rnn_check(kind, bb, hh, dev, gen)
-                for bb, hh in ((b, RNN_H), (8, RNN_H), (37, 128))]
+        errs = [_rnn_check(kind, bb, hh, dev, gen, fault=bb == b)
+                for bb, hh in ((b, RNN_H), (8, RNN_H), (37, 128), (5, 37))]
         x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen)
         m = rest[-1]
         live = int((m > 0).sum())
@@ -1800,17 +1912,48 @@ def rnn_phase(dev, gen, flush):
                              torch.addmm(bias[2 * H:], h, wc))
             flops = 2.0 * live * H * 3 * H
             nbytes = 4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b)
+        extra = {}
+        if kind == "gru":
+            res = fr.gru_tf32_resources()
+            print("gru_step float32 (3xTF32) kernel's resources "
+                  "(cudaFuncGetAttributes, by phase and copy width): "
+                  + ", ".join(f"{n} {r} registers, {l_} bytes local"
+                              for n, (r, l_) in res.items()), flush=True)
+            if any(l_ for _, l_ in res.values()):
+                raise AssertionError(f"the GRU kernel spills: {res}")
+            extra = dict(registers=max(r for r, _ in res.values()),
+                         local_bytes=max(l_ for _, l_ in res.values()),
+                         resources=res,
+                         tf32=[e[2] for e in errs],
+                         fma_bound_ms=bound(flops, nbytes)[0])
+            if parents is not None:
+                plib = parent_lib(parents, "rnn_step")
+                _hold("the parent's gru_step_f32", [(
+                    "h'", _gru_parent(plib, fr, x, h, wg, wc, bias, m),
+                    plain())])
         with torch.no_grad():
             t = {"ms": time_ms(kernel, flush, lead=True),
                  "plain_ms": time_ms(plain, flush, lead=True),
                  "addmm_ms": time_ms(floor, flush, lead=True)}
-        b_ms, b_by = bound(flops, nbytes)
+            if kind == "gru" and parents is not None:
+                t["parent_simt_ms"] = time_ms(
+                    lambda: _gru_parent(plib, fr, x, h, wg, wc, bias, m),
+                    flush, lead=True)
+        # kernel 6's product as three TF32 products at TF32's dense peak
+        b_ms, b_by = (bound(flops, nbytes) if kind == "lstm" else
+                      bound(3 * flops, nbytes, PEAK_TF32_FLOPS))
         print(f"{kind}_step at B {b}, H {H} ({live} live rows): ms "
-              f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  plain_ms "
-              f"{t['plain_ms']:.4f}  library_ms none (no one PyTorch call "
-              f"computes the step); the product alone (torch.addmm, its "
-              f"floor) {t['addmm_ms']:.4f}", flush=True)
-        out[kind] = dict(t, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+              f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by}"
+              + (", 3xTF32 at the TF32 peak)  fma_bound_ms "
+                 f"{extra['fma_bound_ms']:.4f}" if extra else ")")
+              + f"  plain_ms {t['plain_ms']:.4f}  library_ms none (no one "
+              f"PyTorch call computes the step); the product alone "
+              f"(torch.addmm, its floor) {t['addmm_ms']:.4f}"
+              + (f"  parent_simt_ms {t['parent_simt_ms']:.4f} (the parent's "
+                 f"CUDA-core step)" if "parent_simt_ms" in t else ""),
+              flush=True)
+        out[kind] = dict(t, **extra, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None,
                          max_abs_err=max(e[0] for e in errs),
                          max_rel_err=max(e[1] for e in errs),
                          shape={"B": b, "H": H, "live_rows": live})
@@ -2609,7 +2752,12 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
                 t = {"ms": time_ms(kernel, flush, lead=True),
                      "plain_ms": time_ms(plain, flush, lead=True),
                      "addmm_ms": time_ms(floor, flush, lead=True)}
-            b_ms, b_by = bound(flops, nbytes)
+            # kernel 6's float32 product as three TF32 products, beside
+            # the FMA floor
+            b_ms, b_by = (bound(flops, nbytes) if kind == "lstm" else
+                          bound(3 * flops, nbytes, PEAK_TF32_FLOPS))
+            if kind == "gru":
+                t["fma_bound_ms"] = bound(flops, nbytes)[0]
             key = f"x {_dt(dts[0])}, mask {_dt(dts[1])}"
             print(f"{kind}_step {tag} ({key}) at B {b}, H {H} ({live} live "
                   f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
@@ -2904,31 +3052,26 @@ def mixed_skip_phase(dev):
 
 # the float32 instances the bf16 templates must leave alone:
 # (source, the kernel's name in the earlier build, in the new one).  The
-# float32 flash backward pair and kernel 9's float32 instance
-# (gemm_stats_kernel<Conv3x3A<float>>) were pinned here until the 3xTF32
-# kernels replaced them.
+# float32 flash backward pair and kernels 9's, 8's and 6's float32
+# instances (gemm_stats_kernel<Conv3x3A<float>>, gemm_stats_kernel<
+# DenseA<float>, vec>, gru_gates_kernel<float> and gru_cand_kernel<float,
+# float>) were pinned here until the 3xTF32 kernels replaced them.
 SASS_KERNELS = (
     ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
-    ("rnn_step.cu", "gru_gates_kernelEPKf", "gru_gates_kernelIfE"),
-    ("rnn_step.cu", "gru_cand_kernelEPKf", "gru_cand_kernelIffE"),
     ("bn_stats.cu", "fwd_partial_kernelEPKf", "fwd_partial_kernelIfE"),
     ("bn_stats.cu", "bwd_partial_kernelILb1E", "bwd_partial_kernelIfLb1E"),
     ("bn_stats.cu", "bwd_partial_kernelILb0E", "bwd_partial_kernelIfLb0E"),
-    ("conv_bn.cu", "gemm_stats_kernelINS_6DenseAELb1E",
-     "gemm_stats_kernelINS_6DenseAIfEELb1E"),
-    ("conv_bn.cu", "gemm_stats_kernelINS_6DenseAELb0E",
-     "gemm_stats_kernelINS_6DenseAIfEELb0E"),
 )
 # their sources as of the last revision before the bf16 instances
-# (SASS_BASE_REV; bn_stats.cu, conv_bn.cu and stat_reduce.cuh are the same
-# blobs there as at the revision before their own bf16 instances), kept in
-# SASS_BASE so that a checkout without history compares them too, each
-# file pinned by its git blob id at that revision
+# (SASS_BASE_REV; bn_stats.cu and stat_reduce.cuh are the same blobs there
+# as at the revision before their own bf16 instances), kept in SASS_BASE
+# so that a checkout without history compares them too, each file pinned
+# by its git blob id at that revision; rnn_step.cu's GRU is the parent's
+# CUDA-core step (PARENT_SIMT)
 SASS_BASE_REV = "704dbc822bcc64241779e3b269892a62eb6b8e70"
 SASS_BASE = "paddle_tpu_torch/tools/sass_base"
 SASS_BASE_BLOBS = {
     "bn_stats.cu": "2688c2245abea33ec34e0b2db2c5f561604ef115",
-    "conv_bn.cu": "ac3775887f4e8d0ce30fdb4d9895792ea06f49ba",
     "rnn_step.cu": "3af9bce14b30ba10261c9297c9ed2bab2389d34d",
     "stat_reduce.cuh": "cbe135e3f7369ea805b038fccfe2ea71076bcf06",
 }
@@ -3159,35 +3302,39 @@ def _bf16_boundary(x2, w, gen, rows_per_channel=16):
     return x2, b, rows
 
 
-def _hold_conv_tf32(cb, what, x4, w4, got, fault=False):
-    """Kernel 9's float32 (y, s, ss) against ``_tf32x3_conv3x3_stats``: each
-    row (output pixel) of y as ``_tf32_holds`` holds the flash kernels'
-    rows, s and ss within TOL of max(1, max |ref|); with ``fault`` the
-    planted fault (``terms=1``, one TF32 product), which must fail the row
-    check.  Returns {row_err, row_err_q99, stat_err[, terms_1_...]}."""
-    co = w4.shape[-1]
-    ref = cb._tf32x3_conv3x3_stats(x4, w4)
+def _hold_conv_tf32(cb, what, x, w, got, fault=False):
+    """Kernel 8's or 9's float32 (y, s, ss) (x rank 2: kernel 8; rank 4:
+    kernel 9) against its arithmetic in plain torch,
+    ``_tf32x3_matmul_stats`` or ``_tf32x3_conv3x3_stats``: each row (output
+    pixel) of y as ``_tf32_holds`` holds the flash kernels' rows, s and ss
+    within TOL of max(1, max |ref|); with ``fault`` the planted fault
+    (``terms=1``, one TF32 product), which must fail the row check.
+    Returns {row_err, row_err_q99, stat_err[, terms_1_...]}."""
+    co = w.shape[-1]
+    k, model = ((8, cb._tf32x3_matmul_stats) if x.dim() == 2
+                else (9, cb._tf32x3_conv3x3_stats))
+    ref = model(x, w)
     worst, q99, ok = _tf32_holds(got[0].reshape(-1, co), ref[0].reshape(-1, co))
     stat = max(_rel_err(g, r) for g, r in zip(got[1:], ref[1:]))
     if not (ok and stat <= TOL):
-        raise AssertionError(f"{what}: kernel 9 at float32 disagrees with "
-                             f"_tf32x3_conv3x3_stats: y rows largest {worst}, "
+        raise AssertionError(f"{what}: kernel {k} at float32 disagrees with "
+                             f"{model.__name__}: y rows largest {worst}, "
                              f"{BWD_MMA_ROW_Q:.0%} {q99} (limits "
                              f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL}), "
                              f"statistics {stat} (limit {TOL})")
     out = dict(row_err=worst, row_err_q99=q99, stat_err=stat)
     if fault:
-        bad = cb._tf32x3_conv3x3_stats(x4, w4, terms=1)[0]
+        bad = model(x, w, terms=1)[0]
         bworst, bq99, bok = _tf32_holds(bad.reshape(-1, co),
                                         ref[0].reshape(-1, co))
         if bok:
-            raise AssertionError(f"{what}: the float32 conv check passes the "
-                                 f"planted fault (one TF32 product): "
-                                 f"{bworst}, {bq99}")
+            raise AssertionError(f"{what}: the float32 kernel {k} check "
+                                 f"passes the planted fault (one TF32 "
+                                 f"product): {bworst}, {bq99}")
         out.update(terms_1_row_err=bworst, terms_1_row_err_q99=bq99)
         del bad
-    print(f"{what}: kernel 9 at float32 (3xTF32) against "
-          f"_tf32x3_conv3x3_stats: y rows (largest, {BWD_MMA_ROW_Q:.0%}) "
+    print(f"{what}: kernel {k} at float32 (3xTF32) against "
+          f"{model.__name__}: y rows (largest, {BWD_MMA_ROW_Q:.0%}) "
           f"{worst:.3e} {q99:.3e} (limits {TF32_ROW_TOL:.3e}, "
           f"{TF32_ROW_Q99_TOL:.3e}), statistics {stat:.3e}" + (
               f"; planted fault (one TF32 product, terms=1; must fail): y "
@@ -3196,21 +3343,50 @@ def _hold_conv_tf32(cb, what, x4, w4, got, fault=False):
     return out
 
 
-def _parent_conv3x3(lib, x4, w4):
-    """One call of the parent's CUDA-core float32 kernel 9 (y, s, ss)."""
+def _parent_conv(lib, x, w):
+    """One call of the parent's CUDA-core float32 kernel 8 (x rank 2) or 9
+    (x rank 4): (y, s, ss)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import conv_bn as cb
 
-    n, h, w, ci = x4.shape
-    co = w4.shape[-1]
-    y, s, ss, part = cb._outputs(n * h * w, co, (n, h, w, co), x4.device,
-                                 x4.dtype)
-    err = lib.conv3x3_stats_f32(
-        x4.data_ptr(), w4.data_ptr(), n, h, w, ci, co,
-        cb._vec(ci, co, x4, w4, y), y.data_ptr(), part.data_ptr(),
-        s.data_ptr(), ss.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "the parent's conv3x3_stats_f32")
+    *lead, ci = x.shape
+    co = w.shape[-1]
+    p = int(np.prod(lead))
+    y, s, ss, part = cb._outputs(p, co, (*lead, co), x.device, x.dtype)
+    vec = cb._vec(ci, co, x, w, y)
+    tail = (vec, y.data_ptr(), part.data_ptr(), s.data_ptr(), ss.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if x.dim() == 2:
+        err = lib.matmul_stats_f32(x.data_ptr(), w.data_ptr(), p, ci, co,
+                                   *tail)
+    else:
+        err = lib.conv3x3_stats_f32(x.data_ptr(), w.data_ptr(), *lead, ci,
+                                    co, *tail)
+    _build.check(lib, err, "the parent's float32 kernel")
     return y, s, ss
+
+
+def _tf32_bounds(prod, flops, nbytes, parent, x, w, hold, flush) -> dict:
+    """A float32 kernel 8's or 9's bounds: the product as three TF32
+    products at TF32's dense peak (the statistics' adds, under 1% of the
+    work, run beside it on the CUDA cores), beside the float32 FMA floor;
+    and, from ``parent``, the parent's CUDA-core instance timed on the same
+    inputs (held against the plain version first where ``hold``)."""
+    from paddle_tpu_torch.ops import conv_bn as cb
+
+    b_ms, b_by = bound(3 * prod, nbytes, PEAK_TF32_FLOPS)
+    out = dict(bound_ms=b_ms, bound_by=b_by,
+               fma_bound_ms=bound(flops, nbytes)[0])
+    if parent is not None:
+        if hold:
+            ref = (cb._matmul_stats_ref if x.dim() == 2
+                   else cb._conv3x3_stats_ref)(x, w)
+            _hold(f"the parent's float32 kernel {8 if x.dim() == 2 else 9}",
+                  zip(("y", "s", "ss"), _parent_conv(parent, x, w), ref))
+            del ref
+        out["parent_simt_ms"] = time_ms(lambda: _parent_conv(parent, x, w),
+                                        flush, lead=True)
+    return out
 
 
 def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
@@ -3231,11 +3407,12 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     disagree, and 16 input channels of one of 9's taps (one 16-deep
     k-step of its tensor-core product); 8's and 9's bf16 kernels'
     registers and local memory by copy width (a spill fails).  At float32
-    kernel 9 (3xTF32) also per row against ``_tf32x3_conv3x3_stats``
-    (``_hold_conv_tf32``, one TF32 product shown to fail at res2), its
-    registers and local memory, and each shape timed beside its bound at
-    three TF32 products a float32 one, the FMA floor and, from ``parents``,
-    the parent's CUDA-core instance.  Then each
+    kernels 8 and 9 (3xTF32) also per row against ``_tf32x3_matmul_stats``
+    and ``_tf32x3_conv3x3_stats`` (``_hold_conv_tf32``, one TF32 product
+    shown to fail at res2), their registers and local memory, and each
+    shape timed beside its bound at three TF32 products a float32 one, the
+    FMA floor and, from ``parents``, the parent's CUDA-core instance.  Then
+    each
     shape's device time (``time_ms(lead=True)``) beside its bound (the
     operands' bytes, the operations at the card's peak for their type; at
     bf16 also ``fma_bound_ms``, the floor at the 67 TFLOP/s of the float32
@@ -3284,7 +3461,8 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     errs = {k: (0.0, 0.0) for k in CONV_KERNELS}   # (max abs, max rel)
     rows_err = {"matmul_stats": 0.0, "conv3x3_stats": 0.0}
     faults = {}
-    conv_tf32 = {}          # kernel 9 at float32 against its arithmetic
+    # kernels 8 and 9 at float32 against their arithmetic, by shape
+    conv_tf32 = {"matmul_stats": {}, "conv3x3_stats": {}}
 
     def note(k, e):
         errs[k] = (max(errs[k][0], e[0]), max(errs[k][1], e[1]))
@@ -3396,8 +3574,14 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
         x2 = randn(p, ci).to(dtype)
         w2 = randn(ci, co, scale=ci ** -0.5).to(dtype)
         ref = cb._matmul_stats_ref(x2, w2)
-        hold_conv("matmul_stats", f"matmul_stats{sfx} {(p, ci, co)}",
-                  cb.matmul_stats_cuda(x2, w2), ref)
+        got = cb.matmul_stats_cuda(x2, w2)
+        hold_conv("matmul_stats", f"matmul_stats{sfx} {(p, ci, co)}", got,
+                  ref)
+        if not bf16:
+            conv_tf32["matmul_stats"][(p, ci, co)] = _hold_conv_tf32(
+                cb, f"matmul_stats {(p, ci, co)}", x2, w2, got,
+                fault=[p, ci, co] == rep["matmul_stats"])
+        del got
         if bf16 and [p, ci, co] == rep["matmul_stats"]:
             faults["matmul_stats"] = {}
             # the last 8 input channels left out; one 16-deep k-step of
@@ -3428,7 +3612,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
         hold_conv("conv3x3_stats", f"conv3x3_stats{sfx} "
                   f"{(n, h, w_, ci, co)}", got, ref)
         if not bf16:
-            conv_tf32[(n, h, w_, ci, co)] = _hold_conv_tf32(
+            conv_tf32["conv3x3_stats"][(n, h, w_, ci, co)] = _hold_conv_tf32(
                 cb, f"conv3x3_stats {(n, h, w_, ci, co)}", x4, w4, got,
                 fault=[n, h, w_, ci, co] == rep["conv3x3_stats"])
         del got
@@ -3486,12 +3670,12 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     mma_res = None
     if not bf16:
         tf32_res = cb.conv_tf32_resources()
-        print("conv3x3_stats float32 (3xTF32) kernel's resources "
-              "(cudaFuncGetAttributes, by copy width): " + ", ".join(
-                  f"{n} {r} registers, {l_} bytes local"
-                  for n, (r, l_) in tf32_res.items()), flush=True)
+        print("matmul_stats and conv3x3_stats float32 (3xTF32) kernels' "
+              "resources (cudaFuncGetAttributes, by copy width): "
+              + ", ".join(f"{n} {r} registers, {l_} bytes local"
+                          for n, (r, l_) in tf32_res.items()), flush=True)
         if any(l_ for _, l_ in tf32_res.values()):
-            raise AssertionError(f"kernel 9's float32 kernel spills: "
+            raise AssertionError(f"a float32 kernel 8 or 9 spills: "
                                  f"{tf32_res}")
         parent = parent_lib(parents, "conv_bn") if parents else None
     if bf16:
@@ -3540,6 +3724,15 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
         for (p, ci, co), count in conv1.items():
             x2 = randn(p, ci).to(dtype)
             w2 = randn(ci, co, scale=ci ** -0.5).to(dtype)
+            prod = 2.0 * p * ci * co
+            flops = prod + 3.0 * p * co
+            nbytes = es * (p * ci + ci * co + p * co) + 4.0 * 2 * co
+            if bf16:
+                bnd = bounds(flops, nbytes, fma=False)
+            else:
+                bnd = _tf32_bounds(prod, flops, nbytes, parent, x2, w2,
+                                   [p, ci, co] == rep["matmul_stats"],
+                                   flush)
             rows_out["matmul_stats"].append(dict(
                 shape=[p, ci, co], count=count,
                 ms=time_ms(lambda: cb.matmul_stats_cuda(x2, w2), flush,
@@ -3548,9 +3741,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
                                  flush, lead=True),
                 library_ms=time_ms(lambda: torch.mm(x2, w2), flush,
                                    lead=True),
-                **bounds(2.0 * p * ci * co + 3.0 * p * co,
-                         es * (p * ci + ci * co + p * co) + 4.0 * 2 * co,
-                         fma=False)))
+                **bnd))
             del x2, w2
         for (n, h, w_, ci, co), count in conv3.items():
             x4 = randn(n, h, w_, ci).to(dtype)
@@ -3563,22 +3754,9 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
             if bf16:
                 bnd = bounds(flops, nbytes, fma=False)
             else:
-                # the product as three TF32 products at TF32's dense peak
-                # (the statistics' adds, 0.3% of the work, run beside it
-                # on the CUDA cores), beside the float32 FMA floor; the
-                # parent's CUDA-core instance timed on the same inputs
-                b_ms, b_by = bound(3 * prod, nbytes, PEAK_TF32_FLOPS)
-                bnd = dict(bound_ms=b_ms, bound_by=b_by,
-                           fma_bound_ms=bound(flops, nbytes)[0])
-                if parent is not None:
-                    if [n, h, w_, ci, co] == rep["conv3x3_stats"]:
-                        _hold("the parent's conv3x3_stats_f32",
-                              zip(("y", "s", "ss"),
-                                  _parent_conv3x3(parent, x4, w4),
-                                  cb._conv3x3_stats_ref(x4, w4)))
-                    bnd["parent_simt_ms"] = time_ms(
-                        lambda: _parent_conv3x3(parent, x4, w4), flush,
-                        lead=True)
+                bnd = _tf32_bounds(prod, flops, nbytes, parent, x4, w4,
+                                   [n, h, w_, ci, co] == rep["conv3x3_stats"],
+                                   flush)
             rows_out["conv3x3_stats"].append(dict(
                 shape=[n, h, w_, ci, co], count=count,
                 ms=time_ms(lambda: cb.conv3x3_stats_cuda(x4, w4), flush,
@@ -3607,7 +3785,7 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     for k, rows in rows_out.items():
         sums = ("ms", "bound_ms", "plain_ms", "library_ms") + tuple(
             f for f in ("fma_bound_ms", "parent_simt_ms") if f in rows[0])
-        tf32_k = not bf16 and k == "conv3x3_stats"
+        tf32_k = not bf16 and k in conv_tf32
         for r in rows:
             print(f"{k}{sfx} {r['shape']} x{r['count']} a step: ms "
                   f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
@@ -3638,11 +3816,13 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
         if k in faults:
             out[k]["planted_fault"] = faults[k]
     if not bf16:
-        regs, local = tf32_res["conv3x3_w4"]
-        out["conv3x3_stats"].update(registers=regs, local_bytes=local,
-                                    resources=tf32_res, tf32={
-                                        str(list(sh)): e for sh, e in
-                                        conv_tf32.items()})
+        for k, name in (("matmul_stats", "matmul"),
+                        ("conv3x3_stats", "conv3x3")):
+            regs, local = tf32_res[f"{name}_w4"]
+            out[k].update(registers=regs, local_bytes=local, resources={
+                n: r for n, r in tf32_res.items() if n.startswith(name)},
+                          tf32={str(list(sh)): e
+                                for sh, e in conv_tf32[k].items()})
     if mma_res is not None:
         for k, name in (("matmul_stats", "matmul"),
                         ("conv3x3_stats", "conv3x3")):
@@ -3933,13 +4113,17 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
 # device copy of the feed; the rest is elementwise passes and reductions
 # (batch-norm apply and backward, relu, residual adds, the loss's
 # logsumexp and gather, Momentum)
-# a kernel's part: the first whose keys its name holds (the conv kernels'
-# bf16 instance, conv_mma_stats_kernel, before "conv" takes it for cuDNN)
-_PARTS = (("the kernels (7a, 7b, 8, 9)", ("gemm_stats_kernel",
-                                          "mma_stats_kernel",
+# a kernel's part: the first whose keys its name holds.  The port's keys
+# name every kernel that conv_bn.cu, bn_stats.cu and stat_reduce.cuh
+# launch (the 16-bit and float32 conv kernels, whose names hold "conv",
+# and the W planes' pre-pass before cuDNN's keys take them; stat_reduce's
+# chunk_kernel and finish_kernel by their namespace)
+_PARTS = (("the kernels (7a, 7b, 8, 9)", ("conv_mma_stats_kernel",
+                                          "conv_tf32_stats_kernel",
+                                          "split_w_planes_kernel",
                                           "fwd_partial_kernel",
                                           "bwd_partial_kernel",
-                                          "finish_kernel")),
+                                          "stat_reduce::")),
           ("plain convs and their backward, fc (cuDNN, cuBLAS)",
            ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad",
             "implicit", "winograd", "fft", "sm90", "sm80", "ampere")),
@@ -4225,7 +4409,7 @@ def main() -> int:
     bwd = flash_bwd_phase(dev, gen, flush, parents)
     bwd16 = flash_bwd_bf16_phase(dev, gen, flush)
     bwd_f16 = flash_bwd_bf16_phase(dev, gen, flush, torch.float16)
-    rnn = rnn_phase(dev, gen, flush)
+    rnn = rnn_phase(dev, gen, flush, parents)
     rnn16 = rnn_bf16_phase(dev, gen, flush)
     rnn_f16 = rnn_bf16_phase(dev, gen, flush, torch.float16)
     conv = conv_phase(dev, gen, flush, parents=parents)

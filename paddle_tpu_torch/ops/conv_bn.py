@@ -30,11 +30,10 @@ and runs the products on operands of that dtype, so dx and dw come back
 in x's and w's.  The CUDA kernels have an instance for each: float32,
 bf16 or float16 operands.  The bf16 and float16 instances of both
 kernels run on the tensor cores (16-bit products accumulated in float32:
-the same y up to the order of the sums); kernel 9's float32 instance runs
-there too, as split TF32 (3xTF32: every product three TF32 products of
-the operands' hi and lo parts, within 3 * 2^-22 of |a||b|,
-``_tf32x3_conv3x3_stats`` in plain torch), and kernel 8's on the CUDA
-cores' float32 FMAs.
+the same y up to the order of the sums); the float32 instances of both
+run there too, as split TF32 (3xTF32: every product three TF32 products
+of the operands' hi and lo parts, within 3 * 2^-22 of |a||b|;
+``_tf32x3_matmul_stats`` and ``_tf32x3_conv3x3_stats`` in plain torch).
 """
 
 from __future__ import annotations
@@ -74,9 +73,22 @@ def _conv3x3_stats_ref(x4, w4):
     return y.to(x4.dtype), y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))
 
 
+def _tf32x3_matmul_stats(x2, w2, terms: int = 3):
+    """The arithmetic of kernel 8's float32 instance (the 3xTF32
+    ``conv_tf32_stats_kernel<1, W>`` of ``csrc/conv_bn.cu``) in plain
+    torch: y = x2 [P, Ci] times w2 [Ci, Co], both float32, the product as
+    ``_tf32x3``; the sums of y and y^2 per column from that unrounded y.
+    Never on the kernel route: the tests hold it against the JAX package,
+    ``chip_smoke.py`` the kernel against it.  ``terms=1`` takes the product
+    as one TF32 product (hi . hi): a planted fault, which the checks must
+    catch."""
+    y = _tf32x3("pk,kc->pc", x2.float(), w2.float(), terms)
+    return y, y.sum(dim=0), (y * y).sum(dim=0)
+
+
 def _tf32x3_conv3x3_stats(x4, w4, terms: int = 3):
     """The arithmetic of kernel 9's float32 instance (the 3xTF32
-    ``conv3x3_tf32_stats_kernel`` of ``csrc/conv_bn.cu``) in plain torch:
+    ``conv_tf32_stats_kernel<9, W>`` of ``csrc/conv_bn.cu``) in plain torch:
     y = the im2col patches of float32 x4 [N, H, W, Ci] (3x3, SAME, column
     (dh * 3 + dw) * Ci + ci, zeros outside the image) times w4 [3, 3, Ci,
     Co] read as [9 Ci, Co], the product as ``_tf32x3``; the sums of y and
@@ -102,13 +114,15 @@ _SIGNATURES = {
        + [ctypes.c_void_p] * 5 for sfx in KERNEL_DTYPES.values()},
     "conv_mma_resources": [ctypes.c_int] * 3
                           + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "conv_tf32_resources": [ctypes.c_int]
+    "conv_tf32_resources": [ctypes.c_int] * 2
                            + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 # the 16-bit instances: elements a copy, for _vec(wide=True) = 2, 1, 0
 CONV_MMA_WIDTHS = (8, 4, 1)
-# their A operand: taps gathered a pixel (kernel 8's dense x, kernel 9's
-# 3x3 patches)
+# the float32 instances: floats a copy, for _vec() = 1, 0
+CONV_TF32_WIDTHS = (4, 1)
+# the A operand of every instance: taps gathered a pixel (kernel 8's dense
+# x, kernel 9's 3x3 patches)
 CONV_MMA_TAPS = {"matmul": 1, "conv3x3": 9}
 
 
@@ -146,29 +160,33 @@ def _outputs(rows, co, shape, device, dtype, extra: int = 0):
     return y, s, ss, part
 
 
-def _w_planes_floats(ci, co) -> int:
-    """Scratch of kernel 9's float32 instance after its partial statistics:
-    up to 3 floats to a 16-byte boundary, then w's two TF32 planes [9,
+def _w_planes_floats(ci, co, taps) -> int:
+    """Scratch of the float32 instances after their partial statistics:
+    up to 3 floats to a 16-byte boundary, then w's two TF32 planes [taps,
     Co rounded up to 64, Ci rounded up to 32]."""
-    return 4 + 2 * 9 * (-(-co // 64) * 64) * (-(-ci // 32) * 32)
+    return 4 + 2 * taps * (-(-co // 64) * 64) * (-(-ci // 32) * 32)
 
 
 def matmul_stats_cuda(x2, w2):
     """Kernel 8: (y = x2 @ w2, sum y, sum y^2) for x2 [P, Ci], w2 [Ci, Co],
     both float32, bf16 or float16; y in their dtype, the sums float32 of
-    the unrounded y.  float32 runs the CUDA-core tile, bf16 and float16
-    the tensor-core kernel, copying 16 bytes, 8 or one element at a time
-    as ``_vec(wide=True)`` finds.  One call is two launches (the product
-    with its partial statistics, then their fixed-order sum; three at 16
-    bits, where the sum runs over chunks of rows first), counted as
-    one."""
+    the unrounded y.  float32 runs the 3xTF32 tensor-core kernel
+    (``_tf32x3_matmul_stats``' arithmetic), copying 16 bytes or one float
+    at a time as ``_vec`` finds; bf16 and float16 the 16-bit tensor-core
+    kernel, copying 16 bytes, 8 or one element at a time as
+    ``_vec(wide=True)`` finds.  Three launches (the product with its
+    partial statistics, then their fixed-order sum over chunks of rows and
+    over the chunks; at float32 a fourth first, which splits w into TF32
+    planes in the scratch after the partials), counted as one."""
     p, ci = x2.shape
     co = w2.shape[1]
     dev = x2.device
     _check("x", x2, dev, (p, ci))
     _check("w", w2, dev, (ci, co), dtypes=(x2.dtype,))
     on_card(x2)
-    y, s, ss, part = _outputs(p, co, (p, co), dev, x2.dtype)
+    y, s, ss, part = _outputs(
+        p, co, (p, co), dev, x2.dtype,
+        _w_planes_floats(ci, co, 1) if x2.dtype == _F32 else 0)
     if p == 0 or co == 0:
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
@@ -206,7 +224,7 @@ def conv3x3_stats_cuda(x4, w4):
     on_card(x4)
     y, s, ss, part = _outputs(
         n * h * w, co, (n, h, w, co), dev, x4.dtype,
-        _w_planes_floats(ci, co) if x4.dtype == _F32 else 0)
+        _w_planes_floats(ci, co, 9) if x4.dtype == _F32 else 0)
     if y.numel() == 0:
         return y, s, ss
     lib = _build.load("conv_bn", _SIGNATURES)
@@ -240,12 +258,15 @@ def conv_mma_resources(dtype=torch.bfloat16) -> dict:
 
 def conv_tf32_resources() -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
-    kernel spills or keeps a stack) of kernel 9's float32 (3xTF32) kernel
-    at each copy width, from ``cudaFuncGetAttributes``: ``{"conv3x3_w4":
-    (regs, local_bytes), "conv3x3_w1": ...}``.  Needs a card."""
+    kernel spills or keeps a stack) of the float32 (3xTF32) instances of
+    kernels 8 and 9 at each copy width, from ``cudaFuncGetAttributes``:
+    ``{"matmul_w4": (regs, local_bytes), ..., "conv3x3_w1": ...}``.  Needs
+    a card."""
     lib = _build.load("conv_bn", _SIGNATURES)
-    return {f"conv3x3_w{width}": _build.resources(
-        lib, lib.conv_tf32_resources, width) for width in (4, 1)}
+    return {f"{name}_w{width}": _build.resources(
+        lib, lib.conv_tf32_resources, taps, width)
+        for name, taps in CONV_MMA_TAPS.items()
+        for width in CONV_TF32_WIDTHS}
 
 
 def _dy_eff(dy, ds, dss, y, dtype):

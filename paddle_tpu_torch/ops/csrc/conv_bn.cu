@@ -9,47 +9,35 @@
 //   kernel 9  conv3x3_stats_fwd (_conv3x3_stats_kernel): the 3x3 stride-1
 //             SAME NHWC conv with an HWIO kernel, same epilogue.
 // The statistics cost no second pass over y: that pass is what the TPU
-// kernels exist to remove.  Kernel 9 is an implicit GEMM over
-// K = 9 Ci (k = (dh * 3 + dw) * Ci + ci, which is the HWIO kernel's own
-// row-major order), whose A operand is gathered from x as it is staged:
-// each row of A is an output pixel, and a tap that falls outside the
-// image reads zeros.  There is no tile constraint on H or W (the TPU
+// kernels exist to remove.  Both are one implicit GEMM over K = kTaps Ci
+// (k = tap * Ci + ci; for kernel 9 tap = dh * 3 + dw, which is the HWIO
+// kernel's own row-major order), whose A operand is gathered from x as it
+// is staged: each row of A is an output pixel; kernel 8's (kTaps 1) is x's
+// own row, kernel 9's (kTaps 9) the pixel's 3x3 patch, a tap outside the
+// image reading zeros.  There is no tile constraint on H or W (the TPU
 // kernel needed its h-tile to divide H and fetched clamped halo rows).
 // Statistics, every instance: each block writes one row of [R, Co]
 // partial sums (R = ceil(P / 128): a block owns 128 output pixels) taken
-// from the float32 accumulators in a fixed order, and stat_reduce.cuh
-// adds the R rows in a fixed order: one more launch for kernel 8's
-// float32 instance (finish), two for the others (finish_chunked: runs of
-// 64 rows first, so the pass is spread over the card).  No float atomics:
-// the statistics are the same on every run.  Rows of A past P
-// (or pixels outside the image) and columns of W past Co load zeros, so
-// they add nothing to the statistics; y is written only inside [P, Co].
+// from the float32 accumulators in a fixed order, and stat_reduce.cuh's
+// finish_chunked adds the R rows in a fixed order (runs of 64 rows first,
+// so the pass is spread over the card; two launches).  No float atomics:
+// the statistics are the same on every run.  Rows of A past P (or pixels
+// outside the image) and columns of W past Co load zeros, so they add
+// nothing to the statistics; y is written only inside [P, Co].
 //
-// What bounds them on the H100.  At float32, operations: ResNet-50's res2
-// expand ([401408, 64] x [64, 256]) is 13.2 GFLOP against 0.27 GB (0.196
-// ms of float32 FMAs at 67 TFLOP/s against 0.080 ms of bytes); its res2
-// 3x3 ([128, 56, 56, 64] -> 64) 29.6 GFLOP.  At bf16 on the tensor cores
-// (989 TFLOP/s), bytes: the res2 expand at batch 256 ([802816, 64] x
-// [64, 256]) is 26.3 GFLOP (0.027 ms) against 0.51 GB (0.153 ms), of
-// which y is 0.41 GB; the res2 3x3 59.2 GFLOP (0.060 ms) against x and
-// y, 0.21 GB (0.061 ms).
+// What bounds them on the H100.  ResNet-50's res2 expand ([401408, 64] x
+// [64, 256], batch 128) is 13.2 GFLOP against 0.514 GB at float32 (x 0.103,
+// y 0.411: 0.153 ms of bytes): its float32 FMAs at 67 TFLOP/s take 0.196
+// ms, three TF32 products at 495 TFLOP/s 0.080 ms, so on the tensor cores
+// it is bound by bytes, y 80% of them.  Its res2 3x3 ([128, 56, 56, 64] ->
+// 64) is 29.6 GFLOP against 0.21 GB: bound by operations (0.179 ms as
+// three TF32 products).  At bf16 (989 TFLOP/s), bytes: the res2 expand at
+// batch 256 ([802816, 64] x [64, 256]) is 26.3 GFLOP (0.027 ms) against
+// 0.51 GB (0.153 ms), of which y is 0.41 GB; the res2 3x3 59.2 GFLOP
+// (0.060 ms) against x and y, 0.21 GB (0.061 ms).
 //
-// Kernel 8's float32 instance (gemm_stats_kernel<DenseA<float>>) is the
-// SIMT tile.  The products run in full float32 on the CUDA cores (y must
-// agree with its plain version to 1e-4 of its scale, and TF32 alone keeps
-// about 3 digits).  A block owns a 128 x 128 tile of y
-// (output pixels x output channels) and walks K in slices of 8: each
-// slice of A (transposed, padded against bank conflicts) and of W is
-// staged in shared memory, the next slice's loads in flight in registers
-// while the current one is multiplied (two buffers, one barrier a slice).
-// 256 threads each hold 8 x 8 sums; each sums its 8 rows per column and
-// the 16 threads of a column meet in shared memory.  Where Ci and Co are
-// multiples of 4 the loads and the y stores are 16-byte vectors;
-// otherwise scalar.
-//
-// The bf16 and float16 instances of both (conv_mma_stats_kernel<E, kTaps,
-// W>: E the element type, bf16 or f16; kTaps 1 for kernel 8's dense A, 9
-// for kernel 9's 3x3 patches) run on the tensor cores.  The JAX kernels
+// The bf16 and float16 instances (conv_mma_stats_kernel<E, kTaps, W>: E
+// the element type, bf16 or f16) run on the tensor cores.  The JAX kernels
 // compute y in float32 from bf16 (f16) operands; mma.sync m16n8k16 bf16
 // (f16) -> float32 computes the same, up to the order of the sums, and the
 // statistics come from the same unrounded accumulators.  y is rounded to
@@ -89,19 +77,21 @@
 // one's load and epilogue.  wgmma, TMA loads (im2col for kernel 9) and a
 // persistent grid are later work.
 //
-// Kernel 9's float32 instance (conv3x3_tf32_stats_kernel<W>) runs on the
-// tensor cores as split TF32 (mma_tf32.cuh): every product a . b is three
-// mma.sync m16n8k8 TF32 products, lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, of
-// the operands' splits x = hi + lo (each part rounded to TF32 to nearest,
-// ties away, as cvt.rna rounds), accumulated in float32: within
+// The float32 instances of both (conv_tf32_stats_kernel<kTaps, W>) run on
+// the tensor cores as split TF32 (mma_tf32.cuh): every product a . b is
+// three mma.sync m16n8k8 TF32 products, lo_a.hi_b + hi_a.lo_b + hi_a.hi_b,
+// of the operands' splits x = hi + lo (each part rounded to TF32 to
+// nearest, ties away, as cvt.rna rounds), accumulated in float32: within
 // 3 * 2^-22 of |a||b| where one TF32 product keeps 2^-10, so y holds the
-// float32 plain version's 1e-4.  Bound: 29.6 GFLOP at res2, three TF32
-// products each at TF32's 495 TFLOP/s (165 of float32 work): 0.179 ms,
-// where float32 FMAs at 67 TFLOP/s take 0.44.
-// ops/conv_bn.py::_tf32x3_conv3x3_stats is this arithmetic in plain torch.
-// The 16-bit kernel's geometry (128 pixels x 64 channels a block, 8 warps
-// of 32 x 32, slices of 32 input channels of one tap gathered from x by
-// cp.async, three stages, one row of partial statistics a block reduced by
+// float32 plain version's 1e-4.  Bounds at three TF32 products a float32
+// one (165 TFLOP/s of float32 work): kernel 9 at res2 0.179 ms (float32
+// FMAs 0.44); kernel 8 at res2 expand 0.080 ms of operations against
+// 0.153 ms of bytes, a ResNet-50 step's 30 launches 2.35 ms (operations
+// at K 256 and up).  ops/conv_bn.py::_tf32x3_matmul_stats and
+// _tf32x3_conv3x3_stats are this arithmetic in plain torch.  The 16-bit
+// kernel's geometry (128 pixels x 64 channels a block, 8 warps of 32 x 32,
+// slices of 32 input channels of one tap gathered from x by cp.async,
+// three stages, one row of partial statistics a block reduced by
 // finish_chunked) on float32 operands; what differs:
 //   - A, the [pixel][channel] slice, is read as the TF32 A fragment's
 //     [g][t] by ldmatrix on 32-bit words (rows of 36 floats, 4 mod 32) and
@@ -121,237 +111,35 @@
 //     tensor cores round each product's sum toward zero;
 //   - the splits round on the bit pattern (mma_tf32.cuh rna), two integer
 //     instructions where cvt.rna.tf32.f32 runs at the conversion rate;
-//   - y is stored from the accumulators (four lanes write a row's 32-byte
-//     sector); the statistics come from the same unrounded accumulators.
+//   - kernel 8's y, float32, is staged through the stage buffers (rows of
+//     72 floats, 8 mod 32: a half-warp's 8-byte writes of its fragment
+//     rows fall in distinct banks) and stored in row order, 16 bytes a
+//     thread, so that 16 threads write a row's 256 bytes in whole 128-byte
+//     lines: y is 80% of its bytes.  Kernel 9 stores y from the
+//     accumulators (four lanes write a row's 32-byte sector), which was
+//     faster there than staging it.
 // Shared memory: three stages of A (18,432 bytes) and the W planes
-// (18,432): 110,592 bytes, two blocks an SM.  W, x's copy width, is 4
-// floats (16-byte cp.async; Ci and Co multiples of 4, operands 16-byte
-// aligned) or 1 (4-byte copies), as the wrapper's _vec finds; the planes
+// (18,432): 110,592 bytes; with 125 or so registers a thread, two blocks
+// an SM.  Kernel 8 keeps the three stages at one tap, where at K 64 (res2)
+// a block walks only two slices: its blocks cannot go to three an SM as
+// the 16-bit kernel 8's did (that takes 85 registers a thread, and the
+// 3xTF32 tile holds 32 running sums, 32 fresh ones and the split
+// fragments), so fewer stages would free shared memory that no third block
+// could use; at K 64 the prologue puts both slices in flight at once, and
+// at K 256 to 2048 the third stage hides the copy behind two slices of
+// products.  W, x's copy width, is 4 floats (16-byte cp.async and 16-byte
+// y stores; Ci and Co multiples of 4, operands 16-byte aligned) or 1
+// (4-byte copies and stores), as the wrapper's _vec finds; the planes
 // always copy 16 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-#include <utility>
-
-#include "dtype.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "stat_reduce.cuh"
 
 namespace {
-
-constexpr int kBM = 128;      // output pixels a block
-constexpr int kBN = 128;      // output channels a block
-constexpr int kBK = 8;        // depth of one staged slice
-constexpr int kThreads = 256;
-constexpr int kTX = 16;       // threads across the channels
-constexpr int kTY = 16;       // threads across the pixels
-constexpr int kAPad = 4;      // keeps the transposed A stores conflict-free
-
-struct __align__(16) Smem {
-  union {
-    struct {
-      float A[2][kBK][kBM + kAPad];
-      float B[2][kBK][kBN];
-    } st;
-    float red[2][kTY][kBN];
-  };
-};
-
-// A = x [P, K] row-major (kernel 8).
-template <typename T>
-struct DenseA {
-  using Elem = T;
-  const T* a;
-  int M, K;
-  struct Row { const T* p; };
-  struct Col { int k; };
-  __device__ Row row(int m) const {
-    return {m < M ? a + (long long)m * K : nullptr};
-  }
-  __device__ Col col(int k) const { return {k}; }
-  __device__ const T* ptr(const Row& r, const Col& c) const {
-    return (r.p && c.k < K) ? r.p + c.k : nullptr;
-  }
-};
-
-// y [M, Co] = A [M, K] B [K, Co], with per-column sum y and sum y^2 of this
-// block's rows written to row (tile / n_col_tiles) of part_s and part_ss.
-// A, B and y are float32 (the loader's element type).  kVec: K and Co are
-// multiples of 4 and every operand is aligned to 4 elements.
-template <class ALoader, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_stats_kernel(ALoader A, const typename ALoader::Elem* __restrict__ B,
-                  int M, int K, int Co, int n_col_tiles,
-                  typename ALoader::Elem* __restrict__ y,
-                  float* __restrict__ part_s, float* __restrict__ part_ss) {
-  using T = typename ALoader::Elem;
-  static_assert(std::is_same_v<T, float>,
-                "the 16-bit instances are conv_mma_stats_kernel");
-  __shared__ Smem sm;
-  const int rt = blockIdx.x / n_col_tiles, ct = blockIdx.x % n_col_tiles;
-  const int m0 = rt * kBM, c0 = ct * kBN;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
-
-  // staging: a vector thread loads A[row][k..k+3] of one row and
-  // B[k][c..c+3]; a scalar one A[row + 32 e][k] and B[k + 2 e][c], e < 4
-  constexpr int kAR = kVec ? 1 : 4;
-  const int a_row = kVec ? tid / 2 : tid / kBK;
-  const int a_k = kVec ? (tid % 2) * 4 : tid % kBK;
-  const int b_k = kVec ? tid / 32 : tid / kBN;
-  const int b_c = kVec ? (tid % 32) * 4 : tid % kBN;
-  typename ALoader::Row rows[kAR];
-#pragma unroll
-  for (int e = 0; e < kAR; ++e) rows[e] = A.row(m0 + a_row + 32 * e);
-  float a_st[4], b_st[4];
-
-  auto load = [&](int k0) {
-    const typename ALoader::Col ac = A.col(k0 + a_k);
-    if constexpr (kVec) {
-      const T* p = A.ptr(rows[0], ac);
-      const float4 v = p ? ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-      a_st[0] = v.x; a_st[1] = v.y; a_st[2] = v.z; a_st[3] = v.w;
-      const int k = k0 + b_k, c = c0 + b_c;
-      const float4 u = (k < K && c < Co) ? ldg4(B + (long long)k * Co + c)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      b_st[0] = u.x; b_st[1] = u.y; b_st[2] = u.z; b_st[3] = u.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const T* p = A.ptr(rows[e], ac);
-        a_st[e] = p ? to_f(__ldg(p)) : 0.f;
-        const int k = k0 + b_k + 2 * e, c = c0 + b_c;
-        b_st[e] = (k < K && c < Co) ? to_f(__ldg(B + (long long)k * Co + c))
-                                    : 0.f;
-      }
-    }
-  };
-  auto store = [&](int buf) {
-    if constexpr (kVec) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sm.st.A[buf][a_k + i][a_row] = a_st[i];
-      *reinterpret_cast<float4*>(&sm.st.B[buf][b_k][b_c]) =
-          make_float4(b_st[0], b_st[1], b_st[2], b_st[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sm.st.A[buf][a_k][a_row + 32 * e] = a_st[e];
-        sm.st.B[buf][b_k + 2 * e][b_c] = b_st[e];
-      }
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int n_k = (K + kBK - 1) / kBK;
-  load(0);
-  for (int t = 0; t < n_k; ++t) {
-    const int buf = t & 1;
-    store(buf);
-    __syncthreads();
-    if (t + 1 < n_k) load((t + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(&sm.st.A[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sm.st.A[buf][kk][64 + ty * 4]);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(&sm.st.B[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sm.st.B[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-
-  // y: thread rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and
-  // 64 + tx*4 + j
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    T* yr = y + (long long)m * Co;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + h * 64 + tx * 4;
-      if constexpr (kVec) {
-        if (c < Co)
-          *reinterpret_cast<float4*>(yr + c) =
-              make_float4(acc[i][h * 4], acc[i][h * 4 + 1],
-                          acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < Co) yr[c + j] = acc[i][h * 4 + j];
-      }
-    }
-  }
-
-  // statistics: this thread's 8 rows, then the 16 threads of a column in
-  // ty order (rows past M hold zeros)
-  __syncthreads();   // the last slice's reads are done; reuse the buffers
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s += acc[i][j];
-      ss = fmaf(acc[i][j], acc[i][j], ss);
-    }
-    const int col = (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-    sm.red[0][ty][col] = s;
-    sm.red[1][ty][col] = ss;
-  }
-  __syncthreads();
-  if (tid < kBN && c0 + tid < Co) {
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int t = 0; t < kTY; ++t) {
-      s += sm.red[0][t][tid];
-      ss += sm.red[1][t][tid];
-    }
-    part_s[(long long)rt * Co + c0 + tid] = s;
-    part_ss[(long long)rt * Co + c0 + tid] = ss;
-  }
-}
-
-template <class ALoader>
-int launch(const ALoader& a, const void* w, int M, int K, int Co, int vec,
-           void* y, void* part, void* s, void* ss, cudaStream_t st) {
-  using T = typename ALoader::Elem;
-  const int n_row = (M + kBM - 1) / kBM, n_col = (Co + kBN - 1) / kBN;
-  float* pa = (float*)part;
-  float* pb = pa + (long long)n_row * Co;
-  if (vec)
-    gemm_stats_kernel<ALoader, true><<<n_row * n_col, kThreads, 0, st>>>(
-        a, (const T*)w, M, K, Co, n_col, (T*)y, pa, pb);
-  else
-    gemm_stats_kernel<ALoader, false><<<n_row * n_col, kThreads, 0, st>>>(
-        a, (const T*)w, M, K, Co, n_col, (T*)y, pa, pb);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)stat_reduce::finish(pa, pb, n_row, Co, (float*)s, (float*)ss,
-                                  st);
-}
-
-template <typename T>
-int matmul_stats(const void* x, const void* w, int P, int Ci, int Co,
-                 int vec, void* y, void* part, void* s, void* ss,
-                 void* stream) {
-  const DenseA<T> a{(const T*)x, P, Ci};
-  return launch(a, w, P, Ci, Co, vec, y, part, s, ss, (cudaStream_t)stream);
-}
 
 // ---------------------- kernels 8 and 9 at bf16 and f16, tensor cores
 using mma::bf16;
@@ -369,7 +157,6 @@ constexpr int kAS = kMmaBK + 8;    // padded row of an A slice (16-bit)
 constexpr int kBS = kMmaBN + 8;    // padded row of a W slice
 constexpr int kYS = kMmaBN + 8;    // padded row of the staged y tile
 constexpr int kStageElems = kMmaBM * kAS + kMmaBK * kBS;
-static_assert(kMmaBM == kBM, "the partial statistics keep R = ceil(P / 128)");
 static_assert(kMmaBM * kYS <= kStages * kStageElems,
               "y's tile is staged in the operands' buffers");
 
@@ -680,16 +467,19 @@ const void* conv_mma_fn(int width) {
                       : (const void*)conv_mma_stats_kernel<E, kTaps, 1>;
 }
 
-// ---------------------------- kernel 9 at float32, tensor cores (3xTF32)
+// ---------------------- kernels 8 and 9 at float32, tensor cores (3xTF32)
 constexpr int kTfAS = kMmaBK + 4;     // padded row of an A slice (floats)
 constexpr int kTfPS = kMmaBK + 4;     // padded row of a W plane, [n][k]
+constexpr int kTfYS = kMmaBN + 8;     // padded row of the staged y tile
 constexpr int kTfStage = kMmaBM * kTfAS + 2 * kMmaBN * kTfPS;
 constexpr size_t kTfSmem = sizeof(float) * kStages * kTfStage;
 constexpr int kTfT = 32;              // the plane pre-pass's square tile
 static_assert(kMmaBK == kTfT && kMmaBN % kTfT == 0,
               "the W planes are padded to whole slices and column tiles");
+static_assert(kMmaBM * kTfYS <= kStages * kTfStage,
+              "y's tile is staged in the stage buffers");
 
-// w [3, 3, Ci, Co] split into TF32 planes hi and lo [9][Cop][Cip],
+// w [taps, Ci, Co] split into TF32 planes hi and lo [taps][Cop][Cip],
 // transposed (a tap's [n][k]) and zero past Ci and Co (Cip, Cop: Ci and Co
 // rounded up to whole slices and column tiles), so that the conv kernel
 // copies each slice's planes whole: one kTfT x kTfT tile of one tap a
@@ -718,21 +508,23 @@ split_w_planes_kernel(const float* __restrict__ w, int Ci, int Co, int Cip,
   }
 }
 
-// y [M, Co] of the 3x3 SAME conv of x [N, H, Wd, Ci] with w's planes
-// (split_w_planes_kernel: [9][Cop][Cip] each, lo right after hi; M = N H
-// Wd), float32, and
-// the per-column partial statistics of this block's rows (row blockIdx.x /
-// n_col_tiles of part_s and part_ss), W floats a copy of x (4 or 1).
-template <int W>
+// y [M, Co], float32, and the per-column partial statistics of this
+// block's rows (row blockIdx.x / n_col_tiles of part_s and part_ss), W
+// floats a copy of x (4 or 1).  kTaps says how A is gathered from x: 1, A
+// is x [M, Ci] itself (kernel 8, H and Wd unused); 9, A is the 3x3 SAME
+// patches of x [N, H, Wd, Ci] (kernel 9, M = N H Wd).  w_hi holds w's
+// planes (split_w_planes_kernel: [kTaps][Cop][Cip] each, lo right after
+// hi).
+template <int kTaps, int W>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-conv3x3_tf32_stats_kernel(const float* __restrict__ x,
-                          const float* __restrict__ w_hi, int M, int H,
-                          int Wd, int Ci, int Co, int Cip, int Cop,
-                          int n_col_tiles, float* __restrict__ y,
-                          float* __restrict__ part_s,
-                          float* __restrict__ part_ss) {
+conv_tf32_stats_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w_hi, int M, int H, int Wd,
+                       int Ci, int Co, int Cip, int Cop, int n_col_tiles,
+                       float* __restrict__ y, float* __restrict__ part_s,
+                       float* __restrict__ part_ss) {
+  static_assert(kTaps == 1 || kTaps == 9, "a dense A or the 3x3 patches");
   static_assert(W == 4 || W == 1, "16-byte copies or one float");
-  // kStages x [A [kMmaBM][kTfAS]; W hi, lo [kMmaBN][kTfPS]]
+  // kStages x [A [kMmaBM][kTfAS]; W hi, lo [kMmaBN][kTfPS]]; then y's tile
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   __shared__ float red[2][4][kMmaBN];
@@ -742,15 +534,15 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
   const int cpt = (Ci + kMmaBK - 1) / kMmaBK;    // slices a tap
-  const int n_slices = 9 * cpt;
+  const int n_slices = kTaps * cpt;
 
   // A: a thread copies channels ac..ac+W-1 of rows ar + j kRStep; each
-  // row's pixel index (-1 past M) and (h << 16 | w), kept for W 4,
-  // recomputed for W 1
+  // row's pixel index (-1 past M) and, for the 3x3 patches, (h << 16 | w),
+  // kept for W 4, recomputed for W 1
   constexpr int kCpr = kMmaBK / W;
   constexpr int kRStep = kMmaThreads / kCpr;
   constexpr int kNR = kMmaBM / kRStep;
-  constexpr bool kKeep = W > 1;
+  constexpr bool kKeep = kTaps == 9 && W > 1;
   const int ar = tid / kCpr, ac = (tid % kCpr) * W;
   int pix[kKeep ? kNR : 1], phw[kKeep ? kNR : 1];
   auto pixel = [&](int r, int& m, int& hw) {
@@ -760,8 +552,10 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
       m = -1;
       return;
     }
-    const int ww = m % Wd, hh = (m / Wd) % H;
-    hw = (hh << 16) | ww;
+    if constexpr (kTaps == 9) {
+      const int ww = m % Wd, hh = (m / Wd) % H;
+      hw = (hh << 16) | ww;
+    }
   };
   if constexpr (kKeep) {
 #pragma unroll
@@ -771,12 +565,13 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
   // of each plane
   constexpr int kBIters = 2 * kMmaBN * (kMmaBK / 4) / kMmaThreads;
   static_assert(kBIters == 4 && kMmaThreads / 8 == 32, "four copies");
-  const int w_plane = 9 * Cop * Cip;      // w_lo - w_hi
+  const int w_plane = kTaps * Cop * Cip;  // w_lo - w_hi
 
   auto load_slice = [&](int sl, int st) {
-    const int tap = sl / cpt;
+    const int tap = kTaps == 1 ? 0 : sl / cpt;
     const int cb = (sl - tap * cpt) * kMmaBK;
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    const int dh = kTaps == 1 ? 0 : tap / 3 - 1;
+    const int dw = kTaps == 1 ? 0 : tap % 3 - 1;
     float* sA = smem + st * kTfStage;
     float* sB = sA + kMmaBM * kTfAS;
     const int ci = cb + ac;
@@ -801,9 +596,11 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
       } else {
         pixel(ar + j * kRStep, m, hw);
       }
-      const int hh = (hw >> 16) + dh, ww = (hw & 0xffff) + dw;
-      const bool ok = m >= 0 && ci < Ci && (unsigned)hh < (unsigned)H &&
-                      (unsigned)ww < (unsigned)Wd;
+      bool ok = m >= 0 && ci < Ci;
+      if constexpr (kTaps == 9) {
+        const int hh = (hw >> 16) + dh, ww = (hw & 0xffff) + dw;
+        ok = ok && (unsigned)hh < (unsigned)H && (unsigned)ww < (unsigned)Wd;
+      }
       // 32-bit offsets: x and w have fewer than 2^31 elements (the wrapper
       // checks)
       const float* src = x + ((m + dh * Wd + dw) * Ci + ci);
@@ -878,20 +675,30 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
   }
   mma::cp_async_wait<0>();               // no copy outlives the block
 
-  // y from the accumulators: rows 32 wm + 16 i + g (+ 8), columns 32 wn +
-  // 8 n + 2t (+ 1) of the tile, only inside [M, Co]
+  // y: rows 32 wm + 16 i + g (+ 8), columns 32 wn + 8 n + 2t (+ 1) of the
+  // tile.  Kernel 8 stages it in the stage buffers, stored in row order
+  // below; kernel 9 stores it from the accumulators, only inside [M, Co]
+  // (four lanes write a row's 32-byte sector: staging it was slower there
+  // on the H100)
+  float* sY = smem;
+  if constexpr (kTaps == 1) __syncthreads();   // every warp is done with
+                                               // the slices
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + i * 16 + g + 8 * half;
-      if (m >= M) continue;
+      const int r = wm * 32 + i * 16 + g + 8 * half;
+      const int m = m0 + r;
+      if (kTaps == 9 && m >= M) continue;
       float* dst = y + (long long)m * Co;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const int c = c0 + wn * 32 + n * 8 + 2 * t;
+        const int cc = wn * 32 + n * 8 + 2 * t, c = c0 + cc;
         const float v0 = acc[i][n][2 * half], v1 = acc[i][n][2 * half + 1];
-        if constexpr (W == 4) {                // Co a multiple of 4
+        if constexpr (kTaps == 1) {
+          *reinterpret_cast<float2*>(sY + r * kTfYS + cc) =
+              make_float2(v0, v1);
+        } else if constexpr (W == 4) {         // Co a multiple of 4
           if (c < Co)
             *reinterpret_cast<float2*>(dst + c) = make_float2(v0, v1);
         } else {
@@ -930,7 +737,23 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
     red[0][wm][col] = v[0];
     red[1][wm][col] = v[1];
   }
-  __syncthreads();
+  __syncthreads();                       // y's tile and red are complete
+  // kernel 8's y out in row order, W floats a store (16 bytes at W 4: 16
+  // threads write a row's 256 bytes), only inside [M, Co]
+  constexpr int kYCpr = kMmaBN / W;
+#pragma unroll 4
+  for (int idx = tid; kTaps == 1 && idx < kMmaBM * kYCpr;
+       idx += kMmaThreads) {
+    const int r = idx / kYCpr, cc = idx % kYCpr * W;
+    const int m = m0 + r, c = c0 + cc;
+    if (m >= M || c >= Co) continue;     // Co a multiple of W
+    const float* src = sY + r * kTfYS + cc;
+    float* dst = y + (long long)m * Co + c;
+    if constexpr (W == 4)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    else
+      *dst = *src;
+  }
   if (tid < kMmaBN && c0 + tid < Co) {
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -943,13 +766,20 @@ conv3x3_tf32_stats_kernel(const float* __restrict__ x,
   }
 }
 
-// Kernel 9 at float32: `vec` 1 for 16-byte copies of x, 0 for one float;
-// part holds the [2, R, Co] partial statistics, then (from the next
-// 16-byte boundary) w's two planes, 9 Cop Cip floats each.
-int conv3x3_tf32_launch(const void* x, const void* w, int N, int H, int Wd,
-                        int Ci, int Co, int vec, void* y, void* part,
-                        void* s, void* ss, cudaStream_t st) {
-  const int M = N * H * Wd;
+template <int kTaps>
+const void* conv_tf32_fn(int width) {
+  return width == 4 ? (const void*)conv_tf32_stats_kernel<kTaps, 4>
+                    : (const void*)conv_tf32_stats_kernel<kTaps, 1>;
+}
+
+// Kernels 8 (kTaps 1) and 9 (kTaps 9) at float32 over M output pixels: w
+// [kTaps, Ci, Co]; `vec` 1 for 16-byte copies of x and stores of y, 0 for
+// one float; part holds the [2, R, Co] partial statistics, then (from the
+// next 16-byte boundary) w's two planes, kTaps Cop Cip floats each.
+template <int kTaps>
+int conv_tf32_launch(const void* x, const void* w, int M, int H, int Wd,
+                     int Ci, int Co, int vec, void* y, void* part, void* s,
+                     void* ss, cudaStream_t st) {
   const int n_row = (M + kMmaBM - 1) / kMmaBM;
   const int n_col = (Co + kMmaBN - 1) / kMmaBN;
   const int Cip = (Ci + kMmaBK - 1) / kMmaBK * kMmaBK;
@@ -957,20 +787,20 @@ int conv3x3_tf32_launch(const void* x, const void* w, int N, int H, int Wd,
   float* pa = (float*)part;
   float* pb = pa + (long long)n_row * Co;
   float* w_hi = pa + ((2LL * n_row * Co + 3) & ~3LL);
-  float* w_lo = w_hi + 9LL * Cop * Cip;
-  split_w_planes_kernel<<<dim3(Cip / kTfT, Cop / kTfT, 9), kTfT * 8, 0,
+  float* w_lo = w_hi + (long long)kTaps * Cop * Cip;
+  split_w_planes_kernel<<<dim3(Cip / kTfT, Cop / kTfT, kTaps), kTfT * 8, 0,
                           st>>>((const float*)w, Ci, Co, Cip, Cop, w_hi,
                                 w_lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto* kernel = vec ? conv3x3_tf32_stats_kernel<4>
-                     : conv3x3_tf32_stats_kernel<1>;
+  auto* kernel = vec ? conv_tf32_stats_kernel<kTaps, 4>
+                     : conv_tf32_stats_kernel<kTaps, 1>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTfSmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_row * n_col, kMmaThreads, kTfSmem, st>>>(
-      (const float*)x, w_hi, M, H, Wd, Ci, Co, Cip, Cop, n_col,
-      (float*)y, pa, pb);
+      (const float*)x, w_hi, M, H, Wd, Ci, Co, Cip, Cop, n_col, (float*)y,
+      pa, pb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)stat_reduce::finish_chunked(pa, pb, n_row, Co, (float*)s,
@@ -980,18 +810,17 @@ int conv3x3_tf32_launch(const void* x, const void* w, int N, int H, int Wd,
 }  // namespace
 
 // One C entry per instance: x and w float32 (f32), bf16 (bf16) or float16
-// (f16); y in their type, s and ss float32.  The bf16 and f16 instances
-// run on the tensor cores, and their `vec` is the copy width: 2 for 16
-// bytes, 1 for 8, 0 for one element; the float32 ones take 1 for
-// 4-element vectors, 0 for scalars.
+// (f16); y in their type, s and ss float32.  The float32 instances take
+// `vec` 1 for 16-byte copies, 0 for one float; the bf16 and f16 ones the
+// copy width: 2 for 16 bytes, 1 for 8, 0 for one element.
 // x [P, Ci], w [Ci, Co] -> y [P, Co], s and ss [Co]; part is [2, R, Co]
-// scratch with R = ceil(P / 128).
+// scratch with R = ceil(P / 128), at float32 followed by w's planes.
 #define MM_ARGS                                                            \
   const void *x, const void *w, int P, int Ci, int Co, int vec, void *y,   \
       void *part, void *s, void *ss, void *stream
-#define MM_PASS x, w, P, Ci, Co, vec, y, part, s, ss, stream
 extern "C" int matmul_stats_f32(MM_ARGS) {
-  return matmul_stats<float>(MM_PASS);
+  return conv_tf32_launch<1>(x, w, P, 1, 1, Ci, Co, vec, y, part, s, ss,
+                             (cudaStream_t)stream);
 }
 extern "C" int matmul_stats_bf16(MM_ARGS) {
   return conv_mma_launch<bf16, 1>(x, w, P, 1, 1, Ci, Co, vec, y, part, s,
@@ -1003,14 +832,13 @@ extern "C" int matmul_stats_f16(MM_ARGS) {
 }
 
 // x [N, H, W, Ci], w [3, 3, Ci, Co] -> y [N, H, W, Co], s and ss [Co];
-// part is [2, R, Co] scratch with R = ceil(N H W / 128).
+// part is [2, R, Co] scratch with R = ceil(N H W / 128), as above.
 #define C3_ARGS                                                           \
   const void *x, const void *w, int N, int H, int W, int Ci, int Co,      \
       int vec, void *y, void *part, void *s, void *ss, void *stream
-#define C3_PASS x, w, N, H, W, Ci, Co, vec, y, part, s, ss, stream
 extern "C" int conv3x3_stats_f32(C3_ARGS) {
-  return conv3x3_tf32_launch(x, w, N, H, W, Ci, Co, vec, y, part, s, ss,
-                             (cudaStream_t)stream);
+  return conv_tf32_launch<9>(x, w, N * H * W, H, W, Ci, Co, vec, y, part,
+                             s, ss, (cudaStream_t)stream);
 }
 extern "C" int conv3x3_stats_bf16(C3_ARGS) {
   return conv_mma_launch<bf16, 9>(x, w, N * H * W, H, W, Ci, Co, vec, y,
@@ -1039,13 +867,14 @@ extern "C" int conv_mma_resources(int taps, int width, int is_f16,
   return 0;
 }
 
-// Registers and local memory (bytes a thread: stack and spills) of kernel
-// 9's float32 (3xTF32) kernel at copy width `width` (4 or 1 floats).
-extern "C" int conv_tf32_resources(int width, int* regs, int* local_bytes) {
+// Registers and local memory (bytes a thread: stack and spills) of the
+// float32 (3xTF32) kernel: `taps` 1 (kernel 8) or 9 (kernel 9), copy width
+// `width` (4 or 1 floats).
+extern "C" int conv_tf32_resources(int taps, int width, int* regs,
+                                   int* local_bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(
-      &attr, width == 4 ? (const void*)conv3x3_tf32_stats_kernel<4>
-                        : (const void*)conv3x3_tf32_stats_kernel<1>);
+      &attr, taps == 1 ? conv_tf32_fn<1>(width) : conv_tf32_fn<9>(width));
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

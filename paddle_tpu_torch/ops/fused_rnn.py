@@ -16,7 +16,11 @@ the mask float32 (from an ``@len`` feed) or in x's dtype (no ``@len``:
 the recurrence's ones).  All arithmetic is float32, as in the Pallas
 kernels, which upcast every operand; h' and c' come back in h's and c's
 dtype, float32.  Any other combination on a CUDA tensor raises
-TypeError.
+TypeError.  The LSTM's product runs on the CUDA cores' float32 FMAs, the
+GRU's on the tensor cores as split TF32 (3xTF32: every product three TF32
+products of the operands' hi and lo parts, within 3 * 2^-22 of |a||b|;
+``_tf32x3_gru_step`` in plain torch), at every dtype: its products read
+only float32 h and W.
 
 ``impl=None`` routes by where the tensors lie: a CUDA tensor runs the
 kernel (or raises), a CPU tensor takes the plain version; ``impl="torch"``
@@ -36,8 +40,9 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, count_launch,
-                                                  resolve_impl)
+from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, _tf32x3,
+                                                  count_launch, resolve_impl)
+from paddle_tpu_torch.ops.paged_attention import _arrived
 
 
 # --------------------------------------------------------------------- LSTM
@@ -61,6 +66,24 @@ def _gru_step_ref(x_t, h, w_g, w_c, b, m_t):
     return torch.where(m_t > 0, (1.0 - z) * h + z * cand, h)
 
 
+def _tf32x3_gru_step(x_t, h, w_g, w_c, b, m_t, terms: int = 3):
+    """The arithmetic of the GRU kernel (the 3xTF32 ``gru_tf32_kernel`` of
+    ``csrc/rnn_step.cu``) in plain torch: ``_gru_step_ref`` with both
+    products, h W_g and (r h) W_c, as ``_tf32x3`` (x_t and m_t in any of
+    ``KERNEL_DTYPES``' dtypes, the rest float32).  Never on the kernel
+    route: the tests hold it against the JAX package, ``chip_smoke.py`` the
+    kernel against it.  ``terms=1`` takes each product as one TF32 product
+    (hi . hi): a planted fault, which the checks must catch."""
+    hd = h.shape[1]
+    x = x_t.float()
+    zr = torch.sigmoid(x[:, :2 * hd] + _tf32x3("bk,kn->bn", h, w_g, terms)
+                       + b[:2 * hd])
+    z, r = zr[:, :hd], zr[:, hd:]
+    cand = torch.tanh(x[:, 2 * hd:] + _tf32x3("bk,kn->bn", r * h, w_c, terms)
+                      + b[2 * hd:])
+    return torch.where(m_t > 0, (1.0 - z) * h + z * cand, h)
+
+
 # ------------------------------------------------------------------ kernels
 _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 # (x dtype, mask dtype) -> the C entries' suffix, for both steps; every
@@ -71,9 +94,25 @@ KERNEL_DTYPES = {(_F32, _F32): "f32", (_BF16, _F32): "bf16",
 _SIGNATURES = {
     **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
-    **{f"gru_step_{sfx}": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+    **{f"gru_step_{sfx}": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
+    "gru_tf32_resources": [ctypes.c_int] * 2
+                          + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
+# the GRU kernel's geometry (csrc/rnn_step.cu): a block's batch rows and
+# product columns, the depth of a slice, the slices a split of K takes at
+# most (its W panel's shared memory)
+GRU_TILE = (128, 64)
+GRU_SLICE, GRU_MAX_SLICES = 32, 4
+
+
+def _gru_splits(hd: int) -> int:
+    """The splits of K (= H) in both of the GRU kernel's launches: as few
+    as the kernel's shared memory allows, GRU_MAX_SLICES 32-deep slices
+    each, the last the rest.  Each split more adds a block's partial sums
+    to write and to fold, and on the H100 more splits (more blocks, each
+    with fewer slices) were slower at B 256, H 512."""
+    return -(-(-(-hd // GRU_SLICE)) // GRU_MAX_SLICES)
 
 
 def _entry(kind: str, x_t, m_t, floats) -> str:
@@ -138,10 +177,12 @@ lstm_step_cuda.launches_f16 = 0
 
 
 def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
-    """Launch the GRU step of ``csrc/rnn_step.cu`` (its two kernels, gates
-    then candidate, through [B, H] scratch for z and r*h): returns h',
-    float32 [B, H].  One call counts one launch, at every dtype.  Operand
-    dtypes as ``lstm_step_cuda``."""
+    """Launch the GRU step of ``csrc/rnn_step.cu`` (its kernel's two
+    phases, gates then candidate, through [B, H] scratch for z and r*h,
+    K split as ``_gru_splits`` says, the split sums through scratch sized
+    for the gates' [B, 2H] tiles and the stream's arrival counters):
+    returns h', float32 [B, H].  One call counts one launch, at every
+    dtype.  Operand dtypes as ``lstm_step_cuda``."""
     bsz, hd = h.shape
     entry = _entry("gru_step", x_t, m_t, dict(h=h, w_g=w_g, w_c=w_c, b=b))
     _check_operands(h.device, x_t=(x_t, (bsz, 3 * hd)), h=(h, (bsz, hd)),
@@ -151,12 +192,20 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
     if h.numel() == 0:
         return h_out
     z, rh = torch.empty_like(h), torch.empty_like(h)
+    splits = _gru_splits(hd)
+    tiles = -(-bsz // GRU_TILE[0]) * -(-2 * hd // GRU_TILE[1])
+    part = torch.empty(tiles * splits * GRU_TILE[0] * GRU_TILE[1],
+                       device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    arrived = _arrived(h.device, stream, tiles)
     lib = _build.load("rnn_step", _SIGNATURES)
     err = getattr(lib, entry)(
         x_t.data_ptr(), h.data_ptr(), w_g.data_ptr(), w_c.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), z.data_ptr(), rh.data_ptr(),
-        h_out.data_ptr(), bsz, hd,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        h_out.data_ptr(), part.data_ptr(), arrived.data_ptr(), bsz, hd,
+        int(hd % 4 == 0 and x_t.data_ptr() % (4 * x_t.element_size()) == 0
+            and all(t.data_ptr() % 16 == 0 for t in (h, w_g, w_c, b))),
+        splits, stream)
     _build.check(lib, err, "gru_step")
     count_launch(gru_step_cuda, x_t.dtype)
     return h_out
@@ -164,6 +213,18 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
 
 gru_step_cuda.launches = gru_step_cuda.launches_bf16 = 0
 gru_step_cuda.launches_f16 = 0
+
+
+def gru_tf32_resources() -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the GRU kernel's float32 instances,
+    each phase at each copy width, from ``cudaFuncGetAttributes``:
+    ``{"gates_w4": (regs, local_bytes), ..., "cand_w1": ...}``.  Needs a
+    card."""
+    lib = _build.load("rnn_step", _SIGNATURES)
+    return {f"{name}_w{width}": _build.resources(
+        lib, lib.gru_tf32_resources, phase, width)
+        for phase, name in enumerate(("gates", "cand")) for width in (4, 1)}
 
 
 def _recompute_grads(ref, inputs, m_t, grads):

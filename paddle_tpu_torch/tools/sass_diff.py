@@ -12,13 +12,12 @@ exit 0 and "identical" when the machine code is the same, else exit 1 and
 the first line that differs.  Needs the CUDA toolkit's ``nvcc`` and
 ``cuobjdump``, not a card.
 
-Kernel 8's float32 instance against an earlier checkout's, for example:
+The LSTM step's float32 instance against an earlier checkout's, for
+example:
 
     python -m paddle_tpu_torch.tools.sass_diff \\
-        OLD/paddle_tpu_torch/ops/csrc/conv_bn.cu \\
-        gemm_stats_kernelINS_6DenseAELb1E \\
-        paddle_tpu_torch/ops/csrc/conv_bn.cu \\
-        gemm_stats_kernelINS_6DenseAIfEELb1E
+        OLD/paddle_tpu_torch/ops/csrc/rnn_step.cu lstm_step_kernelEPKf \\
+        paddle_tpu_torch/ops/csrc/rnn_step.cu lstm_step_kernelIffE
 """
 
 from __future__ import annotations

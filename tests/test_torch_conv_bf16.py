@@ -450,10 +450,12 @@ def test_kernel8_bf16_copy_width(case, want):
 
 def test_resnet_breakdown_files_the_tensor_core_conv_kernels_as_kernels():
     """chip_smoke.py's ResNet step breakdown files each device activity
-    under the first part whose keys its name holds: the bf16 tensor-core
-    instance of kernels 8 and 9 (whose name holds "conv") under the
-    kernels, not under cuDNN's convs, as the SIMT tile and the statistic
-    passes are."""
+    under the first part whose keys its name holds: every kernel that
+    conv_bn.cu, bn_stats.cu and stat_reduce.cuh launch under the kernels -
+    the 16-bit and float32 tensor-core kernels 8 and 9 (whose names hold
+    "conv") not under cuDNN's convs, the float32 kernels' W-plane pre-pass
+    and stat_reduce's chunk pass not under the elementwise rest - as the
+    statistic passes are."""
     import importlib.util
     import os
 
@@ -468,8 +470,14 @@ def test_resnet_breakdown_files_the_tensor_core_conv_kernels_as_kernels():
             "__nv_bfloat16 const*, __nv_bfloat16 const*, int, int, int, "
             "int, int, int, int, __nv_bfloat16*, float*, float*)",
             "void (anonymous namespace)::conv_mma_stats_kernel<9, 4>(...)",
-            "void (anonymous namespace)::gemm_stats_kernel<(anonymous "
-            "namespace)::DenseA<float>, true>(...)",
+            "void (anonymous namespace)::conv_tf32_stats_kernel<1, 4>("
+            "float const*, float const*, int, int, int, int, int, int, int, "
+            "int, float*, float*, float*)",
+            "void (anonymous namespace)::conv_tf32_stats_kernel<9, 4>(...)",
+            "void (anonymous namespace)::split_w_planes_kernel(float const*, "
+            "int, int, int, int, float*, float*)",
+            "void stat_reduce::(anonymous namespace)::chunk_kernel(float*, "
+            "float*, int, int)",
             "void stat_reduce::(anonymous namespace)::finish_kernel(...)",
             "void (anonymous namespace)::bwd_partial_kernel<float, true>()"):
         assert smoke.part_of(name) == kernels, name
