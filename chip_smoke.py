@@ -36,10 +36,10 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    other shapes (B 8; B 37 at H 128; B 5 at H 37, the kernels' one-float
    copies), on h' (and c') and on the
    autograd.Function's gradients of every input but the mask, within 1e-4
-   * max(1, max |ref|), masked rows copied bit for bit, the GRU (3xTF32 on
-   the tensor cores) also per row against ``_tf32x3_gru_step`` with
-   ``terms=1`` shown to fail at B 256, its registers and local memory (a
-   spill fails); the conv kernels (7a, 7b: the batch-norm
+   * max(1, max |ref|), masked rows copied bit for bit, both (3xTF32 on
+   the tensor cores) also per row against ``_tf32x3_lstm_step`` and
+   ``_tf32x3_gru_step`` with ``terms=1`` shown to fail at B 128 and B 256,
+   their registers and local memory (a spill fails); the conv kernels (7a, 7b: the batch-norm
    statistic passes; 8, 9: the 1x1 and 3x3 convs with the statistics in
    their epilogue) at every distinct shape ResNet-50 gives them at batch
    128, at ragged shapes and (7a, 7b) at rank 2, on y, sum, sum of
@@ -77,8 +77,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    timed by the sweep, phase 10), with CUDA events, L2
    flushed between launches, each beside its bound (float32 FMAs at 67
    TFLOP/s, bf16 tensor cores at 989 TFLOP/s, three TF32 products at 495
-   TFLOP/s for the float32 kernels 1, 2, 3, 6, 8 and 9, beside their FMA
-   floor, or bytes at 3.35 TB/s); those six also beside the parent's
+   TFLOP/s for the float32 kernels 1, 2, 3, 5, 6, 8 and 9, beside their
+   FMA floor, or bytes at 3.35 TB/s); those seven also beside the parent's
    CUDA-core kernels they replaced (built from MMA_SASS_BASE's
    ``flash_bwd.cu``, ``flash_fwd.cu`` and ``conv_bn.cu`` and SASS_BASE's
    ``rnn_step.cu``: PARENT_SIMT), and the kernels
@@ -169,7 +169,7 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 CUDA-core
-   instances of ``rnn_step.cu`` (the LSTM's) and ``bn_stats.cu`` against
+   instances of ``bn_stats.cu`` against
    the build of their sources before the bf16 instances, kept in
    SASS_BASE; the sweep's four f32-dot instances
    against ``flash_fwd.cu`` before its tensor-core bf16 kernel, kept in
@@ -593,18 +593,21 @@ TF32_ROW_TOL, TF32_ROW_Q99_TOL = 2.0 ** -7, 2.0 ** -16
 # flash_fwd.cu (kernel 1's float32 instance) and conv_bn.cu (kernels 9's
 # and 8's), whose float32 instances are the SIMT kernels as they last ran
 # and were pinned to the same machine code (sass_phase) until they went,
-# and SASS_BASE's rnn_step.cu (kernel 6, pinned the same way until its
-# tensor-core kernel), each built as ops/_build builds a source: {name:
-# (the folder of its source, its entries)}
+# and SASS_BASE's rnn_step.cu (kernels 6 and 5, each pinned the same way
+# until its tensor-core kernel), each built as ops/_build builds a source:
+# {name: (the folder of its source, its entries)}
 PARENT_SIMT = {"flash_bwd": ("bd128be", ("flash_bwd_dkdv_f32",
                                          "flash_bwd_dq_f32")),
                "flash_fwd": ("bd128be", ("flash_fwd_f32",)),
                "conv_bn": ("bd128be", ("conv3x3_stats_f32",
                                        "matmul_stats_f32")),
-               "rnn_step": ("", ("gru_step_f32",))}
-# a parent entry whose arguments are not the port's: the GRU's, which took
-# z and r h scratch and no split
+               "rnn_step": ("", ("gru_step_f32", "lstm_step_f32"))}
+# the parent entries whose arguments are not the port's: the GRU's, which
+# took z and r h scratch and no split, and the LSTM's, which took no
+# scratch, counters or split
 PARENT_SIGNATURES = {"gru_step_f32": [ctypes.c_void_p] * 9
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                     "lstm_step_f32": [ctypes.c_void_p] * 8
                      + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
@@ -1781,32 +1784,46 @@ def _rnn_args(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32)):
             randn(3 * h, scale=0.1), m)
 
 
-def _hold_gru_tf32(fr, what, args, got, fault=False) -> dict:
-    """Kernel 6's h' (3xTF32) against its arithmetic in plain torch,
-    ``_tf32x3_gru_step``, on the same operands: each row as ``_tf32_holds``
-    holds the flash kernels' rows; with ``fault`` the planted fault
-    (``terms=1``, one TF32 product), which must fail.  Returns {row_err,
-    row_err_q99[, terms_1_...]}."""
+def _hold_rnn_tf32(fr, kind, what, args, got, fault=False) -> dict:
+    """Kernel 5's h' and c' or kernel 6's h' (3xTF32) against their
+    arithmetic in plain torch, ``_tf32x3_lstm_step`` or
+    ``_tf32x3_gru_step``, on the same operands: each row as
+    ``_tf32_holds`` holds the flash kernels' rows; with ``fault`` the
+    planted fault (``terms=1``, one TF32 product), which must fail on some
+    output.  Returns {row_err, row_err_q99[, terms_1_...]}, the worst
+    over the outputs."""
+    num, ref_fn = ((5, fr._tf32x3_lstm_step) if kind == "lstm"
+                   else (6, fr._tf32x3_gru_step))
+    names = ("h'", "c'") if kind == "lstm" else ("h'",)
+
+    def outs(t):
+        return t if isinstance(t, tuple) else (t,)
+
     with torch.no_grad():
-        ref = fr._tf32x3_gru_step(*args)
-        worst, q99, ok = _tf32_holds(got, ref)
-        if not ok:
-            raise AssertionError(f"{what}: kernel 6 disagrees with "
-                                 f"_tf32x3_gru_step: rows largest {worst}, "
+        ref = outs(ref_fn(*args))
+        holds = [_tf32_holds(a, r) for a, r in zip(got, ref)]
+        worst = max(h_[0] for h_ in holds)
+        q99 = max(h_[1] for h_ in holds)
+        if not all(h_[2] for h_ in holds):
+            raise AssertionError(f"{what}: kernel {num} disagrees with "
+                                 f"{ref_fn.__name__}: rows largest {worst}, "
                                  f"{BWD_MMA_ROW_Q:.0%} {q99} (limits "
                                  f"{TF32_ROW_TOL}, {TF32_ROW_Q99_TOL})")
         out = dict(row_err=worst, row_err_q99=q99)
         if fault:
-            bworst, bq99, bok = _tf32_holds(
-                fr._tf32x3_gru_step(*args, terms=1), ref)
-            if bok:
-                raise AssertionError(f"{what}: the kernel 6 check passes the "
-                                     f"planted fault (one TF32 product): "
-                                     f"{bworst}, {bq99}")
+            bad = [_tf32_holds(a, r) for a, r in
+                   zip(outs(ref_fn(*args, terms=1)), ref)]
+            bworst = max(b_[0] for b_ in bad)
+            bq99 = max(b_[1] for b_ in bad)
+            if all(b_[2] for b_ in bad):
+                raise AssertionError(f"{what}: the kernel {num} check passes "
+                                     f"the planted fault (one TF32 product):"
+                                     f" {bworst}, {bq99}")
             out.update(terms_1_row_err=bworst, terms_1_row_err_q99=bq99)
-    print(f"{what}: kernel 6 (3xTF32) against _tf32x3_gru_step: h' rows "
-          f"(largest, {BWD_MMA_ROW_Q:.0%}) {worst:.3e} {q99:.3e} (limits "
-          f"{TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e})" + (
+    print(f"{what}: kernel {num} (3xTF32) against {ref_fn.__name__}: "
+          + ", ".join(f"{n} rows (largest, {BWD_MMA_ROW_Q:.0%}) {h_[0]:.3e} "
+                      f"{h_[1]:.3e}" for n, h_ in zip(names, holds))
+          + f" (limits {TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e})" + (
               f"; planted fault (one TF32 product, terms=1; must fail): "
               f"{bworst:.3e} {bq99:.3e}" if fault else ""), flush=True)
     return out
@@ -1817,10 +1834,10 @@ def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32),
     """The kernel against its plain version at [B, H] on x and the mask in
     ``dtypes`` (the rest float32): values (masked rows copied bit for bit)
     and, through the autograd.Function, the gradients of every input but
-    the mask; the GRU also per row against ``_tf32x3_gru_step``
-    (``_hold_gru_tf32``, with ``fault`` its planted fault).  Returns (max
-    abs error, max error relative to max(1, max |ref|), the GRU's row
-    errors or None)."""
+    the mask; and per row against the kernel's own arithmetic,
+    ``_tf32x3_lstm_step`` or ``_tf32x3_gru_step`` (``_hold_rnn_tf32``, with
+    ``fault`` its planted fault).  Returns (max abs error, max error
+    relative to max(1, max |ref|), the row errors)."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
     step = fr.lstm_step if kind == "lstm" else fr.gru_step
@@ -1855,9 +1872,9 @@ def _rnn_check(kind, b, h, dev, gen, dtypes=(torch.float32, torch.float32),
         f" x {_dt(dtypes[0])}, mask {_dt(dtypes[1])}")
     print(f"{kind}_step{tag} B={b} H={h} ({int(dead.sum())} masked rows): "
           f"error / max(1, max |ref|): " + ", ".join(line), flush=True)
-    rows = None if kind == "lstm" else _hold_gru_tf32(
-        fr, f"gru_step{tag} B={b} H={h}", [t.detach() for t in args],
-        got[0].detach(), fault)
+    rows = _hold_rnn_tf32(
+        fr, kind, f"{kind}_step{tag} B={b} H={h}",
+        [t.detach() for t in args], tuple(t.detach() for t in got), fault)
     return worst_abs, worst_rel, rows
 
 
@@ -1876,20 +1893,35 @@ def _gru_parent(lib, fr, x, h, wg, wc, bias, m):
     return out
 
 
+def _lstm_parent(lib, x, h, c, w, bias, m):
+    """One call of the parent's CUDA-core LSTM step: (h', c')."""
+    from paddle_tpu_torch.ops import _build
+
+    bsz, hd = h.shape
+    h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+    err = lib.lstm_step_f32(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), m.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        bsz, hd, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "the parent's lstm_step_f32")
+    return h_out, c_out
+
+
 def rnn_phase(dev, gen, flush, parents=None):
     """Kernels 5 and 6 against their plain versions (values and the
     autograd.Function's gradients) at the routes' shapes and at ragged
-    ones, kernel 6 (3xTF32) also per row against ``_tf32x3_gru_step`` with
-    its planted fault and its registers and local memory (a spill fails);
-    then their device times (``time_ms(lead=True)``: a step is about as
-    short as its launch) beside their bounds (kernel 6's at three TF32
-    products a float32 one, beside the FMA floor), the plain step's, the
-    cuBLAS product's alone (``torch.addmm``, the product's floor - no one
-    PyTorch call computes either step) and, from ``parents``, the parent's
-    CUDA-core GRU step."""
+    ones, and (3xTF32) per row against ``_tf32x3_lstm_step`` and
+    ``_tf32x3_gru_step`` with their planted faults, and their registers
+    and local memory (a spill fails); then their device times
+    (``time_ms(lead=True)``: a step is about as short as its launch)
+    beside their bounds (three TF32 products a float32 one, beside the FMA
+    floor), the plain step's, the cuBLAS product's alone (``torch.addmm``,
+    the product's floor - no one PyTorch call computes either step) and,
+    from ``parents``, the parent's CUDA-core step."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
     out = {}
+    plib = None if parents is None else parent_lib(parents, "rnn_step")
     for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
         errs = [_rnn_check(kind, bb, hh, dev, gen, fault=bb == b)
                 for bb, hh in ((b, RNN_H), (8, RNN_H), (37, 128), (5, 37))]
@@ -1912,40 +1944,43 @@ def rnn_phase(dev, gen, flush, parents=None):
                              torch.addmm(bias[2 * H:], h, wc))
             flops = 2.0 * live * H * 3 * H
             nbytes = 4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b)
-        extra = {}
-        if kind == "gru":
-            res = fr.gru_tf32_resources()
-            print("gru_step float32 (3xTF32) kernel's resources "
-                  "(cudaFuncGetAttributes, by phase and copy width): "
-                  + ", ".join(f"{n} {r} registers, {l_} bytes local"
-                              for n, (r, l_) in res.items()), flush=True)
-            if any(l_ for _, l_ in res.values()):
-                raise AssertionError(f"the GRU kernel spills: {res}")
-            extra = dict(registers=max(r for r, _ in res.values()),
-                         local_bytes=max(l_ for _, l_ in res.values()),
-                         resources=res,
-                         tf32=[e[2] for e in errs],
-                         fma_bound_ms=bound(flops, nbytes)[0])
-            if parents is not None:
-                plib = parent_lib(parents, "rnn_step")
-                _hold("the parent's gru_step_f32", [(
-                    "h'", _gru_parent(plib, fr, x, h, wg, wc, bias, m),
-                    plain())])
+        res = (fr.lstm_tf32_resources() if kind == "lstm"
+               else fr.gru_tf32_resources())
+        print(f"{kind}_step float32 (3xTF32) kernel's resources "
+              f"(cudaFuncGetAttributes, by "
+              f"{'copy width' if kind == 'lstm' else 'phase and copy width'}"
+              f"): " + ", ".join(f"{n} {r} registers, {l_} bytes local"
+                                 for n, (r, l_) in res.items()), flush=True)
+        if any(l_ for _, l_ in res.values()):
+            raise AssertionError(f"the {kind} kernel spills: {res}")
+        extra = dict(registers=max(r for r, _ in res.values()),
+                     local_bytes=max(l_ for _, l_ in res.values()),
+                     resources=res, tf32=[e[2] for e in errs],
+                     fma_bound_ms=bound(flops, nbytes)[0])
+        if kind == "lstm":
+            parent = lambda: _lstm_parent(plib, x, h, c, w, bias, m)  # noqa
+            ref_names = ("h'", "c'")
+        else:
+            parent = lambda: (                                        # noqa
+                _gru_parent(plib, fr, x, h, wg, wc, bias, m),)
+            ref_names = ("h'",)
+        if plib is not None:
+            with torch.no_grad():
+                got_p, ref_p = parent(), plain()
+            ref_p = ref_p if isinstance(ref_p, tuple) else (ref_p,)
+            _hold(f"the parent's {kind}_step_f32",
+                  list(zip(ref_names, got_p, ref_p)))
         with torch.no_grad():
             t = {"ms": time_ms(kernel, flush, lead=True),
                  "plain_ms": time_ms(plain, flush, lead=True),
                  "addmm_ms": time_ms(floor, flush, lead=True)}
-            if kind == "gru" and parents is not None:
-                t["parent_simt_ms"] = time_ms(
-                    lambda: _gru_parent(plib, fr, x, h, wg, wc, bias, m),
-                    flush, lead=True)
-        # kernel 6's product as three TF32 products at TF32's dense peak
-        b_ms, b_by = (bound(flops, nbytes) if kind == "lstm" else
-                      bound(3 * flops, nbytes, PEAK_TF32_FLOPS))
+            if plib is not None:
+                t["parent_simt_ms"] = time_ms(parent, flush, lead=True)
+        # the product as three TF32 products at TF32's dense peak
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         print(f"{kind}_step at B {b}, H {H} ({live} live rows): ms "
-              f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by}"
-              + (", 3xTF32 at the TF32 peak)  fma_bound_ms "
-                 f"{extra['fma_bound_ms']:.4f}" if extra else ")")
+              f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by}, 3xTF32 at the "
+              f"TF32 peak)  fma_bound_ms {extra['fma_bound_ms']:.4f}"
               + f"  plain_ms {t['plain_ms']:.4f}  library_ms none (no one "
               f"PyTorch call computes the step); the product alone "
               f"(torch.addmm, its floor) {t['addmm_ms']:.4f}"
@@ -2752,12 +2787,10 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
                 t = {"ms": time_ms(kernel, flush, lead=True),
                      "plain_ms": time_ms(plain, flush, lead=True),
                      "addmm_ms": time_ms(floor, flush, lead=True)}
-            # kernel 6's float32 product as three TF32 products, beside
-            # the FMA floor
-            b_ms, b_by = (bound(flops, nbytes) if kind == "lstm" else
-                          bound(3 * flops, nbytes, PEAK_TF32_FLOPS))
-            if kind == "gru":
-                t["fma_bound_ms"] = bound(flops, nbytes)[0]
+            # the float32 product as three TF32 products, beside the FMA
+            # floor
+            b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            t["fma_bound_ms"] = bound(flops, nbytes)[0]
             key = f"x {_dt(dts[0])}, mask {_dt(dts[1])}"
             print(f"{kind}_step {tag} ({key}) at B {b}, H {H} ({live} live "
                   f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
@@ -3052,12 +3085,12 @@ def mixed_skip_phase(dev):
 
 # the float32 instances the bf16 templates must leave alone:
 # (source, the kernel's name in the earlier build, in the new one).  The
-# float32 flash backward pair and kernels 9's, 8's and 6's float32
+# float32 flash backward pair and kernels 9's, 8's, 6's and 5's float32
 # instances (gemm_stats_kernel<Conv3x3A<float>>, gemm_stats_kernel<
-# DenseA<float>, vec>, gru_gates_kernel<float> and gru_cand_kernel<float,
-# float>) were pinned here until the 3xTF32 kernels replaced them.
+# DenseA<float>, vec>, gru_gates_kernel<float>, gru_cand_kernel<float,
+# float> and lstm_step_kernel<float, float>) were pinned here until the
+# 3xTF32 kernels replaced them.
 SASS_KERNELS = (
-    ("rnn_step.cu", "lstm_step_kernelEPKf", "lstm_step_kernelIffE"),
     ("bn_stats.cu", "fwd_partial_kernelEPKf", "fwd_partial_kernelIfE"),
     ("bn_stats.cu", "bwd_partial_kernelILb1E", "bwd_partial_kernelIfLb1E"),
     ("bn_stats.cu", "bwd_partial_kernelILb0E", "bwd_partial_kernelIfLb0E"),
@@ -3066,8 +3099,8 @@ SASS_KERNELS = (
 # (SASS_BASE_REV; bn_stats.cu and stat_reduce.cuh are the same blobs there
 # as at the revision before their own bf16 instances), kept in SASS_BASE
 # so that a checkout without history compares them too, each file pinned
-# by its git blob id at that revision; rnn_step.cu's GRU is the parent's
-# CUDA-core step (PARENT_SIMT)
+# by its git blob id at that revision; rnn_step.cu, whose kernels are no
+# longer pinned, is the parent's CUDA-core LSTM and GRU steps (PARENT_SIMT)
 SASS_BASE_REV = "704dbc822bcc64241779e3b269892a62eb6b8e70"
 SASS_BASE = "paddle_tpu_torch/tools/sass_base"
 SASS_BASE_BLOBS = {

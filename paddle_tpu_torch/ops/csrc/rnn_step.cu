@@ -15,71 +15,62 @@
 // and a row whose mask is 0 copies its old h (and c) bit for bit.
 //
 // What bounds them on the H100.  At the LSTM route's shape (B 128, H 512)
-// a step is 2 * 128 * 512 * 2048 flops against ~6.3 MB of traffic, 4.0 us
-// of float32 FMAs against 1.9 us of bytes; at the NMT encoder's GRU (B
-// 256, H 512) 0.40 GFLOP, 6.0 us of FMAs, 2.4 us as three TF32 products at
-// 495 TFLOP/s, against ~5.6 MB, 1.7 us of bytes.  Both are too small to
-// fill the card at full rate, so the designs aim at parallelism first.
+// a step is 0.27 GFLOP (2 * 128 * 512 * 2048), 1.6 us as three TF32
+// products at 495 TFLOP/s (4.0 us of float32 FMAs), against ~6.3 MB, 1.9
+// us of bytes; at the NMT encoder's GRU (B 256, H 512) 0.40 GFLOP, 2.4 us
+// as three TF32 products (6.0 us of FMAs), against ~5.6 MB, 1.7 us of
+// bytes.  Both are too small to fill the card at full rate, so the designs
+// aim at parallelism first.
 //
-// LSTM (lstm_step_kernel), on the CUDA cores' float32 FMAs:
-// - tile_product: a block owns a 16-row x 128-column tile of the product
-//   and splits its depth over 4 groups of 128 threads (512 a block, 16
-//   warps on an SM where a single group would give 4: the warps that hide
-//   each other's latency).  A group stages 16-deep slices of h and of the
-//   weight columns in its own shared memory, the next slice's loads in
-//   flight while the current one is multiplied; each thread accumulates 2
-//   rows x 8 columns, and the groups' partial sums meet in shared memory
-//   (a fixed order: the result is the same on every run).  W is read from
-//   device memory (it stays in the 50 MB L2 from one step to the next, the
-//   CUDA side of the TPU kernel's VMEM-resident weights).
-// - The gate math is separable per hidden unit, so a block takes 32 units
-//   and gathers their four gate columns (u, H+u, 2H+u, 3H+u) into its 128
-//   tile columns; a thread then holds all four gates of its 2 units and
-//   finishes them in registers.  Grid (H / 32, B / 16): 128 blocks at B
-//   128, H 512.
+// Both run on the tensor cores as split TF32 (mma_tf32.cuh): every product
+// a . b is three mma.sync m16n8k8 TF32 products, lo_a.hi_b + hi_a.lo_b +
+// hi_a.hi_b, of the operands' splits x = hi + lo, accumulated in float32,
+// within 3 * 2^-22 of |a||b| (ops/fused_rnn.py::_tf32x3_lstm_step and
+// ::_tf32x3_gru_step are this arithmetic in plain torch).  One product
+// tile serves both (copy_a_panel, split_w_panel, panel_product, publish,
+// fold):
+// - A block of 8 warps owns 128 batch rows x kBN product columns, each warp
+//   32 x kBN / 2.  Its W panel, [K range, kBN], is read from memory once,
+//   split once into TF32 hi and lo planes and kept in shared memory for the
+//   block's whole run, transposed to [n][k] (B fragments by ldmatrix); the
+//   A operand's panel (h, or r h: 128 rows of the split's at most 128
+//   columns) is copied by cp.async, all of it in flight while the W panel
+//   is read and split, and is split in registers as it is read.  Each
+//   32-deep slice's products go into fresh registers, added to the running
+//   sums in float32 (the tensor cores round each product's sum toward
+//   zero).
+// - W is read and split once for every 128 batch rows (once a call at the
+//   LSTM route's B 128, twice at the GRU's B 256), where the CUDA-core
+//   kernels before (16-row tiles) read it eight or sixteen times.
+// - The tiles are few (32 for the LSTM and the GRU's gates, 16 for its
+//   candidate), so K is split across blocks: at most kGMaxSlices slices a
+//   split (the W panel's shared memory), as few splits as that allows (each
+//   split more is more partial sums to write and fold: on the H100 more,
+//   shorter splits were slower), 4 at H 512: 128 blocks (the candidate's
+//   64).  Each block writes its tile's partial sums to scratch, fences, and
+//   adds one to the tile's arrival counter; the block that arrives last
+//   adds the partials in split order (a fixed order: the same result on
+//   every run, with no float atomics and no block waiting for another),
+//   applies the gate math and puts the counter back to 0 for the next
+//   launch.  That last block's tail is most of a launch's time beside the
+//   products, so it walks the tile in row order, 16 bytes a thread a load
+//   and a store, each round's operands loaded at once before its math.
+// - Ragged edges (B not a multiple of 128, H not a multiple of the tile's
+//   units or slices) read zeros and skip their writes, so any B and H
+//   launch; W, the copy width of A, of the W panel and of the last block's
+//   tail, is 4 floats (16-byte copies, loads and stores: H a multiple of 4,
+//   h, c, the weights and b aligned, x aligned to 4 of its elements) or 1.
 //
-// GRU (gru_tf32_kernel<kPhase, X, M, W>), on the tensor cores as split
-// TF32 (mma_tf32.cuh): every product a . b is three mma.sync m16n8k8 TF32
-// products, lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, of the operands' splits x =
-// hi + lo, accumulated in float32, within 3 * 2^-22 of |a||b|
-// (ops/fused_rnn.py::_tf32x3_gru_step is this arithmetic in plain torch).
-// The candidate's product needs the whole r h row, so one wrapper call is
-// two launches of the same kernel: phase 0 takes the [B, 2H] product h W_g
-// and writes z and r h to scratch ([B, H] each), phase 1 the [B, H]
-// product (r h) W_c and blends.  Each:
-// - A block of 8 warps owns 128 batch rows x 64 product columns, each warp
-//   32 x 32 (conv_bn.cu's float32 tile).  Its W panel, [K range, 64], is
-//   read from memory once, split once into TF32 hi and lo planes and kept
-//   in shared memory for the block's whole run, transposed to [n][k] (B
-//   fragments by ldmatrix); the A operand's panel (h, or r h: 128 rows
-//   of the split's at most 128 columns) is copied by cp.async, all of it
-//   in flight while the W panel is read and split, and is split in
-//   registers as it is read.  Each 32-deep slice's products go into fresh
-//   registers, added to the running sums in float32 (the tensor cores
-//   round each product's sum toward zero).
-// - W is read and split once for every 128 batch rows: at B 256, H 512
-//   twice a call, 6 MB of L2 reads, where the CUDA-core pair (16-row tiles)
-//   read its 3 MB sixteen times, 48 MB; A is read once for each 64 product
-//   columns, 24 times, 12 MB (the pair: 12 times, 6 MB); and the split
-//   sums below write and read 12 MB: 30 MB a call against 54.
-// - The tiles are few (32 for the gates, 16 for the candidate at B 256), so
-//   K is split across blocks: at most kGMaxSlices slices a split (the W
-//   panel's shared memory), as few splits as that allows (each split more
-//   is more partial sums to write and fold: on the H100 more, shorter
-//   splits were slower), 4 at H 512: 128 and 64 blocks.  Each block writes
-//   its tile's partial sums to scratch, fences, and adds one to the tile's
-//   arrival counter; the block that arrives last adds the partials in
-//   split order (a fixed order: the same result on every run, with no
-//   float atomics and no block waiting for another), applies the gate math
-//   and puts the counter back to 0 for the next launch.  That last block's
-//   tail is most of a launch's time beside the products, so it walks the
-//   tile in row order, 16 bytes a thread a load and a store, each round's
-//   operands loaded at once before its math.
-// - Ragged edges (B not a multiple of 128, H not a multiple of 32 or 64)
-//   read zeros and skip their writes, so any B and H launch; W, the copy
-//   width of A, of the W panel and of the last block's tail, is 4 floats
-//   (16-byte copies, loads and stores: H a multiple of 4, h, the weights,
-//   b and x aligned) or 1.
+// LSTM (lstm_tf32_kernel<kU, X, M, W>): one launch a call.  A tile's 4 kU
+// columns are the four gates of kU hidden units (u0..u0 + kU - 1, W's
+// columns gate * H + u: LstmCols), so the block that folds a tile holds
+// every gate of its units and finishes c' and h' itself; W's gathered
+// columns are runs of kU units, so the 16-byte copies stay.
+// GRU (gru_tf32_kernel<kPhase, X, M, W>): the candidate's product needs the
+// whole r h row, so one wrapper call is two launches of the same kernel:
+// phase 0 takes the [B, 2H] product h W_g and writes z and r h to scratch
+// ([B, H] each), phase 1 the [B, H] product (r h) W_c and blends; 64
+// product columns a tile.
 //
 // Every operand is a contiguous row-major array; b is read at an offset of
 // 2H for the GRU's candidate bias (the TPU wrapper passes it pre-split),
@@ -92,8 +83,7 @@
 // arithmetic stays float32, as in the Pallas kernels, which upcast every
 // operand; the outputs follow h and are float32.  The products read h (or
 // r h) and W only, so the 16-bit instances run the same products as the
-// float32 ones; lstm_step_kernel's float32 instance is the code before the
-// templates.
+// float32 ones.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -104,201 +94,28 @@
 
 namespace {
 
-constexpr int kBM = 16;                 // batch rows per tile
-constexpr int kBN = 128;                // product columns per tile
-constexpr int kBK = 16;                 // depth a group stages per pass
-constexpr int kTileThreads = 128;       // the threads of one tile's sums
-constexpr int kKG = 4;                  // groups splitting the depth
-constexpr int kThreads = kTileThreads * kKG;
-constexpr int kTX = 16;                 // threads across the columns
-constexpr int kTY = kTileThreads / kTX; // 8 across the rows
-constexpr int kTM = kBM / kTY;          // 2 rows a thread
-constexpr int kTN = kBN / kTX;          // 8 columns a thread, kTX apart
-constexpr int kAL = kBM * kBK / kTileThreads;  // elements of A a thread
-constexpr int kAR = kTileThreads / kBK;        // rows of A a pass covers
-constexpr int kUnits = kBN / 4;         // LSTM: hidden units per block
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// Column maps: tile column jj -> column of W, or -1 outside the matrix.
-struct LstmCols {           // jj -> gate jj / kUnits, unit u0 + jj % kUnits
-  int u0, H;
-  __device__ int operator()(int jj) const {
-    const int u = u0 + jj % kUnits;
-    return u < H ? (jj / kUnits) * H + u : -1;
-  }
-};
-
-// Load the kBK-deep slice at k0 that this thread stages: rows k0..k0+kBK-1
-// of W's column wcol (-1: outside W) and kAL elements of A, zeros outside.
-__device__ __forceinline__ void load_slice(const float* __restrict__ A,
-                                           int rows, int row0, int ar,
-                                           int akk,
-                                           const float* __restrict__ W,
-                                           int ldw, int K, int wcol, int k0,
-                                           float (&a_st)[kAL],
-                                           float (&w_st)[kBK]) {
-#pragma unroll
-  for (int e = 0; e < kBK; ++e) {
-    const int k = k0 + e;
-    w_st[e] = (k < K && wcol >= 0) ? W[(long long)k * ldw + wcol] : 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < kAL; ++e) {
-    const int row = row0 + ar + kAR * e, k = k0 + akk;
-    a_st[e] = (row < rows && k < K) ? A[(long long)row * K + k] : 0.f;
-  }
-}
-
-// tile_product's shared memory: each group's staged slices while the
-// groups multiply, then groups 1..kKG-1's partial sums (36.25 KB).
-union TileSmem {
-  struct {
-    float As[kKG][kBK][kBM + 1];
-    float Ws[kKG][kBK][kBN];
-  } st;
-  float red[kKG - 1][kTM * kTN][kTileThreads];
-};
-
-// acc[i][j] = sum_k A[row0 + ty * kTM + i][k] * W[k][cols(tx + kTX * j)]
-// for A [rows, K] and W [K, ldw], both row-major.  The block's kKG groups
-// of kTileThreads threads split the depth: group g takes the slices
-// k0 = (p * kKG + g) * kBK, each loaded into registers while the group
-// multiplies the previous one out of its own shared memory; then groups
-// 1..kKG-1 hand their sums to group 0 through shared memory.  Returns
-// true for group 0's threads, which hold the full sums (the others may
-// return from the kernel: no barrier follows).  Within a group, thread t
-// always stages tile column t of W (a warp reads 32 neighbouring columns
-// of one row) and kAL elements of A.
-template <typename Cols>
-__device__ __forceinline__ bool tile_product(const float* __restrict__ A,
-                                             int rows, int row0,
-                                             const float* __restrict__ W,
-                                             int ldw, int K, Cols cols,
-                                             float (&acc)[kTM][kTN]) {
-  static_assert(kTileThreads == kBN, "a thread stages one column of W");
-  __shared__ TileSmem sm;
-  const int g = threadIdx.x / kTileThreads, t = threadIdx.x % kTileThreads;
-  const int tx = t % kTX, ty = t / kTX;
-  const int wcol = cols(t), akk = t % kBK, ar = t / kBK;
-  const int passes = (K + kKG * kBK - 1) / (kKG * kBK);
-  float a_st[kAL], w_st[kBK];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  load_slice(A, rows, row0, ar, akk, W, ldw, K, wcol, g * kBK, a_st, w_st);
-  for (int p = 0; p < passes; ++p) {
-#pragma unroll
-    for (int e = 0; e < kBK; ++e) sm.st.Ws[g][e][t] = w_st[e];
-#pragma unroll
-    for (int e = 0; e < kAL; ++e) sm.st.As[g][akk][ar + kAR * e] = a_st[e];
-    __syncthreads();
-    if (p + 1 < passes)
-      load_slice(A, rows, row0, ar, akk, W, ldw, K, wcol,
-                 ((p + 1) * kKG + g) * kBK, a_st, w_st);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], w[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = sm.st.As[g][kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) w[j] = sm.st.Ws[g][kk][tx + kTX * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  if (g > 0) {
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) sm.red[g - 1][i * kTN + j][t] = acc[i][j];
-  }
-  __syncthreads();
-  if (g > 0) return false;
-#pragma unroll
-  for (int q = 0; q < kKG - 1; ++q)
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] += sm.red[q][i * kTN + j][t];
-  return true;
-}
-
-template <typename X, typename M>
-__global__ void __launch_bounds__(kThreads)
-lstm_step_kernel(const X* __restrict__ x, const float* __restrict__ h,
-                 const float* __restrict__ c, const float* __restrict__ w,
-                 const float* __restrict__ b, const M* __restrict__ m,
-                 float* __restrict__ h_out, float* __restrict__ c_out, int B,
-                 int H) {
-  const int row0 = blockIdx.y * kBM, u0 = blockIdx.x * kUnits;
-  float acc[kTM][kTN];
-  if (!tile_product(h, B, row0, w, 4 * H, H, LstmCols{u0, H}, acc))
-    return;
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  constexpr int kQ = kTN / 4;           // units a thread finishes
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = row0 + ty * kTM + i;
-    if (row >= B) continue;
-    const bool live = to_f(m[row]) > 0.f;
-    const X* xr = x + (long long)row * 4 * H;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      // thread column j = g * kQ + q is tile column kUnits * g + kTX * q
-      // + tx: gate g of unit u
-      const int u = u0 + kTX * q + tx;
-      if (u >= H) continue;
-      const long long at = (long long)row * H + u;
-      const float hv = h[at], cv = c[at];
-      if (!live) {
-        h_out[at] = hv;
-        c_out[at] = cv;
-        continue;
-      }
-      const float gi = to_f(xr[u]) + acc[i][q] + b[u];
-      const float gf = to_f(xr[H + u]) + acc[i][kQ + q] + b[H + u];
-      const float gc =
-          to_f(xr[2 * H + u]) + acc[i][2 * kQ + q] + b[2 * H + u];
-      const float go =
-          to_f(xr[3 * H + u]) + acc[i][3 * kQ + q] + b[3 * H + u];
-      const float c_new = sigmoid_f(gf) * cv + sigmoid_f(gi) * tanhf(gc);
-      h_out[at] = sigmoid_f(go) * tanhf(c_new);
-      c_out[at] = c_new;
-    }
-  }
-}
-
-template <typename X, typename M>
-int lstm_launch(const void* x, const void* h, const void* c, const void* w,
-                const void* b, const void* m, void* h_out, void* c_out,
-                int B, int H, void* stream) {
-  dim3 grid((H + kUnits - 1) / kUnits, (B + kBM - 1) / kBM);
-  lstm_step_kernel<X, M><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const X*)x, (const float*)h, (const float*)c, (const float*)w,
-      (const float*)b, (const M*)m, (float*)h_out, (float*)c_out, B, H);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------ kernel 6, tensor cores (3xTF32)
 using mma::copy_or_zero;
 using mma::static_for;
 
 constexpr int kGBM = 128;          // batch rows a block
-constexpr int kGBN = 64;           // product columns a block
+constexpr int kGBN = 64;           // the GRU's product columns a block
 constexpr int kGBK = 32;           // depth of a slice
 constexpr int kGThreads = 256;     // 8 warps: 4 along the rows x 2 columns
 constexpr int kGMaxSlices = 4;     // slices a split of K takes at most
 constexpr int kGPS = kGMaxSlices * kGBK + 4;   // padded row of A and planes
-constexpr size_t kGSmem = sizeof(float) * (kGBM + 2 * kGBN) * kGPS;
 static_assert(kGPS % 32 == 4,
               "ldmatrix's eight rows fall in distinct bank groups");
+
+// The dynamic shared memory of a block of kBN product columns: the A panel
+// [kGBM][kGPS], then the W panel's planes hi and lo, [kBN][kGPS] each.
+template <int kBN>
+constexpr size_t panel_smem() {
+  return sizeof(float) * (kGBM + 2 * kBN) * kGPS;
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.f / (1.f + expf(-x));
+}
 
 // Four consecutive x elements (16 bytes of float32, 8 of a 16-bit type) as
 // floats.
@@ -315,6 +132,456 @@ __device__ __forceinline__ float4 load_x4(const __half* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Column maps of a tile: tile column n -> the column of W it takes, or -1
+// outside W.  Both map each run of 4 columns from a multiple of 4 to 4
+// adjacent columns of W, all inside W or none when H is a multiple of 4.
+struct GruCols {            // columns c0.. of a product N wide
+  int c0, N;
+  __device__ int operator()(int n) const { return c0 + n < N ? c0 + n : -1; }
+};
+template <int kU>
+struct LstmCols {           // n -> gate n / kU of unit u0 + n % kU
+  int u0, H;
+  __device__ int operator()(int n) const {
+    const int u = u0 + n % kU;
+    return u < H ? n / kU * H + u : -1;
+  }
+};
+
+// The A panel: rows m0..m0 + 127 of a ([rows, K], row-major) and the
+// split's columns k0..k0 + 32 ns - 1 into smem ([kGBM][kGPS]), zeros
+// outside a, every copy in flight at once as one cp.async group (a split is
+// at most kGMaxSlices slices, so no stage is reused): a thread copies
+// columns ac..ac+W-1 of a slice's rows ar + j kRStep.
+template <int W>
+__device__ __forceinline__ void copy_a_panel(float* smem,
+                                             const float* __restrict__ a,
+                                             int rows, int K, int m0, int k0,
+                                             int ns) {
+  constexpr int kCpr = kGBK / W;
+  constexpr int kRStep = kGThreads / kCpr;
+  constexpr int kNR = kGBM / kRStep;
+  const int ar = threadIdx.x / kCpr, ac = (threadIdx.x % kCpr) * W;
+  for (int sl = 0; sl < ns; ++sl) {
+    const int k = k0 + sl * kGBK + ac;
+    const uint32_t dst = mma::smem_u32(smem + ar * kGPS + sl * kGBK + ac);
+    static_for<kNR>([&](auto jc) {
+      constexpr int j = decltype(jc)::value;
+      const int row = m0 + ar + j * kRStep;
+      const bool ok = row < rows && k < K;
+      copy_or_zero<W * 4, j * kRStep * kGPS * 4>(
+          dst, ok ? a + ((long long)row * K + k) : a, ok);
+    });
+  }
+  mma::cp_async_commit();
+}
+
+// The W panel: rows k0..k0 + rows - 1 (below K) of W's columns cols(0),
+// ..., cols(kBN - 1) (W row-major, ldw floats a row; zeros outside W),
+// split into the planes (row n, column k - k0), every load of a thread in
+// flight at once.  At W 4 lane (2 k + q) of a warp reads 16 bytes, the
+// q-th run of 4 columns of a pair in row k (sixteen 32-byte runs a warp),
+// and its plane stores (4 (4q + u) + k mod 32, for its u-th column) fall in
+// distinct banks; at W 1 lane (4 n + k) reads one float (four 32-byte
+// runs), stores at 4 n + k mod 32.
+template <int kBN, int W, typename Cols>
+__device__ __forceinline__ void split_w_panel(float* p_hi, float* p_lo,
+                                              const float* __restrict__ w,
+                                              int ldw, int K, int k0,
+                                              int rows, Cols cols) {
+  const int tid = threadIdx.x;
+  if constexpr (W == 4) {
+    constexpr int kPairs = kBN / 8;     // pairs of 4-column runs a row
+    constexpr int kLd = kGMaxSlices * kGBK * kBN / 4 / kGThreads;
+    float4 v[kLd];
+#pragma unroll
+    for (int i = 0; i < kLd; ++i) {
+      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
+      const int kk = blk / kPairs * 16 + (ln >> 1);
+      const int c = cols((blk % kPairs * 2 + (ln & 1)) * 4);
+      v[i] = kk < rows && k0 + kk < K && c >= 0
+                 ? __ldg(reinterpret_cast<const float4*>(
+                       w + (long long)(k0 + kk) * ldw + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kLd; ++i) {
+      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
+      const int kk = blk / kPairs * 16 + (ln >> 1);
+      const int n = (blk % kPairs * 2 + (ln & 1)) * 4;
+      if (kk >= rows) continue;
+      const float f[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        uint32_t hi, lo;
+        tf32::split(f[u], hi, lo);
+        p_hi[(n + u) * kGPS + kk] = __uint_as_float(hi);
+        p_lo[(n + u) * kGPS + kk] = __uint_as_float(lo);
+      }
+    }
+  } else {
+    constexpr int kGroups = kBN / 8;    // groups of 8 columns
+    constexpr int kLd = kGMaxSlices * kGBK * kBN / kGThreads;
+    float v[kLd];
+#pragma unroll
+    for (int i = 0; i < kLd; ++i) {
+      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
+      const int n = blk % kGroups * 8 + (ln >> 2);
+      const int kk = blk / kGroups * 4 + (ln & 3);
+      const int k = k0 + kk, c = cols(n);
+      v[i] = kk < rows && k < K && c >= 0 ? __ldg(w + (long long)k * ldw + c)
+                                          : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLd; ++i) {
+      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
+      const int n = blk % kGroups * 8 + (ln >> 2);
+      const int kk = blk / kGroups * 4 + (ln & 3);
+      if (kk >= rows) continue;
+      uint32_t hi, lo;
+      tf32::split(v[i], hi, lo);
+      p_hi[n * kGPS + kk] = __uint_as_float(hi);
+      p_lo[n * kGPS + kk] = __uint_as_float(lo);
+    }
+  }
+}
+
+// acc = the A panel times the W planes over the split's ns slices, warp
+// (wm, wn) = (warp % 4, warp / 4) its rows 32 wm + 16 i + g (+ 8) and
+// columns 8 kNT wn + 8 n + 2t (+ 1) of the tile: A fragments by ldmatrix,
+// split as read, and the W planes' two n-tiles an ldmatrix.  Each 32-deep
+// slice's products go into fresh registers, added to acc in float32.
+template <int kNT>
+__device__ __forceinline__ void panel_product(float (&acc)[2][kNT][4],
+                                              const float* smem,
+                                              const float* p_hi,
+                                              const float* p_lo, int ns) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int a_off = (warp & 3) * 32 * kGPS + tf32::a_lane<kGPS>(lane);
+  const int b_off = (warp >> 2) * kNT * 8 * kGPS + tf32::b_lane<kGPS>(lane);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  for (int it = 0; it < ns; ++it) {
+    float fr[2][kNT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fr[i][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kGBK / 8; ++kk) {
+      tf32::SplitB bw[kNT];
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        const int o = b_off + np * 16 * kGPS + it * kGBK + kk * 8;
+        tf32::SplitB two[2];
+        tf32::load_b2(two, p_hi + o, p_lo + o);
+        bw[2 * np] = two[0];
+        bw[2 * np + 1] = two[1];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tf32::SplitA af;
+        tf32::load_a(af, smem + a_off + i * 16 * kGPS + it * kGBK + kk * 8);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) tf32::mma3(fr[i][n], af, bw[n]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] += fr[i][n][e];
+  }
+}
+
+// This lane's sums (panel_product's rows and columns) to the block's share
+// of the partials, part[split = blockIdx.y][tile = blockIdx.x][kGBM][kBN],
+// then one arrival at the tile's counter.  True in the block that arrives
+// last: every split's partials of the tile are in, and the counter is back
+// to 0 for the next launch.
+template <int kBN, int kNT>
+__device__ __forceinline__ bool publish(float* part,
+                                        const float (&acc)[2][kNT][4],
+                                        unsigned* arrived) {
+  __shared__ bool s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x;
+  float* mine = part + ((long long)blockIdx.y * gridDim.x + tile) * kGBM * kBN;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        *reinterpret_cast<float2*>(
+            mine + (wm * 32 + i * 16 + g + 8 * half) * kBN + wn * kNT * 8 +
+            n * 8 + 2 * t) =
+            make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(arrived + tile, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return false;
+  __threadfence();
+  if (tid == 0) arrived[tile] = 0u;
+  return true;
+}
+
+// sum[e] = the float4 q[e] of the tile's partials, added over the splits in
+// split order (the same result on every run): tile_part is split 0's
+// partials of the tile as float4s, `step` the float4s from one split's
+// partials to the next's.
+template <int N>
+__device__ __forceinline__ void fold(float (&sum)[N][4],
+                                     const float4* tile_part, long long step,
+                                     int splits, const int (&q)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sum[e][u] = 0.f;
+  for (int j = 0; j < splits; ++j) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float4 p = __ldcg(tile_part + j * step + q[e]);
+      sum[e][0] += p.x;
+      sum[e][1] += p.y;
+      sum[e][2] += p.z;
+      sum[e][3] += p.w;
+    }
+  }
+}
+
+// Programmatic dependent launch: the next kernel of the stream may start
+// (launch_dependents), and this one waits here until the kernel before it
+// has finished and its writes are visible (wait; at once when the launch
+// did not allow the overlap).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------- kernel 5, LSTM
+// Block (tile, split): tile = row tile * n_col_tiles + unit tile, the unit
+// tile's kU units u0.. and its 4 kU product columns (LstmCols), K's slices
+// [split sps, (split + 1) sps); the partial sums go through part
+// ([split][tile][kGBM][4 kU] floats) and arrived (one zeroed counter a
+// tile).  With pdl (a launch that lets it start before the kernel before
+// it ends) the W panel, which no step writes, is read and split before the
+// wait, and h after it.
+template <int kU, typename X, typename M, int W>
+__global__ void __launch_bounds__(kGThreads, 1)
+lstm_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
+                 const float* __restrict__ c, const float* __restrict__ w,
+                 const float* __restrict__ b, const M* __restrict__ m,
+                 float* __restrict__ h_out, float* __restrict__ c_out,
+                 float* __restrict__ part, unsigned* __restrict__ arrived,
+                 int B, int H, int n_col_tiles, int sps, int pdl) {
+  static_assert(W == 4 || W == 1, "16-byte copies or one float");
+  constexpr int kBN = 4 * kU, kNT = kBN / 16;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* p_hi = smem + kGBM * kGPS;
+  float* p_lo = p_hi + kBN * kGPS;
+  const int tile = blockIdx.x, splits = gridDim.y;
+  const int m0 = tile / n_col_tiles * kGBM, u0 = tile % n_col_tiles * kU;
+  const int tid = threadIdx.x;
+  const int n_slices = (H + kGBK - 1) / kGBK;
+  const int s0 = blockIdx.y * sps;
+  const int ns = max(0, min(sps, n_slices - s0));   // this split's slices
+  const int k0 = s0 * kGBK;
+
+  launch_dependents();
+  if (!pdl) copy_a_panel<W>(smem, h, B, H, m0, k0, ns);
+  split_w_panel<kBN, W>(p_hi, p_lo, w, 4 * H, H, k0, ns * kGBK,
+                        LstmCols<kU>{u0, H});
+  if (pdl) {
+    wait_for_prior_grid();
+    copy_a_panel<W>(smem, h, B, H, m0, k0, ns);
+  }
+  float acc[2][kNT][4];
+  mma::cp_async_wait<0>();               // the A panel has landed
+  __syncthreads();                       // and the planes are in
+  panel_product<kNT>(acc, smem, p_hi, p_lo, ns);
+  if (!publish<kBN, kNT>(part, acc, arrived)) return;
+
+  // the last block to arrive: the tile's output runs (4 units of a row, 16
+  // bytes of h' and of c'; kOQ a row) in row order, kEpi a thread in rounds
+  // of kRound.  A round's runs each fold their four gates' partials in
+  // split order, every operand of the round loaded at once, then the gate
+  // math, only inside [B, H].  A thread's units u..u+3 are the same in
+  // every round (kGThreads is a multiple of kOQ), so b is read once.
+  constexpr int kOQ = kU / 4;
+  constexpr int kEpi = kGBM * kOQ / kGThreads;
+  constexpr int kRound = 2;
+  static_assert(kEpi % kRound == 0, "whole rounds");
+  const float4* tile_part =
+      reinterpret_cast<const float4*>(part) + (long long)tile * kGBM * kBN / 4;
+  const long long step = (long long)gridDim.x * kGBM * kBN / 4;
+  const int uq = tid % kOQ, u = u0 + 4 * uq;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float bv[4][4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    if constexpr (W == 4) {
+      const float4 bf =
+          u < H ? *reinterpret_cast<const float4*>(b + g * H + u) : zero;
+      bv[g][0] = bf.x, bv[g][1] = bf.y, bv[g][2] = bf.z, bv[g][3] = bf.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bv[g][e] = u + e < H ? b[g * H + u + e] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int rd = 0; rd < kEpi; rd += kRound) {
+    int q[kRound * 4];
+    float xv[kRound][4][4], hv[kRound][4], cv[kRound][4];
+    bool live[kRound];
+#pragma unroll
+    for (int r = 0; r < kRound; ++r) {
+      const int tr = (tid + (rd + r) * kGThreads) / kOQ;   // the tile's row
+      const int row = m0 + tr;
+      const bool rok = row < B;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) q[4 * r + g] = tr * (kBN / 4) + g * kOQ + uq;
+      live[r] = rok && to_f(m[row]) > 0.f;
+      const X* xr = x + (long long)row * 4 * H;
+      const long long at = (long long)row * H + u;
+      if constexpr (W == 4) {   // a whole run inside [B, H] or none of it
+        const bool ok = rok && u < H;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 xf = ok ? load_x4(xr + g * H + u) : zero;
+          xv[r][g][0] = xf.x, xv[r][g][1] = xf.y, xv[r][g][2] = xf.z,
+          xv[r][g][3] = xf.w;
+        }
+        const float4 hf = ok ? *reinterpret_cast<const float4*>(h + at) : zero;
+        const float4 cf = ok ? *reinterpret_cast<const float4*>(c + at) : zero;
+        hv[r][0] = hf.x, hv[r][1] = hf.y, hv[r][2] = hf.z, hv[r][3] = hf.w;
+        cv[r][0] = cf.x, cv[r][1] = cf.y, cv[r][2] = cf.z, cv[r][3] = cf.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = rok && u + e < H;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            xv[r][g][e] = ok ? to_f(xr[g * H + u + e]) : 0.f;
+          hv[r][e] = ok ? h[at + e] : 0.f;
+          cv[r][e] = ok ? c[at + e] : 0.f;
+        }
+      }
+    }
+    float sum[kRound * 4][4];
+    fold(sum, tile_part, step, splits, q);
+#pragma unroll
+    for (int r = 0; r < kRound; ++r) {
+      const int row = m0 + (tid + (rd + r) * kGThreads) / kOQ;
+      if (row >= B) continue;
+      float ho[4], co[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!live[r]) {
+          ho[e] = hv[r][e];
+          co[e] = cv[r][e];
+          continue;
+        }
+        const float gi = xv[r][0][e] + sum[4 * r][e] + bv[0][e];
+        const float gf = xv[r][1][e] + sum[4 * r + 1][e] + bv[1][e];
+        const float gc = xv[r][2][e] + sum[4 * r + 2][e] + bv[2][e];
+        const float go = xv[r][3][e] + sum[4 * r + 3][e] + bv[3][e];
+        co[e] = sigmoid_f(gf) * cv[r][e] + sigmoid_f(gi) * tanhf(gc);
+        ho[e] = sigmoid_f(go) * tanhf(co[e]);
+      }
+      const long long at = (long long)row * H + u;
+      if constexpr (W == 4) {
+        if (u < H) {
+          store4(h_out + at, ho);
+          store4(c_out + at, co);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (u + e >= H) continue;
+          h_out[at + e] = ho[e];
+          c_out[at + e] = co[e];
+        }
+      }
+    }
+  }
+}
+
+template <int kU, typename X, typename M>
+const void* lstm_fn(int width) {
+  return width == 4 ? (const void*)lstm_tf32_kernel<kU, X, M, 4>
+                    : (const void*)lstm_tf32_kernel<kU, X, M, 1>;
+}
+
+// One call: K in `splits` splits of whole slices; vec 1 for 16-byte
+// copies; pdl 1 to let the launch overlap the kernel before it.
+template <int kU, typename X, typename M>
+int lstm_launch(const void* x, const void* h, const void* c, const void* w,
+                const void* b, const void* m, void* h_out, void* c_out,
+                void* part, void* arrived, int B, int H, int vec, int splits,
+                int pdl, cudaStream_t st) {
+  const int n_col = (H + kU - 1) / kU, n_row = (B + kGBM - 1) / kGBM;
+  const int n_slices = (H + kGBK - 1) / kGBK;
+  const int sps = splits > 0 ? (n_slices + splits - 1) / splits : 0;
+  if (sps < 1 || sps > kGMaxSlices) return (int)cudaErrorInvalidValue;
+  auto* kernel = vec ? lstm_tf32_kernel<kU, X, M, 4>
+                     : lstm_tf32_kernel<kU, X, M, 1>;
+  constexpr size_t smem = panel_smem<4 * kU>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_row * n_col, splits);
+  cfg.blockDim = dim3(kGThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const X*)x, (const float*)h,
+                           (const float*)c, (const float*)w, (const float*)b,
+                           (const M*)m, (float*)h_out, (float*)c_out,
+                           (float*)part, (unsigned*)arrived, B, H, n_col, sps,
+                           pdl);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename X, typename M>
+int lstm_units(const void* x, const void* h, const void* c, const void* w,
+               const void* b, const void* m, void* h_out, void* c_out,
+               void* part, void* arrived, int B, int H, int vec, int units,
+               int splits, int pdl, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (units == 16)
+    return lstm_launch<16, X, M>(x, h, c, w, b, m, h_out, c_out, part,
+                                 arrived, B, H, vec, splits, pdl, st);
+  if (units == 32)
+    return lstm_launch<32, X, M>(x, h, c, w, b, m, h_out, c_out, part,
+                                 arrived, B, H, vec, splits, pdl, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ----------------------------------------------------------- kernel 6, GRU
 // Phase 0: the gates' product a W (a = h [B, H], w = W_g [H, 2H]), then
 // z = sig(x[:, :H] + . + b[:H]) and r h = sig(x[:, H:2H] + . + b[H:2H]) h
 // into z and rh; phase 1: the candidate's (a = rh, w = W_c [H, H]), then
@@ -333,173 +600,26 @@ gru_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
                 unsigned* __restrict__ arrived, int B, int H, int n_col_tiles,
                 int sps) {
   static_assert(W == 4 || W == 1, "16-byte copies or one float");
-  // the A panel [kGBM][kGPS]; the W panel's planes hi, lo [kGBN][kGPS]
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* p_hi = smem + kGBM * kGPS;
   float* p_lo = p_hi + kGBN * kGPS;
-  __shared__ bool s_last;
   const int N = kPhase == 0 ? 2 * H : H;    // product columns
-  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int tile = blockIdx.x, splits = gridDim.y;
   const int m0 = tile / n_col_tiles * kGBM, c0 = tile % n_col_tiles * kGBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x;
   const int n_slices = (H + kGBK - 1) / kGBK;
-  const int s0 = split * sps;
+  const int s0 = blockIdx.y * sps;
   const int ns = max(0, min(sps, n_slices - s0));   // this split's slices
   const int k0 = s0 * kGBK;
 
-  // the A panel, rows m0.. and the split's columns k0..k0 + 32 ns - 1,
-  // every copy in flight at once (a split is at most kGMaxSlices slices,
-  // so no stage is reused): a thread copies columns ac..ac+W-1 of a slice's
-  // rows ar + j kRStep
-  constexpr int kCpr = kGBK / W;
-  constexpr int kRStep = kGThreads / kCpr;
-  constexpr int kNR = kGBM / kRStep;
-  const int ar = tid / kCpr, ac = (tid % kCpr) * W;
-  for (int sl = 0; sl < ns; ++sl) {
-    const int k = k0 + sl * kGBK + ac;
-    const uint32_t dst = mma::smem_u32(smem + ar * kGPS + sl * kGBK + ac);
-    static_for<kNR>([&](auto jc) {
-      constexpr int j = decltype(jc)::value;
-      const int row = m0 + ar + j * kRStep;
-      const bool ok = row < B && k < H;
-      copy_or_zero<W * 4, j * kRStep * kGPS * 4>(
-          dst, ok ? a + ((long long)row * H + k) : a, ok);
-    });
-  }
-  mma::cp_async_commit();
-
-  // the W panel, rows k0..k0 + 32 ns - 1 and columns c0..c0 + 63 (zeros
-  // outside W), split into the planes (row n, column k) while the A panel
-  // lands, every load of a thread in flight at once.  At W 4
-  // lane (2 k + q) of a warp reads 16 bytes, columns 4q..4q+3 of row k
-  // (sixteen 32-byte runs a warp), and its plane stores (4 (4q + u) + k
-  // mod 32, for its u-th column) fall in distinct banks; at W 1 lane (4 n
-  // + k) reads one float (four 32-byte runs), stores at 4 n + k mod 32
-  const int rows = ns * kGBK;
-  if constexpr (W == 4) {
-    constexpr int kLd = kGMaxSlices * kGBK * kGBN / 4 / kGThreads;
-    float4 v[kLd];
-#pragma unroll
-    for (int i = 0; i < kLd; ++i) {
-      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
-      const int kk = (blk >> 3) * 16 + (ln >> 1);
-      const int c = c0 + ((blk & 7) * 2 + (ln & 1)) * 4;
-      v[i] = kk < rows && k0 + kk < H && c < N
-                 ? __ldg(reinterpret_cast<const float4*>(
-                       w + (long long)(k0 + kk) * N + c))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < kLd; ++i) {
-      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
-      const int kk = (blk >> 3) * 16 + (ln >> 1);
-      const int n = ((blk & 7) * 2 + (ln & 1)) * 4;
-      if (kk >= rows) continue;
-      const float f[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        uint32_t hi, lo;
-        tf32::split(f[u], hi, lo);
-        p_hi[(n + u) * kGPS + kk] = __uint_as_float(hi);
-        p_lo[(n + u) * kGPS + kk] = __uint_as_float(lo);
-      }
-    }
-  } else {
-    constexpr int kLd = kGMaxSlices * kGBK * kGBN / kGThreads;
-    float v[kLd];
-#pragma unroll
-    for (int i = 0; i < kLd; ++i) {
-      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
-      const int n = (blk & 7) * 8 + (ln >> 2), kk = (blk >> 3) * 4 + (ln & 3);
-      const int k = k0 + kk, c = c0 + n;
-      v[i] = kk < rows && k < H && c < N ? __ldg(w + (long long)k * N + c)
-                                         : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kLd; ++i) {
-      const int e = tid + i * kGThreads, blk = e >> 5, ln = e & 31;
-      const int n = (blk & 7) * 8 + (ln >> 2), kk = (blk >> 3) * 4 + (ln & 3);
-      if (kk >= rows) continue;
-      uint32_t hi, lo;
-      tf32::split(v[i], hi, lo);
-      p_hi[n * kGPS + kk] = __uint_as_float(hi);
-      p_lo[n * kGPS + kk] = __uint_as_float(lo);
-    }
-  }
-
+  copy_a_panel<W>(smem, a, B, H, m0, k0, ns);
+  split_w_panel<kGBN, W>(p_hi, p_lo, w, N, H, k0, ns * kGBK, GruCols{c0, N});
   float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-  // fragment corners: the warp's A rows (ldmatrix, split as read) and its
-  // 32 columns of the W planes (ldmatrix, two n-tiles a call)
-  const int a_off = wm * 32 * kGPS + tf32::a_lane<kGPS>(lane);
-  const int b_off = wn * 32 * kGPS + tf32::b_lane<kGPS>(lane);
   mma::cp_async_wait<0>();               // the A panel has landed
   __syncthreads();                       // and the planes are in
-  for (int it = 0; it < ns; ++it) {
-    float fr[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) fr[i][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kGBK / 8; ++kk) {
-      tf32::SplitB bw[4];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int o = b_off + np * 16 * kGPS + it * kGBK + kk * 8;
-        tf32::SplitB two[2];
-        tf32::load_b2(two, p_hi + o, p_lo + o);
-        bw[2 * np] = two[0];
-        bw[2 * np + 1] = two[1];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tf32::SplitA af;
-        tf32::load_a(af, smem + a_off + i * 16 * kGPS + it * kGBK + kk * 8);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) tf32::mma3(fr[i][n], af, bw[n]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] += fr[i][n][e];
-  }
-
-  // this lane's sums (rows 32 wm + 16 i + g (+ 8), columns 32 wn + 8 n +
-  // 2t (+ 1) of the tile) to the tile's partials, [split][tile][kGBM][kGBN]
-  const long long tile_sz = kGBM * kGBN;
-  float* mine = part + ((long long)split * gridDim.x + tile) * tile_sz;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        *reinterpret_cast<float2*>(
-            mine + (wm * 32 + i * 16 + g + 8 * half) * kGBN + wn * 32 +
-            n * 8 + 2 * t) =
-            make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    s_last = atomicAdd(arrived + tile, 1u) == (unsigned)(splits - 1);
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  if (tid == 0) arrived[tile] = 0u;
+  panel_product<4>(acc, smem, p_hi, p_lo, ns);
+  if (!publish<kGBN, 4>(part, acc, arrived)) return;
 
   // the last block to arrive: the tile in row order, 4 columns a thread a
   // group (16 threads a row: 16-byte loads and stores, whole lines), kEpi
@@ -508,32 +628,22 @@ gru_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
   // then the gate math, only inside [B, N]
   constexpr int kEpi = kGBM * kGBN / 4 / kGThreads;
   constexpr int kRound = kEpi / 2;
-  const float4* first = reinterpret_cast<const float4*>(
-      part + (long long)tile * tile_sz) + tid;
-  const long long step = (long long)gridDim.x * tile_sz / 4;
+  const float4* tile_part =
+      reinterpret_cast<const float4*>(part) + (long long)tile * kGBM * kGBN / 4;
+  const long long step = (long long)gridDim.x * kGBM * kGBN / 4;
   const int xo = kPhase == 0 ? 0 : 2 * H;    // x's and b's column offset
 #pragma unroll
   for (int rd = 0; rd < kEpi; rd += kRound) {
+    int qs[kRound];
+#pragma unroll
+    for (int e = 0; e < kRound; ++e) qs[e] = tid + (rd + e) * kGThreads;
     float sum[kRound][4];
-#pragma unroll
-    for (int e = 0; e < kRound; ++e)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) sum[e][u] = 0.f;
-    for (int j = 0; j < splits; ++j) {
-#pragma unroll
-      for (int e = 0; e < kRound; ++e) {
-        const float4 p = __ldcg(first + j * step + (rd + e) * kGThreads);
-        sum[e][0] += p.x;
-        sum[e][1] += p.y;
-        sum[e][2] += p.z;
-        sum[e][3] += p.w;
-      }
-    }
+    fold(sum, tile_part, step, splits, qs);
     float xv[kRound][4], bv[kRound][4], hv[kRound][4], zv[kRound][4];
     bool live[kRound];
 #pragma unroll
     for (int e = 0; e < kRound; ++e) {
-      const int q = tid + (rd + e) * kGThreads;
+      const int q = qs[e];
       const int row = m0 + (q >> 4), col = c0 + (q & 15) * 4;
       const bool rok = row < B;
       live[e] = kPhase == 1 && rok && to_f(m[row]) > 0.f;
@@ -574,7 +684,7 @@ gru_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
     }
 #pragma unroll
     for (int e = 0; e < kRound; ++e) {
-      const int q = tid + (rd + e) * kGThreads;
+      const int q = qs[e];
       const int row = m0 + (q >> 4), col = c0 + (q & 15) * 4;
       if (row >= B) continue;
       float out[4];
@@ -595,9 +705,7 @@ gru_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
                    : col < H   ? z + (long long)row * H + col
                                : rh + (long long)row * H + col - H;
       if constexpr (W == 4) {   // N and H multiples of 4: a whole group
-        if (col < N)
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(out[0], out[1], out[2], out[3]);
+        if (col < N) store4(dst, out);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -632,10 +740,11 @@ int gru_phase(const void* x, const void* h, const void* a, const void* w,
   if (sps < 1 || sps > kGMaxSlices) return (int)cudaErrorInvalidValue;
   auto* kernel = vec ? gru_tf32_kernel<kPhase, X, M, 4>
                      : gru_tf32_kernel<kPhase, X, M, 1>;
+  constexpr size_t smem = panel_smem<kGBN>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_row * n_col, splits), kGThreads, kGSmem, st>>>(
+  kernel<<<dim3(n_row * n_col, splits), kGThreads, smem, st>>>(
       (const X*)x, (const float*)h, (const float*)a, (const float*)w,
       (const float*)b, (const M*)m, (float*)z, (float*)rh, (float*)h_out,
       (float*)part, (unsigned*)arrived, B, H, n_col, sps);
@@ -663,11 +772,21 @@ int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
 // One C entry per instance: x and the mask float32 (f32), x bf16 with a
 // float32 mask (bf16), both bf16 (bf16_mbf16), x float16 with a float32
 // mask (f16), both float16 (f16_mf16).
+// The LSTM's scratch: part the split sums ([splits][tiles][128][4 units]
+// floats); arrived one zeroed uint32 counter a tile, left zero.  A tile
+// takes `units` hidden units (16 or 32) of 128 rows; K (= H) in `splits`
+// splits of at most 4 slices of 32.  vec 1: H a multiple of 4, h, c, w and
+// b 16-byte aligned, x aligned to 4 of its elements.  pdl 1: the launch
+// may overlap the kernel before it in the stream (programmatic dependent
+// launch).
 #define LSTM_ARGS                                                        \
   const void *x, const void *h, const void *c, const void *w,           \
-      const void *b, const void *m, void *h_out, void *c_out, int B,    \
-      int H, void *stream
-#define LSTM_PASS x, h, c, w, b, m, h_out, c_out, B, H, stream
+      const void *b, const void *m, void *h_out, void *c_out,           \
+      void *part, void *arrived, int B, int H, int vec, int units,      \
+      int splits, int pdl, void *stream
+#define LSTM_PASS                                                        \
+  x, h, c, w, b, m, h_out, c_out, part, arrived, B, H, vec, units,      \
+      splits, pdl, stream
 // The GRU's scratch: z and rh [B, H] float32; part the split sums
 // ([splits][tiles][128][64] floats for the gates' [B, 2H] tiles); arrived
 // one zeroed uint32 counter a tile, left zero.  K (= H) in `splits` splits
@@ -682,19 +801,19 @@ int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
   x, h, wg, wc, b, m, z, rh, h_out, part, arrived, B, H, vec, splits, stream
 
 extern "C" int lstm_step_f32(LSTM_ARGS) {
-  return lstm_launch<float, float>(LSTM_PASS);
+  return lstm_units<float, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_bf16(LSTM_ARGS) {
-  return lstm_launch<__nv_bfloat16, float>(LSTM_PASS);
+  return lstm_units<__nv_bfloat16, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_bf16_mbf16(LSTM_ARGS) {
-  return lstm_launch<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
+  return lstm_units<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
 }
 extern "C" int lstm_step_f16(LSTM_ARGS) {
-  return lstm_launch<__half, float>(LSTM_PASS);
+  return lstm_units<__half, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_f16_mf16(LSTM_ARGS) {
-  return lstm_launch<__half, __half>(LSTM_PASS);
+  return lstm_units<__half, __half>(LSTM_PASS);
 }
 extern "C" int gru_step_f32(GRU_ARGS) {
   return gru_launch<float, float>(GRU_PASS);
@@ -712,19 +831,34 @@ extern "C" int gru_step_f16_mf16(GRU_ARGS) {
   return gru_launch<__half, __half>(GRU_PASS);
 }
 
-// Registers and local memory (bytes a thread: stack and spills) of the
-// GRU's float32 instance of phase `phase` (0: the gates, 1: the candidate)
-// at copy width `width` (4 or 1 floats).
-extern "C" int gru_tf32_resources(int phase, int width, int* regs,
-                                  int* local_bytes) {
+namespace {
+int read_resources(const void* fn, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &attr, phase == 0 ? gru_fn<0, float, float>(width)
-                        : gru_fn<1, float, float>(width));
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
+}
+}  // namespace
+
+// Registers and local memory (bytes a thread: stack and spills) of the
+// LSTM's float32 instance with `units` units a tile (16 or 32) at copy
+// width `width` (4 or 1 floats).
+extern "C" int lstm_tf32_resources(int units, int width, int* regs,
+                                   int* local_bytes) {
+  return read_resources(units == 32 ? lstm_fn<32, float, float>(width)
+                                    : lstm_fn<16, float, float>(width),
+                        regs, local_bytes);
+}
+
+// The same for the GRU's float32 instance of phase `phase` (0: the gates,
+// 1: the candidate) at copy width `width`.
+extern "C" int gru_tf32_resources(int phase, int width, int* regs,
+                                  int* local_bytes) {
+  return read_resources(phase == 0 ? gru_fn<0, float, float>(width)
+                                   : gru_fn<1, float, float>(width),
+                        regs, local_bytes);
 }
 
 extern "C" const char* error_string(int code) {

@@ -16,11 +16,11 @@ the mask float32 (from an ``@len`` feed) or in x's dtype (no ``@len``:
 the recurrence's ones).  All arithmetic is float32, as in the Pallas
 kernels, which upcast every operand; h' and c' come back in h's and c's
 dtype, float32.  Any other combination on a CUDA tensor raises
-TypeError.  The LSTM's product runs on the CUDA cores' float32 FMAs, the
-GRU's on the tensor cores as split TF32 (3xTF32: every product three TF32
-products of the operands' hi and lo parts, within 3 * 2^-22 of |a||b|;
-``_tf32x3_gru_step`` in plain torch), at every dtype: its products read
-only float32 h and W.
+TypeError.  Both products run on the tensor cores as split TF32 (3xTF32:
+every product three TF32 products of the operands' hi and lo parts,
+within 3 * 2^-22 of |a||b|; ``_tf32x3_lstm_step`` and
+``_tf32x3_gru_step`` in plain torch), at every dtype: they read only
+float32 h and W.
 
 ``impl=None`` routes by where the tensors lie: a CUDA tensor runs the
 kernel (or raises), a CPU tensor takes the plain version; ``impl="torch"``
@@ -49,6 +49,22 @@ from paddle_tpu_torch.ops.paged_attention import _arrived
 def _lstm_step_ref(x_t, h, c, w, b, m_t):
     """The plain version: the LSTM layer's step without peephole."""
     g = x_t + h @ w + b
+    gi, gf, gc, go = g.chunk(4, dim=-1)
+    c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
+    h_new = torch.sigmoid(go) * torch.tanh(c_new)
+    live = m_t > 0
+    return torch.where(live, h_new, h), torch.where(live, c_new, c)
+
+
+def _tf32x3_lstm_step(x_t, h, c, w, b, m_t, terms: int = 3):
+    """The arithmetic of the LSTM kernel (the 3xTF32 ``lstm_tf32_kernel``
+    of ``csrc/rnn_step.cu``) in plain torch: ``_lstm_step_ref`` with h W
+    as ``_tf32x3`` (x_t and m_t in any of ``KERNEL_DTYPES``' dtypes, the
+    rest float32).  Never on the kernel route: the tests hold it against
+    the JAX package, ``chip_smoke.py`` the kernel against it.  ``terms=1``
+    takes the product as one TF32 product (hi . hi): a planted fault, which
+    the checks must catch."""
+    g = x_t.float() + _tf32x3("bk,kn->bn", h, w, terms) + b
     gi, gf, gc, go = g.chunk(4, dim=-1)
     c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
     h_new = torch.sigmoid(go) * torch.tanh(c_new)
@@ -92,27 +108,52 @@ KERNEL_DTYPES = {(_F32, _F32): "f32", (_BF16, _F32): "bf16",
                  (_BF16, _BF16): "bf16_mbf16", (_F16, _F32): "f16",
                  (_F16, _F16): "f16_mf16"}
 _SIGNATURES = {
-    **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
     **{f"gru_step_{sfx}": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
+    "lstm_tf32_resources": [ctypes.c_int] * 2
+                           + [ctypes.POINTER(ctypes.c_int)] * 2,
     "gru_tf32_resources": [ctypes.c_int] * 2
                           + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
-# the GRU kernel's geometry (csrc/rnn_step.cu): a block's batch rows and
-# product columns, the depth of a slice, the slices a split of K takes at
-# most (its W panel's shared memory)
-GRU_TILE = (128, 64)
-GRU_SLICE, GRU_MAX_SLICES = 32, 4
+# the kernels' geometry (csrc/rnn_step.cu): a block's batch rows, the
+# depth of a slice, the slices a split of K takes at most (its W panel's
+# shared memory); the GRU's product columns a block, the LSTM's hidden
+# units a block (four gates of each: 64 product columns)
+RNN_ROWS, RNN_SLICE, RNN_MAX_SLICES = 128, 32, 4
+GRU_COLS, LSTM_UNITS = 64, 16
+# whether an LSTM launch may overlap the kernel before it in the stream
+# (programmatic dependent launch: the W panel read and split before the
+# step before has ended)
+LSTM_PDL = False
 
 
-def _gru_splits(hd: int) -> int:
-    """The splits of K (= H) in both of the GRU kernel's launches: as few
-    as the kernel's shared memory allows, GRU_MAX_SLICES 32-deep slices
-    each, the last the rest.  Each split more adds a block's partial sums
-    to write and to fold, and on the H100 more splits (more blocks, each
-    with fewer slices) were slower at B 256, H 512."""
-    return -(-(-(-hd // GRU_SLICE)) // GRU_MAX_SLICES)
+def _splits(hd: int) -> int:
+    """The splits of K (= H) of both kernels (the GRU's two launches and
+    the LSTM's one): as few as the kernels' shared memory allows,
+    RNN_MAX_SLICES 32-deep slices each, the last the rest.  Each split
+    more adds a block's partial sums to write and to fold, and on the H100
+    more splits (more blocks, each with fewer slices) were slower at the
+    GRU's B 256, H 512."""
+    return -(-(-(-hd // RNN_SLICE)) // RNN_MAX_SLICES)
+
+
+def _lstm_grid(bsz: int, hd: int) -> tuple:
+    """The LSTM kernel's grid: (tiles, splits), a tile 128 batch rows and
+    LSTM_UNITS hidden units (their four gates' columns), K as ``_splits``
+    says; the launch is tiles x splits blocks, one an SM (the panels'
+    shared memory), 128 at the route's B 128, H 512."""
+    return -(-bsz // RNN_ROWS) * -(-hd // LSTM_UNITS), _splits(hd)
+
+
+def _vec(x_t, *floats) -> int:
+    """1 when the kernel may take 16-byte copies: H a multiple of 4 (the
+    last dim of every float32 operand's rows), x aligned to 4 of its
+    elements and every float32 operand to 16 bytes."""
+    return int(floats[0].shape[-1] % 4 == 0
+               and x_t.data_ptr() % (4 * x_t.element_size()) == 0
+               and all(t.data_ptr() % 16 == 0 for t in floats))
 
 
 def _entry(kind: str, x_t, m_t, floats) -> str:
@@ -150,7 +191,9 @@ def _check_operands(device, **operands) -> None:
 
 
 def lstm_step_cuda(x_t, h, c, w, b, m_t):
-    """Launch the LSTM step of ``csrc/rnn_step.cu``: returns (h', c'),
+    """Launch the LSTM step of ``csrc/rnn_step.cu`` (one launch over
+    ``_lstm_grid``'s tiles and splits, the split sums through scratch and
+    the stream's arrival counters): returns (h', c'),
     float32 [B, H] each.  x_t and m_t float32, bf16 or float16
     (``KERNEL_DTYPES``), the rest float32."""
     bsz, hd = h.shape
@@ -161,11 +204,17 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
     h_out, c_out = torch.empty_like(h), torch.empty_like(c)
     if h.numel() == 0:
         return h_out, c_out
+    tiles, splits = _lstm_grid(bsz, hd)
+    part = torch.empty(tiles * splits * RNN_ROWS * 4 * LSTM_UNITS,
+                       device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    arrived = _arrived(h.device, stream, tiles)
     lib = _build.load("rnn_step", _SIGNATURES)
     err = getattr(lib, entry)(
         x_t.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        bsz, hd, torch.cuda.current_stream(h.device).cuda_stream)
+        part.data_ptr(), arrived.data_ptr(), bsz, hd, _vec(x_t, h, c, w, b),
+        LSTM_UNITS, splits, int(LSTM_PDL), stream)
     _build.check(lib, err, "lstm_step")
     count_launch(lstm_step_cuda, x_t.dtype)
     return h_out, c_out
@@ -179,7 +228,7 @@ lstm_step_cuda.launches_f16 = 0
 def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
     """Launch the GRU step of ``csrc/rnn_step.cu`` (its kernel's two
     phases, gates then candidate, through [B, H] scratch for z and r*h,
-    K split as ``_gru_splits`` says, the split sums through scratch sized
+    K split as ``_splits`` says, the split sums through scratch sized
     for the gates' [B, 2H] tiles and the stream's arrival counters):
     returns h', float32 [B, H].  One call counts one launch, at every
     dtype.  Operand dtypes as ``lstm_step_cuda``."""
@@ -192,10 +241,9 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
     if h.numel() == 0:
         return h_out
     z, rh = torch.empty_like(h), torch.empty_like(h)
-    splits = _gru_splits(hd)
-    tiles = -(-bsz // GRU_TILE[0]) * -(-2 * hd // GRU_TILE[1])
-    part = torch.empty(tiles * splits * GRU_TILE[0] * GRU_TILE[1],
-                       device=h.device)
+    splits = _splits(hd)
+    tiles = -(-bsz // RNN_ROWS) * -(-2 * hd // GRU_COLS)
+    part = torch.empty(tiles * splits * RNN_ROWS * GRU_COLS, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     arrived = _arrived(h.device, stream, tiles)
     lib = _build.load("rnn_step", _SIGNATURES)
@@ -203,9 +251,7 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
         x_t.data_ptr(), h.data_ptr(), w_g.data_ptr(), w_c.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), z.data_ptr(), rh.data_ptr(),
         h_out.data_ptr(), part.data_ptr(), arrived.data_ptr(), bsz, hd,
-        int(hd % 4 == 0 and x_t.data_ptr() % (4 * x_t.element_size()) == 0
-            and all(t.data_ptr() % 16 == 0 for t in (h, w_g, w_c, b))),
-        splits, stream)
+        _vec(x_t, h, w_g, w_c, b), splits, stream)
     _build.check(lib, err, "gru_step")
     count_launch(gru_step_cuda, x_t.dtype)
     return h_out
@@ -213,6 +259,17 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
 
 gru_step_cuda.launches = gru_step_cuda.launches_bf16 = 0
 gru_step_cuda.launches_f16 = 0
+
+
+def lstm_tf32_resources(units: int = LSTM_UNITS) -> dict:
+    """Registers and local memory (bytes a thread; nonzero means the
+    kernel spills or keeps a stack) of the LSTM kernel's float32 instance
+    with ``units`` units a tile at each copy width, from
+    ``cudaFuncGetAttributes``: ``{"w4": (regs, local_bytes), "w1": ...}``.
+    Needs a card."""
+    lib = _build.load("rnn_step", _SIGNATURES)
+    return {f"w{width}": _build.resources(lib, lib.lstm_tf32_resources,
+                                          units, width) for width in (4, 1)}
 
 
 def gru_tf32_resources() -> dict:

@@ -1,13 +1,15 @@
-"""The arithmetic of kernels 8 and 6 at float32 on the tensor cores (split
-TF32, "3xTF32") on the CPU: ``_tf32x3_matmul_stats`` of
+"""The arithmetic of kernels 8, 6 and 5 at float32 on the tensor cores
+(split TF32, "3xTF32") on the CPU: ``_tf32x3_matmul_stats`` of
 paddle_tpu_torch/ops/conv_bn.py (what ``conv_tf32_stats_kernel<1, W>`` of
-``csrc/conv_bn.cu`` computes, the 1x1 conv with its statistics) and
-``_tf32x3_gru_step`` of ops/fused_rnn.py (what ``gru_tf32_kernel`` of
-``csrc/rnn_step.cu`` computes, the GRU step), each against the JAX
-package's Pallas kernel under the interpreter and its plain route within a
-bound derived below; the planted fault (one TF32 product, ``terms=1``)
-failing each bound; the CPU routes of both wrappers, which stay on the
-plain versions; the GRU kernel's split of K; the bounds at the TF32 peak.
+``csrc/conv_bn.cu`` computes, the 1x1 conv with its statistics),
+``_tf32x3_gru_step`` and ``_tf32x3_lstm_step`` of ops/fused_rnn.py (what
+``gru_tf32_kernel`` and ``lstm_tf32_kernel`` of ``csrc/rnn_step.cu``
+compute, the GRU and LSTM steps), each against the JAX package's Pallas
+kernel under the interpreter and its plain route within a bound derived
+below; the planted fault (one TF32 product, ``terms=1``) failing each
+bound; the CPU routes of the wrappers, which stay on the plain versions;
+the recurrent kernels' split of K and the LSTM's grid; the bounds at the
+TF32 peak.
 
 The bounds.  With u = 2^-22 (hi + lo is x within u |x|, and lo_a . lo_b
 is within u |a||b|), each product a . b taken as lo_a . hi_b + hi_a .
@@ -27,13 +29,22 @@ operand, taken as 3xTF32), c~ by as much (tanh's slope is at most 1); and
 h' = h + z (c~ - h) by b_z |c~ - h| + (z + b_z) b_c.  A masked row is h
 itself, bit for bit.
 
+Kernel 5.  The pre-activations g = x + h W + b move by at most b_g = E
+(|h| |W|); the gates i, f and o by a quarter of their columns' b_g (b_i,
+b_f, b_o), the candidate c~ = tanh(.) by all of its (b_c~).  Then c' = f c
++ i c~ moves by at most b_c' = b_f |c| + b_i |c~| + (i + b_i) b_c~, and
+h' = o tanh(c') by b_h' = b_o |tanh c'| + (o + b_o) b_c'.  A masked row is
+h and c themselves, bit for bit.
+
 Each is held with the float32 rounding of sums taken in another order on
 either side, 1e-5 + 1e-5 |want| (as tests/test_torch_tf32_fwd.py), and
 read as the largest |got - want| over that limit.  Readings:
 ``_tf32x3_matmul_stats`` at most 0.040 of its limit (y and both sums,
 against both JAX routes), one TF32 product 24x to 97x on y;
 ``_tf32x3_gru_step`` at most 0.028 (every dtype pair, both JAX routes),
-one TF32 product 17x to 34x.
+one TF32 product 17x to 34x; ``_tf32x3_lstm_step`` at most 0.058
+(h' and c', every dtype pair and shape, both JAX routes), one TF32
+product 16x to 41x.
 """
 
 import importlib
@@ -216,17 +227,108 @@ def test_one_tf32_product_fails_the_gru_bound(shape):
                        terms=1)[0] > 1.0
 
 
+# ------------------------------------------------------------ kernel 5
+# (B, H): B 8 at H 32, B past 8 and H a multiple of the kernel's 16-unit
+# tiles, B and H ragged (one-float copies at 37), the route's H at B 16
+LSTM_SHAPES = [(8, 32), (37, 128), (5, 37), (16, 512)]
+
+
+def _lstm_inputs(b, h, x_dtype="float32", m_dtype="float32"):
+    """x_t (rounded to x_dtype, as float32 numpy), h, c, w, b and a mask
+    with about 30% zeros, from a seed."""
+    rng = np.random.default_rng(b * 37 + h)
+    x = rng.standard_normal((b, 4 * h)).astype(np.float32)
+    x = torch.from_numpy(x).to(getattr(torch, x_dtype)).float().numpy()
+    args = [x, rng.standard_normal((b, h)), rng.standard_normal((b, h)),
+            rng.standard_normal((h, 4 * h)) * h ** -0.5,
+            rng.standard_normal(4 * h) * 0.1,
+            (rng.random((b, 1)) > 0.3)]
+    return [np.asarray(a, np.float32) for a in args]
+
+
+def _lstm_torch(args, x_dtype, m_dtype):
+    x, *rest, m = (torch.from_numpy(a) for a in args)
+    return (x.to(getattr(torch, x_dtype)), *rest,
+            m.to(getattr(torch, m_dtype)))
+
+
+def _lstm_bounds(x, h, c, w, b, m):
+    """The module docstring's bounds on h' and c', float64 [B, H] each."""
+    x, h, c, w, b = (t.double() for t in (x.float(), h, c, w, b))
+    g = x + h @ w + b
+    b_g = E * (h.abs() @ w.abs())
+    (gi, gf, gc, go), (bi, bf, bc, bo) = g.chunk(4, -1), b_g.chunk(4, -1)
+    i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+    bi, bf, bo = bi / 4, bf / 4, bo / 4
+    cand = torch.tanh(gc)
+    c_new = f * c + i * cand
+    b_c = bf * c.abs() + bi * cand.abs() + (i + bi) * bc
+    b_h = bo * torch.tanh(c_new).abs() + (o + bo) * b_c
+    live = m.bool()
+    return [torch.where(live, t, torch.zeros_like(t)).numpy()
+            for t in (b_h, b_c)]
+
+
+def _lstm_excess(shape, x_dtype, m_dtype, jax_impl, terms=3):
+    """h''s and c''s excess over their bounds against the JAX package's
+    ``jax_impl`` route (its Pallas LSTM kernel under the interpreter, or
+    its oracle ``_lstm_step_ref``), and whether the masked rows are h and
+    c bit for bit."""
+    import jax.numpy as jnp
+
+    args = _lstm_inputs(*shape, x_dtype, m_dtype)
+    jargs = ([jnp.asarray(args[0], x_dtype)]
+             + [jnp.asarray(a) for a in args[1:-1]]
+             + [jnp.asarray(args[-1], m_dtype)])
+    if jax_impl == "interpret":
+        want = jrnn._lstm_pallas(*jargs, block_b=8, interpret=True)
+    else:
+        want = jrnn._lstm_step_ref(*jargs)
+    targs = _lstm_torch(args, x_dtype, m_dtype)
+    got = trnn._tf32x3_lstm_step(*targs, terms=terms)
+    assert all(t.dtype == torch.float32 for t in got)
+    dead = args[-1][:, 0] == 0
+    assert dead.any()
+    masked_exact = all(np.array_equal(g.numpy()[dead], s[dead])
+                       for g, s in zip(got, (args[1], args[2])))
+    return [_excess(g.numpy(), np.asarray(wt), bd) for g, wt, bd in
+            zip(got, want, _lstm_bounds(*targs))], masked_exact
+
+
+@pytest.mark.parametrize("jax_impl", ["interpret", "ref"])
+@pytest.mark.parametrize("x_dtype,m_dtype", GRU_DTYPES)
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_tf32x3_lstm_step_matches_jax(shape, x_dtype, m_dtype, jax_impl):
+    """``_tf32x3_lstm_step`` against the JAX package's ``_lstm_pallas``
+    under the interpreter and ``_lstm_step_ref``, at every (x, mask) dtype
+    pair of the kernel's instances and at ragged B and H: h' and c' within
+    the derived bounds, masked rows h and c bit for bit."""
+    excess, masked_exact = _lstm_excess(shape, x_dtype, m_dtype, jax_impl)
+    assert max(excess) <= 1.0, excess
+    assert masked_exact
+
+
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_one_tf32_product_fails_the_lstm_bound(shape):
+    """``terms=1`` (the product one TF32 product, hi . hi) fails the
+    derived bounds against the Pallas interpreter on every shape."""
+    assert max(_lstm_excess(shape, "float32", "float32", "interpret",
+                            terms=1)[0]) > 1.0
+
+
 # ------------------------------------------------ routes, splits, bounds
 def test_cpu_routes_keep_the_plain_versions(monkeypatch):
-    """On CPU tensors ``matmul_stats``, ``conv1x1_stats`` and ``gru_step``
-    take the plain versions bit for bit and never reach a kernel wrapper
-    or the 3xTF32 arithmetic."""
+    """On CPU tensors ``matmul_stats``, ``conv1x1_stats``, ``gru_step``
+    and ``lstm_step`` take the plain versions bit for bit and never reach
+    a kernel wrapper or the 3xTF32 arithmetic."""
     def refuse(*a, **kw):
         raise AssertionError("the CPU route reached a kernel's path")
 
     for mod, name in ((tcb, "matmul_stats_cuda"),
                       (tcb, "_tf32x3_matmul_stats"),
-                      (trnn, "gru_step_cuda"), (trnn, "_tf32x3_gru_step")):
+                      (trnn, "gru_step_cuda"), (trnn, "_tf32x3_gru_step"),
+                      (trnn, "lstm_step_cuda"),
+                      (trnn, "_tf32x3_lstm_step")):
         monkeypatch.setattr(mod, name, refuse)
     x, w = (torch.from_numpy(a) for a in _mm_inputs(33, 12, 20))
     for impl in (None, "pallas", "xla"):
@@ -241,24 +343,56 @@ def test_cpu_routes_keep_the_plain_versions(monkeypatch):
     for impl in (None, "torch"):
         assert torch.equal(trnn.gru_step(*args, impl=impl),
                            trnn._gru_step_ref(*args))
+    args = _lstm_torch(_lstm_inputs(9, 24), "float32", "float32")
+    for impl in (None, "torch"):
+        for a, b in zip(trnn.lstm_step(*args, impl=impl),
+                        trnn._lstm_step_ref(*args)):
+            assert torch.equal(a, b)
     assert tcb.matmul_stats_cuda is refuse
 
 
 @pytest.mark.parametrize("h", [512, 128, 7, 1024, 160, 37])
 def test_gru_splits_take_whole_slices(h):
-    """The GRU kernel's split of K (``_gru_splits``, both launches): no
-    split takes more than GRU_MAX_SLICES 32-deep slices (the kernel's
-    shared memory holds that much of its W panel), as few splits as that
-    allows, and none is empty (the kernel gives each ceil(slices / splits)
-    slices, the last the rest); at H 512, 4 splits."""
-    slices = -(-h // trnn.GRU_SLICE)
-    splits = trnn._gru_splits(h)
+    """The recurrent kernels' split of K (``_splits``, the GRU's two
+    launches and the LSTM's one): no split takes more than RNN_MAX_SLICES
+    32-deep slices (the kernels' shared memory holds that much of a W
+    panel), as few splits as that allows, and none is empty (the kernel
+    gives each ceil(slices / splits) slices, the last the rest); at H 512,
+    4 splits."""
+    slices = -(-h // trnn.RNN_SLICE)
+    splits = trnn._splits(h)
     per = -(-slices // splits)
-    assert 1 <= per <= trnn.GRU_MAX_SLICES
-    assert splits == -(-slices // trnn.GRU_MAX_SLICES)
+    assert 1 <= per <= trnn.RNN_MAX_SLICES
+    assert splits == -(-slices // trnn.RNN_MAX_SLICES)
     assert (splits - 1) * per < slices <= splits * per
     if h == 512:
         assert splits == 4
+
+
+@pytest.mark.parametrize("b,h", [(128, 512), (256, 512), (5, 37),
+                                 (133, 40), (8, 1024)])
+def test_lstm_grid_covers_every_unit_once(b, h):
+    """The LSTM kernel's grid (``_lstm_grid``): its tiles cover every
+    (row, hidden unit) once, 128 rows by LSTM_UNITS units, each tile with
+    the four gates' columns of its units (a tile's 4 LSTM_UNITS product
+    columns: gate n // LSTM_UNITS of unit u0 + n % LSTM_UNITS), K as
+    ``_splits``; at the route's B 128, H 512, 128 blocks, one wave of the
+    H100's 132 SMs."""
+    tiles, splits = trnn._lstm_grid(b, h)
+    assert splits == trnn._splits(h)
+    n_col = -(-h // trnn.LSTM_UNITS)
+    assert tiles == -(-b // trnn.RNN_ROWS) * n_col
+    seen = np.zeros((b, 4 * h), np.int64)
+    for tile in range(tiles):
+        m0 = tile // n_col * trnn.RNN_ROWS
+        u0 = tile % n_col * trnn.LSTM_UNITS
+        for n in range(4 * trnn.LSTM_UNITS):
+            u = u0 + n % trnn.LSTM_UNITS
+            if u < h:
+                seen[m0:m0 + trnn.RNN_ROWS, n // trnn.LSTM_UNITS * h + u] += 1
+    assert (seen == 1).all()
+    if (b, h) == (128, 512):
+        assert tiles * splits == 128
 
 
 def test_bounds_at_the_tf32_peak():
