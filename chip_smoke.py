@@ -121,7 +121,8 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    False)`` (embedding 128, 2 x (fc 4h, lstmemory) at h 512, last_seq,
    fc 2; B 128, T 100, Adam 2e-3): the same parity at batch 8, then
    LSTM_STEPS steps with finite losses and the LSTM kernel launched 200
-   times a step;
+   times a step, and one step under ``torch.profiler`` (idle share, the
+   kernel's own device time);
 9. the ResNet path: ``resnet.build(depth=50, image_size=224,
    num_classes=1000, space_to_depth=True)`` under ``fuse_conv_bn="all"``
    and ``fused_bn_impl="pallas"`` with seeded weights, TF32 off for cuDNN
@@ -158,9 +159,9 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    fail both checks, the distance to the bf16 plain route reported, each
    kernel's registers and local memory (a spill fails), each timed beside
    its bound, the plain route's backward and SDPA's at bf16; kernels 5
-   and 6 at each bf16 instance (x bf16, the mask
-   float32 or bf16) against the plain step, timed (after the float32
-   recurrent checks).  After the LSTM route: the LM under ``bf16`` and
+   and 6 at each bf16 instance (x bf16, the mask float32 or bf16) against
+   the plain step and per row against their 3xTF32 arithmetic, timed
+   (after the float32 recurrent checks).  After the LSTM route: the LM under ``bf16`` and
    ``mixed`` (6 Adam steps at 8 x 4096 from the seeded weights, kernels
    1, 2 and 3 launching their bf16 instances 8 times a step, the losses
    within LM_BF16_BAND of the plain route's, the step breakdown, idle
@@ -259,6 +260,7 @@ RNN_H = 512
 NMT_VOCAB, NMT_DIM, NMT_LEN, NMT_BATCH, NMT_STEPS, NMT_LR = (30000, 512, 50,
                                                              256, 4, 1e-3)
 LSTM_LEN, LSTM_BATCH, LSTM_STEPS, LSTM_LR = 100, 128, 3, 2e-3
+LSTM_KERNEL = "lstm_tf32_kernel"     # kernel 5's name in a profiler trace
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 # the conv slice: bench.py bench_resnet's model and optimizer, float32
 RESNET_IMAGE, RESNET_CLASSES, RESNET_LR = 224, 1000, 0.1
@@ -2382,7 +2384,8 @@ def lstm_path():
     LSTM_LEN.  Its losses must be finite; they need not fall in three
     steps (random labels, Adam at 2e-3 overshoots on its second step, on
     the plain route alike), so the route's correctness is the parity
-    check's."""
+    check's.  Then one step under ``torch.profiler``: the idle share and
+    the LSTM kernel's own device time in the step."""
     paddle, topo = lstm_model()
     values = seeded_values(topo, SEED + 2)
     parity = route_parity("LSTM route", paddle, topo, values,
@@ -2390,19 +2393,35 @@ def lstm_path():
                           "lstm_step", 2 * LSTM_LEN, LSTM_LR)
     trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
         topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
+    feed = lstm_feed(LSTM_BATCH)
     losses, step_s, warm, peak_gb, launches = train_steps(
-        "LSTM route", paddle, trainer, lstm_feed(LSTM_BATCH), LSTM_STEPS,
-        "lstm_step", 2 * LSTM_LEN, falling=False)
+        "LSTM route", paddle, trainer, feed, LSTM_STEPS, "lstm_step",
+        2 * LSTM_LEN, falling=False)
+    prof = profile_step(trainer, feed, LSTM_KERNEL)
     print(f"LSTM route training: {LSTM_STEPS} Adam steps (lr {LSTM_LR}) at "
           f"batch {LSTM_BATCH} x {LSTM_LEN}, losses "
           f"{[round(x, 5) for x in losses]}; step time first "
           f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms; "
           f"peak memory {peak_gb:.2f} GB; lstm_step launches "
           f"{launches['lstm_step']} ({2 * LSTM_LEN} a step: 2 layers x "
-          f"{LSTM_LEN})", flush=True)
+          f"{LSTM_LEN}); " + _route_profile(prof), flush=True)
     return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
             "first_step_ms": step_s[0] * 1e3, "peak_gb": peak_gb,
-            "parity": parity}
+            "parity": parity, "idle_share": prof["idle_share"],
+            "kernel_ms": prof["matched_ms"], "busy_ms": prof["busy_ms"],
+            "profiled_step_ms": prof["step_ms"]}
+
+
+def _route_profile(prof) -> str:
+    """One profiled LSTM-route step: its device busy time, idle share and
+    the LSTM kernel's own share of the busy time."""
+    if prof["idle_share"] is None:
+        return "torch.profiler saw no device activity: idle share not measured"
+    return (f"one step under torch.profiler: device busy "
+            f"{prof['busy_ms']:.1f} of {prof['step_ms']:.1f} ms, idle share "
+            f"{prof['idle_share']:.1%}, the LSTM kernel's own "
+            f"{prof['matched_ms']:.2f} ms "
+            f"({prof['matched_ms'] / prof['busy_ms']:.1%} of the busy time)")
 
 
 # ---------------------------------------------------- the bf16 policy slice
@@ -2741,9 +2760,10 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
     (``fused_rnn.KERNEL_DTYPES``: x in that dtype, the mask float32 or in
     x's) against the plain step on the same operands, values and
     gradients within 1e-4 of max(1, max |ref|) with masked rows copied
-    bit for bit, at the routes' shapes and a ragged one, and a planted
-    fault (``_rnn_planted_fault``) shown to fail; each timed as the
-    float32 rows are, its bytes counting x (and the mask) at 2 bytes.
+    bit for bit, and per row against their 3xTF32 arithmetic
+    (``_rnn_check``), at the routes' shapes and a ragged one, and a
+    planted fault (``_rnn_planted_fault``) shown to fail; each timed as
+    the float32 rows are, its bytes counting x (and the mask) at 2 bytes.
     Every check moves the instances' counter."""
     from paddle_tpu_torch.ops import fused_rnn as fr
 
@@ -2793,8 +2813,9 @@ def rnn_bf16_phase(dev, gen, flush, dtype=torch.bfloat16):
             t["fma_bound_ms"] = bound(flops, nbytes)[0]
             key = f"x {_dt(dts[0])}, mask {_dt(dts[1])}"
             print(f"{kind}_step {tag} ({key}) at B {b}, H {H} ({live} live "
-                  f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
-                  f"plain_ms {t['plain_ms']:.4f}  library_ms none; the "
+                  f"rows): ms {t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by}, "
+                  f"3xTF32)  fma_bound_ms {t['fma_bound_ms']:.4f}  plain_ms "
+                  f"{t['plain_ms']:.4f}  library_ms none; the "
                   f"product alone (torch.addmm) {t['addmm_ms']:.4f}",
                   flush=True)
             out.setdefault(kind, {})[key] = dict(
@@ -3001,19 +3022,19 @@ def rnn_bf16_paths(policy="bf16"):
         losses, step_s, warm, peak_gb, launches = train_steps(
             f"LSTM route {policy}", paddle, trainer, feed, LSTM_STEPS,
             f"lstm_step_{sfx}", 2 * LSTM_LEN, falling=False)
-        prof = profile_step(trainer, feed, "lstm_step")
+        prof = profile_step(trainer, feed, LSTM_KERNEL)
         print(f"LSTM route {policy} training: {LSTM_STEPS} Adam steps, "
               f"losses "
               f"{[round(x, 5) for x in losses]}; step time first "
               f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} "
               f"ms; peak memory {peak_gb:.2f} GB; lstm_step {sfx} launches "
-              f"{launches['lstm_step_' + sfx]}; idle share "
-              + ("not measured" if prof["idle_share"] is None
-                 else f"{prof['idle_share']:.1%}"), flush=True)
+              f"{launches['lstm_step_' + sfx]}; " + _route_profile(prof),
+              flush=True)
         out["lstm_route"] = {"losses": losses, "step_ms": warm * 1e3,
                              "first_step_ms": step_s[0] * 1e3,
                              "peak_gb": peak_gb, "parity": parity,
                              "idle_share": prof["idle_share"],
+                             "kernel_ms": prof["matched_ms"],
                              "launches": launches}
     finally:
         _policy("fp32")
@@ -4647,8 +4668,10 @@ def main() -> int:
                             "tokens_per_s", "peak_gb", "parity",
                             "breakdown")},
         "lstm_route": {k: lstm[k] for k in ("losses", "first_step_ms",
-                                            "step_ms", "peak_gb",
-                                            "parity")}}), flush=True)
+                                            "step_ms", "peak_gb", "parity",
+                                            "idle_share", "kernel_ms",
+                                            "busy_ms", "profiled_step_ms")}}),
+          flush=True)
     print(json.dumps({"bf16": {
         "lm": {p: {k: v for k, v in r.items() if k != "launches"}
                for p, r in lm16.items()},

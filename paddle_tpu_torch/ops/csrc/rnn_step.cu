@@ -29,16 +29,16 @@
 // ::_tf32x3_gru_step are this arithmetic in plain torch).  One product
 // tile serves both (copy_a_panel, split_w_panel, panel_product, publish,
 // fold):
-// - A block of 8 warps owns 128 batch rows x kBN product columns, each warp
-//   32 x kBN / 2.  Its W panel, [K range, kBN], is read from memory once,
+// - A block of 8 warps owns 128 batch rows x 64 product columns, each warp
+//   32 x 32.  Its W panel, [K range, 64], is read from memory once,
 //   split once into TF32 hi and lo planes and kept in shared memory for the
 //   block's whole run, transposed to [n][k] (B fragments by ldmatrix); the
 //   A operand's panel (h, or r h: 128 rows of the split's at most 128
 //   columns) is copied by cp.async, all of it in flight while the W panel
 //   is read and split, and is split in registers as it is read.  Each
-//   32-deep slice's products go into fresh registers, added to the running
-//   sums in float32 (the tensor cores round each product's sum toward
-//   zero).
+//   16-deep half slice's products go into fresh registers, added to the
+//   running sums in float32 (the tensor cores round each product's sum
+//   toward zero).
 // - W is read and split once for every 128 batch rows (once a call at the
 //   LSTM route's B 128, twice at the GRU's B 256), where the CUDA-core
 //   kernels before (16-row tiles) read it eight or sixteen times.
@@ -61,11 +61,15 @@
 //   tail, is 4 floats (16-byte copies, loads and stores: H a multiple of 4,
 //   h, c, the weights and b aligned, x aligned to 4 of its elements) or 1.
 //
-// LSTM (lstm_tf32_kernel<kU, X, M, W>): one launch a call.  A tile's 4 kU
-// columns are the four gates of kU hidden units (u0..u0 + kU - 1, W's
+// LSTM (lstm_tf32_kernel<X, M, W>): one launch a call.  A tile's 64
+// columns are the four gates of kLU = 16 hidden units (u0..u0 + 15, W's
 // columns gate * H + u: LstmCols), so the block that folds a tile holds
 // every gate of its units and finishes c' and h' itself; W's gathered
-// columns are runs of kU units, so the 16-byte copies stay.
+// columns are runs of 16 units, so the 16-byte copies stay.  At B 128, H
+// 512: 32 tiles x 4 splits, 128 blocks (32 units x 8 splits, the same
+// count with an eighth of K a block, was slower on the H100: its last
+// blocks fold four times the partials, twice the columns from twice the
+// splits).
 // GRU (gru_tf32_kernel<kPhase, X, M, W>): the candidate's product needs the
 // whole r h row, so one wrapper call is two launches of the same kernel:
 // phase 0 takes the [B, 2H] product h W_g and writes z and r h to scratch
@@ -98,20 +102,32 @@ using mma::copy_or_zero;
 using mma::static_for;
 
 constexpr int kGBM = 128;          // batch rows a block
-constexpr int kGBN = 64;           // the GRU's product columns a block
+constexpr int kGBN = 64;           // product columns a block
+constexpr int kLU = kGBN / 4;      // the LSTM's hidden units a block
 constexpr int kGBK = 32;           // depth of a slice
 constexpr int kGThreads = 256;     // 8 warps: 4 along the rows x 2 columns
 constexpr int kGMaxSlices = 4;     // slices a split of K takes at most
 constexpr int kGPS = kGMaxSlices * kGBK + 4;   // padded row of A and planes
+// The depth of a fresh fragment of products: 16 (tools/rnn_fragments.py
+// builds 8 and 32 beside it).  The tensor cores round each mma.sync's sum
+// toward zero, so a fragment's error grows with its chain of mmas.  On
+// the H100, kept over a whole 32-deep slice it put the LSTM route's first
+// layer 1.6 times as far from the plain route's (a mean of 6.1e-9 against
+// 3.8e-9) for 1% less time, and the bf16 route's first loss 1.3e-4 from
+// the plain route's, past chip_smoke.py's 1e-4; 8 deep read 3.2e-9 and
+// took 4% more time.
+#ifndef RNN_FRAG_DEPTH
+#define RNN_FRAG_DEPTH 16
+#endif
+constexpr int kFrag = RNN_FRAG_DEPTH;
+static_assert(kFrag == 8 || kFrag == 16 || kFrag == 32,
+              "whole 8-deep steps of a 32-deep slice");
 static_assert(kGPS % 32 == 4,
               "ldmatrix's eight rows fall in distinct bank groups");
 
-// The dynamic shared memory of a block of kBN product columns: the A panel
-// [kGBM][kGPS], then the W panel's planes hi and lo, [kBN][kGPS] each.
-template <int kBN>
-constexpr size_t panel_smem() {
-  return sizeof(float) * (kGBM + 2 * kBN) * kGPS;
-}
+// A block's dynamic shared memory: the A panel [kGBM][kGPS], then the W
+// panel's planes hi and lo, [kGBN][kGPS] each.
+constexpr size_t kGSmem = sizeof(float) * (kGBM + 2 * kGBN) * kGPS;
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
@@ -143,12 +159,11 @@ struct GruCols {            // columns c0.. of a product N wide
   int c0, N;
   __device__ int operator()(int n) const { return c0 + n < N ? c0 + n : -1; }
 };
-template <int kU>
-struct LstmCols {           // n -> gate n / kU of unit u0 + n % kU
+struct LstmCols {           // n -> gate n / kLU of unit u0 + n % kLU
   int u0, H;
   __device__ int operator()(int n) const {
-    const int u = u0 + n % kU;
-    return u < H ? n / kU * H + u : -1;
+    const int u = u0 + n % kLU;
+    return u < H ? n / kLU * H + u : -1;
   }
 };
 
@@ -181,22 +196,22 @@ __device__ __forceinline__ void copy_a_panel(float* smem,
 }
 
 // The W panel: rows k0..k0 + rows - 1 (below K) of W's columns cols(0),
-// ..., cols(kBN - 1) (W row-major, ldw floats a row; zeros outside W),
+// ..., cols(63) (W row-major, ldw floats a row; zeros outside W),
 // split into the planes (row n, column k - k0), every load of a thread in
 // flight at once.  At W 4 lane (2 k + q) of a warp reads 16 bytes, the
 // q-th run of 4 columns of a pair in row k (sixteen 32-byte runs a warp),
 // and its plane stores (4 (4q + u) + k mod 32, for its u-th column) fall in
 // distinct banks; at W 1 lane (4 n + k) reads one float (four 32-byte
 // runs), stores at 4 n + k mod 32.
-template <int kBN, int W, typename Cols>
+template <int W, typename Cols>
 __device__ __forceinline__ void split_w_panel(float* p_hi, float* p_lo,
                                               const float* __restrict__ w,
                                               int ldw, int K, int k0,
                                               int rows, Cols cols) {
   const int tid = threadIdx.x;
   if constexpr (W == 4) {
-    constexpr int kPairs = kBN / 8;     // pairs of 4-column runs a row
-    constexpr int kLd = kGMaxSlices * kGBK * kBN / 4 / kGThreads;
+    constexpr int kPairs = kGBN / 8;    // pairs of 4-column runs a row
+    constexpr int kLd = kGMaxSlices * kGBK * kGBN / 4 / kGThreads;
     float4 v[kLd];
 #pragma unroll
     for (int i = 0; i < kLd; ++i) {
@@ -224,8 +239,8 @@ __device__ __forceinline__ void split_w_panel(float* p_hi, float* p_lo,
       }
     }
   } else {
-    constexpr int kGroups = kBN / 8;    // groups of 8 columns
-    constexpr int kLd = kGMaxSlices * kGBK * kBN / kGThreads;
+    constexpr int kGroups = kGBN / 8;   // groups of 8 columns
+    constexpr int kLd = kGMaxSlices * kGBK * kGBN / kGThreads;
     float v[kLd];
 #pragma unroll
     for (int i = 0; i < kLd; ++i) {
@@ -252,81 +267,85 @@ __device__ __forceinline__ void split_w_panel(float* p_hi, float* p_lo,
 
 // acc = the A panel times the W planes over the split's ns slices, warp
 // (wm, wn) = (warp % 4, warp / 4) its rows 32 wm + 16 i + g (+ 8) and
-// columns 8 kNT wn + 8 n + 2t (+ 1) of the tile: A fragments by ldmatrix,
-// split as read, and the W planes' two n-tiles an ldmatrix.  Each 32-deep
-// slice's products go into fresh registers, added to acc in float32.
-template <int kNT>
-__device__ __forceinline__ void panel_product(float (&acc)[2][kNT][4],
+// columns 32 wn + 8 n + 2t (+ 1) of the tile: A fragments by ldmatrix,
+// split as read, and the W planes' two n-tiles an ldmatrix.  Each
+// kFrag-deep part of a slice's products goes into a fresh fragment, added
+// to acc in float32 (the tensor cores round each mma's sum toward zero).
+__device__ __forceinline__ void panel_product(float (&acc)[2][4][4],
                                               const float* smem,
                                               const float* p_hi,
                                               const float* p_lo, int ns) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int a_off = (warp & 3) * 32 * kGPS + tf32::a_lane<kGPS>(lane);
-  const int b_off = (warp >> 2) * kNT * 8 * kGPS + tf32::b_lane<kGPS>(lane);
+  const int b_off = (warp >> 2) * 32 * kGPS + tf32::b_lane<kGPS>(lane);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
   for (int it = 0; it < ns; ++it) {
-    float fr[2][kNT][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int hh = 0; hh < kGBK / kFrag; ++hh) {
+      float fr[2][4][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) fr[i][n][e] = 0.f;
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int kk = 0; kk < kGBK / 8; ++kk) {
-      tf32::SplitB bw[kNT];
+          for (int e = 0; e < 4; ++e) fr[i][n][e] = 0.f;
 #pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        const int o = b_off + np * 16 * kGPS + it * kGBK + kk * 8;
-        tf32::SplitB two[2];
-        tf32::load_b2(two, p_hi + o, p_lo + o);
-        bw[2 * np] = two[0];
-        bw[2 * np + 1] = two[1];
+      for (int k8 = 0; k8 < kFrag / 8; ++k8) {
+        const int kk = hh * (kFrag / 8) + k8;
+        tf32::SplitB bw[4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int o = b_off + np * 16 * kGPS + it * kGBK + kk * 8;
+          tf32::SplitB two[2];
+          tf32::load_b2(two, p_hi + o, p_lo + o);
+          bw[2 * np] = two[0];
+          bw[2 * np + 1] = two[1];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          tf32::SplitA af;
+          tf32::load_a(af, smem + a_off + i * 16 * kGPS + it * kGBK + kk * 8);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) tf32::mma3(fr[i][n], af, bw[n]);
+        }
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tf32::SplitA af;
-        tf32::load_a(af, smem + a_off + i * 16 * kGPS + it * kGBK + kk * 8);
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) tf32::mma3(fr[i][n], af, bw[n]);
-      }
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] += fr[i][n][e];
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] += fr[i][n][e];
   }
 }
 
 // This lane's sums (panel_product's rows and columns) to the block's share
-// of the partials, part[split = blockIdx.y][tile = blockIdx.x][kGBM][kBN],
+// of the partials, part[split = blockIdx.y][tile = blockIdx.x][kGBM][kGBN],
 // then one arrival at the tile's counter.  True in the block that arrives
 // last: every split's partials of the tile are in, and the counter is back
 // to 0 for the next launch.
-template <int kBN, int kNT>
 __device__ __forceinline__ bool publish(float* part,
-                                        const float (&acc)[2][kNT][4],
+                                        const float (&acc)[2][4][4],
                                         unsigned* arrived) {
   __shared__ bool s_last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
   const int tile = blockIdx.x;
-  float* mine = part + ((long long)blockIdx.y * gridDim.x + tile) * kGBM * kBN;
+  float* mine =
+      part + ((long long)blockIdx.y * gridDim.x + tile) * kGBM * kGBN;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < 4; ++n)
         *reinterpret_cast<float2*>(
-            mine + (wm * 32 + i * 16 + g + 8 * half) * kBN + wn * kNT * 8 +
+            mine + (wm * 32 + i * 16 + g + 8 * half) * kGBN + wn * 32 +
             n * 8 + 2 * t) =
             make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
   __threadfence();
@@ -364,74 +383,55 @@ __device__ __forceinline__ void fold(float (&sum)[N][4],
   }
 }
 
-// Programmatic dependent launch: the next kernel of the stream may start
-// (launch_dependents), and this one waits here until the kernel before it
-// has finished and its writes are visible (wait; at once when the launch
-// did not allow the overlap).
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // ---------------------------------------------------------- kernel 5, LSTM
 // Block (tile, split): tile = row tile * n_col_tiles + unit tile, the unit
-// tile's kU units u0.. and its 4 kU product columns (LstmCols), K's slices
+// tile's kLU units u0.. and its 64 product columns (LstmCols), K's slices
 // [split sps, (split + 1) sps); the partial sums go through part
-// ([split][tile][kGBM][4 kU] floats) and arrived (one zeroed counter a
-// tile).  With pdl (a launch that lets it start before the kernel before
-// it ends) the W panel, which no step writes, is read and split before the
-// wait, and h after it.
-template <int kU, typename X, typename M, int W>
+// ([split][tile][kGBM][kGBN] floats) and arrived (one zeroed counter a
+// tile).
+template <typename X, typename M, int W>
 __global__ void __launch_bounds__(kGThreads, 1)
 lstm_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
                  const float* __restrict__ c, const float* __restrict__ w,
                  const float* __restrict__ b, const M* __restrict__ m,
                  float* __restrict__ h_out, float* __restrict__ c_out,
                  float* __restrict__ part, unsigned* __restrict__ arrived,
-                 int B, int H, int n_col_tiles, int sps, int pdl) {
+                 int B, int H, int n_col_tiles, int sps) {
   static_assert(W == 4 || W == 1, "16-byte copies or one float");
-  constexpr int kBN = 4 * kU, kNT = kBN / 16;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* p_hi = smem + kGBM * kGPS;
-  float* p_lo = p_hi + kBN * kGPS;
+  float* p_lo = p_hi + kGBN * kGPS;
   const int tile = blockIdx.x, splits = gridDim.y;
-  const int m0 = tile / n_col_tiles * kGBM, u0 = tile % n_col_tiles * kU;
+  const int m0 = tile / n_col_tiles * kGBM, u0 = tile % n_col_tiles * kLU;
   const int tid = threadIdx.x;
   const int n_slices = (H + kGBK - 1) / kGBK;
   const int s0 = blockIdx.y * sps;
   const int ns = max(0, min(sps, n_slices - s0));   // this split's slices
   const int k0 = s0 * kGBK;
 
-  launch_dependents();
-  if (!pdl) copy_a_panel<W>(smem, h, B, H, m0, k0, ns);
-  split_w_panel<kBN, W>(p_hi, p_lo, w, 4 * H, H, k0, ns * kGBK,
-                        LstmCols<kU>{u0, H});
-  if (pdl) {
-    wait_for_prior_grid();
-    copy_a_panel<W>(smem, h, B, H, m0, k0, ns);
-  }
-  float acc[2][kNT][4];
+  copy_a_panel<W>(smem, h, B, H, m0, k0, ns);
+  split_w_panel<W>(p_hi, p_lo, w, 4 * H, H, k0, ns * kGBK, LstmCols{u0, H});
+  float acc[2][4][4];
   mma::cp_async_wait<0>();               // the A panel has landed
   __syncthreads();                       // and the planes are in
-  panel_product<kNT>(acc, smem, p_hi, p_lo, ns);
-  if (!publish<kBN, kNT>(part, acc, arrived)) return;
+  panel_product(acc, smem, p_hi, p_lo, ns);
+  if (!publish(part, acc, arrived)) return;
 
   // the last block to arrive: the tile's output runs (4 units of a row, 16
-  // bytes of h' and of c'; kOQ a row) in row order, kEpi a thread in rounds
-  // of kRound.  A round's runs each fold their four gates' partials in
-  // split order, every operand of the round loaded at once, then the gate
-  // math, only inside [B, H].  A thread's units u..u+3 are the same in
-  // every round (kGThreads is a multiple of kOQ), so b is read once.
-  constexpr int kOQ = kU / 4;
+  // bytes of h' and of c'; kOQ a row) in row order, kEpi a thread, all at
+  // once: each run's four gates' partials folded in split order and every
+  // operand loaded at once, then the gate math, only inside [B, H].  A
+  // thread's units u..u+3 are the same in each of its runs (kGThreads is a
+  // multiple of kOQ), so b is read once.  (Capped at 128 registers, two
+  // blocks' worth of the register file, this tail ran slower on the H100
+  // and spilled at one-float copies; shared memory holds one block an SM
+  // anyway.)
+  constexpr int kOQ = kLU / 4;
   constexpr int kEpi = kGBM * kOQ / kGThreads;
-  constexpr int kRound = 2;
-  static_assert(kEpi % kRound == 0, "whole rounds");
   const float4* tile_part =
-      reinterpret_cast<const float4*>(part) + (long long)tile * kGBM * kBN / 4;
-  const long long step = (long long)gridDim.x * kGBM * kBN / 4;
+      reinterpret_cast<const float4*>(part) + (long long)tile * kGBM * kGBN / 4;
+  const long long step = (long long)gridDim.x * kGBM * kGBN / 4;
   const int uq = tid % kOQ, u = u0 + 4 * uq;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float bv[4][4];
@@ -446,139 +446,108 @@ lstm_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
       for (int e = 0; e < 4; ++e) bv[g][e] = u + e < H ? b[g * H + u + e] : 0.f;
     }
   }
+  int q[kEpi * 4];
+  float xv[kEpi][4][4], hv[kEpi][4], cv[kEpi][4];
+  bool live[kEpi];
 #pragma unroll
-  for (int rd = 0; rd < kEpi; rd += kRound) {
-    int q[kRound * 4];
-    float xv[kRound][4][4], hv[kRound][4], cv[kRound][4];
-    bool live[kRound];
+  for (int r = 0; r < kEpi; ++r) {
+    const int tr = (tid + r * kGThreads) / kOQ;   // the tile's row
+    const int row = m0 + tr;
+    const bool rok = row < B;
 #pragma unroll
-    for (int r = 0; r < kRound; ++r) {
-      const int tr = (tid + (rd + r) * kGThreads) / kOQ;   // the tile's row
-      const int row = m0 + tr;
-      const bool rok = row < B;
+    for (int g = 0; g < 4; ++g) q[4 * r + g] = tr * (kGBN / 4) + g * kOQ + uq;
+    live[r] = rok && to_f(m[row]) > 0.f;
+    const X* xr = x + (long long)row * 4 * H;
+    const long long at = (long long)row * H + u;
+    if constexpr (W == 4) {   // a whole run inside [B, H] or none of it
+      const bool ok = rok && u < H;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) q[4 * r + g] = tr * (kBN / 4) + g * kOQ + uq;
-      live[r] = rok && to_f(m[row]) > 0.f;
-      const X* xr = x + (long long)row * 4 * H;
-      const long long at = (long long)row * H + u;
-      if constexpr (W == 4) {   // a whole run inside [B, H] or none of it
-        const bool ok = rok && u < H;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 xf = ok ? load_x4(xr + g * H + u) : zero;
-          xv[r][g][0] = xf.x, xv[r][g][1] = xf.y, xv[r][g][2] = xf.z,
-          xv[r][g][3] = xf.w;
-        }
-        const float4 hf = ok ? *reinterpret_cast<const float4*>(h + at) : zero;
-        const float4 cf = ok ? *reinterpret_cast<const float4*>(c + at) : zero;
-        hv[r][0] = hf.x, hv[r][1] = hf.y, hv[r][2] = hf.z, hv[r][3] = hf.w;
-        cv[r][0] = cf.x, cv[r][1] = cf.y, cv[r][2] = cf.z, cv[r][3] = cf.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = rok && u + e < H;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            xv[r][g][e] = ok ? to_f(xr[g * H + u + e]) : 0.f;
-          hv[r][e] = ok ? h[at + e] : 0.f;
-          cv[r][e] = ok ? c[at + e] : 0.f;
-        }
+      for (int g = 0; g < 4; ++g) {
+        const float4 xf = ok ? load_x4(xr + g * H + u) : zero;
+        xv[r][g][0] = xf.x, xv[r][g][1] = xf.y, xv[r][g][2] = xf.z,
+        xv[r][g][3] = xf.w;
       }
-    }
-    float sum[kRound * 4][4];
-    fold(sum, tile_part, step, splits, q);
-#pragma unroll
-    for (int r = 0; r < kRound; ++r) {
-      const int row = m0 + (tid + (rd + r) * kGThreads) / kOQ;
-      if (row >= B) continue;
-      float ho[4], co[4];
+      const float4 hf = ok ? *reinterpret_cast<const float4*>(h + at) : zero;
+      const float4 cf = ok ? *reinterpret_cast<const float4*>(c + at) : zero;
+      hv[r][0] = hf.x, hv[r][1] = hf.y, hv[r][2] = hf.z, hv[r][3] = hf.w;
+      cv[r][0] = cf.x, cv[r][1] = cf.y, cv[r][2] = cf.z, cv[r][3] = cf.w;
+    } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (!live[r]) {
-          ho[e] = hv[r][e];
-          co[e] = cv[r][e];
-          continue;
-        }
-        const float gi = xv[r][0][e] + sum[4 * r][e] + bv[0][e];
-        const float gf = xv[r][1][e] + sum[4 * r + 1][e] + bv[1][e];
-        const float gc = xv[r][2][e] + sum[4 * r + 2][e] + bv[2][e];
-        const float go = xv[r][3][e] + sum[4 * r + 3][e] + bv[3][e];
-        co[e] = sigmoid_f(gf) * cv[r][e] + sigmoid_f(gi) * tanhf(gc);
-        ho[e] = sigmoid_f(go) * tanhf(co[e]);
-      }
-      const long long at = (long long)row * H + u;
-      if constexpr (W == 4) {
-        if (u < H) {
-          store4(h_out + at, ho);
-          store4(c_out + at, co);
-        }
-      } else {
+        const bool ok = rok && u + e < H;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (u + e >= H) continue;
-          h_out[at + e] = ho[e];
-          c_out[at + e] = co[e];
-        }
+        for (int g = 0; g < 4; ++g)
+          xv[r][g][e] = ok ? to_f(xr[g * H + u + e]) : 0.f;
+        hv[r][e] = ok ? h[at + e] : 0.f;
+        cv[r][e] = ok ? c[at + e] : 0.f;
+      }
+    }
+  }
+  float sum[kEpi * 4][4];
+  fold(sum, tile_part, step, splits, q);
+#pragma unroll
+  for (int r = 0; r < kEpi; ++r) {
+    const int row = m0 + (tid + r * kGThreads) / kOQ;
+    if (row >= B) continue;
+    float ho[4], co[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!live[r]) {
+        ho[e] = hv[r][e];
+        co[e] = cv[r][e];
+        continue;
+      }
+      const float gi = xv[r][0][e] + sum[4 * r][e] + bv[0][e];
+      const float gf = xv[r][1][e] + sum[4 * r + 1][e] + bv[1][e];
+      const float gc = xv[r][2][e] + sum[4 * r + 2][e] + bv[2][e];
+      const float go = xv[r][3][e] + sum[4 * r + 3][e] + bv[3][e];
+      co[e] = sigmoid_f(gf) * cv[r][e] + sigmoid_f(gi) * tanhf(gc);
+      ho[e] = sigmoid_f(go) * tanhf(co[e]);
+    }
+    const long long at = (long long)row * H + u;
+    if constexpr (W == 4) {
+      if (u < H) {
+        store4(h_out + at, ho);
+        store4(c_out + at, co);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (u + e >= H) continue;
+        h_out[at + e] = ho[e];
+        c_out[at + e] = co[e];
       }
     }
   }
 }
 
-template <int kU, typename X, typename M>
+template <typename X, typename M>
 const void* lstm_fn(int width) {
-  return width == 4 ? (const void*)lstm_tf32_kernel<kU, X, M, 4>
-                    : (const void*)lstm_tf32_kernel<kU, X, M, 1>;
+  return width == 4 ? (const void*)lstm_tf32_kernel<X, M, 4>
+                    : (const void*)lstm_tf32_kernel<X, M, 1>;
 }
 
-// One call: K in `splits` splits of whole slices; vec 1 for 16-byte
-// copies; pdl 1 to let the launch overlap the kernel before it.
-template <int kU, typename X, typename M>
+// One call over `splits` splits of K; `vec` 1 for 16-byte copies.
+template <typename X, typename M>
 int lstm_launch(const void* x, const void* h, const void* c, const void* w,
                 const void* b, const void* m, void* h_out, void* c_out,
                 void* part, void* arrived, int B, int H, int vec, int splits,
-                int pdl, cudaStream_t st) {
-  const int n_col = (H + kU - 1) / kU, n_row = (B + kGBM - 1) / kGBM;
+                void* stream) {
+  const int n_col = (H + kLU - 1) / kLU, n_row = (B + kGBM - 1) / kGBM;
   const int n_slices = (H + kGBK - 1) / kGBK;
   const int sps = splits > 0 ? (n_slices + splits - 1) / splits : 0;
   if (sps < 1 || sps > kGMaxSlices) return (int)cudaErrorInvalidValue;
-  auto* kernel = vec ? lstm_tf32_kernel<kU, X, M, 4>
-                     : lstm_tf32_kernel<kU, X, M, 1>;
-  constexpr size_t smem = panel_smem<4 * kU>();
+  auto* kernel = vec ? lstm_tf32_kernel<X, M, 4> : lstm_tf32_kernel<X, M, 1>;
+  constexpr size_t smem = kGSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_row * n_col, splits);
-  cfg.blockDim = dim3(kGThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const X*)x, (const float*)h,
-                           (const float*)c, (const float*)w, (const float*)b,
-                           (const M*)m, (float*)h_out, (float*)c_out,
-                           (float*)part, (unsigned*)arrived, B, H, n_col, sps,
-                           pdl);
-  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_row * n_col, splits), kGThreads, smem,
+           (cudaStream_t)stream>>>(
+      (const X*)x, (const float*)h, (const float*)c, (const float*)w,
+      (const float*)b, (const M*)m, (float*)h_out, (float*)c_out,
+      (float*)part, (unsigned*)arrived, B, H, n_col, sps);
   return (int)cudaGetLastError();
-}
-
-template <typename X, typename M>
-int lstm_units(const void* x, const void* h, const void* c, const void* w,
-               const void* b, const void* m, void* h_out, void* c_out,
-               void* part, void* arrived, int B, int H, int vec, int units,
-               int splits, int pdl, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (units == 16)
-    return lstm_launch<16, X, M>(x, h, c, w, b, m, h_out, c_out, part,
-                                 arrived, B, H, vec, splits, pdl, st);
-  if (units == 32)
-    return lstm_launch<32, X, M>(x, h, c, w, b, m, h_out, c_out, part,
-                                 arrived, B, H, vec, splits, pdl, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 // ----------------------------------------------------------- kernel 6, GRU
@@ -614,12 +583,12 @@ gru_tf32_kernel(const X* __restrict__ x, const float* __restrict__ h,
   const int k0 = s0 * kGBK;
 
   copy_a_panel<W>(smem, a, B, H, m0, k0, ns);
-  split_w_panel<kGBN, W>(p_hi, p_lo, w, N, H, k0, ns * kGBK, GruCols{c0, N});
+  split_w_panel<W>(p_hi, p_lo, w, N, H, k0, ns * kGBK, GruCols{c0, N});
   float acc[2][4][4];
   mma::cp_async_wait<0>();               // the A panel has landed
   __syncthreads();                       // and the planes are in
-  panel_product<4>(acc, smem, p_hi, p_lo, ns);
-  if (!publish<kGBN, 4>(part, acc, arrived)) return;
+  panel_product(acc, smem, p_hi, p_lo, ns);
+  if (!publish(part, acc, arrived)) return;
 
   // the last block to arrive: the tile in row order, 4 columns a thread a
   // group (16 threads a row: 16-byte loads and stores, whole lines), kEpi
@@ -740,7 +709,7 @@ int gru_phase(const void* x, const void* h, const void* a, const void* w,
   if (sps < 1 || sps > kGMaxSlices) return (int)cudaErrorInvalidValue;
   auto* kernel = vec ? gru_tf32_kernel<kPhase, X, M, 4>
                      : gru_tf32_kernel<kPhase, X, M, 1>;
-  constexpr size_t smem = panel_smem<kGBN>();
+  constexpr size_t smem = kGSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -772,21 +741,18 @@ int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
 // One C entry per instance: x and the mask float32 (f32), x bf16 with a
 // float32 mask (bf16), both bf16 (bf16_mbf16), x float16 with a float32
 // mask (f16), both float16 (f16_mf16).
-// The LSTM's scratch: part the split sums ([splits][tiles][128][4 units]
-// floats); arrived one zeroed uint32 counter a tile, left zero.  A tile
-// takes `units` hidden units (16 or 32) of 128 rows; K (= H) in `splits`
-// splits of at most 4 slices of 32.  vec 1: H a multiple of 4, h, c, w and
-// b 16-byte aligned, x aligned to 4 of its elements.  pdl 1: the launch
-// may overlap the kernel before it in the stream (programmatic dependent
-// launch).
+// The LSTM's scratch: part the split sums ([splits][tiles][128][64]
+// floats, a tile 128 rows of 16 hidden units); arrived one zeroed uint32
+// counter a tile, left zero.  K (= H) in `splits` splits of at most 4
+// slices of 32.  vec 1: H a multiple of 4, h, c, w and b 16-byte aligned,
+// x aligned to 4 of its elements.
 #define LSTM_ARGS                                                        \
   const void *x, const void *h, const void *c, const void *w,           \
       const void *b, const void *m, void *h_out, void *c_out,           \
-      void *part, void *arrived, int B, int H, int vec, int units,      \
-      int splits, int pdl, void *stream
+      void *part, void *arrived, int B, int H, int vec, int splits,     \
+      void *stream
 #define LSTM_PASS                                                        \
-  x, h, c, w, b, m, h_out, c_out, part, arrived, B, H, vec, units,      \
-      splits, pdl, stream
+  x, h, c, w, b, m, h_out, c_out, part, arrived, B, H, vec, splits, stream
 // The GRU's scratch: z and rh [B, H] float32; part the split sums
 // ([splits][tiles][128][64] floats for the gates' [B, 2H] tiles); arrived
 // one zeroed uint32 counter a tile, left zero.  K (= H) in `splits` splits
@@ -801,19 +767,19 @@ int gru_launch(const void* x, const void* h, const void* wg, const void* wc,
   x, h, wg, wc, b, m, z, rh, h_out, part, arrived, B, H, vec, splits, stream
 
 extern "C" int lstm_step_f32(LSTM_ARGS) {
-  return lstm_units<float, float>(LSTM_PASS);
+  return lstm_launch<float, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_bf16(LSTM_ARGS) {
-  return lstm_units<__nv_bfloat16, float>(LSTM_PASS);
+  return lstm_launch<__nv_bfloat16, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_bf16_mbf16(LSTM_ARGS) {
-  return lstm_units<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
+  return lstm_launch<__nv_bfloat16, __nv_bfloat16>(LSTM_PASS);
 }
 extern "C" int lstm_step_f16(LSTM_ARGS) {
-  return lstm_units<__half, float>(LSTM_PASS);
+  return lstm_launch<__half, float>(LSTM_PASS);
 }
 extern "C" int lstm_step_f16_mf16(LSTM_ARGS) {
-  return lstm_units<__half, __half>(LSTM_PASS);
+  return lstm_launch<__half, __half>(LSTM_PASS);
 }
 extern "C" int gru_step_f32(GRU_ARGS) {
   return gru_launch<float, float>(GRU_PASS);
@@ -843,13 +809,9 @@ int read_resources(const void* fn, int* regs, int* local_bytes) {
 }  // namespace
 
 // Registers and local memory (bytes a thread: stack and spills) of the
-// LSTM's float32 instance with `units` units a tile (16 or 32) at copy
-// width `width` (4 or 1 floats).
-extern "C" int lstm_tf32_resources(int units, int width, int* regs,
-                                   int* local_bytes) {
-  return read_resources(units == 32 ? lstm_fn<32, float, float>(width)
-                                    : lstm_fn<16, float, float>(width),
-                        regs, local_bytes);
+// LSTM's float32 instance at copy width `width` (4 or 1 floats).
+extern "C" int lstm_tf32_resources(int width, int* regs, int* local_bytes) {
+  return read_resources(lstm_fn<float, float>(width), regs, local_bytes);
 }
 
 // The same for the GRU's float32 instance of phase `phase` (0: the gates,

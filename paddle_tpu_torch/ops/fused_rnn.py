@@ -108,25 +108,21 @@ KERNEL_DTYPES = {(_F32, _F32): "f32", (_BF16, _F32): "bf16",
                  (_BF16, _BF16): "bf16_mbf16", (_F16, _F32): "f16",
                  (_F16, _F16): "f16_mf16"}
 _SIGNATURES = {
-    **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    **{f"lstm_step_{sfx}": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
     **{f"gru_step_{sfx}": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
        + [ctypes.c_void_p] for sfx in KERNEL_DTYPES.values()},
-    "lstm_tf32_resources": [ctypes.c_int] * 2
+    "lstm_tf32_resources": [ctypes.c_int]
                            + [ctypes.POINTER(ctypes.c_int)] * 2,
     "gru_tf32_resources": [ctypes.c_int] * 2
                           + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
-# the kernels' geometry (csrc/rnn_step.cu): a block's batch rows, the
-# depth of a slice, the slices a split of K takes at most (its W panel's
-# shared memory); the GRU's product columns a block, the LSTM's hidden
-# units a block (four gates of each: 64 product columns)
-RNN_ROWS, RNN_SLICE, RNN_MAX_SLICES = 128, 32, 4
-GRU_COLS, LSTM_UNITS = 64, 16
-# whether an LSTM launch may overlap the kernel before it in the stream
-# (programmatic dependent launch: the W panel read and split before the
-# step before has ended)
-LSTM_PDL = False
+# the kernels' geometry (csrc/rnn_step.cu): a block's batch rows and
+# product columns, the depth of a slice, the slices a split of K takes at
+# most (its W panel's shared memory); the LSTM's hidden units a block
+# (the four gates' columns of each)
+RNN_ROWS, RNN_COLS, RNN_SLICE, RNN_MAX_SLICES = 128, 64, 32, 4
+LSTM_UNITS = RNN_COLS // 4
 
 
 def _splits(hd: int) -> int:
@@ -205,8 +201,7 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
     if h.numel() == 0:
         return h_out, c_out
     tiles, splits = _lstm_grid(bsz, hd)
-    part = torch.empty(tiles * splits * RNN_ROWS * 4 * LSTM_UNITS,
-                       device=h.device)
+    part = torch.empty(tiles * splits * RNN_ROWS * RNN_COLS, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     arrived = _arrived(h.device, stream, tiles)
     lib = _build.load("rnn_step", _SIGNATURES)
@@ -214,7 +209,7 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
         x_t.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
         b.data_ptr(), m_t.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         part.data_ptr(), arrived.data_ptr(), bsz, hd, _vec(x_t, h, c, w, b),
-        LSTM_UNITS, splits, int(LSTM_PDL), stream)
+        splits, stream)
     _build.check(lib, err, "lstm_step")
     count_launch(lstm_step_cuda, x_t.dtype)
     return h_out, c_out
@@ -242,8 +237,8 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
         return h_out
     z, rh = torch.empty_like(h), torch.empty_like(h)
     splits = _splits(hd)
-    tiles = -(-bsz // RNN_ROWS) * -(-2 * hd // GRU_COLS)
-    part = torch.empty(tiles * splits * RNN_ROWS * GRU_COLS, device=h.device)
+    tiles = -(-bsz // RNN_ROWS) * -(-2 * hd // RNN_COLS)
+    part = torch.empty(tiles * splits * RNN_ROWS * RNN_COLS, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     arrived = _arrived(h.device, stream, tiles)
     lib = _build.load("rnn_step", _SIGNATURES)
@@ -261,15 +256,14 @@ gru_step_cuda.launches = gru_step_cuda.launches_bf16 = 0
 gru_step_cuda.launches_f16 = 0
 
 
-def lstm_tf32_resources(units: int = LSTM_UNITS) -> dict:
+def lstm_tf32_resources() -> dict:
     """Registers and local memory (bytes a thread; nonzero means the
     kernel spills or keeps a stack) of the LSTM kernel's float32 instance
-    with ``units`` units a tile at each copy width, from
-    ``cudaFuncGetAttributes``: ``{"w4": (regs, local_bytes), "w1": ...}``.
-    Needs a card."""
+    at each copy width, from ``cudaFuncGetAttributes``: ``{"w4": (regs,
+    local_bytes), "w1": ...}``.  Needs a card."""
     lib = _build.load("rnn_step", _SIGNATURES)
     return {f"w{width}": _build.resources(lib, lib.lstm_tf32_resources,
-                                          units, width) for width in (4, 1)}
+                                          width) for width in (4, 1)}
 
 
 def gru_tf32_resources() -> dict:

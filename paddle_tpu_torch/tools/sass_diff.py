@@ -12,12 +12,12 @@ exit 0 and "identical" when the machine code is the same, else exit 1 and
 the first line that differs.  Needs the CUDA toolkit's ``nvcc`` and
 ``cuobjdump``, not a card.
 
-The LSTM step's float32 instance against an earlier checkout's, for
-example:
+The batch-norm statistics pass's float32 instance against its source
+before the bf16 instances (``tools/sass_base/``), for example:
 
     python -m paddle_tpu_torch.tools.sass_diff \\
-        OLD/paddle_tpu_torch/ops/csrc/rnn_step.cu lstm_step_kernelEPKf \\
-        paddle_tpu_torch/ops/csrc/rnn_step.cu lstm_step_kernelIffE
+        paddle_tpu_torch/tools/sass_base/bn_stats.cu fwd_partial_kernelEPKf \\
+        paddle_tpu_torch/ops/csrc/bn_stats.cu fwd_partial_kernelIfE
 """
 
 from __future__ import annotations
