@@ -39,15 +39,15 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    * max(1, max |ref|), masked rows copied bit for bit, both (3xTF32 on
    the tensor cores) also per row against ``_tf32x3_lstm_step`` and
    ``_tf32x3_gru_step`` with ``terms=1`` shown to fail at B 128 and B 256,
-   their registers and local memory (a spill fails); the conv kernels (7a, 7b: the batch-norm
-   statistic passes; 8, 9: the 1x1 and 3x3 convs with the statistics in
-   their epilogue) at every distinct shape ResNet-50 gives them at batch
-   128, at ragged shapes and (7a, 7b) at rank 2, on y, sum, sum of
-   squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|),
+   their registers and local memory (a spill fails); the conv kernels (7a,
+   7b: the batch-norm statistic passes; 8, 9: the 1x1 and 3x3 convs with the
+   statistics in their epilogue) at every distinct shape ResNet-50 gives
+   them at batch 128, at ragged shapes and (7a, 7b) at rank 2, on y, sum,
+   sum of squares, sum dy and sum dy * xhat within 1e-4 * max(1, max |ref|),
    and 8 and 9 (3xTF32 on the tensor cores) per row against
-   ``_tf32x3_matmul_stats`` and ``_tf32x3_conv3x3_stats`` (y's rows as
-   the forward's, the sums within 1e-4) with ``terms=1`` shown to fail at
-   res2, their registers and local memory;
+   ``_tf32x3_matmul_stats`` and ``_tf32x3_conv3x3_stats`` (y's rows as the
+   forward's, the sums within 1e-4) with ``terms=1`` shown to fail at res2,
+   their registers and local memory;
    7b's relu boundary (folds exactly 0 are dropped as the forward drops
    them); the autograd Functions' gradients against autograd through the
    plain versions; kernel 1 on bf16 q/k/v (the tensor-core kernel; O
@@ -160,11 +160,11 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    kernel's registers and local memory (a spill fails), each timed beside
    its bound, the plain route's backward and SDPA's at bf16; kernels 5
    and 6 at each bf16 instance (x bf16, the mask float32 or bf16) against
-   the plain step and per row against their 3xTF32 arithmetic, timed
-   (after the float32 recurrent checks).  After the LSTM route: the LM under ``bf16`` and
-   ``mixed`` (6 Adam steps at 8 x 4096 from the seeded weights, kernels
-   1, 2 and 3 launching their bf16 instances 8 times a step, the losses
-   within LM_BF16_BAND of the plain route's, the step breakdown, idle
+   the plain step and per row against their 3xTF32 arithmetic, timed (after
+   the float32 recurrent checks).  After the LSTM route: the LM under
+   ``bf16`` and ``mixed`` (6 Adam steps at 8 x 4096 from the seeded weights,
+   kernels 1, 2 and 3 launching their bf16 instances 8 times a step, the
+   losses within LM_BF16_BAND of the plain route's, the step breakdown, idle
    share and peak memory); NMT and the LSTM route under ``bf16``
    (kernel-route parity at batch 8 within RNN_BF16_TOLS, then their steps
    with kernels 6 and 5 launching 100 and 200 bf16 instances a step);

@@ -108,20 +108,14 @@ constexpr int kGBK = 32;           // depth of a slice
 constexpr int kGThreads = 256;     // 8 warps: 4 along the rows x 2 columns
 constexpr int kGMaxSlices = 4;     // slices a split of K takes at most
 constexpr int kGPS = kGMaxSlices * kGBK + 4;   // padded row of A and planes
-// The depth of a fresh fragment of products: 16 (tools/rnn_fragments.py
-// builds 8 and 32 beside it).  The tensor cores round each mma.sync's sum
-// toward zero, so a fragment's error grows with its chain of mmas.  On
-// the H100, kept over a whole 32-deep slice it put the LSTM route's first
-// layer 1.6 times as far from the plain route's (a mean of 6.1e-9 against
-// 3.8e-9) for 1% less time, and the bf16 route's first loss 1.3e-4 from
-// the plain route's, past chip_smoke.py's 1e-4; 8 deep read 3.2e-9 and
-// took 4% more time.
-#ifndef RNN_FRAG_DEPTH
-#define RNN_FRAG_DEPTH 16
-#endif
-constexpr int kFrag = RNN_FRAG_DEPTH;
-static_assert(kFrag == 8 || kFrag == 16 || kFrag == 32,
-              "whole 8-deep steps of a 32-deep slice");
+// The depth of a fresh fragment of products.  The tensor cores round each
+// mma.sync's sum toward zero, so a fragment's error grows with its chain
+// of mmas.  On the H100, kept over a whole 32-deep slice it put the LSTM
+// route's first layer 1.6 times as far from the plain route's (a mean of
+// 6.1e-9 against 3.8e-9) for 1% less time, and the bf16 route's first
+// loss 1.3e-4 from the plain route's, past chip_smoke.py's 1e-4; 8 deep
+// read 3.2e-9 and took 4% more time (PERF.md, row 5).
+constexpr int kFrag = 16;
 static_assert(kGPS % 32 == 4,
               "ldmatrix's eight rows fall in distinct bank groups");
 

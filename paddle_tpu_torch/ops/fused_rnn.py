@@ -48,7 +48,12 @@ from paddle_tpu_torch.ops.paged_attention import _arrived
 # --------------------------------------------------------------------- LSTM
 def _lstm_step_ref(x_t, h, c, w, b, m_t):
     """The plain version: the LSTM layer's step without peephole."""
-    g = x_t + h @ w + b
+    return _lstm_cell(x_t + h @ w + b, h, c, m_t)
+
+
+def _lstm_cell(g, h, c, m_t):
+    """The step from its gate pre-activations g [B, 4H]: (h', c'), the
+    masked rows h and c themselves."""
     gi, gf, gc, go = g.chunk(4, dim=-1)
     c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
     h_new = torch.sigmoid(go) * torch.tanh(c_new)
@@ -64,12 +69,8 @@ def _tf32x3_lstm_step(x_t, h, c, w, b, m_t, terms: int = 3):
     the JAX package, ``chip_smoke.py`` the kernel against it.  ``terms=1``
     takes the product as one TF32 product (hi . hi): a planted fault, which
     the checks must catch."""
-    g = x_t.float() + _tf32x3("bk,kn->bn", h, w, terms) + b
-    gi, gf, gc, go = g.chunk(4, dim=-1)
-    c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
-    h_new = torch.sigmoid(go) * torch.tanh(c_new)
-    live = m_t > 0
-    return torch.where(live, h_new, h), torch.where(live, c_new, c)
+    return _lstm_cell(x_t.float() + _tf32x3("bk,kn->bn", h, w, terms) + b,
+                      h, c, m_t)
 
 
 # ---------------------------------------------------------------------- GRU

@@ -137,8 +137,8 @@ def test_one_tf32_product_fails_the_matmul_bound(shape):
 # a multiple of the kernel's 32-deep slices or 64-wide tiles (one-float
 # copies at 37)
 GRU_SHAPES = [(12, 64), (133, 40), (5, 37)]
-# (x dtype, mask dtype): every instance of the kernel (KERNEL_DTYPES)
-GRU_DTYPES = [pytest.param(x, m, id=f"{x}-{m}") for x, m in (
+# (x dtype, mask dtype): every instance of kernels 6 and 5 (KERNEL_DTYPES)
+STEP_DTYPES = [pytest.param(x, m, id=f"{x}-{m}") for x, m in (
     ("float32", "float32"), ("bfloat16", "float32"),
     ("bfloat16", "bfloat16"), ("float16", "float32"),
     ("float16", "float16"))]
@@ -207,7 +207,7 @@ def _gru_excess(shape, x_dtype, m_dtype, jax_impl, terms=3):
 
 
 @pytest.mark.parametrize("jax_impl", ["interpret", "ref"])
-@pytest.mark.parametrize("x_dtype,m_dtype", GRU_DTYPES)
+@pytest.mark.parametrize("x_dtype,m_dtype", STEP_DTYPES)
 @pytest.mark.parametrize("shape", GRU_SHAPES)
 def test_tf32x3_gru_step_matches_jax(shape, x_dtype, m_dtype, jax_impl):
     """``_tf32x3_gru_step`` against the JAX package's ``_gru_pallas``
@@ -296,7 +296,7 @@ def _lstm_excess(shape, x_dtype, m_dtype, jax_impl, terms=3):
 
 
 @pytest.mark.parametrize("jax_impl", ["interpret", "ref"])
-@pytest.mark.parametrize("x_dtype,m_dtype", GRU_DTYPES)
+@pytest.mark.parametrize("x_dtype,m_dtype", STEP_DTYPES)
 @pytest.mark.parametrize("shape", LSTM_SHAPES)
 def test_tf32x3_lstm_step_matches_jax(shape, x_dtype, m_dtype, jax_impl):
     """``_tf32x3_lstm_step`` against the JAX package's ``_lstm_pallas``
@@ -396,7 +396,7 @@ def test_lstm_grid_covers_every_unit_once(b, h):
 
 
 def test_bounds_at_the_tf32_peak():
-    """The bounds of kernels 8 and 6 at float32: three TF32 products at
+    """The bounds of kernels 8, 6 and 5 at float32: three TF32 products at
     the 495 TFLOP/s dense TF32 peak (165 TFLOP/s of float32 work), beside
     the bytes at 3.35 TB/s.  Kernel 8 at ResNet-50's res2 expand
     ([401408, 64] x [64, 256], batch 128): 13.15 GFLOP, 0.080 ms of
@@ -405,7 +405,9 @@ def test_bounds_at_the_tf32_peak():
     23 bound by operations) 2.815 ms, their operations alone 2.332 ms.
     Kernel 6 at B 256, H 512 with 180 live rows: 0.283 GFLOP (0.0017 ms as
     three TF32 products) against 5.77 MB (0.0017 ms): 0.0017 ms, bound by
-    bytes; the FMA floor 0.0042."""
+    bytes; the FMA floor 0.0042.  Kernel 5 at B 128, H 512 with 89 live
+    rows: 0.187 GFLOP (0.0011 ms as three TF32 products) against 6.30 MB
+    (0.0019 ms): bound by bytes; the FMA floor 0.0028."""
     from paddle_tpu_torch.tools import timing
 
     assert timing.PEAK_TF32_FLOPS == 495e12
@@ -446,3 +448,12 @@ def test_bounds_at_the_tf32_peak():
     ms, by = timing.bound(3 * flops, nbytes, timing.PEAK_TF32_FLOPS)
     assert (round(ms, 4), by) == (0.0017, "bytes")
     assert round(timing.bound(flops, nbytes)[0], 4) == 0.0042
+    b, h, live = 128, 512, 89
+    flops = 2.0 * live * h * 4 * h
+    nbytes = 4.0 * (b * 4 * h + 4 * b * h + 4 * h * h + 4 * h + b)
+    assert flops == pytest.approx(0.187e9, rel=2e-3)
+    assert nbytes == pytest.approx(6.30e6, rel=1e-3)
+    assert round(3 * flops / timing.PEAK_TF32_FLOPS * 1e3, 4) == 0.0011
+    ms, by = timing.bound(3 * flops, nbytes, timing.PEAK_TF32_FLOPS)
+    assert (round(ms, 4), by) == (0.0019, "bytes")
+    assert round(timing.bound(flops, nbytes)[0], 4) == 0.0028
