@@ -166,8 +166,11 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    kernels 1, 2 and 3 launching their bf16 instances 8 times a step, the
    losses within LM_BF16_BAND of the plain route's, the step breakdown, idle
    share and peak memory); NMT and the LSTM route under ``bf16``
-   (kernel-route parity at batch 8 within RNN_BF16_TOLS, then their steps
-   with kernels 6 and 5 launching 100 and 200 bf16 instances a step);
+   (kernel-route parity at batch 8 within RNN_BF16_TOLS, beside it
+   kernels 6 and 5 held per layer on the route's own inputs - each
+   layer's first, middle and last call per row against the kernel's
+   arithmetic, ``rnn_layer_holds`` - then their steps with kernels 6 and
+   5 launching 100 and 200 bf16 instances a step);
    ``mixed`` on the card (an inf batch skips the step bit for bit and
    halves the loss scale); ``tools/sass_diff.py`` (the float32 CUDA-core
    instances of ``bn_stats.cu`` against
@@ -211,9 +214,30 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    time and breakdown; no loss scaling, so a non-finite loss is printed
    and the LM's routes are held on the steps before it); the 12 bf16
    tensor-core instances' SASS against MMA_SASS_BASE;
-14. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, fp16 policy, sweep, ResNet and ResNet-under-bf16 runs, the
-   card line again,
+14. the trainer's dispatch options (``dispatch_phases``; each graph
+   released and the cache emptied before the next phase): the LSTM route
+   (B 128, T 100) at float32 and under ``bf16`` with ``bench_lstm``'s
+   ``steps_per_dispatch=10`` - ten eager steps against one 10-step CUDA
+   graph from the same state, losses and every state tensor bit for bit,
+   kernel 5 executing 2000 times a replay, and held per row inside the
+   capture; NMT at ``bench_nmt``'s widths over ragged batches (lengths 1
+   to 50) in four buckets under ``seq_buckets="auto"``,
+   ``prefetch_depth=2`` and k = 4 - bit for bit against the eager steps
+   on the same padded feeds, one capture a bucket, kernel 6 executing
+   2 x T a step, the padding removed; the LM at 8 x 4096 under ``fp32``
+   and ``bf16``, a 2-step graph against 2 eager steps bit for bit; each
+   with the eager step's ms, the chunk's ms a step
+   (``timed_multi_dispatch``) and the idle share of one eager step and
+   of one replay; ``remat=True`` on the LM (gradients bit for bit, the
+   peak memory of each, kernel 1 16 launches a step against 8); the
+   arrival counters grown on the default and the capture stream between
+   two replays from one state (bit-equal); a NaN batch under
+   ``check_nan_inf`` raising with the names of the loss and every
+   gradient.  ``--dispatch-only[=names]`` runs this phase alone (a
+   development run; the full run takes no arguments);
+15. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, dispatch, sweep, ResNet and ResNet-under-bf16
+   runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -1624,8 +1648,8 @@ def step_breakdown(trainer, feed, attn_ms, dtype=torch.float32):
     ls = trainer._opt_state.get("loss_scale")
     torch.cuda.synchronize()
     ev[0].record()
-    loss, grads, found = trainer._grads(feed,
-                                        None if ls is None else ls["scale"])
+    loss, grads, found, _ = trainer._grads(
+        feed, None if ls is None else ls["scale"])
     ev[1].record()
     trainer.optimizer.update(
         trainer._trainable, grads, trainer._opt_state,
@@ -2208,10 +2232,15 @@ def _events_ms(fns: dict, rounds=3) -> dict:
 
 
 def profile_step(trainer, feed, match=None):
-    """``torch.profiler`` over one training step: the step's CUDA-event
-    time, the device's busy time (the union of the intervals of its own
-    activity - kernels, copies, fills - not of the host ops that launched
-    it), the idle share, the device time of the kernels whose name
+    """``profile_call`` over one training step (``trainer._step``)."""
+    return profile_call(lambda: trainer._step(feed), match)
+
+
+def profile_call(fn, match=None):
+    """``torch.profiler`` over one call of ``fn`` (a training step, a
+    graph's replay): the call's CUDA-event time, the device's busy time
+    (the union of the intervals of its own activity - kernels, copies,
+    fills - not of the host ops that launched it), the idle share, the device time of the kernels whose name
     contains ``match``, and the top 10 kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2221,7 +2250,7 @@ def profile_step(trainer, feed, match=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ev[0].record()
-        trainer._step(feed)
+        fn()
         ev[1].record()
         torch.cuda.synchronize()
     wall = ev[0].elapsed_time(ev[1])
@@ -2986,6 +3015,11 @@ def rnn_bf16_paths(policy="bf16"):
             nmt_feed(8, [50, 37, 1, 12, 50, 25, 3, 44],
                      [50, 1, 20, 33, 7, 50, 16, 2]),
             f"gru_step_{sfx}", 2 * NMT_LEN, NMT_LR, RNN_BF16_TOLS)
+        layer_holds = rnn_layer_holds(
+            f"NMT {policy}", paddle, topo, values,
+            nmt_feed(8, [50, 37, 1, 12, 50, 25, 3, 44],
+                     [50, 1, 20, 33, 7, 50, 16, 2]), "gru", NMT_LEN, 2,
+            NMT_LR)
         torch.cuda.empty_cache()
         trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
             topo, values), paddle.optimizer.Adam(learning_rate=NMT_LR))
@@ -3005,7 +3039,7 @@ def rnn_bf16_paths(policy="bf16"):
                       "first_step_ms": step_s[0] * 1e3,
                       "tokens_per_s": toks / warm, "peak_gb": peak_gb,
                       "parity": parity, "breakdown": breakdown,
-                      "launches": launches}
+                      "layer_holds": layer_holds, "launches": launches}
         del trainer
         torch.cuda.empty_cache()
 
@@ -3016,6 +3050,10 @@ def rnn_bf16_paths(policy="bf16"):
             f"LSTM route {policy}", paddle, topo, values,
             lstm_feed(8, [100, 1, 57, 100, 9, 33, 100, 80]),
             f"lstm_step_{sfx}", 2 * LSTM_LEN, LSTM_LR, RNN_BF16_TOLS)
+        layer_holds = rnn_layer_holds(
+            f"LSTM route {policy}", paddle, topo, values,
+            lstm_feed(8, [100, 1, 57, 100, 9, 33, 100, 80]), "lstm",
+            LSTM_LEN, 2, LSTM_LR)
         trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
             topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
         feed = lstm_feed(LSTM_BATCH)
@@ -3035,6 +3073,7 @@ def rnn_bf16_paths(policy="bf16"):
                              "peak_gb": peak_gb, "parity": parity,
                              "idle_share": prof["idle_share"],
                              "kernel_ms": prof["matched_ms"],
+                             "layer_holds": layer_holds,
                              "launches": launches}
     finally:
         _policy("fp32")
@@ -4429,10 +4468,549 @@ def resnet_bf16_path(policy="bf16"):
     return out
 
 
-def main() -> int:
+# ------------------------------------------- the trainer's dispatch options
+# k of ``train(steps_per_dispatch=k)`` on each path: ``bench_lstm``'s 10
+# for the LSTM route, 4 for NMT, 2 for the LM
+DISPATCH_K = {"lstm": 10, "nmt": 4, "lm": 2}
+# NMT's buckets under seq_buckets="auto" (powers of two >= 8 capped at
+# max_len 50) and the batches drawn in each: one chunk of k a bucket
+NMT_BUCKETS = (8, 16, 32, NMT_LEN)
+
+
+def _trainers_equal(a, b) -> tuple:
+    """(bit-equal, largest difference) of two trainers' state: every
+    parameter, optimizer slot and step counter, loss-scale and running
+    state tensor."""
+    ta, tb = a._state_tensors(), b._state_tensors()
+    worst = max((x.double() - y.double()).abs().max().item()
+                for x, y in zip(ta, tb))
+    return (len(ta) == len(tb)
+            and all(torch.equal(x, y) for x, y in zip(ta, tb))), worst
+
+
+def _losses(paddle, trainer, reader, **kw) -> list:
+    """``trainer.train`` over ``reader``; the per-batch costs."""
+    out = []
+    trainer.train(reader, event_handler=lambda e: out.append(e.cost) if
+                  isinstance(e, paddle.event.EndIteration) else None, **kw)
+    return out
+
+
+def _eager_ms(trainer, feeds) -> float:
+    """The median host time of one eager step over ``feeds`` after the
+    first, on copies of the trainer's state."""
+    times = []
+    with trainer.on_copies():
+        for feed in feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._step(feed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    rest = sorted(times[1:])
+    return rest[len(rest) // 2] * 1e3
+
+
+def _idle(prof) -> str:
+    if prof["idle_share"] is None:
+        return "idle share not measured (no device activity traced)"
+    return (f"device busy {prof['busy_ms']:.1f} of {prof['step_ms']:.1f} ms, "
+            f"idle share {prof['idle_share']:.1%}")
+
+
+class _RnnCalls:
+    """Records the operands and the results of chosen kernel 5 or 6 calls
+    (``_LstmStep`` / ``_GruStep``, counted in call order; with
+    ``capturing_only`` only the calls a CUDA graph captures, whose copies
+    a replay then fills), for the per-layer hold (``hold``)."""
+
+    def __init__(self, kind, picks, capturing_only=False):
+        from paddle_tpu_torch.ops import fused_rnn as fr
+        self.fr, self.kind, self.picks = fr, kind, set(picks)
+        self.cls = fr._LstmStep if kind == "lstm" else fr._GruStep
+        self.capturing_only = capturing_only
+        self.calls, self.seen = [], 0
+
+    def __enter__(self):
+        orig = self.orig = self.cls.forward
+
+        def forward(ctx, *args):
+            out = orig(ctx, *args)
+            if (not self.capturing_only
+                    or torch.cuda.is_current_stream_capturing()):
+                if self.seen in self.picks:
+                    outs = out if isinstance(out, tuple) else (out,)
+                    self.calls.append((self.seen,
+                                       [a.detach().clone() for a in args],
+                                       tuple(o.detach().clone()
+                                             for o in outs)))
+                self.seen += 1
+            return out
+
+        self.cls.forward = staticmethod(forward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = staticmethod(self.orig)
+
+    def hold(self, what, per_step, t_len) -> dict:
+        """Each recorded call's results per row against the kernel's own
+        arithmetic on its operands (``_hold_rnn_tf32``); a step makes
+        ``per_step`` calls, a layer ``t_len`` of them."""
+        torch.cuda.synchronize()
+        if len(self.calls) != len(self.picks):
+            raise AssertionError(f"{what}: recorded calls "
+                                 f"{[c[0] for c in self.calls]}, expected "
+                                 f"{sorted(self.picks)}")
+        worst = {"row_err": 0.0, "row_err_q99": 0.0}
+        for i, args, got in self.calls:
+            r = _hold_rnn_tf32(self.fr, self.kind,
+                               f"{what} call {i} (step {i // per_step}, "
+                               f"layer {i % per_step // t_len}, call "
+                               f"{i % t_len} of the layer)", args, got)
+            worst = {k: max(worst[k], r[k]) for k in worst}
+        return worst
+
+
+def rnn_layer_holds(name, paddle, topo, values, feed, kind, t_len,
+                    n_layers, lr):
+    """Kernel 5 or 6 per layer on the route's own inputs (ROADMAP W1):
+    one forward of the route at the parity batch, each layer's first,
+    middle and last step held per row against the kernel's arithmetic on
+    the operands the route gave it.  A kernel fault fails here; a bf16
+    rounding that moves the first loss does not."""
+    picks = [l * t_len + t for l in range(n_layers)
+             for t in (0, t_len // 2, t_len - 1)]
+    tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=lr))
+    with _RnnCalls(kind, picks) as rec:
+        tr.forward_backward(feed)
+    return rec.hold(f"{name} per layer (kernel {5 if kind == 'lstm' else 6})",
+                    n_layers * t_len, t_len)
+
+
+def _chunk_entry(trainer):
+    entries = list(trainer._chunks.entries.values())
+    return entries[-1]
+
+
+def dispatch_check(name, paddle, make_trainer, feeds, k, kernels, per_step,
+                   hold=None):
+    """One path's chunk against its eager steps: trainer A takes the k
+    feeds as eager steps, trainer B (the same start) as one
+    ``steps_per_dispatch=k`` chunk, one CUDA graph; their losses and every
+    state tensor must be equal bit for bit.  A second chunk on B replays
+    the graph: each of ``kernels`` must execute ``per_step`` times a step
+    in it and nothing be captured again.  Then the eager step's ms (median, on
+    copies of A's state), the chunk's ms a step
+    (``timed_multi_dispatch``, 3 timed replays) and the idle share of one
+    eager step and of one replay (``torch.profiler``).  ``hold``, a
+    ``_RnnCalls`` recording inside the capture, is held after the first
+    replay."""
+    from paddle_tpu_torch import ops
+
+    a, b = make_trainer(), make_trainer()
+    eager = _losses(paddle, a, lambda: iter(feeds))
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if hold is not None:
+        with hold:
+            chunk = _losses(paddle, b, lambda: iter(feeds),
+                            steps_per_dispatch=k)
+        holds = hold.hold(f"{name} inside the captured chunk", per_step,
+                          LSTM_LEN)
+    else:
+        chunk = _losses(paddle, b, lambda: iter(feeds), steps_per_dispatch=k)
+        holds = None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same, worst = _trainers_equal(a, b)
+    if chunk != eager or not same:
+        raise AssertionError(f"{name}: the {k}-step graph is not its eager "
+                             f"steps bit for bit: losses {chunk} vs {eager}, "
+                             f"largest state difference {worst}")
+    ops.reset_launch_counts()
+    _losses(paddle, b, lambda: iter(feeds), steps_per_dispatch=k)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    replay = counts.get(kernels[0], 0)
+    if (any(counts.get(n) != per_step * k for n in kernels)
+            or b.step_capture_count != 1):
+        raise AssertionError(f"{name}: one replay ran {counts} (expected "
+                             f"{per_step * k} of each of {kernels}); "
+                             f"captures {b.step_capture_count}")
+    entry = _chunk_entry(b)
+    stacked = b._stack_group(feeds)
+    prof_replay = profile_call(lambda: entry(stacked))
+    prof_eager = profile_step(a, feeds[0])
+    b.release_chunks()
+    del b
+    torch.cuda.empty_cache()
+    eager_ms = _eager_ms(a, feeds[:4])
+    dt, n = a.timed_multi_dispatch(feeds[0], k, iters=3, warmup=1)
+    chunk_ms = dt / n * 1e3
+    print(f"{name} steps_per_dispatch={k} (one CUDA graph): losses "
+          f"{[round(x, 5) for x in chunk]} equal to {k} eager steps bit for "
+          f"bit, every parameter, slot and state tensor too; executions in "
+          f"one replay {counts} ({per_step} a step each); eager "
+          f"step {eager_ms:.1f} ms, chunk {chunk_ms:.1f} ms a step "
+          f"(timed_multi_dispatch); one eager step: {_idle(prof_eager)}; one "
+          f"replay ({k} steps): {_idle(prof_replay)}; peak memory with the "
+          f"graph {peak_gb:.2f} GB; {card_line()}", flush=True)
+    del a
+    torch.cuda.empty_cache()
+    return {"k": k, "losses": chunk, "bit_equal": True,
+            "replay_launches": replay, "replay_counts": counts,
+            "eager_ms": eager_ms,
+            "chunk_ms": chunk_ms, "eager_idle_share": prof_eager["idle_share"],
+            "replay_idle_share": prof_replay["idle_share"],
+            "replay_ms": prof_replay["step_ms"],
+            "replay_busy_ms": prof_replay["busy_ms"], "peak_gb": peak_gb,
+            "kernel_holds": holds}
+
+
+def lstm_dispatch(policy="fp32"):
+    """The LSTM route at B 128, T 100 under ``policy`` with
+    ``bench_lstm``'s k = 10: ten eager steps against one 10-step graph,
+    kernel 5 executing 2000 times a replay, and kernel 5 held per layer
+    inside the capture (the first step's first call, its second layer's
+    middle call, the tenth step's last call)."""
+    k, per_step = DISPATCH_K["lstm"], 2 * LSTM_LEN
+    sfx = _policy_sfx(policy)
+    paddle, topo = lstm_model()
+    _policy(policy)
+    try:
+        values = seeded_values(topo, SEED + 2)
+        feeds = [lstm_feed(LSTM_BATCH, seed=SEED + 10 + i) for i in range(k)]
+        hold = _RnnCalls("lstm", (0, per_step // 2 + LSTM_LEN // 2,
+                                  per_step * k - 1), capturing_only=True)
+        return dispatch_check(
+            f"LSTM route {policy}", paddle,
+            lambda: paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR)),
+            feeds, k, ["lstm_step" + ("" if policy == "fp32" else "_" + sfx)],
+            per_step, hold)
+    finally:
+        _policy("fp32")
+
+
+def counter_growth_check(policy="fp32"):
+    """A planted check of the arrival counters: capture the LSTM route's
+    chunk, replay it from a saved state, then grow the counters of the
+    default stream and of the capture stream with eager kernel 5 calls at
+    B 2048 (512 tiles, past the 256 a stream starts with), put the state
+    back and replay again: the losses and the state must be equal bit for
+    bit, since the graph holds the counters it captured."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    from paddle_tpu_torch.ops.paged_attention import arrival_counters
+
+    k = DISPATCH_K["lstm"]
+    paddle, topo = lstm_model()
+    values = seeded_values(topo, SEED + 2)
+    tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=LSTM_LR))
+    feeds = [lstm_feed(LSTM_BATCH, seed=SEED + 30 + i) for i in range(k)]
+    stacked = tr._stack_group(feeds)
+    entry = tr._chunk(stacked, k)
+    start = [t.clone() for t in tr._state_tensors()]
+    first = entry(stacked)
+    after = [t.clone() for t in tr._state_tensors()]
+    dev = tr.device
+    stream = tr._chunks._stream
+    held = entry.arrivals
+    default = torch.cuda.current_stream(dev).cuda_stream
+    before = {s: arrival_counters(dev, s)
+              for s in (default, stream.cuda_stream)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = _rnn_args("lstm", 2048, RNN_H, dev, gen)
+    fr.lstm_step_cuda(*big)
+    with torch.cuda.stream(stream):
+        fr.lstm_step_cuda(*big)
+    torch.cuda.synchronize()
+    grown = {s: arrival_counters(dev, s) for s in before}
+    if any(g is None or g.numel() < 512 or (b is not None and g is b)
+           for s, g in grown.items() for b in (before[s],)):
+        raise AssertionError("counter growth check: the large calls did "
+                             "not grow both streams' counters")
+    for t, s in zip(tr._state_tensors(), start):
+        t.copy_(s)
+    again = entry(stacked)
+    torch.cuda.synchronize()
+    same = (torch.equal(first, again) and all(
+        torch.equal(t, s) for t, s in zip(tr._state_tensors(), after)))
+    print(f"arrival counters: the LSTM chunk captured {held.numel()} "
+          f"counters on its own stream; eager kernel 5 calls at B 2048 grew "
+          f"the default stream's to {grown[default].numel()} and the "
+          f"capture stream's to {grown[stream.cuda_stream].numel()}; the "
+          f"replay from the same state after them is "
+          f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+    tr.release_chunks()
+    del tr, entry
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("counter growth check: the replay changed "
+                             "after the counters grew")
+    return {"held_counters": held.numel(), "bit_equal": same}
+
+
+def nan_check_phase():
+    """``check_nan_inf`` on the card: an MLP (1024 -> 4096 relu -> 1000)
+    with ``steps_per_dispatch=2`` (which it stands down to one step) takes
+    a clean batch, then a batch with one NaN sample; that step must raise
+    FloatingPointError naming the loss and every gradient."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.ir import reset_name_counters
+
+    reset_name_counters()
+    paddle.init(seed=SEED)
+    layer = paddle.layer
+    x = layer.data("x", paddle.data_type.dense_vector(1024))
+    y = layer.data("y", paddle.data_type.integer_value(1000))
+    h = layer.fc(x, size=4096, act="relu", name="hidden")
+    topo = paddle.Topology(layer.classification_cost(
+        layer.fc(h, size=1000, name="out"), y, name="cost"))
+    tr = paddle.trainer.SGD(topo, paddle.parameters.create(topo),
+                            paddle.optimizer.Momentum(learning_rate=0.01,
+                                                      momentum=0.9),
+                            check_nan_inf=True)
+    rng = np.random.RandomState(SEED)
+    xs = rng.randn(256, 1024).astype(np.float32)
+    ys = rng.randint(0, 1000, 256).astype(np.int32)
+    bad = xs.copy()
+    bad[5, 9] = np.nan
+    want = {"loss", "hidden.w0@GRAD", "hidden.b@GRAD", "out.w0@GRAD",
+            "out.b@GRAD"}
+    try:
+        tr.train(lambda: iter([{"x": xs, "y": ys}, {"x": bad, "y": ys}]),
+                 event_handler=lambda e: None, steps_per_dispatch=2)
+    except FloatingPointError as e:
+        named = set(str(e).rsplit(" in: ", 1)[1].split(", "))
+        msg = str(e)
+    else:
+        raise AssertionError("check_nan_inf: the NaN batch did not raise")
+    if "batch 1" not in msg or named != want:
+        raise AssertionError(f"check_nan_inf raised {msg!r}, expected the "
+                             f"names {sorted(want)} at batch 1")
+    print(f"check_nan_inf on the card (steps_per_dispatch=2, stood down to "
+          f"one step): {msg}; captures {tr.step_capture_count}", flush=True)
+    return {"message": msg, "captures": tr.step_capture_count}
+
+
+def _nmt_bucket_samples():
+    """Ragged NMT samples (source and target lengths 1 to 50, token ids
+    from a numpy seed), DISPATCH_K["nmt"] batches of NMT_BATCH for each
+    bucket of NMT_BUCKETS: each batch's longest sequence lands in its
+    bucket, as length-sorted batching draws them."""
+    rng = np.random.RandomState(SEED + 5)
+    out = []
+    for top in NMT_BUCKETS:
+        for _ in range(DISPATCH_K["nmt"] * NMT_BATCH):
+            ls, lt = rng.randint(1, top + 1, 2)
+            if len(out) % NMT_BATCH == 0:
+                ls = top                     # the batch reaches its bucket
+            ids = [rng.randint(3, NMT_VOCAB, n).tolist() for n in
+                   (ls, lt, lt)]
+            out.append(tuple(ids))
+    return out
+
+
+def nmt_dispatch():
+    """NMT at ``bench_nmt``'s widths with ``seq_buckets="auto"``,
+    ``prefetch_depth=2`` and k = 4 over ragged batches in four buckets:
+    the chunked run against the eager one on the same padded feeds, bit
+    for bit; one capture a bucket hit; kernel 6 executing 2 x T a step at
+    each bucket's T in the replays; the padding the buckets remove; the
+    eager and chunked ms a step and the idle share of a replay at T 50."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.data_feeder import DataFeeder
+
+    k = DISPATCH_K["nmt"]
+    paddle, topo = nmt_model()
+    values = seeded_values(topo, SEED)
+    samples = _nmt_bucket_samples()
+    feeding = {"source_words": 0, "target_words": 1, "target_next_words": 2}
+    reader = paddle.batch(lambda: iter(samples), NMT_BATCH)
+
+    def make():
+        return paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+            topo, values), paddle.optimizer.Adam(learning_rate=NMT_LR))
+
+    a, b = make(), make()
+    kw = dict(feeding=feeding, seq_buckets="auto")
+    t0 = time.perf_counter()
+    eager = _losses(paddle, a, reader, **kw)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    chunk = _losses(paddle, b, reader, prefetch_depth=2,
+                    steps_per_dispatch=k, **kw)
+    same, worst = _trainers_equal(a, b)
+    if chunk != eager or not same:
+        raise AssertionError(f"NMT buckets: the chunks are not the eager "
+                             f"steps bit for bit: losses {chunk} vs {eager}; "
+                             f"largest state difference {worst}")
+    feeder = DataFeeder(topo, feeding)
+    convert = a._make_feed_converter(feeder, "auto")
+    batches = list(reader())
+    pads = [convert(bt)["source_words"].shape[1] for bt in batches]
+    hit = sorted(set(pads))
+    if b.step_capture_count != len(hit) or hit != list(NMT_BUCKETS):
+        raise AssertionError(f"NMT buckets: {b.step_capture_count} captures "
+                             f"for the buckets {hit}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _losses(paddle, b, reader, prefetch_depth=2, steps_per_dispatch=k, **kw)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    replays = ops.launch_counts()["gru_step"]
+    if replays != 2 * sum(pads) or b.step_capture_count != len(hit):
+        raise AssertionError(f"NMT buckets: gru_step ran {replays} times in "
+                             f"the replays, expected {2 * sum(pads)}")
+    cells = sum(pads)
+    removed = 1.0 - cells / (len(pads) * NMT_LEN)
+    full = [convert(bt) for bt in batches[-k:]]
+    stacked = b._stack_group(full)
+    entry = b._chunks.get("train_chunk", k, stacked, b._step,
+                          b._state_tensors)
+    prof_replay = profile_call(lambda: entry(stacked))
+    prof_eager = profile_step(a, full[0])
+    b.release_chunks()
+    del b
+    torch.cuda.empty_cache()
+    eager_ms = _eager_ms(a, full)
+    dt, n = a.timed_multi_dispatch(full[0], k, iters=3, warmup=1)
+    chunk_ms = dt / n * 1e3
+    print(f"NMT seq_buckets=auto, prefetch_depth=2, steps_per_dispatch={k} "
+          f"over {len(pads)} ragged batches of {NMT_BATCH} (lengths 1 to "
+          f"{NMT_LEN}): buckets hit {hit}, captures {len(hit)}; losses equal "
+          f"to the eager steps on the same padded feeds bit for bit, every "
+          f"state tensor too; gru_step executions in the replays {replays} "
+          f"(2 x T a step); padding removed {removed:.1%} of the T cells; "
+          f"the pass eager {eager_s * 1e3:.0f} ms, chunked (replays) "
+          f"{chunk_s * 1e3:.0f} ms; at T {NMT_LEN}: eager step "
+          f"{eager_ms:.1f} ms, chunk {chunk_ms:.1f} ms a step "
+          f"(timed_multi_dispatch); one eager step: {_idle(prof_eager)}; one "
+          f"replay ({k} steps): {_idle(prof_replay)}; {card_line()}",
+          flush=True)
+    del a
+    torch.cuda.empty_cache()
+    return {"k": k, "buckets": hit, "captures": len(hit), "bit_equal": True,
+            "replay_launches": replays, "padding_removed": removed,
+            "pass_eager_ms": eager_s * 1e3, "pass_chunked_ms": chunk_s * 1e3,
+            "eager_ms": eager_ms, "chunk_ms": chunk_ms,
+            "eager_idle_share": prof_eager["idle_share"],
+            "replay_idle_share": prof_replay["idle_share"],
+            "replay_ms": prof_replay["step_ms"],
+            "replay_busy_ms": prof_replay["busy_ms"]}
+
+
+def lm_dispatch(policy="fp32"):
+    """The LM at 8 x 4096 under ``policy``: two eager steps against one
+    2-step graph, bit for bit, kernels 1, 2 and 3 executing 8 times a step
+    in a replay."""
+    k = DISPATCH_K["lm"]
+    paddle, topo = _train_model()
+    _policy(policy)
+    try:
+        values = random_values(SEED)
+        rng = np.random.RandomState(SEED + 3)
+        feeds = []
+        for _ in range(k):
+            seqs = rng.randint(0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)
+                               ).astype(np.int32)
+            feeds.append(trainer_feed(seqs[:, :-1], seqs[:, 1:]))
+        sfx = "" if policy == "fp32" else "_" + _policy_sfx(policy)
+        return dispatch_check(f"LM {policy}", paddle,
+                              lambda: _trainer(paddle, topo, values), feeds,
+                              k, [n + sfx for n in TRAIN_KERNELS], LAYERS)
+    finally:
+        _policy("fp32")
+
+
+def remat_check():
+    """``remat=True`` on the LM at 8 x 4096 (fp32): the gradients against
+    remat off, bit for bit, the peak memory of each, and kernel 1's
+    launches (the backward recomputes the attention forward: 16 a step
+    against 8)."""
+    from paddle_tpu_torch import ops
+
+    paddle, topo = _train_model()
+    values = random_values(SEED)
+    seqs = np.random.RandomState(SEED + 4).randint(
+        0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)).astype(np.int32)
+    feed = trainer_feed(seqs[:, :-1], seqs[:, 1:])
+    tr = _trainer(paddle, topo, values)
+    runs = {}
+    for remat in (False, True):
+        tr.remat = remat
+        tr.forward_backward(feed)         # warm: builds, allocator
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = tr.forward_backward(feed)
+        torch.cuda.synchronize()
+        runs[remat] = (float(loss), grads,
+                       (torch.cuda.max_memory_allocated() - base) / 1e9,
+                       ops.launch_counts()["flash_fwd"])
+        del grads
+    (l0, g0, m0, n0), (l1, g1, m1, n1) = runs[False], runs[True]
+    worst = max((g1[l][p] - g).abs().max().item()
+                for l, ps in g0.items() for p, g in ps.items())
+    same = l0 == l1 and all(torch.equal(g1[l][p], g)
+                            for l, ps in g0.items() for p, g in ps.items())
+    print(f"LM remat=True at {TRAIN_BATCH} x {MAX_LEN}: loss and every "
+          f"gradient {'equal bit for bit' if same else 'DIFFERENT'} to remat "
+          f"off (largest difference {worst:.3e}); peak memory above the "
+          f"model {m0:.2f} GB off, {m1:.2f} GB on; flash_fwd launches a step "
+          f"{n0} off, {n1} on; {card_line()}", flush=True)
+    del tr, runs, g0, g1
+    torch.cuda.empty_cache()
+    if not same or n0 != LAYERS or n1 != 2 * LAYERS:
+        raise AssertionError("remat: gradients differ or kernel 1 did not "
+                             "launch 8 and 16 times")
+    return {"bit_equal": same, "peak_gb_off": m0, "peak_gb_on": m1,
+            "flash_fwd_off": n0, "flash_fwd_on": n1}
+
+
+DISPATCH_PHASES = {
+    "lstm_route": lambda: lstm_dispatch("fp32"),
+    "lstm_route_bf16": lambda: lstm_dispatch("bf16"),
+    "counter_growth": counter_growth_check,
+    "nan_check": nan_check_phase,
+    "nmt": nmt_dispatch,
+    "lm": lambda: lm_dispatch("fp32"),
+    "lm_bf16": lambda: lm_dispatch("bf16"),
+    "remat": remat_check,
+}
+
+
+def dispatch_phases(names=None) -> dict:
+    """The trainer's dispatch options at full width (see the module
+    docstring, phase 14), or those of them ``names`` lists; each phase
+    releases its graphs and empties the cache before the next."""
+    out = {}
+    for name, phase in DISPATCH_PHASES.items():
+        if names is None or name in names:
+            out[name] = phase()
+            torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    only = [a for a in argv if a.startswith("--dispatch-only")]
+    if only:
+        # a development run of phase 14 alone (--dispatch-only, or
+        # --dispatch-only=nmt,lm for some of DISPATCH_PHASES); the full
+        # run takes no arguments
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card_line(), flush=True)
+        names = (only[0].split("=", 1)[1].split(",") if "=" in only[0]
+                 else None)
+        print(json.dumps({"dispatch": dispatch_phases(names)}), flush=True)
+        return 0
     from paddle_tpu_torch.ops import _build
     # the plain versions are the reference: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4501,6 +5079,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixed = mixed_skip_phase(dev)
     torch.cuda.empty_cache()
+    dispatch = dispatch_phases()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -4522,6 +5101,8 @@ def main() -> int:
                    "Lq": flash_t["lq"], "Lk": MAX_LEN, "causal": True,
                    "q_offset": flash_t["q_offset"]},
          "launches_train": tl["flash_fwd"],
+         "launches_replay": dispatch["lm"]["replay_launches"],
+         "launches_remat": dispatch["remat"]["flash_fwd_on"],
          "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -4548,11 +5129,15 @@ def main() -> int:
         {"name": "lstm_step", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
          "replaces": "paddle_tpu/ops/fused_rnn.py:44",
-         "launches": lstm["launches"]["lstm_step"], **rnn["lstm"]},
+         "launches": lstm["launches"]["lstm_step"],
+         "launches_replay": dispatch["lstm_route"]["replay_launches"],
+         **rnn["lstm"]},
         {"name": "gru_step", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
          "replaces": "paddle_tpu/ops/fused_rnn.py:144",
-         "launches": nmt["launches"]["gru_step"], **rnn["gru"]},
+         "launches": nmt["launches"]["gru_step"],
+         "launches_replay": dispatch["nmt"]["replay_launches"],
+         **rnn["gru"]},
         {"name": "bn_fwd_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "paddle_tpu/ops/fused_bn.py:58",
@@ -4577,6 +5162,7 @@ def main() -> int:
              route="cuda", source="paddle_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="paddle_tpu/ops/flash_attention.py:90",
              launches=lm16["bf16"]["launches"]["flash_fwd_bf16"],
+             launches_replay=dispatch["lm_bf16"]["replay_launches"],
              launches_mixed=lm16["mixed"]["launches"]["flash_fwd_bf16"],
              launches_sweep=sweep_launches["flash_fwd"],
              lm_shape=var["kernel1_bf16"]["lm"]),
@@ -4598,6 +5184,7 @@ def main() -> int:
              route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
              replaces="paddle_tpu/ops/fused_rnn.py:44",
              launches=rnn16_paths["lstm_route"]["launches"]["lstm_step_bf16"],
+             launches_replay=dispatch["lstm_route_bf16"]["replay_launches"],
              instances=rnn16["lstm"]),
         dict(rnn16["gru"]["x bfloat16, mask float32"], name="gru_step_bf16",
              route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
@@ -4695,6 +5282,7 @@ def main() -> int:
         "flash": {k: bwd_f16[k] for k in ("planted_fault",
                                           "distance_to_plain", "cases",
                                           "resources")}}}), flush=True)
+    print(json.dumps({"dispatch": dispatch}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],
@@ -4717,4 +5305,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

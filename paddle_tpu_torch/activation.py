@@ -32,7 +32,8 @@ def _gelu(x):
         return F.gelu(x, approximate="tanh")
 
     def c(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        # filled on the device: no host copy, so a CUDA graph can capture it
+        return torch.full((), v, dtype=x.dtype, device=x.device)
 
     if x.dtype == torch.float16:
         # XLA's CPU backend contracts this one term of the jitted formula

@@ -5,8 +5,14 @@
 ``cost``, ``train_reader`` and optionally ``optimizer`` (default Momentum,
 lr 0.01, momentum 0.9) and ``feeding``, and is trained through
 ``trainer.SGD``; ``--precision`` names the precision policy, which wins
-over the config's own ``init``.  The JAX command's checkpoint, telemetry, prefetch,
-bucketing and steps-per-dispatch flags are not ported yet and raise.
+over the config's own ``init``.  ``--steps_per_dispatch K``,
+``--seq_buckets auto|L1,L2,..``, ``--prefetch_depth N`` and
+``--check_nan_inf`` are the trainer's dispatch options.
+``--job=time`` (``cmd_time``, TrainerBenchmark) times the step on a
+synthetic batch of ``--batch_size`` for ``--iters`` iterations, and with
+K > 1 the K-step chunk beside it, and prints one JSON line.  The JAX
+command's checkpoint, telemetry and compile-cache flags and its other
+jobs are not ported yet and raise.
 
 ``serve`` serves a transformer LM checkpoint through the paged decoder, as
 ``python -m paddle_tpu serve --decode --paged_kv`` does.  The JAX command
@@ -22,11 +28,13 @@ import os
 import runpy
 import sys
 import threading
+import time
 
 # flags of the JAX ``train`` verb this port does not have yet
 _UNPORTED_TRAIN_FLAGS = ("save_dir", "telemetry_dir", "metrics_port",
-                         "prefetch_depth", "seq_buckets",
-                         "steps_per_dispatch", "compile_cache_dir")
+                         "compile_cache_dir")
+# the JAX ``train`` verb's jobs this port runs
+_JOBS = ("train", "time")
 
 
 def _serve_ready_line(role, host, port, **extra):
@@ -86,7 +94,9 @@ def _load_config(path: str) -> dict:
     return runpy.run_path(path)
 
 
-def cmd_train(args) -> None:
+def _build(args):
+    """The config's trainer, as ``paddle_tpu/cli.py``'s ``_build`` makes
+    it: (paddle, config globals, topology, trainer)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core import config
 
@@ -96,6 +106,10 @@ def cmd_train(args) -> None:
         raise NotImplementedError(
             f"{', '.join(unported)}: not ported to paddle_tpu_torch yet "
             f"(ROADMAP.md section 1)")
+    if args.job not in _JOBS:
+        raise NotImplementedError(
+            f"--job={args.job}: not ported to paddle_tpu_torch yet (ported: "
+            f"{', '.join(_JOBS)}; ROADMAP.md section 1)")
     # before the config runs: its own paddle.init() keeps this device
     config.set_option("device", args.device)
     config.default_device()
@@ -105,18 +119,106 @@ def cmd_train(args) -> None:
         # trainer is built under the policy
         from paddle_tpu_torch.core import precision
         precision.apply_policy_name(args.precision)
-    cost = cfg["cost"]
-    topo = paddle.Topology(cost)
+    topo = paddle.Topology(cfg["cost"])
     params = paddle.parameters.create(topo)
     opt = cfg.get("optimizer") or paddle.optimizer.Momentum(
         learning_rate=0.01, momentum=0.9)
-    trainer = paddle.trainer.SGD(topo, params, opt)
+    trainer = paddle.trainer.SGD(topo, params, opt,
+                                 check_nan_inf=args.check_nan_inf)
+    return paddle, cfg, topo, trainer
+
+
+def cmd_train(args) -> None:
+    if args.job == "time":
+        return cmd_time(args)
+    paddle, cfg, _, trainer = _build(args)
     reader = cfg.get("train_reader")
     if reader is None:
-        raise SystemExit("config must define train_reader for train")
-    config.set_option("log_period", args.log_period)
+        raise SystemExit("config must define train_reader for --job=train")
+    paddle.core.config.set_option("log_period", args.log_period)
+    # an invalid --steps_per_dispatch (0, negative) reaches the trainer's
+    # ValueError; 1, the default, is off
+    spd = args.steps_per_dispatch
+    sb = args.seq_buckets
+    seq_buckets = ((True if sb == "auto"
+                    else [int(x) for x in sb.split(",") if x.strip()])
+                   if sb else None)
     trainer.train(reader, num_passes=args.num_passes,
-                  feeding=cfg.get("feeding"))
+                  feeding=cfg.get("feeding"),
+                  prefetch_depth=args.prefetch_depth or None,
+                  steps_per_dispatch=None if spd == 1 else spd,
+                  seq_buckets=seq_buckets)
+
+
+def _synthetic_feed(topo, batch_size: int):
+    """A synthetic batch from the topology's feed signature (--job=time),
+    as the JAX command draws it."""
+    import numpy as np
+
+    feed = {}
+    for name in topo.input_names:
+        spec = topo.get_layer(name)
+        shape = topo.shapes[name]
+        if any(d is None for d in shape):
+            raise SystemExit(
+                f"synthetic feed needs max_len on data layer {name!r} "
+                f"(unsized sequence dim) for --job=time")
+        full = (batch_size,) + tuple(shape)
+        if spec.attrs.get("is_index"):
+            feed[name] = np.random.randint(
+                0, max(spec.attrs.get("dim", 2), 2), size=full
+            ).astype(np.int32)
+        else:
+            feed[name] = np.random.rand(*full).astype(np.float32)
+        if topo.is_seq[name]:
+            feed[name + "@len"] = np.full((batch_size,), shape[0],
+                                          np.int32)
+    return feed
+
+
+def cmd_time(args) -> None:
+    """TrainerBenchmark parity: the training step on a synthetic batch,
+    reported as ms a batch and samples a second in one JSON line.  With
+    --steps_per_dispatch K > 1 the K-step chunk is timed too
+    (``timed_multi_dispatch``: on the card one CUDA graph replay a
+    chunk), and the line carries the single-step figure and the
+    amortization.  Each lap ends with one host read; the laps run on
+    copies of the trainer's state."""
+    import numpy as np
+    import torch
+
+    _, _, topo, trainer = _build(args)
+    feed = {k: torch.as_tensor(v, device=trainer.device)
+            for k, v in _synthetic_feed(topo, args.batch_size).items()}
+    k = args.steps_per_dispatch or 1
+    with trainer.on_copies():
+        for _ in range(3):                      # warm-up, kernel builds
+            loss = trainer._step(feed)
+        if not np.isfinite(float(loss)):
+            raise FloatingPointError("warmup loss not finite")
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            loss = trainer._step(feed)
+        last = float(loss)
+        dt_single = time.perf_counter() - t0
+    if not np.isfinite(last):
+        raise FloatingPointError("timed loss not finite")
+    if k > 1:
+        dt, n_batches = trainer.timed_multi_dispatch(feed, k,
+                                                     iters=args.iters)
+    else:
+        dt, n_batches = dt_single, args.iters
+    rec = {"ms_per_batch": round(dt / n_batches * 1e3, 3),
+           "samples_per_sec": round(args.batch_size * n_batches / dt, 2),
+           "steps_per_dispatch": k,
+           "batch_size": args.batch_size,
+           "iters": args.iters}
+    if k > 1:
+        ms_single = dt_single / args.iters * 1e3
+        rec["ms_per_batch_single_dispatch"] = round(ms_single, 3)
+        rec["dispatch_amortization"] = round(
+            ms_single / (dt / n_batches * 1e3), 2)
+    print(json.dumps(rec))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,6 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--config", required=True,
                     help="python file defining cost and train_reader "
                          "(optimizer, feeding optional)")
+    tr.add_argument("--job", default="train",
+                    help="train (default) or time (TrainerBenchmark: the "
+                         "step on a synthetic batch, one JSON line); the "
+                         "JAX command's other jobs raise")
     tr.add_argument("--num_passes", type=int, default=1)
     tr.add_argument("--log_period", type=int, default=100,
                     help="print the cost every N batches")
@@ -139,6 +245,28 @@ def build_parser() -> argparse.ArgumentParser:
                          "reduced-precision compute on float32 master "
                          "parameters; mixed = bf16 compute with dynamic "
                          "loss scaling")
+    tr.add_argument("--batch_size", type=int, default=64,
+                    help="--job=time synthetic batch size")
+    tr.add_argument("--iters", type=int, default=20,
+                    help="--job=time timed iterations")
+    tr.add_argument("--steps_per_dispatch", type=int, default=1,
+                    help="train steps per dispatch: --job=train draws K "
+                         "batches at a time and runs a full group as one "
+                         "prepared chunk (on the card one CUDA graph "
+                         "replay; bit-equal to per-step); --job=time "
+                         "times the K-step chunk")
+    tr.add_argument("--seq_buckets", default=None,
+                    help="2-D (rows x seqlen) bucketing of variable-length "
+                         "sequence inputs: 'auto' pads each batch to the "
+                         "smallest power of two >= 8 covering it (capped "
+                         "at max_len), a comma list (16,32,64) pins the "
+                         "bucket set")
+    tr.add_argument("--prefetch_depth", type=int, default=0,
+                    help="convert and copy up to this many batches ahead "
+                         "on a producer thread (0 = off)")
+    tr.add_argument("--check_nan_inf", action="store_true",
+                    help="raise naming the loss or gradients that went "
+                         "non-finite (reference: FLAGS_check_nan_inf)")
     for flag in _UNPORTED_TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", default=None,
                         help="not ported yet: raises")

@@ -2,7 +2,8 @@
 of ``paddle_tpu/data_feeder.py``).
 
 Sequences are padded to the data layer's max_len (or the batch max,
-rounded up to a power of two) and a ``<name>@len`` array is added;
+rounded up to a power of two; or ``seq_pad``, the trainer's 2-D
+bucketing) and a ``<name>@len`` array is added;
 ``Topology.forward`` moves the arrays to the device.  Sparse (ids + values)
 inputs are not ported yet and raise.
 """
@@ -44,9 +45,15 @@ class DataFeeder:
     def __call__(self, batch: Sequence[tuple]) -> Dict[str, np.ndarray]:
         return self.feed(batch)
 
-    def feed(self, batch: Sequence[tuple]) -> Dict[str, np.ndarray]:
-        """One batch as a feed dict.  (The JAX feeder's ``seq_pad``, the
-        trainer's 2-D bucketing, is not ported yet.)"""
+    def feed(self, batch: Sequence[tuple],
+             seq_pad: int = None) -> Dict[str, np.ndarray]:
+        """One batch as a feed dict.  ``seq_pad`` overrides the T-axis
+        padding of plain sequence inputs (capped at the layer's declared
+        max_len): the trainer's 2-D (rows x seqlen) bucketing pads each
+        batch to the smallest bucket covering its longest sequence.  A
+        ``seq_pad`` below the batch's longest (max_len-capped) sequence
+        raises, since it would truncate data the layer could have seen;
+        truncation at the declared max_len stays the layer's contract."""
         out: Dict[str, np.ndarray] = {}
         for name, idx in self.feeding.items():
             column = [sample[idx] for sample in batch]
@@ -58,6 +65,20 @@ class DataFeeder:
                 # attrs["shape"] is always the per-sample shape; Topology
                 # prepends T only into its own shape table
                 max_len = attrs.get("max_len", 0)
+                if seq_pad and attrs.get("seq_type", 0) == 1:
+                    eff = (min(int(seq_pad), max_len) if max_len
+                           else int(seq_pad))
+                    longest = max((len(s) for s in column), default=0)
+                    floor = (min(longest, max_len) if max_len
+                             else longest)
+                    if eff < floor:
+                        raise ValueError(
+                            f"seq_pad={int(seq_pad)} would truncate "
+                            f"input {name!r}: the batch's longest "
+                            f"sequence is {longest} (declared max_len="
+                            f"{max_len or 'unset'}); pick a bucket "
+                            f">= the batch max")
+                    max_len = eff
                 arr, lens = self._pad_sequences(
                     column, is_index, max_len, shape)
                 out[name] = arr

@@ -1,4 +1,22 @@
-"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions."""
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Every wrapper counts the launches of its kernel (``count_launch``), and
+``launch_counts()`` reads them.  The counts are of kernel executions: a
+call made while a CUDA graph captures runs nothing, so it adds nothing to
+the counts and goes to the capture's record instead
+(``recording_launches``); each replay of that graph then adds the record
+(``add_launches``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+# the records of the captures in progress, innermost last:
+# {(wrapper, counter name): launches}
+_records: list = []
 
 
 def _wrappers() -> dict:
@@ -31,9 +49,63 @@ def _wrappers() -> dict:
 _DTYPE_COUNTS = ("bf16", "f16")
 
 
+def _counters(wrapper, dtype) -> tuple:
+    names = ("launches",)
+    for sfx, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        if dtype == dt and hasattr(wrapper, "launches_" + sfx):
+            names += ("launches_" + sfx,)
+    return names
+
+
+def capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph (never where
+    PyTorch has no CUDA)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def count_launch(wrapper, dtype=None) -> None:
+    """One launch more of ``wrapper``'s kernel: on ``launches``, and on
+    ``launches_bf16`` or ``launches_f16`` for an instance of that dtype.
+    Under a CUDA graph capture the launch is recorded, not counted (the
+    innermost ``recording_launches`` record takes it; with none open it
+    is dropped, since a graph nobody replays through ``add_launches``
+    never runs it)."""
+    names = _counters(wrapper, dtype)
+    if capturing():
+        if _records:
+            rec = _records[-1]
+            for name in names:
+                rec[wrapper, name] = rec.get((wrapper, name), 0) + 1
+        return
+    for name in names:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Open a record of the launches a CUDA graph's capture makes; yields
+    the record, ``{(wrapper, counter name): launches}``, for
+    ``add_launches`` at each replay."""
+    rec: dict = {}
+    _records.append(rec)
+    try:
+        yield rec
+    finally:
+        _records.remove(rec)
+
+
+def add_launches(record: dict) -> None:
+    """Count one replay of a captured graph: every kernel it holds ran as
+    many times as its capture recorded."""
+    for (wrapper, name), n in record.items():
+        setattr(wrapper, name, getattr(wrapper, name) + n)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel so far in this process (the plain versions
-    are not counted): ``name`` counts every launch of the wrapper, at any
+    are not counted; a graph's launches count at each replay, not at its
+    capture): ``name`` counts every launch of the wrapper, at any
     dtype; ``name_bf16`` and ``name_f16`` those of its bf16 and float16
     instances alone, for the wrappers that have them."""
     counts = {}

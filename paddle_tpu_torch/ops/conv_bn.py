@@ -44,8 +44,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import _tf32x3, count_launch
+from paddle_tpu_torch.ops import _build, count_launch
+from paddle_tpu_torch.ops.flash_attention import _tf32x3
 from paddle_tpu_torch.ops.fused_bn import (_F32, KERNEL_DTYPES,
                                            check_operand, on_card, resolve)
 

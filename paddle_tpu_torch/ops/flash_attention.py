@@ -59,7 +59,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.core.config import LOG2E, NEG_INF
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, count_launch
 
 IMPLS = ("cuda", "torch")
 D_MAX = 128                            # csrc/flash_fwd.cu kDMax
@@ -465,14 +465,6 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
     _build.check(lib, err, "flash_fwd")
     count_launch(flash_fwd_cuda, q.dtype)
     return o, lse
-
-
-def count_launch(wrapper, dtype) -> None:
-    """One launch more on ``wrapper``'s counts: every launch, and those of
-    its bf16 or float16 instance alone."""
-    wrapper.launches += 1
-    wrapper.launches_bf16 += dtype == torch.bfloat16
-    wrapper.launches_f16 += dtype == torch.float16
 
 
 # every launch, and those of the bf16 and float16 instances alone

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from paddle_tpu_torch.core.config import LOG2E, NEG_INF
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, count_launch
 from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, _SIGNATURES,
                                                   check_kernel_operand)
 
@@ -137,7 +137,7 @@ def run_fwd_cuda(q, k, v, *, causal: bool, block_q: int, block_k: int,
             int(bool(causal)), float(scale_s), stream, int(exp2),
             int(split))
         _build.check(lib, err, "flash_fwd_f32dots")
-    run_fwd_cuda.launches += 1
+    count_launch(run_fwd_cuda)
     return out, lse
 
 

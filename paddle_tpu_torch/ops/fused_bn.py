@@ -42,9 +42,8 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.core import config
-from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.flash_attention import (check_dtype, count_launch,
-                                                  resolve_impl)
+from paddle_tpu_torch.ops import _build, count_launch
+from paddle_tpu_torch.ops.flash_attention import check_dtype, resolve_impl
 
 JAX_IMPLS = {"pallas": None, "xla": "torch", "interpret": "torch"}
 _CH = 32              # channels a block of the statistic kernels owns

@@ -39,9 +39,9 @@ from typing import Optional
 
 import torch
 
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, count_launch
 from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, _tf32x3,
-                                                  count_launch, resolve_impl)
+                                                  resolve_impl)
 from paddle_tpu_torch.ops.paged_attention import _arrived
 
 

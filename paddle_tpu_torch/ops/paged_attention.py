@@ -29,7 +29,8 @@ import torch
 from paddle_tpu_torch.core.config import LOG2E
 from paddle_tpu_torch.layers.attention import (paged_gather,
                                                slot_decode_attention)
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import _build, count_launch
 from paddle_tpu_torch.ops.flash_attention import (D_MAX,
                                                   check_kernel_operand,
                                                   resolve_impl)
@@ -46,17 +47,39 @@ _SIGNATURES = {
                          + [ctypes.c_float, ctypes.c_void_p]),
     "paged_decode_resources": [ctypes.POINTER(ctypes.c_int)] * 2,
 }
-# per (device, stream): the kernel's arrival counters, one a (sequence,
-# head), zero between launches (the launch that uses them puts them back)
+# per (device, stream): the arrival counters of kernels 4, 5 and 6, one a
+# (sequence, head) or a tile, zero between launches (the launch that uses
+# them puts them back)
 _ARRIVED: dict = {}
 
 
 def _arrived(dev, stream: int, n: int):
+    """The stream's counters, at least ``n``; grown (a new buffer) when
+    they are too few.  A CUDA graph bakes in the buffer it captured, so
+    a capture never grows them: its warm-up on the capture stream makes
+    them the size the graph needs, and the graph's entry holds that
+    buffer (``arrival_counters``) for its lifetime, whatever later calls
+    on the stream do."""
     buf = _ARRIVED.get((dev, stream))
     if buf is None or buf.numel() < n:
+        if ops.capturing():
+            raise RuntimeError(
+                f"the arrival counters of stream {stream:#x} hold "
+                f"{0 if buf is None else buf.numel()}, this launch needs "
+                f"{n}: a graph must be warmed up on its capture stream "
+                f"before it captures")
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
         _ARRIVED[(dev, stream)] = buf
     return buf
+
+
+def arrival_counters(dev, stream: int):
+    """The counters of ``stream`` on ``dev`` as they stand (None before
+    its first kernel 4, 5 or 6 launch)."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _ARRIVED.get((dev, stream))
 
 
 def paged_decode_cuda(q, pk, pv, table, pos, *, scale: float,
@@ -100,7 +123,7 @@ def paged_decode_cuda(q, pk, pv, table, pos, *, scale: float,
         *(t.data_ptr() if t is not None else None for t in (part, arrived)),
         s, h, d, pk.shape[1], mb, g, float(scale * LOG2E), stream)
     _build.check(lib, err, "paged_decode")
-    paged_decode_cuda.launches += 1
+    count_launch(paged_decode_cuda)
     return out
 
 

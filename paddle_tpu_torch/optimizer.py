@@ -11,39 +11,30 @@ is overwritten, so a step holds no second copy of the model or of its
 optimizer state (at the LM's full width, 0.7 GB of Adam slots).
 ``update`` returns the same (now updated) trees.
 
-The step counter ``t`` is a host int, so the bias corrections and the
-learning-rate schedules are computed on the host with no device sync.
-Under dynamic loss scaling (the ``mixed`` precision policy) the trainer
-makes it a 0-dim int32 tensor on the device instead, and passes
+The step counter ``t`` is a 0-dim int32 tensor on the parameters' device,
+as the JAX package carries it, and the bias corrections and the
+learning-rate schedules are computed from it there, in float32, with no
+host read.  It is updated in place, like every slot: a CUDA graph that
+captured a step (``core/prepared.py``) replays with the counter's
+current value, where a host int would stay frozen at its capture.  Under
+dynamic loss scaling (the ``mixed`` precision policy) the trainer passes
 ``update`` a device boolean ``finite``: every leaf's new value and slots,
 and ``t``, are then selected against the old ones with ``torch.where``,
 so a skipped step leaves the masters, the slots and the counter bit for
-bit as they were, with no host read.  Masters and slots are float32 under
-every policy.
+bit as they were.  Masters and slots are float32 under every policy.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
 
 
-def _floor(x):
-    return torch.floor(x) if isinstance(x, torch.Tensor) else math.floor(x)
-
-
-def _at_least(x, lo):
-    return (torch.clamp(x, min=lo) if isinstance(x, torch.Tensor)
-            else max(x, lo))
-
-
 def _lr_schedule(args: dict) -> Callable:
     """Learning-rate decay schedules (reference:
     parameter/LearningRateScheduler.cpp registry: constant, poly, exp,
-    discexp, linear, inv), of a float step (host) or a tensor step
-    (device, under loss scaling)."""
+    discexp, linear, inv), of the float32 step tensor."""
     a = args.get("learning_rate_decay_a", 0.0)
     b = args.get("learning_rate_decay_b", 0.0)
     kind = args.get("learning_rate_schedule", "constant")
@@ -55,9 +46,9 @@ def _lr_schedule(args: dict) -> Callable:
     if kind == "exp":
         return lambda t: base * a ** (t / b)
     if kind == "discexp":
-        return lambda t: base * a ** _floor(t / b)
+        return lambda t: base * a ** torch.floor(t / b)
     if kind == "linear":
-        return lambda t: _at_least(base - a * t, b)
+        return lambda t: torch.clamp(base - a * t, min=b)
     if kind == "inv":
         return lambda t: base / (1.0 + a * t) ** b
     raise ValueError(f"unknown learning_rate_schedule {kind!r}")
@@ -89,8 +80,8 @@ class Optimizer:
         return {}
 
     def step_terms(self, t):
-        """What ``leaf_update`` needs of the step count ``t`` (an int, or a
-        device scalar under loss scaling), computed once per update."""
+        """What ``leaf_update`` needs of the step count ``t`` (a float32
+        device scalar), computed once per update."""
         return t
 
     def leaf_update(self, p, g, s: dict, lr: float, terms) -> None:
@@ -104,23 +95,27 @@ class Optimizer:
             l: {pn: self.slots(p) for pn, p in ps.items() if p is not None}
             for l, ps in params.items()
         }
-        return {"t": 0, "slots": slot_tree}
+        dev = next((p.device for ps in params.values() for p in ps.values()
+                    if p is not None), None)
+        return {"t": torch.zeros((), dtype=torch.int32, device=dev),
+                "slots": slot_tree}
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict,
                meta: Optional[dict] = None, sparse_grads=None,
                finite: Optional[torch.Tensor] = None):
         """One step over every parameter with a gradient, in place.
-        Returns ``(params, state)`` (the same trees, updated).  With
-        ``finite`` (a 0-dim bool tensor; ``state["t"]`` then a tensor too)
-        the step takes effect only where it is true: otherwise every
-        parameter, slot and ``t`` keeps its old value."""
+        Returns ``(params, state)`` (the same trees and tensors, updated).
+        With ``finite`` (a 0-dim bool tensor) the step takes effect only
+        where it is true: otherwise every parameter, slot and ``t`` keeps
+        its old value."""
         if sparse_grads:
             raise NotImplementedError(
                 "sparse (SelectedRows) updates are not ported to "
                 "paddle_tpu_torch yet")
         t = state["t"] + 1
-        lr_t = self.lr_fn(t if isinstance(t, torch.Tensor) else float(t))
+        tf = t.float()
+        lr_t = self.lr_fn(tf)
         if self.global_clip and self.global_clip > 0:
             leaves = [g for ps in grads.values() for g in ps.values()
                       if g is not None]
@@ -138,7 +133,7 @@ class Optimizer:
             kept = [x for l, pn, p, _ in work
                     for x in (p, *state["slots"][l][pn].values())]
             old = torch._foreach_mul(kept, 1.0)
-        terms = self.step_terms(t)
+        terms = self.step_terms(tf)
         for l, pn, p, g in work:
             if scale is not None:
                 g = g * scale
@@ -158,7 +153,7 @@ class Optimizer:
             for new, was in zip(kept, old):
                 torch.where(finite, new, was, out=new)
             t = torch.where(finite, t, state["t"])
-        state["t"] = t
+        state["t"].copy_(t)
         return params, state
 
     def __repr__(self):
@@ -203,8 +198,9 @@ class Adam(Optimizer):
                 "second_momentum": torch.zeros_like(p)}
 
     def step_terms(self, t):
-        """The bias corrections (1 - b1^t, 1 - b2^t)."""
-        return 1 - self.b1 ** t, 1 - self.b2 ** t
+        """The bias corrections (1 - b1^t, 1 - b2^t), float32 as the JAX
+        package computes them."""
+        return (1 - torch.pow(self.b1, t)), (1 - torch.pow(self.b2, t))
 
     def leaf_update(self, p, g, s, lr, terms):
         m, v = s["momentum"], s["second_momentum"]

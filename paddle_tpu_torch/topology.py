@@ -6,11 +6,16 @@ compiles; here ``forward`` runs the same per-layer steps eagerly, under
 autograd, so the trainer's backward is ``torch.autograd.grad`` over the
 cost.  Shape inference, parameter specs, the JSON IR (``proto()``),
 sequence masks from ``<name>@len`` feeds and the fold of plain layers over
-sequence inputs are the JAX package's.
+sequence inputs are the JAX package's, and so is rematerialisation
+(``forward(remat=True | "blocks")``): the layers it may recompute, by the
+JAX package's eligibility sets, run under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so the
+backward recomputes their activations from their inputs instead of
+keeping them.
 
-Not ported yet, and refused: remat segments, sparse (ids + values) inputs,
-nested sequences, SelectedRows and gradient probes, mesh placement,
-evaluators and ``prepare_forward``.
+Not ported yet, and refused: sparse (ids + values) inputs, nested
+sequences, SelectedRows and gradient probes, mesh placement, evaluators
+and ``prepare_forward``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import initializer as init_mod
 from paddle_tpu_torch import layers as _layers  # noqa: F401 (registers kinds)
@@ -48,6 +54,56 @@ def _layer_error_context(spec, in_vals):
 # per-sample weight input (token-level losses over padded sequences; the
 # JAX package lists more, not ported yet)
 _MASK_WEIGHT_COSTS = {"classification_cost"}
+
+# the JAX package's remat eligibility (paddle_tpu/topology.py), copied.
+# Layers whose apply uses side channels that must not replay under a
+# recompute: the random stream (dropout, sampling_id, nce_cost,
+# recurrent_group), running state (batch_norm), the mask side channel
+# (seq_concat, seq_reshape, seq_slice) or host effects (print)
+_REMAT_UNSAFE_KINDS = frozenset({
+    "dropout", "sampling_id", "batch_norm", "print", "beam_search",
+    "nce_cost", "recurrent_group", "seq_concat", "seq_reshape",
+    "seq_slice",
+})
+
+# block segments return their state updates explicitly, so batch_norm is
+# safe inside them
+_BLOCK_REMAT_UNSAFE_KINDS = _REMAT_UNSAFE_KINDS - {"batch_norm"}
+
+# sequence layers that are pure functions of (params, inputs, masks) and
+# may live inside a block segment (when every boundary mask is None)
+_BLOCK_REMAT_SEQ_OK = frozenset({
+    "position_embedding", "multi_head_attention",
+})
+
+
+class _Segment:
+    __slots__ = ("members", "inputs", "outputs")
+
+    def __init__(self, members, inputs, outputs):
+        self.members = members
+        self.inputs = inputs
+        self.outputs = outputs
+
+
+def _clone_ctx(ctx):
+    sub = ApplyContext(train=ctx.train, generator=ctx.generator,
+                       device=ctx.device, compute_dtype=ctx.compute_dtype)
+    sub.params_tree = ctx.params_tree
+    sub.state_in = ctx.state_in
+    return sub
+
+
+def _remat_eligible(spec) -> bool:
+    if spec.kind in _REMAT_UNSAFE_KINDS:
+        return False
+    # cross-layer parameter access goes around the recomputed function's
+    # inputs, and so do sparse tables
+    if spec.attrs.get("share_from") or spec.attrs.get("param_layer"):
+        return False
+    if spec.attrs.get("param_sparse"):
+        return False
+    return True
 
 
 def _meta(p) -> dict:
@@ -80,6 +136,7 @@ class Topology:
         self.output_names = [o.name for o in self.outputs]
         self.model_spec = ModelSpec(self.specs, self.input_names,
                                     self.output_names)
+        self._seg_cache: dict = {}
         self._infer()
 
     # ---------------------------------------------------------------- shapes
@@ -235,10 +292,22 @@ class Topology:
         float32 unless it is bf16 (or float16 under the ``fp16`` policy),
         which it keeps.  The layers compute in the precision policy's
         compute dtype (``ApplyContext.compute_dtype``); ``params`` stay
-        float32."""
-        if remat:
-            raise NotImplementedError(
-                "remat is not ported to paddle_tpu_torch yet")
+        float32.
+
+        ``remat=True`` recomputes each eligible layer in the backward
+        (``_remat_eligible``: no random stream, running state, mask side
+        channel or cross-layer parameters; layers folded over a sequence
+        run plain, as in the JAX package); ``"blocks"`` recomputes
+        segments of layers that close where a value fans out, is asked
+        for or ends (``_block_segments``; on ResNet a bottleneck block),
+        whose state updates come out as results, so batch norm may be
+        inside; None reads the ``remat`` option.  The values and the
+        gradients are the same bit for bit; the backward relaunches the
+        recomputed layers' kernels."""
+        if remat is None:
+            remat = cfg.get_option("remat", False)
+            if remat not in ("blocks",):
+                remat = bool(remat)
         dev = cfg.default_device(device)
         policy = cfg.precision_policy()
         ctx = ApplyContext(train=train, generator=generator, device=dev,
@@ -248,9 +317,27 @@ class Topology:
         values: Dict[str, torch.Tensor] = {}
         masks: Dict[str, Optional[torch.Tensor]] = {}
         want = list(outputs or self.output_names)
+        seg_of = (self._block_segments(want) if remat == "blocks" else {})
+        inline_segs: set = set()
         for spec in self.specs:
             if spec.kind != "data":
-                self._run_spec(spec, params, values, masks, ctx)
+                seg = seg_of.get(spec.name)
+                if seg is not None and id(seg) not in inline_segs:
+                    # the tail member runs the whole segment: by then
+                    # every external input has been produced
+                    if spec.name != seg.members[-1]:
+                        continue
+                    if all(masks.get(i) is None for i in seg.inputs):
+                        self._run_segment(seg, params, values, masks, ctx)
+                        continue
+                    # boundary masks (padded feeds) do not pass through
+                    # a segment: its members run inline
+                    inline_segs.add(id(seg))
+                    for m in seg.members[:-1]:
+                        self._run_spec(self._spec_by_name[m], params,
+                                       values, masks, ctx)
+                self._run_spec(spec, params, values, masks, ctx,
+                               layer_remat=(remat is True))
                 continue
             x = torch.as_tensor(feed[spec.name], device=dev)
             if spec.attrs.get("is_index", False):
@@ -274,26 +361,138 @@ class Topology:
         return ({name: values[name] for name in want},
                 _merge_state(state, ctx.state_out))
 
-    def _run_spec(self, spec, params, values, masks, ctx):
-        """Execute one non-data spec, writing its value and mask."""
+    def _run_spec(self, spec, params, values, masks, ctx, *,
+                  layer_remat=False):
+        """Execute one non-data spec, writing its value and mask (the
+        per-layer step of the inline path and of block segments); with
+        ``layer_remat`` an eligible layer runs under a checkpoint."""
         ldef = get_layer_def(spec.kind)
         in_vals = [values[i] for i in spec.inputs]
         in_masks = [masks[i] for i in spec.inputs]
         in_seq = [self.is_seq[i] for i in spec.inputs]
         lparams = params.get(spec.name, {})
         ctx._cur_layer = spec.name
+        use_remat = layer_remat and _remat_eligible(spec)
         with _layer_error_context(spec, in_vals):
             if isinstance(ldef, SeqLayerDef):
-                out = ldef.apply_seq(spec.attrs, lparams, in_vals,
-                                     in_masks, ctx)
+                if use_remat:
+                    out = self._recomputed(
+                        spec, lambda *v: ldef.apply_seq(
+                            spec.attrs, lparams, list(v), in_masks, ctx),
+                        in_vals, ctx)
+                else:
+                    out = ldef.apply_seq(spec.attrs, lparams, in_vals,
+                                         in_masks, ctx)
                 masks[spec.name] = in_masks[0] if ldef.out_is_seq else None
             elif any(in_seq):
                 out, masks[spec.name] = self._apply_folded(
                     ldef, spec, lparams, in_vals, in_masks, in_seq, ctx)
             else:
-                out = ldef.apply(spec.attrs, lparams, in_vals, ctx)
+                if use_remat:
+                    out = self._recomputed(
+                        spec, lambda *v: ldef.apply(
+                            spec.attrs, lparams, list(v), ctx),
+                        in_vals, ctx)
+                else:
+                    out = ldef.apply(spec.attrs, lparams, in_vals, ctx)
                 masks[spec.name] = None
         values[spec.name] = out
+
+    @staticmethod
+    def _recomputed(spec, fn, in_vals, ctx):
+        """``fn(*in_vals)`` under a checkpoint: the backward runs it again
+        (as the layer ``spec``) for its activations."""
+        def run(*vals):
+            ctx._cur_layer = spec.name
+            return fn(*vals)
+        return checkpoint(run, *in_vals, use_reentrant=False)
+
+    def _run_segment(self, seg, params, values, masks, ctx):
+        """Run one block segment under a checkpoint as a function of its
+        boundary inputs to (boundary outputs, state updates).  The state
+        comes out as a result, not through the context, which is what
+        lets batch norm live inside a recomputed region: the backward
+        recomputes the members from the boundary inputs, and only the
+        boundary values and the state updates are kept."""
+        member_specs = [self._spec_by_name[n] for n in seg.members]
+        seg_params = {n: params.get(n, {}) for n in seg.members}
+
+        def seg_fn(*in_vals):
+            sub = _clone_ctx(ctx)
+            local_vals = dict(zip(seg.inputs, in_vals))
+            local_masks = {n: masks.get(n) for n in seg.inputs}
+            for m in member_specs:
+                self._run_spec(m, seg_params, local_vals, local_masks, sub)
+            return (tuple(local_vals[n] for n in seg.outputs),
+                    sub.state_out)
+
+        outs, state_updates = checkpoint(
+            seg_fn, *(values[n] for n in seg.inputs), use_reentrant=False)
+        for name, val in zip(seg.outputs, outs):
+            values[name] = val
+            masks[name] = None
+        for lname, ps in state_updates.items():
+            ctx.state_out.setdefault(lname, {}).update(ps)
+
+    def _block_segments(self, want):
+        """Partition the non-data specs into block segments.  A segment
+        closes after a spec whose value crosses a boundary: consumed by
+        more than one later spec (a residual fan-out; on ResNet the
+        bottleneck adds), asked for as an output, or feeding nothing
+        later.  Segments holding a spec unsafe to recompute
+        (``_segment_spec_ok``) run inline, and so do single-spec ones
+        (nothing to save)."""
+        key = frozenset(want)
+        cached = self._seg_cache.get(key)
+        if cached is not None:
+            return cached
+        specs = [s for s in self.specs if s.kind != "data"]
+        consumers = {}
+        for s in specs:
+            for i in s.inputs:
+                consumers.setdefault(i, []).append(s.name)
+        segments, cur = [], []
+        for spec in specs:
+            cur.append(spec)
+            if len(consumers.get(spec.name, [])) != 1 or spec.name in want:
+                segments.append(cur)
+                cur = []
+        if cur:
+            segments.append(cur)
+        out = {}
+        for seg_specs in segments:
+            names = [s.name for s in seg_specs]
+            if len(names) < 2 or not all(
+                    self._segment_spec_ok(s) for s in seg_specs):
+                continue
+            member_set = set(names)
+            inputs = []
+            for s in seg_specs:
+                for i in s.inputs:
+                    if i not in member_set and i not in inputs:
+                        inputs.append(i)
+            outputs = [n for n in names
+                       if n in want or any(c not in member_set
+                                           for c in consumers.get(n, []))]
+            seg = _Segment(members=names, inputs=inputs,
+                           outputs=outputs or [names[-1]])
+            for n in names:
+                out[n] = seg
+        self._seg_cache[key] = out
+        return out
+
+    def _segment_spec_ok(self, spec) -> bool:
+        if spec.kind in _BLOCK_REMAT_UNSAFE_KINDS:
+            return False
+        if spec.attrs.get("share_from") or spec.attrs.get("param_layer"):
+            return False
+        if spec.attrs.get("param_sparse"):
+            return False
+        # a sequence layer may write masks of its own: only the pure
+        # ones segment; plain layers folded over a sequence are fine
+        # (the boundary masks are None whenever a segment runs)
+        return (not isinstance(get_layer_def(spec.kind), SeqLayerDef)
+                or spec.kind in _BLOCK_REMAT_SEQ_OK)
 
     def _apply_folded(self, ldef, spec, lparams, in_vals, in_masks, in_seq,
                       ctx):

@@ -384,10 +384,8 @@ def test_unported_options_raise_rather_than_fall_through(monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         pt.trainer.SGD(ttopo, params, pt.optimizer.Adam(), mesh=object())
     tr = pt.trainer.SGD(ttopo, params, pt.optimizer.Adam())
-    for kw in ({"steps_per_dispatch": 2}, {"seq_buckets": True},
-               {"prefetch_depth": 2}, {"checkpoint_config": object()}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            tr.train(lambda: iter(()), **kw)
+    with pytest.raises(NotImplementedError, match="checkpoint_config"):
+        tr.train(lambda: iter(()), checkpoint_config=object())
     # a ring-attention layer refuses to run on one device
     reset_port_names()
     x = pt.layer.data("x", pt.data_type.dense_vector_sequence(8, 4))
