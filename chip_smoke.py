@@ -233,13 +233,29 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    arrival counters grown on the default and the capture stream between
    two replays from one state (bit-equal); a NaN batch under
    ``check_nan_inf`` raising with the names of the loss and every
-   gradient.  ``--dispatch-only[=names]`` runs this phase alone (a
-   development run; the full run takes no arguments);
-15. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, fp16 policy, dispatch, sweep, ResNet and ResNet-under-bf16
+   gradient;
+15. the v2 slice (``v2_slice``): the fused LM head (``ops/chunked_ce.py``)
+   against the unfused head and a float64 head at [8 x 4096, 512] x
+   32000 under fp32 and bf16 (each row's nll, the loss and every
+   gradient; bf16-rounded logits planted once), with both heads' peak
+   memory; kernels 1, 2 and 3 at bf16 at [1, 65536, 4, 128], every row
+   against float64 evaluations of their functions, timed beside their
+   bounds and the library's bf16 attention; ``bench.py``'s
+   ``transformer_64k`` (fused head, ``bf16``) trained 4 steps, kernels
+   1-3 8 launches a step, and one step profiled; the v2 golden configs
+   forward and backward on the card against the CPU; each new optimizer
+   in a captured 2-step chunk against its eager steps bit for bit; dropout
+   and NCE drawing anew at each replay;
+16. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, dispatch, v2, sweep, ResNet and ResNet-under-bf16
    runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
+
+``--only=<name>[,<name>...]`` runs the setup and then only the named
+phases (``dispatch`` or ``v2``, or a part of either: DISPATCH_PHASES,
+V2_PHASES) and prints their JSON: a development run; the full run takes
+no arguments.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The tokens/s, time-to-first-token and training step times it
@@ -248,6 +264,7 @@ prints are a smoke figure, not a benchmark.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -4983,34 +5000,703 @@ DISPATCH_PHASES = {
 }
 
 
-def dispatch_phases(names=None) -> dict:
+def dispatch_phases() -> dict:
     """The trainer's dispatch options at full width (see the module
-    docstring, phase 14), or those of them ``names`` lists; each phase
-    releases its graphs and empties the cache before the next."""
+    docstring, phase 14); each phase releases its graphs and empties the
+    cache before the next."""
     out = {}
     for name, phase in DISPATCH_PHASES.items():
-        if names is None or name in names:
-            out[name] = phase()
-            torch.cuda.empty_cache()
+        out[name] = phase()
+        torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------- the v2 slice
+# phase 15: the fused LM head at 65,536 tokens (bench.py's
+# transformer_64k), the heads side by side, the v2 goldens on the card,
+# the new optimizers in a captured chunk and dropout across replays
+LM64K_LEN, LM64K_STEPS = 65536, 4
+HEAD_ROWS, HEAD_CHUNK = TRAIN_BATCH * MAX_LEN, 8192
+# the two heads at [8 x 4096, 512] x 32000: under fp32 both keep their
+# float32 logits, so they differ by the products' summation order alone
+# (the mean loss within 1e-6 relative, each gradient within 1e-4 of its
+# max |ref|); under bf16 the unfused head rounds each logit to bf16 (2^-9
+# of it, 2^-8 at worst) before the softmax and the fused one does not,
+# and both round dx and dw to bf16 once.  Those roundings are zero-mean,
+# so over 32,768 rows the mean loss moves by about 3e-7 relative (a
+# logit's rounding, some 5e-4 here, over sqrt(32768) and ln 32000): the
+# mean loss within 2e-6 relative, each gradient within 2^-5 of its max
+# |ref|.  The fused head is also held against a float64 head on the same
+# (rounded) operands: each row's nll within HEAD_ROW_TOL absolute (float32
+# logits and a float32 logsumexp over 32000 stay at a few 1e-6; bf16
+# logits move a row's nll by some 4e-3, which ``fused_head_check`` plants
+# once and shows to fail), the mean loss within 1e-5 relative, db within
+# 1e-4 of its max |ref|, dx and dw (bf16 under bf16) within 2^-7 of their
+# max |ref|, 1e-4 under fp32.
+HEAD_TOLS = {"fp32": (1e-6, 1e-4), "bf16": (2e-6, 2.0 ** -5)}
+HEAD_F64_TOLS = {"fp32": 1e-4, "bf16": 2.0 ** -7}
+HEAD_ROW_TOL = 1e-5
+GOLDEN_BATCH = 4
+V2_OPTIMIZERS = ("Adagrad", "DecayedAdagrad", "AdaDelta", "RMSProp",
+                 "RMSProp momentum", "Adamax", "Ftrl")
+SMALL_LM = dict(vocab_size=1000, max_len=512, dim=128, num_heads=1,
+                num_layers=2)
+
+
+def _peak_above(fn) -> tuple:
+    """(fn's result, its peak device memory above what was allocated
+    before it, GB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _head_f64(x, w, b, labels, chunk=HEAD_CHUNK):
+    """A float64 head over row chunks: (mean nll, the nll of each row, dx,
+    dw, db) of softmax(x w + b) at ``labels``."""
+    n = x.shape[0]
+    wd, bd = w.double(), b.double()
+    nll = torch.empty(n, dtype=torch.float64, device=x.device)
+    dx = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    dw = torch.zeros(w.shape, dtype=torch.float64, device=x.device)
+    db = torch.zeros(b.shape, dtype=torch.float64, device=x.device)
+    for r in range(0, n, chunk):
+        xc = x[r:r + chunk].double()
+        z = xc @ wd + bd
+        lse = torch.logsumexp(z, -1)
+        lab = labels[r:r + chunk]
+        rows = torch.arange(z.shape[0], device=z.device)
+        nll[r:r + chunk] = lse - z[rows, lab]
+        p = torch.exp(z - lse[:, None])
+        p[rows, lab] -= 1.0
+        p /= n
+        dx[r:r + chunk] = p @ wd.t()
+        dw += xc.t() @ p
+        db += p.sum(0)
+        del z, p
+    return float(nll.mean()), nll, dx, dw, db
+
+
+def _rel_max(a, ref) -> float:
+    """max |a - ref| / max |ref|."""
+    return ((a.double() - ref.double()).abs().max()
+            / ref.double().abs().max().clamp_min(1e-300)).item()
+
+
+def _planted_bf16_logits(x, w, b, labels, ref_nll) -> float:
+    """The largest |nll - ref| of the fused head's forward with its float32
+    product replaced by a bf16 GEMM whose bf16 result is upcast (the
+    function the module docstring rules out): the fault HEAD_ROW_TOL must
+    catch."""
+    from paddle_tpu_torch.ops import chunked_ce
+
+    real = chunked_ce.mm_f32
+    chunked_ce.mm_f32 = lambda a, b_: (a @ b_).float()
+    try:
+        with torch.no_grad():
+            nll = chunked_ce.lm_head_nll(x, w, b, labels, HEAD_CHUNK)
+    finally:
+        chunked_ce.mm_f32 = real
+    return (nll.double() - ref_nll).abs().max().item()
+
+
+def fused_head_check(dev, gen):
+    """The chunked-CE head (``ops/chunked_ce.py``) against the unfused
+    head (fc + ``_SoftmaxNLL``) from the same weights at the LM's training
+    shape [8 x 4096, 512] x 32000, under fp32 and bf16 (x and w cast, b
+    not, as the layers cast them): the mean loss, dx, dw and db within
+    HEAD_TOLS; the fused head also against a float64 head, each row's nll
+    within HEAD_ROW_TOL (under bf16 the same forward on bf16-rounded
+    logits is planted and must fail it) and the rest within
+    HEAD_F64_TOLS; and each head's peak memory above its inputs (the
+    unfused head keeps its [N, 32000] logits for the backward, the fused
+    one its [N] LSE)."""
+    from paddle_tpu_torch.layers.cost import _SoftmaxNLL
+    from paddle_tpu_torch.ops.chunked_ce import lm_head_nll
+
+    x0 = torch.randn(HEAD_ROWS, DIM, device=dev, generator=gen)
+    w0 = torch.randn(DIM, VOCAB, device=dev, generator=gen) * 0.02
+    b0 = torch.randn(VOCAB, device=dev, generator=gen) * 0.02
+    labels = torch.randint(0, VOCAB, (HEAD_ROWS,), device=dev, generator=gen)
+    out = {}
+    for policy, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        def run(fused):
+            # fresh leaves each run (x0.to(float32) would be x0 itself)
+            x = x0.to(dt, copy=True).requires_grad_(True)
+            w = w0.clone().requires_grad_(True)
+            b = b0.clone().requires_grad_(True)
+            wc = w.to(dt)
+            if fused:
+                nll = lm_head_nll(x, wc, b, labels, HEAD_CHUNK)
+            else:
+                logits = x @ wc + b.to(dt)
+                nll = _SoftmaxNLL.apply(logits, labels)
+                del logits
+            loss = nll.mean()
+            loss.backward()
+            return (float(loss.detach()), x.grad, w.grad, b.grad,
+                    nll.detach())
+
+        t0 = time.perf_counter()
+        fused, peak_f = _peak_above(lambda: run(True))
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain, peak_p = _peak_above(lambda: run(False))
+        plain_s = time.perf_counter() - t0
+        xd, wd = x0.to(dt), w0.to(dt)
+        ref = _head_f64(xd, wd, b0, labels)
+        lt, gt = HEAD_TOLS[policy]
+        loss_rel = _rel(fused[0], plain[0])
+        grads = {g: _rel_max(a, r) for g, a, r in zip(
+            ("dx", "dw", "db"), fused[1:4], plain[1:4])}
+        f64_loss = _rel(fused[0], ref[0])
+        f64_row = (fused[4].double() - ref[1]).abs().max().item()
+        f64 = {g: _rel_max(a, r) for g, a, r in zip(
+            ("dx", "dw", "db"), fused[1:4], ref[2:])}
+        f64_tol = HEAD_F64_TOLS[policy]
+        planted = (_planted_bf16_logits(xd, wd, b0, labels, ref[1])
+                   if dt == torch.bfloat16 else None)
+        ok = (loss_rel <= lt and all(e <= gt for e in grads.values())
+              and f64_row <= HEAD_ROW_TOL
+              and f64_loss <= 1e-5 and f64["db"] <= 1e-4
+              and f64["dx"] <= f64_tol and f64["dw"] <= f64_tol
+              and fused[2].dtype == torch.float32
+              and all(torch.isfinite(g).all() for g in fused[1:]))
+        print(f"fused LM head {policy} at [{HEAD_ROWS}, {DIM}] x {VOCAB} "
+              f"(chunk {HEAD_CHUNK}): loss {fused[0]:.6f} vs unfused "
+              f"{plain[0]:.6f} ({loss_rel:.2e} relative, limit {lt:.2e}); "
+              "gradients against the unfused head (of max |ref|) "
+              + ", ".join(f"{g} {e:.2e}" for g, e in grads.items())
+              + f" (limit {gt:.2e}); against a float64 head: row nll "
+              f"{f64_row:.2e} absolute (limit {HEAD_ROW_TOL:.0e}"
+              + ("" if planted is None else
+                 f"; planted bf16 logits {planted:.2e}")
+              + f"), loss {f64_loss:.2e}, " + ", ".join(
+                  f"{g} {e:.2e}" for g, e in f64.items())
+              + f"; peak memory above the inputs: fused {peak_f:.3f} GB, "
+              f"unfused {peak_p:.3f} GB; forward + backward "
+              f"{fused_s * 1e3:.1f} ms vs {plain_s * 1e3:.1f} ms (host "
+              "clock, first call)",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"the fused LM head under {policy} "
+                                 f"disagrees with the unfused head or with "
+                                 f"the float64 head")
+        if planted is not None and not planted > HEAD_ROW_TOL:
+            raise AssertionError(f"bf16-rounded logits move no row's nll "
+                                 f"past {HEAD_ROW_TOL} ({planted}): the "
+                                 f"row check cannot see them")
+        out[policy] = {"loss": fused[0], "unfused_loss": plain[0],
+                       "loss_rel": loss_rel, "grad_rel": grads,
+                       "f64_row_abs": f64_row, "planted_bf16_logits": planted,
+                       "f64_loss_rel": f64_loss, "f64_grad_rel": f64,
+                       "fused_peak_gb": peak_f, "unfused_peak_gb": peak_p,
+                       "fused_ms": fused_s * 1e3, "unfused_ms": plain_s * 1e3}
+        del fused, plain, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _f64_head(qd, kd, vd, gd, lse_in, delta_in, scale, chunk=2048):
+    """One causal head in float64 over query chunks: O and the LSE of the
+    attention (kernel 1's function), and dQ, dK and dV from the inputs
+    kernels 2 and 3 are given (their function): the cotangent ``gd`` of
+    O, the forward's LSE ``lse_in`` and delta ``delta_in`` = rowsum(dO *
+    O), both as the kernel route computes them."""
+    n = qd.shape[0]
+    lse = torch.empty(n, dtype=torch.float64, device=qd.device)
+    o, dq = torch.empty_like(qd), torch.empty_like(qd)
+    dk, dv = torch.zeros_like(kd), torch.zeros_like(vd)
+    for r in range(0, n, chunk):
+        e = min(r + chunk, n)
+        s = (qd[r:e] @ kd[:e].t()) * scale
+        rows = torch.arange(r, e, device=qd.device)[:, None]
+        s.masked_fill_(torch.arange(e, device=qd.device)[None, :] > rows,
+                       -torch.inf)
+        lse[r:e] = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[r:e, None])
+        o[r:e] = p @ vd[:e]
+        torch.exp(s.sub_(lse_in[r:e, None]), out=p)
+        del s
+        dv[:e] += p.t() @ gd[r:e]
+        ds = (gd[r:e] @ vd[:e].t()).sub_(delta_in[r:e, None]).mul_(p)
+        dq[r:e] = scale * (ds @ kd[:e])
+        dk[:e] += scale * (ds.t() @ qd[r:e])
+        del p, ds
+    return o, lse, dq, dk, dv
+
+
+def flash_64k_check(dev, gen, flush):
+    """Kernels 1, 2 and 3 (bf16 on the tensor cores) at [1, 65536, 4,
+    128] causal, the 64k LM's shape: past 32,768 rows, where the JAX
+    package windows its calls.  The plain attention cannot run here (its
+    scores are 17 GB a head), so the kernels are held against float64
+    evaluations of their own functions on the same bf16 operands,
+    computed over query chunks (``_f64_head``), at every row, by the bf16
+    limits the phases use at 4096: kernel 1's O rows within
+    VAR_O_ROW_TOL, O within VAR_O_TOL and the LSE within VAR_LSE_TOL of
+    max(1, max |ref|) (``_hold_bf16``); kernels 2 and 3 given the LSE and
+    delta the route hands them (as ``_upcast_bwd`` is given them at
+    4096), dQ, dK and dV each row within HALF_TOLS' bf16 ``bwd_row`` of
+    its norm, or of the floor ``_row_errs`` sets from the median row; the
+    largest errors on the rows past 32,768 reported apart; each kernel
+    timed at this shape beside its bound and the library's bf16 call
+    (``scaled_dot_product_attention`` forward, and its whole backward
+    beside each backward kernel, on one of its O(T) backends)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, n, h, d = 1, LM64K_LEN, HEADS, DIM // HEADS
+    q, k, v, go = (torch.randn(b, n, h, d, device=dev, generator=gen)
+                   .bfloat16() for _ in range(4))
+    lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    delta = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta, lens, **kw)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta, lens, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = [torch.empty(b, n, h, d, dtype=torch.float64, device=dev)
+           for _ in range(4)]
+    rlse = torch.empty(b, h, n, dtype=torch.float64, device=dev)
+    for head in range(h):
+        res = _f64_head(*(t[0, :, head].double() for t in (q, k, v, go)),
+                        lse[0, head].double(), delta[0, head].double(),
+                        kw["scale"])
+        rlse[0, head] = res[1]
+        for dst, src in zip(ref, (res[0],) + res[2:]):
+            dst[0, :, head] = src
+        del res
+    ro, rdq, rdk, rdv = ref
+    ref_s = time.perf_counter() - t0
+    eo, er, el = _hold_bf16(f"flash_fwd bf16 at T {n}", o, lse, ro, rlse)
+    errs = {"o_row": er, "o": eo, "lse": el,
+            "o_row_past_32k": _o_row_err(o[:, 32768:], ro[:, 32768:])}
+    tol = HALF_TOLS[torch.bfloat16]["bwd_row"]
+    for g, a, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        rows = _row_errs(a, r, tol).reshape(b, n, h)
+        errs[g] = rows.max().item()
+        errs[g + "_past_32k"] = rows[:, 32768:].max().item()
+        if not (errs[g] <= tol and torch.isfinite(a.float()).all()):
+            worst = int(rows.amax(dim=(0, 2)).argmax())
+            raise AssertionError(
+                f"flash_bwd bf16 at T {n}: {g} row error {errs[g]} (at row "
+                f"{worst}) > {tol} against a float64 backward")
+    del ref, ro, rdq, rdk, rdv, rlse
+    # causal pairs (each query with the keys at or before it), all heads
+    pairs = n * (n + 1) / 2 * h
+    times = {}
+    for name, fn, flops, nbytes in (
+            ("fwd", lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw),
+             4 * pairs * d, 4 * q.numel() * 2 + lse.numel() * 4),
+            ("dq", lambda: fa.flash_bwd_dq_cuda(q, k, v, go, lse, delta,
+                                                lens, **kw),
+             6 * pairs * d, 5 * q.numel() * 2 + 2 * lse.numel() * 4),
+            ("dkdv", lambda: fa.flash_bwd_dkdv_cuda(q, k, v, go, lse, delta,
+                                                    lens, **kw),
+             8 * pairs * d, 6 * q.numel() * 2 + 2 * lse.numel() * 4)):
+        ms = time_ms(fn, flush, iters=5, warmup=1)
+        bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        times[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+    # the library yardstick on [B, H, T, D] views, never called by the port
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = [t.transpose(1, 2) for t in (q, k, v)]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: sdpa(*qt, is_causal=True,
+                                           scale=kw["scale"]),
+                              flush, iters=5, warmup=1)
+        qt = [t.requires_grad_(True) for t in qt]
+        so = sdpa(*qt, is_causal=True, scale=kw["scale"])
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            so, qt, go.transpose(1, 2), retain_graph=True), flush,
+            iters=5, warmup=1)
+        del so, qt
+    for name in times:
+        times[name]["library_ms"] = lib_fwd if name == "fwd" else lib_bwd
+    print(f"flash kernels 1-3 bf16 at [1, {n}, {h}, {d}] causal against "
+          f"float64 evaluations of their functions (every row; "
+          f"{ref_s:.1f} s): O "
+          f"row {er:.3e} (past row 32768 {errs['o_row_past_32k']:.3e}; "
+          f"limit {VAR_O_ROW_TOL:.3e}), O {eo:.3e}, LSE {el:.3e}; row errors"
+          f" dQ {errs['dq']:.3e} ({errs['dq_past_32k']:.3e}), dK "
+          f"{errs['dk']:.3e} ({errs['dk_past_32k']:.3e}), dV "
+          f"{errs['dv']:.3e} ({errs['dv_past_32k']:.3e}) (limit {tol:.3e});"
+          f" times " + ", ".join(
+              f"{k_} {t['ms']:.3f} ms (bound {t['bound_ms']:.3f})"
+              for k_, t in times.items())
+          + f"; scaled_dot_product_attention bf16 forward {lib_fwd:.3f} ms,"
+          f" backward {lib_bwd:.3f} ms; {card_line()}", flush=True)
+    del q, k, v, go, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times}
+
+
+def lm64k_path():
+    """bench.py's transformer_64k on the card: ``transformer.build(vocab
+    32000, max_len 65536, dim 512, 4 heads, 8 layers, fused_head=True)``
+    at batch 1 under ``bf16``, Adam 1e-4, seeded weights, tokens and
+    targets from ``np.random.RandomState(0)`` as bench.py draws them;
+    LM64K_STEPS steps of ``trainer.SGD.train``, the counts set to 0 just
+    before and read just after: every loss finite, the first near ln
+    32000, kernels 1, 2 and 3 at bf16 LAYERS launches each a step.
+    Smoke figures: step times, tokens/s, peak memory; then
+    ``torch.profiler`` over one more step: the device's busy and idle
+    share and the device time of kernels 1, 2 and 3 in it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import transformer
+
+    _fresh(paddle)
+    _policy("bf16")
+    try:
+        cost, _ = transformer.build(vocab_size=VOCAB, max_len=LM64K_LEN,
+                                    dim=DIM, num_heads=HEADS,
+                                    num_layers=LAYERS, ffn_mult=FFN_MULT,
+                                    fused_head=True)
+        topo = paddle.Topology(cost)
+        values = random_values(SEED)
+        values["pos_emb"]["w"] = np.random.default_rng(
+            SEED + 5).standard_normal((LM64K_LEN, DIM), dtype=np.float32) \
+            * 0.02
+        rng = np.random.RandomState(0)
+        feed = {"tokens": rng.randint(2, VOCAB, (1, LM64K_LEN)).astype(
+                    np.int32),
+                "targets": rng.randint(2, VOCAB, (1, LM64K_LEN)).astype(
+                    np.int32)}
+        trainer = paddle.trainer.SGD(
+            topo, paddle.parameters.from_numpy(topo, values),
+            paddle.optimizer.Adam(learning_rate=1e-4))
+        losses, step_s, warm, peak_gb, launches = train_steps(
+            "LM 64k bf16", paddle, trainer, feed, LM64K_STEPS,
+            "flash_fwd_bf16", LAYERS, falling=False)
+        prof = profile_step(trainer, feed, "flash_")
+    finally:
+        _policy("fp32")
+    names = [n + "_bf16" for n in TRAIN_KERNELS]
+    if any(launches[n] != LAYERS * LM64K_STEPS for n in names):
+        raise AssertionError(f"LM 64k: the bf16 attention kernels did not "
+                             f"run {LAYERS} times a step: {launches}")
+    if not abs(losses[0] - np.log(VOCAB)) < 0.5:
+        raise AssertionError(f"LM 64k: first loss {losses[0]} is not near "
+                             f"ln {VOCAB} = {np.log(VOCAB):.4f}")
+    attn = {k: sum(ms for name, (ms, _) in prof["per_name"].items()
+                   if f"flash_{k}_mma" in name)
+            for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    busy = ("not measured (torch.profiler saw no device time)"
+            if prof["idle_share"] is None else
+            f"device busy {prof['busy_ms']:.1f} of {prof['step_ms']:.1f} "
+            f"ms (idle share {prof['idle_share']:.1%}), kernels 1-3 "
+            f"{prof['matched_ms']:.1f} ms = "
+            f"{prof['matched_ms'] / prof['step_ms']:.1%} of the step ("
+            + ", ".join(f"{k} {ms:.1f}" for k, ms in attn.items()) + ")")
+    print(f"LM 64k path: transformer_64k (fused head, bf16, batch 1 x "
+          f"{LM64K_LEN}) {LM64K_STEPS} Adam steps, losses "
+          f"{[round(x, 5) for x in losses]} (ln {VOCAB} = "
+          f"{np.log(VOCAB):.5f}); first step {step_s[0] * 1e3:.1f} ms, "
+          f"median after it {warm * 1e3:.1f} ms = {LM64K_LEN / warm:.0f} "
+          f"tokens/s (smoke figure, not a benchmark); peak memory "
+          f"{peak_gb:.2f} GB; launches "
+          f"{ {n: launches[n] for n in names} }; one profiled step: {busy};"
+          f" {card_line()}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "first_step_ms": step_s[0] * 1e3,
+            "step_ms": warm * 1e3, "tokens_per_s": LM64K_LEN / warm,
+            "peak_gb": peak_gb, "launches": {n: launches[n] for n in names},
+            "profiled_step_ms": prof["step_ms"], "busy_ms": prof["busy_ms"],
+            "idle_share": prof["idle_share"],
+            "attention_ms": prof["matched_ms"], "attention_parts_ms": attn}
+
+
+class _Draws:
+    """The integers NCE draws on the card (``torch.randint``), recorded
+    and replayed for the same config on the CPU, whose generator draws
+    other numbers."""
+
+    def __init__(self):
+        self.vals = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = torch.randint
+        torch.randint = fn
+        try:
+            yield
+        finally:
+            torch.randint = real
+
+    def recording(self):
+        real = torch.randint
+
+        def rec(*a, **kw):
+            out = real(*a, **kw)
+            self.vals.append(out)
+            return out
+        return self._patched(rec)
+
+    def replaying(self):
+        it = iter(self.vals)
+        return self._patched(lambda *a, device=None, **kw:
+                             next(it).to(device))
+
+
+def _layer_configs():
+    """``tests/torch_layer_configs.py``, the golden configs of the v2
+    layers that the CPU tests hold against the JAX package; each is
+    written for the package (and LM builder) it is given and imports
+    neither."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_layer_configs.py")
+    spec = importlib.util.spec_from_file_location("torch_layer_configs",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _golden_run(paddle, configs, name, values, device, gen):
+    """One golden config's forward (train mode) and the gradients of the
+    sum of its scalar outputs on ``device``, of every parameter and float
+    feed."""
+    from paddle_tpu_torch.models import transformer
+
+    _fresh(paddle)
+    outs = configs.CONFIGS[name](paddle, transformer)
+    topo = paddle.Topology(outs if isinstance(outs, list) else [outs])
+    if values is None:
+        values = seeded_values(topo, SEED + 7)
+    feed = configs.feed(topo, batch=GOLDEN_BATCH, seed=SEED, padded=True,
+                        name=name)
+    params = paddle.parameters.from_numpy(topo, values, device=device).values
+    wrt = {}
+    for l, ps in params.items():
+        for p, t in ps.items():
+            wrt[f"{l}.{p}"] = t.requires_grad_(True)
+    tfeed = {}
+    for k, a in feed.items():
+        t = torch.as_tensor(a, device=device)
+        if t.dtype == torch.float32 and not k.endswith("@len"):
+            wrt[f"feed {k}"] = t.requires_grad_(True)
+        tfeed[k] = t
+    vals, _ = topo.forward(params, {}, tfeed, train=True, generator=gen,
+                           device=device)
+    scalars = [v for v in vals.values() if v.ndim == 0]
+    total = sum(scalars[1:], scalars[0])
+    grads = (torch.autograd.grad(total, list(wrt.values()),
+                                 allow_unused=True)
+             if total.requires_grad else [None] * len(wrt))
+    return values, vals, dict(zip(wrt, grads))
+
+
+def goldens_on_card():
+    """Each golden config of ``tests/torch_layer_configs.py`` (the v2
+    layers, costs and sequence layers, the fused-head LM) forward and
+    backward on the card against the same config on the CPU from the same
+    seeded weights and padded feed: every output and the gradient of every
+    parameter and float feed within TOL of max(1, max |cpu|) (float32
+    both; NCE on the card's negatives)."""
+    import paddle_tpu_torch as paddle
+
+    configs = _layer_configs()
+    out = {}
+    for name in configs.CONFIGS:
+        if name in configs.PROTO_ONLY:
+            continue
+        draws = _Draws()
+        with draws.recording():
+            values, cvals, cgrads = _golden_run(
+                paddle, configs, name, None, "cuda",
+                torch.Generator(device="cuda").manual_seed(SEED))
+        with draws.replaying():
+            _, rvals, rgrads = _golden_run(
+                paddle, configs, name, values, "cpu",
+                torch.Generator().manual_seed(SEED))
+        worst = (0.0, "")
+        pairs = [(f"out {k}", cvals[k], rvals[k]) for k in rvals]
+        pairs += [(f"d {k}", cgrads[k], g) for k, g in rgrads.items()
+                  if g is not None]
+        for what, a, r in pairs:
+            if a is None:
+                raise AssertionError(f"golden {name}: {what} missing on the "
+                                     f"card")
+            a, r = a.detach().cpu().double(), r.detach().double()
+            e = ((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                 if r.numel() else 0.0)
+            worst = max(worst, (e, what))
+        if not worst[0] <= TOL:
+            raise AssertionError(f"golden {name} on the card vs the CPU: "
+                                 f"{worst[1]} off by {worst[0]} of max(1, "
+                                 f"max |ref|) > {TOL}")
+        out[name] = {"worst": worst[0], "at": worst[1],
+                     "checked": len(pairs)}
+    print(f"v2 goldens on the card vs the CPU ({len(out)} configs, forward "
+          f"and every gradient, padded feeds): worst "
+          f"{max(v['worst'] for v in out.values()):.2e} of max(1, max |ref|)"
+          f" (limit {TOL}); " + ", ".join(
+              f"{k} {v['worst']:.1e}" for k, v in out.items()), flush=True)
+    return out
+
+
+def _small_lm(paddle):
+    from paddle_tpu_torch.models import transformer
+    _fresh(paddle)
+    cost, _ = transformer.build(**SMALL_LM)
+    return paddle.Topology(cost)
+
+
+def _v2_optimizer(opt, name):
+    """A new rule with the base options on: l2 decay, the global clip, a
+    learning-rate schedule and a model average."""
+    base = dict(learning_rate=1e-3,
+                regularization=opt.L2Regularization(1e-4),
+                gradient_clipping_threshold=1.0,
+                learning_rate_schedule="poly", learning_rate_decay_a=0.1,
+                learning_rate_decay_b=0.5,
+                model_average=opt.ModelAverage(0.5))
+    if name == "RMSProp momentum":
+        return opt.RMSProp(momentum=0.9, **base)
+    return getattr(opt, name)(**base)
+
+
+def optimizer_dispatch():
+    """Each new optimizer (V2_OPTIMIZERS, with l2, the clip, a schedule
+    and a model average) trains a small LM (vocab 1000, T 512, one head
+    of 128, 2 layers; batch 4) at ``steps_per_dispatch=2``: one CUDA graph
+    of two steps against two eager steps from the same state, losses and
+    every state tensor (the slots, the step counter, the average) bit for
+    bit, kernels 1, 2 and 3 executing 2 a step (``dispatch_check``)."""
+    import paddle_tpu_torch as paddle
+
+    topo = _small_lm(paddle)
+    values = seeded_values(topo, SEED + 4)
+    rng = np.random.RandomState(SEED + 9)
+    feeds = []
+    for _ in range(2):
+        seqs = rng.randint(0, SMALL_LM["vocab_size"],
+                           size=(4, SMALL_LM["max_len"] + 1)).astype(np.int32)
+        feeds.append(trainer_feed(seqs[:, :-1], seqs[:, 1:]))
+    out = {}
+    for name in V2_OPTIMIZERS:
+        out[name] = dispatch_check(
+            f"small LM {name}", paddle,
+            lambda: paddle.trainer.SGD(
+                topo, paddle.parameters.from_numpy(topo, values),
+                _v2_optimizer(paddle.optimizer, name)),
+            feeds, 2, list(TRAIN_KERNELS), SMALL_LM["num_layers"])
+    return out
+
+
+def dropout_replays():
+    """A captured chunk draws new random numbers at each replay: an MLP
+    with two dropouts and an NCE cost (1000 classes, 64 shared negatives)
+    at learning rate 0, so only the draws move the loss, trained at
+    ``steps_per_dispatch=2`` over one batch twice: the four losses of two
+    replays all differ, one capture.  Then the same step captured with a
+    generator the graph does not know raises inside the capture rather
+    than run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import prepared
+
+    _fresh(paddle)
+    layer = paddle.layer
+    x = layer.data("x", paddle.data_type.dense_vector(256))
+    y = layer.data("y", paddle.data_type.integer_value(1000))
+    h = layer.dropout(layer.fc(x, size=512, act="relu", name="h1"),
+                      rate=0.5, name="drop1")
+    h = layer.fc(h, size=256, act="tanh", name="h2",
+                 layer_attr=paddle.attr.ExtraAttr(drop_rate=0.3))
+    topo = paddle.Topology(layer.nce_cost(h, y, num_classes=1000,
+                                          num_neg_samples=64, name="nce"))
+    trainer = paddle.trainer.SGD(
+        topo, paddle.parameters.from_numpy(topo, seeded_values(topo, SEED)),
+        paddle.optimizer.Momentum(learning_rate=0.0))
+    rng = np.random.RandomState(SEED)
+    feed = {"x": rng.randn(64, 256).astype(np.float32),
+            "y": rng.randint(0, 1000, 64).astype(np.int32)}
+    losses = _losses(paddle, trainer, lambda: iter([feed] * 4),
+                     steps_per_dispatch=2)
+    if (len(set(losses)) != 4 or trainer.step_capture_count != 1
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"dropout in a captured chunk: losses "
+                             f"{losses} over two replays of one batch at "
+                             f"lr 0 (all must differ), captures "
+                             f"{trainer.step_capture_count}")
+    stacked = trainer._stack_group([feed, feed])
+    try:
+        prepared.chunk_entry(trainer._step, 2, stacked,
+                             trainer._state_tensors(), trainer.device)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0]
+    torch.cuda.synchronize()
+    if refused is None or "capture" not in refused:
+        raise AssertionError("a capture whose generator is not registered "
+                             "ran instead of raising")
+    print(f"dropout + NCE in a captured 2-step chunk at lr 0: losses of two "
+          f"replays of one batch {[round(v, 6) for v in losses]} (all "
+          f"differ: new masks and negatives each replay), 1 capture; "
+          f"without the generator registered the capture raises: "
+          f"{refused[:120]}", flush=True)
+    trainer.release_chunks()
+    return {"losses": losses, "unregistered": refused}
+
+
+V2_PHASES = {
+    "fused_head": lambda dev, gen, flush: fused_head_check(dev, gen),
+    "flash_64k": flash_64k_check,
+    "lm_64k": lambda dev, gen, flush: lm64k_path(),
+    "goldens": lambda dev, gen, flush: goldens_on_card(),
+    "optimizers": lambda dev, gen, flush: optimizer_dispatch(),
+    "dropout": lambda dev, gen, flush: dropout_replays(),
+}
+
+
+def v2_slice(dev, gen, flush):
+    """Phase 15: the fused head, the 64k kernels and LM, the goldens on
+    the card, the new optimizers' chunks and the replays' draws; each
+    releases its memory before the next."""
+    out = {}
+    for name, phase in V2_PHASES.items():
+        out[name] = phase(dev, gen, flush)
+        torch.cuda.empty_cache()
+    return out
+
+
+def selected(argv) -> list:
+    """The phases ``--only=<name>[,<name>...]`` names (None without it):
+    ``dispatch`` or ``v2`` for phase 14 or 15 whole, or any part of
+    either (DISPATCH_PHASES, V2_PHASES), for a development run; the full
+    run takes no arguments."""
+    only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
+    if not only:
+        return None
+    groups = {"dispatch": list(DISPATCH_PHASES), "v2": list(V2_PHASES)}
+    names = [n for a in only for g in a.split(",")
+             for n in groups.get(g, [g])]
+    unknown = [n for n in names
+               if n not in DISPATCH_PHASES and n not in V2_PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
+                         f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
+                         f" + {sorted(V2_PHASES)}")
+    return names
 
 
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    only = [a for a in argv if a.startswith("--dispatch-only")]
-    if only:
-        # a development run of phase 14 alone (--dispatch-only, or
-        # --dispatch-only=nmt,lm for some of DISPATCH_PHASES); the full
-        # run takes no arguments
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        print(card_line(), flush=True)
-        names = (only[0].split("=", 1)[1].split(",") if "=" in only[0]
-                 else None)
-        print(json.dumps({"dispatch": dispatch_phases(names)}), flush=True)
-        return 0
+    only = selected(argv)
     from paddle_tpu_torch.ops import _build
     # the plain versions are the reference: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5021,7 +5707,8 @@ def main(argv=()) -> int:
           torch.cuda.get_device_name(0), flush=True)
 
     t0 = time.perf_counter()
-    parents = start_parent_builds()    # beside the port's own builds
+    # beside the port's own builds; a development run compares no parents
+    parents = start_parent_builds() if only is None else None
     logs = _build.build(["flash_fwd", "flash_bwd", "paged_decode",
                          "rnn_step", "bn_stats", "conv_bn", "flash_variants"])
     print(f"built {len(logs)} kernel sources in "
@@ -5036,6 +5723,15 @@ def main(argv=()) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+    if only is not None:
+        out = {}
+        for name in only:
+            phase = V2_PHASES.get(name)
+            out[name] = (DISPATCH_PHASES[name]() if phase is None
+                         else phase(dev, gen, flush))
+            torch.cuda.empty_cache()
+        print(json.dumps({"only": out}), flush=True)
+        return 0
     flash_err, flash_t = flash_phase(dev, gen, flush, parents)
     paged_err, paged_t = paged_phase(dev, gen, flush)
     bwd = flash_bwd_phase(dev, gen, flush, parents)
@@ -5080,6 +5776,10 @@ def main(argv=()) -> int:
     mixed = mixed_skip_phase(dev)
     torch.cuda.empty_cache()
     dispatch = dispatch_phases()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    v2 = v2_slice(dev, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -5165,12 +5865,20 @@ def main(argv=()) -> int:
              launches_replay=dispatch["lm_bf16"]["replay_launches"],
              launches_mixed=lm16["mixed"]["launches"]["flash_fwd_bf16"],
              launches_sweep=sweep_launches["flash_fwd"],
+             launches_64k=v2["lm_64k"]["launches"]["flash_fwd_bf16"],
+             at_64k=dict(v2["flash_64k"]["times"]["fwd"],
+                         o_row_err=v2["flash_64k"]["errs"]["o_row"],
+                         lse_err=v2["flash_64k"]["errs"]["lse"]),
              lm_shape=var["kernel1_bf16"]["lm"]),
         {"name": "flash_bwd_dkdv_bf16", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:285",
          "launches": lm16["bf16"]["launches"]["flash_bwd_dkdv_bf16"],
          "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dkdv_bf16"],
+         "launches_64k": v2["lm_64k"]["launches"]["flash_bwd_dkdv_bf16"],
+         "at_64k": dict(v2["flash_64k"]["times"]["dkdv"],
+                        dk_row_err=v2["flash_64k"]["errs"]["dk"],
+                        dv_row_err=v2["flash_64k"]["errs"]["dv"]),
          **{k: v for k, v in bwd16["dkdv"].items()},
          "shape": bwd16["shape"]},
         {"name": "flash_bwd_dq_bf16", "route": "cuda",
@@ -5178,6 +5886,9 @@ def main(argv=()) -> int:
          "replaces": "paddle_tpu/ops/flash_attention.py:370",
          "launches": lm16["bf16"]["launches"]["flash_bwd_dq_bf16"],
          "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dq_bf16"],
+         "launches_64k": v2["lm_64k"]["launches"]["flash_bwd_dq_bf16"],
+         "at_64k": dict(v2["flash_64k"]["times"]["dq"],
+                        dq_row_err=v2["flash_64k"]["errs"]["dq"]),
          **{k: v for k, v in bwd16["dq"].items()},
          "shape": bwd16["shape"]},
         dict(rnn16["lstm"]["x bfloat16, mask float32"], name="lstm_step_bf16",
@@ -5283,6 +5994,7 @@ def main(argv=()) -> int:
                                           "distance_to_plain", "cases",
                                           "resources")}}}), flush=True)
     print(json.dumps({"dispatch": dispatch}), flush=True)
+    print(json.dumps({"v2": v2}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

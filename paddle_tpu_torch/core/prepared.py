@@ -18,8 +18,11 @@ leading ``[k]`` axis and returns the k losses, a float32 ``[k]`` tensor:
   place, so the graph's replays carry the training forward.  A replay
   copies the chunk's feeds in, replays once and returns a copy of the
   losses, so that no later replay overwrites a loss an event still
-  holds.  A capture that fails raises with the op that broke it; nothing
-  runs the steps eagerly instead;
+  holds.  The step's generator (dropout's masks, NCE's negatives) is
+  registered with the graph, so each replay advances it and draws new
+  numbers; a generator the graph does not know raises inside the
+  capture.  A capture that fails raises with the op that broke it;
+  nothing runs the steps eagerly instead;
 - on the CPU (``EagerChunk``) the k steps run eagerly, one after the
   other: the caller asked for the CPU.
 
@@ -32,7 +35,7 @@ last of them.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -76,7 +79,7 @@ class CapturedChunk:
 
     def __init__(self, step: Callable, k: int, feeds: dict,
                  state: List[torch.Tensor], stream: torch.cuda.Stream,
-                 pool=None):
+                 pool=None, generator: Optional[torch.Generator] = None):
         dev = stream.device
         self.k = k
         self.static = {name: torch.empty(tuple(v.shape), device=dev,
@@ -93,6 +96,8 @@ class CapturedChunk:
         cur.wait_stream(stream)
         del saved
         self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         with ops.recording_launches() as rec:
             try:
                 # thread_local: a prefetch producer may copy to the card
@@ -128,14 +133,15 @@ class CapturedChunk:
 
 def chunk_entry(step: Callable, k: int, feeds: dict,
                 state: List[torch.Tensor], device: torch.device,
-                stream=None, pool=None):
+                stream=None, pool=None, generator=None):
     """The entry of k steps on ``device``: a ``CapturedChunk`` on the card
-    (on ``stream``, a new side stream when None), an ``EagerChunk`` on the
-    CPU."""
+    (on ``stream``, a new side stream when None; ``generator`` registered
+    with its graph), an ``EagerChunk`` on the CPU."""
     if device.type != "cuda":
         return EagerChunk(step, k)
     return CapturedChunk(step, k, feeds, state,
-                         stream or torch.cuda.Stream(device), pool)
+                         stream or torch.cuda.Stream(device), pool,
+                         generator)
 
 
 class PreparedFamily:
@@ -151,9 +157,10 @@ class PreparedFamily:
         self._stream = self._pool = None
 
     def get(self, kind: str, k: int, feeds: dict, step: Callable,
-            state: Callable[[], List[torch.Tensor]]):
+            state: Callable[[], List[torch.Tensor]], generator=None):
         """The entry for ``feeds`` (stacked ``[k, ...]``), prepared on
-        first use; ``state()`` lists the tensors the step updates."""
+        first use; ``state()`` lists the tensors the step updates and
+        ``generator`` is the step's random stream."""
         key = (kind, k, feed_signature(feeds))
         entry = self.entries.get(key)
         if entry is None:
@@ -161,7 +168,7 @@ class PreparedFamily:
                 self._stream = torch.cuda.Stream(self.device)
                 self._pool = torch.cuda.graph_pool_handle()
             entry = chunk_entry(step, k, feeds, state(), self.device,
-                                self._stream, self._pool)
+                                self._stream, self._pool, generator)
             self.entries[key] = entry
             self.prepared += 1
         return entry

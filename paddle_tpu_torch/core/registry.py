@@ -17,8 +17,8 @@ _LAYER_REGISTRY: Dict[str, "LayerDef"] = {}
 
 class ApplyContext:
     """Per-forward context threaded through layer ``apply()`` calls: train
-    or test mode, the ``torch.Generator`` of the forward (for layers that
-    draw random numbers; none of the ported ones does), the device, the
+    or test mode, the ``torch.Generator`` of the forward (dropout's masks,
+    NCE's negatives: ``rng()``; it lies on the forward's device), the device, the
     compute dtype of the precision policy (None under float32: the layers
     then cast nothing), the full parameter tree (tied weights), and the
     running-state namespace
@@ -36,6 +36,17 @@ class ApplyContext:
         self.state_in: dict = {}      # {layer_name: {key: tensor}}
         self.state_out: dict = {}
         self._cur_layer: Optional[str] = None
+
+    def rng(self) -> torch.Generator:
+        """The forward's generator, which a layer that draws random
+        numbers advances (the JAX package's ``next_rng``); none given
+        raises."""
+        if self.generator is None:
+            raise ValueError(
+                "layer needs an rng (dropout?) but no rng was provided; "
+                "pass generator= to Topology.forward / use trainer which "
+                "threads one")
+        return self.generator
 
     # -- running state (BN et al.) -------------------------------------
     def get_state(self, key: str):
@@ -80,5 +91,6 @@ def get_layer_def(kind: str) -> LayerDef:
         return _LAYER_REGISTRY[kind]
     except KeyError:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported to paddle_tpu_torch yet; "
-            f"ported: {sorted(_LAYER_REGISTRY)}") from None
+            f"layer kind {kind!r} is not ported to paddle_tpu_torch yet "
+            f"(ROADMAP.md section 1); ported: {sorted(_LAYER_REGISTRY)}"
+            ) from None

@@ -86,7 +86,7 @@ class DataFeeder:
             elif attrs.get("sparse_kind"):
                 raise NotImplementedError(
                     f"input {name!r}: sparse inputs are not ported to "
-                    f"paddle_tpu_torch yet")
+                    f"paddle_tpu_torch yet (ROADMAP.md section 1, item 4)")
             elif is_index:
                 out[name] = np.asarray(column, dtype=np.int32)
             else:

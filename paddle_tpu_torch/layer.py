@@ -3,8 +3,10 @@ layers need (counterpart of ``paddle_tpu/layer.py``).
 
 Each function returns a ``LayerOutput``; ``Topology(cost)`` recovers the
 graph by walking parents.  Same arguments, attributes and default names as
-the JAX package, so both write byte-equal JSON for the same config.  The
-rest of the catalog comes with later slices.
+the JAX package, so both write byte-equal JSON for the same config, and
+each ported entry also answers to its legacy ``*_layer`` name.  The rest
+of the catalog (image extras, detection, CRF/CTC, nested sequences, the
+misc math layers) comes with later slices.
 """
 
 from __future__ import annotations
@@ -21,12 +23,27 @@ from paddle_tpu_torch.layers.rnn_group import (GeneratedInput, StaticInput,
                                                memory, recurrent_group)
 
 __all__ = [
-    "data", "fc", "embedding", "concat", "addto", "slice", "layer_norm",
-    "first_seq", "last_seq",
+    "data", "fc", "embedding", "dropout", "concat", "addto", "mixed",
+    "full_matrix_projection", "trans_full_matrix_projection",
+    "identity_projection", "dotmul_projection", "table_projection",
+    "scaling_projection", "slice_projection", "conv_projection",
+    "conv_operator", "dotmul_operator",
+    "slice", "layer_norm", "data_norm",
+    "pooling", "first_seq", "last_seq", "expand", "seq_concat",
+    "seq_reshape", "context_projection", "seq_slice", "kmax_seq_score",
+    "seq_softmax", "seq_scale", "seq_dot",
     "recurrent", "lstmemory", "grumemory", "bigru", "recurrent_group",
     "memory", "beam_search", "StaticInput", "GeneratedInput",
     "SubsequenceInput", "gru_step_layer", "lstm_step_layer",
-    "classification_cost", "sum_cost",
+    "classification_cost", "lm_head_cost", "cross_entropy_cost",
+    "square_error_cost", "mse_cost", "rank_cost", "hinge_cost",
+    "log_loss", "multi_binary_label_cross_entropy_cost", "smooth_l1_cost",
+    "huber_classification_cost", "sum_cost", "nce_cost", "hsigmoid",
+    "lambda_cost", "huber_regression_cost", "cross_entropy_with_selfnorm",
+    "BeamInput", "cross_entropy_over_beam",
+    "cos_sim", "dot_prod", "scaling", "slope_intercept", "interpolation",
+    "bilinear_tensor_product", "trans", "reshape", "activation",
+    "row_l2_norm",
     "position_embedding", "bahdanau_attention", "multi_head_attention",
     "img_conv", "img_pool", "global_pool", "batch_norm", "img_cmrnorm",
 ]
@@ -99,10 +116,10 @@ def fc(input, size: int, act=None, name=None, param_attr=None,
     attrs = _attrs_from(param_attr, bias_attr, layer_attr,
                         {"size": size, "act": act_mod.resolve(act),
                          "share_from": share_from})
+    out = LayerOutput("fc", inputs, attrs, name=name, size=size)
     if attrs.get("drop_rate"):
-        raise NotImplementedError("dropout is not ported to "
-                                  "paddle_tpu_torch yet")
-    return LayerOutput("fc", inputs, attrs, name=name, size=size)
+        out = dropout(out, attrs["drop_rate"])
+    return out
 
 
 def embedding(input, size: int, vocab_size: Optional[int] = None,
@@ -114,6 +131,12 @@ def embedding(input, size: int, vocab_size: Optional[int] = None,
                         {"size": size, "vocab_size": vocab,
                          "share_from": share_from})
     return LayerOutput("embedding", inputs, attrs, name=name, size=size)
+
+
+def dropout(input, rate: float = 0.5, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("dropout", inputs, {"rate": rate}, name=name,
+                       size=inputs[0].size)
 
 
 def concat(input, act=None, axis: int = -1, name=None):
@@ -132,6 +155,87 @@ def addto(input, act=None, bias_attr=False, name=None):
                        size=inputs[0].size)
 
 
+# -------------------------------------------------------- mixed/projections
+def full_matrix_projection(input, size=0, param_attr=None):
+    return ({"type": "full_matrix"}, input)
+
+
+def trans_full_matrix_projection(input, size=0, param_attr=None):
+    return ({"type": "trans_full_matrix"}, input)
+
+
+def identity_projection(input, offset=None, size=None):
+    if offset is not None:
+        return ({"type": "slice", "start": offset,
+                 "end": offset + (size or input.size)}, input)
+    return ({"type": "identity"}, input)
+
+
+def dotmul_projection(input, param_attr=None):
+    return ({"type": "dotmul"}, input)
+
+
+def scaling_projection(input, param_attr=None):
+    return ({"type": "scaling"}, input)
+
+
+def table_projection(input, size=0, vocab_size=None, param_attr=None):
+    return ({"type": "table", "vocab_size": vocab_size or input.size}, input)
+
+
+def slice_projection(input, slices):
+    (start, end), = slices
+    return ({"type": "slice", "start": start, "end": end}, input)
+
+
+def conv_projection(input, filter_size, num_filters, stride=1, padding=0,
+                    groups=1, param_attr=None, trans=False):
+    """convolution as a mixed-layer projection (``trans``: the transposed
+    conv); the output is the flattened NHWC feature map."""
+    return ({"type": "conv_trans" if trans else "conv",
+             "filter_size": filter_size,
+             "num_filters": num_filters, "stride": stride,
+             "padding": padding, "groups": groups}, input)
+
+
+def conv_operator(img, filter, filter_size, num_filters, num_channels=None,
+                  stride=1, padding=0):
+    """per-sample convolution whose weights come from another layer (its
+    row is the (num_filters, channels * kh * kw) weight); num_channels is
+    read from the image layer when it can be."""
+    if num_channels is None:
+        shape = img.attrs.get("shape")
+        if img.attrs.get("num_filters"):
+            num_channels = img.attrs["num_filters"]
+        elif shape and len(shape) == 3:
+            num_channels = shape[-1]          # NHWC data layer
+        else:
+            raise ValueError(
+                "conv_operator: pass num_channels explicitly (cannot infer "
+                f"it from input layer {img.name!r})")
+    return ({"type": "conv_op", "filter_size": filter_size,
+             "num_filters": num_filters, "num_channels": num_channels,
+             "stride": stride, "padding": padding}, (img, filter))
+
+
+def dotmul_operator(a, b, scale=1.0):
+    """elementwise a * b into the mixed sum."""
+    return ({"type": "dotmul_op", "scale": scale}, (a, b))
+
+
+def mixed(size: int, input, act=None, bias_attr=False, name=None):
+    """mixed_layer: the sum of projections and operators (operators take
+    two inputs each)."""
+    projs, inputs = [], []
+    for proj, inp in input:
+        projs.append(proj)
+        inputs.extend(inp if isinstance(inp, tuple) else (inp,))
+    attrs = _attrs_from(None, bias_attr, None,
+                        {"size": size, "act": act_mod.resolve(act),
+                         "projections": projs})
+    return LayerOutput("mixed", inputs, attrs, name=name, size=size)
+
+
 def layer_norm(input, epsilon=1e-5, name=None):
     inputs = _norm_inputs(input)
     return LayerOutput("layer_norm", inputs, {"epsilon": epsilon},
@@ -143,6 +247,16 @@ def slice(input, start, end, name=None):
     return LayerOutput("slice", _norm_inputs(input),
                        {"start": start, "end": end}, name=name,
                        size=end - start)
+
+
+def data_norm(input, data_norm_strategy="z-score", name=None):
+    """normalise features by precomputed statistics held in one static
+    (5, size) parameter ``<name>.stats`` (z-score | min-max |
+    decimal-scaling)."""
+    inputs = _norm_inputs(input)
+    return LayerOutput("data_norm", inputs,
+                       {"data_norm_strategy": data_norm_strategy},
+                       name=name, size=inputs[0].size)
 
 
 # -------------------------------------------------------------------- image
@@ -191,6 +305,13 @@ def img_cmrnorm(input, size=5, scale=0.0001, power=0.75, name=None):
 
 
 # ----------------------------------------------------------------- sequence
+def pooling(input, pooling_type=None, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("seq_pool", inputs,
+                       {"pool_type": pool_mod.resolve(pooling_type)},
+                       name=name, size=inputs[0].size)
+
+
 def first_seq(input, name=None):
     inputs = _norm_inputs(input)
     return LayerOutput("first_seq", inputs, {}, name=name,
@@ -201,6 +322,60 @@ def last_seq(input, name=None):
     inputs = _norm_inputs(input)
     return LayerOutput("last_seq", inputs, {}, name=name,
                        size=inputs[0].size)
+
+
+def expand(input, expand_as, name=None):
+    return LayerOutput("expand", [input, expand_as], {}, name=name,
+                       size=input.size)
+
+
+def seq_concat(a, b, name=None):
+    return LayerOutput("seq_concat", [a, b], {}, name=name, size=a.size)
+
+
+def seq_reshape(input, reshape_size, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("seq_reshape", inputs,
+                       {"reshape_size": reshape_size}, name=name,
+                       size=reshape_size)
+
+
+def context_projection(input, context_len, context_start=None,
+                       trainable_padding=False, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("context_projection", inputs, {
+        "context_len": context_len,
+        "context_start": (context_start if context_start is not None
+                          else -(context_len // 2)),
+        "trainable_padding": trainable_padding}, name=name,
+        size=(inputs[0].size or 0) * context_len or None)
+
+
+def seq_softmax(input, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("seq_softmax", inputs, {}, name=name,
+                       size=inputs[0].size)
+
+
+def seq_scale(weight, input, name=None):
+    return LayerOutput("seq_scale", [weight, input], {}, name=name,
+                       size=input.size)
+
+
+def seq_dot(a, b, name=None):
+    return LayerOutput("seq_dot", [a, b], {}, name=name, size=1)
+
+
+def seq_slice(input, start, end, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("seq_slice", inputs, {"start": start, "end": end},
+                       name=name, size=inputs[0].size)
+
+
+def kmax_seq_score(input, beam_size=1, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("kmax_seq_score", inputs, {"beam_size": beam_size},
+                       name=name)
 
 
 # ---------------------------------------------------------------- recurrent
@@ -274,6 +449,18 @@ def lstm_step_layer(input, state_mem, size=None, act="tanh",
 
 
 # -------------------------------------------------------------------- costs
+def lm_head_cost(input, label, vocab_size, weight=None, chunk=8192,
+                 name=None):
+    """Fused vocabulary projection + softmax CE, chunked so the [N, vocab]
+    logits are never kept (``ops/chunked_ce.py``).  Owns the head weights
+    (fc naming): expose the logits for generation with
+    ``fc(..., share_from=<this name>)``."""
+    inputs = [input, label] + ([weight] if weight is not None else [])
+    return LayerOutput("lm_head_cost", inputs,
+                       {"vocab_size": vocab_size, "chunk": chunk},
+                       name=name, size=1)
+
+
 def classification_cost(input, label, weight=None, name=None):
     """softmax cross-entropy on logits; if the input layer ends in a
     softmax activation (the reference idiom) it takes the prob-space form
@@ -284,8 +471,148 @@ def classification_cost(input, label, weight=None, name=None):
                        {"input_is_prob": is_prob}, name=name)
 
 
+def cross_entropy_cost(input, label, soft_label=False, name=None):
+    return LayerOutput("cross_entropy", [input, label],
+                       {"soft_label": soft_label}, name=name)
+
+
+def square_error_cost(input, label, name=None):
+    return LayerOutput("mse_cost", [input, label], {}, name=name)
+
+
+mse_cost = square_error_cost
+
+
+def rank_cost(left, right, label, weight=None, name=None):
+    inputs = [left, right, label] + ([weight] if weight is not None else [])
+    return LayerOutput("rank_cost", inputs, {}, name=name)
+
+
+def hinge_cost(input, label, name=None):
+    return LayerOutput("hinge_cost", [input, label], {}, name=name)
+
+
+def log_loss(input, label, name=None):
+    return LayerOutput("log_loss", [input, label], {}, name=name)
+
+
+def multi_binary_label_cross_entropy_cost(input, label, name=None):
+    return LayerOutput("multi_binary_label_cross_entropy", [input, label],
+                       {}, name=name)
+
+
+def smooth_l1_cost(input, label, name=None):
+    return LayerOutput("smooth_l1_cost", [input, label], {}, name=name)
+
+
+def huber_classification_cost(input, label, name=None):
+    return LayerOutput("huber_classification_cost", [input, label], {},
+                       name=name)
+
+
 def sum_cost(input, name=None):
     return LayerOutput("sum_cost", _norm_inputs(input), {}, name=name)
+
+
+def nce_cost(input, label, num_classes, num_neg_samples=10, name=None):
+    return LayerOutput("nce_cost", [input, label], {
+        "num_classes": num_classes, "num_neg_samples": num_neg_samples},
+        name=name)
+
+
+def hsigmoid(input, label, num_classes, name=None):
+    return LayerOutput("hsigmoid_cost", [input, label],
+                       {"num_classes": num_classes}, name=name)
+
+
+def lambda_cost(input, score, NDCG_num=5, max_sort_size=-1, name=None):
+    """LambdaRank listwise cost over one query's documents a sequence."""
+    return LayerOutput("lambda_cost", [input, score],
+                       {"NDCG_num": NDCG_num, "max_sort_size": max_sort_size},
+                       name=name)
+
+
+def huber_regression_cost(input, label, delta=1.0, name=None):
+    return LayerOutput("huber_regression_cost", [input, label],
+                       {"delta": delta}, name=name)
+
+
+def cross_entropy_with_selfnorm(input, label, softmax_selfnorm_alpha=0.1,
+                                name=None):
+    is_prob = input.attrs.get("act") == "softmax"
+    return LayerOutput("cross_entropy_with_selfnorm", [input, label],
+                       {"softmax_selfnorm_alpha": softmax_selfnorm_alpha,
+                        "input_is_prob": is_prob}, name=name)
+
+
+class BeamInput:
+    """One beam-expansion step for cross_entropy_over_beam (reference:
+    BeamInput(candidate_scores, selected_candidates, gold))."""
+
+    def __init__(self, candidate_scores, selected_candidates, gold):
+        self.candidate_scores = candidate_scores
+        self.selected_candidates = selected_candidates
+        self.gold = gold
+
+
+def cross_entropy_over_beam(input, name=None):
+    """Beam-training cost over E expansion steps; ``input`` is a list of
+    BeamInput (see layers/cost.py CrossEntropyOverBeamCost)."""
+    flat = []
+    for b in input:
+        flat += [b.candidate_scores, b.selected_candidates, b.gold]
+    return LayerOutput("cross_entropy_over_beam", flat,
+                       {"expansions": len(input)}, name=name)
+
+
+# -------------------------------------------------------------- misc math
+def cos_sim(a, b, scale=1.0, name=None):
+    return LayerOutput("cos_sim", [a, b], {"scale": scale}, name=name, size=1)
+
+
+def dot_prod(a, b, name=None):
+    return LayerOutput("dot_prod", [a, b], {}, name=name, size=1)
+
+
+def scaling(weight, input, name=None):
+    return LayerOutput("scaling", [weight, input], {}, name=name,
+                       size=input.size)
+
+
+def slope_intercept(input, slope=1.0, intercept=0.0, name=None):
+    return LayerOutput("slope_intercept", _norm_inputs(input),
+                       {"slope": slope, "intercept": intercept}, name=name,
+                       size=input.size)
+
+
+def interpolation(weight, x, y, name=None):
+    return LayerOutput("interpolation", [weight, x, y], {}, name=name,
+                       size=x.size)
+
+
+def bilinear_tensor_product(x, y, size, name=None):
+    return LayerOutput("bilinear_tensor_product", [x, y], {"size": size},
+                       name=name, size=size)
+
+
+def trans(input, name=None):
+    return LayerOutput("trans", _norm_inputs(input), {}, name=name)
+
+
+def reshape(input, shape, name=None):
+    return LayerOutput("reshape", _norm_inputs(input),
+                       {"shape": list(shape)}, name=name)
+
+
+def activation(input, act, name=None):
+    return LayerOutput("activation", _norm_inputs(input),
+                       {"act": act_mod.resolve(act)}, name=name,
+                       size=input.size)
+
+
+def row_l2_norm(input, name=None):
+    return LayerOutput("row_l2_norm", _norm_inputs(input), {}, name=name,
+                       size=input.size)
 
 
 def bahdanau_attention(encoded_sequence, encoded_proj, decoder_state,
@@ -313,3 +640,36 @@ def multi_head_attention(query, key=None, value=None, *, size, num_heads,
     return LayerOutput("multi_head_attention", [query, key, value], {
         "size": size, "num_heads": num_heads, "causal": causal,
         "context_parallel": context_parallel}, name=name, size=size)
+
+
+# reference aliases (trainer_config_helpers spelling)
+gru_step_naive_layer = gru_step_layer
+gru_step_naive = gru_step_layer
+nce = nce_cost
+cross_entropy = cross_entropy_cost
+regression_cost = square_error_cost
+multi_binary_label_cross_entropy = multi_binary_label_cross_entropy_cost
+huber_cost = huber_classification_cost
+
+# the legacy ``*_layer`` names of the ported entries (the JAX package's
+# table, less the entries not ported)
+_LEGACY = {
+    "fc": "fc_layer", "data": "data_layer", "embedding": "embedding_layer",
+    "img_conv": "img_conv_layer", "img_pool": "img_pool_layer",
+    "batch_norm": "batch_norm_layer", "addto": "addto_layer",
+    "concat": "concat_layer", "dropout": "dropout_layer",
+    "mixed": "mixed_layer", "pooling": "pooling_layer",
+    "expand": "expand_layer", "seq_reshape": "seq_reshape_layer",
+    "seq_concat": "seq_concat_layer", "seq_slice": "seq_slice_layer",
+    "kmax_seq_score": "kmax_seq_score_layer",
+    "interpolation": "interpolation_layer", "scaling": "scaling_layer",
+    "slope_intercept": "slope_intercept_layer", "cos_sim": "cos_sim",
+    "trans": "trans_layer", "dot_prod": "dot_prod_layer",
+    "recurrent": "recurrent_layer", "img_cmrnorm": "img_cmrnorm_layer",
+    "nce_cost": "nce_layer", "hsigmoid": "hsigmoid_layer",
+    "row_l2_norm": "row_l2_norm_layer",
+    "first_seq": "first_seq_layer", "last_seq": "last_seq_layer",
+}
+for _new, _old in _LEGACY.items():
+    globals().setdefault(_old, globals()[_new])
+del _new, _old

@@ -50,12 +50,13 @@ def build(vocab_size: int = 1000, max_len: int = 128, dim: int = 128,
     graph, names and JSON as the JAX package's ``build``.  Feeds: tokens
     [B,T] (+ tokens@len), targets [B,T].  Returns (cost, logits_seq).
 
-    ``fused_head`` (the chunked-CE head, ``ops/chunked_ce.py``) and
-    ``context_parallel`` (ring attention) are not ported yet and raise."""
-    if fused_head:
-        raise NotImplementedError(
-            "fused_head (the chunked cross-entropy head) is not ported to "
-            "paddle_tpu_torch yet")
+    ``fused_head``: the chunked-CE head (``lm_head_cost``,
+    ``ops/chunked_ce.py``), which keeps no [T, vocab] logits for the
+    backward.  The cost layer owns the head's weights under the name
+    ``logits`` (fc naming), so the decoders and checkpoints find them as
+    in the unfused graph; ``logits_view``, an fc sharing them, is the
+    logits output.  ``context_parallel`` (ring attention) is not ported
+    yet and raises."""
     if context_parallel:
         raise NotImplementedError(
             "context_parallel (ring attention) is not ported to "
@@ -81,6 +82,11 @@ def build(vocab_size: int = 1000, max_len: int = 128, dim: int = 128,
         x = layer.addto([x, ffn], act=None, name=f"res_f{i}")
 
     x = layer.layer_norm(x, name="ln_f")
+    if fused_head:
+        cost = layer.lm_head_cost(x, targets, vocab_size, name="logits")
+        logits = layer.fc(x, size=vocab_size, act=None,
+                          name="logits_view", share_from="logits")
+        return cost, logits
     logits = layer.fc(x, size=vocab_size, act=None, name="logits")
     cost = layer.classification_cost(logits, targets, name="cost")
     return cost, logits

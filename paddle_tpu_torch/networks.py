@@ -1,10 +1,7 @@
-"""Composite network helpers: the recurrent ones and the fused additive
-attention (the part of ``paddle_tpu/networks.py`` the ported layers
-support).  They compose DSL layers only; names and attributes are the
-JAX package's, so both write the same JSON.
-
-``simple_attention(fused=False)`` raises: its composite needs ``expand``,
-``seq_softmax``, ``seq_scale`` and ``pooling``, which are not ported yet.
+"""Composite network helpers: the recurrent ones and additive attention
+(the part of ``paddle_tpu/networks.py`` the ported layers support).  They
+compose DSL layers only; names and attributes are the JAX package's, so
+both write the same JSON.
 """
 
 from __future__ import annotations
@@ -80,16 +77,29 @@ def simple_attention(encoded_sequence, encoded_proj, decoder_state,
                      transform_act="tanh", name=None, fused=False):
     """additive (Bahdanau) attention:
     score_t = v . act(enc_proj_t + W s); context = sum_t softmax(score)_t
-    enc_t.  Only the fused form (one bahdanau_attention layer, tanh) is
-    ported."""
-    if not fused:
-        raise NotImplementedError(
-            "simple_attention(fused=False) needs expand, seq_softmax, "
-            "seq_scale and pooling, which are not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md section 1); pass fused=True")
-    if transform_act != "tanh":
-        raise ValueError(
-            f"fused simple_attention supports transform_act='tanh' only, "
-            f"got {transform_act!r}")
-    return layer.bahdanau_attention(encoded_sequence, encoded_proj,
-                                    decoder_state, name=name)
+    enc_t.  ``fused=True`` is one bahdanau_attention layer (tanh only;
+    its parameters are ``<name>.w_dp`` / ``<name>.v``); else the
+    composite of fc, expand, addto, seq_softmax, seq_scale and pooling
+    under the composite's fc names."""
+    if fused:
+        if transform_act != "tanh":
+            raise ValueError(
+                f"fused simple_attention supports transform_act='tanh' "
+                f"only, got {transform_act!r}")
+        return layer.bahdanau_attention(encoded_sequence, encoded_proj,
+                                        decoder_state, name=name)
+    decoder_proj = layer.fc(input=decoder_state,
+                            size=encoded_proj.size, act=None,
+                            bias_attr=False,
+                            name=name and name + "_dec_proj")
+    expanded = layer.expand(decoder_proj, encoded_proj,
+                            name=name and name + "_expand")
+    combined = layer.addto([encoded_proj, expanded], act=transform_act,
+                           name=name and name + "_combine")
+    scores = layer.fc(input=combined, size=1, act=None, bias_attr=False,
+                      name=name and name + "_score")
+    weights = layer.seq_softmax(scores, name=name and name + "_weight")
+    scaled = layer.seq_scale(weights, encoded_sequence,
+                             name=name and name + "_scale")
+    return layer.pooling(scaled, pooling_type="sum",
+                         name=name and name + "_context")

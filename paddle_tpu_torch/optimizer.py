@@ -1,6 +1,7 @@
 """Optimizers over ``{layer: {param: tensor}}`` trees (counterpart of
-``paddle_tpu/optimizer.py``: the ``Optimizer`` base, ``Momentum`` and
-``Adam``; the rest of the family comes with a later slice).
+``paddle_tpu/optimizer.py``: the ``Optimizer`` base, Momentum, Adagrad,
+DecayedAdagrad, AdaDelta, RMSProp, Adam, Adamax, Ftrl, the l1 / l2
+regularizers, ModelAverage, the legacy class names and ``settings()``).
 
 ``update(params, grads, state, meta)`` applies, in order: global-norm clip,
 per-parameter clip, l1/l2 decay, then the rule's step with the
@@ -9,7 +10,10 @@ JAX package, whose arrays are immutable, the updates run under
 ``torch.no_grad()`` IN PLACE: each parameter tensor and each slot tensor
 is overwritten, so a step holds no second copy of the model or of its
 optimizer state (at the LM's full width, 0.7 GB of Adam slots).
-``update`` returns the same (now updated) trees.
+``update`` returns the same (now updated) trees.  With a ``ModelAverage``
+the state also holds ``avg`` (a running mean of the parameters after
+each step, a copy of the parameters at the start) and its count
+``avg_n``, updated in place the same way.
 
 The step counter ``t`` is a 0-dim int32 tensor on the parameters' device,
 as the JAX package carries it, and the bias corrections and the
@@ -19,9 +23,9 @@ captured a step (``core/prepared.py``) replays with the counter's
 current value, where a host int would stay frozen at its capture.  Under
 dynamic loss scaling (the ``mixed`` precision policy) the trainer passes
 ``update`` a device boolean ``finite``: every leaf's new value and slots,
-and ``t``, are then selected against the old ones with ``torch.where``,
-so a skipped step leaves the masters, the slots and the counter bit for
-bit as they were.  Masters and slots are float32 under every policy.
+``t`` and the average are then selected against the old ones with
+``torch.where``, so a skipped step leaves them bit for bit as they were.
+Masters and slots are float32 under every policy.
 """
 
 from __future__ import annotations
@@ -66,14 +70,12 @@ class Optimizer:
     def __init__(self, learning_rate=0.01, regularization=None,
                  gradient_clipping_threshold=0.0, model_average=None,
                  **sched_args):
-        if model_average is not None:
-            raise NotImplementedError(
-                "model_average is not ported to paddle_tpu_torch yet")
         self.hp = {"learning_rate": learning_rate, **sched_args}
         self.lr_fn = _lr_schedule(self.hp)
         self.l1 = getattr(regularization, "l1", 0.0) if regularization else 0.0
         self.l2 = getattr(regularization, "l2", 0.0) if regularization else 0.0
         self.global_clip = gradient_clipping_threshold
+        self.model_average = model_average
 
     # ---- subclass interface ----
     def slots(self, p: torch.Tensor) -> dict:
@@ -97,8 +99,28 @@ class Optimizer:
         }
         dev = next((p.device for ps in params.values() for p in ps.values()
                     if p is not None), None)
-        return {"t": torch.zeros((), dtype=torch.int32, device=dev),
-                "slots": slot_tree}
+        state = {"t": torch.zeros((), dtype=torch.int32, device=dev),
+                 "slots": slot_tree}
+        if self.model_average:
+            state["avg"] = {l: {pn: (None if p is None else p.clone())
+                                for pn, p in ps.items()}
+                            for l, ps in params.items()}
+            state["avg_n"] = torch.zeros((), dtype=torch.float32,
+                                         device=dev)
+        return state
+
+    @staticmethod
+    def state_tensors(state: dict) -> list:
+        """Every tensor of ``state`` that ``update`` writes in place: the
+        slots, the step counter and the average."""
+        out = [s for ps in state["slots"].values() for ss in ps.values()
+               for s in ss.values()]
+        out.append(state["t"])
+        if "avg" in state:
+            out += [a for ps in state["avg"].values() for a in ps.values()
+                    if a is not None]
+            out.append(state["avg_n"])
+        return out
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict,
@@ -112,7 +134,7 @@ class Optimizer:
         if sparse_grads:
             raise NotImplementedError(
                 "sparse (SelectedRows) updates are not ported to "
-                "paddle_tpu_torch yet")
+                "paddle_tpu_torch yet (ROADMAP.md section 1, item 4)")
         t = state["t"] + 1
         tf = t.float()
         lr_t = self.lr_fn(tf)
@@ -127,11 +149,16 @@ class Optimizer:
         work = [(l, pn, p, grads[l][pn]) for l, ps in params.items()
                 for pn, p in ps.items()
                 if p is not None and grads[l][pn] is not None]
+        avg = state.get("avg") if self.model_average else None
         if finite is not None:
             # every tensor the step writes, and a copy of each (one
             # multi-tensor launch; x * 1 is x bit for bit)
             kept = [x for l, pn, p, _ in work
                     for x in (p, *state["slots"][l][pn].values())]
+            if avg is not None:
+                kept += [a for ps in avg.values() for a in ps.values()
+                         if a is not None]
+                kept.append(state["avg_n"])
             old = torch._foreach_mul(kept, 1.0)
         terms = self.step_terms(tf)
         for l, pn, p, g in work:
@@ -149,6 +176,15 @@ class Optimizer:
                 g = g + l1 * torch.sign(p)
             lr = lr_t * m.get("learning_rate", 1.0)
             self.leaf_update(p, g, state["slots"][l][pn], lr, terms)
+        if avg is not None:
+            # avg += (p - avg) / n over the updated parameters
+            n = state["avg_n"] + 1.0
+            for l, ps in params.items():
+                for pn, p in ps.items():
+                    if p is not None:
+                        a = avg[l][pn]
+                        a.add_((p - a) / n)
+            state["avg_n"].copy_(n)
         if finite is not None:
             for new, was in zip(kept, old):
                 torch.where(finite, new, was, out=new)
@@ -186,6 +222,86 @@ class Momentum(Optimizer):
 SGD = Momentum
 
 
+class Adagrad(Optimizer):
+    """reference: AdagradParameterOptimizer (adagradApply)."""
+
+    def __init__(self, epsilon=1e-6, **kw):
+        super().__init__(**kw)
+        self.eps = epsilon
+
+    def slots(self, p):
+        return {"accum": torch.zeros_like(p)}
+
+    def leaf_update(self, p, g, s, lr, terms):
+        acc = s["accum"]
+        acc.add_(torch.square(g))
+        p.sub_(lr * g / (torch.sqrt(acc) + self.eps))
+
+
+class DecayedAdagrad(Optimizer):
+    """reference: DecayedAdagradParameterOptimizer (a rho-decayed
+    accumulator)."""
+
+    def __init__(self, rho=0.95, epsilon=1e-6, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps = rho, epsilon
+
+    def slots(self, p):
+        return {"accum": torch.zeros_like(p)}
+
+    def leaf_update(self, p, g, s, lr, terms):
+        acc = s["accum"]
+        acc.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        p.sub_(lr * g / (torch.sqrt(acc) + self.eps))
+
+
+class AdaDelta(Optimizer):
+    """reference: AdaDeltaParameterOptimizer (adadeltaApply)."""
+
+    def __init__(self, rho=0.95, epsilon=1e-6, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps = rho, epsilon
+
+    def slots(self, p):
+        return {"accum": torch.zeros_like(p),
+                "accum_update": torch.zeros_like(p)}
+
+    def leaf_update(self, p, g, s, lr, terms):
+        acc, accu = s["accum"], s["accum_update"]
+        acc.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        upd = torch.sqrt(accu + self.eps) / torch.sqrt(acc + self.eps) * g
+        accu.mul_(self.rho).add_((1 - self.rho) * torch.square(upd))
+        p.sub_(lr * upd)
+
+
+class RMSProp(Optimizer):
+    """reference: RMSPropParameterOptimizer (rmspropApply, with the
+    mean-gradient correction term; ``momentum`` adds a velocity slot)."""
+
+    def __init__(self, rho=0.95, epsilon=1e-6, momentum=0.0, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps, self.mom = rho, epsilon, momentum
+
+    def slots(self, p):
+        s = {"mean_square": torch.zeros_like(p),
+             "mean_grad": torch.zeros_like(p)}
+        if self.mom:
+            s["momentum"] = torch.zeros_like(p)
+        return s
+
+    def leaf_update(self, p, g, s, lr, terms):
+        ms, mg = s["mean_square"], s["mean_grad"]
+        ms.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        mg.mul_(self.rho).add_((1 - self.rho) * g)
+        step = lr * g / torch.sqrt(ms - torch.square(mg) + self.eps)
+        if self.mom:
+            v = s["momentum"]
+            v.mul_(self.mom).add_(step)
+            p.sub_(v)
+        else:
+            p.sub_(step)
+
+
 class Adam(Optimizer):
     """reference: AdamParameterOptimizer (adamApply, bias-corrected)."""
 
@@ -212,6 +328,51 @@ class Adam(Optimizer):
         p.sub_(mhat.mul_(lr).div_(denom))
 
 
+class Adamax(Optimizer):
+    """reference: AdamaxParameterOptimizer (adamaxApply)."""
+
+    def __init__(self, beta1=0.9, beta2=0.999, **kw):
+        super().__init__(**kw)
+        self.b1, self.b2 = beta1, beta2
+
+    def slots(self, p):
+        return {"momentum": torch.zeros_like(p), "u": torch.zeros_like(p)}
+
+    def step_terms(self, t):
+        """The bias correction 1 - b1^t, float32 on the device."""
+        return 1 - torch.pow(self.b1, t)
+
+    def leaf_update(self, p, g, s, lr, terms):
+        m, u = s["momentum"], s["u"]
+        m.mul_(self.b1).add_((1 - self.b1) * g)
+        torch.maximum(self.b2 * u, torch.abs(g), out=u)
+        p.sub_(lr / terms * m / (u + 1e-12))
+
+
+class Ftrl(Optimizer):
+    """reference: fluid ftrl_op (``l1``, ``l2`` and ``lr_power`` are the
+    rule's own, not the regularizer's)."""
+
+    def __init__(self, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(**kw)
+        self.ftrl_l1, self.ftrl_l2, self.lr_power = l1, l2, lr_power
+
+    def slots(self, p):
+        return {"squared": torch.zeros_like(p),
+                "linear": torch.zeros_like(p)}
+
+    def leaf_update(self, p, g, s, lr, terms):
+        sq, lin = s["squared"], s["linear"]
+        new_sq = sq + torch.square(g)
+        sigma = (torch.pow(new_sq, -self.lr_power)
+                 - torch.pow(sq + 1e-12, -self.lr_power)) / lr
+        lin.add_(g - sigma * p)
+        quad = torch.pow(new_sq, -self.lr_power) / lr + 2 * self.ftrl_l2
+        pre = torch.clamp(lin, -self.ftrl_l1, self.ftrl_l1) - lin
+        p.copy_(pre / quad)
+        sq.copy_(new_sq)
+
+
 class L2Regularization:
     """reference: settings(regularization=L2Regularization(rate))."""
 
@@ -226,6 +387,53 @@ class L1Regularization:
         self.l2 = 0.0
 
 
+class ModelAverage:
+    """reference: AverageOptimizer / ModelAverage(average_window).  The
+    averaged weights live in the optimizer state (``avg``, ``avg_n``)."""
+
+    def __init__(self, average_window: float = 0.0,
+                 max_average_window: int = 0):
+        self.average_window = average_window
+        self.max_average_window = max_average_window
+
+
+# ------------------------------------------------------------------ legacy
+# trainer_config_helpers/optimizers.py class names and settings()
+
 MomentumOptimizer = Momentum
 AdamOptimizer = Adam
+AdamaxOptimizer = Adamax
+AdaGradOptimizer = Adagrad
+DecayedAdaGradOptimizer = DecayedAdagrad
+AdaDeltaOptimizer = AdaDelta
+RMSPropOptimizer = RMSProp
 BaseSGDOptimizer = Optimizer
+BaseRegularization = L2Regularization
+
+
+def settings(batch_size=None, learning_rate=None, learning_rate_decay_a=0.0,
+             learning_rate_decay_b=0.0, learning_rate_schedule=None,
+             learning_method=None, regularization=None, is_async=False,
+             model_average=None, gradient_clipping_threshold=None):
+    """The legacy config entry (reference: trainer_config_helpers
+    settings()): returns the configured Optimizer, to hand to
+    ``trainer.SGD``.  ``batch_size`` is taken for the signature's sake and
+    sets nothing: the port's trainer batches as its reader does, and no
+    command of the port reads a configured batch size."""
+    opt = learning_method or Momentum(
+        learning_rate=learning_rate if learning_rate is not None else 1e-3)
+    if learning_rate is not None:
+        opt.hp["learning_rate"] = learning_rate
+    if learning_rate_schedule:
+        opt.hp.update(learning_rate_schedule=learning_rate_schedule,
+                      learning_rate_decay_a=learning_rate_decay_a,
+                      learning_rate_decay_b=learning_rate_decay_b)
+    opt.lr_fn = _lr_schedule(opt.hp)
+    if regularization is not None:
+        opt.l1 = getattr(regularization, "l1", 0.0)
+        opt.l2 = getattr(regularization, "l2", 0.0)
+    if gradient_clipping_threshold:
+        opt.global_clip = gradient_clipping_threshold
+    if model_average is not None:
+        opt.model_average = model_average
+    return opt

@@ -13,6 +13,10 @@ JAX package's eligibility sets, run under
 backward recomputes their activations from their inputs instead of
 keeping them.
 
+Layers that draw random numbers (dropout, NCE) draw them from the
+``generator`` given to ``forward``, which must lie on the forward's
+device; the trainer passes its own.
+
 Not ported yet, and refused: sparse (ids + values) inputs, nested
 sequences, SelectedRows and gradient probes, mesh placement, evaluators
 and ``prepare_forward``.
@@ -51,9 +55,9 @@ def _layer_error_context(spec, in_vals):
 
 
 # cost kinds whose seq-folded form receives the flattened mask as the
-# per-sample weight input (token-level losses over padded sequences; the
-# JAX package lists more, not ported yet)
-_MASK_WEIGHT_COSTS = {"classification_cost"}
+# per-sample weight input (token-level losses over padded sequences)
+_MASK_WEIGHT_COSTS = {"classification_cost", "cross_entropy", "mse_cost",
+                      "lm_head_cost"}
 
 # the JAX package's remat eligibility (paddle_tpu/topology.py), copied.
 # Layers whose apply uses side channels that must not replay under a
@@ -151,11 +155,13 @@ class Topology:
                 if spec.attrs.get("sparse_kind"):
                     raise NotImplementedError(
                         f"data layer {spec.name!r}: sparse inputs are not "
-                        f"ported to paddle_tpu_torch yet")
+                        f"ported to paddle_tpu_torch yet (ROADMAP.md "
+                        f"section 1, item 4)")
                 if spec.attrs.get("seq_type", 0) == 2:
                     raise NotImplementedError(
                         f"data layer {spec.name!r}: nested sequences are "
-                        f"not ported to paddle_tpu_torch yet")
+                        f"not ported to paddle_tpu_torch yet (ROADMAP.md "
+                        f"section 1, item 9)")
                 seq = spec.attrs.get("seq_type", 0) != 0
                 shape = tuple(spec.attrs["shape"])
                 if seq:
@@ -383,7 +389,8 @@ class Topology:
                 else:
                     out = ldef.apply_seq(spec.attrs, lparams, in_vals,
                                          in_masks, ctx)
-                masks[spec.name] = in_masks[0] if ldef.out_is_seq else None
+                masks[spec.name] = self._seq_out_mask(spec.name, ldef,
+                                                      in_masks, ctx)
             elif any(in_seq):
                 out, masks[spec.name] = self._apply_folded(
                     ldef, spec, lparams, in_vals, in_masks, in_seq, ctx)
@@ -397,6 +404,23 @@ class Topology:
                     out = ldef.apply(spec.attrs, lparams, in_vals, ctx)
                 masks[spec.name] = None
         values[spec.name] = out
+
+    @staticmethod
+    def _seq_out_mask(name, ldef, in_masks, ctx):
+        """A sequence layer's output mask: the one it wrote to
+        ``__mask__`` (taken out of the running state), else the mask of
+        the input its ``mask_from()`` names (the first by default), or
+        None for a layer whose output is not a sequence."""
+        written = ctx.state_out.get(name, {})
+        new_mask = written.pop("__mask__", None)
+        if name in ctx.state_out and not written:
+            del ctx.state_out[name]
+        if new_mask is not None:
+            return new_mask
+        if ldef.out_is_seq:
+            src = ldef.mask_from() if hasattr(ldef, "mask_from") else 0
+            return in_masks[src]
+        return None
 
     @staticmethod
     def _recomputed(spec, fn, in_vals, ctx):

@@ -134,7 +134,9 @@ class SGD:
         self._trainable, self._frozen = params_mod.partition(
             parameters.values, self._mask)
         self._opt_state = self.optimizer.init_state(self._trainable)
-        self._generator = torch.Generator().manual_seed(
+        # the forward's random stream (dropout, NCE), on the trainer's
+        # device; a captured chunk registers it with its graph
+        self._generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.get_option("seed", 0)) + 17)
         # the prepared k-step chunks (train(steps_per_dispatch=k))
         self._chunks = prepared.PreparedFamily(self.device)
@@ -158,9 +160,7 @@ class SGD:
         loss-scale state and the running state."""
         o = self._opt_state
         out = [p for _, _, p in self._leaves()]
-        out += [s for ps in o["slots"].values() for ss in ps.values()
-                for s in ss.values()]
-        out.append(o["t"])
+        out += self.optimizer.state_tensors(o)
         out += list(o.get("loss_scale", {}).values())
         out += [v for ks in self.model_state.values() for v in ks.values()]
         return out
@@ -333,7 +333,7 @@ class SGD:
         """The prepared chunk of k steps for these stacked feeds."""
         self._sync_precision_policy()
         return self._chunks.get("train_chunk", k, feeds, self._step,
-                                self._state_tensors)
+                                self._state_tensors, self._generator)
 
     def release_chunks(self) -> None:
         """Free every prepared chunk (on the card: the graphs and their
@@ -355,7 +355,8 @@ class SGD:
                 self._sync_precision_policy()
                 entry = prepared.chunk_entry(self._step, k, feeds,
                                              self._state_tensors(),
-                                             self.device)
+                                             self.device,
+                                             generator=self._generator)
             return entry(feeds)
 
         multi.release = lambda: entry is not None and entry.release()

@@ -62,10 +62,14 @@ def _loaded_after(code: str) -> list:
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Nor does the golden-config helper it loads from tests/."""
     path = os.path.join(REPO, "chip_smoke.py")
     assert not _forbidden_imports(path)
+    assert not _forbidden_imports(
+        os.path.join(REPO, "tests", "torch_layer_configs.py"))
     loaded = _loaded_after("import chip_smoke\n"
-                           "chip_smoke.flash_bwd_phase, chip_smoke.train_path")
+                           "chip_smoke.flash_bwd_phase, chip_smoke.train_path"
+                           "\nassert chip_smoke._layer_configs().CONFIGS")
     assert "chip_smoke" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 

@@ -220,8 +220,9 @@ def test_cli_trains_the_nmt_config_on_the_cpu(tmp_path, capsys,
 
 # ------------------------------------------------------ what is refused
 def test_unported_recurrent_paths_raise(monkeypatch):
-    """Generation, nested sequences, the unfused attention composite and
-    group remat raise NotImplementedError naming the ROADMAP."""
+    """Generation, nested sequences and group remat raise
+    NotImplementedError naming the ROADMAP (the unfused attention
+    composite, once refused here, now builds)."""
     reset_port_names()
     pt.init(seed=0, device="cpu")
     layer = pt.layer
@@ -235,8 +236,10 @@ def test_unported_recurrent_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layer.beam_search(lambda w: w, [], bos_id=0, eos_id=1)
     st = layer.data("st", pt.data_type.dense_vector(4))
-    with pytest.raises(NotImplementedError, match="pooling"):
-        pt.networks.simple_attention(x, x, st, fused=False)
+    # the unfused attention composite is ported: it builds, under the
+    # composite's names
+    att = pt.networks.simple_attention(x, x, st, fused=False, name="att")
+    assert att.kind == "seq_pool" and att.name == "att_context"
 
     def step(ipt):
         mem = layer.memory(name="s", size=2)

@@ -10,6 +10,7 @@ sums taken in another order), 1e-6 for one optimizer update, 1e-5
 relative for a 3-step loss trajectory.
 """
 
+import functools
 import io
 import os
 
@@ -19,6 +20,7 @@ import torch
 
 import paddle_tpu as pj
 import paddle_tpu_torch as pt
+import torch_layer_configs as layer_configs
 from paddle_tpu.core.ir import reset_name_counters as reset_jax_names
 from paddle_tpu.models import transformer as jt
 from paddle_tpu_torch.core import config as tconfig
@@ -97,9 +99,12 @@ def _fc_variants(paddle):
     return layer.sum_cost(f2)
 
 
-# the goldens whose configs use only ported layers (sum_cost landed with
-# the NMT slice; attention_transformer needs pooling, a later slice)
-GOLDEN_CONFIGS = {"mnist_mlp": _mnist_mlp, "fc_variants": _fc_variants}
+# the goldens whose configs use only ported layers: the two above and
+# those of tests/torch_layer_configs.py (the v2 costs, sequence layers,
+# mixed and the fused-head LM, given the port's LM builder)
+GOLDEN_CONFIGS = {"mnist_mlp": _mnist_mlp, "fc_variants": _fc_variants,
+                  **{name: functools.partial(fn, transformer=tt)
+                     for name, fn in layer_configs.CONFIGS.items()}}
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_CONFIGS))
@@ -377,8 +382,6 @@ def test_unported_options_raise_rather_than_fall_through(monkeypatch):
     # the precision policy is ported: only a name it does not know raises
     with pytest.raises(ValueError, match="unknown precision"):
         pt.init(precision="int8")
-    with pytest.raises(NotImplementedError, match="fused_head"):
-        tt.build(fused_head=True)
     with pytest.raises(NotImplementedError, match="context_parallel"):
         tt.build(context_parallel=True)
     with pytest.raises(NotImplementedError, match="mesh"):
