@@ -246,16 +246,29 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    forward and backward on the card against the CPU; each new optimizer
    in a captured 2-step chunk against its eager steps bit for bit; dropout
    and NCE drawing anew at each replay;
-16. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, fp16 policy, dispatch, v2, sweep, ResNet and ResNet-under-bf16
-   runs, the card line again,
+16. the sparse slice (``sparse_slice``): the wide-and-deep CTR model
+   (``models/ctr.py``) at (10 M, 10 M, 1 M) x 16 with every table
+   ``sparse_update``, batch 4096 of Zipf ids, Adam 1e-3, 8 steps, AUC
+   declared (``ctr_path``): 2 SGD steps against the dense twin's (touched
+   rows within 1e-6, every other row bit for bit its start); the touched
+   rows and moments of an eager Adam run against a float64 replay of lazy
+   Adam (1e-6 x max(1, max |ref|)), the other rows and slots bit for bit
+   their start; a second eager run bit for bit the first; 2 replays of a
+   4-step graph bit for bit the eager run, the AUC equal; the eager
+   step's peak memory above the parameters and slots under a quarter of a
+   640 MB table; the step times, the idle share, and the dense twin's
+   step time, peak and AUC beside them; then the README quickstart on
+   the card against the CPU (costs within 1e-4, ``infer`` within 1e-5);
+17. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, dispatch, v2, sparse, sweep, ResNet and
+   ResNet-under-bf16 runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
-phases (``dispatch`` or ``v2``, or a part of either: DISPATCH_PHASES,
-V2_PHASES) and prints their JSON: a development run; the full run takes
-no arguments.
+phases (``dispatch``, ``v2`` or ``sparse``, or a part of one:
+DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
+development run; the full run takes no arguments.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The tokens/s, time-to-first-token and training step times it
@@ -1665,16 +1678,16 @@ def step_breakdown(trainer, feed, attn_ms, dtype=torch.float32):
     ls = trainer._opt_state.get("loss_scale")
     torch.cuda.synchronize()
     ev[0].record()
-    loss, grads, found, _ = trainer._grads(
-        feed, None if ls is None else ls["scale"])
+    g = trainer._grads(feed, None if ls is None else ls["scale"])
     ev[1].record()
     trainer.optimizer.update(
-        trainer._trainable, grads, trainer._opt_state,
+        trainer._trainable, g.grads, trainer._opt_state,
         trainer.parameters.meta,
-        finite=None if ls is None else torch.isfinite(loss) & (found[0] == 0))
+        finite=None if ls is None else (torch.isfinite(g.loss)
+                                        & (g.found[0] == 0)))
     ev[2].record()
     torch.cuda.synchronize()
-    del grads
+    del g
     fb_ms, upd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     n = TRAIN_BATCH * MAX_LEN
     logits = torch.randn(n, VOCAB, device=dev, generator=gen).to(
@@ -5672,23 +5685,427 @@ def v2_slice(dev, gen, flush):
     return out
 
 
+# ------------------------------------------------------ the sparse slice
+# phase 16: the wide-and-deep CTR model (models/ctr.py) at 21 M embedding
+# rows on the SelectedRows path beside its dense twin, and the README
+# quickstart on the card
+CTR_VOCABS = (10_000_000, 10_000_000, 1_000_000)
+CTR_EMB, CTR_DEEP = 16, (64, 32)
+CTR_BATCH, CTR_STEPS, CTR_K, CTR_LR = 4096, 8, 4, 1e-3
+# the ids: numpy's Zipf(1.2) folded into each vocabulary, so a batch
+# repeats its hot ids as click logs do
+CTR_ZIPF = 1.2
+CTR_SGD_LR = 0.1
+# one 10 M x 16 float32 table, 640 MB: the sparse step's peak above its
+# parameters and slots stays under a quarter of it (the JAX package's
+# bound, tests/test_sparse_embedding.py)
+CTR_TABLE_BYTES = CTR_VOCABS[0] * CTR_EMB * 4
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def ctr_batches(n, seed=SEED) -> list:
+    """``n`` seeded batches of ``CTR_BATCH``: Zipf ids a field and clicks
+    drawn with the sigmoid of a fixed score of the ids (a hash of each
+    id to [-0.5, 0.5) a field, summed, times 4), which a model can learn
+    for the ids it sees again."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        feed = {f"f{i}": ((rng.zipf(CTR_ZIPF, CTR_BATCH) - 1) % v).astype(
+            np.int32) for i, v in enumerate(CTR_VOCABS)}
+        score = sum(feed[f"f{i}"].astype(np.int64) * 2654435761 % 1000
+                    / 1000.0 - 0.5 for i in range(len(CTR_VOCABS)))
+        feed["click"] = (rng.rand(CTR_BATCH)
+                         < 1.0 / (1.0 + np.exp(-4.0 * score))).astype(
+                             np.int32)
+        out.append(feed)
+    return out
+
+
+def ctr_model(paddle, sparse):
+    """``ctr.build`` at full width with ``auc(input=ctr_prob,
+    label=click)`` declared on it."""
+    from paddle_tpu_torch.models import ctr
+    _fresh(paddle)
+    cost, prob = ctr.build(field_vocab_sizes=CTR_VOCABS, emb_dim=CTR_EMB,
+                           deep_layers=CTR_DEEP, sparse_update=sparse)
+    paddle.evaluator.auc(input=prob, label=cost.parents[1], name="auc")
+    return paddle.Topology(cost)
+
+
+CTR_TABLES = tuple((f"{kind}{i}", i) for kind in ("wide", "emb")
+                   for i in range(len(CTR_VOCABS)))
+
+
+def _ctr_trainer(paddle, topo, start, opt):
+    """A trainer of ``topo`` on a copy of the ``start`` weights."""
+    sparse = bool(topo.sparse_embeddings())
+    params = paddle.parameters.Parameters(
+        {l: {p: t.clone() for p, t in ps.items()}
+         for l, ps in start.values.items()},
+        {l: {p: dict(m, sparse_update=sparse and p == "w")
+             for p, m in ps.items()} for l, ps in start.meta.items()})
+    return paddle.trainer.SGD(topo, params, opt)
+
+
+def _touched(feeds, field) -> torch.Tensor:
+    return torch.as_tensor(np.unique(np.concatenate(
+        [f[f"f{field}"] for f in feeds])), device="cuda").long()
+
+
+def _only_touched_moved(name, tensors, start_w, ids):
+    """Raise unless every row that moved in ``tensors`` (a table, or its
+    slots, which start at zero) is among ``ids``."""
+    mask = torch.zeros(start_w.shape[0], dtype=torch.bool, device="cuda")
+    mask[ids] = True
+    w, *slots = tensors
+    moved = (w != start_w).any(1)
+    for s in slots:
+        moved |= (s != 0).any(1)
+    stray = int((moved & ~mask).sum())
+    if stray:
+        raise AssertionError(f"{name}: {stray} rows outside the batch's ids "
+                             f"moved")
+
+
+def ctr_sgd_check(paddle, topo_s, topo_d, start, feeds):
+    """Two SGD steps of the sparse model and of its dense twin from the
+    same weights: each table's touched rows within 1e-6 of the dense
+    update's, the rows no batch touched bit for bit their start, the
+    dense layers within 1e-6."""
+    ts = _ctr_trainer(paddle, topo_s, start,
+                      paddle.optimizer.SGD(learning_rate=CTR_SGD_LR))
+    td = _ctr_trainer(paddle, topo_d, start,
+                      paddle.optimizer.SGD(learning_rate=CTR_SGD_LR))
+    for feed in feeds[:2]:
+        ts._step(feed)
+        td._step(feed)
+    torch.cuda.synchronize()
+    worst, rows = 0.0, 0
+    for name, field in CTR_TABLES:
+        ids = _touched(feeds[:2], field)
+        ws, wd = ts._trainable[name]["w"], td._trainable[name]["w"]
+        worst = max(worst, (ws[ids] - wd[ids]).abs().max().item())
+        _only_touched_moved(f"sparse SGD {name}", [ws],
+                            start.values[name]["w"], ids)
+        rows += ids.numel()
+    dense = max((ts._trainable[l][p] - td._trainable[l][p]).abs().max()
+                .item() for l, ps in ts._trainable.items() for p in ps
+                if (l, p) not in ts._sparse_keys)
+    if not (worst <= 1e-6 and dense <= 1e-6):
+        raise AssertionError(f"CTR sparse SGD against dense SGD: touched rows "
+                             f"off by {worst}, dense layers by {dense} "
+                             f"(limit 1e-6)")
+    print(f"CTR at {sum(CTR_VOCABS):,} rows: 2 SGD steps (lr {CTR_SGD_LR}) "
+          f"sparse against dense: {rows} touched rows within {worst:.2e} "
+          f"(limit 1e-6), the dense layers within {dense:.2e}, every other "
+          f"row bit for bit its start", flush=True)
+    del ts, td
+    torch.cuda.empty_cache()
+    return {"touched_rows": rows, "row_err": worst, "dense_err": dense}
+
+
+def _ctr_run(paddle, trainer, feeds, k=None) -> dict:
+    """``trainer.train`` over ``feeds`` (one pass): the losses, the pass's
+    AUC, and for eager steps each step's host time and its peak memory
+    above what was allocated when it began (the parameters and slots
+    among it); the median of the steps after the first."""
+    out = {"losses": [], "ms": [], "peak": []}
+    marks = {}
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration) and k is None:
+            torch.cuda.synchronize()
+            marks[e.batch_id] = (time.perf_counter(),
+                                 torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        elif isinstance(e, paddle.event.EndIteration):
+            out["losses"].append(e.cost)
+            if k is None:
+                torch.cuda.synchronize()
+                t0, base = marks[e.batch_id]
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["peak"].append(torch.cuda.max_memory_allocated() - base)
+        elif isinstance(e, paddle.event.EndPass):
+            out["auc"] = e.metrics["auc"]
+
+    trainer.train(lambda: iter(feeds), event_handler=handler,
+                  steps_per_dispatch=k)
+    if k is None:
+        later = sorted(out["ms"][1:])
+        out["step_ms"] = later[len(later) // 2]
+        out["peak_above_gb"] = max(out["peak"][1:]) / 1e9
+    return out
+
+
+def _lazy_adam_f64(start, record, name):
+    """Lazy Adam in float64 on the host over the rows of table ``name``
+    that ``record`` (each step's SelectedRows gradients) touched: (ids,
+    parameter rows, first and second moments)."""
+    ids_all = np.unique(np.concatenate([r[name][0] for r in record]))
+    w = start.values[name]["w"][torch.as_tensor(ids_all, device="cuda")]
+    p = w.double().cpu().numpy()
+    m, v = np.zeros_like(p), np.zeros_like(p)
+    for t, r in enumerate(record, 1):
+        ids, rows = r[name]
+        pos = np.searchsorted(ids_all, ids)
+        g = np.zeros_like(p)
+        np.add.at(g, pos, rows)
+        hit = np.unique(pos)
+        m[hit] = ADAM_B1 * m[hit] + (1 - ADAM_B1) * g[hit]
+        v[hit] = ADAM_B2 * v[hit] + (1 - ADAM_B2) * g[hit] ** 2
+        mhat = m[hit] / (1 - ADAM_B1 ** t)
+        vhat = v[hit] / (1 - ADAM_B2 ** t)
+        p[hit] -= CTR_LR * mhat / (np.sqrt(vhat) + ADAM_EPS)
+    return ids_all, p, m, v
+
+
+def ctr_path():
+    """Phase 16: ``ctr.build(field_vocab_sizes=(10 M, 10 M, 1 M),
+    emb_dim=16, deep_layers=(64, 32), sparse_update=True)``, 21 M
+    embedding rows, trained by ``SGD.train`` with Adam 1e-3 at batch 4096
+    on CTR_STEPS seeded batches, AUC at the end of the pass:
+
+    - sparse SGD against dense SGD (``ctr_sgd_check``);
+    - an eager run whose SelectedRows gradients are recorded: its touched
+      rows and their moments against a float64 replay of lazy Adam on
+      them (1e-6 x max(1, max |ref|)), every other row and its slots bit
+      for bit its start;
+    - a second eager run, bit for bit the first (the fixed segment
+      order), its step time and peak memory above the parameters and
+      slots (under a quarter of a 640 MB table);
+    - the same batches as 2 replays of a ``steps_per_dispatch=4`` chunk:
+      the 8 losses, every parameter and slot and the AUC bit for bit the
+      eager run's, one capture;
+    - the dense twin (``sparse_update=False``) over the same batches:
+      its step time, peak above its parameters and slots and AUC, smoke
+      figures beside the sparse ones."""
+    import paddle_tpu_torch as paddle
+
+    feeds = ctr_batches(CTR_STEPS)
+    repeats = [1 - len(np.unique(f[f"f{i}"])) / CTR_BATCH
+               for f in feeds for i in range(len(CTR_VOCABS))]
+    if min(repeats) < 0.25:
+        raise AssertionError(f"CTR batches: repeated lookups {min(repeats)} "
+                             f"of a field's batch, under a quarter")
+    topo_s = ctr_model(paddle, True)
+    if len(topo_s.sparse_embeddings()) != len(CTR_TABLES):
+        raise AssertionError("CTR: not every table is sparse_update")
+    start = topo_s.create_parameters(device="cuda")
+    topo_d = ctr_model(paddle, False)
+    n_params = sum(t.numel() for ps in start.values.values()
+                   for t in ps.values())
+    sgd = ctr_sgd_check(paddle, topo_s, topo_d, start, feeds)
+    adam = lambda: paddle.optimizer.Adam(learning_rate=CTR_LR)  # noqa: E731
+
+    # the recorded eager run and the float64 replay of its updates
+    ta = _ctr_trainer(paddle, topo_s, start, adam())
+    record = []
+    update = ta.optimizer.update
+
+    def recorded(params, grads, state, meta=None, sparse_grads=None,
+                 finite=None):
+        record.append({l: (ids.reshape(-1).cpu().numpy(),
+                           rows.double().cpu().numpy())
+                       for (l, _), (ids, rows) in sparse_grads.items()})
+        return update(params, grads, state, meta, sparse_grads=sparse_grads,
+                      finite=finite)
+
+    ta.optimizer.update = recorded
+    run_a = _ctr_run(paddle, ta, feeds)
+    del ta.optimizer.update
+    replay = {"row_err": 0.0, "slot_err": 0.0, "rows": 0}
+    slots_a = ta._opt_state["slots"]
+    for name, _ in CTR_TABLES:
+        ids, p, m, v = _lazy_adam_f64(start, record, name)
+        idx = torch.as_tensor(ids, device="cuda")
+        w = ta._trainable[name]["w"]
+        sl = slots_a[name]["w"]
+        got = [w[idx], sl["momentum"][idx], sl["second_momentum"][idx]]
+        errs = [np.abs(g.double().cpu().numpy() - r).max()
+                / max(1.0, np.abs(r).max()) for g, r in zip(got, (p, m, v))]
+        replay["row_err"] = max(replay["row_err"], errs[0])
+        replay["slot_err"] = max(replay["slot_err"], *errs[1:])
+        replay["rows"] += len(ids)
+        _only_touched_moved(f"sparse Adam {name}",
+                            [w, sl["momentum"], sl["second_momentum"]],
+                            start.values[name]["w"], idx)
+    if not max(replay["row_err"], replay["slot_err"]) <= 1e-6:
+        raise AssertionError(f"CTR sparse Adam against its float64 replay: "
+                             f"{replay} (limit 1e-6 x max(1, max |ref|))")
+
+    # the second eager run: bit for bit the first; its time and memory
+    tb = _ctr_trainer(paddle, topo_s, start, adam())
+    run_b = _ctr_run(paddle, tb, feeds)
+    same_ab, worst_ab = _trainers_equal(ta, tb)
+    if run_a["losses"] != run_b["losses"] or not same_ab:
+        raise AssertionError(f"CTR: two eager runs differ (losses "
+                             f"{run_a['losses']} vs {run_b['losses']}, "
+                             f"largest state difference {worst_ab})")
+    del ta
+    torch.cuda.empty_cache()
+    if not run_b["peak_above_gb"] * 1e9 < CTR_TABLE_BYTES / 4:
+        raise AssertionError(f"CTR sparse step peak {run_b['peak_above_gb']}"
+                             f" GB above its parameters and slots, not under"
+                             f" a quarter of a {CTR_TABLE_BYTES / 1e9} GB "
+                             f"table")
+
+    # the chunk: 2 replays of 4 steps from the same start
+    tc = _ctr_trainer(paddle, topo_s, start, adam())
+    run_c = _ctr_run(paddle, tc, feeds, k=CTR_K)
+    same_bc, worst_bc = _trainers_equal(tb, tc)
+    if (run_c["losses"] != run_b["losses"] or not same_bc
+            or run_c["auc"] != run_b["auc"] or tc.step_capture_count != 1):
+        raise AssertionError(f"CTR: the {CTR_K}-step chunk is not the eager "
+                             f"run bit for bit: losses {run_c['losses']} vs "
+                             f"{run_b['losses']}, AUC {run_c['auc']} vs "
+                             f"{run_b['auc']}, largest state difference "
+                             f"{worst_bc}, captures "
+                             f"{tc.step_capture_count}")
+    tc.release_chunks()
+    del tc
+    torch.cuda.empty_cache()
+    dt, n = tb.timed_multi_dispatch(feeds[0], CTR_K, iters=3, warmup=1)
+    chunk_ms = dt / n * 1e3
+    test_auc = tb.test(lambda: iter(feeds)).metrics["auc"]
+    prof = profile_step(tb, feeds[0])
+    if not (run_b["auc"] > 0.5 and all(np.isfinite(run_b["losses"]))):
+        raise AssertionError(f"CTR: AUC {run_b['auc']} over the pass, losses "
+                             f"{run_b['losses']}")
+    del tb
+    torch.cuda.empty_cache()
+
+    # the dense twin
+    td = _ctr_trainer(paddle, topo_d, start, adam())
+    run_d = _ctr_run(paddle, td, feeds)
+    del td, start
+    torch.cuda.empty_cache()
+    print(f"CTR model {CTR_VOCABS} x {CTR_EMB} (+ width-1 wide tables), deep "
+          f"{CTR_DEEP}, {n_params:,} parameters, batch {CTR_BATCH}, Adam "
+          f"{CTR_LR}, {CTR_STEPS} steps: repeated lookups a field's batch "
+          f"{min(repeats):.1%} to {max(repeats):.1%}; sparse losses "
+          f"{[round(x, 5) for x in run_b['losses']]}, AUC over the pass "
+          f"{run_b['auc']:.4f} (after it {test_auc:.4f}); lazy Adam against "
+          f"float64 on {replay['rows']} touched rows: rows "
+          f"{replay['row_err']:.2e}, moments {replay['slot_err']:.2e} of "
+          f"max(1, max |ref|) (limit 1e-6), every other row and slot bit for "
+          f"bit its start; two eager runs bit-equal; {CTR_STEPS // CTR_K} "
+          f"replays of a {CTR_K}-step graph bit for bit the eager run, AUC "
+          f"equal; sparse step {run_b['step_ms']:.2f} ms eager, "
+          f"{chunk_ms:.2f} ms a step in the graph, peak above parameters and "
+          f"slots {run_b['peak_above_gb'] * 1e3:.1f} MB (limit "
+          f"{CTR_TABLE_BYTES / 4e6:.0f}), one eager step: {_idle(prof)}; "
+          f"dense twin: step {run_d['step_ms']:.2f} ms, peak above "
+          f"parameters and slots {run_d['peak_above_gb']:.3f} GB, AUC "
+          f"{run_d['auc']:.4f}, first loss {run_d['losses'][0]:.6f} "
+          f"(sparse {run_b['losses'][0]:.6f}); {card_line()}", flush=True)
+    return {"params": n_params, "batch": CTR_BATCH, "steps": CTR_STEPS,
+            "repeat_share": [min(repeats), max(repeats)], "sgd": sgd,
+            "adam_replay": replay, "losses": run_b["losses"],
+            "auc": run_b["auc"], "auc_after_pass": test_auc,
+            "step_ms": run_b["step_ms"], "step_ms_all": run_b["ms"],
+            "chunk_ms": chunk_ms, "chunk_bit_equal": True,
+            "peak_above_gb": run_b["peak_above_gb"],
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"],
+            "profiled_step_ms": prof["step_ms"],
+            "dense": {"step_ms": run_d["step_ms"],
+                      "peak_above_gb": run_d["peak_above_gb"],
+                      "auc": run_d["auc"], "losses": run_d["losses"]}}
+
+
+def quickstart_on_card():
+    """The README quickstart as written, with ``paddle_tpu_torch``: 3
+    passes of synthetic MNIST with Momentum(0.1, 0.9), then
+    ``paddle.infer`` on ``mnist.test()``, on the CPU and on the card from
+    the same seeded weights: the 384 batch costs within 1e-4, the
+    probabilities within 1e-5."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import layer
+    from paddle_tpu_torch.core.ir import reset_name_counters
+
+    test = [(x,) for x, _ in paddle.dataset.mnist.test(synthetic=True)()]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        reset_name_counters()
+        paddle.init(seed=0, device=dev)
+        img = layer.data("image", paddle.data_type.dense_vector(784))
+        lbl = layer.data("label", paddle.data_type.integer_value(10))
+        pred = layer.fc(layer.fc(img, size=128, act="relu"), size=10,
+                        act="softmax")
+        cost = layer.classification_cost(pred, lbl)
+
+        topo = paddle.Topology(cost)
+        params = paddle.parameters.create(topo)
+        trainer = paddle.trainer.SGD(
+            topo, params, paddle.optimizer.Momentum(learning_rate=0.1,
+                                                    momentum=0.9))
+        reader = paddle.batch(paddle.dataset.mnist.train(synthetic=True), 64)
+        costs = []
+        t0 = time.perf_counter()
+        trainer.train(reader, num_passes=3, event_handler=lambda e: (
+            costs.append(e.cost) if isinstance(e, paddle.event.EndIteration)
+            else None))
+        seconds = time.perf_counter() - t0
+        prob = paddle.infer(output_layer=pred, parameters=params, input=test)
+        runs[dev] = (np.asarray(costs), prob, seconds)
+    cost_err = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+    prob_err = float(np.abs(runs["cuda"][1] - runs["cpu"][1]).max())
+    if not (len(runs["cuda"][0]) == 384 and cost_err <= 1e-4
+            and prob_err <= 1e-5):
+        raise AssertionError(f"the quickstart on the card against the CPU: "
+                             f"{len(runs['cuda'][0])} costs within "
+                             f"{cost_err} (limit 1e-4), infer within "
+                             f"{prob_err} (limit 1e-5)")
+    labels = np.asarray([y for _, y in
+                         paddle.dataset.mnist.test(synthetic=True)()])
+    acc = float((runs["cuda"][1].argmax(1) == labels).mean())
+    print(f"README quickstart on the card: 3 passes, 384 batches, cost "
+          f"{runs['cuda'][0][0]:.4f} to {runs['cuda'][0][-1]:.4f} in "
+          f"{runs['cuda'][2]:.1f} s ({runs['cpu'][2]:.1f} s on the CPU), "
+          f"within {cost_err:.2e} of the CPU run (limit 1e-4); infer on "
+          f"mnist.test() within {prob_err:.2e} (limit 1e-5), accuracy "
+          f"{acc:.3f}", flush=True)
+    return {"cost_err": cost_err, "infer_err": prob_err,
+            "first_cost": float(runs["cuda"][0][0]),
+            "last_cost": float(runs["cuda"][0][-1]),
+            "card_s": runs["cuda"][2], "cpu_s": runs["cpu"][2],
+            "test_accuracy": acc}
+
+
+CTR_PHASES = {
+    "ctr": ctr_path,
+    "quickstart": quickstart_on_card,
+}
+
+
+def sparse_slice():
+    """Phase 16: the CTR model and the quickstart; each releases its
+    memory before the next."""
+    out = {}
+    for name, phase in CTR_PHASES.items():
+        out[name] = phase()
+        torch.cuda.empty_cache()
+    return out
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
-    ``dispatch`` or ``v2`` for phase 14 or 15 whole, or any part of
-    either (DISPATCH_PHASES, V2_PHASES), for a development run; the full
-    run takes no arguments."""
+    ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
+    any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), for a
+    development run; the full run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
-    groups = {"dispatch": list(DISPATCH_PHASES), "v2": list(V2_PHASES)}
+    groups = {"dispatch": list(DISPATCH_PHASES), "v2": list(V2_PHASES),
+              "sparse": list(CTR_PHASES)}
     names = [n for a in only for g in a.split(",")
              for n in groups.get(g, [g])]
-    unknown = [n for n in names
-               if n not in DISPATCH_PHASES and n not in V2_PHASES]
+    unknown = [n for n in names if n not in DISPATCH_PHASES
+               and n not in V2_PHASES and n not in CTR_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
-                         f" + {sorted(V2_PHASES)}")
+                         f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}")
     return names
 
 
@@ -5727,8 +6144,10 @@ def main(argv=()) -> int:
         out = {}
         for name in only:
             phase = V2_PHASES.get(name)
-            out[name] = (DISPATCH_PHASES[name]() if phase is None
-                         else phase(dev, gen, flush))
+            if phase is not None:
+                out[name] = phase(dev, gen, flush)
+            else:
+                out[name] = {**DISPATCH_PHASES, **CTR_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -5780,6 +6199,7 @@ def main(argv=()) -> int:
     v2 = v2_slice(dev, gen, flush)
     del flush
     torch.cuda.empty_cache()
+    sparse = sparse_slice()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -5995,6 +6415,7 @@ def main(argv=()) -> int:
                                           "resources")}}}), flush=True)
     print(json.dumps({"dispatch": dispatch}), flush=True)
     print(json.dumps({"v2": v2}), flush=True)
+    print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

@@ -2,7 +2,8 @@
 
 The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 module layout (``layer``, ``topology``, ``parameters``, ``optimizer``,
-``trainer``, ``ops/``, ``layers/``, ``models/``, ``serving/``, ``io/``) so
+``trainer``, ``evaluator``, ``inference``, ``dataset/``, ``ops/``,
+``layers/``, ``models/``, ``serving/``, ``io/``) so
 each module's counterpart is found by path.  Every Pallas TPU kernel on a
 ported path becomes a CUDA C++ kernel for Hopper (``ops/csrc/*.cu``),
 built with ``nvcc`` at first use.
@@ -15,7 +16,10 @@ from paddle_tpu_torch import activation
 from paddle_tpu_torch import attr
 from paddle_tpu_torch import data_feeder
 from paddle_tpu_torch import data_type
+from paddle_tpu_torch import dataset
+from paddle_tpu_torch import evaluator
 from paddle_tpu_torch import event
+from paddle_tpu_torch import inference
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import layer
 from paddle_tpu_torch import networks
@@ -26,6 +30,7 @@ from paddle_tpu_torch import reader
 from paddle_tpu_torch import topology
 from paddle_tpu_torch import trainer
 from paddle_tpu_torch.core import config as _config
+from paddle_tpu_torch.inference import infer
 from paddle_tpu_torch.reader.decorator import batched as batch
 from paddle_tpu_torch.topology import Topology
 
@@ -74,6 +79,7 @@ def init(seed: int = 0, device=None, **options):
         _config.set_option("device", device)
     _config.default_device()          # no card and no device: raise
     _config.set_seed(seed)
+    evaluator.reset_registry()
     for k, v in options.items():
         if k == "precision":
             _precision.apply_policy_name(v)

@@ -5,7 +5,11 @@ cache and its fingerprints).
 A ``PreparedFamily`` holds one entry per ``(kind, k, feed signature)``,
 the signature being the feed's names, shapes and dtypes in dict order.
 An entry runs k sequential training steps over feeds stacked on a
-leading ``[k]`` axis and returns the k losses, a float32 ``[k]`` tensor:
+leading ``[k]`` axis and returns the k losses, a float32 ``[k]`` tensor;
+a step that returns ``(loss, stats)``, ``stats`` a dict of tuples of
+tensors (the evaluators' statistics), makes the entry return ``(losses,
+stats)`` with each statistic stacked ``[k, ...]``, so the statistics of a
+captured chunk come out of its graph and nothing reads them back a step:
 
 - on the card (``CapturedChunk``) it is one ``torch.cuda.CUDAGraph`` of
   the k steps.  Before the capture, one step runs on the family's side
@@ -55,15 +59,34 @@ def _step_feed(feeds: dict, i: int) -> dict:
     return {name: v[i] for name, v in feeds.items()}
 
 
+def _stacked(results: list):
+    """The k steps' results stacked: the losses, or (losses, statistics)
+    for steps that return ``(loss, {name: (tensor, ...)})``."""
+    if not isinstance(results[0], tuple):
+        return torch.stack(results)
+    stats = {name: tuple(torch.stack([r[1][name][j] for r in results])
+                         for j in range(len(parts)))
+             for name, parts in results[0][1].items()}
+    return torch.stack([r[0] for r in results]), stats
+
+
+def _copied(out):
+    if isinstance(out, tuple):
+        losses, stats = out
+        return losses.clone(), {name: tuple(t.clone() for t in parts)
+                                for name, parts in stats.items()}
+    return out.clone()
+
+
 class EagerChunk:
     """k steps run eagerly, one after the other (the CPU's entry)."""
 
     def __init__(self, step: Callable, k: int):
         self.step, self.k = step, k
 
-    def __call__(self, feeds: dict) -> torch.Tensor:
-        return torch.stack([self.step(_step_feed(feeds, i))
-                            for i in range(self.k)])
+    def __call__(self, feeds: dict):
+        return _stacked([self.step(_step_feed(feeds, i))
+                         for i in range(self.k)])
 
     def release(self) -> None:
         self.step = None
@@ -104,7 +127,7 @@ class CapturedChunk:
                 # on its own stream meanwhile
                 with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                       capture_error_mode="thread_local"):
-                    self.losses = torch.stack(
+                    self.out = _stacked(
                         [step(_step_feed(self.static, i))
                          for i in range(k)])
             except Exception as e:
@@ -120,15 +143,15 @@ class CapturedChunk:
         for name, buf in self.static.items():
             buf.copy_(torch.as_tensor(feeds[name]))
 
-    def __call__(self, feeds: dict) -> torch.Tensor:
+    def __call__(self, feeds: dict):
         self._load(feeds)
         self.graph.replay()
         ops.add_launches(self.launches)
-        return self.losses.clone()
+        return _copied(self.out)
 
     def release(self) -> None:
         self.graph.reset()
-        self.graph = self.losses = self.static = self.arrivals = None
+        self.graph = self.out = self.static = self.arrivals = None
 
 
 def chunk_entry(step: Callable, k: int, feeds: dict,

@@ -24,7 +24,11 @@ class ApplyContext:
     running-state namespace
     (batch-norm moving mean and variance): a layer reads its own entries
     of ``state_in`` with ``get_state`` and writes new ones to ``state_out``
-    with ``set_state``; ``Topology.forward`` sets the current layer."""
+    with ``set_state``; ``Topology.forward`` sets the current layer and
+    the names of its inputs (``in_names``).  The sparse side channels:
+    ``sparse_vals`` maps a sparse data layer to its per-id values, and
+    ``sparse_probes`` a ``sparse_update`` embedding to the trainer's zero
+    probe."""
 
     def __init__(self, train: bool, generator: Optional[torch.Generator]
                  = None, device=None, compute_dtype=None):
@@ -35,6 +39,9 @@ class ApplyContext:
         self.params_tree: dict = {}   # full parameter tree (tied weights)
         self.state_in: dict = {}      # {layer_name: {key: tensor}}
         self.state_out: dict = {}
+        self.sparse_vals: dict = {}     # {sparse data layer: values}
+        self.sparse_probes: dict = {}   # {embedding layer: zero probe}
+        self.in_names: Sequence[str] = ()
         self._cur_layer: Optional[str] = None
 
     def rng(self) -> torch.Generator:

@@ -4,12 +4,18 @@ of ``paddle_tpu/data_feeder.py``).
 Sequences are padded to the data layer's max_len (or the batch max,
 rounded up to a power of two; or ``seq_pad``, the trainer's 2-D
 bucketing) and a ``<name>@len`` array is added;
-``Topology.forward`` moves the arrays to the device.  Sparse (ids + values)
-inputs are not ported yet and raise.
+``Topology.forward`` moves the arrays to the device.  A sparse input is
+packed to a fixed number of slots, its data type's ``nnz``: ``<name>@ids``
+and ``<name>@vals`` [B, nnz] (a binary sample is a list of ids, each
+valued 1; a float sample a list of (id, value) pairs; the padding slots
+hold id 0 and value 0, so they contribute nothing).  An unset ``nnz`` is
+the batch's largest sample rounded up to a power of two, with one
+warning per input; a sample longer than ``nnz`` raises.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -36,6 +42,7 @@ class DataFeeder:
         if feeding is None and topology is not None:
             feeding = {n: i for i, n in enumerate(topology.input_names)}
         self.feeding = feeding
+        self._nnz_warned: set = set()
 
     def _layer_attrs(self, name: str) -> dict:
         if self.topology is None:
@@ -84,9 +91,10 @@ class DataFeeder:
                 out[name] = arr
                 out[name + "@len"] = lens
             elif attrs.get("sparse_kind"):
-                raise NotImplementedError(
-                    f"input {name!r}: sparse inputs are not ported to "
-                    f"paddle_tpu_torch yet (ROADMAP.md section 1, item 4)")
+                ids, vals = self._pack_sparse(name, column,
+                                              attrs.get("nnz", 0))
+                out[name + "@ids"] = ids
+                out[name + "@vals"] = vals
             elif is_index:
                 out[name] = np.asarray(column, dtype=np.int32)
             else:
@@ -95,6 +103,34 @@ class DataFeeder:
                     arr = arr.reshape((len(column),) + shape)
                 out[name] = arr
         return out
+
+    def _pack_sparse(self, name: str, column: List, nnz: int):
+        """One sparse input's samples as fixed-nnz (ids, values) arrays."""
+        if not nnz:
+            # the batch's largest, bucketed: a shape that changed batch to
+            # batch would prepare a new chunk each time
+            raw = max((len(s) for s in column), default=1) or 1
+            nnz = 1 << (raw - 1).bit_length()
+            if name not in self._nnz_warned:
+                self._nnz_warned.add(name)
+                logging.getLogger("paddle_tpu_torch").warning(
+                    "sparse input %r has no nnz= declared; inferring per "
+                    "batch (bucketed to %d). Set nnz= on the data type to "
+                    "keep one shape.", name, nnz)
+        ids = np.zeros((len(column), nnz), np.int32)
+        vals = np.zeros((len(column), nnz), np.float32)
+        for r, sample in enumerate(column):
+            if len(sample) > nnz:
+                raise ValueError(
+                    f"sparse sample for {name!r} has {len(sample)} entries "
+                    f"> nnz={nnz}; raise the data type's nnz= to fit the "
+                    f"data")
+            for j, item in enumerate(sample):
+                if isinstance(item, (tuple, list)):
+                    ids[r, j], vals[r, j] = int(item[0]), item[1]
+                else:
+                    ids[r, j], vals[r, j] = int(item), 1.0
+        return ids, vals
 
     def _pad_sequences(self, column: List, is_index: bool, max_len: int,
                        sample_shape: tuple):

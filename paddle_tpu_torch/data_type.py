@@ -5,9 +5,10 @@ Reference: python/paddle/trainer/PyDataProvider2.py input_types —
 dense_vector / sparse_binary_vector / sparse_float_vector / integer_value and
 their *_sequence variants, re-exported by python/paddle/v2/data_type.py.
 
-Sequences are padded to bucket lengths with an explicit length field.  The
-port declares every type, but its Topology refuses sparse and nested
-inputs for now.
+Sequences are padded to bucket lengths with an explicit length field;
+sparse vectors are packed to a fixed number of (id, value) slots
+(``nnz``).  The port declares every type; its Topology refuses nested
+sequences for now.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Core dense layers (counterpart of ``paddle_tpu/layers/common.py``,
-less its sparse tables): data, fc, embedding, dropout, addto, concat,
+"""Core layers (counterpart of ``paddle_tpu/layers/common.py``): data, fc,
+embedding, dropout, addto, concat,
 mixed and its projections and operators, the elementwise and row-wise
 helpers (scaling, slope_intercept, interpolation, dot_prod, cos_sim,
 reshape, trans, slice, activation, bilinear_tensor_product,
@@ -8,12 +8,17 @@ row_l2_norm) and data_norm.
 ``fc`` lowers to one ``torch.matmul`` per input, as the JAX package leaves
 it to XLA; under a reduced-precision policy each input and weight is cast
 to the compute dtype first, and the bias to the product's dtype.
-``mixed`` casts nothing, as in the JAX package.  ``embedding`` is a row
-gather of the float32 table (no cast, as in the JAX package) whose
-backward is autograd's scatter-add.  ``dropout`` draws its keep mask from
-the forward's generator in train mode and is the identity at eval.
-Sparse (ids + values) inputs and sparse-update tables are not ported yet
-and raise.
+``mixed`` casts nothing, as in the JAX package.  A sparse (ids + values)
+input of ``fc`` lowers to a gather of its weight rows and a weighted sum
+of them (the JAX package's lowering of the dense x sparse product), with
+an out-of-range id contributing zero.  ``embedding`` is a row gather of
+the float32 table (no cast, as in the JAX package) whose backward is
+autograd's scatter-add; a ``sparse_update`` table given a probe by the
+trainer (``ApplyContext.sparse_probes``) is read detached and the probe,
+zeros shaped like the gathered rows, is added to them, so the gradient
+comes out per lookup on the probe and the table gets none (the
+SelectedRows path).  ``dropout`` draws its keep mask from the forward's
+generator in train mode and is the identity at eval.
 """
 
 from __future__ import annotations
@@ -88,6 +93,24 @@ class FCLayer(LayerDef):
             params = _shared(ctx, src, "w0", "fc")
         out = None
         for i, x in enumerate(inputs):
+            src_name = ctx.in_names[i] if i < len(ctx.in_names) else None
+            if src_name in ctx.sparse_vals:
+                # out = sum_j v_j * W[id_j]: a row gather and a weighted
+                # sum instead of a dense [B, dim] @ [dim, size] product
+                w = params[f"w{i}"]
+                vals = ctx.sparse_vals[src_name]
+                # an out-of-range id (a data bug, a 1-indexed source, a
+                # negative sentinel) contributes zero: its value is masked
+                # and the id clipped, since a gather out of range is a
+                # device assert on the card
+                vals = vals * ((x >= 0) & (x < w.shape[0])).to(vals.dtype)
+                x = torch.clamp(x, 0, w.shape[0] - 1)
+                if ctx.compute_dtype is not None:
+                    w = w.to(ctx.compute_dtype)
+                rows = w[x]                              # [B, nnz, size]
+                y = torch.einsum("bn,bns->bs", vals.to(rows.dtype), rows)
+                out = y if out is None else out + y
+                continue
             x2 = x.reshape(x.shape[0], -1)
             w = params[f"w{i}"]
             if w.shape[0] != x2.shape[1] or w.shape[1] != attrs["size"]:
@@ -125,10 +148,6 @@ class EmbeddingLayer(LayerDef):
             sparse_update=attrs.get("param_sparse", False))]
 
     def apply(self, attrs, params, inputs, ctx):
-        if attrs.get("param_sparse"):
-            raise NotImplementedError(
-                "sparse_update embedding tables are not ported to "
-                "paddle_tpu_torch yet (ROADMAP.md section 1, item 4)")
         src = attrs.get("share_from")
         if src:
             table = _shared(ctx, src, "w", "embedding")["w"]
@@ -139,7 +158,11 @@ class EmbeddingLayer(LayerDef):
                     f"({attrs['vocab_size']}, {attrs['size']})")
         else:
             table = params["w"]
-        return table[inputs[0].long()]
+        probe = ctx.sparse_probes.get(ctx._cur_layer)
+        if probe is None:
+            return table[inputs[0].long()]
+        out = table.detach()[inputs[0].long()]
+        return out + probe.reshape(out.shape)
 
 
 @register_layer

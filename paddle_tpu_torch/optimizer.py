@@ -26,6 +26,15 @@ dynamic loss scaling (the ``mixed`` precision policy) the trainer passes
 ``t`` and the average are then selected against the old ones with
 ``torch.where``, so a skipped step leaves them bit for bit as they were.
 Masters and slots are float32 under every policy.
+
+SelectedRows (``sparse_grads``): a table the trainer left out of the dense
+gradients comes with the ids its batch looked up and one gradient row per
+lookup.  ``_segment_rows`` takes the touched ids' fixed-size unique and
+sums each id's rows, with no host read and no data-dependent size, so a
+CUDA graph can hold it; ``sparse_leaf_update`` then applies the rule to
+the touched rows only and writes them back (the JAX package's "lazy"
+sparse update: the slots' rows move with their parameter rows, the step
+counter advances for all).
 """
 
 from __future__ import annotations
@@ -64,6 +73,48 @@ def _leaf_meta(meta: Optional[dict], layer: str, pname: str) -> dict:
     return {}
 
 
+def _segment_rows(p, ids, g_rows):
+    """The touched rows of ``p`` and their summed gradients: ``(uids,
+    seg)``, both with one entry per lookup.  ``uids`` holds the distinct
+    ids in ascending order, then V (= ``p.shape[0]``) in every slot past
+    them, as ``jnp.unique(size=n, fill_value=V)`` gives; ``seg[k]`` is the
+    sum of the gradient rows of ``uids[k]`` (zero in the padded slots).
+
+    The sizes are fixed by the batch, so nothing is read back to the
+    host.  The ids are sorted stably, which puts each id's lookups next
+    to each other in batch order; the sum runs as a segmented scan of
+    ceil(log2 n) doubling steps over the sorted rows, each step adding a
+    row to the row 2^j after it when both belong to one id.  Every sum
+    is thus taken in one fixed order, with no atomic add, so a step
+    gives the same bits at every run, eager or replayed from a graph."""
+    v = p.shape[0]
+    flat = ids.reshape(-1).long()
+    n = flat.shape[0]
+    g2 = g_rows.reshape(n, -1).to(p.dtype)
+    sorted_ids, order = torch.sort(flat, stable=True)
+    new = torch.ones(n, dtype=torch.bool, device=flat.device)
+    new[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg_of = torch.cumsum(new, 0) - 1          # the id's slot in uids
+    uids = torch.full((n,), v, dtype=torch.long, device=flat.device)
+    # every lookup of an id writes that id to its slot: equal values
+    uids.scatter_(0, seg_of, sorted_ids)
+    x = g2.index_select(0, order)
+    step = 1
+    while step < n:
+        same = (seg_of[step:] == seg_of[:-step]).unsqueeze(1)
+        x = torch.cat([x[:step],
+                       torch.where(same, x[step:] + x[:-step], x[step:])])
+        step *= 2
+    # the last lookup of each id holds its sum; the others write to a
+    # spare row past the end
+    last = torch.ones(n, dtype=torch.bool, device=flat.device)
+    last[:-1] = new[1:]
+    dest = torch.where(last, seg_of, n)
+    seg = torch.zeros((n + 1, x.shape[1]), dtype=p.dtype, device=p.device)
+    seg.index_copy_(0, dest, x)
+    return uids, seg[:n]
+
+
 class Optimizer:
     """Base: subclasses define ``slots()`` and ``leaf_update()``."""
 
@@ -90,6 +141,46 @@ class Optimizer:
         """Update ``p`` and the slot tensors of ``s`` in place; ``terms``
         is ``step_terms(t)``."""
         raise NotImplementedError
+
+    def sparse_leaf_update(self, p, s: dict, uids, seg, lr, terms, *,
+                           l1=0.0, l2=0.0, clip=0.0, finite=None) -> None:
+        """SelectedRows update (reference: math/SparseRowMatrix.h): the
+        rule applied to the rows ``uids`` names only, with ``seg`` their
+        summed gradients (``_segment_rows``), in place.  The rows of ``p``
+        and of every slot shaped like it are gathered, updated by
+        ``leaf_update`` and written back; per-parameter clip, l2 and l1
+        act on these rows only.  With ``finite`` (a 0-dim bool tensor)
+        the rows keep their old values where it is false.
+
+        The padded slots (``uids`` = V) name no row.  They gather and
+        write back the row of slot 0, a touched row, with the values
+        slot 0 computes for it, so they write the bits slot 0 writes: no
+        row outside the batch's is touched, and row V - 1 is never taken
+        for a padded slot."""
+        v = p.shape[0]
+        valid = (uids < v).unsqueeze(1)
+        idx = torch.where(uids < v, uids, uids[:1])
+        rows = {"": p}
+        rows.update((k, t) for k, t in s.items()
+                    if t.ndim >= 1 and t.shape[0] == v)
+        got = {k: t.index_select(0, idx) for k, t in rows.items()}
+        old = ({k: r.clone() for k, r in got.items()}
+               if finite is not None else None)
+        p_rows = got[""]
+        g = seg
+        if clip and clip > 0:
+            g = torch.clamp(g, -clip, clip)
+        if l2:
+            g = g + l2 * p_rows
+        if l1:
+            g = g + l1 * torch.sign(p_rows)
+        s_rows = {k: got.get(k, t) for k, t in s.items()}
+        self.leaf_update(p_rows, g, s_rows, lr, terms)
+        for k, t in rows.items():
+            new = got[k]
+            if old is not None:
+                new = torch.where(finite, new, old[k])
+            t.index_copy_(0, idx, torch.where(valid, new, new[:1]))
 
     # ---- tree plumbing ----
     def init_state(self, params: dict) -> dict:
@@ -130,17 +221,26 @@ class Optimizer:
         Returns ``(params, state)`` (the same trees and tensors, updated).
         With ``finite`` (a 0-dim bool tensor) the step takes effect only
         where it is true: otherwise every parameter, slot and ``t`` keeps
-        its old value."""
-        if sparse_grads:
-            raise NotImplementedError(
-                "sparse (SelectedRows) updates are not ported to "
-                "paddle_tpu_torch yet (ROADMAP.md section 1, item 4)")
+        its old value.
+
+        ``sparse_grads``: ``{(layer, param): (ids, grad_rows)}``, the
+        SelectedRows gradients of tables whose entry in ``grads`` is None,
+        one row per looked-up id; their touched rows update through
+        ``sparse_leaf_update``.  The global clip norm counts each touched
+        row once, with its summed gradient, as the dense gradient would."""
         t = state["t"] + 1
         tf = t.float()
         lr_t = self.lr_fn(tf)
+        # duplicates summed up front: the clip norm and the row update both
+        # see each row's summed gradient (a row hit k times adds ||sum||,
+        # not k partials)
+        sparse_seg = {
+            key: _segment_rows(params[key[0]][key[1]], ids, g_rows)
+            for key, (ids, g_rows) in (sparse_grads or {}).items()}
         if self.global_clip and self.global_clip > 0:
             leaves = [g for ps in grads.values() for g in ps.values()
                       if g is not None]
+            leaves += [seg for _, seg in sparse_seg.values()]
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
                                    for g in leaves))
             scale = torch.clamp(self.global_clip / (gnorm + 1e-12), max=1.0)
@@ -176,6 +276,15 @@ class Optimizer:
                 g = g + l1 * torch.sign(p)
             lr = lr_t * m.get("learning_rate", 1.0)
             self.leaf_update(p, g, state["slots"][l][pn], lr, terms)
+        for (l, pn), (uids, seg) in sparse_seg.items():
+            m = _leaf_meta(meta, l, pn)
+            self.sparse_leaf_update(
+                params[l][pn], state["slots"][l][pn], uids,
+                seg if scale is None else seg * scale,
+                lr_t * m.get("learning_rate", 1.0), terms,
+                l1=m.get("l1", 0.0) or self.l1,
+                l2=m.get("l2", 0.0) or self.l2, clip=m.get("clip", 0.0),
+                finite=finite)
         if avg is not None:
             # avg += (p - avg) / n over the updated parameters
             n = state["avg_n"] + 1.0

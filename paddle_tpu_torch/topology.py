@@ -17,9 +17,17 @@ Layers that draw random numbers (dropout, NCE) draw them from the
 ``generator`` given to ``forward``, which must lie on the forward's
 device; the trainer passes its own.
 
-Not ported yet, and refused: sparse (ids + values) inputs, nested
-sequences, SelectedRows and gradient probes, mesh placement, evaluators
-and ``prepare_forward``.
+A sparse (ids + values) data layer is fed as ``<name>@ids`` and
+``<name>@vals`` (``DataFeeder``'s fixed-nnz packing): its value is the
+ids, and the values ride ``ApplyContext.sparse_vals`` to the ``fc`` that
+consumes it, the only layer that may.  ``forward(sparse_probes=)`` hands
+each ``sparse_update`` embedding a zero probe shaped like its gathered
+rows (the trainer's SelectedRows path, ``sparse_embeddings``).
+Evaluators declared on the graph's layers attach to the topology
+(``evaluator.match_graph``), and their layers join it.
+
+Not ported yet, and refused: nested sequences, gradient printers' probes,
+mesh placement and ``prepare_forward``.
 """
 
 from __future__ import annotations
@@ -95,6 +103,8 @@ def _clone_ctx(ctx):
                        device=ctx.device, compute_dtype=ctx.compute_dtype)
     sub.params_tree = ctx.params_tree
     sub.state_in = ctx.state_in
+    sub.sparse_probes = ctx.sparse_probes
+    sub.sparse_vals = ctx.sparse_vals
     return sub
 
 
@@ -125,15 +135,27 @@ class Topology:
     def __init__(self, outputs, extra_inputs: Optional[Sequence] = None,
                  evaluators: Optional[Sequence] = None,
                  collect_evaluators: bool = True):
-        if evaluators:
-            raise NotImplementedError(
-                "evaluators are not ported to paddle_tpu_torch yet")
+        from paddle_tpu_torch import evaluator as eval_mod
+
         if isinstance(outputs, LayerOutput):
             outputs = [outputs]
         self.outputs: List[LayerOutput] = list(outputs)
-        self.evaluators: list = []
-        self._nodes = collect_topology(self.outputs
-                                       + list(extra_inputs or []))
+        extra = list(extra_inputs or [])
+        # evaluators declared on this graph's layers attach (matched by
+        # layer identity, so every Topology over the same layers gets
+        # them), and their layers join the graph; an inference topology
+        # passes collect_evaluators=False, or the labels would join its
+        # feeds
+        self.evaluators = list(evaluators or [])
+        if collect_evaluators:
+            have = {id(e) for e in self.evaluators}
+            for ev in eval_mod.match_graph(
+                    collect_topology(self.outputs + extra)):
+                if id(ev) not in have:
+                    self.evaluators.append(ev)
+        for ev in self.evaluators:
+            extra.extend(ev.layers.values())
+        self._nodes = collect_topology(self.outputs + extra)
         self.specs: List[LayerSpec] = [n.spec() for n in self._nodes]
         self._spec_by_name = {s.name: s for s in self.specs}
         self.input_names = [s.name for s in self.specs if s.kind == "data"]
@@ -152,11 +174,6 @@ class Topology:
         for spec in self.specs:
             ldef = get_layer_def(spec.kind)
             if spec.kind == "data":
-                if spec.attrs.get("sparse_kind"):
-                    raise NotImplementedError(
-                        f"data layer {spec.name!r}: sparse inputs are not "
-                        f"ported to paddle_tpu_torch yet (ROADMAP.md "
-                        f"section 1, item 4)")
                 if spec.attrs.get("seq_type", 0) == 2:
                     raise NotImplementedError(
                         f"data layer {spec.name!r}: nested sequences are "
@@ -174,6 +191,16 @@ class Topology:
                 continue
             in_shapes = [self.shapes[i] for i in spec.inputs]
             in_seq = [self.is_seq[i] for i in spec.inputs]
+            for src in spec.inputs:
+                sspec = self._spec_by_name.get(src)
+                if (sspec is not None and sspec.kind == "data"
+                        and sspec.attrs.get("sparse_kind")
+                        and spec.kind != "fc"):
+                    raise ValueError(
+                        f"layer {spec.name!r} ({spec.kind}) cannot "
+                        f"consume the sparse input {src!r}: sparse "
+                        f"(ids+values) inputs lower to a weight-row "
+                        f"gather and are only understood by fc")
             if hasattr(ldef, "check_inputs"):
                 ldef.check_inputs(spec.attrs, in_seq)
             if isinstance(ldef, SeqLayerDef):
@@ -247,6 +274,37 @@ class Topology:
                                  f"{extra[:8]}")
         return Parameters(out, meta)
 
+    def sparse_embeddings(self):
+        """``[(layer, ids data layer, emb_dim)]`` for every embedding whose
+        table is ``sparse_update``: the tables the trainer updates by
+        SelectedRows.  The ids must come straight from a data layer, so
+        that the trainer reads the touched rows from the feed; a table
+        another embedding shares raises, since the sharer's lookups would
+        reach the table around the probe and their gradient be lost."""
+        out = []
+        owners = {s.name for s in self.specs
+                  if s.kind == "embedding" and s.attrs.get("param_sparse")
+                  and not s.attrs.get("share_from")}
+        for spec in self.specs:
+            if spec.kind != "embedding":
+                continue
+            if spec.attrs.get("share_from") in owners:
+                raise ValueError(
+                    f"embedding {spec.name!r} shares the sparse_update "
+                    f"table {spec.attrs['share_from']!r}; tied lookups on "
+                    f"a sparse table are not supported — drop "
+                    f"sparse_update or untie the tables")
+            if spec.name in owners:
+                src = spec.inputs[0]
+                if src not in self.input_names:
+                    raise ValueError(
+                        f"sparse_update embedding {spec.name!r} needs its "
+                        f"ids straight from a data layer (got {src!r}); "
+                        f"precompute ids into the feed or drop "
+                        f"sparse_update")
+                out.append((spec.name, src, spec.attrs["size"]))
+        return out
+
     def create_state(self, *, device=None,
                      values: Optional[dict] = None) -> dict:
         """Initial running-state tree (batch-norm moving statistics) on
@@ -285,7 +343,8 @@ class Topology:
     def forward(self, params: dict, state: dict, feed: dict, *,
                 train: bool = False,
                 outputs: Optional[Sequence[str]] = None, remat=None,
-                generator: Optional[torch.Generator] = None, device=None):
+                generator: Optional[torch.Generator] = None, device=None,
+                sparse_probes: Optional[dict] = None):
         """Eager forward under autograd.  Returns ({name: value},
         new_state): ``state`` with the entries the layers wrote (train-mode
         batch norm's moving statistics) replaced by detached tensors, so
@@ -309,7 +368,10 @@ class Topology:
         whose state updates come out as results, so batch norm may be
         inside; None reads the ``remat`` option.  The values and the
         gradients are the same bit for bit; the backward relaunches the
-        recomputed layers' kernels."""
+        recomputed layers' kernels.
+
+        ``sparse_probes``: ``{embedding layer: zeros [lookups, dim]}``, the
+        trainer's SelectedRows probes (``sparse_embeddings``)."""
         if remat is None:
             remat = cfg.get_option("remat", False)
             if remat not in ("blocks",):
@@ -320,6 +382,8 @@ class Topology:
                            compute_dtype=policy.ctx_compute_dtype())
         ctx.state_in = state
         ctx.params_tree = params   # cross-layer access (tied weights)
+        ctx.sparse_probes = sparse_probes or {}
+        ctx.sparse_vals = {}
         values: Dict[str, torch.Tensor] = {}
         masks: Dict[str, Optional[torch.Tensor]] = {}
         want = list(outputs or self.output_names)
@@ -344,6 +408,18 @@ class Topology:
                                        values, masks, ctx)
                 self._run_spec(spec, params, values, masks, ctx,
                                layer_remat=(remat is True))
+                continue
+            if spec.attrs.get("sparse_kind"):
+                # fixed-nnz packing: the value is the ids [B, nnz]; the
+                # per-id values ride the context to the consuming fc
+                ids = torch.as_tensor(feed[spec.name + "@ids"],
+                                      device=dev).long()
+                vals = feed.get(spec.name + "@vals")
+                ctx.sparse_vals[spec.name] = (
+                    torch.ones(ids.shape, device=dev) if vals is None
+                    else torch.as_tensor(vals, device=dev).float())
+                values[spec.name] = ids
+                masks[spec.name] = None
                 continue
             x = torch.as_tensor(feed[spec.name], device=dev)
             if spec.attrs.get("is_index", False):
@@ -378,6 +454,7 @@ class Topology:
         in_seq = [self.is_seq[i] for i in spec.inputs]
         lparams = params.get(spec.name, {})
         ctx._cur_layer = spec.name
+        ctx.in_names = spec.inputs
         use_remat = layer_remat and _remat_eligible(spec)
         with _layer_error_context(spec, in_vals):
             if isinstance(ldef, SeqLayerDef):
@@ -428,6 +505,7 @@ class Topology:
         (as the layer ``spec``) for its activations."""
         def run(*vals):
             ctx._cur_layer = spec.name
+            ctx.in_names = spec.inputs
             return fn(*vals)
         return checkpoint(run, *in_vals, use_reentrant=False)
 

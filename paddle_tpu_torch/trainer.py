@@ -1,10 +1,17 @@
 """Trainer: the v2-style event-loop trainer (counterpart of
 ``paddle_tpu/trainer.py``).
 
-The step mirrors the JAX package's ``_build_step`` on its no-sparse,
-no-probe path: ``Topology.forward`` under autograd, the gradient of the
-cost with respect to every trainable parameter (``torch.autograd.grad``),
-then ``optimizer.update``.  Every tensor a step changes is changed in
+The step mirrors the JAX package's ``_build_step``: ``Topology.forward``
+under autograd, the gradient of the cost with respect to every trainable
+parameter (``torch.autograd.grad``), then ``optimizer.update``.  A
+``sparse_update`` embedding table (``Topology.sparse_embeddings``) stays
+out of the dense gradients: its lookups get a zero probe shaped
+``[ids in the feed, dim]``, the gradient comes out on the probe, one row
+per lookup, and the optimizer updates the touched rows only
+(``sparse_grads``; SelectedRows), so no [V, D] gradient is made.  The
+declared evaluators' statistics come out of every step, on the device,
+and add up over the pass: ``EndPass.metrics`` and ``TestResult.metrics``
+hold their results.  Every tensor a step changes is changed in
 place: the parameters, the optimizer's slots and its step counter ``t``
 (a device tensor), the running state ``model_state`` (batch-norm moving
 statistics, which ``test`` reads in eval mode) and the loss-scale state.
@@ -19,7 +26,8 @@ the JAX trainer's ``_sync_precision_policy`` does: under ``bf16`` the
 layers compute in bf16 on the float32 masters; under ``mixed`` the step
 also scales the float32 loss by the loss scale before the backward,
 divides the gradients by it, and tests the loss and every gradient for
-finiteness.  A non-finite step keeps the parameters, the optimizer slots,
+finiteness (the probes' gradients, unscaled, among them).  A non-finite
+step keeps the parameters, the optimizer slots,
 the step counter and ``model_state`` bit for bit, and backs the scale
 off; ``growth_interval`` clean steps in a row grow it.  That state lives
 in the optimizer state under ``"loss_scale"`` (``scale``, ``good_steps``,
@@ -50,14 +58,16 @@ The dispatch options are the JAX package's:
   smallest bucket covering its longest sequence (``_make_feed_converter``);
 - ``train(prefetch_depth=)`` converts and copies batches ahead on a
   producer thread (``reader/prefetch.py``);
-- ``SGD(check_nan_inf=True)`` tests the loss and every gradient (only the
-  loss under loss scaling) at every step, one host read a step, and
-  raises ``FloatingPointError`` naming them; it runs the chunks per step;
+- ``SGD(check_nan_inf=True)`` tests the loss and every gradient, a
+  sparse table's rows too (only the loss under loss scaling), at every
+  step, one host read a step, and raises ``FloatingPointError`` naming
+  them; it runs the chunks per step;
 - ``SGD(remat=True | "blocks")`` recomputes layers in the backward
   (``Topology.forward``).
 
-Not ported yet, and refused: ``checkpoint_config``, ``mesh`` and
-``mesh_rules``.
+Not ported yet, and refused: ``checkpoint_config`` (``ROADMAP.md``
+section 1, item 6), ``mesh`` and ``mesh_rules`` (item 14, with the
+vocab-parallel lookup of a sparse table).
 """
 
 from __future__ import annotations
@@ -77,12 +87,12 @@ from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.topology import Topology
 
 
-def _refuse(**flags) -> None:
+def _refuse(item: int, **flags) -> None:
     for name, value in flags.items():
         if value:
             raise NotImplementedError(
                 f"{name} is not ported to paddle_tpu_torch yet "
-                f"(ROADMAP.md section 1)")
+                f"(ROADMAP.md section 1, item {item})")
 
 
 def _clone_tree(tree):
@@ -109,7 +119,7 @@ class SGD:
     def __init__(self, cost, parameters, update_equation, extra_layers=None,
                  is_local: bool = True, mesh=None, remat: bool = False,
                  check_nan_inf: bool = False, mesh_rules=None, device=None):
-        _refuse(mesh=mesh, mesh_rules=mesh_rules)
+        _refuse(14, mesh=mesh, mesh_rules=mesh_rules)
         self.device = cfg.default_device(device)
         self.topology = (cost if isinstance(cost, Topology)
                          else Topology(cost, extra_inputs=extra_layers))
@@ -133,6 +143,23 @@ class SGD:
         self._mask = parameters.trainable_mask()
         self._trainable, self._frozen = params_mod.partition(
             parameters.values, self._mask)
+        # SelectedRows tables: updated by their touched rows only
+        self._sparse = self.topology.sparse_embeddings()
+        for lname, _src, _dim in self._sparse:
+            if self._trainable.get(lname, {}).get("w") is None:
+                raise ValueError(
+                    f"embedding layer {lname!r} has sparse_update=True but "
+                    f"its table is not trainable (is_static / learning_rate"
+                    f"=0 param attr?) — sparse updates only apply to "
+                    f"trainable tables; drop sparse_update or unfreeze it")
+        self._sparse_keys = {(lname, "w") for lname, _, _ in self._sparse}
+        # the layers the evaluators read, beside the cost
+        self._eval_outputs = []
+        for ev in self.topology.evaluators:
+            for lo in ev.layers.values():
+                if (lo.name != self.cost_name
+                        and lo.name not in self._eval_outputs):
+                    self._eval_outputs.append(lo.name)
         self._opt_state = self.optimizer.init_state(self._trainable)
         # the forward's random stream (dropout, NCE), on the trainer's
         # device; a captured chunk registers it with its graph
@@ -151,15 +178,19 @@ class SGD:
 
     # ------------------------------------------------------------- step
     def _leaves(self):
+        """The trainable parameters of the dense gradient (no sparse
+        table)."""
         return [(l, pn, p) for l, ps in self._trainable.items()
-                for pn, p in ps.items() if p is not None]
+                for pn, p in ps.items()
+                if p is not None and (l, pn) not in self._sparse_keys]
 
     def _state_tensors(self):
         """Every tensor a step updates in place: the trainable
         parameters, the optimizer's slots and step counter, the
         loss-scale state and the running state."""
         o = self._opt_state
-        out = [p for _, _, p in self._leaves()]
+        out = [p for ps in self._trainable.values() for p in ps.values()
+               if p is not None]
         out += self.optimizer.state_tensors(o)
         out += list(o.get("loss_scale", {}).values())
         out += [v for ks in self.model_state.values() for v in ks.values()]
@@ -169,35 +200,54 @@ class SGD:
         """Cost and gradients of one batch, parameters untouched: returns
         (cost tensor, ``{layer: {param: grad}}`` over the trainable
         parameters; zeros for a parameter the cost does not reach, as
-        ``jax.grad`` gives).  With ``scale`` (the loss scale, a float32
-        tensor) the backward runs on the float32 cost times ``scale`` and
-        the gradients come back divided by it; the cost is unscaled.  The
-        running state takes the batch's update."""
-        loss, tree, _, new_state = self._grads(feed, scale)
-        self._commit_state(new_state)
-        return loss, tree
+        ``jax.grad`` gives; for a ``sparse_update`` table its SelectedRows
+        gradient, the pair (ids, one gradient row per id)).  With
+        ``scale`` (the loss scale, a float32 tensor) the backward runs on
+        the float32 cost times ``scale`` and the gradients come back
+        divided by it; the cost is unscaled.  The running state takes the
+        batch's update."""
+        g = self._grads(feed, scale)
+        self._commit_state(g.new_state)
+        tree = {l: dict(ps) for l, ps in g.grads.items()}
+        for (l, pn), pair in g.sparse.items():
+            tree[l][pn] = pair
+        return g.loss, tree
 
     def _grads(self, feed, scale):
-        """``forward_backward`` without the state's commit: (loss, grads,
-        flag, new running state), the flag under a loss scale a float32
-        [1] tensor on the device, nonzero when a gradient is not finite
-        (the division by the scale and the test are one multi-tensor
-        pass: ``torch.amp``'s unscale)."""
+        """``forward_backward`` without the state's commit: a ``_Grads``
+        (loss, dense gradients with None for the sparse tables, the
+        sparse tables' ``{(layer, "w"): (ids, rows)}``, the evaluators'
+        outputs, the new running state and, under a loss scale, a float32
+        [1] flag on the device, nonzero when a gradient is not finite; the
+        division by the scale and the test are one multi-tensor pass,
+        ``torch.amp``'s unscale)."""
         leaves = self._leaves()
         tensors = [p.detach().requires_grad_(True) for _, _, p in leaves]
         trainable = {l: dict(ps) for l, ps in self._trainable.items()}
         for (l, pn, _), t in zip(leaves, tensors):
             trainable[l][pn] = t
         params = params_mod.merge(trainable, self._frozen)
+        feed = dict(feed)
+        ids, probes = {}, {}
+        for lname, src, dim in self._sparse:
+            if src not in ids:
+                ids[src] = feed[src] = torch.as_tensor(feed[src],
+                                                       device=self.device)
+            # flat [lookups, D]: the layer reshapes it to its rows' view
+            probes[lname] = torch.zeros(
+                (ids[src].numel(), dim), device=self.device,
+                dtype=self._trainable[lname]["w"].dtype, requires_grad=True)
         outs, new_state = self.topology.forward(
             params, self.model_state, feed, train=True,
-            outputs=[self.cost_name], remat=self.remat,
-            generator=self._generator, device=self.device)
+            outputs=[self.cost_name] + self._eval_outputs, remat=self.remat,
+            generator=self._generator, device=self.device,
+            sparse_probes=probes)
         loss = outs[self.cost_name]
         # scaled after the float32 cost, so the backward carries the
         # scaled cotangent through the whole bf16 stack
         obj = loss if scale is None else loss.float() * scale
-        grads = list(torch.autograd.grad(obj, tensors, allow_unused=True))
+        grads = list(torch.autograd.grad(obj, tensors + list(
+            probes.values()), allow_unused=True))
         found = None
         if scale is not None:
             found = torch.zeros(1, device=self.device)
@@ -209,7 +259,18 @@ class SGD:
                 for l, ps in self._trainable.items()}
         for (l, pn, p), g in zip(leaves, grads):
             tree[l][pn] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), tree, found, new_state
+        sparse = {}
+        for (lname, src, _), g in zip(self._sparse, grads[len(leaves):]):
+            sparse[(lname, "w")] = (
+                ids[src], torch.zeros_like(probes[lname]) if g is None
+                else g)
+        return _Grads(loss.detach(), tree, sparse, found, new_state,
+                      {k: v.detach() for k, v in outs.items()}, feed)
+
+    def _eval_stats(self, outs, feed) -> dict:
+        """The evaluators' statistics of one batch, on the device."""
+        return {ev.name: ev.stats(outs, feed)
+                for ev in self.topology.evaluators}
 
     @torch.no_grad()
     def _commit_state(self, new_state: dict, finite=None) -> None:
@@ -242,18 +303,25 @@ class SGD:
         """One training step; returns the loss (a device tensor)."""
         return self._run_step(feed)[0]
 
+    def _step_stats(self, feed):
+        """One training step: (loss, the evaluators' statistics), both on
+        the device (the train loop's chunk step)."""
+        loss, _, stats = self._run_step(feed)
+        return loss, stats
+
     def _run_step(self, feed, check: bool = False):
-        """One training step: (loss, flags), the flags (``check``) the
-        ``check_nan_inf`` test as ``([names], bool tensor)``, else None."""
+        """One training step: (loss, flags, evaluator statistics), the
+        flags (``check``) the ``check_nan_inf`` test as ``([names], bool
+        tensor)``, else None."""
         policy = self._sync_precision_policy()
         if policy.loss_scaling:
             return self._scaled_step(feed, policy, check)
-        loss, grads, _, new_state = self._grads(feed, None)
-        flags = self._nan_flags(loss, grads) if check else None
-        self._commit_state(new_state)
-        self.optimizer.update(self._trainable, grads, self._opt_state,
-                              self.parameters.meta)
-        return loss, flags
+        g = self._grads(feed, None)
+        flags = self._nan_flags(g.loss, g.grads, g.sparse) if check else None
+        self._commit_state(g.new_state)
+        self.optimizer.update(self._trainable, g.grads, self._opt_state,
+                              self.parameters.meta, sparse_grads=g.sparse)
+        return g.loss, flags, self._eval_stats(g.outs, g.feed)
 
     @torch.no_grad()
     def _scaled_step(self, feed, policy, check=False):
@@ -262,14 +330,16 @@ class SGD:
         ls = self._opt_state["loss_scale"]
         scale = ls["scale"]
         with torch.enable_grad():
-            loss, grads, found, new_state = self._grads(feed, scale)
-        finite = torch.isfinite(loss).all() & (found[0] == 0)
+            g = self._grads(feed, scale)
+        loss = g.loss
+        finite = torch.isfinite(loss).all() & (g.found[0] == 0)
         # under loss scaling a non-finite scaled gradient is the overflow
         # the skip consumes: only the loss counts as a divergence
         flags = self._nan_flags(loss, None) if check else None
-        self.optimizer.update(self._trainable, grads, self._opt_state,
-                              self.parameters.meta, finite=finite)
-        self._commit_state(new_state, finite)
+        self.optimizer.update(self._trainable, g.grads, self._opt_state,
+                              self.parameters.meta, sparse_grads=g.sparse,
+                              finite=finite)
+        self._commit_state(g.new_state, finite)
         good = torch.where(finite, ls["good_steps"] + 1, 0)
         grow = good >= policy.growth_interval
         new_scale = torch.where(
@@ -282,17 +352,21 @@ class SGD:
         ls["scale"].copy_(new_scale)
         ls["good_steps"].copy_(torch.where(grow & finite, 0, good))
         ls["skipped"].copy_(skipped)
-        return loss, flags
+        return loss, flags, self._eval_stats(g.outs, g.feed)
 
-    def _nan_flags(self, loss, grads):
+    def _nan_flags(self, loss, grads, sparse=None):
         """The finiteness of the loss and, given ``grads``, of every
-        ``{layer}.{param}@GRAD``: (names, one bool tensor)."""
+        ``{layer}.{param}@GRAD`` (a sparse table's: its rows): (names, one
+        bool tensor)."""
         names, tests = ["loss"], [torch.isfinite(loss).all()]
         for l, ps in (grads or {}).items():
             for pn, g in ps.items():
                 if g is not None:
                     names.append(f"{l}.{pn}@GRAD")
                     tests.append(torch.isfinite(g).all())
+        for (l, pn), (_ids, rows) in (sparse or {}).items():
+            names.append(f"{l}.{pn}@GRAD")
+            tests.append(torch.isfinite(rows).all())
         return names, torch.stack(tests)
 
     @staticmethod
@@ -330,9 +404,12 @@ class SGD:
                 for name in group[0]}
 
     def _chunk(self, feeds: dict, k: int):
-        """The prepared chunk of k steps for these stacked feeds."""
+        """The prepared chunk of k steps for these stacked feeds: it
+        returns the k losses, and with evaluators ``(losses, their k
+        statistics)``."""
         self._sync_precision_policy()
-        return self._chunks.get("train_chunk", k, feeds, self._step,
+        step = self._step_stats if self.topology.evaluators else self._step
+        return self._chunks.get("train_chunk", k, feeds, step,
                                 self._state_tensors, self._generator)
 
     def release_chunks(self) -> None:
@@ -488,7 +565,7 @@ class SGD:
 
         ``seq_buckets``: ``True`` / ``"auto"`` or a list of lengths, as
         ``_make_feed_converter`` says."""
-        _refuse(checkpoint_config=checkpoint_config)
+        _refuse(6, checkpoint_config=checkpoint_config)
         if event_handler is None:
             event_handler = _default_event_handler
         feeder = DataFeeder(self.topology, feeding)
@@ -515,8 +592,11 @@ class SGD:
                 _feed_dicts, depth=prefetch_depth, device=self.device)
         else:
             batch_source = reader
+        from paddle_tpu_torch.evaluator import EvalAccumulator
+        acc = EvalAccumulator(self.topology.evaluators)
         for pass_id in range(num_passes):
             event_handler(v2_event.BeginPass(pass_id))
+            acc.reset()
             batch_id = 0
             batch_iter = iter(batch_source())
             try:
@@ -533,10 +613,14 @@ class SGD:
                     if k > 1 and len(group) == k \
                             and self._stackable(group):
                         feeds = self._stack_group(group)
-                        losses = self._chunk(feeds, k)(feeds)
+                        out = self._chunk(feeds, k)(feeds)
+                        losses, stats_k = (out if isinstance(out, tuple)
+                                           else (out, {}))
                         for i in range(k):
                             event_handler(v2_event.BeginIteration(
                                 pass_id, batch_id))
+                            acc.update({n: tuple(s[i] for s in st)
+                                        for n, st in stats_k.items()})
                             event_handler(v2_event.EndForwardBackward(
                                 pass_id, batch_id, self))
                             event_handler(v2_event.EndIteration(
@@ -546,11 +630,12 @@ class SGD:
                     for feed in group:
                         event_handler(v2_event.BeginIteration(pass_id,
                                                               batch_id))
-                        loss, flags = self._run_step(feed,
-                                                     self.check_nan_inf)
+                        loss, flags, stats = self._run_step(
+                            feed, self.check_nan_inf)
                         if flags is not None:
                             self._raise_on_nonfinite(flags, pass_id,
                                                      batch_id)
+                        acc.update(stats)
                         event_handler(v2_event.EndForwardBackward(
                             pass_id, batch_id, self))
                         event_handler(v2_event.EndIteration(
@@ -562,29 +647,45 @@ class SGD:
                 if close is not None:
                     close()
             self._sync_parameters()
-            event_handler(v2_event.EndPass(pass_id, metrics={}))
+            event_handler(v2_event.EndPass(pass_id, metrics=acc.results()))
 
     @torch.no_grad()
     def test(self, reader, feeding: Optional[Dict[str, int]] = None):
-        """average cost over a reader (reference: Tester / trainer.test)."""
+        """average cost over a reader (reference: Tester / trainer.test),
+        with the evaluators' metrics."""
+        from paddle_tpu_torch.evaluator import EvalAccumulator
         feeder = DataFeeder(self.topology, feeding)
         params = params_mod.merge(self._trainable, self._frozen)
+        acc = EvalAccumulator(self.topology.evaluators)
         total, n = 0.0, 0
         for data_batch in reader():
             feed = (data_batch if isinstance(data_batch, dict)
                     else feeder.feed(data_batch))
-            outs, _ = self.topology.forward(params, self.model_state, feed,
-                                            train=False,
-                                            outputs=[self.cost_name],
-                                            device=self.device)
+            outs, _ = self.topology.forward(
+                params, self.model_state, feed, train=False,
+                outputs=[self.cost_name] + self._eval_outputs,
+                device=self.device)
             total += float(outs[self.cost_name])
+            acc.update(self._eval_stats(outs, feed))
             n += 1
-        return v2_event.TestResult(total / max(n, 1), metrics={})
+        return v2_event.TestResult(total / max(n, 1), metrics=acc.results())
 
     def _sync_parameters(self) -> None:
         """Reflect the trained tree back into the Parameters object."""
         self.parameters.values = params_mod.merge(self._trainable,
                                                   self._frozen)
+
+
+class _Grads:
+    """What ``SGD._grads`` gives of one batch's forward and backward."""
+
+    __slots__ = ("loss", "grads", "sparse", "found", "new_state", "outs",
+                 "feed")
+
+    def __init__(self, loss, grads, sparse, found, new_state, outs, feed):
+        self.loss, self.grads, self.sparse = loss, grads, sparse
+        self.found, self.new_state = found, new_state
+        self.outs, self.feed = outs, feed
 
 
 def _default_event_handler(evt) -> None:

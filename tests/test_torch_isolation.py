@@ -48,7 +48,13 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     for path, _ in _modules():
         bad += _forbidden_imports(path)
     assert not bad, bad
-    assert len(list(_modules())) >= 15
+    mods = {m for _, m in _modules()}
+    assert len(mods) >= 15
+    assert {"paddle_tpu_torch.evaluator", "paddle_tpu_torch.inference",
+            "paddle_tpu_torch.dataset", "paddle_tpu_torch.dataset.common",
+            "paddle_tpu_torch.dataset.mnist",
+            "paddle_tpu_torch.reader.creator", "paddle_tpu_torch.models.ctr",
+            "paddle_tpu_torch.models.mlp"} <= mods
 
 
 def _loaded_after(code: str) -> list:

@@ -290,6 +290,20 @@ def _(paddle):
     return layer.sum_cost(layer.row_l2_norm(x, name="rownorm"))
 
 
+@config("sparse_embedding_ctr")
+def _(paddle):
+    layer = paddle.layer
+    _, _, iv, ivs = _types(paddle)
+    ids = layer.data("ids", ivs(100000, max_len=8))
+    lbl = layer.data("y", iv(2))
+    emb = layer.embedding(
+        ids, size=16, vocab_size=100000, name="emb",
+        param_attr=paddle.attr.ParamAttr(sparse_update=True))
+    pooled = layer.pooling(emb, pooling_type="sum")
+    return layer.classification_cost(
+        layer.fc(pooled, size=2, act="softmax", name="out"), lbl)
+
+
 # configs whose outputs only pin the JSON: "operators" pools a flattened
 # [B, 128] map with global_pool, which wants an image (both packages
 # refuse it); its two operators run in the CPU tests' own configs
