@@ -259,14 +259,32 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    640 MB table; the step times, the idle share, and the dense twin's
    step time, peak and AUC beside them; then the README quickstart on
    the card against the CPU (costs within 1e-4, ``infer`` within 1e-5);
-17. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, fp16 policy, dispatch, v2, sparse, sweep, ResNet and
-   ResNet-under-bf16 runs, the card line again,
+17. the checkpoint slice (``ckpt_slice``): the LM at full width under
+   ``bf16`` (Adam TRAIN_LR, TRAIN_BATCH x MAX_LEN) takes 6 seeded batches
+   with an async step snapshot every 2 (run A); a trainer of other
+   weights resumes A's step 4 and takes steps 5 and 6 (run B): losses,
+   parameters, moments, ``t`` and the global step bit for bit A's, kernels
+   1 to 3 launched 8 times a resumed step; the same at
+   ``steps_per_dispatch=2`` into a chunk captured and replayed before the
+   restore; the dropout + NCE MLP in a 2-step chunk resumed between
+   replays, its generator too; A's pass snapshot served over HTTP (8
+   requests, streams equal to a ``PagedDecoder`` of A's live parameters)
+   and, under ``fp32``, ``greedy_generate`` (kernel 1 LAYERS x 16 times)
+   and ``incremental_generate`` for 8 prompts x 16 tokens with equal
+   streams, ``beam_generate`` (K 4) to its end; the hand-off's host time,
+   the steps that save and those during the write beside the same steps
+   of a run without checkpoints (run C, whose losses must be A's), the
+   background write's seconds and bytes, and the restore's time apart
+   from the pinned buffers' warm-up, beside the card line (smoke
+   figures);
+18. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, dispatch, v2, sparse, checkpoint, sweep, ResNet
+   and ResNet-under-bf16 runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
-phases (``dispatch``, ``v2`` or ``sparse``, or a part of one:
+phases (``dispatch``, ``v2``, ``sparse`` or ``ckpt``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -280,6 +298,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -6088,11 +6108,441 @@ def sparse_slice():
     return out
 
 
+# ---------------------------------------------------- the checkpoint slice
+# phase 17: the checkpoint write side at the LM's full width (bf16, Adam
+# TRAIN_LR, batch TRAIN_BATCH x MAX_LEN): run A takes CKPT_STEPS seeded
+# batches with a step snapshot every CKPT_EVERY (async); run B, from other
+# weights, resumes A's snapshot at CKPT_RESUME_AT and must end bit for bit
+# as A; the same at k = 2 into a chunk captured before the restore; the
+# dropout + NCE MLP resumed between two replays; A's pass snapshot served
+# and generated from
+CKPT_STEPS, CKPT_EVERY, CKPT_RESUME_AT = 6, 2, 4
+GEN_ROWS, GEN_PROMPT, GEN_NEW, GEN_BEAM = 8, 32, 16, 4
+
+
+def _ckpt_feeds(n, seed) -> list:
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        seqs = rng.randint(0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)).astype(
+            np.int32)
+        out.append(trainer_feed(seqs[:, :-1], seqs[:, 1:]))
+    return out
+
+
+def _link_snapshot(src_dir, dst, step) -> None:
+    """Snapshot ``step`` of ``src_dir`` hard-linked into ``dst``: A's
+    directory with every snapshot newer than it dropped."""
+    from paddle_tpu_torch.io import checkpoint
+    src = checkpoint.step_dir(src_dir, step)
+    out = checkpoint.step_dir(dst, step)
+    os.makedirs(out)
+    for name in os.listdir(src):
+        os.link(os.path.join(src, name), os.path.join(out, name))
+
+
+def _ckpt_train(paddle, trainer, feeds, cfg, k=1, keep=None) -> dict:
+    """``trainer.train`` over ``feeds`` (one pass) with ``cfg``: the
+    losses, the host time of each BeginIteration after the compute stream
+    drained (from the call), each step snapshot's hand-off, and the
+    restore's seconds (``_auto_resume``: verify, load, copy in; the
+    stream drained).  ``keep`` = (step, dir): at the last batch's
+    BeginIteration the writer is drained and that step snapshot linked
+    into dir."""
+    losses, begins, handoffs, restores = [], [], [], []
+    own, own_resume = trainer._save_step_snapshot, trainer._auto_resume
+
+    def timed(*args):
+        handoffs.append(own(*args))
+        return handoffs[-1]
+
+    def timed_resume(*args):
+        t = time.perf_counter()
+        out = own_resume(*args)
+        torch.cuda.current_stream().synchronize()
+        restores.append(time.perf_counter() - t)
+        return out
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            torch.cuda.current_stream().synchronize()
+            begins.append(time.perf_counter() - t0)
+            if keep is not None and e.batch_id == len(feeds) - 1:
+                trainer._flush_ckpt_writer()
+                _link_snapshot(cfg.dirname, keep[1], keep[0])
+        elif isinstance(e, paddle.event.EndIteration):
+            losses.append(float(e.cost))
+
+    trainer._save_step_snapshot = timed
+    trainer._auto_resume = timed_resume
+    t0 = time.perf_counter()
+    try:
+        trainer.train(lambda: iter(feeds), event_handler=handler,
+                      checkpoint_config=cfg,
+                      steps_per_dispatch=k if k > 1 else None)
+    finally:
+        del trainer._save_step_snapshot, trainer._auto_resume
+    return {"losses": losses, "begins": begins, "handoffs": handoffs,
+            "restores": restores}
+
+
+def _since(base) -> dict:
+    """The kernel launches since ``base`` (an ``ops.launch_counts()``):
+    the phase's counters are set to 0 once, at its start."""
+    from paddle_tpu_torch import ops
+    return {n: c - base.get(n, 0) for n, c in ops.launch_counts().items()}
+
+
+def _bf16_counts(base) -> dict:
+    c = _since(base)
+    return {n: c[n + "_bf16"] for n in TRAIN_KERNELS}
+
+
+def _check_resumed(name, a, b, run_a, run_b, k, counts, dir_b):
+    from paddle_tpu_torch.io import checkpoint
+    same, worst = _trainers_equal(a, b)
+    want = run_a["losses"][CKPT_RESUME_AT:]
+    if (run_b["losses"] != want or not same
+            or not a._global_step == b._global_step == CKPT_STEPS
+            or b.step_capture_count != (1 if k > 1 else 0)):
+        raise AssertionError(
+            f"{name}: the resumed run is not the uninterrupted one bit for "
+            f"bit: losses {run_b['losses']} vs {want}, largest state "
+            f"difference {worst}, global steps {a._global_step} "
+            f"{b._global_step}, captures {b.step_capture_count}")
+    per = LAYERS * (CKPT_STEPS - CKPT_RESUME_AT)
+    if any(n != per for n in counts.values()):
+        raise AssertionError(f"{name}: the resumed steps launched {counts}"
+                             f" (expected {per} bf16 launches of each)")
+    if checkpoint.list_passes(dir_b) != [0]:
+        raise AssertionError(f"{name}: no pass snapshot after the resume")
+
+
+def ckpt_lm(k, gen=None) -> dict:
+    """Runs A and B of the LM at ``k`` steps a dispatch; at k = 1 also
+    the time figures and (``gen``) A's pass snapshot served and
+    generated from."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.io import checkpoint
+
+    paddle, topo = _train_model()
+    _policy("bf16")
+    root = tempfile.mkdtemp(prefix="ptt_ckpt_")
+    dir_a, dir_b = root + "/a", root + "/b"
+    try:
+        feeds = _ckpt_feeds(CKPT_STEPS, SEED + 11)
+        base = ops.launch_counts()
+        a = _trainer(paddle, topo, random_values(SEED))
+        run_a = _ckpt_train(paddle, a, feeds, checkpoint.CheckpointConfig(
+            dir_a, save_period_steps=CKPT_EVERY), k,
+            keep=(CKPT_RESUME_AT, dir_b))
+        torch.cuda.synchronize()
+        counts_a = _bf16_counts(base)
+        want_a = LAYERS * CKPT_STEPS
+        if (any(n < want_a for n in counts_a.values()) or k == 1 and any(
+                n != want_a for n in counts_a.values())):
+            raise AssertionError(f"LM k={k} run A launched {counts_a}")
+        session = dict(a._ckpt_writer.session)
+        man = checkpoint.verify_snapshot(checkpoint.step_dir(
+            dir_b, CKPT_RESUME_AT))
+        snap_bytes = sum(f["bytes"] for f in man["files"].values())
+        b = _trainer(paddle, topo, random_values(SEED + 7))
+        if k > 1:
+            # a chunk captured and replayed before the restore: the
+            # restore must feed the graph's own tensors
+            _losses(paddle, b, lambda: iter(_ckpt_feeds(k, SEED + 12)),
+                    steps_per_dispatch=k)
+        base = ops.launch_counts()
+        run_b = _ckpt_train(paddle, b, feeds,
+                            checkpoint.CheckpointConfig(dir_b), k)
+        torch.cuda.synchronize()
+        counts_b = _bf16_counts(base)
+        _check_resumed(f"LM k={k}", a, b, run_a, run_b, k, counts_b, dir_b)
+        out = {"losses": run_a["losses"], "bit_equal": True,
+               "restore_s": run_b["restores"][0],
+               "start_s": run_b["begins"][0], "launches_a": counts_a,
+               "launches_b": counts_b,
+               "snapshot_bytes": snap_bytes,
+               "writes": session["writes"], "stalls": session["stalls"],
+               "write_s": session["write_s"] / max(1, session["writes"])}
+        del b
+        shutil.rmtree(dir_b)
+        if k == 1:
+            # steps[i]: batch i's step and what follows it, to batch
+            # i + 1's start; in A batches 1 and 3 end with a step snapshot,
+            # 2 and 4 run while its write goes on; run C, the same weights
+            # and batches without checkpoint_config, is their control
+            c = _trainer(paddle, topo, random_values(SEED))
+            run_c = _ckpt_train(paddle, c, feeds, None)
+            del c
+            if run_c["losses"] != run_a["losses"]:
+                raise AssertionError(
+                    f"LM k=1: the run without checkpoints differs from A: "
+                    f"{run_c['losses']} vs {run_a['losses']}")
+            steps, plain = np.diff(run_a["begins"]), np.diff(run_c["begins"])
+            out["handoff_ms"] = [h * 1e3 for h in run_a["handoffs"]]
+            out["saving_step_ms"] = [float(steps[i]) * 1e3 for i in (1, 3)]
+            out["writing_step_ms"] = [float(steps[i]) * 1e3 for i in (2, 4)]
+            out["plain_step_ms"] = [float(plain[i]) * 1e3
+                                    for i in range(1, 5)]
+            if gen is not None:
+                out.update(gen(paddle, topo, a, dir_a))
+        print(f"checkpoint LM k={k}: run A {CKPT_STEPS} bf16 Adam steps at "
+              f"{TRAIN_BATCH} x {MAX_LEN}, losses "
+              f"{[round(x, 5) for x in run_a['losses']]}, step snapshots "
+              f"every {CKPT_EVERY} ({session['writes']} written, "
+              f"{snap_bytes / 1e9:.3f} GB each, {out['write_s']:.2f} s each "
+              f"in the background, {session['stalls']} stalls); run B from "
+              f"other weights resumed at step {CKPT_RESUME_AT}: the restore "
+              f"{out['restore_s']:.2f} s, its first step began "
+              f"{out['start_s']:.2f} s into train (the pinned buffers made "
+              f"and the reader replayed too); it ended bit for bit as A "
+              f"(losses, parameters, moments, t, global step)"
+              + (", into a chunk captured before the restore" if k > 1
+                 else "") + f"; {card_line()}", flush=True)
+        if k == 1:
+            print(f"checkpoint hot path (k=1): hand-off "
+                  f"{[round(x, 3) for x in out['handoff_ms']]} ms host; "
+                  f"steps 1 and 3, which save, "
+                  f"{[round(x, 1) for x in out['saving_step_ms']]} ms, "
+                  f"steps 2 and 4, during the write, "
+                  f"{[round(x, 1) for x in out['writing_step_ms']]} ms; "
+                  f"steps 1 to 4 of the same run without checkpoints "
+                  f"{[round(x, 1) for x in out['plain_step_ms']]} ms (smoke "
+                  f"figures, not a benchmark); {card_line()}", flush=True)
+        del a
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _policy("fp32")
+        torch.cuda.empty_cache()
+
+
+def _engine_streams(decoder, reqs) -> list:
+    """Each request's tokens from ``InferenceEngine`` over HTTP, all sent
+    at once."""
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(decoder, default_max_tokens=MAX_TOKENS)
+    results = [None] * len(reqs)
+    try:
+        url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+
+        def call(i):
+            results[i] = post(url, {"input": [reqs[i].tolist()],
+                                    "max_tokens": MAX_TOKENS})
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+    finally:
+        engine.close()
+    if any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"a request to the snapshot's server failed: "
+                             f"{results}")
+    return [body["outputs"]["tokens"] for _, body in results]
+
+
+def _equal_streams(what, got, want, margin_at) -> None:
+    """Raises unless the streams are equal, with the top-2 logit margin
+    (``margin_at(j)``) at the first token j that differs."""
+    if got == want:
+        return
+    j = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+    raise AssertionError(f"{what}: streams part at token {j} "
+                         f"({got[:j + 2]} vs {want[:j + 2]}) where the "
+                         f"top-2 margin is {margin_at(j):.3e}")
+
+
+def serve_and_generate(paddle, topo, trainer, dirname) -> dict:
+    """A's pass snapshot served through ``InferenceEngine`` (8 requests)
+    against a ``PagedDecoder`` of A's live parameters; then under ``fp32``
+    the three generate paths from the snapshot."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.io import checkpoint
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.models.transformer import (PagedDecoder,
+                                                     params_from_jax)
+
+    snap = checkpoint.load(dirname)
+    if snap["kind"] != "pass" or snap["manifest"]["global_step"] \
+            != CKPT_STEPS:
+        raise AssertionError(f"A's newest snapshot: {snap['kind']} "
+                             f"{snap['manifest']}")
+    reqs = prompts()
+    base = ops.launch_counts()
+    served = _engine_streams(PagedDecoder(
+        params_from_jax(checkpoint.params_of(snap), num_heads=HEADS),
+        max_slots=SLOTS, block_size=BLOCK, device="cuda"), reqs)
+    serve_counts = {n: _since(base)[n] for n in ("flash_fwd", "paged_decode")}
+    if min(serve_counts.values()) < 1:
+        raise AssertionError(f"serving the snapshot launched {serve_counts}")
+    live = reference_streams(PagedDecoder(
+        params_from_jax(trainer.parameters, num_heads=HEADS),
+        max_slots=SLOTS, block_size=BLOCK, device="cuda"), reqs)
+    for i, (got, (toks, margins)) in enumerate(zip(served, live)):
+        _equal_streams(f"served request {i}", got, toks,
+                       margins.__getitem__)
+    print(f"A's pass snapshot served 8 requests of {MAX_TOKENS} tokens over "
+          f"HTTP: {len(reqs)} of {len(reqs)} streams equal to a "
+          f"PagedDecoder of A's live parameters; launches {serve_counts}",
+          flush=True)
+
+    _policy("fp32")
+    params = paddle.parameters.from_numpy(topo, checkpoint.params_of(snap))
+    rows = np.random.RandomState(SEED + 13).randint(
+        0, VOCAB, size=(GEN_ROWS, GEN_PROMPT)).astype(np.int32)
+    base = ops.launch_counts()
+    t0 = time.perf_counter()
+    greedy = transformer.greedy_generate(topo, params, rows,
+                                         max_new=GEN_NEW)
+    t_greedy = time.perf_counter() - t0
+    fwd = _since(base)["flash_fwd"]
+    if fwd != LAYERS * GEN_NEW:
+        raise AssertionError(f"greedy_generate launched kernel 1 {fwd} "
+                             f"times (expected {LAYERS * GEN_NEW})")
+    t0 = time.perf_counter()
+    incr = transformer.incremental_generate(topo, params, rows,
+                                            max_new=GEN_NEW)
+    t_incr = time.perf_counter() - t0
+    def margin_at(i, j):
+        """The top-2 logit margin where row i chose its token j."""
+        with torch.no_grad():
+            toks = torch.as_tensor(greedy[i:i + 1, :GEN_PROMPT + j],
+                                   device="cuda")
+            outs, _ = topo.forward(params.values, {}, {
+                "tokens": toks, "targets": toks}, outputs=["logits"])
+        top2 = torch.topk(outs["logits"][0, -1], 2).values
+        return float(top2[0] - top2[1])
+
+    for i in range(GEN_ROWS):
+        _equal_streams(f"generate row {i}", greedy[i, GEN_PROMPT:].tolist(),
+                       incr[i, GEN_PROMPT:].tolist(),
+                       lambda j, i=i: margin_at(i, j))
+    t0 = time.perf_counter()
+    ids, scores = transformer.beam_generate(topo, params, rows,
+                                            max_new=GEN_NEW,
+                                            beam_size=GEN_BEAM)
+    t_beam = time.perf_counter() - t0
+    one, _ = transformer.beam_generate(topo, params, rows, max_new=GEN_NEW,
+                                       beam_size=1)
+    if (ids.shape != (GEN_ROWS, GEN_BEAM, GEN_NEW)
+            or not np.isfinite(scores).all()
+            or not (np.diff(scores, axis=1) <= 0).all()
+            or not ((ids >= 0) & (ids < VOCAB)).all()):
+        raise AssertionError(f"beam_generate: ids {ids.shape}, scores "
+                             f"{scores}")
+    beam1_equal = int((one[:, 0] == incr[:, GEN_PROMPT:]).all(axis=1).sum())
+    print(f"generate from the snapshot (fp32, {GEN_ROWS} prompts of "
+          f"{GEN_PROMPT} + {GEN_NEW}): greedy_generate {t_greedy:.2f} s "
+          f"({fwd} kernel 1 launches), incremental_generate {t_incr:.2f} s, "
+          f"{GEN_ROWS} of {GEN_ROWS} streams equal; "
+          f"beam_generate K {GEN_BEAM} {t_beam:.2f} s, best scores "
+          f"{[round(float(x), 3) for x in scores[:, 0]]}; one beam equals "
+          f"the greedy stream in {beam1_equal} of {GEN_ROWS} rows",
+          flush=True)
+    return {"served_equal": len(reqs), "serve_launches": serve_counts,
+            "generate_equal": GEN_ROWS, "greedy_s": t_greedy,
+            "incremental_s": t_incr, "beam_s": t_beam,
+            "greedy_launches": fwd, "beam1_equal": beam1_equal}
+
+
+def ckpt_dropout() -> dict:
+    """The dropout + NCE MLP (``dropout_replays``' graph, Momentum 0.01)
+    at ``steps_per_dispatch=2`` over 4 seeded batches, a step snapshot
+    every 2: a trainer of other weights and another generator seed whose
+    chunk was captured and replayed first restores step 2 and replays
+    the rest: bit for bit the uninterrupted run, generator included."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import checkpoint
+
+    _fresh(paddle)
+    layer = paddle.layer
+    x = layer.data("x", paddle.data_type.dense_vector(256))
+    y = layer.data("y", paddle.data_type.integer_value(1000))
+    h = layer.dropout(layer.fc(x, size=512, act="relu", name="h1"),
+                      rate=0.5, name="drop1")
+    h = layer.fc(h, size=256, act="tanh", name="h2",
+                 layer_attr=paddle.attr.ExtraAttr(drop_rate=0.3))
+    topo = paddle.Topology(layer.nce_cost(h, y, num_classes=1000,
+                                          num_neg_samples=64, name="nce"))
+    rng = np.random.RandomState(SEED + 14)
+    feeds = [{"x": rng.randn(64, 256).astype(np.float32),
+              "y": rng.randint(0, 1000, 64).astype(np.int32)}
+             for _ in range(6)]
+
+    def make(seed):
+        paddle.init(seed=seed)
+        return paddle.trainer.SGD(
+            topo, paddle.parameters.from_numpy(topo,
+                                               seeded_values(topo, seed)),
+            paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9))
+
+    root = tempfile.mkdtemp(prefix="ptt_ckpt_mlp_")
+    try:
+        a = make(SEED)
+        run_a = _ckpt_train(paddle, a, feeds[:4], checkpoint.CheckpointConfig(
+            root + "/a", save_period_steps=2), 2, keep=(2, root + "/b"))
+        b = make(SEED + 7)
+        before = _losses(paddle, b, lambda: iter(feeds[4:]),
+                         steps_per_dispatch=2)
+        run_b = _ckpt_train(paddle, b, feeds[:4], checkpoint.CheckpointConfig(
+            root + "/b"), 2)
+        same, worst = _trainers_equal(a, b)
+        rng_same = torch.equal(a._generator.get_state(),
+                               b._generator.get_state())
+        if (run_b["losses"] != run_a["losses"][2:] or not same
+                or not rng_same or b.step_capture_count != 1):
+            raise AssertionError(
+                f"dropout MLP resumed between replays: losses "
+                f"{run_b['losses']} vs {run_a['losses'][2:]}, state "
+                f"{worst}, generator equal {rng_same}, captures "
+                f"{b.step_capture_count}")
+        print(f"dropout + NCE MLP in a 2-step chunk resumed between replays "
+              f"(a replay of {before} before the restore): losses "
+              f"{[round(v, 6) for v in run_b['losses']]} and every state "
+              f"tensor and the generator bit for bit the uninterrupted run, "
+              f"one capture", flush=True)
+        return {"losses": run_a["losses"], "bit_equal": True,
+                "captures": b.step_capture_count}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def ckpt_slice() -> dict:
+    """Phase 17: the LM resumed at k = 1 (with the time figures, the
+    snapshot served and generated from) and k = 2, the dropout MLP; the
+    launch counts of kernels 1 to 4 over the phase."""
+    from paddle_tpu_torch import ops
+    ops.reset_launch_counts()
+    out = {"lm_k1": ckpt_lm(1, serve_and_generate), "lm_k2": ckpt_lm(2),
+           "dropout": ckpt_dropout()}
+    total = ops.launch_counts()
+    out["launches"] = {n: total[n] for n in (
+        "flash_fwd", "flash_fwd_bf16", "flash_bwd_dkdv_bf16",
+        "flash_bwd_dq_bf16", "paged_decode")}
+    out["launches"]["flash_fwd_f32"] = (out["launches"]["flash_fwd"]
+                                        - out["launches"]["flash_fwd_bf16"])
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"a kernel of the checkpoint slice was not "
+                             f"launched: {out['launches']}")
+    print(f"checkpoint slice launches: {out['launches']}", flush=True)
+    return out
+
+
+CKPT_PHASES = {"ckpt": ckpt_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
-    any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), for a
-    development run; the full run takes no arguments."""
+    any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), or ``ckpt``
+    (phase 17), for a development run; the full run takes no
+    arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -6101,11 +6551,13 @@ def selected(argv) -> list:
     names = [n for a in only for g in a.split(",")
              for n in groups.get(g, [g])]
     unknown = [n for n in names if n not in DISPATCH_PHASES
-               and n not in V2_PHASES and n not in CTR_PHASES]
+               and n not in V2_PHASES and n not in CTR_PHASES
+               and n not in CKPT_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
-                         f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}")
+                         f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}"
+                         f" + {sorted(CKPT_PHASES)}")
     return names
 
 
@@ -6147,7 +6599,8 @@ def main(argv=()) -> int:
             if phase is not None:
                 out[name] = phase(dev, gen, flush)
             else:
-                out[name] = {**DISPATCH_PHASES, **CTR_PHASES}[name]()
+                out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
+                             **CKPT_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -6200,6 +6653,8 @@ def main(argv=()) -> int:
     del flush
     torch.cuda.empty_cache()
     sparse = sparse_slice()
+    ckpt = ckpt_slice()
+    cl = ckpt["launches"]
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -6221,6 +6676,7 @@ def main(argv=()) -> int:
                    "Lq": flash_t["lq"], "Lk": MAX_LEN, "causal": True,
                    "q_offset": flash_t["q_offset"]},
          "launches_train": tl["flash_fwd"],
+         "launches_ckpt": cl["flash_fwd_f32"],
          "launches_replay": dispatch["lm"]["replay_launches"],
          "launches_remat": dispatch["remat"]["flash_fwd_on"],
          "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
@@ -6238,6 +6694,7 @@ def main(argv=()) -> int:
          "source": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:59",
          "launches": launches["paged_decode"], "max_abs_err": paged_err,
+         "launches_ckpt": cl["paged_decode"],
          "ms": paged_t["ms"], "host_ms": paged_t["host_ms"],
          "plain_ms": paged_t["plain_ms"],
          "bound_ms": paged_t["bound_ms"], "bound_by": paged_t["bound_by"],
@@ -6286,6 +6743,7 @@ def main(argv=()) -> int:
              launches_mixed=lm16["mixed"]["launches"]["flash_fwd_bf16"],
              launches_sweep=sweep_launches["flash_fwd"],
              launches_64k=v2["lm_64k"]["launches"]["flash_fwd_bf16"],
+             launches_ckpt=cl["flash_fwd_bf16"],
              at_64k=dict(v2["flash_64k"]["times"]["fwd"],
                          o_row_err=v2["flash_64k"]["errs"]["o_row"],
                          lse_err=v2["flash_64k"]["errs"]["lse"]),
@@ -6296,6 +6754,7 @@ def main(argv=()) -> int:
          "launches": lm16["bf16"]["launches"]["flash_bwd_dkdv_bf16"],
          "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dkdv_bf16"],
          "launches_64k": v2["lm_64k"]["launches"]["flash_bwd_dkdv_bf16"],
+         "launches_ckpt": cl["flash_bwd_dkdv_bf16"],
          "at_64k": dict(v2["flash_64k"]["times"]["dkdv"],
                         dk_row_err=v2["flash_64k"]["errs"]["dk"],
                         dv_row_err=v2["flash_64k"]["errs"]["dv"]),
@@ -6307,6 +6766,7 @@ def main(argv=()) -> int:
          "launches": lm16["bf16"]["launches"]["flash_bwd_dq_bf16"],
          "launches_mixed": lm16["mixed"]["launches"]["flash_bwd_dq_bf16"],
          "launches_64k": v2["lm_64k"]["launches"]["flash_bwd_dq_bf16"],
+         "launches_ckpt": cl["flash_bwd_dq_bf16"],
          "at_64k": dict(v2["flash_64k"]["times"]["dq"],
                         dq_row_err=v2["flash_64k"]["errs"]["dq"]),
          **{k: v for k, v in bwd16["dq"].items()},
@@ -6416,6 +6876,7 @@ def main(argv=()) -> int:
     print(json.dumps({"dispatch": dispatch}), flush=True)
     print(json.dumps({"v2": v2}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
+    print(json.dumps({"ckpt": ckpt}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

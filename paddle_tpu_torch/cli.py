@@ -1,4 +1,4 @@
-"""Command line: ``python -m paddle_tpu_torch {train,serve} ...``.
+"""Command line: ``python -m paddle_tpu_torch {train,serve,checkpoint} ...``.
 
 ``train --config CFG --num_passes N [--device cpu]`` is the counterpart of
 ``python -m paddle_tpu train`` (``cmd_train``): the config defines
@@ -7,17 +7,27 @@ lr 0.01, momentum 0.9) and ``feeding``, and is trained through
 ``trainer.SGD``; ``--precision`` names the precision policy, which wins
 over the config's own ``init``.  ``--steps_per_dispatch K``,
 ``--seq_buckets auto|L1,L2,..``, ``--prefetch_depth N`` and
-``--check_nan_inf`` are the trainer's dispatch options.
-``--job=time`` (``cmd_time``, TrainerBenchmark) times the step on a
-synthetic batch of ``--batch_size`` for ``--iters`` iterations, and with
-K > 1 the K-step chunk beside it, and prints one JSON line.  The JAX
-command's checkpoint, telemetry and compile-cache flags and its other
-jobs are not ported yet and raise.
+``--check_nan_inf`` are the trainer's dispatch options.  ``--save_dir
+DIR`` checkpoints into DIR and resumes from it (``--saving_period``,
+``--save_only_one``, ``--save_period_steps N`` for mid-pass step
+snapshots, ``--reverify_period_s``, ``--sync_save``).  ``--job=test``
+evaluates the config's ``test_reader`` (else ``train_reader``) on the
+snapshot under ``--save_dir`` and prints one JSON line.  ``--job=time``
+(``cmd_time``, TrainerBenchmark) times the step on a synthetic batch of
+``--batch_size`` for ``--iters`` iterations, and with K > 1 the K-step
+chunk beside it, and prints one JSON line.  The JAX command's telemetry
+and compile-cache flags and its other jobs are not ported yet and raise.
+
+``checkpoint verify DIR`` audits every snapshot under DIR read-only
+(a JSON report; exit 1 on corruption); ``checkpoint latest DIR`` prints
+the newest snapshot that verifies as one JSON line, quarantining nothing.
 
 ``serve`` serves a transformer LM checkpoint through the paged decoder, as
 ``python -m paddle_tpu serve --decode --paged_kv`` does.  The JAX command
 builds the model from a DSL config (``--model cfg.py``); here the dims
-come from the parameter shapes and the caller names ``--num_heads``.
+come from the parameter shapes and the caller names ``--num_heads``.  The
+snapshot is the newest under ``--params`` that verifies (``load``, which
+quarantines a corrupt newer one, as the JAX server does).
 """
 
 from __future__ import annotations
@@ -31,10 +41,10 @@ import threading
 import time
 
 # flags of the JAX ``train`` verb this port does not have yet
-_UNPORTED_TRAIN_FLAGS = ("save_dir", "telemetry_dir", "metrics_port",
+_UNPORTED_TRAIN_FLAGS = ("telemetry_dir", "metrics_port",
                          "compile_cache_dir")
 # the JAX ``train`` verb's jobs this port runs
-_JOBS = ("train", "time")
+_JOBS = ("train", "test", "time")
 
 
 def _serve_ready_line(role, host, port, **extra):
@@ -68,6 +78,8 @@ def cmd_serve(args) -> None:
     server = engine.serve(args.port, host=args.host)
     port = server.server_address[1]
     _serve_ready_line("engine", args.host, port, snapshot=snap["dir"],
+                      model_version=checkpoint.snapshot_version(
+                          snap["manifest"]),
                       device=str(decoder.device),
                       decode_kernel=decoder.decode_kernel)
     print(f"serving on http://{args.host}:{port}  (POST /infer, GET "
@@ -131,6 +143,8 @@ def _build(args):
 def cmd_train(args) -> None:
     if args.job == "time":
         return cmd_time(args)
+    if args.job == "test":
+        return cmd_test(args)
     paddle, cfg, _, trainer = _build(args)
     reader = cfg.get("train_reader")
     if reader is None:
@@ -143,11 +157,68 @@ def cmd_train(args) -> None:
     seq_buckets = ((True if sb == "auto"
                     else [int(x) for x in sb.split(",") if x.strip()])
                    if sb else None)
+    ckpt = None
+    if args.save_dir:
+        from paddle_tpu_torch.io.checkpoint import CheckpointConfig
+        ckpt = CheckpointConfig(
+            args.save_dir, saving_period=args.saving_period,
+            save_only_one=args.save_only_one,
+            save_period_steps=args.save_period_steps or None,
+            async_save=not args.sync_save,
+            reverify_period_s=args.reverify_period_s or None)
     trainer.train(reader, num_passes=args.num_passes,
-                  feeding=cfg.get("feeding"),
+                  feeding=cfg.get("feeding"), checkpoint_config=ckpt,
                   prefetch_depth=args.prefetch_depth or None,
                   steps_per_dispatch=None if spd == 1 else spd,
                   seq_buckets=seq_buckets)
+
+
+def cmd_test(args) -> None:
+    """``--job=test``: the config's cost (and its evaluators' metrics)
+    over ``test_reader`` (else ``train_reader``), on the newest snapshot
+    under ``--save_dir`` when one is given; one JSON line."""
+    _, cfg, _, trainer = _build(args)
+    if args.save_dir:
+        from paddle_tpu_torch.io import checkpoint
+        trainer.restore(checkpoint.load(args.save_dir))
+    reader = cfg.get("test_reader") or cfg.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define test_reader (or "
+                         "train_reader) for --job=test")
+    result = trainer.test(reader, feeding=cfg.get("feeding"))
+    print(json.dumps({"cost": result.cost, "metrics": result.metrics}))
+
+
+def cmd_checkpoint(args) -> None:
+    """``checkpoint verify DIR``: a read-only audit of every snapshot
+    (pass and step) against its manifest's SHA-256s, printed as JSON;
+    exits 1 when one fails or none exists.  ``checkpoint latest DIR``:
+    the newest snapshot that verifies (the policy of auto-resume and
+    ``serve``), read-only, as one JSON line; exits 1 when none does."""
+    from paddle_tpu_torch.io import checkpoint
+
+    if not os.path.isdir(args.dir):
+        raise SystemExit(f"checkpoint {args.action}: no such directory: "
+                         f"{args.dir}")
+    if args.action == "latest":
+        try:
+            cand = checkpoint.latest_valid(args.dir,
+                                           quarantine_corrupt=False)
+        except (FileNotFoundError, checkpoint.CheckpointCorrupt) as e:
+            print(json.dumps({"dir": args.dir, "error": str(e)}))
+            raise SystemExit(1)
+        print(json.dumps({"dir": cand["dir"], "kind": cand["kind"],
+                          "global_step": cand["global_step"],
+                          "model_version": cand["model_version"],
+                          "skipped_corrupt": cand["fallbacks"]}))
+        return
+    rep = checkpoint.audit(args.dir)
+    print(json.dumps(rep, indent=1))
+    if rep["corrupt"]:
+        raise SystemExit(1)
+    if not rep["snapshots"]:
+        raise SystemExit(f"checkpoint verify: no snapshots under "
+                         f"{args.dir}")
 
 
 def _synthetic_feed(topo, batch_size: int):
@@ -230,9 +301,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="python file defining cost and train_reader "
                          "(optimizer, feeding optional)")
     tr.add_argument("--job", default="train",
-                    help="train (default) or time (TrainerBenchmark: the "
-                         "step on a synthetic batch, one JSON line); the "
-                         "JAX command's other jobs raise")
+                    help="train (default), test (the cost on test_reader "
+                         "from the --save_dir snapshot, one JSON line) or "
+                         "time (TrainerBenchmark: the step on a synthetic "
+                         "batch, one JSON line); the JAX command's other "
+                         "jobs raise")
     tr.add_argument("--num_passes", type=int, default=1)
     tr.add_argument("--log_period", type=int, default=100,
                     help="print the cost every N batches")
@@ -267,6 +340,27 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--check_nan_inf", action="store_true",
                     help="raise naming the loss or gradients that went "
                          "non-finite (reference: FLAGS_check_nan_inf)")
+    tr.add_argument("--save_dir", default=None,
+                    help="checkpoint dir: pass snapshots (and step "
+                         "snapshots with --save_period_steps) go here, "
+                         "and training resumes from the newest that "
+                         "verifies")
+    tr.add_argument("--saving_period", type=int, default=1,
+                    help="a pass snapshot every N passes")
+    tr.add_argument("--save_only_one", action="store_true",
+                    help="keep only the newest pass snapshot")
+    tr.add_argument("--save_period_steps", type=int, default=0,
+                    help="also snapshot every N global steps (step-%%09d "
+                         "dirs with the reader position: a SIGKILL loses "
+                         "at most N steps, resume is mid-pass bit-equal; "
+                         "0 = per-pass only)")
+    tr.add_argument("--reverify_period_s", type=float, default=0,
+                    help="the async writer's idle loop re-verifies the "
+                         "retained step snapshots this many seconds "
+                         "apart and quarantines corruption (0 = off)")
+    tr.add_argument("--sync_save", action="store_true",
+                    help="write step snapshots in the step loop instead "
+                         "of the background writer thread")
     for flag in _UNPORTED_TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", default=None,
                         help="not ported yet: raises")
@@ -301,6 +395,13 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--port", type=int, default=8000,
                     help="0 picks a free port (see the ready line)")
     sv.set_defaults(fn=cmd_serve)
+    ck = sub.add_parser("checkpoint", help="read-only snapshot audit "
+                                           "(verify) or newest-valid "
+                                           "resolution (latest)")
+    ck.add_argument("action", choices=["verify", "latest"])
+    ck.add_argument("dir", help="checkpoint dir (pass-NNNNN / "
+                                "step-NNNNNNNNN snapshots)")
+    ck.set_defaults(fn=cmd_checkpoint)
     return p
 
 

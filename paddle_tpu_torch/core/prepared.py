@@ -13,7 +13,8 @@ captured chunk come out of its graph and nothing reads them back a step:
 
 - on the card (``CapturedChunk``) it is one ``torch.cuda.CUDAGraph`` of
   the k steps.  Before the capture, one step runs on the family's side
-  stream and the state is put back as it was: that builds the kernels
+  stream and the state and the generator are put back as they were (the
+  replays draw on from where the generator stood): that builds the kernels
   (``nvcc`` must not run under capture), initialises the libraries and
   sizes the arrival counters of kernels 4 to 6 for that stream.  The
   capture then records the steps over static device buffers of the
@@ -111,12 +112,15 @@ class CapturedChunk:
         self._load(feeds)
         cur = torch.cuda.current_stream(dev)
         saved = [t.clone() for t in state]
+        rng = None if generator is None else generator.get_state()
         stream.wait_stream(cur)
         with torch.cuda.stream(stream):
             step(_step_feed(self.static, 0))
             for t, was in zip(state, saved):
                 t.copy_(was)
         cur.wait_stream(stream)
+        if rng is not None:
+            generator.set_state(rng)
         del saved
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:

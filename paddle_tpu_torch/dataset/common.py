@@ -1,11 +1,7 @@
 """Shared dataset plumbing (counterpart of ``paddle_tpu/dataset/common.py``;
 reference: v2/dataset/common.py): the cache directory, file splitting and
-sharding for several trainers, and the seeded generator of the synthetic
-streams.
-
-Not ported yet, and refused: ``convert`` and ``recordio_reader``, which
-write and read the record files of ``io/recordio.py`` (``ROADMAP.md``
-section 1, item 6).
+sharding for several trainers, the seeded generator of the synthetic
+streams, and the recordio shards of ``convert`` / ``recordio_reader``.
 """
 
 from __future__ import annotations
@@ -85,12 +81,43 @@ def synthetic_rng(name: str, seed: int = 0) -> np.random.RandomState:
 
 
 def convert(output_path, reader, line_count, name_prefix):
-    raise NotImplementedError(
-        "dataset.common.convert is not ported to paddle_tpu_torch yet "
-        "(ROADMAP.md section 1, item 6)")
+    """Convert a reader's samples into recordio shard files (reference:
+    python/paddle/v2/dataset/common.py convert): every ``line_count``
+    samples become one shard ``<output_path>/<name_prefix>-NNNNN`` whose
+    records are pickled samples.  Returns the shard paths; read them back
+    with ``recordio_reader``."""
+    from paddle_tpu_torch.io.recordio import RecordWriter
+
+    assert line_count >= 1
+    paths = []
+    lines = []
+
+    def flush():
+        path = os.path.join(output_path,
+                            "%s-%05d" % (name_prefix, len(paths)))
+        with RecordWriter(path) as w:
+            for item in lines:
+                w.write(pickle.dumps(item, protocol=pickle.HIGHEST_PROTOCOL))
+        paths.append(path)
+        lines.clear()
+
+    for item in reader():
+        lines.append(item)
+        if len(lines) >= line_count:
+            flush()
+    if lines:
+        flush()
+    return paths
 
 
 def recordio_reader(paths):
-    raise NotImplementedError(
-        "dataset.common.recordio_reader is not ported to paddle_tpu_torch "
-        "yet (ROADMAP.md section 1, item 6)")
+    """A reader over shards written by ``convert`` (pickled records)."""
+    from paddle_tpu_torch.io.recordio import RecordReader
+
+    def reader():
+        for path in paths:
+            with RecordReader(path) as r:
+                for rec in r:
+                    yield pickle.loads(rec)
+
+    return reader

@@ -2,6 +2,15 @@
 ``paddle_tpu/models/transformer.py``): ``build``, the training graph in the
 layer DSL, and the serving half.
 
+The three generate paths of the JAX module, each from a parameter tree
+(``Parameters`` or a checkpoint's; where ``Parameters`` lie, a
+checkpoint's arrays on the ``device`` option's device, the card by
+default: ``_values_of``): ``greedy_generate`` re-runs the training graph
+per token, ``incremental_generate`` decodes greedily against per-layer
+K/V caches, ``beam_generate`` searches K beams over the same caches
+(``_decode_fwd``: plain PyTorch einsum attention, as the JAX package's
+is).
+
 ``TransformerLM`` holds the parameter tree under the JAX package's names and
 ``[in, out]`` weight layout (``tok_emb.w``, ``pos_emb.w``,
 ``attn_i.{wq,wk,wv,wo}``, ``ln1_i``/``ln2_i``/``ln_f.{scale,bias}``,
@@ -32,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddle_tpu_torch import data_type, layer
-from paddle_tpu_torch.core.config import resolve_device
+from paddle_tpu_torch.core.config import default_device, resolve_device
 from paddle_tpu_torch.layers.attention import (paged_chunk_attention,
                                                paged_gather,
                                                paged_kv_scatter,
@@ -90,6 +99,265 @@ def build(vocab_size: int = 1000, max_len: int = 128, dim: int = 128,
     logits = layer.fc(x, size=vocab_size, act=None, name="logits")
     cost = layer.classification_cost(logits, targets, name="cost")
     return cost, logits
+
+
+def _values_of(params) -> dict:
+    """The parameter tree of ``Parameters`` or a ``{layer: {param:
+    tensor or array}}`` dict, as tensors on one device: where the
+    tensors lie when every leaf is a tensor on one device (``Parameters``
+    sit on the ``device`` option's); else (a checkpoint's numpy tree) the
+    ``device`` option's device, the card unless the caller asked for the
+    CPU."""
+    values = params if isinstance(params, dict) else params.values
+    leaves = [t for ps in values.values() for t in ps.values()]
+    where = {t.device for t in leaves if torch.is_tensor(t)}
+    if len(where) == 1 and all(torch.is_tensor(t) for t in leaves):
+        dev = where.pop()
+    else:
+        dev = default_device()
+    return {lname: {name: (t.to(dev) if torch.is_tensor(t)
+                           else torch.as_tensor(np.asarray(t), device=dev))
+                    for name, t in ps.items()}
+            for lname, ps in values.items()}
+
+
+def _check_room(p: int, max_new: int, max_len: int) -> None:
+    if p + max_new > max_len:
+        raise ValueError(f"prompt {p} + max_new {max_new} exceeds "
+                         f"max_len {max_len}")
+
+
+@torch.no_grad()
+def greedy_generate(topo, params, prompt_ids, *, max_new: int,
+                    logits_name: str = None, eos_id: int = None):
+    """Greedy decoding through the training graph (``Topology.forward``,
+    the whole [B, max_len] sequence re-run per token; causal masking makes
+    the positions past the current one irrelevant): the correctness
+    oracle of ``incremental_generate``.  On the card its attention runs
+    on the flash forward kernel.  It runs on the device ``_values_of``
+    resolves from ``params``.
+
+    prompt_ids: [B, P] ints.  Returns [B, P + max_new] token ids (numpy
+    int32); once ``eos_id`` (if given) is emitted, a row keeps emitting
+    it."""
+    if logits_name is None:
+        # fused-head builds expose the logits through the shared view
+        logits_name = ("logits_view" if "logits_view" in topo.shapes
+                       else "logits")
+    values = _values_of(params)
+    dev = values["tok_emb"]["w"].device
+    max_len = topo.shapes["tokens"][0]
+    prompt = torch.as_tensor(np.asarray(prompt_ids, np.int32), device=dev)
+    b, p = prompt.shape
+    _check_room(p, max_new, max_len)
+    state = topo.create_state(device=dev)
+    toks = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+    toks[:, :p] = prompt
+    targets = torch.zeros_like(toks)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    for t in range(p, p + max_new):
+        outs, _ = topo.forward(values, state, {"tokens": toks,
+                                               "targets": targets},
+                               train=False, outputs=[logits_name],
+                               device=dev)
+        # the logits at position t - 1 predict token t
+        nxt = torch.argmax(outs[logits_name][:, t - 1], dim=-1).to(
+            torch.int32)
+        if eos_id is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done |= nxt == eos_id
+        toks[:, t] = nxt
+    return toks[:, :p + max_new].cpu().numpy()
+
+
+def _decode_dims(topo, values) -> tuple:
+    """(n_layers, dim, t_max, heads, dh, ln_eps) from the parameter tree
+    and the topology's specs: one source for the cached decode paths."""
+    n_layers = sum(1 for k in values if k.startswith("attn_"))
+    dim = int(values["attn_0"]["wq"].shape[0])
+    t_max = int(values["pos_emb"]["w"].shape[0])
+    heads = next(s.attrs["num_heads"] for s in topo.specs
+                 if s.kind == "multi_head_attention")
+    eps = next((s.attrs.get("epsilon", 1e-5) for s in topo.specs
+                if s.kind == "layer_norm"), 1e-5)
+    return n_layers, dim, t_max, heads, dim // heads, eps
+
+
+def _tree_ops(values, dims) -> tuple:
+    """(ln, ffn, logits_of) over a parameter tree: the per-position math
+    the cached decode paths share."""
+    eps = dims[5]
+
+    def ln(x, lname):
+        xf = x.float()
+        m = xf.mean(dim=-1, keepdim=True)
+        v = xf.var(dim=-1, keepdim=True, unbiased=False)
+        return ((xf - m) * torch.rsqrt(v + eps) * values[lname]["scale"]
+                + values[lname]["bias"]).to(x.dtype)
+
+    def ffn(x, i):
+        up, down = values[f"ffn_up{i}"], values[f"ffn_down{i}"]
+        # jax.nn.gelu's default, the tanh approximation
+        h = F.gelu(x @ up["w0"] + up["b"], approximate="tanh")
+        return h @ down["w0"] + down["b"]
+
+    def logits_of(h):
+        return ln(h, "ln_f") @ values["logits"]["w0"] + values["logits"]["b"]
+
+    return ln, ffn, logits_of
+
+
+def _decode_fwd(values, dims) -> tuple:
+    """The inference forward over a parameter tree, shared by
+    ``incremental_generate`` and ``beam_generate``: (embed, blocks,
+    logits_of, make_cache).  Attention is plain einsum against the whole
+    [t_max] cache with the causal mask, as the JAX package's is (no
+    kernel lies behind it)."""
+    n_layers, dim, t_max, heads, dh, _ = dims
+    scale = 1.0 / math.sqrt(dh)
+    ln, ffn, logits_of = _tree_ops(values, dims)
+    dev = values["tok_emb"]["w"].device
+
+    def blocks(x, caches, pos, q_len, bsz):
+        """x: [bsz, q_len, dim] at positions pos .. pos + q_len - 1;
+        caches: per layer (k, v) [bsz, t_max, heads, dh], written in
+        place at those positions."""
+        kpos = torch.arange(t_max, device=dev)[None, None, None, :]
+        qpos = pos + torch.arange(q_len, device=dev)[None, None, :, None]
+        for i in range(n_layers):
+            a = values[f"attn_{i}"]
+            h = ln(x, f"ln1_{i}")
+            q = (h @ a["wq"]).reshape(bsz, q_len, heads, dh)
+            ck, cv = caches[i]
+            ck[:, pos:pos + q_len] = (h @ a["wk"]).reshape(bsz, q_len,
+                                                          heads, dh)
+            cv[:, pos:pos + q_len] = (h @ a["wv"]).reshape(bsz, q_len,
+                                                          heads, dh)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, ck) * scale
+            s = s.masked_fill(kpos > qpos, float("-inf"))
+            att = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                               cv)
+            x = x + att.reshape(bsz, q_len, dim) @ a["wo"]
+            x = x + ffn(ln(x, f"ln2_{i}"), i)
+        return x, caches
+
+    def embed(ids, pos, q_len):
+        return (values["tok_emb"]["w"][ids.long()]
+                + values["pos_emb"]["w"][pos:pos + q_len][None])
+
+    def make_cache(bsz):
+        return [(torch.zeros((bsz, t_max, heads, dh), device=dev),
+                 torch.zeros((bsz, t_max, heads, dh), device=dev))
+                for _ in range(n_layers)]
+
+    return embed, blocks, logits_of, make_cache
+
+
+@torch.no_grad()
+def incremental_generate(topo, params, prompt_ids, *, max_new: int,
+                         eos_id: int = None):
+    """KV-cache greedy decoding: one causal forward over the prompt
+    writes per-layer K/V caches (the prefill), then each step attends its
+    one query against the cache.  The same parameter tree as the
+    training graph, through ``_decode_fwd``; in float32 the tokens equal
+    ``greedy_generate``'s.  It runs where ``greedy_generate`` does.
+
+    prompt_ids: [B, P] ints.  Returns [B, P + max_new] ids (numpy int32);
+    after ``eos_id`` a row keeps emitting it."""
+    values = _values_of(params)
+    dims = _decode_dims(topo, values)
+    prompt_np = np.asarray(prompt_ids, np.int32)
+    b, p = prompt_np.shape
+    if max_new <= 0:
+        return prompt_np.copy()
+    _check_room(p, max_new, dims[2])
+    embed, blocks, logits_of, make_cache = _decode_fwd(values, dims)
+    dev = values["tok_emb"]["w"].device
+    prompt = torch.as_tensor(prompt_np, device=dev)
+    h, caches = blocks(embed(prompt, 0, p), make_cache(b), 0, p, b)
+    tok = torch.argmax(logits_of(h[:, -1:]), dim=-1)[:, 0]
+    done = ((tok == eos_id) if eos_id is not None
+            else torch.zeros(b, dtype=torch.bool, device=dev))
+    gen = [tok]
+    for t in range(p, p + max_new - 1):
+        # consume the token of position t, emit the one of t + 1
+        h, caches = blocks(embed(tok[:, None], t, 1), caches, t, 1, b)
+        tok = torch.argmax(logits_of(h), dim=-1)[:, 0]
+        if eos_id is not None:
+            tok = torch.where(done, eos_id, tok)
+            done |= tok == eos_id
+        gen.append(tok)
+    out = torch.stack(gen, dim=1).to(torch.int32).cpu().numpy()
+    return np.concatenate([prompt_np, out], axis=1)
+
+
+def _top_k(x, k: int):
+    """The k largest along the last axis, best first, the lower index
+    first among equals (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_generate(topo, params, prompt_ids, *, max_new: int,
+                  beam_size: int = 4, eos_id: int = None):
+    """Beam search over the KV cache of ``_decode_fwd``: the beams
+    flattened into the batch and reordered by gather at every expansion.
+    A finished beam (it emitted ``eos_id``) only extends by eos at its
+    score.  It runs where ``greedy_generate`` does.  Returns (ids [B, K,
+    max_new] int32, scores [B, K] float32 log-probs, best first), numpy."""
+    values = _values_of(params)
+    dims = _decode_dims(topo, values)
+    k_beam = beam_size
+    prompt_np = np.asarray(prompt_ids, np.int32)
+    b, p = prompt_np.shape
+    if max_new <= 0:
+        raise ValueError("beam_generate needs max_new >= 1")
+    _check_room(p, max_new, dims[2])
+    embed, blocks, logits_of, make_cache = _decode_fwd(values, dims)
+    dev = values["tok_emb"]["w"].device
+    vocab = int(values["logits"]["w0"].shape[1])
+    neg = -1e30
+    prompt = torch.as_tensor(prompt_np, device=dev)
+    h, caches = blocks(embed(prompt, 0, p), make_cache(b), 0, p, b)
+    logp0 = torch.log_softmax(logits_of(h[:, -1:])[:, 0], dim=-1)
+    scores, toks = _top_k(logp0, k_beam)                  # [B, K]
+    # beam-major caches: [B * K, T, heads, dh]
+    caches = [(ck.repeat_interleave(k_beam, dim=0),
+               cv.repeat_interleave(k_beam, dim=0)) for ck, cv in caches]
+    finished = ((toks == eos_id) if eos_id is not None
+                else torch.zeros((b, k_beam), dtype=torch.bool, device=dev))
+    seqs = torch.zeros((b, k_beam, max_new), dtype=torch.int64, device=dev)
+    seqs[:, :, 0] = toks
+
+    def gather_beams(x, beam_idx):
+        xr = x.reshape((b, k_beam) + tuple(x.shape[1:]))
+        idx = beam_idx.reshape((b, k_beam) + (1,) * (x.dim() - 1)).expand(
+            xr.shape)
+        return torch.gather(xr, 1, idx).reshape(x.shape)
+
+    for t in range(p, p + max_new - 1):
+        h, caches = blocks(embed(toks.reshape(-1)[:, None], t, 1), caches,
+                           t, 1, b * k_beam)
+        logp = torch.log_softmax(logits_of(h)[:, 0], dim=-1).reshape(
+            b, k_beam, vocab)
+        cand = scores[:, :, None] + logp
+        if eos_id is not None:
+            stay = torch.full_like(logp, neg)
+            stay[:, :, eos_id] = scores
+            cand = torch.where(finished[:, :, None], stay, cand)
+        scores, top_ix = _top_k(cand.reshape(b, k_beam * vocab), k_beam)
+        beam_idx = top_ix // vocab
+        toks = top_ix % vocab
+        caches = [(gather_beams(ck, beam_idx), gather_beams(cv, beam_idx))
+                  for ck, cv in caches]
+        finished = torch.gather(finished, 1, beam_idx)
+        if eos_id is not None:
+            finished = finished | (toks == eos_id)
+        seqs = torch.gather(seqs, 1, beam_idx[:, :, None].expand(seqs.shape))
+        seqs[:, :, t - p + 1] = toks
+    return (seqs.to(torch.int32).cpu().numpy(),
+            scores.float().cpu().numpy())
 
 
 class TransformerLM(nn.Module):

@@ -1,9 +1,5 @@
 """Reader creators (counterpart of ``paddle_tpu/reader/creator.py``;
-reference: python/paddle/v2/reader/creator.py).
-
-Not ported yet, and refused: ``recordio``, which reads the record files
-of ``io/recordio.py`` (``ROADMAP.md`` section 1, item 6).
-"""
+reference: python/paddle/v2/reader/creator.py)."""
 
 from __future__ import annotations
 
@@ -31,6 +27,16 @@ def text_file(path: str):
 
 
 def recordio(paths):
-    raise NotImplementedError(
-        "reader.creator.recordio is not ported to paddle_tpu_torch yet "
-        "(ROADMAP.md section 1, item 6)")
+    """Read the records of recordio shard files written by
+    ``io/recordio.py`` (length-prefixed framed records)."""
+    from paddle_tpu_torch.io.recordio import RecordReader
+
+    if isinstance(paths, str):
+        paths = [paths]
+
+    def reader():
+        for p in paths:
+            with RecordReader(p) as rr:
+                yield from rr
+
+    return reader

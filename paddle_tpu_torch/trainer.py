@@ -65,15 +65,33 @@ The dispatch options are the JAX package's:
 - ``SGD(remat=True | "blocks")`` recomputes layers in the backward
   (``Topology.forward``).
 
-Not ported yet, and refused: ``checkpoint_config`` (``ROADMAP.md``
-section 1, item 6), ``mesh`` and ``mesh_rules`` (item 14, with the
-vocab-parallel lookup of a sparse table).
+Checkpoints (``train(checkpoint_config=)``, ``io/checkpoint.py``) are
+the JAX package's: at its start ``train`` resumes from the newest
+snapshot under ``dirname`` that verifies (falling back past corrupt ones
+with a warning, or starting fresh when none verifies); a step snapshot
+resumes mid-pass, the reader replayed up to its ``batches_done``, bit for
+bit the uninterrupted run.  Step snapshots come every
+``save_period_steps`` global steps (at a chunk's edge where the period's
+boundary falls inside it), pass snapshots every ``saving_period`` passes,
+after which the step snapshots go.  ``restore`` copies a snapshot INTO
+the live tensors, so a captured chunk's graph replays from the restored
+state, and sets the trainer's generator (a snapshot of its own device
+type) in place, so the graphs that registered it draw on from there.  A
+step snapshot on the hot path is one stream-ordered copy of the state a
+dtype (``_snapshot_copy``) and, on the card, a copy to pinned host
+memory on a side stream; the writer thread waits for that copy's event
+and writes, so the step loop neither syncs nor waits on the disk.
+
+Not ported yet, and refused: ``mesh`` and ``mesh_rules`` (``ROADMAP.md``
+section 1, item 14, with the vocab-parallel lookup of a sparse table).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -99,6 +117,33 @@ def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _tensor_leaves(tree, path=()):
+    """(path, tensor) of every tensor leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tensor_leaves(v, path + (k,))
+        elif isinstance(v, torch.Tensor):
+            yield path + (k,), v
+
+
+@torch.no_grad()
+def _copy_into(live: dict, loaded: dict, where: str) -> None:
+    """Copy ``loaded``'s arrays into ``live``'s tensors in place, leaf by
+    leaf; a leaf the snapshot lacks keeps its value."""
+    for path, t in _tensor_leaves(live):
+        node = loaded
+        for k in path:
+            node = node.get(k) if isinstance(node, dict) else None
+        if node is None:
+            continue
+        src = torch.as_tensor(np.asarray(node))
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(
+                f"checkpoint {where} {'::'.join(map(str, path))}: shape "
+                f"{tuple(src.shape)}, the trainer's is {tuple(t.shape)}")
+        t.copy_(src)
 
 
 def _stack(values, device):
@@ -167,6 +212,13 @@ class SGD:
             int(cfg.get_option("seed", 0)) + 17)
         # the prepared k-step chunks (train(steps_per_dispatch=k))
         self._chunks = prepared.PreparedFamily(self.device)
+        # checkpoints: the monotonic step counter the snapshots are named
+        # by, the background writer, and (on the card) the pinned host
+        # buffers of the step snapshots in flight and free
+        self._global_step = 0
+        self._ckpt_writer = None
+        self._ckpt_stream = None
+        self._pinned_free = []
         self._built_policy_sig = None
         self._sync_precision_policy()
 
@@ -484,6 +536,185 @@ class SGD:
         finally:
             self._trainable, self._opt_state, self.model_state = own
 
+    # ------------------------------------------------------- checkpoints
+    def _snapshot_leaves(self) -> list:
+        """(tree, path, tensor) of every tensor a step snapshot copies:
+        the trainable parameters, the optimizer state and the running
+        state (the frozen partition never changes while training)."""
+        return [(name, path, t) for name, tree in (
+            ("trainable", self._trainable), ("opt_state", self._opt_state),
+            ("model_state", self.model_state))
+            for path, t in _tensor_leaves(tree)]
+
+    def _pinned(self, sizes: dict) -> dict:
+        """A free set of pinned host buffers ``{dtype: [n]}`` of these
+        sizes (one is allocated when none is free)."""
+        while self._pinned_free:
+            bufs = self._pinned_free.pop()
+            if {dt: b.numel() for dt, b in bufs.items()} == sizes:
+                return bufs
+        return {dt: torch.empty(n, dtype=dt, pin_memory=True)
+                for dt, n in sizes.items()}
+
+    @torch.no_grad()
+    def _snapshot_copy(self) -> "_StateCopy":
+        """The live state as it stands at this point of the stream, one
+        concatenated copy a dtype (the JAX trainer's one-dispatch device
+        copy): on the card the next step, which updates the state in
+        place, is ordered after it, and a side stream copies it to pinned
+        host memory behind an event, so the hot path neither syncs nor
+        copies through pageable memory.  The generator's state is read
+        here too: after a chunk's replays, the offset the next one uses."""
+        leaves = self._snapshot_leaves()
+        order: dict = {}
+        for i, (_, _, t) in enumerate(leaves):
+            order.setdefault(t.dtype, []).append(i)
+        staged = {dt: torch.cat([leaves[i][2].reshape(-1) for i in idx])
+                  for dt, idx in order.items()}
+        rng = self._generator.get_state()
+        done = None
+        if self.device.type == "cuda":
+            host = self._pinned({dt: b.numel() for dt, b in staged.items()})
+            if self._ckpt_stream is None:
+                self._ckpt_stream = torch.cuda.Stream(self.device)
+            side = self._ckpt_stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for dt, buf in staged.items():
+                    buf.record_stream(side)
+                    host[dt].copy_(buf, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+        else:
+            host = staged
+        return _StateCopy(leaves, order, host, done, rng,
+                          self._pinned_free if done is not None else None)
+
+    def _rng_extra(self, rng: torch.Tensor) -> dict:
+        return {"torch_rng": {"device": self.device.type,
+                              "state": rng.tolist()}}
+
+    def _save_step_snapshot(self, ckpt_cfg, pass_id: int,
+                            batches_done: int) -> float:
+        """The hot-path half of a step snapshot: the stream-ordered copy
+        and the hand-off to the writer (inline when ``async_save`` is
+        off).  Returns the host seconds it took."""
+        from paddle_tpu_torch.io import checkpoint as ckpt
+        t0 = time.perf_counter()
+        copy = self._snapshot_copy()
+        frozen = self._frozen
+        gstep = self._global_step
+        dirname, keep = ckpt_cfg.dirname, ckpt_cfg.keep_step_snapshots
+        extra = self._rng_extra(copy.rng)
+
+        def job():
+            try:
+                flat = copy.payloads()
+                ckpt.save_step(dirname, gstep, pass_id=pass_id,
+                               batches_done=batches_done,
+                               trainable=flat.get("trainable", {}),
+                               opt_state=flat.get("opt_state", {}),
+                               model_state=flat.get("model_state", {}),
+                               frozen=frozen, extra=extra)
+            finally:
+                copy.release()
+            ckpt.prune_steps(dirname, keep)
+
+        if ckpt_cfg.async_save:
+            if self._ckpt_writer is None:
+                # its idle loop is the scrubber when reverify_period_s
+                # is set
+                self._ckpt_writer = ckpt.AsyncCheckpointWriter(
+                    reverify_period_s=ckpt_cfg.reverify_period_s,
+                    reverify_dir=dirname)
+            self._ckpt_writer.submit(job)
+        else:
+            job()
+        return time.perf_counter() - t0
+
+    def _flush_ckpt_writer(self) -> None:
+        if self._ckpt_writer is not None:
+            for e in self._ckpt_writer.flush():
+                warnings.warn(f"async checkpoint save failed: {e!r}",
+                              RuntimeWarning)
+
+    def _save_pass_snapshot(self, ckpt_cfg, pass_id: int) -> None:
+        """The pass-end snapshot, after the writer drained (so it and the
+        step snapshots' prune cannot interleave); it supersedes every
+        step snapshot."""
+        from paddle_tpu_torch.io import checkpoint as ckpt
+        self._flush_ckpt_writer()
+        ckpt.save(ckpt_cfg.dirname, pass_id, trainable=self._trainable,
+                  opt_state=self._opt_state, model_state=self.model_state,
+                  frozen=self._frozen,
+                  extra={**self._rng_extra(self._generator.get_state()),
+                         "global_step": self._global_step})
+        ckpt.prune_steps(ckpt_cfg.dirname, keep=0)
+        if ckpt_cfg.save_only_one:
+            ckpt.prune_old(ckpt_cfg.dirname, pass_id)
+
+    def _auto_resume(self, ckpt_cfg) -> tuple:
+        """Restore the newest snapshot under ``ckpt_cfg.dirname`` that
+        verifies; returns (first pass, batches of it already done)."""
+        from paddle_tpu_torch.io import checkpoint as ckpt
+        try:
+            snap = ckpt.load(ckpt_cfg.dirname)
+        except FileNotFoundError:
+            return 0, 0
+        except ckpt.CheckpointCorrupt as e:
+            # every snapshot failed and was quarantined: a fresh start
+            # beats a crash loop
+            warnings.warn(f"auto-resume found no valid checkpoint: {e}",
+                          RuntimeWarning)
+            return 0, 0
+        if snap["fallbacks"]:
+            warnings.warn(f"auto-resume fell back past {snap['fallbacks']} "
+                          f"corrupt snapshot(s) to {snap['kind']} "
+                          f"pass={snap['pass_id']}", RuntimeWarning)
+        self.restore(snap)
+        if snap["kind"] == "step":
+            man = snap["manifest"]
+            return (int(man.get("pass_id", snap["pass_id"])),
+                    int(man.get("batches_done", 0)))
+        return snap["pass_id"] + 1, 0
+
+    @torch.no_grad()
+    def restore(self, snap: dict) -> None:
+        """Adopt a checkpoint snapshot (``io.checkpoint.load``'s result,
+        the JAX package's too): its values are copied into the live
+        parameters, optimizer state (what the policy carries of it),
+        running state and frozen parameters, so every captured chunk
+        replays from them.  The port's generator state (``torch_rng``, of
+        this device type) is set in place; a snapshot without it (the JAX
+        package's) leaves the generator as it is.  ``global_step`` is
+        taken over."""
+        self._sync_precision_policy()
+        _copy_into(self._trainable, snap["trainable"], "params")
+        _copy_into(self._opt_state, snap.get("opt_state") or {},
+                   "opt_state")
+        _copy_into(self.model_state, snap.get("model_state") or {},
+                   "model_state")
+        _copy_into(self._frozen, snap.get("frozen") or {}, "frozen")
+        man = snap.get("manifest") or {}
+        rng = man.get("torch_rng")
+        if rng and rng.get("device") == self.device.type:
+            self._generator.set_state(torch.tensor(rng["state"],
+                                                   dtype=torch.uint8))
+        if man.get("global_step") is not None:
+            self._global_step = int(man["global_step"])
+        self._sync_parameters()
+
+    def save_parameter_to_tar(self, f) -> None:
+        """Write the live parameters as a tar.  Given a path the write is
+        atomic (tmp, fsync, rename: ``io/atomic.py``); a file object is
+        written directly (its owner keeps it durable)."""
+        self._sync_parameters()
+        if isinstance(f, (str, os.PathLike)):
+            from paddle_tpu_torch.io import atomic
+            atomic.atomic_write_file(f, self.parameters.to_tar)
+        else:
+            self.parameters.to_tar(f)
+
     # ------------------------------------------------------------ train
     def _make_feed_converter(self, feeder, seq_buckets):
         """batch -> feed dict for the train loop.  With ``seq_buckets``
@@ -564,8 +795,11 @@ class SGD:
         at a time.
 
         ``seq_buckets``: ``True`` / ``"auto"`` or a list of lengths, as
-        ``_make_feed_converter`` says."""
-        _refuse(6, checkpoint_config=checkpoint_config)
+        ``_make_feed_converter`` says.
+
+        ``checkpoint_config`` (``io.checkpoint.CheckpointConfig``):
+        auto-resume from its ``dirname`` and snapshots into it, as the
+        module docstring says."""
         if event_handler is None:
             event_handler = _default_event_handler
         feeder = DataFeeder(self.topology, feeding)
@@ -592,15 +826,35 @@ class SGD:
                 _feed_dicts, depth=prefetch_depth, device=self.device)
         else:
             batch_source = reader
+        start_pass, skip_batches, every = 0, 0, None
+        if checkpoint_config is not None:
+            every = checkpoint_config.save_period_steps
+            start_pass, skip_batches = self._auto_resume(checkpoint_config)
+            if every and self.device.type == "cuda" \
+                    and not self._pinned_free:
+                # two copies off the step path: they make the pinned
+                # buffers, the device memory and the side stream of two
+                # snapshots in flight
+                for copy in [self._snapshot_copy() for _ in range(2)]:
+                    copy.payloads()
+                    copy.release()
         from paddle_tpu_torch.evaluator import EvalAccumulator
         acc = EvalAccumulator(self.topology.evaluators)
-        for pass_id in range(num_passes):
+        for pass_id in range(start_pass, num_passes):
             event_handler(v2_event.BeginPass(pass_id))
             acc.reset()
             batch_id = 0
             batch_iter = iter(batch_source())
+            if pass_id == start_pass and skip_batches:
+                # mid-pass resume: replay the reader to the snapshot's
+                # position (drawn and dropped, no step)
+                for _ in range(skip_batches):
+                    if next(batch_iter, None) is None:
+                        break
+                batch_id = skip_batches
             try:
                 while True:
+                    gstep = self._global_step
                     group = []
                     while len(group) < k:
                         try:
@@ -626,6 +880,13 @@ class SGD:
                             event_handler(v2_event.EndIteration(
                                 pass_id, batch_id, losses[i], {}))
                             batch_id += 1
+                            self._global_step += 1
+                        if every and (gstep // every
+                                      != self._global_step // every):
+                            # the period's boundary fell inside the chunk:
+                            # the state exists only at its edges
+                            self._save_step_snapshot(checkpoint_config,
+                                                     pass_id, batch_id)
                         continue
                     for feed in group:
                         event_handler(v2_event.BeginIteration(pass_id,
@@ -641,13 +902,24 @@ class SGD:
                         event_handler(v2_event.EndIteration(
                             pass_id, batch_id, loss, {}))
                         batch_id += 1
+                        self._global_step += 1
+                        if every and self._global_step % every == 0:
+                            self._save_step_snapshot(checkpoint_config,
+                                                     pass_id, batch_id)
             finally:
                 # ends a prefetch producer on every way out of the pass
                 close = getattr(batch_iter, "close", None)
                 if close is not None:
                     close()
             self._sync_parameters()
+            if (checkpoint_config is not None
+                    and pass_id % checkpoint_config.saving_period == 0):
+                self._save_pass_snapshot(checkpoint_config, pass_id)
             event_handler(v2_event.EndPass(pass_id, metrics=acc.results()))
+        # every snapshot promised is on disk when train returns; after an
+        # error the daemon writer finishes its job (or the process dies:
+        # the atomic publish makes either safe)
+        self._flush_ckpt_writer()
 
     @torch.no_grad()
     def test(self, reader, feeding: Optional[Dict[str, int]] = None):
@@ -674,6 +946,39 @@ class SGD:
         """Reflect the trained tree back into the Parameters object."""
         self.parameters.values = params_mod.merge(self._trainable,
                                                   self._frozen)
+
+
+class _StateCopy:
+    """A step snapshot's copy of the trainer's state (``_snapshot_copy``):
+    ``payloads()`` waits for its copy to land and returns ``{tree: {"a::b":
+    host array}}``, the payloads' keys as ``io/checkpoint.py`` writes them;
+    ``release()`` hands its pinned buffers back to the trainer's pool."""
+
+    def __init__(self, leaves, order, host, done, rng, pool):
+        from paddle_tpu_torch.io.checkpoint import _SEP
+        self.meta = [(name, _SEP.join(path), tuple(t.shape))
+                     for name, path, t in leaves]
+        self.order, self.host, self.done = order, host, done
+        self.rng, self.pool = rng, pool
+
+    def payloads(self) -> dict:
+        if self.done is not None:
+            self.done.synchronize()
+        out: dict = {}
+        for dt, idx in self.order.items():
+            flat, off = self.host[dt].numpy(), 0
+            for i in idx:
+                name, key, shape = self.meta[i]
+                n = int(np.prod(shape))
+                out.setdefault(name, {})[key] = flat[off:off + n].reshape(
+                    shape)
+                off += n
+        return out
+
+    def release(self) -> None:
+        if self.pool is not None:
+            self.pool.append(self.host)
+        self.pool = self.host = None
 
 
 class _Grads:

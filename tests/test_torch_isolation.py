@@ -54,7 +54,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             "paddle_tpu_torch.dataset", "paddle_tpu_torch.dataset.common",
             "paddle_tpu_torch.dataset.mnist",
             "paddle_tpu_torch.reader.creator", "paddle_tpu_torch.models.ctr",
-            "paddle_tpu_torch.models.mlp"} <= mods
+            "paddle_tpu_torch.models.mlp", "paddle_tpu_torch.io.atomic",
+            "paddle_tpu_torch.io.checkpoint",
+            "paddle_tpu_torch.io.recordio"} <= mods
 
 
 def _loaded_after(code: str) -> list:

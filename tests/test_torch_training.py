@@ -370,13 +370,14 @@ def test_cli_train_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert len(lines) == 2
     costs = [float(l.rsplit(" ", 1)[1]) for l in lines]
     assert all(np.isfinite(costs))
-    with pytest.raises(NotImplementedError, match="--save_dir"):
+    with pytest.raises(NotImplementedError, match="--telemetry_dir"):
         cli.main(["train", "--config", str(path), "--device", "cpu",
-                  "--save_dir", str(tmp_path)])
+                  "--telemetry_dir", str(tmp_path)])
 
 
 # ------------------------------------------------------ what is refused
-def test_unported_options_raise_rather_than_fall_through(monkeypatch):
+def test_unported_options_raise_rather_than_fall_through(monkeypatch,
+                                                         tmp_path):
     ttopo, _ = _lm_both(**SMALL)
     params = pt.parameters.create(ttopo, device="cpu")
     # the precision policy is ported: only a name it does not know raises
@@ -387,8 +388,13 @@ def test_unported_options_raise_rather_than_fall_through(monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         pt.trainer.SGD(ttopo, params, pt.optimizer.Adam(), mesh=object())
     tr = pt.trainer.SGD(ttopo, params, pt.optimizer.Adam())
-    with pytest.raises(NotImplementedError, match="checkpoint_config"):
-        tr.train(lambda: iter(()), checkpoint_config=object())
+    # checkpoint_config is ported: it trains and writes a snapshot
+    from paddle_tpu_torch.io import checkpoint
+    ckdir = os.path.join(str(tmp_path), "ck")
+    tr.train(lambda: iter([_feed(False)]), event_handler=lambda e: None,
+             checkpoint_config=checkpoint.CheckpointConfig(ckdir))
+    assert checkpoint.list_passes(ckdir) == [0]
+    assert checkpoint.load(ckdir)["manifest"]["global_step"] == 1
     # a ring-attention layer refuses to run on one device
     reset_port_names()
     x = pt.layer.data("x", pt.data_type.dense_vector_sequence(8, 4))
