@@ -277,14 +277,34 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    background write's seconds and bytes, and the restore's time apart
    from the pinned buffers' warm-up, beside the card line (smoke
    figures);
-18. one JSON line each for the LM training, NMT and LSTM, the bf16
-   policy, fp16 policy, dispatch, v2, sparse, checkpoint, sweep, ResNet
-   and ResNet-under-bf16 runs, the card line again,
+18. the serving slice (``serve_slice``): the same LM at full width, served
+   on ``device="cuda"``: (a) ``PagedDecoder(sampling=True)`` answers 8
+   greedy requests (no knobs, or temperature 0) with streams equal bit for
+   bit to ``reference_streams`` of the ``sampling=False`` decoder; (b) 8
+   seeded requests (temperature 0.8, top_k 50, top_p 0.95) give one stream
+   alone and beside 8 greedy requests, another seed another stream, and
+   ``top_k=1`` rows the greedy stream; (c) ``InferenceEngine(SlotDecoder)``
+   under ``continuous`` and ``static`` gives the reference's streams
+   (a divergence only at a near tie, reported), with TTFT p50 / p99 and
+   tokens/s; (d) 64 requests of tenant ``a`` and 16 of ``b`` at once
+   through ``ServingClient`` with retries off against ``max_queue_depth``
+   16, weights a 3 b 1 and a per-tenant quota of 0.5: every answered
+   stream its reference's, the client's 429s by reason the engine's
+   sheds, every slot free and the pool at its baseline after, each
+   tenant's answered share and TTFT; (e) a 4000-token request with a 50 ms
+   deadline answers 504 and gives its slot and blocks back; (f) 32 calls
+   with retries on all answer within their deadlines; (g) the sampling
+   pick's time at vocab 32000 x 8 rows beside the argmax, and kernels 1
+   and 4's launches over the phase;
+19. one JSON line each for the LM training, NMT and LSTM, the bf16
+   policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
+   sweep, ResNet and ResNet-under-bf16 runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
-phases (``dispatch``, ``v2``, ``sparse`` or ``ckpt``, or a part of one:
+phases (``dispatch``, ``v2``, ``sparse``, ``ckpt`` or ``serve``, or a part
+of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -1447,16 +1467,59 @@ def post(url, doc, timeout=900):
         return r.status, json.loads(r.read())
 
 
-def reference_streams(dec, reqs):
+def _post_status(url, doc, headers=None, timeout=900):
+    """(status, body) of one POST /infer, an error status included."""
+    import urllib.error
+    req = urllib.request.Request(
+        url + "/infer", data=json.dumps(doc).encode(),
+        headers=dict({"Content-Type": "application/json"}, **(headers or {})),
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _served(engine, docs):
+    """Each doc POSTed to ``engine``'s /infer at once: (status, body)s and
+    the wall seconds."""
+    url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+    out = [None] * len(docs)
+
+    def call(i):
+        out[i] = _post_status(url, docs[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(docs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP request did not finish")
+    return out, wall
+
+
+def _streams_of(what, results):
+    bad = [(i, r) for i, r in enumerate(results) if r[0] != 200]
+    if bad:
+        raise AssertionError(f"{what}: requests failed: {bad[:3]}")
+    return [body["outputs"]["tokens"] for _, body in results]
+
+
+def reference_streams(dec, reqs, n=MAX_TOKENS):
     """Each prompt decoded alone through ``dec`` (the plain-PyTorch path
-    on the card); per token, the top-2 logit margin of the step that
-    chose it."""
+    on the card), ``n`` tokens; per token, the top-2 logit margin of the
+    step that chose it."""
     out = []
     for p in reqs:
         toks = [dec.prefill(0, p)]
         margins = [dec.last_logits[1]]
         pos = len(p)
-        for _ in range(MAX_TOKENS - 1):
+        for _ in range(n - 1):
             toks.append(int(dec.step(1, [toks[-1]], [pos])[0]))
             margins.append(dec.last_logits[0][0])
             pos += 1
@@ -1464,6 +1527,23 @@ def reference_streams(dec, reqs):
         top2 = [torch.topk(m, 2).values for m in margins]
         out.append((toks, [float(t[0] - t[1]) for t in top2]))
     return out
+
+
+def _tie_or_equal(what, got, ref) -> int:
+    """0 when ``got`` equals the reference stream, 1 when it parts from it
+    at a near tie (the reference's top-2 margin below TOL, reported);
+    raises otherwise."""
+    toks, margins = ref
+    if got == toks:
+        return 0
+    j = next(j for j, (a, b) in enumerate(zip(got, toks)) if a != b)
+    if margins[j] >= TOL:
+        raise AssertionError(f"{what}: parts from the reference at token "
+                             f"{j} where its top-2 margin is "
+                             f"{margins[j]:.3e} >= {TOL}")
+    print(f"{what}: parts at token {j}, a near tie (top-2 margin "
+          f"{margins[j]:.3e} < {TOL}) - reported, not failed", flush=True)
+    return 1
 
 
 def main_path():
@@ -1510,6 +1590,8 @@ def main_path():
         launches = ops.launch_counts()
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
+        with urllib.request.urlopen(url + "/kernels", timeout=60) as r:
+            served = json.loads(r.read())["launches"]
     finally:
         engine.close()
     if any(t.is_alive() for t in threads):
@@ -1519,16 +1601,16 @@ def main_path():
         if code != 200 or len(toks) != MAX_TOKENS \
                 or not all(0 <= t < VOCAB for t in toks):
             raise AssertionError(f"request {i}: {code} {body}")
-    if stats["kernels"] != launches or min(
-            launches[k] for k in SERVE_KERNELS) < 1:
+    if served != launches or min(launches[k] for k in SERVE_KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched on the serving "
-                             f"path: {launches} (/stats {stats['kernels']})")
+                             f"path: {launches} (/kernels {served})")
     gen = sum(len(b["outputs"]["tokens"]) for _, b in results)
     print(f"main path: {len(reqs)} HTTP requests, prompts "
           f"{[len(p) for p in reqs]}, {gen} tokens in {wall:.2f}s = "
           f"{gen / wall:.1f} tokens/s; iterations {stats['iterations']}, "
           f"prefix hits {stats['prefix_hits']}, ttft_us p50 "
-          f"{stats['ttft_us']['p50']:.0f} max {stats['ttft_us']['max']:.0f} "
+          f"{stats['decode']['ttft_us_p50']:.0f} p99 "
+          f"{stats['decode']['ttft_us_p99']:.0f} "
           f"(smoke figure, not a benchmark); launches {launches}",
           flush=True)
 
@@ -1538,20 +1620,9 @@ def main_path():
     ref = reference_streams(ref_dec, reqs)
     print(f"plain-PyTorch reference run: {time.perf_counter() - t0:.1f}s",
           flush=True)
-    near_ties = 0
-    for i, ((code, body), (rtoks, margins)) in enumerate(zip(results, ref)):
-        toks = body["outputs"]["tokens"]
-        if toks == rtoks:
-            continue
-        j = next(j for j, (a, b) in enumerate(zip(toks, rtoks)) if a != b)
-        if margins[j] >= TOL:
-            raise AssertionError(
-                f"request {i} diverges from the plain path at token {j} "
-                f"where its top-2 margin is {margins[j]:.3e} >= {TOL}")
-        near_ties += 1
-        print(f"request {i}: diverges at token {j}, a near tie (top-2 "
-              f"margin {margins[j]:.3e} < {TOL}) - reported, not failed",
-              flush=True)
+    near_ties = sum(_tie_or_equal(f"request {i}", body["outputs"]["tokens"],
+                                  r)
+                    for i, ((_, body), r) in enumerate(zip(results, ref)))
     print(f"streams equal to the plain path: {len(reqs) - near_ties} of "
           f"{len(reqs)}", flush=True)
     iters = {"kernels": iteration_ms(decoder, reqs),
@@ -6324,26 +6395,13 @@ def _engine_streams(decoder, reqs) -> list:
     from paddle_tpu_torch.serving import InferenceEngine
 
     engine = InferenceEngine(decoder, default_max_tokens=MAX_TOKENS)
-    results = [None] * len(reqs)
     try:
-        url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
-
-        def call(i):
-            results[i] = post(url, {"input": [reqs[i].tolist()],
-                                    "max_tokens": MAX_TOKENS})
-
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(reqs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
+        results, _ = _served(engine, [{"input": [r.tolist()],
+                                       "max_tokens": MAX_TOKENS}
+                                      for r in reqs])
     finally:
         engine.close()
-    if any(r is None or r[0] != 200 for r in results):
-        raise AssertionError(f"a request to the snapshot's server failed: "
-                             f"{results}")
-    return [body["outputs"]["tokens"] for _, body in results]
+    return _streams_of("the snapshot's server", results)
 
 
 def _equal_streams(what, got, want, margin_at) -> None:
@@ -6537,12 +6595,326 @@ def ckpt_slice() -> dict:
 CKPT_PHASES = {"ckpt": ckpt_slice}
 
 
+# ------------------------------------------------------ the serving slice
+SERVE_SEEDED = dict(temperature=0.8, top_k=50, top_p=0.95)
+FLOOD_TOKENS, FLOOD_PROMPTS = 64, 8
+FLOOD_TENANTS = {"a": 64, "b": 16}
+
+
+def _flood_prompts():
+    """FLOOD_PROMPTS prompts of 5 to 15 tokens (shorter than a block, so
+    no prefix is shared and each prefill is one chunk)."""
+    rng = np.random.RandomState(SEED + 18)
+    return [rng.randint(0, VOCAB, size=int(rng.randint(5, 16)))
+            .astype(np.int32) for _ in range(FLOOD_PROMPTS)]
+
+
+def _tenant_ttft(engine) -> dict:
+    """Wraps the engine's first-token hook to record each request's time
+    to first token by tenant (the engine keeps one pool for all)."""
+    rec = {}
+    first = engine._first_token
+
+    def hook(active, r, slot, tok, t_first):
+        rec.setdefault(r.tenant, []).append((t_first - r.t_submit) * 1e6)
+        return first(active, r, slot, tok, t_first)
+
+    engine._first_token = hook
+    return rec
+
+
+def _pct(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(q * len(vals)))] if vals else None
+
+
+def serve_slice() -> dict:
+    """Phase 18: the decode server's overload, tenancy and sampling layer
+    at the LM's full width - greedy rows of a sampling decoder, seeded
+    requests alone and beside greedy ones, the slab engine under both
+    policies, a tenant flood through ``ServingClient`` with retries off,
+    a mid-generation deadline, a second flood with retries on, and the
+    pick's cost."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models.transformer import (PagedDecoder,
+                                                     SlotDecoder,
+                                                     params_from_jax,
+                                                     pick_tokens)
+    from paddle_tpu_torch.serving import (InferenceEngine, Overloaded,
+                                          ServingClient)
+
+    card = card_line()
+    model = params_from_jax(random_values(SEED), num_heads=HEADS)
+    reqs = prompts()
+    out = {}
+    ops.reset_launch_counts()
+    plain = PagedDecoder(model, max_slots=SLOTS, block_size=BLOCK,
+                         device="cuda")
+    ref = reference_streams(plain, reqs)
+    sampler = PagedDecoder(model, max_slots=SLOTS, block_size=BLOCK,
+                           sampling=True, device="cuda")
+
+    # (a) greedy rows of the sampling decoder: no knobs, or temperature 0
+    docs = [dict({"input": [p.tolist()], "max_tokens": MAX_TOKENS},
+                 **({} if i % 2 else {"temperature": 0.0, "seed": i}))
+            for i, p in enumerate(reqs)]
+    engine = InferenceEngine(sampler)
+    try:
+        greedy = _streams_of("greedy rows", _served(engine, docs)[0])
+    finally:
+        engine.close()
+    for i, (got, (toks, margins)) in enumerate(zip(greedy, ref)):
+        _equal_streams(f"greedy request {i} of the sampling decoder", got,
+                       toks, margins.__getitem__)
+    print(f"(a) PagedDecoder(sampling=True), 8 greedy requests (4 with no "
+          f"knobs, 4 at temperature 0): 8 of 8 streams equal to the "
+          f"sampling=False decoder's reference; {card}", flush=True)
+
+    # (b) seeded requests alone, then beside 8 greedy ones
+    seeded = [dict({"input": [p.tolist()], "max_tokens": MAX_TOKENS,
+                    "seed": 100 + i}, **SERVE_SEEDED)
+              for i, p in enumerate(reqs)]
+    extra = [dict(seeded[0], seed=200), dict(seeded[1], top_k=1, seed=300),
+             dict(seeded[2], top_k=1, temperature=1.5, seed=301)]
+    engine = InferenceEngine(sampler)
+    try:
+        res, wall_alone = _served(engine, seeded + extra)
+        alone = _streams_of("seeded alone", res)
+        res, wall_mixed = _served(engine, seeded + [
+            {"input": [p.tolist()], "max_tokens": MAX_TOKENS}
+            for p in reqs])
+        mixed = _streams_of("seeded beside greedy", res)
+    finally:
+        engine.close()
+    if mixed[:8] != alone[:8]:
+        i = next(i for i in range(8) if mixed[i] != alone[i])
+        raise AssertionError(f"seeded request {i}: its stream beside greedy "
+                             f"requests differs from its stream alone")
+    for i, (got, (toks, _)) in enumerate(zip(mixed[8:], ref)):
+        if got != toks:
+            raise AssertionError(f"greedy request {i} beside seeded ones "
+                                 f"differs from the reference")
+    if alone[8] == alone[0]:
+        raise AssertionError("seeds 100 and 200 gave one stream")
+    if alone[9] != ref[1][0] or alone[10] != ref[2][0]:
+        raise AssertionError("top_k=1 rows differ from greedy")
+    distinct = len({tuple(t) for t in alone[:8]})
+    print(f"(b) 8 seeded requests (temperature 0.8, top_k 50, top_p 0.95, "
+          f"{MAX_TOKENS} tokens): alone {wall_alone:.2f} s, beside 8 greedy "
+          f"{wall_mixed:.2f} s, streams equal; seed 200 differs from seed "
+          f"100; top_k=1 rows equal greedy; {distinct} distinct streams of "
+          f"8; {card}", flush=True)
+    out["seeded"] = {"alone_s": wall_alone, "beside_greedy_s": wall_mixed,
+                     "distinct": distinct}
+
+    # (c) the slab engine under both policies
+    slab_dec = SlotDecoder(model, max_slots=SLOTS, device="cuda")
+    docs = [{"input": [p.tolist()], "max_tokens": MAX_TOKENS} for p in reqs]
+    out["slab"] = {}
+    for policy in ("continuous", "static"):
+        slab_dec.reset()
+        engine = InferenceEngine(slab_dec, decode_policy=policy)
+        try:
+            res, wall = _served(engine, docs)
+            st = engine.stats()
+        finally:
+            engine.close()
+        streams = _streams_of(f"slab {policy}", res)
+        ties = sum(_tie_or_equal(f"slab {policy} request {i}", got, r)
+                   for i, (got, r) in enumerate(zip(streams, ref)))
+        d = st["decode"]
+        rec = {"ttft_us_p50": d["ttft_us_p50"], "ttft_us_p99": d["ttft_us_p99"],
+               "tokens_per_s": len(reqs) * MAX_TOKENS / wall,
+               "iterations": d["iterations"], "near_ties": ties}
+        out["slab"][policy] = rec
+        print(f"(c) slab SlotDecoder engine, {policy}: {len(reqs) - ties} of "
+              f"{len(reqs)} streams equal to the paged engine's and the "
+              f"reference ({ties} near ties); TTFT p50 "
+              f"{rec['ttft_us_p50'] / 1e3:.1f} ms p99 "
+              f"{rec['ttft_us_p99'] / 1e3:.1f} ms, "
+              f"{rec['tokens_per_s']:.1f} tokens/s over {wall:.2f} s, "
+              f"{d['iterations']} iterations (smoke figures); {card}",
+              flush=True)
+    del slab_dec
+    torch.cuda.empty_cache()
+
+    # (d) a tenant flood through the client, retries off
+    fprompts = _flood_prompts()
+    fref = [t for t, _ in reference_streams(plain, fprompts, FLOOD_TOKENS)]
+    engine = InferenceEngine(plain, max_queue_depth=16,
+                             tenant_weights={"a": 3, "b": 1},
+                             max_queue_depth_per_tenant=0.5)
+    ttft = _tenant_ttft(engine)
+    base_pool = plain.pool_stats()
+    url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+    client = ServingClient(url, max_attempts=1)
+    calls = [(t, i) for t, n in FLOOD_TENANTS.items() for i in range(n)]
+    answers, sheds = {}, {}
+    lock = threading.Lock()
+
+    def flood_call(k):
+        tenant, i = calls[k]
+        try:
+            toks = client.infer([fprompts[i % FLOOD_PROMPTS].tolist()],
+                                max_tokens=FLOOD_TOKENS,
+                                tenant=tenant)["tokens"].tolist()
+            with lock:
+                answers[k] = toks
+        except Overloaded as e:
+            with lock:
+                sheds[e.reason] = sheds.get(e.reason, 0) + 1
+
+    try:
+        threads = [threading.Thread(target=flood_call, args=(k,))
+                   for k in range(len(calls))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        flood_s = time.perf_counter() - t0
+        st = engine.stats()
+        if len(answers) + sum(sheds.values()) != len(calls):
+            raise AssertionError(f"flood: {len(answers)} answered, {sheds} "
+                                 f"shed of {len(calls)}")
+        for k, toks in answers.items():
+            if toks != fref[calls[k][1] % FLOOD_PROMPTS]:
+                raise AssertionError(f"flood request {calls[k]}: its stream "
+                                     f"differs from its reference")
+        engine_sheds = {r: c for r, c in st["shed"].items() if c}
+        if engine_sheds != sheds:
+            raise AssertionError(f"flood: the client's 429s {sheds} are not "
+                                 f"the engine's sheds {engine_sheds}")
+        pool = plain.pool_stats()
+        if (st["decode"]["slots_occupied"]
+                or pool["used"] != base_pool["used"]
+                or pool["free"] != base_pool["free"]
+                or plain.blocks.leaked()):
+            raise AssertionError(f"flood leaked: slots "
+                                 f"{st['decode']['slots_occupied']}, pool "
+                                 f"{pool} against {base_pool}")
+        share = {t: sum(1 for k in answers if calls[k][0] == t)
+                 for t in FLOOD_TENANTS}
+        out["flood"] = {
+            "answered": share, "sheds": sheds, "seconds": flood_s,
+            "ttft_us": {t: {"p50": _pct(v, 0.5), "p99": _pct(v, 0.99)}
+                        for t, v in ttft.items()},
+            "ttft_us_p50": st["decode"]["ttft_us_p50"],
+            "ttft_us_p99": st["decode"]["ttft_us_p99"]}
+        print(f"(d) flood of {len(calls)} requests ({FLOOD_TENANTS}, "
+              f"{FLOOD_TOKENS} tokens, max_queue_depth 16, weights a 3 b 1, "
+              f"quota 0.5) in {flood_s:.2f} s: answered {share}, shed "
+              f"{sheds} (the client's 429s equal the engine's sheds), every "
+              f"answered stream equal to its reference, slots free and the "
+              f"pool at its baseline (used {pool['used']}, free "
+              f"{pool['free']}); TTFT ms by tenant " + ", ".join(
+                  f"{t} p50 {_pct(v, 0.5) / 1e3:.1f} p99 "
+                  f"{_pct(v, 0.99) / 1e3:.1f}" for t, v in
+                  sorted(ttft.items())) + f"; {card}", flush=True)
+
+        # (e) a mid-generation deadline
+        code, body = _post_status(url, {"input": [reqs[0].tolist()],
+                                        "max_tokens": 4000,
+                                        "deadline_ms": 50})
+        if code != 504:
+            raise AssertionError(f"the 50 ms deadline answered {code} {body}")
+        t0 = time.perf_counter()
+        while engine.stats()["decode"]["slots_occupied"] and \
+                time.perf_counter() - t0 < 30:
+            time.sleep(0.01)
+        pool = plain.pool_stats()
+        if (engine.stats()["decode"]["slots_occupied"]
+                or pool["used"] != base_pool["used"]
+                or plain.blocks.leaked()):
+            raise AssertionError(f"the reaped request kept its slot or "
+                                 f"blocks: {pool}")
+        out["deadline"] = {"status": code,
+                           "generated": body.get("generated")}
+        print(f"(e) 4000-token request with a 50 ms deadline: {code} after "
+              f"{body.get('generated')} tokens; its slot and blocks came "
+              f"back; {card}", flush=True)
+
+        # (f) a second flood with retries on
+        retrying = ServingClient(url, max_attempts=12, backoff_base_s=0.05,
+                                 backoff_cap_s=1.0, deadline_s=120.0)
+        took = [None] * 32
+
+        def retry_call(k):
+            t0 = time.perf_counter()
+            toks = retrying.infer([fprompts[k % FLOOD_PROMPTS].tolist()],
+                                  max_tokens=FLOOD_TOKENS,
+                                  tenant="ab"[k % 4 == 3])["tokens"].tolist()
+            if toks != fref[k % FLOOD_PROMPTS]:
+                raise AssertionError(f"retried request {k} differs")
+            took[k] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=retry_call, args=(k,))
+                   for k in range(len(took))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        if any(t is None or t >= 120.0 for t in took):
+            raise AssertionError(f"a retried call failed or overran its "
+                                 f"deadline: {took}")
+        cs = retrying.stats()
+        out["retries"] = {"calls": len(took), "retries": cs["retries"],
+                          "status_counts": cs["status_counts"],
+                          "max_s": max(took)}
+        print(f"(f) {len(took)} calls with retries on: every call answered "
+              f"within its 120 s deadline (slowest {max(took):.2f} s), "
+              f"{cs['retries']} retries, statuses {cs['status_counts']}; "
+              f"{card}", flush=True)
+    finally:
+        engine.close()
+
+    # (g) the pick's cost, and the phase's launches
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    lg = torch.randn(SLOTS, VOCAB, device=dev, generator=gen)
+    knobs = (torch.full((SLOTS,), 0.8, device=dev),
+             torch.full((SLOTS,), 50, dtype=torch.int32, device=dev),
+             torch.full((SLOTS,), 0.95, device=dev),
+             torch.arange(SLOTS, dtype=torch.int32, device=dev),
+             torch.full((SLOTS,), 100, dtype=torch.int32, device=dev))
+    pick_ms = time_ms(lambda: pick_tokens(lg, *knobs), flush)
+    argmax_ms = time_ms(lambda: torch.argmax(lg, dim=-1), flush)
+    del flush
+    prof = profile_call(lambda: pick_tokens(lg, *knobs))
+    out["pick_profile"] = {k: prof[k] for k in ("step_ms", "busy_ms",
+                                                "idle_share", "top")}
+    print(f"(g) one pick under torch.profiler: {prof['step_ms']:.4f} ms, "
+          f"the device busy {prof['busy_ms']:.4f} ms of it; its kernels "
+          f"by device time: " + "; ".join(
+              f"{name} x{n} {ms:.4f} ms" for name, n, ms in prof["top"][:6])
+          + f"; {card}", flush=True)
+    launches = {n: ops.launch_counts()[n] for n in SERVE_KERNELS}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the serving slice was not "
+                             f"launched: {launches}")
+    out["pick_ms"], out["argmax_ms"] = pick_ms, argmax_ms
+    out["launches"] = launches
+    print(f"(g) the sampling pick at vocab {VOCAB} x {SLOTS} rows: "
+          f"{pick_ms:.4f} ms a call on CUDA events (sort, softmax, cumsum, "
+          f"the noise hash, argmax), the greedy argmax {argmax_ms:.4f} ms; "
+          f"the phase launched kernel 1 {launches['flash_fwd']} and kernel "
+          f"4 {launches['paged_decode']} times; {card}", flush=True)
+    del plain, sampler
+    torch.cuda.empty_cache()
+    return out
+
+
+SERVE_PHASES = {"serve": serve_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
-    any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), or ``ckpt``
-    (phase 17), for a development run; the full run takes no
-    arguments."""
+    any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
+    (phase 17) or ``serve`` (phase 18), for a development run; the full
+    run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -6552,12 +6924,12 @@ def selected(argv) -> list:
              for n in groups.get(g, [g])]
     unknown = [n for n in names if n not in DISPATCH_PHASES
                and n not in V2_PHASES and n not in CTR_PHASES
-               and n not in CKPT_PHASES]
+               and n not in CKPT_PHASES and n not in SERVE_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
                          f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}"
-                         f" + {sorted(CKPT_PHASES)}")
+                         f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}")
     return names
 
 
@@ -6600,7 +6972,7 @@ def main(argv=()) -> int:
                 out[name] = phase(dev, gen, flush)
             else:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
-                             **CKPT_PHASES}[name]()
+                             **CKPT_PHASES, **SERVE_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -6655,6 +7027,7 @@ def main(argv=()) -> int:
     sparse = sparse_slice()
     ckpt = ckpt_slice()
     cl = ckpt["launches"]
+    serve = serve_slice()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -6677,6 +7050,7 @@ def main(argv=()) -> int:
                    "q_offset": flash_t["q_offset"]},
          "launches_train": tl["flash_fwd"],
          "launches_ckpt": cl["flash_fwd_f32"],
+         "launches_serve": serve["launches"]["flash_fwd"],
          "launches_replay": dispatch["lm"]["replay_launches"],
          "launches_remat": dispatch["remat"]["flash_fwd_on"],
          "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
@@ -6695,6 +7069,7 @@ def main(argv=()) -> int:
          "replaces": "paddle_tpu/ops/paged_attention.py:59",
          "launches": launches["paged_decode"], "max_abs_err": paged_err,
          "launches_ckpt": cl["paged_decode"],
+         "launches_serve": serve["launches"]["paged_decode"],
          "ms": paged_t["ms"], "host_ms": paged_t["host_ms"],
          "plain_ms": paged_t["plain_ms"],
          "bound_ms": paged_t["bound_ms"], "bound_by": paged_t["bound_by"],
@@ -6877,6 +7252,7 @@ def main(argv=()) -> int:
     print(json.dumps({"v2": v2}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"ckpt": ckpt}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

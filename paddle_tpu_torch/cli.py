@@ -22,12 +22,17 @@ and compile-cache flags and its other jobs are not ported yet and raise.
 (a JSON report; exit 1 on corruption); ``checkpoint latest DIR`` prints
 the newest snapshot that verifies as one JSON line, quarantining nothing.
 
-``serve`` serves a transformer LM checkpoint through the paged decoder, as
-``python -m paddle_tpu serve --decode --paged_kv`` does.  The JAX command
-builds the model from a DSL config (``--model cfg.py``); here the dims
-come from the parameter shapes and the caller names ``--num_heads``.  The
-snapshot is the newest under ``--params`` that verifies (``load``, which
-quarantines a corrupt newer one, as the JAX server does).
+``serve --decode`` serves a transformer LM checkpoint as ``python -m
+paddle_tpu serve --decode`` does: through the slab ``SlotDecoder``, or the
+paged decoder with ``--paged_kv`` (``--sampling`` for seeded sampling),
+under ``--decode_policy``, with the engine's admission, tenant and breaker
+flags (``--max_queue_depth``, ``--tenant_weights a=3,b=1``,
+``--max_queue_depth_per_tenant``, ``--breaker_*``, ``--default_deadline_us``,
+``--drain_timeout_s``) at the JAX defaults.  The JAX command builds the
+model from a DSL config (``--model cfg.py``); here the dims come from the
+parameter shapes and the caller names ``--num_heads``.  The snapshot is the
+newest under ``--params`` that verifies (``load``, which quarantines a
+corrupt newer one, as the JAX server does).
 """
 
 from __future__ import annotations
@@ -57,42 +62,92 @@ def _serve_ready_line(role, host, port, **extra):
     return rec
 
 
+def _tenant_weights(spec):
+    """``--tenant_weights 'a=3,b=1'`` -> ``{"a": 3.0, "b": 1.0}``."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise SystemExit(f"--tenant_weights wants tenant=weight pairs, "
+                             f"got {part!r}")
+        name, _, w = part.partition("=")
+        try:
+            out[name.strip()] = float(w)
+        except ValueError:
+            raise SystemExit(f"--tenant_weights: weight for {name!r} is not "
+                             f"a number: {w!r}")
+    return out
+
+
 def cmd_serve(args) -> None:
     from paddle_tpu_torch.io import checkpoint
     from paddle_tpu_torch.models.transformer import (PagedDecoder,
+                                                     SlotDecoder,
                                                      params_from_jax)
     from paddle_tpu_torch.serving import InferenceEngine
 
-    if not (args.decode and args.paged_kv):
-        raise SystemExit("this port serves only continuous-batching paged "
-                         "decode: pass --decode --paged_kv")
+    if not args.decode:
+        raise NotImplementedError(
+            "serve without --decode (the whole-forward micro-batching "
+            "mode) is not ported to paddle_tpu_torch yet: ROADMAP.md §1 "
+            "item 8")
+    if args.sampling and not args.paged_kv:
+        raise SystemExit("--sampling needs the paged decoder: add "
+                         "--paged_kv")
+    tenant_weights = _tenant_weights(args.tenant_weights)
     snap = checkpoint.load(args.params)
     model = params_from_jax(checkpoint.params_of(snap),
                             num_heads=args.num_heads)
-    decoder = PagedDecoder(model, max_slots=args.max_slots,
-                           block_size=args.kv_block_size,
-                           num_blocks=args.kv_blocks,
-                           device=args.device)
-    engine = InferenceEngine(decoder, eos_id=args.eos_id,
-                             default_max_tokens=args.default_max_tokens)
+    if args.paged_kv:
+        decoder = PagedDecoder(model, max_slots=args.max_slots,
+                               block_size=args.kv_block_size,
+                               num_blocks=args.kv_blocks,
+                               sampling=args.sampling,
+                               decode_kernel=args.decode_kernel,
+                               device=args.device)
+    else:
+        decoder = SlotDecoder(model, max_slots=args.max_slots,
+                              decode_kernel=args.decode_kernel,
+                              device=args.device)
+    engine = InferenceEngine(
+        decoder, decode_policy=args.decode_policy, eos_id=args.eos_id,
+        default_max_tokens=args.default_max_tokens,
+        max_queue_depth=args.max_queue_depth,
+        default_deadline_us=args.default_deadline_us or None,
+        tenant_weights=tenant_weights,
+        max_queue_depth_per_tenant=args.max_queue_depth_per_tenant,
+        breaker_window=args.breaker_window,
+        breaker_threshold=args.breaker_threshold,
+        breaker_min_requests=args.breaker_min_requests,
+        breaker_cooldown_s=args.breaker_cooldown_s)
     server = engine.serve(args.port, host=args.host)
     port = server.server_address[1]
     _serve_ready_line("engine", args.host, port, snapshot=snap["dir"],
                       model_version=checkpoint.snapshot_version(
                           snap["manifest"]),
                       device=str(decoder.device),
-                      decode_kernel=decoder.decode_kernel)
+                      decode_kernel=decoder.decode_kernel,
+                      paged=bool(args.paged_kv),
+                      sampling=bool(args.sampling))
+    kv = (f"kv_block_size={decoder.block_size} "
+          f"kv_blocks={decoder.num_blocks} " if args.paged_kv else "")
     print(f"serving on http://{args.host}:{port}  (POST /infer, GET "
-          f"/stats /healthz)  max_slots={decoder.max_slots} "
-          f"kv_block_size={decoder.block_size} "
-          f"kv_blocks={decoder.num_blocks} device={decoder.device}",
-          flush=True)
+          f"/stats /healthz /kernels)  max_slots={decoder.max_slots} {kv}"
+          f"decode_policy={args.decode_policy} "
+          f"max_queue_depth={engine.max_queue_depth or 'unbounded'} "
+          f"default_deadline_us={engine.default_deadline_us or 'none'} "
+          f"tenant_weights={engine.tenant_weights or '{}'} "
+          f"device={decoder.device}", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
         pass
     finally:
-        engine.close()
+        engine.close(drain_timeout_s=args.drain_timeout_s)
 
 
 def _load_config(path: str) -> dict:
@@ -366,7 +421,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="not ported yet: raises")
     tr.set_defaults(fn=cmd_train)
     sv = sub.add_parser("serve", help="serve a transformer LM checkpoint "
-                                      "through the paged decoder")
+                                      "through the decode engine")
     sv.add_argument("--params", required=True,
                     help="checkpoint dir (pass-%%05d / step-%%09d "
                          "snapshots); the newest that verifies is served")
@@ -374,25 +429,74 @@ def build_parser() -> argparse.ArgumentParser:
                     help="attention heads (dim / num_heads = head dim)")
     sv.add_argument("--decode", action="store_true",
                     help="continuous-batching autoregressive decode "
-                         "(required: the only mode ported)")
+                         "(required: the whole-forward mode is not "
+                         "ported): the slab SlotDecoder, or the paged one "
+                         "with --paged_kv")
     sv.add_argument("--paged_kv", action="store_true",
-                    help="paged KV cache (required: the only decoder "
-                         "the engine schedules)")
+                    help="paged KV cache: one block pool, mixed "
+                         "prefill/decode iterations, prefix caching")
+    sv.add_argument("--sampling", action="store_true",
+                    help="paged decode: requests may carry "
+                         "temperature/top_k/top_p/seed (greedy stays the "
+                         "bit-equal default)")
+    sv.add_argument("--decode_kernel", default="auto",
+                    choices=("auto", "torch"),
+                    help="decode attention: 'auto' = the CUDA kernels on "
+                         "the card (their plain versions on the CPU), "
+                         "'torch' = the plain versions anywhere")
+    sv.add_argument("--decode_policy", default="continuous",
+                    choices=("continuous", "static"),
+                    help="'continuous' (iteration-level joins and exits) "
+                         "or 'static' (no join until the whole batch "
+                         "drains: the request-level baseline)")
     sv.add_argument("--max_slots", type=int, default=8,
                     help="resident sequences (decode rows)")
     sv.add_argument("--kv_block_size", type=int, default=16,
-                    help="positions per KV block")
+                    help="paged decode: positions per KV block")
     sv.add_argument("--kv_blocks", type=int, default=None,
-                    help="pool blocks incl. the scratch block (default: "
-                         "1 + max_slots x ceil(max_len / block_size))")
+                    help="paged decode: pool blocks incl. the scratch "
+                         "block (default: 1 + max_slots x ceil(max_len / "
+                         "block_size))")
     sv.add_argument("--default_max_tokens", type=int, default=64,
                     help="generation budget of a request naming none")
     sv.add_argument("--eos_id", type=int, default=None,
                     help="token id that ends a sequence")
+    sv.add_argument("--max_queue_depth", type=int, default=0,
+                    help="admission control: shed (429 + Retry-After) once "
+                         "this many requests are backlogged; 0 = unbounded")
+    sv.add_argument("--default_deadline_us", type=float, default=0,
+                    help="deadline of a request that carries none; it "
+                         "covers the whole generation (0 = none)")
+    sv.add_argument("--drain_timeout_s", type=float, default=30.0,
+                    help="on shutdown, drain in-flight work this long, "
+                         "then shed the rest")
+    sv.add_argument("--tenant_weights", default=None,
+                    help="tenant=weight pairs ('search=3,ads=1'): weighted "
+                         "fair queuing inside each lane, in decode steps; "
+                         "unknown tenants weigh 1, untagged traffic rides "
+                         "'default'")
+    sv.add_argument("--max_queue_depth_per_tenant", type=float,
+                    default=0.0,
+                    help="per-tenant quota over queued and slot-holding "
+                         "sequences: < 1 a fraction of --max_queue_depth, "
+                         ">= 1 a count (429 reason=tenant_quota; 0 = none)")
+    sv.add_argument("--breaker_window", type=int, default=64,
+                    help="per-tenant error-rate breaker: rolling window in "
+                         "requests (0 = off)")
+    sv.add_argument("--breaker_threshold", type=float, default=0.5,
+                    help="windowed error rate that opens a tenant's "
+                         "breaker (429 reason=breaker_open until a "
+                         "half-open probe succeeds)")
+    sv.add_argument("--breaker_min_requests", type=int, default=16,
+                    help="requests in the window before the breaker may "
+                         "open")
+    sv.add_argument("--breaker_cooldown_s", type=float, default=5.0,
+                    help="seconds an open breaker waits before one "
+                         "half-open probe")
     sv.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises with no card) or 'cpu'")
     sv.add_argument("--host", default="127.0.0.1")
-    sv.add_argument("--port", type=int, default=8000,
+    sv.add_argument("--port", type=int, default=8080,
                     help="0 picks a free port (see the ready line)")
     sv.set_defaults(fn=cmd_serve)
     ck = sub.add_parser("checkpoint", help="read-only snapshot audit "

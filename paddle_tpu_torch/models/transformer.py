@@ -20,7 +20,11 @@ decode path shares (``_tree_ops`` there).
 
 ``SlotDecoder`` (whole-sequence KV slabs) and ``PagedDecoder`` (one block
 pool, mixed prefill/decode iterations, prefix cache, copy-on-write) are the
-decode surfaces the serving engine schedules.  Decode attention goes through
+decode surfaces the serving engine schedules.  ``PagedDecoder(sampling=True)``
+picks each row's token by ``pick_tokens``: the JAX decoder's ``pick_fn``
+(temperature, top-k rank, top-p mass) with its Gumbel draw taken from
+``sample_noise``, a counter-based hash of (seed, generated position, vocab
+index), so a seeded stream does not depend on its batch companions.  Decode attention goes through
 ``ops/paged_attention.py`` and prefill chunks through
 ``ops/flash_attention.py``: the CUDA kernels on the card, their plain
 versions on the CPU, or the plain versions anywhere with
@@ -460,6 +464,82 @@ def _bucket(n: int, buckets) -> int:
     raise ValueError(f"{n} exceeds the largest bucket {buckets[-1]}")
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c`` modulo 2^32 for int64 ``x`` in [0, 2^32): two 16-bit
+    halves, so no product leaves int64."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash32(x):
+    """A 32-bit integer mix (lowbias32) on int64 tensors in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sample_noise(seed, pos1, vocab: int):
+    """Gumbel noise ``[rows, vocab]`` (float32) for the sampled pick: a
+    counter-based hash of (``seed``, generated position ``pos1``, vocab
+    index) on ``seed``'s device, so a row's draw depends on nothing else
+    (the JAX decoder folds ``seed`` and then ``pos1`` into
+    ``PRNGKey(0)``).  ``seed``, ``pos1``: integer tensors ``[rows]``."""
+    k = _hash32((seed.long() & _M32) ^ 0x243F6A88)
+    k = _hash32(k ^ (pos1.long() & _M32))
+    idx = torch.arange(vocab, device=seed.device, dtype=torch.int64)
+    return _gumbel(_hash32(_hash32(
+        k[:, None] ^ ((idx * 0x9E3779B9) & _M32)[None, :])))
+
+
+def _gumbel(x):
+    """-log(-log(u)) for u in (0, 1) from the top 23 bits of 32-bit hashes
+    ``x``: (m + 0.5) / 2^23 is exact in float32 for every m, so u never
+    rounds to 1 and the noise is always finite."""
+    u = ((x >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+    return -torch.log(-torch.log(u))
+
+
+def sample_mask(lg, temp, top_k, top_p):
+    """``pick_fn``'s candidate set: the temperature-scaled logits where a
+    row keeps a token, -inf elsewhere.  A token is kept when its rank in
+    the descending sort is within ``top_k`` (0: every token) and it lies in
+    the smallest sorted set whose mass reaches ``top_p`` (0 or 1: every
+    token).  ``lg`` [rows, vocab] float32; the knobs [rows]."""
+    vocab = lg.shape[-1]
+    lt = lg / torch.clamp(temp, min=1e-6)[:, None]
+    srt = torch.sort(lt, dim=-1, descending=True).values
+    kk = torch.where(top_k > 0, top_k, torch.full_like(top_k, vocab))
+    kth = srt.gather(1, (kk.long() - 1).clamp(0, vocab - 1)[:, None])
+    pr = torch.softmax(srt, dim=-1)
+    cum = torch.cumsum(pr, dim=-1)
+    pthr = torch.where((top_p > 0.0) & (top_p < 1.0), top_p,
+                       torch.ones_like(top_p))
+    keep = (cum - pr) < pthr[:, None]
+    cutoff = torch.where(keep, srt, torch.full_like(srt, float("inf"))
+                         ).amin(dim=-1, keepdim=True)
+    return torch.where((lt >= kth) & (lt >= cutoff), lt,
+                       torch.full_like(lt, float("-inf")))
+
+
+def pick_tokens(lg, temp, top_k, top_p, seed, pos1):
+    """The next token per row of ``lg`` [rows, vocab] (int32 [rows]): the
+    plain argmax where ``temp <= 0`` (bit-equal to a greedy decoder), else
+    ``argmax(sample_mask(...) + sample_noise(seed, pos1))``, the form of
+    ``jax.random.categorical``.  Every argument a tensor on ``lg``'s
+    device."""
+    greedy = torch.argmax(lg, dim=-1)
+    masked = sample_mask(lg, temp, top_k, top_p)
+    samp = torch.argmax(masked + sample_noise(seed, pos1, lg.shape[-1]),
+                        dim=-1)
+    return torch.where(temp > 0.0, samp, greedy).to(torch.int32)
+
+
 class SlotDecoder:
     """KV-slot decode surface: per-layer caches ``[max_slots, max_len,
     heads, dh]``, one slot per resident sequence.
@@ -479,6 +559,7 @@ class SlotDecoder:
     (or one test thread) may call the decode verbs."""
 
     paged = False
+    sampling = False
 
     def __init__(self, model: TransformerLM, *, max_slots: int = 8,
                  step_buckets=None, prefill_buckets=None,
@@ -609,8 +690,9 @@ class PagedDecoder(SlotDecoder):
         divergence mid-block copies exactly one block (copy-on-write).
 
     Block 0 is the scratch sink for pad and hole rows.  ``sampling=True``
-    is not ported yet and raises ``NotImplementedError``.  Single-threaded,
-    like ``SlotDecoder``."""
+    lets ``mixed_step`` take per-row ``(temperature, top_k, top_p, seed)``
+    and pick by ``pick_tokens``; rows at temperature 0 stay bit-equal to
+    ``sampling=False``.  Single-threaded, like ``SlotDecoder``."""
 
     paged = True
 
@@ -619,10 +701,7 @@ class PagedDecoder(SlotDecoder):
                  step_buckets=None, chunk_buckets=None,
                  sampling: bool = False, decode_kernel: str = "auto",
                  device=None):
-        if sampling:
-            raise NotImplementedError(
-                "sampling is not ported yet: the greedy decoder is the "
-                "only family (JAX's PRNG streams cannot be reproduced)")
+        self.sampling = bool(sampling)
         t_max = model.max_len
         self.block_size = int(block_size)
         if not 1 <= self.block_size <= t_max:
@@ -766,12 +845,25 @@ class PagedDecoder(SlotDecoder):
             pv[dst] = pv[src]
 
     # ------------------------------------------------------------ forward
+    def _pick(self, lg, samp, pos1):
+        """Next tokens [rows] (numpy int32) from ``lg`` [rows, V]: the
+        argmax, or ``pick_tokens`` when a row of ``samp`` ((temp, top_k,
+        top_p, seed) numpy arrays [rows], or None) samples."""
+        if samp is None or not (samp[0] > 0.0).any():
+            return torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy()
+        temp, top_k, top_p, seed = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in samp)
+        return pick_tokens(lg, temp, top_k, top_p, seed,
+                           self._ints(pos1)).cpu().numpy()
+
     @torch.no_grad()
-    def _mixed_forward(self, tk, ps, btab, chunk):
+    def _mixed_forward(self, tk, ps, btab, chunk, samp=None, csamp=None):
         """The fused iteration over ``b`` decode rows and an optional
         prefill chunk ``(ctok [c], ctab [MB], cstart, clen)``.  Writes the
         pool in place; returns (next tokens [b], chunk next token or
-        None)."""
+        None).  ``samp`` / ``csamp``: the rows' and the chunk's sampling
+        knobs (``_pick``), or None."""
         m = self.model
         bs, mb, t_max = self.block_size, self.blocks_per_seq, self.max_len
         b = len(tk)
@@ -811,16 +903,18 @@ class PagedDecoder(SlotDecoder):
                 cx = cx + m.attn_out(catt, i)
                 cx = cx + m.ffn(m.ln(cx, f"ln2_{i}"), i)
         lg = m.logits(x)
-        nxt = torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy()
+        nxt = self._pick(lg, samp, ps + 1)
         if chunk is None:
             self.last_logits = (lg, None)
             return nxt, None
         clg = m.logits(cx[clen - 1])
         self.last_logits = (lg, clg)
-        return nxt, int(torch.argmax(clg))
+        cpos1 = np.asarray([cstart + clen], np.int32)
+        return nxt, int(self._pick(clg[None], csamp, cpos1)[0])
 
     # ------------------------------------------------------------ surface
-    def mixed_step(self, n: int, tokens, pos, live=None, chunk=None):
+    def mixed_step(self, n: int, tokens, pos, live=None, chunk=None,
+                   sample_rows=None, sample_chunk=None):
         """ONE mixed iteration: a decode step over slots ``[0, n)`` AND at
         most one prefill chunk.  ``live[i]`` marks slot ``i`` resident -
         non-live rows ride the scratch block.  ``chunk`` is ``None`` or
@@ -829,7 +923,10 @@ class PagedDecoder(SlotDecoder):
         ``(next_tokens[:n], chunk_next)``; ``chunk_next`` is the token
         after the chunk's last position, or ``None``.  ``last_logits``
         then holds ``(decode-row logits [b, V], chunk logits [V] or
-        None)``."""
+        None)``.  With ``sampling=True``: ``sample_rows`` = ``(temp[n],
+        top_k[n], top_p[n], seed[n])`` and ``sample_chunk`` = the chunk's
+        four scalars (absent or zero-temperature rows pick greedily);
+        a decoder without sampling ignores both, as the JAX one does."""
         b = _bucket(max(n, 1), self.step_buckets)
         tk = np.zeros(b, np.int32)
         ps = np.zeros(b, np.int32)
@@ -848,7 +945,18 @@ class PagedDecoder(SlotDecoder):
             ct = np.zeros(_bucket(clen, self.prefill_buckets), np.int32)
             ct[:clen] = ctok
             args = (ct, self._table[slot].copy(), int(cstart), clen)
-        nxt, cnxt = self._mixed_forward(tk, ps, btab, args)
+        samp = csamp = None
+        if self.sampling:
+            samp = (np.zeros(b, np.float32), np.zeros(b, np.int32),
+                    np.zeros(b, np.float32), np.zeros(b, np.int32))
+            if sample_rows is not None and n:
+                for arr, vals in zip(samp, sample_rows):
+                    arr[:n] = np.asarray(vals)[:n]
+            if chunk is not None:
+                cs = sample_chunk or (0.0, 0, 0.0, 0)
+                csamp = (np.float32([cs[0]]), np.int32([cs[1]]),
+                         np.float32([cs[2]]), np.int32([cs[3]]))
+        nxt, cnxt = self._mixed_forward(tk, ps, btab, args, samp, csamp)
         return nxt[:n], cnxt
 
     def prefill(self, slot: int, prompt) -> int:

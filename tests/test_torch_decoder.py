@@ -214,8 +214,11 @@ def test_pool_exhaustion_raises_typed(lm, jpaged):
 
 
 def test_decoder_validation(lm):
-    with pytest.raises(NotImplementedError, match="sampling"):
-        _port(lm, sampling=True, **PAGED)
+    # sampling is ported (tests/test_torch_sampling.py); the slab decoder
+    # has none, as the JAX one has none
+    assert _port(lm, sampling=True, **PAGED).sampling is True
+    assert _port(lm, **PAGED).sampling is False
+    assert _port(lm, cls=ttr.SlotDecoder, max_slots=2).sampling is False
     with pytest.raises(ValueError, match="decode_kernel"):
         _port(lm, decode_kernel="pallas", **PAGED)
     with pytest.raises(ValueError, match="block_size"):

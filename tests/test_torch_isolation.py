@@ -56,7 +56,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             "paddle_tpu_torch.reader.creator", "paddle_tpu_torch.models.ctr",
             "paddle_tpu_torch.models.mlp", "paddle_tpu_torch.io.atomic",
             "paddle_tpu_torch.io.checkpoint",
-            "paddle_tpu_torch.io.recordio"} <= mods
+            "paddle_tpu_torch.io.recordio",
+            "paddle_tpu_torch.serving.client"} <= mods
 
 
 def _loaded_after(code: str) -> list:
@@ -86,8 +87,20 @@ def test_importing_every_port_module_loads_no_jax():
     mods = [m for _, m in _modules()]
     loaded = _loaded_after(f"for m in {mods!r}:\n    __import__(m)\n")
     assert "paddle_tpu_torch.serving.engine" in loaded
+    assert "paddle_tpu_torch.serving.client" in loaded
     assert "paddle_tpu_torch.trainer" in loaded
     assert "paddle_tpu_torch.tools.flash_variants" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_the_serving_client_loads_no_jax():
+    """The client is the port's own copy: importing it (and through it the
+    port's engine, whose errors it raises) loads neither JAX nor the JAX
+    package's client or tracing."""
+    loaded = _loaded_after("from paddle_tpu_torch.serving import client\n"
+                           "assert client.Overloaded.__module__ == "
+                           "'paddle_tpu_torch.serving.engine'")
+    assert "paddle_tpu_torch.serving.client" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
 

@@ -2,7 +2,8 @@
 package load bit-equal (and a corrupted payload is refused), the port's
 engine answers ``/infer`` over real HTTP with the JAX engine's tokens for the
 same snapshot, ``python -m paddle_tpu_torch serve --device cpu`` starts and
-serves, and nothing runs on the CPU unless asked to."""
+serves (paged, slab, and paged with sampling), and nothing runs on the CPU
+unless asked to."""
 
 import json
 import os
@@ -137,7 +138,9 @@ def test_http_infer_matches_jax_engine(snap):
         stats = json.loads(raw)
         assert stats["requests"] == len(PROMPTS)
         assert stats["iterations"] > 0 and stats["tokens"] > 0
-        assert set(stats["kernels"]) == {"flash_fwd", "flash_bwd_dkdv",
+        kernels = json.loads(_get(url, "/kernels")[1])
+        assert kernels["device"] == "cpu"
+        assert set(kernels["launches"]) == {"flash_fwd", "flash_bwd_dkdv",
                                          "flash_bwd_dq", "paged_decode",
                                          "lstm_step", "gru_step",
                                          "bn_fwd_stats", "bn_bwd_stats",
@@ -158,7 +161,7 @@ def test_http_infer_matches_jax_engine(snap):
                                          "bn_bwd_stats_f16",
                                          "matmul_stats_f16",
                                          "conv3x3_stats_f16"}
-        assert stats["kv"]["used"] == 0          # every block returned
+        assert stats["decode"]["blocks_used"] == 0   # every block returned
         assert _post(url, None, raw=b"{not json")[0] == 400
         assert _post(url, {"inputs": [[1]]})[0] == 400
         assert _post(url, {"input": [[1, 2]], "max_tokens": 500})[0] == 400
@@ -187,30 +190,54 @@ def test_dry_pool_answers_429_kv_blocks(snap):
         eng.close()
 
 
-def test_cli_serve_subprocess(snap):
+def _cli_serve(snap, *flags):
+    """``python -m paddle_tpu_torch serve`` in a subprocess on the CPU:
+    (process, ready record)."""
     env = dict(os.environ, PYTHONPATH="")
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", "serve", "--params",
-         snap[2], "--num_heads", str(HEADS), "--decode", "--paged_kv",
-         "--max_slots", "2", "--kv_block_size", "8", "--device", "cpu",
-         "--port", "0"],
+         snap[2], "--num_heads", str(HEADS), "--decode", *flags,
+         "--max_slots", "2", "--device", "cpu", "--port", "0"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
-    try:
-        ready = None
-        for line in proc.stdout:
-            if line.startswith('{"ptpu_serve"'):
-                ready = json.loads(line)["ptpu_serve"]
-                break
-        assert ready is not None, proc.stderr.read()
-        assert ready["device"] == "cpu"
-        code, body, _ = _post(ready["url"], {"input": [PROMPTS[0]],
-                                             "max_tokens": MAX_TOKENS[0]})
-        assert code == 200
-        assert body["outputs"]["tokens"] == _jax_tokens(snap)[0]
-    finally:
-        proc.terminate()
-        proc.communicate(timeout=30)
+    for line in proc.stdout:
+        if line.startswith('{"ptpu_serve"'):
+            return proc, json.loads(line)["ptpu_serve"]
+    proc.terminate()
+    raise AssertionError(proc.communicate(timeout=30)[1])
+
+
+def test_cli_serve_subprocess(snap):
+    """The paged server, the slab server (``--decode`` alone) and the
+    paged server with ``--sampling`` each answer the JAX engine's greedy
+    tokens; the sampling server's seeded stream repeats."""
+    want = _jax_tokens(snap)[0]
+    runs = (("--paged_kv", "--kv_block_size", "8"), (),
+            ("--paged_kv", "--kv_block_size", "8", "--sampling",
+             "--tenant_weights", "a=3,b=1", "--max_queue_depth", "8"))
+    for flags in runs:
+        proc, ready = _cli_serve(snap, *flags)
+        try:
+            assert ready["device"] == "cpu"
+            assert ready["paged"] == ("--paged_kv" in flags)
+            assert ready["sampling"] == ("--sampling" in flags)
+            code, body, _ = _post(ready["url"],
+                                  {"input": [PROMPTS[0]],
+                                   "max_tokens": MAX_TOKENS[0],
+                                   "tenant": "a"})
+            assert code == 200
+            assert body["outputs"]["tokens"] == want
+            doc = {"input": [PROMPTS[0]], "max_tokens": MAX_TOKENS[0],
+                   "temperature": 0.9, "seed": 3}
+            code, body, _ = _post(ready["url"], doc)
+            if "--sampling" in flags:
+                assert code == 200
+                assert _post(ready["url"], doc)[1] == body
+            else:
+                assert code == 400 and "sampling" in body["error"]
+        finally:
+            proc.terminate()
+            proc.communicate(timeout=30)
 
 
 def test_no_card_means_no_silent_cpu_run(snap):
