@@ -296,15 +296,38 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    with retries on all answer within their deadlines; (g) the sampling
    pick's time at vocab 32000 x 8 rows beside the argmax, and kernels 1
    and 4's launches over the phase;
-19. one JSON line each for the LM training, NMT and LSTM, the bf16
+19. the whole-forward serving slice (``serve_fwd_slice``): the same LM's
+   ``logits`` served from a DSL config and a snapshot as ``serve --model
+   cfg.py --params DIR`` serves them (max_batch 8, row buckets 1, 2, 4,
+   8, T buckets 128, 512, 2048): (1) 32 requests of 5 to 2000 tokens at
+   once, each answer's logits against the plain path
+   (``attention_impl="torch"``) alone at its own length, every row
+   (position) within kernel 1's 3xTF32 row limits (TF32_ROW_TOL, 99%
+   within TF32_ROW_Q99_TOL), ``GET /kernels`` counting kernel 1 at 8 a
+   micro-batch, the buckets on the grid; kernel 1 at a micro-batch's
+   shape (ragged kv_lens) against its plain version, timed beside it,
+   SDPA with the same mask and its bound; one micro-batch under
+   ``torch.profiler``; 8 requests over HTTP to the ``serve`` subprocess,
+   bit for bit the in-process answers; (2) a second, perturbed snapshot
+   in the watched dir: a request in flight at the swap answers on the old
+   weights bit for bit, the next on the new, a ``"prev"`` pin on the old;
+   a 0.25 canary over 64 requests splits 16 to 48; promote and a signed
+   ``POST /reload?rollback=1`` (unsigned: 403); (3) a ``PagedDecoder``
+   engine swapping while 4 streams are resident: they finish on the old
+   weights' reference streams, the 4 after on the new; (4) ``serve
+   --fleet 2`` with 32 calls through ``ServingClient``, a replica
+   SIGKILLed mid-run, every call answered, the router showing it out of
+   rotation and the survivor deregistering on drain;
+20. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
-   sweep, ResNet and ResNet-under-bf16 runs, the card line again,
+   whole-forward serving slice, sweep, ResNet and ResNet-under-bf16
+   runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
-phases (``dispatch``, ``v2``, ``sparse``, ``ckpt`` or ``serve``, or a part
-of one:
+phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve`` or
+``serve_fwd``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -6909,12 +6932,643 @@ def serve_slice() -> dict:
 SERVE_PHASES = {"serve": serve_slice}
 
 
+# phase 19: the whole-forward engine serving the LM's logits
+FWD_ROW_BUCKETS, FWD_SEQ_BUCKETS = (1, 2, 4, 8), (128, 512, 2048)
+FWD_REQUESTS, FWD_HTTP_REQUESTS, FWD_CANARY_REQUESTS = 32, 8, 64
+FWD_CANARY_FRACTION = 0.25
+FWD_FLEET_CALLS = 32
+# the served config, as a user writes it
+FWD_CONFIG = f"""from paddle_tpu_torch.models import transformer
+
+_, logits = transformer.build(vocab_size={VOCAB}, max_len={MAX_LEN},
+                              dim={DIM}, num_heads={HEADS},
+                              num_layers={LAYERS}, ffn_mult={FFN_MULT})
+prediction = logits
+"""
+FWD_SERVE_FLAGS = ("--max_batch", "8", "--buckets", "1,2,4,8",
+                   "--seq_buckets", "128,512,2048", "--device", "cuda")
+
+
+def _fwd_lengths(rng, n, lo, hi):
+    """``n`` lengths in [lo, hi], log-uniform, ascending (short requests
+    arrive first, so the micro-batches fill every T bucket)."""
+    lens = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), n)).astype(int)
+    return sorted(int(min(max(x, lo), hi)) for x in lens)
+
+
+def _perturbed(values, seed):
+    """Other weights of the same names and shapes: each leaf times
+    (1 + 0.2 N(0, 1)), so greedy streams change too."""
+    rng = np.random.default_rng(seed)
+    return {lname: {name: (a * (1.0 + 0.2 * rng.standard_normal(
+        a.shape, dtype=np.float32))).astype(np.float32)
+        for name, a in ps.items()} for lname, ps in values.items()}
+
+
+def _get_json(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _post_raw(url, path, body=b"", headers=None, timeout=120):
+    """(status, decoded body) of one POST, an error status included."""
+    import urllib.error
+    req = urllib.request.Request(url + path, data=body,
+                                 headers=headers or {}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _kernel1_at_served_shape(lens_list) -> dict:
+    """Kernel 1 (float32, 3xTF32) at a micro-batch's shape [8, 2048, 4,
+    128], causal, ragged kv_lens (the batch's request lengths): against
+    its plain version within TOL and per row (``_hold_fwd_tf32``), timed
+    beside the plain version, SDPA with the same mask and the bound of the
+    pairs these lengths make visible."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    b, lq, d = len(lens_list), FWD_SEQ_BUCKETS[-1], DIM // HEADS
+    q, k, v = (torch.randn(b, lq, HEADS, d, device=dev, generator=gen)
+               for _ in range(3))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=d ** -0.5, q_offset=0, kv_offset=0)
+    o, lse = fa.flash_fwd_cuda(q, k, v, lens, **kw)
+    ro, rlse = fa._torch_attention(q, k, v, lens, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    err = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+    if not err <= TOL:
+        raise AssertionError(f"kernel 1 at the served shape disagrees with "
+                             f"its plain version: {err} > {TOL}")
+    held = _hold_fwd_tf32(fa, "flash_fwd served micro-batch", q, k, v, lens,
+                          o, lse, kw)
+    del o, lse, ro, rlse
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, lens, **kw), flush)
+    plain_ms = time_ms(lambda: fa._torch_attention(q, k, v, lens, **kw),
+                       flush)
+    pos = torch.arange(lq, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < lens[:, None, None]))[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=d ** -0.5), flush)
+    del flush, mask
+    # every row's visible keys: min(r + 1, its request's length)
+    pairs = sum(sum(min(r + 1, n) for r in range(lq)) for n in lens_list)
+    flops = 4.0 * d * HEADS * pairs
+    nbytes = 4.0 * (2 * b * lq * HEADS * d + 2 * sum(lens_list) * HEADS * d
+                    + b * HEADS * lq + b)
+    bnd = _fwd_bounds(flops, nbytes)
+    out = dict(shape=[b, lq, HEADS, d], kv_lens=list(lens_list),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **bnd, **held)
+    print(f"kernel 1 at the served micro-batch [{b}, {lq}, {HEADS}, {d}] "
+          f"causal, kv_lens {lens_list}: max|err| {err:.3e}, ms {ms:.4f}, "
+          f"plain_ms {plain_ms:.4f}, library_ms (SDPA, the same mask) "
+          f"{lib_ms:.4f}, bound_ms {bnd['bound_ms']:.4f} ({bnd['bound_by']})"
+          f"; {card_line()}", flush=True)
+    return out
+
+
+def _fwd_scoring(engine, out_layer, name) -> dict:
+    """(1) FWD_REQUESTS requests of 5 to 2000 tokens submitted at once:
+    each answer's logits against the plain path (``attention_impl=
+    "torch"``) for that request alone at its own length; kernel 1's
+    launches through ``GET /kernels``; the buckets on the grid."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.inference import Inference
+
+    rng = np.random.RandomState(SEED + 21)
+    lens = _fwd_lengths(rng, FWD_REQUESTS, 5, 2000)
+    reqs = [rng.randint(0, VOCAB, size=n).astype(np.int32) for n in lens]
+    url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [engine.submit([(r.tolist(),)]) for r in reqs]
+    outs = [f.result(900) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = _get_json(url + "/kernels")["launches"]["flash_fwd"]
+    st = engine.stats()
+    if launches != LAYERS * st["batches"]:
+        raise AssertionError(f"kernel 1 launched {launches} times over "
+                             f"{st['batches']} micro-batches, not "
+                             f"{LAYERS} a batch")
+    off_grid = [b for b in st["buckets_used"]
+                if b[0] not in FWD_ROW_BUCKETS or b[1] not in FWD_SEQ_BUCKETS]
+    if off_grid or len({b[1] for b in st["buckets_used"]}) < 2:
+        raise AssertionError(f"buckets off the grid or one T bucket only: "
+                             f"{st['buckets_used']}")
+    # the plain path, one request at a time at its own length
+    prev = config.get_option("attention_impl")
+    config.set_option("attention_impl", "torch")
+    try:
+        inf = Inference(out_layer, engine._inf.parameters, device="cuda")
+        feeder = DataFeeder(inf.topology)
+        rows = []
+        for r, got in zip(reqs, outs):
+            n = len(r)
+            if got.shape[1] not in FWD_SEQ_BUCKETS or not np.isfinite(
+                    got).all():
+                raise AssertionError(f"a {n}-token answer has shape "
+                                     f"{got.shape} or is not finite")
+            ref = inf.run_feed(feeder.feed([(r.tolist(),)], seq_pad=n))[name]
+            rows.append(_o_row_errs(torch.as_tensor(got[0, :n],
+                                                    device="cuda"),
+                                    ref[0]))
+        del inf
+    finally:
+        config.set_option("attention_impl", prev)
+    rows = torch.cat(rows)
+    worst = rows.max().item()
+    q99 = torch.quantile(rows, 0.99).item()
+    if not (worst <= TF32_ROW_TOL and q99 <= TF32_ROW_Q99_TOL):
+        raise AssertionError(
+            f"served logits against the plain path: rows largest {worst}, "
+            f"99% {q99} (limits {TF32_ROW_TOL}, {TF32_ROW_Q99_TOL})")
+    pad_share = st["pad_cells"] / (st["pad_cells"] + st["real_cells"])
+    res = {"requests": FWD_REQUESTS, "lengths": lens, "seconds": wall,
+           "requests_per_s": FWD_REQUESTS / wall,
+           "request_us_p50": st["request_us_p50"],
+           "request_us_p99": st["request_us_p99"],
+           "batches": st["batches"], "buckets_used": st["buckets_used"],
+           "padded_rows": st["padded_rows"], "pad_cells": st["pad_cells"],
+           "real_cells": st["real_cells"], "pad_cell_share": pad_share,
+           "launches": launches, "row_err": worst, "row_err_q99": q99}
+    print(f"(1) {FWD_REQUESTS} requests of {lens[0]} to {lens[-1]} tokens "
+          f"at once: {st['batches']} micro-batches on {st['buckets_used']}, "
+          f"padded_rows {st['padded_rows']}, pad_cells {st['pad_cells']} "
+          f"(a {pad_share:.1%} share of the cells); every answer's logits "
+          f"against the plain path alone at its own length: rows largest "
+          f"{worst:.3e}, 99% {q99:.3e} (kernel 1's 3xTF32 row limits "
+          f"{TF32_ROW_TOL:.3e}, {TF32_ROW_Q99_TOL:.3e}); GET /kernels: "
+          f"kernel 1 {launches} launches = {LAYERS} x {st['batches']}; "
+          f"{res['requests_per_s']:.2f} requests/s over {wall:.2f} s, "
+          f"latency p50 {st['request_us_p50'] / 1e3:.1f} ms p99 "
+          f"{st['request_us_p99'] / 1e3:.1f} ms (smoke figures); "
+          f"{card_line()}", flush=True)
+    return res, reqs
+
+
+def _fwd_batch_profile(engine, reqs, name) -> dict:
+    """One 8-row micro-batch at T 2048 (the longest requests) under
+    ``torch.profiler``: kernel 1's device time in it, beside the forward's
+    time and idle share; then the delivery's copy of its logits to the
+    host (pageable memory, as the delivery thread copies), host clock."""
+    from paddle_tpu_torch.data_feeder import DataFeeder
+
+    last = reqs[-8:]
+    feed = DataFeeder(engine._inf.topology).feed(
+        [(r.tolist(),) for r in last], seq_pad=FWD_SEQ_BUCKETS[-1])
+    engine._inf.run_feed(feed)
+    torch.cuda.synchronize()
+    prof = profile_call(lambda: engine._inf.run_feed(feed)[name],
+                        match="flash_fwd")
+    n = sum(c for nm, (_, c) in prof["per_name"].items() if "flash_fwd" in nm)
+    logits = engine._inf.run_feed(feed)[name]
+    torch.cuda.synchronize()
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits.cpu()
+        copies.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = sorted(copies)[1]
+    gb = logits.numel() * logits.element_size() / 1e9
+    del logits
+    out = {"lengths": [len(r) for r in last], "forward_ms": prof["step_ms"],
+           "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+           "kernel1_ms": prof["matched_ms"], "kernel1_launches": n,
+           "copy_ms": copy_ms, "copy_gb": gb}
+    print(f"one micro-batch [8, {FWD_SEQ_BUCKETS[-1]}] under torch.profiler: "
+          f"{prof['step_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms; "
+          f"kernel 1 {n} launches, {prof['matched_ms']:.3f} ms of device time; "
+          f"its {gb:.2f} GB of logits copied to the host in {copy_ms:.1f} ms "
+          f"(median of 3, host clock; smoke figures); {card_line()}",
+          flush=True)
+    return out
+
+
+def _fwd_http(engine, cfg_path, snap, name) -> dict:
+    """(1, HTTP) FWD_HTTP_REQUESTS requests of at most 32 tokens, one after
+    another, to ``python -m paddle_tpu_torch serve --model`` in a
+    subprocess: each answer bit for bit the in-process engine's."""
+    from paddle_tpu_torch.serving import fleet
+
+    rng = np.random.RandomState(SEED + 22)
+    reqs = [rng.randint(0, VOCAB, size=int(rng.randint(3, 33))).tolist()
+            for _ in range(FWD_HTTP_REQUESTS)]
+    want = [engine.infer([(r,)], 900) for r in reqs]
+    t0 = time.perf_counter()
+    rep = fleet.spawn_replica(cfg_path, extra=["--params", snap,
+                                               *FWD_SERVE_FLAGS],
+                              log_dir=os.path.join(os.path.dirname(cfg_path),
+                                                   "serve_logs"))
+    boot_s = time.perf_counter() - t0
+    try:
+        for i, (r, w) in enumerate(zip(reqs, want)):
+            code, body = _post_status(rep.url, {"input": [[r]]})
+            got = np.asarray(body.get("outputs", {}).get(name), np.float32)
+            if code != 200 or got.shape != w.shape or not np.array_equal(
+                    got, w):
+                raise AssertionError(
+                    f"HTTP request {i} to the serve subprocess: {code}, "
+                    f"shape {got.shape}, differs from the in-process answer"
+                    f" {w.shape}")
+    finally:
+        code = rep.stop(60)
+    print(f"(1) {FWD_HTTP_REQUESTS} requests of at most 32 tokens to `serve "
+          f"--model cfg.py --params DIR` (a subprocess, up in {boot_s:.1f} "
+          f"s): every answer bit for bit the in-process engine's; drained "
+          f"with exit code {code}; {card_line()}", flush=True)
+    return {"requests": FWD_HTTP_REQUESTS, "boot_s": boot_s, "exit": code}
+
+
+def _fwd_versions(out_layer, params, version, snap_vals, tmp, name) -> dict:
+    """(2) A second snapshot of perturbed weights written into the watched
+    dir: the watcher swaps; a request in flight at the swap answers on the
+    old weights, bit for bit; later ones on the new; a "prev" pin on the
+    old; a canary at 0.25 over 64 requests; promote, rollback and POST
+    /reload with and without the HMAC key."""
+    import hashlib
+    import hmac
+
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.io import checkpoint
+    from paddle_tpu_torch.serving import InferenceEngine, WeightWatcher
+
+    kw = dict(max_batch=8, batch_buckets=FWD_ROW_BUCKETS,
+              seq_buckets=FWD_SEQ_BUCKETS)
+    watch = os.path.join(tmp, "watch")
+    os.makedirs(watch)
+    new_vals = _perturbed(snap_vals, SEED + 23)
+    req = [(np.random.RandomState(SEED + 24).randint(
+        0, VOCAB, size=100).tolist(),)]
+    out = {}
+    engine = InferenceEngine(out_layer, params, model_version=version, **kw)
+    watcher = WeightWatcher(engine, watch, period_s=0.2)
+    try:
+        old = engine.infer(req, 900)
+        sem = threading.Semaphore(0)
+        orig = engine._inf.run_feed
+        engine._inf.run_feed = lambda feed, params=None: (
+            sem.acquire(), orig(feed, params))[1]
+        held = engine.submit(req)
+        t0 = time.perf_counter()
+        while engine.queue_depth() and time.perf_counter() - t0 < 60:
+            time.sleep(0.001)
+        checkpoint.save_params(watch, new_vals, pass_id=1)
+        while (engine.stats()["model_version"] == version
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.01)
+        new_id = engine.stats()["model_version"]
+        if new_id == version:
+            raise AssertionError("the watcher did not swap in 120 s")
+        post = engine.submit(req)
+        for _ in range(8):
+            sem.release()
+        engine._inf.run_feed = orig
+        got_held, got_post = held.result(900), post.result(900)
+        feed = DataFeeder(engine._inf.topology).feed(
+            req, seq_pad=FWD_SEQ_BUCKETS[0])
+        with engine._version_lock:
+            new_values = engine._versions[new_id].values
+        want_new = orig(feed, new_values)[name].cpu().numpy()
+        pinned = engine.infer(req, 900, version="prev")
+        if not (np.array_equal(got_held, old)
+                and held._ptt_model_version == version):
+            raise AssertionError("the request in flight at the swap did not "
+                                 "answer on the old weights bit for bit")
+        if not (np.array_equal(got_post, want_new)
+                and post._ptt_model_version == new_id
+                and not np.array_equal(got_post, old)):
+            raise AssertionError("the request after the swap did not answer "
+                                 "on the new weights")
+        if not np.array_equal(pinned, old):
+            raise AssertionError("the \"prev\" pin did not answer on the old "
+                                 "weights")
+        pause_ms = engine.swap_pauses_us()[-1] / 1e3
+        out["swap"] = {"old": version, "new": new_id, "pause_ms": pause_ms,
+                       "watcher": watcher.stats()}
+        print(f"(2) the watcher swapped {version} -> {new_id} (pause "
+              f"{pause_ms:.4f} ms, the pointer flip): the request in flight "
+              f"answered on {version} bit for bit, the next on {new_id} (its "
+              f"weights' forward bit for bit), a \"prev\" pin on {version}; "
+              f"{card_line()}", flush=True)
+    finally:
+        engine.close()
+
+    key = b"chip-smoke-reload-key"
+    engine = InferenceEngine(out_layer, params, model_version=version,
+                             canary_fraction=FWD_CANARY_FRACTION,
+                             reload_key=key, **kw)
+    try:
+        res = engine.install_version(new_id, new_vals)
+        if res["result"] != "canary":
+            raise AssertionError(f"install with a canary fraction: {res}")
+        rng = np.random.RandomState(SEED + 25)
+        futs = [engine.submit([(rng.randint(0, VOCAB, size=int(
+            rng.randint(5, 21))).tolist(),)])
+                for _ in range(FWD_CANARY_REQUESTS)]
+        for f in futs:
+            f.result(900)
+        split = {}
+        for f in futs:
+            split[f._ptt_model_version] = split.get(
+                f._ptt_model_version, 0) + 1
+        want_canary = int(FWD_CANARY_REQUESTS * FWD_CANARY_FRACTION)
+        if split.get(new_id) != want_canary or split.get(
+                version) != FWD_CANARY_REQUESTS - want_canary:
+            raise AssertionError(f"canary split {split}, not "
+                                 f"{want_canary} of {FWD_CANARY_REQUESTS}")
+        if engine.promote()["result"] != "swapped" or \
+                engine.stats()["model_version"] != new_id:
+            raise AssertionError("promote did not make the canary active")
+        url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+        denied, _ = _post_raw(url, "/reload?rollback=1")
+        sig = hmac.new(key, b"rollback=1\n", hashlib.sha256).hexdigest()
+        code, body = _post_raw(url, "/reload?rollback=1",
+                               headers={"X-Ptpu-Reload-Key": sig})
+        if denied != 403 or code != 200 or body.get("model_version") != \
+                version or engine.stats()["model_version"] != version:
+            raise AssertionError(f"POST /reload?rollback=1: unsigned "
+                                 f"{denied}, signed {code} {body}")
+        out["canary"] = {"split": split, "unsigned_reload": denied,
+                         "signed_reload": code,
+                         "reloads": engine.stats()["reloads"]}
+        print(f"(2) canary_fraction {FWD_CANARY_FRACTION} over "
+              f"{FWD_CANARY_REQUESTS} requests: {split}; promote made "
+              f"{new_id} active; POST /reload?rollback=1 answered {denied} "
+              f"unsigned and {code} signed, back on {version}; "
+              f"{card_line()}", flush=True)
+    finally:
+        engine.close()
+    return out, new_vals
+
+
+def _fwd_decode_swap(snap_vals, new_vals) -> dict:
+    """(3) The LM in a PagedDecoder engine: 4 resident streams when new
+    weights are installed finish on the old ones (the old reference's
+    streams), 4 submitted after it on the new ones."""
+    from paddle_tpu_torch.models.transformer import (PagedDecoder,
+                                                     params_from_jax)
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    reqs = prompts()[:4]
+    refs = {}
+    for tag, vals in (("old", snap_vals), ("new", new_vals)):
+        dec = PagedDecoder(params_from_jax(vals, num_heads=HEADS),
+                           max_slots=SLOTS, block_size=BLOCK, device="cuda")
+        refs[tag] = reference_streams(dec, reqs)
+        del dec
+        torch.cuda.empty_cache()
+    dec = PagedDecoder(params_from_jax(snap_vals, num_heads=HEADS),
+                       max_slots=SLOTS, block_size=BLOCK, device="cuda")
+    engine = InferenceEngine(dec, model_version="old")
+    try:
+        pre = [engine.submit([p], max_tokens=MAX_TOKENS) for p in reqs]
+        t0 = time.perf_counter()
+        while (engine.stats()["decode"]["slots_occupied"] < len(reqs)
+               and time.perf_counter() - t0 < 60):
+            time.sleep(0.0005)
+        res = engine.install_version("new", new_vals)
+        post = [engine.submit([p], max_tokens=MAX_TOKENS) for p in reqs]
+        got_pre = [f.result(900).tolist() for f in pre]
+        got_post = [f.result(900).tolist() for f in post]
+        ties = 0
+        for i, (f, got) in enumerate(zip(pre, got_pre)):
+            if f._ptt_model_version != "old":
+                raise AssertionError(f"resident {i} answered on "
+                                     f"{f._ptt_model_version}")
+            ties += _tie_or_equal(f"resident {i} (old weights)", got,
+                                  refs["old"][i])
+        for i, (f, got) in enumerate(zip(post, got_post)):
+            if f._ptt_model_version != "new":
+                raise AssertionError(f"request {i} after the swap answered "
+                                     f"on {f._ptt_model_version}")
+            ties += _tie_or_equal(f"request {i} after the swap (new "
+                                  f"weights)", got, refs["new"][i])
+        if all(a == b for a, b in zip(got_pre, got_post)):
+            raise AssertionError("the swap changed no stream")
+        pause_ms = engine.swap_pauses_us()[-1] / 1e3
+    finally:
+        engine.close()
+    del dec
+    torch.cuda.empty_cache()
+    print(f"(3) PagedDecoder engine, install while {len(reqs)} streams are "
+          f"resident ({res['result']}): they finish on the old weights "
+          f"(equal to the old reference), the {len(reqs)} after it on the "
+          f"new ({ties} near ties); the drain-then-swap pause "
+          f"{pause_ms:.2f} ms; {card_line()}", flush=True)
+    return {"install": res["result"], "near_ties": ties,
+            "pause_ms": pause_ms}
+
+
+def _fleet_ready(log_dir, n, timeout=600):
+    """The ready records of ``n`` replicas' logs under ``log_dir``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        recs = []
+        for f in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else ():
+            if not f.startswith("replica-"):
+                continue
+            with open(os.path.join(log_dir, f), errors="replace") as fh:
+                for line in fh:
+                    if line.startswith('{"ptpu_serve"'):
+                        recs.append(dict(json.loads(line)["ptpu_serve"],
+                                         log=os.path.join(log_dir, f)))
+        if len(recs) >= n:
+            return recs
+        time.sleep(0.2)
+    raise AssertionError(f"{n} replicas not ready in {timeout} s under "
+                         f"{log_dir}")
+
+
+def _fwd_fleet(cfg_path, snap, tmp, name) -> dict:
+    """(4) ``serve --fleet 2``: a router and two replica processes on the
+    card; FWD_FLEET_CALLS calls through ``ServingClient`` to the router,
+    one replica SIGKILLed mid-run, every call answered, the dead replica
+    out of rotation, the survivor deregistering on drain."""
+    import signal
+
+    from paddle_tpu_torch.serving import ServingClient
+
+    log_dir = os.path.join(tmp, "fleet_logs")
+    log = open(os.path.join(tmp, "fleet.log"), "w")
+    argv = [sys.executable, "-m", "paddle_tpu_torch", "serve", "--fleet",
+            "2", "--model", cfg_path, "--params", snap, "--port", "0",
+            "--fleet_log_dir", log_dir, "--router_poll_interval_s", "0.1",
+            "--router_staleness_s", "2.0", "--max_batch", "8", "--buckets",
+            "1,2,4,8", "--seq_buckets", "8,128,512,2048", "--device", "cuda"]
+    proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                            stdin=subprocess.DEVNULL)
+    replicas = []
+    try:
+        t0 = time.perf_counter()
+        router_url = None
+        while router_url is None and time.perf_counter() - t0 < 120:
+            if proc.poll() is not None:
+                raise AssertionError("serve --fleet exited early")
+            with open(os.path.join(tmp, "fleet.log"),
+                      errors="replace") as fh:
+                for line in fh:
+                    if line.startswith('{"ptpu_serve"'):
+                        router_url = json.loads(line)["ptpu_serve"]["url"]
+            time.sleep(0.1)
+        replicas = _fleet_ready(log_dir, 2)
+        while (_get_json(router_url + "/stats")["replicas_up"] < 2
+               and time.perf_counter() - t0 < 600):
+            time.sleep(0.2)
+        boot_s = time.perf_counter() - t0
+        client = ServingClient(router_url, max_attempts=8,
+                               backoff_base_s=0.05, backoff_cap_s=1.0,
+                               deadline_s=120.0)
+        rng = np.random.RandomState(SEED + 26)
+        calls = [rng.randint(0, VOCAB, size=int(rng.randint(3, 9))).tolist()
+                 for _ in range(FWD_FLEET_CALLS)]
+        done, lock, errors = [], threading.Lock(), []
+        killed = replicas[0]
+        kill_at = FWD_FLEET_CALLS // 4
+
+        def worker(k):
+            for i in range(k, FWD_FLEET_CALLS, 8):
+                try:
+                    out = client.infer([[calls[i]]])
+                    got = np.asarray(out[name])
+                    if got.shape != (1, 8, VOCAB) or not np.isfinite(
+                            got).all():
+                        raise AssertionError(f"call {i}: shape {got.shape}")
+                except Exception as e:        # noqa: BLE001 - reported
+                    with lock:
+                        errors.append((i, repr(e)))
+                    continue
+                with lock:
+                    done.append(i)
+                    if len(done) == kill_at:
+                        os.kill(killed["pid"], signal.SIGKILL)
+
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(8)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        calls_s = time.perf_counter() - t1
+        if errors or len(done) != FWD_FLEET_CALLS:
+            raise AssertionError(f"fleet calls: {len(done)} answered, "
+                                 f"errors {errors[:3]}")
+        t2 = time.perf_counter()
+        while time.perf_counter() - t2 < 30:
+            rs = _get_json(router_url + "/stats")
+            dead = rs["replicas"].get(killed["url"], {})
+            if not dead.get("up", True):
+                break
+            time.sleep(0.1)
+        if dead.get("up", True) or rs["replicas_up"] != 1:
+            raise AssertionError(f"the killed replica is still in rotation: "
+                                 f"{rs['replicas']}")
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(180)
+        survivor = replicas[1]
+        with open(survivor["log"], errors="replace") as fh:
+            slog = fh.read()
+        if "deregistered from router" not in slog:
+            raise AssertionError(f"the survivor did not deregister on "
+                                 f"drain: {slog[-2000:]}")
+        cs = client.stats()
+        res = {"boot_s": boot_s, "calls": FWD_FLEET_CALLS,
+               "calls_s": calls_s, "killed_after": kill_at,
+               "client_retries": cs["retries"],
+               "router_failovers": rs["failovers"],
+               "router_forwarded": rs["forwarded"],
+               "killed_state": dead.get("state"), "fleet_exit": code}
+        print(f"(4) serve --fleet 2 up in {boot_s:.1f} s (a router and two "
+              f"replicas on the card): {FWD_FLEET_CALLS} calls through "
+              f"ServingClient all answered in {calls_s:.2f} s, one replica "
+              f"SIGKILLed after {kill_at} (router failovers "
+              f"{rs['failovers']}, client retries {cs['retries']}); the "
+              f"router shows it {dead.get('state')} and out of rotation; on "
+              f"drain the survivor deregistered, the fleet exited {code}; "
+              f"{card_line()}", flush=True)
+        return res
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for rec in replicas:
+            try:
+                os.kill(rec["pid"], signal.SIGKILL)
+            except OSError:
+                pass
+        log.close()
+
+
+def serve_fwd_slice() -> dict:
+    """Phase 19: the whole-forward engine serving the LM's logits at full
+    width as ``serve --model cfg.py --params DIR`` serves it (max_batch 8,
+    row buckets 1, 2, 4, 8, T buckets 128, 512, 2048): micro-batched
+    scoring against the plain path and over HTTP, model versions with the
+    watcher, the canary and /reload, decode drain-then-swap, and the
+    fleet with a replica killed."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.io import checkpoint
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    tmp = tempfile.mkdtemp(prefix="serve_fwd_")
+    try:
+        snap = os.path.join(tmp, "snap")
+        snap_vals = random_values(SEED)
+        checkpoint.save_params(snap, snap_vals)
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(FWD_CONFIG)
+        args = cli.build_parser().parse_args(
+            ["serve", "--model", cfg_path, "--params", snap,
+             *FWD_SERVE_FLAGS])
+        out_layer, params, version, _, _ = cli._serve_weights(args)
+        engine = InferenceEngine(out_layer, params, model_version=version,
+                                 max_batch=8, batch_buckets=FWD_ROW_BUCKETS,
+                                 seq_buckets=FWD_SEQ_BUCKETS)
+        name = engine.output_names[0]
+        try:
+            out = {}
+            out["scoring"], reqs = _fwd_scoring(engine, out_layer, name)
+            out["micro_batch"] = _fwd_batch_profile(engine, reqs, name)
+            out["kernel1"] = _kernel1_at_served_shape(
+                out["micro_batch"]["lengths"])
+            out["http"] = _fwd_http(engine, cfg_path, snap, name)
+        finally:
+            engine.close()
+        torch.cuda.empty_cache()
+        out["versions"], new_vals = _fwd_versions(out_layer, params, version,
+                                                  snap_vals, tmp, name)
+        del params
+        torch.cuda.empty_cache()
+        out["decode_swap"] = _fwd_decode_swap(snap_vals, new_vals)
+        out["fleet"] = _fwd_fleet(cfg_path, snap, tmp, name)
+        out["launches"] = out["scoring"]["launches"]
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+SERVE_FWD_PHASES = {"serve_fwd": serve_fwd_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
-    (phase 17) or ``serve`` (phase 18), for a development run; the full
-    run takes no arguments."""
+    (phase 17), ``serve`` (phase 18) or ``serve_fwd`` (phase 19), for a
+    development run; the full run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -6924,12 +7578,14 @@ def selected(argv) -> list:
              for n in groups.get(g, [g])]
     unknown = [n for n in names if n not in DISPATCH_PHASES
                and n not in V2_PHASES and n not in CTR_PHASES
-               and n not in CKPT_PHASES and n not in SERVE_PHASES]
+               and n not in CKPT_PHASES and n not in SERVE_PHASES
+               and n not in SERVE_FWD_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
                          f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}"
-                         f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}")
+                         f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}"
+                         f" + {sorted(SERVE_FWD_PHASES)}")
     return names
 
 
@@ -6972,7 +7628,8 @@ def main(argv=()) -> int:
                 out[name] = phase(dev, gen, flush)
             else:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
-                             **CKPT_PHASES, **SERVE_PHASES}[name]()
+                             **CKPT_PHASES, **SERVE_PHASES,
+                             **SERVE_FWD_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -7028,6 +7685,7 @@ def main(argv=()) -> int:
     ckpt = ckpt_slice()
     cl = ckpt["launches"]
     serve = serve_slice()
+    serve_fwd = serve_fwd_slice()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -7051,6 +7709,8 @@ def main(argv=()) -> int:
          "launches_train": tl["flash_fwd"],
          "launches_ckpt": cl["flash_fwd_f32"],
          "launches_serve": serve["launches"]["flash_fwd"],
+         "launches_serve_fwd": serve_fwd["launches"],
+         "serve_fwd_shape": serve_fwd["kernel1"],
          "launches_replay": dispatch["lm"]["replay_launches"],
          "launches_remat": dispatch["remat"]["flash_fwd_on"],
          "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
@@ -7253,6 +7913,7 @@ def main(argv=()) -> int:
     print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"ckpt": ckpt}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"serve_fwd": serve_fwd}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

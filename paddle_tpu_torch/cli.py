@@ -22,17 +22,26 @@ and compile-cache flags and its other jobs are not ported yet and raise.
 (a JSON report; exit 1 on corruption); ``checkpoint latest DIR`` prints
 the newest snapshot that verifies as one JSON line, quarantining nothing.
 
-``serve --decode`` serves a transformer LM checkpoint as ``python -m
-paddle_tpu serve --decode`` does: through the slab ``SlotDecoder``, or the
-paged decoder with ``--paged_kv`` (``--sampling`` for seeded sampling),
-under ``--decode_policy``, with the engine's admission, tenant and breaker
-flags (``--max_queue_depth``, ``--tenant_weights a=3,b=1``,
-``--max_queue_depth_per_tenant``, ``--breaker_*``, ``--default_deadline_us``,
-``--drain_timeout_s``) at the JAX defaults.  The JAX command builds the
-model from a DSL config (``--model cfg.py``); here the dims come from the
-parameter shapes and the caller names ``--num_heads``.  The snapshot is the
-newest under ``--params`` that verifies (``load``, which quarantines a
-corrupt newer one, as the JAX server does).
+``serve --model cfg.py`` serves the config's ``prediction`` (else its
+``cost``) as ``python -m paddle_tpu serve`` does: through the whole-forward
+engine (micro-batches of ``--max_batch`` rows, ``--max_wait_us``,
+``--buckets``, 2-D ``--seq_buckets``), with the weights of ``--params`` (a
+snapshot directory, the newest that verifies, or a parameters tar).
+``--decode`` serves the config's transformer LM through the slab
+``SlotDecoder``, or the paged decoder with ``--paged_kv`` (``--sampling``
+for seeded sampling), under ``--decode_policy``; the heads come from the
+config, or, with no ``--model``, from ``--num_heads`` and the dims from
+the snapshot's shapes.  Both modes take the engine's admission, tenant and
+breaker flags (``--max_queue_depth``, ``--tenant_weights a=3,b=1``,
+``--max_queue_depth_per_tenant``, ``--breaker_*``,
+``--default_deadline_us``, ``--drain_timeout_s``) at the JAX defaults,
+``--watch_dir`` (hot reloads from a checkpoint stream,
+``--reload_period_s``, ``--canary_fraction``, ``--reload_key_file``) and
+``--router_url`` (register with a fleet router, deregister on drain).
+``--fleet N`` serves a ``Router`` on ``--port`` and N replica processes
+behind it (``--tenant_quota_global``, ``--router_staleness_s``,
+``--router_poll_interval_s``, ``--fleet_log_dir``).  The compile cache,
+mesh slices, ``--prewarm`` and tracing are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,8 +64,8 @@ _JOBS = ("train", "test", "time")
 def _serve_ready_line(role, host, port, **extra):
     """ONE machine-readable ready line on stdout: with ``--port 0`` it is
     the only reliable way to learn the bound port."""
-    url_host = "127.0.0.1" if host in ("0.0.0.0", "::", "") else host
-    rec = {"role": role, "url": f"http://{url_host}:{port}", "port": port,
+    rec = {"role": role, "url": f"http://{_connect_host(host)}:{port}",
+           "port": port,
            "host": host, "pid": os.getpid(), **extra}
     print(json.dumps({"ptpu_serve": rec}), flush=True)
     return rec
@@ -83,70 +92,338 @@ def _tenant_weights(spec):
     return out
 
 
-def cmd_serve(args) -> None:
+def _connect_host(host):
+    """A dialable address for a bind host (a wildcard bind is listen-side
+    only)."""
+    return "127.0.0.1" if host in ("0.0.0.0", "::", "") else host
+
+
+def _router_post(router_url, path, doc, timeout_s=10.0):
+    """POST a small JSON document to the fleet router (register,
+    deregister); the decoded answer, or raises."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        router_url.rstrip("/") + path, data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _replica_passthrough_argv(args):
+    """The serve flags a fleet replica inherits from ``serve --fleet N``
+    (all but --fleet, --port, --host and --router_url, which the fleet
+    owns)."""
+    argv = []
+    if args.params:
+        argv += ["--params", args.params]
+    if args.num_heads:
+        argv += ["--num_heads", str(args.num_heads)]
+    argv += ["--device", args.device,
+             "--max_batch", str(args.max_batch),
+             "--max_wait_us", str(args.max_wait_us),
+             "--drain_timeout_s", str(args.drain_timeout_s)]
+    if args.buckets:
+        argv += ["--buckets", args.buckets]
+    if args.max_queue_depth:
+        argv += ["--max_queue_depth", str(args.max_queue_depth)]
+    if args.default_deadline_us:
+        argv += ["--default_deadline_us", str(args.default_deadline_us)]
+    if args.tenant_weights:
+        argv += ["--tenant_weights", args.tenant_weights]
+    if args.max_queue_depth_per_tenant:
+        argv += ["--max_queue_depth_per_tenant",
+                 str(args.max_queue_depth_per_tenant)]
+    argv += ["--breaker_window", str(args.breaker_window),
+             "--breaker_threshold", str(args.breaker_threshold),
+             "--breaker_min_requests", str(args.breaker_min_requests),
+             "--breaker_cooldown_s", str(args.breaker_cooldown_s)]
+    if args.watch_dir:
+        # every replica watches the same stream: a fleet reload is N
+        # swaps, seen as version skew in the router's /stats as it rolls
+        argv += ["--watch_dir", args.watch_dir,
+                 "--reload_period_s", str(args.reload_period_s)]
+    if args.canary_fraction:
+        argv += ["--canary_fraction", str(args.canary_fraction)]
+    if args.reload_key_file:
+        argv += ["--reload_key_file", args.reload_key_file]
+    if args.seq_buckets:
+        argv += ["--seq_buckets", args.seq_buckets]
+    if args.decode:
+        argv += ["--decode", "--max_slots", str(args.max_slots),
+                 "--default_max_tokens", str(args.default_max_tokens),
+                 "--decode_policy", args.decode_policy,
+                 "--decode_kernel", args.decode_kernel]
+        if args.eos_id is not None:
+            argv += ["--eos_id", str(args.eos_id)]
+        if args.paged_kv:
+            argv += ["--paged_kv", "--kv_block_size",
+                     str(args.kv_block_size)]
+            if args.kv_blocks:
+                argv += ["--kv_blocks", str(args.kv_blocks)]
+        if args.sampling:
+            argv += ["--sampling"]
+    return argv
+
+
+def cmd_serve_fleet(args) -> None:
+    """``serve --fleet N``: a ``Router`` on --port and N replica serve
+    processes on free ports, each registering on start and deregistering
+    on drain; a replica that dies is reported and left out of rotation."""
+    import tempfile
+
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+    from paddle_tpu_torch.serving.router import Router
+
+    if not args.model:
+        raise SystemExit("serve --fleet needs --model (the replicas' "
+                         "config)")
+    router = Router(tenant_quota=args.tenant_quota_global,
+                    poll_interval_s=args.router_poll_interval_s,
+                    staleness_s=args.router_staleness_s)
+    server = router.serve(args.port, host=args.host)
+    port = server.server_address[1]
+    router_url = f"http://{_connect_host(args.host)}:{port}"
+    log_dir = args.fleet_log_dir or tempfile.mkdtemp(prefix="ptt_fleet_")
+    _serve_ready_line("router", args.host, port, fleet=args.fleet,
+                      log_dir=log_dir)
+    print(f"fleet router on {router_url}  (POST /infer /register "
+          f"/deregister, GET /stats /healthz)  tenant_quota_global="
+          f"{args.tenant_quota_global or 'off'} staleness_s="
+          f"{args.router_staleness_s:g}  replica logs in {log_dir}",
+          flush=True)
+    replicas = []
+    try:
+        replicas = fleet_mod.spawn_fleet(
+            args.fleet, os.path.abspath(args.model), router_url=router_url,
+            extra=_replica_passthrough_argv(args), log_dir=log_dir)
+        for rep in replicas:
+            print(f"replica up: {rep.url} (pid {rep.pid}, log "
+                  f"{rep.log_path})", flush=True)
+        try:
+            # supervise: reap a replica that dies and say so; the router
+            # ages it out of rotation by itself
+            down = set()
+            while len(down) < len(replicas):
+                time.sleep(2.0)
+                for rep in replicas:
+                    code = rep.proc.poll()
+                    if code is not None and rep.url not in down:
+                        down.add(rep.url)
+                        print(f"replica DOWN: {rep.url} exited {code} "
+                              f"(pid {rep.pid}, log {rep.log_path}); "
+                              f"respawn with `serve --router_url "
+                              f"{router_url}` to restore capacity",
+                              flush=True)
+            print("every replica is down: leaving fleet mode", flush=True)
+        except KeyboardInterrupt:
+            pass
+    finally:
+        for rep in replicas:
+            try:
+                rep.stop(timeout_s=args.drain_timeout_s + 15.0)
+            except Exception as e:          # noqa: BLE001 - best effort
+                print(f"stopping {rep.url}: {e!r}", flush=True)
+        router.close()
+
+
+def _num_heads_of(topo) -> int:
+    """The heads of the graph's attention layers."""
+    heads = {spec.attrs["num_heads"] for spec in topo.specs
+             if "num_heads" in spec.attrs}
+    if len(heads) != 1:
+        raise SystemExit(f"serve --decode: the config's graph must hold "
+                         f"attention layers of one head count, found "
+                         f"{sorted(heads)}")
+    return heads.pop()
+
+
+def _serve_weights(args):
+    """(output layer or None, Parameters or a snapshot's tree, model
+    version, heads or None, config globals) for ``serve``: with ``--model`` the config's
+    graph, its parameters fresh from the seed and overlaid by
+    ``--params`` (a snapshot dir, the newest that verifies, or a
+    parameters tar); without it the snapshot's tree alone (decode)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import config
     from paddle_tpu_torch.io import checkpoint
+
+    snap = None
+    if args.params and os.path.isdir(args.params):
+        snap = checkpoint.load(args.params)
+    version = (checkpoint.snapshot_version(snap["manifest"]) if snap
+               else "boot")
+    if not args.model:
+        if snap is None or not args.num_heads:
+            raise SystemExit("serve --decode without --model needs "
+                             "--params (a checkpoint dir) and --num_heads")
+        return (None, checkpoint.params_of(snap), version, args.num_heads,
+                {})
+    # before the config runs: its own paddle.init() keeps this device
+    config.set_option("device", args.device)
+    cfg = _load_config(args.model)
+    out_layer = cfg.get("prediction") or cfg.get("cost")
+    if out_layer is None:
+        raise SystemExit("serve config must define `prediction` (an output "
+                         "layer) or `cost`")
+    topo = paddle.Topology(out_layer, collect_evaluators=False)
+    params = paddle.parameters.create(topo, device=args.device)
+    if snap is not None:
+        # the snapshot overlays the fresh tree: what it lacks stays
+        for lname, ps in checkpoint.params_of(snap).items():
+            for name, v in ps.items():
+                if f"{lname}.{name}" in params:
+                    params[f"{lname}.{name}"] = v
+    elif args.params:
+        with open(args.params, "rb") as f:
+            params.from_tar(f)
+    heads = _num_heads_of(topo) if args.decode else None
+    return out_layer, params, version, heads, cfg
+
+
+def _reload_key(path):
+    if not path:
+        return None
+    try:
+        with open(path, "rb") as f:
+            key = f.read().strip()
+    except OSError as e:
+        raise SystemExit(f"cannot read --reload_key_file {path!r}: {e}")
+    if not key:
+        raise SystemExit(f"--reload_key_file {path!r} is empty")
+    return key
+
+
+def cmd_serve(args) -> None:
     from paddle_tpu_torch.models.transformer import (PagedDecoder,
                                                      SlotDecoder,
                                                      params_from_jax)
-    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.serving import InferenceEngine, WeightWatcher
 
-    if not args.decode:
-        raise NotImplementedError(
-            "serve without --decode (the whole-forward micro-batching "
-            "mode) is not ported to paddle_tpu_torch yet: ROADMAP.md §1 "
-            "item 8")
+    if args.fleet:
+        return cmd_serve_fleet(args)
+    if args.decode and args.seq_buckets:
+        raise SystemExit("--decode is exclusive with --seq_buckets: decode "
+                         "buckets ride the decoder (step/prefill buckets)")
+    if args.decode and args.canary_fraction:
+        raise SystemExit("--decode is exclusive with --canary_fraction: "
+                         "decode serves ONE resident weight set "
+                         "(drain-then-swap); canary lanes need the "
+                         "whole-forward engine")
     if args.sampling and not args.paged_kv:
         raise SystemExit("--sampling needs the paged decoder: add "
                          "--paged_kv")
+    if not args.decode and not args.model:
+        raise SystemExit("serve needs --model cfg.py (or --decode with "
+                         "--params and --num_heads)")
     tenant_weights = _tenant_weights(args.tenant_weights)
-    snap = checkpoint.load(args.params)
-    model = params_from_jax(checkpoint.params_of(snap),
-                            num_heads=args.num_heads)
-    if args.paged_kv:
-        decoder = PagedDecoder(model, max_slots=args.max_slots,
-                               block_size=args.kv_block_size,
-                               num_blocks=args.kv_blocks,
-                               sampling=args.sampling,
-                               decode_kernel=args.decode_kernel,
-                               device=args.device)
-    else:
-        decoder = SlotDecoder(model, max_slots=args.max_slots,
-                              decode_kernel=args.decode_kernel,
-                              device=args.device)
-    engine = InferenceEngine(
-        decoder, decode_policy=args.decode_policy, eos_id=args.eos_id,
-        default_max_tokens=args.default_max_tokens,
+    reload_key = _reload_key(args.reload_key_file)
+    out_layer, params, version, heads, cfg = _serve_weights(args)
+    common = dict(
+        max_wait_us=args.max_wait_us,
         max_queue_depth=args.max_queue_depth,
         default_deadline_us=args.default_deadline_us or None,
-        tenant_weights=tenant_weights,
+        model_version=version, canary_fraction=args.canary_fraction,
+        reload_key=reload_key, tenant_weights=tenant_weights,
         max_queue_depth_per_tenant=args.max_queue_depth_per_tenant,
         breaker_window=args.breaker_window,
         breaker_threshold=args.breaker_threshold,
         breaker_min_requests=args.breaker_min_requests,
         breaker_cooldown_s=args.breaker_cooldown_s)
+    ready_extra = {}
+    if args.decode:
+        model = params_from_jax(params, num_heads=heads)
+        if args.paged_kv:
+            decoder = PagedDecoder(model, max_slots=args.max_slots,
+                                   block_size=args.kv_block_size,
+                                   num_blocks=args.kv_blocks,
+                                   sampling=args.sampling,
+                                   decode_kernel=args.decode_kernel,
+                                   device=args.device)
+        else:
+            decoder = SlotDecoder(model, max_slots=args.max_slots,
+                                  decode_kernel=args.decode_kernel,
+                                  device=args.device)
+        engine = InferenceEngine(
+            decoder, decode_policy=args.decode_policy, eos_id=args.eos_id,
+            default_max_tokens=args.default_max_tokens, **common)
+        ready_extra = dict(decode_kernel=decoder.decode_kernel,
+                           paged=bool(args.paged_kv),
+                           sampling=bool(args.sampling))
+        shape = (f"max_slots={decoder.max_slots} "
+                 + (f"kv_block_size={decoder.block_size} kv_blocks="
+                    f"{decoder.num_blocks} " if args.paged_kv else "")
+                 + f"decode_policy={args.decode_policy}")
+    else:
+        buckets = ([int(b) for b in args.buckets.split(",") if b.strip()]
+                   if args.buckets else None)
+        seq_buckets = ([int(b) for b in args.seq_buckets.split(",")
+                        if b.strip()] if args.seq_buckets else None)
+        engine = InferenceEngine(
+            out_layer, params, feeding=cfg.get("feeding"),
+            max_batch=args.max_batch, batch_buckets=buckets,
+            seq_buckets=seq_buckets, **common)
+        shape = (f"buckets={list(engine.batch_buckets)} seq_buckets="
+                 f"{list(engine.seq_buckets or []) or 'max_len'} "
+                 f"max_wait_us={engine.max_wait_us:g}")
+    if args.watch_dir:
+        # the watcher attaches to the engine: POST /reload pushes a check
+        # and engine.close() joins it
+        WeightWatcher(engine, args.watch_dir, period_s=args.reload_period_s)
+        print(f"watching {args.watch_dir} for new snapshots every "
+              f"{args.reload_period_s:g}s (canary_fraction="
+              f"{args.canary_fraction:g}, reload key "
+              f"{'set' if reload_key else 'none'})", flush=True)
     server = engine.serve(args.port, host=args.host)
     port = server.server_address[1]
-    _serve_ready_line("engine", args.host, port, snapshot=snap["dir"],
-                      model_version=checkpoint.snapshot_version(
-                          snap["manifest"]),
-                      device=str(decoder.device),
-                      decode_kernel=decoder.decode_kernel,
-                      paged=bool(args.paged_kv),
-                      sampling=bool(args.sampling))
-    kv = (f"kv_block_size={decoder.block_size} "
-          f"kv_blocks={decoder.num_blocks} " if args.paged_kv else "")
-    print(f"serving on http://{args.host}:{port}  (POST /infer, GET "
-          f"/stats /healthz /kernels)  max_slots={decoder.max_slots} {kv}"
-          f"decode_policy={args.decode_policy} "
+    ready = _serve_ready_line(
+        "replica" if args.router_url else "engine", args.host, port,
+        snapshot=args.params, model_version=engine._active_version(),
+        device=str(engine._device), decode=bool(args.decode),
+        **ready_extra)
+    print(f"serving on http://{args.host}:{port}  (POST /infer /reload, GET "
+          f"/stats /healthz /kernels)  {shape} "
           f"max_queue_depth={engine.max_queue_depth or 'unbounded'} "
           f"default_deadline_us={engine.default_deadline_us or 'none'} "
           f"tenant_weights={engine.tenant_weights or '{}'} "
-          f"device={decoder.device}", flush=True)
+          f"model_version={engine._active_version()} "
+          f"device={engine._device}", flush=True)
+    registered = False
     try:
+        if args.router_url:
+            # register once the port answers, retried: a router briefly
+            # down must not take a healthy replica past its drain path
+            for attempt in range(5):
+                try:
+                    _router_post(args.router_url, "/register",
+                                 {"url": ready["url"]})
+                    registered = True
+                    print(f"registered with router {args.router_url}",
+                          flush=True)
+                    break
+                except Exception as e:      # noqa: BLE001 - keep serving
+                    print(f"register with {args.router_url} failed "
+                          f"({e!r}), retry {attempt + 1}/5", flush=True)
+                    time.sleep(1.0)
+            if not registered:
+                print(f"WARNING: serving UNREGISTERED; POST "
+                      f"{args.router_url}/register {{\"url\": "
+                      f"\"{ready['url']}\"}} to add this replica",
+                      flush=True)
         threading.Event().wait()
     except KeyboardInterrupt:
         pass
     finally:
+        if registered:
+            # out of rotation before the in-flight work drains
+            try:
+                _router_post(args.router_url, "/deregister",
+                             {"url": ready["url"]})
+                print(f"deregistered from router {args.router_url}",
+                      flush=True)
+            except Exception as e:          # noqa: BLE001 - drain anyway
+                print(f"deregister from {args.router_url} failed: {e!r}",
+                      flush=True)
         engine.close(drain_timeout_s=args.drain_timeout_s)
 
 
@@ -420,18 +697,74 @@ def build_parser() -> argparse.ArgumentParser:
         tr.add_argument(f"--{flag}", default=None,
                         help="not ported yet: raises")
     tr.set_defaults(fn=cmd_train)
-    sv = sub.add_parser("serve", help="serve a transformer LM checkpoint "
-                                      "through the decode engine")
-    sv.add_argument("--params", required=True,
-                    help="checkpoint dir (pass-%%05d / step-%%09d "
-                         "snapshots); the newest that verifies is served")
-    sv.add_argument("--num_heads", type=int, required=True,
-                    help="attention heads (dim / num_heads = head dim)")
+    sv = sub.add_parser("serve", help="serve a DSL config through the "
+                                      "whole-forward engine, or a "
+                                      "transformer LM through the decode "
+                                      "engine")
+    sv.add_argument("--model", default=None,
+                    help="config .py defining `prediction` (or `cost`); "
+                         "--decode needs a transformer LM's graph")
+    sv.add_argument("--params", default=None,
+                    help="weights: a checkpoint dir (pass-%%05d / "
+                         "step-%%09d snapshots; the newest that verifies "
+                         "is served) or a parameters tar")
+    sv.add_argument("--num_heads", type=int, default=None,
+                    help="--decode without --model: attention heads (dim "
+                         "/ num_heads = head dim); with --model the config "
+                         "names them")
+    sv.add_argument("--max_batch", type=int, default=32,
+                    help="row budget of a coalesced micro-batch")
+    sv.add_argument("--max_wait_us", type=float, default=2000.0,
+                    help="the longest the oldest queued request waits "
+                         "before a partial batch dispatches")
+    sv.add_argument("--buckets", default=None,
+                    help="comma-separated batch-row buckets (default: "
+                         "powers of two from 2 to max_batch)")
+    sv.add_argument("--seq_buckets", default=None,
+                    help="comma-separated padded-seqlen buckets: each "
+                         "micro-batch's T axis pads to the smallest bucket "
+                         "covering its longest sample, not max_len")
+    sv.add_argument("--watch_dir", default=None,
+                    help="poll this checkpoint dir for newer snapshots "
+                         "that verify and swap them in between "
+                         "micro-batches (decode: drain, then swap); "
+                         "POST /reload?rollback=1 rolls back")
+    sv.add_argument("--reload_period_s", type=float, default=2.0,
+                    help="the watcher's poll period (POST /reload checks "
+                         "at once)")
+    sv.add_argument("--canary_fraction", type=float, default=0.0,
+                    help="route this share of untagged traffic to a new "
+                         "version before promoting it (an error-rate "
+                         "breach rolls it back; 0 = swap at once)")
+    sv.add_argument("--reload_key_file", default=None,
+                    help="key file: POST /reload must carry "
+                         "X-Ptpu-Reload-Key = hex HMAC-SHA256 of "
+                         "<query>\\n<body> under it, else 403")
+    sv.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve a Router on --port and N replica serve "
+                         "processes behind it on free ports (each "
+                         "inherits the engine flags, registers on start, "
+                         "deregisters on drain)")
+    sv.add_argument("--router_url", default=None,
+                    help="register with the fleet router at this base URL "
+                         "on start and deregister on drain")
+    sv.add_argument("--tenant_quota_global", type=int, default=0,
+                    help="fleet mode: the router sheds a tenant (429, "
+                         "reason=tenant_quota_global) holding this many "
+                         "unanswered requests fleet-wide (0 = off)")
+    sv.add_argument("--router_staleness_s", type=float, default=0.5,
+                    help="fleet mode: a replica whose last fresh /stats is "
+                         "older than this leaves rotation")
+    sv.add_argument("--router_poll_interval_s", type=float, default=0.05,
+                    help="fleet mode: the router's /healthz + /stats poll "
+                         "period")
+    sv.add_argument("--fleet_log_dir", default=None,
+                    help="fleet mode: directory of the replicas' logs "
+                         "(default: a fresh temp dir, printed)")
     sv.add_argument("--decode", action="store_true",
-                    help="continuous-batching autoregressive decode "
-                         "(required: the whole-forward mode is not "
-                         "ported): the slab SlotDecoder, or the paged one "
-                         "with --paged_kv")
+                    help="continuous-batching autoregressive decode: the "
+                         "slab SlotDecoder, or the paged one with "
+                         "--paged_kv")
     sv.add_argument("--paged_kv", action="store_true",
                     help="paged KV cache: one block pool, mixed "
                          "prefill/decode iterations, prefix caching")

@@ -608,6 +608,28 @@ class SlotDecoder:
         """Re-zero the caches (after a fault every slot's state is lost)."""
         self._caches = self._fresh_caches()
 
+    def values(self) -> dict:
+        """The weights as ``{layer: {param: tensor}}``: detached tensors
+        that a later ``set_values`` leaves as they are."""
+        return {lname: {name: p.detach() for name, p in ps.items()}
+                for lname, ps in self.model.p.items()}
+
+    def set_values(self, values) -> None:
+        """Serve other weights of the same names and shapes: the
+        parameters point at ``values``' tensors (no copy on the device)
+        and the caches re-zero (the paged prefix cache with them), since
+        every cached K/V came from the old weights.  The serving engine
+        calls it with no sequence resident (drain-then-swap)."""
+        for lname, ps in self.model.p.items():
+            for name, p in ps.items():
+                new = values[lname][name]
+                if tuple(new.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"{lname}.{name}: shape {tuple(new.shape)} is not "
+                        f"the served {tuple(p.shape)}")
+                p.data = new.detach().to(self.device, p.dtype)
+        self.reset()
+
     def _ints(self, a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)

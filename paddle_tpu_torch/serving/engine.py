@@ -1,9 +1,22 @@
-"""Continuous-batching decode server over a ``SlotDecoder`` or a
-``PagedDecoder``, hardened for overload and shared by tenants.
+"""Serving engine (counterpart of ``paddle_tpu/serving/engine.py``'s
+``InferenceEngine``): shape-bucketed micro-batches of whole forwards, or
+continuous-batching decode over a ``SlotDecoder`` or a ``PagedDecoder``,
+hardened for overload, shared by tenants, and serving model versions.
 
-The decode half of ``paddle_tpu/serving/engine.py``'s ``InferenceEngine``:
-``submit`` returns a ``Future``; one batcher thread runs an Orca-style
-iteration-level scheduler over KV-cache slots.  With a ``SlotDecoder``
+Whole forwards (``InferenceEngine(output_layer, parameters)`` or
+``inference=``): ``submit`` returns a ``Future``; one batcher thread
+coalesces queued requests (lists of v2 sample tuples) into micro-batches of
+up to ``max_batch`` rows, or until the oldest has waited ``max_wait_us``
+(times the overload wait scale), pads the rows up to a ``batch_buckets``
+bucket by repeating the last sample and, with ``seq_buckets``, the sequence
+axis up to a (rows, T) bucket, and launches ONE forward
+(``Inference.run_feed``) without waiting for it; a delivery thread pays the
+device-to-host copy and slices each request's rows out, so batch k's copy
+overlaps the launch of batch k+1.  A request whose samples do not convert
+fails alone; a forward fault fails that batch only.  A topology with a
+scalar output (a cost) runs one request a batch, unpadded.
+
+Decode (``InferenceEngine(decoder)``): with a ``SlotDecoder``
 (``_decode_loop``) each turn admits queued prompts into free slots (one
 prefill each) and runs ONE decode step over the resident set; with a
 ``PagedDecoder`` (``_paged_loop``) each turn admits into free slots
@@ -16,100 +29,129 @@ sequence with ``Overloaded(reason="kv_blocks")``; a fault in the forward
 (or in a prefill) fails every resident and resets the caches, and the
 engine keeps serving.
 
-Overload is a designed state:
+Overload is a designed state, in both modes:
 
   * admission control: with ``max_queue_depth`` set, ``submit`` fails the
     Future at once with ``Overloaded`` when the backlog reaches the cap,
     and keeps shedding until it drains to the ``hysteresis`` watermark;
-  * per-request deadlines (``deadline_us`` or ``default_deadline_us``)
-    cover the whole generation and are reaped every iteration;
+  * per-request deadlines (``deadline_us`` or ``default_deadline_us``),
+    reaped at pop and assembly time (whole forwards: dead work never
+    takes a batch row) or every iteration (decode: they cover the whole
+    generation);
   * two priority lanes (``"high"``, ``"normal"``): strict priority with an
     anti-starvation credit (``starvation_limit``);
   * tenants: inside each lane deficit round robin by ``tenant_weights``,
-    charged in decode steps (a request's ``max_tokens``, refunded on an
-    early EOS); per-tenant quotas (``max_queue_depth_per_tenant``, a
-    fraction of the global cap or a count) over queued plus slot-holding
-    sequences, so a quota caps a tenant's KV slots; a per-tenant
-    error-rate breaker (``BreakerOpen``, a half-open probe to close);
-  * ``close(drain_timeout_s)`` sheds what cannot finish instead of
+    charged in rows (whole forwards) or decode steps (a request's
+    ``max_tokens``, refunded on an early EOS); per-tenant quotas
+    (``max_queue_depth_per_tenant``, a fraction of the global cap or a
+    count); a per-tenant error-rate breaker (``BreakerOpen``, a half-open
+    probe to close);
+  * the wait scale widens ``max_wait_us`` under backlog and narrows back;
+    ``close(drain_timeout_s)`` sheds what cannot finish instead of
     hanging, and a watchdog fails every in-flight future with
-    ``EngineUnhealthy`` when the batcher thread dies.
+    ``EngineUnhealthy`` when the batcher or the delivery thread dies.
+
+Model versions: every request resolves against a version (``boot``, or
+``model_version=``; ``install_version`` and ``serving.reload`` feed new
+weights in).  Whole forwards resolve it at submit and never mix versions
+in a batch, so in-flight requests finish on the weights they were
+admitted against; the previous version stays resident (``rollback`` is a
+pointer flip), ``canary_fraction`` routes a deterministic share of
+untagged traffic to a new version first (an error-rate breach rolls it
+back, ``canary_promote_requests`` healthy answers promote it), and
+``submit(version=)`` pins ``"prev"`` or a resident id.  Decode serves one
+weight set: a swap drains (admission pauses, residents finish on the old
+weights), then swaps; a canary or a pin to another version is refused.
 
 A ``PagedDecoder(sampling=True)`` serves seeded sampling
 (``temperature``, ``top_k``, ``top_p``, ``seed``); requests without those
 knobs decode greedily, bit-equal to a decoder without sampling.
 
 ``serve`` adds a stdlib HTTP front end on the JAX engine's wire format:
-``POST /infer`` ``{"input": [prompt], "max_tokens": N}`` (optional
-``lane``, ``tenant``, ``deadline_ms``, ``temperature``, ``top_k``,
-``top_p``, ``seed``; headers ``X-Ptpu-Lane``, ``X-Ptpu-Tenant``,
-``X-Ptpu-Deadline-Ms``, ``X-Ptpu-Max-Tokens``) ->
-``{"outputs": {"tokens": [...]}, "generated": N}`` (400 bad request, 429
-``Overloaded`` with ``Retry-After`` and the shed reason, 504 deadline, 503
-closed or dead, 500 server fault), ``GET /healthz``, ``GET /stats`` and
-``GET /kernels`` (each kernel's launch count).  ``serving.client`` is the
-caller's half of the contract.
+``POST /infer`` ``{"input": [...]}`` (decode: ``[prompt]`` and
+``max_tokens``; optional ``lane``, ``tenant``, ``deadline_ms``,
+``model_version``, ``temperature``, ``top_k``, ``top_p``, ``seed``;
+headers ``X-Ptpu-Lane``, ``X-Ptpu-Tenant``, ``X-Ptpu-Deadline-Ms``,
+``X-Ptpu-Model-Version``, ``X-Ptpu-Max-Tokens``) -> ``{"outputs": {name:
+[...]}, "model_version": id}`` (decode adds ``"generated"``; 400 bad
+request, 429 ``Overloaded`` with ``Retry-After`` and the shed reason, 504
+deadline, 503 closed or dead, 500 server fault); ``POST /reload``
+(``?rollback=1``, ``?promote=1``, a ``{"dir": ...}`` body, or the attached
+watcher's check; HMAC-signed with ``reload_key``, else 403), ``GET
+/healthz``, ``GET /stats`` and ``GET /kernels`` (each kernel's launch
+count).  ``serving.client`` is the caller's half of the contract,
+``serving.router`` the fleet's front.
 
 Not ported (each keyword raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item when set): the whole-forward micro-batching mode and
-model versions (item 8), tracing and the compile cache (item 13), mesh
-slices (item 14).
+``ROADMAP.md`` item when set): tracing and ``/metrics`` (item 8.4, with
+item 13), mesh slices (item 8.5, with item 14), the compile cache and
+``prewarm`` (item 8.6, with item 13).
 """
 
 from __future__ import annotations
 
 import heapq
+import inspect
 import json
 import math
 import queue
 import threading
 import time
+import urllib.parse
 import weakref
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch import ops
+from paddle_tpu_torch.data_feeder import DataFeeder
+from paddle_tpu_torch.inference import Inference, bucket_rows
 from paddle_tpu_torch.serving.blocks import KVPoolExhausted
 
 LANES = ("high", "normal")
 SHED_REASONS = ("queue_full", "tenant_quota", "breaker_open", "deadline",
                 "drain", "thread_death", "abandoned", "kv_blocks")
+# weight-update outcomes: a version went live (install or promote), a
+# candidate snapshot failed its checksums and the weights were not
+# touched, the active or canary version was demoted
+RELOAD_RESULTS = ("swapped", "verify_failed", "rolled_back")
 # why a KV slot went back to the free list; "kv_blocks" = the paged
 # decoder's block pool ran dry and the sequence was shed
 SLOT_FREE_REASONS = ("finished", "deadline", "abandoned", "error",
                      "drain", "kv_blocks")
 DEFAULT_TENANT = "default"
 
-_WHOLE_FORWARD = "ROADMAP.md §1 item 8 (the whole-forward mode)"
-_VERSIONS = "ROADMAP.md §1 item 8 (model versions and canary)"
+_TRACING = "ROADMAP.md §1 item 13 (tracing; the serving part is item 8.4)"
+_MESH = "ROADMAP.md §1 item 14 (parallel; the serving part is item 8.5)"
+_CACHE = ("ROADMAP.md §1 item 13 (the compile cache; the serving part, "
+          "prewarm, is item 8.6)")
 # keyword -> (its JAX default, the ROADMAP item that ports it)
 _UNPORTED = {
-    "output_layer": (None, _WHOLE_FORWARD),
-    "parameters": (None, _WHOLE_FORWARD),
-    "inference": (None, _WHOLE_FORWARD),
-    "feeding": (None, _WHOLE_FORWARD),
-    "max_batch": (32, _WHOLE_FORWARD),
-    "max_wait_us": (2000.0, _WHOLE_FORWARD),
-    "batch_buckets": (None, _WHOLE_FORWARD),
-    "overload_wait_scale": (8.0, _WHOLE_FORWARD),
-    "seq_buckets": (None, _WHOLE_FORWARD),
-    "model_version": ("boot", _VERSIONS),
-    "canary_fraction": (0.0, _VERSIONS),
-    "canary_promote_requests": (64, _VERSIONS),
-    "reload_key": (None, _VERSIONS),
-    "mesh": (None, "ROADMAP.md §1 item 14 (parallel)"),
-    "mesh_slices": (0, "ROADMAP.md §1 item 14 (parallel)"),
-    "mesh_rules": (None, "ROADMAP.md §1 item 14 (parallel)"),
-    "trace_sample": (None, "ROADMAP.md §1 item 13 (tracing)"),
-    "telemetry_dir": (None, "ROADMAP.md §1 item 13 (tracing)"),
-    "compile_cache_dir": (None, "ROADMAP.md §1 item 13 (the compile "
-                                "cache)"),
+    "mesh": (None, _MESH), "mesh_slices": (0, _MESH),
+    "mesh_rules": (None, _MESH),
+    "trace_sample": (None, _TRACING), "telemetry_dir": (None, _TRACING),
+    "compile_cache_dir": (None, _CACHE),
 }
+
+# intake-queue wake token: install_version nudges an idle decode loop
+# (blocked in the queue's get) to apply a pending swap
+_WAKE = object()
+
+
+def default_buckets(max_batch: int) -> tuple:
+    """Powers of two from 2 up to (and always including) max_batch."""
+    out = []
+    b = 2
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return tuple(out)
 
 
 class ServingError(RuntimeError):
@@ -168,15 +210,19 @@ def _bucket_rows(n: int, buckets) -> int:
 
 
 class _Request:
-    __slots__ = ("prompt", "cost", "future", "t_submit", "deadline", "lane",
-                 "tenant", "tstate", "probe", "abandoned", "sampling",
-                 "__weakref__")
+    __slots__ = ("prompt", "samples", "rows", "cost", "future", "t_submit",
+                 "deadline", "lane", "tenant", "tstate", "probe",
+                 "abandoned", "sampling", "version", "__weakref__")
 
     def __init__(self, prompt, cost, future, t_submit, deadline, lane,
-                 tenant, tstate, probe=False, sampling=None):
-        self.prompt = prompt
-        # the WFQ deficit charged at board time: the decode-step budget
-        self.cost = cost                  # max_tokens
+                 tenant, tstate, probe=False, sampling=None, samples=None,
+                 rows=1, version=None):
+        self.prompt = prompt              # decode: the prompt's token ids
+        self.samples = samples            # whole forwards: sample tuples
+        self.rows = rows
+        # the WFQ deficit charged at board time: rows (whole forwards) or
+        # the decode-step budget, max_tokens (decode)
+        self.cost = cost
         self.future = future
         self.t_submit = t_submit
         self.deadline = deadline          # absolute perf_counter seconds
@@ -187,6 +233,40 @@ class _Request:
         self.abandoned = False
         # (temperature, top_k, top_p, seed), or None for greedy
         self.sampling = sampling
+        # the model version this request resolved against: at submit
+        # (whole forwards) or at prefill (decode)
+        self.version = version
+
+
+class _ModelVersion:
+    """One resident weight set: ``values`` (``{layer: {param: tensor}}``
+    on the engine's device), its state (active | prev | canary | resident
+    | rolled_back), request and error counts, and the canary's breach
+    window.  Mutated under the engine's ``_version_lock``."""
+
+    __slots__ = ("id", "values", "state", "source", "requests", "errors",
+                 "window", "win_errors")
+
+    def __init__(self, vid: str, values, state: str = "resident",
+                 source: str = "", window: int = 0):
+        self.id = vid
+        self.values = values
+        self.state = state
+        self.source = source              # snapshot dir ("" for boot)
+        self.requests = 0
+        self.errors = 0
+        self.window: deque = deque(maxlen=window) if window else None
+        self.win_errors = 0
+
+    def push_outcome(self, err: bool) -> None:
+        w = self.window
+        if w is None:
+            return
+        if len(w) == w.maxlen and w[0]:
+            self.win_errors -= 1
+        w.append(err)
+        if err:
+            self.win_errors += 1
 
 
 class _SlotAllocator:
@@ -400,18 +480,24 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class InferenceEngine:
-    """Decode server over a ``SlotDecoder`` or ``PagedDecoder`` (module
-    docstring).  ``eos_id`` ends a sequence when emitted;
-    ``default_max_tokens`` is the budget of a request that names none (0:
-    every request must name one).  Close with ``close()``; also a context
-    manager."""
+    """``InferenceEngine(output_layer, parameters)`` (or ``inference=``)
+    serves whole forwards; ``InferenceEngine(decoder)`` (a
+    ``SlotDecoder`` or ``PagedDecoder``, positionally or as ``decoder=``)
+    serves decode (module docstring); a whole-forward engine runs where
+    its ``Inference`` does (the ``device`` option, else the card).
+    ``eos_id`` ends a decoded sequence when emitted;
+    ``default_max_tokens`` is the budget of a decode request that names
+    none (0: every request must name one).  Close with ``close()``; also
+    a context manager."""
 
     http_timeout_s = 300.0
 
-    def __init__(self, decoder=None, parameters=None, *,
-                 output_layer=None, inference=None, feeding=None,
+    def __init__(self, output_layer=None, parameters=None, *,
+                 inference: Optional[Inference] = None,
+                 feeding: Optional[dict] = None,
                  max_batch: int = 32, max_wait_us: float = 2000.0,
-                 batch_buckets=None, compile_cache_dir=None,
+                 batch_buckets: Optional[Sequence[int]] = None,
+                 compile_cache_dir=None,
                  max_queue_depth: int = 0, hysteresis: float = 0.25,
                  default_deadline_us: Optional[float] = None,
                  starvation_limit: int = 4,
@@ -425,55 +511,110 @@ class InferenceEngine:
                  breaker_cooldown_s: float = 5.0,
                  max_tenants: int = 256,
                  mesh=None, mesh_slices: int = 0, mesh_rules=None,
+                 decoder=None,
                  trace_sample: Optional[float] = None,
                  telemetry_dir: Optional[str] = None,
                  decode_policy: str = "continuous",
                  eos_id: Optional[int] = None,
                  default_max_tokens: int = 0,
-                 seq_buckets=None,
+                 seq_buckets: Optional[Sequence[int]] = None,
                  model_version: str = "boot",
                  canary_fraction: float = 0.0,
                  canary_promote_requests: int = 64,
                  reload_key=None):
-        given = dict(output_layer=output_layer, parameters=parameters,
-                     inference=inference, feeding=feeding,
-                     max_batch=max_batch, max_wait_us=max_wait_us,
-                     batch_buckets=batch_buckets,
-                     overload_wait_scale=overload_wait_scale,
-                     seq_buckets=seq_buckets, model_version=model_version,
-                     canary_fraction=canary_fraction,
-                     canary_promote_requests=canary_promote_requests,
-                     reload_key=reload_key, mesh=mesh,
-                     mesh_slices=mesh_slices, mesh_rules=mesh_rules,
-                     trace_sample=trace_sample, telemetry_dir=telemetry_dir,
+        if (decoder is None and hasattr(output_layer, "max_slots")
+                and hasattr(output_layer, "step")):
+            # a decoder in the first position
+            decoder, output_layer = output_layer, None
+        given = dict(mesh=mesh, mesh_slices=mesh_slices,
+                     mesh_rules=mesh_rules, trace_sample=trace_sample,
+                     telemetry_dir=telemetry_dir,
                      compile_cache_dir=compile_cache_dir)
-        if decoder is not None and not (hasattr(decoder, "max_slots")
-                                        and hasattr(decoder, "step")):
-            # a layer where the JAX engine takes its output_layer
-            given["output_layer"], decoder = decoder, None
         for kw, value in given.items():
             default, item = _UNPORTED[kw]
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"InferenceEngine({kw}=...) is not ported to "
                     f"paddle_tpu_torch yet: {item}")
-        if decoder is None:
-            raise ValueError("InferenceEngine needs decoder= (a SlotDecoder "
-                             "or PagedDecoder)")
-        if decode_policy not in ("continuous", "static"):
-            raise ValueError(
-                f"decode_policy must be 'continuous' or 'static' (the "
-                f"benchmark baseline), got {decode_policy!r}")
-        if default_max_tokens < 0:
-            raise ValueError(f"default_max_tokens must be >= 0, got "
-                             f"{default_max_tokens}")
         self._decoder = decoder
         self._paged = bool(getattr(decoder, "paged", False))
-        self.decode_policy = decode_policy
-        self.eos_id = None if eos_id is None else int(eos_id)
-        self.default_max_tokens = int(default_max_tokens)
-        self._slot_alloc = _SlotAllocator(decoder.max_slots)
-        self._ttft_us: deque = deque(maxlen=4096)
+        self._inf = self._feeder = None
+        self._slot_alloc = None
+        self.seq_buckets = None
+        self._seq_inputs: tuple = ()
+        self._one_per_batch = False
+        if decoder is not None:
+            if not (hasattr(decoder, "max_slots")
+                    and hasattr(decoder, "step")):
+                raise ValueError("decoder= takes a SlotDecoder or "
+                                 "PagedDecoder")
+            if output_layer is not None or inference is not None:
+                raise ValueError(
+                    "decoder= is exclusive with output_layer/inference=")
+            if seq_buckets is not None:
+                raise ValueError("seq_buckets is a whole-forward knob; "
+                                 "decode buckets ride the decoder")
+            if decode_policy not in ("continuous", "static"):
+                raise ValueError(
+                    f"decode_policy must be 'continuous' or 'static' (the "
+                    f"benchmark baseline), got {decode_policy!r}")
+            if canary_fraction:
+                raise ValueError(
+                    "decode mode serves ONE resident weight set (the KV "
+                    "caches bind to it): canary_fraction needs the "
+                    "whole-forward engine; decode swaps drain, then swap")
+            if default_max_tokens < 0:
+                raise ValueError(f"default_max_tokens must be >= 0, got "
+                                 f"{default_max_tokens}")
+            self.decode_policy = decode_policy
+            self.eos_id = None if eos_id is None else int(eos_id)
+            self.default_max_tokens = int(default_max_tokens)
+            self._slot_alloc = _SlotAllocator(decoder.max_slots)
+            self._ttft_us: deque = deque(maxlen=4096)
+            # a "row" is one sequence
+            self.max_batch = int(decoder.max_slots)
+            self.max_wait_us = float(max_wait_us)
+            buckets = tuple(decoder.step_buckets)
+            self.output_names = ["tokens"]
+            self._device = decoder.device
+        else:
+            if decode_policy != "continuous" or eos_id is not None \
+                    or default_max_tokens:
+                raise ValueError(
+                    "decode_policy/eos_id/default_max_tokens need "
+                    "decoder= (a KV-slot decode surface)")
+            if inference is None:
+                if output_layer is None or parameters is None:
+                    raise ValueError(
+                        "InferenceEngine needs (output_layer, parameters), "
+                        "inference=, or decoder=")
+                inference = Inference(output_layer, parameters)
+            self._inf = inference
+            self._feeder = DataFeeder(inference.topology, feeding)
+            # a scalar output (a cost) folds its batch: one request a
+            # batch, unpadded, so every answer is the request's own
+            self._one_per_batch = not inference._pad_ok
+            self.decode_policy = "continuous"
+            self.eos_id = None
+            self.default_max_tokens = 0
+            if max_batch < 1:
+                raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+            self.max_batch = int(max_batch)
+            self.max_wait_us = float(max_wait_us)
+            buckets = tuple(sorted({
+                int(b) for b in (batch_buckets
+                                 or default_buckets(max_batch))}))
+            if not buckets or buckets[0] < 1:
+                raise ValueError(f"bad batch_buckets {buckets}")
+            if buckets[-1] < self.max_batch:
+                # the coalescer fills up to max_batch rows: some bucket
+                # must hold a full batch
+                buckets = buckets + (self.max_batch,)
+            self.output_names = list(inference.output_names)
+            self._device = inference.device
+            if seq_buckets is not None:
+                self._set_seq_buckets(seq_buckets)
+        self.batch_buckets = buckets
 
         # ---- overload policy knobs
         if max_queue_depth < 0:
@@ -490,6 +631,7 @@ class InferenceEngine:
         self._default_deadline_s = (self.default_deadline_us / 1e6
                                     if self.default_deadline_us else None)
         self.starvation_limit = int(starvation_limit)
+        self.overload_wait_scale = float(overload_wait_scale)
         self.watchdog_interval_s = float(watchdog_interval_s)
 
         # ---- tenant isolation knobs
@@ -527,50 +669,135 @@ class InferenceEngine:
         self._tenants: Dict[str, _Tenant] = {}
         self._tenant_make_lock = threading.Lock()
 
+        # ---- model versions: the active one, the previous one (the
+        # rollback target) and an optional canary stay resident
+        if not 0.0 <= canary_fraction <= 1.0:
+            raise ValueError(f"canary_fraction must be in [0, 1], got "
+                             f"{canary_fraction}")
+        if canary_promote_requests < 1:
+            raise ValueError(f"canary_promote_requests must be >= 1, got "
+                             f"{canary_promote_requests}")
+        self.canary_fraction = float(canary_fraction)
+        self.canary_promote_requests = int(canary_promote_requests)
+        if isinstance(reload_key, str):
+            reload_key = reload_key.encode()
+        self._reload_key = reload_key or None
+        self._version_lock = threading.Lock()
+        self._watcher = None
+        vals0 = (decoder.values() if decoder is not None
+                 else inference.parameters.values)
+        # the probation window must hold canary_promote_requests outcomes
+        self._canary_window = max(self.breaker_window or 64,
+                                  self.canary_promote_requests)
+        ver0 = _ModelVersion(str(model_version), vals0, state="active",
+                             window=self._canary_window)
+        self._versions: Dict[str, _ModelVersion] = {ver0.id: ver0}
+        self._version_active = ver0.id
+        self._version_prev: Optional[str] = None
+        self._version_canary: Optional[str] = None
+        self._bad_versions: set = set()   # ids a watcher must not re-install
+        self._canary_seq = 0              # the deterministic fraction split
+        self._decode_pending = None       # (version, t0, result kind)
+
         self._inq: "queue.SimpleQueue" = queue.SimpleQueue()
         self._lane_high = _Lane(self._quanta)
         self._lane_normal = _Lane(self._quanta)
         self._lane_credit = 0              # high pops past waiting normal
+        self._carry: List[_Request] = []   # overflow of the last collect
+        self._carry_rows = 0
         self._shedding = False             # admission gate state
+        self._wait_scale = 1.0             # overload max_wait multiplier
         self._stopping = False             # the batcher saw the sentinel
-        self._abort = False                # stop decoding, shed the rest
+        self._abort = False                # stop dispatching, shed the rest
         self._closed = False
         self._healthy = True
         self._health_reason = ""
-        self._inflight = ()                # the residents' requests
+        self._inflight = ()                # what the batcher holds
+        self._delivering = ()              # the batch delivery holds
         # orders submit's {closed check, put} against close's {set closed,
         # put sentinel}: a request put under it is ahead of the sentinel
         self._close_lock = threading.Lock()
         self._err_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.session = {"requests": 0, "rows": 0, "errors": 0,
+                        "batches": 0, "padded_rows": 0, "batched_rows": 0,
                         "goodput": 0, "lane_credit_pops": 0,
-                        "tenant_overflow": 0,
-                        "shed": {reason: 0 for reason in SHED_REASONS},
-                        # iterations: the /stats progress beat
-                        "iterations": 0, "tokens": 0, "slot_allocs": 0,
-                        "slot_frees": 0, "slot_steps": 0,
-                        "kv_cells_live": 0, "kv_cells_alloc": 0}
-        if self._paged:
-            self.session.update({"prefix_hits": 0,
-                                 "prefix_blocks_shared": 0})
+                        "tenant_overflow": 0, "real_cells": 0,
+                        "pad_cells": 0, "version_fallbacks": 0,
+                        "reloads": {r: 0 for r in RELOAD_RESULTS},
+                        "reload_unauthorized": 0,
+                        "shed": {reason: 0 for reason in SHED_REASONS}}
+        if decoder is not None:
+            # iterations: the /stats progress beat
+            self.session.update({"iterations": 0, "tokens": 0,
+                                 "slot_allocs": 0, "slot_frees": 0,
+                                 "slot_steps": 0, "kv_cells_live": 0,
+                                 "kv_cells_alloc": 0})
+            if self._paged:
+                self.session.update({"prefix_hits": 0,
+                                     "prefix_blocks_shared": 0})
         self._tenant(DEFAULT_TENANT)       # pre-bind the untagged path
+        self._buckets_used: set = set()
         self._lat_us: deque = deque(maxlen=2048)
+        # each applied swap's pause: the pointer flip (whole forwards) or
+        # the drain wait (decode)
+        self._swap_pauses_us: deque = deque(maxlen=256)
         self._t_start = time.perf_counter()
         self._bound_port = 0
-        # (t_done, n) per finished sequence; _rps feeds Retry-After
+        # (t_done, n) per delivery; _rps feeds Retry-After
         self._done_log: deque = deque(maxlen=256)
         self._rps = 0.0
         self._server = None
+        # the batcher launches each forward and hands its device outputs
+        # here; the delivery thread pays the copy to the host.  The bound
+        # is backpressure when delivery falls behind
+        self._out_q: "queue.Queue" = queue.Queue(maxsize=8)
         self._batcher = threading.Thread(
-            target=self._paged_loop if self._paged else self._decode_loop,
+            target=(self._paged_loop if self._paged
+                    else self._decode_loop if decoder is not None
+                    else self._dispatch_loop),
             name="ptt-serving-batcher", daemon=True)
+        self._delivery = threading.Thread(target=self._delivery_loop,
+                                          name="ptt-serving-delivery",
+                                          daemon=True)
         self._watchdog_stop = threading.Event()
         self._watchdog = threading.Thread(target=self._watchdog_loop,
                                           name="ptt-serving-watchdog",
                                           daemon=True)
         self._batcher.start()
+        self._delivery.start()
         self._watchdog.start()
+
+    def _set_seq_buckets(self, seq_buckets) -> None:
+        """2-D (rows, T) buckets: each micro-batch's sequence axis pads to
+        the smallest seqlen bucket covering the batch's longest sample
+        (capped at the largest declared max_len) instead of max_len."""
+        topo = self._inf.topology
+        infos = []
+        for name in topo.input_names:
+            if not topo.is_seq.get(name):
+                continue
+            if topo.get_layer(name).attrs.get("seq_type", 0) != 1:
+                continue
+            max_len = topo.shapes[name][0]
+            if max_len is None:
+                raise ValueError(
+                    f"seq_buckets needs max_len declared on sequence input "
+                    f"{name!r} (an unsized T axis already buckets per "
+                    f"batch at feed time)")
+            idx = self._feeder.feeding.get(name)
+            if idx is None:
+                continue
+            infos.append((name, idx, int(max_len)))
+        if not infos:
+            raise ValueError("seq_buckets set but the topology has no "
+                             "max_len-declared sequence inputs to bucket")
+        cap = max(n for _, _, n in infos)
+        tb = sorted({int(b) for b in seq_buckets if 0 < int(b) <= cap})
+        if not tb or tb[-1] < cap:
+            tb.append(cap)                # any length must fit a bucket
+        self.seq_buckets = tuple(tb)
+        self._seq_inputs = tuple(infos)
 
     # ------------------------------------------------------------ tenants
     def _tenant(self, name: str) -> _Tenant:
@@ -649,12 +876,327 @@ class InferenceEngine:
                 ts.br_state = _BR_OPEN
                 ts.br_opened_at = time.perf_counter()
 
+    # ----------------------------------------------------- model versions
+    def attach_watcher(self, watcher) -> None:
+        """Bind a ``serving.reload.WeightWatcher``: ``POST /reload`` pushes
+        its check and ``close()`` joins it before draining."""
+        self._watcher = watcher
+
+    def _reload_authorized(self, body: bytes, headers,
+                           query: str = "") -> bool:
+        """``/reload`` auth: with no key every push is accepted; with one,
+        the ``X-Ptpu-Reload-Key`` header must carry the hex HMAC-SHA256 of
+        ``<query>\\n<body>`` under the key (the query carries the action,
+        so a signed push cannot be replayed as ``?rollback=1``).
+        Constant-time compare; never raises."""
+        key = self._reload_key
+        if not key:
+            return True
+        import hashlib
+        import hmac
+
+        given = (headers or {}).get("X-Ptpu-Reload-Key")
+        if not given:
+            return False
+        msg = (query or "").encode() + b"\n" + (body or b"")
+        want = hmac.new(key, msg, hashlib.sha256).hexdigest()
+        return hmac.compare_digest(str(given).strip(), want)
+
+    def _place(self, values) -> dict:
+        """A parameter tree (numpy arrays or tensors, or a ``Parameters``)
+        as tensors on the engine's device."""
+        if not isinstance(values, dict):
+            values = values.values        # a Parameters
+        dev = self._device
+
+        def leaf(v):
+            t = v.detach() if torch.is_tensor(v) else torch.as_tensor(
+                np.asarray(v))
+            return t.to(dev)
+
+        return {lname: {name: leaf(v) for name, v in ps.items()}
+                for lname, ps in values.items()}
+
+    def install_version(self, version: str, values, *,
+                        canary: Optional[bool] = None,
+                        source: str = "") -> dict:
+        """Install ``values`` (a parameter tree of the serving tree's
+        names and shapes) as a resident model version; the copy to the
+        device runs on the calling thread, never the batcher's.
+
+        Whole forwards: the version goes live between micro-batches
+        (requests resolve their version at submit and batches never mix
+        versions, so in-flight work finishes on its weights); with
+        ``canary_fraction > 0`` (or ``canary=True``) it enters as the
+        canary.  Decode: drain-then-swap (admission pauses, residents
+        finish on the old weights, then the decoder's values swap).
+
+        Returns ``{"result": "swapped" | "canary" | "pending" | "no_new" |
+        "refused" | "refused_bad", "model_version": ...}``."""
+        version = str(version)
+        if self._closed:
+            return {"result": "refused", "error": "engine closed",
+                    "model_version": self._active_version()}
+        with self._version_lock:
+            if version in self._bad_versions:
+                return {"result": "refused_bad",
+                        "error": f"version {version!r} was rolled back "
+                                 f"(canary breach or operator rollback); "
+                                 f"refusing re-install",
+                        "model_version": self._version_active}
+            if version in self._versions:
+                return {"result": "no_new",
+                        "model_version": self._version_active}
+        placed = self._place(values)
+        with self._version_lock:
+            served = self._versions[self._version_active].values
+        mismatch = sorted(
+            f"{lname}.{name}" for lname, ps in served.items()
+            for name, t in ps.items()
+            if tuple(getattr(placed.get(lname, {}).get(name), "shape",
+                             ())) != tuple(t.shape))
+        if mismatch:
+            # same names and shapes or nothing: a tree that does not fit
+            # would fail every request of the version (decode: the swap)
+            return {"result": "refused",
+                    "error": f"not the served tree's names and shapes: "
+                             f"{mismatch[:4]}",
+                    "model_version": self._active_version()}
+        rec = _ModelVersion(version, placed, source=source,
+                            window=self._canary_window)
+        t0 = time.perf_counter()
+        if self._decoder is not None:
+            with self._version_lock:
+                self._versions[version] = rec
+                self._decode_pending = (version, t0, "swapped")
+            self._inq.put(_WAKE)          # nudge an idle decode loop
+            return {"result": "pending", "model_version": version}
+        with self._version_lock:
+            self._versions[version] = rec
+            go_canary = (bool(canary) if canary is not None
+                         else self.canary_fraction > 0)
+            if go_canary:
+                old = self._version_canary
+                if old is not None:
+                    # a newer candidate supersedes an unpromoted canary
+                    self._versions[old].state = "resident"
+                self._version_canary = version
+                rec.state = "canary"
+        if go_canary:
+            return {"result": "canary", "model_version": version}
+        self._promote(version)
+        self._note_swap(version, time.perf_counter() - t0)
+        return {"result": "swapped", "model_version": version}
+
+    def promote(self) -> dict:
+        """Promote the canary to active; the old active stays resident
+        as the rollback target."""
+        t0 = time.perf_counter()
+        with self._version_lock:
+            can = self._version_canary
+        if can is None or not self._promote(can, only_if_canary=True):
+            return {"result": "refused",
+                    "error": "no canary version resident",
+                    "model_version": self._active_version()}
+        self._note_swap(can, time.perf_counter() - t0)
+        return {"result": "swapped", "model_version": can}
+
+    def _mark_bad(self, version: str) -> None:
+        """(under ``_version_lock``) a demoted id a watcher must not
+        re-install; the set is bounded."""
+        self._bad_versions.add(version)
+        while len(self._bad_versions) > 256:
+            self._bad_versions.pop()
+
+    def rollback(self) -> dict:
+        """Demote a live canary, else flip the active pointer back to the
+        resident previous version (decode: through drain-then-swap).  The
+        demoted version is marked bad."""
+        t0 = time.perf_counter()
+        with self._version_lock:
+            can = self._version_canary
+            if can is not None:
+                self._version_canary = None
+                self._mark_bad(can)
+                self._versions[can].state = "rolled_back"
+                target = self._version_active
+            elif self._version_prev is not None:
+                bad, target = self._version_active, self._version_prev
+                self._mark_bad(bad)
+                self._versions[bad].state = "rolled_back"
+                self._versions[target].state = "active"
+                self._version_active = target
+                self._version_prev = None
+                if self._decoder is not None:
+                    # the decoder still holds the bad weights
+                    self._decode_pending = (target, t0, "rolled_back")
+            else:
+                return {"result": "refused",
+                        "error": "no previous/canary version resident to "
+                                 "roll back to",
+                        "model_version": self._version_active}
+        if self._decoder is not None and can is None:
+            self._inq.put(_WAKE)
+            return {"result": "pending", "model_version": target}
+        self._note_swap(target, time.perf_counter() - t0,
+                        result="rolled_back")
+        return {"result": "rolled_back", "model_version": target}
+
+    def _promote(self, version: str, only_if_canary: bool = False) -> bool:
+        """The pointer flip: ``version`` becomes active, the old active
+        prev; residents beyond {active, prev, canary} and one grace entry
+        retire (requests pinned to a retired id fall back to the active
+        weights, counted ``version_fallbacks``).  ``only_if_canary``: flip
+        only while it is still the canary (a racing rollback wins).
+        False when the flip did not happen."""
+        with self._version_lock:
+            rec = self._versions.get(version)
+            if rec is None or version in self._bad_versions:
+                return False
+            if only_if_canary and self._version_canary != version:
+                return False
+            old = self._version_active
+            if version == self._version_canary:
+                self._version_canary = None
+            if old != version:
+                self._version_prev = old
+                self._versions[old].state = "prev"
+            rec.state = "active"
+            self._version_active = version
+            keep = {self._version_active, self._version_prev,
+                    self._version_canary}
+            extra = [v for v in self._versions if v not in keep]
+            while len(extra) > 1:
+                del self._versions[extra.pop(0)]     # oldest first
+        return True
+
+    def _active_version(self) -> str:
+        with self._version_lock:
+            return self._version_active
+
+    def _note_swap(self, version: str, pause_s: float,
+                   result: str = "swapped") -> None:
+        """Count one applied swap or rollback and keep its pause."""
+        with self._err_lock:
+            self.session["reloads"][result] += 1
+        with self._stats_lock:
+            self._swap_pauses_us.append(pause_s * 1e6)
+
+    def _resolve_version(self, pinned: Optional[str]) -> str:
+        """Submit-time resolution: a pin names a resident version (or
+        ``"prev"``, the rollback target); untagged traffic takes the
+        active version, a deterministic ``canary_fraction`` of it the
+        canary (every 4th request at 0.25).  ValueError on an unknown
+        pin."""
+        with self._version_lock:
+            if pinned is not None:
+                if pinned == "prev" and self._version_prev is not None:
+                    pinned = self._version_prev
+                if pinned not in self._versions:
+                    raise ValueError(
+                        f"unknown model_version {pinned!r} (resident: "
+                        f"{sorted(self._versions)})")
+                self._versions[pinned].requests += 1
+                return pinned
+            ver = self._version_active
+            can = self._version_canary
+            if can is not None:
+                f = self.canary_fraction
+                n = self._canary_seq
+                self._canary_seq = n + 1
+                if int((n + 1) * f) - int(n * f):
+                    ver = can
+            self._versions[ver].requests += 1
+            return ver
+
+    def _version_inputs(self, version: str):
+        """(values, actual version) of a batch's version: a retired id
+        (swaps raced the queue) falls back to the active weights,
+        counted; the caller re-stamps the batch with the actual id."""
+        with self._version_lock:
+            rec = self._versions.get(version)
+            fallback = rec is None
+            if fallback:
+                rec = self._versions[self._version_active]
+        if fallback:
+            with self._err_lock:
+                self.session["version_fallbacks"] += 1
+        return rec.values, rec.id
+
+    def _version_outcome(self, r: _Request, err: bool) -> None:
+        """One finished request's outcome against its version: the
+        canary's probation.  A canary whose windowed error rate reaches
+        the breaker threshold (with ``breaker_min_requests`` outcomes)
+        rolls back; one that survives ``canary_promote_requests``
+        outcomes promotes.  Only per-request errors count."""
+        ver = r.version
+        if ver is None:
+            return
+        breached = promoted = False
+        with self._version_lock:
+            rec = self._versions.get(ver)
+            if rec is None:
+                return
+            if err:
+                rec.errors += 1
+            if ver != self._version_canary:
+                return
+            rec.push_outcome(err)
+            n = len(rec.window)
+            if (err and n >= self.breaker_min_requests
+                    and rec.win_errors >= self.breaker_threshold * n):
+                self._version_canary = None
+                self._mark_bad(ver)
+                rec.state = "rolled_back"
+                breached = True
+            elif (not err and n >= self.canary_promote_requests
+                    and rec.win_errors < self.breaker_threshold * n):
+                promoted = True
+        if breached:
+            with self._err_lock:
+                self.session["reloads"]["rolled_back"] += 1
+        elif promoted and self._promote(ver, only_if_canary=True):
+            self._note_swap(ver, 0.0)
+
+    def _swap_gate(self, busy: bool) -> bool:
+        """Decode drain-then-swap (batcher thread): True while a swap is
+        pending and residents still decode on the old weights (admission
+        pauses; nothing is shed); with none resident, the decoder takes
+        the new values, the drain wait is the swap's pause."""
+        with self._version_lock:
+            pend = self._decode_pending
+            if pend is None:
+                return False
+            if busy:
+                return True
+            ver, t0, kind = pend
+            self._decode_pending = None
+            rec = self._versions.get(ver)
+        if rec is None:
+            return False
+        # rollback flipped the pointers already; a version marked bad
+        # since its install must not flip
+        if kind != "rolled_back" and not self._promote(ver):
+            return False
+        self._decoder.set_values(rec.values)
+        self._note_swap(ver, time.perf_counter() - t0, result=kind)
+        return False
+
+    def _board_decode(self, r: _Request) -> None:
+        """Decode resolves a request's version at prefill: the one
+        resident weight set."""
+        with self._version_lock:
+            ver = self._version_active
+            self._versions[ver].requests += 1
+        r.version = ver
+        r.future._ptt_model_version = ver
+
     # ------------------------------------------------------------ intake
     def queue_depth(self) -> int:
         """Requests backlogged ahead of the batcher: in the submission
-        queue or parked in a lane."""
+        queue, parked in a lane, or carried over from the last collect."""
         return (self._inq.qsize() + len(self._lane_high)
-                + len(self._lane_normal))
+                + len(self._lane_normal) + len(self._carry))
 
     def _decode_request(self, samples, max_tokens):
         """(prompt, max_tokens) for a submit: a bare 1-D int sequence,
@@ -729,35 +1271,63 @@ class InferenceEngine:
                seed: Optional[int] = None,
                version: Optional[str] = None,
                trace=None) -> Future:
-        """Enqueue one prompt.  The Future resolves to the generated token
-        ids (1-D int32, EOS included when emitted) or fails with a typed
-        ``ServingError`` (``ValueError`` for a malformed request).
+        """Enqueue one request.  Whole forwards: ``samples`` is a list of
+        v2 sample tuples, and the Future resolves to what
+        ``Inference.infer`` returns for them (one array for one output,
+        else a list).  Decode: ``samples`` is ONE prompt (bare 1-D ints,
+        ``[prompt]`` or ``[(prompt,)]``), ``max_tokens`` bounds the
+        generation, and the Future resolves to the generated token ids
+        (1-D int32, EOS included when emitted).  A malformed request fails
+        with ``ValueError``, the rest with a typed ``ServingError``.
 
         ``deadline_us`` (default ``default_deadline_us``; <= 0: none)
-        covers the whole generation.  ``lane``: ``"normal"`` or
-        ``"high"``.  ``tenant`` names the unit of fair queuing, quotas and
-        the breaker (untagged traffic rides ``"default"``).  Under
-        overload the Future fails at once with ``Overloaded`` (an open
-        breaker: ``BreakerOpen``).  ``temperature`` / ``top_k`` /
+        bounds the wait for a batch row (decode: the whole generation).
+        ``lane``: ``"normal"`` or ``"high"``.  ``tenant`` names the unit
+        of fair queuing, quotas and the breaker (untagged traffic rides
+        ``"default"``).  Under overload the Future fails at once with
+        ``Overloaded`` (an open breaker: ``BreakerOpen``).  ``version``
+        pins a resident model version (``"prev"``: the rollback target;
+        decode: only the active one).  ``temperature`` / ``top_k`` /
         ``top_p`` / ``seed`` sample on a ``sampling=True`` decoder; the
         stream is deterministic in (seed, position)."""
-        if version is not None:
-            raise NotImplementedError(
-                f"submit(version=...) is not ported to paddle_tpu_torch "
-                f"yet: {_VERSIONS}")
         if trace is not None:
             raise NotImplementedError(
-                "submit(trace=...) is not ported to paddle_tpu_torch yet: "
-                "ROADMAP.md §1 item 13 (tracing)")
+                f"submit(trace=...) is not ported to paddle_tpu_torch yet: "
+                f"{_TRACING}")
         fut: Future = Future()
-        try:
-            prompt, cost = self._decode_request(samples, max_tokens)
-            sampling = self._decode_sampling(temperature, top_k, top_p,
-                                             seed)
-        except (ValueError, TypeError) as e:
-            fut.set_exception(e)
-            self._count_error()
-            return fut
+        prompt = sampling = None
+        if self._decoder is not None:
+            try:
+                prompt, cost = self._decode_request(samples, max_tokens)
+                sampling = self._decode_sampling(temperature, top_k, top_p,
+                                                 seed)
+            except (ValueError, TypeError) as e:
+                fut.set_exception(e)
+                self._count_error()
+                return fut
+            samples, rows = None, 1
+        else:
+            bad = None
+            if max_tokens is not None:
+                bad = ("max_tokens is a decode-mode field; this engine "
+                       "serves whole forwards (construct with decoder=)")
+            elif (temperature is not None or top_k is not None
+                  or top_p is not None or seed is not None):
+                bad = ("temperature/top_k/top_p/seed are decode-mode "
+                       "sampling fields; this engine serves whole forwards "
+                       "(construct with decoder=)")
+            else:
+                samples = list(samples)
+                rows = cost = len(samples)
+                if rows == 0:
+                    bad = "empty request"
+                elif rows > self.max_batch:
+                    bad = (f"request of {rows} rows exceeds max_batch="
+                           f"{self.max_batch}; split it client-side")
+            if bad is not None:
+                fut.set_exception(ValueError(bad))
+                self._count_error()
+                return fut
         if lane not in LANES:
             fut.set_exception(ValueError(
                 f"lane must be one of {LANES}, got {lane!r}"))
@@ -830,8 +1400,32 @@ class InferenceEngine:
             deadline = t + deadline_us / 1e6
         else:
             deadline = None
+        # whole forwards resolve the version here (pins must name a
+        # resident one); decode at prefill, against its one weight set
+        ver = None
+        try:
+            if self._decoder is None:
+                ver = self._resolve_version(
+                    str(version) if version is not None else None)
+            elif version is not None:
+                act = self._active_version()
+                if str(version) != act:
+                    raise ValueError(
+                        f"decode serves one resident version ({act!r}); "
+                        f"cannot pin model_version={version!r}")
+        except ValueError as e:
+            if probe:
+                # the half-open probe never ran: release it
+                with ts.lock:
+                    ts.br_probe_inflight = False
+            fut.set_exception(e)
+            self._count_error()
+            return fut
         req = _Request(prompt, cost, fut, t, deadline, lane, tenant, ts,
-                       probe=probe, sampling=sampling)
+                       probe=probe, sampling=sampling, samples=samples,
+                       rows=rows, version=ver)
+        if ver is not None:
+            fut._ptt_model_version = ver
         with ts.lock:
             ts.depth += 1
             ts.requests += 1
@@ -853,14 +1447,15 @@ class InferenceEngine:
               temperature: Optional[float] = None,
               top_k: Optional[int] = None,
               top_p: Optional[float] = None,
-              seed: Optional[int] = None):
+              seed: Optional[int] = None,
+              version: Optional[str] = None):
         """submit + wait.  On a wait timeout the request is cancelled
-        (shed ``"abandoned"``), so an abandoned caller never keeps its KV
-        slot."""
+        (shed ``"abandoned"``), so an abandoned caller never takes a batch
+        row or keeps its KV slot."""
         fut = self.submit(samples, deadline_us=deadline_us, lane=lane,
                           tenant=tenant, max_tokens=max_tokens,
                           temperature=temperature, top_k=top_k,
-                          top_p=top_p, seed=seed)
+                          top_p=top_p, seed=seed, version=version)
         try:
             return fut.result(timeout)
         except FutureTimeout:
@@ -969,6 +1564,8 @@ class InferenceEngine:
         if item is None:                  # close() sentinel
             self._stopping = True
             return
+        if item is _WAKE:                 # install_version's nudge
+            return
         (self._lane_high if item.lane == "high"
          else self._lane_normal).append(item)
 
@@ -1013,6 +1610,326 @@ class InferenceEngine:
                 return None
             if not self._reap(r):
                 return r
+
+    # --------------------------------------------- whole-forward batcher
+    def _shed_batch(self, batch: List[_Request]) -> None:
+        exc, reason = self._abort_exc()
+        for r in batch:
+            self._fail(r, exc, reason)
+
+    def _send_out_sentinel(self, give_up_s: Optional[float] = 30.0) -> None:
+        """Hand the delivery thread its shutdown sentinel, waiting out a
+        full queue while delivery lives to drain it; bounded by
+        ``give_up_s`` (a delivery wedged with a full queue is left to its
+        daemon thread)."""
+        t0 = time.perf_counter()
+        while self._delivery.is_alive():
+            try:
+                self._out_q.put(None, timeout=1.0)
+                return
+            except queue.Full:
+                if (give_up_s is not None
+                        and time.perf_counter() - t0 >= give_up_s):
+                    return
+
+    def _update_wait_scale(self, depth: int) -> None:
+        """Under sustained backlog widen the effective ``max_wait_us``
+        toward full buckets (throughput mode); narrow back geometrically
+        once the queue clears."""
+        if self.overload_wait_scale <= 1.0:
+            return
+        high = self.max_queue_depth or 4 * self.max_batch
+        if depth >= max(1, high // 2):
+            self._wait_scale = min(self.overload_wait_scale,
+                                   self._wait_scale * 1.5)
+        elif self._wait_scale > 1.0:
+            self._wait_scale = max(1.0, self._wait_scale * 0.75)
+
+    def _collect(self) -> Optional[List[_Request]]:
+        """Block until a micro-batch is due: ``max_batch`` rows, the
+        oldest request's (overload-scaled) ``max_wait_us`` passed, or
+        shutdown.  None when stopped and drained.  A request of another
+        model version, or one that overflows the rows, opens the next
+        batch.  The fill loop inlines the pump, pop and reap chain: it
+        runs once per request; the high lane and dead requests take the
+        full ``_lane_pop`` path."""
+        q = self._inq
+        hi, no = self._lane_high, self._lane_normal
+        batch, rows = self._carry, self._carry_rows
+        self._carry, self._carry_rows = [], 0
+        while not batch:
+            self._pump()
+            r = self._lane_pop()
+            if r is not None:
+                batch, rows = [r], r.rows
+                break
+            if self._stopping or self._abort:
+                return None
+            self._lane_put(q.get())           # block for the first
+        self._update_wait_scale(self.queue_depth())
+        deadline = (batch[0].t_submit
+                    + self.max_wait_us * self._wait_scale / 1e6)
+        max_batch = 1 if self._one_per_batch else self.max_batch
+        while rows < max_batch and not self._stopping and not self._abort:
+            while q.qsize():                  # inline _pump
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:           # a _fail_pending raced it
+                    break
+                if item is None:
+                    self._stopping = True
+                elif item is not _WAKE:
+                    (hi if item.lane == "high" else no).append(item)
+            if hi.n:
+                r = self._lane_pop()          # priority, credit, reap
+            elif no.n:
+                r = no.popleft()              # DRR (one tenant: FIFO)
+                if r is None:                 # raced a _fail_pending
+                    continue
+                self._lane_credit = 0
+                if r.abandoned or (r.deadline is not None
+                                   and time.perf_counter() > r.deadline):
+                    self._reap(r)
+                    continue
+            else:
+                r = None
+            if r is None:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                # a short relative sleep and a re-pump, not a timed get:
+                # the fill window keeps its deadline whatever the queue's
+                # wake-up does
+                time.sleep(min(remaining, 5e-5))
+                continue
+            if (rows + r.rows > self.max_batch or self._one_per_batch
+                    or r.version != batch[0].version):
+                self._carry, self._carry_rows = [r], r.rows
+                break
+            batch.append(r)
+            rows += r.rows
+        return batch
+
+    def _drain_after_stop(self) -> None:
+        """Past the sentinel: dispatch what beat the closed flag, then
+        hand delivery its sentinel; with ``_abort`` set shed the rest."""
+        while True:
+            if self._abort:
+                exc, reason = self._abort_exc()
+                self._fail_pending(exc, reason, drain_out_q=False)
+                self._send_out_sentinel()
+                return
+            batch, rows = self._carry, self._carry_rows
+            self._carry, self._carry_rows = [], 0
+            self._pump()
+            while not (batch and self._one_per_batch):
+                r = self._lane_pop()
+                if r is None:
+                    break
+                if (rows + r.rows > self.max_batch
+                        or (batch and (r.version != batch[0].version
+                                       or self._one_per_batch))):
+                    self._carry, self._carry_rows = [r], r.rows
+                    break
+                batch.append(r)
+                rows += r.rows
+            if not batch:
+                self._send_out_sentinel()
+                return
+            self._run_batch(batch)
+
+    def _dispatch_loop(self) -> None:
+        """Batcher-thread body of the whole-forward mode."""
+        while True:
+            batch = None
+            try:
+                batch = self._collect()
+                if batch:
+                    self._run_batch(batch)
+                if self._stopping or self._abort:
+                    self._drain_after_stop()
+                    return
+            except Exception as e:            # noqa: BLE001 - last resort
+                # a batcher bug fails what it held, never the thread
+                self._count_error(sum(
+                    self._resolve(r, exc=e) for r in (batch or [])))
+
+    def _survivors(self, batch: List[_Request]) -> List[_Request]:
+        """The error-isolation boundary: a request whose samples do not
+        convert fails its own future (counted against its tenant and its
+        version) and drops out."""
+        ok = []
+        for r in batch:
+            try:
+                self._feeder.feed(r.samples)
+                ok.append(r)
+            except Exception as e:            # noqa: BLE001 - isolate
+                if self._resolve(r, exc=e):
+                    self._count_error()
+                    self._tenant_outcome(r, True)
+                    self._version_outcome(r, True)
+        return ok
+
+    def _batch_samples(self, batch: List[_Request]):
+        """(samples, real rows, row bucket, seq_pad, real cells, cells):
+        the coalesced samples padded up to the row bucket by repeating
+        the last sample (pad rows hold valid data; delivery slices them
+        away).  With ``seq_buckets`` the T axis is the smallest seqlen
+        bucket covering the batch's longest sample, each length clamped at
+        the grid's cap (an over-long sample is cut to max_len at feed
+        time), and cells count rows x T; otherwise cells are rows."""
+        real = sum(r.rows for r in batch)
+        bucket = (real if self._one_per_batch
+                  else bucket_rows(real, self.batch_buckets))
+        samples = [s for r in batch for s in r.samples]
+        if bucket > real:
+            samples.extend(samples[-1:] * (bucket - real))
+        if not self._seq_inputs:
+            return samples, real, bucket, None, real, bucket
+        cap = self.seq_buckets[-1]
+        seq_idx = [idx for _, idx, _ in self._seq_inputs]
+        need, cells = 1, 0
+        for s in samples[:real]:
+            m = min(max(len(s[idx]) for idx in seq_idx), cap)
+            cells += m
+            need = max(need, m)
+        seq_pad = bucket_rows(need, self.seq_buckets)
+        return samples, real, bucket, seq_pad, cells, bucket * seq_pad
+
+    def _run_batch(self, batch: List[_Request]) -> None:
+        # assembly-time shed: a request can expire between pop and
+        # assembly (it rode the carry, or the window was wide)
+        if any(r.abandoned or r.deadline is not None for r in batch):
+            batch = [r for r in batch if not self._reap(r)]
+            if not batch:
+                return
+        # not try/finally: a BaseException killing this thread must leave
+        # _inflight naming the batch, for the watchdog to fail
+        self._inflight = batch
+        self._run_batch_inner(batch)
+        self._inflight = ()
+
+    def _run_batch_inner(self, batch: List[_Request]) -> None:
+        # one feed conversion over the coalesced padded samples; on
+        # failure re-probe per request, so only the poison request fails
+        (samples, real, bucket, seq_pad, real_cells,
+         cells) = self._batch_samples(batch)
+        try:
+            feed = self._feeder.feed(samples, seq_pad=seq_pad)
+        except Exception:                     # noqa: BLE001 - isolate
+            batch = self._survivors(batch)
+            self._inflight = batch
+            if not batch:
+                return
+            (samples, real, bucket, seq_pad, real_cells,
+             cells) = self._batch_samples(batch)
+            try:
+                feed = self._feeder.feed(samples, seq_pad=seq_pad)
+            except Exception as e:            # noqa: BLE001 - isolate
+                self._count_error(sum(
+                    self._resolve(r, exc=e) for r in batch))
+                return
+        # the batch's weights are read here, between micro-batches: a swap
+        # changes what the next batch resolves, never a running forward
+        vals, actual = self._version_inputs(batch[0].version)
+        if actual != batch[0].version:
+            # the eviction fallback ran on the active weights: the answers
+            # must say so
+            for r in batch:
+                r.version = actual
+                r.future._ptt_model_version = actual
+        try:
+            # the launch is asynchronous on the card; the delivery thread
+            # pays the copy to the host
+            out = self._inf.run_feed(feed, params=vals)
+            devs = [out[n] for n in self.output_names]
+            with self._stats_lock:
+                # the 2-D key (rows, padded T) with seqlen buckets
+                self._buckets_used.add(
+                    bucket if seq_pad is None else (bucket, seq_pad))
+        except Exception as e:                # noqa: BLE001 - isolate
+            self._count_error(sum(self._resolve(r, exc=e) for r in batch))
+            return
+        sess = self.session
+        sess["requests"] += len(batch)
+        sess["rows"] += real
+        sess["batches"] += 1
+        sess["batched_rows"] += real
+        sess["padded_rows"] += bucket - real
+        sess["real_cells"] += real_cells
+        sess["pad_cells"] += cells - real_cells
+        if self._abort:
+            # the watchdog or the drain fired during the forward: no
+            # consumer is guaranteed, shed instead of stranding
+            self._shed_batch(batch)
+            return
+        item = (devs, batch)
+        while True:
+            try:
+                self._out_q.put(item, timeout=0.25)
+                break
+            except queue.Full:
+                if self._abort:
+                    self._shed_batch(batch)
+                    return
+        if self._abort and not self._delivery.is_alive():
+            # abort raced the put and nobody will pop it: reclaim and shed
+            while True:
+                try:
+                    it = self._out_q.get_nowait()
+                except queue.Empty:
+                    break
+                if it is not None:
+                    self._shed_batch(it[1])
+
+    def _delivery_loop(self) -> None:
+        """Delivery-thread body: ONE copy to the host per output (it
+        waits for the device), then each request's rows sliced out; a
+        scalar output goes whole to its batch's one request."""
+        while True:
+            item = self._out_q.get()
+            if item is None:
+                return
+            devs, batch = item
+            self._delivering = batch
+            try:
+                host = [d.detach().cpu().numpy() for d in devs]
+            except Exception as e:            # noqa: BLE001 - isolate
+                self._count_error(sum(
+                    self._resolve(r, exc=e) for r in batch))
+                self._delivering = ()
+                continue
+            t_done = time.perf_counter()
+            off = good = 0
+            for r in batch:
+                try:
+                    fields = [h if h.ndim == 0 else h[off:off + r.rows]
+                              for h in host]
+                    delivered = self._resolve(
+                        r, fields[0] if len(fields) == 1 else fields)
+                except Exception as e:        # noqa: BLE001 - isolate
+                    if self._resolve(r, exc=e):
+                        self._count_error()
+                        self._tenant_outcome(r, True)
+                        self._version_outcome(r, True)
+                else:
+                    # False: a shed path (drain timeout, watchdog) got
+                    # there first; the rows are dropped
+                    if delivered:
+                        if r.deadline is None or t_done <= r.deadline:
+                            good += 1
+                            r.tstate.goodput += 1
+                        self._tenant_outcome(r, False)
+                        self._version_outcome(r, False)
+                off += r.rows
+            self.session["goodput"] += good
+            self._delivering = ()
+            with self._stats_lock:
+                for r in batch:
+                    v = (t_done - r.t_submit) * 1e6
+                    self._lat_us.append(v)
+                    r.tstate.lat_us.append(v)
+                self._note_done(t_done, len(batch))
 
     # ------------------------------------------------- slot bookkeeping
     def _slot_free(self, holder: dict, slot: int, reason: str) -> None:
@@ -1079,7 +1996,10 @@ class InferenceEngine:
 
     def _admit_all(self, busy: bool, admit) -> None:
         """Admission: continuous joins whenever a slot is free; static
-        refills only once the whole batch drained."""
+        refills only once the whole batch drained; none while a weight
+        swap waits for the residents to finish."""
+        if self._swap_gate(busy):
+            return                        # a swap waits for the drain
         alloc = self._slot_alloc
         if self.decode_policy == "continuous" or not busy:
             while len(alloc) < alloc.n:
@@ -1132,6 +2052,7 @@ class InferenceEngine:
                 sess["goodput"] += 1
                 r.tstate.goodput += 1
             self._tenant_outcome(r, False)
+            self._version_outcome(r, False)
         lane = self._lane_high if r.lane == "high" else self._lane_normal
         lane.credit(r.tenant, r.cost - len(seq.out))
         with self._stats_lock:
@@ -1147,6 +2068,7 @@ class InferenceEngine:
         if self._resolve(r, exc=e):
             self._count_error()
             self._tenant_outcome(r, True)
+            self._version_outcome(r, True)
         self._slot_free(holder, slot, "error")
 
     # ----------------------------------------------------- slab scheduler
@@ -1159,6 +2081,7 @@ class InferenceEngine:
         while True:
             try:
                 if self._decode_iteration(active):
+                    self._send_out_sentinel()
                     return
             except Exception as e:        # noqa: BLE001 - last resort
                 self._batch_fault((active,), e)
@@ -1211,6 +2134,7 @@ class InferenceEngine:
         stay the request's own."""
         slot = self._slot_alloc.alloc()
         self.session["slot_allocs"] += 1
+        self._board_decode(r)
         try:
             first = self._decoder.prefill(slot, r.prompt)
         except ValueError as e:
@@ -1234,6 +2158,7 @@ class InferenceEngine:
         while True:
             try:
                 if self._paged_iteration(active, joins):
+                    self._send_out_sentinel()
                     return
             except Exception as e:        # noqa: BLE001 - last resort
                 self._batch_fault((active, joins), e)
@@ -1262,6 +2187,7 @@ class InferenceEngine:
         as a join."""
         slot = self._slot_alloc.alloc()
         self.session["slot_allocs"] += 1
+        self._board_decode(r)
         try:
             matched = self._decoder.alloc_sequence(slot, r.prompt)
         except KVPoolExhausted:
@@ -1372,42 +2298,71 @@ class InferenceEngine:
 
     # ----------------------------------------------------------- watchdog
     def _watchdog_loop(self) -> None:
-        """A dead batcher (a BaseException escaping a forward) must not
-        strand callers: mark the engine unhealthy, fail everything in
-        flight with the typed error, refuse new work."""
+        """A dead batcher or delivery thread (a BaseException escaping a
+        forward or a copy) must not strand callers: mark the engine
+        unhealthy, fail everything in flight with the typed error, refuse
+        new work."""
         while not self._watchdog_stop.wait(self.watchdog_interval_s):
             if self._closed:
                 return
-            if self._batcher.is_alive():
+            b_alive = self._batcher.is_alive()
+            d_alive = self._delivery.is_alive()
+            if b_alive and d_alive:
                 continue
             if self._closed:
                 return                    # a clean close() raced the probe
+            who = "batcher" if not b_alive else "delivery"
             self._healthy = False
-            self._health_reason = "batcher thread died"
+            self._health_reason = f"{who} thread died"
             self._abort = True
             with self._close_lock:
                 self._closed = True
+            # a live delivery thread still flushes computed results: leave
+            # its queue alone and hand it a sentinel after
             self._fail_pending(EngineUnhealthy(
-                "engine unhealthy: batcher thread died; in-flight request "
-                "failed"), "thread_death")
+                f"engine unhealthy: {who} thread died; in-flight request "
+                f"failed"), "thread_death", drain_out_q=not d_alive)
+            if d_alive:
+                self._send_out_sentinel()
+            if b_alive:
+                self._inq.put(None)       # wake a blocked collect
             return
 
-    def _fail_pending(self, exc: Exception, reason: str) -> None:
-        """Fail every request not yet resolved: the residents, both lanes
-        and the submission queue."""
+    def _fail_pending(self, exc: Exception, reason: str,
+                      drain_out_q: bool = True) -> None:
+        """Fail every request not yet resolved: what the batcher holds (the
+        residents, or the batch in hand), both lanes, the carry, the
+        submission queue and, with ``drain_out_q``, the delivery thread's
+        batch and the batches computed but not delivered."""
         for r in self._inflight:
             self._fail(r, exc, reason)
         self._inflight = ()
+        if drain_out_q:
+            for r in self._delivering:
+                self._fail(r, exc, reason)
+            self._delivering = ()
         for lane in (self._lane_high, self._lane_normal):
             for r in lane.drain():
                 self._fail(r, exc, reason)
+        carry, self._carry, self._carry_rows = self._carry, [], 0
+        for r in carry:
+            self._fail(r, exc, reason)
         while True:
             try:
                 item = self._inq.get_nowait()
             except queue.Empty:
                 break
-            if item is not None:
+            if item is not None and item is not _WAKE:
                 self._fail(item, exc, reason)
+        if drain_out_q:
+            while True:
+                try:
+                    item = self._out_q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    for r in item[1]:
+                        self._fail(r, exc, reason)
 
     # -------------------------------------------------------------- stats
     @property
@@ -1417,12 +2372,12 @@ class InferenceEngine:
     def health(self) -> tuple:
         """(http_status, state): ``200 "ok"``; ``503 "overloaded"`` while
         the admission gate sheds, ``"closed"`` after ``close()``,
-        ``"dead"`` once the batcher died."""
+        ``"dead"`` once the batcher or the delivery thread died."""
         if not self._healthy:
             return 503, "dead"
         if self._closed:
             return 503, "closed"
-        if not self._batcher.is_alive():
+        if not (self._batcher.is_alive() and self._delivery.is_alive()):
             return 503, "dead"
         if self._gate_sheds(self.queue_depth()):
             return 503, "overloaded"
@@ -1452,34 +2407,62 @@ class InferenceEngine:
             out[name] = rec
         return out
 
+    def swap_pauses_us(self) -> list:
+        """Each applied swap's pause, oldest first: the pointer flip
+        (whole forwards) or the drain wait (decode)."""
+        with self._stats_lock:
+            return list(self._swap_pauses_us)
+
     def stats(self) -> dict:
-        """The JAX decode engine's ``stats()`` less the unported features'
-        keys.  ``snapshot_seq`` moves with resolved work and with every
-        iteration, so a frozen value under a nonzero queue is a wedge."""
+        """The JAX engine's ``stats()`` less the unported features' keys
+        (the compile count, mesh slices, tracing).  ``snapshot_seq`` moves
+        with resolved work (and every decode iteration), so a frozen
+        value under a nonzero queue is a wedge."""
         with self._stats_lock:
             lat = sorted(self._lat_us)
-            ttft = sorted(self._ttft_us)
+            buckets_used = sorted(self._buckets_used,
+                                  key=lambda b: b if isinstance(b, tuple)
+                                  else (b,))
         sess = self.session
         with self._err_lock:
-            seq = (sess["errors"] + sum(sess["shed"].values())
-                   + sess["iterations"])
+            seq = (sess["batches"] + sess["errors"]
+                   + sum(sess["shed"].values()) + sess.get("iterations", 0))
             session = {k: (dict(v) if isinstance(v, dict) else v)
                        for k, v in sess.items()}
         depth = self.queue_depth()
         _, state = self.health()
-        dec, alloc = self._decoder, self._slot_alloc
-        it, toks, steps = (session["iterations"], session["tokens"],
-                           session["slot_steps"])
+        with self._version_lock:
+            versions = {vid: {"state": v.state, "requests": v.requests,
+                              "errors": v.errors, "source": v.source}
+                        for vid, v in self._versions.items()}
+            mv, mv_prev = self._version_active, self._version_prev
+            mv_canary = self._version_canary
+            mv_pending = (self._decode_pending[0]
+                          if self._decode_pending else None)
+        batched, padded = session["batched_rows"], session["padded_rows"]
+        real_cells, pad_cells = session["real_cells"], session["pad_cells"]
         rec = {
             "snapshot_seq": seq,
             "uptime_s": round(time.perf_counter() - self._t_start, 3),
+            "model_version": mv,
+            "model_versions": versions,
+            "model_version_prev": mv_prev,
+            "model_version_canary": mv_canary,
+            "model_version_pending": mv_pending,
+            "canary_fraction": self.canary_fraction,
             "port": self._bound_port,
             "queue_depth": depth,
+            "max_batch": self.max_batch,
+            "max_wait_us": self.max_wait_us,
+            "batch_buckets": list(self.batch_buckets),
+            "buckets_used": [list(b) if isinstance(b, tuple) else b
+                             for b in buckets_used],
             "closed": self._closed,
             "health": state,
             "healthy": self._healthy,
             "health_reason": self._health_reason,
             "batcher_alive": self._batcher.is_alive(),
+            "delivery_alive": self._delivery.is_alive(),
             "max_queue_depth": self.max_queue_depth,
             "shedding": self._shedding,
             "queue_saturation": (round(depth / self.max_queue_depth, 3)
@@ -1490,10 +2473,28 @@ class InferenceEngine:
             "max_queue_depth_per_tenant": self.tenant_cap,
             "tenants": self.tenant_stats(),
             "default_deadline_us": self.default_deadline_us,
+            "wait_scale": round(self._wait_scale, 2),
             "request_us_p50": round(_pctile(lat, 0.50), 1),
             "request_us_p99": round(_pctile(lat, 0.99), 1),
+            "seq_buckets": (list(self.seq_buckets)
+                            if self.seq_buckets else None),
+            "avg_batch_rows": (round(batched / session["batches"], 2)
+                               if session["batches"] else 0.0),
+            # cells (rows x T) when seqlen buckets pad; rows otherwise
+            "padding_waste_pct": (
+                round(pad_cells / (real_cells + pad_cells) * 100, 2)
+                if real_cells + pad_cells
+                else (round(padded / (batched + padded) * 100, 2)
+                      if batched + padded else 0.0)),
             **session,
         }
+        if self._decoder is None:
+            return rec
+        with self._stats_lock:
+            ttft = sorted(self._ttft_us)
+        dec, alloc = self._decoder, self._slot_alloc
+        it, toks, steps = (session["iterations"], session["tokens"],
+                           session["slot_steps"])
         rec["decode"] = {
             "policy": self.decode_policy,
             "kernel": dec.decode_kernel,
@@ -1539,17 +2540,25 @@ class InferenceEngine:
         return rec
 
     def kernel_stats(self) -> dict:
-        """``GET /kernels``: the decoder's device and each kernel's launch
-        count (``ops.launch_counts()``)."""
-        return {"device": str(self._decoder.device),
-                "decode_kernel": self._decoder.decode_kernel,
-                "launches": ops.launch_counts()}
+        """``GET /kernels``: the engine's device, the decode kernel
+        (decode), and each kernel's launch count
+        (``ops.launch_counts()``)."""
+        out = {"device": str(self._device), "launches": ops.launch_counts()}
+        if self._decoder is not None:
+            out["decode_kernel"] = self._decoder.decode_kernel
+        return out
+
+    def prewarm(self):
+        raise NotImplementedError(
+            f"InferenceEngine.prewarm() is not ported to paddle_tpu_torch "
+            f"yet: {_CACHE}")
 
     # -------------------------------------------------------------- http
     def http_handlers(self) -> dict:
-        """Path -> handler, each ``(method, body, headers) -> (status,
-        content type, payload bytes[, headers])``: ``/infer`` (the module
-        docstring's fields and headers), ``/stats``, ``/kernels``."""
+        """Path -> handler, each ``(method, body, headers[, query]) ->
+        (status, content type, payload bytes[, headers])``: ``/infer``
+        (the module docstring's fields and headers), ``/reload``,
+        ``/stats``, ``/kernels``."""
 
         def reply(code, doc, headers=None):
             out = (code, "application/json", json.dumps(doc).encode())
@@ -1574,24 +2583,23 @@ class InferenceEngine:
                                if dl_ms is not None else None)
                 mt = doc.get("max_tokens", headers.get("X-Ptpu-Max-Tokens"))
                 max_tokens = int(mt) if mt is not None else None
+                pin = (doc.get("model_version")
+                       or headers.get("X-Ptpu-Model-Version") or None)
+                pin = str(pin) if pin is not None else None
                 # sampling knobs ride the body only; submit() validates
                 knobs = {}
                 for name, cast in (("temperature", float), ("top_k", int),
                                    ("top_p", float), ("seed", int)):
                     v = doc.get(name)
                     knobs[name] = cast(v) if v is not None else None
-                pinned = (doc.get("model_version")
-                          or headers.get("X-Ptpu-Model-Version"))
             except Exception as e:            # noqa: BLE001
                 return reply(400, {"error": f"bad request: {e}"})
-            if pinned:
-                return reply(501, {"error": f"model_version pins are not "
-                                            f"ported: {_VERSIONS}"})
             fut = None
             try:
                 fut = self.submit(samples, deadline_us=deadline_us,
                                   lane=lane, tenant=tenant,
-                                  max_tokens=max_tokens, **knobs)
+                                  max_tokens=max_tokens, version=pin,
+                                  **knobs)
                 result = fut.result(timeout=self.http_timeout_s)
             except Overloaded as e:
                 # tell retry policies WHEN, and which gate fired
@@ -1616,8 +2624,15 @@ class InferenceEngine:
             except Exception as e:            # noqa: BLE001 - server fault
                 # a 4xx would teach retry policies not to retry
                 return reply(500, {"error": repr(e)})
-            return reply(200, {"outputs": {"tokens": result.tolist()},
-                               "generated": int(len(result))})
+            fields = result if isinstance(result, list) else [result]
+            out = {"outputs": {n: np.asarray(f).tolist()
+                               for n, f in zip(self.output_names, fields)}}
+            if self._decoder is not None:
+                out["generated"] = int(len(result))
+            mv = getattr(fut, "_ptt_model_version", None)
+            if mv is not None:
+                out["model_version"] = mv
+            return reply(200, out)
 
         def handle_stats(method: str, body: bytes, headers=None):
             return reply(200, self.stats())
@@ -1625,62 +2640,77 @@ class InferenceEngine:
         def handle_kernels(method: str, body: bytes, headers=None):
             return reply(200, self.kernel_stats())
 
-        return {"/infer": handle_infer, "/stats": handle_stats,
-                "/kernels": handle_kernels}
+        def handle_reload(method: str, body: bytes, headers=None,
+                          query: str = ""):
+            """``POST /reload``: a bare POST runs the attached watcher's
+            check now (or, with a ``{"dir": ...}`` body, loads that
+            checkpoint dir once); ``?rollback=1`` rolls back;
+            ``?promote=1`` promotes the canary.  With a reload key the
+            request carries ``X-Ptpu-Reload-Key`` (the hex HMAC-SHA256 of
+            ``<query>\n<body>``), else 403, counted."""
+            if method != "POST":
+                return (405, "text/plain",
+                        b"POST [?rollback=1|?promote=1]\n")
+            if not self._reload_authorized(body, headers, query):
+                with self._err_lock:
+                    self.session["reload_unauthorized"] += 1
+                return reply(403, {"error": "reload unauthorized",
+                                   "reason": "bad_key"})
+            qs = urllib.parse.parse_qs(query or "")
+            try:
+                doc = json.loads(body or b"{}")
+                if not isinstance(doc, dict):
+                    doc = {}
+            except (ValueError, UnicodeDecodeError):
+                doc = {}
+
+            def flag(name):
+                v = qs[name][0] if name in qs else doc.get(name)
+                return str(v).lower() in ("1", "true", "yes")
+
+            if flag("rollback"):
+                res = self.rollback()
+            elif flag("promote"):
+                res = self.promote()
+            elif doc.get("dir"):
+                from paddle_tpu_torch.serving import reload
+                res = reload.load_from(self, str(doc["dir"]))
+            elif self._watcher is not None:
+                res = self._watcher.check_now()
+            else:
+                return reply(400, {"error": "no weight watcher attached "
+                                            "(serve --watch_dir) and no "
+                                            "\"dir\" in the body"})
+            status = (409 if str(res.get("result", "")).startswith(
+                "refused") else 200)
+            return reply(status, res)
+
+        return {"/infer": handle_infer, "/reload": handle_reload,
+                "/stats": handle_stats, "/kernels": handle_kernels}
 
     def serve(self, port: int, host: str = "127.0.0.1"):
-        """Serve ``/infer``, ``/stats``, ``/kernels`` and ``/healthz`` from
-        a stdlib threading HTTP server on a daemon thread (loopback by
-        default).  Returns the server; ``close()`` shuts it down."""
-        handlers = self.http_handlers()
-        engine = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def _send(self, code, ctype, payload: bytes, headers=None):
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(payload)))
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
-                self.end_headers()
-                self.wfile.write(payload)
-
-            def _route(self, method, body=b""):
-                path = self.path.split("?", 1)[0]
-                if method == "GET" and path == "/healthz":
-                    code, text = engine._healthz()
-                    self._send(code, "text/plain", text.encode())
-                    return
-                fn = handlers.get(path)
-                if fn is None:
-                    self._send(404, "application/json", json.dumps(
-                        {"error": f"no route {path}"}).encode())
-                    return
-                self._send(*fn(method, body, self.headers))
-
-            def do_GET(self):
-                self._route("GET")
-
-            def do_POST(self):
-                n = int(self.headers.get("Content-Length") or 0)
-                self._route("POST", self.rfile.read(n))
-
-            def log_message(self, *args):
-                pass
-
-        server = _HTTPServer((host, port), Handler)
-        threading.Thread(target=server.serve_forever, name="ptt-http",
-                         daemon=True).start()
-        self._server = server
-        self._bound_port = server.server_address[1]
-        return server
+        """Serve ``/infer``, ``/reload``, ``/stats``, ``/kernels`` and
+        ``/healthz`` from a stdlib threading HTTP server on a daemon
+        thread (loopback by default).  Returns the server; ``close()``
+        shuts it down."""
+        self._server = serve_http(self.http_handlers(), self._healthz,
+                                  port, host)
+        self._bound_port = self._server.server_address[1]
+        return self._server
 
     # ----------------------------------------------------------- shutdown
     def close(self, drain_timeout_s: Optional[float] = 30.0) -> None:
         """Stop accepting requests and finish what is queued or resident.
         Work still unfinished after ``drain_timeout_s`` is shed
         (``EngineClosed``, reason ``"drain"``) instead of hanging the
-        caller.  Shuts the HTTP server down.  Idempotent."""
+        caller.  Joins an attached weight watcher first and shuts the
+        HTTP server down.  Idempotent."""
+        watcher, self._watcher = self._watcher, None
+        if watcher is not None:
+            try:
+                watcher.close()
+            except Exception:                 # noqa: BLE001 - best effort
+                pass
         with self._close_lock:
             already, self._closed = self._closed, True
             if not already:
@@ -1689,18 +2719,30 @@ class InferenceEngine:
         self._batcher.join(drain_timeout_s)
         if self._batcher.is_alive():
             # a wedged forward or an over-long backlog: shed the rest (a
-            # forward in flight finishes first and frees its slots)
+            # forward in flight finishes first)
             self._abort = True
             exc, reason = self._abort_exc(
                 f"engine closed: drain timed out after {drain_timeout_s}s")
-            self._fail_pending(exc, reason)
+            self._fail_pending(exc, reason, drain_out_q=False)
+            self._send_out_sentinel(give_up_s=5.0)
+        else:
+            self._delivery.join(drain_timeout_s)
+            if self._delivery.is_alive():
+                self._abort = True
+                exc, reason = self._abort_exc(
+                    f"engine closed: delivery did not drain within "
+                    f"{drain_timeout_s}s")
+                self._fail_pending(exc, reason)
+                # the drained queue took the batcher's sentinel: put one
+                # back so a delivery that unwedges exits
+                self._send_out_sentinel(give_up_s=5.0)
         # a submit that raced the closed flag past the sentinel
         while True:
             try:
                 r = self._inq.get_nowait()
             except queue.Empty:
                 break
-            if r is not None:
+            if r is not None and r is not _WAKE:
                 self._fail(r, *self._abort_exc("engine closed"))
         if self._server is not None:
             self._server.shutdown()
@@ -1712,3 +2754,66 @@ class InferenceEngine:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _takes_query(fn) -> bool:
+    try:
+        return len(inspect.signature(fn).parameters) >= 4
+    except (TypeError, ValueError):
+        return False
+
+
+def serve_http(handlers: dict, health_fn, port: int,
+               host: str = "127.0.0.1"):
+    """A stdlib threading HTTP server on a daemon thread: ``GET /healthz``
+    answers ``health_fn() -> (status, text)``; every other path is looked
+    up in ``handlers`` (``(method, body, headers) -> (status, content
+    type, payload[, headers])``; a handler with a fourth parameter also
+    gets the query string).  A handler that raises answers 500.  Returns
+    the server (``server_address[1]`` is the bound port)."""
+    with_query = {path: _takes_query(fn) for path, fn in handlers.items()}
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code, ctype, payload: bytes, headers=None):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _route(self, method, body=b""):
+            path, _, query = self.path.partition("?")
+            if method == "GET" and path == "/healthz":
+                code, text = health_fn()
+                self._send(code, "text/plain", text.encode())
+                return
+            fn = handlers.get(path)
+            if fn is None:
+                self._send(404, "application/json", json.dumps(
+                    {"error": f"no route {path}"}).encode())
+                return
+            try:
+                res = (fn(method, body, self.headers, query)
+                       if with_query[path]
+                       else fn(method, body, self.headers))
+            except Exception as e:            # noqa: BLE001 - handler bug
+                res = (500, "application/json",
+                       json.dumps({"error": repr(e)}).encode())
+            self._send(*res)
+
+        def do_GET(self):
+            self._route("GET")
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            self._route("POST", self.rfile.read(n))
+
+        def log_message(self, *args):
+            pass
+
+    server = _HTTPServer((host, port), Handler)
+    threading.Thread(target=server.serve_forever, name="ptt-http",
+                     daemon=True).start()
+    return server

@@ -132,7 +132,8 @@ def test_http_infer_matches_jax_engine(snap):
             assert not t.is_alive()
         for (code, body, _), toks, m in zip(results, want, MAX_TOKENS):
             assert code == 200
-            assert body == {"outputs": {"tokens": toks}, "generated": m}
+            assert body == {"outputs": {"tokens": toks}, "generated": m,
+                            "model_version": "boot"}
         assert _get(url, "/healthz") == (200, b"ok\n")
         code, raw = _get(url, "/stats")
         stats = json.loads(raw)
@@ -238,6 +239,47 @@ def test_cli_serve_subprocess(snap):
         finally:
             proc.terminate()
             proc.communicate(timeout=30)
+
+
+def test_cli_serve_decode_from_model_config(snap, tmp_path):
+    """``serve --model cfg.py --decode`` as the JAX command line has it:
+    the heads come from the config's graph (no ``--num_heads``), the
+    weights from the snapshot; the paged server answers the JAX engine's
+    greedy tokens and reports the snapshot's model version."""
+    cfg = tmp_path / "lm_cfg.py"
+    cfg.write_text(
+        "from paddle_tpu_torch.models import transformer\n"
+        f"cost, _ = transformer.build(vocab_size={VOCAB}, "
+        f"max_len={MAXLEN}, dim={DIM}, num_heads={HEADS}, "
+        f"num_layers={LAYERS})\n"
+        "prediction = cost\n")
+    want = _jax_tokens(snap)
+    env = dict(os.environ, PYTHONPATH="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "serve", "--model",
+         str(cfg), "--params", snap[2], "--decode", "--paged_kv",
+         "--kv_block_size", "8", "--max_slots", "2", "--device", "cpu",
+         "--port", "0"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    ready = None
+    for line in proc.stdout:
+        if line.startswith('{"ptpu_serve"'):
+            ready = json.loads(line)["ptpu_serve"]
+            break
+    try:
+        assert ready is not None, proc.communicate(timeout=30)[1]
+        assert ready["decode"] and ready["paged"]
+        version = tckpt.snapshot_version(tckpt.load(snap[2])["manifest"])
+        assert ready["model_version"] == version
+        for p, m, toks in zip(PROMPTS, MAX_TOKENS, want):
+            code, body, _ = _post(ready["url"], {"input": [p],
+                                                 "max_tokens": m})
+            assert code == 200 and body["outputs"]["tokens"] == toks
+            assert body["model_version"] == version
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)
 
 
 def test_no_card_means_no_silent_cpu_run(snap):

@@ -182,16 +182,9 @@ def test_decode_submit_validation(small):
 # the JAX engine's keywords for features the port does not have yet, each
 # with a non-default value and the ROADMAP item its error names
 UNPORTED = [
-    ("output_layer", object(), "item 8"), ("inference", object(), "item 8"),
-    ("feeding", {"x": 0}, "item 8"), ("max_batch", 8, "item 8"),
-    ("max_wait_us", 100.0, "item 8"), ("batch_buckets", (2, 4), "item 8"),
-    ("overload_wait_scale", 2.0, "item 8"), ("seq_buckets", (8,), "item 8"),
-    ("model_version", "v2", "item 8"), ("canary_fraction", 0.1, "item 8"),
-    ("canary_promote_requests", 8, "item 8"),
-    ("reload_key", b"k", "item 8"), ("mesh", object(), "item 14"),
-    ("mesh_slices", 2, "item 14"), ("mesh_rules", object(), "item 14"),
-    ("trace_sample", 0.5, "item 13"), ("telemetry_dir", "/x", "item 13"),
-    ("compile_cache_dir", "/x", "item 13")]
+    ("mesh", object(), "item 14"), ("mesh_slices", 2, "item 14"),
+    ("mesh_rules", object(), "item 14"), ("trace_sample", 0.5, "item 13"),
+    ("telemetry_dir", "/x", "item 13"), ("compile_cache_dir", "/x", "item 13")]
 
 
 @pytest.mark.parametrize("kw,value,item", UNPORTED,
@@ -204,23 +197,83 @@ def test_unported_engine_feature_raises(small, kw, value, item):
         InferenceEngine(decoder=slab(model), **{kw: value})
 
 
-def test_unported_whole_forward_and_per_request_features_raise(small):
-    """A layer where the decoder goes (the JAX engine's output_layer),
-    a model-version pin and a trace raise; the defaults are accepted."""
+# the whole-forward and model-version keywords ported since: each works in
+# the mode it belongs to (the whole-forward engine, or decode for the
+# version keywords that decode shares), and the decode engine rejects the
+# whole-forward-only ones as the JAX engine does
+PORTED = [
+    ("output_layer", None, "exclusive"), ("inference", None, "exclusive"),
+    ("feeding", {"tokens": 0}, None), ("max_batch", 8, None),
+    ("max_wait_us", 100.0, None), ("batch_buckets", (2, 4), None),
+    ("overload_wait_scale", 2.0, None), ("seq_buckets", (8,), "seq_buckets"),
+    ("model_version", "v2", None), ("canary_fraction", 0.1, "canary"),
+    ("canary_promote_requests", 8, None), ("reload_key", b"k", None)]
+
+
+@pytest.mark.parametrize("kw,value,decode_error", PORTED,
+                         ids=[u[0] for u in PORTED])
+def test_ported_engine_keyword_works(small, kw, value, decode_error):
+    """A whole-forward engine on the small LM's logits takes the keyword
+    and answers a request; a decode engine takes it too, or refuses it
+    with the JAX engine's ValueError where it belongs to whole forwards."""
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch.inference import Inference
+    from paddle_tpu_torch.models.transformer import build
+
     _, _, model = small
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InferenceEngine(object(), object())
+    tpaddle.init(seed=0, device="cpu")
+    _, logits = build(vocab_size=VOCAB, max_len=MAXLEN, dim=32,
+                      num_heads=HEADS, num_layers=1)
+    params = tpaddle.parameters.create(tpaddle.Topology(logits))
+    kw_fwd = {kw: value}
+    if kw == "output_layer":
+        kw_fwd = {"output_layer": logits, "parameters": params}
+    elif kw == "inference":
+        kw_fwd = {"inference": Inference(logits, params, device="cpu")}
+    args = () if kw in ("output_layer", "inference") else (logits, params)
+    with InferenceEngine(*args, **dict({"max_wait_us": 100.0}, **kw_fwd)) as eng:
+        got = eng.infer([([1, 2, 3],)], timeout=60)
+        assert got.shape == (1, eng.seq_buckets[0] if eng.seq_buckets
+                             else MAXLEN, VOCAB)
+        if kw == "model_version":
+            assert eng.stats()["model_version"] == "v2"
+    kw_dec = {kw: logits if kw == "output_layer" else
+              Inference(logits, params, device="cpu")
+              if kw == "inference" else value}
+    if decode_error:
+        with pytest.raises(ValueError, match=decode_error):
+            InferenceEngine(decoder=slab(model), **kw_dec)
+    else:
+        InferenceEngine(decoder=slab(model), **kw_dec).close()
+
+
+def test_unported_whole_forward_and_per_request_features_raise(small):
+    """A trace raises naming item 13 in both modes, and so does the
+    whole-forward engine's prewarm (the compile cache); a decode engine
+    answers a pin on its active version and refuses any other, over HTTP
+    as 200 and 400."""
+    _, _, model = small
     eng = InferenceEngine(slab(model), max_batch=32, max_wait_us=2000.0,
                           model_version="boot", mesh_slices=0)
     try:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            eng.submit([[1, 2]], max_tokens=2, version="boot")
         with pytest.raises(NotImplementedError, match="item 13"):
             eng.submit([[1, 2]], max_tokens=2, trace=object())
-        code, _, body = eng.http_handlers()["/infer"]("POST", json.dumps(
+        with pytest.raises(NotImplementedError, match="item 13"):
+            eng.prewarm()
+        assert eng.infer([[1, 2]], 60, max_tokens=2,
+                         version="boot").shape == (2,)
+        with pytest.raises(ValueError, match="one resident version"):
+            eng.infer([[1, 2]], 60, max_tokens=2, version="other")
+        handle = eng.http_handlers()["/infer"]
+        code, _, body = handle("POST", json.dumps(
             {"input": [[1, 2]], "max_tokens": 2,
              "model_version": "boot"}).encode())[:3]
-        assert code == 501 and "item 8" in json.loads(body)["error"]
+        assert code == 200 and json.loads(body)["model_version"] == "boot"
+        code, _, body = handle("POST", json.dumps(
+            {"input": [[1, 2]], "max_tokens": 2,
+             "model_version": "v9"}).encode())[:3]
+        assert code == 400 and "one resident version" in json.loads(
+            body)["error"]
     finally:
         eng.close()
 
