@@ -318,16 +318,39 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    --fleet 2`` with 32 calls through ``ServingClient``, a replica
    SIGKILLed mid-run, every call answered, the router showing it out of
    rotation and the survivor deregistering on drain;
-20. one JSON line each for the LM training, NMT and LSTM, the bf16
+20. NMT generation (``gen_slice``): ``seq2seq.build(is_generating=True)``
+   at ``bench_nmt``'s widths (vocab 30000, 512 wide, beam 3, src = trg =
+   50) with the NMT path's weights after its Adam steps, 64 seeded
+   sources of 1 to 50 tokens (192 beam rows): the kernel route against
+   ``use_fused_rnn=False`` on the same batch - kernel 6 called 100 times
+   and 0, the encoder's outputs per row within kernel 6's 3xTF32 row
+   limits and six of its calls per row against ``_tf32x3_gru_step``, the
+   ids equal wherever no step's picks part, where they part the gap
+   between the two candidates within GEN_GAP_TOL of max(1, |score|), the
+   other scores within GEN_SCORE_TOL; ids [64, 3, 50] in the vocabulary,
+   scores best first, eos held once emitted (also in a run whose
+   ``candidate_adjust`` makes eos likelier from step 20, so beams end);
+   the batch's time, generated tokens/s, peak memory (and above the
+   batch's start), one batch under ``torch.profiler`` (kernel 6's device
+   time and share) and kernel 6 alone at the batch's shape beside its
+   bound; ``python -m paddle_tpu_torch train --job=gen`` in a
+   subprocess on a snapshot of the same weights, its ids equal to the
+   in-process ones; then item 9's other layers at small sizes on the card
+   against the same code on the CPU within ITEM9_TOL (a nested group with
+   an inner group, ``mdlstmemory`` with mixed directions, ``sub_seq`` and
+   ``sub_nested_seq``, batch norm in a group with its state, a step under
+   ``rnn_group_remat``, and ``text_lstm`` at its default widths on
+   synthetic imdb, the first batch's gradients and 3 Adam losses);
+21. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
-   whole-forward serving slice, sweep, ResNet and ResNet-under-bf16
-   runs, the card line again,
+   whole-forward serving slice, generation, sweep, ResNet and
+   ResNet-under-bf16 runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
-phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve`` or
-``serve_fwd``, or a part of one:
+phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve``,
+``serve_fwd`` or ``gen``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -2536,6 +2559,8 @@ def nmt_path():
     feed = nmt_feed(NMT_BATCH)
     losses, step_s, warm, peak_gb, launches = train_steps(
         "NMT", paddle, trainer, feed, NMT_STEPS, "gru_step", 2 * NMT_LEN)
+    # the weights phase 20 generates with
+    trained = _numpy_tree(trainer.parameters.values)
     toks = NMT_BATCH * 2 * NMT_LEN
     print(f"NMT training: {NMT_STEPS} Adam steps (lr {NMT_LR}) at batch "
           f"{NMT_BATCH} x {NMT_LEN} + {NMT_LEN}, losses "
@@ -2548,7 +2573,8 @@ def nmt_path():
     breakdown = nmt_breakdown(topo, trainer, feed)
     return {"launches": launches, "losses": losses, "step_ms": warm * 1e3,
             "first_step_ms": step_s[0] * 1e3, "tokens_per_s": toks / warm,
-            "peak_gb": peak_gb, "parity": parity, "breakdown": breakdown}
+            "peak_gb": peak_gb, "parity": parity, "breakdown": breakdown,
+            "trained": trained}
 
 
 def lstm_path():
@@ -7563,12 +7589,590 @@ def serve_fwd_slice() -> dict:
 SERVE_FWD_PHASES = {"serve_fwd": serve_fwd_slice}
 
 
+# ---------------------------------------- phase 20: NMT beam generation
+GEN_BATCH, GEN_BEAM = 64, 3
+GEN_SEED = SEED + 22
+# Between the routes only the encoder differs: kernel 6 leaves each of its
+# output rows within 2^-16 of the row's norm for 99% of rows (its 3xTF32
+# row limit), about 1e-6 in the measurements so far.  A beam's score is a
+# float32 sum of up to 50 log-probs of magnitude up to about 10 that move
+# with those outputs; GEN_SCORE_TOL of max(1, |score|) bounds the move of
+# one score, and two candidates can trade places only where their gap is
+# below the sum of their two moves: GEN_GAP_TOL, twice it.
+GEN_SCORE_TOL = 1e-4
+GEN_GAP_TOL = 2 * GEN_SCORE_TOL
+GEN_TIMED = 3
+# the eos run: from this step on eos's log-prob gains this much, so beams
+# end and the finished-beam path runs at full width
+GEN_EOS_FROM, GEN_EOS_BONUS = 20, 8.0
+# item 9's other layers on the card against the CPU (same port code)
+ITEM9_TOL = 1e-5
+TEXT_LSTM_BATCH, TEXT_LSTM_STEPS = 32, 3
+
+
+
+def gen_feed(seed, batch, length, vocab) -> dict:
+    """The generated batch's sources: ``batch`` rows of ids in [3,
+    vocab), lengths drawn in [1, length] (``GEN_CONFIG`` carries this
+    function's source, so the CLI's reader yields the same batch)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, length + 1, batch)
+    ids = rng.randint(3, vocab, (batch, length))
+    return {"source_words": ids.astype(np.int32),
+            "source_words@len": lens.astype(np.int32)}
+
+
+GEN_ARGS = (GEN_SEED, GEN_BATCH, NMT_LEN, NMT_VOCAB)
+
+# the --job=gen config: the generator at bench_nmt's widths and a reader
+# of the same batch
+GEN_CONFIG = """import numpy as np
+from paddle_tpu_torch.models import seq2seq
+
+generator = seq2seq.build({vocab}, {vocab}, emb_dim={dim}, enc_dim={dim},
+                          dec_dim={dim}, max_src_len={len},
+                          max_trg_len={len}, is_generating=True,
+                          beam_size={beam})
+
+
+{feed}
+
+def gen_reader():
+    yield gen_feed{args}
+"""
+
+
+def _numpy_tree(values) -> dict:
+    return {l: {p: t.detach().cpu().numpy() for p, t in ps.items()}
+            for l, ps in values.items()}
+
+
+def nmt_trained_values() -> dict:
+    """``nmt_path``'s weights after its NMT_STEPS Adam steps, for a run
+    of the generation phase alone."""
+    paddle, topo = nmt_model()
+    trainer = paddle.trainer.SGD(
+        topo, paddle.parameters.from_numpy(topo, seeded_values(topo, SEED)),
+        paddle.optimizer.Adam(learning_rate=NMT_LR))
+    trainer.train(lambda: iter([nmt_feed(NMT_BATCH)] * NMT_STEPS))
+    return _numpy_tree(trainer.parameters.values)
+
+
+def gen_model(paddle):
+    """``seq2seq.build(is_generating=True)`` at ``bench_nmt``'s widths."""
+    from paddle_tpu_torch.models import seq2seq
+
+    _fresh(paddle)
+    return paddle.Topology(seq2seq.build(
+        NMT_VOCAB, NMT_VOCAB, emb_dim=NMT_DIM, enc_dim=NMT_DIM,
+        dec_dim=NMT_DIM, max_src_len=NMT_LEN, max_trg_len=NMT_LEN,
+        is_generating=True, beam_size=GEN_BEAM))
+
+
+class _Candidates:
+    """A ``drop_node`` hook that drops nothing and keeps each step's 2k
+    best candidates of every sample, ranked as the engine ranks them (a
+    stable descending sort)."""
+
+    def __init__(self, k):
+        self.k, self.steps = k, []
+
+    def __call__(self, cand, tokens, t):
+        vals, idx = torch.sort(cand.reshape(cand.shape[0], -1), dim=1,
+                               descending=True, stable=True)
+        self.steps.append((vals[:, :2 * self.k].clone(),
+                           idx[:, :2 * self.k].clone()))
+        return torch.zeros_like(cand, dtype=torch.bool)
+
+
+def _eos_bonus(logp, tokens, t):
+    """``candidate_adjust``: eos (1) GEN_EOS_BONUS likelier from step
+    GEN_EOS_FROM on."""
+    if t < GEN_EOS_FROM:
+        return logp
+    return torch.cat([logp[..., :1], logp[..., 1:2] + GEN_EOS_BONUS,
+                      logp[..., 2:]], dim=-1)
+
+
+def _gen_run(topo, params, feed, fused, hook=None, adjust=None):
+    """One generated batch on the kernel route or the plain one, with
+    ``hook`` as its ``drop_node`` and ``adjust`` as its
+    ``candidate_adjust``: (ids, scores, the encoder's outputs, kernel 6's
+    calls)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+
+    spec = topo.get_layer("decoder_group")
+    spec.attrs["drop_node"] = hook
+    spec.attrs["candidate_adjust"] = adjust
+    config.set_option("use_fused_rnn", fused)
+    try:
+        ops.reset_launch_counts()
+        outs, state = topo.forward(params, {}, feed, outputs=[
+            "decoder_group", "encoded_sequence"])
+        torch.cuda.synchronize()
+        return (outs["decoder_group"], state["decoder_group"]["scores"],
+                outs["encoded_sequence"], ops.launch_counts()["gru_step"])
+    finally:
+        config.set_option("use_fused_rnn", True)
+        spec.attrs["drop_node"] = spec.attrs["candidate_adjust"] = None
+
+
+def _first_divergences(rec_k, rec_p, k) -> dict:
+    """{sample: (step, gap, scale)} for each sample whose picks differ
+    between the routes: the first step where they do (every earlier pick,
+    hence every history, equal), and there the largest distance, in the
+    plain route's scores, between the candidate each route took at a rank
+    (a candidate outside the plain route's 2k best counts as the 2k-th's
+    score, a lower bound of its gap); ``scale`` is max(1, |best score|)
+    at that step."""
+    out = {}
+    for t, ((_, ki), (pv, pi)) in enumerate(zip(rec_k.steps, rec_p.steps)):
+        diff = (ki[:, :k] != pi[:, :k]).any(1).nonzero().flatten().tolist()
+        for b in diff:
+            if b in out:
+                continue
+            gaps = []
+            for j in range(k):
+                f = ki[b, j].item()
+                if f == pi[b, j].item():
+                    continue
+                at = (pi[b] == f).nonzero().flatten()
+                other = pv[b, at[0] if len(at) else -1].item()
+                gaps.append(abs(pv[b, j].item() - other))
+            out[b] = (t, max(gaps), max(1.0, abs(pv[b, 0].item())))
+    return out
+
+
+def _gen_structure(ids, scores):
+    """[GEN_BATCH, GEN_BEAM, NMT_LEN] ids in the vocabulary, scores best
+    first, eos (1) to the end once emitted."""
+    ids, scores = ids.cpu(), scores.cpu()
+    if tuple(ids.shape) != (GEN_BATCH, GEN_BEAM, NMT_LEN):
+        raise AssertionError(f"generated ids of shape {tuple(ids.shape)}")
+    if not ((ids >= 0) & (ids < NMT_VOCAB)).all():
+        raise AssertionError("a generated id outside the vocabulary")
+    if not (scores[:, 1:] <= scores[:, :-1]).all():
+        raise AssertionError(f"beam scores increase across beams: "
+                             f"{scores[:4].tolist()}")
+    eos = ids == 1
+    after = eos.int().cummax(dim=2).values.bool()
+    if not (ids[after] == 1).all():
+        raise AssertionError("a beam left eos after emitting it")
+    return int(eos.any(2).sum())
+
+
+def _gen_routes(topo, params, feed):
+    """The kernel route against the plain one on the same batch (the
+    holds of the phase's docstring); returns the kernel route's ids and
+    the figures."""
+    fr_calls = _RnnCalls("gru", [0, 1, NMT_LEN, NMT_LEN + 1,
+                                 2 * NMT_LEN - 2, 2 * NMT_LEN - 1])
+    rec_k, rec_p = _Candidates(GEN_BEAM), _Candidates(GEN_BEAM)
+    with fr_calls:
+        ids_k, sc_k, enc_k, n_k = _gen_run(topo, params, feed, True, rec_k)
+    ids_p, sc_p, enc_p, n_p = _gen_run(topo, params, feed, False, rec_p)
+    if (n_k, n_p) != (2 * NMT_LEN, 0):
+        raise AssertionError(f"generation: kernel 6 called {n_k} times on "
+                             f"the kernel route (expected {2 * NMT_LEN}) "
+                             f"and {n_p} on the plain one (expected 0)")
+    rows = fr_calls.hold("generation encoder", 2 * NMT_LEN, 2 * NMT_LEN)
+    worst, q99, ok = _tf32_holds(enc_k, enc_p)
+    if not ok:
+        raise AssertionError(f"generation encoder outputs, kernel route vs "
+                             f"plain: rows largest {worst}, q99 {q99}")
+    div = _first_divergences(rec_k, rec_p, GEN_BEAM)
+    for b, (t, gap, scale) in sorted(div.items()):
+        print(f"generation sample {b}: the routes' beams part at step {t}, "
+              f"where the candidates' gap in the plain route's scores is "
+              f"{gap:.3e} (limit {GEN_GAP_TOL:.0e} x {scale:.2f})",
+              flush=True)
+        if not gap <= GEN_GAP_TOL * scale:
+            raise AssertionError(f"generation sample {b}: routes part at "
+                                 f"step {t} over a gap of {gap}")
+    same = [b for b in range(GEN_BATCH) if b not in div]
+    if not torch.equal(ids_k[same], ids_p[same]):
+        raise AssertionError("generation: ids differ where no pick did")
+    sk, sp = sc_k[same], sc_p[same]
+    score_err = ((sk - sp).abs() / sp.abs().clamp_min(1.0)).max().item()
+    if not score_err <= GEN_SCORE_TOL:
+        raise AssertionError(f"generation scores, kernel route vs plain: "
+                             f"{score_err} > {GEN_SCORE_TOL} of max(1, "
+                             f"|score|)")
+    n_eos = _gen_structure(ids_k, sc_k)
+    ids_e, sc_e, _, _ = _gen_run(topo, params, feed, True,
+                                 adjust=_eos_bonus)
+    n_eos_forced = _gen_structure(ids_e, sc_e)
+    if not n_eos_forced:
+        raise AssertionError("the eos run ended no beam")
+    print(f"generation at batch {GEN_BATCH} x beam {GEN_BEAM} x "
+          f"{NMT_LEN} steps, kernel route vs use_fused_rnn=False: kernel 6 "
+          f"called {n_k} and {n_p} times; encoder outputs' rows largest "
+          f"{worst:.3e}, 99% {q99:.3e} (limits {TF32_ROW_TOL:.3e}, "
+          f"{TF32_ROW_Q99_TOL:.3e}); {GEN_BATCH - len(div)} of {GEN_BATCH} "
+          f"samples' beams equal, scores within {score_err:.3e} of max(1, "
+          f"|score|) (limit {GEN_SCORE_TOL:.0e}); {n_eos} of "
+          f"{GEN_BATCH * GEN_BEAM} beams ended on eos, {n_eos_forced} with "
+          f"eos {GEN_EOS_BONUS} likelier from step {GEN_EOS_FROM} (each "
+          f"held at eos to the end)", flush=True)
+    return ids_k, fr_calls, {
+        "encoder_row_err": worst, "encoder_row_err_q99": q99,
+        "kernel_rows": rows, "score_err": score_err,
+        "samples_parted": {str(b): {"step": t, "gap": g, "limit":
+                                    GEN_GAP_TOL * s}
+                           for b, (t, g, s) in div.items()},
+        "beams_on_eos": n_eos, "beams_on_eos_forced": n_eos_forced}
+
+
+def _gen_times(topo, params, feed, fr_calls, flush) -> dict:
+    """The kernel route's batch time (CUDA events, the median of
+    GEN_TIMED after the parity runs), tokens/s, peak memory, one batch
+    under ``torch.profiler`` (kernel 6's device time and share), and
+    kernel 6 alone at the batch's middle call (a ragged mask) beside its
+    bound, its plain step and the product's floor."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    def run():
+        topo.forward(params, {}, feed, outputs=["decoder_group"])
+
+    ms = []
+    for i in range(GEN_TIMED):
+        if i == GEN_TIMED - 1:
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    above_gb = peak_gb - start / 1e9
+    batch_ms = sorted(ms)[len(ms) // 2]
+    prof = profile_call(run, match="gru_tf32_kernel")
+    tokens = GEN_BATCH * GEN_BEAM * NMT_LEN
+    x, h, wg, wc, bias, m = next(a for i, a, _ in fr_calls.calls
+                                 if i == NMT_LEN)
+    H, b = h.shape[1], h.shape[0]
+    live = int((m > 0).sum())
+    with torch.no_grad():
+        k = {"ms": time_ms(lambda: fr.gru_step_cuda(x, h, wg, wc, bias, m),
+                           flush, lead=True),
+             "plain_ms": time_ms(lambda: fr._gru_step_ref(
+                 x, h, wg, wc, bias, m), flush, lead=True),
+             "addmm_ms": time_ms(lambda: (
+                 torch.addmm(bias[:2 * H], h, wg),
+                 torch.addmm(bias[2 * H:], h, wc)), flush, lead=True)}
+    flops = 2.0 * live * H * 3 * H
+    nbytes = 4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b)
+    k["bound_ms"], k["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    k["shape"] = {"B": b, "H": H, "live_rows": live}
+    out = {"batch_ms": batch_ms, "batch_ms_all": ms,
+           "tokens_per_s": tokens / (batch_ms / 1e3), "peak_gb": peak_gb,
+           "peak_above_start_gb": above_gb,
+           "kernel6_profiled_ms": prof["matched_ms"],
+           "profiled_batch_ms": prof["step_ms"], "busy_ms": prof["busy_ms"],
+           "idle_share": prof["idle_share"],
+           "kernel6_share": prof["matched_ms"] / prof["step_ms"],
+           "kernel6_at_gen_shape": k}
+    print(f"generation (smoke figures, not a benchmark; {card_line()}): a "
+          f"batch of {GEN_BATCH} sources x beam {GEN_BEAM} x {NMT_LEN} "
+          f"steps {batch_ms:.1f} ms (runs {[round(v, 1) for v in ms]}) = "
+          f"{out['tokens_per_s']:.0f} generated tokens/s; peak memory "
+          f"{peak_gb:.2f} GB, {above_gb:.2f} GB above the batch's start "
+          f"(below it the weights and what earlier phases hold); one "
+          f"profiled batch {prof['step_ms']:.1f} ms, "
+          f"device busy {prof['busy_ms']:.1f}, kernel 6 "
+          f"{prof['matched_ms']:.3f} ms in {2 * NMT_LEN} calls "
+          f"({out['kernel6_share']:.2%} of the batch); kernel 6 alone at "
+          f"B {b}, H {H} ({live} live rows): ms {k['ms']:.4f}  bound_ms "
+          f"{k['bound_ms']:.4f} ({k['bound_by']}, 3xTF32 at the TF32 "
+          f"peak)  plain_ms {k['plain_ms']:.4f}  library_ms none; the "
+          f"products alone (torch.addmm) {k['addmm_ms']:.4f}", flush=True)
+    return out
+
+
+def _gen_cli(values, ids_k) -> dict:
+    """``python -m paddle_tpu_torch train --job=gen`` in a subprocess on
+    the card, from a snapshot the port's writer saved and a config whose
+    ``gen_reader`` yields this batch: its ids must equal the in-process
+    kernel route's."""
+    from paddle_tpu_torch.io import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="gen_")
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save_params(os.path.join(tmp, "ck"), values)
+        save_s = time.perf_counter() - t0
+        cfg = os.path.join(tmp, "gen_cfg.py")
+        import inspect
+        with open(cfg, "w") as f:
+            f.write(GEN_CONFIG.format(
+                vocab=NMT_VOCAB, dim=NMT_DIM, len=NMT_LEN, beam=GEN_BEAM,
+                feed=inspect.getsource(gen_feed), args=GEN_ARGS))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "train", "--job=gen",
+             "--config", cfg, "--save_dir", os.path.join(tmp, "ck"),
+             "--device", "cuda"],
+            cwd=root, env={**os.environ, "PYTHONPATH": root},
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = [json.loads(l) for l in proc.stdout.splitlines()
+             if l.startswith('{"ids"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"train --job=gen: rc {proc.returncode}, "
+                             f"{len(lines)} ids lines; stderr "
+                             f"{proc.stderr[-2000:]}")
+    got = np.asarray(lines[0]["ids"])
+    if not np.array_equal(got, ids_k.cpu().numpy()):
+        raise AssertionError(f"train --job=gen's ids differ from the "
+                             f"in-process ones in "
+                             f"{int((got != ids_k.cpu().numpy()).sum())} "
+                             f"places")
+    print(f"train --job=gen on the card from the port's snapshot "
+          f"(written in {save_s:.2f} s): one ids line, equal to the "
+          f"in-process ids; the subprocess took {cli_s:.1f} s", flush=True)
+    return {"ids_equal": True, "save_s": save_s, "subprocess_s": cli_s}
+
+
+def _item9_configs(paddle):
+    """Item 9's other layers at small sizes: (name, outputs, feed,
+    options), each feed from a numpy seed."""
+    layer, dt = paddle.layer, paddle.data_type
+    rng = np.random.RandomState(SEED + 9)
+    out = []
+    # a nested group with an inner group of GRU steps
+    doc = layer.data("doc", dt.dense_vector_sub_sequence(12, sub_max=3,
+                                                         max_len=6))
+
+    def outer(sent):
+        def inner(word):
+            mem = layer.memory(name="w_s", size=8)
+            gates = layer.fc([word, mem], 24, bias_attr=False, name="w_g")
+            return layer.gru_step_layer(gates, mem, name="w_s")
+
+        acc = layer.memory(name="acc", size=8)
+        h = layer.fc(layer.last_seq(layer.recurrent_group(
+            inner, sent, name="words")), 8, act="tanh", name="sent_fc")
+        return layer.addto([h, acc], act="linear", name="acc")
+
+    sub = rng.randint(1, 7, (8, 3))
+    outer_len = rng.randint(1, 4, 8)
+    sub[np.arange(3)[None, :] >= outer_len[:, None]] = 0
+    out.append(("nested group", [layer.recurrent_group(
+        outer, layer.SubsequenceInput(doc), name="docs")],
+        {"doc": rng.standard_normal((8, 3, 6, 12)).astype(np.float32),
+         "doc@len": outer_len.astype(np.int32),
+         "doc@sublen": sub.astype(np.int32)}, {}))
+    # mdlstmemory on a 3 x 4 grid, the second dim reversed
+    grid = layer.data("grid", dt.dense_vector_sequence(40, max_len=12))
+    out.append(("mdlstmemory", [layer.mdlstmemory(
+        grid, directions=(True, False), grid_dims=(3, 4), name="md")],
+        {"grid": rng.standard_normal((8, 12, 40)).astype(np.float32) * 0.5,
+         "grid@len": rng.randint(1, 13, 8).astype(np.int32)}, {}))
+    # sub_seq and sub_nested_seq over one padded sequence
+    s = layer.data("s", dt.dense_vector_sequence(6, max_len=10))
+    sc = layer.data("sc", dt.dense_vector_sequence(1, max_len=10))
+    off = layer.data("off", dt.dense_vector(1))
+    size = layer.data("size", dt.dense_vector(1))
+    lens = rng.randint(1, 11, 8).astype(np.int32)
+    out.append(("sub_seq, sub_nested_seq", [
+        layer.fc(layer.sub_seq(s, off, size, name="sub"), 4, name="sub_fc"),
+        layer.fc(layer.sub_nested_seq(s, sc, k=4, name="sel"), 4,
+                 name="sel_fc")],
+        {"s": rng.standard_normal((8, 10, 6)).astype(np.float32),
+         "s@len": lens, "sc": rng.standard_normal((8, 10, 1)).astype(
+             np.float32), "sc@len": lens,
+         "off": rng.randint(-2, 6, (8, 1)).astype(np.float32),
+         "size": rng.randint(1, 8, (8, 1)).astype(np.float32)}, {}))
+    # batch norm inside a group (full-length sequences)
+    bx = layer.data("bx", dt.dense_vector_sequence(6, max_len=5))
+
+    def bn_step(ipt):
+        return layer.batch_norm(layer.fc(ipt, 8, name="bn_fc"), act="relu",
+                                name="bn_in_grp")
+
+    out.append(("batch_norm in a group", [layer.recurrent_group(
+        bn_step, bx, name="bgrp")],
+        {"bx": rng.standard_normal((16, 5, 6)).astype(np.float32)}, {}))
+    # a GRU step under rnn_group_remat
+    rx = layer.data("rx", dt.dense_vector_sequence(10, max_len=8))
+
+    def r_step(ipt):
+        mem = layer.memory(name="r_s", size=16)
+        gates = layer.fc([ipt, mem], 48, bias_attr=False, name="r_g")
+        return layer.gru_step_layer(gates, mem, name="r_s")
+
+    out.append(("a step under rnn_group_remat", [layer.recurrent_group(
+        r_step, rx, name="rgrp")],
+        {"rx": rng.standard_normal((8, 8, 10)).astype(np.float32),
+         "rx@len": rng.randint(1, 9, 8).astype(np.int32)},
+        {"rnn_group_remat": True}))
+    return out
+
+
+def _rel_max_err(a, ref) -> float:
+    return ((a.detach().float().cpu() - ref.detach().float()).abs().max()
+            .item() / max(1.0, ref.detach().abs().max().item()))
+
+
+def _item9_run(paddle, idx, device):
+    """Config ``idx`` of ``_item9_configs`` on ``device``: its outputs,
+    the gradients of sum(output * a seeded cotangent) with respect to
+    every parameter and float feed, and its new running state."""
+    from paddle_tpu_torch.core import config
+
+    _fresh(paddle)
+    name, outs, feed, opts = _item9_configs(paddle)[idx]
+    topo = paddle.Topology(outs)
+    values = seeded_values(topo, SEED + 10)
+    params = paddle.parameters.from_numpy(topo, values, device=device).values
+    wrt = {f"{l}.{p}": t.requires_grad_(True)
+           for l, ps in params.items() for p, t in ps.items()}
+    tfeed = {}
+    for k, a in feed.items():
+        t = torch.as_tensor(a, device=device)
+        if t.dtype == torch.float32 and "@" not in k:
+            wrt[f"feed {k}"] = t.requires_grad_(True)
+        tfeed[k] = t
+    for opt, v in opts.items():
+        config.set_option(opt, v)
+    try:
+        vals, state = topo.forward(params, topo.create_state(device=device),
+                                   tfeed, train=True, device=device)
+    finally:
+        for opt in opts:
+            config.set_option(opt, False)
+    rng = np.random.RandomState(SEED + 11)
+    total = sum((v * torch.as_tensor(rng.standard_normal(tuple(v.shape))
+                                     .astype(np.float32), device=device))
+                .sum() for v in vals.values())
+    grads = torch.autograd.grad(total, list(wrt.values()), allow_unused=True)
+    return name, vals, dict(zip(wrt, grads)), state
+
+
+def _item9_card() -> dict:
+    """Each of item 9's other layers forward and backward on the card
+    against the same port code on the CPU, every output, gradient and
+    state entry within ITEM9_TOL of max(1, max |cpu|)."""
+    import paddle_tpu_torch as paddle
+
+    out = {}
+    for idx in range(5):
+        name, vc, gc, sc = _item9_run(paddle, idx, "cuda")
+        _, vr, gr, sr = _item9_run(paddle, idx, "cpu")
+        errs = {f"out {n}": _rel_max_err(vc[n], vr[n]) for n in vr}
+        errs.update({k: (0.0 if gr[k] is None else
+                         _rel_max_err(gc[k], gr[k])) for k in gr})
+        errs.update({f"state {l}.{k}": _rel_max_err(sc[l][k], sr[l][k])
+                     for l, ks in sr.items() for k in ks})
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        if not worst[1] <= ITEM9_TOL:
+            raise AssertionError(f"{name} on the card vs the CPU: "
+                                 f"{worst[0]} {worst[1]} > {ITEM9_TOL}")
+        print(f"{name} on the card vs the CPU: {len(errs)} outputs, "
+              f"gradients and state entries, worst {worst[0]} at "
+              f"{worst[1]:.2e} of max(1, max |cpu|) (limit {ITEM9_TOL:.0e})",
+              flush=True)
+        out[name] = {"worst": worst[1], "of": worst[0], "checked": len(errs)}
+    out["text_lstm"] = _text_lstm_card()
+    return out
+
+
+def _text_lstm_card() -> dict:
+    """``models/text_lstm.py`` at its default widths (vocab 10000, emb
+    128, two peephole LSTMs of 512, the plain step) on
+    ``imdb.train(synthetic=True)`` batches of TEXT_LSTM_BATCH: the first
+    batch's loss and gradients, then TEXT_LSTM_STEPS Adam steps, on the
+    card against the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import text_lstm
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _fresh(paddle)
+        cost, _ = text_lstm.build()
+        topo = paddle.Topology(cost)
+        values = seeded_values(topo, SEED + 12)
+        reader = paddle.batch(paddle.dataset.imdb.train(synthetic=True),
+                              TEXT_LSTM_BATCH)
+        feeder = paddle.data_feeder.DataFeeder(topo, {"words": 0,
+                                                      "label": 1})
+        feeds = [feeder.feed(b) for _, b in zip(range(TEXT_LSTM_STEPS),
+                                                 reader())]
+        tr = paddle.trainer.SGD(
+            topo, paddle.parameters.from_numpy(topo, values, device=device),
+            paddle.optimizer.Adam(learning_rate=1e-3, epsilon=1e-6),
+            device=device)
+        loss, grads = tr.forward_backward(feeds[0])
+        losses = []
+        tr.train(lambda: iter(feeds), event_handler=lambda e: (
+            losses.append(e.cost)
+            if isinstance(e, paddle.event.EndIteration) else None))
+        runs[device] = (float(loss), grads, losses)
+    (loss_c, g_c, l_c), (loss_r, g_r, l_r) = runs["cuda"], runs["cpu"]
+    errs = {"first loss": _rel(loss_c, loss_r)}
+    errs.update({f"grad {l}.{p}": _rel_max_err(g_c[l][p], g)
+                 for l, ps in g_r.items() for p, g in ps.items()})
+    errs.update({f"loss {i}": _rel(a, b) for i, (a, b) in
+                 enumerate(zip(l_c, l_r))})
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    if len(l_c) != TEXT_LSTM_STEPS or not worst[1] <= ITEM9_TOL:
+        raise AssertionError(f"text_lstm on the card vs the CPU: {worst} "
+                             f"(losses {l_c} vs {l_r})")
+    print(f"text_lstm (default widths, imdb synthetic, batch "
+          f"{TEXT_LSTM_BATCH}) on the card vs the CPU: first loss "
+          f"{loss_c:.6f} vs {loss_r:.6f}, {TEXT_LSTM_STEPS} Adam losses "
+          f"{[round(x, 6) for x in l_c]} vs {[round(x, 6) for x in l_r]}; "
+          f"worst {worst[0]} at {worst[1]:.2e} (limit {ITEM9_TOL:.0e}, of "
+          f"max(1, max |cpu|) for gradients, relative for losses)",
+          flush=True)
+    return {"worst": worst[1], "of": worst[0], "losses": l_c}
+
+
+def gen_slice(trained=None) -> dict:
+    """Phase 20: NMT generation at ``bench_nmt``'s full width through
+    kernel 6, the ``train --job=gen`` entry point, and item 9's other
+    layers on the card (the holds of the module docstring)."""
+    import paddle_tpu_torch as paddle
+
+    if trained is None:
+        trained = nmt_trained_values()
+    topo = gen_model(paddle)
+    dev = torch.device("cuda")
+    params = {l: {p: torch.from_numpy(v).to(dev) for p, v in ps.items()}
+              for l, ps in trained.items()}
+    feed = gen_feed(*GEN_ARGS)
+    with torch.no_grad():
+        ids_k, fr_calls, parity = _gen_routes(topo, params, feed)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        times = _gen_times(topo, params, feed, fr_calls, flush)
+        del flush
+    cli = _gen_cli(trained, ids_k)
+    del params
+    torch.cuda.empty_cache()
+    item9 = _item9_card()
+    return {"launches": 2 * NMT_LEN, "parity": parity, "times": times,
+            "cli": cli, "item9": item9,
+            "shape": {"batch": GEN_BATCH, "beam": GEN_BEAM,
+                      "src_len": NMT_LEN, "max_length": NMT_LEN,
+                      "vocab": NMT_VOCAB, "dim": NMT_DIM}}
+
+
+GEN_PHASES = {"gen": gen_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
-    (phase 17), ``serve`` (phase 18) or ``serve_fwd`` (phase 19), for a
-    development run; the full run takes no arguments."""
+    (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19) or ``gen``
+    (phase 20), for a development run; the full run takes no
+    arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -7579,13 +8183,14 @@ def selected(argv) -> list:
     unknown = [n for n in names if n not in DISPATCH_PHASES
                and n not in V2_PHASES and n not in CTR_PHASES
                and n not in CKPT_PHASES and n not in SERVE_PHASES
-               and n not in SERVE_FWD_PHASES]
+               and n not in SERVE_FWD_PHASES and n not in GEN_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
                          f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}"
                          f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}"
-                         f" + {sorted(SERVE_FWD_PHASES)}")
+                         f" + {sorted(SERVE_FWD_PHASES)}"
+                         f" + {sorted(GEN_PHASES)}")
     return names
 
 
@@ -7629,7 +8234,7 @@ def main(argv=()) -> int:
             else:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
                              **CKPT_PHASES, **SERVE_PHASES,
-                             **SERVE_FWD_PHASES}[name]()
+                             **SERVE_FWD_PHASES, **GEN_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -7686,6 +8291,9 @@ def main(argv=()) -> int:
     cl = ckpt["launches"]
     serve = serve_slice()
     serve_fwd = serve_fwd_slice()
+    torch.cuda.empty_cache()
+    gen = gen_slice(nmt.pop("trained"))
+    torch.cuda.empty_cache()
     sass = sass_phase()
     resnet = resnet_path()
     torch.cuda.empty_cache()
@@ -7749,6 +8357,8 @@ def main(argv=()) -> int:
          "replaces": "paddle_tpu/ops/fused_rnn.py:144",
          "launches": nmt["launches"]["gru_step"],
          "launches_replay": dispatch["nmt"]["replay_launches"],
+         "launches_gen": gen["launches"],
+         "gen_shape": gen["times"]["kernel6_at_gen_shape"],
          **rnn["gru"]},
         {"name": "bn_fwd_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
@@ -7914,6 +8524,8 @@ def main(argv=()) -> int:
     print(json.dumps({"ckpt": ckpt}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"serve_fwd": serve_fwd}), flush=True)
+    print(json.dumps({"gen": {k: gen[k] for k in (
+        "shape", "parity", "times", "cli", "item9")}}), flush=True)
     print(json.dumps({"sweep": {"rows": sweep_rows,
                                 "variants": var["variants"],
                                 "sdpa_bf16_ms": var["sdpa_bf16_ms"],

@@ -15,8 +15,14 @@ evaluates the config's ``test_reader`` (else ``train_reader``) on the
 snapshot under ``--save_dir`` and prints one JSON line.  ``--job=time``
 (``cmd_time``, TrainerBenchmark) times the step on a synthetic batch of
 ``--batch_size`` for ``--iters`` iterations, and with K > 1 the K-step
-chunk beside it, and prints one JSON line.  The JAX command's telemetry
-and compile-cache flags and its other jobs are not ported yet and raise.
+chunk beside it, and prints one JSON line.  ``--job=gen`` (``cmd_gen``)
+runs the config's ``generator`` (a ``beam_search`` layer) over
+``gen_reader`` (else ``test_reader``), with the parameters of the snapshot
+under ``--save_dir`` laid over fresh ones (layers the generator does not
+own, such as a trained embedding or output fc it names, are kept), and
+prints one ``{"ids": ...}`` JSON line a batch.  The JAX command's
+telemetry and compile-cache flags and ``--job=checkgrad`` are not ported
+yet and raise.
 
 ``checkpoint verify DIR`` audits every snapshot under DIR read-only
 (a JSON report; exit 1 on corruption); ``checkpoint latest DIR`` prints
@@ -57,8 +63,9 @@ import time
 # flags of the JAX ``train`` verb this port does not have yet
 _UNPORTED_TRAIN_FLAGS = ("telemetry_dir", "metrics_port",
                          "compile_cache_dir")
-# the JAX ``train`` verb's jobs this port runs
-_JOBS = ("train", "test", "time")
+# the JAX ``train`` verb's jobs this port runs (its ``checkgrad`` comes
+# with ROADMAP.md section 1, item 15)
+_JOBS = ("train", "test", "time", "gen")
 
 
 def _serve_ready_line(role, host, port, **extra):
@@ -438,10 +445,9 @@ def _load_config(path: str) -> dict:
     return runpy.run_path(path)
 
 
-def _build(args):
-    """The config's trainer, as ``paddle_tpu/cli.py``'s ``_build`` makes
-    it: (paddle, config globals, topology, trainer)."""
-    import paddle_tpu_torch as paddle
+def _config_for(args) -> dict:
+    """Refuse what is not ported, put the device in place and run the
+    config (its globals), under the ``--precision`` policy."""
     from paddle_tpu_torch.core import config
 
     unported = [f"--{f}" for f in _UNPORTED_TRAIN_FLAGS
@@ -453,16 +459,25 @@ def _build(args):
     if args.job not in _JOBS:
         raise NotImplementedError(
             f"--job={args.job}: not ported to paddle_tpu_torch yet (ported: "
-            f"{', '.join(_JOBS)}; ROADMAP.md section 1)")
+            f"{', '.join(_JOBS)}; ROADMAP.md section 1, item 15)")
     # before the config runs: its own paddle.init() keeps this device
     config.set_option("device", args.device)
     config.default_device()
     cfg = _load_config(args.config)
     if args.precision:
         # after the config ran its own init (the flag wins), before the
-        # trainer is built under the policy
+        # graph runs under the policy
         from paddle_tpu_torch.core import precision
         precision.apply_policy_name(args.precision)
+    return cfg
+
+
+def _build(args):
+    """The config's trainer, as ``paddle_tpu/cli.py``'s ``_build`` makes
+    it: (paddle, config globals, topology, trainer)."""
+    import paddle_tpu_torch as paddle
+
+    cfg = _config_for(args)
     topo = paddle.Topology(cfg["cost"])
     params = paddle.parameters.create(topo)
     opt = cfg.get("optimizer") or paddle.optimizer.Momentum(
@@ -477,6 +492,8 @@ def cmd_train(args) -> None:
         return cmd_time(args)
     if args.job == "test":
         return cmd_test(args)
+    if args.job == "gen":
+        return cmd_gen(args)
     paddle, cfg, _, trainer = _build(args)
     reader = cfg.get("train_reader")
     if reader is None:
@@ -519,6 +536,49 @@ def cmd_test(args) -> None:
                          "train_reader) for --job=test")
     result = trainer.test(reader, feeding=cfg.get("feeding"))
     print(json.dumps({"cost": result.cost, "metrics": result.metrics}))
+
+
+def cmd_gen(args) -> None:
+    """``--job=gen``: sequence generation, as ``paddle_tpu/cli.py``'s
+    ``cmd_gen`` (reference: gen configs run via paddle train).  The config
+    defines ``generator`` and ``gen_reader`` (or ``test_reader``), whose
+    batches are sample lists or ready feed dicts; the snapshot under
+    ``--save_dir`` is union-merged into fresh parameters, because the
+    generator resolves shared layers (embeddings, the hoisted vocab
+    projection) from the trained tree by name.  One ``{"ids": ...}`` JSON
+    line a batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import config
+
+    cfg = _config_for(args)
+    gen = cfg.get("generator")
+    if gen is None:
+        raise SystemExit("config must define `generator` for --job=gen")
+    topo = paddle.Topology(gen, collect_evaluators=False)
+    values = topo.create_parameters().values
+    if args.save_dir:
+        import torch
+
+        from paddle_tpu_torch.io import checkpoint
+        dev = config.default_device()
+        snap = checkpoint.params_of(checkpoint.load(args.save_dir))
+        values = dict(values)
+        for lname, ps in snap.items():
+            merged = dict(values.get(lname, {}))
+            merged.update({k: torch.as_tensor(v, dtype=torch.float32,
+                                              device=dev)
+                           for k, v in ps.items() if v is not None})
+            values[lname] = merged
+    reader = cfg.get("gen_reader") or cfg.get("test_reader")
+    if reader is None:
+        raise SystemExit("config must define gen_reader for --job=gen")
+    feeder = paddle.data_feeder.DataFeeder(topo, cfg.get("feeding"))
+    state = topo.create_state()
+    for batch in reader():
+        feed = feeder.feed(batch) if not isinstance(batch, dict) else batch
+        outs, _ = topo.forward(values, state, feed, train=False)
+        ids = outs[topo.output_names[0]].cpu().numpy()
+        print(json.dumps({"ids": ids.tolist()}), flush=True)
 
 
 def cmd_checkpoint(args) -> None:
@@ -636,8 +696,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train (default), test (the cost on test_reader "
                          "from the --save_dir snapshot, one JSON line) or "
                          "time (TrainerBenchmark: the step on a synthetic "
-                         "batch, one JSON line); the JAX command's other "
-                         "jobs raise")
+                         "batch, one JSON line) or gen (the config's "
+                         "generator over gen_reader, one {\"ids\": ...} "
+                         "line a batch); checkgrad raises")
     tr.add_argument("--num_passes", type=int, default=1)
     tr.add_argument("--log_period", type=int, default=100,
                     help="print the cost every N batches")

@@ -28,7 +28,8 @@ class ApplyContext:
     the names of its inputs (``in_names``).  The sparse side channels:
     ``sparse_vals`` maps a sparse data layer to its per-id values, and
     ``sparse_probes`` a ``sparse_update`` embedding to the trainer's zero
-    probe."""
+    probe.  ``sublens`` maps a nested-sequence data layer to its inner
+    lengths [B, S] (its ``@sublen`` feed; None when it has none)."""
 
     def __init__(self, train: bool, generator: Optional[torch.Generator]
                  = None, device=None, compute_dtype=None):
@@ -41,6 +42,7 @@ class ApplyContext:
         self.state_out: dict = {}
         self.sparse_vals: dict = {}     # {sparse data layer: values}
         self.sparse_probes: dict = {}   # {embedding layer: zero probe}
+        self.sublens: dict = {}         # {nested data layer: [B, S] lens}
         self.in_names: Sequence[str] = ()
         self._cur_layer: Optional[str] = None
 

@@ -31,8 +31,9 @@ __all__ = [
     "slice", "layer_norm", "data_norm",
     "pooling", "first_seq", "last_seq", "expand", "seq_concat",
     "seq_reshape", "context_projection", "seq_slice", "kmax_seq_score",
-    "seq_softmax", "seq_scale", "seq_dot",
-    "recurrent", "lstmemory", "grumemory", "bigru", "recurrent_group",
+    "seq_softmax", "seq_scale", "seq_dot", "sub_seq", "sub_nested_seq",
+    "recurrent", "lstmemory", "grumemory", "bigru", "mdlstmemory",
+    "recurrent_group",
     "memory", "beam_search", "StaticInput", "GeneratedInput",
     "SubsequenceInput", "gru_step_layer", "lstm_step_layer",
     "classification_cost", "lm_head_cost", "cross_entropy_cost",
@@ -372,6 +373,20 @@ def seq_slice(input, start, end, name=None):
                        name=name, size=inputs[0].size)
 
 
+def sub_seq(input, offsets, sizes, name=None):
+    """Per-sample sub-sequence slice (reference sub_seq_layer)."""
+    return LayerOutput("sub_seq", [input, offsets, sizes], {}, name=name,
+                       size=input.size)
+
+
+def sub_nested_seq(input, scores, k, name=None):
+    """Keep the top-k timesteps by per-step SCORES, in time order
+    (reference sub_nested_seq_layer; pass raw scores, not kmax
+    indices)."""
+    return LayerOutput("sub_nested_seq", [input, scores],
+                       {"k": k}, name=name, size=input.size)
+
+
 def kmax_seq_score(input, beam_size=1, name=None):
     inputs = _norm_inputs(input)
     return LayerOutput("kmax_seq_score", inputs, {"beam_size": beam_size},
@@ -419,6 +434,42 @@ def bigru(fwd_proj, bwd_proj, act="tanh", gate_act="sigmoid", name=None):
                        {"act": act_mod.resolve(act),
                         "gate_act": act_mod.resolve(gate_act)},
                        name=name, size=size or None)
+
+
+def mdlstmemory(input, directions=None, grid_dims=None,
+                act="sigmoid", gate_act="sigmoid", state_act="sigmoid",
+                name=None):
+    """Multi-dimensional LSTM over a D-dim grid; input must be the
+    size*(3+D)-wide gate projection (reference: config_parser.py
+    MDLstmLayer).  ``grid_dims`` pins the static grid shape (its product
+    the input's max seq len); ``directions`` gives the walk's direction
+    per grid dim (default: all forward, the rank from grid_dims; 1-D over
+    the sequence when neither is given)."""
+    inputs = _norm_inputs(input)
+    if directions is None:
+        directions = (True,) * (len(grid_dims) if grid_dims is not None
+                                else 1)
+    directions = tuple(bool(d) for d in directions)
+    if grid_dims is not None and len(grid_dims) != len(directions):
+        raise ValueError(
+            f"mdlstmemory: grid_dims rank {len(grid_dims)} != "
+            f"len(directions) {len(directions)}")
+    if grid_dims is None and len(directions) > 1:
+        raise ValueError(
+            "mdlstmemory: multi-dim directions require grid_dims")
+    width = inputs[0].size or 0
+    if width and width % (3 + len(directions)) != 0:
+        raise ValueError(
+            f"mdlstmemory: input size {width} not divisible by "
+            f"3+len(directions)={3 + len(directions)}")
+    attrs = {"directions": directions,
+             "act": act_mod.resolve(act),
+             "gate_act": act_mod.resolve(gate_act),
+             "state_act": act_mod.resolve(state_act)}
+    if grid_dims is not None:
+        attrs["grid_dims"] = tuple(int(d) for d in grid_dims)
+    return LayerOutput("mdlstmemory", inputs, attrs, name=name,
+                       size=width // (3 + len(directions)) or None)
 
 
 def gru_step_layer(input, output_mem, size=None, act="tanh",
@@ -661,6 +712,7 @@ _LEGACY = {
     "mixed": "mixed_layer", "pooling": "pooling_layer",
     "expand": "expand_layer", "seq_reshape": "seq_reshape_layer",
     "seq_concat": "seq_concat_layer", "seq_slice": "seq_slice_layer",
+    "sub_seq": "sub_seq_layer", "sub_nested_seq": "sub_nested_seq_layer",
     "kmax_seq_score": "kmax_seq_score_layer",
     "interpolation": "interpolation_layer", "scaling": "scaling_layer",
     "slope_intercept": "slope_intercept_layer", "cos_sim": "cos_sim",

@@ -1,7 +1,6 @@
 """Recurrent layers: simple RNN, LSTM, GRU, the GRU and LSTM steps of
-recurrent groups, and the fused bidirectional GRU (counterpart of
-``paddle_tpu/layers/recurrent.py``; ``MDLstmemoryLayer`` is not ported
-yet).
+recurrent groups, the fused bidirectional GRU and the multi-dimensional
+LSTM (counterpart of ``paddle_tpu/layers/recurrent.py``).
 
 Where the JAX package runs each recurrence as one ``lax.scan`` over a
 time-major tensor, here ``_scan_time_major`` is an eager loop over T under
@@ -23,6 +22,7 @@ gate projection (4h / 3h wide) made by an upstream fc.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch import activation as act_mod
@@ -355,3 +355,118 @@ class BiGruMemoryLayer(SeqLayerDef):
             ys_b.append(hb)
         return torch.cat([torch.stack(ys_f, 1), torch.stack(ys_b[::-1], 1)],
                          dim=-1)
+
+
+@register_layer
+class MDLstmemoryLayer(SeqLayerDef):
+    """Multi-dimensional LSTM over an N-D grid (reference:
+    gserver/layers/MDLstmLayer.cpp).  The input is the gate projection of
+    width size*(3+D), laid out [input node, input gate, forget gate * D,
+    output gate], over a D-dimensional grid whose static shape is
+    ``grid_dims`` (its product the padded length T).  Each cell takes the
+    output and state of its predecessor along every grid dim, through one
+    recurrent weight (size, size*(3+D)), with a forget gate per dim and
+    the packed peephole biases [local | checkIg | checkFg * D | checkOg]:
+
+      state = sum_d fg_d * state_pre_d + act(inode) * gate(ig
+                  + sum_d state_pre_d * checkIg)
+      out   = act_state(state) * gate(og + state * checkOg)
+
+    As in the JAX package, reversed dims flip the grid before one
+    canonical forward walk in lexicographic order, with static
+    predecessor tables, and flip back; the sequence mask marks cells
+    present, and a padded cell writes zero output and state, so its
+    neighbours see a grid boundary.  The JAX package walks the cells in a
+    ``lax.scan``; here an eager loop over the cells, under autograd."""
+
+    kind = "mdlstmemory"
+    out_is_seq = True
+
+    @staticmethod
+    def _ndims(attrs):
+        return len(tuple(attrs.get("directions", (True, True))))
+
+    def infer_shape(self, attrs, in_shapes):
+        return (in_shapes[0][0], in_shapes[0][-1] // (3 + self._ndims(attrs)))
+
+    def param_specs(self, attrs, in_shapes):
+        d = self._ndims(attrs)
+        s = in_shapes[0][-1] // (3 + d)
+        return [ParamSpec("w", (s, (3 + d) * s), "xavier"),
+                ParamSpec("b", ((5 + 2 * d) * s,), "zeros")]
+
+    def apply_seq(self, attrs, params, inputs, masks, ctx):
+        x = inputs[0]                                  # [B, T, (3+D)*s]
+        directions = tuple(attrs.get("directions", (True, True)))
+        ndim = len(directions)
+        s = x.shape[-1] // (3 + ndim)
+        dims = tuple(attrs.get("grid_dims") or (x.shape[1],))
+        if len(dims) != ndim:
+            raise ValueError(
+                f"mdlstmemory: grid_dims {dims} rank != len(directions) "
+                f"{ndim}")
+        n_cells = int(np.prod(dims))
+        if n_cells != x.shape[1]:
+            raise ValueError(
+                f"mdlstmemory: prod(grid_dims)={n_cells} != seq len "
+                f"{x.shape[1]}")
+        if x.shape[-1] % (3 + ndim) != 0:
+            raise ValueError(
+                f"mdlstmemory: input width {x.shape[-1]} not divisible by "
+                f"3+len(directions)={3 + ndim}")
+        gate_act = attrs.get("gate_act", "sigmoid")
+        state_act = attrs.get("state_act", "sigmoid")
+        in_act = attrs.get("act", "sigmoid")
+        bsz = x.shape[0]
+        w, b = params["w"], params["b"]
+        local_bias = b[:(3 + ndim) * s]
+        check_ig = b[(3 + ndim) * s:(4 + ndim) * s]
+        check_fg = b[(4 + ndim) * s:(4 + 2 * ndim) * s].reshape(ndim, s)
+        check_og = b[(4 + 2 * ndim) * s:]
+
+        grid = x.reshape((bsz,) + dims + (x.shape[-1],))
+        mgrid = (torch.ones((bsz, n_cells), dtype=x.dtype, device=x.device)
+                 if masks[0] is None else masks[0].to(x.dtype)
+                 ).reshape((bsz,) + dims)
+        flip_axes = [i + 1 for i, fwd in enumerate(directions) if not fwd]
+        if flip_axes:
+            grid = grid.flip(flip_axes)
+            mgrid = mgrid.flip(flip_axes)
+        g_all = grid.reshape(bsz, n_cells, -1) + local_bias
+        m_all = mgrid.reshape(bsz, n_cells)
+
+        # along dim d the predecessor of flat cell n is n - stride_d,
+        # present iff coord_d > 0
+        strides = np.ones(ndim, np.int64)
+        for i in range(ndim - 2, -1, -1):
+            strides[i] = strides[i + 1] * dims[i + 1]
+        coords = np.stack(np.unravel_index(np.arange(n_cells), dims), -1)
+        zeros = torch.zeros((bsz, s), dtype=x.dtype, device=x.device)
+        outs, states = [], []
+        for n in range(n_cells):
+            pre = [n - int(strides[d]) if coords[n, d] > 0 else None
+                   for d in range(ndim)]
+            outs_pre = torch.stack([outs[p] if p is not None else zeros
+                                    for p in pre])            # [D, B, s]
+            sp = torch.stack([states[p] if p is not None else zeros
+                              for p in pre], 1)               # [B, D, s]
+            g = g_all[:, n] + torch.einsum("dbs,st->bt", outs_pre, w)
+            inode = g[:, :s]
+            ig = g[:, s:2 * s]
+            fg = g[:, 2 * s:(2 + ndim) * s].reshape(bsz, ndim, s)
+            og = g[:, (2 + ndim) * s:]
+            ig = act_mod.apply(gate_act, ig + sp.sum(1) * check_ig)
+            fg = act_mod.apply(gate_act, fg + sp * check_fg)
+            inode = act_mod.apply(in_act, inode)
+            state = (fg * sp).sum(1) + inode * ig
+            og = act_mod.apply(gate_act, og + state * check_og)
+            out = act_mod.apply(state_act, state) * og
+            # padded cells are absent: zero output and state
+            m = m_all[:, n:n + 1]
+            outs.append(out * m)
+            states.append(state * m)
+
+        out = torch.stack(outs, 1).reshape((bsz,) + dims + (s,))
+        if flip_axes:
+            out = out.flip(flip_axes)
+        return out.reshape(bsz, n_cells, s)

@@ -1,5 +1,5 @@
-"""Attention seq2seq NMT, the training graph (counterpart of
-``paddle_tpu/models/seq2seq.py``).
+"""Attention seq2seq NMT: the training graph and the beam-search generator
+(counterpart of ``paddle_tpu/models/seq2seq.py``).
 
 A bidirectional GRU encoder (``networks.bidirectional_gru(fused=True)``:
 on the card each encoder timestep runs the CUDA GRU step kernel once per
@@ -9,8 +9,12 @@ vocab projection is hoisted out of the decoder loop: one fc over the whole
 decoded sequence, then ``classification_cost``.  Every parametered layer
 carries the JAX package's name, so one parameter tree serves both.
 
-Generation (``is_generating=True``, beam search sharing the trained
-parameters by name) is not ported yet and raises.
+Generation (``is_generating=True``) is ``beam_search`` over the same
+step: the trained ``trg_embedding`` feeds the previous token back
+(``GeneratedInput(embedding_name=)``), and the trained ``dec_out`` fc
+projects each step's state to the vocabulary inside the loop
+(``output_layer=``), so the generator's parameters all resolve by name in
+the trained tree.  Its encoder runs the same kernel route as training.
 """
 
 from __future__ import annotations
@@ -57,12 +61,8 @@ def build(src_vocab_size: int, trg_vocab_size: int, emb_dim: int = 512,
           enc_dim: int = 512, dec_dim: int = 512, max_src_len: int = 50,
           max_trg_len: int = 50, is_generating: bool = False,
           beam_size: int = 3, bos_id: int = 0, eos_id: int = 1):
-    """Return the training cost layer.  ``is_generating=True`` raises
-    until beam search is ported."""
-    if is_generating:
-        raise NotImplementedError(
-            "seq2seq generation (beam_search) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md section 1)")
+    """Return the cost layer (training) or the beam-search ids layer
+    (generation).  Both graphs share parameter names."""
     enc_seq, enc_bwd = encoder(src_vocab_size, emb_dim, enc_dim, max_src_len)
     # boot state from the backward GRU's first step, sized to the decoder
     boot = layer.fc(layer.first_seq(enc_bwd), dec_dim, act="tanh",
@@ -70,6 +70,17 @@ def build(src_vocab_size: int, trg_vocab_size: int, emb_dim: int = 512,
     enc_proj = layer.fc(enc_seq, dec_dim, act=None, bias_attr=False,
                         name="encoded_proj")
     step = _decoder_step(dec_dim, trg_vocab_size, boot, emit_probs=False)
+    if is_generating:
+        return layer.beam_search(
+            step,
+            [layer.GeneratedInput(size=trg_vocab_size,
+                                  embedding_name="trg_embedding",
+                                  embedding_size=emb_dim),
+             layer.StaticInput(enc_seq, is_seq=True),
+             layer.StaticInput(enc_proj, is_seq=True)],
+            bos_id=bos_id, eos_id=eos_id, beam_size=beam_size,
+            max_length=max_trg_len, output_layer="dec_out",
+            name="decoder_group")
     trg_word = layer.data(
         "target_words",
         data_type.integer_value_sequence(trg_vocab_size,

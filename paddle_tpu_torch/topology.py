@@ -26,8 +26,13 @@ rows (the trainer's SelectedRows path, ``sparse_embeddings``).
 Evaluators declared on the graph's layers attach to the topology
 (``evaluator.match_graph``), and their layers join it.
 
-Not ported yet, and refused: nested sequences, gradient printers' probes,
-mesh placement and ``prepare_forward``.
+A nested-sequence data layer (``seq_type`` 2) is [B, S, T, ...]: its
+``@len`` masks the outer axis, and its ``@sublen`` feed, the inner lengths
+[B, S], rides ``ApplyContext.sublens`` to the ``recurrent_group`` that
+scans it (``SubsequenceInput``).
+
+Not ported yet, and refused: gradient printers' probes, mesh placement
+and ``prepare_forward``.
 """
 
 from __future__ import annotations
@@ -105,6 +110,7 @@ def _clone_ctx(ctx):
     sub.state_in = ctx.state_in
     sub.sparse_probes = ctx.sparse_probes
     sub.sparse_vals = ctx.sparse_vals
+    sub.sublens = ctx.sublens
     return sub
 
 
@@ -174,14 +180,15 @@ class Topology:
         for spec in self.specs:
             ldef = get_layer_def(spec.kind)
             if spec.kind == "data":
-                if spec.attrs.get("seq_type", 0) == 2:
-                    raise NotImplementedError(
-                        f"data layer {spec.name!r}: nested sequences are "
-                        f"not ported to paddle_tpu_torch yet (ROADMAP.md "
-                        f"section 1, item 9)")
                 seq = spec.attrs.get("seq_type", 0) != 0
                 shape = tuple(spec.attrs["shape"])
-                if seq:
+                if spec.attrs.get("seq_type", 0) == 2:
+                    # nested sequence [B, S, T, ...]: the outer axis
+                    # carries the sequence mask; the inner lengths come
+                    # in the @sublen feed
+                    shape = (spec.attrs.get("sub_max") or None,
+                             spec.attrs.get("max_len") or None) + shape
+                elif seq:
                     # T is static (max_len) or None (the batch max at feed
                     # time; param shapes never depend on T)
                     shape = (spec.attrs.get("max_len") or None,) + shape
@@ -433,6 +440,11 @@ class Topology:
                 x = x.float()
             values[spec.name] = x
             masks[spec.name] = None
+            if spec.attrs.get("seq_type", 0) == 2:
+                sub = feed.get(spec.name + "@sublen")
+                ctx.sublens[spec.name] = (
+                    None if sub is None
+                    else torch.as_tensor(sub, device=dev).to(torch.int32))
             lens = feed.get(spec.name + "@len")
             if self.is_seq[spec.name] and lens is not None:
                 # None = statically full, which lets attention skip kv_lens

@@ -219,22 +219,41 @@ def test_cli_trains_the_nmt_config_on_the_cpu(tmp_path, capsys,
 
 
 # ------------------------------------------------------ what is refused
-def test_unported_recurrent_paths_raise(monkeypatch):
-    """Generation, nested sequences and group remat raise
-    NotImplementedError naming the ROADMAP (the unfused attention
-    composite, once refused here, now builds)."""
+def test_unported_recurrent_paths_raise(tmp_path, monkeypatch):
+    """What this test once expected to refuse now works: generation
+    (``seq2seq.build(is_generating=True)``, ``GeneratedInput``,
+    ``beam_search``), ``SubsequenceInput`` over a nested data layer and
+    ``rnn_group_remat`` (bit for bit the plain group); the unfused
+    attention composite builds.  ``train --job=checkgrad`` still refuses,
+    naming its ROADMAP item."""
+    from paddle_tpu_torch import cli
+
     reset_port_names()
     pt.init(seed=0, device="cpu")
     layer = pt.layer
-    with pytest.raises(NotImplementedError, match="beam_search"):
-        tseq2seq.build(**SMALL, is_generating=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.GeneratedInput(size=10, embedding_size=4)
+    gen = tseq2seq.build(**SMALL, is_generating=True)
+    assert gen.kind == "beam_search" and gen.name == "decoder_group"
+    g = layer.GeneratedInput(size=10, embedding_size=4)
+    assert (g.size, g.embedding_size) == (10, 4)
+    enc = layer.data("enc", pt.data_type.dense_vector(3))
+
+    def gstep(emb):
+        mem = layer.memory(name="h", size=3, boot_layer=enc)
+        nxt = layer.fc([emb, mem], 3, act="tanh", name="h")
+        return layer.fc(nxt, 10, act="softmax", name="p")
+
+    bs = layer.beam_search(gstep, [g], bos_id=0, eos_id=1, beam_size=2,
+                           max_length=3, name="bs")
+    bs_topo = pt.Topology(bs)
+    outs, state = bs_topo.forward(
+        pt.parameters.create(bs_topo, device="cpu").values, {},
+        {"enc": np.ones((2, 3), np.float32)}, device="cpu")
+    assert outs["bs"].shape == (2, 2, 3) and state["bs"]["scores"].shape \
+        == (2, 2)
+    doc = layer.data("doc", pt.data_type.dense_vector_sub_sequence(
+        6, sub_max=2, max_len=4))
+    assert layer.SubsequenceInput(doc).input is doc
     x = layer.data("x", pt.data_type.dense_vector_sequence(6, max_len=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.SubsequenceInput(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.beam_search(lambda w: w, [], bos_id=0, eos_id=1)
     st = layer.data("st", pt.data_type.dense_vector(4))
     # the unfused attention composite is ported: it builds, under the
     # composite's names
@@ -248,11 +267,16 @@ def test_unported_recurrent_paths_raise(monkeypatch):
     topo = pt.Topology(layer.sum_cost(layer.last_seq(
         layer.recurrent_group(step, x, name="grp"))))
     params = pt.parameters.create(topo, device="cpu")
-    monkeypatch.setitem(tconfig._options, "rnn_group_remat", True)
-    with pytest.raises(NotImplementedError, match="rnn_group_remat"):
-        topo.forward(params.values, {},
-                     {"x": np.zeros((1, 4, 6), np.float32)}, device="cpu")
-    with torch.no_grad():
-        monkeypatch.setitem(tconfig._options, "rnn_group_remat", False)
-        topo.forward(params.values, {},
-                     {"x": np.zeros((1, 4, 6), np.float32)}, device="cpu")
+    feed = {"x": np.random.RandomState(0).randn(1, 4, 6).astype(np.float32)}
+    losses = []
+    for remat in (True, False):
+        monkeypatch.setitem(tconfig._options, "rnn_group_remat", remat)
+        outs, _ = topo.forward(params.values, {}, feed, device="cpu")
+        losses.append(outs[topo.output_names[0]])
+    assert torch.equal(*losses)
+    path = tmp_path / "cfg.py"
+    path.write_text(CLI_CONFIG)
+    monkeypatch.setitem(tconfig._options, "device", None)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.main(["train", "--job=checkgrad", "--config", str(path),
+                  "--device", "cpu"])

@@ -419,9 +419,25 @@ def _golden_configs(paddle):
         return layer.sum_cost(layer.fc(ctx_out, size=2, name="bout"),
                               name="bcost")
 
+    def generator_beam_search():
+        # its ids and scores against the JAX package:
+        # tests/test_torch_generation.py
+        enc = layer.data("enc", dt.dense_vector(8))
+
+        def step(emb):
+            mem = layer.memory(name="h", size=8, boot_layer=enc)
+            nxt = layer.fc([emb, mem], 8, act="tanh", name="h",
+                           bias_attr=False)
+            return layer.fc(nxt, 30, act="softmax", name="probs",
+                            bias_attr=False)
+
+        return layer.beam_search(
+            step, [layer.GeneratedInput(size=30, embedding_size=6)],
+            bos_id=0, eos_id=1, beam_size=3, max_length=10, name="gen")
+
     return {f.__name__: f for f in (
         simple_rnn_layers, recurrent_group, bi_grumemory, grumemory_layer,
-        lstmemory_layer, fused_bahdanau_r4)}
+        lstmemory_layer, fused_bahdanau_r4, generator_beam_search)}
 
 
 @pytest.mark.parametrize("name", sorted(_golden_configs(pt)))

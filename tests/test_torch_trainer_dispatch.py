@@ -263,7 +263,9 @@ def test_cli_job_time_prints_the_jax_keys(cli_cfg, capsys, k):
 @pytest.mark.parametrize("job", ["test", "checkgrad", "gen", "bogus"])
 def test_cli_other_jobs_raise(cli_cfg, job, capsys):
     """The JAX command's jobs this port lacks raise; ``test`` is ported
-    and prints the config's cost as one JSON line."""
+    and prints the config's cost as one JSON line; ``gen`` is ported and,
+    as the JAX command does, exits on a config without a ``generator``
+    (tests/test_torch_generation.py generates through it)."""
     from paddle_tpu_torch import cli
 
     argv = ["train", f"--job={job}", "--config", cli_cfg, "--device", "cpu"]
@@ -271,6 +273,10 @@ def test_cli_other_jobs_raise(cli_cfg, job, capsys):
         cli.main(argv)
         rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert np.isfinite(rec["cost"]) and rec["metrics"] == {}
+        return
+    if job == "gen":
+        with pytest.raises(SystemExit, match="`generator`"):
+            cli.main(argv)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(argv)

@@ -304,6 +304,115 @@ def _(paddle):
         layer.fc(pooled, size=2, act="softmax", name="out"), lbl)
 
 
+# ------------------------------------- the recurrent slice's goldens
+@config("multi_out_group_r4")
+def _(paddle):
+    layer = paddle.layer
+    _, dvs, iv, _ = _types(paddle)
+    h = 6
+    x = layer.data("gx", dvs(3 * h, max_len=5))
+    y = layer.data("gy", iv(3))
+
+    def step(ipt):
+        mem = layer.memory(name="g_s", size=h)
+        st = layer.gru_step_layer(ipt, mem, name="g_s")
+        p = layer.fc(st, size=3, act="tanh", name="g_p")
+        return st, p
+
+    s_out, p_out = layer.recurrent_group(step, x, name="ggrp")
+    pred = layer.fc(layer.last_seq(layer.concat([s_out, p_out])), size=3,
+                    name="gpred")
+    return layer.classification_cost(pred, y, name="gcost")
+
+
+def _shared_rnn(paddle, which):
+    layer, networks = paddle.layer, paddle.networks
+    _, _, iv, ivs = _types(paddle)
+    a = layer.data("a", ivs(100, max_len=8))
+    b = layer.data("b", ivs(100, max_len=8))
+    if which == "gru":
+        emb = paddle.attr.ParamAttr(name="shared_emb")
+        ea = layer.embedding(a, 32, param_attr=emb, name="emb_a")
+        eb = layer.embedding(b, 32, param_attr=emb, name="emb_b")
+        r1 = networks.simple_gru(ea, size=16, name="gru_shared")
+        r2 = networks.simple_gru(eb, size=16, name="gru_shared2")
+    else:
+        emb = paddle.attr.ParamAttr(name="shared_emb_l")
+        ea = layer.embedding(a, 32, param_attr=emb, name="lemb_a")
+        eb = layer.embedding(b, 32, param_attr=emb, name="lemb_b")
+        r1 = networks.simple_lstm(ea, size=16, name="lstm_a")
+        r2 = networks.simple_lstm(eb, size=16, name="lstm_b")
+    feat = layer.concat([layer.last_seq(r1), layer.last_seq(r2)])
+    return layer.classification_cost(
+        layer.fc(feat, size=3, act="softmax", name="out"),
+        layer.data("label", iv(3)))
+
+
+@config("shared_gru")
+def _(paddle):
+    return _shared_rnn(paddle, "gru")
+
+
+@config("shared_lstm")
+def _(paddle):
+    return _shared_rnn(paddle, "lstm")
+
+
+@config("networks_seq")
+def _(paddle):
+    layer, networks = paddle.layer, paddle.networks
+    _, _, iv, ivs = _types(paddle)
+    words = layer.data("words", ivs(5000, max_len=20))
+    emb = layer.embedding(words, size=32, name="emb")
+    lstm = networks.simple_lstm(emb, size=32)
+    gru = networks.simple_gru(emb, size=32)
+    lbl = layer.data("label", iv(2))
+    feat = layer.concat([layer.last_seq(lstm), layer.last_seq(gru)])
+    return layer.classification_cost(
+        layer.fc(feat, size=2, act="softmax", name="out"), lbl)
+
+
+@config("nested_recurrent_group")
+def _(paddle):
+    layer = paddle.layer
+    d = 4
+    doc = layer.data("doc", paddle.data_type.dense_vector_sub_sequence(
+        d, sub_max=3, max_len=6))
+
+    def outer(sent):
+        pooled = layer.pooling(sent, pooling_type="sum")
+        acc = layer.memory(name="acc", size=d)
+        return layer.addto([pooled, acc], act="linear", name="acc")
+
+    grp = layer.recurrent_group(outer, layer.SubsequenceInput(doc),
+                                name="outer_grp")
+    return layer.sum_cost(layer.last_seq(grp))
+
+
+@config("sub_nested_seq_select")
+def _(paddle):
+    layer = paddle.layer
+    dvs = _types(paddle)[1]
+    x = layer.data("x", dvs(4, max_len=5))
+    scores = layer.data("scores", dvs(1, max_len=5))
+    sel = layer.sub_nested_seq(x, scores, k=2, name="subsel")
+    return layer.sum_cost(layer.last_seq(sel))
+
+
+@config("mdlstm_datanorm_r5")
+def _(paddle):
+    layer = paddle.layer
+    dv, dvs, _, _ = _types(paddle)
+    x = layer.data("x", dv(6))
+    dn = layer.data_norm(x, data_norm_strategy="min-max", name="dn")
+    seq = layer.data("grid", dvs(15, max_len=6))
+    md = layer.mdlstmemory(seq, directions=(True, False),
+                           grid_dims=(2, 3), name="md")
+    pooled = layer.pooling(md, pooling_type="sum")
+    joint = layer.fc([dn, pooled], size=4, name="joint")
+    return layer.sum_cost(joint)
+
+
 # configs whose outputs only pin the JSON: "operators" pools a flattened
 # [B, 128] map with global_pool, which wants an image (both packages
 # refuse it); its two operators run in the CPU tests' own configs
@@ -336,7 +445,21 @@ def _seq_ops_feed(rng, batch):
     return out
 
 
-FEEDS = {"beam_cross_entropy": _beam_feed, "seq_ops": _seq_ops_feed}
+def _nested_feed(rng, batch):
+    """nested_recurrent_group: documents of up to 3 sentences of up to 6
+    words, 4 wide; ragged at both levels, a padded sentence of 0 words
+    after each short document's last."""
+    outer = rng.randint(1, 4, batch)
+    outer[0] = 3
+    sub = rng.randint(1, 7, (batch, 3))
+    sub[np.arange(3)[None, :] >= outer[:, None]] = 0
+    return {"doc": rng.standard_normal((batch, 3, 6, 4)).astype(np.float32),
+            "doc@len": outer.astype(np.int32),
+            "doc@sublen": sub.astype(np.int32)}
+
+
+FEEDS = {"beam_cross_entropy": _beam_feed, "seq_ops": _seq_ops_feed,
+         "nested_recurrent_group": _nested_feed}
 
 
 def feed(topology, batch: int = 4, seed: int = 0, padded: bool = False,
