@@ -341,16 +341,40 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    ``sub_nested_seq``, batch norm in a group with its state, a step under
    ``rnn_group_remat``, and ``text_lstm`` at its default widths on
    synthetic imdb, the first batch's gradients and 3 Adam losses);
-21. one JSON line each for the LM training, NMT and LSTM, the bf16
+21. the rest of the conv slice (``vision_slice``): VGG-19 with batch
+   norm (``models/vgg.py``, 224 px, flowers' 102 classes,
+   ``fused_bn_impl="pallas"``, Momentum(0.01, 0.9)) - its 16 relu batch
+   norms layer by layer and end to end on the kernel route against the
+   plain route at batch 8 (``resnet_layer_parity``, ``resnet_parity``,
+   cuDNN deterministic, the spread from the images nudged up and down by
+   2^-22, since the dropouts keep each row's mask), 16 launches of 7a and
+   of 7b a forward-backward there and none on the plain route; 4 steps at
+   batch 64 of synthetic flowers through ``paddle.batch`` and the
+   DataFeeder under ``fp32`` and under ``bf16`` (16 launches of the
+   policy's instances a step, none of another; step ms, images/s, peak
+   memory; one step under ``torch.profiler``: 7a and 7b's device time and
+   share, the idle share); 7a and 7b alone at [64, 224, 224, 64] at both
+   dtypes against their plain versions, timed beside their bounds, plain
+   versions, ``torch.var_mean`` and ``torch.batch_norm_backward_reduce``;
+   AlexNet (227 px) and GoogLeNet (224 px) at 1000 classes: one forward
+   and backward on the card against the CPU at batch 2 with the card's
+   dropout masks (the loss within VISION_LOSS_TOL, every gradient within
+   the larger of VISION_GRAD_TOL and twice float32's spread), 4 Momentum
+   steps at batch 128; the new layers small, card against CPU
+   (``_vision_layer_configs``: conv_transpose at stride 2, an antialiased
+   shrinking bilinear_interp, spp at H 13, maxout, pad, crop,
+   featmap_expand, conv3d, deconv3d, a 3-D batch norm, both pool3d;
+   ITEM9_TOL);
+22. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
-   whole-forward serving slice, generation, sweep, ResNet and
-   ResNet-under-bf16 runs, the card line again,
+   whole-forward serving slice, generation, sweep, ResNet,
+   ResNet-under-bf16 and vision runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
 phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve``,
-``serve_fwd`` or ``gen``, or a part of one:
+``serve_fwd``, ``gen`` or ``vision``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -2329,9 +2353,10 @@ def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr,
 
 
 def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
-                falling=True, finite=True):
-    """``trainer.SGD.train`` over ``steps`` copies of one batch: every
-    loss finite (and, with ``falling``, the last below the first), the
+                falling=True, finite=True, reader=None, feeding=None):
+    """``trainer.SGD.train`` over ``steps`` copies of one batch (or the
+    ``steps`` batches of ``reader``, through ``feeding``): every loss
+    finite (and, with ``falling``, the last below the first), the
     kernel's counter moving ``per_step`` a step; returns losses, step
     times and peak memory.  With ``finite=False`` (``fp16``, which has no
     loss scaling) a non-finite loss is printed, not raised, and
@@ -2350,7 +2375,8 @@ def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
 
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    trainer.train(lambda: iter([feed] * steps), event_handler=handler)
+    trainer.train(reader or (lambda: iter([feed] * steps)),
+                  event_handler=handler, feeding=feeding)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3960,30 +3986,10 @@ def conv_phase(dev, gen, flush, dtype=torch.float32, parents=None):
     rows_out = {k: [] for k in CONV_KERNELS}
     with torch.no_grad():
         for shape, count in bn.items():
-            x2, dout, w, b, mean, inv = bn_args(shape)
-            p, c = x2.shape
-            xn = x2.view(shape).permute(0, 3, 1, 2)
-            dn = dout.view(shape).permute(0, 3, 1, 2)
-            rows_out["bn_fwd_stats"].append(dict(
-                shape=list(shape), count=count,
-                ms=time_ms(lambda: fb.bn_fwd_stats_cuda(x2), flush,
-                           lead=True),
-                plain_ms=time_ms(lambda: fb._fwd_stats_ref(x2), flush,
-                                 lead=True),
-                library_ms=time_ms(lambda: torch.var_mean(
-                    x2, dim=0, correction=0), flush, lead=True),
-                **bounds(3.0 * p * c, es * p * c + 4.0 * 2 * c)))
-            rows_out["bn_bwd_stats"].append(dict(
-                shape=list(shape), count=count,
-                ms=time_ms(lambda: fb.bn_bwd_stats_cuda(
-                    dout, x2, w, b, mean, inv, True), flush, lead=True),
-                plain_ms=time_ms(lambda: fb._bwd_stats_ref(
-                    dout, x2, w, b, mean, inv, True), flush, lead=True),
-                library_ms=time_ms(lambda: torch.batch_norm_backward_reduce(
-                    dn, xn, mean, inv, None, True, False, False), flush,
-                    lead=True),
-                **bounds(8.0 * p * c, es * 2 * p * c + 4.0 * 6 * c)))
-            del x2, dout, xn, dn
+            args = bn_args(shape)
+            for k, row in bn_times(shape, *args, flush, bounds).items():
+                rows_out[k].append(dict(row, shape=list(shape), count=count))
+            del args
         for (p, ci, co), count in conv1.items():
             x2 = randn(p, ci).to(dtype)
             w2 = randn(ci, co, scale=ci ** -0.5).to(dtype)
@@ -4145,7 +4151,18 @@ def _set_route(topo, kernel: bool) -> None:
                 spec.attrs["conv_bn_impl"] = "xla"
 
 
-def resnet_parity(paddle, topo, values, feed):
+RESNET_PER_PASS = {"matmul_stats": 30, "conv3x3_stats": 16,
+                   "bn_fwd_stats": 4, "bn_bwd_stats": 4}
+
+
+def _resnet_stage(lname):
+    return lname[:4] if lname.startswith("res") else (
+        "stem" if lname.startswith("stem") else "head")
+
+
+def resnet_parity(paddle, topo, values, feed, name="ResNet-50",
+                  per_pass=RESNET_PER_PASS, lr=RESNET_LR,
+                  stage=_resnet_stage, spreads=("nudged", "reversed")):
     """Batch RESNET_PARITY_BATCH, from the same weights, cuDNN
     deterministic: the kernel route against the plain one on the card -
     the first loss (1e-4 relative), every gradient (1e-3 of max(1, max
@@ -4164,25 +4181,33 @@ def resnet_parity(paddle, topo, values, feed):
     its bound and twice that spread (for a gradient, the largest spread in
     its stage: stem, res2 to res5, head); the printout says which bound
     held where.  ``resnet_layer_parity`` holds every layer at the fixed
-    bounds without the amplification."""
+    bounds without the amplification.
+
+    The same holds serve another conv net (``name``, its launches a
+    forward-backward ``per_pass``, its Momentum ``lr``, its layers'
+    ``stage``); one with dropout takes ``spreads`` that keep each row in
+    place (``nudged_down``: the images by 1 - 2^-22), since the trainers'
+    generators give each route the same masks by row."""
     from paddle_tpu_torch import ops
 
-    per_pass = {"matmul_stats": 30, "conv3x3_stats": 16,
-                "bn_fwd_stats": 4, "bn_bwd_stats": 4}
-    nudged = dict(feed, image=feed["image"] * np.float32(1 + 2 ** -22))
-    reversed_ = {k: np.ascontiguousarray(v[::-1]) for k, v in feed.items()}
+    fd_of = {"nudged": dict(feed, image=feed["image"]
+                            * np.float32(1 + 2 ** -22)),
+             "nudged_down": dict(feed, image=feed["image"]
+                                 * np.float32(1 - 2 ** -22)),
+             "reversed": {k: np.ascontiguousarray(v[::-1])
+                          for k, v in feed.items()}}
     torch.backends.cudnn.deterministic = True
     runs = {}
     try:
-        for name, kernel, fd in (("kernel", True, feed),
-                                 ("plain", False, feed),
-                                 ("nudged", False, nudged),
-                                 ("reversed", False, reversed_)):
+        for route, kernel, fd in (("kernel", True, feed),
+                                  ("plain", False, feed),
+                                  *((sp, False, fd_of[sp])
+                                    for sp in spreads)):
             _set_route(topo, kernel)
             ops.reset_launch_counts()
             tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
                 topo, values), paddle.optimizer.Momentum(
-                    learning_rate=RESNET_LR, momentum=0.9))
+                    learning_rate=lr, momentum=0.9))
             loss, grads = tr.forward_backward(fd)
             state = tr.model_state
             tr.model_state = tr.topology.create_state()
@@ -4190,12 +4215,12 @@ def resnet_parity(paddle, topo, values, feed):
             tr.train(lambda: iter([fd] * 3), event_handler=lambda e: (
                 losses.append(e.cost)
                 if isinstance(e, paddle.event.EndIteration) else None))
-            runs[name] = (float(loss), grads, state, losses)
+            runs[route] = (float(loss), grads, state, losses)
             del tr
             got = {k: ops.launch_counts()[k] for k in per_pass}
             want = {k: 4 * n if kernel else 0 for k, n in per_pass.items()}
             if got != want:
-                raise AssertionError(f"ResNet parity, {name} route: "
+                raise AssertionError(f"{name} parity, {route} route: "
                                      f"launches {got}, expected {want}")
     finally:
         _set_route(topo, True)
@@ -4203,12 +4228,7 @@ def resnet_parity(paddle, topo, values, feed):
     (loss_k, grads_k, state_k, traj_k), (loss_t, grads_t, state_t,
                                          traj_t) = (runs["kernel"],
                                                     runs["plain"])
-    spread_runs = [runs["nudged"], runs["reversed"]]
-
-    def stage(lname):
-        return lname[:4] if lname.startswith("res") else (
-            "stem" if lname.startswith("stem") else "head")
-
+    spread_runs = [runs[sp] for sp in spreads]
     checks = []     # (what, error, spread, fixed bound)
     checks.append(("first loss", _rel(loss_k, loss_t), max(
         _rel(r[0], loss_t) for r in spread_runs), 1e-4))
@@ -4228,7 +4248,7 @@ def resnet_parity(paddle, topo, values, feed):
         err = max(_rel_err(state_k[lname][k], r) for k, r in ks.items())
         checks.append((f"moving statistics {lname}", err, spread, 1e-4))
     if len(traj_k) != 3:
-        raise AssertionError(f"ResNet Momentum trajectory {traj_k}")
+        raise AssertionError(f"{name} Momentum trajectory {traj_k}")
     checks.append(("3-step Momentum losses",
                    max(_rel(a, b) for a, b in zip(traj_k, traj_t)),
                    max(_rel(a, b) for run in spread_runs
@@ -4241,14 +4261,14 @@ def resnet_parity(paddle, topo, values, feed):
             held_spread.append((what, err, spread))
         else:
             raise AssertionError(
-                f"ResNet parity: {what}: kernel route vs plain {err:.3e}, "
+                f"{name} parity: {what}: kernel route vs plain {err:.3e}, "
                 f"beyond its bound {fixed} and twice float32's spread "
-                f"{spread:.3e} (the plain route on nudged or reversed "
-                f"inputs)")
+                f"{spread:.3e} (the plain route on inputs changed in their "
+                f"rounding: {', '.join(spreads)})")
     worst = max(checks[1:-1], key=lambda c: c[1])
-    print(f"ResNet-50 parity at batch {len(feed['label'])} x "
-          f"{RESNET_IMAGE}^2, kernel route vs the plain route (fused_bn_impl"
-          f" and conv_bn_impl 'xla'): first loss {loss_k:.6f} vs "
+    print(f"{name} parity at batch {len(feed['label'])} x "
+          f"{feed['image'].shape[1]}^2, kernel route vs the plain route "
+          f"(fused_bn_impl and conv_bn_impl 'xla'): first loss {loss_k:.6f} vs "
           f"{loss_t:.6f} ({_rel(loss_k, loss_t):.2e} relative); 3-step "
           f"Momentum losses {[round(x, 6) for x in traj_k]} vs "
           f"{[round(x, 6) for x in traj_t]}; worst {worst[0]} at "
@@ -4270,7 +4290,8 @@ def resnet_parity(paddle, topo, values, feed):
             "grad_spread_by_stage": grad_spread}
 
 
-def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
+def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None,
+                        name="ResNet-50"):
     """Each layer whose route differs (the 46 conv_bn layers and the 7
     batch norms) on the same inputs, the plain route's own activations at
     batch RESNET_PARITY_BATCH: the kernel route against the plain one on
@@ -4300,7 +4321,7 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
     try:
         with torch.no_grad():
             acts, _ = topo.forward(params, state, feed, train=True,
-                                   outputs=names)
+                                   outputs=names, generator=gen)
         worst = {"output": (0.0, ""), "state": (0.0, ""),
                  "grad": (0.0, "")}
         n = flips = 0
@@ -4329,7 +4350,7 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
                         or kept > out_tol * max(
                             1.0, yp.abs().max().item())):
                     raise AssertionError(
-                        f"ResNet layer parity: {spec.name}: relu decides "
+                        f"{name} layer parity: {spec.name}: relu decides "
                         f"{n_flip} outputs differently, the largest kept "
                         f"at {kept}")
             flips += n_flip
@@ -4349,7 +4370,7 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
             for kind, what, a, r, bound_ in checks:
                 err = _rel_err(a, r)
                 if not (err <= bound_ and torch.isfinite(a).all()):
-                    raise AssertionError(f"ResNet layer parity: {what}: "
+                    raise AssertionError(f"{name} layer parity: {what}: "
                                          f"kernel route vs plain {err} > "
                                          f"{bound_}")
                 worst[kind] = max(worst[kind], (err, what))
@@ -4357,7 +4378,7 @@ def resnet_layer_parity(paddle, topo, values, feed, gen, tols=None):
             del run, grads
     finally:
         _set_route(topo, True)
-    print(f"ResNet-50 layer by layer at batch {len(feed['label'])} ({n} "
+    print(f"{name} layer by layer at batch {len(feed['label'])} ({n} "
           f"layers whose route differs, each on the plain route's inputs"
           f"{', compute dtype ' + str(compute_dtype) if compute_dtype else ''}"
           f"): worst output {worst['output'][1]} {worst['output'][0]:.1e} "
@@ -5569,24 +5590,25 @@ def lm64k_path():
 
 
 class _Draws:
-    """The integers NCE draws on the card (``torch.randint``), recorded
-    and replayed for the same config on the CPU, whose generator draws
-    other numbers."""
+    """The numbers a layer draws on the card (``torch.randint`` for NCE,
+    ``torch.rand`` for dropout: ``fn``), recorded and replayed for the
+    same config on the CPU, whose generator draws other numbers."""
 
-    def __init__(self):
+    def __init__(self, fn="randint"):
+        self.fn = fn
         self.vals = []
 
     @contextlib.contextmanager
     def _patched(self, fn):
-        real = torch.randint
-        torch.randint = fn
+        real = getattr(torch, self.fn)
+        setattr(torch, self.fn, fn)
         try:
             yield
         finally:
-            torch.randint = real
+            setattr(torch, self.fn, real)
 
     def recording(self):
-        real = torch.randint
+        real = getattr(torch, self.fn)
 
         def rec(*a, **kw):
             out = real(*a, **kw)
@@ -5641,8 +5663,8 @@ def _golden_run(paddle, configs, name, values, device, gen):
         if t.dtype == torch.float32 and not k.endswith("@len"):
             wrt[f"feed {k}"] = t.requires_grad_(True)
         tfeed[k] = t
-    vals, _ = topo.forward(params, {}, tfeed, train=True, generator=gen,
-                           device=device)
+    vals, _ = topo.forward(params, topo.create_state(device=device), tfeed,
+                           train=True, generator=gen, device=device)
     scalars = [v for v in vals.values() if v.ndim == 0]
     total = sum(scalars[1:], scalars[0])
     grads = (torch.autograd.grad(total, list(wrt.values()),
@@ -8020,14 +8042,15 @@ def _rel_max_err(a, ref) -> float:
             .item() / max(1.0, ref.detach().abs().max().item()))
 
 
-def _item9_run(paddle, idx, device):
-    """Config ``idx`` of ``_item9_configs`` on ``device``: its outputs,
-    the gradients of sum(output * a seeded cotangent) with respect to
-    every parameter and float feed, and its new running state."""
+def _item9_run(paddle, idx, device, configs=None):
+    """Config ``idx`` of ``configs`` (``_item9_configs``) on ``device``:
+    its outputs, the gradients of sum(output * a seeded cotangent) with
+    respect to every parameter and float feed, and its new running
+    state."""
     from paddle_tpu_torch.core import config
 
     _fresh(paddle)
-    name, outs, feed, opts = _item9_configs(paddle)[idx]
+    name, outs, feed, opts = (configs or _item9_configs)(paddle)[idx]
     topo = paddle.Topology(outs)
     values = seeded_values(topo, SEED + 10)
     params = paddle.parameters.from_numpy(topo, values, device=device).values
@@ -8059,12 +8082,23 @@ def _item9_card() -> dict:
     """Each of item 9's other layers forward and backward on the card
     against the same port code on the CPU, every output, gradient and
     state entry within ITEM9_TOL of max(1, max |cpu|)."""
+    out = _configs_card(_item9_configs)
+    out["text_lstm"] = _text_lstm_card()
+    return out
+
+
+def _configs_card(configs) -> dict:
+    """Each of ``configs``' small layer configs (``_item9_configs``'
+    form) forward and backward on the card against the same port code on
+    the CPU (``_item9_run``), every output, gradient and state entry
+    within ITEM9_TOL of max(1, max |cpu|)."""
     import paddle_tpu_torch as paddle
 
     out = {}
-    for idx in range(5):
-        name, vc, gc, sc = _item9_run(paddle, idx, "cuda")
-        _, vr, gr, sr = _item9_run(paddle, idx, "cpu")
+    _fresh(paddle)
+    for idx in range(len(configs(paddle))):
+        name, vc, gc, sc = _item9_run(paddle, idx, "cuda", configs)
+        _, vr, gr, sr = _item9_run(paddle, idx, "cpu", configs)
         errs = {f"out {n}": _rel_max_err(vc[n], vr[n]) for n in vr}
         errs.update({k: (0.0 if gr[k] is None else
                          _rel_max_err(gc[k], gr[k])) for k in gr})
@@ -8079,8 +8113,59 @@ def _item9_card() -> dict:
               f"{worst[1]:.2e} of max(1, max |cpu|) (limit {ITEM9_TOL:.0e})",
               flush=True)
         out[name] = {"worst": worst[1], "of": worst[0], "checked": len(errs)}
-    out["text_lstm"] = _text_lstm_card()
     return out
+
+
+class _MaxTies:
+    """The positions the sequence max pool (``torch.amax`` over time)
+    picks on the card, recorded, and followed on the CPU.  Two of a
+    pool's values within a float32 rounding of each other (about 20 of
+    its 16,384 maxima a text_lstm batch lie within 1e-6) can be picked
+    the other way by the other device's rounding, which sends the
+    gradient down another time step: the same function, another routing
+    (read on the H100 in a whole run: 2.1e-5 on the embedding's gradient,
+    1.6e-4 on the third Adam loss; alone 3e-10).  The CPU takes the
+    card's pick only where it is one of its own maxima to within
+    ITEM9_TOL of max(1, |max|); the count of such picks is reported."""
+
+    def __init__(self):
+        self.picks = []
+        self.followed = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = torch.amax
+        torch.amax = fn
+        try:
+            yield
+        finally:
+            torch.amax = real
+
+    def recording(self):
+        real = torch.amax
+
+        def rec(x, dim, keepdim=False):
+            self.picks.append(x.detach().argmax(dim, keepdim=True).cpu())
+            return real(x, dim, keepdim=keepdim)
+        return self._patched(rec)
+
+    def following(self):
+        real = torch.amax
+        it = iter(self.picks)
+
+        def follow(x, dim, keepdim=False):
+            idx = next(it).to(x.device)
+            own = real(x, dim, keepdim=True)
+            got = x.gather(dim, idx)
+            gap = (own - got).detach()
+            if not (gap <= ITEM9_TOL * own.detach().abs().clamp_min(1.0)
+                    ).all():
+                raise AssertionError(f"the card's max-pool pick lies "
+                                     f"{gap.max().item()} below the CPU's "
+                                     f"max")
+            self.followed += int((gap > 0).sum())
+            return got if keepdim else got.squeeze(dim)
+        return self._patched(follow)
 
 
 def _text_lstm_card() -> dict:
@@ -8088,11 +8173,13 @@ def _text_lstm_card() -> dict:
     128, two peephole LSTMs of 512, the plain step) on
     ``imdb.train(synthetic=True)`` batches of TEXT_LSTM_BATCH: the first
     batch's loss and gradients, then TEXT_LSTM_STEPS Adam steps, on the
-    card against the CPU."""
+    card against the CPU, the CPU's max pool following the card's picks
+    at near ties (``_MaxTies``)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import text_lstm
 
     runs = {}
+    ties = _MaxTies()
     for device in ("cuda", "cpu"):
         _fresh(paddle)
         cost, _ = text_lstm.build()
@@ -8108,11 +8195,12 @@ def _text_lstm_card() -> dict:
             topo, paddle.parameters.from_numpy(topo, values, device=device),
             paddle.optimizer.Adam(learning_rate=1e-3, epsilon=1e-6),
             device=device)
-        loss, grads = tr.forward_backward(feeds[0])
         losses = []
-        tr.train(lambda: iter(feeds), event_handler=lambda e: (
-            losses.append(e.cost)
-            if isinstance(e, paddle.event.EndIteration) else None))
+        with (ties.recording() if device == "cuda" else ties.following()):
+            loss, grads = tr.forward_backward(feeds[0])
+            tr.train(lambda: iter(feeds), event_handler=lambda e: (
+                losses.append(e.cost)
+                if isinstance(e, paddle.event.EndIteration) else None))
         runs[device] = (float(loss), grads, losses)
     (loss_c, g_c, l_c), (loss_r, g_r, l_r) = runs["cuda"], runs["cpu"]
     errs = {"first loss": _rel(loss_c, loss_r)}
@@ -8129,9 +8217,11 @@ def _text_lstm_card() -> dict:
           f"{loss_c:.6f} vs {loss_r:.6f}, {TEXT_LSTM_STEPS} Adam losses "
           f"{[round(x, 6) for x in l_c]} vs {[round(x, 6) for x in l_r]}; "
           f"worst {worst[0]} at {worst[1]:.2e} (limit {ITEM9_TOL:.0e}, of "
-          f"max(1, max |cpu|) for gradients, relative for losses)",
-          flush=True)
-    return {"worst": worst[1], "of": worst[0], "losses": l_c}
+          f"max(1, max |cpu|) for gradients, relative for losses); the "
+          f"CPU's max pool followed the card's pick at {ties.followed} "
+          f"near ties in {len(ties.picks)} pools", flush=True)
+    return {"worst": worst[1], "of": worst[0], "losses": l_c,
+            "ties_followed": ties.followed}
 
 
 def gen_slice(trained=None) -> dict:
@@ -8166,13 +8256,429 @@ def gen_slice(trained=None) -> dict:
 GEN_PHASES = {"gen": gen_slice}
 
 
+# ------------------------------------------------------ the vision slice
+# VGG-19 with batch norm, the upstream image benchmark's model
+# (BASELINE.md:22: batch 64), on synthetic flowers (102 classes) at 224 px
+VGG_DEPTH, VGG_IMAGE, VGG_CLASSES = 19, 224, 102
+VGG_BATCH, VGG_STEPS, VGG_LR, VGG_PARITY_BATCH = 64, 4, 0.01, 8
+VGG_BNS = 16          # relu batch norms: kernels 7a and 7b, one each a BN
+VGG_PER_PASS = {"matmul_stats": 0, "conv3x3_stats": 0,
+                "bn_fwd_stats": VGG_BNS, "bn_bwd_stats": VGG_BNS}
+# the upstream K40m benchmark's other two image models (BASELINE.md:10-15)
+VISION_MODELS = {"AlexNet": ("alexnet", 227), "GoogLeNet": ("googlenet", 224)}
+VISION_BATCH, VISION_CLASSES, VISION_STEPS, VISION_LR = 128, 1000, 4, 0.01
+VISION_CPU_BATCH = 2
+# the card against the CPU on one model's first step: the loss (relative)
+# and every gradient (of max(1, max |cpu|)); float32 both, TF32 off.
+# AlexNet's 5x5 grouped conv2's weight gradient, cuDNN's algorithm of its
+# own choosing, read 1.7e-4, 2.1e-4 and 3.1e-4 off the CPU's in three runs
+# on the H100, every other gradient within 1.4e-6 (which algorithm is not
+# measured; cuDNN does pick FFT ones, whose float32 error is larger: VGG's
+# profile holds complex GEMMs).  GoogLeNet's gradients move up to 8.9e-4
+# between the CPU's own runs on images nudged by 2^-22 (its spread)
+VISION_LOSS_TOL, VISION_GRAD_TOL = 1e-5, 1e-3
+# the kernels of bn_stats.cu and stat_reduce.cuh in a profiler trace
+BN_KERNEL_KEYS = ("fwd_partial_kernel", "bwd_partial_kernel",
+                  "stat_reduce::")
+
+
+def _vgg_stage(lname) -> str:
+    return lname[:5] if lname.startswith("conv") else "head"
+
+
+def vgg_model():
+    """VGG-19 with batch norm at full width (224 px, flowers' 102
+    classes) through the DSL, ``fused_bn_impl="pallas"``: its 16 relu
+    batch norms on kernels 7a and 7b."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import vgg
+
+    _fresh(paddle)
+    paddle.init(seed=SEED, fused_bn_impl="pallas")
+    _policy("fp32")
+    cost, _ = vgg.build(depth=VGG_DEPTH, image_size=VGG_IMAGE,
+                        num_classes=VGG_CLASSES, with_bn=True)
+    return paddle, paddle.Topology(cost)
+
+
+def _image_feed(samples) -> dict:
+    """A feed of (HWC image, label) samples, as the DataFeeder makes it."""
+    return {"image": np.stack([s[0] for s in samples]).astype(np.float32),
+            "label": np.asarray([s[1] for s in samples], np.int32)}
+
+
+def _bn_share(prof) -> float:
+    return sum(ms for kname, (ms, _) in prof["per_name"].items()
+               if any(k in kname for k in BN_KERNEL_KEYS))
+
+
+def _vgg_train(paddle, topo, values, samples, policy) -> dict:
+    """VGG_STEPS Momentum steps of ``trainer.SGD.train`` under ``policy``
+    on the flowers samples, batched by the port's reader and fed through
+    the DataFeeder; the counts set to 0 just before and read just after:
+    kernels 7a and 7b (the ``policy``'s instance) VGG_BNS launches each a
+    step and no other instance; then one step under ``torch.profiler``."""
+    _policy(policy)
+    sfx = "" if policy == "fp32" else "_bf16"
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Momentum(learning_rate=VGG_LR,
+                                                 momentum=0.9))
+    name = f"VGG-{VGG_DEPTH} {policy}"
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        name, paddle, trainer, None, VGG_STEPS, f"bn_fwd_stats{sfx}",
+        VGG_BNS, falling=False,
+        reader=paddle.batch(lambda: iter(samples), VGG_BATCH),
+        feeding={"image": 0, "label": 1})
+    per_step = {k: launches[f"{k}{sfx}"] / VGG_STEPS
+                for k in ("bn_fwd_stats", "bn_bwd_stats")}
+    # every launch at each instance: float32, bf16, float16
+    by_dtype = {k: {"f32": launches[k] - launches[f"{k}_bf16"]
+                    - launches[f"{k}_f16"], "bf16": launches[f"{k}_bf16"],
+                    "f16": launches[f"{k}_f16"]} for k in CONV_KERNELS}
+    others = {f"{k} {d}": n for k, ds in by_dtype.items()
+              for d, n in ds.items()
+              if n and not (k.startswith("bn_")
+                            and d == ("f32" if policy == "fp32" else "bf16"))}
+    if (per_step != {"bn_fwd_stats": VGG_BNS, "bn_bwd_stats": VGG_BNS}
+            or others):
+        raise AssertionError(f"{name}: launches a step {per_step}, the "
+                             f"other instances {others}")
+    prof = profile_step(trainer, _image_feed(samples[:VGG_BATCH]))
+    bn_ms = _bn_share(prof)
+    print(f"{name} training: {VGG_STEPS} Momentum steps (lr {VGG_LR}, "
+          f"0.9) at batch {VGG_BATCH} x {VGG_IMAGE}^2 of synthetic flowers "
+          f"through paddle.batch and the DataFeeder, losses "
+          f"{[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{VGG_BATCH / warm:.1f} images/s (smoke figure, not a "
+          f"benchmark); peak memory {peak_gb:.2f} GB; kernels 7a / 7b "
+          f"launches a step {per_step}; one step under torch.profiler: "
+          f"{prof['step_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms"
+          + (f", idle share {prof['idle_share']:.1%}"
+             if prof["idle_share"] is not None else
+             ", idle share not measured (no device time)")
+          + f"; kernels 7a + 7b {bn_ms:.3f} ms of device time "
+          f"({bn_ms / prof['step_ms']:.2%} of the step); top kernels: "
+          + "; ".join(f"{nm} x{k} {ms:.1f} ms" for nm, k, ms in prof["top"]),
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "first_step_ms": step_s[0] * 1e3,
+            "step_ms": warm * 1e3, "images_per_s": VGG_BATCH / warm,
+            "peak_gb": peak_gb, "launches": launches[f"bn_fwd_stats{sfx}"],
+            "launches_bwd": launches[f"bn_bwd_stats{sfx}"],
+            "launches_per_step": per_step,
+            "profiled_step_ms": prof["step_ms"], "busy_ms": prof["busy_ms"],
+            "idle_share": prof["idle_share"], "bn_kernels_ms": bn_ms,
+            "bn_kernels_share": bn_ms / prof["step_ms"]}
+
+
+def bn_times(shape, x2, dout, w, b, mean, inv, flush, bounds) -> dict:
+    """Kernels 7a and 7b on x2 and dout ([P, C] views of ``shape``'s NHWC
+    activations) timed on the device alone (``time_ms(lead=True)``)
+    beside their plain versions and the library's nearest calls
+    (``torch.var_mean``; ``torch.batch_norm_backward_reduce``, which
+    leaves out 7b's relu mask), and ``bounds(flops, bytes)`` of each: the
+    bytes each must move and its operations."""
+    from paddle_tpu_torch.ops import fused_bn as fb
+
+    p, c = x2.shape
+    es = x2.element_size()
+    xn = x2.view(shape).permute(0, 3, 1, 2)
+    dn = dout.view(shape).permute(0, 3, 1, 2)
+    return {
+        "bn_fwd_stats": dict(
+            ms=time_ms(lambda: fb.bn_fwd_stats_cuda(x2), flush, lead=True),
+            plain_ms=time_ms(lambda: fb._fwd_stats_ref(x2), flush,
+                             lead=True),
+            library_ms=time_ms(lambda: torch.var_mean(
+                x2, dim=0, correction=0), flush, lead=True),
+            **bounds(3.0 * p * c, es * p * c + 4.0 * 2 * c)),
+        "bn_bwd_stats": dict(
+            ms=time_ms(lambda: fb.bn_bwd_stats_cuda(
+                dout, x2, w, b, mean, inv, True), flush, lead=True),
+            plain_ms=time_ms(lambda: fb._bwd_stats_ref(
+                dout, x2, w, b, mean, inv, True), flush, lead=True),
+            library_ms=time_ms(lambda: torch.batch_norm_backward_reduce(
+                dn, xn, mean, inv, None, True, False, False), flush,
+                lead=True),
+            **bounds(8.0 * p * c, es * 2 * p * c + 4.0 * 6 * c))}
+
+
+def bn_kernels_at(shape, dtype, flush, gen) -> dict:
+    """Kernels 7a and 7b alone at ``shape`` (VGG's largest, conv1's
+    output) on ``dtype`` activations: each held against its plain version
+    (TOL at float32, CONV_STAT_TOL at bf16, of max(1, max |ref|)), then
+    timed (``time_ms(lead=True)``) beside its bound (the bytes each must
+    move, the operations at the card's peak for the type), its plain
+    version and the library's nearest call (``torch.var_mean``;
+    ``torch.batch_norm_backward_reduce``, which leaves out 7b's relu
+    mask)."""
+    from paddle_tpu_torch.ops import fused_bn as fb
+
+    bf16 = dtype != torch.float32
+    c = shape[-1]
+    dev = torch.device("cuda")
+    x2 = torch.randn(*shape, device=dev, generator=gen).view(-1, c).to(dtype)
+    xf = x2.float()
+    mean = xf.mean(0)
+    inv = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+    del xf
+    w = torch.randn(c, device=dev, generator=gen) * 0.5 * inv
+    b = torch.randn(c, device=dev, generator=gen) * 0.2 - mean * w
+    dout = torch.randn(*x2.shape, device=dev, generator=gen).to(dtype)
+    tol = CONV_STAT_TOL if bf16 else TOL
+    tag = f"at {list(shape)}{' ' + _short(dtype) if bf16 else ''}"
+    err_f = _hold(f"bn_fwd_stats {tag}", zip(
+        ("sum x", "sum x^2"), fb.bn_fwd_stats_cuda(x2),
+        fb._fwd_stats_ref(x2)), tol)
+    err_b = _hold(f"bn_bwd_stats {tag}", zip(
+        ("sum dy", "sum dy*xhat"),
+        fb.bn_bwd_stats_cuda(dout, x2, w, b, mean, inv, True),
+        fb._bwd_stats_ref(dout, x2, w, b, mean, inv, True)), tol)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    with torch.no_grad():
+        out = bn_times(shape, x2, dout, w, b, mean, inv, flush,
+                       lambda fl, nb: dict(zip(("bound_ms", "bound_by"),
+                                               bound(fl, nb, peak))))
+    library = {"bn_fwd_stats": "torch.var_mean",
+               "bn_bwd_stats": "torch.batch_norm_backward_reduce, no relu "
+                               "mask"}
+    for (k, r), err in zip(out.items(), (err_f, err_b)):
+        r.update(shape=list(shape), max_abs_err=err[0], max_rel_err=err[1])
+        print(f"{k} {tag} (VGG-{VGG_DEPTH}'s conv1 at batch {shape[0]}): ms "
+              f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
+              f"; {r['ms'] / r['bound_ms']:.2f}x)  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f} "
+              f"({library[k]}); max rel err {err[1]:.2e}", flush=True)
+    del x2, dout
+    torch.cuda.empty_cache()
+    return out
+
+
+def vgg_path(flush, gen) -> dict:
+    """VGG-19 with batch norm at full width: kernel-route parity at batch
+    VGG_PARITY_BATCH (layer by layer and end to end, ``resnet_layer_parity``
+    and ``resnet_parity`` with the plain route's images nudged up and down
+    by 2^-22 for float32's spread: the dropouts keep each row's mask), then
+    VGG_STEPS Momentum steps at batch VGG_BATCH under ``fp32`` and under
+    ``bf16`` (``_vgg_train``), then kernels 7a and 7b alone at VGG's
+    largest shape at both dtypes (``bn_kernels_at``)."""
+    paddle, topo = vgg_model()
+    values = resnet_values(topo, SEED + 30)
+    n_params = sum(v.size for ps in values.values() for v in ps.values())
+    name = f"VGG-{VGG_DEPTH}"
+    print(f"{name} with batch norm: {VGG_IMAGE} px, {VGG_CLASSES} classes, "
+          f"{sum(s.kind == 'batch_norm' for s in topo.specs)} relu batch "
+          f"norms, fused_bn_impl='pallas'; {n_params / 1e6:.1f}M float32 "
+          f"parameters from a numpy seed", flush=True)
+    samples = list(paddle.dataset.flowers.train(
+        synthetic=True, n=VGG_BATCH * VGG_STEPS, image_size=VGG_IMAGE)())
+    parity_feed = _image_feed(samples[:VGG_PARITY_BATCH])
+    torch.backends.cudnn.deterministic = True
+    try:
+        layers = resnet_layer_parity(paddle, topo, values, parity_feed,
+                                     torch.Generator(device="cuda")
+                                     .manual_seed(SEED), name=name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    parity = dict(resnet_parity(paddle, topo, values, parity_feed,
+                                name=name, per_pass=VGG_PER_PASS, lr=VGG_LR,
+                                stage=_vgg_stage,
+                                spreads=("nudged", "nudged_down")),
+                  layers=layers)
+    torch.cuda.empty_cache()
+    runs = {policy: _vgg_train(paddle, topo, values, samples, policy)
+            for policy in ("fp32", "bf16")}
+    _policy("fp32")
+    alone = {_short(dt) if dt != torch.float32 else "f32": bn_kernels_at(
+        (VGG_BATCH, VGG_IMAGE, VGG_IMAGE, 64), dt, flush, gen)
+        for dt in (torch.float32, torch.bfloat16)}
+    return {"parity": parity, **runs, "alone": alone,
+            "params_m": n_params / 1e6}
+
+
+def vision_model_path(label) -> dict:
+    """AlexNet or GoogLeNet at the upstream benchmark's widths (1000
+    classes, 227 or 224 px): one forward and backward on the card against
+    the same port code on the CPU at batch VISION_CPU_BATCH from the same
+    seeded weights (the card's dropout masks replayed on the CPU; the loss
+    within VISION_LOSS_TOL relative, every gradient within the larger of
+    VISION_GRAD_TOL and twice float32's spread of max(1, max |cpu|)), then VISION_STEPS Momentum steps on the card at
+    batch VISION_BATCH: finite losses, ms a step, images/s, peak memory.
+    Neither model reaches a kernel of this repo (no batch norm)."""
+    import importlib
+
+    import paddle_tpu_torch as paddle
+
+    module, size = VISION_MODELS[label]
+    _fresh(paddle)
+    _policy("fp32")
+    cost, _ = importlib.import_module(
+        f"paddle_tpu_torch.models.{module}").build(
+            image_size=size, num_classes=VISION_CLASSES)
+    topo = paddle.Topology(cost)
+    values = resnet_values(topo, SEED + 31)
+    rng = np.random.RandomState(SEED + 32)
+
+    def feed(b):
+        return {"image": rng.rand(b, size, size, 3).astype(np.float32),
+                "label": rng.randint(0, VISION_CLASSES, b).astype(np.int32)}
+
+    small = feed(VISION_CPU_BATCH)
+    draws = _Draws("rand")
+    runs = {}
+    for run, device, scale in (("card", "cuda", 1.0), ("cpu", "cpu", 1.0),
+                               ("up", "cpu", 1 + 2 ** -22),
+                               ("down", "cpu", 1 - 2 ** -22)):
+        tr = paddle.trainer.SGD(
+            topo, paddle.parameters.from_numpy(topo, values, device=device),
+            paddle.optimizer.Momentum(learning_rate=VISION_LR, momentum=0.9),
+            device=device)
+        fd = dict(small, image=small["image"] * np.float32(scale))
+        with (draws.recording() if device == "cuda" else draws.replaying()):
+            loss, grads = tr.forward_backward(fd)
+        runs[run] = (float(loss), grads)
+        del tr
+    (loss_c, g_c), (loss_r, g_r) = runs["card"], runs["cpu"]
+    errs = {f"d {l}.{p}": _rel_max_err(g_c[l][p], g)
+            for l, ps in g_r.items() for p, g in ps.items()}
+    # float32's own spread for this net: the CPU on images nudged by
+    # 2^-22; a max pool whose window holds two values within a rounding
+    # of each other, or a relu at a value within a rounding of 0, routes
+    # the gradient elsewhere, and the difference flows back to every
+    # layer below
+    spread = max(_rel_max_err(runs[r][1][l][p], g) for r in ("up", "down")
+                 for l, ps in g_r.items() for p, g in ps.items())
+    bound_ = max(VISION_GRAD_TOL, 2 * spread)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    loss_err = _rel(loss_c, loss_r)
+    if not (loss_err <= VISION_LOSS_TOL and worst[1] <= bound_):
+        raise AssertionError(
+            f"{label} on the card vs the CPU: loss {loss_c} vs {loss_r} "
+            f"({loss_err:.2e}), worst gradient {worst}, beyond the larger "
+            f"of {VISION_GRAD_TOL} and twice float32's spread {spread:.2e}; "
+            f"the five worst " + ", ".join(
+                f"{k} {v:.1e}" for k, v in sorted(
+                    errs.items(), key=lambda kv: -kv[1])[:5]))
+    print(f"{label} ({size} px, {VISION_CLASSES} classes) on the card vs "
+          f"the CPU at batch {VISION_CPU_BATCH}, TF32 off, the same dropout "
+          f"masks: loss {loss_c:.6f} vs {loss_r:.6f} ({loss_err:.2e} "
+          f"relative, limit {VISION_LOSS_TOL:.0e}); worst of {len(errs)} "
+          f"gradients {worst[0]} at {worst[1]:.2e} of max(1, max |cpu|) "
+          f"(limit the larger of {VISION_GRAD_TOL:.0e} and twice float32's "
+          f"spread, the CPU on images nudged by 2^-22: {spread:.2e}); "
+          f"{sum(v > 1e-4 for v in errs.values())} beyond 1e-4, the "
+          f"worst five " + ", ".join(f"{k} {v:.1e}" for k, v in sorted(
+              errs.items(), key=lambda kv: -kv[1])[:5]), flush=True)
+    del runs, g_c, g_r
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Momentum(learning_rate=VISION_LR,
+                                                 momentum=0.9))
+    losses, step_s, warm, peak_gb, _ = train_steps(
+        label, paddle, trainer, feed(VISION_BATCH), VISION_STEPS,
+        "bn_fwd_stats", 0, falling=False)
+    print(f"{label} training: {VISION_STEPS} Momentum steps (lr "
+          f"{VISION_LR}, 0.9) at batch {VISION_BATCH} x {size}^2, float32, "
+          f"losses {[round(x, 5) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{VISION_BATCH / warm:.1f} images/s (smoke figure, not a "
+          f"benchmark); peak memory {peak_gb:.2f} GB", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": {"loss_rel": loss_err, "grad_worst": worst[1],
+                            "at": worst[0], "spread": spread},
+            "losses": losses, "first_step_ms": step_s[0] * 1e3,
+            "step_ms": warm * 1e3, "images_per_s": VISION_BATCH / warm,
+            "peak_gb": peak_gb}
+
+
+def _vision_layer_configs(paddle):
+    """The conv slice's layers without a kernel at small sizes:
+    (name, outputs, feed, options) as ``_item9_configs``, each feed from
+    a numpy seed."""
+    layer, dt = paddle.layer, paddle.data_type
+    rng = np.random.RandomState(SEED + 33)
+
+    def image(name, c, h, w, b=4):
+        x = layer.data(name, dt.dense_vector(c * h * w), height=h, width=w)
+        return x, {name: rng.standard_normal((b, h, w, c)).astype(
+            np.float32)}
+
+    def volume(name, shape, b=4):
+        x = layer.LayerOutput("data", [], {
+            "shape": list(shape), "seq_type": 0, "is_index": False,
+            "dim": int(np.prod(shape))}, name=name)
+        return x, {name: rng.standard_normal((b,) + shape).astype(
+            np.float32)}
+
+    out = []
+    x, fd = image("ct_in", 16, 9, 11)
+    out.append(("conv_transpose stride 2", [layer.img_conv_transpose(
+        x, filter_size=3, num_filters=24, stride=2, padding=1,
+        name="deconv")], fd, {}))
+    x, fd = image("bi_in", 8, 16, 15)
+    c = layer.img_conv(x, filter_size=3, num_filters=12, padding=1,
+                       name="bi_conv")
+    out.append(("bilinear_interp shrinking (antialiased)", [
+        layer.bilinear_interp(c, 6, 7, name="shrink")], fd, {}))
+    x, fd = image("spp_in", 6, 13, 10)
+    c = layer.img_conv(x, filter_size=3, num_filters=8, padding=1,
+                       name="spp_conv")
+    out.append(("spp max and avg at H 13, W 10", [
+        layer.spp(c, pyramid_height=3, pool_type="max", name="spp_max"),
+        layer.spp(c, pyramid_height=3, pool_type="avg", name="spp_avg")],
+        fd, {}))
+    x, fd = image("misc_in", 6, 10, 9)
+    c = layer.img_conv(x, filter_size=3, num_filters=12, padding=1,
+                       name="misc_conv")
+    mo = layer.maxout(c, groups=3, name="maxout")
+    pd = layer.pad(mo, pad_c=(1, 2), pad_h=(2, 1), pad_w=(0, 3), name="pad")
+    cr = layer.crop(pd, 8, 9, offset=(2, 1), name="crop")
+    v = layer.fc(layer.global_pool(cr, name="gp"), size=5, name="v")
+    fm = layer.LayerOutput("featmap_expand", [v], {"h": 3, "w": 4},
+                           name="featmap", size=5 * 3 * 4)
+    out.append(("maxout, pad, crop, featmap_expand", [cr, fm], fd, {}))
+    x, fd = volume("vol", (7, 6, 8, 4))
+    c3 = layer.img_conv3d(x, filter_size=3, num_filters=8, stride=2,
+                          padding=1, act="relu", name="conv3d")
+    d3 = layer.img_conv3d_transpose(c3, filter_size=2, num_filters=6,
+                                    stride=2, name="deconv3d")
+    bn = layer.batch_norm(d3, act="relu", name="bn3d")
+    out.append(("conv3d, deconv3d, 3-D batch_norm, pool3d max and avg", [
+        d3, bn,
+        layer.img_pool3d(bn, pool_size=2, pool_type="max", name="pool3d_max"),
+        layer.img_pool3d(bn, pool_size=2, pool_type="avg",
+                         name="pool3d_avg")], fd, {}))
+    return out
+
+
+def vision_slice() -> dict:
+    """Phase 21: the rest of the conv slice on the card - VGG-19 with
+    batch norm through kernels 7a and 7b (``vgg_path``), AlexNet and
+    GoogLeNet at the upstream benchmark's widths (``vision_model_path``),
+    the new image layers small, card against CPU (``_configs_card``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    vgg_out = vgg_path(flush, gen)
+    del flush
+    torch.cuda.empty_cache()
+    models = {label: vision_model_path(label) for label in VISION_MODELS}
+    layers = _configs_card(_vision_layer_configs)
+    return {"vgg": vgg_out, "models": models, "layers": layers}
+
+
+VISION_PHASES = {"vision": vision_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
-    (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19) or ``gen``
-    (phase 20), for a development run; the full run takes no
-    arguments."""
+    (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19), ``gen``
+    (phase 20) or ``vision`` (phase 21), for a development run; the full
+    run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -8183,14 +8689,16 @@ def selected(argv) -> list:
     unknown = [n for n in names if n not in DISPATCH_PHASES
                and n not in V2_PHASES and n not in CTR_PHASES
                and n not in CKPT_PHASES and n not in SERVE_PHASES
-               and n not in SERVE_FWD_PHASES and n not in GEN_PHASES]
+               and n not in SERVE_FWD_PHASES and n not in GEN_PHASES
+               and n not in VISION_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
                          f" + {sorted(V2_PHASES)} + {sorted(CTR_PHASES)}"
                          f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}"
                          f" + {sorted(SERVE_FWD_PHASES)}"
-                         f" + {sorted(GEN_PHASES)}")
+                         f" + {sorted(GEN_PHASES)}"
+                         f" + {sorted(VISION_PHASES)}")
     return names
 
 
@@ -8234,7 +8742,8 @@ def main(argv=()) -> int:
             else:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
                              **CKPT_PHASES, **SERVE_PHASES,
-                             **SERVE_FWD_PHASES, **GEN_PHASES}[name]()
+                             **SERVE_FWD_PHASES, **GEN_PHASES,
+                             **VISION_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -8301,6 +8810,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     resnet_f16 = resnet_bf16_path("fp16")
     torch.cuda.empty_cache()
+    vision = vision_slice()
+    torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
     kernels = [
@@ -8364,11 +8875,15 @@ def main(argv=()) -> int:
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "paddle_tpu/ops/fused_bn.py:58",
          "launches": resnet["launches"]["bn_fwd_stats"],
+         "launches_vgg": vision["vgg"]["fp32"]["launches"],
+         "vgg_shape": vision["vgg"]["alone"]["f32"]["bn_fwd_stats"],
          **conv["bn_fwd_stats"]},
         {"name": "bn_bwd_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
          "replaces": "paddle_tpu/ops/fused_bn.py:145",
          "launches": resnet["launches"]["bn_bwd_stats"],
+         "launches_vgg": vision["vgg"]["fp32"]["launches_bwd"],
+         "vgg_shape": vision["vgg"]["alone"]["f32"]["bn_bwd_stats"],
          **conv["bn_bwd_stats"]},
         {"name": "matmul_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/conv_bn.cu",
@@ -8429,7 +8944,11 @@ def main(argv=()) -> int:
              instances=rnn16["gru"]),
         *(dict(conv16[k], name=f"{k}_bf16", route="cuda",
                source=f"paddle_tpu_torch/ops/csrc/{src}", replaces=site,
-               launches=resnet16["fused"]["launches"][f"{k}_bf16"])
+               launches=resnet16["fused"]["launches"][f"{k}_bf16"],
+               **({"launches_vgg": vision["vgg"]["bf16"][
+                   "launches" if k == "bn_fwd_stats" else "launches_bwd"],
+                   "vgg_shape": vision["vgg"]["alone"]["bf16"][k]}
+                  if k.startswith("bn_") else {}))
           for k, src, site in (
               ("bn_fwd_stats", "bn_stats.cu", "paddle_tpu/ops/fused_bn.py:58"),
               ("bn_bwd_stats", "bn_stats.cu",
@@ -8539,6 +9058,7 @@ def main(argv=()) -> int:
         "layer_parity": resnet16["layer_parity"],
         **{path: {k: v for k, v in resnet16[path].items() if k != "launches"}
            for path in ("fused", "bench")}}}), flush=True)
+    print(json.dumps({"vision": vision}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from paddle_tpu_torch import data_type
 from paddle_tpu_torch import dataset
 from paddle_tpu_torch import evaluator
 from paddle_tpu_torch import event
+from paddle_tpu_torch import image
 from paddle_tpu_torch import inference
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import layer

@@ -277,6 +277,9 @@ def _serve_weights(args):
     params = paddle.parameters.create(topo, device=args.device)
     if snap is not None:
         # the snapshot overlays the fresh tree: what it lacks stays
+        paddle.parameters.check_fuse_conv_bn_mismatch(
+            params.values, paddle.parameters.tree_keys(
+                checkpoint.params_of(snap)))
         for lname, ps in checkpoint.params_of(snap).items():
             for name, v in ps.items():
                 if f"{lname}.{name}" in params:

@@ -5,8 +5,8 @@ Each function returns a ``LayerOutput``; ``Topology(cost)`` recovers the
 graph by walking parents.  Same arguments, attributes and default names as
 the JAX package, so both write byte-equal JSON for the same config, and
 each ported entry also answers to its legacy ``*_layer`` name.  The rest
-of the catalog (image extras, detection, CRF/CTC, nested sequences, the
-misc math layers) comes with later slices.
+of the catalog (detection, CRF/CTC, the misc math layers) comes with
+later slices.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ __all__ = [
     "row_l2_norm",
     "position_embedding", "bahdanau_attention", "multi_head_attention",
     "img_conv", "img_pool", "global_pool", "batch_norm", "img_cmrnorm",
+    "img_conv_transpose", "maxout", "bilinear_interp", "pad", "crop", "spp",
+    "img_conv3d", "img_conv3d_transpose", "img_pool3d",
 ]
 
 
@@ -273,6 +275,17 @@ def img_conv(input, filter_size, num_filters, stride=1, padding=0, groups=1,
     return LayerOutput("conv", inputs, attrs, name=name, size=num_filters)
 
 
+def img_conv_transpose(input, filter_size, num_filters, stride=1, padding=0,
+                       act=None, bias_attr=None, param_attr=None, name=None):
+    """Transposed 2-D convolution over NHWC images (HWIO kernel)."""
+    inputs = _norm_inputs(input)
+    attrs = _attrs_from(param_attr, bias_attr, None, {
+        "filter_size": filter_size, "num_filters": num_filters,
+        "stride": stride, "padding": padding, "act": act_mod.resolve(act)})
+    return LayerOutput("conv_transpose", inputs, attrs, name=name,
+                       size=num_filters)
+
+
 def img_pool(input, pool_size, stride=None, padding=0, pool_type=None,
              ceil_mode=True, name=None):
     inputs = _norm_inputs(input)
@@ -303,6 +316,63 @@ def img_cmrnorm(input, size=5, scale=0.0001, power=0.75, name=None):
     return LayerOutput("img_cmrnorm", inputs, {
         "size": size, "alpha": scale, "beta": power}, name=name,
         size=inputs[0].size)
+
+
+def maxout(input, groups, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("maxout", inputs, {"groups": groups}, name=name)
+
+
+def bilinear_interp(input, out_size_x, out_size_y, name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("bilinear_interp", inputs, {
+        "out_size_x": out_size_x, "out_size_y": out_size_y}, name=name)
+
+
+def pad(input, pad_c=(0, 0), pad_h=(0, 0), pad_w=(0, 0), name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("pad", inputs, {
+        "pad_c": list(pad_c), "pad_h": list(pad_h), "pad_w": list(pad_w)},
+        name=name)
+
+
+def crop(input, crop_h, crop_w, offset=(0, 0), name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("crop", inputs, {
+        "crop_h": crop_h, "crop_w": crop_w, "offset": list(offset)},
+        name=name)
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    inputs = _norm_inputs(input)
+    return LayerOutput("spp", inputs, {
+        "pyramid_height": pyramid_height, "pool_type": pool_type}, name=name)
+
+
+def img_conv3d(input, filter_size, num_filters, stride=1, padding=0,
+               act=None, bias_attr=True, name=None):
+    """3-D convolution over NDHWC volumes (DHWIO kernel)."""
+    return LayerOutput("conv3d", [input], {
+        "filter_size": filter_size, "num_filters": num_filters,
+        "stride": stride, "padding": padding,
+        "act": act_mod.resolve(act), "bias": bias_attr is not False},
+        name=name)
+
+
+def img_conv3d_transpose(input, filter_size, num_filters, stride=1,
+                         padding=0, act=None, bias_attr=True, name=None):
+    """3-D transposed convolution (reference: DeConv3DLayer.cpp)."""
+    return LayerOutput("deconv3d", [input], {
+        "filter_size": filter_size, "num_filters": num_filters,
+        "stride": stride, "padding": padding,
+        "act": act_mod.resolve(act), "bias": bias_attr is not False},
+        name=name)
+
+
+def img_pool3d(input, pool_size, stride=None, pool_type="max", name=None):
+    return LayerOutput("pool3d", [input], {
+        "pool_size": pool_size, "stride": stride or pool_size,
+        "pool_type": pool_type}, name=name)
 
 
 # ----------------------------------------------------------------- sequence
@@ -721,6 +791,9 @@ _LEGACY = {
     "nce_cost": "nce_layer", "hsigmoid": "hsigmoid_layer",
     "row_l2_norm": "row_l2_norm_layer",
     "first_seq": "first_seq_layer", "last_seq": "last_seq_layer",
+    "img_conv3d": "img_conv3d_layer", "img_pool3d": "img_pool3d_layer",
+    "bilinear_interp": "bilinear_interp_layer", "pad": "pad_layer",
+    "crop": "crop_layer", "maxout": "maxout_layer", "spp": "spp_layer",
 }
 for _new, _old in _LEGACY.items():
     globals().setdefault(_old, globals()[_new])

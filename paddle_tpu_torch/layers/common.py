@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.ir import ParamSpec
 from paddle_tpu_torch.core.registry import LayerDef, register_layer
-from paddle_tpu_torch.ops.conv_bn import conv2d_nhwc
+from paddle_tpu_torch.ops.conv_bn import conv2d_nhwc, conv_transpose_nhwc
 
 
 def _flat_dim(shape) -> int:
@@ -331,9 +331,9 @@ class MixedLayer(LayerDef):
                                 groups=proj.get("groups", 1))
                 y = y.reshape(y.shape[0], -1)
             elif p == "conv_trans":
-                y = _conv_transpose_nhwc(x, params[f"w{i}"],
-                                         proj.get("stride", 1),
-                                         proj.get("padding", 0))
+                y = conv_transpose_nhwc(x, params[f"w{i}"],
+                                        proj.get("stride", 1),
+                                        proj.get("padding", 0))
                 y = y.reshape(y.shape[0], -1)
             elif p == "conv_op":
                 y = _conv_operator(items[0], items[1], proj)
@@ -346,15 +346,6 @@ class MixedLayer(LayerDef):
         if "b" in params:
             out = out + params["b"]
         return act_mod.apply(attrs.get("act", "linear"), out)
-
-
-def _conv_transpose_nhwc(x, w, stride, padding):
-    """``lax.conv_transpose`` of NHWC x with an HWIO kernel at padding
-    k - 1 - padding a side: the kernel is not flipped there, so here it is
-    flipped into ``F.conv_transpose2d``'s [in, out, kh, kw] layout."""
-    wt = w.permute(2, 3, 0, 1).flip(2, 3)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, None, stride, padding)
-    return y.permute(0, 2, 3, 1)
 
 
 def _conv_operator(img, filt, proj):

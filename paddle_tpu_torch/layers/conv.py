@@ -18,8 +18,13 @@ output's), so activations stay bf16 between the convs; batch norm folds
 its float32 scalars into x's dtype and keeps float32 statistics and
 moving state; pooling keeps its input's dtype.
 
-Not ported yet: conv_transpose, maxout, bilinear_interp, pad, crop, spp,
-featmap_expand and the 3-D layers.
+The image layers without a kernel: ``conv_transpose`` (the JAX
+package's unflipped ``lax.conv_transpose``, ``ops/conv_bn.
+conv_transpose_nhwc``), ``maxout`` (groups of contiguous channels),
+``bilinear_interp`` (antialiased when it shrinks, as ``jax.image.resize``
+is), ``pad`` (H, W and C), ``crop`` (at an offset), ``spp`` (bins over a
+padded image: -inf for max, zeros counted in avg's divisor) and
+``featmap_expand``.  The 3-D layers are in ``layers/misc.py``.
 """
 
 from __future__ import annotations
@@ -286,6 +291,161 @@ class CMRNormLayer(LayerDef):
         for j in range(1, size):
             acc = acc + sq[..., j:j + c]
         return x * torch.pow(k + (alpha / size) * acc, -beta)
+
+
+@register_layer
+class ConvTransposeLayer(LayerDef):
+    """transposed conv, NHWC, kernel HWIO (reference: exconvt /
+    conv2d_transpose op); out = (in - 1) * stride + k - 2 * padding."""
+
+    kind = "conv_transpose"
+
+    def infer_shape(self, attrs, in_shapes):
+        h, w, c = in_shapes[0]
+        kh, kw = _pair(attrs["filter_size"])
+        sh, sw = _pair(attrs.get("stride", 1))
+        ph, pw = _pair(attrs.get("padding", 0))
+        return ((h - 1) * sh + kh - 2 * ph, (w - 1) * sw + kw - 2 * pw,
+                attrs["num_filters"])
+
+    def param_specs(self, attrs, in_shapes):
+        h, w, c = in_shapes[0]
+        kh, kw = _pair(attrs["filter_size"])
+        specs = [ParamSpec(name="w", shape=(kh, kw, c, attrs["num_filters"]),
+                           initializer=attrs.get("param_initializer")
+                           or "msra")]
+        if attrs.get("bias", True):
+            specs.append(ParamSpec(name="b", shape=(attrs["num_filters"],),
+                                   initializer="zeros"))
+        return specs
+
+    def apply(self, attrs, params, inputs, ctx):
+        out = cb.conv_transpose_nhwc(inputs[0], params["w"],
+                                     _pair(attrs.get("stride", 1)),
+                                     _pair(attrs.get("padding", 0)))
+        if "b" in params:
+            out = out + params["b"]
+        return act_mod.apply(attrs.get("act", "linear"), out)
+
+
+@register_layer
+class MaxOutLayer(LayerDef):
+    """maxout over groups of ``groups`` contiguous channels (reference:
+    MaxOutLayer.cpp)."""
+
+    kind = "maxout"
+
+    def infer_shape(self, attrs, in_shapes):
+        h, w, c = in_shapes[0]
+        return (h, w, c // attrs["groups"])
+
+    def apply(self, attrs, params, inputs, ctx):
+        x = inputs[0]
+        g = attrs["groups"]
+        b, h, w, c = x.shape
+        return x.reshape(b, h, w, c // g, g).amax(dim=-1)
+
+
+@register_layer
+class BilinearInterpLayer(LayerDef):
+    """bilinear resize to (out_size_y, out_size_x) (reference:
+    BilinearInterpLayer.cpp): ``jax.image.resize``'s "bilinear", whose
+    triangle kernel widens by the scale when it shrinks, which is
+    ``F.interpolate``'s ``antialias=True`` (half-pixel centres)."""
+
+    kind = "bilinear_interp"
+
+    def infer_shape(self, attrs, in_shapes):
+        return (attrs["out_size_y"], attrs["out_size_x"], in_shapes[0][-1])
+
+    def apply(self, attrs, params, inputs, ctx):
+        y = F.interpolate(inputs[0].permute(0, 3, 1, 2),
+                          size=(attrs["out_size_y"], attrs["out_size_x"]),
+                          mode="bilinear", align_corners=False,
+                          antialias=True)
+        return y.permute(0, 2, 3, 1)
+
+
+@register_layer
+class PadLayer(LayerDef):
+    """zero padding on H, W and C (reference: PadLayer.cpp)."""
+
+    kind = "pad"
+
+    def infer_shape(self, attrs, in_shapes):
+        h, w, c = in_shapes[0]
+        ph = attrs.get("pad_h", (0, 0))
+        pw = attrs.get("pad_w", (0, 0))
+        pc = attrs.get("pad_c", (0, 0))
+        return (h + sum(ph), w + sum(pw), c + sum(pc))
+
+    def apply(self, attrs, params, inputs, ctx):
+        ph = tuple(attrs.get("pad_h", (0, 0)))
+        pw = tuple(attrs.get("pad_w", (0, 0)))
+        pc = tuple(attrs.get("pad_c", (0, 0)))
+        return F.pad(inputs[0], pc + pw + ph)
+
+
+@register_layer
+class CropLayer(LayerDef):
+    """crop H and W to (crop_h, crop_w) at ``offset`` (reference:
+    CropLayer.cpp)."""
+
+    kind = "crop"
+
+    def infer_shape(self, attrs, in_shapes):
+        return (attrs["crop_h"], attrs["crop_w"], in_shapes[0][-1])
+
+    def apply(self, attrs, params, inputs, ctx):
+        oy, ox = attrs.get("offset", (0, 0))
+        return inputs[0][:, oy:oy + attrs["crop_h"],
+                         ox:ox + attrs["crop_w"], :]
+
+
+@register_layer
+class SppLayer(LayerDef):
+    """spatial pyramid pooling (reference: SpatialPyramidPoolLayer.cpp):
+    level l cuts the image, padded at its end to a multiple of 2^l, into
+    2^l x 2^l equal bins; max pads with -inf, avg with zeros that count
+    in the bin's divisor (the JAX package's mean over the padded bin)."""
+
+    kind = "spp"
+
+    def infer_shape(self, attrs, in_shapes):
+        c = in_shapes[0][-1]
+        levels = attrs.get("pyramid_height", 3)
+        return (sum(4 ** l for l in range(levels)) * c,)
+
+    def apply(self, attrs, params, inputs, ctx):
+        x = inputs[0]
+        b, h, w, c = x.shape
+        is_max = attrs.get("pool_type", "max") == "max"
+        outs = []
+        for level in range(attrs.get("pyramid_height", 3)):
+            bins = 2 ** level
+            hh, ww = math.ceil(h / bins) * bins, math.ceil(w / bins) * bins
+            xp = F.pad(x, (0, 0, 0, ww - w, 0, hh - h),
+                       value=-math.inf if is_max else 0.0)
+            xp = xp.reshape(b, bins, hh // bins, bins, ww // bins, c)
+            r = xp.amax(dim=(2, 4)) if is_max else xp.mean(dim=(2, 4))
+            outs.append(r.reshape(b, -1))
+        return torch.cat(outs, dim=-1)
+
+
+@register_layer
+class FeatureMapExpandLayer(LayerDef):
+    """a (C,) vector broadcast over an h x w map (reference:
+    FeatureMapExpandLayer.cpp)."""
+
+    kind = "featmap_expand"
+
+    def infer_shape(self, attrs, in_shapes):
+        return (attrs["h"], attrs["w"], in_shapes[0][-1])
+
+    def apply(self, attrs, params, inputs, ctx):
+        x = inputs[0]
+        return x[:, None, None, :].expand(x.shape[0], attrs["h"],
+                                          attrs["w"], x.shape[-1])
 
 
 class _BnApplyStats(torch.autograd.Function):

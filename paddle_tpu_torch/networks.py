@@ -1,7 +1,8 @@
-"""Composite network helpers: the recurrent ones and additive attention
-(the part of ``paddle_tpu/networks.py`` the ported layers support).  They
-compose DSL layers only; names and attributes are the JAX package's, so
-both write the same JSON.
+"""Composite network helpers: the image ones (conv + pool, conv + BN +
+pool, the VGG block and nets, the separable conv), the recurrent ones and
+additive attention (the part of ``paddle_tpu/networks.py`` the ported
+layers support).  They compose DSL layers only; names and attributes are
+the JAX package's, so both write the same JSON.
 """
 
 from __future__ import annotations
@@ -16,6 +17,126 @@ def _uniq(base: str) -> str:
     idx = LayerOutput._COUNTERS.get("net:" + base, 0)
     LayerOutput._COUNTERS["net:" + base] = idx + 1
     return f"{base}_{idx}"
+
+
+def simple_img_conv_pool(input, filter_size, num_filters, pool_size,
+                         pool_stride=None, act=None, pool_type="max",
+                         padding=None, name=None):
+    conv = layer.img_conv(
+        input=input, filter_size=filter_size, num_filters=num_filters,
+        padding=(padding if padding is not None else filter_size // 2),
+        act=act, name=name and name + "_conv")
+    return layer.img_pool(input=conv, pool_size=pool_size,
+                          stride=pool_stride or pool_size,
+                          pool_type=pool_type, name=name and name + "_pool")
+
+
+def img_conv_bn_pool(input, filter_size, num_filters, pool_size,
+                     pool_stride=None, act="relu", pool_type="max",
+                     padding=None, name=None):
+    conv = layer.img_conv(
+        input=input, filter_size=filter_size, num_filters=num_filters,
+        padding=(padding if padding is not None else filter_size // 2),
+        act=None, bias_attr=False, name=name and name + "_conv")
+    bn = layer.batch_norm(input=conv, act=act, name=name and name + "_bn")
+    return layer.img_pool(input=bn, pool_size=pool_size,
+                          stride=pool_stride or pool_size,
+                          pool_type=pool_type, name=name and name + "_pool")
+
+
+def img_conv_group(input, conv_num_filter, pool_size, num_channels=None,
+                   conv_padding=1, conv_filter_size=3, conv_act="relu",
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=None, pool_type="max", name=None):
+    """A stack of convs (each optionally with batch norm and dropout) and
+    one pool: the VGG block.  Each per-conv argument is a value for all or
+    a list of one per conv."""
+    if isinstance(conv_num_filter, int):
+        conv_num_filter = [conv_num_filter]
+    n = len(conv_num_filter)
+
+    def each(v):
+        return v if isinstance(v, (list, tuple)) else [v] * n
+
+    pad, fsz = each(conv_padding), each(conv_filter_size)
+    bn, dr = each(conv_with_batchnorm), each(conv_batchnorm_drop_rate)
+    tmp = input
+    for i in range(n):
+        tmp = layer.img_conv(input=tmp, filter_size=fsz[i],
+                             num_filters=conv_num_filter[i],
+                             padding=pad[i],
+                             act=None if bn[i] else conv_act,
+                             bias_attr=not bn[i])
+        if bn[i]:
+            tmp = layer.batch_norm(input=tmp, act=conv_act)
+            if dr[i] > 0:
+                tmp = layer.dropout(tmp, rate=dr[i])
+    return layer.img_pool(input=tmp, pool_size=pool_size,
+                          stride=pool_stride or pool_size,
+                          pool_type=pool_type, name=name)
+
+
+def img_separable_conv(input, num_channels=None, num_out_channels=None,
+                       filter_size=3, stride=1, padding=None,
+                       depth_multiplier=1, act="relu", name=None):
+    """depthwise (a conv with groups = C) then pointwise conv."""
+    shape = input.attrs.get("shape")
+    c = (num_channels or (shape[-1] if shape and len(shape) == 3 else None)
+         or input.attrs.get("num_filters"))
+    if c is None:
+        raise ValueError(
+            "img_separable_conv: cannot infer num_channels from input "
+            f"layer {input.name!r}; pass num_channels explicitly")
+    dw = layer.img_conv(input=input, filter_size=filter_size,
+                        num_filters=c * depth_multiplier, groups=c,
+                        stride=stride,
+                        padding=(padding if padding is not None
+                                 else filter_size // 2),
+                        act=None, name=name and name + "_dw")
+    return layer.img_conv(input=dw, filter_size=1,
+                          num_filters=num_out_channels or c,
+                          act=act, name=name and name + "_pw")
+
+
+def small_vgg(input_image, num_channels=3, num_classes=10, name=None):
+    """the cifar-10 VGG of the image benchmarks: four conv groups with
+    batch norm and dropout, then two fc layers."""
+    def block(ipt, num_filter, groups, drops):
+        return img_conv_group(ipt, conv_num_filter=[num_filter] * groups,
+                              pool_size=2,
+                              conv_with_batchnorm=True,
+                              conv_batchnorm_drop_rate=drops,
+                              pool_type="max")
+
+    tmp = block(input_image, 64, 2, [0.3, 0.0])
+    tmp = block(tmp, 128, 2, [0.4, 0.0])
+    tmp = block(tmp, 256, 3, [0.4, 0.4, 0.0])
+    tmp = block(tmp, 512, 3, [0.4, 0.4, 0.0])
+    tmp = layer.img_pool(input=tmp, pool_size=2, stride=2)
+    tmp = layer.dropout(tmp, rate=0.5)
+    tmp = layer.fc(input=tmp, size=512, act=None)
+    tmp = layer.batch_norm(input=tmp, act="relu")
+    tmp = layer.dropout(tmp, rate=0.5)
+    return layer.fc(input=tmp, size=num_classes, act="softmax")
+
+
+def vgg_16_network(input_image, num_channels=3, num_classes=1000):
+    """VGG-16 without batch norm: five conv groups, two fc 4096 with
+    dropout, softmax."""
+    def block(ipt, num_filter, groups):
+        return img_conv_group(ipt, conv_num_filter=[num_filter] * groups,
+                              pool_size=2, pool_type="max")
+
+    tmp = block(input_image, 64, 2)
+    tmp = block(tmp, 128, 2)
+    tmp = block(tmp, 256, 3)
+    tmp = block(tmp, 512, 3)
+    tmp = block(tmp, 512, 3)
+    tmp = layer.fc(input=tmp, size=4096, act="relu")
+    tmp = layer.dropout(tmp, rate=0.5)
+    tmp = layer.fc(input=tmp, size=4096, act="relu")
+    tmp = layer.dropout(tmp, rate=0.5)
+    return layer.fc(input=tmp, size=num_classes, act="softmax")
 
 
 def simple_lstm(input, size, reverse=False, act="tanh", gate_act="sigmoid",

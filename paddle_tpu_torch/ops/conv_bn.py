@@ -62,6 +62,23 @@ def conv2d_nhwc(x, w, stride=(1, 1), padding=(0, 0), dilation=(1, 1),
     return y.permute(0, 2, 3, 1)
 
 
+def conv_transpose_nhwc(x, w, stride, padding):
+    """``lax.conv_transpose`` of channels-last x (NHWC, or NDHWC with a
+    DHWIO kernel) with an HW(D)IO kernel at padding k - 1 - padding a
+    side (the JAX package's conv_transpose and deconv3d).  JAX does not
+    flip the kernel there (``transpose_kernel=False``), while
+    ``F.conv_transpose2d`` / ``3d`` compute the adjoint of the conv, a
+    correlation with the flipped kernel: so the kernel is flipped here, and
+    permuted to their [in, out, k...] layout."""
+    nd = x.ndim - 2
+    sp = tuple(range(nd))
+    wt = w.flip(sp).permute(nd, nd + 1, *sp)
+    fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    last = (0, x.ndim - 1) + tuple(range(1, x.ndim - 1))
+    first = (0,) + tuple(range(2, x.ndim)) + (1,)
+    return fn(x.permute(*last), wt, None, stride, padding).permute(*first)
+
+
 # ----------------------------------------------------------- plain versions
 def _matmul_stats_ref(x2, w2):
     y = x2.float() @ w2.float()

@@ -86,9 +86,13 @@ class Parameters:
 
     def from_tar(self, f) -> None:
         """Load every entry whose key this store has (others are
-        skipped, as in the JAX package)."""
+        skipped, as in the JAX package); a tar saved under the other
+        ``fuse_conv_bn`` setting raises (``check_fuse_conv_bn_mismatch``)."""
         with tarfile.open(fileobj=f, mode="r") as tar:
-            for member in tar.getmembers():
+            members = tar.getmembers()
+            check_fuse_conv_bn_mismatch(
+                self.values, (m.name[:-len(".npy")] for m in members))
+            for member in members:
                 key = member.name[:-len(".npy")]
                 arr = np.load(io.BytesIO(tar.extractfile(member).read()))
                 if key in self:
@@ -97,6 +101,54 @@ class Parameters:
     @staticmethod
     def from_topology(topology, device=None) -> "Parameters":
         return topology.create_parameters(device=device)
+
+
+def tree_keys(*trees) -> list:
+    """The dotted ``layer.param`` keys of nested ``{layer: {param: ...}}``
+    trees (a snapshot's parts, a live parameter tree)."""
+    return [f"{layer}.{p}" for tree in trees for layer, ps in
+            (tree or {}).items() for p in (ps if isinstance(ps, dict)
+                                           else ())]
+
+
+def check_fuse_conv_bn_mismatch(layers_here, ckpt_keys) -> None:
+    """Raise ``ValueError`` when saved keys (``layer.param``) and a model's
+    layer names disagree on ``fuse_conv_bn`` (the JAX package's
+    ``Parameters._check_fuse_conv_bn_mismatch``): the fused path names a
+    conv + BN pair's layer ``<name>_fused`` and the unfused one
+    ``<name>_conv`` and ``<name>_bn`` (``models/resnet.py`` ``conv_bn``), so
+    a mismatched load would skip every renamed entry and train those layers
+    from fresh initializers.  Every route that restores parameters from a
+    snapshot calls it: ``Parameters.from_tar``, ``from_numpy``,
+    ``SGD.restore``, ``serve --params`` and the serving reload."""
+    layers_here = set(layers_here)
+    mismatched = []
+    for key in ckpt_keys:
+        layer = key.rpartition(".")[0]
+        if layer in layers_here:
+            continue
+        if layer.endswith("_fused"):
+            base = layer[:-len("_fused")]
+            if base + "_conv" in layers_here or base + "_bn" in layers_here:
+                mismatched.append((key, "fused", base))
+        else:
+            for suffix in ("_conv", "_bn"):
+                if layer.endswith(suffix):
+                    base = layer[:-len(suffix)]
+                    if base + "_fused" in layers_here:
+                        mismatched.append((key, "unfused", base))
+    if mismatched:
+        key, kind, base = mismatched[0]
+        saved, loading = ("ON", "OFF") if kind == "fused" else ("OFF", "ON")
+        raise ValueError(
+            f"checkpoint/model fuse_conv_bn mismatch: the checkpoint holds "
+            f"{kind} conv/BN parameters (e.g. {key!r}) but this model names "
+            f"layer {base!r} the other way: it was saved with fuse_conv_bn "
+            f"{saved} and is being loaded with it {loading} "
+            f"({len(mismatched)} affected entries). Loading would silently "
+            f"keep fresh initializers for those layers; rebuild the model "
+            f"with the matching paddle.init(fuse_conv_bn=...) setting "
+            f"instead.")
 
 
 def create(topology, device=None) -> Parameters:

@@ -31,6 +31,7 @@ import warnings
 from typing import Optional
 
 from paddle_tpu_torch.io import checkpoint as _ckpt
+from paddle_tpu_torch.parameters import check_fuse_conv_bn_mismatch, tree_keys
 
 __all__ = ["WeightWatcher", "load_from", "snapshot_values"]
 
@@ -39,9 +40,12 @@ def snapshot_values(engine, payloads: dict):
     """A loaded snapshot's parameters grafted onto the engine's active
     version (the serving tree is the template: the snapshot's trainable
     part overlays it, its frozen part too when present, so nothing is
-    dropped)."""
+    dropped); a snapshot saved under the other ``fuse_conv_bn`` setting
+    raises."""
     with engine._version_lock:
         template = engine._versions[engine._version_active].values
+    check_fuse_conv_bn_mismatch(template, tree_keys(
+        payloads.get("trainable"), payloads.get("frozen")))
     vals = _ckpt.graft(template, payloads.get("trainable") or {})
     if payloads.get("frozen"):
         vals = _ckpt.graft(vals, payloads["frozen"])

@@ -51,7 +51,9 @@ from paddle_tpu_torch.core.ir import (LayerOutput, LayerSpec, ModelSpec,
                                       collect_topology)
 from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
 from paddle_tpu_torch.layers.sequence import SeqLayerDef
-from paddle_tpu_torch.parameters import Parameters
+from paddle_tpu_torch.parameters import (Parameters,
+                                         check_fuse_conv_bn_mismatch,
+                                         tree_keys)
 
 
 @contextlib.contextmanager
@@ -251,6 +253,9 @@ class Topology:
         ``values`` (a numpy tree ``{layer: {param: ndarray}}``) they are
         those arrays instead, which must match the specs exactly."""
         dev = cfg.default_device(device)
+        if values is not None:
+            check_fuse_conv_bn_mismatch(
+                (s.name for s in self.specs), tree_keys(values))
         if values is None and generator is None:
             generator = torch.Generator().manual_seed(
                 int(cfg.get_option("seed", 0)))

@@ -684,11 +684,16 @@ class SGD:
         the JAX package's too): its values are copied into the live
         parameters, optimizer state (what the policy carries of it),
         running state and frozen parameters, so every captured chunk
-        replays from them.  The port's generator state (``torch_rng``, of
-        this device type) is set in place; a snapshot without it (the JAX
-        package's) leaves the generator as it is.  ``global_step`` is
-        taken over."""
+        replays from them; a snapshot saved under the other
+        ``fuse_conv_bn`` setting raises.  The port's generator state
+        (``torch_rng``, of this device type) is set in place; a snapshot
+        without it (the JAX package's) leaves the generator as it is.
+        ``global_step`` is taken over."""
         self._sync_precision_policy()
+        params_mod.check_fuse_conv_bn_mismatch(
+            set(self._trainable) | set(self._frozen) | set(self.model_state),
+            params_mod.tree_keys(snap["trainable"], snap.get("frozen"),
+                                 snap.get("model_state")))
         _copy_into(self._trainable, snap["trainable"], "params")
         _copy_into(self._opt_state, snap.get("opt_state") or {},
                    "opt_state")

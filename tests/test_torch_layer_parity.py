@@ -78,7 +78,8 @@ def port_run(ttopo, values, feed, *, train=False, generator=None,
         if t.dtype == torch.float32 and not k.endswith("@len"):
             t = t.clone().requires_grad_(True)
         tfeed[k] = t
-    outs, _ = ttopo.forward(params, state or {}, tfeed, train=train,
+    state = state or ttopo.create_state(device="cpu")
+    outs, _ = ttopo.forward(params, state, tfeed, train=train,
                             generator=generator, device="cpu")
     wrt = list(leaves.values()) + [t for t in tfeed.values()
                                    if t.requires_grad]
@@ -102,14 +103,15 @@ def jax_run(jtopo, values, feed, *, train=False, rng=None, state=None):
     def f(vals, fvals):
         fd = dict(feed)
         fd.update(fvals)
-        outs, _ = jtopo.forward(vals, state or {}, fd, train=train, rng=rng)
+        outs, _ = jtopo.forward(vals, state or jtopo.create_state(), fd,
+                                train=train, rng=rng)
         return _scalar_sum(outs), outs
 
     jvals = {l: {p: jnp.asarray(v) for p, v in ps.items()}
              for l, ps in values.items()}
     fvals = {k: jnp.asarray(feed[k]) for k in fkeys}
-    (_, outs), (pgrads, fgrads) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(jvals, fvals)
+    (_, outs), (pgrads, fgrads) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(jvals, fvals)
     return outs, pgrads, fgrads
 
 
@@ -144,7 +146,8 @@ def test_golden_config_matches_jax(name, padded):
     ttopo, jtopo, values = both(golden(name))
     feed = layer_configs.feed(ttopo, batch=4, seed=SEED, padded=padded,
                               name=name)
-    assert_parity(ttopo, jtopo, values, feed)
+    assert_parity(ttopo, jtopo, values, feed,
+                  train=name in layer_configs.TRAIN)
 
 
 def test_sampling_costs_match_jax_on_the_ports_negatives(monkeypatch):

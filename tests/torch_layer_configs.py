@@ -413,10 +413,137 @@ def _(paddle):
     return layer.sum_cost(joint)
 
 
+def volume(paddle, name, shape):
+    """A volume data layer (NDHWC per sample), as the goldens declare it."""
+    dim = int(np.prod(shape))
+    return paddle.layer.LayerOutput(
+        "data", [], {"shape": list(shape), "seq_type": 0,
+                     "is_index": False, "dim": dim}, name=name)
+
+
+@config("img_trans_layers")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 8 * 8), height=8, width=8)
+    ct = layer.img_conv_transpose(img, filter_size=2, num_filters=4,
+                                  stride=2, name="deconv")
+    mo = layer.maxout(ct, groups=2, name="maxout")
+    bi = layer.bilinear_interp(mo, 8, 8, name="interp")
+    cr = layer.crop(bi, 6, 6, offset=(1, 1), name="crop")
+    pd = layer.pad(cr, pad_h=(1, 1), pad_w=(1, 1), name="pad")
+    return layer.sum_cost(layer.global_pool(pd, name="gp"))
+
+
+@config("bilinear_interp")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 8 * 8), height=8, width=8)
+    c = layer.img_conv(img, filter_size=3, num_filters=4, padding=1,
+                       name="conv")
+    bi = layer.bilinear_interp(c, 16, 16, name="interp")
+    return layer.sum_cost(layer.global_pool(bi))
+
+
+@config("crop_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 8 * 8), height=8, width=8)
+    cr = layer.crop(img, 6, 6, offset=(1, 1), name="crop")
+    return layer.sum_cost(layer.global_pool(cr))
+
+
+@config("maxout_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(4 * 8 * 8), height=8, width=8)
+    c = layer.img_conv(img, filter_size=3, num_filters=8, padding=1,
+                       name="conv")
+    mo = layer.maxout(c, groups=2, name="maxout")
+    return layer.sum_cost(layer.global_pool(mo))
+
+
+@config("pad_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 6 * 6), height=6, width=6)
+    pd = layer.pad(img, pad_h=(1, 2), pad_w=(3, 4), pad_c=(2, 1),
+                   name="pad")
+    return layer.sum_cost(layer.global_pool(pd))
+
+
+@config("spp_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(1 * 8 * 8), height=8, width=8)
+    s = layer.spp(img, pyramid_height=2, pool_type="max", name="spp")
+    return layer.sum_cost(s)
+
+
+@config("conv3d_layer")
+def _(paddle):
+    layer = paddle.layer
+    vol = volume(paddle, "vol", (4, 4, 4, 1))
+    c = layer.img_conv3d(vol, filter_size=3, num_filters=2, padding=1,
+                         act="relu", name="conv3d")
+    return layer.sum_cost(c)
+
+
+@config("deconv3d_layer")
+def _(paddle):
+    layer = paddle.layer
+    vol = volume(paddle, "vol", (2, 2, 2, 2))
+    d = layer.img_conv3d_transpose(vol, filter_size=2, num_filters=2,
+                                   stride=2, act="relu", name="deconv3d")
+    return layer.sum_cost(d)
+
+
+@config("pooling3d_layer")
+def _(paddle):
+    layer = paddle.layer
+    vol = volume(paddle, "vol", (4, 4, 4, 2))
+    p = layer.img_pool3d(vol, pool_size=2, pool_type="avg", name="pool3d")
+    return layer.sum_cost(p)
+
+
+@config("batch_norm_3d")
+def _(paddle):
+    layer = paddle.layer
+    vol = volume(paddle, "vol", (4, 4, 4, 2))
+    c = layer.img_conv3d(vol, filter_size=3, num_filters=4, act=None,
+                         name="c3d")
+    bn = layer.batch_norm(c, act="relu", name="bn3d")
+    return layer.sum_cost(bn)
+
+
+@config("networks_vgg")
+def _(paddle):
+    layer = paddle.layer
+    dv, _, iv, _ = _types(paddle)
+    img = layer.data("image", dv(3 * 32 * 32), height=32, width=32)
+    net = paddle.networks.img_conv_group(
+        input=img, conv_num_filter=[16, 16], conv_filter_size=3,
+        conv_act="relu", pool_size=2, pool_stride=2,
+        conv_with_batchnorm=True)
+    lbl = layer.data("label", iv(10))
+    return layer.classification_cost(
+        layer.fc(net, size=10, act="softmax", name="out"), lbl)
+
+
 # configs whose outputs only pin the JSON: "operators" pools a flattened
 # [B, 128] map with global_pool, which wants an image (both packages
 # refuse it); its two operators run in the CPU tests' own configs
 PROTO_ONLY = frozenset({"operators"})
+
+# configs whose forward runs in train mode, their batch norms on the
+# batch's statistics (the 3-D one on the plain statistics in both
+# packages); the others run in eval mode
+TRAIN = frozenset({"batch_norm_3d", "networks_vgg"})
 
 
 def _beam_feed(rng, batch):
