@@ -365,16 +365,32 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    shrinking bilinear_interp, spp at H 13, maxout, pad, crop,
    featmap_expand, conv3d, deconv3d, a 3-D batch norm, both pool3d;
    ITEM9_TOL);
-22. one JSON line each for the LM training, NMT and LSTM, the bf16
+22. the book models (``book_slice``): semantic role labelling at the
+   book's width (``label_semantic_roles``: word 32, hidden 128, depth 4,
+   T 40, conll05's vocabularies, batch 128) - kernel 5 at [128, 128]
+   against its plain step and inside the LSTM layer, forward and
+   reversed, with the batch's masks, timed beside its bound; the kernel
+   route against ``use_fused_rnn=False`` (the first loss, every
+   gradient, ``crf_decoding``'s paths; 320 launches a forward); 6 Adam
+   steps under ``fp32`` and ``bf16`` (the loss falling, Chunk's F1, ms a
+   step, tokens/s, peak memory, a profiled step's idle share and kernel 5's
+   share); OCR-CTC (32 x 128, hidden 128, batch 64: kernel 6 at [64, 128]
+   held and timed, 128 calls a step, 4 steps, CTCError); SSD (300 px,
+   21 classes, batch 32, ``fused_bn_impl="pallas"``: 7a and 7b held and
+   timed at its four batch-norm shapes, 4 launches each a step, 4 steps,
+   ``detection_output`` under ``set_sync_debug_mode("error")``,
+   DetectionMAP); the recommender and word2vec (softmax and hsigmoid)
+   card against CPU over two Adam steps (BOOK_CPU_TOL);
+23. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
    whole-forward serving slice, generation, sweep, ResNet,
-   ResNet-under-bf16 and vision runs, the card line again,
+   ResNet-under-bf16, vision and book runs, the card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
 phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve``,
-``serve_fwd``, ``gen`` or ``vision``, or a part of one:
+``serve_fwd``, ``gen``, ``vision`` or ``book``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -2124,6 +2140,61 @@ def _lstm_parent(lib, x, h, c, w, bias, m):
     return h_out, c_out
 
 
+def _rnn_work(kind, b, H, dev, gen) -> dict:
+    """Kernel 5's or 6's one call at [b, H] on ``_rnn_args``' operands:
+    the kernel, its plain step and the cuBLAS product alone (the step's
+    floor) as calls, the live rows, and the operations (over the live
+    rows) and bytes (each operand read once, each output written once)
+    of the step."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    args = _rnn_args(kind, b, H, dev, gen)
+    x, h, *rest = args
+    m = rest[-1]
+    live = int((m > 0).sum())
+    if kind == "lstm":
+        c, w, bias = rest[:3]
+        return dict(
+            args=args, live=live,
+            kernel=lambda: fr.lstm_step_cuda(x, h, c, w, bias, m),
+            plain=lambda: fr._lstm_step_ref(x, h, c, w, bias, m),
+            floor=lambda: torch.addmm(bias, h, w),
+            flops=2.0 * live * H * 4 * H,
+            bytes=4.0 * (b * 4 * H + 4 * b * H + 4 * H * H + 4 * H + b))
+    wg, wc, bias = rest[:3]
+    return dict(
+        args=args, live=live,
+        kernel=lambda: fr.gru_step_cuda(x, h, wg, wc, bias, m),
+        plain=lambda: fr._gru_step_ref(x, h, wg, wc, bias, m),
+        floor=lambda: (torch.addmm(bias[:2 * H], h, wg),
+                       torch.addmm(bias[2 * H:], h, wc)),
+        flops=2.0 * live * H * 3 * H,
+        bytes=4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b))
+
+
+def rnn_step_times(kind, b, H, dev, gen, flush) -> dict:
+    """Kernel 5 or 6 alone at [b, H], timed as ``rnn_phase`` times it
+    (``time_ms(lead=True)``) beside its bound (three TF32 products at the
+    TF32 peak, or the bytes), the FMA floor, its plain step and the
+    product alone."""
+    work = _rnn_work(kind, b, H, dev, gen)
+    with torch.no_grad():
+        t = {"ms": time_ms(work["kernel"], flush, lead=True),
+             "plain_ms": time_ms(work["plain"], flush, lead=True),
+             "addmm_ms": time_ms(work["floor"], flush, lead=True)}
+    b_ms, b_by = bound(3 * work["flops"], work["bytes"], PEAK_TF32_FLOPS)
+    out = dict(t, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               fma_bound_ms=bound(work["flops"], work["bytes"])[0],
+               shape={"B": b, "H": H, "live_rows": work["live"]})
+    print(f"{kind}_step at B {b}, H {H} ({work['live']} live rows): ms "
+          f"{t['ms']:.4f}  bound_ms {b_ms:.4f} ({b_by}, 3xTF32 at the TF32 "
+          f"peak; {t['ms'] / b_ms:.1f}x)  fma_bound_ms "
+          f"{out['fma_bound_ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
+          f"library_ms none; the product alone (torch.addmm) "
+          f"{t['addmm_ms']:.4f}", flush=True)
+    return out
+
+
 def rnn_phase(dev, gen, flush, parents=None):
     """Kernels 5 and 6 against their plain versions (values and the
     autograd.Function's gradients) at the routes' shapes and at ragged
@@ -2142,25 +2213,16 @@ def rnn_phase(dev, gen, flush, parents=None):
     for kind, b in (("lstm", LSTM_BATCH), ("gru", NMT_BATCH)):
         errs = [_rnn_check(kind, bb, hh, dev, gen, fault=bb == b)
                 for bb, hh in ((b, RNN_H), (8, RNN_H), (37, 128), (5, 37))]
-        x, h, *rest = _rnn_args(kind, b, RNN_H, dev, gen)
+        work = _rnn_work(kind, b, RNN_H, dev, gen)
+        x, h, *rest = work["args"]
         m = rest[-1]
-        live = int((m > 0).sum())
+        live, flops, nbytes = work["live"], work["flops"], work["bytes"]
+        kernel, plain, floor = work["kernel"], work["plain"], work["floor"]
         H = RNN_H
         if kind == "lstm":
             c, w, bias = rest[:3]
-            kernel = lambda: fr.lstm_step_cuda(x, h, c, w, bias, m)  # noqa
-            plain = lambda: fr._lstm_step_ref(x, h, c, w, bias, m)   # noqa
-            floor = lambda: torch.addmm(bias, h, w)                  # noqa
-            flops = 2.0 * live * H * 4 * H
-            nbytes = 4.0 * (b * 4 * H + 4 * b * H + 4 * H * H + 4 * H + b)
         else:
             wg, wc, bias = rest[:3]
-            kernel = lambda: fr.gru_step_cuda(x, h, wg, wc, bias, m)  # noqa
-            plain = lambda: fr._gru_step_ref(x, h, wg, wc, bias, m)   # noqa
-            floor = lambda: (torch.addmm(bias[:2 * H], h, wg),        # noqa
-                             torch.addmm(bias[2 * H:], h, wc))
-            flops = 2.0 * live * H * 3 * H
-            nbytes = 4.0 * (b * 3 * H + 2 * b * H + 3 * H * H + 3 * H + b)
         res = (fr.lstm_tf32_resources() if kind == "lstm"
                else fr.gru_tf32_resources())
         print(f"{kind}_step float32 (3xTF32) kernel's resources "
@@ -2353,14 +2415,16 @@ def route_parity(name, paddle, topo, values, feed, kernel, per_pass, lr,
 
 
 def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
-                falling=True, finite=True, reader=None, feeding=None):
+                falling=True, finite=True, reader=None, feeding=None,
+                metrics=None):
     """``trainer.SGD.train`` over ``steps`` copies of one batch (or the
     ``steps`` batches of ``reader``, through ``feeding``): every loss
     finite (and, with ``falling``, the last below the first), the
     kernel's counter moving ``per_step`` a step; returns losses, step
     times and peak memory.  With ``finite=False`` (``fp16``, which has no
     loss scaling) a non-finite loss is printed, not raised, and
-    ``falling`` holds over the losses before the first of them."""
+    ``falling`` holds over the losses before the first of them.  A
+    ``metrics`` dict takes the evaluators' metrics at the pass's end."""
     from paddle_tpu_torch import ops
 
     losses, step_s = [], []
@@ -2372,6 +2436,8 @@ def train_steps(name, paddle, trainer, feed, steps, kernel, per_step,
         elif isinstance(e, paddle.event.EndIteration):
             losses.append(e.cost)          # reading it waits for the step
             step_s[-1] = time.perf_counter() - step_s[-1]
+        elif isinstance(e, paddle.event.EndPass) and metrics is not None:
+            metrics.update(e.metrics)
 
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -8405,9 +8471,10 @@ def bn_times(shape, x2, dout, w, b, mean, inv, flush, bounds) -> dict:
             **bounds(8.0 * p * c, es * 2 * p * c + 4.0 * 6 * c))}
 
 
-def bn_kernels_at(shape, dtype, flush, gen) -> dict:
-    """Kernels 7a and 7b alone at ``shape`` (VGG's largest, conv1's
-    output) on ``dtype`` activations: each held against its plain version
+def bn_kernels_at(shape, dtype, flush, gen, label=None) -> dict:
+    """Kernels 7a and 7b alone at ``shape`` (by default VGG's largest,
+    conv1's output; ``label`` names another) on ``dtype`` activations:
+    each held against its plain version
     (TOL at float32, CONV_STAT_TOL at bf16, of max(1, max |ref|)), then
     timed (``time_ms(lead=True)``) beside its bound (the bytes each must
     move, the operations at the card's peak for the type), its plain
@@ -8416,6 +8483,7 @@ def bn_kernels_at(shape, dtype, flush, gen) -> dict:
     mask)."""
     from paddle_tpu_torch.ops import fused_bn as fb
 
+    label = label or f"VGG-{VGG_DEPTH}'s conv1"
     bf16 = dtype != torch.float32
     c = shape[-1]
     dev = torch.device("cuda")
@@ -8446,7 +8514,7 @@ def bn_kernels_at(shape, dtype, flush, gen) -> dict:
                                "mask"}
     for (k, r), err in zip(out.items(), (err_f, err_b)):
         r.update(shape=list(shape), max_abs_err=err[0], max_rel_err=err[1])
-        print(f"{k} {tag} (VGG-{VGG_DEPTH}'s conv1 at batch {shape[0]}): ms "
+        print(f"{k} {tag} ({label} at batch {shape[0]}): ms "
               f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']}"
               f"; {r['ms'] / r['bound_ms']:.2f}x)  plain_ms "
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f} "
@@ -8672,13 +8740,580 @@ def vision_slice() -> dict:
 VISION_PHASES = {"vision": vision_slice}
 
 
+# -------------------------------------------------------- the book slice
+# semantic role labelling at the book's width (book ch. 07): word 32,
+# hidden 128 (its fc 512 wide, the book's hidden_dim), depth 4
+# bidirectional levels (the book's 8 LSTMs), conll05's vocabularies, T 40
+SRL_WIDTH = dict(word_dim=32, hidden=128, depth=4, max_len=40)
+SRL_BATCH, SRL_STEPS, SRL_LR = 128, 6, 1e-3
+SRL_PER_PASS = 2 * SRL_WIDTH["depth"] * SRL_WIDTH["max_len"]     # 320
+SRL_CHUNK_TYPES = 33     # conll05's 67 labels: 33 IOB types and O
+OCR_WIDTH = dict(image_h=32, image_w=128, num_classes=10, hidden=128)
+OCR_BATCH, OCR_STEPS, OCR_LR, OCR_MAX_LABEL = 64, 4, 1e-3, 8
+# the columns after the 2x2 pool: one kernel 6 call a column each way
+OCR_PER_PASS = 2 * (OCR_WIDTH["image_w"] // 2)                  # 128
+SSD_WIDTH = dict(image_size=300, num_classes=21, max_gt=8)
+SSD_BATCH, SSD_STEPS, SSD_LR, SSD_BNS = 32, 4, 1e-3, 4
+# the four relu batch norms' activations at batch 32: kernels 7a and 7b
+SSD_BN_SHAPES = ((SSD_BATCH, 300, 300, 16), (SSD_BATCH, 150, 150, 32),
+                 (SSD_BATCH, 75, 75, 64), (SSD_BATCH, 38, 38, 64))
+# the recommender and word2vec at the book's widths, card against CPU
+REC_WIDTH = dict(emb_dim=32, tower=200)
+W2V_WIDTH = dict(emb_dim=32, hidden=256, window=5)
+BOOK_CPU_BATCH, BOOK_CPU_TOL = 256, 1e-5
+
+
+def srl_feed(samples) -> dict:
+    """A padded SRL feed from conll05 samples (words, predicate, 5
+    contexts, mark, labels), the predicate repeated over the sentence as
+    the JAX package's test feeds it; every sequence padded to SRL_WIDTH's
+    ``max_len``, so a forward runs T = ``max_len`` steps."""
+    max_len = SRL_WIDTH["max_len"]
+    b = len(samples)
+    lens = np.array([min(len(s[0]), max_len) for s in samples], np.int32)
+    feed = {}
+    for name, pick in (("word", lambda s: s[0]),
+                       ("verb", lambda s: [s[1]] * len(s[0])),
+                       ("mark", lambda s: s[7]), ("target", lambda s: s[8])):
+        arr = np.zeros((b, max_len), np.int32)
+        for i, s in enumerate(samples):
+            arr[i, :lens[i]] = pick(s)[:lens[i]]
+        feed[name], feed[name + "@len"] = arr, lens
+    return feed
+
+
+def srl_model():
+    """``label_semantic_roles.build`` at SRL_WIDTH with conll05's
+    vocabularies and the Chunk evaluator (IOB, SRL_CHUNK_TYPES types) over
+    the decoded path.  Returns (paddle, topology over the cost and the
+    decoded path)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import label_semantic_roles
+
+    _fresh(paddle)
+    cost, decoded = label_semantic_roles.build(**SRL_WIDTH)
+    paddle.evaluator.chunk(input=decoded, label=cost.parents[1],
+                           chunk_scheme="IOB", num_chunk_types=SRL_CHUNK_TYPES,
+                           name="srl_chunk")
+    return paddle, paddle.Topology([cost, decoded])
+
+
+def _lstm_layer_hold(dev, gen, lens) -> dict:
+    """Kernel 5 inside the LSTM layer at SRL's shape ([128, 40] steps of
+    H 128, masks from the batch's real lengths ``lens``), forward and
+    reversed: the kernel route against the plain step on the same
+    operands, the outputs and the gradients of x and the weights (TOL of
+    max(1, max |ref|)), 40 launches a direction on the kernel route."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+    from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
+
+    b, t, hd = len(lens), SRL_WIDTH["max_len"], SRL_WIDTH["hidden"]
+    ldef = get_layer_def("lstmemory")
+    x = torch.randn(b, t, 4 * hd, device=dev, generator=gen)
+    w = torch.randn(hd, 4 * hd, device=dev, generator=gen) * hd ** -0.5
+    bias = torch.randn(4 * hd, device=dev, generator=gen) * 0.1
+    mask = (torch.arange(t, device=dev)[None, :]
+            < torch.as_tensor(lens, device=dev)[:, None]).float()
+    cot = torch.randn(b, t, hd, device=dev, generator=gen)
+    out = {}
+    for reverse in (False, True):
+        runs = {}
+        for fused in (True, False):
+            leaves = [v.clone().requires_grad_(True) for v in (x, w, bias)]
+            config.set_option("use_fused_rnn", fused)
+            ops.reset_launch_counts()
+            try:
+                y = ldef.apply_seq({"peephole": False, "reverse": reverse},
+                                   {"w": leaves[1], "b": leaves[2]},
+                                   [leaves[0]], [mask],
+                                   ApplyContext(train=True, device=dev))
+            finally:
+                config.set_option("use_fused_rnn", True)
+            n = ops.launch_counts()["lstm_step"]
+            if n != (t if fused else 0):
+                raise AssertionError(f"lstmemory reverse={reverse} "
+                                     f"use_fused_rnn={fused}: {n} kernel 5 "
+                                     f"launches, expected {t if fused else 0}")
+            runs[fused] = (y,) + torch.autograd.grad(y, leaves, cot)
+        what = f"lstmemory at [{b}, {t}] x H {hd}{' reversed' if reverse else ''}"
+        err = _hold(what, zip(("y", "dx", "dw", "db"), runs[True],
+                              runs[False]))
+        print(f"{what}, masks of the batch's lengths {min(lens)} to "
+              f"{max(lens)}: kernel 5 route ({t} launches) against the plain "
+              f"step, y and the gradients of x, w and b within {err[1]:.2e} "
+              f"of max(1, max |ref|) (limit {TOL})", flush=True)
+        out["reverse" if reverse else "forward"] = {"max_abs_err": err[0],
+                                                    "max_rel_err": err[1]}
+    return out
+
+
+def _srl_parity(paddle, topo, values, feed) -> dict:
+    """At batch SRL_BATCH from the same weights on the card: the kernel
+    route against the plain one (``use_fused_rnn=False``): the first loss
+    (1e-5 relative), every parameter gradient (TOL of max(1, max |g|))
+    and ``crf_decoding``'s paths (equal, or where a row differs, the two
+    paths' CRF scores equal within 1e-5: a tie); kernel 5 SRL_PER_PASS
+    launches a forward on the kernel route, none on the plain one."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+    from paddle_tpu_torch.layers import crf_ctc
+
+    runs = {}
+    for fused in (True, False):
+        config.set_option("use_fused_rnn", fused)
+        try:
+            ops.reset_launch_counts()
+            tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Adam(learning_rate=SRL_LR))
+            loss, grads = tr.forward_backward(feed)
+            with torch.no_grad():
+                outs, _ = topo.forward(tr.parameters.values, {}, feed,
+                                       outputs=["emission", "decoded"])
+            n = ops.launch_counts()["lstm_step"]
+            runs[fused] = (float(loss), grads, outs)
+            del tr
+        finally:
+            config.set_option("use_fused_rnn", True)
+        if n != (2 * SRL_PER_PASS if fused else 0):
+            raise AssertionError(f"SRL use_fused_rnn={fused}: {n} kernel 5 "
+                                 f"launches in a forward_backward and a "
+                                 f"forward, expected "
+                                 f"{2 * SRL_PER_PASS if fused else 0}")
+    (loss_k, grads_k, outs_k), (loss_t, grads_t, outs_t) = runs[True], \
+        runs[False]
+    if not _rel(loss_k, loss_t) <= 1e-5:
+        raise AssertionError(f"SRL first loss: kernel route {loss_k} vs "
+                             f"plain {loss_t}")
+    worst = max((_rel_max_err(grads_k[l][p], ref.cpu()), f"{l}.{p}")
+                for l, ps in grads_t.items() for p, ref in ps.items())
+    if not worst[0] <= TOL:
+        raise AssertionError(f"SRL gradient {worst[1]}: kernel route vs "
+                             f"plain {worst[0]} > {TOL}")
+    path_k, path_t = outs_k["decoded"], outs_t["decoded"]
+    rows = (path_k != path_t).any(1).nonzero().flatten().tolist()
+    w = values["crf"]["w"]
+    w = torch.as_tensor(w, device=path_t.device)
+    mask = (torch.arange(path_t.shape[1], device=path_t.device)[None, :]
+            < torch.as_tensor(feed["word@len"],
+                              device=path_t.device)[:, None]).float()
+    em = outs_t["emission"].float()
+    gap = 0.0
+    if rows:
+        # each path's negative log-likelihood under the plain route's
+        # emissions: equal scores (a tie) is the only difference allowed
+        nk = crf_ctc.crf_nll(em[rows], path_k[rows].long(), mask[rows],
+                             w[0], w[1], w[2:])
+        nt = crf_ctc.crf_nll(em[rows], path_t[rows].long(), mask[rows],
+                             w[0], w[1], w[2:])
+        gap = ((nk - nt).abs() / nt.abs().clamp(min=1.0)).max().item()
+        if not gap <= 1e-5:
+            raise AssertionError(f"SRL decoded paths differ in rows {rows} "
+                                 f"by {gap} of their CRF scores")
+    print(f"SRL parity at batch {SRL_BATCH}, kernel route vs "
+          f"use_fused_rnn=False: first loss {loss_k:.6f} vs {loss_t:.6f} "
+          f"({_rel(loss_k, loss_t):.2e} relative); worst gradient "
+          f"{worst[1]} at {worst[0]:.2e} of max(1, max |g|); decoded paths "
+          f"{'equal' if not rows else f'differ in {len(rows)} rows, ties within {gap:.1e}'}"
+          f"; kernel 5 {SRL_PER_PASS} launches a forward", flush=True)
+    return {"loss_rel": _rel(loss_k, loss_t), "grad_rel": worst[0],
+            "grad_at": worst[1], "path_rows_differing": len(rows),
+            "path_tie_gap": gap}
+
+
+def _srl_train(paddle, topo, values, feed, policy) -> dict:
+    """SRL_STEPS Adam steps under ``policy`` on one batch of synthetic
+    conll05 (its labels are learnt over many passes; on one batch the
+    loss falls step by step): kernel 5 (the policy's instance)
+    SRL_PER_PASS launches a step, the loss falling, Chunk's precision,
+    recall and F1 at the pass's end; then one step under
+    ``torch.profiler``."""
+    _policy(policy)
+    sfx = "" if policy == "fp32" else "_bf16"
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=SRL_LR))
+    metrics = {}
+    name = f"SRL {policy}"
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        name, paddle, trainer, feed, SRL_STEPS, f"lstm_step{sfx}",
+        SRL_PER_PASS, metrics=metrics)
+    if launches["lstm_step"] != launches[f"lstm_step{sfx}"]:
+        raise AssertionError(f"{name}: kernel 5 launches of another "
+                             f"instance: {launches}")
+    prof = profile_step(trainer, feed, LSTM_KERNEL)
+    toks = float(feed["word@len"].sum())
+    chunk = {k.split(".")[-1]: v for k, v in metrics.items()
+             if k.startswith("srl_chunk")}
+    print(f"{name} training: {SRL_STEPS} Adam steps (lr {SRL_LR}) at batch "
+          f"{SRL_BATCH} x T {SRL_WIDTH['max_len']} of synthetic conll05 "
+          f"(one batch), "
+          f"losses {[round(x, 4) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{toks / warm:.0f} real tokens/s ({toks:.0f} a batch; "
+          f"{SRL_BATCH * SRL_WIDTH['max_len'] / warm:.0f} padded; smoke "
+          f"figure, not a benchmark); peak memory {peak_gb:.2f} GB; kernel 5 "
+          f"launches a step {launches[f'lstm_step{sfx}'] // SRL_STEPS}; "
+          f"chunk (IOB, {SRL_CHUNK_TYPES} types) at the pass's end "
+          f"{chunk}; " + _route_profile(prof) + "; top kernels: "
+          + "; ".join(f"{nm} x{k} {ms:.2f} ms" for nm, k, ms in prof["top"]),
+          flush=True)
+    del trainer
+    return {"losses": losses, "first_step_ms": step_s[0] * 1e3,
+            "step_ms": warm * 1e3, "tokens_per_s": toks / warm,
+            "padded_tokens_per_s": SRL_BATCH * SRL_WIDTH["max_len"] / warm,
+            "peak_gb": peak_gb, "launches": launches[f"lstm_step{sfx}"],
+            "chunk": chunk, "idle_share": prof["idle_share"],
+            "kernel_ms": prof["matched_ms"], "busy_ms": prof["busy_ms"],
+            "profiled_step_ms": prof["step_ms"],
+            "kernel_share": prof["matched_ms"] / prof["step_ms"],
+            "top": prof["top"]}
+
+
+def srl_path(flush, gen) -> dict:
+    """SRL at the book's width: kernel 5 at [128, 128] against its plain
+    step (``_rnn_check``) and inside the layer forward and reversed with
+    the batch's masks (``_lstm_layer_hold``), timed beside its bound
+    (``rnn_step_times``); the kernel route against the plain one
+    (``_srl_parity``); SRL_STEPS Adam steps under ``fp32`` and ``bf16``
+    (``_srl_train``)."""
+    paddle, topo = srl_model()
+    values = seeded_values(topo, SEED + 40)
+    n_params = sum(v.size for ps in values.values() for v in ps.values())
+    feed = srl_feed(list(paddle.dataset.conll05.test(n=SRL_BATCH)()))
+    print(f"SRL (label_semantic_roles) at {SRL_WIDTH}, conll05's "
+          f"vocabularies ({paddle.dataset.conll05.WORD_VOCAB} words, "
+          f"{paddle.dataset.conll05.LABEL_COUNT} labels): "
+          f"{sum(s.kind == 'lstmemory' for s in topo.specs)} LSTMs, "
+          f"{n_params / 1e6:.2f}M float32 parameters from a numpy seed",
+          flush=True)
+    _policy("fp32")
+    b, hd = SRL_BATCH, SRL_WIDTH["hidden"]
+    errs = _rnn_check("lstm", b, hd, torch.device("cuda"), gen)
+    layer_hold = _lstm_layer_hold(torch.device("cuda"), gen,
+                                  feed["word@len"])
+    times = rnn_step_times("lstm", b, hd, torch.device("cuda"), gen, flush)
+    times.update(max_abs_err=errs[0], max_rel_err=errs[1], tf32=errs[2],
+                 layer=layer_hold)
+    parity = _srl_parity(paddle, topo, values, feed)
+    torch.cuda.empty_cache()
+    runs = {policy: _srl_train(paddle, topo, values, feed, policy)
+            for policy in ("fp32", "bf16")}
+    _policy("fp32")
+    return {"kernel5": times, "parity": parity, **runs,
+            "params_m": n_params / 1e6}
+
+
+def ocr_feed(rng, b) -> dict:
+    """Images whose column stripes encode a digit sequence (2 to
+    OCR_MAX_LABEL digits, a stripe of image_w / OCR_MAX_LABEL columns
+    each, brightness by digit), the digits as the label sequence."""
+    h, w = OCR_WIDTH["image_h"], OCR_WIDTH["image_w"]
+    stripe = w // OCR_MAX_LABEL
+    imgs = rng.rand(b, h, w, 1).astype(np.float32) * 0.1
+    lab = np.zeros((b, OCR_MAX_LABEL), np.int32)
+    lens = rng.randint(2, OCR_MAX_LABEL + 1, b).astype(np.int32)
+    for i in range(b):
+        digits = rng.randint(0, OCR_WIDTH["num_classes"], lens[i])
+        lab[i, :lens[i]] = digits
+        for j, d in enumerate(digits):
+            imgs[i, :, j * stripe:(j + 1) * stripe, 0] += (d + 1) / 11.0
+    return {"image": imgs, "label": lab, "label@len": lens}
+
+
+def ocr_path(flush, gen) -> dict:
+    """OCR with CTC at image 32 x 128, hidden 128: kernel 6 at [64, 128]
+    against its plain step and timed; OCR_STEPS Adam steps at batch
+    OCR_BATCH with OCR_PER_PASS kernel 6 calls a step; CTCError at the
+    pass's end."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import ocr_ctc
+
+    dev = torch.device("cuda")
+    _policy("fp32")
+    errs = _rnn_check("gru", OCR_BATCH, OCR_WIDTH["hidden"], dev, gen)
+    times = rnn_step_times("gru", OCR_BATCH, OCR_WIDTH["hidden"], dev, gen,
+                           flush)
+    times.update(max_abs_err=errs[0], max_rel_err=errs[1], tf32=errs[2])
+    _fresh(paddle)
+    cost, frames = ocr_ctc.build(**OCR_WIDTH)
+    paddle.evaluator.ctc_error(input=frames, label=cost.parents[1],
+                               blank=OCR_WIDTH["num_classes"],
+                               name="ocr_ctc_error")
+    topo = paddle.Topology(cost)
+    values = seeded_values(topo, SEED + 41)
+    rng = np.random.RandomState(SEED + 42)
+    feeds = [ocr_feed(rng, OCR_BATCH) for _ in range(OCR_STEPS)]
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=OCR_LR))
+    metrics = {}
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        "OCR-CTC", paddle, trainer, None, OCR_STEPS, "gru_step",
+        OCR_PER_PASS, falling=False, reader=lambda: iter(feeds),
+        metrics=metrics)
+    print(f"OCR-CTC training: {OCR_STEPS} Adam steps (lr {OCR_LR}) at batch "
+          f"{OCR_BATCH} x {OCR_WIDTH['image_h']} x {OCR_WIDTH['image_w']}, "
+          f"{OCR_PER_PASS // 2} columns of time, losses "
+          f"{[round(x, 4) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{OCR_BATCH / warm:.0f} images/s (smoke figure); peak memory "
+          f"{peak_gb:.2f} GB; kernel 6 calls a step "
+          f"{launches['gru_step'] // OCR_STEPS}; CTCError at the pass's end "
+          f"{metrics}", flush=True)
+    del trainer
+    return {"kernel6": times, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3, "images_per_s":
+            OCR_BATCH / warm, "peak_gb": peak_gb,
+            "launches": launches["gru_step"], "ctc_error": metrics}
+
+
+def ssd_feed(rng, b) -> dict:
+    """Synthetic detection images: 1 to max_gt boxes an image, each
+    painted in its class's colour on a dark noisy background, the other
+    ground-truth slots -1."""
+    size, classes, g = (SSD_WIDTH["image_size"], SSD_WIDTH["num_classes"],
+                        SSD_WIDTH["max_gt"])
+    palette = np.random.RandomState(SEED).rand(classes, 3).astype(np.float32)
+    img = rng.rand(b, size, size, 3).astype(np.float32) * 0.2
+    gt = np.zeros((b, g, 4), np.float32)
+    gl = np.full((b, g), -1.0, np.float32)
+    for i in range(b):
+        for j in range(rng.randint(1, g + 1)):
+            bw, bh = rng.uniform(0.1, 0.5, 2)
+            x1, y1 = rng.uniform(0, 1 - bw), rng.uniform(0, 1 - bh)
+            c = rng.randint(1, classes)
+            gt[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            gl[i, j] = c
+            img[i, int(y1 * size):int((y1 + bh) * size),
+                int(x1 * size):int((x1 + bw) * size)] = palette[c]
+    return {"image": img, "gt_box": gt.reshape(b, -1), "gt_label": gl}
+
+
+def _nms_without_sync(paddle, topo, params, feed) -> dict:
+    """``detection_output`` on the card over a forward's loc, conf and
+    priors: its NMS (``ops/boxes.nms``, every round) under
+    ``torch.cuda.set_sync_debug_mode("error")``, where a host sync
+    raises, the rest of the layer under ``"warn"`` (the syncs it makes
+    are counted); the layer's time by CUDA events."""
+    import warnings
+
+    from paddle_tpu_torch.core.registry import ApplyContext, get_layer_def
+    from paddle_tpu_torch.ops import boxes
+
+    with torch.no_grad():
+        outs, _ = topo.forward(params, topo.create_state(), feed,
+                               outputs=["ssd_loc", "ssd_conf", "ssd_priors"])
+    spec = topo.get_layer("detections")
+    inputs = [outs["ssd_loc"], outs["ssd_conf"], outs["ssd_priors"]]
+    ctx = ApplyContext(train=False, device=torch.device("cuda"))
+    real_nms = boxes.nms
+
+    def nms_no_sync(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_nms(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    boxes.nms = nms_no_sync
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                torch.no_grad():
+            warnings.simplefilter("always")
+            ev[0].record()
+            det = get_layer_def("detection_output").apply(spec.attrs, {},
+                                                          inputs, ctx)
+            ev[1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        boxes.nms = real_nms
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    syncs = [str(w.message)[:80] for w in caught
+             if "synchroniz" in str(w.message)]
+    kept = int((det[..., 0] >= 0).sum())
+    print(f"SSD detection_output on the card: NMS under "
+          f"set_sync_debug_mode('error') (no host sync), the rest of the "
+          f"layer {len(syncs)} syncs{(': ' + syncs[0]) if syncs else ''}; "
+          f"{ms:.2f} ms for {det.shape[0]} images x "
+          f"{SSD_WIDTH['num_classes'] - 1} classes x {inputs[2].shape[1]} "
+          f"priors, {kept} rows kept", flush=True)
+    return {"ms": ms, "rows_kept": kept, "syncs_outside_nms": len(syncs)}
+
+
+def ssd_path(flush, gen) -> dict:
+    """SSD at 300 px, 21 classes, under ``fused_bn_impl="pallas"``:
+    kernels 7a and 7b alone at its four batch norms' shapes against their
+    plain versions and timed (``bn_kernels_at``); SSD_STEPS Adam steps at
+    batch SSD_BATCH, 7a and 7b SSD_BNS launches each a step;
+    ``detection_output`` without a host sync (``_nms_without_sync``);
+    DetectionMAP at the pass's end."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import ssd
+
+    _policy("fp32")
+    alone = {"x".join(map(str, shape[1:])): bn_kernels_at(
+        shape, torch.float32, flush, gen, label="SSD's batch norm")
+        for shape in SSD_BN_SHAPES}
+    _fresh(paddle)
+    paddle.init(seed=SEED, fused_bn_impl="pallas")
+    cost, det = ssd.build(**SSD_WIDTH)
+    paddle.evaluator.detection_map(input=det, label=cost.parents[4],
+                                   gt_box=cost.parents[3], name="ssd_map")
+    topo = paddle.Topology([cost, det])
+    n_priors = topo.shapes["ssd_priors"][0]
+    values = resnet_values(topo, SEED + 43)
+    rng = np.random.RandomState(SEED + 44)
+    feeds = [ssd_feed(rng, SSD_BATCH) for _ in range(SSD_STEPS)]
+    trainer = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+        topo, values), paddle.optimizer.Adam(learning_rate=SSD_LR))
+    metrics = {}
+    losses, step_s, warm, peak_gb, launches = train_steps(
+        "SSD", paddle, trainer, None, SSD_STEPS, "bn_fwd_stats", SSD_BNS,
+        falling=False, reader=lambda: iter(feeds), metrics=metrics)
+    if launches["bn_bwd_stats"] != SSD_BNS * SSD_STEPS:
+        raise AssertionError(f"SSD: 7b launched {launches['bn_bwd_stats']} "
+                             f"times in {SSD_STEPS} steps")
+    prof = profile_step(trainer, feeds[0])
+    bn_ms = _bn_share(prof)
+    nms = _nms_without_sync(paddle, topo, trainer.parameters.values,
+                            feeds[0])
+    print(f"SSD training: {SSD_STEPS} Adam steps (lr {SSD_LR}) at batch "
+          f"{SSD_BATCH} x {SSD_WIDTH['image_size']}^2, {n_priors} priors, "
+          f"{SSD_WIDTH['num_classes']} classes, losses "
+          f"{[round(x, 4) for x in losses]}; step time first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms = "
+          f"{SSD_BATCH / warm:.1f} images/s (smoke figure); peak memory "
+          f"{peak_gb:.2f} GB; 7a / 7b launches a step "
+          f"{launches['bn_fwd_stats'] // SSD_STEPS} / "
+          f"{launches['bn_bwd_stats'] // SSD_STEPS}; one step under "
+          f"torch.profiler {prof['step_ms']:.1f} ms, device busy "
+          f"{prof['busy_ms']:.1f} ms"
+          + (f", idle share {prof['idle_share']:.1%}"
+             if prof["idle_share"] is not None else ", idle not measured")
+          + f"; 7a + 7b {bn_ms:.3f} ms ({bn_ms / prof['step_ms']:.2%}); "
+          f"DetectionMAP at the pass's end {metrics}", flush=True)
+    del trainer
+    return {"alone": alone, "losses": losses, "step_ms": warm * 1e3,
+            "first_step_ms": step_s[0] * 1e3,
+            "images_per_s": SSD_BATCH / warm, "peak_gb": peak_gb,
+            "launches": launches["bn_fwd_stats"],
+            "launches_bwd": launches["bn_bwd_stats"], "priors": n_priors,
+            "idle_share": prof["idle_share"], "bn_kernels_ms": bn_ms,
+            "profiled_step_ms": prof["step_ms"], "nms": nms,
+            "detection_map": metrics}
+
+
+def _book_feeds(name, b, seed) -> list:
+    """Two batches of ``b`` from the model's synthetic dataset: movielens
+    for the recommender, imikolov's 5-grams for word2vec."""
+    import paddle_tpu_torch as paddle
+
+    out = []
+    if name == "recommender":
+        keys = ("user_id", "gender", "age", "job", "movie_id", "categories",
+                "title")
+        samples = list(paddle.dataset.movielens.train(n=2 * b)())
+        for part in (samples[:b], samples[b:]):
+            fd = {k: np.asarray([s[i] for s in part], np.int32)
+                  for i, k in enumerate(keys)}
+            fd["score"] = np.stack([s[7] for s in part]).astype(np.float32)
+            out.append(fd)
+        return out
+    grams = np.asarray(list(paddle.dataset.imikolov.train(
+        samples=2 * b)()), np.int32)
+    for part in (grams[:b], grams[b:]):
+        fd = {f"w{i}": part[:, i] for i in range(W2V_WIDTH["window"] - 1)}
+        fd["next_word"] = part[:, -1]
+        out.append(fd)
+    return out
+
+
+def book_card_vs_cpu() -> dict:
+    """The recommender (movielens' vocabularies, emb 32, towers 200) and
+    word2vec (imikolov's 2074 words, emb 32, hidden 256, window 5; softmax
+    and hsigmoid) at batch BOOK_CPU_BATCH: the losses and every gradient
+    of two Adam steps on the card against the CPU from the same seeded
+    weights, within BOOK_CPU_TOL of max(1, max |cpu|)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import recommender, word2vec
+
+    builds = {
+        "recommender": lambda: recommender.build(**REC_WIDTH)[0],
+        "word2vec": lambda: word2vec.build(
+            vocab_size=paddle.dataset.imikolov.VOCAB_SIZE, **W2V_WIDTH)[0],
+        "word2vec hsigmoid": lambda: word2vec.build(
+            vocab_size=paddle.dataset.imikolov.VOCAB_SIZE,
+            use_hsigmoid=True, **W2V_WIDTH)[0]}
+    out = {}
+    for name, build in builds.items():
+        _fresh(paddle)
+        topo = paddle.Topology(build())
+        values = seeded_values(topo, SEED + 45)
+        feeds = _book_feeds(name.split()[0], BOOK_CPU_BATCH, SEED + 46)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            tr = paddle.trainer.SGD(
+                topo, paddle.parameters.from_numpy(topo, values,
+                                                   device=device),
+                paddle.optimizer.Adam(learning_rate=1e-3), device=device)
+            steps = []
+            for fd in feeds:
+                loss, grads = tr.forward_backward(fd)
+                steps.append((float(loss), grads))
+                tr.train(lambda: iter([fd]), event_handler=lambda e: None)
+            runs[device] = steps
+            del tr
+        errs = {}
+        for i, ((lc, gc), (lr_, gr)) in enumerate(zip(runs["cuda"],
+                                                      runs["cpu"])):
+            errs[f"step {i + 1} loss"] = _rel(lc, lr_)
+            errs.update({f"step {i + 1} d {l}.{p}": _rel_max_err(gc[l][p], g)
+                         for l, ps in gr.items() for p, g in ps.items()})
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        if not worst[1] <= BOOK_CPU_TOL:
+            raise AssertionError(f"{name} on the card vs the CPU: {worst[0]} "
+                                 f"{worst[1]} > {BOOK_CPU_TOL}")
+        print(f"{name} on the card vs the CPU at batch {BOOK_CPU_BATCH}, "
+              f"two Adam steps: losses {[round(s[0], 6) for s in runs['cuda']]}"
+              f" vs {[round(s[0], 6) for s in runs['cpu']]}; worst of "
+              f"{len(errs)} {worst[0]} at {worst[1]:.2e} of max(1, max |cpu|)"
+              f" (limit {BOOK_CPU_TOL:.0e})", flush=True)
+        out[name] = {"worst": worst[1], "at": worst[0], "checked": len(errs)}
+    return out
+
+
+def book_slice() -> dict:
+    """Phase 22: item 11a on the card - SRL at the book's width through
+    kernel 5 (``srl_path``), OCR-CTC through kernel 6 (``ocr_path``), SSD
+    through kernels 7a and 7b (``ssd_path``), the recommender and
+    word2vec card against CPU (``book_card_vs_cpu``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"srl": srl_path(flush, gen)}
+    torch.cuda.empty_cache()
+    out["ocr"] = ocr_path(flush, gen)
+    torch.cuda.empty_cache()
+    out["ssd"] = ssd_path(flush, gen)
+    del flush
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = book_card_vs_cpu()
+    return out
+
+
+BOOK_PHASES = {"book": book_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
     (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19), ``gen``
-    (phase 20) or ``vision`` (phase 21), for a development run; the full
-    run takes no arguments."""
+    (phase 20), ``vision`` (phase 21) or ``book`` (phase 22), for a
+    development run; the full run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -8690,7 +9325,7 @@ def selected(argv) -> list:
                and n not in V2_PHASES and n not in CTR_PHASES
                and n not in CKPT_PHASES and n not in SERVE_PHASES
                and n not in SERVE_FWD_PHASES and n not in GEN_PHASES
-               and n not in VISION_PHASES]
+               and n not in VISION_PHASES and n not in BOOK_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
@@ -8698,7 +9333,8 @@ def selected(argv) -> list:
                          f" + {sorted(CKPT_PHASES)} + {sorted(SERVE_PHASES)}"
                          f" + {sorted(SERVE_FWD_PHASES)}"
                          f" + {sorted(GEN_PHASES)}"
-                         f" + {sorted(VISION_PHASES)}")
+                         f" + {sorted(VISION_PHASES)}"
+                         f" + {sorted(BOOK_PHASES)}")
     return names
 
 
@@ -8743,7 +9379,7 @@ def main(argv=()) -> int:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
                              **CKPT_PHASES, **SERVE_PHASES,
                              **SERVE_FWD_PHASES, **GEN_PHASES,
-                             **VISION_PHASES}[name]()
+                             **VISION_PHASES, **BOOK_PHASES}[name]()
             torch.cuda.empty_cache()
         print(json.dumps({"only": out}), flush=True)
         return 0
@@ -8812,6 +9448,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     vision = vision_slice()
     torch.cuda.empty_cache()
+    book = book_slice()
+    torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
     kernels = [
@@ -8862,6 +9500,8 @@ def main(argv=()) -> int:
          "replaces": "paddle_tpu/ops/fused_rnn.py:44",
          "launches": lstm["launches"]["lstm_step"],
          "launches_replay": dispatch["lstm_route"]["replay_launches"],
+         "launches_srl": book["srl"]["fp32"]["launches"],
+         "srl_shape": book["srl"]["kernel5"],
          **rnn["lstm"]},
         {"name": "gru_step", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/rnn_step.cu",
@@ -8870,6 +9510,8 @@ def main(argv=()) -> int:
          "launches_replay": dispatch["nmt"]["replay_launches"],
          "launches_gen": gen["launches"],
          "gen_shape": gen["times"]["kernel6_at_gen_shape"],
+         "launches_ocr": book["ocr"]["launches"],
+         "ocr_shape": book["ocr"]["kernel6"],
          **rnn["gru"]},
         {"name": "bn_fwd_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
@@ -8877,6 +9519,9 @@ def main(argv=()) -> int:
          "launches": resnet["launches"]["bn_fwd_stats"],
          "launches_vgg": vision["vgg"]["fp32"]["launches"],
          "vgg_shape": vision["vgg"]["alone"]["f32"]["bn_fwd_stats"],
+         "launches_ssd": book["ssd"]["launches"],
+         "ssd_shapes": {k: v["bn_fwd_stats"]
+                        for k, v in book["ssd"]["alone"].items()},
          **conv["bn_fwd_stats"]},
         {"name": "bn_bwd_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/bn_stats.cu",
@@ -8884,6 +9529,9 @@ def main(argv=()) -> int:
          "launches": resnet["launches"]["bn_bwd_stats"],
          "launches_vgg": vision["vgg"]["fp32"]["launches_bwd"],
          "vgg_shape": vision["vgg"]["alone"]["f32"]["bn_bwd_stats"],
+         "launches_ssd": book["ssd"]["launches_bwd"],
+         "ssd_shapes": {k: v["bn_bwd_stats"]
+                        for k, v in book["ssd"]["alone"].items()},
          **conv["bn_bwd_stats"]},
         {"name": "matmul_stats", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/conv_bn.cu",
@@ -8936,6 +9584,7 @@ def main(argv=()) -> int:
              replaces="paddle_tpu/ops/fused_rnn.py:44",
              launches=rnn16_paths["lstm_route"]["launches"]["lstm_step_bf16"],
              launches_replay=dispatch["lstm_route_bf16"]["replay_launches"],
+             launches_srl=book["srl"]["bf16"]["launches"],
              instances=rnn16["lstm"]),
         dict(rnn16["gru"]["x bfloat16, mask float32"], name="gru_step_bf16",
              route="cuda", source="paddle_tpu_torch/ops/csrc/rnn_step.cu",
@@ -9059,6 +9708,7 @@ def main(argv=()) -> int:
         **{path: {k: v for k, v in resnet16[path].items() if k != "launches"}
            for path in ("fused", "bench")}}}), flush=True)
     print(json.dumps({"vision": vision}), flush=True)
+    print(json.dumps({"book": book}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -95,6 +95,10 @@ def register_layer(layer_def) -> LayerDef:
     return layer_def
 
 
+def registered_layers():
+    return dict(_LAYER_REGISTRY)
+
+
 def get_layer_def(kind: str) -> LayerDef:
     try:
         return _LAYER_REGISTRY[kind]

@@ -11,7 +11,7 @@ later slices.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union  # noqa: F401 (the JAX module's names)
 
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch import pooling as pool_mod
@@ -49,6 +49,14 @@ __all__ = [
     "img_conv", "img_pool", "global_pool", "batch_norm", "img_cmrnorm",
     "img_conv_transpose", "maxout", "bilinear_interp", "pad", "crop", "spp",
     "img_conv3d", "img_conv3d_transpose", "img_pool3d",
+    "priorbox", "roi_pool", "multibox_loss", "detection_output",
+    "crf", "crf_decoding", "ctc", "warp_ctc",
+    "clip", "power", "sum_to_one_norm", "cross_channel_norm", "l2_distance",
+    "out_prod", "linear_comb", "convex_comb", "multiplex", "repeat",
+    "resize", "rotate", "switch_order", "scale_shift", "scale_sub_region",
+    "prelu", "maxid", "sampling_id", "eos", "print_layer", "printer",
+    "tensor", "conv_shift", "row_conv", "factorization_machine",
+    "block_expand", "eltmul", "gated_unit", "get_output", "selective_fc",
 ]
 
 
@@ -763,6 +771,308 @@ def multi_head_attention(query, key=None, value=None, *, size, num_heads,
         "context_parallel": context_parallel}, name=name, size=size)
 
 
+# ------------------------------------------------------------- detection
+def priorbox(input, image, min_size, max_size=None, aspect_ratio=None,
+             variance=None, clip=True, name=None):
+    """SSD prior boxes (reference: gserver/layers/PriorBox.cpp)."""
+    return LayerOutput("priorbox", [input, image], {
+        "min_size": list(min_size),
+        "max_size": list(max_size or []),
+        "aspect_ratio": list(aspect_ratio or []),
+        "variance": list(variance or [0.1, 0.1, 0.2, 0.2]),
+        "clip": clip}, name=name)
+
+
+def roi_pool(input, rois, pooled_width, pooled_height, spatial_scale=1.0,
+             name=None):
+    """ROI max pooling (reference: ROIPoolLayer.cpp)."""
+    return LayerOutput("roi_pool", [input, rois], {
+        "pooled_width": pooled_width, "pooled_height": pooled_height,
+        "spatial_scale": spatial_scale}, name=name)
+
+
+def multibox_loss(input_loc, input_conf, priorbox, label, gt_box,
+                  overlap_threshold=0.5, neg_pos_ratio=3.0,
+                  background_id=0, name=None):
+    """SSD multibox loss (reference: MultiBoxLossLayer.cpp); ground-truth
+    label -1 marks a padding slot."""
+    return LayerOutput("multibox_loss",
+                       [input_loc, input_conf, priorbox, gt_box, label], {
+                           "overlap_threshold": overlap_threshold,
+                           "neg_pos_ratio": neg_pos_ratio,
+                           "background_id": background_id}, name=name)
+
+
+def detection_output(input_loc, input_conf, priorbox, num_classes=None,
+                     nms_threshold=0.45, nms_top_k=100, keep_top_k=100,
+                     confidence_threshold=0.01, background_id=0, name=None):
+    """Decoding and per-class NMS (reference: DetectionOutputLayer.cpp);
+    ``num_classes``, when given, must be the conf input's width."""
+    return LayerOutput("detection_output",
+                       [input_loc, input_conf, priorbox], {
+                           "num_classes": num_classes,
+                           "nms_threshold": nms_threshold,
+                           "nms_top_k": nms_top_k, "keep_top_k": keep_top_k,
+                           "confidence_threshold": confidence_threshold,
+                           "background_id": background_id},
+                       name=name, size=keep_top_k * 6)
+
+
+# ------------------------------------------------------------- CRF / CTC
+def crf(input, label, weight=None, name=None):
+    """Linear-chain CRF negative log-likelihood (reference: crf_layer) of
+    the emission sequence ``input`` [*, C] and the index sequence
+    ``label``."""
+    inputs = [input, label] + ([weight] if weight is not None else [])
+    return LayerOutput("crf_cost", inputs, {}, name=name)
+
+
+def crf_decoding(input, size=None, label=None, param_layer=None, name=None):
+    """Viterbi decoding of the best tag sequence (reference:
+    crf_decoding_layer); ``param_layer``, the crf() layer or its name,
+    shares that layer's transitions."""
+    attrs = {}
+    if param_layer is not None:
+        attrs["param_layer"] = (param_layer.name
+                                if isinstance(param_layer, LayerOutput)
+                                else param_layer)
+    inputs = [input] + ([label] if label is not None else [])
+    return LayerOutput("crf_decoding", inputs, attrs, name=name,
+                       size=input.size)
+
+
+def ctc(input, label, blank=0, norm_by_times=False, name=None):
+    """CTC loss (reference: ctc_layer, warp_ctc_layer) of the logit
+    sequence ``input`` [*, C], C counting the blank class."""
+    return LayerOutput("ctc_cost", [input, label],
+                       {"blank": blank, "norm_by_times": norm_by_times},
+                       name=name)
+
+
+warp_ctc = ctc   # the reference's warp_ctc_layer takes the same arguments
+
+
+# ------------------------------------------------- the long-tail catalog
+def clip(input, min, max, name=None):           # noqa: A002 (v2 API names)
+    return LayerOutput("clip", [input], {"min": min, "max": max},
+                       name=name, size=input.size)
+
+
+def power(input, other, name=None):
+    """other ** input, the exponent a width-1 input a sample (reference
+    power_layer)."""
+    return LayerOutput("power", [input, other], {}, name=name,
+                       size=other.size)
+
+
+def sum_to_one_norm(input, name=None):
+    return LayerOutput("sum_to_one_norm", [input], {}, name=name,
+                       size=input.size)
+
+
+def cross_channel_norm(input, name=None):
+    return LayerOutput("cross_channel_norm", [input], {}, name=name,
+                       size=input.size)
+
+
+def l2_distance(x, y, name=None):
+    return LayerOutput("l2_distance", [x, y], {}, name=name, size=1)
+
+
+def out_prod(input1, input2, name=None):
+    return LayerOutput("out_prod", [input1, input2], {}, name=name,
+                       size=(input1.size or 0) * (input2.size or 0) or None)
+
+
+def linear_comb(weights, vectors, size, name=None):
+    return LayerOutput("linear_comb", [weights, vectors], {"size": size},
+                       name=name, size=size)
+
+
+convex_comb = linear_comb    # reference alias
+
+
+def multiplex(index, *inputs, name=None):
+    return LayerOutput("multiplex", [index] + list(inputs), {}, name=name,
+                       size=inputs[0].size)
+
+
+def repeat(input, num_repeats, as_row_vector=True, name=None):
+    return LayerOutput("repeat", [input],
+                       {"num_repeats": num_repeats,
+                        "as_row_vector": as_row_vector}, name=name,
+                       size=(input.size or 0) * num_repeats or None)
+
+
+def resize(input, size, name=None):
+    return LayerOutput("resize", [input], {"size": size}, name=name,
+                       size=size)
+
+
+def rotate(input, name=None):
+    return LayerOutput("rotate", [input], {}, name=name, size=input.size)
+
+
+def switch_order(input, reshape_axis, name=None):
+    """Permute the non-batch axes; reshape_axis lists 1-based source
+    axes."""
+    return LayerOutput("switch_order", [input],
+                       {"reshape_axis": list(reshape_axis)}, name=name,
+                       size=input.size)
+
+
+def scale_shift(input, bias_attr=True, name=None):
+    return LayerOutput("scale_shift", [input],
+                       {"bias": bias_attr is not False}, name=name,
+                       size=input.size)
+
+
+def scale_sub_region(input, indices, value=1.0, name=None):
+    return LayerOutput("scale_sub_region", [input, indices],
+                       {"value": value}, name=name, size=input.size)
+
+
+def prelu(input, partial_sum_mode="all", name=None):
+    return LayerOutput("prelu", [input],
+                       {"partial_sum_mode": partial_sum_mode}, name=name,
+                       size=input.size)
+
+
+def maxid(input, name=None):
+    return LayerOutput("maxid", [input], {}, name=name, size=1)
+
+
+def sampling_id(input, name=None):
+    return LayerOutput("sampling_id", [input], {}, name=name, size=1)
+
+
+def eos(input, eos_id, name=None):
+    return LayerOutput("eos", [input], {"eos_id": eos_id}, name=name,
+                       size=1)
+
+
+def print_layer(input, format="{}", name=None):   # noqa: A002
+    return LayerOutput("print", [input], {"format": format}, name=name,
+                       size=input.size)
+
+
+printer = print_layer    # reference alias
+
+
+def tensor(input1, input2, size, act=None, bias_attr=True, name=None):
+    return LayerOutput("tensor", [input1, input2], {
+        "size": size, "act": act_mod.resolve(act),
+        "bias": bias_attr is not False}, name=name, size=size)
+
+
+def conv_shift(input1, input2, name=None):
+    return LayerOutput("conv_shift", [input1, input2], {}, name=name,
+                       size=input1.size)
+
+
+def row_conv(input, context_len, name=None):
+    return LayerOutput("row_conv", [input], {"context": context_len},
+                       name=name, size=input.size)
+
+
+def factorization_machine(input, factor_size, name=None):
+    return LayerOutput("factorization_machine", [input],
+                       {"factor_size": factor_size}, name=name, size=1)
+
+
+def block_expand(input, block_x, block_y, stride_x=None, stride_y=None,
+                 name=None):
+    return LayerOutput("block_expand", [input], {
+        "block_x": block_x, "block_y": block_y,
+        "stride_x": stride_x or block_x,
+        "stride_y": stride_y or block_y}, name=name)
+
+
+def eltmul(a, b, name=None):
+    """The elementwise product of two layers of equal width (reference
+    dotmul_operator)."""
+    if a.size and b.size and a.size != b.size:
+        raise ValueError(
+            f"eltmul inputs must have equal widths: {a.size} vs {b.size}")
+    return LayerOutput("eltmul", [a, b], {}, name=name,
+                       size=a.size or b.size)
+
+
+def gated_unit(input, size, act=None, gate_attr=None, name=None):
+    """act(fc(input)) * sigmoid(fc_gate(input)) (reference
+    gated_unit_layer)."""
+    proj = fc(input, size=size, act=act,
+              name=name and name + "_proj")
+    gate = fc(input, size=size, act="sigmoid", param_attr=gate_attr,
+              name=name and name + "_gate")
+    return eltmul(proj, gate, name=name)
+
+
+def get_output(input, arg_name: str, name=None):
+    """A secondary output of a layer (reference get_output_layer): of an
+    lstm_step, whose output is [h | c], ``state`` is h and ``cell`` c."""
+    h = (input.size or 0)
+    if input.kind == "lstm_step" and arg_name in ("state", "cell") and h:
+        lo, hi = (0, h) if arg_name == "state" else (h, 2 * h)
+        return slice(input, lo, hi, name=name)
+    raise ValueError(f"get_output: unsupported arg {arg_name!r} for "
+                     f"layer kind {input.kind!r}")
+
+
+def selective_fc(input, select, size, act=None, bias_attr=True, name=None):
+    """fc with an output-column selection mask (reference
+    selective_fc_layer: the dense product and the mask)."""
+    return LayerOutput("selective_fc", [input, select], {
+        "size": size, "act": act_mod.resolve(act),
+        "bias": bias_attr is not False}, name=name, size=size)
+
+
+# enums and support shims of trainer_config_helpers
+class AggregateLevel:
+    TO_NO_SEQUENCE = "non-seq"
+    TO_SEQUENCE = "seq"
+    EACH_SEQUENCE = "seq"
+    EACH_TIMESTEP = "non-seq"
+
+
+class ExpandLevel:
+    FROM_NO_SEQUENCE = AggregateLevel.TO_NO_SEQUENCE
+    FROM_SEQUENCE = AggregateLevel.TO_SEQUENCE
+    FROM_TIMESTEP = AggregateLevel.TO_NO_SEQUENCE
+
+
+class LayerType:
+    """Layer kind-name constants (reference: layers.py LayerType)."""
+    DATA = "data"
+    FC = "fc"
+    MIXED = "mixed"
+    LSTMEMORY = "lstmemory"
+    GRUMEMORY = "grumemory"
+    SEQUENCE_LAST_INSTANCE = "last_seq"
+    SEQUENCE_FIRST_INSTANCE = "first_seq"
+    POOLING_MAX = "max"
+    POOLING_AVG = "average"
+    COST = "classification_cost"
+
+    @staticmethod
+    def is_layer_type(type_name):
+        from paddle_tpu_torch.core.registry import registered_layers
+        return type_name in registered_layers()
+
+
+class BaseGeneratedInput:
+    """Base marker of generated inputs (reference: BaseGeneratedInput)."""
+
+
+def layer_support(*attrs):
+    """A no-op decorator kept for DSL sources (reference:
+    trainer_config_helpers layer_support)."""
+    def decorator(fn):
+        return fn
+    return decorator if not (len(attrs) == 1 and callable(attrs[0])) \
+        else attrs[0]
+
+
 # reference aliases (trainer_config_helpers spelling)
 gru_step_naive_layer = gru_step_layer
 gru_step_naive = gru_step_layer
@@ -771,9 +1081,9 @@ cross_entropy = cross_entropy_cost
 regression_cost = square_error_cost
 multi_binary_label_cross_entropy = multi_binary_label_cross_entropy_cost
 huber_cost = huber_classification_cost
+warp_ctc_layer = warp_ctc
 
-# the legacy ``*_layer`` names of the ported entries (the JAX package's
-# table, less the entries not ported)
+# the legacy ``*_layer`` names (the JAX package's table)
 _LEGACY = {
     "fc": "fc_layer", "data": "data_layer", "embedding": "embedding_layer",
     "img_conv": "img_conv_layer", "img_pool": "img_pool_layer",
@@ -794,6 +1104,27 @@ _LEGACY = {
     "img_conv3d": "img_conv3d_layer", "img_pool3d": "img_pool3d_layer",
     "bilinear_interp": "bilinear_interp_layer", "pad": "pad_layer",
     "crop": "crop_layer", "maxout": "maxout_layer", "spp": "spp_layer",
+    "repeat": "repeat_layer", "power": "power_layer",
+    "tensor": "tensor_layer", "rotate": "rotate_layer",
+    "l2_distance": "l2_distance_layer", "out_prod": "out_prod_layer",
+    "maxid": "maxid_layer", "eos": "eos_layer", "roi_pool": "roi_pool_layer",
+    "cross_channel_norm": "cross_channel_norm_layer",
+    "row_conv": "row_conv_layer", "prelu": "prelu_layer",
+    "gated_unit": "gated_unit_layer", "crf": "crf_layer",
+    "crf_decoding": "crf_decoding_layer", "ctc": "ctc_layer",
+    "multiplex": "multiplex_layer",
+    "sum_to_one_norm": "sum_to_one_norm_layer",
+    "sampling_id": "sampling_id_layer", "linear_comb": "linear_comb_layer",
+    "convex_comb": "convex_comb_layer",
+    "block_expand": "block_expand_layer", "clip": "clip_layer",
+    "resize": "resize_layer", "scale_shift": "scale_shift_layer",
+    "scale_sub_region": "scale_sub_region_layer",
+    "factorization_machine": "factorization_machine_layer",
+    "switch_order": "switch_order_layer", "print_layer": "printer_layer",
+    "priorbox": "priorbox_layer", "multibox_loss": "multibox_loss_layer",
+    "detection_output": "detection_output_layer",
+    "conv_shift": "conv_shift_layer", "get_output": "get_output_layer",
+    "selective_fc": "selective_fc_layer",
 }
 for _new, _old in _LEGACY.items():
     globals().setdefault(_old, globals()[_new])

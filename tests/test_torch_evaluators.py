@@ -133,8 +133,8 @@ def test_registry_attaches_to_topologies():
     assert pt.Topology(pred, collect_evaluators=False).evaluators == []
     pt.init(seed=0, device="cpu")
     assert pt.Topology(pred).evaluators == []
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.evaluator.chunk(pred, lbl)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        pt.evaluator.pnpair(pred, lbl, lbl)
 
 
 def _model(paddle):

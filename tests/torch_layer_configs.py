@@ -535,10 +535,254 @@ def _(paddle):
         layer.fc(net, size=10, act="softmax", name="out"), lbl)
 
 
+# ------------------------------------------- the long tail (item 11a)
+@config("layer_activations")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("input", _types(paddle)[0](100))
+    acts = ["tanh", "sigmoid", "softmax", "linear", "exp", "relu",
+            "brelu", "softrelu", "stanh", "abs", "square"]
+    outs = [layer.fc(x, size=10, act=a, name=f"act_{a}") for a in acts]
+    return layer.sum_cost(layer.concat(outs))
+
+
+@config("recursive_topology")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("data", _types(paddle)[0](100))
+    for i in range(8):
+        x = layer.addto([x, x], act="relu", name=f"add_{i}")
+    return layer.sum_cost(layer.fc(x, size=10, name="out"))
+
+
+@config("seq_costs")
+def _(paddle):
+    layer = paddle.layer
+    _, dvs, _, ivs = _types(paddle)
+    emis = layer.data("e", dvs(5, max_len=8))
+    tags = layer.data("t", ivs(5, max_len=8))
+    lbl = layer.data("lab", ivs(6, max_len=4))
+    crf = layer.crf(emis, tags, name="crf")
+    ctc = layer.ctc(layer.fc(emis, size=7, name="ctcproj"), lbl,
+                    name="ctc")
+    return [crf, ctc]
+
+
+@config("detection_ssd")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("im", dv(3 * 16 * 16), height=16, width=16)
+    feat = layer.img_conv(img, filter_size=3, num_filters=8, padding=1,
+                          stride=2, act="relu", name="feat")
+    pb = layer.priorbox(feat, img, min_size=[4], aspect_ratio=[],
+                        clip=True, name="priors")
+    loc = layer.fc(feat, size=64 * 4, name="loc")
+    conf = layer.reshape(layer.fc(feat, size=64 * 3, name="conf"),
+                         (64, 3), name="conf_r")
+    gt_box = layer.reshape(layer.data("gt_box", dv(8)), (2, 4),
+                           name="gtb")
+    gt_lab = layer.data("gt_lab", dv(2))
+    return layer.multibox_loss(loc, conf, pb, gt_lab, gt_box,
+                               name="mbloss")
+
+
+@config("misc_math_layers")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    a = layer.data("a", dv(6))
+    b = layer.data("b", dv(6))
+    w = layer.data("w", dv(1))
+    parts = [
+        layer.cos_sim(a, b, name="cos"),
+        layer.dot_prod(a, b, name="dot"),
+        layer.l2_distance(a, b, name="l2"),
+        layer.out_prod(a, b, name="outer"),
+        layer.power(w, a, name="pow"),
+        layer.scaling(w, a, name="scale"),
+        layer.interpolation(w, a, b, name="interp"),
+        layer.slope_intercept(a, slope=2.0, intercept=1.0, name="slope"),
+        layer.sum_to_one_norm(layer.activation(a, act="exp"),
+                              name="s2one"),
+        layer.clip(a, -5.0, 5.0, name="clip"),
+    ]
+    return layer.sum_cost(layer.concat(parts))
+
+
+@config("clip_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("input", _types(paddle)[0](300))
+    return layer.sum_cost(layer.clip(x, min=-10.0, max=10.0, name="clip"))
+
+
+@config("detection_output_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    loc = layer.data("loc", dv(16))
+    conf = layer.data("conf", dv(12))
+    pb = layer.data("pb", dv(32))
+    return layer.sum_cost(layer.detection_output(
+        loc, conf, pb, num_classes=3, name="det_out"))
+
+
+@config("multibox_loss_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    loc = layer.data("loc", dv(16))
+    conf = layer.data("conf", dv(12))
+    pb = layer.data("pb", dv(32))
+    lbl = layer.data("lab", dv(4))
+    gt = layer.data("gt", dv(16))
+    return layer.multibox_loss(loc, conf, pb, lbl, gt, name="mb_loss")
+
+
+@config("factorization_machine")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[0](16))
+    return layer.sum_cost(layer.factorization_machine(x, factor_size=4,
+                                                      name="fm"))
+
+
+@config("gated_unit_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[0](128))
+    return layer.sum_cost(layer.gated_unit(x, size=48, act="tanh",
+                                           name="gated"))
+
+
+@config("l2_distance_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    a = layer.data("a", dv(10))
+    b = layer.data("b", dv(10))
+    return layer.sum_cost(layer.l2_distance(a, b, name="l2"))
+
+
+@config("multiplex_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv, _, iv, _ = _types(paddle)
+    idx = layer.data("index", iv(2))
+    a = layer.data("a", dv(10))
+    b = layer.data("b", dv(10))
+    return layer.sum_cost(layer.multiplex(idx, a, b, name="mux"))
+
+
+@config("ntm_layers")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    w = layer.data("w", dv(1))
+    a = layer.data("a", dv(100))
+    b = layer.data("b", dv(100))
+    c = layer.data("c", dv(200))
+    interp = layer.interpolation(w, a, b, name="interp")
+    pw = layer.power(a, w, name="pow")
+    sc = layer.scaling(w, a, name="scale")
+    cs = layer.cos_sim(a, b, name="cos")
+    t = layer.tensor(a, b, size=10, name="tensor")
+    cshift = layer.conv_shift(a, layer.fc(c, size=7, name="kern"),
+                              name="cshift")
+    return layer.sum_cost(layer.concat([interp, pw, sc, cs, t, cshift]))
+
+
+@config("prelu_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("input", _types(paddle)[0](300))
+    return layer.sum_cost(layer.prelu(x, name="prelu"))
+
+
+@config("print_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("input", _types(paddle)[0](30))
+    return layer.sum_cost(layer.print_layer(x, name="print"))
+
+
+@config("repeat_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[0](6))
+    r1 = layer.repeat(x, 4, as_row_vector=True, name="rep_row")
+    r2 = layer.repeat(x, 4, as_row_vector=False, name="rep_col")
+    return layer.sum_cost(layer.concat([r1, r2]))
+
+
+@config("resize_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[0](24))
+    return layer.sum_cost(layer.resize(x, 8, name="resize"))
+
+
+@config("roi_pool_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 14 * 14), height=14, width=14)
+    c = layer.img_conv(img, filter_size=3, num_filters=4, padding=1,
+                       name="conv")
+    rois = layer.data("rois", dv(4))
+    rp = layer.roi_pool(c, rois, pooled_height=2, pooled_width=2,
+                        spatial_scale=1.0 / 2, name="roi")
+    return layer.sum_cost(rp)
+
+
+@config("row_conv_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[1](16, max_len=6))
+    rc = layer.row_conv(x, context_len=3, name="rowconv")
+    return layer.sum_cost(layer.last_seq(rc))
+
+
+@config("scale_shift_layer")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("data", _types(paddle)[0](100))
+    s1 = layer.scale_shift(x, name="ss_bias")
+    s2 = layer.scale_shift(x, bias_attr=False, name="ss_nobias")
+    return layer.sum_cost(layer.concat([s1, s2]))
+
+
+@config("scale_sub_region_layer")
+def _(paddle):
+    layer = paddle.layer
+    dv = _types(paddle)[0]
+    img = layer.data("image", dv(2 * 8 * 8), height=8, width=8)
+    ind = layer.data("indices", dv(6))
+    ssr = layer.scale_sub_region(img, ind, value=2.0, name="ssr")
+    return layer.sum_cost(layer.global_pool(ssr))
+
+
+@config("unused_layers_standalone")
+def _(paddle):
+    layer = paddle.layer
+    x = layer.data("x", _types(paddle)[0](32))
+    probs = layer.fc(x, size=5, act="softmax", name="probs")
+    layer.sampling_id(probs, name="sampled")      # left dangling
+    return layer.sum_cost(probs)
+
+
 # configs whose outputs only pin the JSON: "operators" pools a flattened
 # [B, 128] map with global_pool, which wants an image (both packages
-# refuse it); its two operators run in the CPU tests' own configs
-PROTO_ONLY = frozenset({"operators"})
+# refuse it); its two operators run in the CPU tests' own configs.  The
+# four others declare shapes the JAX package's own forward refuses:
+# detection_output_layer and multibox_loss_layer give 16 loc values for
+# 32 prior rows, ntm_layers a 100-wide exponent to power, roi_pool_layer
+# one roi of rank 1 where the layer wants [R, 4]; their layers run in
+# tests/test_torch_detection.py and tests/test_torch_misc_layers.py
+PROTO_ONLY = frozenset({"operators", "detection_output_layer",
+                        "multibox_loss_layer", "ntm_layers",
+                        "roi_pool_layer"})
 
 # configs whose forward runs in train mode, their batch norms on the
 # batch's statistics (the 3-D one on the plain statistics in both
@@ -546,7 +790,7 @@ PROTO_ONLY = frozenset({"operators"})
 TRAIN = frozenset({"batch_norm_3d", "networks_vgg"})
 
 
-def _beam_feed(rng, batch):
+def _beam_feed(rng, batch, padded):
     """beam_cross_entropy: 2 parents x 3 candidates, selected indices in
     [-1, 6) (one dead slot), gold in [0, 6)."""
     out = {}
@@ -562,7 +806,7 @@ def _beam_feed(rng, batch):
     return out
 
 
-def _seq_ops_feed(rng, batch):
+def _seq_ops_feed(rng, batch, padded):
     """seq_ops reshapes x's [T, 6] steps into rows of 12, which needs an
     even T in both packages (the declared max_len is 5): x is fed at T 4."""
     out = {"x": rng.standard_normal((batch, 4, 6)).astype(np.float32),
@@ -572,7 +816,7 @@ def _seq_ops_feed(rng, batch):
     return out
 
 
-def _nested_feed(rng, batch):
+def _nested_feed(rng, batch, padded):
     """nested_recurrent_group: documents of up to 3 sentences of up to 6
     words, 4 wide; ragged at both levels, a padded sentence of 0 words
     after each short document's last."""
@@ -585,8 +829,70 @@ def _nested_feed(rng, batch):
             "doc@sublen": sub.astype(np.int32)}
 
 
+def _seq_costs_feed(rng, batch, padded):
+    """seq_costs: emissions e [T 8, 5] with tags t, CTC labels lab of up
+    to 4 non-blank ids; padded, each label sequence is at most 3 long and
+    its emissions at least 2 * labels + 1, so that every CTC alignment
+    exists (the first row 8 frames, 3 labels)."""
+    out = {"e": rng.standard_normal((batch, 8, 5)).astype(np.float32),
+           "t": rng.randint(0, 5, (batch, 8)).astype(np.int32),
+           "lab": rng.randint(1, 6, (batch, 4)).astype(np.int32)}
+    if padded:
+        lab = rng.randint(1, 4, batch)
+        lab[0] = 3
+        lens = np.minimum(2 * lab + 1 + rng.randint(0, 3, batch), 8)
+        lens[0] = 8
+        out.update({"e@len": lens.astype(np.int32),
+                    "t@len": lens.astype(np.int32),
+                    "lab@len": lab.astype(np.int32)})
+    return out
+
+
+def _misc_math_feed(rng, batch, padded):
+    """misc_math_layers: power's base a positive, so that a ** w is
+    real."""
+    return {"a": (np.abs(rng.standard_normal((batch, 6))) + 0.1).astype(
+                np.float32),
+            "b": rng.standard_normal((batch, 6)).astype(np.float32),
+            "w": rng.standard_normal((batch, 1)).astype(np.float32)}
+
+
+def _corner_boxes(rng, shape):
+    """Corner boxes (x1, y1, x2, y2) inside the unit square."""
+    lo = rng.uniform(0.0, 0.6, shape + (2,))
+    wh = rng.uniform(0.1, 0.4, shape + (2,))
+    return np.concatenate([lo, lo + wh], -1).astype(np.float32)
+
+
+def _detection_ssd_feed(rng, batch, padded):
+    """detection_ssd: 16 px images and two ground-truth boxes of labels 1
+    or 2; the first image's two boxes are one box (a prior that is both
+    their best, which the force-match gives to the second), the second
+    image's second slot is padding (-1)."""
+    gt = _corner_boxes(rng, (batch, 2))
+    gt[0, 1] = gt[0, 0]
+    lab = rng.randint(1, 3, (batch, 2)).astype(np.float32)
+    lab[min(1, batch - 1), 1] = -1.0
+    return {"im": rng.standard_normal((batch, 16, 16, 3)).astype(np.float32),
+            "gt_box": gt.reshape(batch, 8), "gt_lab": lab}
+
+
+def _scale_sub_region_feed(rng, batch, padded):
+    """scale_sub_region_layer: 1-based inclusive pixel bounds x1 <= x2,
+    y1 <= y2 in the first four columns of the indices."""
+    a = rng.randint(1, 9, (batch, 2, 2))
+    a.sort(-1)
+    ind = np.zeros((batch, 6), np.float32)
+    ind[:, :4] = a.reshape(batch, 4)
+    return {"image": rng.standard_normal((batch, 8, 8, 2)).astype(np.float32),
+            "indices": ind}
+
+
 FEEDS = {"beam_cross_entropy": _beam_feed, "seq_ops": _seq_ops_feed,
-         "nested_recurrent_group": _nested_feed}
+         "nested_recurrent_group": _nested_feed,
+         "seq_costs": _seq_costs_feed, "misc_math_layers": _misc_math_feed,
+         "detection_ssd": _detection_ssd_feed,
+         "scale_sub_region_layer": _scale_sub_region_feed}
 
 
 def feed(topology, batch: int = 4, seed: int = 0, padded: bool = False,
@@ -598,7 +904,7 @@ def feed(topology, batch: int = 4, seed: int = 0, padded: bool = False,
     feed from FEEDS."""
     rng = np.random.RandomState(seed)
     if name in FEEDS:
-        return FEEDS[name](rng, batch)
+        return FEEDS[name](rng, batch, padded)
     out = {}
     for spec in topology.specs:
         if spec.kind != "data":
