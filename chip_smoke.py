@@ -381,16 +381,37 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    ``detection_output`` under ``set_sync_debug_mode("error")``,
    DetectionMAP); the recommender and word2vec (softmax and hsigmoid)
    card against CPU over two Adam steps (BOOK_CPU_TOL);
-23. one JSON line each for the LM training, NMT and LSTM, the bf16
+23. the rest of v2 (``v2rest_slice``): upstream's RNN benchmark config
+   (``benchmark/paddle/rnn/rnn.py``: vocabulary 30000, embedding 128, two
+   ``simple_lstm`` of 512, T 100, batch 128) in its
+   ``trainer_config_helpers`` style with a ``@provider`` module through
+   ``python -m paddle_tpu_torch train --config=`` in a subprocess,
+   ``--job=time`` (ms a batch, tokens/s) and ``--job=train`` (the costs
+   finite), then in this process a profiled step's idle share and the
+   peak memory (no kernel: the peephole LSTM takes the plain step); each
+   ``networks`` helper's model card against CPU at batch 4 (ITEM9_TOL);
+   ``networks.multi_head_attention`` at 512 wide, 4 heads, 128 x 100
+   padded, the kernel route against the plain one (the first loss, every
+   gradient, 3 Adam steps) with kernels 1, 2 and 3 one launch each a step;
+24. Fluid (``fluid_slice``): the book's ``vgg16_bn_drop`` (cifar-10 at 32
+   px, batch 128, Adam 1e-3, float32) through the eager executor on the
+   card, 6 steps (ms a step, images/s, peak memory, the idle share; the
+   losses finite; no kernel of the port launched), and the programs of
+   ``tests/torch_fluid_programs.py`` card against CPU from the same
+   starting values (FLUID_CPU_TOL), chapter 3's inference model saved and
+   loaded on the card;
+25. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
    whole-forward serving slice, generation, sweep, ResNet,
-   ResNet-under-bf16, vision and book runs, the card line again,
+   ResNet-under-bf16, vision, book, v2rest and fluid runs, the card line
+   again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
 phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve``,
-``serve_fwd``, ``gen``, ``vision`` or ``book``, or a part of one:
+``serve_fwd``, ``gen``, ``vision``, ``book``, ``v2rest`` or ``fluid``, or a
+part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -5693,16 +5714,7 @@ def _layer_configs():
     layers that the CPU tests hold against the JAX package; each is
     written for the package (and LM builder) it is given and imports
     neither."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_layer_configs.py")
-    spec = importlib.util.spec_from_file_location("torch_layer_configs",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _tests_module("torch_layer_configs")
 
 
 def _golden_run(paddle, configs, name, values, device, gen):
@@ -9307,13 +9319,513 @@ def book_slice() -> dict:
 BOOK_PHASES = {"book": book_slice}
 
 
+# --------------------------------------------------------- v2rest (23)
+# upstream's benchmark/paddle/rnn/rnn.py (BASELINE.md "LSTM text-clf
+# h=512, bs128"): vocabulary 30000, embedding 128, two simple_lstm of
+# 512, fixed length 100, batch 128
+LEGACY_VOCAB, LEGACY_LEN, LEGACY_H, LEGACY_BATCH = 30000, 100, 512, 128
+LEGACY_BATCHES, LEGACY_ITERS = 4, 10
+LEGACY_PROVIDER = f"""import numpy as np
+from paddle_tpu_torch.py_data_provider2 import (provider, integer_value,
+                                                integer_value_sequence)
+
+
+@provider(input_types={{"data": integer_value_sequence(
+              {LEGACY_VOCAB}, max_len={LEGACY_LEN}),
+                       "label": integer_value(2)}},
+          should_shuffle=False)
+def process(settings, file_name):
+    rng = np.random.RandomState({SEED + 50})
+    for _ in range({LEGACY_BATCHES * LEGACY_BATCH}):
+        yield {{"data": rng.randint(0, {LEGACY_VOCAB}, {LEGACY_LEN})
+                .astype("int32"), "label": int(rng.randint(0, 2))}}
+"""
+LEGACY_CONFIG = f"""from paddle_tpu_torch.trainer_config_helpers import *
+
+settings(batch_size={LEGACY_BATCH}, learning_rate=2e-3,
+         learning_method=AdamOptimizer(),
+         regularization=L2Regularization(8e-4),
+         gradient_clipping_threshold=25)
+
+define_py_data_sources2(["synthetic"], None, module="rnn_provider",
+                        obj="process")
+
+net = data_layer("data", size={LEGACY_VOCAB})
+net = embedding_layer(input=net, size=128)
+for _ in range(2):
+    net = simple_lstm(input=net, size={LEGACY_H})
+net = last_seq(input=net)
+net = fc_layer(input=net, size=2, act=SoftmaxActivation())
+lab = data_layer("label", 2)
+loss = classification_cost(input=net, label=lab)
+outputs(loss)
+"""
+# networks.multi_head_attention at the LM's attention width
+NET_B, NET_T, NET_W, NET_HEADS, NET_STEPS = 128, 100, 512, 4, 3
+NET_CPU_BATCH = 4
+
+
+def _tests_module(name):
+    """``tests/<name>.py``, a helper of the CPU tests that imports neither
+    JAX nor the JAX package."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cli_json(args, root, what) -> tuple:
+    """Run ``python -m paddle_tpu_torch <args>`` from the checkout: (its
+    stdout's lines, the last line's JSON or None)."""
+    proc = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", *args],
+                          cwd=root, env={**os.environ, "PYTHONPATH": root},
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        return lines, json.loads(lines[-1])
+    except (IndexError, ValueError):
+        return lines, None
+
+
+def legacy_rnn_path() -> dict:
+    """Upstream's RNN benchmark config, written in its
+    ``trainer_config_helpers`` style with a ``@provider`` module, through
+    ``python -m paddle_tpu_torch train --config=`` on the card:
+    ``--job=time`` (ms a batch, samples and tokens a second) and
+    ``--job=train`` over LEGACY_BATCHES batches of the provider (the
+    costs finite); then the config loaded in this process through the
+    CLI's own loader for two steps' peak memory and a profiled step's idle
+    share.  ``simple_lstm`` has the peephole on, so the step is the plain
+    one: no kernel launches on this path."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import cli, ops
+    from paddle_tpu_torch.data_feeder import DataFeeder
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="legacy_rnn_")
+    try:
+        with open(os.path.join(tmp, "rnn_provider.py"), "w") as f:
+            f.write(LEGACY_PROVIDER)
+        cfg_path = os.path.join(tmp, "rnn.py")
+        with open(cfg_path, "w") as f:
+            f.write(LEGACY_CONFIG)
+        base = ["train", f"--config={cfg_path}", "--device=cuda"]
+        _, timed = _cli_json(base + ["--job=time",
+                                     f"--batch_size={LEGACY_BATCH}",
+                                     f"--iters={LEGACY_ITERS}"], root,
+                             "legacy RNN --job=time")
+        lines, _ = _cli_json(base + ["--job=train", "--num_passes=1",
+                                     "--log_period=1"], root,
+                             "legacy RNN --job=train")
+        costs = [float(ln.rsplit("Cost", 1)[1]) for ln in lines
+                 if ln.startswith("Pass 0, Batch")]
+        if len(costs) != LEGACY_BATCHES or not all(map(np.isfinite, costs)):
+            raise AssertionError(f"legacy RNN --job=train costs {costs}")
+        _fresh(paddle)
+        cfg = cli._load_config(cfg_path)
+        topo = paddle.Topology(cfg["cost"])
+        trainer = paddle.trainer.SGD(topo, paddle.parameters.create(topo),
+                                     paddle.optimizer.Momentum(
+                                         learning_rate=0.01, momentum=0.9))
+        batch = next(iter(cfg["train_reader"]()))
+        feed = DataFeeder(topo, cfg["feeding"]).feed(batch)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            float(trainer._step(feed))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = {k: n for k, n in ops.launch_counts().items() if n}
+        if launched:
+            raise AssertionError(f"legacy RNN: the plain path launched "
+                                 f"{launched}")
+        prof = profile_step(trainer, feed)
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms = timed["ms_per_batch"]
+    tokens_s = timed["samples_per_sec"] * LEGACY_LEN
+    print(f"legacy RNN config (upstream rnn.py: vocabulary {LEGACY_VOCAB}, "
+          f"embedding 128, 2 x simple_lstm {LEGACY_H}, T {LEGACY_LEN}) "
+          f"through `python -m paddle_tpu_torch train`: --job=time at batch "
+          f"{LEGACY_BATCH} {ms} ms a batch, {tokens_s:.0f} tokens/s; "
+          f"--job=train costs {[round(c, 5) for c in costs]}; peak memory "
+          f"{peak_gb:.2f} GB; no kernel launched (simple_lstm's peephole "
+          f"takes the plain step, not kernel 5); {_idle(prof)}", flush=True)
+    return {"ms_per_batch": ms, "samples_per_s": timed["samples_per_sec"],
+            "tokens_per_s": tokens_s, "costs": costs, "peak_gb": peak_gb,
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"],
+            "profiled_step_ms": prof["step_ms"], "launches": 0,
+            "optimizer": "Momentum(0.01, 0.9), the CLI's default: the "
+                         "config does not assign settings()' optimizer"}
+
+
+def _net_model(paddle):
+    """networks.multi_head_attention (4 heads of 128 over 512) on a padded
+    sequence batch, averaged, fc 2 softmax, classification cost."""
+    _fresh(paddle)
+    layer, dt = paddle.layer, paddle.data_type
+    q = layer.data("q", dt.dense_vector_sequence(NET_W, max_len=NET_T))
+    att = paddle.networks.multi_head_attention(q, q, q, head_num=NET_HEADS,
+                                               name="mha")
+    pred = layer.fc(layer.pooling(att, pooling_type="avg"), size=2,
+                    act="softmax")
+    lab = layer.data("label", dt.integer_value(2))
+    return paddle.Topology(layer.classification_cost(pred, lab))
+
+
+def _net_cpu_run(paddle, configs, name, values, device):
+    """A helper's model at batch NET_CPU_BATCH (padded): its cost and the
+    gradient of every parameter and float feed, on ``device``."""
+    _fresh(paddle)
+    topo = paddle.Topology(configs.CONFIGS[name](paddle))
+    if values is None:
+        values = seeded_values(topo, SEED + 51)
+    feed = configs.feed(topo, padded=True, batch=NET_CPU_BATCH, seed=SEED)
+    params = paddle.parameters.from_numpy(topo, values, device=device).values
+    wrt = {}
+    for l, ps in params.items():
+        for p, t in ps.items():
+            wrt[f"{l}.{p}"] = t.requires_grad_(True)
+    tfeed = {}
+    for k, a in feed.items():
+        t = torch.as_tensor(a, device=device)
+        if t.dtype == torch.float32 and not k.endswith("@len"):
+            wrt[f"feed {k}"] = t.requires_grad_(True)
+        tfeed[k] = t
+    outs, _ = topo.forward(params, topo.create_state(device=device), tfeed,
+                           train=True, device=device)
+    cost = outs[topo.output_names[0]]
+    grads = torch.autograd.grad(cost, list(wrt.values()), allow_unused=True)
+    return values, float(cost.detach()), dict(zip(wrt, grads))
+
+
+def networks_path() -> dict:
+    """The ``networks`` helpers of item 11b: each helper's model
+    (``tests/torch_networks_configs.py``) on the card against the CPU at
+    batch NET_CPU_BATCH from the same weights (the cost and every
+    gradient within ITEM9_TOL of max(1, max |cpu|)); then
+    ``networks.multi_head_attention`` at the LM's width (NET_W wide,
+    NET_HEADS heads) over NET_B x NET_T padded rows, the kernel route
+    against ``attention_impl="torch"`` on the card: the first loss, every
+    gradient and NET_STEPS Adam steps, kernels 1, 2 and 3 counted a step
+    (one attention layer: one launch each)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import config
+
+    configs = _tests_module("torch_networks_configs")
+    helpers = {}
+    for name in sorted(configs.CONFIGS):
+        values, lc, gc = _net_cpu_run(paddle, configs, name, None, "cuda")
+        _, lr_, gr = _net_cpu_run(paddle, configs, name, values, "cpu")
+        errs = {"cost": _rel(lc, lr_)}
+        errs.update({k: (0.0 if g is None else _rel_max_err(gc[k], g))
+                     for k, g in gr.items()})
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        if not worst[1] <= ITEM9_TOL:
+            raise AssertionError(f"networks.{name} on the card vs the CPU: "
+                                 f"{worst[0]} {worst[1]} > {ITEM9_TOL}")
+        helpers[name] = {"worst": worst[1], "at": worst[0],
+                         "checked": len(errs)}
+    print(f"networks helpers on the card vs the CPU at batch "
+          f"{NET_CPU_BATCH}: " + ", ".join(
+              f"{n} {h['worst']:.1e}" for n, h in helpers.items())
+          + f" (limit {ITEM9_TOL:.0e} of max(1, max |cpu|))", flush=True)
+
+    topo = _net_model(paddle)
+    values = seeded_values(topo, SEED + 52)
+    rng = np.random.default_rng(SEED + 53)
+    lens = rng.integers(1, NET_T + 1, NET_B).astype(np.int32)
+    lens[::4] = NET_T
+    feed = {"q": rng.standard_normal((NET_B, NET_T, NET_W),
+                                     dtype=np.float32),
+            "q@len": lens,
+            "label": rng.integers(0, 2, NET_B).astype(np.int32)}
+    runs = {}
+    for impl in (None, "torch"):
+        config.set_option("attention_impl", impl)
+        try:
+            tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Adam(learning_rate=1e-3))
+            loss, grads = tr.forward_backward(feed)
+            kernel, per = (("flash_fwd", 1) if impl is None
+                           else ("flash_fwd", 0))
+            losses, step_s, warm, peak_gb, launches = train_steps(
+                f"networks.multi_head_attention ({impl or 'kernels'})",
+                paddle, tr, feed, NET_STEPS, kernel, per, falling=False)
+            runs[impl] = dict(loss=float(loss), grads=grads, losses=losses,
+                              step_ms=warm * 1e3, peak_gb=peak_gb,
+                              launches={k: launches[k]
+                                        for k in TRAIN_KERNELS})
+            del tr
+        finally:
+            config.set_option("attention_impl", None)
+    k, t = runs[None], runs["torch"]
+    if any(n != NET_STEPS for n in k["launches"].values()):
+        raise AssertionError(f"networks.multi_head_attention: launches "
+                             f"{k['launches']} in {NET_STEPS} steps, "
+                             f"expected one of each a step")
+    if any(t["launches"].values()):
+        raise AssertionError(f"plain route launched {t['launches']}")
+    loss_rel = _rel(k["loss"], t["loss"])
+    worst = max(((g - t["grads"][l][p]).abs().max().item()
+                 / max(1.0, t["grads"][l][p].abs().max().item()),
+                 f"{l}.{p}")
+                for l, ps in k["grads"].items() for p, g in ps.items())
+    traj = max(_rel(a, b) for a, b in zip(k["losses"], t["losses"]))
+    if not (loss_rel <= 1e-5 and worst[0] <= TOL and traj <= TOL):
+        raise AssertionError(
+            f"networks.multi_head_attention kernel vs plain: loss "
+            f"{loss_rel}, gradient {worst}, trajectory {k['losses']} vs "
+            f"{t['losses']}")
+    print(f"networks.multi_head_attention ({NET_HEADS} x "
+          f"{NET_W // NET_HEADS} over {NET_W}) at {NET_B} x {NET_T}, padded: "
+          f"kernels 1, 2, 3 one launch each a step ({k['launches']} in "
+          f"{NET_STEPS} steps); kernel route vs plain: first loss "
+          f"{loss_rel:.1e} relative, worst gradient {worst[1]} at "
+          f"{worst[0]:.1e}, {NET_STEPS}-step Adam losses within {traj:.1e}; "
+          f"step {k['step_ms']:.1f} ms on the kernels, {t['step_ms']:.1f} ms "
+          f"plain; peak {k['peak_gb']:.2f} GB", flush=True)
+    return {"helpers": helpers,
+            "mha": {"launches": k["launches"], "per_step": 1,
+                    "loss_rel": loss_rel, "grad_rel": worst[0],
+                    "grad_at": worst[1], "traj_rel": traj,
+                    "step_ms": k["step_ms"], "plain_step_ms": t["step_ms"],
+                    "peak_gb": k["peak_gb"],
+                    "shape": {"B": NET_B, "T": NET_T, "W": NET_W,
+                              "heads": NET_HEADS}}}
+
+
+def v2rest_slice() -> dict:
+    """Phase 23: item 11b on the card - the legacy RNN config through the
+    CLI (``legacy_rnn_path``) and the ``networks`` helpers
+    (``networks_path``)."""
+    out = {"legacy_rnn": legacy_rnn_path()}
+    torch.cuda.empty_cache()
+    out["networks"] = networks_path()
+    return out
+
+
+V2REST_PHASES = {"v2rest": v2rest_slice}
+
+
+# ---------------------------------------------------------- fluid (24)
+# the Fluid book's chapter 3 (test_image_classification_train.py):
+# vgg16_bn_drop on cifar-10
+FLUID_VGG_BATCH, FLUID_VGG_STEPS = 128, 6
+FLUID_CPU_TOL = 1e-4
+
+
+def _host_negatives(ctx, n, c):
+    """nce's negatives drawn on the host from the op's (seed, step,
+    rng_id, call): the same on the card and on the CPU."""
+    seed = np.random.SeedSequence(list(ctx._base) + [ctx._calls])
+    ctx._calls += 1
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, c, n), device=ctx.device)
+
+
+def vgg16_bn_drop(fluid, img):
+    """The book's vgg16_bn_drop: five ``nets.img_conv_group`` blocks (64,
+    128, 256, 512, 512; batch norm, dropout 0.3 / 0.4), dropout 0.5, fc
+    512, batch norm, dropout 0.5, fc 512."""
+    def block(ipt, nf, groups, drops):
+        return fluid.nets.img_conv_group(
+            input=ipt, pool_size=2, pool_stride=2,
+            conv_num_filter=[nf] * groups, conv_filter_size=3,
+            conv_act="relu", conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=drops, pool_type="max")
+
+    t = block(img, 64, 2, [0.3, 0])
+    t = block(t, 128, 2, [0.4, 0])
+    t = block(t, 256, 3, [0.4, 0.4, 0])
+    t = block(t, 512, 3, [0.4, 0.4, 0])
+    t = block(t, 512, 3, [0.4, 0.4, 0])
+    t = fluid.layers.dropout(x=t, dropout_prob=0.5)
+    t = fluid.layers.fc(input=t, size=512, act=None)
+    t = fluid.layers.batch_norm(input=t, act="relu")
+    t = fluid.layers.dropout(x=t, dropout_prob=0.5)
+    return fluid.layers.fc(input=t, size=512, act=None)
+
+
+def fluid_vgg_path() -> dict:
+    """vgg16_bn_drop at the book's width: 32 px cifar-10 (synthetic),
+    batch FLUID_VGG_BATCH, Adam 1e-3, float32, FLUID_VGG_STEPS steps of
+    one batch through the eager executor on the card (the losses finite;
+    a few steps of dropout and Adam need not fall, and the ops' values are
+    held by ``fluid_book_card_vs_cpu``), ms a step, images/s, peak
+    memory, a profiled step's idle share; no kernel of the port is
+    launched (Fluid reaches no TPU-kernel counterpart)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+
+    fluid.framework.reset_default_programs()
+    img = fluid.layers.data(name="pixel", shape=[3, 32, 32])
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    predict = fluid.layers.fc(input=vgg16_bn_drop(fluid, img), size=10,
+                              act="softmax")
+    avg_cost = fluid.layers.mean(fluid.layers.cross_entropy(
+        input=predict, label=label))
+    acc = fluid.layers.accuracy(input=predict, label=label)
+    fluid.optimizer.Adam(learning_rate=0.001).minimize(avg_cost)
+    samples = list(paddle.dataset.cifar.train10(n=FLUID_VGG_BATCH)())
+    feed = {"pixel": np.stack([s[0] for s in samples]).reshape(
+        -1, 3, 32, 32).astype(np.float32),
+            "label": np.asarray([[s[1]] for s in samples], np.int64)}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(fluid.default_startup_program(), scope=scope)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(FLUID_VGG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lv, _ = exe.run(feed=feed, fetch_list=[avg_cost, acc], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"fluid launched the port's kernels "
+                             f"{launched}")
+    if not all(map(np.isfinite, losses)):
+        raise AssertionError(f"vgg16_bn_drop losses {losses}")
+    prof = profile_call(lambda: exe.run(feed=feed, fetch_list=[avg_cost],
+                                        scope=scope))
+    warm = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    n_ops = len(fluid.default_main_program().global_block().ops)
+    print(f"fluid vgg16_bn_drop (book ch. 3, 32 px, batch "
+          f"{FLUID_VGG_BATCH}, Adam 1e-3, float32, {n_ops} ops a step "
+          f"through the eager executor): losses "
+          f"{[round(x, 4) for x in losses]}; step first "
+          f"{step_s[0] * 1e3:.1f} ms, median after it {warm * 1e3:.1f} ms "
+          f"({FLUID_VGG_BATCH / warm:.0f} images/s); peak memory "
+          f"{peak_gb:.2f} GB; no kernel of the port launched; "
+          f"{_idle(prof)}", flush=True)
+    return {"losses": losses, "first_step_ms": step_s[0] * 1e3,
+            "step_ms": warm * 1e3, "images_per_s": FLUID_VGG_BATCH / warm,
+            "peak_gb": peak_gb, "ops": n_ops, "launches": 0,
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"],
+            "profiled_step_ms": prof["step_ms"],
+            "top": prof["top"][:5]}
+
+
+def fluid_book_card_vs_cpu() -> dict:
+    """The programs of ``tests/torch_fluid_programs.py`` (fit_a_line,
+    recognize_digits, Adam with decay and clipping, the five book
+    chapters) at their test widths: the same starting values (the CPU
+    startup run's) on the card and on the CPU, the losses of every step
+    within FLUID_CPU_TOL relative (machine translation's beams: the ids
+    equal, the scores within FLUID_CPU_TOL); nce's negatives drawn on the
+    host (``_host_negatives``).  Then chapter 3's inference model saved
+    and loaded on the card, its output equal to the program's."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import ops as fops
+
+    progs = _tests_module("torch_fluid_programs")
+    draw, fops.nce_negatives = fops.nce_negatives, _host_negatives
+    out = {}
+    try:
+        for name in progs.PROGRAMS:
+            runs = {}
+            for key, place in (("cpu", fluid.CPUPlace()),
+                               ("cuda", fluid.CUDAPlace(0))):
+                main, startup, fetch, feeds = progs.build(fluid, name)
+                exe, scope = fluid.Executor(place), fluid.Scope()
+                if not runs:
+                    exe.run(startup, scope=scope)
+                    init = {k: v.cpu().numpy() for k, v in
+                            scope.vars.items()}
+                else:
+                    exe._step = 1
+                    for k, v in init.items():
+                        scope.set(k, v)
+                n = progs.STEPS if name in progs.TRAINED else 1
+                runs[key] = [
+                    exe.run(main, feed=feeds(i), fetch_list=fetch,
+                            scope=scope) for i in range(n)]
+            cpu, card = runs["cpu"], runs["cuda"]
+            if name in progs.TRAINED:
+                err = max(_rel(float(a[0]), float(b[0]))
+                          for a, b in zip(card, cpu))
+                ok = err <= FLUID_CPU_TOL
+            else:
+                err = _rel_max_err(torch.as_tensor(card[0][1]),
+                                   torch.as_tensor(cpu[0][1]))
+                ok = (np.array_equal(card[0][0], cpu[0][0])
+                      and err <= FLUID_CPU_TOL)
+            if not ok:
+                raise AssertionError(f"fluid {name} on the card vs the "
+                                     f"CPU: {card} vs {cpu}")
+            out[name] = {"losses": [float(s[0]) for s in card]
+                         if name in progs.TRAINED else None,
+                         "worst_rel": err}
+        main, startup, fetch, feeds = progs.build(fluid,
+                                                  "image_classification")
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        for i in range(2):
+            exe.run(main, feed=feeds(i), fetch_list=fetch, scope=scope)
+        logits = fetch[1]
+        want, = exe.run(fluid.io._prune_for_inference(
+            main, ["pixel"], [logits]), feed={"pixel": feeds(0)["pixel"]},
+            fetch_list=[logits], scope=scope)
+        tmp = tempfile.mkdtemp(prefix="fluid_infer_")
+        try:
+            fluid.io.save_inference_model(tmp, ["pixel"], [logits], exe,
+                                          main_program=main, scope=scope)
+            loaded = fluid.Scope()
+            prog, feed_names, fetch_names = fluid.io.load_inference_model(
+                tmp, exe, scope=loaded)
+            got, = exe.run(prog, feed={"pixel": feeds(0)["pixel"]},
+                           fetch_list=fetch_names, scope=loaded)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if not np.array_equal(got, want):
+            raise AssertionError("fluid inference model on the card: the "
+                                 "loaded model's output differs")
+        out["inference_model"] = {"shape": list(got.shape), "equal": True}
+    finally:
+        fops.nce_negatives = draw
+    print("fluid programs on the card vs the CPU from the same starting "
+          "values: " + ", ".join(f"{n} {v['worst_rel']:.1e}"
+                                 for n, v in out.items()
+                                 if n != "inference_model")
+          + f" (limit {FLUID_CPU_TOL:.0e}); chapter 3's inference model "
+          f"saved and loaded on the card, output equal", flush=True)
+    return out
+
+
+def fluid_slice() -> dict:
+    """Phase 24: item 12a on the card - vgg16_bn_drop at the book's width
+    (``fluid_vgg_path``) and the book programs card against CPU
+    (``fluid_book_card_vs_cpu``)."""
+    out = {"vgg16_bn_drop": fluid_vgg_path()}
+    torch.cuda.empty_cache()
+    out["programs"] = fluid_book_card_vs_cpu()
+    return out
+
+
+FLUID_PHASES = {"fluid": fluid_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
     (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19), ``gen``
-    (phase 20), ``vision`` (phase 21) or ``book`` (phase 22), for a
-    development run; the full run takes no arguments."""
+    (phase 20), ``vision`` (phase 21), ``book`` (phase 22), ``v2rest``
+    (phase 23) or ``fluid`` (phase 24), for a development run; the full
+    run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -9325,7 +9837,8 @@ def selected(argv) -> list:
                and n not in V2_PHASES and n not in CTR_PHASES
                and n not in CKPT_PHASES and n not in SERVE_PHASES
                and n not in SERVE_FWD_PHASES and n not in GEN_PHASES
-               and n not in VISION_PHASES and n not in BOOK_PHASES]
+               and n not in VISION_PHASES and n not in BOOK_PHASES
+               and n not in V2REST_PHASES and n not in FLUID_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
@@ -9334,7 +9847,9 @@ def selected(argv) -> list:
                          f" + {sorted(SERVE_FWD_PHASES)}"
                          f" + {sorted(GEN_PHASES)}"
                          f" + {sorted(VISION_PHASES)}"
-                         f" + {sorted(BOOK_PHASES)}")
+                         f" + {sorted(BOOK_PHASES)}"
+                         f" + {sorted(V2REST_PHASES)}"
+                         f" + {sorted(FLUID_PHASES)}")
     return names
 
 
@@ -9379,8 +9894,10 @@ def main(argv=()) -> int:
                 out[name] = {**DISPATCH_PHASES, **CTR_PHASES,
                              **CKPT_PHASES, **SERVE_PHASES,
                              **SERVE_FWD_PHASES, **GEN_PHASES,
-                             **VISION_PHASES, **BOOK_PHASES}[name]()
+                             **VISION_PHASES, **BOOK_PHASES,
+                             **V2REST_PHASES, **FLUID_PHASES}[name]()
             torch.cuda.empty_cache()
+        print(card, flush=True)
         print(json.dumps({"only": out}), flush=True)
         return 0
     flash_err, flash_t = flash_phase(dev, gen, flush, parents)
@@ -9450,6 +9967,11 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     book = book_slice()
     torch.cuda.empty_cache()
+    v2rest = v2rest_slice()
+    nl = v2rest["networks"]["mha"]["launches"]
+    torch.cuda.empty_cache()
+    fluid = fluid_slice()
+    torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
     kernels = [
@@ -9470,16 +9992,19 @@ def main(argv=()) -> int:
          "serve_fwd_shape": serve_fwd["kernel1"],
          "launches_replay": dispatch["lm"]["replay_launches"],
          "launches_remat": dispatch["remat"]["flash_fwd_on"],
+         "launches_networks": nl["flash_fwd"],
          "train_shape": dict(bwd["fwd"], shape=bwd["shape"])},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:285",
          "launches": tl["flash_bwd_dkdv"], **bwd["dkdv"],
+         "launches_networks": nl["flash_bwd_dkdv"],
          "shape": bwd["shape"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:370",
          "launches": tl["flash_bwd_dq"], **bwd["dq"],
+         "launches_networks": nl["flash_bwd_dq"],
          "shape": bwd["shape"]},
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
@@ -9709,6 +10234,8 @@ def main(argv=()) -> int:
            for path in ("fused", "bench")}}}), flush=True)
     print(json.dumps({"vision": vision}), flush=True)
     print(json.dumps({"book": book}), flush=True)
+    print(json.dumps({"v2rest": v2rest}), flush=True)
+    print(json.dumps({"fluid": fluid}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

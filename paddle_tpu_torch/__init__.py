@@ -3,7 +3,8 @@
 The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 module layout (``layer``, ``topology``, ``parameters``, ``optimizer``,
 ``trainer``, ``evaluator``, ``inference``, ``dataset/``, ``ops/``,
-``layers/``, ``models/``, ``serving/``, ``io/``) so
+``layers/``, ``models/``, ``serving/``, ``io/``, ``fluid/``,
+``trainer_config_helpers/``) so
 each module's counterpart is found by path.  Every Pallas TPU kernel on a
 ported path becomes a CUDA C++ kernel for Hopper (``ops/csrc/*.cu``),
 built with ``nvcc`` at first use.
@@ -26,6 +27,7 @@ from paddle_tpu_torch import layer
 from paddle_tpu_torch import networks
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import parameters
+from paddle_tpu_torch import plot
 from paddle_tpu_torch import pooling
 from paddle_tpu_torch import reader
 from paddle_tpu_torch import topology
@@ -88,3 +90,17 @@ def init(seed: int = 0, device=None, **options):
             _precision.apply_legacy_compute_dtype(v)
         else:
             _config.set_option(k, v)
+
+
+def default_main_program():
+    """Fluid's default main program, re-exported at the top level as the
+    reference's v2 package does."""
+    from paddle_tpu_torch.fluid import framework
+
+    return framework.default_main_program()
+
+
+def default_startup_program():
+    from paddle_tpu_torch.fluid import framework
+
+    return framework.default_startup_program()

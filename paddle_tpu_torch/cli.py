@@ -439,13 +439,50 @@ def cmd_serve(args) -> None:
 
 def _load_config(path: str) -> dict:
     """Run a config file (it builds its graph with the DSL) and return its
-    globals, as ``paddle_tpu/cli.py`` ``_load_config`` does for the v2
-    declaration style."""
+    globals, as ``paddle_tpu/cli.py`` ``_load_config`` does.  A config in
+    the legacy style (``from paddle_tpu_torch.trainer_config_helpers import
+    *``) that declares its cost with ``outputs(cost)`` and its data with
+    ``define_py_data_sources2`` gets ``cost`` from the first declared
+    output, ``train_reader`` / ``test_reader`` from the provider, batched
+    at ``settings(batch_size=)`` (default 128) under the provider's
+    ``calc_batch_size`` and ``can_over_batch_size``, and ``feeding`` from
+    the provider's ``input_types``.  As in the JAX package, the optimizer
+    that ``settings()`` returns is used only where the config assigns it
+    to ``optimizer``."""
+    from paddle_tpu_torch import networks
+    from paddle_tpu_torch import py_data_provider2 as pdp2
+    from paddle_tpu_torch.core import config
+    from paddle_tpu_torch.reader.decorator import batched
+
+    networks._DECLARED_OUTPUTS[:] = []
+    pdp2._SOURCES.clear()
+    config.set_option("legacy_batch_size", None)
     path = os.path.abspath(path)
+    # legacy configs import sibling provider modules by bare name
     cfg_dir = os.path.dirname(path)
     if cfg_dir not in sys.path:
         sys.path.insert(0, cfg_dir)
-    return runpy.run_path(path)
+    cfg = runpy.run_path(path)
+    if "cost" not in cfg and networks._DECLARED_OUTPUTS:
+        cfg["cost"] = networks._DECLARED_OUTPUTS[0]
+    src = pdp2.get_data_sources()
+    if src is not None:
+        prov = src["provider"]
+        bs = config.get_option("legacy_batch_size") or 128
+        batch_kw = dict(batch_size=bs, drop_last=False,
+                        calc_batch_size=getattr(prov, "calc_batch_size",
+                                                None),
+                        can_over_batch_size=getattr(
+                            prov, "can_over_batch_size", True))
+        for key, lst, train in (("train_reader", "train_list", True),
+                                ("test_reader", "test_list", False)):
+            if key not in cfg and src.get(lst):
+                cfg[key] = batched(prov.reader(src[lst], is_train=train,
+                                               args=src.get("args")),
+                                   **batch_kw)
+        if "feeding" not in cfg and prov.feeding() is not None:
+            cfg["feeding"] = prov.feeding()
+    return cfg
 
 
 def _config_for(args) -> dict:

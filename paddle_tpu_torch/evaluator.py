@@ -1,7 +1,7 @@
 """Evaluators, the metric system (counterpart of ``paddle_tpu/evaluator.py``:
 the base with its graph registry, ClassificationError, Auc,
-PrecisionRecall, Sum, ColumnSum, Chunk, CTCError, DetectionMAP and
-``EvalAccumulator``).
+PrecisionRecall, PnPair, Sum, ColumnSum, Chunk, CTCError, DetectionMAP,
+RankAuc, SeqClassificationError, the printers and ``EvalAccumulator``).
 
 Each evaluator is split as in the JAX package:
 
@@ -14,15 +14,15 @@ Each evaluator is split as in the JAX package:
 ``EvalAccumulator`` adds each batch's statistics on the device, so the
 loop reads them back once, at the end of the pass; Chunk, CTCError and
 DetectionMAP decode on the host (chunks, greedy CTC paths, detections),
-so they are ``host_merge``: their statistics come back every batch.
+so they are ``host_merge``: their statistics come back every batch, as
+do RankAuc's lists and the printers' last batch.  GradientPrinter reads
+the cotangent of its layer's output, which the trainer takes through a
+zero probe added to that output (``Topology.forward(grad_probes=)``).
 
 Usage matches v2: call a factory while building the model,
 ``evaluator.auc(input=prob, label=click)``, and the next ``Topology``
 built over those layers takes it up; ``trainer.train`` and ``test``
 report its metrics on ``EndPass`` and ``TestResult``.
-
-Not ported yet, and refused: PnPair, RankAuc, SeqClassificationError
-and the printers (``ROADMAP.md`` section 1, item 11b).
 """
 
 from __future__ import annotations
@@ -35,9 +35,13 @@ import torch
 from paddle_tpu_torch.core.ir import LayerOutput
 
 __all__ = [
-    "Evaluator", "classification_error", "auc", "precision_recall", "sum",
-    "column_sum", "chunk", "ctc_error", "detection_map", "take_pending",
-    "EvalAccumulator",
+    "Evaluator", "classification_error", "auc", "precision_recall",
+    "pnpair", "sum", "column_sum", "chunk", "value_printer", "ctc_error",
+    "detection_map", "take_pending", "rank_auc",
+    "seq_classification_error", "gradient_printer", "maxid_printer",
+    "maxframe_printer", "seqtext_printer",
+    "classification_error_printer", "EvalAccumulator",
+    "rankauc",    # the C++ registry spelling, reachable via import *
 ]
 
 _REGISTRY: List["Evaluator"] = []
@@ -236,6 +240,42 @@ class PrecisionRecall(Evaluator):
         return {f"{self.name}.precision": float(prec),
                 f"{self.name}.recall": float(rec),
                 f"{self.name}.F1": float(f1)}
+
+
+class PnPair(Evaluator):
+    """Positive-negative pair ranking accuracy within query groups
+    (reference: PnpairEvaluator, gserver/evaluators/Evaluator.cpp:755).
+    Pairs are counted within a batch over a [B, B] query-equality mask:
+    keep a query's rows in one batch (the reference assumes the same)."""
+
+    def __init__(self, input, label, query_id, name=None, weight=None):
+        layers = {"input": input, "label": label, "query": query_id}
+        if weight is not None:
+            layers["weight"] = weight
+        super().__init__(name, layers)
+
+    def stats(self, values, feed):
+        score = self._val(values, "input").reshape(-1)
+        label = self._val(values, "label").to(torch.float32).reshape(-1)
+        qid = self._val(values, "query").reshape(-1)
+        w = (self._val(values, "weight").reshape(-1)
+             if "weight" in self.layers else torch.ones_like(score))
+        same_q = qid[:, None] == qid[None, :]
+        # pair (i, j): i has the higher label, so it should score higher
+        pos_pair = same_q & (label[:, None] > label[None, :])
+        pw = w[:, None] * w[None, :]
+        ds = score[:, None] - score[None, :]
+        zero = torch.zeros((), dtype=pw.dtype, device=pw.device)
+        correct = torch.sum(torch.where(pos_pair, (ds > 0) * pw, zero))
+        tied = torch.sum(torch.where(pos_pair, (ds == 0) * pw, zero))
+        total = torch.sum(torch.where(pos_pair, pw, zero))
+        return (correct, tied, total)
+
+    def finish(self, acc):
+        correct, tied, total = acc
+        total = max(total, 1e-12)
+        return {f"{self.name}.pos_pair_ratio":
+                float((correct + 0.5 * tied) / total)}
 
 
 class Sum(Evaluator):
@@ -522,6 +562,300 @@ class DetectionMAP(Evaluator):
         return {self.name: float(np.mean(aps)) if aps else 0.0}
 
 
+def _top_k(x, k):
+    """(ids, values) of the k largest per row, largest first, ties in the
+    order of ``jnp.argsort`` (stable, ascending) read backwards."""
+    idx = torch.argsort(x, dim=-1, stable=True)[:, -k:].flip(-1)
+    return idx, torch.gather(x, -1, idx)
+
+
+def _lens(ev, values, feed, x):
+    """Each row's length: the mask's sum of a padded sequence, else T."""
+    mask = ev._mask(values, feed, "input")
+    if mask is not None:
+        return mask.sum(dim=1).to(torch.int32), mask
+    t = x.shape[1] if x.ndim > 1 else 1
+    return torch.full((x.shape[0],), t, dtype=torch.int32,
+                      device=x.device), None
+
+
+class RankAuc(Evaluator):
+    """Per-list ranking AUC, averaged over lists (reference:
+    RankAucEvaluator, Evaluator.cpp:514-592: each sequence is one list;
+    click / pv columns weight the positives / negatives; ties credit by
+    trapezoid).  Inputs are padded sequences [B, T(, 1)] with @len; pv
+    omitted means one view per item."""
+
+    def __init__(self, input, click, pv=None, name=None):
+        layers = {"input": input, "click": click}
+        if pv is not None:
+            layers["pv"] = pv
+        super().__init__(name, layers)
+        self.has_pv = pv is not None
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        score = self._val(values, "input")
+        click = self._val(values, "click")
+        if score.ndim == 3:
+            score = score[..., 0]
+        if click.ndim == 3:
+            click = click[..., 0]
+        pv = (self._val(values, "pv") if self.has_pv
+              else torch.ones_like(click))
+        if pv.ndim == 3:
+            pv = pv[..., 0]
+        mask = self._mask(values, feed, "input")
+        if mask is None:
+            mask = torch.ones(score.shape[:2], device=score.device)
+        return (score, click.to(torch.float32), pv.to(torch.float32), mask)
+
+    def merge(self, acc, stats):
+        acc = acc or [0.0, 0]
+        score, click, pv, mask = (_host(s) for s in stats)
+        for b in range(score.shape[0]):
+            n = int(mask[b].sum())
+            if n == 0:
+                continue
+            acc[0] += self._list_auc(score[b, :n], click[b, :n], pv[b, :n])
+            acc[1] += 1
+        return acc
+
+    @staticmethod
+    def _list_auc(score, click, pv):
+        """The reference's calcRankAuc (Evaluator.cpp:555): a sweep down
+        the scores adding click / no-click trapezoids."""
+        order = np.argsort(-score, kind="stable")
+        auc = click_sum = old_click_sum = 0.0
+        no_click = no_click_sum = 0.0
+        last = float(score[order[0]]) + 1.0
+        for idx in order:
+            if last != float(score[idx]):
+                auc += (click_sum + old_click_sum) * no_click / 2.0
+                old_click_sum = click_sum
+                no_click = 0.0
+                last = float(score[idx])
+            no_click += float(pv[idx]) - float(click[idx])
+            no_click_sum += no_click
+            click_sum += float(click[idx])
+        auc += (click_sum + old_click_sum) * no_click / 2.0
+        denom = click_sum * no_click_sum
+        return 0.0 if denom == 0.0 else auc / denom
+
+    def finish(self, acc):
+        if not acc or acc[1] == 0:
+            return {self.name: 0.0}
+        return {self.name: float(acc[0] / acc[1])}
+
+
+class SeqClassificationError(Evaluator):
+    """Sequence-level error: a sequence errs if ANY frame errs
+    (reference: SequenceClassificationErrorEvaluator,
+    Evaluator.cpp:136-173)."""
+
+    def __init__(self, input, label, name=None):
+        super().__init__(name, {"input": input, "label": label})
+
+    def stats(self, values, feed):
+        pred = self._val(values, "input")       # [B, T, C]
+        label = self._val(values, "label").long()
+        mask = self._mask(values, feed, "label")
+        if mask is None:
+            mask = torch.ones(label.shape, device=pred.device)
+        frame_err = torch.argmax(pred, dim=-1) != label
+        seq_err = torch.any(frame_err & (mask > 0), dim=1)
+        return (torch.sum(seq_err.to(torch.float32)),
+                pred.new_full((), float(label.shape[0]),
+                              dtype=torch.float32))
+
+    def finish(self, acc):
+        wrong, total = acc
+        return {self.name: float(wrong / max(total, 1.0))}
+
+
+class ValuePrinter(Evaluator):
+    """Print the last batch's layer values at the pass end (reference:
+    ValuePrinter, Evaluator.cpp:1020)."""
+
+    def __init__(self, input, name=None):
+        super().__init__(name, {"input": input})
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        return (self._val(values, "input"),)
+
+    def merge(self, acc, stats):
+        return [_host(stats[0])]               # keep the last batch only
+
+    def finish(self, acc):
+        print(f"[{self.name}] value:\n{acc[0]}")
+        return {}
+
+
+class GradientPrinter(Evaluator):
+    """Print d(cost)/d(layer output) for the last batch (reference:
+    GradientPrinter, Evaluator.cpp:1058).  The trainer takes the
+    cotangent through a zero probe added to the layer's output
+    (``grad_layers`` -> ``Topology.forward(grad_probes=)``); a test pass
+    runs no backward, as the reference's ``if (argu.grad)`` guard."""
+
+    def __init__(self, input, name=None):
+        super().__init__(name, {"input": input})
+        self.host_merge = True
+        self.grad_layers = [input.name]
+
+    def stats(self, values, feed):
+        g = values.get(self.layers["input"].name + "@grad")
+        return (g,) if g is not None else ()
+
+    def merge(self, acc, stats):
+        return [_host(stats[0])] if stats else []
+
+    def finish(self, acc):
+        if acc:
+            print(f"[{self.name}] grad:\n{acc[0]}")
+        else:
+            print(f"[{self.name}] grad: (no backward ran)")
+        return {}
+
+
+class MaxIdPrinter(Evaluator):
+    """Print the top-k (id: value) of each row of the last batch
+    (reference: MaxIdPrinter, Evaluator.cpp:1080)."""
+
+    def __init__(self, input, name=None, num_results: int = 1):
+        super().__init__(name, {"input": input})
+        self.k = num_results
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        x = self._val(values, "input")
+        if x.ndim == 3:
+            x = x.reshape(-1, x.shape[-1])
+        return _top_k(x, min(self.k, x.shape[-1]))
+
+    def merge(self, acc, stats):
+        return [_host(s) for s in stats]
+
+    def finish(self, acc):
+        if acc:
+            ids, vals = acc
+            lines = [", ".join(f"{int(i)} : {float(v):.6g}"
+                               for i, v in zip(ri, rv))
+                     for ri, rv in zip(ids, vals)]
+            print(f"[{self.name}] row max ids:\n" + "\n".join(lines))
+        return {}
+
+
+class MaxFramePrinter(Evaluator):
+    """Per sequence, print the top-k frame positions of a width-1 output
+    (reference: MaxFramePrinter, Evaluator.cpp:1105)."""
+
+    def __init__(self, input, name=None, num_results: int = 1):
+        super().__init__(name, {"input": input})
+        self.k = num_results
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        x = self._val(values, "input")          # [B, T] or [B, T, 1]
+        if x.ndim == 3:
+            x = x[..., 0]
+        lens, mask = _lens(self, values, feed, x)
+        if mask is not None:
+            x = torch.where(mask > 0, x, torch.full_like(x, -float("inf")))
+        idx, vals = _top_k(x, min(self.k, x.shape[1]))
+        return (idx, vals, lens)
+
+    def merge(self, acc, stats):
+        return [_host(s) for s in stats]
+
+    def finish(self, acc):
+        if acc:
+            ids, vals, lens = acc
+            lines = []
+            for ri, rv, n in zip(ids, vals, lens):
+                k = min(self.k, int(n))
+                lines.append(", ".join(
+                    f"{int(i)} : {float(v):.6g}"
+                    for i, v in zip(ri[:k], rv[:k]))
+                    + f", total {int(n)} frames")
+            print(f"[{self.name}] sequence max frames:\n"
+                  + "\n".join(lines))
+        return {}
+
+
+class SeqTextPrinter(Evaluator):
+    """Decode id sequences through a dictionary and write one line a
+    sample to ``result_file`` (reference: SequenceTextPrinter,
+    Evaluator.cpp:1155, the generation-output printer)."""
+
+    def __init__(self, input, dict_file=None, result_file=None, name=None,
+                 delimited: bool = True):
+        super().__init__(name, {"input": input})
+        self.dict_file = dict_file
+        self.result_file = result_file
+        self.delimited = delimited
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        x = self._val(values, "input")
+        lens, _ = _lens(self, values, feed, x)
+        return (x.to(torch.int32), lens)
+
+    def merge(self, acc, stats):
+        acc = acc or []
+        acc.append((_host(stats[0]), _host(stats[1])))
+        return acc
+
+    def finish(self, acc):
+        words = None
+        if self.dict_file:
+            with open(self.dict_file) as f:
+                words = [ln.rstrip("\n") for ln in f]
+        sep = " " if self.delimited else ""
+        lines = []
+        sample = 0
+        for ids, lens in (acc or []):
+            ids = ids.reshape(ids.shape[0], -1)
+            for row, n in zip(ids, lens):
+                toks = [words[t] if words and 0 <= t < len(words)
+                        else str(int(t)) for t in row[:int(n)]]
+                lines.append(f"{sample}\t{sep.join(toks)}")
+                sample += 1
+        text = "\n".join(lines)
+        if self.result_file:
+            with open(self.result_file, "w") as f:
+                f.write(text + "\n")
+        else:
+            print(f"[{self.name}] sequences:\n{text}")
+        return {}
+
+
+class ClassificationErrorPrinter(Evaluator):
+    """Print the last batch's per-sample 0/1 error vector (reference:
+    ClassificationErrorPrinter, Evaluator.cpp:1340)."""
+
+    def __init__(self, input, label, name=None):
+        super().__init__(name, {"input": input, "label": label})
+        self.host_merge = True
+
+    def stats(self, values, feed):
+        pred = self._val(values, "input")
+        label = self._val(values, "label").long()
+        if pred.ndim == 3:
+            pred = pred.reshape(-1, pred.shape[-1])
+            label = label.reshape(-1)
+        return ((torch.argmax(pred, dim=-1) != label).to(torch.float32),)
+
+    def merge(self, acc, stats):
+        return [_host(stats[0])]
+
+    def finish(self, acc):
+        if acc:
+            print(f"[{self.name}] classification error:\n{acc[0]}")
+        return {}
+
+
 # ------------------------------------------------------------- factories
 def classification_error(input, label, name=None, top_k=1, **kw):
     return ClassificationError(input, label, name=name, top_k=top_k)
@@ -561,30 +895,53 @@ def detection_map(input, label, gt_box, name=None, overlap_threshold=0.5,
                         ap_type=ap_type)
 
 
-def _not_ported(name):
-    def factory(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name} evaluator is not ported to paddle_tpu_torch yet "
-            f"(ROADMAP.md section 1, item 11b)")
-    factory.__name__ = name
-    return factory
+def pnpair(input, label, query_id, name=None, weight=None, **kw):
+    return PnPair(input, label, query_id, name=name, weight=weight)
 
 
-pnpair = _not_ported("pnpair")
-rank_auc = rankauc = _not_ported("rank_auc")
-seq_classification_error = _not_ported("seq_classification_error")
-value_printer = _not_ported("value_printer")
-gradient_printer = _not_ported("gradient_printer")
-maxid_printer = _not_ported("maxid_printer")
-maxframe_printer = _not_ported("maxframe_printer")
-seqtext_printer = _not_ported("seqtext_printer")
-classification_error_printer = _not_ported("classification_error_printer")
+def rank_auc(input, click, pv=None, name=None, **kw):
+    return RankAuc(input, click, pv=pv, name=name)
+
+
+# the C++ registry spelling (REGISTER_EVALUATOR(rankauc, ...))
+rankauc = rank_auc
+
+
+def seq_classification_error(input, label, name=None, **kw):
+    return SeqClassificationError(input, label, name=name)
+
+
+def value_printer(input, name=None, **kw):
+    return ValuePrinter(input, name=name)
+
+
+def gradient_printer(input, name=None, **kw):
+    return GradientPrinter(input, name=name)
+
+
+def maxid_printer(input, name=None, num_results=1, **kw):
+    return MaxIdPrinter(input, name=name, num_results=num_results)
+
+
+def maxframe_printer(input, name=None, num_results=1, **kw):
+    return MaxFramePrinter(input, name=name, num_results=num_results)
+
+
+def seqtext_printer(input, dict_file=None, result_file=None, name=None,
+                    delimited=True, **kw):
+    return SeqTextPrinter(input, dict_file=dict_file,
+                          result_file=result_file, name=name,
+                          delimited=delimited)
+
+
+def classification_error_printer(input, label, name=None, **kw):
+    return ClassificationErrorPrinter(input, label, name=name)
 
 
 # ----------------------------------------------------- the trainer's side
 class EvalAccumulator:
     """Accumulates evaluator statistics over a pass.  Device-mergeable
-    evaluators (every ported one) add their tensors on the device, so the
+    evaluators add their tensors on the device, so the
     loop never waits on the card for them; ``results()`` reads them back
     once and finishes in float64."""
 

@@ -1,8 +1,10 @@
 """Composite network helpers: the image ones (conv + pool, conv + BN +
-pool, the VGG block and nets, the separable conv), the recurrent ones and
-additive attention (the part of ``paddle_tpu/networks.py`` the ported
-layers support).  They compose DSL layers only; names and attributes are
-the JAX package's, so both write the same JSON.
+pool, the VGG block and nets, the separable conv), the recurrent ones
+(whole-sequence layers and the explicit ``recurrent_group`` units),
+additive, dot-product and multi-head attention, the text conv block and
+the legacy ``inputs`` / ``outputs`` declarations.  They compose DSL
+layers only; names and attributes are the JAX package's, so both write
+the same JSON.
 """
 
 from __future__ import annotations
@@ -224,3 +226,163 @@ def simple_attention(encoded_sequence, encoded_proj, decoder_state,
                              name=name and name + "_scale")
     return layer.pooling(scaled, pooling_type="sum",
                          name=name and name + "_context")
+
+
+def multi_head_attention(query, key, value, head_num, key_proj_size=None,
+                         value_proj_size=None, name=None):
+    """one fused multi_head_attention layer (the flash kernel on the card)
+    in place of per-head fc slices and a sequence softmax.  The fused
+    layer uses ONE projection width; distinct key / value projection
+    sizes raise rather than build a silently different model."""
+    size = value_proj_size or value.size
+    if key_proj_size is not None and key_proj_size != size:
+        raise ValueError(
+            f"fused multi_head_attention uses one projection width; "
+            f"key_proj_size={key_proj_size} != value size {size}")
+    return layer.multi_head_attention(
+        query, key, value, size=size, num_heads=head_num, name=name)
+
+
+def dot_product_attention(encoded_sequence, attended_sequence, decoder_state,
+                          name=None):
+    """reference: networks.py:1498 — scores by dot(enc_t, state)."""
+    expanded = layer.expand(decoder_state, encoded_sequence,
+                            name=name and name + "_expand")
+    scores = layer.seq_dot(encoded_sequence, expanded,
+                           name=name and name + "_score")
+    weights = layer.seq_softmax(scores, name=name and name + "_weight")
+    scaled = layer.seq_scale(weights, attended_sequence,
+                             name=name and name + "_scale")
+    return layer.pooling(scaled, pooling_type="sum",
+                         name=name and name + "_context")
+
+
+def lstmemory_unit(input, out_memory=None, size=None, act="tanh",
+                   gate_act="sigmoid", state_act="tanh", name=None,
+                   input_proj_bias_attr=None):
+    """one LSTM step for use inside recurrent_group (reference:
+    networks.py lstmemory_unit — fc of [input, out_mem] then lstm_step
+    with a state memory; here the state memory is the house [h|c]
+    combined convention of lstm_step_layer)."""
+    size = size or input.size // 4
+    nm = name or _uniq("lstmemory_unit")
+    if out_memory is None:
+        out_memory = layer.memory(name=nm, size=size)
+    state_mem = layer.memory(name=nm + "_step", size=2 * size)
+    proj = layer.fc(input=[input, out_memory], size=size * 4, act=None,
+                    bias_attr=input_proj_bias_attr,
+                    name=nm + "_input_proj")
+    step = layer.lstm_step_layer(input=proj, state_mem=state_mem,
+                                 size=size, act=act, gate_act=gate_act,
+                                 state_act=state_act, name=nm + "_step")
+    return layer.get_output(step, "state", name=nm)
+
+
+def lstmemory_group(input, size=None, reverse=False, act="tanh",
+                    gate_act="sigmoid", name=None):
+    """LSTM as an explicit recurrent_group over steps (reference:
+    networks.py lstmemory_group) — same math as lstmemory but the step is
+    user-visible for attention-style extensions.
+
+    The input-side 4h projection is hoisted OUT of the loop (one [B*T]
+    matmul); only the recurrent out_memory projection runs per step
+    (the same hoisting simple_lstm and the reference's fc-then-lstmemory
+    idiom do)."""
+    size = size or input.size // 4
+    nm = name or _uniq("lstmemory_group")
+    in_proj = layer.fc(input=input, size=size * 4, act=None,
+                       bias_attr=False, name=nm + "_in_proj")
+
+    def step(inp_proj):
+        out_memory = layer.memory(name=nm, size=size)
+        state_mem = layer.memory(name=nm + "_step", size=2 * size)
+        rec = layer.fc(input=out_memory, size=size * 4, act=None,
+                       bias_attr=True, name=nm + "_rec_proj")
+        gates = layer.addto([inp_proj, rec])
+        s = layer.lstm_step_layer(input=gates, state_mem=state_mem,
+                                  size=size, act=act, gate_act=gate_act,
+                                  name=nm + "_step")
+        return layer.get_output(s, "state", name=nm)
+
+    return layer.recurrent_group(step=step, input=in_proj,
+                                 reverse=reverse, name=nm + "_rg")
+
+
+def gru_unit(input, size=None, memory_boot=None, act="tanh",
+             gate_act="sigmoid", name=None):
+    """one GRU step inside recurrent_group (reference: networks.py
+    gru_unit)."""
+    size = size or input.size // 3
+    nm = name or _uniq("gru_unit")
+    out_mem = layer.memory(name=nm, size=size, boot_layer=memory_boot)
+    return layer.gru_step_layer(input=input, output_mem=out_mem, size=size,
+                                act=act, gate_act=gate_act, name=nm)
+
+
+def gru_group(input, size=None, memory_boot=None, reverse=False,
+              act="tanh", gate_act="sigmoid", name=None):
+    """GRU as an explicit recurrent_group (reference: networks.py
+    gru_group). `input` must be the 3h-wide gate projection."""
+    size = size or input.size // 3
+    nm = name or _uniq("gru_group")
+
+    def step(inp):
+        return gru_unit(inp, size=size, memory_boot=memory_boot, act=act,
+                        gate_act=gate_act, name=nm)
+
+    return layer.recurrent_group(step=step, input=input, reverse=reverse,
+                                 name=nm + "_rg")
+
+
+def simple_gru2(input, size, reverse=False, act="tanh", gate_act="sigmoid",
+                name=None):
+    """fc + gru_group (reference: simple_gru2 — same math as simple_gru,
+    different composition route; kept for config compatibility)."""
+    nm = name or _uniq("simple_gru2")
+    proj = layer.fc(input=input, size=size * 3, act=None, bias_attr=False,
+                    name=nm + "_proj")
+    return gru_group(proj, size=size, reverse=reverse, act=act,
+                     gate_act=gate_act, name=nm)
+
+
+
+def sequence_conv_pool(input, context_len, hidden_size, context_start=None,
+                       pool_type="max", context_proj_param_attr=None,
+                       fc_param_attr=None, fc_act=None, name=None):
+    """context projection + fc + seq pool — text-conv block (reference:
+    networks.py sequence_conv_pool; fluid twin nets.sequence_conv_pool)."""
+    ctx = layer.context_projection(
+        input, context_len=context_len,
+        context_start=(context_start if context_start is not None
+                       else -(context_len // 2)))
+    fc = layer.fc(input=ctx, size=hidden_size, act=fc_act,
+                  param_attr=fc_param_attr, name=name and name + "_fc")
+    return layer.pooling(input=fc, pooling_type=pool_type,
+                         name=name and name + "_pool")
+
+
+text_conv_pool = sequence_conv_pool
+
+
+
+def inputs(layers_, *args):
+    """declare the feed order: the names of the input layers (DataFeeder
+    takes an explicit order, so this only records names)."""
+    all_in = ([layers_] if not isinstance(layers_, (list, tuple))
+              else list(layers_)) + list(args)
+    return [getattr(l, "name", l) for l in all_in]
+
+
+#: last outputs() call, read by the CLI when a legacy config declares
+#: its cost via outputs(loss) instead of a `cost` variable
+_DECLARED_OUTPUTS: list = []
+
+
+def outputs(layers_, *args):
+    """declare output layers (reference: networks.py outputs() writes the
+    proto output_layer_names; the CLI reads the declaration when the
+    config has no `cost` variable)."""
+    all_out = ([layers_] if not isinstance(layers_, (list, tuple))
+               else list(layers_)) + list(args)
+    _DECLARED_OUTPUTS[:] = all_out
+    return all_out

@@ -64,7 +64,8 @@ class _LmHeadNLL(torch.autograd.Function):
         xp = _pad_rows(x, chunk)
         lp = _pad_rows(labels, chunk)
         bf = b.float()
-        lse = torch.empty(xp.shape[0], dtype=torch.float32, device=x.device)
+        # the dtype the cost computes in (b.float()): float32
+        lse = torch.empty(xp.shape[0], dtype=bf.dtype, device=x.device)
         ll = torch.empty_like(lse)
         for r in range(0, xp.shape[0], chunk):
             logits = mm_f32(xp[r:r + chunk], w).add_(bf)
@@ -90,8 +91,8 @@ class _LmHeadNLL(torch.autograd.Function):
         gp = _pad_rows(g.float(), chunk)   # padded rows carry g = 0
         bf = b.float()
         wt = w.t()
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-        db = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+        dw = torch.zeros(w.shape, dtype=bf.dtype, device=w.device)
+        db = torch.zeros(b.shape, dtype=bf.dtype, device=b.device)
         dx = torch.empty(xp.shape, dtype=x.dtype, device=x.device)
         for r in range(0, xp.shape[0], chunk):
             x_c = xp[r:r + chunk]

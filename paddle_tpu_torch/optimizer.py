@@ -526,9 +526,12 @@ def settings(batch_size=None, learning_rate=None, learning_rate_decay_a=0.0,
              model_average=None, gradient_clipping_threshold=None):
     """The legacy config entry (reference: trainer_config_helpers
     settings()): returns the configured Optimizer, to hand to
-    ``trainer.SGD``.  ``batch_size`` is taken for the signature's sake and
-    sets nothing: the port's trainer batches as its reader does, and no
-    command of the port reads a configured batch size."""
+    ``trainer.SGD``.  ``batch_size`` sets the ``legacy_batch_size``
+    option, the batch the CLI's legacy route gives the provider's readers
+    (``cli._load_config``)."""
+    if batch_size:
+        from paddle_tpu_torch.core import config as _cfg
+        _cfg.set_option("legacy_batch_size", int(batch_size))
     opt = learning_method or Momentum(
         learning_rate=learning_rate if learning_rate is not None else 1e-3)
     if learning_rate is not None:

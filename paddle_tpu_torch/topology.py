@@ -135,6 +135,31 @@ def _meta(p) -> dict:
             "sparse_update": p.sparse_update}
 
 
+def _float_feed(x: torch.Tensor, policy) -> torch.Tensor:
+    """A float feed in the dtype the layers compute in: float32, except
+    the compute dtypes, which keep theirs, as in the JAX package (a
+    recurrent group's step feeds its bf16 statics back in here).  The
+    float64 grad sweep (``tests/test_torch_layer_grad_sweep.py``) replaces
+    this rule to keep its float64 feeds."""
+    if (x.dtype in (torch.bfloat16, torch.float32)
+            or (policy.compute_dtype == "float16"
+                and x.dtype == torch.float16)):
+        return x
+    return x.float()
+
+
+def _add_probe(grad_probes: dict, name: str, values: dict) -> None:
+    """Add ``name``'s zero gradient probe to its value, made here in the
+    output's shape (``Topology.forward(grad_probes=)``)."""
+    if name not in grad_probes:
+        return
+    v = values[name]
+    probe = torch.zeros(v.shape, dtype=torch.float32, device=v.device,
+                        requires_grad=True)
+    grad_probes[name] = probe
+    values[name] = v + probe.to(v.dtype)
+
+
 class Topology:
     """A model handle built from output LayerOutputs (parity surface:
     python/paddle/v2/topology.py Topology; the "proto" is the JSON
@@ -356,7 +381,8 @@ class Topology:
                 train: bool = False,
                 outputs: Optional[Sequence[str]] = None, remat=None,
                 generator: Optional[torch.Generator] = None, device=None,
-                sparse_probes: Optional[dict] = None):
+                sparse_probes: Optional[dict] = None,
+                grad_probes: Optional[dict] = None):
         """Eager forward under autograd.  Returns ({name: value},
         new_state): ``state`` with the entries the layers wrote (train-mode
         batch norm's moving statistics) replaced by detached tensors, so
@@ -383,7 +409,15 @@ class Topology:
         recomputed layers' kernels.
 
         ``sparse_probes``: ``{embedding layer: zeros [lookups, dim]}``, the
-        trainer's SelectedRows probes (``sparse_embeddings``)."""
+        trainer's SelectedRows probes (``sparse_embeddings``).
+
+        ``grad_probes``: ``{layer name: None}``, gradient_printer's
+        channel.  The forward fills each entry with a float32 zero tensor
+        shaped like the layer's output (``requires_grad``) and adds it to
+        that output, so the gradient with respect to the probe is the
+        output's cotangent.  An integer data layer takes no probe (its
+        entry stays None; the trainer reports zeros, as the JAX package
+        does)."""
         if remat is None:
             remat = cfg.get_option("remat", False)
             if remat not in ("blocks",):
@@ -401,6 +435,12 @@ class Topology:
         want = list(outputs or self.output_names)
         seg_of = (self._block_segments(want) if remat == "blocks" else {})
         inline_segs: set = set()
+        grad_probes = {} if grad_probes is None else grad_probes
+        for n in grad_probes:
+            # a probed layer inside a segment would not take its probe
+            # (only the boundary values surface): that segment runs inline
+            if n in seg_of:
+                inline_segs.add(id(seg_of[n]))
         for spec in self.specs:
             if spec.kind != "data":
                 seg = seg_of.get(spec.name)
@@ -418,8 +458,10 @@ class Topology:
                     for m in seg.members[:-1]:
                         self._run_spec(self._spec_by_name[m], params,
                                        values, masks, ctx)
+                        _add_probe(grad_probes, m, values)
                 self._run_spec(spec, params, values, masks, ctx,
                                layer_remat=(remat is True))
+                _add_probe(grad_probes, spec.name, values)
                 continue
             if spec.attrs.get("sparse_kind"):
                 # fixed-nnz packing: the value is the ids [B, nnz]; the
@@ -434,16 +476,11 @@ class Topology:
                 masks[spec.name] = None
                 continue
             x = torch.as_tensor(feed[spec.name], device=dev)
-            if spec.attrs.get("is_index", False):
-                x = x.long()
-            elif not (x.dtype in (torch.bfloat16, torch.float32)
-                      or (policy.compute_dtype == "float16"
-                          and x.dtype == torch.float16)):
-                # feeds normalise to float32 except the compute dtypes,
-                # which keep theirs, as in the JAX package: a recurrent
-                # group's step feeds its bf16 statics back in here
-                x = x.float()
+            x = (x.long() if spec.attrs.get("is_index", False)
+                 else _float_feed(x, policy))
             values[spec.name] = x
+            if x.is_floating_point():
+                _add_probe(grad_probes, spec.name, values)
             masks[spec.name] = None
             if spec.attrs.get("seq_type", 0) == 2:
                 sub = feed.get(spec.name + "@sublen")

@@ -205,6 +205,10 @@ class SGD:
                 if (lo.name != self.cost_name
                         and lo.name not in self._eval_outputs):
                     self._eval_outputs.append(lo.name)
+        # gradient_printer's layers: their output cotangents come back as
+        # "<layer>@grad" beside the evaluators' outputs
+        self._grad_layers = sorted({n for ev in self.topology.evaluators
+                                    for n in getattr(ev, "grad_layers", [])})
         self._opt_state = self.optimizer.init_state(self._trainable)
         # the forward's random stream (dropout, NCE), on the trainer's
         # device; a captured chunk registers it with its graph
@@ -289,17 +293,28 @@ class SGD:
             probes[lname] = torch.zeros(
                 (ids[src].numel(), dim), device=self.device,
                 dtype=self._trainable[lname]["w"].dtype, requires_grad=True)
+        gprobes = dict.fromkeys(self._grad_layers)
         outs, new_state = self.topology.forward(
             params, self.model_state, feed, train=True,
             outputs=[self.cost_name] + self._eval_outputs, remat=self.remat,
             generator=self._generator, device=self.device,
-            sparse_probes=probes)
+            sparse_probes=probes, grad_probes=gprobes)
         loss = outs[self.cost_name]
         # scaled after the float32 cost, so the backward carries the
         # scaled cotangent through the whole bf16 stack
         obj = loss if scale is None else loss.float() * scale
+        outs = {k: v.detach() for k, v in outs.items()}
+        for n, p in gprobes.items():
+            if p is None:       # an index input: zeros, as the JAX package
+                outs[n + "@grad"] = torch.zeros(outs[n].shape,
+                                                device=self.device)
+        gprobes = {n: p for n, p in gprobes.items() if p is not None}
         grads = list(torch.autograd.grad(obj, tensors + list(
-            probes.values()), allow_unused=True))
+            probes.values()) + list(gprobes.values()), allow_unused=True))
+        for n, g in zip(gprobes, grads[len(grads) - len(gprobes):]):
+            g = torch.zeros_like(gprobes[n]) if g is None else g
+            outs[n + "@grad"] = g if scale is None else g / scale
+        grads = grads[:len(grads) - len(gprobes)]
         found = None
         if scale is not None:
             found = torch.zeros(1, device=self.device)
@@ -317,7 +332,7 @@ class SGD:
                 ids[src], torch.zeros_like(probes[lname]) if g is None
                 else g)
         return _Grads(loss.detach(), tree, sparse, found, new_state,
-                      {k: v.detach() for k, v in outs.items()}, feed)
+                      outs, feed)
 
     def _eval_stats(self, outs, feed) -> dict:
         """The evaluators' statistics of one batch, on the device."""

@@ -1,13 +1,17 @@
 """The evaluators of the PyTorch port (``paddle_tpu_torch/evaluator.py``:
-ClassificationError, Auc, PrecisionRecall, Sum, ColumnSum and
-``EvalAccumulator``) against the JAX package's on the CPU, and the
-metrics ``SGD.train`` and ``SGD.test`` report.
+ClassificationError, Auc, PrecisionRecall, PnPair, Sum, ColumnSum,
+RankAuc, SeqClassificationError, the printers and ``EvalAccumulator``)
+against the JAX package's on the CPU, the metrics ``SGD.train`` and
+``SGD.test`` report, and the gradient probes that feed GradientPrinter
+(``Topology.forward(grad_probes=)``) against the JAX cotangent.
 
 Inputs come from numpy's seeded generator.  Tolerances: error rates,
 precision / recall / F1 and AUC within 1e-12 (their statistics are counts,
 exact in float32, and the finish is float64 on both sides); Sum and
 ColumnSum within 1e-6 relative (float32 sums in another order); the
-metrics of a 2-pass run from the same weights within 1e-6.
+metrics of a 2-pass run from the same weights within 1e-6; PnPair's and
+RankAuc's counts exactly (weighted pairs within 1e-6 relative), the
+printers' text equal; the probed cotangents within 1e-6.
 """
 
 import numpy as np
@@ -133,8 +137,11 @@ def test_registry_attaches_to_topologies():
     assert pt.Topology(pred, collect_evaluators=False).evaluators == []
     pt.init(seed=0, device="cpu")
     assert pt.Topology(pred).evaluators == []
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        pt.evaluator.pnpair(pred, lbl, lbl)
+    # every factory of the JAX module is ported: none is refused
+    assert sorted(pt.evaluator.__all__) == sorted(
+        set(pj.evaluator.__all__) | {"EvalAccumulator"})
+    assert isinstance(pt.evaluator.pnpair(pred, lbl, lbl),
+                      pt.evaluator.PnPair)
 
 
 def _model(paddle):
@@ -208,3 +215,184 @@ def test_train_and_test_metrics_match_jax(k):
                                        np.asarray(want[name], np.float64),
                                        rtol=1e-6, atol=1e-6, err_msg=name)
     assert metrics["paddle_tpu_torch"][-1]["auc"] > 0.8
+
+
+# ------------------------------------------------ the rest of the module
+def _declare_rest(paddle, case, tmp_path):
+    layer, dt, ev = paddle.layer, paddle.data_type, paddle.evaluator
+    seqv, seqi = dt.dense_vector_sequence, dt.integer_value_sequence
+    if case in ("pnpair", "pnpair_weighted"):
+        score = layer.data("score", dt.dense_vector(1))
+        label = layer.data("label", dt.dense_vector(1))
+        qid = layer.data("qid", dt.integer_value(4))
+        w = (layer.data("w", dt.dense_vector(1))
+             if case == "pnpair_weighted" else None)
+        return ev.pnpair(score, label, qid, name="m", weight=w)
+    if case in ("rank_auc", "rank_auc_pv"):
+        score = layer.data("score", seqv(1))
+        click = layer.data("click", seqv(1))
+        pv = layer.data("pv", seqv(1)) if case == "rank_auc_pv" else None
+        return ev.rank_auc(score, click, pv=pv, name="m")
+    if case == "seq_classification_error":
+        return ev.seq_classification_error(layer.data("pred", seqv(C)),
+                                           layer.data("label", seqi(C)),
+                                           name="m")
+    if case == "value_printer":
+        return ev.value_printer(layer.data("pred", dt.dense_vector(C)),
+                                name="m")
+    if case == "maxid_printer":
+        return ev.maxid_printer(layer.data("pred", seqv(C)), name="m",
+                                num_results=2)
+    if case == "maxframe_printer":
+        return ev.maxframe_printer(layer.data("pred", seqv(1)), name="m",
+                                   num_results=2)
+    if case == "seqtext_printer":
+        d = tmp_path / "dict.txt"
+        d.write_text("".join(f"w{i}\n" for i in range(C)))
+        return ev.seqtext_printer(
+            layer.data("ids", seqi(C + 2)), dict_file=str(d),
+            result_file=str(tmp_path / f"{paddle.__name__}.txt"), name="m")
+    if case == "classification_error_printer":
+        return ev.classification_error_printer(
+            layer.data("pred", dt.dense_vector(C)),
+            layer.data("label", dt.integer_value(C)), name="m")
+    raise KeyError(case)
+
+
+def _batch_rest(case, seed):
+    rng = np.random.RandomState(seed)
+    lens = {f"{k}@len": rng.randint(1, T + 1, B).astype(np.int32)
+            for k in ("score", "click", "pv", "pred", "label", "ids")}
+    values = {
+        # ties in the scores: PnPair's and RankAuc's tie branches count
+        "score": np.round(rng.rand(B, T if case.startswith("rank")
+                                   else 1, 1), 1).astype(np.float32),
+        "label": (rng.randint(0, 3, (B, 1)).astype(np.float32)
+                  if case.startswith("pnpair")
+                  else rng.randint(0, C, (B, T) if case.startswith("seq")
+                                   else B).astype(np.int32)),
+        "qid": rng.randint(0, 4, B).astype(np.int32),
+        "w": rng.rand(B, 1).astype(np.float32),
+        "click": rng.randint(0, 2, (B, T, 1)).astype(np.float32),
+        "pv": rng.randint(1, 3, (B, T, 1)).astype(np.float32),
+        "pred": rng.rand(*((B, T, 1) if case == "maxframe_printer"
+                           else (B, T, C) if case in (
+                               "seq_classification_error", "maxid_printer")
+                           else (B, C))).astype(np.float32),
+        "ids": rng.randint(0, C + 2, (B, T)).astype(np.int32),
+    }
+    if case.startswith("rank"):
+        values["click"] = np.minimum(values["click"], values["pv"])
+    elif not case.startswith("pnpair"):
+        values["score"] = values["score"][:, 0]
+    return values, lens
+
+
+REST = ["pnpair", "pnpair_weighted", "rank_auc", "rank_auc_pv",
+        "seq_classification_error", "value_printer", "maxid_printer",
+        "maxframe_printer", "seqtext_printer",
+        "classification_error_printer"]
+
+
+@pytest.mark.parametrize("case", REST)
+def test_rest_stats_finish_and_text_match_jax(case, tmp_path, capsys):
+    """Three batches through each package's evaluator: the statistics,
+    the pass's metrics and the printed (or written) text as the JAX
+    package's."""
+    import jax.numpy as jnp
+
+    # weighted pairs sum float32 weights in another order
+    rtol = 1e-6 if case == "pnpair_weighted" else 0
+    _init()
+    jev, tev = (_declare_rest(pj, case, tmp_path),
+                _declare_rest(pt, case, tmp_path))
+    jacc = pj.evaluator.EvalAccumulator([jev])
+    tacc = pt.evaluator.EvalAccumulator([tev])
+    for seed in range(3):
+        values, feed = _batch_rest(case, seed)
+        js = jev.stats({k: jnp.asarray(v) for k, v in values.items()}, feed)
+        ts = tev.stats({k: torch.from_numpy(v) for k, v in values.items()},
+                       feed)
+        assert len(ts) == len(js)
+        for a, b in zip(ts, js):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=rtol,
+                                       atol=0)
+        jacc.update({"m": js})
+        tacc.update({"m": ts})
+    capsys.readouterr()
+    jr = jacc.results()
+    jtext = capsys.readouterr().out
+    tr = tacc.results()
+    ttext = capsys.readouterr().out
+    assert sorted(tr) == sorted(jr)
+    for k in jr:
+        np.testing.assert_allclose(tr[k], jr[k], rtol=rtol, err_msg=k)
+    assert ttext == jtext
+    if case == "seqtext_printer":
+        assert ((tmp_path / "paddle_tpu_torch.txt").read_text()
+                == (tmp_path / "paddle_tpu.txt").read_text())
+        assert "w0" in (tmp_path / "paddle_tpu.txt").read_text()
+    elif case.startswith(("pnpair", "rank")) or case.startswith("seq_c"):
+        assert list(jr.values())[0] > 0
+    else:
+        assert ttext.startswith("[m] ")
+
+
+def _probe_model(paddle):
+    layer, dt = paddle.layer, paddle.data_type
+    x = layer.data("x", dt.dense_vector(6))
+    lbl = layer.data("y", dt.integer_value(3))
+    h = layer.fc(x, size=5, act="tanh", name="h")
+    pred = layer.fc(h, size=3, act="softmax", name="pred")
+    paddle.evaluator.gradient_printer(h, name="gh")
+    paddle.evaluator.gradient_printer(x, name="gx")
+    return layer.classification_cost(pred, lbl, name="cost")
+
+
+def test_grad_probes_match_the_jax_cotangent(capsys):
+    """d cost / d h and d cost / d x: the port's probes
+    (``Topology.forward(grad_probes=)``, autograd) against the JAX
+    package's (its zero probes, ``jax.grad``) from the same weights; the
+    trainer hands them to GradientPrinter as "<layer>@grad"."""
+    import jax
+    import jax.numpy as jnp
+
+    _init()
+    jtopo = pj.Topology(_probe_model(pj))
+    jparams = pj.parameters.create(jtopo)
+    values = {l: {p: np.asarray(v) for p, v in ps.items()}
+              for l, ps in jparams.values.items()}
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(4, 6).astype(np.float32),
+            "y": rng.randint(0, 3, 4).astype(np.int32)}
+
+    def cost(gp):
+        outs, _ = jtopo.forward(jparams.values, jtopo.create_state(), feed,
+                                train=True, grad_probes=gp)
+        return outs["cost"]
+
+    want = jax.grad(cost)({"h": jnp.zeros((4, 5)), "x": jnp.zeros((4, 6))})
+
+    ttopo = pt.Topology(_probe_model(pt))
+    params = pt.parameters.from_numpy(ttopo, values, device="cpu")
+    probes = {"h": None, "x": None}
+    outs, _ = ttopo.forward(params.values, ttopo.create_state(device="cpu"),
+                            feed, train=True, device="cpu",
+                            grad_probes=probes)
+    got = torch.autograd.grad(outs["cost"], [probes["h"], probes["x"]])
+    for g, k in zip(got, ("h", "x")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+    trainer = pt.trainer.SGD(ttopo, params, pt.optimizer.Momentum(
+        learning_rate=0.0))
+    grads = trainer._grads(feed, None)
+    for k in ("h", "x"):
+        np.testing.assert_allclose(grads.outs[k + "@grad"].numpy(),
+                                   np.asarray(want[k]), rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    trainer.train(lambda: iter([[(feed["x"][i], int(feed["y"][i]))
+                                 for i in range(4)]]), num_passes=1)
+    out = capsys.readouterr().out
+    assert "[gh] grad:" in out and "[gx] grad:" in out
+    assert "no backward ran" not in out

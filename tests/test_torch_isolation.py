@@ -73,14 +73,22 @@ def _loaded_after(code: str) -> list:
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
-    """Nor does the golden-config helper it loads from tests/."""
+    """Nor do the helpers it loads from tests/ (the golden configs, the
+    networks helpers' models, the Fluid programs)."""
     path = os.path.join(REPO, "chip_smoke.py")
     assert not _forbidden_imports(path)
-    assert not _forbidden_imports(
-        os.path.join(REPO, "tests", "torch_layer_configs.py"))
+    for helper in ("torch_layer_configs", "torch_networks_configs",
+                   "torch_fluid_programs"):
+        assert not _forbidden_imports(
+            os.path.join(REPO, "tests", helper + ".py"))
     loaded = _loaded_after("import chip_smoke\n"
                            "chip_smoke.flash_bwd_phase, chip_smoke.train_path"
-                           "\nassert chip_smoke._layer_configs().CONFIGS")
+                           "\nassert chip_smoke._layer_configs().CONFIGS"
+                           "\nassert chip_smoke._tests_module("
+                           "'torch_networks_configs').CONFIGS"
+                           "\nassert chip_smoke._tests_module("
+                           "'torch_fluid_programs').PROGRAMS"
+                           "\nimport paddle_tpu_torch.fluid")
     assert "chip_smoke" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
@@ -121,32 +129,40 @@ def _public(module) -> set:
 
 
 def test_the_port_has_every_public_name_of_the_v2_layer_dsl_and_models():
-    """Every public name of the JAX package's ``layer``, ``models`` and the
-    conll05, imikolov and movielens datasets exists in the port (each
-    ported: none of them refuses), and the evaluator factories the port
-    still refuses name the ROADMAP item that brings them (11b)."""
+    """Every public name of the JAX package's ``layer``, ``models``,
+    ``evaluator``, ``networks``, reader decorators, ``py_data_provider2``,
+    ``plot``, ``trainer_config_helpers``, datasets and the Fluid modules of
+    item 12a exists in the port, and no evaluator factory is refused."""
+    import inspect
+
     import paddle_tpu
+    import paddle_tpu.fluid
     import paddle_tpu.layer
     import paddle_tpu.models
+    import paddle_tpu.trainer_config_helpers
     import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid
     import paddle_tpu_torch.models
+    import paddle_tpu_torch.trainer_config_helpers
 
     pairs = [(paddle_tpu.layer, pt.layer),
-             (paddle_tpu.models, paddle_tpu_torch.models)]
+             (paddle_tpu.models, paddle_tpu_torch.models),
+             (paddle_tpu.evaluator, pt.evaluator),
+             (paddle_tpu.networks, pt.networks),
+             (paddle_tpu.reader.decorator, pt.reader.decorator),
+             (paddle_tpu.py_data_provider2, pt.py_data_provider2),
+             (paddle_tpu.plot, pt.plot),
+             (paddle_tpu.trainer_config_helpers,
+              paddle_tpu_torch.trainer_config_helpers)]
     pairs += [(getattr(paddle_tpu.dataset, m), getattr(pt.dataset, m))
-              for m in ("conll05", "imikolov", "movielens")]
+              for m in ("conll05", "imikolov", "movielens", "mq2007",
+                        "sentiment", "uci_housing", "voc2012")]
+    pairs += [(getattr(paddle_tpu.fluid, m), getattr(paddle_tpu_torch.fluid,
+                                                     m))
+              for m in ("framework", "layers", "nets", "backward",
+                        "optimizer", "regularizer", "clip", "initializer",
+                        "io")]
     for jmod, tmod in pairs:
         missing = sorted(_public(jmod) - _public(tmod))
         assert not missing, (tmod.__name__, missing)
-    refused = set()
-    for name in sorted(_public(pt.evaluator)):
-        fn = getattr(pt.evaluator, name)
-        if getattr(fn, "__qualname__", "").startswith("_not_ported"):
-            with pytest.raises(NotImplementedError, match="item 11b"):
-                fn(None, None)
-            refused.add(name)
-    assert refused == {
-        "pnpair", "rank_auc", "rankauc", "seq_classification_error",
-        "value_printer", "gradient_printer", "maxid_printer",
-        "maxframe_printer", "seqtext_printer",
-        "classification_error_printer"}
+    assert "11b" not in inspect.getsource(pt.evaluator)

@@ -181,9 +181,12 @@ def test_legacy_names_and_settings_match_jax():
         assert opt.model_average.average_window == 0.5
     assert type(pt.optimizer.settings(learning_rate=0.1)).__name__ == \
         "Momentum"
-    # the port takes batch_size and keeps no option that nothing reads
+    # batch_size is the legacy config route's batch in both packages
+    # (cli._load_config reads it)
+    from paddle_tpu.core import config as jconfig
     from paddle_tpu_torch.core import config as tconfig
-    assert "legacy_batch_size" not in tconfig._options
+    assert tconfig.get_option("legacy_batch_size") == 16
+    assert jconfig.get_option("legacy_batch_size") == 16
 
 
 def test_trainer_carries_the_average_and_captures_it(monkeypatch):
