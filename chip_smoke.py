@@ -400,18 +400,28 @@ with an NVIDIA H100 and the CUDA toolkit.  Phases, each fatal on failure:
    ``tests/torch_fluid_programs.py`` card against CPU from the same
    starting values (FLUID_CPU_TOL), chapter 3's inference model saved and
    loaded on the card;
-25. one JSON line each for the LM training, NMT and LSTM, the bf16
+25. Fluid's control flow (``fluid_cf_slice``): a translation model with a
+   DynamicRNN decoder (``tests/torch_fluid_programs.py``
+   ``nmt_dynamic_rnn``) at bench_nmt's widths (FLUID_NMT), eager against
+   run_n's captured CUDA graphs of FLUID_RUN_N steps (ms a step, tokens/s,
+   the idle share and peak memory of each, the stand-downs), run_n's
+   losses and scope equal to FLUID_RUN_N run() calls bit for bit under
+   deterministic algorithms; ``vgg16_bn_drop`` the same way, dropout on;
+   ``CF_PROGRAMS`` card against CPU (FLUID_CPU_TOL), the While program's
+   counted stand-down, and check_nan_inf aborting without touching the
+   scope; no kernel of the port launched;
+26. one JSON line each for the LM training, NMT and LSTM, the bf16
    policy, fp16 policy, dispatch, v2, sparse, checkpoint, serving slice,
    whole-forward serving slice, generation, sweep, ResNet,
-   ResNet-under-bf16, vision, book, v2rest and fluid runs, the card line
-   again,
+   ResNet-under-bf16, vision, book, v2rest, fluid and fluid_cf runs, the
+   card line again,
    one JSON line listing each kernel's numbers and, last, ``{"ok": true,
    "device": {...}}``.
 
 ``--only=<name>[,<name>...]`` runs the setup and then only the named
 phases (``dispatch``, ``v2``, ``sparse``, ``ckpt``, ``serve``,
-``serve_fwd``, ``gen``, ``vision``, ``book``, ``v2rest`` or ``fluid``, or a
-part of one:
+``serve_fwd``, ``gen``, ``vision``, ``book``, ``v2rest``, ``fluid`` or
+``fluid_cf``, or a part of one:
 DISPATCH_PHASES, V2_PHASES, CTR_PHASES) and prints their JSON: a
 development run; the full run takes no arguments.
 
@@ -9818,14 +9828,349 @@ def fluid_slice() -> dict:
 FLUID_PHASES = {"fluid": fluid_slice}
 
 
+# ---------------------------------------------------------------- fluid_cf
+# item 12b on the card: a translation model trained through Fluid's
+# control flow (a DynamicRNN decoder) at bench_nmt's widths (bench.py:
+# vocabulary 30000 both sides, embedding and hidden 512, src = trg = 50,
+# batch 256, float32, Adam 1e-3; full target lengths, as bench_nmt feeds
+# them), eager and as run_n's captured CUDA graphs of FLUID_RUN_N steps;
+# vgg16_bn_drop through prepare(...).run_n; the control-flow and catalog
+# programs card against CPU.  No kernel of the port lies on this path.
+FLUID_NMT = dict(vocab=30000, emb=512, hidden=512, src_len=50, trg_len=50,
+                 batch=256)
+FLUID_EAGER_STEPS, FLUID_RUN_N = 3, 4
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's and torch's deterministic algorithms for a bit-for-bit
+    comparison of two runs, restored after it."""
+    cudnn, algos = (torch.backends.cudnn.deterministic,
+                    torch.are_deterministic_algorithms_enabled())
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+        torch.use_deterministic_algorithms(algos, warn_only=warn)
+
+
+def _scope_copy(fluid, scope):
+    out = fluid.Scope()
+    for k, v in scope.vars.items():
+        out.set(k, v.clone())
+    return out
+
+
+def _bit_equal(a, b) -> list:
+    """the names whose values differ between two scopes (bit for bit)"""
+    return [n for n in a.vars
+            if not torch.equal(torch.as_tensor(a.get(n)).cpu(),
+                               torch.as_tensor(b.get(n)).cpu())]
+
+
+def _fluid_timed(fn, steps) -> list:
+    """host seconds of ``fn()`` ``steps`` times, each ending in a sync"""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def fluid_eager_vs_run_n(fluid, program, loss, feeds, start, fetch,
+                         n, chunks, label) -> dict:
+    """One program on the card from the scope ``start``: eager run()
+    steps (ms a step: the median after the first), then run_n(n) chunks
+    (one captured CUDA graph each; ms a step: the median chunk after the
+    capturing one, over n); a profiled eager step and a profiled chunk
+    (idle share), peak memory of each; and, under deterministic
+    algorithms, run_n(n)'s losses and scope against n run() calls from
+    ``start`` bit for bit."""
+    from paddle_tpu_torch import ops
+
+    out = {}
+    ops.reset_launch_counts()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), _scope_copy(fluid,
+                                                                 start)
+    torch.cuda.reset_peak_memory_stats()
+    i = iter(range(1 << 30))
+    eager = _fluid_timed(lambda: exe.run(program, feed=feeds(next(i)),
+                                         fetch_list=fetch, scope=scope),
+                         FLUID_EAGER_STEPS + 1)
+    out["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof_eager = profile_call(lambda: exe.run(
+        program, feed=feeds(0), fetch_list=fetch, scope=scope))
+    cp = exe.prepare(program, fetch_list=fetch, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    k = iter(range(1 << 30))
+    chunk_s = _fluid_timed(lambda: cp.run_n(
+        lambda j: feeds(next(k)), n), chunks + 1)
+    out["run_n_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof_chunk = profile_call(lambda: cp.run_n(lambda j: feeds(j), n))
+    standdowns = dict(exe.run_n_standdowns)
+    launched = {name: c for name, c in ops.launch_counts().items() if c}
+    if launched:
+        raise AssertionError(f"{label}: fluid launched the port's kernels "
+                             f"{launched}")
+    del exe, scope, cp
+    torch.cuda.empty_cache()
+    with _deterministic():
+        ea, sa = fluid.Executor(fluid.CUDAPlace(0)), _scope_copy(fluid,
+                                                                 start)
+        eb, sb = fluid.Executor(fluid.CUDAPlace(0)), _scope_copy(fluid,
+                                                                 start)
+        want = [ea.run(program, feed=feeds(j), fetch_list=[loss],
+                       scope=sa)[0] for j in range(n)]
+        got, = eb.run_n(program, feed=feeds, n=n, fetch_list=[loss],
+                        scope=sb)
+        differ = _bit_equal(sa, sb)
+    equal = np.array_equal(got, np.stack(want)) and not differ
+    if not equal or not np.isfinite(got).all():
+        raise AssertionError(
+            f"{label}: run_n({n}) against {n} run() calls: losses {got} vs "
+            f"{np.stack(want)}, {len(differ)} scope values differ "
+            f"{differ[:5]}")
+    del ea, sa, eb, sb
+    torch.cuda.empty_cache()
+    e_ms = sorted(eager[1:])[len(eager[1:]) // 2] * 1e3
+    c_ms = sorted(chunk_s[1:])[len(chunk_s[1:]) // 2] * 1e3 / n
+    out.update({"eager_first_step_ms": eager[0] * 1e3, "eager_step_ms": e_ms,
+                "run_n": n, "run_n_first_chunk_ms": chunk_s[0] * 1e3,
+                "run_n_step_ms": c_ms, "speedup": e_ms / c_ms,
+                "eager_idle_share": prof_eager["idle_share"],
+                "eager_busy_ms": prof_eager["busy_ms"],
+                "eager_profiled_ms": prof_eager["step_ms"],
+                "run_n_idle_share": prof_chunk["idle_share"],
+                "run_n_busy_ms": prof_chunk["busy_ms"],
+                "run_n_profiled_ms": prof_chunk["step_ms"],
+                "standdowns": standdowns, "launches": 0,
+                "equal_bits": equal, "losses": [float(x) for x in got],
+                "eager_top": prof_eager["top"][:4]})
+    return out
+
+
+def fluid_cf_nmt(card) -> dict:
+    """The DynamicRNN translation model (``tests/torch_fluid_programs.py``
+    ``nmt_dynamic_rnn``) at bench_nmt's widths: target + source tokens a
+    second (as bench_nmt counts them), eager and under run_n."""
+    import paddle_tpu_torch.fluid as fluid
+
+    progs = _tests_module("torch_fluid_programs")
+    w = FLUID_NMT
+    fluid.framework.reset_default_programs()
+    loss, feeds = progs.nmt_dynamic_rnn(fluid, w["vocab"], w["emb"],
+                                        w["hidden"], w["src_len"],
+                                        w["trg_len"], w["batch"],
+                                        min_len=w["trg_len"])
+    program = fluid.default_main_program()
+    exe, start = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(fluid.default_startup_program(), scope=start)
+    cache = {}
+
+    def feed(i):     # the batches made once, on the host
+        if i % 8 not in cache:
+            cache[i % 8] = feeds(i % 8)
+        return cache[i % 8]
+
+    out = fluid_eager_vs_run_n(fluid, program, loss, feed, start, [loss],
+                               FLUID_RUN_N, 3, "translation model")
+    toks = w["batch"] * (w["src_len"] + w["trg_len"])
+    out.update(widths=w, ops=len(program.global_block().ops),
+               eager_tokens_per_s=toks / out["eager_step_ms"] * 1e3,
+               run_n_tokens_per_s=toks / out["run_n_step_ms"] * 1e3)
+    print(f"fluid_cf translation model (DynamicRNN decoder; vocab "
+          f"{w['vocab']}, emb {w['emb']}, hidden {w['hidden']}, src = trg "
+          f"= {w['src_len']}, batch {w['batch']}, Adam 1e-3, float32; "
+          f"{out['ops']} ops) on {card}: eager {out['eager_step_ms']:.1f} "
+          f"ms a step ({out['eager_tokens_per_s']:.0f} tokens/s, first "
+          f"{out['eager_first_step_ms']:.0f} ms, peak "
+          f"{out['eager_peak_gb']:.2f} GB, {_idle(_prof_view(out, 'eager'))}"
+          f"); run_n({FLUID_RUN_N}) {out['run_n_step_ms']:.1f} ms a step "
+          f"({out['run_n_tokens_per_s']:.0f} tokens/s, x"
+          f"{out['speedup']:.2f}; capture chunk "
+          f"{out['run_n_first_chunk_ms']:.0f} ms, peak "
+          f"{out['run_n_peak_gb']:.2f} GB, "
+          f"{_idle(_prof_view(out, 'run_n'))}); stand-downs "
+          f"{out['standdowns']}; run_n's losses and scope equal "
+          f"{FLUID_RUN_N} run() calls bit for bit (deterministic "
+          f"algorithms): {out['equal_bits']}; losses {out['losses']}",
+          flush=True)
+    return out
+
+
+def _prof_view(out, key) -> dict:
+    return {"idle_share": out[f"{key}_idle_share"],
+            "busy_ms": out[f"{key}_busy_ms"],
+            "step_ms": out[f"{key}_profiled_ms"]}
+
+
+def fluid_cf_vgg(card) -> dict:
+    """vgg16_bn_drop (PR 25's configuration: batch FLUID_VGG_BATCH, 32
+    px, Adam 1e-3, dropout on) through prepare(...).run_n, beside the
+    eager executor in the same call."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+
+    fluid.framework.reset_default_programs()
+    img = fluid.layers.data(name="pixel", shape=[3, 32, 32])
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    predict = fluid.layers.fc(input=vgg16_bn_drop(fluid, img), size=10,
+                              act="softmax")
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(input=predict,
+                                                        label=label))
+    fluid.optimizer.Adam(learning_rate=0.001).minimize(loss)
+    samples = list(paddle.dataset.cifar.train10(n=FLUID_VGG_BATCH)())
+    feed = {"pixel": np.stack([s[0] for s in samples]).reshape(
+        -1, 3, 32, 32).astype(np.float32),
+            "label": np.asarray([[s[1]] for s in samples], np.int64)}
+    program = fluid.default_main_program()
+    exe, start = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(fluid.default_startup_program(), scope=start)
+    out = fluid_eager_vs_run_n(fluid, program, loss, lambda i: feed, start,
+                               [loss], FLUID_RUN_N, 3, "vgg16_bn_drop")
+    print(f"fluid_cf vgg16_bn_drop (batch {FLUID_VGG_BATCH}, 32 px, Adam "
+          f"1e-3, dropout on) on {card}: eager {out['eager_step_ms']:.1f} "
+          f"ms a step ({_idle(_prof_view(out, 'eager'))}, peak "
+          f"{out['eager_peak_gb']:.2f} GB); prepare(...).run_n("
+          f"{FLUID_RUN_N}) {out['run_n_step_ms']:.1f} ms a step (x"
+          f"{out['speedup']:.2f}; {_idle(_prof_view(out, 'run_n'))}, peak "
+          f"{out['run_n_peak_gb']:.2f} GB); stand-downs "
+          f"{out['standdowns']}; equal to {FLUID_RUN_N} run() calls bit "
+          f"for bit, dropout's masks included: {out['equal_bits']}",
+          flush=True)
+    return out
+
+
+def fluid_cf_card_vs_cpu(card) -> dict:
+    """``CF_PROGRAMS`` at the tests' widths (the two-phase unbounded While
+    trained 3 SGD steps, IfElse, Switch, the SSD loss with
+    detection_output, CTC with edit distance): the same starting values
+    (the CPU startup run's) on the card and on the CPU, every float fetch
+    within FLUID_CPU_TOL relative to max(1, |cpu|), every integer fetch
+    equal; then check_nan_inf on the card aborts before it commits: every
+    persistable the same tensor with the same values; and run_n of the
+    While program stands down, counted."""
+    import paddle_tpu_torch.fluid as fluid
+
+    progs = _tests_module("torch_fluid_programs")
+    out = {}
+    for name, fn in progs.CF_PROGRAMS.items():
+        runs = {}
+        for key, place in (("cpu", fluid.CPUPlace()),
+                           ("cuda", fluid.CUDAPlace(0))):
+            fluid.framework.reset_default_programs()
+            fetch, feeds = fn(fluid)
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            if not runs:
+                exe.run(fluid.default_startup_program(), scope=scope)
+                init = {k: v.cpu().numpy() for k, v in scope.vars.items()}
+            else:
+                exe._step = 1
+                for k, v in init.items():
+                    scope.set(k, v)
+            runs[key] = [exe.run(feed=f, fetch_list=fetch, scope=scope)
+                         for f in feeds]
+        worst = 0.0
+        for a, b in zip(runs["cuda"], runs["cpu"]):
+            for x, y in zip(a, b):
+                if np.issubdtype(y.dtype, np.floating):
+                    worst = max(worst, float(np.max(np.abs(x - y),
+                                                    initial=0.0))
+                                / max(1.0, float(np.max(np.abs(y),
+                                                        initial=0.0))))
+                elif not np.array_equal(x, y):
+                    raise AssertionError(f"fluid_cf {name}: integer "
+                                         f"fetches differ {x} vs {y}")
+        if worst > FLUID_CPU_TOL:
+            raise AssertionError(f"fluid_cf {name} on the card vs the CPU: "
+                                 f"{worst:.2e} > {FLUID_CPU_TOL}")
+        out[name] = worst
+    # the While program under run_n: a counted stand-down, the same values
+    fluid.framework.reset_default_programs()
+    fetch, feeds = progs.while_train(fluid)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(fluid.default_startup_program(), scope=scope)
+    chunk, = exe.run_n(feed=lambda i: feeds[i], n=3, fetch_list=fetch,
+                       scope=scope)
+    standdowns = dict(exe.run_n_standdowns)
+    if standdowns["capture_vars"] != 3 or not np.isfinite(chunk).all():
+        raise AssertionError(f"fluid_cf: the While program's run_n "
+                             f"stand-downs {standdowns}, losses {chunk}")
+    # check_nan_inf on the card
+    fluid.framework.reset_default_programs()
+    L = fluid.layers
+    x = L.data(name="x", shape=[4])
+    cost = L.mean(L.square_error_cost(L.fc(input=x, size=1),
+                                      L.data(name="y", shape=[1])))
+    fluid.optimizer.Adam(learning_rate=0.01).minimize(cost)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(fluid.default_startup_program(), scope=scope)
+    xv = np.random.RandomState(0).rand(8, 4).astype(np.float32)
+    good = {"x": xv, "y": xv.sum(1, keepdims=True)}
+    exe.run(feed=good, fetch_list=[cost], scope=scope)
+    before = dict(scope.vars)
+    snap = {k: v.clone() for k, v in scope.vars.items()}
+    try:
+        exe.run(feed=dict(good, x=np.full_like(xv, np.nan)),
+                fetch_list=[cost], scope=scope, check_nan_inf=True)
+        raise AssertionError("check_nan_inf on the card did not raise")
+    except FloatingPointError:
+        pass
+    touched = [k for k, v in scope.vars.items()
+               if v is not before[k] or not torch.equal(v, snap[k])]
+    retry, = exe.run(feed=good, fetch_list=[cost], scope=scope,
+                     check_nan_inf=True)
+    if touched or not np.isfinite(retry).all():
+        raise AssertionError(f"check_nan_inf on the card touched {touched}")
+    out["check_nan_inf"] = {"raised": True, "untouched": True}
+    out["while_run_n_standdowns"] = standdowns
+    print(f"fluid_cf programs on the card vs the CPU from the same starting "
+          f"values on {card}: " + ", ".join(
+              f"{n} {v:.1e}" for n, v in out.items()
+              if isinstance(v, float))
+          + f" (limit {FLUID_CPU_TOL:.0e}); the While program's run_n(3) "
+          f"stands down {standdowns}; check_nan_inf raised "
+          f"FloatingPointError and left every persistable as it was",
+          flush=True)
+    return out
+
+
+def fluid_cf_slice() -> dict:
+    """Phase 25: item 12b on the card (``fluid_cf_nmt``, ``fluid_cf_vgg``,
+    ``fluid_cf_card_vs_cpu``); it launches no kernel of the port."""
+    from paddle_tpu_torch import ops
+
+    card = card_line()
+    ops.reset_launch_counts()
+    out = {"card": card, "nmt": fluid_cf_nmt(card)}
+    torch.cuda.empty_cache()
+    out["vgg16_bn_drop"] = fluid_cf_vgg(card)
+    torch.cuda.empty_cache()
+    out["programs"] = fluid_cf_card_vs_cpu(card)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: c for k, c in ops.launch_counts().items() if c}
+    if out["launches"]:
+        raise AssertionError(f"fluid_cf launched {out['launches']}")
+    return out
+
+
+FLUID_CF_PHASES = {"fluid_cf": fluid_cf_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
     (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19), ``gen``
     (phase 20), ``vision`` (phase 21), ``book`` (phase 22), ``v2rest``
-    (phase 23) or ``fluid`` (phase 24), for a development run; the full
-    run takes no arguments."""
+    (phase 23), ``fluid`` (phase 24) or ``fluid_cf`` (phase 25), for a
+    development run; the full run takes no arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -9838,7 +10183,8 @@ def selected(argv) -> list:
                and n not in CKPT_PHASES and n not in SERVE_PHASES
                and n not in SERVE_FWD_PHASES and n not in GEN_PHASES
                and n not in VISION_PHASES and n not in BOOK_PHASES
-               and n not in V2REST_PHASES and n not in FLUID_PHASES]
+               and n not in V2REST_PHASES and n not in FLUID_PHASES
+               and n not in FLUID_CF_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
@@ -9849,7 +10195,8 @@ def selected(argv) -> list:
                          f" + {sorted(VISION_PHASES)}"
                          f" + {sorted(BOOK_PHASES)}"
                          f" + {sorted(V2REST_PHASES)}"
-                         f" + {sorted(FLUID_PHASES)}")
+                         f" + {sorted(FLUID_PHASES)}"
+                         f" + {sorted(FLUID_CF_PHASES)}")
     return names
 
 
@@ -9895,7 +10242,8 @@ def main(argv=()) -> int:
                              **CKPT_PHASES, **SERVE_PHASES,
                              **SERVE_FWD_PHASES, **GEN_PHASES,
                              **VISION_PHASES, **BOOK_PHASES,
-                             **V2REST_PHASES, **FLUID_PHASES}[name]()
+                             **V2REST_PHASES, **FLUID_PHASES,
+                             **FLUID_CF_PHASES}[name]()
             torch.cuda.empty_cache()
         print(card, flush=True)
         print(json.dumps({"only": out}), flush=True)
@@ -9971,6 +10319,8 @@ def main(argv=()) -> int:
     nl = v2rest["networks"]["mha"]["launches"]
     torch.cuda.empty_cache()
     fluid = fluid_slice()
+    torch.cuda.empty_cache()
+    fluid_cf = fluid_cf_slice()
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
@@ -10236,6 +10586,9 @@ def main(argv=()) -> int:
     print(json.dumps({"book": book}), flush=True)
     print(json.dumps({"v2rest": v2rest}), flush=True)
     print(json.dumps({"fluid": fluid}), flush=True)
+    print(json.dumps({"fluid_cf": fluid_cf}), flush=True)
+    for k in kernels:       # fluid_cf reaches none of the kernels
+        k["launches_fluid_cf"] = fluid_cf["launches"].get(k["name"], 0)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

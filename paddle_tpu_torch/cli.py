@@ -724,6 +724,36 @@ def cmd_time(args) -> None:
     print(json.dumps(rec))
 
 
+def cmd_version(args) -> None:
+    """``paddle version`` (the JAX package's verb, with torch and CUDA in
+    place of jax): the package, torch's and CUDA's versions, the device
+    count."""
+    import torch
+
+    import paddle_tpu_torch
+
+    cuda = torch.version.cuda if torch.cuda.is_available() else None
+    n = torch.cuda.device_count() if cuda else 0
+    print(f"paddle_tpu_torch {paddle_tpu_torch.__version__} "
+          f"(torch {torch.__version__}, "
+          f"{'cuda ' + cuda if cuda else 'no cuda'}, {n} device(s))")
+
+
+def cmd_dump_config(args) -> None:
+    """``paddle dump_config``: the config's lowered model IR, the
+    ``Topology.proto()`` JSON (the reference dumps its ModelConfig
+    proto), for a DSL or a legacy config alike."""
+    import paddle_tpu_torch as paddle
+
+    print(paddle.Topology(_load_config(args.config)["cost"]).proto())
+
+
+def cmd_pserver(args) -> None:
+    print("paddle_tpu_torch has no separate pserver process: one program "
+          "runs on every worker and gradients ride collectives over the "
+          "cards (the sharded executor is ROADMAP.md section 1, item 14).")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -940,6 +970,15 @@ def build_parser() -> argparse.ArgumentParser:
     ck.add_argument("dir", help="checkpoint dir (pass-NNNNN / "
                                 "step-NNNNNNNNN snapshots)")
     ck.set_defaults(fn=cmd_checkpoint)
+    sub.add_parser("version", help="print version info").set_defaults(
+        fn=cmd_version)
+    dc = sub.add_parser("dump_config",
+                        help="print the lowered model IR JSON")
+    dc.add_argument("--config", required=True)
+    dc.set_defaults(fn=cmd_dump_config)
+    sub.add_parser("pserver", help="(subsumed) the reference's "
+                                   "parameter-server process").set_defaults(
+        fn=cmd_pserver)
     return p
 
 

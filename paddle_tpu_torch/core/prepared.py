@@ -61,8 +61,12 @@ def _step_feed(feeds: dict, i: int) -> dict:
 
 
 def _stacked(results: list):
-    """The k steps' results stacked: the losses, or (losses, statistics)
-    for steps that return ``(loss, {name: (tensor, ...)})``."""
+    """The k steps' results stacked: the losses, (losses, statistics)
+    for steps that return ``(loss, {name: (tensor, ...)})``, or a list
+    of stacked values for steps that return a list (Fluid's fetches)."""
+    if isinstance(results[0], list):
+        return [torch.stack([r[j] for r in results])
+                for j in range(len(results[0]))]
     if not isinstance(results[0], tuple):
         return torch.stack(results)
     stats = {name: tuple(torch.stack([r[1][name][j] for r in results])
@@ -72,6 +76,8 @@ def _stacked(results: list):
 
 
 def _copied(out):
+    if isinstance(out, list):
+        return [t.clone() for t in out]
     if isinstance(out, tuple):
         losses, stats = out
         return losses.clone(), {name: tuple(t.clone() for t in parts)

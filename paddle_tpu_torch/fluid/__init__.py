@@ -9,11 +9,13 @@ and an ``Executor`` that walks the op list (``framework/executor.cc:80``).
 Here: the IR (Program / Block / Operator / Variable, byte-equal JSON with
 the JAX package's), ``append_backward``, the DSL modules (``layers``,
 ``nets``, ``optimizer``, ``regularizer``, ``clip``, ``initializer``,
-``param_attr``), save / load (``io``), ``DataFeeder``, and an ``Executor``
+``param_attr``), control flow (``control_flow``), the whole op catalog,
+save / load (``io``), ``DataFeeder``, ``debugger``, and an ``Executor``
 that interprets a block op by op on ``CUDAPlace(0)`` (the default; it
-raises with no card) or ``CPUPlace()``.  Control flow, the op catalog's
-other ops, ``CompiledProgram`` / ``prepare`` / ``run_n``, ``profiler``
-and ``debugger`` are ``ROADMAP.md`` section 1, item 12b.
+raises with no card) or ``CPUPlace()``, with ``check_nan_inf``,
+``prepare`` / ``CompiledProgram`` and ``run_n`` (n steps as one captured
+CUDA graph on the card).  ``profiler`` rides on the framework profiler,
+which the port does not have yet.
 """
 
 from paddle_tpu_torch.fluid import framework
@@ -26,6 +28,8 @@ from paddle_tpu_torch.fluid import regularizer
 from paddle_tpu_torch.fluid import clip
 from paddle_tpu_torch.fluid import initializer
 from paddle_tpu_torch.fluid import io
+from paddle_tpu_torch.fluid import control_flow
+from paddle_tpu_torch.fluid import debugger
 from paddle_tpu_torch.fluid import executor
 from paddle_tpu_torch.fluid.framework import (
     Program,
@@ -40,12 +44,14 @@ from paddle_tpu_torch.fluid.framework import (
     CUDAPlace,
     TPUPlace,
 )
-from paddle_tpu_torch.fluid.executor import Executor, Scope, global_scope
+from paddle_tpu_torch.fluid.executor import (CompiledProgram, Executor, Scope,
+                                             global_scope)
 from paddle_tpu_torch.fluid.data_feeder import DataFeeder
 
 __all__ = [
     "framework", "ops", "layers", "nets", "backward", "optimizer",
-    "regularizer", "clip", "initializer", "io",
+    "regularizer", "clip", "initializer", "io", "control_flow",
+    "debugger", "CompiledProgram",
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_main_program", "default_startup_program", "program_guard",
     "CPUPlace", "CUDAPlace", "TPUPlace", "Executor", "Scope",

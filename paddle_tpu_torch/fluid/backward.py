@@ -7,9 +7,11 @@ Mirrors ``python/paddle/v2/fluid/backward.py`` (``_append_backward_ops_
 accumulate fan-in gradients with ``sum`` ops.  Unlike the reference, grad ops
 carry no hand-written kernel: the executor derives each one from the forward
 op by autograd (``executor._run_grad_op``), so this module only does the
-graph surgery: names, accumulation and stop-gradient pruning.  An op of
-``ROADMAP.md`` section 1, item 12b (control flow among them) is refused
-here by ``get_op``.
+graph surgery: names, accumulation and stop-gradient pruning.  A
+control-flow op is one op here: its grad op recomputes the whole loop
+under autograd, sub-block included.  An unbounded ``while`` is replayed
+as a ``bounded_while_grad`` (the JAX package's two-phase replay, the
+same JSON).
 """
 
 from __future__ import annotations
@@ -77,19 +79,40 @@ def append_backward(loss: Variable, parameter_list: Optional[List] = None,
                     partials.pop(n, None)
 
     for op in reversed(fwd_ops):
-        # does any output of this op have a pending gradient?  (Asked
-        # first: an op of item 12b that no gradient reaches is no reason
-        # to refuse the program here.)
-        out_has_grad = any(
-            n in partials for names in op.outputs.values() for n in names)
-        if not out_has_grad:
-            kill_outputs(op)
-            continue
         try:
             opdef = get_op(op.type)
         except KeyError:
             kill_outputs(op)
             continue
+        # does any output of this op have a pending gradient?
+        out_has_grad = any(
+            n in partials for names in op.outputs.values() for n in names)
+        if not out_has_grad:
+            kill_outputs(op)
+            continue
+
+        if op.type == "while":    # out_has_grad held above
+            # the two-phase replay of the unbounded While gradient (the
+            # JAX package's, and its JSON): the grad op replays the loop
+            # as the differentiable bounded_while whose bound is the
+            # forward's trip count ("__capture__", read from trips_var;
+            # the forward while op writes it earlier in the same run)
+            import types as _types
+
+            trips_names = op.outputs.get("Trips", [])
+            if not trips_names:
+                raise NotImplementedError(
+                    "gradients through an unbounded While require its "
+                    "trip-count output (programs built before the "
+                    "two-phase replay landed must be rebuilt); "
+                    "alternatively give the loop a max_trip_count")
+            op = _types.SimpleNamespace(
+                type="bounded_while",
+                attrs={**op.attrs, "max_trip_count": "__capture__",
+                       "trips_var": trips_names[0]},
+                inputs=op.inputs,
+                outputs={"CarryOut": op.outputs["CarryOut"]})
+            opdef = get_op(op.type)   # Carry/Params become differentiable
 
         # which input slots can receive grads
         diff_slots = (set(opdef.differentiable)

@@ -6,9 +6,7 @@ Each helper creates output variables in the current block and appends the op;
 parameters go to the global block with init ops in the startup program.
 Shape bookkeeping is best-effort: the executor runs on the real feed shapes;
 build-time shapes only have to be right where a later layer reads them (e.g.
-``fc`` reading ``input.shape[-1]``).  A helper whose op is not ported yet
-(``ops.UNPORTED``, ``ROADMAP.md`` section 1, item 12b) builds its op as the
-JAX package does, and the executor refuses the program.
+``fc`` reading ``input.shape[-1]``).
 """
 
 from __future__ import annotations
@@ -1010,9 +1008,8 @@ def __getattr__(name):
     if name in ("While", "StaticRNN", "DynamicRNN", "IfElse", "Switch",
                 "ParallelDo", "array_read", "array_write", "array_length",
                 "create_array"):
-        raise NotImplementedError(
-            f"fluid control flow ({name}) is not ported to "
-            f"paddle_tpu_torch yet (ROADMAP.md section 1, item 12b)")
+        from paddle_tpu_torch.fluid import control_flow
+        return getattr(control_flow, name)
     raise AttributeError(name)
 
 

@@ -8,14 +8,14 @@ Here an op is a function of torch tensors, ``fn(ctx, attrs, ins) ->
 executor's place.  No op has a hand-written grad kernel: the executor
 derives each ``<type>_grad`` op from the forward function by autograd.
 
-This catalog holds the ops of the Fluid programs that ``ROADMAP.md``
-section 1, item 12a names: the elementwise, unary / activation, matmul
-and reduce families, the shape and fill ops, the random ops and dropout,
-the costs, conv2d / pool2d / batch_norm, lstm and gru, linear_chain_crf
-and crf_decoding, nce, beam_search and beam_search_decode, and every
-optimizer update op.  Every other op of the JAX catalog (``UNPORTED``)
-is refused by ``get_op`` with a ``NotImplementedError`` naming item 12b,
-which the executor meets before it runs a program's first op.
+This catalog is the JAX catalog, op for op, with the same slots, attrs,
+static padded output layouts (the -1 padding of NMS, of bipartite_match
+and of the beams) and values; the control-flow ops (``recurrent``,
+``while``, ``bounded_while``, ``conditional_block``, ``array_write``,
+``array_read``) register from ``control_flow.py``.  An op whose value
+must come back to the host to decide what runs next (``host_sync``: the
+unbounded ``while``, ``conditional_block``'s branch, ``print``) cannot
+be captured in a CUDA graph; ``Executor.run_n`` stands down for it.
 
 Integers: a variable declared ``int64`` holds torch.int64 here (torch's
 index dtype), where the JAX package, with x64 off, holds int32; the
@@ -51,7 +51,7 @@ class OpDef:
                  inputs: Sequence[str], outputs: Sequence[str],
                  list_slots: Sequence[str] = (),
                  differentiable: Sequence[str] = None,
-                 stateful_rng: bool = False):
+                 stateful_rng: bool = False, host_sync: bool = False):
         self.name = name
         self.fn = fn  # fn(ctx, attrs, ins: Dict[slot, List[tensor]]) -> Dict
         self.inputs = tuple(inputs)
@@ -61,40 +61,17 @@ class OpDef:
         self.differentiable = (tuple(differentiable)
                                if differentiable is not None else None)
         self.stateful_rng = stateful_rng
+        # reads a value back to the host while it runs
+        self.host_sync = host_sync
 
 
 OPS: Dict[str, OpDef] = {}
 
-#: the JAX catalog's ops (and its control-flow ops) that this port does
-#: not run yet
-UNPORTED = frozenset((
-    "array_read", "array_to_lod_tensor", "array_write", "auc",
-    "bilinear_tensor_product", "bipartite_match", "bounded_while",
-    "box_coder", "chunk_eval", "conditional_block", "conv2d_transpose",
-    "conv_shift", "cos_sim", "ctc_align", "detection_map", "edit_distance",
-    "equal", "gather", "greater_equal", "greater_than", "gru_unit",
-    "hinge_loss", "huber_loss", "im2sequence", "iou_similarity",
-    "is_empty", "l1_norm", "label_smooth", "layer_norm", "less_equal",
-    "less_than", "lod_rank_table", "lod_reset", "lod_tensor_to_array",
-    "log_loss", "logical_and", "logical_not", "logical_or", "logical_xor",
-    "lrn", "lstm_unit", "lstmp", "margin_rank_loss", "max_pool2d_with_index",
-    "mine_hard_examples", "minus", "modified_huber_loss", "multiclass_nms",
-    "multiplex", "norm", "not_equal", "one_hot", "pad",
-    "positive_negative_pair", "precision_recall", "prelu", "print",
-    "prior_box", "proximal_adagrad", "proximal_gd", "rank_loss",
-    "recurrent", "roi_pool", "row_conv", "scatter", "sequence_concat",
-    "sequence_conv", "sequence_erase", "sequence_mask", "sequence_reshape",
-    "sequence_slice", "shrink_rnn_memory", "sigmoid_cross_entropy_with_logits",
-    "smooth_l1", "split_selected_rows", "spp", "squared_l2_distance",
-    "target_assign", "unpool", "warpctc", "where", "while",
-))
-
-
 def register_op(name: str, inputs, outputs, list_slots=(),
-                differentiable=None, stateful_rng=False):
+                differentiable=None, stateful_rng=False, host_sync=False):
     def deco(fn):
         OPS[name] = OpDef(name, fn, inputs, outputs, list_slots,
-                          differentiable, stateful_rng)
+                          differentiable, stateful_rng, host_sync)
         if stateful_rng:
             framework.STATEFUL_RNG_OPS.add(name)
         return fn
@@ -103,17 +80,13 @@ def register_op(name: str, inputs, outputs, list_slots=(),
 
 
 def get_op(name: str) -> OpDef:
-    if name in OPS:
-        return OPS[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"fluid op {name!r} is not ported to paddle_tpu_torch yet "
-            f"(ROADMAP.md section 1, item 12b)")
-    raise KeyError(f"op {name!r} is not registered")
+    if name not in OPS:
+        raise KeyError(f"op {name!r} is not registered")
+    return OPS[name]
 
 
 def simple(name: str, inputs=("X",), outputs=("Out",), list_slots=(),
-           differentiable=None, stateful_rng=False):
+           differentiable=None, stateful_rng=False, host_sync=False):
     """Register an op whose fn takes unpacked tensors and returns
     tensor(s)."""
 
@@ -132,7 +105,7 @@ def simple(name: str, inputs=("X",), outputs=("Out",), list_slots=(),
             return {s: [v] for s, v in zip(OPS[name].outputs, out)}
 
         OPS[name] = OpDef(name, wrapper, inputs, outputs, list_slots,
-                          differentiable, stateful_rng)
+                          differentiable, stateful_rng, host_sync)
         if stateful_rng:
             framework.STATEFUL_RNG_OPS.add(name)
         return f
@@ -466,20 +439,17 @@ def _assign_value(ctx, attrs):
 
 @simple("uniform_random", inputs=(), differentiable=(), stateful_rng=True)
 def _uniform_random(ctx, attrs):
-    out = torch.empty(tuple(attrs["shape"]),
-                      dtype=torch_dtype(attrs.get("dtype", "float32")),
-                      device=ctx.device)
-    return out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                        generator=ctx.next_generator())
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    u = ctx.uniform(tuple(attrs["shape"]))
+    return (lo + u * (hi - lo)).to(
+        torch_dtype(attrs.get("dtype", "float32")))
 
 
 @simple("gaussian_random", inputs=(), differentiable=(), stateful_rng=True)
 def _gaussian_random(ctx, attrs):
-    out = torch.empty(tuple(attrs["shape"]),
-                      dtype=torch_dtype(attrs.get("dtype", "float32")),
-                      device=ctx.device)
-    return out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
-                       generator=ctx.next_generator())
+    z = ctx.normal(tuple(attrs["shape"]))
+    return (attrs.get("mean", 0.0) + z * attrs.get("std", 1.0)).to(
+        torch_dtype(attrs.get("dtype", "float32")))
 
 
 @simple("dropout", outputs=("Out", "Mask"), stateful_rng=True)
@@ -487,8 +457,7 @@ def _dropout(ctx, attrs, x):
     p = attrs.get("dropout_prob", 0.5)
     if attrs.get("is_test", False) or not ctx.train:
         return x, torch.ones_like(x)
-    u = torch.rand(x.shape, generator=ctx.next_generator(),
-                   device=x.device)
+    u = ctx.uniform(tuple(x.shape))
     mask = (u < 1.0 - p).to(x.dtype)
     return x * mask / (1.0 - p), mask
 
@@ -763,14 +732,15 @@ def _lstm_cell(gates, c_prev):
     return c, o * torch.tanh(c)
 
 
-def _gru_cell(g, h_prev, w):
+def _gru_gates(g, h_prev, w):
     """The GRU gate math (reference gru layout: [:, :2H] update/reset,
-    [:, 2H:] candidate; h = (1 - u) h_prev + u c, gru_kernel.h)."""
+    [:, 2H:] candidate; h = (1 - u) h_prev + u c, gru_kernel.h):
+    (ur, candidate, reset hidden prev, h_new)."""
     h = h_prev.shape[-1]
     ur = torch.sigmoid(g[:, :2 * h] + h_prev @ w[:, :2 * h])
     u, r = ur[:, :h], ur[:, h:]
     c = torch.tanh(g[:, 2 * h:] + (r * h_prev) @ w[:, 2 * h:])
-    return (1.0 - u) * h_prev + u * c
+    return ur, c, r * h_prev, (1.0 - u) * h_prev + u * c
 
 
 def _steps(x, mask, reverse):
@@ -825,7 +795,7 @@ def _gru(ctx, attrs, ins):
     hs = [None] * t
     for s in order:
         g = x[:, s] + bias if bias is not None else x[:, s]
-        h = ms[s] * _gru_cell(g, h, w) + (1 - ms[s]) * h
+        h = ms[s] * _gru_gates(g, h, w)[3] + (1 - ms[s]) * h
         hs[s] = h
     return {"Hidden": [torch.stack(hs, 1)]}
 
@@ -882,10 +852,10 @@ def _crf_decoding(ctx, attrs, ins):
 
 def nce_negatives(ctx, num_neg: int, num_classes: int) -> torch.Tensor:
     """The op's negative class ids [num_neg], uniform over the classes,
-    from the op's generator (the same draw in the op and its grad op).
-    A test may replace this function to feed another package's draws."""
-    return torch.randint(0, num_classes, (num_neg,),
-                         generator=ctx.next_generator(), device=ctx.device)
+    from the op's random stream (the same draw in the op and its grad
+    op).  A test may replace this function to feed another package's
+    draws."""
+    return ctx.randint(num_classes, (num_neg,))
 
 
 @register_op("nce", inputs=("Input", "Label", "Weight", "Bias"),
@@ -960,3 +930,1151 @@ def _beam_search_decode(ctx, attrs, ins):
         cur = torch.gather(parents[s], 1, cur)
     return {"SentenceIds": [torch.stack(toks, 2).to(torch.int32)],
             "SentenceScores": [scores[-1]]}
+
+
+# ---------------------------------------------------------------------------
+# gather / scatter / pad / one_hot / multiplex / where
+# ---------------------------------------------------------------------------
+
+@simple("gather", inputs=("X", "Index"), differentiable=("X",))
+def _gather(ctx, attrs, x, index):
+    return x[index.long()]
+
+
+@simple("scatter", inputs=("X", "Ids", "Updates"),
+        differentiable=("X", "Updates"))
+def _scatter(ctx, attrs, x, ids, updates):
+    return x.index_put((ids.long(),), updates)
+
+
+@simple("pad")
+def _pad(ctx, attrs, x):
+    p = attrs["paddings"]
+    flat = []
+    for i in reversed(range(x.ndim)):
+        flat += [p[2 * i], p[2 * i + 1]]
+    return F.pad(x, flat, value=attrs.get("pad_value", 0.0))
+
+
+@simple("one_hot", differentiable=())
+def _one_hot(ctx, attrs, x):
+    depth = attrs["depth"]
+    flat = x.reshape(x.shape[:-1]) if x.shape and x.shape[-1] == 1 else x
+    # a compare, not F.one_hot: that one reads the ids' range back to
+    # the host; an id out of range gives a zero row, as jax.nn.one_hot
+    classes = torch.arange(depth, device=x.device)
+    return (flat.long()[..., None] == classes).to(torch.float32)
+
+
+@simple("multiplex", inputs=("Ids", "X"), list_slots=("X",),
+        differentiable=("X",))
+def _multiplex(ctx, attrs, ids, xs):
+    stacked = torch.stack(xs, dim=0)                     # [n, batch, d]
+    sel = ids.reshape(-1).long()
+    return stacked[sel, torch.arange(stacked.shape[1], device=sel.device)]
+
+
+@simple("where", inputs=("Cond", "X", "Y"), differentiable=("X", "Y"))
+def _where(ctx, attrs, cond, x, y):
+    """elementwise select (the row-split semantics of split /
+    merge_lod_tensor); the unselected side's NaN does not leak."""
+    return torch.where(cond.to(torch.bool), x, y)
+
+
+# Out = X - Y (reference: minus_op.cc), elementwise_sub's function under
+# the reference's historical name
+_register_elementwise("minus", torch.sub)
+
+
+# ---------------------------------------------------------------------------
+# comparison / logical (for control flow)
+# ---------------------------------------------------------------------------
+
+def _register_compare(name, fn):
+    @simple(name, inputs=("X", "Y"), differentiable=())
+    def _impl(ctx, attrs, x, y, _fn=fn):
+        return _fn(x, y)
+
+
+for _n, _f in [("less_than", torch.lt), ("less_equal", torch.le),
+               ("greater_than", torch.gt), ("greater_equal", torch.ge),
+               ("equal", torch.eq), ("not_equal", torch.ne),
+               ("logical_and", torch.logical_and),
+               ("logical_or", torch.logical_or),
+               ("logical_xor", torch.logical_xor)]:
+    _register_compare(_n, _f)
+
+
+@simple("logical_not", differentiable=())
+def _logical_not(ctx, attrs, x):
+    return torch.logical_not(x)
+
+
+@simple("sequence_mask", differentiable=())
+def _sequence_mask(ctx, attrs, x):
+    """lens [B] -> [B, maxlen] validity mask (fluid sequence_mask)."""
+    pos = torch.arange(attrs["maxlen"], device=x.device)
+    return (pos[None, :] < x.reshape(-1, 1).to(torch.int32)).to(
+        torch_dtype(attrs.get("dtype", "float32")))
+
+
+# ---------------------------------------------------------------------------
+# losses and distances (reference: operators/*_loss_op.cc, cos_sim_op.cc,
+# squared_l2_distance_op.cc, label_smooth_op.cc)
+# ---------------------------------------------------------------------------
+
+@simple("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+        differentiable=("X",))
+def _sigmoid_ce(ctx, attrs, x, label):
+    return (torch.clamp(x, min=0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+@simple("smooth_l1", inputs=("X", "Y"), differentiable=("X",))
+def _smooth_l1(ctx, attrs, x, y):
+    sigma2 = attrs.get("sigma", 1.0) ** 2
+    d = x - y
+    a = torch.abs(d)
+    loss = torch.where(a < 1.0 / sigma2, 0.5 * sigma2 * d * d,
+                       a - 0.5 / sigma2)
+    return torch.sum(loss, dim=-1, keepdim=True)
+
+
+@simple("log_loss", inputs=("Predicted", "Labels"), outputs=("Loss",),
+        differentiable=("Predicted",))
+def _log_loss(ctx, attrs, p, y):
+    eps = attrs.get("epsilon", 1e-4)
+    return -y * torch.log(p + eps) - (1.0 - y) * torch.log(1.0 - p + eps)
+
+
+@simple("hinge_loss", inputs=("Logits", "Labels"), outputs=("Loss",),
+        differentiable=("Logits",))
+def _hinge_loss(ctx, attrs, x, y):
+    return torch.clamp(1.0 - (2.0 * y - 1.0) * x, min=0.0)
+
+
+@simple("huber_loss", inputs=("X", "Y"), outputs=("Out",),
+        differentiable=("X",))
+def _huber_loss(ctx, attrs, x, y):
+    delta = attrs.get("delta", 1.0)
+    d = y - x
+    a = torch.abs(d)
+    return torch.where(a <= delta, 0.5 * d * d, delta * (a - 0.5 * delta))
+
+
+@simple("squared_l2_distance", inputs=("X", "Y"))
+def _squared_l2_distance(ctx, attrs, x, y):
+    return torch.sum(torch.square(x - y), dim=-1, keepdim=True)
+
+
+@simple("l1_norm")
+def _l1_norm(ctx, attrs, x):
+    return torch.sum(torch.abs(x)).reshape(1)
+
+
+@simple("cos_sim", inputs=("X", "Y"))
+def _cos_sim(ctx, attrs, x, y):
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    return torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+
+
+@simple("rank_loss", inputs=("Label", "Left", "Right"))
+def _rank_loss(ctx, attrs, label, left, right):
+    o = left - right
+    return (torch.log1p(torch.exp(-torch.abs(o))) + torch.clamp(o, min=0.0)
+            - label.to(o.dtype) * o)
+
+
+@simple("margin_rank_loss", inputs=("Label", "X1", "X2"),
+        outputs=("Out", "Activated"))
+def _margin_rank_loss(ctx, attrs, label, x1, x2):
+    raw = attrs.get("margin", 0.0) - label.to(x1.dtype) * (x1 - x2)
+    return torch.clamp(raw, min=0.0), (raw > 0).to(x1.dtype)
+
+
+@simple("modified_huber_loss", inputs=("X", "Y"),
+        outputs=("Out", "IntermediateVal"))
+def _modified_huber_loss(ctx, attrs, x, y):
+    # y in {0, 1} -> {-1, 1}; z = pred * y, the margin
+    z = x * (2.0 * y.to(x.dtype) - 1.0)
+    out = torch.where(z < -1.0, -4.0 * z,
+                      torch.square(torch.clamp(1.0 - z, min=0.0)))
+    return out, z
+
+
+@simple("label_smooth", inputs=("X", "PriorDist"))
+def _label_smooth(ctx, attrs, x, prior):
+    eps = attrs.get("epsilon", 0.1)
+    if prior is not None:
+        return (1.0 - eps) * x + eps * prior
+    return (1.0 - eps) * x + eps / x.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# layers: norms, bilinear, prelu, the transposed conv, conv_shift /
+# row_conv, lrn (reference: the matching operators/*_op.cc)
+# ---------------------------------------------------------------------------
+
+@register_op("layer_norm", inputs=("X", "Scale", "Bias"),
+             outputs=("Y", "Mean", "Variance"),
+             differentiable=("X", "Scale", "Bias"))
+def _layer_norm(ctx, attrs, ins):
+    x = ins["X"][0]
+    begin = attrs.get("begin_norm_axis", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(begin, x.ndim))
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    var = torch.var(x, dim=axes, unbiased=False, keepdim=True)
+    y = (x - mean) / torch.sqrt(var + eps)
+    shape = [1] * begin + list(x.shape[begin:])
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(shape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(shape)
+    return {"Y": [y], "Mean": [mean.reshape(-1)],
+            "Variance": [var.reshape(-1)]}
+
+
+@simple("lrn", inputs=("X",), outputs=("Out",))
+def _lrn(ctx, attrs, x):
+    n = attrs.get("n", 5)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    k = attrs.get("k", 1.0)
+    half = n // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    acc = pad[:, 0:x.shape[1]]
+    for i in range(1, n):
+        acc = acc + pad[:, i:i + x.shape[1]]
+    return x / torch.pow(k + alpha * acc, beta)
+
+
+@simple("bilinear_tensor_product", inputs=("X", "Y", "Weight", "Bias"))
+def _bilinear_tensor_product(ctx, attrs, x, y, w, bias):
+    # out[b, k] = x[b] @ w[k] @ y[b] (reference
+    # bilinear_tensor_product_op.h)
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    return out + bias if bias is not None else out
+
+
+@simple("norm", inputs=("X",))
+def _norm(ctx, attrs, x):
+    axis = attrs.get("axis", 1)
+    eps = attrs.get("epsilon", 1e-10)
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=axis,
+                                    keepdim=True) + eps)
+
+
+@simple("prelu", inputs=("X", "Alpha"))
+def _prelu(ctx, attrs, x, alpha):
+    return torch.where(x > 0, x, alpha * x)
+
+
+@simple("conv2d_transpose", inputs=("Input", "Filter"), outputs=("Output",))
+def _conv2d_transpose(ctx, attrs, x, w):
+    """filter layout IOHW (reference conv2d_transpose_op.cc: [in, out, h,
+    w]); out size (H - 1) * stride - 2 * pad + k."""
+    return F.conv_transpose2d(x, w,
+                              stride=tuple(attrs.get("strides", (1, 1))),
+                              padding=tuple(attrs.get("paddings", (0, 0))))
+
+
+@simple("row_conv", inputs=("X", "Filter"))
+def _row_conv(ctx, attrs, x, filt):
+    """future-context (lookahead) conv over time (reference:
+    row_conv_op.cc): out[b, t] = sum_j filt[j] * x[b, t + j]."""
+    k, t = filt.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, 0, k - 1))
+    out = pad[:, 0:t, :] * filt[0]
+    for j in range(1, k):
+        out = out + pad[:, j:j + t, :] * filt[j]
+    return out
+
+
+@simple("conv_shift", inputs=("X", "Y"))
+def _conv_shift(ctx, attrs, x, y):
+    """circular correlation (reference: conv_shift_op.cc), the NTM
+    attention shift.  x [B, D], y [B, K] (K odd, K <= D)."""
+    d, k = x.shape[1], y.shape[1]
+    half = k // 2
+    dev = x.device
+    idx = torch.remainder(torch.arange(d, device=dev)[:, None]
+                          + torch.arange(-half, half + 1, device=dev)[None],
+                          d)
+    return torch.einsum("bdk,bk->bd", x[:, idx], y)
+
+
+@simple("is_empty", differentiable=())
+def _is_empty(ctx, attrs, x):
+    return torch.full((), x.numel() == 0, dtype=torch.bool, device=x.device)
+
+
+@simple("print", differentiable=("X",), host_sync=True)
+def _print(ctx, attrs, x):
+    """pass-through debug print (reference: print_op.cc): the first
+    ``summarize`` values, read back to the host as the op runs."""
+    msg = attrs.get("message", "")
+    n = attrs.get("summarize", 20)
+    print(msg, x.detach().reshape(-1)[:n].cpu().tolist(), flush=True)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# RNN units (reference: lstm_unit_op.cc, gru_unit_op.cc, lstmp_op.cc)
+# ---------------------------------------------------------------------------
+
+@simple("lstm_unit", inputs=("X", "C_prev"), outputs=("C", "H"))
+def _lstm_unit(ctx, attrs, x, c_prev):
+    """one LSTM step on pre-projected gates X [B, 4H] (gate order i, f,
+    c, o; forget_bias added to the f slice)."""
+    fb = attrs.get("forget_bias", 0.0)
+    if fb:
+        h = x.shape[-1] // 4
+        shift = torch.zeros((4 * h,), dtype=x.dtype, device=x.device)
+        shift[h:2 * h] = fb
+        x = x + shift
+    return _lstm_cell(x, c_prev)
+
+
+@simple("gru_unit", inputs=("Input", "HiddenPrev", "Weight", "Bias"),
+        outputs=("Gate", "ResetHiddenPrev", "Hidden"))
+def _gru_unit(ctx, attrs, x, h_prev, weight, bias):
+    """one GRU step: x [B, 3H] input projection, weight [H, 3H]
+    recurrent."""
+    if bias is not None:
+        x = x + bias
+    ur, c, rhp, h_new = _gru_gates(x, h_prev, weight)
+    return torch.cat([ur, c], dim=-1), rhp, h_new
+
+
+@register_op("lstmp",
+             inputs=("Input", "Weight", "ProjWeight", "Bias", "C0", "H0",
+                     "Mask"),
+             outputs=("Projection", "Cell"))
+def _lstmp(ctx, attrs, ins):
+    """LSTM with a recurrent projection r = h Wp (reference: lstmp_op.cc;
+    the recurrent weight [P, 4H] acts on the projected state)."""
+    x = ins["Input"][0]
+    w = ins["Weight"][0]                       # [P, 4H]
+    wp = ins["ProjWeight"][0]                  # [H, P]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    b, t, four_h = x.shape
+    dev = x.device
+    c = (ins["C0"][0] if ins.get("C0")
+         else torch.zeros((b, four_h // 4), dtype=x.dtype, device=dev))
+    r = (ins["H0"][0] if ins.get("H0")
+         else torch.zeros((b, wp.shape[1]), dtype=x.dtype, device=dev))
+    order, ms = _steps(x, ins["Mask"][0] if ins.get("Mask") else None,
+                       False)
+    rs, cs = [], []
+    for s in order:
+        gates = x[:, s] + r @ w
+        if bias is not None:
+            gates = gates + bias
+        c_new, h = _lstm_cell(gates, c)
+        c = ms[s] * c_new + (1 - ms[s]) * c
+        r = ms[s] * (h @ wp) + (1 - ms[s]) * r
+        rs.append(r)
+        cs.append(c)
+    return {"Projection": [torch.stack(rs, 1)], "Cell": [torch.stack(cs, 1)]}
+
+
+# ---------------------------------------------------------------------------
+# optimizer ops: the proximal family (reference: proximal_gd_op.cc,
+# proximal_adagrad_op.cc)
+# ---------------------------------------------------------------------------
+
+def _proximal(prox, lr, l1, l2):
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1,
+                                           min=0.0) / (1.0 + lr * l2))
+
+
+@register_op("proximal_gd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), differentiable=())
+def _proximal_gd(ctx, attrs, ins):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    return {"ParamOut": [_proximal(p - lr * g, lr, attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))]}
+
+
+@register_op("proximal_adagrad",
+             inputs=("Param", "Grad", "Moment", "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), differentiable=())
+def _proximal_adagrad(ctx, attrs, ins):
+    p, g, m = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    m_new = m + g * g
+    alr = lr / torch.sqrt(m_new)
+    return {"ParamOut": [_proximal(p - alr * g, alr, attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))],
+            "MomentOut": [m_new]}
+
+
+# ---------------------------------------------------------------------------
+# sequence and LoD ops on padded batches (reference: sequence_*_op.cc,
+# lod_*_op.cc; the LoD becomes length tensors and masks)
+# ---------------------------------------------------------------------------
+
+def _lens(v, b, t, dev):
+    return (v.reshape(b) if v is not None
+            else torch.full((b,), t, dtype=torch.int32, device=dev))
+
+
+def _take_time(x, idx):
+    """x [B, T, ...] gathered along time at idx [B, T']."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx.long()]
+
+
+def _bcast_rows(m, x):
+    """a [B, T] mask shaped to broadcast over x [B, T, ...]."""
+    return m.reshape(m.shape + (1,) * (x.ndim - 2))
+
+
+def _left_compact(x, keep):
+    """the kept tokens of x [B, T] moved left in order, zeros after them,
+    and their counts (int32)."""
+    t = x.shape[1]
+    pos = torch.arange(t, device=x.device)[None, :]
+    key = torch.where(keep, pos, torch.full_like(pos, t + 1))
+    order = torch.sort(key, dim=1, stable=True)[1]
+    out = torch.gather(x, 1, order)
+    new_len = torch.sum(keep, dim=1).to(torch.int32)
+    out = torch.where(pos < new_len[:, None], out, torch.zeros_like(out))
+    return out, new_len
+
+
+@simple("sequence_concat", inputs=("X", "Y", "XLen", "YLen"),
+        outputs=("Out", "OutLen"), differentiable=("X", "Y"))
+def _sequence_concat(ctx, attrs, x, y, xlen, ylen):
+    """concat per sample along time honouring the lengths (reference:
+    sequence_concat_op.cc)."""
+    b, tx, ty = x.shape[0], x.shape[1], y.shape[1]
+    dev = x.device
+    xlen, ylen = _lens(xlen, b, tx, dev), _lens(ylen, b, ty, dev)
+    pos = torch.arange(tx + ty, device=dev)[None, :]
+    from_x = pos < xlen[:, None]
+    from_y = (pos >= xlen[:, None]) & (pos < (xlen + ylen)[:, None])
+    x_g = _take_time(x, torch.clamp(pos, 0, tx - 1).expand(b, tx + ty))
+    y_g = _take_time(y, torch.clamp(pos - xlen[:, None], 0, ty - 1))
+    out = torch.where(_bcast_rows(from_x, x), x_g,
+                      torch.where(_bcast_rows(from_y, x), y_g,
+                                  torch.zeros_like(y_g)))
+    return out, xlen + ylen
+
+
+@simple("sequence_erase", inputs=("X", "XLen"), outputs=("Out", "OutLen"),
+        differentiable=())
+def _sequence_erase(ctx, attrs, x, xlen):
+    """remove the tokens of attrs['tokens'] and left-compact (reference:
+    sequence_erase_op.cc).  x [B, T] ids."""
+    b, t = x.shape
+    xlen = _lens(xlen, b, t, x.device)
+    keep = torch.arange(t, device=x.device)[None, :] < xlen[:, None]
+    for tok in attrs.get("tokens", []):
+        keep = keep & (x != tok)
+    return _left_compact(x, keep)
+
+
+@simple("sequence_slice", inputs=("X", "Offset", "Length"))
+def _sequence_slice(ctx, attrs, x, offset, length):
+    """the per-sample window [offset, offset + length), left-aligned
+    (reference: sequence_slice_op.cc); T stays the static length."""
+    b, t = x.shape[0], x.shape[1]
+    pos = torch.arange(t, device=x.device)[None, :]
+    src = torch.clamp(pos + offset.reshape(b, 1).to(torch.int32), 0, t - 1)
+    out = _take_time(x, src)
+    keep = pos < length.reshape(b, 1).to(torch.int32)
+    return torch.where(_bcast_rows(keep, x), out, torch.zeros_like(out))
+
+
+@simple("sequence_reshape", inputs=("X",))
+def _sequence_reshape(ctx, attrs, x):
+    """re-chunk the time axis into new_dim-wide rows (reference:
+    sequence_reshape_op.cc)."""
+    new_dim = attrs["new_dim"]
+    b, t, d = x.shape
+    return x.reshape(b, t * d // new_dim, new_dim)
+
+
+@simple("sequence_conv", inputs=("X", "Filter"))
+def _sequence_conv(ctx, attrs, x, filt):
+    """context-window projection over time (reference:
+    sequence_conv_op.cc, math/context_project.h): a k-step window around
+    each position, one GEMM with the filter [k * D, M]."""
+    k = attrs.get("context_length", 3)
+    start = attrs.get("context_start", -(k // 2))
+    t = x.shape[1]
+    cols = []
+    for j in range(k):
+        shift = start + j
+        pos = torch.arange(t, device=x.device) + shift
+        ok = ((pos >= 0) & (pos < t)).to(x.dtype)[None, :, None]
+        cols.append(torch.roll(x, -shift, dims=1) * ok)
+    return torch.cat(cols, dim=-1) @ filt
+
+
+@simple("lod_reset", inputs=("X", "Y"), differentiable=("X",))
+def _lod_reset(ctx, attrs, x, y):
+    """the identity on padded batches (reference: lod_reset_op.cc
+    rewrites LoD metadata, which padded batching keeps in length
+    tensors)."""
+    return x
+
+
+@simple("lod_rank_table", differentiable=())
+def _lod_rank_table(ctx, attrs, lens):
+    """the sequences' indices by length, longest first (reference:
+    lod_rank_table_op.cc)."""
+    return torch.sort(-lens.reshape(-1).to(torch.int32), stable=True)[1] \
+        .to(torch.int32)
+
+
+@simple("shrink_rnn_memory", inputs=("X", "Lens", "I"),
+        differentiable=("X",))
+def _shrink_rnn_memory(ctx, attrs, x, lens, i):
+    """zero the rows past k = #sequences longer than step I (reference:
+    shrink_rnn_memory_op.cc shrinks the length-sorted batch to its first
+    k rows; the static shape keeps [B, ...])."""
+    step = i.reshape(()).to(torch.int32)
+    active = torch.sum(lens.reshape(-1).to(torch.int32) > step)
+    mask = (torch.arange(x.shape[0], device=x.device) < active).to(x.dtype)
+    return x * mask.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+@simple("lod_tensor_to_array", inputs=("X",))
+def _lod_tensor_to_array(ctx, attrs, x):
+    """batch-major [B, T, ...] -> the step array [T, B, ...] (reference:
+    lod_tensor_to_array_op.cc)."""
+    return x.transpose(0, 1)
+
+
+@simple("array_to_lod_tensor", inputs=("X",))
+def _array_to_lod_tensor(ctx, attrs, x):
+    return x.transpose(0, 1)
+
+
+@simple("im2sequence", inputs=("X",))
+def _im2sequence(ctx, attrs, x):
+    """NCHW image -> patch rows [B, oh * ow, C * kh * kw] (reference:
+    im2sequence_op.cc)."""
+    kh, kw = attrs["kernels"]
+    sh, sw = attrs.get("strides", [1, 1])
+    pads = list(attrs.get("paddings", [0, 0]))
+    if len(pads) == 2:                  # symmetric (up = down, left = right)
+        pads = [pads[0], pads[1], pads[0], pads[1]]
+    up, left, down, right = pads        # the reference's 4-element layout
+    b, c, h, w = x.shape
+    xp = F.pad(x, (left, right, up, down))
+    oh = (h + up + down - kh) // sh + 1
+    ow = (w + left + right - kw) // sw + 1
+    st = torch.stack([xp[:, :, i:i + oh * sh:sh, j:j + ow * sw:sw]
+                      for i in range(kh) for j in range(kw)])
+    return st.permute(1, 3, 4, 2, 0).reshape(b, oh * ow, c * kh * kw)
+
+
+# ---------------------------------------------------------------------------
+# pooling variants (reference: spp_op.cc, pool_with_index_op.cc,
+# unpool_op.cc, roi_pool_op.cc)
+# ---------------------------------------------------------------------------
+
+@simple("spp", inputs=("X",))
+def _spp(ctx, attrs, x):
+    """spatial pyramid pooling, NCHW: levels of n x n bins concatenated
+    into [B, C * sum(n^2)], ceil-split bins, channel-major."""
+    levels = attrs.get("pyramid_height", 3)
+    mx = attrs.get("pooling_type", "max") == "max"
+    b, c, h, w = x.shape
+    feats = []
+    for lv in range(levels):
+        n = 2 ** lv
+        ys = [-(-i * h // n) for i in range(n + 1)]
+        xs = [-(-i * w // n) for i in range(n + 1)]
+        cells = []
+        for yi in range(n):
+            for xi in range(n):
+                cell = x[:, :, ys[yi]:max(ys[yi + 1], ys[yi] + 1),
+                         xs[xi]:max(xs[xi + 1], xs[xi] + 1)]
+                cells.append(torch.amax(cell, dim=(2, 3)) if mx
+                             else torch.mean(cell, dim=(2, 3)))
+        feats.append(torch.stack(cells, dim=-1).reshape(b, c * n * n))
+    return torch.cat(feats, dim=1)
+
+
+@register_op("max_pool2d_with_index", inputs=("X",),
+             outputs=("Out", "Mask"))
+def _max_pool2d_with_index(ctx, attrs, ins):
+    """max pool emitting each maximum's flat input position (the Mask
+    that unpool reads)."""
+    x = ins["X"][0]
+    kh, kw = attrs["ksize"]
+    sh, sw = attrs.get("strides", attrs["ksize"])
+    h, w = x.shape[2], x.shape[3]
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    wins = torch.stack([x[:, :, i:i + oh * sh:sh, j:j + ow * sw:sw]
+                        for i in range(kh) for j in range(kw)], dim=-1)
+    arg = torch.argmax(wins, dim=-1)
+    dev = x.device
+    rows = torch.arange(oh, device=dev)[None, None, :, None] * sh + arg // kw
+    cols = torch.arange(ow, device=dev)[None, None, None, :] * sw + arg % kw
+    return {"Out": [torch.amax(wins, dim=-1)],
+            "Mask": [(rows * w + cols).to(torch.int32)]}
+
+
+@simple("unpool", inputs=("X", "Indices"))
+def _unpool(ctx, attrs, x, indices):
+    """the pooled values scattered back to their maxima's positions
+    (reference: unpool_op.cc; overlapping windows write one value)."""
+    uh, uw = attrs["unpool_size"]
+    b, c, oh, ow = x.shape
+    flat = torch.zeros((b, c, uh * uw), dtype=x.dtype, device=x.device)
+    flat = flat.scatter(2, indices.reshape(b, c, oh * ow).long(),
+                        x.reshape(b, c, oh * ow))
+    return flat.reshape(b, c, uh, uw)
+
+
+@simple("roi_pool", inputs=("X", "ROIs"), outputs=("Out", "Argmax"),
+        differentiable=("X",))
+def _roi_pool(ctx, attrs, x, rois):
+    """ROI max pooling, NHWC (reference: roi_pool_op.cc).  rois [R, 5] =
+    (batch index, x1, y1, x2, y2) in input coordinates.  Out [R, ph, pw,
+    C]; Argmax the flat h * W + w index of each maximum, -1 in an empty
+    bin (whose value is 0)."""
+    ph, pw = attrs["pooled_height"], attrs["pooled_width"]
+    scale = attrs.get("spatial_scale", 1.0)
+    b, h, w, c = x.shape
+    dev = x.device
+    rois = rois.to(torch.float32)
+    fmap = x[torch.clamp(rois[:, 0].to(torch.int32), 0, b - 1).long()]
+    x1 = torch.clamp(torch.floor(rois[:, 1] * scale), 0, w - 1)
+    y1 = torch.clamp(torch.floor(rois[:, 2] * scale), 0, h - 1)
+    x2 = torch.clamp(torch.maximum(torch.ceil(rois[:, 3] * scale), x1 + 1),
+                     max=w)
+    y2 = torch.clamp(torch.maximum(torch.ceil(rois[:, 4] * scale), y1 + 1),
+                     max=h)
+    bin_w, bin_h = (x2 - x1) / pw, (y2 - y1) / ph
+    by = torch.arange(ph, dtype=torch.float32, device=dev)
+    bx = torch.arange(pw, dtype=torch.float32, device=dev)
+    y_lo = y1[:, None] + by[None] * bin_h[:, None]
+    y_hi = y1[:, None] + (by[None] + 1) * bin_h[:, None]
+    x_lo = x1[:, None] + bx[None] * bin_w[:, None]
+    x_hi = x1[:, None] + (bx[None] + 1) * bin_w[:, None]
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    my = ((ys >= torch.floor(y_lo)[..., None])
+          & (ys < torch.ceil(y_hi)[..., None]))              # [R, ph, H]
+    mxx = ((xs >= torch.floor(x_lo)[..., None])
+           & (xs < torch.ceil(x_hi)[..., None]))             # [R, pw, W]
+    m = my[:, :, None, :, None] & mxx[:, None, :, None, :]   # [R,ph,pw,H,W]
+    sel = torch.where(m[..., None], fmap[:, None, None],
+                      torch.full((), float("-inf"), dtype=x.dtype,
+                                 device=dev))
+    v = torch.amax(sel, dim=(3, 4))
+    am = torch.argmax(sel.reshape(sel.shape[:3] + (h * w, c)), dim=3)
+    fin = torch.isfinite(v)
+    return (torch.where(fin, v, torch.zeros_like(v)),
+            torch.where(fin, am, torch.full_like(am, -1)).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# CTC and edit distance (reference: warpctc_op.cc, ctc_align_op.cc,
+# edit_distance_op.cc) on the v2 layers' CTC, layers/crf_ctc.py
+# ---------------------------------------------------------------------------
+
+@register_op("warpctc",
+             inputs=("Logits", "Label", "LogitsLength", "LabelLength"),
+             outputs=("Loss",), differentiable=("Logits",))
+def _warpctc(ctx, attrs, ins):
+    """CTC loss on padded [B, T, C] logits: the log-space recurrence of
+    the v2 CTC layer (the reference loads warp-ctc)."""
+    from paddle_tpu_torch.layers.crf_ctc import ctc_loss
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    b, t, lt = logits.shape[0], logits.shape[1], label.shape[1]
+    dev = logits.device
+    tl = _lens(ins["LogitsLength"][0] if ins.get("LogitsLength") else None,
+               b, t, dev)
+    ll = _lens(ins["LabelLength"][0] if ins.get("LabelLength") else None,
+               b, lt, dev)
+    tmask = (torch.arange(t, device=dev)[None] < tl[:, None]).float()
+    lmask = (torch.arange(lt, device=dev)[None] < ll[:, None]).float()
+    loss = ctc_loss(logits, tmask, label.long(), lmask,
+                    blank=attrs.get("blank", 0))
+    if attrs.get("norm_by_times", False):
+        loss = loss / torch.clamp(tl.to(loss.dtype), min=1.0)
+    return {"Loss": [loss.reshape(b, 1)]}
+
+
+@simple("ctc_align", inputs=("Input", "InputLength"),
+        outputs=("Output", "OutputLength"), differentiable=())
+def _ctc_align(ctx, attrs, x, xlen):
+    """merge repeats, then drop blanks, left-compacted (reference:
+    ctc_align_op.cc).  x [B, T] path ids."""
+    b, t = x.shape
+    xlen = _lens(xlen, b, t, x.device)
+    valid = torch.arange(t, device=x.device)[None, :] < xlen[:, None]
+    prev = torch.cat([torch.full((b, 1), -1, dtype=x.dtype,
+                                 device=x.device), x[:, :-1]], dim=1)
+    return _left_compact(x, valid & (x != attrs.get("blank", 0))
+                         & (x != prev))
+
+
+@register_op("edit_distance",
+             inputs=("Hyps", "Refs", "HypsLength", "RefsLength"),
+             outputs=("Out", "SequenceNum"), differentiable=())
+def _edit_distance(ctx, attrs, ins):
+    """batched Levenshtein distance: the dynamic-programming table's rows
+    over the reference prefixes, one hypothesis token at a time, every
+    row of the batch at once (reference: edit_distance_op.cc)."""
+    hyp, ref = ins["Hyps"][0], ins["Refs"][0]
+    b, th = hyp.shape
+    tr = ref.shape[1]
+    dev = hyp.device
+    hl = _lens(ins["HypsLength"][0] if ins.get("HypsLength") else None,
+               b, th, dev)
+    rl = _lens(ins["RefsLength"][0] if ins.get("RefsLength") else None,
+               b, tr, dev)
+    row = torch.arange(tr + 1, dtype=torch.float32,
+                       device=dev).expand(b, tr + 1)
+    for i in range(th):
+        sub = (ref != hyp[:, i:i + 1]).to(torch.float32)     # [B, Tr]
+        vals = [row[:, 0] + 1.0]
+        for j in range(tr):
+            vals.append(torch.minimum(
+                torch.minimum(row[:, j + 1] + 1.0, vals[-1] + 1.0),
+                row[:, j] + sub[:, j]))
+        row = torch.where((hl > i)[:, None], torch.stack(vals, 1), row)
+    dist = torch.gather(row, 1, rl.reshape(b, 1).long())[:, 0]
+    if attrs.get("normalized", False):
+        dist = dist / torch.clamp(rl.to(dist.dtype), min=1.0)
+    return {"Out": [dist.reshape(b, 1)],
+            "SequenceNum": [torch.full((), float(b), device=dev)]}
+
+
+# ---------------------------------------------------------------------------
+# detection ops (reference: iou_similarity_op.cc, box_coder_op.cc,
+# prior_box_op.cc, bipartite_match_op.cc, target_assign_op.cc,
+# mine_hard_examples_op.cc, multiclass_nms_op.cc, detection_map_op.cc) on
+# the port's box geometry, ops/boxes.py
+# ---------------------------------------------------------------------------
+
+@simple("iou_similarity", inputs=("X", "Y"), differentiable=())
+def _iou_similarity(ctx, attrs, x, y):
+    from paddle_tpu_torch.ops.boxes import iou_matrix
+    return iou_matrix(x, y)
+
+
+@simple("box_coder", inputs=("PriorBox", "PriorBoxVar", "TargetBox"),
+        differentiable=("TargetBox",))
+def _box_coder(ctx, attrs, prior, var, target):
+    from paddle_tpu_torch.ops.boxes import decode_boxes, encode_boxes
+    if var is None:
+        var = torch.ones((4,), dtype=torch.float32, device=prior.device)
+    if "decode" in attrs.get("code_type", "encode_center_size"):
+        return decode_boxes(target, prior, var)
+    return encode_boxes(target, prior, var)
+
+
+@simple("prior_box", inputs=("Input", "Image"),
+        outputs=("Boxes", "Variances"), differentiable=())
+def _prior_box(ctx, attrs, feat, image):
+    """SSD priors for one NHWC feature map (reference: prior_box_op.cc)."""
+    fh, fw = feat.shape[1], feat.shape[2]
+    ih, iw = image.shape[1], image.shape[2]
+    mins = attrs["min_sizes"]
+    maxs = attrs.get("max_sizes", [])
+    sw = attrs.get("step_w", 0.0) or iw / fw
+    sh = attrs.get("step_h", 0.0) or ih / fh
+    offset = attrs.get("offset", 0.5)
+    dev = feat.device
+    cx = (torch.arange(fw, dtype=torch.float32, device=dev) + offset) \
+        * sw / iw
+    cy = (torch.arange(fh, dtype=torch.float32, device=dev) + offset) \
+        * sh / ih
+    cxg, cyg = torch.meshgrid(cx, cy, indexing="xy")      # [fh, fw]
+    whs = []
+    for i, m in enumerate(mins):
+        for ar in attrs.get("aspect_ratios", [1.0]):
+            whs.append((m * (ar ** 0.5) / iw, m / (ar ** 0.5) / ih))
+        if i < len(maxs):
+            s = (m * maxs[i]) ** 0.5       # the reference pairs max[i], min[i]
+            whs.append((s / iw, s / ih))
+    out = torch.stack([torch.stack([cxg - w / 2, cyg - h / 2, cxg + w / 2,
+                                    cyg + h / 2], dim=-1)
+                       for w, h in whs], dim=2).reshape(-1, 4)
+    if attrs.get("clip", True):
+        out = torch.clamp(out, 0.0, 1.0)
+    var = torch.stack([torch.full(out.shape[:1], float(v), device=dev)
+                       for v in attrs.get("variances", [0.1, 0.1, 0.2,
+                                                        0.2])], dim=1)
+    return out, var
+
+
+@simple("bipartite_match", inputs=("DistMat",),
+        outputs=("ColToRowMatchIndices", "ColToRowMatchDist"),
+        differentiable=())
+def _bipartite_match(ctx, attrs, dist):
+    """greedy bipartite matching on an [R, C] distance matrix (reference:
+    bipartite_match_op.cc): min(R, C) rounds, each taking the first
+    global maximum; -1 for an unmatched column."""
+    r, c = dist.shape
+    neg = -1e9
+    dev = dist.device
+    rows, cols = torch.arange(r, device=dev), torch.arange(c, device=dev)
+    c2r = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    cd = torch.zeros((c,), dtype=dist.dtype, device=dev)
+    d = dist
+    for _ in range(min(r, c)):
+        flat = torch.argmax(d.reshape(-1))
+        ri, ci = flat // c, flat % c
+        best = d.reshape(-1).gather(0, flat[None])[0]
+        at = (cols == ci) & (best > neg / 2)
+        c2r = torch.where(at, ri.to(torch.int32), c2r)
+        cd = torch.where(at, best, cd)
+        d = torch.where((rows == ri)[:, None] | (cols == ci)[None, :],
+                        torch.full_like(d, neg), d)
+    if attrs.get("match_type") == "per_prediction":
+        row_val, row_best = torch.max(dist, dim=0)
+        extra = (c2r < 0) & (row_val >= attrs.get("dist_threshold", 0.5))
+        c2r = torch.where(extra, row_best.to(torch.int32), c2r)
+        cd = torch.where(extra, row_val, cd)
+    return c2r, cd
+
+
+@simple("target_assign", inputs=("X", "MatchIndices", "NegIndices"),
+        outputs=("Out", "OutWeight"), differentiable=())
+def _target_assign(ctx, attrs, x, match, neg):
+    """per-prior targets from the matched ground-truth rows (reference:
+    target_assign_op.cc).  x [N, D] (or [N]), match [P] (-1 unmatched)."""
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    out = x[torch.clamp(match, 0, x.shape[0] - 1).long()]
+    matched = (match >= 0)[:, None]
+    out = torch.where(matched, out,
+                      torch.full_like(out, attrs.get("mismatch_value", 0)))
+    wt = matched.to(torch.float32)
+    if neg is not None:
+        pos = torch.arange(match.shape[0], device=x.device)
+        wt = torch.maximum(wt, (pos[:, None] == neg[None, :]).any(dim=1)
+                           [:, None].to(torch.float32))
+    if squeeze:
+        return out[:, 0], wt[:, 0]
+    return out, wt
+
+
+@simple("mine_hard_examples", inputs=("ClsLoss", "MatchIndices"),
+        outputs=("NegIndices", "UpdatedMatchIndices"), differentiable=())
+def _mine_hard_examples(ctx, attrs, cls_loss, match):
+    """the top-k hardest negatives of each image by confidence loss
+    (reference: mine_hard_examples_op.cc).  cls_loss, match [B, P]."""
+    p = cls_loss.shape[1]
+    is_neg = match < 0
+    n_pos = torch.sum(~is_neg, dim=1, keepdim=True)
+    n_neg = torch.minimum((attrs.get("neg_pos_ratio", 3.0) * n_pos)
+                          .to(torch.int32),
+                          torch.sum(is_neg, dim=1, keepdim=True))
+    neg_loss = torch.where(is_neg, cls_loss,
+                           torch.full_like(cls_loss, float("-inf")))
+    order = torch.sort(-neg_loss, dim=1, stable=True)[1]
+    rank = torch.argsort(order, dim=1)
+    selected = rank < n_neg
+    pos = torch.arange(p, dtype=torch.int32, device=match.device)[None, :]
+    return (torch.where(selected, pos, torch.full_like(pos, -1)),
+            torch.where(selected, torch.full_like(match, -1), match))
+
+
+@simple("multiclass_nms", inputs=("BBoxes", "Scores"), differentiable=())
+def _multiclass_nms(ctx, attrs, bboxes, scores):
+    """per-class NMS and a cross-class top-k (reference:
+    multiclass_nms_op.cc).  bboxes [P, 4], scores [C, P] -> [keep_top_k,
+    6] rows (class, score, box), -1 padded (the reference's ragged LoD
+    output, at a static shape)."""
+    from paddle_tpu_torch.ops.boxes import nms
+    keep_k = attrs.get("keep_top_k", 100)
+    rows = []
+    for cls in range(scores.shape[0]):
+        if cls == attrs.get("background_label", 0):
+            continue
+        keep_idx, valid = nms(bboxes, scores[cls],
+                              iou_threshold=attrs.get("nms_threshold", 0.45),
+                              score_threshold=attrs.get("score_threshold",
+                                                        0.01),
+                              max_out=attrs.get("nms_top_k", 64))
+        safe = torch.clamp(keep_idx, 0, bboxes.shape[0] - 1)
+        sc = scores[cls][safe]
+        rows.append(torch.cat([
+            torch.where(valid, torch.full_like(sc, float(cls)),
+                        torch.full_like(sc, -1.0))[:, None],
+            torch.where(valid, sc, torch.full_like(sc, -1.0))[:, None],
+            bboxes[safe]], dim=1))
+    allr = torch.cat(rows, dim=0)
+    order = torch.sort(-allr[:, 1], stable=True)[1]
+    top = allr[order[:keep_k]]
+    if keep_k > top.shape[0]:
+        top = torch.cat([top, torch.full((keep_k - top.shape[0], 6), -1.0,
+                                         dtype=top.dtype,
+                                         device=top.device)], dim=0)
+    return top
+
+
+def _linspace01(n: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` in float32, value for value: i * (1 /
+    (n - 1)) and the end point exactly 1."""
+    delta = float(np.float32(1.0) / np.float32(n - 1))
+    out = torch.arange(n, dtype=torch.float32, device=device) * delta
+    out[-1] = 1.0
+    return out
+
+
+@simple("detection_map", inputs=("DetectRes", "Label"), differentiable=())
+def _detection_map(ctx, attrs, det, gt):
+    """single-batch mean average precision (reference:
+    detection_map_op.cc).  det [R, 6] = (label, score, x1, y1, x2, y2),
+    gt [G, 5] = (label, x1, y1, x2, y2), label < 0 padding.  Greedy
+    best-IoU matching in score order at overlap_threshold, then 11-point
+    or integral AP averaged over the classes with ground truth."""
+    thresh = attrs.get("overlap_threshold", 0.5)
+    ap_type = attrs.get("ap_type", "11point")
+    if ap_type not in ("11point", "integral"):
+        raise ValueError(
+            f"detection_map ap_type must be '11point' or 'integral', "
+            f"got {ap_type!r}")
+    class_num = int(attrs.get("class_num", 21))
+    r, g = det.shape[0], gt.shape[0]
+    dev = det.device
+    dlab, score, dvalid = det[:, 0].to(torch.int32), det[:, 1], det[:, 0] >= 0
+    glab, gvalid = gt[:, 0].to(torch.int32), gt[:, 0] >= 0
+    ix1 = torch.maximum(det[:, 2][:, None], gt[:, 1][None, :])
+    iy1 = torch.maximum(det[:, 3][:, None], gt[:, 2][None, :])
+    ix2 = torch.minimum(det[:, 4][:, None], gt[:, 3][None, :])
+    iy2 = torch.minimum(det[:, 5][:, None], gt[:, 4][None, :])
+    inter = torch.clamp(ix2 - ix1, min=0) * torch.clamp(iy2 - iy1, min=0)
+    area_d = torch.clamp(det[:, 4] - det[:, 2], min=0) \
+        * torch.clamp(det[:, 5] - det[:, 3], min=0)
+    area_g = torch.clamp(gt[:, 3] - gt[:, 1], min=0) \
+        * torch.clamp(gt[:, 4] - gt[:, 2], min=0)
+    iou = inter / torch.clamp(area_d[:, None] + area_g[None, :] - inter,
+                              min=1e-10)
+    ninf = torch.full_like(score, float("-inf"))
+    order = torch.sort(-torch.where(dvalid, score, ninf), stable=True)[1]
+    used = torch.zeros(g, dtype=torch.bool, device=dev)
+    gidx = torch.arange(g, device=dev)
+    hits = []
+    for k in range(r):
+        i = order[k:k + 1]
+        iou_i = iou.index_select(0, i)[0]
+        cand = ((glab == dlab.index_select(0, i)) & gvalid & ~used
+                & (iou_i >= thresh))
+        hit = cand.any() & dvalid.index_select(0, i)[0]
+        best = torch.argmax(torch.where(cand, iou_i,
+                                        torch.full_like(iou_i, -1.0)))
+        used = used | (cand.gather(0, best[None])[0] & hit
+                       & (gidx == best))
+        hits.append(hit)
+    tp = torch.zeros(r, dtype=torch.bool, device=dev).scatter(
+        0, order, torch.stack(hits))
+    cls = torch.arange(class_num, device=dev)[:, None]
+    mask_c = (dlab[None, :] == cls) & dvalid[None, :]           # [K, R]
+    npos = torch.sum((glab[None, :] == cls) & gvalid[None, :], dim=1)
+    o = torch.sort(-torch.where(mask_c, score[None, :], ninf[None, :]),
+                   dim=1, stable=True)[1]
+    tp_c = torch.gather(mask_c & tp[None, :], 1, o).to(torch.float32)
+    valid_c = torch.gather(mask_c, 1, o).to(torch.float32)
+    cum_tp = torch.cumsum(tp_c, dim=1)
+    prec = cum_tp / torch.clamp(torch.cumsum(valid_c, dim=1), min=1e-10)
+    rec = cum_tp / torch.clamp(npos, min=1)[:, None]
+    if ap_type == "11point":
+        pts = _linspace01(11, dev)
+        ap = torch.mean(torch.amax(torch.where(
+            rec[:, None, :] >= pts[None, :, None], prec[:, None, :],
+            torch.zeros_like(prec[:, None, :])), dim=2), dim=1)
+    else:
+        drec = torch.diff(rec, dim=1,
+                          prepend=torch.zeros_like(rec[:, :1]))
+        ap = torch.sum(prec * drec * valid_c, dim=1)
+    has = npos > 0
+    aps = torch.where(has, ap, torch.zeros_like(ap))
+    return (torch.sum(aps) / torch.clamp(torch.sum(has), min=1)).reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# metric ops (reference: auc_op.cc, precision_recall_op.cc,
+# chunk_eval_op.cc, positive_negative_pair_op.cc)
+# ---------------------------------------------------------------------------
+
+@simple("auc", inputs=("Out", "Label"), differentiable=())
+def _auc(ctx, attrs, probs, label):
+    """single-batch ROC AUC over num_thresholds buckets (reference:
+    auc_op.cc), the trapezoid over decreasing false-positive rate."""
+    pos_prob = (probs[:, 1] if probs.ndim == 2 and probs.shape[1] == 2
+                else probs.reshape(-1))
+    lab = label.reshape(-1).to(torch.float32)
+    th = _linspace01(attrs.get("num_thresholds", 200), probs.device)
+    pred_pos = (pos_prob[None, :] >= th[:, None]).to(torch.float32)
+    tp = torch.sum(pred_pos * lab[None, :], dim=1)
+    fp = torch.sum(pred_pos * (1 - lab)[None, :], dim=1)
+    tpr = tp / torch.clamp(torch.sum(lab), min=1.0)
+    fpr = fp / torch.clamp(torch.sum(1 - lab), min=1.0)
+    return torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) / 2.0)
+
+
+@simple("precision_recall", inputs=("MaxProbs", "Indices", "Labels"),
+        outputs=("BatchMetrics",), differentiable=())
+def _precision_recall(ctx, attrs, maxprobs, indices, labels):
+    """macro and micro precision, recall and F1 over the classes
+    (reference: precision_recall_op.cc): [6]."""
+    c = attrs["class_number"]
+    classes = torch.arange(c, device=indices.device)
+    onehot_p = (indices.reshape(-1, 1).long() == classes).to(torch.float32)
+    onehot_l = (labels.reshape(-1, 1).long() == classes).to(torch.float32)
+    tp = torch.sum(onehot_p * onehot_l, dim=0)
+    fp = torch.sum(onehot_p * (1 - onehot_l), dim=0)
+    fn = torch.sum((1 - onehot_p) * onehot_l, dim=0)
+
+    def pr(tp_, fp_, fn_):
+        p = tp_ / torch.clamp(tp_ + fp_, min=1e-12)
+        r = tp_ / torch.clamp(tp_ + fn_, min=1e-12)
+        return p, r, 2 * p * r / torch.clamp(p + r, min=1e-12)
+
+    has = (tp + fn) > 0                       # the classes in the batch
+    denom = torch.clamp(torch.sum(has), min=1.0)
+    macro = [torch.sum(torch.where(has, v, torch.zeros_like(v))) / denom
+             for v in pr(tp, fp, fn)]
+    micro = pr(torch.sum(tp), torch.sum(fp), torch.sum(fn))
+    return torch.stack(macro + list(micro))
+
+
+def _chunk_spans(tags, mask, scheme, num_types):
+    """(is_start [B, T], end [B, T] (a starting chunk's last position),
+    type [B, T]) of the chunks of tags [B, T]."""
+    t = tags.shape[1]
+    valid = mask > 0
+
+    def prev_of(typ):
+        return torch.cat([torch.full_like(typ[:, :1], -2), typ[:, :-1]], 1)
+
+    minus1 = torch.full_like(tags, -1)
+    if scheme == "plain":
+        typ = torch.where(valid, tags, minus1)
+        inside_same = typ == prev_of(typ)
+        start = valid & (typ >= 0) & ~inside_same
+        cont = valid & (typ >= 0) & inside_same
+    elif scheme == "IOB":
+        # tag = type * 2 (B) / type * 2 + 1 (I); O = num_types * 2
+        is_o = (tags >= num_types * 2) | ~valid
+        typ = torch.where(is_o, minus1, torch.div(tags, 2,
+                                                  rounding_mode="floor"))
+        is_i = ~is_o & (tags % 2 == 1)
+        cont = is_i & (typ == prev_of(typ))
+        start = ~is_o & ((~is_o & (tags % 2 == 0))
+                         | (is_i & (typ != prev_of(typ))))
+    elif scheme == "IOBES":
+        # tag = type * 4 + {0: B, 1: I, 2: E, 3: S}; O = num_types * 4
+        is_o = (tags >= num_types * 4) | ~valid
+        typ = torch.where(is_o, minus1, torch.div(tags, 4,
+                                                  rounding_mode="floor"))
+        pos = tags % 4
+        cont = ~is_o & ((pos == 1) | (pos == 2)) & (typ == prev_of(typ))
+        start = ~is_o & ~cont
+    else:
+        raise ValueError(f"chunk scheme {scheme!r} not supported")
+    # end[t] = t if the chunk does not continue at t + 1, else end[t + 1]
+    cont_next = torch.cat([cont[:, 1:], torch.zeros_like(cont[:, :1])], 1)
+    e = torch.full((tags.shape[0],), t - 1, dtype=torch.long,
+                   device=tags.device)
+    ends = [None] * t
+    for i in range(t - 1, -1, -1):
+        e = torch.where(cont_next[:, i], e, torch.full_like(e, i))
+        ends[i] = e
+    return start, torch.stack(ends, 1), typ
+
+
+@register_op("chunk_eval",
+             inputs=("Inference", "Label", "Length"),
+             outputs=("Precision", "Recall", "F1-Score", "NumInferChunks",
+                      "NumLabelChunks", "NumCorrectChunks"),
+             differentiable=())
+def _chunk_eval(ctx, attrs, ins):
+    pred = ins["Inference"][0].to(torch.int32)
+    label = ins["Label"][0].to(torch.int32)
+    if pred.ndim == 3 and pred.shape[-1] == 1:
+        pred = pred[..., 0]
+    if label.ndim == 3 and label.shape[-1] == 1:
+        label = label[..., 0]
+    b, t = label.shape
+    lens = _lens(ins["Length"][0] if ins.get("Length") else None, b, t,
+                 label.device)
+    mask = (torch.arange(t, device=label.device)[None, :]
+            < lens[:, None]).to(torch.float32)
+    scheme = attrs.get("chunk_scheme", "IOB")
+    ntypes = attrs.get("num_chunk_types", 1)
+    sp, ep, tp = _chunk_spans(pred, mask, scheme, ntypes)
+    sl, el, tl = _chunk_spans(label, mask, scheme, ntypes)
+    correct = torch.sum(sp & sl & (tp == tl) & (ep == el)).to(torch.int32)
+    n_pred = torch.sum(sp).to(torch.int32)
+    n_label = torch.sum(sl).to(torch.int32)
+    prec = correct / torch.clamp(n_pred, min=1)
+    rec = correct / torch.clamp(n_label, min=1)
+    f1 = 2 * prec * rec / torch.clamp(prec + rec, min=1e-12)
+    return {"Precision": [prec.float()], "Recall": [rec.float()],
+            "F1-Score": [f1.float()], "NumInferChunks": [n_pred],
+            "NumLabelChunks": [n_label], "NumCorrectChunks": [correct]}
+
+
+@register_op("positive_negative_pair",
+             inputs=("Score", "Label", "QueryID"),
+             outputs=("PositivePair", "NegativePair", "NeutralPair"),
+             differentiable=())
+def _positive_negative_pair(ctx, attrs, ins):
+    """rank-order statistics within query groups (reference:
+    positive_negative_pair_op.cc): O(N^2) pair masks over the batch."""
+    score = ins["Score"][0].reshape(-1)
+    label = ins["Label"][0].reshape(-1).to(torch.float32)
+    qid = ins["QueryID"][0].reshape(-1)
+    n = score.shape[0]
+    upper = torch.ones((n, n), dtype=torch.bool,
+                       device=score.device).triu(1)
+    pair = ((qid[:, None] == qid[None, :]) & upper
+            & (label[:, None] != label[None, :]))
+    s_diff = score[:, None] - score[None, :]
+    agree = torch.sign(s_diff) == torch.sign(label[:, None]
+                                             - label[None, :])
+    tie = s_diff == 0.0
+    pos = torch.sum(pair & agree & ~tie)
+    neu = torch.sum(pair & tie)
+    neg = torch.sum(pair) - pos - neu
+    return {"PositivePair": [pos.float().reshape(1)],
+            "NegativePair": [neg.float().reshape(1)],
+            "NeutralPair": [neu.float().reshape(1)]}
+
+
+@register_op("split_selected_rows", inputs=("Ids", "Values"),
+             outputs=("OutIds", "OutValues"),
+             list_slots=("OutIds", "OutValues"),
+             differentiable=("Values",))
+def _split_selected_rows(ctx, attrs, ins):
+    """sparse rows split by height sections (reference:
+    split_selected_rows_op.cc routes SelectedRows slices to parameter
+    servers): each section keeps the full [N] capacity, its ids
+    localized (id - section start), -1 / 0 for the rows routed
+    elsewhere.  ids [N] (1-D row indices), values [N, ...]."""
+    ids = ins["Ids"][0].reshape(-1).to(torch.int32)
+    vals = ins["Values"][0]
+    if vals.shape[0] != ids.shape[0]:
+        raise ValueError(
+            f"split_selected_rows: values rows {vals.shape[0]} != ids "
+            f"count {ids.shape[0]} (ids must be the 1-D row index vector "
+            f"of a [N, ...] values tensor)")
+    sections = attrs["height_sections"]
+    starts = np.concatenate([[0], np.cumsum(sections)]).astype(np.int64)
+    out_ids, out_vals = [], []
+    for k in range(len(sections)):
+        inside = (ids >= int(starts[k])) & (ids < int(starts[k + 1]))
+        out_ids.append(torch.where(inside, ids - int(starts[k]),
+                                   torch.full_like(ids, -1)))
+        out_vals.append(torch.where(
+            inside.reshape((-1,) + (1,) * (vals.ndim - 1)), vals,
+            torch.zeros_like(vals)))
+    return {"OutIds": out_ids, "OutValues": out_vals}

@@ -379,7 +379,8 @@ class Topology:
     # ---------------------------------------------------------------- forward
     def forward(self, params: dict, state: dict, feed: dict, *,
                 train: bool = False,
-                outputs: Optional[Sequence[str]] = None, remat=None,
+                outputs: Optional[Sequence[str]] = None,
+                with_masks: bool = False, remat=None,
                 generator: Optional[torch.Generator] = None, device=None,
                 sparse_probes: Optional[dict] = None,
                 grad_probes: Optional[dict] = None):
@@ -387,6 +388,9 @@ class Topology:
         new_state): ``state`` with the entries the layers wrote (train-mode
         batch norm's moving statistics) replaced by detached tensors, so
         no autograd graph lives from one step to the next.
+        ``with_masks=True`` adds a third result, ``{name: mask or None}``
+        for the requested outputs: the sequence masks the layers
+        propagated, which the evaluators consume.
 
         ``feed`` maps data-layer names to arrays or tensors; sequence data
         layers also accept ``<name>@len`` (default: full length).  Feeds
@@ -494,8 +498,11 @@ class Topology:
                 pos = torch.arange(x.shape[1], device=dev)
                 masks[spec.name] = (pos[None, :]
                                     < lens[:, None]).to(torch.float32)
-        return ({name: values[name] for name in want},
-                _merge_state(state, ctx.state_out))
+        outs = {name: values[name] for name in want}
+        new_state = _merge_state(state, ctx.state_out)
+        if with_masks:
+            return outs, new_state, {n: masks.get(n) for n in want}
+        return outs, new_state
 
     def _run_spec(self, spec, params, values, masks, ctx, *,
                   layer_remat=False):
@@ -682,6 +689,10 @@ class Topology:
         """Serialized ModelSpec (golden-file testable, reference:
         .protostr); byte-equal to the JAX package's for the same config."""
         return self.model_spec.to_json()
+
+    def data_layers(self) -> Dict[str, LayerSpec]:
+        """{name: spec} of the data layers, in input order."""
+        return {n: self._spec_by_name[n] for n in self.input_names}
 
     def get_layer(self, name: str) -> LayerSpec:
         return self._spec_by_name[name]

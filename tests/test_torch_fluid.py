@@ -15,8 +15,8 @@
 - A dropout mask recomputed inside its grad op equals the forward's.
 - npz persistables and JSON programs cross between the packages both
   ways.
-- An op of item 12b is refused by name when the program runs, and the
-  ``Executor`` runs on the card unless given ``CPUPlace()``.
+- An op no catalog registers is refused by name when the program runs,
+  and the ``Executor`` runs on the card unless given ``CPUPlace()``.
 
 The programs are those of ``tests/torch_fluid_programs.py``; the JAX
 programs run once each, in module-scoped fixtures.
@@ -219,7 +219,24 @@ def _call(name, ins, attrs, diff=(), cot=None):
     tctx = tfluid.executor.OpRunCtx(True, torch.device("cpu"), 0, 1, 1)
     jins = {s: [jnp.asarray(_f32(a)) for a in v] for s, v in ins.items()}
     tins = {s: [torch.as_tensor(_f32(a)) for a in v] for s, v in ins.items()}
-    jout = jops.get_op(name).fn(jctx, attrs, jins)
+
+    def jf(*vals):
+        """the JAX op's float outputs (to differentiate) and all of them"""
+        ins2 = {s: list(v) for s, v in jins.items()}
+        for (s, i), v in zip(diff, vals):
+            ins2[s][i] = v
+        out = jops.get_op(name).fn(jexec.OpRunCtx(True, jkey, 1), attrs,
+                                   ins2)
+        # in sorted slot order: the order vjp's aux dict comes back in
+        return [v for slot in sorted(out) for v in out[slot]
+                if jnp.issubdtype(v.dtype, jnp.floating)], out
+
+    if diff:     # one jitted JAX forward (the JAX executor jits a whole
+        # block) serves the outputs and the vjp
+        _, vjp, jout = jax.vjp(jax.jit(jf), *[jins[s][i] for s, i in diff],
+                               has_aux=True)
+    else:
+        jout = jops.get_op(name).fn(jctx, attrs, jins)
     with torch.enable_grad():
         for s, i in diff:
             tins[s][i].requires_grad_(True)
@@ -235,18 +252,8 @@ def _call(name, ins, attrs, diff=(), cot=None):
     def weights(v):
         return np.cos(np.arange(v.size, dtype=np.float32)).reshape(v.shape)
 
-    floats = [(s, i) for s, vs in res[0].items() for i, v in enumerate(vs)
+    floats = [(s, i) for s in sorted(res[0]) for i, v in enumerate(res[0][s])
               if np.issubdtype(v.dtype, np.floating)]
-
-    def jf(*vals):
-        ins2 = {s: list(v) for s, v in jins.items()}
-        for (s, i), v in zip(diff, vals):
-            ins2[s][i] = v
-        out = jops.get_op(name).fn(jexec.OpRunCtx(True, jkey, 1), attrs,
-                                   ins2)
-        return [out[s][i] for s, i in floats]
-
-    _, vjp = jax.vjp(jf, *[jins[s][i] for s, i in diff])
     jg = vjp([jnp.asarray(weights(res[0][s][i])) for s, i in floats])
     ys = [tout[s][i] for s, i in floats]
     cots = [torch.as_tensor(weights(res[1][s][i])) for s, i in floats]
@@ -314,10 +321,13 @@ def test_random_ops_draw_their_laws():
 
 
 def test_catalog_is_the_jax_catalog():
-    """Every JAX op (and control-flow op) is either ported or refused."""
+    """Every JAX op (and control-flow op) is ported, with the JAX op's
+    slots."""
     import paddle_tpu.fluid.control_flow  # noqa: F401 (registers its ops)
-    assert set(tops.OPS) | tops.UNPORTED == set(jops.OPS)
-    assert not set(tops.OPS) & tops.UNPORTED
+    assert set(tops.OPS) == set(jops.OPS)
+    for name, op in tops.OPS.items():
+        assert op.inputs == jops.OPS[name].inputs, name
+        assert op.outputs == jops.OPS[name].outputs, name
 
 
 # ------------------------------------------------------- the executor
@@ -431,19 +441,19 @@ def test_inference_model_round_trip(tmp_path):
 
 
 def test_unported_op_is_refused_by_name():
-    tfluid.framework.reset_default_programs()
+    """An op no catalog registers is refused by name before the program's
+    first op runs (no op of the JAX catalog is refused any more)."""
     L = tfluid.layers
     x = L.data(name="x", shape=[4], dtype="int64")
     y = L.one_hot(x, depth=5)
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="'one_hot'.*item 12b"):
+    blk = tfluid.default_main_program().global_block()
+    out = blk.create_var(name="out", shape=(2, 4), dtype="float32")
+    blk.append_op("no_such_op", inputs={"X": [y]}, outputs={"Out": [out]})
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    with pytest.raises(KeyError, match="'no_such_op'"):
         exe.run(feed={"x": np.zeros((2, 4), np.int64)}, fetch_list=[y],
-                scope=tfluid.Scope())
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        L.While
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        exe.run(feed={"x": np.zeros((2, 4), np.int64)}, fetch_list=[],
-                scope=tfluid.Scope(), check_nan_inf=True)
+                scope=scope)
+    assert L.While is tfluid.control_flow.While
 
 
 def test_executor_runs_on_the_card_unless_given_the_cpu(monkeypatch):

@@ -246,3 +246,89 @@ def test_top_level_exports():
     assert pt.default_startup_program() is not None
     assert callable(pt.batch)
     assert pt.plot.Ploter is not None
+
+
+def _cli_out(pkg, argv, capsys):
+    """a verb of the package's CLI, from fresh layer names"""
+    if pkg == "paddle_tpu":
+        from paddle_tpu.cli import main
+        from paddle_tpu.core.ir import reset_name_counters
+        pj.init(seed=0)
+    else:
+        from paddle_tpu_torch.cli import main
+        from paddle_tpu_torch.core.ir import reset_name_counters
+        pt.init(seed=0, device="cpu")
+    reset_name_counters()
+    capsys.readouterr()
+    main(argv)
+    return capsys.readouterr().out
+
+
+def test_dump_config_prints_the_jax_packages_ir(configs, capsys):
+    """``dump_config`` of the legacy config: the Topology.proto() JSON,
+    the JAX CLI's text byte for byte."""
+    outs = {pkg: _cli_out(pkg, ["dump_config", f"--config={path}"], capsys)
+            for pkg, path in configs.items()}
+    assert outs["paddle_tpu_torch"] == outs["paddle_tpu"]
+    assert '"data"' in outs["paddle_tpu_torch"]
+
+
+def test_version_and_pserver_verbs(capsys):
+    """``version`` names the package with torch and CUDA where the JAX
+    package names jax; ``pserver`` says, as the JAX CLI does, that there
+    is no parameter-server process."""
+    import torch
+
+    got = _cli_out("paddle_tpu_torch", ["version"], capsys)
+    want = _cli_out("paddle_tpu", ["version"], capsys)
+    assert want.startswith(f"paddle_tpu {pj.__version__} (jax ")
+    assert got.startswith(f"paddle_tpu_torch {pt.__version__} "
+                          f"(torch {torch.__version__}, ")
+    assert got.rstrip().endswith("device(s))")
+    for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+        msg = _cli_out(pkg, ["pserver"], capsys)
+        assert f"{pkg} has no separate pserver process" in msg
+
+
+def test_data_layers_and_forward_masks_match_jax(configs):
+    """``Topology.data_layers()`` and ``forward(with_masks=True)``: the
+    data layers in input order with the JAX specs, and from the JAX
+    parameters every layer's value and propagated mask (None where the
+    JAX package has none) on a padded batch."""
+    jcfg = _load("paddle_tpu", configs["paddle_tpu"])
+    jtopo = pj.Topology(jcfg["cost"])
+    jparams = pj.parameters.create(jtopo)
+    tcfg = _load("paddle_tpu_torch", configs["paddle_tpu_torch"])
+    ttopo = pt.Topology(tcfg["cost"])
+    jd, td = jtopo.data_layers(), ttopo.data_layers()
+    assert list(td) == list(jd) == ["data", "label"]
+    for name in jd:
+        assert td[name].kind == jd[name].kind == "data"
+        assert td[name].attrs == jd[name].attrs
+    rng = np.random.RandomState(0)
+    feed = {"data": rng.randint(0, 30, (4, 6)).astype(np.int32),
+            "data@len": np.array([6, 3, 2, 5], np.int32),
+            "label": np.array([0, 1, 1, 0], np.int32)}
+    names = [s.name for s in jtopo.specs if s.kind != "data"]
+    jouts, _, jmasks = jtopo.forward(jparams.values, jtopo.create_state(),
+                                     feed, outputs=names, with_masks=True)
+    values = {l: {p: np.asarray(v) for p, v in ps.items()}
+              for l, ps in jparams.values.items()}
+    params = pt.parameters.from_numpy(ttopo, values, device="cpu")
+    touts, _, tmasks = ttopo.forward(params.values, ttopo.create_state(),
+                                     feed, outputs=names, with_masks=True,
+                                     device="cpu")
+    assert set(tmasks) == set(jmasks) == set(names)
+    assert any(m is not None for m in tmasks.values())
+    for n in names:
+        if jmasks[n] is None:
+            assert tmasks[n] is None, n
+        else:
+            np.testing.assert_array_equal(tmasks[n].numpy(),
+                                          np.asarray(jmasks[n]), err_msg=n)
+        np.testing.assert_allclose(touts[n].detach().numpy(),
+                                   np.asarray(jouts[n]), rtol=1e-5,
+                                   atol=1e-6, err_msg=n)
+    two = ttopo.forward(params.values, ttopo.create_state(), feed,
+                        outputs=names, device="cpu")
+    assert len(two) == 2
