@@ -6774,9 +6774,9 @@ def _tenant_ttft(engine) -> dict:
     rec = {}
     first = engine._first_token
 
-    def hook(active, r, slot, tok, t_first):
+    def hook(active, r, slot, tok, t_first, *rest):
         rec.setdefault(r.tenant, []).append((t_first - r.t_submit) * 1e6)
-        return first(active, r, slot, tok, t_first)
+        return first(active, r, slot, tok, t_first, *rest)
 
     engine._first_token = hook
     return rec
@@ -8349,6 +8349,7 @@ GEN_PHASES = {"gen": gen_slice}
 # (BASELINE.md:22: batch 64), on synthetic flowers (102 classes) at 224 px
 VGG_DEPTH, VGG_IMAGE, VGG_CLASSES = 19, 224, 102
 VGG_BATCH, VGG_STEPS, VGG_LR, VGG_PARITY_BATCH = 64, 4, 0.01, 8
+VGG_PARITY_LRS = (0.01, 3e-3, 1e-3)   # the parity trajectory's, largest first
 VGG_BNS = 16          # relu batch norms: kernels 7a and 7b, one each a BN
 VGG_PER_PASS = {"matmul_stats": 0, "conv3x3_stats": 0,
                 "bn_fwd_stats": VGG_BNS, "bn_bwd_stats": VGG_BNS}
@@ -8546,6 +8547,42 @@ def bn_kernels_at(shape, dtype, flush, gen, label=None) -> dict:
     return out
 
 
+def _vgg_parity_lr(paddle, topo, values, feed, name) -> dict:
+    """The Momentum rate of the parity trajectory, decided on the plain
+    route alone before the routes are compared: the largest of
+    VGG_PARITY_LRS at which its 3 losses do not rise, else the smallest
+    (said so).  The timed training keeps VGG_LR."""
+    tried = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        _set_route(topo, False)
+        for lr in VGG_PARITY_LRS:
+            tr = paddle.trainer.SGD(topo, paddle.parameters.from_numpy(
+                topo, values), paddle.optimizer.Momentum(
+                    learning_rate=lr, momentum=0.9))
+            losses = []
+            tr.train(lambda: iter([feed] * 3), event_handler=lambda e: (
+                losses.append(e.cost)
+                if isinstance(e, paddle.event.EndIteration) else None))
+            del tr
+            tried[lr] = losses
+            if all(b <= a for a, b in zip(losses, losses[1:])):
+                break
+    finally:
+        _set_route(topo, True)
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+    ok = [lr for lr, ls in tried.items()
+          if all(b <= a for a, b in zip(ls, ls[1:]))]
+    lr = ok[0] if ok else VGG_PARITY_LRS[-1]
+    print(f"{name} parity trajectory: Momentum rate {lr:g} (the plain "
+          f"route's 3 losses at each rate tried: "
+          f"{ {k: [round(x, 5) for x in v] for k, v in tried.items()} }"
+          + ("" if ok else "; none is non-rising, so the smallest") + ")",
+          flush=True)
+    return {"lr": lr, "plain_losses": tried, "non_rising": bool(ok)}
+
+
 def vgg_path(flush, gen) -> dict:
     """VGG-19 with batch norm at full width: kernel-route parity at batch
     VGG_PARITY_BATCH (layer by layer and end to end, ``resnet_layer_parity``
@@ -8564,7 +8601,15 @@ def vgg_path(flush, gen) -> dict:
           f"parameters from a numpy seed", flush=True)
     samples = list(paddle.dataset.flowers.train(
         synthetic=True, n=VGG_BATCH * VGG_STEPS, image_size=VGG_IMAGE)())
-    parity_feed = _image_feed(samples[:VGG_PARITY_BATCH])
+    # the parity batch is the same in every run: images uniform in [-1, 1]
+    # and labels uniform over the classes, from a numpy seed
+    prng = np.random.RandomState(SEED + 32)
+    parity_feed = {
+        "image": prng.uniform(-1, 1, (VGG_PARITY_BATCH, VGG_IMAGE,
+                                      VGG_IMAGE, 3)).astype(np.float32),
+        "label": prng.randint(0, VGG_CLASSES,
+                              VGG_PARITY_BATCH).astype(np.int32)}
+    parity_lr = _vgg_parity_lr(paddle, topo, values, parity_feed, name)
     torch.backends.cudnn.deterministic = True
     try:
         layers = resnet_layer_parity(paddle, topo, values, parity_feed,
@@ -8573,10 +8618,10 @@ def vgg_path(flush, gen) -> dict:
     finally:
         torch.backends.cudnn.deterministic = False
     parity = dict(resnet_parity(paddle, topo, values, parity_feed,
-                                name=name, per_pass=VGG_PER_PASS, lr=VGG_LR,
-                                stage=_vgg_stage,
+                                name=name, per_pass=VGG_PER_PASS,
+                                lr=parity_lr["lr"], stage=_vgg_stage,
                                 spreads=("nudged", "nudged_down")),
-                  layers=layers)
+                  layers=layers, lr=parity_lr)
     torch.cuda.empty_cache()
     runs = {policy: _vgg_train(paddle, topo, values, samples, policy)
             for policy in ("fp32", "bf16")}
@@ -10163,14 +10208,435 @@ def fluid_cf_slice() -> dict:
 FLUID_CF_PHASES = {"fluid_cf": fluid_cf_slice}
 
 
+
+# ------------------------------------------------- phase 26: telemetry
+TELEMETRY_FLOP_BAND = 0.25   # the registry's FLOPs a step against analytic
+TELEMETRY_REQUESTS = 16
+TELEMETRY_PROFILE_STEPS = 2
+
+
+def _get_json(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _get_text(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+@contextlib.contextmanager
+def _counting_syncs():
+    """Count the calls of ``torch.cuda.synchronize`` and
+    ``torch.cuda.Event.synchronize`` made inside the block."""
+    calls = {"torch.cuda.synchronize": 0, "Event.synchronize": 0}
+    sync, ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def counted_sync(*a, **k):
+        calls["torch.cuda.synchronize"] += 1
+        return sync(*a, **k)
+
+    def counted_ev(self, *a, **k):
+        calls["Event.synchronize"] += 1
+        return ev_sync(self, *a, **k)
+
+    torch.cuda.synchronize = counted_sync
+    torch.cuda.Event.synchronize = counted_ev
+    try:
+        yield calls
+    finally:
+        torch.cuda.synchronize = sync
+        torch.cuda.Event.synchronize = ev_sync
+
+
+def _lm_flops_analytic(batch, seq) -> dict:
+    """6 x the non-embedding matmul parameters x tokens, plus 3.5 x the
+    causal attention forward (its two products over the visible pairs)."""
+    hid = DIM * FFN_MULT
+    params = LAYERS * (4 * DIM * DIM + 2 * DIM * hid) + DIM * VOCAB
+    attn_fwd = LAYERS * 4.0 * DIM * batch * seq * (seq + 1) / 2
+    return {"matmul_params": params, "attention_fwd": attn_fwd,
+            "flops": 6.0 * params * batch * seq + 3.5 * attn_fwd}
+
+
+def _telemetry_train(paddle, topo, values, feed, on, metrics_url=None):
+    """TRAIN_STEPS Adam steps of the LM under ``bf16`` with telemetry on or
+    off, deterministic algorithms, counts set to 0 just before and read
+    just after, the sync calls counted inside the step loop.  The loop
+    reads no loss (each is read after it); with ``metrics_url`` it scrapes
+    ``/metrics`` and ``/executables`` after the third step."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.observability import executables as ex
+
+    obs.reset()
+    ex.EXECUTABLES.reset()
+    (obs.enable if on else obs.disable)()
+    tr = _trainer(paddle, topo, values)
+    events, host_s, mid = [], [], {}
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            host_s.append(time.perf_counter())
+        elif isinstance(e, paddle.event.EndIteration):
+            host_s[-1] = time.perf_counter() - host_s[-1]
+            events.append(e)
+            if metrics_url and e.batch_id == 2:
+                mid["metrics"] = _get_text(metrics_url + "/metrics")
+                mid["executables"] = _get_json(metrics_url + "/executables")
+
+    ops.reset_launch_counts()
+    with _deterministic():
+        t0 = time.perf_counter()
+        with _counting_syncs() as syncs:
+            tr.train(lambda: iter([feed] * TRAIN_STEPS),
+                     event_handler=handler)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    losses = [e.cost for e in events]
+    del tr
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "syncs": syncs,
+            "host_step_ms": sorted(host_s)[len(host_s) // 2] * 1e3,
+            "wall_ms_per_step": wall / TRAIN_STEPS * 1e3, "mid": mid}
+
+
+def telemetry_train() -> dict:
+    """The LM as ``train_path`` builds it, under ``bf16`` at TRAIN_BATCH x
+    MAX_LEN, TRAIN_STEPS steps with telemetry on and ``serve_metrics`` on
+    port 0 (scraped during and after the run), then the same steps with
+    it off: the batches counter, the trainer row's dispatches and device
+    time, kernels 1 to 3 LAYERS times a step in both runs, the losses bit
+    for bit, no sync call in the telemetry-on loop, the row's FLOPs (the
+    flop counter's plus the kernels' own counts) within
+    TELEMETRY_FLOP_BAND of the analytic count; ``trainer_mfu`` and both
+    step times.  Then ``utils.profiler.profiler()`` around
+    TELEMETRY_PROFILE_STEPS steps: its Chrome trace holds the
+    ``trainer/step`` ranges and the flash kernels."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import executables as ex
+    from paddle_tpu_torch.observability import metrics as m
+    from paddle_tpu_torch.observability import sinks
+    from paddle_tpu_torch.utils import profiler as prof
+
+    paddle, topo = _train_model()
+    values = random_values(SEED)
+    seqs = np.random.RandomState(SEED + 1).randint(
+        0, VOCAB, size=(TRAIN_BATCH, MAX_LEN + 1)).astype(np.int32)
+    feed = trainer_feed(seqs[:, :-1], seqs[:, 1:])
+    _policy("bf16")
+    server = sinks.serve_metrics(
+        0, extra_handlers={"/executables": ex.http_handler})
+    url = f"http://127.0.0.1:{server.server_port}"
+    try:
+        on = _telemetry_train(paddle, topo, values, feed, True, url)
+        final = _get_text(url + "/metrics")
+        snap = _get_json(url + "/executables")
+        off = _telemetry_train(paddle, topo, values, feed, False)
+        obs.enable()
+        with tempfile.TemporaryDirectory(prefix="ptt_prof_") as tmp:
+            tr = _trainer(paddle, topo, values)
+            with prof.profiler(tmp):
+                tr.train(lambda: iter([feed] * TELEMETRY_PROFILE_STEPS),
+                         event_handler=lambda e: None)
+                torch.cuda.synchronize()
+            del tr
+            path = os.path.join(tmp, "trace.json")
+            trace_bytes = os.path.getsize(path)
+            with open(path) as f:
+                doc = json.load(f)
+    finally:
+        obs.disable()
+        _policy("fp32")
+        server.shutdown()
+        server.server_close()
+        torch.cuda.empty_cache()
+    evs = doc.get("traceEvents", ())
+    kernels = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
+    prof_counts = {
+        "trainer/step": sum(e.get("name") == "trainer/step"
+                            and e.get("cat") == "user_annotation"
+                            for e in evs),
+        "flash_fwd kernels": sum("flash_fwd" in n for n in kernels),
+        "flash_bwd kernels": sum("flash_bwd" in n for n in kernels)}
+    batches = m.snapshot_value(_prom_snapshot(final),
+                               "trainer_batches_total")
+    rows = [r for r in snap["executables"] if r["stack"] == "trainer"]
+    row = rows[0] if len(rows) == 1 else None
+    cost = (row or {}).get("cost") or {}
+    pairs = TRAIN_BATCH * MAX_LEN * (MAX_LEN + 1) / 2
+    kernel_want = LAYERS * (4.0 + 8.0 + 6.0) * DIM * pairs
+    analytic = _lm_flops_analytic(TRAIN_BATCH, MAX_LEN)
+    want = LAYERS * TRAIN_STEPS
+    bad = []
+    if batches != TRAIN_STEPS:
+        bad.append(f"trainer_batches_total {batches}")
+    if row is None or row["dispatches"] != TRAIN_STEPS \
+            or not row["device_us"] > 0:
+        bad.append(f"trainer rows {rows}")
+    for name, run in (("on", on), ("off", off)):
+        got = {k: run["launches"][k] for k in TRAIN_KERNELS}
+        got16 = {k: run["launches"][f"{k}_bf16"] for k in TRAIN_KERNELS}
+        if any(v != want for v in got.values()) or got16 != got:
+            bad.append(f"telemetry {name}: launches {got} {got16}, "
+                       f"expected {want} each")
+    if on["losses"] != off["losses"]:
+        bad.append(f"losses on {on['losses']} != off {off['losses']}")
+    if any(on["syncs"].values()):
+        bad.append(f"sync calls in the telemetry-on loop {on['syncs']}")
+    flops = cost.get("flops")
+    if not flops or flops != cost.get("aten_flops", 0) \
+            + cost.get("kernel_flops", 0):
+        bad.append(f"the row's cost {cost}")
+    elif cost["kernel_flops"] != kernel_want:
+        bad.append(f"kernel flops {cost['kernel_flops']} != "
+                   f"{kernel_want}")
+    elif not abs(flops / analytic["flops"] - 1) <= TELEMETRY_FLOP_BAND:
+        bad.append(f"flops {flops:.4g} against analytic "
+                   f"{analytic['flops']:.4g}")
+    if "trainer_batches_total 3" not in on["mid"].get("metrics", ""):
+        bad.append("the mid-run /metrics scrape")
+    if not prof_counts["trainer/step"] == TELEMETRY_PROFILE_STEPS \
+            or not prof_counts["flash_fwd kernels"] \
+            or not prof_counts["flash_bwd kernels"]:
+        bad.append(f"the profiler trace: {prof_counts}")
+    mfu = m.snapshot_value(_prom_snapshot(final), "trainer_mfu")
+    print(f"telemetry, LM bf16 {TRAIN_BATCH} x {MAX_LEN}, {TRAIN_STEPS} "
+          f"steps: trainer_batches_total {batches}; trainer row "
+          f"{(row or {}).get('exe')} dispatches "
+          f"{(row or {}).get('dispatches')} device "
+          f"{(row or {}).get('device_us', 0) / 1e3:.1f} ms (first step "
+          f"included: it is the build, counted under the flop counter); "
+          f"cost {flops or 0:.4g} FLOP a step = aten "
+          f"{cost.get('aten_flops', 0):.4g} + kernels "
+          f"{cost.get('kernel_flops', 0):.4g} (analytic "
+          f"{analytic['flops']:.4g}: 6 x {analytic['matmul_params']} "
+          f"non-embedding matmul parameters x {TRAIN_BATCH * MAX_LEN} "
+          f"tokens + 3.5 x {analytic['attention_fwd']:.4g}; ratio "
+          f"{(flops or 0) / analytic['flops']:.3f}); trainer_mfu "
+          f"{mfu if 'trainer_mfu ' in final else 'absent (no peak)'} "
+          f"against {snap['peak_flops']} FLOP/s; median host step "
+          f"telemetry on {on['host_step_ms']:.1f} ms, off "
+          f"{off['host_step_ms']:.1f} ms; wall a step (end synced) on "
+          f"{on['wall_ms_per_step']:.1f} ms, off "
+          f"{off['wall_ms_per_step']:.1f} ms; losses equal bit for bit: "
+          f"{on['losses'] == off['losses']}; sync calls in the "
+          f"telemetry-on loop {on['syncs']}; profiler trace "
+          f"{trace_bytes / 1e6:.1f} MB {prof_counts}", flush=True)
+    if bad:
+        raise AssertionError("telemetry, training: " + "; ".join(bad))
+    return {"batches": batches, "row": row, "analytic": analytic,
+            "flops_ratio": flops / analytic["flops"], "trainer_mfu": mfu,
+            "peak_flops": snap["peak_flops"], "losses": on["losses"],
+            "host_step_ms": {"on": on["host_step_ms"],
+                             "off": off["host_step_ms"]},
+            "wall_ms_per_step": {"on": on["wall_ms_per_step"],
+                                 "off": off["wall_ms_per_step"]},
+            "syncs": on["syncs"], "profile": prof_counts,
+            "launches": {k: on["launches"][k] for k in TRAIN_KERNELS}}
+
+
+def _prom_snapshot(text) -> dict:
+    """A snapshot dict of the unlabelled samples of Prometheus text (what
+    ``snapshot_value`` reads)."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("#") or "{" in line or " " not in line:
+            continue
+        name, v = line.rsplit(" ", 1)
+        out.append({"name": name, "labels": {}, "value": float(v)})
+    return {"counters": out}
+
+
+def _trace_tree_ok(spans) -> bool:
+    """Every span's parent lies in the trace, but the client's root."""
+    ids = {s["span_id"] for s in spans}
+    roots = [s for s in spans if not s.get("parent_id")]
+    return (len(roots) == 1 and roots[0]["name"] == "client/infer"
+            and all(s["parent_id"] in ids for s in spans
+                    if s.get("parent_id")))
+
+
+def telemetry_serve() -> dict:
+    """An in-process ``Router`` over one replica, an ``InferenceEngine``
+    on a ``PagedDecoder`` at the serving widths (SLOTS slots), both with
+    ``trace_sample=1.0`` and a ``telemetry_dir``; a
+    ``ServingClient(trace_sample=1.0)`` sends TELEMETRY_REQUESTS greedy
+    requests one after another, then one with a 1 ms deadline.  Each
+    request's ``/trace/<id>`` at the router holds client, router and
+    replica spans under one id with every parent in it; the shed
+    request's row is in ``flight-<pid>.jsonl`` with reason ``deadline``;
+    ``serving_decode_tokens_total`` equals ``/stats``
+    ``decode.tokens``; ``/executables`` lists the decoder with device
+    time; kernels 1 and 4 launch; the streams equal those of the same
+    requests untraced (the decoder reset between)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models.transformer import PagedDecoder
+    from paddle_tpu_torch.observability import executables as ex
+    from paddle_tpu_torch.observability import tracectx
+    from paddle_tpu_torch.serving import (DeadlineExceeded, InferenceEngine,
+                                          Router, ServingClient)
+
+    model = _serving_model()
+    rng = np.random.RandomState(SEED + 33)
+    reqs = [rng.randint(0, VOCAB, size=int(n)).astype(np.int32)
+            for n in rng.randint(4, min(400, MAX_LEN - MAX_TOKENS),
+                                 size=TELEMETRY_REQUESTS)]
+    decoder = PagedDecoder(model, max_slots=SLOTS, block_size=BLOCK,
+                           device="cuda")
+    plain = InferenceEngine(decoder, default_max_tokens=MAX_TOKENS)
+    try:
+        untraced = [plain.infer([p], 600).tolist() for p in reqs]
+    finally:
+        plain.close()
+    decoder.reset()
+    obs.reset()
+    ex.EXECUTABLES.reset()
+    tracectx.STORE.clear()
+    obs.enable()
+    tmp = tempfile.mkdtemp(prefix="ptt_tele_")
+    engine = InferenceEngine(decoder, default_max_tokens=MAX_TOKENS,
+                             trace_sample=1.0, telemetry_dir=tmp)
+    router = None
+    try:
+        url = f"http://127.0.0.1:{engine.serve(0).server_address[1]}"
+        router = Router([url], trace_sample=1.0, telemetry_dir=tmp)
+        rurl = f"http://127.0.0.1:{router.serve(0).server_address[1]}"
+        client = ServingClient(rurl, trace_sample=1.0, timeout_s=600)
+        ops.reset_launch_counts()
+        traced, ids = [], []
+        for p in reqs:
+            before = set(tracectx.STORE.recent_ids(4096))
+            traced.append(client.infer([p], max_tokens=MAX_TOKENS,
+                                       deadline_s=600)["tokens"].tolist())
+            new = [t for t in set(tracectx.STORE.recent_ids(4096)) - before
+                   if any(s["name"] == "client/infer"
+                          for s in tracectx.STORE.get(t))]
+            ids.extend(new)
+        launches = ops.launch_counts()
+        shed_before = set(tracectx.STORE.recent_ids(4096))
+        try:
+            client.infer([reqs[-1]], max_tokens=MAX_TOKENS, deadline_s=0.001)
+            shed = "answered"
+        except DeadlineExceeded as e:
+            shed = f"DeadlineExceeded: {e}"
+        shed_ids = set(tracectx.STORE.recent_ids(4096)) - shed_before
+        # the router finishes the shed's trace on its handler thread: wait
+        # for its flight row before the servers close
+        flight = os.path.join(tmp, f"flight-{os.getpid()}.jsonl")
+        for _ in range(150):
+            tracectx.FLIGHT_WRITER.drain()
+            if os.path.exists(flight) and any(
+                    json.loads(ln)["trace_id"] in shed_ids
+                    for ln in open(flight).read().splitlines()):
+                break
+            time.sleep(0.1)
+        stitched = {}
+        for tid in ids:
+            doc = _get_json(f"{rurl}/trace/{tid}")
+            stitched[tid] = ({s["role"] for s in doc["spans"]},
+                             {s["trace_id"] for s in doc["spans"]},
+                             _trace_tree_ok(doc["spans"]))
+        metrics = _get_text(url + "/metrics")
+        stats = _get_json(url + "/stats")
+        exes = _get_json(url + "/executables")
+    finally:
+        if router is not None:
+            router.close()
+        engine.close()
+        obs.disable()
+    tracectx.FLIGHT_WRITER.drain()
+    rows = ([json.loads(ln) for ln in open(flight).read().splitlines()]
+            if os.path.exists(flight) else [])
+    shutil.rmtree(tmp, ignore_errors=True)
+    tokens_metric = _prom_snapshot(metrics)
+    from paddle_tpu_torch.observability import metrics as m
+    tokens = m.snapshot_value(tokens_metric, "serving_decode_tokens_total")
+    dec_rows = [r for r in exes["executables"] if r["stack"] == "serving"]
+    shed_rows = [r for r in rows if r["trace_id"] in shed_ids]
+    bad = []
+    if len(ids) != TELEMETRY_REQUESTS:
+        bad.append(f"{len(ids)} client traces")
+    for tid, (roles, tids, tree) in stitched.items():
+        if roles != {"client", "router", "replica"} or tids != {tid} \
+                or not tree:
+            bad.append(f"trace {tid}: roles {roles}, ids {tids}, "
+                       f"parents {tree}")
+            break
+    if not any(r["reason"] == "deadline" for r in shed_rows):
+        bad.append(f"the shed request's flight rows {shed_rows} ({shed})")
+    if tokens != stats["decode"]["tokens"]:
+        bad.append(f"serving_decode_tokens_total {tokens} != /stats "
+                   f"{stats['decode']['tokens']}")
+    if not dec_rows or not all(r["device_us"] > 0 for r in dec_rows):
+        bad.append(f"/executables serving rows {dec_rows}")
+    if min(launches[k] for k in SERVE_KERNELS) < 1:
+        bad.append(f"launches {launches}")
+    if traced != untraced:
+        bad.append("traced streams differ from the untraced ones")
+    print(f"telemetry, serving: {TELEMETRY_REQUESTS} greedy requests "
+          f"client -> router -> replica ({SLOTS}-slot PagedDecoder), "
+          f"{len(ids)} traces stitched at the router with client, router "
+          f"and replica spans under one id each; the 1 ms deadline: "
+          f"{shed}, flight rows {[(r['reason'], r['role']) for r in shed_rows]}"
+          f"; serving_decode_tokens_total {tokens} = /stats "
+          f"{stats['decode']['tokens']}; /executables serving rows "
+          f"{[(r['kind'], r['dispatches'], round(r['device_us'] / 1e3, 1)) for r in dec_rows]}"
+          f" (kind, dispatches, device ms); launches "
+          f"{ {k: launches[k] for k in SERVE_KERNELS} }; streams equal to "
+          f"the untraced run: {traced == untraced}", flush=True)
+    if bad:
+        raise AssertionError("telemetry, serving: " + "; ".join(bad))
+    return {"traces": len(ids), "shed": shed,
+            "flight_reasons": [r["reason"] for r in shed_rows],
+            "decode_tokens": tokens,
+            "executables": [{k: r[k] for k in ("exe", "kind", "dispatches",
+                                                "device_us")}
+                            for r in dec_rows],
+            "launches": {k: launches[k] for k in SERVE_KERNELS},
+            "streams_equal": traced == untraced}
+
+
+def _serving_model():
+    """The serving slice's model (``main_path``'s) from the seeded
+    weights, through a checkpoint."""
+    from paddle_tpu_torch.io import checkpoint
+    from paddle_tpu_torch.models.transformer import params_from_jax
+
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as tmp:
+        checkpoint.save_params(tmp, random_values(SEED))
+        snap = checkpoint.load(tmp)
+        return params_from_jax(checkpoint.params_of(snap), num_heads=HEADS)
+
+
+def telemetry_slice() -> dict:
+    """Phase 26: item 13a, the telemetry spine traced on the card through
+    the LM's bf16 training (``telemetry_train``) and paged serving
+    (``telemetry_serve``); a ``{"telemetry": ...}`` JSON line."""
+    t0 = time.perf_counter()
+    out = {"train": telemetry_train()}
+    torch.cuda.empty_cache()
+    out["serve"] = telemetry_serve()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"telemetry phase: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
+TELEMETRY_PHASES = {"telemetry": telemetry_slice}
+
+
 def selected(argv) -> list:
     """The phases ``--only=<name>[,<name>...]`` names (None without it):
     ``dispatch``, ``v2`` or ``sparse`` for phase 14, 15 or 16 whole, or
     any part of one (DISPATCH_PHASES, V2_PHASES, CTR_PHASES), ``ckpt``
     (phase 17), ``serve`` (phase 18), ``serve_fwd`` (phase 19), ``gen``
     (phase 20), ``vision`` (phase 21), ``book`` (phase 22), ``v2rest``
-    (phase 23), ``fluid`` (phase 24) or ``fluid_cf`` (phase 25), for a
-    development run; the full run takes no arguments."""
+    (phase 23), ``fluid`` (phase 24), ``fluid_cf`` (phase 25) or
+    ``telemetry`` (phase 26), for a development run; the full run takes no
+    arguments."""
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     if not only:
         return None
@@ -10184,7 +10650,7 @@ def selected(argv) -> list:
                and n not in SERVE_FWD_PHASES and n not in GEN_PHASES
                and n not in VISION_PHASES and n not in BOOK_PHASES
                and n not in V2REST_PHASES and n not in FLUID_PHASES
-               and n not in FLUID_CF_PHASES]
+               and n not in FLUID_CF_PHASES and n not in TELEMETRY_PHASES]
     if unknown:
         raise SystemExit(f"chip_smoke: no phase {unknown}; --only= takes "
                          f"{sorted(groups) + sorted(DISPATCH_PHASES)}"
@@ -10196,7 +10662,8 @@ def selected(argv) -> list:
                          f" + {sorted(BOOK_PHASES)}"
                          f" + {sorted(V2REST_PHASES)}"
                          f" + {sorted(FLUID_PHASES)}"
-                         f" + {sorted(FLUID_CF_PHASES)}")
+                         f" + {sorted(FLUID_CF_PHASES)}"
+                         f" + {sorted(TELEMETRY_PHASES)}")
     return names
 
 
@@ -10243,7 +10710,7 @@ def main(argv=()) -> int:
                              **SERVE_FWD_PHASES, **GEN_PHASES,
                              **VISION_PHASES, **BOOK_PHASES,
                              **V2REST_PHASES, **FLUID_PHASES,
-                             **FLUID_CF_PHASES}[name]()
+                             **FLUID_CF_PHASES, **TELEMETRY_PHASES}[name]()
             torch.cuda.empty_cache()
         print(card, flush=True)
         print(json.dumps({"only": out}), flush=True)
@@ -10321,6 +10788,8 @@ def main(argv=()) -> int:
     fluid = fluid_slice()
     torch.cuda.empty_cache()
     fluid_cf = fluid_cf_slice()
+    torch.cuda.empty_cache()
+    telemetry = telemetry_slice()
     torch.cuda.empty_cache()
     sweep_launches, sweep_rows = sweep_path()
     merge_sweep_times(var, sweep_rows)
@@ -10587,6 +11056,7 @@ def main(argv=()) -> int:
     print(json.dumps({"v2rest": v2rest}), flush=True)
     print(json.dumps({"fluid": fluid}), flush=True)
     print(json.dumps({"fluid_cf": fluid_cf}), flush=True)
+    print(json.dumps({"telemetry": telemetry}), flush=True)
     for k in kernels:       # fluid_cf reaches none of the kernels
         k["launches_fluid_cf"] = fluid_cf["launches"].get(k["name"], 0)
     print(card, flush=True)

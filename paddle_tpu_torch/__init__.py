@@ -25,6 +25,7 @@ from paddle_tpu_torch import inference
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch import layer
 from paddle_tpu_torch import networks
+from paddle_tpu_torch import observability
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch import parameters
 from paddle_tpu_torch import plot

@@ -53,6 +53,7 @@ mesh slices, ``--prewarm`` and tracing are not ported yet.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import runpy
@@ -60,9 +61,9 @@ import sys
 import threading
 import time
 
-# flags of the JAX ``train`` verb this port does not have yet
-_UNPORTED_TRAIN_FLAGS = ("telemetry_dir", "metrics_port",
-                         "compile_cache_dir")
+# flags of the JAX ``train`` verb this port does not have yet (the
+# compile cache is ROADMAP.md section 1, item 13b)
+_UNPORTED_TRAIN_FLAGS = ("compile_cache_dir",)
 # the JAX ``train`` verb's jobs this port runs (its ``checkgrad`` comes
 # with ROADMAP.md section 1, item 15)
 _JOBS = ("train", "test", "time", "gen")
@@ -156,6 +157,12 @@ def _replica_passthrough_argv(args):
         argv += ["--reload_key_file", args.reload_key_file]
     if args.seq_buckets:
         argv += ["--seq_buckets", args.seq_buckets]
+    if args.no_trace:
+        argv += ["--no_trace"]
+    else:
+        argv += ["--trace_sample", str(args.trace_sample)]
+        if args.telemetry_dir:
+            argv += ["--telemetry_dir", args.telemetry_dir]
     if args.decode:
         argv += ["--decode", "--max_slots", str(args.max_slots),
                  "--default_max_tokens", str(args.default_max_tokens),
@@ -187,7 +194,8 @@ def cmd_serve_fleet(args) -> None:
                          "config)")
     router = Router(tenant_quota=args.tenant_quota_global,
                     poll_interval_s=args.router_poll_interval_s,
-                    staleness_s=args.router_staleness_s)
+                    staleness_s=args.router_staleness_s,
+                    **_trace_kwargs(args))
     server = router.serve(args.port, host=args.host)
     port = server.server_address[1]
     router_url = f"http://{_connect_host(args.host)}:{port}"
@@ -291,6 +299,16 @@ def _serve_weights(args):
     return out_layer, params, version, heads, cfg
 
 
+def _trace_kwargs(args) -> dict:
+    """``trace_sample`` / ``telemetry_dir`` of a serving edge: head
+    sampling at ``--trace_sample`` with the tail-based flight recorder,
+    or nothing with ``--no_trace``."""
+    if args.no_trace:
+        return {}
+    return dict(trace_sample=args.trace_sample,
+                telemetry_dir=args.telemetry_dir or None)
+
+
 def _reload_key(path):
     if not path:
         return None
@@ -339,7 +357,8 @@ def cmd_serve(args) -> None:
         breaker_window=args.breaker_window,
         breaker_threshold=args.breaker_threshold,
         breaker_min_requests=args.breaker_min_requests,
-        breaker_cooldown_s=args.breaker_cooldown_s)
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        **_trace_kwargs(args))
     ready_extra = {}
     if args.decode:
         model = params_from_jax(params, num_heads=heads)
@@ -495,7 +514,7 @@ def _config_for(args) -> dict:
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not ported to paddle_tpu_torch yet "
-            f"(ROADMAP.md section 1)")
+            f"(ROADMAP.md section 1, item 13b: the compile cache)")
     if args.job not in _JOBS:
         raise NotImplementedError(
             f"--job={args.job}: not ported to paddle_tpu_torch yet (ported: "
@@ -555,11 +574,60 @@ def cmd_train(args) -> None:
             save_period_steps=args.save_period_steps or None,
             async_save=not args.sync_save,
             reverify_period_s=args.reverify_period_s or None)
-    trainer.train(reader, num_passes=args.num_passes,
-                  feeding=cfg.get("feeding"), checkpoint_config=ckpt,
-                  prefetch_depth=args.prefetch_depth or None,
-                  steps_per_dispatch=None if spd == 1 else spd,
-                  seq_buckets=seq_buckets)
+    with _train_telemetry(args):
+        trainer.train(reader, num_passes=args.num_passes,
+                      feeding=cfg.get("feeding"), checkpoint_config=ckpt,
+                      prefetch_depth=args.prefetch_depth or None,
+                      steps_per_dispatch=None if spd == 1 else spd,
+                      seq_buckets=seq_buckets)
+
+
+@contextlib.contextmanager
+def _train_telemetry(args):
+    """``--telemetry_dir`` / ``--metrics_port`` around a training run (the
+    JAX CLI's): either turns telemetry on; the port serves ``/metrics``,
+    ``/metrics.json``, ``/healthz`` and ``/executables`` while it runs;
+    the dir gets a ``metrics.jsonl`` snapshot every ``--snapshot_period``
+    seconds and, at exit (a crashed run's too), a last snapshot and the
+    span trace ``trace.json``."""
+    telemetry_dir = args.telemetry_dir
+    metrics_port = args.metrics_port
+    server = snapshotter = None
+    if telemetry_dir or metrics_port is not None:
+        from paddle_tpu_torch import observability as obs
+        obs.enable()
+    if metrics_port is not None:
+        from paddle_tpu_torch.observability import executables, sinks
+        host = args.metrics_host or "127.0.0.1"
+        server = sinks.serve_metrics(
+            metrics_port, host=host,
+            extra_handlers={"/executables": executables.http_handler})
+        print(f"metrics endpoint: "
+              f"http://{host}:{server.server_port}/metrics", flush=True)
+    if telemetry_dir and args.snapshot_period > 0:
+        from paddle_tpu_torch.observability import sinks
+        os.makedirs(telemetry_dir, exist_ok=True)
+        snapshotter = sinks.start_periodic_snapshots(
+            os.path.join(telemetry_dir, "metrics.jsonl"),
+            interval_s=args.snapshot_period)
+    try:
+        yield
+    finally:
+        if snapshotter is not None:
+            snapshotter.stop(final_snapshot=False)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if telemetry_dir:
+            from paddle_tpu_torch.observability import sinks
+            os.makedirs(telemetry_dir, exist_ok=True)
+            sinks.write_metrics_snapshot(
+                os.path.join(telemetry_dir, "metrics.jsonl"))
+            sinks.write_chrome_trace(
+                os.path.join(telemetry_dir, "trace.json"))
+            print(f"telemetry written to {telemetry_dir} (inspect: python "
+                  f"-m paddle_tpu_torch metrics --file "
+                  f"{os.path.join(telemetry_dir, 'metrics.jsonl')})")
 
 
 def cmd_test(args) -> None:
@@ -693,6 +761,11 @@ def cmd_time(args) -> None:
     _, _, topo, trainer = _build(args)
     feed = {k: torch.as_tensor(v, device=trainer.device)
             for k, v in _synthetic_feed(topo, args.batch_size).items()}
+    if args.show_layer_stat:
+        # per-layer FLOPs (the flop counter, layer by layer) and time
+        # (one profiled step, a record_function range a layer)
+        from paddle_tpu_torch.utils import profiler as prof
+        prof.print_layer_stats(trainer, feed)
     k = args.steps_per_dispatch or 1
     with trainer.on_copies():
         for _ in range(3):                      # warm-up, kernel builds
@@ -752,6 +825,141 @@ def cmd_pserver(args) -> None:
     print("paddle_tpu_torch has no separate pserver process: one program "
           "runs on every worker and gradients ride collectives over the "
           "cards (the sharded executor is ROADMAP.md section 1, item 14).")
+
+
+def cmd_metrics(args) -> None:
+    """``metrics``: recorded snapshots (``observability.sinks`` JSONL,
+    either package's) as a table, Prometheus text or raw JSON."""
+    from paddle_tpu_torch.observability import metrics as m
+    from paddle_tpu_torch.observability import sinks
+
+    snaps = sinks.read_snapshots(args.file)
+    if not snaps:
+        raise SystemExit(f"no metrics snapshots in {args.file} — enable "
+                         f"telemetry (PADDLE_TPU_TELEMETRY=1 or "
+                         f"--telemetry_dir) and write a snapshot first")
+    for snap in (snaps if args.all else [snaps[-1]]):
+        if args.format == "json":
+            print(json.dumps(snap))
+        elif args.format == "prom":
+            print(m.prometheus_from_snapshot(snap), end="")
+        else:
+            if snap.get("ts", ""):
+                print(f"# snapshot {snap['ts']}")
+            print(m.render_snapshot_table(snap))
+
+
+def cmd_executables(args) -> None:
+    """``executables [--json] [--top N] [--url URL]``: the executable
+    observatory, from a live process's ``/executables`` (``--url``: a
+    trainer's ``--metrics_port`` or a serving engine) or this process's
+    own registry."""
+    from paddle_tpu_torch.observability import executables as ex
+
+    if args.url:
+        import urllib.request
+
+        endpoint = args.url.rstrip("/") + "/executables"
+        if args.top:
+            endpoint += f"?top={args.top}"
+        try:
+            with urllib.request.urlopen(endpoint, timeout=15.0) as resp:
+                snap = json.loads(resp.read().decode())
+        except Exception as e:          # noqa: BLE001 - the CLI surface
+            raise SystemExit(f"executables: GET {endpoint} failed: {e!r}")
+        print(json.dumps(snap) if args.json
+              else ex.render_snapshot_table(snap))
+        return
+    snap = ex.EXECUTABLES.snapshot(top=args.top or None)
+    if args.json:
+        print(json.dumps(snap))
+        return
+    if not snap["executables"]:
+        raise SystemExit(
+            "no executables registered in this process — the registry "
+            "is per-process; point --url at a live trainer "
+            "(--metrics_port) or serving engine to read its "
+            "/executables endpoint")
+    print(ex.render_snapshot_table(snap))
+
+
+def cmd_trace_request(args) -> None:
+    """``trace --request <id> [--url URL]``: one request's cross-process
+    timeline from a router's (or any serving process's) ``/trace/<id>``,
+    rendered as a span tree; ``--out`` writes it as Chrome trace JSON."""
+    import urllib.request
+
+    from paddle_tpu_torch.io import atomic
+    from paddle_tpu_torch.observability import tracectx
+
+    url = (args.url or "http://127.0.0.1:8080").rstrip("/")
+    endpoint = f"{url}/trace/{args.request}"
+    try:
+        req = urllib.request.Request(endpoint, method="GET")
+        with urllib.request.urlopen(req, timeout=15.0) as resp:
+            doc = json.loads(resp.read().decode())
+    except Exception as e:              # noqa: BLE001 - the CLI surface
+        raise SystemExit(f"trace --request: GET {endpoint} failed: {e!r}")
+    spans = doc.get("spans") or []
+    if not spans:
+        raise SystemExit(
+            f"no spans recorded for trace {args.request} at {url} — "
+            f"was the request sampled (trace_sample) or anomalous?  "
+            f"GET {url}/trace lists recent trace ids")
+    print(tracectx.render_tree(spans))
+    sources = doc.get("sources")
+    if sources:
+        parts = [f"{src}={'down' if n is None else n}"
+                 for src, n in sorted(sources.items())]
+        print("sources: " + "  ".join(parts))
+    if args.out:
+        payload = json.dumps(tracectx.spans_to_chrome(spans)).encode()
+        atomic.atomic_write_file(args.out, lambda f: f.write(payload))
+        print(f"Chrome trace written to {args.out} — open in Perfetto "
+              f"(one row per fleet process)")
+
+
+def cmd_trace(args) -> None:
+    """``trace``: a recorded host span trace (Chrome trace-event JSON,
+    either package's) as a per-span table, optionally one step's and
+    re-exported; with ``--request <id>`` a live fleet's request timeline
+    (``cmd_trace_request``)."""
+    from paddle_tpu_torch.observability import sinks
+
+    if args.request:
+        return cmd_trace_request(args)
+    doc = sinks.read_chrome_trace(args.file)
+    evs = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+    if args.step is not None:
+        evs = [e for e in evs
+               if e.get("args", {}).get("step") == args.step]
+    if not evs:
+        raise SystemExit(f"no spans in {args.file}"
+                         + (f" for step {args.step}"
+                            if args.step is not None else ""))
+    agg = {}
+    for e in evs:
+        a = agg.setdefault(e["name"], [0, 0.0, 0.0])
+        a[0] += 1
+        a[1] += float(e.get("dur", 0.0))
+        a[2] = max(a[2], float(e.get("dur", 0.0)))
+    width = max([len(n) for n in agg] + [len("span")])
+    print(f"{'span':<{width}} {'count':>7} {'total_ms':>10} "
+          f"{'avg_us':>9} {'max_us':>9}")
+    for name, (cnt, tot, mx) in sorted(agg.items(),
+                                       key=lambda kv: -kv[1][1]):
+        print(f"{name:<{width}} {cnt:>7} {tot / 1e3:>10.3f} "
+              f"{tot / cnt:>9.1f} {mx:>9.1f}")
+    steps = {e.get("args", {}).get("step") for e in evs}
+    steps.discard(None)
+    print(f"{len(evs)} spans across {len(steps)} correlated steps")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"traceEvents": evs,
+                       "displayTimeUnit": doc.get("displayTimeUnit",
+                                                  "ms")}, f)
+        print(f"Chrome trace written to {args.out} — open in Perfetto "
+              f"next to a torch.profiler capture (utils/profiler.py)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -824,9 +1032,28 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--sync_save", action="store_true",
                     help="write step snapshots in the step loop instead "
                          "of the background writer thread")
+    tr.add_argument("--show_layer_stat", action="store_true",
+                    help="--job=time: per-layer FLOPs and time of one step "
+                         "(reference: FLAGS_show_layer_stat)")
+    tr.add_argument("--telemetry_dir", default=None,
+                    help="enable step-level telemetry and write "
+                         "metrics.jsonl + trace.json here at exit")
+    tr.add_argument("--metrics_port", type=int, default=None,
+                    help="serve live Prometheus metrics (and "
+                         "/executables) on this port while training (0 = "
+                         "ephemeral).  Implies telemetry on")
+    tr.add_argument("--metrics_host", default="127.0.0.1",
+                    help="bind address for --metrics_port — loopback by "
+                         "default; the endpoint is unauthenticated, so "
+                         "widen (e.g. 0.0.0.0) deliberately")
+    tr.add_argument("--snapshot_period", type=float, default=60.0,
+                    help="with --telemetry_dir: append a metrics.jsonl "
+                         "snapshot every this many seconds during "
+                         "training (0 = only at exit)")
     for flag in _UNPORTED_TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", default=None,
-                        help="not ported yet: raises")
+                        help="not ported yet (ROADMAP.md section 1, item "
+                             "13b): raises")
     tr.set_defaults(fn=cmd_train)
     sv = sub.add_parser("serve", help="serve a DSL config through the "
                                       "whole-forward engine, or a "
@@ -962,6 +1189,19 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8080,
                     help="0 picks a free port (see the ready line)")
+    sv.add_argument("--trace_sample", type=float, default=0.01,
+                    help="distributed tracing head-sample rate "
+                         "(X-Ptpu-Trace propagation and /trace timelines; "
+                         "shed, error, deadline and slow requests are "
+                         "kept regardless by the tail-based flight "
+                         "recorder)")
+    sv.add_argument("--no_trace", action="store_true",
+                    help="disable distributed tracing entirely (the "
+                         "untraced request path)")
+    sv.add_argument("--telemetry_dir", default=None,
+                    help="flush flight-recorder captures (sampled and "
+                         "anomalous request traces) to flight-<pid>.jsonl "
+                         "in this directory")
     sv.set_defaults(fn=cmd_serve)
     ck = sub.add_parser("checkpoint", help="read-only snapshot audit "
                                            "(verify) or newest-valid "
@@ -979,6 +1219,47 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("pserver", help="(subsumed) the reference's "
                                    "parameter-server process").set_defaults(
         fn=cmd_pserver)
+    from paddle_tpu_torch.observability import sinks
+    met = sub.add_parser(
+        "metrics", help="render recorded telemetry metrics snapshots")
+    met.add_argument("--file", default=sinks.DEFAULT_METRICS_PATH,
+                     help="metrics JSONL path (observability.sinks)")
+    met.add_argument("--format", default="table",
+                     choices=["table", "prom", "json"])
+    met.add_argument("--all", action="store_true",
+                     help="every snapshot line, not just the last")
+    met.set_defaults(fn=cmd_metrics)
+    exs = sub.add_parser(
+        "executables",
+        help="the executable observatory: each prepared program's cost, "
+             "dispatches, device time and MFU")
+    exs.add_argument("--json", action="store_true",
+                     help="raw snapshot JSON instead of the table")
+    exs.add_argument("--top", type=int, default=0, metavar="N",
+                     help="only the N busiest executables by device time "
+                          "(rollups always cover everything)")
+    exs.add_argument("--url", default=None,
+                     help="read a live process's /executables endpoint "
+                          "(train --metrics_port or a serving engine) "
+                          "instead of this process's empty registry")
+    exs.set_defaults(fn=cmd_executables)
+    trc = sub.add_parser(
+        "trace", help="summarize a captured host span trace (Chrome "
+                      "trace-event JSON), or reconstruct a distributed "
+                      "request timeline with --request")
+    trc.add_argument("--file", default=sinks.DEFAULT_TRACE_PATH)
+    trc.add_argument("--step", type=int, default=None,
+                     help="only spans with this correlation id")
+    trc.add_argument("--request", default=None, metavar="TRACE_ID",
+                     help="one request's cross-process timeline from a "
+                          "live serving fleet: GET <url>/trace/<id>")
+    trc.add_argument("--url", default="http://127.0.0.1:8080",
+                     help="with --request: the router (or replica) base "
+                          "URL to assemble from")
+    trc.add_argument("--out", default=None,
+                     help="re-export (filtered or assembled) Chrome trace "
+                          "JSON here")
+    trc.set_defaults(fn=cmd_trace)
     return p
 
 

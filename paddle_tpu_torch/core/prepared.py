@@ -32,7 +32,16 @@ captured chunk come out of its graph and nothing reads them back a step:
   other: the caller asked for the CPU.
 
 ``ops.launch_counts()`` counts a graph's kernel launches at each replay
-(``ops.recording_launches`` and ``ops.add_launches``).  Dropping an entry
+(``ops.recording_launches`` and ``ops.add_launches``).
+
+A family made with a ``stack`` registers each entry in the executable
+registry (``observability/executables.py``): its fingerprint (the
+caller's identity parts, the kind, k and the feed signature), its build
+time (the capture with its warm-up step; on the CPU none) and, while
+telemetry is on at the build, its cost, counted over the warm-up step (on
+the CPU over the first step) and multiplied by k.  While telemetry is on
+each call of an entry is a dispatch of its row, timed by a CUDA event
+pair (``ExecutableEntry.begin`` / ``end``; no sync).  Dropping an entry
 (``release``, ``PreparedFamily.clear`` or the family itself) frees its
 graph; the family's graphs share one memory pool, which goes with the
 last of them.
@@ -40,11 +49,15 @@ last of them.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from paddle_tpu_torch import ops
+from paddle_tpu_torch.observability import executables as _executables
+from paddle_tpu_torch.observability import metrics as _metrics
 
 
 def feed_signature(feed: dict) -> tuple:
@@ -85,15 +98,52 @@ def _copied(out):
     return out.clone()
 
 
-class EagerChunk:
-    """k steps run eagerly, one after the other (the CPU's entry)."""
+def _dispatch(entry, run: Callable):
+    """``run()`` as one dispatch of ``entry``'s registry row while
+    telemetry is on."""
+    exe = entry.exe if _metrics._enabled else None
+    if exe is None:
+        return run()
+    t = exe.begin(entry.device)
+    out = run()
+    exe.end(t)
+    return out
 
-    def __init__(self, step: Callable, k: int):
+
+class EagerChunk:
+    """k steps run eagerly, one after the other (the CPU's entry).  With
+    ``count`` the first call's first step is counted for the registry
+    (``cost``, set on ``exe`` when there is one)."""
+
+    exe = None
+    device = "cpu"
+
+    def __init__(self, step: Callable, k: int, count: bool = False):
         self.step, self.k = step, k
+        self._count = count
+        self.cost = None
 
     def __call__(self, feeds: dict):
-        return _stacked([self.step(_step_feed(feeds, i))
-                         for i in range(self.k)])
+        if not self._count:
+            return _dispatch(self, lambda: self._run(feeds))
+        # the first call is the build: its first step counted
+        self._count = False
+        t0 = time.perf_counter_ns()
+        with _executables.count_cost() as counted:
+            first = self.step(_step_feed(feeds, 0))
+        self.cost = _executables.cost_of(counted, self.k)
+        out = self._run(feeds, [first])
+        if self.exe is not None:
+            if self.cost is not None:
+                self.exe.cost = self.cost
+            self.exe.record_build((time.perf_counter_ns() - t0) / 1e3)
+        return out
+
+    def _run(self, feeds: dict, results=None):
+        results = list(results or [])
+        for i in range(len(results), self.k):
+            results.append(self.step(_step_feed(feeds, i)))
+        return _stacked(results)
 
     def release(self) -> None:
         self.step = None
@@ -105,13 +155,19 @@ class CapturedChunk:
     ``step(feed) -> loss`` is the trainer's step; ``state`` lists every
     tensor the step updates, which the warm-up step puts back;
     ``feeds`` (stacked ``[k, ...]`` arrays) fill the static buffers
-    before the warm-up, so that it runs on real data."""
+    before the warm-up, so that it runs on real data.  With ``count`` the
+    warm-up step is counted for the registry (``cost``: k times it)."""
+
+    exe = None
 
     def __init__(self, step: Callable, k: int, feeds: dict,
                  state: List[torch.Tensor], stream: torch.cuda.Stream,
-                 pool=None, generator: Optional[torch.Generator] = None):
+                 pool=None, generator: Optional[torch.Generator] = None,
+                 count: bool = False):
         dev = stream.device
         self.k = k
+        self.device = dev
+        self.cost = None
         self.static = {name: torch.empty(tuple(v.shape), device=dev,
                                          dtype=torch.as_tensor(v).dtype)
                        for name, v in feeds.items()}
@@ -120,11 +176,15 @@ class CapturedChunk:
         saved = [t.clone() for t in state]
         rng = None if generator is None else generator.get_state()
         stream.wait_stream(cur)
+        counting = (_executables.count_cost() if count
+                    else contextlib.nullcontext({}))
         with torch.cuda.stream(stream):
-            step(_step_feed(self.static, 0))
+            with counting as counted:
+                step(_step_feed(self.static, 0))
             for t, was in zip(state, saved):
                 t.copy_(was)
         cur.wait_stream(stream)
+        self.cost = _executables.cost_of(counted, k)
         if rng is not None:
             generator.set_state(rng)
         del saved
@@ -155,7 +215,7 @@ class CapturedChunk:
 
     def __call__(self, feeds: dict):
         self._load(feeds)
-        self.graph.replay()
+        _dispatch(self, self.graph.replay)
         ops.add_launches(self.launches)
         return _copied(self.out)
 
@@ -166,42 +226,59 @@ class CapturedChunk:
 
 def chunk_entry(step: Callable, k: int, feeds: dict,
                 state: List[torch.Tensor], device: torch.device,
-                stream=None, pool=None, generator=None):
+                stream=None, pool=None, generator=None, count=False):
     """The entry of k steps on ``device``: a ``CapturedChunk`` on the card
     (on ``stream``, a new side stream when None; ``generator`` registered
-    with its graph), an ``EagerChunk`` on the CPU."""
+    with its graph), an ``EagerChunk`` on the CPU; ``count`` counts its
+    cost."""
     if device.type != "cuda":
-        return EagerChunk(step, k)
+        return EagerChunk(step, k, count)
     return CapturedChunk(step, k, feeds, state,
                          stream or torch.cuda.Stream(device), pool,
-                         generator)
+                         generator, count)
 
 
 class PreparedFamily:
     """The prepared entries of one trainer, keyed by ``(kind, k, feed
     signature)``.  On the card its graphs capture on one side stream of
     their own and share one memory pool.  ``prepared`` counts the entries
-    made (the trainer's ``step_capture_count``)."""
+    made (the trainer's ``step_capture_count``).  With a ``stack`` each
+    entry is a row of the executable registry (``exe``)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stack: Optional[str] = None):
         self.device = device
+        self.stack = stack
         self.entries: Dict[tuple, object] = {}
         self.prepared = 0
         self._stream = self._pool = None
 
-    def get(self, kind: str, k: int, feeds: dict, step: Callable,
-            state: Callable[[], List[torch.Tensor]], generator=None):
+    def get(self, kind, k: int, feeds: dict, step: Callable,
+            state: Callable[[], List[torch.Tensor]], generator=None,
+            exe_kind: str = "train_chunk", identity: tuple = ()):
         """The entry for ``feeds`` (stacked ``[k, ...]``), prepared on
         first use; ``state()`` lists the tensors the step updates and
-        ``generator`` is the step's random stream."""
-        key = (kind, k, feed_signature(feeds))
+        ``generator`` is the step's random stream.  ``exe_kind`` and
+        ``identity`` (the program's identity parts) name its registry
+        row."""
+        sig = feed_signature(feeds)
+        key = (kind, k, sig)
         entry = self.entries.get(key)
         if entry is None:
             if self.device.type == "cuda" and self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
                 self._pool = torch.cuda.graph_pool_handle()
+            count = self.stack is not None and _metrics._enabled
+            t0 = time.perf_counter_ns()
             entry = chunk_entry(step, k, feeds, state(), self.device,
-                                self._stream, self._pool, generator)
+                                self._stream, self._pool, generator, count)
+            if self.stack is not None:
+                entry.exe = _executables.register(
+                    stack=self.stack, kind=exe_kind,
+                    fingerprint=_executables.fingerprint(*identity, exe_kind,
+                                                         k, sig),
+                    feed_sig=sig,
+                    compile_us=(time.perf_counter_ns() - t0) / 1e3,
+                    cost=entry.cost)
             self.entries[key] = entry
             self.prepared += 1
         return entry

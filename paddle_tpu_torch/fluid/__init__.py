@@ -14,8 +14,8 @@ save / load (``io``), ``DataFeeder``, ``debugger``, and an ``Executor``
 that interprets a block op by op on ``CUDAPlace(0)`` (the default; it
 raises with no card) or ``CPUPlace()``, with ``check_nan_inf``,
 ``prepare`` / ``CompiledProgram`` and ``run_n`` (n steps as one captured
-CUDA graph on the card).  ``profiler`` rides on the framework profiler,
-which the port does not have yet.
+CUDA graph on the card), and ``profiler`` over the framework profiler
+(``utils/profiler.py``).
 """
 
 from paddle_tpu_torch.fluid import framework
@@ -30,6 +30,7 @@ from paddle_tpu_torch.fluid import initializer
 from paddle_tpu_torch.fluid import io
 from paddle_tpu_torch.fluid import control_flow
 from paddle_tpu_torch.fluid import debugger
+from paddle_tpu_torch.fluid import profiler
 from paddle_tpu_torch.fluid import executor
 from paddle_tpu_torch.fluid.framework import (
     Program,

@@ -26,10 +26,27 @@ op's device.  The step is a device tensor under ``run_n``, so a captured
 graph's replays draw what the same steps draw eagerly, and a dropout
 mask recomputed inside its grad op equals the forward's.  (Torch cannot
 reproduce JAX's streams: the draws are the port's own.)
+
+Telemetry is the JAX executor's ``fluid_*`` catalog (no-ops while it is
+off): plan cache hits, misses and evictions (a stale plan replaced),
+``fluid_steps_total``, ``fluid_compiles_total{cause="fresh_feed_shape"}``
+(the port's builds: a run plan's first run of a feed signature, a
+``run_n`` capture), the ``run_n`` chunks, steps and stand-downs by reason
+(``fluid_run_n_fallback_steps_total``: ``check_nan_inf``,
+``capture_vars`` and ``host_sync``, the last the debugger's ``print``
+and the other host-reading ops), the feed, dispatch, run and chunk
+histograms, and the ``fluid/plan_lookup|feed_coerce|dispatch|run_n_chunk``
+spans with their step ids.  Each (plan, feed signature) is a
+``fluid`` / ``run_plan`` row of the executable registry and each
+``run_n`` chunk a ``fluid`` / ``run_n`` row.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -38,6 +55,50 @@ import torch
 from paddle_tpu_torch.fluid import framework
 from paddle_tpu_torch.fluid.framework import Block, Program, Variable
 from paddle_tpu_torch.fluid.ops import OPS, get_op, torch_dtype
+from paddle_tpu_torch.observability import executables as _executables
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import tracing as _tracing
+
+# the reasons run_n stands down to n eager runs (the JAX package's
+# _M_RUN_N_FALLBACK reasons, and "host_sync")
+STANDDOWN_REASONS = ("check_nan_inf", "capture_vars", "aliased_buffer",
+                     "host_sync")
+
+# The JAX executor's telemetry handles, pre-bound at import.
+_M_PLAN_HITS = _metrics.counter(
+    "fluid_plan_cache_hits_total", "run-plan cache hits (steady state)")
+_M_PLAN_MISSES = _metrics.counter(
+    "fluid_plan_cache_misses_total",
+    "run-plan builds (fresh program/fetch set or version bump)")
+_M_PLAN_EVICT = _metrics.counter(
+    "fluid_plan_cache_evictions_total",
+    "stale-version executables dropped on program mutation")
+_M_STEPS = _metrics.counter(
+    "fluid_steps_total", "Executor._run_plan invocations")
+_M_COMPILE = _metrics.counter(
+    "fluid_compiles_total", "XLA compiles by cause",
+    cause="fresh_feed_shape")
+_M_RUN_N_CHUNKS = _metrics.counter(
+    "fluid_run_n_chunks_total",
+    "scan-amortized run_n chunk dispatches (one executable launch each)")
+_M_RUN_N_STEPS = _metrics.counter(
+    "fluid_run_n_steps_total",
+    "train steps executed inside scan-amortized run_n chunks")
+_M_RUN_N_FALLBACK = {r: _metrics.counter(
+    "fluid_run_n_fallback_steps_total",
+    "run_n steps that stood down to the per-step path, by reason",
+    reason=r) for r in STANDDOWN_REASONS}
+_H_FEED = _metrics.histogram(
+    "fluid_feed_coerce_us", "feed dtype coercion + shape-signature time")
+_H_DISPATCH = _metrics.histogram(
+    "fluid_dispatch_us",
+    "executable lookup + dispatch wall time (compile steps included)")
+_H_RUN = _metrics.histogram(
+    "fluid_run_us", "end-to-end _run_plan wall time")
+_H_RUN_N = _metrics.histogram(
+    "fluid_run_n_chunk_us", "end-to-end run_n chunk wall time (n steps)")
+_ns = time.perf_counter_ns
+_get_ident = threading.get_ident
 
 
 class Scope:
@@ -233,12 +294,6 @@ def run_block(block: Block, env: dict, mk_ctx) -> None:
         run_sub_block(block, env, mk_ctx)
 
 
-# the reasons run_n stands down to n eager runs (the JAX package's
-# _M_RUN_N_FALLBACK reasons, and "host_sync")
-STANDDOWN_REASONS = ("check_nan_inf", "capture_vars", "aliased_buffer",
-                     "host_sync")
-
-
 class _Plan:
     """What a run needs that depends only on the program's structure and
     the fetch set: built once per (program, version, fetches) and cached
@@ -266,9 +321,21 @@ class _Plan:
                              if op.attrs.get("max_trip_count")
                              == "__capture__"]
         self.host_sync = any(OPS[t].host_sync for t in types)
+        # the executable registry's rows of this plan, by feed signature
+        self.exes: dict = {}
+        self._sha = None
 
     def feed_dtype(self, name: str) -> str:
         return self.block.var(name).dtype
+
+    def identity(self) -> tuple:
+        """The plan's identity parts of its registry fingerprints: the
+        sha-256 of the program's canonical JSON, and the fetches."""
+        if self._sha is None:
+            data = json.dumps(self.program.to_json_dict(),
+                              sort_keys=True).encode()
+            self._sha = hashlib.sha256(data).hexdigest()
+        return (self._sha, self.fetch_names)
 
 
 class CompiledProgram:
@@ -301,10 +368,17 @@ class CompiledProgram:
     def run(self, feed: Optional[Dict[str, np.ndarray]] = None,
             scope: Optional[Scope] = None, return_numpy: bool = True,
             check_nan_inf: bool = False):
+        # the prepared path skips the plan lookup by design, so it never
+        # counts a plan-cache hit
+        if _metrics._enabled:
+            t0 = _ns()
+            plan = self._resolve_plan()
+            plan_ns = (t0, _ns() - t0, False)
+        else:
+            plan, plan_ns = self._resolve_plan(), None
         return self._exe._run_plan(
-            self._resolve_plan(), feed or {},
-            scope or self._scope or global_scope(), return_numpy,
-            self._seed, check_nan_inf, self._train)
+            plan, feed or {}, scope or self._scope or global_scope(),
+            return_numpy, self._seed, check_nan_inf, self._train, plan_ns)
 
     def run_n(self, feed, n: int, scope: Optional[Scope] = None,
               return_numpy: bool = True, check_nan_inf: bool = False):
@@ -326,7 +400,7 @@ class Executor:
     ``framework/executor.cc:80``) on ``place``: ``CUDAPlace(0)`` when
     none is given, which raises with no card; ``CPUPlace()`` runs on the
     host.  ``mesh`` (and its ``mesh_rules`` / ``param_axes``, item 14),
-    ``donate``, ``compile_cache`` and ``bake_key`` (item 13) are taken
+    ``donate``, ``compile_cache`` and ``bake_key`` (item 13b) are taken
     only at their defaults, which raise nothing: the eager executor
     rebinds names and a captured chunk updates the scope's tensors in
     place, so no buffer is donated, and no executable is cached."""
@@ -338,11 +412,11 @@ class Executor:
                 or param_axes is not None:
             _unported_option("mesh", "14")
         if donate is not True:
-            _unported_option("donate", "13")
+            _unported_option("donate", "13b")
         if compile_cache is not None:
-            _unported_option("compile_cache", "13")
+            _unported_option("compile_cache", "13b")
         if bake_key is not None:
-            _unported_option("bake_key", "13")
+            _unported_option("bake_key", "13b")
         self.place = framework.CUDAPlace(0) if place is None else place
         self.device = self.place.torch_device()
         self._step = 0
@@ -357,6 +431,9 @@ class Executor:
         plan = self._plans.get(key)
         if plan is None or plan.version != program.version \
                 or plan.program is not program:
+            if plan is not None:
+                _M_PLAN_EVICT.inc()
+            _M_PLAN_MISSES.inc()
             plan = self._plans[key] = _Plan(program, fetch_names)
         return plan
 
@@ -397,9 +474,19 @@ class Executor:
         which keeps its tensors as they were (no op writes a scope tensor
         in place: each returns new ones)."""
         program = program or framework.default_main_program()
-        plan = self._plan_for(program, self._fetch_names(fetch_list))
+        fetch_names = self._fetch_names(fetch_list)
+        if _metrics._enabled:
+            t0 = _ns()
+            cached = self._plans.get((id(program), fetch_names))
+            plan = self._plan_for(program, fetch_names)
+            # a hit iff the lookup returned the probed plan
+            plan_ns = (t0, _ns() - t0, cached is plan)
+        else:
+            plan = self._plan_for(program, fetch_names)
+            plan_ns = None
         return self._run_plan(plan, feed or {}, scope or global_scope(),
-                              return_numpy, seed, check_nan_inf, True)
+                              return_numpy, seed, check_nan_inf, True,
+                              plan_ns)
 
     def run_n(self, program: Optional[Program] = None, feed=None,
               n: int = 1, fetch_list: Optional[List] = None,
@@ -451,18 +538,46 @@ class Executor:
             np.asarray(val, dtype=plan.feed_dtype(name)), device=self.device)
             for name, val in feed.items()}
 
+    def _observed_block(self, plan: _Plan, feed_tensors: dict, train: bool,
+                        run: Callable):
+        """``run()`` (the block) as a dispatch of ``plan``'s registry row
+        at this feed signature; a new signature is a build."""
+        from paddle_tpu_torch.core.prepared import feed_signature
+        sig = (train, feed_signature(feed_tensors))
+
+        def register():
+            _M_COMPILE.inc()
+            return _executables.register(
+                stack="fluid", kind="run_plan",
+                fingerprint=_executables.fingerprint(*plan.identity(), sig),
+                feed_sig=sig[1])
+
+        return _executables.observe(plan.exes, sig, self.device, run,
+                                    register)[1]
+
     def _run_plan(self, plan: _Plan, feed: dict, scope: Scope,
                   return_numpy: bool, seed: int, check_nan_inf: bool,
-                  train: bool):
+                  train: bool, plan_ns=None):
+        obs = _metrics._enabled
+        if obs:
+            t0 = _ns()
         env = self._persistables(plan, scope)
-        env.update(self._feed_tensors(plan, feed))
+        feed_t = self._feed_tensors(plan, feed)
+        env.update(feed_t)
         step = self._step
         self._step += 1
 
         def mk_ctx(rng_id):
             return OpRunCtx(train, self.device, seed, step, rng_id, env)
 
-        run_block(plan.block, env, mk_ctx)
+        if obs:
+            t1 = t2 = _ns()
+            ent = self._observed_block(
+                plan, feed_t, train,
+                lambda: run_block(plan.block, env, mk_ctx))
+            t3 = _ns()
+        else:
+            run_block(plan.block, env, mk_ctx)
         fetched = [env[n] for n in plan.fetch_names]
         new = {n: env[n] for n in plan.persist_out if n in env}
         if check_nan_inf:
@@ -470,9 +585,28 @@ class Executor:
                           + list(new.items()))
         for name, val in new.items():
             scope.set(name, val)
-        if return_numpy:
-            return [v.detach().cpu().numpy() for v in fetched]
-        return fetched
+        out = ([v.detach().cpu().numpy() for v in fetched] if return_numpy
+               else fetched)
+        if obs:
+            # one fused flush (see metrics.record for the span layout)
+            t_end = _ns()
+            tid = _get_ident()
+            spans = [("fluid/feed_coerce", "host", t0, t1 - t0, step, tid,
+                      None),
+                     ("fluid/dispatch", "host", t2, t3 - t2, step, tid,
+                      {"exe": ent.short})]
+            counters = [(_M_STEPS, 1)]
+            if plan_ns is not None:
+                spans.append(("fluid/plan_lookup", "host", plan_ns[0],
+                              plan_ns[1], step, tid, None))
+                if plan_ns[2]:
+                    counters.append((_M_PLAN_HITS, 1))
+            _metrics.record(counters,
+                            ((_H_FEED, (t1 - t0) / 1e3),
+                             (_H_DISPATCH, (t3 - t2) / 1e3),
+                             (_H_RUN, (t_end - t0) / 1e3)),
+                            spans, _tracing.TRACER)
+        return out
 
     # ------------------------------------------------------------ n runs
     def _stacked_feed(self, plan: _Plan, feed, n: int) -> dict:
@@ -497,12 +631,17 @@ class Executor:
         n = int(n)
         if n < 1:
             raise ValueError(f"run_n needs n >= 1, got {n}")
+        obs = _metrics._enabled
+        if obs:
+            step_id = self._step
+            t0 = _ns()
         feeds = self._stacked_feed(plan, feed, n)
         reason = ("check_nan_inf" if check_nan_inf
                   else "capture_vars" if plan.capture_vars
                   else "host_sync" if plan.host_sync else None)
         if reason is not None:
             self.run_n_standdowns[reason] += n
+            _M_RUN_N_FALLBACK[reason].inc(n)
             outs = [self._run_plan(plan, {k: v[i] for k, v in feeds.items()},
                                    scope, return_numpy, seed, check_nan_inf,
                                    train) for i in range(n)]
@@ -513,7 +652,7 @@ class Executor:
                                                     feed_signature)
 
         if self._family is None:
-            self._family = PreparedFamily(self.device)
+            self._family = PreparedFamily(self.device, stack="fluid")
         state = self._persistables(plan, scope)
         feeds = {k: torch.as_tensor(v, device=self.device)
                  for k, v in feeds.items()}
@@ -530,8 +669,10 @@ class Executor:
             entry = self._family.get(
                 kind, n, feeds, _chunk_step(plan, own, self.device, seed,
                                             train),
-                lambda: list(own.values()))
+                lambda: list(own.values()), exe_kind="run_n",
+                identity=plan.identity() + (seed, train))
             entry.fluid_state = own
+            _M_COMPILE.inc()
         # a run() between chunks rebinds the scope: its values go into
         # the chunk's tensors, which the scope then holds
         for name, t in entry.fluid_state.items():
@@ -540,9 +681,20 @@ class Executor:
             scope.set(name, t)
         self._step += n
         fetched = entry(feeds)
-        if return_numpy:
-            return [v.detach().cpu().numpy() for v in fetched]
-        return fetched
+        out = ([v.detach().cpu().numpy() for v in fetched] if return_numpy
+               else fetched)
+        if obs:
+            t_end = _ns()
+            args = {"n": n}
+            if entry.exe is not None:
+                args["exe"] = entry.exe.short
+            _metrics.record(
+                ((_M_RUN_N_CHUNKS, 1), (_M_RUN_N_STEPS, n)),
+                ((_H_RUN_N, (t_end - t0) / 1e3),),
+                (("fluid/run_n_chunk", "host", t0, t_end - t0, step_id,
+                  _get_ident(), args),),
+                _tracing.TRACER)
+        return out
 
     def _to_place(self, value) -> torch.Tensor:
         if isinstance(value, torch.Tensor):

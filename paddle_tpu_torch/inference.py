@@ -10,7 +10,7 @@ repeating its last sample and slices the padding out of every result, so
 the batch shapes stay the JAX package's.
 
 Not ported yet, and refused: ``compile_cache_dir`` (the JAX package's disk
-cache of compiled executables; ``ROADMAP.md`` section 1, item 13).
+cache of compiled executables; ``ROADMAP.md`` section 1, item 13b).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ class Inference:
         if compile_cache_dir:
             raise NotImplementedError(
                 "compile_cache_dir is not ported to paddle_tpu_torch yet "
-                "(ROADMAP.md section 1, item 13)")
+                "(ROADMAP.md section 1, item 13b)")
         outputs = (output_layer if isinstance(output_layer, (list, tuple))
                    else [output_layer])
         self.device = cfg.default_device(device)

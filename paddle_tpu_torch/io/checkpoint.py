@@ -34,8 +34,13 @@ Crash safety, as the JAX package's:
 
 Sharded payloads (``*.shard<K>.npz`` + ``.meta.json``, a multi-host JAX
 run's) are read; writing them needs a multi-host layer (``ROADMAP.md``
-section 1, item 14), so ``save`` refuses ``process_count > 1``.  The
-JAX package's checkpoint counters wait for item 13.
+section 1, item 14), so ``save`` refuses ``process_count > 1``.
+
+Telemetry (the JAX package's catalog, no-ops while it is off):
+``checkpoints_total{result}``, ``checkpoint_quarantined_total``,
+``checkpoint_reverified_total{result}`` and the background write's
+``trainer_checkpoint_save_us{phase="background_write"}``; the writer's
+lock is ``lockcheck.make_lock("io.checkpoint.writer")``.
 """
 
 from __future__ import annotations
@@ -56,6 +61,25 @@ from typing import Callable, Optional
 import numpy as np
 
 from paddle_tpu_torch.io import atomic as _atomic
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.utils import lockcheck as _lockcheck
+
+_M_CKPT = {r: _metrics.counter(
+    "checkpoints_total", "snapshot writes by result", result=r)
+    for r in ("ok", "error")}
+_M_QUARANTINED = _metrics.counter(
+    "checkpoint_quarantined_total",
+    "snapshots that failed checksum/read verification and were renamed "
+    "*.corrupt so auto-resume falls back instead of crash-looping")
+_M_REVERIFIED = {r: _metrics.counter(
+    "checkpoint_reverified_total",
+    "background scrubber re-verifications of retained step snapshots "
+    "by result (corrupt ones are quarantined at scrub time, not found "
+    "at restore time)", result=r) for r in ("ok", "corrupt")}
+_H_WRITE = _metrics.histogram(
+    "trainer_checkpoint_save_us",
+    "step-snapshot cost split by phase: hot-path hand-off vs the "
+    "background device_get + fsync'd write", phase="background_write")
 
 _SEP = "::"
 _PASS_RE = re.compile(r"^pass-(\d{5})$")
@@ -341,16 +365,24 @@ def _save_snapshot(dirname: str, name: str, manifest: dict, *, trainable,
             "paddle_tpu_torch yet (ROADMAP.md section 1, item 14)")
     final = os.path.join(dirname, name)
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)              # stale tmp from a crashed run
-    os.makedirs(tmp, exist_ok=True)
-    _savez(os.path.join(tmp, "params.npz"), trainable)
-    _savez(os.path.join(tmp, "opt_state.npz"), opt_state)
-    if model_state:
-        _savez(os.path.join(tmp, "model_state.npz"), model_state)
-    if frozen:
-        _savez(os.path.join(tmp, "frozen.npz"), frozen)
-    _finalize_snapshot(tmp, final, manifest)
+    try:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)              # stale tmp from a crashed run
+        os.makedirs(tmp, exist_ok=True)
+        _savez(os.path.join(tmp, "params.npz"), trainable)
+        _savez(os.path.join(tmp, "opt_state.npz"), opt_state)
+        if model_state:
+            _savez(os.path.join(tmp, "model_state.npz"), model_state)
+        if frozen:
+            _savez(os.path.join(tmp, "frozen.npz"), frozen)
+        _finalize_snapshot(tmp, final, manifest)
+    except BaseException as e:
+        _M_CKPT["error"].inc()
+        # the writer thread counts what this did not (each failed save
+        # counts once)
+        e._ptpu_save_counted = True
+        raise
+    _M_CKPT["ok"].inc()
     return final
 
 
@@ -432,6 +464,7 @@ def quarantine(d: str) -> str:
         # removed concurrently (pruned, or quarantined by another
         # reader): gone is as good as quarantined
         return d
+    _M_QUARANTINED.inc()
     warnings.warn(f"checkpoint {d} failed verification; quarantined to "
                   f"{target}", RuntimeWarning)
     return target
@@ -451,10 +484,12 @@ def reverify_steps(dirname: str, *, quarantine_corrupt: bool = True) -> dict:
             if not os.path.isdir(d):
                 continue
             corrupt.append(g)
+            _M_REVERIFIED["corrupt"].inc()
             if quarantine_corrupt:
                 quarantine(d)
         else:
             ok.append(g)
+            _M_REVERIFIED["ok"].inc()
     return {"ok": ok, "corrupt": corrupt}
 
 
@@ -741,7 +776,8 @@ class AsyncCheckpointWriter:
                  reverify_dir: Optional[str] = None):
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._errors: list = []
-        self._lock = threading.Lock()
+        # PADDLE_TPU_LOCKCHECK=1 swaps in the order-asserting proxy
+        self._lock = _lockcheck.make_lock("io.checkpoint.writer")
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=name)
         self._started = False
@@ -786,9 +822,13 @@ class AsyncCheckpointWriter:
             try:
                 t0 = time.perf_counter()
                 fn()
-                self.session["write_s"] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                _H_WRITE.observe(dt * 1e6)
+                self.session["write_s"] += dt
                 self.session["writes"] += 1
             except BaseException as e:
+                if not getattr(e, "_ptpu_save_counted", False):
+                    _M_CKPT["error"].inc()
                 self.session["errors"] += 1
                 with self._lock:
                     self._errors.append(e)

@@ -6,6 +6,12 @@ call made while a CUDA graph captures runs nothing, so it adds nothing to
 the counts and goes to the capture's record instead
 (``recording_launches``); each replay of that graph then adds the record
 (``add_launches``).
+
+A wrapper also reports the work of each launch (``add_work``: its
+floating-point operations, by the formula of its bound in ``PERF.md``)
+while a count is open (``recording_work``): the executable registry
+counts a program's cost over one step with it, beside
+``torch.utils.flop_counter``, which cannot see a ``ctypes`` launch.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import torch
 # the records of the captures in progress, innermost last:
 # {(wrapper, counter name): launches}
 _records: list = []
+# the work counts open (``recording_work``), innermost last: {kernel: flops}
+_work: list = []
 
 
 def _wrappers() -> dict:
@@ -123,3 +131,45 @@ def reset_launch_counts() -> None:
         for sfx in _DTYPE_COUNTS:
             if hasattr(fn, "launches_" + sfx):
                 setattr(fn, "launches_" + sfx, 0)
+
+
+def work_recording() -> bool:
+    """Whether a work count is open (a wrapper computes its work only
+    then)."""
+    return bool(_work)
+
+
+@contextlib.contextmanager
+def recording_work():
+    """Open a count of the hand kernels' work; yields ``{kernel name:
+    floating-point operations}`` of the launches made inside it."""
+    rec: dict = {}
+    _work.append(rec)
+    try:
+        yield rec
+    finally:
+        _work.remove(rec)
+
+
+def add_work(name: str, flops: float) -> None:
+    """One launch's work of kernel ``name``, into every open count."""
+    for rec in _work:
+        rec[name] = rec.get(name, 0.0) + float(flops)
+
+
+def visible_pairs(lq: int, lk: int, causal: bool, q_offset: int = 0,
+                  kv_offset: int = 0, kv_lens=None) -> float:
+    """The (query, key) pairs attention visits for one head, summed over
+    the batch: each query row sees the keys below its batch row's
+    length, and under ``causal`` only those at or before its position
+    (``q_offset + r >= kv_offset + c``).  ``kv_lens`` (one length a
+    batch row, a host sequence) defaults to full rows of one batch row."""
+    lens = [lk] if kv_lens is None else [min(int(n), lk) for n in kv_lens]
+    total = 0
+    for n in lens:
+        if not causal:
+            total += lq * n
+            continue
+        for r in range(lq):
+            total += min(max(q_offset + r - kv_offset + 1, 0), n)
+    return float(total)

@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.ops import _build, count_launch
+from paddle_tpu_torch.ops import _build, add_work, count_launch
 from paddle_tpu_torch.ops.flash_attention import _tf32x3
 from paddle_tpu_torch.ops.fused_bn import (_F32, KERNEL_DTYPES,
                                            check_operand, on_card, resolve)
@@ -214,6 +214,8 @@ def matmul_stats_cuda(x2, w2):
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "matmul_stats")
     count_launch(matmul_stats_cuda, x2.dtype)
+    # the product and the statistics' three operations an output
+    add_work("matmul_stats", 2.0 * p * ci * co + 3.0 * p * co)
     return y, s, ss
 
 
@@ -252,6 +254,8 @@ def conv3x3_stats_cuda(x4, w4):
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "conv3x3_stats")
     count_launch(conv3x3_stats_cuda, x4.dtype)
+    add_work("conv3x3_stats", 2.0 * n * h * w * 9 * ci * co
+             + 3.0 * n * h * w * co)
     return y, s, ss
 
 

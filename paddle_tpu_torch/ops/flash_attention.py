@@ -59,6 +59,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.core.config import LOG2E, NEG_INF
+from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import _build, count_launch
 
 IMPLS = ("cuda", "torch")
@@ -464,6 +465,7 @@ def flash_fwd_cuda(q, k, v, kv_lens, *, causal: bool, scale: float,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd")
     count_launch(flash_fwd_cuda, q.dtype)
+    _add_work("flash_fwd", 4.0, q, k, kv_lens, causal, q_offset, kv_offset)
     return o, lse
 
 
@@ -521,6 +523,20 @@ def _check_bwd_operands(q, k, v, g, lse, delta, kv_lens):
                          "the device of q")
 
 
+def _add_work(name, per_pair, q, k, kv_lens, causal, q_offset, kv_offset):
+    """Report a launch's work while a count is open: ``per_pair`` x D
+    operations for each visible (query, key) pair of each head (the
+    forward's two products 4 D, dK/dV's four 8 D, dQ's three 6 D; the
+    bounds of ``PERF.md``).  Reading ``kv_lens`` is the count's one host
+    read, made only while counting."""
+    if not ops.work_recording():
+        return
+    b, lq, h, d = q.shape
+    pairs = ops.visible_pairs(lq, k.shape[1], causal, int(q_offset),
+                              int(kv_offset), kv_lens.tolist())
+    ops.add_work(name, per_pair * d * h * pairs)
+
+
 def _bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset):
     """The C entries' arguments after the pointers."""
     b, lq, h, d = q.shape
@@ -554,6 +570,8 @@ def flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
         *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
     _build.check(lib, err, "flash_bwd_dkdv")
     count_launch(flash_bwd_dkdv_cuda, q.dtype)
+    _add_work("flash_bwd_dkdv", 8.0, q, k, kv_lens, causal, q_offset,
+              kv_offset)
     return dk, dv
 
 
@@ -578,6 +596,8 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, kv_lens, *, causal: bool,
         *_bwd_args(q, k, v, g, causal, scale, q_offset, kv_offset))
     _build.check(lib, err, "flash_bwd_dq")
     count_launch(flash_bwd_dq_cuda, q.dtype)
+    _add_work("flash_bwd_dq", 6.0, q, k, kv_lens, causal, q_offset,
+              kv_offset)
     return dq
 
 

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.core import config
-from paddle_tpu_torch.ops import _build, count_launch
+from paddle_tpu_torch.ops import _build, add_work, count_launch
 from paddle_tpu_torch.ops.flash_attention import check_dtype, resolve_impl
 
 JAX_IMPLS = {"pallas": None, "xla": "torch", "interpret": "torch"}
@@ -163,6 +163,8 @@ def bn_fwd_stats_cuda(x2):
         sq.data_ptr(), torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(lib, err, "bn_fwd_stats")
     count_launch(bn_fwd_stats_cuda, x2.dtype)
+    # a sum and a sum of squares: three operations an element
+    add_work("bn_fwd_stats", 3.0 * p * c)
     return s, sq
 
 
@@ -197,6 +199,8 @@ def bn_bwd_stats_cuda(dout2, x2, w, b, mean, inv, relu: bool):
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "bn_bwd_stats")
     count_launch(bn_bwd_stats_cuda, x2.dtype)
+    # the fold, the mask, xhat and the two sums: eight an element
+    add_work("bn_bwd_stats", 8.0 * p * c)
     return sdy, sdyx
 
 

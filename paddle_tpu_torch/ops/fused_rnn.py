@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from paddle_tpu_torch.ops import _build, count_launch
+from paddle_tpu_torch.ops import _build, add_work, count_launch
 from paddle_tpu_torch.ops.flash_attention import (FP16_ROW, _tf32x3,
                                                   resolve_impl)
 from paddle_tpu_torch.ops.paged_attention import _arrived
@@ -213,6 +213,8 @@ def lstm_step_cuda(x_t, h, c, w, b, m_t):
         splits, stream)
     _build.check(lib, err, "lstm_step")
     count_launch(lstm_step_cuda, x_t.dtype)
+    # h @ W, [B, H] x [H, 4H]: the product of its bound in PERF.md
+    add_work("lstm_step", 2.0 * bsz * hd * 4 * hd)
     return h_out, c_out
 
 
@@ -250,6 +252,8 @@ def gru_step_cuda(x_t, h, w_g, w_c, b, m_t):
         _vec(x_t, h, w_g, w_c, b), splits, stream)
     _build.check(lib, err, "gru_step")
     count_launch(gru_step_cuda, x_t.dtype)
+    # the gates' [H, 2H] and the candidate's [H, H] products
+    add_work("gru_step", 2.0 * bsz * hd * 3 * hd)
     return h_out
 
 

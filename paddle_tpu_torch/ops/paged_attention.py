@@ -124,6 +124,11 @@ def paged_decode_cuda(q, pk, pv, table, pos, *, scale: float,
         s, h, d, pk.shape[1], mb, g, float(scale * LOG2E), stream)
     _build.check(lib, err, "paged_decode")
     count_launch(paged_decode_cuda)
+    if ops.work_recording():
+        # two products over each row's live keys 0..pos, each head: 4 D
+        # a key (the bound of PERF.md); the read of pos only while counting
+        keys = sum(p + 1 for p in pos.tolist())
+        ops.add_work("paged_decode", 4.0 * h * d * keys)
     return out
 
 

@@ -26,6 +26,16 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import config as cfg
+from paddle_tpu_torch.observability import metrics as _metrics
+
+# the JAX package's prefetch telemetry (no-ops while telemetry is off)
+_G_DEPTH = _metrics.gauge(
+    "dataloader_queue_depth",
+    "items buffered by the background producer (native shuffle pool "
+    "samples or reader.prefetch batches; last poll)")
+_M_BATCHES = _metrics.counter(
+    "prefetch_batches_total",
+    "feed dicts staged on device by reader.prefetch_to_device")
 
 _END = object()
 # how long a blocked put waits before it looks at the stop flag again
@@ -88,6 +98,7 @@ def prefetch_to_device(batch_iter_fn, depth: int = 2, device=None):
                     if stop.is_set() or not put(_to_device(feed, dev,
                                                            stream)):
                         return
+                    _G_DEPTH.set(q.qsize())
             except BaseException as e:  # re-raised in the consumer
                 put(_ProducerError(e))
             else:
@@ -99,10 +110,12 @@ def prefetch_to_device(batch_iter_fn, depth: int = 2, device=None):
         try:
             while True:
                 item = q.get()
+                _G_DEPTH.set(q.qsize())
                 if item is _END:
                     break
                 if isinstance(item, _ProducerError):
                     raise item.exc
+                _M_BATCHES.inc()
                 feed, event = item
                 if event is not None:
                     cur = torch.cuda.current_stream(dev)

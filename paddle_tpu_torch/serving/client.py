@@ -38,9 +38,15 @@ policy every caller would otherwise hand-roll (and get wrong):
   the whole call off.  A replica that dies mid-call (connection reset,
   response truncated mid-read) fails over the same way — zero untyped
   errors.  Calls rotate their starting endpoint round-robin.
-* **Tracing** (the JAX client's ``trace_sample=``) is not ported:
-  ``trace_sample`` set raises ``NotImplementedError`` until
-  ``observability/tracectx`` is (``ROADMAP.md`` §1 item 13).
+* **Distributed tracing** (``trace_sample=``, or the
+  ``PADDLE_TPU_TRACE_SAMPLE`` environment variable): each call mints a
+  ``TraceContext`` (trace id and head-sampling verdict) and carries it
+  in ``X-Ptpu-Trace`` on every attempt, so router and replica spans
+  join the same trace (failovers included); a kept trace's spans
+  (``client/infer`` and one ``client/attempt`` an attempt) are pushed,
+  off the latency path, to the ``POST /trace`` collector of the last
+  endpoint that answered, so the router's ``/trace/<id>`` shows the
+  client's side of the timeline.
 
 Transport is pluggable (``transport=``): the default speaks
 ``urllib.request`` over HTTP; tests and in-process benches inject a
@@ -60,11 +66,13 @@ from __future__ import annotations
 import http.client
 import itertools
 import json
+import os
 import random
 import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Union
 
+from paddle_tpu_torch.observability import tracectx as _tracectx
 from paddle_tpu_torch.serving.engine import (DeadlineExceeded, Overloaded,
                                              ServingError)
 
@@ -211,11 +219,24 @@ class ServingClient:
         self._sem = (threading.BoundedSemaphore(max_concurrency)
                      if max_concurrency and max_concurrency > 0 else None)
         self.max_concurrency = int(max_concurrency or 0)
-        if trace_sample is not None:
-            raise NotImplementedError(
-                "ServingClient(trace_sample=...) is not ported to "
-                "paddle_tpu_torch yet: ROADMAP.md §1 item 13 (tracing)")
-        self.trace_sample = None
+        # distributed tracing: off unless asked for (the knob or
+        # PADDLE_TPU_TRACE_SAMPLE); off, no header is sent and nothing
+        # is allocated a call
+        if trace_sample is None:
+            env = os.environ.get(_tracectx.ENV_SAMPLE)
+            try:
+                trace_sample = float(env) if env else None
+            except ValueError:
+                # a garbage host-wide variable must not make every client
+                # unconstructable: untraced, loudly
+                import warnings
+
+                warnings.warn(
+                    f"ignoring non-numeric {_tracectx.ENV_SAMPLE}="
+                    f"{env!r} (tracing stays off)")
+                trace_sample = None
+        self.trace_sample = trace_sample
+        self._recorder = _tracectx.make_recorder(trace_sample, None)
         # session counters (informational; lock-guarded, read via stats)
         self._stats_lock = threading.Lock()
         self.session = {"requests": 0, "attempts": 0, "retries": 0,
@@ -327,23 +348,60 @@ class ServingClient:
         deadline = (clock() + deadline_s
                     if deadline_s is not None else None)
         self._count("requests")
+        trace = None
+        if self._recorder is not None:
+            # the outermost tracing edge: the trace id and sampling
+            # verdict are minted here and ride every attempt
+            args = {} if tenant is None else {"tenant": tenant}
+            trace = _tracectx.SpanBuffer(
+                _tracectx.mint(self.trace_sample), "client/infer",
+                role="client", **args)
+            t_req0 = time.perf_counter()
         if self._sem is not None:
             budget = (None if deadline is None
                       else max(0.0, deadline - clock()))
             if not self._sem.acquire(timeout=budget):
                 self._count("deadline_exceeded")
+                self._trace_done(trace, "deadline")
                 raise DeadlineExceeded(
                     f"deadline ({deadline_s:g}s) exhausted waiting for "
                     f"a client concurrency slot "
                     f"(max_concurrency={self.max_concurrency})")
         try:
-            return self._infer_retrying(doc, deadline, deadline_s, as_numpy)
+            out = self._infer_retrying(doc, deadline, deadline_s,
+                                       as_numpy, trace)
+        except Overloaded:
+            self._trace_done(trace, "shed")
+            raise
+        except DeadlineExceeded:
+            self._trace_done(trace, "deadline")
+            raise
+        except Exception as e:
+            self._trace_done(trace, "error", error=repr(e))
+            raise
+        else:
+            if trace is not None:
+                self._trace_done(trace, "ok", latency_us=round(
+                    (time.perf_counter() - t_req0) * 1e6, 1))
+            return out
         finally:
             if self._sem is not None:
                 self._sem.release()
 
+    def _trace_done(self, trace, outcome: str, **args) -> None:
+        """Close a call's span buffer; a kept trace (head-sampled or
+        anomalous) publishes locally and is pushed to the ``/trace``
+        collector of the endpoint that last answered (never the dead
+        one a failover left)."""
+        rec = self._recorder
+        if rec is None or trace is None:
+            return
+        if rec.finish(trace, outcome, **args):
+            _tracectx.push_spans(trace.push_url or self.endpoints[0],
+                                 trace.spans)
+
     def _infer_retrying(self, doc: dict, deadline, deadline_s,
-                        as_numpy: bool):
+                        as_numpy: bool, trace=None):
         clock = self._clock
         eps = self.endpoints
         n_ep = len(eps)
@@ -394,6 +452,8 @@ class ServingClient:
                 if n_ep > 1 and eps[idx] != prev_url:
                     self._count("failovers")
                     self._count_ep(eps[idx], "failovers")
+                    if trace is not None:
+                        trace.event("client/failover", endpoint=eps[idx])
                 if deadline is not None:
                     # re-check AFTER the sleep: a scheduler overshoot
                     # can land past the deadline, and a negative
@@ -417,6 +477,13 @@ class ServingClient:
             prev_url = eps[idx]
             self._count_ep(prev_url, "attempts")
             req_headers = {"Content-Type": "application/json"}
+            if trace is not None:
+                # the attempt span's id rides the header, so the next
+                # hop's spans parent under this attempt
+                att_id = _tracectx.new_span_id()
+                req_headers[_tracectx.HEADER] = \
+                    trace.ctx.child(att_id).to_header()
+                t_att0 = time.perf_counter_ns()
             try:
                 status, headers, payload = self._transport(
                     prev_url + "/infer", body, req_headers, timeout)
@@ -424,6 +491,16 @@ class ServingClient:
                 status, headers, payload = None, {}, None
                 last = (None, repr(e))
                 self._count_ep(prev_url, "connect_errors")
+            if trace is not None:
+                trace.add_span(
+                    "client/attempt", t_att0,
+                    time.perf_counter_ns() - t_att0, span_id=att_id,
+                    endpoint=prev_url,
+                    status=status if status is not None
+                    else "connect_error")
+                if status is not None:
+                    # the last endpoint that answered gets the push
+                    trace.push_url = prev_url
             if status is not None:
                 self._count_status(status)
                 try:

@@ -82,16 +82,27 @@ watcher's check; HMAC-signed with ``reload_key``, else 403), ``GET
 count).  ``serving.client`` is the caller's half of the contract,
 ``serving.router`` the fleet's front.
 
+``serve`` mounts these on ``observability.sinks.serve_metrics``, so one
+server also answers ``/metrics`` (Prometheus text of the JAX engine's
+``serving_*`` and ``serving_decode_*`` catalog), ``/metrics.json``,
+``/executables`` (each decoder iteration kind and whole-forward bucket,
+with its device time) and, with tracing on, ``/trace`` and
+``/trace/<id>``.  Tracing (``trace_sample=``, ``telemetry_dir=``,
+``submit(trace=)``) follows the JAX engine: an ``X-Ptpu-Trace`` header
+is honoured or minted at ``/infer``, the engine's queue-wait, prefill
+and decode spans go into the request's span buffer, and the tail-based
+flight recorder keeps sampled and anomalous traces
+(``<telemetry_dir>/flight-<pid>.jsonl``).  The locks are
+``lockcheck.make_lock`` with the JAX engine's class names.
+
 Not ported (each keyword raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item when set): tracing and ``/metrics`` (item 8.4, with
-item 13), mesh slices (item 8.5, with item 14), the compile cache and
-``prewarm`` (item 8.6, with item 13).
+``ROADMAP.md`` item when set): mesh slices (item 8.5, with item 14), the
+compile cache and ``prewarm`` (item 8.6, with item 13b).
 """
 
 from __future__ import annotations
 
 import heapq
-import inspect
 import json
 import math
 import queue
@@ -102,7 +113,6 @@ import weakref
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -111,7 +121,11 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.inference import Inference, bucket_rows
+from paddle_tpu_torch.observability import executables as _executables
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import tracectx as _tracectx
 from paddle_tpu_torch.serving.blocks import KVPoolExhausted
+from paddle_tpu_torch.utils import lockcheck as _lockcheck
 
 LANES = ("high", "normal")
 SHED_REASONS = ("queue_full", "tenant_quota", "breaker_open", "deadline",
@@ -126,15 +140,141 @@ SLOT_FREE_REASONS = ("finished", "deadline", "abandoned", "error",
                      "drain", "kv_blocks")
 DEFAULT_TENANT = "default"
 
-_TRACING = "ROADMAP.md §1 item 13 (tracing; the serving part is item 8.4)"
+# The JAX engine's serving catalog (no-ops while telemetry is off; the
+# mesh-slice pair waits for item 8.5).
+_G_QUEUE = _metrics.gauge(
+    "serving_queue_depth", "requests waiting for the batcher")
+_G_LANE = {lane: _metrics.gauge(
+    "serving_lane_depth",
+    "requests waiting in one intake lane", lane=lane) for lane in LANES}
+_C_REQS = _metrics.counter(
+    "serving_requests_total", "requests accepted by submit()")
+_C_ROWS = _metrics.counter(
+    "serving_rows_total", "sample rows across accepted requests")
+_C_ERRS = _metrics.counter(
+    "serving_request_errors_total",
+    "requests failed (bad feed, forward error, engine shutdown)")
+_C_SHED = {reason: _metrics.counter(
+    "serving_shed_total",
+    "requests shed by overload protection, by reason",
+    reason=reason) for reason in SHED_REASONS}
+_C_GOODPUT = _metrics.counter(
+    "serving_goodput_total",
+    "requests completed within their deadline (or with none)")
+_C_TENANT_OVERFLOW = _metrics.counter(
+    "serving_tenant_overflow_total",
+    "first-seen tenant ids past max_tenants collapsed onto the "
+    "default record (untrusted-id cardinality cap)")
+_C_CREDIT = _metrics.counter(
+    "serving_lane_credit_pops_total",
+    "normal-lane pops forced by the anti-starvation credit while the "
+    "high lane was non-empty")
+_C_BATCHES = _metrics.counter(
+    "serving_batches_total", "micro-batches dispatched (one forward each)")
+_H_BATCH = _metrics.histogram(
+    "serving_batch_rows", "real rows per dispatched micro-batch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+_H_WASTE = _metrics.histogram(
+    "serving_padding_waste_pct",
+    "pad rows as % of the bucket's rows, per micro-batch",
+    buckets=(0, 1, 2, 5, 10, 15, 20, 30, 40, 50, 75, 100))
+_H_REQ = _metrics.histogram(
+    "serving_request_us",
+    "end-to-end request latency: submit() to future resolution")
+_H_SLACK = _metrics.histogram(
+    "serving_deadline_slack_us",
+    "deadline minus completion time for delivered requests that carried "
+    "one (clamped at 0: a 0 observation is a late delivery)")
+_G_P50 = _metrics.gauge(
+    "serving_request_us_p50",
+    "rolling p50 of serving_request_us (last 2048 requests)")
+_G_P99 = _metrics.gauge(
+    "serving_request_us_p99",
+    "rolling p99 of serving_request_us (last 2048 requests)")
+_G_WAIT_SCALE = _metrics.gauge(
+    "serving_wait_scale",
+    "current overload multiplier on max_wait_us (1.0 = nominal)")
+_G_SLOTS = _metrics.gauge(
+    "serving_decode_slots_occupied",
+    "KV-cache slots holding a resident sequence (continuous-batching "
+    "decode; sampled per iteration)")
+_C_SLOT_ALLOC = _metrics.counter(
+    "serving_decode_slot_allocs_total",
+    "KV slots allocated — one per admitted sequence reaching prefill")
+_C_SLOT_FREE = {reason: _metrics.counter(
+    "serving_decode_slot_frees_total",
+    "KV slots returned to the free list, by reason",
+    reason=reason) for reason in SLOT_FREE_REASONS}
+_C_ITER = _metrics.counter(
+    "serving_decode_iterations_total",
+    "decode iterations — one forward over the resident slot set each")
+_C_TOKENS = _metrics.counter(
+    "serving_decode_tokens_total",
+    "tokens emitted for resident sequences (useful work per iteration)")
+_H_TTFT = _metrics.histogram(
+    "serving_decode_ttft_us",
+    "time to first token: submit() to the prefill that emits it")
+_H_STEP = _metrics.histogram(
+    "serving_decode_step_us",
+    "wall time of one decode iteration (step dispatch + host sync)")
+# ---- paged KV (PagedDecoder)
+_C_PREFIX_HITS = _metrics.counter(
+    "serving_prefix_hits_total",
+    "admitted sequences whose prompt prefix was served from the "
+    "paged-KV prefix cache (>= 1 block skipped prefill)")
+_C_PREFIX_SHARED = _metrics.counter(
+    "serving_prefix_blocks_shared",
+    "prompt KV blocks served from the prefix cache instead of "
+    "recomputed (cumulative, across admitted sequences)")
+_G_KV_BLOCKS = _metrics.gauge(
+    "serving_kv_pool_blocks_used",
+    "paged-KV pool blocks holding live (refcounted) sequence data; "
+    "sampled per iteration")
+_G_KV_UTIL = _metrics.gauge(
+    "serving_kv_cache_utilization_pct",
+    "live paged-KV blocks as % of pool capacity; sampled per "
+    "iteration")
+_C_RELOADS = {result: _metrics.counter(
+    "serving_reloads_total",
+    "zero-downtime weight-update outcomes, by result",
+    result=result) for result in RELOAD_RESULTS}
+_C_RELOAD_UNAUTH = _metrics.counter(
+    "serving_reload_unauthorized_total",
+    "POST /reload pushes refused for a missing or mismatched HMAC key "
+    "(typed 403; --reload_key_file)")
+_H_SWAP = _metrics.histogram(
+    "serving_swap_pause_us",
+    "hot-swap apply pause: the version-pointer flip for whole-forward "
+    "engines, the resident-sequence drain wait for decode engines")
+
+
+def _model_version_gauge(version: str):
+    """Info gauge: 1 on the ACTIVE version's label, 0 on every other
+    resident (prev/canary/retired) version — the fleet-visible 'what
+    is this replica serving' signal."""
+    return _metrics.gauge(
+        "serving_model_version",
+        "1 for the version currently serving untagged traffic, 0 for "
+        "other resident versions", version=version)
+
+
+def _tenant_depth_gauge(tenant: str):
+    """Per-tenant backlog gauge, created lazily the first time a tenant
+    appears (the registry is idempotent per label set)."""
+    return _metrics.gauge(
+        "serving_tenant_depth",
+        "requests a tenant has admitted but not yet resolved "
+        "(queued + in a dispatched batch)", tenant=tenant)
+
+
+
 _MESH = "ROADMAP.md §1 item 14 (parallel; the serving part is item 8.5)"
-_CACHE = ("ROADMAP.md §1 item 13 (the compile cache; the serving part, "
+_CACHE = ("ROADMAP.md §1 item 13b (the compile cache; the serving part, "
           "prewarm, is item 8.6)")
 # keyword -> (its JAX default, the ROADMAP item that ports it)
 _UNPORTED = {
     "mesh": (None, _MESH), "mesh_slices": (0, _MESH),
     "mesh_rules": (None, _MESH),
-    "trace_sample": (None, _TRACING), "telemetry_dir": (None, _TRACING),
     "compile_cache_dir": (None, _CACHE),
 }
 
@@ -212,11 +352,12 @@ def _bucket_rows(n: int, buckets) -> int:
 class _Request:
     __slots__ = ("prompt", "samples", "rows", "cost", "future", "t_submit",
                  "deadline", "lane", "tenant", "tstate", "probe",
-                 "abandoned", "sampling", "version", "__weakref__")
+                 "abandoned", "sampling", "version", "trace",
+                 "__weakref__")
 
     def __init__(self, prompt, cost, future, t_submit, deadline, lane,
                  tenant, tstate, probe=False, sampling=None, samples=None,
-                 rows=1, version=None):
+                 rows=1, version=None, trace=None):
         self.prompt = prompt              # decode: the prompt's token ids
         self.samples = samples            # whole forwards: sample tuples
         self.rows = rows
@@ -236,6 +377,8 @@ class _Request:
         # the model version this request resolved against: at submit
         # (whole forwards) or at prefill (decode)
         self.version = version
+        # distributed tracing: the request's tracectx.SpanBuffer, or None
+        self.trace = trace
 
 
 class _ModelVersion:
@@ -318,10 +461,11 @@ class _PagedJoin:
     """A sequence mid-prefill: its prompt's chunks run one per mixed
     iteration from ``written`` (the prefix-cache match) on."""
 
-    __slots__ = ("req", "slot", "written")
+    __slots__ = ("req", "slot", "written", "t_pre0")
 
     def __init__(self, req, slot, matched):
         self.req, self.slot, self.written = req, slot, matched
+        self.t_pre0 = 0       # its first chunk's start (a traced request)
 
 
 _BR_CLOSED, _BR_OPEN, _BR_HALF_OPEN = "closed", "open", "half_open"
@@ -335,12 +479,13 @@ class _Tenant:
     __slots__ = ("name", "weight", "lock", "depth", "shedding", "br_state",
                  "br_window", "br_errors", "br_opened_at",
                  "br_probe_inflight", "br_probe_at", "goodput", "requests",
-                 "shed", "errors", "lat_us")
+                 "shed", "errors", "lat_us", "gauge")
 
     def __init__(self, name: str, weight: float, window: int):
         self.name = name
+        self.gauge = _tenant_depth_gauge(name)
         self.weight = float(weight)
-        self.lock = threading.Lock()
+        self.lock = _lockcheck.make_lock("serving.engine.tenant")
         self.depth = 0                 # admitted, not yet resolved
         self.shedding = False
         self.br_state = _BR_CLOSED
@@ -472,13 +617,6 @@ class _Lane:
         return out
 
 
-class _HTTPServer(ThreadingHTTPServer):
-    # a flood of callers must queue in the listen backlog, not be reset
-    # (socketserver's default backlog is 5)
-    request_queue_size = 1024
-    daemon_threads = True
-
-
 class InferenceEngine:
     """``InferenceEngine(output_layer, parameters)`` (or ``inference=``)
     serves whole forwards; ``InferenceEngine(decoder)`` (a
@@ -527,8 +665,7 @@ class InferenceEngine:
             # a decoder in the first position
             decoder, output_layer = output_layer, None
         given = dict(mesh=mesh, mesh_slices=mesh_slices,
-                     mesh_rules=mesh_rules, trace_sample=trace_sample,
-                     telemetry_dir=telemetry_dir,
+                     mesh_rules=mesh_rules,
                      compile_cache_dir=compile_cache_dir)
         for kw, value in given.items():
             default, item = _UNPORTED[kw]
@@ -667,7 +804,8 @@ class InferenceEngine:
                                len(tenant_weights or {}) + 1)
         self._quanta: Dict[str, float] = dict(self.tenant_weights)
         self._tenants: Dict[str, _Tenant] = {}
-        self._tenant_make_lock = threading.Lock()
+        self._tenant_make_lock = _lockcheck.make_lock(
+            "serving.engine.tenant_make")
 
         # ---- model versions: the active one, the previous one (the
         # rollback target) and an optional canary stay resident
@@ -682,7 +820,8 @@ class InferenceEngine:
         if isinstance(reload_key, str):
             reload_key = reload_key.encode()
         self._reload_key = reload_key or None
-        self._version_lock = threading.Lock()
+        self._version_lock = _lockcheck.make_lock(
+            "serving.engine.version")
         self._watcher = None
         vals0 = (decoder.values() if decoder is not None
                  else inference.parameters.values)
@@ -693,6 +832,7 @@ class InferenceEngine:
                              window=self._canary_window)
         self._versions: Dict[str, _ModelVersion] = {ver0.id: ver0}
         self._version_active = ver0.id
+        _model_version_gauge(ver0.id).set(1)
         self._version_prev: Optional[str] = None
         self._version_canary: Optional[str] = None
         self._bad_versions: set = set()   # ids a watcher must not re-install
@@ -716,9 +856,9 @@ class InferenceEngine:
         self._delivering = ()              # the batch delivery holds
         # orders submit's {closed check, put} against close's {set closed,
         # put sentinel}: a request put under it is ahead of the sentinel
-        self._close_lock = threading.Lock()
-        self._err_lock = threading.Lock()
-        self._stats_lock = threading.Lock()
+        self._close_lock = _lockcheck.make_lock("serving.engine.close")
+        self._err_lock = _lockcheck.make_lock("serving.engine.err")
+        self._stats_lock = _lockcheck.make_lock("serving.engine.stats")
         self.session = {"requests": 0, "rows": 0, "errors": 0,
                         "batches": 0, "padded_rows": 0, "batched_rows": 0,
                         "goodput": 0, "lane_credit_pops": 0,
@@ -744,6 +884,16 @@ class InferenceEngine:
         self._swap_pauses_us: deque = deque(maxlen=256)
         self._t_start = time.perf_counter()
         self._bound_port = 0
+        # distributed tracing: inert unless trace_sample= or
+        # telemetry_dir= is given (the off path allocates nothing a
+        # request).  On, every /infer request carries a
+        # tracectx.SpanBuffer; head-sampled traces and anomalous ones
+        # (shed, error, deadline, slow) are kept by the tail-based
+        # flight recorder
+        self._flight = _tracectx.make_recorder(trace_sample, telemetry_dir)
+        self._trace_role = "replica"      # the fleet-facing span role
+        # the decoder iteration's registry rows, by kind (telemetry)
+        self._step_exes: dict = {}
         # (t_done, n) per delivery; _rps feeds Retry-After
         self._done_log: deque = deque(maxlen=256)
         self._rps = 0.0
@@ -813,6 +963,7 @@ class InferenceEngine:
                     if (len(self._tenants) >= self.max_tenants
                             and name not in self.tenant_weights):
                         self.session["tenant_overflow"] += 1
+                        _C_TENANT_OVERFLOW.inc()
                         return self._tenants[DEFAULT_TENANT]
                     weight = self.tenant_weights.get(name, 1.0)
                     self._quanta.setdefault(name, weight)
@@ -1077,10 +1228,29 @@ class InferenceEngine:
     def _note_swap(self, version: str, pause_s: float,
                    result: str = "swapped") -> None:
         """Count one applied swap or rollback and keep its pause."""
+        self._version_gauges()
         with self._err_lock:
             self.session["reloads"][result] += 1
+        _C_RELOADS[result].inc()
+        _H_SWAP.observe(pause_s * 1e6)
         with self._stats_lock:
             self._swap_pauses_us.append(pause_s * 1e6)
+        if self._flight is not None:
+            # a weight swap is an operational event worth a timeline row
+            trace = _tracectx.SpanBuffer(_tracectx.mint(1.0), "engine/swap",
+                                         role=self._trace_role)
+            trace.add_span("engine/swap", time.perf_counter_ns()
+                           - int(pause_s * 1e9), int(pause_s * 1e9),
+                           version=version, result=result)
+            self._flight.finish(trace, "ok", version=version)
+
+    def _version_gauges(self) -> None:
+        """``serving_model_version``: 1 on the active version, 0 on the
+        other resident ones."""
+        with self._version_lock:
+            active, vids = self._version_active, list(self._versions)
+        for vid in vids:
+            _model_version_gauge(vid).set(1 if vid == active else 0)
 
     def _resolve_version(self, pinned: Optional[str]) -> str:
         """Submit-time resolution: a pin names a resident version (or
@@ -1155,6 +1325,7 @@ class InferenceEngine:
         if breached:
             with self._err_lock:
                 self.session["reloads"]["rolled_back"] += 1
+                _C_RELOADS["rolled_back"].inc()
         elif promoted and self._promote(ver, only_if_canary=True):
             self._note_swap(ver, 0.0)
 
@@ -1289,11 +1460,8 @@ class InferenceEngine:
         pins a resident model version (``"prev"``: the rollback target;
         decode: only the active one).  ``temperature`` / ``top_k`` /
         ``top_p`` / ``seed`` sample on a ``sampling=True`` decoder; the
-        stream is deterministic in (seed, position)."""
-        if trace is not None:
-            raise NotImplementedError(
-                f"submit(trace=...) is not ported to paddle_tpu_torch yet: "
-                f"{_TRACING}")
+        stream is deterministic in (seed, position).  ``trace`` (a
+        ``tracectx.SpanBuffer``) collects the request's engine spans."""
         fut: Future = Future()
         prompt = sampling = None
         if self._decoder is not None:
@@ -1423,12 +1591,13 @@ class InferenceEngine:
             return fut
         req = _Request(prompt, cost, fut, t, deadline, lane, tenant, ts,
                        probe=probe, sampling=sampling, samples=samples,
-                       rows=rows, version=ver)
+                       rows=rows, version=ver, trace=trace)
         if ver is not None:
             fut._ptt_model_version = ver
         with ts.lock:
             ts.depth += 1
             ts.requests += 1
+            ts.gauge.set(ts.depth)
         # weak: a strong ref would close a future <-> request cycle
         fut._ptt_request = weakref.ref(req)
         with self._close_lock:
@@ -1478,10 +1647,12 @@ class InferenceEngine:
     def _count_error(self, n: int = 1) -> None:
         with self._err_lock:
             self.session["errors"] += n
+        _C_ERRS.inc(n)
 
     def _count_shed(self, reason: str, n: int = 1) -> None:
         with self._err_lock:
             self.session["shed"][reason] += n
+        _C_SHED[reason].inc(n)
 
     def _note_done(self, t_done: float, n: int) -> None:
         """A delivery into the rolling requests/s behind ``retry_after_s``
@@ -1530,9 +1701,14 @@ class InferenceEngine:
         if ts is not None:
             with ts.lock:
                 ts.depth -= 1
+                ts.gauge.set(ts.depth)
         return True
 
     def _fail(self, r: _Request, exc: Exception, reason: str) -> None:
+        if r.trace is not None:
+            # the shed marker before the resolve wakes the waiter that
+            # finishes (and may publish) the request's span buffer
+            r.trace.event("engine/shed", reason=reason)
         if self._resolve(r, exc=exc):
             self._count_shed(reason)
 
@@ -1595,6 +1771,7 @@ class InferenceEngine:
                 self._lane_credit = 0
                 with self._err_lock:
                     self.session["lane_credit_pops"] += 1
+                    _C_CREDIT.inc()
             elif hi.n:
                 r = hi.popleft()
                 if r is None:
@@ -1644,6 +1821,7 @@ class InferenceEngine:
                                    self._wait_scale * 1.5)
         elif self._wait_scale > 1.0:
             self._wait_scale = max(1.0, self._wait_scale * 0.75)
+        _G_WAIT_SCALE.set(round(self._wait_scale, 2))
 
     def _collect(self) -> Optional[List[_Request]]:
         """Block until a micro-batch is due: ``max_batch`` rows, the
@@ -1810,6 +1988,14 @@ class InferenceEngine:
         self._inflight = ()
 
     def _run_batch_inner(self, batch: List[_Request]) -> None:
+        if self._flight is not None:
+            # board time closes each traced request's queue-wait span
+            t_board = time.perf_counter_ns()
+            for r in batch:
+                if r.trace is not None:
+                    t0 = int(r.t_submit * 1e9)
+                    r.trace.add_span("engine/queue_wait", t0, t_board - t0,
+                                     lane=r.lane, tenant=r.tenant)
         # one feed conversion over the coalesced padded samples; on
         # failure re-probe per request, so only the poison request fails
         (samples, real, bucket, seq_pad, real_cells,
@@ -1841,8 +2027,18 @@ class InferenceEngine:
         try:
             # the launch is asynchronous on the card; the delivery thread
             # pays the copy to the host
-            out = self._inf.run_feed(feed, params=vals)
+            t_fwd0 = (time.perf_counter_ns()
+                      if self._flight is not None else 0)
+            out = self._observed_forward(
+                (bucket, seq_pad), lambda: self._inf.run_feed(feed,
+                                                              params=vals))
             devs = [out[n] for n in self.output_names]
+            if self._flight is not None:
+                dur = time.perf_counter_ns() - t_fwd0
+                for r in batch:
+                    if r.trace is not None:
+                        r.trace.add_span("engine/forward", t_fwd0, dur,
+                                         rows=real, bucket=bucket)
             with self._stats_lock:
                 # the 2-D key (rows, padded T) with seqlen buckets
                 self._buckets_used.add(
@@ -1854,6 +2050,11 @@ class InferenceEngine:
         sess["requests"] += len(batch)
         sess["rows"] += real
         sess["batches"] += 1
+        if _metrics._enabled:
+            _metrics.record(
+                ((_C_BATCHES, 1), (_C_REQS, len(batch)), (_C_ROWS, real)),
+                ((_H_BATCH, real),
+                 (_H_WASTE, (bucket - real) / bucket * 100.0)))
         sess["batched_rows"] += real
         sess["padded_rows"] += bucket - real
         sess["real_cells"] += real_cells
@@ -1892,6 +2093,8 @@ class InferenceEngine:
                 return
             devs, batch = item
             self._delivering = batch
+            t_del0 = (time.perf_counter_ns()
+                      if self._flight is not None else 0)
             try:
                 host = [d.detach().cpu().numpy() for d in devs]
             except Exception as e:            # noqa: BLE001 - isolate
@@ -1900,6 +2103,14 @@ class InferenceEngine:
                 self._delivering = ()
                 continue
             t_done = time.perf_counter()
+            if self._flight is not None:
+                # the copy to the host, recorded before the resolves wake
+                # the waiters that finish the buffers
+                dur = time.perf_counter_ns() - t_del0
+                for r in batch:
+                    if r.trace is not None:
+                        r.trace.add_span("engine/delivery", t_del0, dur,
+                                         rows=r.rows)
             off = good = 0
             for r in batch:
                 try:
@@ -1930,6 +2141,20 @@ class InferenceEngine:
                     self._lat_us.append(v)
                     r.tstate.lat_us.append(v)
                 self._note_done(t_done, len(batch))
+                lat = sorted(self._lat_us) if _metrics._enabled else None
+            if lat is not None:
+                _metrics.record(
+                    ((_C_GOODPUT, good),),
+                    tuple((_H_REQ, (t_done - r.t_submit) * 1e6)
+                          for r in batch)
+                    + tuple((_H_SLACK, max(0.0, (r.deadline - t_done)
+                                           * 1e6))
+                            for r in batch if r.deadline is not None))
+                _G_P50.set(round(_pctile(lat, 0.50), 1))
+                _G_P99.set(round(_pctile(lat, 0.99), 1))
+                _G_QUEUE.set(self.queue_depth())
+                _G_LANE["high"].set(len(self._lane_high))
+                _G_LANE["normal"].set(len(self._lane_normal))
 
     # ------------------------------------------------- slot bookkeeping
     def _slot_free(self, holder: dict, slot: int, reason: str) -> None:
@@ -1946,6 +2171,7 @@ class InferenceEngine:
         except ValueError:                # already freed
             return
         self.session["slot_frees"] += 1
+        _C_SLOT_FREE[reason].inc()
 
     def _batch_fault(self, holders, e: Exception) -> None:
         """A fault in a forward or a prefill: the caches every resident
@@ -2017,9 +2243,18 @@ class InferenceEngine:
         return False
 
     def _first_token(self, active, r: _Request, slot: int, first: int,
-                     t_first: float) -> None:
+                     t_first: float, t_pre0: int = 0) -> None:
+        ttft = (t_first - r.t_submit) * 1e6
+        if r.trace is not None:
+            t0 = int(r.t_submit * 1e9)
+            r.trace.add_span("engine/queue_wait", t0, t_pre0 - t0,
+                             lane=r.lane, tenant=r.tenant)
+            r.trace.add_span("engine/prefill", t_pre0,
+                             time.perf_counter_ns() - t_pre0,
+                             slot=slot, ttft_us=round(ttft, 1))
         with self._stats_lock:
-            self._ttft_us.append((t_first - r.t_submit) * 1e6)
+            self._ttft_us.append(ttft)
+        _H_TTFT.observe(ttft)
         seq = _DecodeSeq(r, slot, len(r.prompt), int(first))
         active[slot] = seq
         # the first token can already finish the sequence
@@ -2042,14 +2277,24 @@ class InferenceEngine:
         """Retire one finished sequence: resolve its future, free its
         slot, refund the WFQ deficit an early finish left unused."""
         r = seq.req
+        if r.trace is not None:
+            # the whole generation, closed before the resolve wakes the
+            # waiter that publishes the buffer
+            t0 = int(r.t_submit * 1e9)
+            r.trace.add_span("engine/decode", t0, int(t_done * 1e9) - t0,
+                             slot=slot, generated=len(seq.out))
         delivered = self._resolve(r, np.asarray(seq.out, np.int32))
         self._slot_free(active, slot, "finished")
         sess = self.session
         sess["requests"] += 1
         sess["rows"] += 1
+        if _metrics._enabled:
+            _metrics.record(((_C_REQS, 1), (_C_ROWS, 1)),
+                            ((_H_REQ, (t_done - r.t_submit) * 1e6),))
         if delivered:
             if r.deadline is None or t_done <= r.deadline:
                 sess["goodput"] += 1
+                _C_GOODPUT.inc()
                 r.tstate.goodput += 1
             self._tenant_outcome(r, False)
             self._version_outcome(r, False)
@@ -2107,23 +2352,75 @@ class InferenceEngine:
         for slot, seq in active.items():
             tokens[slot] = seq.last
             pos[slot] = seq.pos
+        t0 = time.perf_counter()
         try:
-            nxt = dec.step(m, tokens, pos)
+            nxt = self._observed(
+                "decode_step", lambda: dec.step(m, tokens, pos))
         except Exception as e:            # noqa: BLE001 - a batch fault
             self._batch_fault((active,), e)
             return False
         t_done = time.perf_counter()
         n_active = len(active)
+        b = _bucket_rows(m, dec.step_buckets)
         sess = self.session
         sess["iterations"] += 1
         sess["tokens"] += n_active
-        sess["slot_steps"] += _bucket_rows(m, dec.step_buckets)
+        sess["slot_steps"] += b
         # each resident owns a whole [max_len] slab row
         sess["kv_cells_live"] += sum(s.pos for s in active.values())
         sess["kv_cells_alloc"] += n_active * dec.max_len
         self._advance(active, nxt, t_done)
         self._inflight = tuple(seq.req for seq in active.values())
+        if _metrics._enabled:
+            self._observe_iteration(t0, t_done, b, n_active, active)
         return False
+
+    def _observed(self, kind: str, step):
+        """``step()`` (one decoder iteration) as a dispatch of the
+        decoder's ``serving`` / ``kind`` registry row while telemetry is
+        on: its first such call is the row's build, counted for its
+        cost; each call is timed by a CUDA event pair."""
+        if not _metrics._enabled:
+            return step()
+        dec = self._decoder
+        return _executables.observe(
+            self._step_exes, kind, dec.device, step,
+            lambda: _executables.register(
+                stack="serving", kind=kind,
+                fingerprint=_executables.fingerprint(
+                    type(dec).__name__, kind, dec.max_slots,
+                    dec.max_len, str(dec.device)),
+                feed_sig=f"slots={dec.max_slots} max_len={dec.max_len}"))[0]
+
+    def _observed_forward(self, key, forward):
+        """One whole forward as a dispatch of its (rows, T) bucket's
+        ``serving`` / ``forward`` registry row while telemetry is on (the
+        first is the row's build, counted for its cost)."""
+        if not _metrics._enabled:
+            return forward()
+        return _executables.observe(
+            self._step_exes, key, self._inf.device, forward,
+            lambda: _executables.register(
+                stack="serving", kind="forward",
+                fingerprint=_executables.fingerprint(
+                    self._inf.topology.proto(), "forward", key),
+                feed_sig=f"bucket={key}"))[0]
+
+    def _observe_iteration(self, t0: float, t_done: float, b: int,
+                           n_active: int, active) -> None:
+        """One decode iteration's telemetry (the JAX engine's record)."""
+        waste = (b - n_active) / b * 100.0 if b else 0.0
+        _metrics.record(
+            ((_C_ITER, 1), (_C_TOKENS, n_active)),
+            ((_H_STEP, (t_done - t0) * 1e6), (_H_BATCH, n_active),
+             (_H_WASTE, waste)))
+        _G_SLOTS.set(len(active))
+        _G_QUEUE.set(self.queue_depth())
+        if self._paged:
+            bs = self._decoder.blocks
+            _G_KV_BLOCKS.set(bs.used)
+            _G_KV_UTIL.set(bs.used / bs.capacity * 100.0
+                           if bs.capacity else 0.0)
 
     def _decode_admit(self, active: Dict[int, _DecodeSeq],
                       r: _Request) -> None:
@@ -2134,7 +2431,9 @@ class InferenceEngine:
         stay the request's own."""
         slot = self._slot_alloc.alloc()
         self.session["slot_allocs"] += 1
+        _C_SLOT_ALLOC.inc()
         self._board_decode(r)
+        t_pre0 = time.perf_counter_ns() if r.trace is not None else 0
         try:
             first = self._decoder.prefill(slot, r.prompt)
         except ValueError as e:
@@ -2146,7 +2445,8 @@ class InferenceEngine:
             self._count_error(n)
             self._batch_fault((active,), e)
             return
-        self._first_token(active, r, slot, first, time.perf_counter())
+        self._first_token(active, r, slot, first, time.perf_counter(),
+                          t_pre0)
 
     # ---------------------------------------------------- paged scheduler
     def _paged_loop(self) -> None:
@@ -2187,6 +2487,7 @@ class InferenceEngine:
         as a join."""
         slot = self._slot_alloc.alloc()
         self.session["slot_allocs"] += 1
+        _C_SLOT_ALLOC.inc()
         self._board_decode(r)
         try:
             matched = self._decoder.alloc_sequence(slot, r.prompt)
@@ -2203,10 +2504,14 @@ class InferenceEngine:
             return
         if matched:
             sess = self.session
+            nsh = -(-matched // self._decoder.block_size)
             sess["prefix_hits"] += 1
-            sess["prefix_blocks_shared"] += -(-matched
-                                              // self._decoder.block_size)
+            sess["prefix_blocks_shared"] += nsh
+            _C_PREFIX_HITS.inc()
+            _C_PREFIX_SHARED.inc(nsh)
         joins[slot] = _PagedJoin(r, slot, matched)
+        if r.trace is not None:
+            joins[slot].t_pre0 = time.perf_counter_ns()
 
     def _paged_iteration(self, active, joins) -> bool:
         """One paged turn: intake, reap, admit, grow block lists, then ONE
@@ -2266,19 +2571,21 @@ class InferenceEngine:
             if sample_rows is not None and seq.req.sampling is not None:
                 for arr, v in zip(sample_rows, seq.req.sampling):
                     arr[slot] = v
+        t0 = time.perf_counter()
         try:
-            nxt, cnxt = dec.mixed_step(m, tokens, pos, live=live,
-                                       chunk=chunk, sample_rows=sample_rows,
-                                       sample_chunk=sample_chunk)
+            nxt, cnxt = self._observed("paged_step", lambda: dec.mixed_step(
+                m, tokens, pos, live=live, chunk=chunk,
+                sample_rows=sample_rows, sample_chunk=sample_chunk))
         except Exception as e:                # noqa: BLE001 - a batch fault
             self._batch_fault((active, joins), e)
             return False
         t_done = time.perf_counter()
         n_active = len(active)
+        b = _bucket_rows(max(m, 1), dec.step_buckets)
         sess = self.session
         sess["iterations"] += 1
         sess["tokens"] += n_active
-        sess["slot_steps"] += _bucket_rows(max(m, 1), dec.step_buckets)
+        sess["slot_steps"] += b
         # live positions against block-grain reservation
         sess["kv_cells_live"] += (sum(s.pos for s in active.values())
                                   + sum(j.written for j in joins.values()))
@@ -2291,9 +2598,11 @@ class InferenceEngine:
                 joins.pop(cj.slot, None)
                 dec.register_prefix(cj.slot)
                 self._first_token(active, cj.req, cj.slot, cnxt,
-                                  time.perf_counter())
+                                  time.perf_counter(), cj.t_pre0)
         self._inflight = (tuple(s.req for s in active.values())
                           + tuple(j.req for j in joins.values()))
+        if _metrics._enabled:
+            self._observe_iteration(t0, t_done, b, n_active, active)
         return False
 
     # ----------------------------------------------------------- watchdog
@@ -2415,7 +2724,7 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """The JAX engine's ``stats()`` less the unported features' keys
-        (the compile count, mesh slices, tracing).  ``snapshot_seq`` moves
+        (the compile count, mesh slices).  ``snapshot_seq`` moves
         with resolved work (and every decode iteration), so a frozen
         value under a nonzero queue is a wedge."""
         with self._stats_lock:
@@ -2488,6 +2797,8 @@ class InferenceEngine:
                       if batched + padded else 0.0)),
             **session,
         }
+        if self._flight is not None:
+            rec["trace"] = self._flight.stats()
         if self._decoder is None:
             return rec
         with self._stats_lock:
@@ -2568,6 +2879,21 @@ class InferenceEngine:
             headers = headers or {}
             if method != "POST":
                 return 405, "text/plain", b"POST a JSON body\n"
+            fl = self._flight
+            trace = None
+            if fl is not None:
+                # the propagation edge: an upstream X-Ptpu-Trace (minted
+                # by a client or a router) is honoured, untagged traffic
+                # gets one sampled at the head rate; anomalies are kept
+                # regardless by the tail-based flight recorder
+                ctx = _tracectx.TraceContext.parse(
+                    headers.get(_tracectx.HEADER))
+                if ctx is None:
+                    ctx = _tracectx.mint(fl.sample)
+                trace = _tracectx.SpanBuffer(
+                    ctx, "engine/request", role=self._trace_role,
+                    port=self._bound_port)
+                t_req0 = time.perf_counter()
             try:
                 doc = json.loads(body or b"{}")
                 samples = doc["input"]
@@ -2593,17 +2919,22 @@ class InferenceEngine:
                     v = doc.get(name)
                     knobs[name] = cast(v) if v is not None else None
             except Exception as e:            # noqa: BLE001
+                if fl is not None:
+                    fl.finish(trace, "error", error=f"bad request: {e}")
                 return reply(400, {"error": f"bad request: {e}"})
             fut = None
             try:
                 fut = self.submit(samples, deadline_us=deadline_us,
                                   lane=lane, tenant=tenant,
                                   max_tokens=max_tokens, version=pin,
-                                  **knobs)
+                                  trace=trace, **knobs)
                 result = fut.result(timeout=self.http_timeout_s)
             except Overloaded as e:
                 # tell retry policies WHEN, and which gate fired
                 retry = max(1, int(math.ceil(e.retry_after_s)))
+                if fl is not None:
+                    trace.event("engine/shed", reason=e.reason)
+                    fl.finish(trace, "shed", reason=e.reason)
                 return reply(429, {"error": "overloaded",
                                    "reason": e.reason,
                                    "retry_after_s": e.retry_after_s},
@@ -2612,18 +2943,31 @@ class InferenceEngine:
                 out = {"error": repr(e)}
                 if getattr(e, "generated", None) is not None:
                     out["generated"] = int(e.generated)
+                if fl is not None:
+                    fl.finish(trace, "deadline")
                 return reply(504, out)
             except FutureTimeout:
                 if fut is not None:
                     self.cancel(fut)
+                if fl is not None:
+                    fl.finish(trace, "deadline", error="http timeout")
                 return reply(504, {"error": "inference timed out"})
             except (EngineClosed, EngineUnhealthy) as e:
+                if fl is not None:
+                    fl.finish(trace, "error", error=repr(e))
                 return reply(503, {"error": repr(e)})
             except ValueError as e:
+                if fl is not None:
+                    fl.finish(trace, "error", error=repr(e))
                 return reply(400, {"error": repr(e)})
             except Exception as e:            # noqa: BLE001 - server fault
                 # a 4xx would teach retry policies not to retry
+                if fl is not None:
+                    fl.finish(trace, "error", error=repr(e))
                 return reply(500, {"error": repr(e)})
+            if fl is not None:
+                fl.finish(trace, "ok", latency_us=round(
+                    (time.perf_counter() - t_req0) * 1e6, 1))
             fields = result if isinstance(result, list) else [result]
             out = {"outputs": {n: np.asarray(f).tolist()
                                for n, f in zip(self.output_names, fields)}}
@@ -2654,6 +2998,7 @@ class InferenceEngine:
             if not self._reload_authorized(body, headers, query):
                 with self._err_lock:
                     self.session["reload_unauthorized"] += 1
+                _C_RELOAD_UNAUTH.inc()
                 return reply(403, {"error": "reload unauthorized",
                                    "reason": "bad_key"})
             qs = urllib.parse.parse_qs(query or "")
@@ -2685,17 +3030,34 @@ class InferenceEngine:
                 "refused") else 200)
             return reply(status, res)
 
-        return {"/infer": handle_infer, "/reload": handle_reload,
-                "/stats": handle_stats, "/kernels": handle_kernels}
+        handlers = {"/infer": handle_infer, "/reload": handle_reload,
+                    "/stats": handle_stats, "/kernels": handle_kernels,
+                    # every prepared program of this process, with its
+                    # cost and MFU (?top=N, ?table=1)
+                    "/executables": _executables.http_handler}
+        if self._flight is not None:
+            # the /trace surface (its unauthenticated POST span ingest
+            # included) exists only while tracing is on
+            handlers["/trace"] = _tracectx.http_trace_handler
+            handlers["/trace/"] = _tracectx.http_trace_handler
+        return handlers
 
-    def serve(self, port: int, host: str = "127.0.0.1"):
-        """Serve ``/infer``, ``/reload``, ``/stats``, ``/kernels`` and
-        ``/healthz`` from a stdlib threading HTTP server on a daemon
-        thread (loopback by default).  Returns the server; ``close()``
-        shuts it down."""
-        self._server = serve_http(self.http_handlers(), self._healthz,
-                                  port, host)
+    def serve(self, port: int, host: str = "127.0.0.1", registry=None):
+        """Serve ``http_handlers()`` and the metrics surface (``/metrics``,
+        ``/metrics.json``, ``/healthz`` with this engine's liveness and
+        admission state) from ONE stdlib HTTP server on a daemon thread
+        (``sinks.serve_metrics``; loopback by default).  Returns the
+        server; ``close()`` shuts it down."""
+        from paddle_tpu_torch.observability import sinks
+
+        self._server = sinks.serve_metrics(
+            port, host=host, registry=registry,
+            extra_handlers=self.http_handlers(), health_fn=self._healthz)
         self._bound_port = self._server.server_address[1]
+        if self._flight is not None:
+            # this process's spans carry its role and bound port, so a
+            # stitched fleet timeline says which replica each came from
+            _tracectx.set_process_info(self._trace_role, self._bound_port)
         return self._server
 
     # ----------------------------------------------------------- shutdown
@@ -2744,6 +3106,9 @@ class InferenceEngine:
                 break
             if r is not None and r is not _WAKE:
                 self._fail(r, *self._abort_exc("engine closed"))
+        if self._flight is not None and self._flight.telemetry_dir:
+            # incident records must survive a clean shutdown
+            _tracectx.FLIGHT_WRITER.drain(timeout_s=2.0)
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -2754,66 +3119,3 @@ class InferenceEngine:
 
     def __exit__(self, *exc) -> None:
         self.close()
-
-
-def _takes_query(fn) -> bool:
-    try:
-        return len(inspect.signature(fn).parameters) >= 4
-    except (TypeError, ValueError):
-        return False
-
-
-def serve_http(handlers: dict, health_fn, port: int,
-               host: str = "127.0.0.1"):
-    """A stdlib threading HTTP server on a daemon thread: ``GET /healthz``
-    answers ``health_fn() -> (status, text)``; every other path is looked
-    up in ``handlers`` (``(method, body, headers) -> (status, content
-    type, payload[, headers])``; a handler with a fourth parameter also
-    gets the query string).  A handler that raises answers 500.  Returns
-    the server (``server_address[1]`` is the bound port)."""
-    with_query = {path: _takes_query(fn) for path, fn in handlers.items()}
-
-    class Handler(BaseHTTPRequestHandler):
-        def _send(self, code, ctype, payload: bytes, headers=None):
-            self.send_response(code)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(payload)))
-            for k, v in (headers or {}).items():
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(payload)
-
-        def _route(self, method, body=b""):
-            path, _, query = self.path.partition("?")
-            if method == "GET" and path == "/healthz":
-                code, text = health_fn()
-                self._send(code, "text/plain", text.encode())
-                return
-            fn = handlers.get(path)
-            if fn is None:
-                self._send(404, "application/json", json.dumps(
-                    {"error": f"no route {path}"}).encode())
-                return
-            try:
-                res = (fn(method, body, self.headers, query)
-                       if with_query[path]
-                       else fn(method, body, self.headers))
-            except Exception as e:            # noqa: BLE001 - handler bug
-                res = (500, "application/json",
-                       json.dumps({"error": repr(e)}).encode())
-            self._send(*res)
-
-        def do_GET(self):
-            self._route("GET")
-
-        def do_POST(self):
-            n = int(self.headers.get("Content-Length") or 0)
-            self._route("POST", self.rfile.read(n))
-
-        def log_message(self, *args):
-            pass
-
-    server = _HTTPServer((host, port), Handler)
-    threading.Thread(target=server.serve_forever, name="ptt-http",
-                     daemon=True).start()
-    return server

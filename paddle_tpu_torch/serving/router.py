@@ -26,10 +26,18 @@
 
 Replicas register on start (``POST /register``, the ``serve
 --router_url`` flag) and deregister on drain (``POST /deregister``).
-``stats()`` keeps plain counters.  Tracing (``trace_sample=``,
-``telemetry_dir=``, ``/trace``) and the fleet's ``/metrics`` are not
-ported yet: they raise or answer 501 naming ROADMAP.md §1 item 8.4 (with
-item 13).
+``stats()`` keeps plain counters beside the JAX router's ``router_*``
+metrics (``router_replicas_up``, ``router_picks_total{policy}``,
+``router_failovers_total``, ``router_shed_total{reason}``,
+``router_tenant_depth{tenant}``).  ``serve`` mounts the surface on
+``observability.sinks.serve_metrics``, with the fleet's observability:
+``/trace/<id>`` assembles one request's timeline from the router's own
+spans (``trace_sample=``, ``telemetry_dir=``: a ``router/infer`` span
+and one ``router/forward`` span a forward, whose id the replica's spans
+parent under), the spans a client pushed (``POST /trace``) and every
+replica's ``/trace/<id>``; ``/metrics?fleet=1`` merges every replica's
+``/metrics.json`` with the router's registry, each row labelled
+``replica``.
 
     from paddle_tpu_torch.serving import Router
     router = Router(["http://127.0.0.1:8081", "http://127.0.0.1:8082"],
@@ -52,7 +60,9 @@ import urllib.request
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
-from paddle_tpu_torch.serving.engine import serve_http
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import tracectx as _tracectx
+from paddle_tpu_torch.utils import lockcheck as _lockcheck
 
 __all__ = ["Router", "PICK_POLICIES", "ROUTER_SHED_REASONS"]
 
@@ -62,12 +72,38 @@ PICK_POLICIES = ("p2c", "single", "failover")
 #: router-side shed reasons (a router shed never reached a replica)
 ROUTER_SHED_REASONS = ("tenant_quota_global", "no_replica")
 DEFAULT_TENANT = "default"
-_TRACING = "ROADMAP.md §1 item 8.4 (tracing and /metrics, with item 13)"
+
+_G_UP = _metrics.gauge(
+    "router_replicas_up",
+    "replicas currently in rotation (healthy and fresh)")
+_C_PICKS = {p: _metrics.counter(
+    "router_picks_total",
+    "replica picks by the /infer balancer, by policy",
+    policy=p) for p in PICK_POLICIES}
+_C_FAILOVERS = _metrics.counter(
+    "router_failovers_total",
+    "forwards retried on another replica after a dead socket")
+_C_SHED = {reason: _metrics.counter(
+    "router_shed_total",
+    "requests shed at the router, by reason",
+    reason=reason) for reason in ROUTER_SHED_REASONS}
+
+
+def _tenant_depth_gauge(tenant: str):
+    return _metrics.gauge(
+        "router_tenant_depth",
+        "per-tenant requests admitted by the router and not yet "
+        "answered — the GLOBAL quota gate's fleet-wide counter",
+        tenant=tenant)
+
 
 # request headers forwarded to the replica as they are (the body passes
-# through untouched, so its tenant, lane and deadline fields ride too)
+# through untouched, so its tenant, lane and deadline fields ride too);
+# x-ptpu-trace passes through so a client-minted trace id reaches the
+# replica with the router's tracing off (on, the router rewrites it to
+# parent the replica under its forward span)
 _FWD_HEADERS = ("content-type", "x-ptpu-lane", "x-ptpu-tenant",
-                "x-ptpu-deadline-ms")
+                "x-ptpu-deadline-ms", "x-ptpu-trace")
 
 
 class _UpstreamDead(Exception):
@@ -103,7 +139,7 @@ class _Replica:
 class _GTenant:
     """One tenant's fleet-wide admission state."""
 
-    __slots__ = ("name", "depth", "shedding", "admitted", "shed")
+    __slots__ = ("name", "depth", "shedding", "admitted", "shed", "gauge")
 
     def __init__(self, name: str):
         self.name = name
@@ -111,6 +147,7 @@ class _GTenant:
         self.shedding = False
         self.admitted = 0
         self.shed = 0
+        self.gauge = _tenant_depth_gauge(name)
 
 
 class Router:
@@ -132,10 +169,6 @@ class Router:
                  trace_sample: Optional[float] = None,
                  telemetry_dir: Optional[str] = None,
                  rng: Optional[random.Random] = None):
-        if trace_sample is not None or telemetry_dir is not None:
-            raise NotImplementedError(
-                f"Router(trace_sample=, telemetry_dir=) is not ported to "
-                f"paddle_tpu_torch yet: {_TRACING}")
         if poll_interval_s <= 0 or staleness_s <= 0:
             raise ValueError("poll_interval_s and staleness_s must be > 0")
         if staleness_s < poll_interval_s:
@@ -161,7 +194,11 @@ class Router:
         self._rng = rng or random.Random()
         # ONE lock for the replica map and records, the tenants, the
         # counters and the rate estimate; no socket is touched under it
-        self._lock = threading.Lock()
+        self._lock = _lockcheck.make_lock("serving.router")
+        # the router is a tracing edge: it honours an upstream
+        # X-Ptpu-Trace (or mints one), records its own spans and
+        # parents each forward's replica spans under them
+        self._flight = _tracectx.make_recorder(trace_sample, telemetry_dir)
         self._replicas: Dict[str, _Replica] = {}
         self._tenants: Dict[str, _GTenant] = {
             DEFAULT_TENANT: _GTenant(DEFAULT_TENANT)}
@@ -235,6 +272,7 @@ class Router:
         for rep in due:
             threading.Thread(target=self._probe_async, args=(rep,),
                              daemon=True, name="ptt-router-probe").start()
+        _G_UP.set(self.replicas_up())
 
     def _probe_async(self, rep: _Replica) -> None:
         try:
@@ -317,6 +355,7 @@ class Router:
     def _count_shed(self, reason: str) -> None:
         with self._lock:
             self.session["shed"][reason] += 1
+        _C_SHED[reason].inc()
 
     @staticmethod
     def _peek(body: bytes, headers) -> tuple:
@@ -368,6 +407,7 @@ class Router:
             rep.inflight += 1
             rep.since_poll += 1
             self.session["picks"][policy] += 1
+        _C_PICKS[policy].inc()
         return rep, policy
 
     def _finish(self, rep: _Replica, ok: bool) -> None:
@@ -422,6 +462,19 @@ class Router:
         if method != "POST":
             return 405, "text/plain", b"POST a JSON body\n"
         tenant, deadline_ms = self._peek(body, headers)
+        fl = self._flight
+        trace = None
+        if fl is not None:
+            ctx = _tracectx.TraceContext.parse(
+                headers.get(_tracectx.HEADER) if headers is not None
+                else None)
+            if ctx is None:
+                # untagged traffic: the router is its tracing edge
+                ctx = _tracectx.mint(fl.sample)
+            trace = _tracectx.SpanBuffer(ctx, "router/infer", role="router",
+                                         port=self._bound_port,
+                                         tenant=tenant)
+            t_req0 = time.perf_counter()
         retry = 1.0
         shed = False
         with self._lock:
@@ -447,19 +500,38 @@ class Router:
             if not shed:
                 ts.depth += 1
                 ts.admitted += 1
+                depth_now = ts.depth
         if shed:
             self._count_shed("tenant_quota_global")
+            if fl is not None:
+                trace.event("router/shed", reason="tenant_quota_global")
+                fl.finish(trace, "shed", reason="tenant_quota_global")
             return self._shed_response("tenant_quota_global", retry)
+        ts.gauge.set(depth_now)
         try:
-            return self._route(body, headers, deadline_ms)
+            res = self._route(body, headers, deadline_ms, trace)
         except Exception as e:                # noqa: BLE001 - answer 500
+            # a routing fault is what the flight recorder is for: the
+            # trace finishes as an error before the 500
+            if fl is not None:
+                fl.finish(trace, "error", error=repr(e))
             return (500, "application/json",
                     json.dumps({"error": repr(e)}).encode())
         finally:
             with self._lock:
                 ts.depth -= 1
+                depth_now = ts.depth
+            ts.gauge.set(depth_now)
+        if fl is not None:
+            status = res[0]
+            outcome = ("ok" if status == 200
+                       else "shed" if status in (429, 503)
+                       else "deadline" if status == 504 else "error")
+            fl.finish(trace, outcome, status=status, latency_us=round(
+                (time.perf_counter() - t_req0) * 1e6, 1))
+        return res
 
-    def _route(self, body: bytes, headers, deadline_ms):
+    def _route(self, body: bytes, headers, deadline_ms, trace=None):
         fwd_headers = {"Content-Type": "application/json"}
         if headers is not None:
             for k, v in headers.items():
@@ -475,6 +547,8 @@ class Router:
                 with self._lock:
                     retry = self._retry_after_est(1, self._rps)
                 self._count_shed("no_replica")
+                if trace is not None:
+                    trace.event("router/shed", reason="no_replica")
                 # retryable: the fleet may be mid-restart
                 return self._shed_response("no_replica", retry, status=503)
             timeout = self.forward_timeout_s
@@ -502,6 +576,13 @@ class Router:
                     for k in list(fwd_headers):
                         if k.lower() == "x-ptpu-deadline-ms":
                             fwd_headers[k] = str(rem_ms)
+            if trace is not None:
+                # the forward span's id rides the wire, so the replica's
+                # spans parent under this forward
+                fwd_id = _tracectx.new_span_id()
+                fwd_headers[_tracectx.HEADER] = \
+                    trace.ctx.child(fwd_id).to_header()
+                t_fwd0 = time.perf_counter_ns()
             try:
                 status, rheaders, payload = self._forward(
                     rep.url, body, fwd_headers, timeout)
@@ -514,8 +595,20 @@ class Router:
                     rep.fails += 1
                     rep.next_probe = now + self._probe_backoff(rep.fails)
                     self.session["failovers"] += 1
+                _C_FAILOVERS.inc()
+                if trace is not None:
+                    trace.add_span("router/forward", t_fwd0,
+                                   time.perf_counter_ns() - t_fwd0,
+                                   span_id=fwd_id, replica=rep.url,
+                                   status="dead_socket")
+                    trace.event("router/failover", replica=rep.url)
                 tried.add(rep.url)
                 continue
+            if trace is not None:
+                trace.add_span("router/forward", t_fwd0,
+                               time.perf_counter_ns() - t_fwd0,
+                               span_id=fwd_id, replica=rep.url,
+                               status=status)
             self._finish(rep, ok=status == 200)
             retry = next((v for k, v in rheaders.items()
                           if k.lower() == "retry-after"), None)
@@ -552,13 +645,111 @@ class Router:
             {"ok": True, "removed": removed,
              "replicas": self.replica_urls()}).encode())
 
-    def handle_trace(self, method: str, body: bytes, headers=None):
-        return (501, "application/json", json.dumps(
-            {"error": f"/trace is not ported: {_TRACING}"}).encode())
+    def _fetch_json(self, url: str, timeout_s: Optional[float] = None):
+        """One GET decoded as JSON, or None on any failure (no lock
+        held: a dead replica never stalls a handler)."""
+        req = urllib.request.Request(url, method="GET")
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=timeout_s or self.poll_timeout_s) as r:
+                return json.loads(r.read().decode())
+        except (urllib.error.URLError, http.client.HTTPException,
+                OSError, ValueError):
+            return None
 
-    def handle_metrics(self, method: str, body: bytes, headers=None):
-        return (501, "application/json", json.dumps(
-            {"error": f"/metrics is not ported: {_TRACING}"}).encode())
+    def _fetch_json_many(self, urls, suffix: str) -> Dict[str, object]:
+        """``_fetch_json(url + suffix)`` across replicas concurrently (a
+        daemon thread each), so a scrape or a trace assembly costs about
+        one poll timeout, not one a replica; a straggler past the join
+        budget reads as down (None)."""
+        results: Dict[str, object] = {u: None for u in urls}
+
+        def one(u: str) -> None:
+            results[u] = self._fetch_json(u + suffix)
+
+        threads = [threading.Thread(target=one, args=(u,), daemon=True,
+                                    name="ptt-router-fanout")
+                   for u in urls]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + self.poll_timeout_s + 0.5
+        for t in threads:
+            t.join(max(0.0, deadline - time.perf_counter()))
+        return dict(results)
+
+    def handle_trace(self, method: str, body: bytes, headers=None,
+                     rest: str = ""):
+        """``GET /trace/<id>``: one request's cross-process timeline, the
+        router's own spans (and those a client pushed to ``POST /trace``)
+        merged with every registered replica's ``/trace/<id>`` answer,
+        deduplicated by span id, in start order.  POST ingests pushed
+        spans; a bare GET lists this process's recent trace ids."""
+        tid = _tracectx._trace_id_from(rest)
+        if method == "POST" and self._flight is None:
+            # no tracing means no span-ingest surface, not an open one
+            return (404, "text/plain",
+                    b"tracing is disabled on this router\n")
+        if method == "POST" or not tid:
+            return _tracectx.http_trace_handler(method, body, headers,
+                                                rest)
+        spans = {s["span_id"]: s for s in _tracectx.STORE.get(tid)}
+        sources: Dict[str, Optional[int]] = {"router": len(spans)}
+        fetched = self._fetch_json_many(self.replica_urls(),
+                                        "/trace/" + tid)
+        for url, doc in sorted(fetched.items()):
+            got = (doc or {}).get("spans") if doc else None
+            if not isinstance(got, list):
+                sources[url] = None       # unreachable or a bad answer
+                continue
+            n = 0
+            for sp in got:
+                if isinstance(sp, dict) and sp.get("span_id"):
+                    spans.setdefault(sp["span_id"], sp)
+                    n += 1
+            sources[url] = n
+        ordered = sorted(spans.values(), key=lambda sp: sp.get("start_us", 0))
+        return (200, "application/json",
+                json.dumps({"trace_id": tid, "spans": ordered,
+                            "sources": sources}).encode())
+
+    def handle_metrics(self, method: str, body: bytes, headers=None,
+                       query: str = ""):
+        """``GET /metrics?fleet=1``: one scrape for the fleet, every
+        registered replica's ``/metrics.json`` merged with the router's
+        registry, each row labelled with its ``replica`` (its base URL;
+        ``"router"`` for the router's own).  Without ``fleet=1``: the
+        router's own exposition."""
+        from paddle_tpu_torch.observability import sinks
+        if method != "GET":
+            return 405, "text/plain", b"GET /metrics[?fleet=1]\n"
+        ctype = "text/plain; version=0.0.4; charset=utf-8"
+        if "fleet=1" not in (query or ""):
+            return 200, ctype, sinks.prometheus_text().encode()
+        merged = {"counters": [], "gauges": [], "histograms": []}
+
+        def absorb(snap: dict, label: str) -> None:
+            for sect in ("counters", "gauges", "histograms"):
+                for m in snap.get(sect, ()):
+                    m = dict(m)
+                    labels = dict(m.get("labels") or {})
+                    labels["replica"] = label
+                    m["labels"] = labels
+                    merged[sect].append(m)
+
+        absorb(_metrics.REGISTRY.snapshot(), "router")
+        polled = unreachable = 0
+        fetched = self._fetch_json_many(self.replica_urls(),
+                                        "/metrics.json")
+        for url, snap in sorted(fetched.items()):
+            if not isinstance(snap, dict):
+                unreachable += 1
+                continue
+            absorb(snap, url)
+            polled += 1
+        text = _metrics.prometheus_from_snapshot(merged)
+        text += (f"# fleet rollup: {polled} replica(s) polled, "
+                 f"{unreachable} unreachable\n")
+        return 200, ctype, text.encode()
 
     def stats(self) -> dict:
         now = time.perf_counter()
@@ -602,6 +793,8 @@ class Router:
                 "tenant_quota_global": self.tenant_quota,
                 "tenants": tenants,
                 "forward_rps": rps,
+                **({"trace": self._flight.stats()}
+                   if self._flight is not None else {}),
                 **session}
 
     def handle_stats(self, method: str, body: bytes, headers=None):
@@ -620,16 +813,24 @@ class Router:
                 "/register": self.handle_register,
                 "/deregister": self.handle_deregister,
                 "/trace": self.handle_trace,
+                "/trace/": self.handle_trace,
                 "/metrics": self.handle_metrics}
 
-    def serve(self, port: int, host: str = "127.0.0.1"):
-        """Mount ``/infer``, ``/stats``, ``/register``, ``/deregister``
-        and ``/healthz`` on one stdlib HTTP server (a daemon thread,
-        loopback by default); ``port=0`` binds a free port (read
-        ``server.server_address[1]``).  Returns the server."""
-        self._server = serve_http(self.http_handlers(), self._healthz,
-                                  port, host)
+    def serve(self, port: int, host: str = "127.0.0.1", registry=None):
+        """Mount ``/infer``, ``/stats``, ``/register``, ``/deregister``,
+        ``/trace`` and the metrics surface (``/metrics``,
+        ``/metrics.json``, ``/healthz``) on one stdlib HTTP server
+        (``sinks.serve_metrics``; a daemon thread, loopback by default);
+        ``port=0`` binds a free port (read ``server.server_address[1]``).
+        Returns the server."""
+        from paddle_tpu_torch.observability import sinks
+
+        self._server = sinks.serve_metrics(
+            port, host=host, registry=registry,
+            extra_handlers=self.http_handlers(), health_fn=self._healthz)
         self._bound_port = self._server.server_address[1]
+        if self._flight is not None:
+            _tracectx.set_process_info("router", self._bound_port)
         return self._server
 
     # ----------------------------------------------------------- shutdown
@@ -637,6 +838,8 @@ class Router:
         self._closed = True
         self._stop.set()
         self._poller.join(5.0)
+        if self._flight is not None and self._flight.telemetry_dir:
+            _tracectx.FLIGHT_WRITER.drain(timeout_s=2.0)
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()

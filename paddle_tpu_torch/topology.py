@@ -56,6 +56,24 @@ from paddle_tpu_torch.parameters import (Parameters,
                                          tree_keys)
 
 
+# the layer scopes open (``layer_scope``), innermost last: each a
+# factory ``spec -> context manager`` entered around every layer's apply
+_LAYER_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def layer_scope(factory):
+    """Enter ``factory(spec)`` around each layer's apply while open: the
+    per-layer FLOP count and the ``record_function`` ranges of
+    ``utils/profiler.layer_cost_report``.  With none open a layer pays
+    one list test."""
+    _LAYER_SCOPES.append(factory)
+    try:
+        yield
+    finally:
+        _LAYER_SCOPES.remove(factory)
+
+
 @contextlib.contextmanager
 def _layer_error_context(spec, in_vals):
     """Annotate failures with the offending layer (the reference keeps a
@@ -517,7 +535,9 @@ class Topology:
         ctx._cur_layer = spec.name
         ctx.in_names = spec.inputs
         use_remat = layer_remat and _remat_eligible(spec)
-        with _layer_error_context(spec, in_vals):
+        scope = (_LAYER_SCOPES[-1](spec) if _LAYER_SCOPES
+                 else contextlib.nullcontext())
+        with _layer_error_context(spec, in_vals), scope:
             if isinstance(ldef, SeqLayerDef):
                 if use_remat:
                     out = self._recomputed(

@@ -82,6 +82,22 @@ dtype (``_snapshot_copy``) and, on the card, a copy to pinned host
 memory on a side stream; the writer thread waits for that copy's event
 and writes, so the step loop neither syncs nor waits on the disk.
 
+Telemetry (``observability/``, on with ``PADDLE_TPU_TELEMETRY=1`` or
+``observability.enable()``) is the JAX trainer's catalog: the
+``trainer_feed_us``, ``trainer_step_dispatch_us``, ``trainer_eval_us`` and
+``trainer_pass_us`` histograms, ``trainer_batches_total``,
+``trainer_passes_total``, ``trainer_padding_waste_pct`` under
+``seq_buckets``, ``train_loss_scale`` and ``train_skipped_steps_total``
+under loss scaling, the checkpoint hand-off histogram and
+``trainer_checkpoint_restore_fallbacks_total``, and the
+``trainer/feed|step|eval|pass`` spans, ``trainer/step`` naming its
+executable (``exe=``); under ``steps_per_dispatch=k`` one span covers
+the chunk.  Each step's feed signature is a row of the executable
+registry (``trainer`` / ``v2_train_step``, a chunk's ``train_chunk``),
+its dispatches timed by CUDA event pairs.  The step loop adds no device
+sync: the loss scale's values come back on a copy read once its event
+has run.  Off, each site costs one flag test.
+
 Not ported yet, and refused: ``mesh`` and ``mesh_rules`` (``ROADMAP.md``
 section 1, item 14, with the vocab-parallel lookup of a sparse table).
 """
@@ -102,7 +118,85 @@ from paddle_tpu_torch import parameters as params_mod
 from paddle_tpu_torch.core import config as cfg
 from paddle_tpu_torch.core import prepared
 from paddle_tpu_torch.data_feeder import DataFeeder
+from paddle_tpu_torch.observability import executables as _executables
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import tracing as _tracing
 from paddle_tpu_torch.topology import Topology
+from paddle_tpu_torch.utils import profiler as _profiler
+
+# The JAX trainer's telemetry handles, pre-bound at import; every
+# mutator is a flag test while telemetry is off.
+_H_TR_FEED = _metrics.histogram(
+    "trainer_feed_us", "batch -> feed-dict conversion (DataFeeder)")
+_H_TR_STEP = _metrics.histogram(
+    "trainer_step_dispatch_us",
+    "train-step dispatch (async; excludes device wait)")
+_H_TR_EVAL = _metrics.histogram(
+    "trainer_eval_us", "evaluator stat accumulation")
+_H_TR_PASS = _metrics.histogram(
+    "trainer_pass_us", "whole-pass wall time")
+_M_TR_BATCHES = _metrics.counter(
+    "trainer_batches_total", "train batches dispatched")
+_M_TR_PASSES = _metrics.counter(
+    "trainer_passes_total", "completed training passes")
+_H_CKPT_HANDOFF = _metrics.histogram(
+    "trainer_checkpoint_save_us",
+    "step-snapshot cost split by phase: hot-path hand-off vs the "
+    "background device_get + fsync'd write", phase="handoff")
+_M_CKPT_FALLBACK = _metrics.counter(
+    "trainer_checkpoint_restore_fallbacks_total",
+    "auto-resume restores that skipped past a corrupt newest snapshot "
+    "to an older valid one")
+_G_LOSS_SCALE = _metrics.gauge(
+    "train_loss_scale",
+    "current dynamic loss scale (mixed-precision policy)")
+_M_SKIPPED_STEPS = _metrics.counter(
+    "train_skipped_steps_total",
+    "optimizer updates skipped on non-finite gradients (loss scaling "
+    "halved and retried next step)")
+_H_TR_PAD = _metrics.histogram(
+    "trainer_padding_waste_pct",
+    "per-batch padded-but-dead cell percentage on sequence inputs "
+    "under train(seq_buckets=) 2-D bucketing",
+    buckets=(0, 1, 2, 5, 10, 15, 20, 30, 40, 50, 75, 100))
+_ns = time.perf_counter_ns
+
+
+class _ScaleReads:
+    """The loss-scale metrics read off the device without a sync: each
+    step queues a copy of (scale, skipped) to pinned host memory and an
+    event; a copy is read once its event has run (at a later step).  On
+    the CPU the values are read at once."""
+
+    def __init__(self):
+        self._pending = []
+        self._skipped = None
+
+    def push(self, ls: dict) -> None:
+        vals = (ls["scale"], ls["skipped"])
+        if vals[0].device.type != "cuda":
+            self._apply([float(v) for v in vals])
+            return
+        host = [torch.empty((), dtype=v.dtype, pin_memory=True)
+                for v in vals]
+        for h, v in zip(host, vals):
+            h.copy_(v, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._pending.append((ev, host))
+        self.poll()
+
+    def poll(self) -> None:
+        while self._pending and self._pending[0][0].query():
+            _, host = self._pending.pop(0)
+            self._apply([float(h) for h in host])
+
+    def _apply(self, vals) -> None:
+        scale, skipped = vals
+        _G_LOSS_SCALE.set(scale)
+        if self._skipped is not None and skipped > self._skipped:
+            _M_SKIPPED_STEPS.inc(int(skipped - self._skipped))
+        self._skipped = skipped
 
 
 def _refuse(item: int, **flags) -> None:
@@ -214,8 +308,12 @@ class SGD:
         # device; a captured chunk registers it with its graph
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.get_option("seed", 0)) + 17)
-        # the prepared k-step chunks (train(steps_per_dispatch=k))
-        self._chunks = prepared.PreparedFamily(self.device)
+        # the prepared k-step chunks (train(steps_per_dispatch=k)), each a
+        # row of the executable registry
+        self._chunks = prepared.PreparedFamily(self.device, stack="trainer")
+        # the eager step's registry rows, by feed signature (telemetry)
+        self._step_exes: dict = {}
+        self._scale_reads = _ScaleReads()
         # checkpoints: the monotonic step counter the snapshots are named
         # by, the background writer, and (on the card) the pinned host
         # buffers of the step snapshots in flight and free
@@ -470,6 +568,12 @@ class SGD:
         return {name: _stack([f[name] for f in group], self.device)
                 for name in group[0]}
 
+    def _identity(self) -> tuple:
+        """The program's identity parts of its registry fingerprints: the
+        topology's JSON, the precision policy and the optimizer."""
+        return (self.topology.proto(), self._built_policy_sig,
+                type(self.optimizer).__name__)
+
     def _chunk(self, feeds: dict, k: int):
         """The prepared chunk of k steps for these stacked feeds: it
         returns the k losses, and with evaluators ``(losses, their k
@@ -477,7 +581,24 @@ class SGD:
         self._sync_precision_policy()
         step = self._step_stats if self.topology.evaluators else self._step
         return self._chunks.get("train_chunk", k, feeds, step,
-                                self._state_tensors, self._generator)
+                                self._state_tensors, self._generator,
+                                identity=self._identity())
+
+    def _observed_step(self, feed, check: bool):
+        """``_run_step`` as one dispatch of its feed signature's registry
+        row (telemetry on): the first step of a signature is its build,
+        counted for the row's cost; each step is timed by an event pair.
+        Returns (step result, the row)."""
+        self._sync_precision_policy()
+        sig = prepared.feed_signature(feed)
+        return _executables.observe(
+            self._step_exes, (self._built_policy_sig, sig), self.device,
+            lambda: self._run_step(feed, check),
+            lambda: _executables.register(
+                stack="trainer", kind="v2_train_step",
+                fingerprint=_executables.fingerprint(
+                    *self._identity(), "v2_train_step", sig),
+                feed_sig=sig))
 
     def release_chunks(self) -> None:
         """Free every prepared chunk (on the card: the graphs and their
@@ -616,6 +737,7 @@ class SGD:
         off).  Returns the host seconds it took."""
         from paddle_tpu_torch.io import checkpoint as ckpt
         t0 = time.perf_counter()
+        t0_ns = _ns()
         copy = self._snapshot_copy()
         frozen = self._frozen
         gstep = self._global_step
@@ -645,6 +767,7 @@ class SGD:
             self._ckpt_writer.submit(job)
         else:
             job()
+        _H_CKPT_HANDOFF.observe((_ns() - t0_ns) / 1e3)
         return time.perf_counter() - t0
 
     def _flush_ckpt_writer(self) -> None:
@@ -683,6 +806,7 @@ class SGD:
                           RuntimeWarning)
             return 0, 0
         if snap["fallbacks"]:
+            _M_CKPT_FALLBACK.inc(snap["fallbacks"])
             warnings.warn(f"auto-resume fell back past {snap['fallbacks']} "
                           f"corrupt snapshot(s) to {snap['kind']} "
                           f"pass={snap['pass_id']}", RuntimeWarning)
@@ -788,8 +912,19 @@ class SGD:
                 # outgrows every bucket: the plain path (declared
                 # max_len) rather than a truncation
                 pad = cands[0] if cands else None
-            return (feeder.feed(batch, seq_pad=pad) if pad
+            feed = (feeder.feed(batch, seq_pad=pad) if pad
                     else feeder.feed(batch))
+            if _metrics._enabled:
+                real = total = 0
+                for name, _idx, _m in seq_inputs:
+                    lens, arr = feed.get(name + "@len"), feed.get(name)
+                    if lens is None or arr is None:
+                        continue
+                    real += int(np.asarray(lens).sum())
+                    total += int(arr.shape[0]) * int(arr.shape[1])
+                if total:
+                    _H_TR_PAD.observe(100.0 * (1.0 - real / total))
+            return feed
 
         return convert
 
@@ -864,6 +999,8 @@ class SGD:
             event_handler(v2_event.BeginPass(pass_id))
             acc.reset()
             batch_id = 0
+            obs = _metrics._enabled
+            tp0 = _ns() if obs else 0
             batch_iter = iter(batch_source())
             if pass_id == start_pass and skip_batches:
                 # mid-pass resume: replay the reader to the snapshot's
@@ -875,6 +1012,7 @@ class SGD:
             try:
                 while True:
                     gstep = self._global_step
+                    tf0 = _ns() if obs else 0
                     group = []
                     while len(group) < k:
                         try:
@@ -887,14 +1025,27 @@ class SGD:
                     if k > 1 and len(group) == k \
                             and self._stackable(group):
                         feeds = self._stack_group(group)
-                        out = self._chunk(feeds, k)(feeds)
+                        if obs:
+                            tf1 = _ns()
+                            _H_TR_FEED.observe((tf1 - tf0) / 1e3)
+                            _tracing.TRACER.add("trainer/feed", tf0,
+                                                tf1 - tf0, step=gstep)
+                        chunk = self._chunk(feeds, k)
+                        ts0 = _ns() if obs else 0
+                        with _profiler.range_scope("trainer/step"):
+                            out = chunk(feeds)
                         losses, stats_k = (out if isinstance(out, tuple)
                                            else (out, {}))
+                        if obs:
+                            self._observe_step(ts0, gstep, chunk.exe, k)
                         for i in range(k):
                             event_handler(v2_event.BeginIteration(
                                 pass_id, batch_id))
+                            te0 = _ns() if obs else 0
                             acc.update({n: tuple(s[i] for s in st)
                                         for n, st in stats_k.items()})
+                            if obs and acc.evaluators:
+                                self._observe_eval(te0, self._global_step)
                             event_handler(v2_event.EndForwardBackward(
                                 pass_id, batch_id, self))
                             event_handler(v2_event.EndIteration(
@@ -908,15 +1059,34 @@ class SGD:
                             self._save_step_snapshot(checkpoint_config,
                                                      pass_id, batch_id)
                         continue
+                    first = True
                     for feed in group:
+                        gstep = self._global_step
+                        if obs and first:
+                            tf1 = _ns()
+                            _H_TR_FEED.observe((tf1 - tf0) / 1e3)
+                            _tracing.TRACER.add("trainer/feed", tf0,
+                                                tf1 - tf0, step=gstep)
+                        first = False
                         event_handler(v2_event.BeginIteration(pass_id,
                                                               batch_id))
-                        loss, flags, stats = self._run_step(
-                            feed, self.check_nan_inf)
+                        with _profiler.range_scope("trainer/step"):
+                            if obs:
+                                ts0 = _ns()
+                                (loss, flags, stats), ent = \
+                                    self._observed_step(
+                                        feed, self.check_nan_inf)
+                                self._observe_step(ts0, gstep, ent, 1)
+                            else:
+                                loss, flags, stats = self._run_step(
+                                    feed, self.check_nan_inf)
                         if flags is not None:
                             self._raise_on_nonfinite(flags, pass_id,
                                                      batch_id)
+                        te0 = _ns() if obs else 0
                         acc.update(stats)
+                        if obs and acc.evaluators:
+                            self._observe_eval(te0, gstep)
                         event_handler(v2_event.EndForwardBackward(
                             pass_id, batch_id, self))
                         event_handler(v2_event.EndIteration(
@@ -935,11 +1105,41 @@ class SGD:
             if (checkpoint_config is not None
                     and pass_id % checkpoint_config.saving_period == 0):
                 self._save_pass_snapshot(checkpoint_config, pass_id)
+            if obs:
+                tp1 = _ns()
+                _H_TR_PASS.observe((tp1 - tp0) / 1e3)
+                # the pass id rides in args["pass"], not args["step"]
+                # (the per-batch correlation ids)
+                _tracing.TRACER.add("trainer/pass", tp0, tp1 - tp0,
+                                    cat="pass", args={"pass": pass_id})
+                _M_TR_PASSES.inc()
             event_handler(v2_event.EndPass(pass_id, metrics=acc.results()))
         # every snapshot promised is on disk when train returns; after an
         # error the daemon writer finishes its job (or the process dies:
         # the atomic publish makes either safe)
         self._flush_ckpt_writer()
+
+    def _observe_step(self, ts0: int, gstep: int, ent, k: int) -> None:
+        """The step dispatch's telemetry: its histogram, the
+        ``trainer/step`` span naming its executable (one span a chunk),
+        the batch counter and the loss scale's queued read."""
+        ts1 = _ns()
+        _H_TR_STEP.observe((ts1 - ts0) / 1e3)
+        args = {"exe": ent.short} if ent is not None else None
+        if k > 1:
+            args = dict(args or {}, steps_per_dispatch=k)
+        _tracing.TRACER.add("trainer/step", ts0, ts1 - ts0, step=gstep,
+                            args=args)
+        _M_TR_BATCHES.inc(k)
+        ls = self._opt_state.get("loss_scale")
+        if ls is not None:
+            self._scale_reads.push(ls)
+
+    @staticmethod
+    def _observe_eval(te0: int, gstep: int) -> None:
+        te1 = _ns()
+        _H_TR_EVAL.observe((te1 - te0) / 1e3)
+        _tracing.TRACER.add("trainer/eval", te0, te1 - te0, step=gstep)
 
     @torch.no_grad()
     def test(self, reader, feeding: Optional[Dict[str, int]] = None):

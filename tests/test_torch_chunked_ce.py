@@ -204,7 +204,7 @@ def test_fused_lm_matches_jax(padded, policy):
                                 outputs=[cost])
         return outs[cost]
 
-    jcost, jgrads = jax.value_and_grad(jloss)(jparams.values)
+    jcost, jgrads = jax.jit(jax.value_and_grad(jloss))(jparams.values)
     tcost, tgrads = _port_grads(ttopo, values, feed, cost)
     assert sorted(tgrads) == sorted(jgrads)
     if policy == "fp32":

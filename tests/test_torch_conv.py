@@ -145,8 +145,8 @@ def test_bn_act_train_matches_jax(shape, act, jax_impl):
         y, m, v = jbn.bn_act_train(*a, EPS, act, jax_impl)
         return (y * cy).sum() + (m * cm).sum() + (v * cv).sum(), (y, m, v)
 
-    (_, jouts), jgrads = jax.value_and_grad(
-        jloss, argnums=(0, 1, 2), has_aux=True)(
+    (_, jouts), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(
             *(jnp.asarray(a) for a in (x, scale, bias)))
     leaves = [_t(a, True) for a in (x, scale, bias)]
     y, m, v = tbn.bn_act_train(*leaves, EPS, act, "pallas")
@@ -215,8 +215,8 @@ def test_matmul_stats_matches_jax(p, ci, co, jax_impl):
         y, s, ss = jcb.matmul_stats(x, w, jax_impl)
         return (y * cy).sum() + (s * cs).sum() + (ss * css).sum(), (y, s, ss)
 
-    (_, jouts), jgrads = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jnp.asarray(w))
+    (_, jouts), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(w))
     leaves = [_t(x, True), _t(w, True)]
     y, s, ss = tcb.matmul_stats(*leaves, "pallas")
     loss = (y * _t(cy)).sum() + (s * _t(cs)).sum() + (ss * _t(css)).sum()
@@ -248,8 +248,8 @@ def test_conv3x3_stats_matches_jax(shape, co, jax_impl):
         y, s, ss = jcb.conv3x3_stats(x, w, jax_impl)
         return (y * cy).sum() + (s * cs).sum() + (ss * css).sum(), (y, s, ss)
 
-    (_, jouts), jgrads = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jnp.asarray(w))
+    (_, jouts), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(w))
     leaves = [_t(x, True), _t(w, True)]
     y, s, ss = tcb.conv3x3_stats(*leaves, "pallas")
     loss = (y * _t(cy)).sum() + (s * _t(cs)).sum() + (ss * _t(css)).sum()
@@ -385,8 +385,8 @@ def test_image_layer_matches_jax(case):
         outs, new = jt.forward(v, state, {"x": x}, train=train)
         return (outs["l"] * cot).sum(), (outs["l"], new)
 
-    (_, (jy, jstate)), (jgv, jgx) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(values, jnp.asarray(x))
+    (_, (jy, jstate)), (jgv, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(values, jnp.asarray(x))
 
     params = pt.parameters.from_numpy(tt, values, device="cpu").values
     leaves = [(l, n, t.requires_grad_(True)) for l, ps in params.items()
@@ -466,7 +466,7 @@ def test_img_layers_golden_trains_a_step_like_jax():
         outs, new = jt.forward(v, jt.create_state(), feed, train=True)
         return outs[cost], new
 
-    (jc, jstate), jg = jax.value_and_grad(jloss, has_aux=True)(values)
+    (jc, jstate), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(values)
     tr = pt.trainer.SGD(tt, pt.parameters.from_numpy(tt, values,
                                                      device="cpu"),
                         pt.optimizer.Momentum(learning_rate=0.1,

@@ -45,7 +45,7 @@ def test_crf_nll_and_gradients_match_jax(seed):
         return jnp.sum(jcc._crf_nll(x_, jnp.asarray(y), jnp.asarray(mask),
                                     w_[0], w_[1], w_[2:]))
 
-    jval, (jdx, jdw) = jax.value_and_grad(jf, argnums=(0, 1))(
+    jval, (jdx, jdw) = jax.jit(jax.value_and_grad(jf, argnums=(0, 1)))(
         jnp.asarray(x), jnp.asarray(w))
     tx = torch.tensor(x, requires_grad=True)
     tw = torch.tensor(w, requires_grad=True)
@@ -164,7 +164,7 @@ def test_ctc_loss_and_gradients_match_jax(seed, blank):
                                     jnp.asarray(label), jnp.asarray(lmask),
                                     blank=blank))
 
-    jval, jgrad = jax.value_and_grad(jf)(jnp.asarray(logits))
+    jval, jgrad = jax.jit(jax.value_and_grad(jf))(jnp.asarray(logits))
     jper = np.asarray(jcc.ctc_loss(jnp.asarray(logits), jnp.asarray(tmask),
                                    jnp.asarray(label), jnp.asarray(lmask),
                                    blank=blank))

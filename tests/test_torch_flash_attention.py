@@ -205,8 +205,9 @@ def _jax_grads(case, impl):
             jnp.sin(out))
         return obj + jnp.sum(jnp.tanh(lse)) if with_lse else obj
 
+    # jitted: one compile of the forward and both backward kernels
     return [np.asarray(g) for g in
-            jax.grad(f, argnums=(0, 1, 2))(*_grad_inputs(case))]
+            jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*_grad_inputs(case))]
 
 
 def _torch_grads(case, **kw):
@@ -388,8 +389,14 @@ def _bf16_jax(case, impl, dt="bfloat16"):
         return obj + jnp.sum(jnp.tanh(lse)) if with_lse else obj
 
     args = [jnp.asarray(a, dt) for a in _bf16_grad_inputs(case, dt)]
+    grad = jax.grad(f, argnums=(0, 1, 2))
+    if impl == "interpret":
+        # the Pallas kernels jitted: one compile each, not one an op of
+        # their interpreted bodies (the xla path stays eager: under jit a
+        # fully masked row's dQ at bf16 is another number)
+        run, grad = jax.jit(run), jax.jit(grad)
     out, lse = run(*args)
-    grads = jax.grad(f, argnums=(0, 1, 2))(*args)
+    grads = grad(*args)
     assert all(g.dtype == jnp.dtype(dt) for g in grads)
     return ([np.asarray(out.astype(jnp.float32)), np.asarray(lse)]
             + [np.asarray(g.astype(jnp.float32)) for g in grads])
@@ -524,11 +531,11 @@ def _assert_mma_matches_pallas(got, want, terms, case, dt="bfloat16"):
         _assert_mma_close(g, w, m, f"{case} {name}", dt)
 
 
-def _kstep_case(drop, dt="bfloat16"):
-    """q, k, v [1, 32, 2, 32] bf16 (or ``dt``; two 16-deep k-steps),
-    causal: dQ, dK, dV of sum(O^2) through ``_mma_bwd`` with k-step
-    ``drop`` of the score product left out (None: none), the term
-    magnitudes, and the JAX package's gradients under the interpreter."""
+@functools.lru_cache(maxsize=None)
+def _kstep_jax(dt):
+    """``_kstep_case``'s inputs and the JAX package's gradients under the
+    interpreter, jitted and computed once a dtype (the intact and the
+    faulty case share them)."""
     import jax
     import jax.numpy as jnp
 
@@ -541,7 +548,18 @@ def _kstep_case(drop, dt="bfloat16"):
         return jnp.sum(out.astype(jnp.float32) ** 2)
 
     want = [np.asarray(g.astype(jnp.float32)) for g in
-            jax.grad(f, argnums=(0, 1, 2))(*jargs)]
+            jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*jargs)]
+    return jargs, want
+
+
+def _kstep_case(drop, dt="bfloat16"):
+    """q, k, v [1, 32, 2, 32] bf16 (or ``dt``; two 16-deep k-steps),
+    causal: dQ, dK, dV of sum(O^2) through ``_mma_bwd`` with k-step
+    ``drop`` of the score product left out (None: none), the term
+    magnitudes, and the JAX package's gradients under the interpreter."""
+    import jax.numpy as jnp
+
+    jargs, want = _kstep_jax(dt)
     q, k, v = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
         HALF[dt][0]) for a in jargs)
     lens = torch.full((1,), 32, dtype=torch.int32)

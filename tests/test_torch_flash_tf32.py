@@ -348,8 +348,9 @@ def test_lm_fp32_kernel_route_with_tf32x3_backward_matches_jax_pallas(
                                 outputs=["cost", "logits"])
         return outs["cost"], outs["logits"]
 
-    (jcost, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(
-        jparams.values)
+    # jitted: one compile of the LM's step with the interpreted kernels
+    (jcost, jlogits), jgrads = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(jparams.values)
     tr = training.pt.trainer.SGD(ttopo, tparams,
                                  training.pt.optimizer.Adam())
     tcost, tgrads = tr.forward_backward(feed)

@@ -306,11 +306,11 @@ def test_run_n_stands_down_for_an_unbounded_while(grad):
 def test_unported_executor_options_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="item 14"):
         fluid.Executor(fluid.CPUPlace(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         fluid.Executor(fluid.CPUPlace(), compile_cache=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         fluid.Executor(fluid.CPUPlace(), bake_key="k")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         fluid.Executor(fluid.CPUPlace(), donate=False)
     exe = fluid.Executor(fluid.CPUPlace(), donate=True, compile_cache=None)
     assert exe.run_n_standdowns == dict.fromkeys(

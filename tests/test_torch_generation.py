@@ -12,6 +12,7 @@ JAX's: the lower flat index first.
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -53,7 +54,8 @@ def _both(config, scale=1.0, seed=0):
 
 def _generate(jtopo, ttopo, values, feed, name):
     """(port ids, port scores, JAX ids, JAX scores)."""
-    jouts, jstate = jtopo.forward(values, {}, feed)
+    # jitted: the beam search one compile, not one an op a step
+    jouts, jstate = jax.jit(lambda v: jtopo.forward(v, {}, feed))(values)
     tparams = pt.parameters.from_numpy(ttopo, values, device="cpu")
     touts, tstate = ttopo.forward(tparams.values, {}, feed, device="cpu")
     return (touts[name].numpy(), tstate[name]["scores"].numpy(),
@@ -322,7 +324,7 @@ def test_seq2seq_generation_matches_jax(route, monkeypatch):
     jtopo = pj.Topology(jseq2seq.build(**kw, is_generating=True,
                                        beam_size=3))
     assert ttopo.proto() == jtopo.proto()
-    jouts, jstate = jtopo.forward(values, {}, SRC_FEED)
+    jouts, jstate = jax.jit(lambda v: jtopo.forward(v, {}, SRC_FEED))(values)
     _assert_same(ids, scores, np.asarray(jouts["decoder_group"]),
                  np.asarray(jstate["decoder_group"]["scores"]))
     assert ids.shape == (4, 3, kw["max_trg_len"])

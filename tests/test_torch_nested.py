@@ -67,7 +67,7 @@ def _compare(config, feed, outs, train=True):
                              outputs=outs)
         return sum((o[n] * cots[n]).sum() for n in outs)
 
-    jp, jf = jax.grad(jloss, argnums=(0, 1))(
+    jp, jf = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
         values, {k: feed[k] for k in fkeys})
     params = {l: {p: torch.from_numpy(v.copy()).requires_grad_(True)
                   for p, v in ps.items()} for l, ps in values.items()}

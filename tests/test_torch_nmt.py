@@ -86,7 +86,7 @@ def test_nmt_loss_and_grads_match_jax(route, monkeypatch):
         outs, _ = jtopo.forward(v, {}, feed, train=True)
         return outs["nmt_cost"]
 
-    jcost, jgrads = jax.value_and_grad(jloss)(values)
+    jcost, jgrads = jax.jit(jax.value_and_grad(jloss))(values)
     tr = pt.trainer.SGD(ttopo, pt.parameters.from_numpy(ttopo, values,
                                                         device="cpu"),
                         pt.optimizer.Adam())

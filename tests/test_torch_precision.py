@@ -541,14 +541,17 @@ def test_bf16_layer_dtypes_and_values_match_jax(model, precision):
     assert kinds == {_DTYPE_NAME[precision], "float32"}
 
 
-def _grads_jax(jtopo, values, feed):
+def _grads_jax(jtopo, values, feed, jit=False):
+    """The JAX package's gradients, eagerly or (``jit``) as its trainer's
+    jitted step computes them (one compile instead of one an op)."""
     import jax
 
     def loss(v):
         outs, _ = jtopo.forward(v, {}, feed, train=True)
         return outs[jtopo.output_names[0]]
 
-    return jax.grad(loss)(values)
+    grad = jax.grad(loss)
+    return (jax.jit(grad) if jit else grad)(values)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "mixed", "fp16"])
@@ -560,7 +563,7 @@ def test_training_matches_jax(model, precision):
     leaf within 2^-4 of its own norm, then 5
     Adam steps of ``SGD.train`` on one batch with losses within 2e-3
     relative; masters and Adam slots float32 throughout."""
-    _hold_training(model, precision)
+    _hold_training(model, precision, jit=True)
 
 
 @pytest.mark.parametrize("fwd_impl,precision",
@@ -627,14 +630,14 @@ def test_lm_bf16_kernel_route_matches_jax_pallas(monkeypatch, fwd_impl,
                           ("jax", "interpret")}
 
 
-def _hold_training(model, precision, spread_grads=None):
+def _hold_training(model, precision, spread_grads=None, jit=False):
     """The comparison of ``test_training_matches_jax``.  With
     ``spread_grads(jtopo, values, feed)``, the JAX package's gradients on
     another of its routes, each leaf is held within the larger of
     GRAD_LEAF_RTOL and twice the two JAX routes' distance on it."""
     jtopo, ttopo, values = _both(model, precision)
     feed = MODELS[model][1]()
-    jgrads = _grads_jax(jtopo, values, feed)
+    jgrads = _grads_jax(jtopo, values, feed, jit)
     alt = None if spread_grads is None else spread_grads(jtopo, values, feed)
     tr = pt.trainer.SGD(ttopo, pt.parameters.from_numpy(ttopo, values,
                                                         device="cpu"),

@@ -110,7 +110,7 @@ def test_inference_pads_the_last_batch():
         rtol=0, atol=1e-6)
     assert bucket_rows(72, [8, 64, 256]) == 256
     assert bucket_rows(300, [8, 64, 256]) == 300
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         Inference(pred, params, compile_cache_dir="/nonexistent")
 
 

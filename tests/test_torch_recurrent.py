@@ -73,8 +73,8 @@ def test_step_matches_jax(kind, b, h, jax_impl):
         outs = outs if n_out == 2 else (outs,)
         return sum((o * c).sum() for o, c in zip(outs, cots)), outs
 
-    (_, jouts), jgrads = jax.value_and_grad(
-        jloss, argnums=tuple(range(5)), has_aux=True)(*args[:-1])
+    (_, jouts), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True))(*args[:-1])
     leaves = [_t(a).requires_grad_(True) for a in args[:-1]]
     touts = tstep(*leaves, _t(m))
     touts = touts if n_out == 2 else (touts,)
@@ -143,7 +143,7 @@ def _compare(config, feed, out_names, seed=0):
         outs, _ = jtopo.forward(v, {}, feed, train=True, outputs=out_names)
         return sum((outs[n] * cots[n]).sum() for n in out_names)
 
-    jgrads = jax.grad(jloss)(values)
+    jgrads = jax.jit(jax.grad(jloss))(values)
     leaves = {l: {p: t.requires_grad_(True) for p, t in ps.items()}
               for l, ps in tparams.values.items()}
     touts, _ = ttopo.forward(leaves, {}, feed, train=True, outputs=out_names,
@@ -302,8 +302,8 @@ def test_bahdanau_step_matches_jax():
         out = jbahdanau.bahdanau_step(*xs, jax.numpy.asarray(mask))
         return (out * cot).sum(), out
 
-    (_, jout), jgrads = jax.value_and_grad(
-        jloss, argnums=tuple(range(5)), has_aux=True)(
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True))(
             *map(jax.numpy.asarray, args))
     leaves = [_t(a).requires_grad_(True) for a in args]
     tout = tbahdanau.bahdanau_step(*leaves, _t(mask))
@@ -502,8 +502,8 @@ def test_bf16_step_matches_pallas_interpret(kind, x_dtype, m_dtype):
         outs = outs if n_out == 2 else (outs,)
         return sum((o * c).sum() for o, c in zip(outs, cots)), outs
 
-    (_, jouts), jgrads = jax.value_and_grad(
-        jloss, argnums=tuple(range(5)), has_aux=True)(*jargs)
+    (_, jouts), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True))(*jargs)
     leaves = ([torch.from_numpy(args[0]).to(xdt).requires_grad_(True)]
               + [_t(a).requires_grad_(True) for a in args[1:-1]])
     touts = tstep(*leaves, _t(m).to(tdt))
@@ -625,9 +625,11 @@ def test_bf16_step_dtypes_are_the_kernel_instances(precision, monkeypatch):
                                       if with_lens and k.split("@")[0]
                                       in feed})
                     if paddle is pj:
-                        jax.grad(lambda v: topo.forward(
-                            v, {}, f, train=True)[0][topo.output_names[0]])(
-                                values)
+                        # traced, not run: the dtypes reach the step
+                        # functions at trace time (no value is compared)
+                        jax.eval_shape(jax.grad(lambda v: topo.forward(
+                            v, {}, f, train=True)[0][topo.output_names[0]]),
+                            values)
                     else:
                         tr = pt.trainer.SGD(
                             topo, pt.parameters.from_numpy(
@@ -673,8 +675,8 @@ def test_bf16_bahdanau_step_matches_jax():
         out = jbahdanau.bahdanau_step(*xs, jnp.asarray(mask))
         return (out.astype(jnp.float32) * cot).sum(), out
 
-    (_, jout), jgrads = jax.value_and_grad(
-        jloss, argnums=tuple(range(5)), has_aux=True)(
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True))(
             *(jnp.asarray(a, jnp.bfloat16) for a in args))
     leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
               for a in args]

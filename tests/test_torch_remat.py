@@ -103,7 +103,7 @@ def _jax_grads(topo, values, feed, remat):
                                        remat=remat)
         return outs[topo.output_names[0]], new_state
 
-    (val, new_state), grads = jax.value_and_grad(loss, has_aux=True)(values)
+    (val, new_state), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(values)
     return (float(val), {(l, p): np.asarray(g) for l, ps in grads.items()
                          for p, g in ps.items()},
             {(l, k): np.asarray(v) for l, ks in new_state.items()

@@ -11,6 +11,9 @@ moving statistics and Momentum trajectory; ResNet-50's are stated (and
 explained) in its test.
 """
 
+import functools
+import json
+
 import numpy as np
 import pytest
 
@@ -88,7 +91,8 @@ def _jax_loss_and_grads(jtopo, values, feed):
         outs, new = jtopo.forward(v, jtopo.create_state(), feed, train=True)
         return outs["cost"], new
 
-    return jax.value_and_grad(loss, has_aux=True)(values)
+    # jitted: one compile, the JAX package's step as its trainer runs it
+    return jax.jit(jax.value_and_grad(loss, has_aux=True))(values)
 
 
 FUSIONS = [False, True, "all"]
@@ -209,12 +213,13 @@ def test_resnet50_first_step_matches_jax():
     feed = _feed(_rows(4, 32, 10, 6), 32)
     names = [s.name for s in jtopo.specs if s.kind != "data"]
     state0 = jtopo.create_state()
-    jouts, jstate = jtopo.forward(values, state0, feed, train=True,
-                                  outputs=names)
+    jouts, jstate = jax.jit(lambda v: jtopo.forward(
+        v, state0, feed, train=True, outputs=names))(values)
     jouts = dict(jouts, **feed)
     params = pt.parameters.from_numpy(ttopo, values, device="cpu").values
     state = ttopo.create_state(device="cpu")
     rng = np.random.default_rng(7)
+    jitted = {}
 
     def check(what, got, ref):
         ref = np.asarray(ref)
@@ -229,17 +234,26 @@ def test_resnet50_first_step_matches_jax():
         diff = [i for i, n in enumerate(spec.inputs)
                 if np.asarray(jouts[n]).dtype == np.float32]
         jparams = values.get(spec.name, {})
-
-        def jlayer(p, xs):
-            ctx = JaxContext(train=True)
-            ctx.state_in, ctx._cur_layer = state0, spec.name
-            ins = [jouts[n] for n in spec.inputs]
-            for i, x in zip(diff, xs):
-                ins[i] = x
-            return jax_layer_def(spec.kind).apply(spec.attrs, p, ins, ctx)
-
-        jy, vjp = jax.vjp(jlayer, jparams,
-                          [jouts[spec.inputs[i]] for i in diff])
+        ins0 = [jouts[n] for n in spec.inputs]
+        # the layer jitted, its forward and backward one compile each and
+        # not one an op; the repeated blocks' layers of one kind, attributes
+        # and shapes share one compile (the output reads no layer state)
+        sig = (spec.kind, json.dumps(spec.attrs, sort_keys=True, default=str),
+               tuple(diff), tuple((k, np.shape(v))
+                                  for k, v in sorted(jparams.items())),
+               tuple((np.shape(x), np.asarray(x).dtype.str) for x in ins0))
+        if sig not in jitted:
+            def jlayer(p, xs, ins, spec=spec, diff=diff):
+                ctx = JaxContext(train=True)
+                ctx.state_in, ctx._cur_layer = state0, spec.name
+                ins = list(ins)
+                for i, x in zip(diff, xs):
+                    ins[i] = x
+                return jax_layer_def(spec.kind).apply(spec.attrs, p, ins,
+                                                      ctx)
+            jitted[sig] = jax.jit(jlayer)
+        jy, vjp = jax.vjp(functools.partial(jitted[sig], ins=ins0), jparams,
+                          [ins0[i] for i in diff])
         cot = rng.standard_normal(np.shape(jy)).astype(np.float32)
         jgp, jgx = vjp(cot)
 

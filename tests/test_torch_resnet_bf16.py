@@ -147,7 +147,9 @@ def test_small_resnet_first_step_matches_jax(fuse, precision, monkeypatch):
         outs, new = jtopo.forward(v, jtopo.create_state(), feed, train=True)
         return outs["cost"], new
 
-    (jc, jstate), jg = jax.value_and_grad(loss, has_aux=True)(values)
+    # jitted: one compile, the JAX package's step as its trainer runs it
+    (jc, jstate), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        values)
     tr = pt.trainer.SGD(ttopo, pt.parameters.from_numpy(ttopo, values,
                                                         device="cpu"),
                         pt.optimizer.Momentum(learning_rate=0.1,
@@ -341,8 +343,9 @@ def test_conv_kernel_dtypes_are_the_kernel_instances(precision,
     jtopo, ttopo = _init("all", precision)
     values = _values(jtopo, 3)
     feed = _feed(2, 7)
-    jax.grad(lambda v: jtopo.forward(v, jtopo.create_state(), feed,
-                                     train=True)[0]["cost"])(values)
+    # traced, not run: the dtypes reach the kernel calls at trace time
+    jax.eval_shape(jax.grad(lambda v: jtopo.forward(
+        v, jtopo.create_state(), feed, train=True)[0]["cost"]), values)
     pt.trainer.SGD(ttopo, pt.parameters.from_numpy(ttopo, values,
                                                    device="cpu"),
                    pt.optimizer.Momentum()).forward_backward(feed)

@@ -262,8 +262,13 @@ def test_errors_are_the_port_engines_and_tracing_is_refused():
     assert Overloaded is engine.Overloaded
     assert DeadlineExceeded is engine.DeadlineExceeded
     assert issubclass(ServingHTTPError, engine.ServingError)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingClient("http://x", trace_sample=0.5)
+    # tracing is ported (item 13a): the knob arms the client's recorder,
+    # and an out-of-range rate still raises
+    traced = ServingClient("http://x", trace_sample=0.5)
+    assert traced.trace_sample == 0.5 and traced._recorder is not None
+    assert ServingClient("http://x")._recorder is None
+    with pytest.raises(ValueError, match="trace_sample"):
+        ServingClient("http://x", trace_sample=1.5)
 
 
 def test_failover_to_a_ready_endpoint_without_sleeping():

@@ -183,8 +183,8 @@ def test_decode_submit_validation(small):
 # with a non-default value and the ROADMAP item its error names
 UNPORTED = [
     ("mesh", object(), "item 14"), ("mesh_slices", 2, "item 14"),
-    ("mesh_rules", object(), "item 14"), ("trace_sample", 0.5, "item 13"),
-    ("telemetry_dir", "/x", "item 13"), ("compile_cache_dir", "/x", "item 13")]
+    ("mesh_rules", object(), "item 14"),
+    ("compile_cache_dir", "/x", "item 13b")]
 
 
 @pytest.mark.parametrize("kw,value,item", UNPORTED,
@@ -207,19 +207,24 @@ PORTED = [
     ("max_wait_us", 100.0, None), ("batch_buckets", (2, 4), None),
     ("overload_wait_scale", 2.0, None), ("seq_buckets", (8,), "seq_buckets"),
     ("model_version", "v2", None), ("canary_fraction", 0.1, "canary"),
-    ("canary_promote_requests", 8, None), ("reload_key", b"k", None)]
+    ("canary_promote_requests", 8, None), ("reload_key", b"k", None),
+    ("trace_sample", 0.5, None), ("telemetry_dir", "<tmp>", None)]
 
 
 @pytest.mark.parametrize("kw,value,decode_error", PORTED,
                          ids=[u[0] for u in PORTED])
-def test_ported_engine_keyword_works(small, kw, value, decode_error):
+def test_ported_engine_keyword_works(small, kw, value, decode_error,
+                                     tmp_path):
     """A whole-forward engine on the small LM's logits takes the keyword
     and answers a request; a decode engine takes it too, or refuses it
-    with the JAX engine's ValueError where it belongs to whole forwards."""
+    with the JAX engine's ValueError where it belongs to whole forwards.
+    ``telemetry_dir`` ("<tmp>") is a fresh directory."""
     import paddle_tpu_torch as tpaddle
     from paddle_tpu_torch.inference import Inference
     from paddle_tpu_torch.models.transformer import build
 
+    if value == "<tmp>":
+        value = str(tmp_path)
     _, _, model = small
     tpaddle.init(seed=0, device="cpu")
     _, logits = build(vocab_size=VOCAB, max_len=MAXLEN, dim=32,
@@ -248,17 +253,21 @@ def test_ported_engine_keyword_works(small, kw, value, decode_error):
 
 
 def test_unported_whole_forward_and_per_request_features_raise(small):
-    """A trace raises naming item 13 in both modes, and so does the
-    whole-forward engine's prewarm (the compile cache); a decode engine
-    answers a pin on its active version and refuses any other, over HTTP
-    as 200 and 400."""
+    """A trace is taken (item 13a: its span buffer gets the engine's
+    queue-wait, prefill and decode spans); the prewarm raises naming item
+    13b (the compile cache); a decode engine answers a pin on its active
+    version and refuses any other, over HTTP as 200 and 400."""
+    from paddle_tpu_torch.observability import tracectx
     _, _, model = small
     eng = InferenceEngine(slab(model), max_batch=32, max_wait_us=2000.0,
                           model_version="boot", mesh_slices=0)
     try:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            eng.submit([[1, 2]], max_tokens=2, trace=object())
-        with pytest.raises(NotImplementedError, match="item 13"):
+        buf = tracectx.SpanBuffer(tracectx.mint(1.0), "engine/request")
+        assert eng.submit([[1, 2]], max_tokens=2,
+                          trace=buf).result(60).shape == (2,)
+        assert {s["name"] for s in buf.spans} >= {
+            "engine/queue_wait", "engine/prefill", "engine/decode"}
+        with pytest.raises(NotImplementedError, match="item 13b"):
             eng.prewarm()
         assert eng.infer([[1, 2]], 60, max_tokens=2,
                          version="boot").shape == (2,)

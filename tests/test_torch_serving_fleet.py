@@ -520,14 +520,23 @@ def test_router_over_port_engines_fails_over_when_one_closes():
 
 
 def test_router_refuses_tracing_and_fleet_metrics():
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        Router(trace_sample=0.5)
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        Router(telemetry_dir="/x")
+    """Tracing and the fleet's /metrics are ported (item 8.4): a traced
+    router arms its recorder, /trace lists trace ids, /metrics answers
+    the registry's text and ?fleet=1 its rollup; an untraced router
+    refuses span ingest (404), and bad arguments still raise."""
+    with pytest.raises(ValueError, match="trace_sample"):
+        Router(trace_sample=1.5)
+    with Router([], poll_interval_s=0.05, staleness_s=0.2,
+                trace_sample=0.5) as traced:
+        assert traced._flight is not None
+        code, _, body = traced.handle_trace("GET", b"")
+        assert code == 200 and "traces" in json.loads(body)
     with Router([], poll_interval_s=0.05, staleness_s=0.2) as router:
-        for handler in (router.handle_trace, router.handle_metrics):
-            code, _, body = handler("GET", b"")
-            assert code == 501 and "item 8.4" in json.loads(body)["error"]
+        assert router.handle_trace("POST", b"[]")[0] == 404
+        code, ctype, body = router.handle_metrics("GET", b"")
+        assert code == 200 and ctype.startswith("text/plain")
+        code, _, body = router.handle_metrics("GET", b"", None, "fleet=1")
+        assert code == 200 and b"# fleet rollup: 0 replica(s)" in body
         assert router.handle_register("POST", b'{"url": 5}')[0] == 400
         assert router.handle_register("GET", b"")[0] == 405
         assert router.handle_deregister("POST", b"{}")[0] == 400

@@ -71,7 +71,7 @@ def test_sparse_fc_matches_jax_and_the_dense_product():
         outs, _ = jtopo.forward(params, {}, feed, outputs=["fc"])
         return outs["fc"].sum(), outs["fc"]
 
-    (_, jfc), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+    (_, jfc), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         {l: {p: jax.numpy.asarray(v) for p, v in ps.items()}
          for l, ps in values.items()})
     params = pt.parameters.from_numpy(ttopo, values).values

@@ -133,7 +133,7 @@ def test_forward_loss_and_grads_match_jax(padded):
                                 outputs=["cost", "logits"])
         return outs["cost"], outs["logits"]
 
-    (jcost, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+    (jcost, jlogits), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         jparams.values)
     tr = pt.trainer.SGD(ttopo, tparams, pt.optimizer.Adam())
     tcost, tgrads = tr.forward_backward(feed)
@@ -370,9 +370,21 @@ def test_cli_train_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert len(lines) == 2
     costs = [float(l.rsplit(" ", 1)[1]) for l in lines]
     assert all(np.isfinite(costs))
-    with pytest.raises(NotImplementedError, match="--telemetry_dir"):
+    # telemetry is ported (item 13a): the run writes its snapshot and
+    # span trace; the compile cache (item 13b) still raises
+    from paddle_tpu_torch import observability
+    tdir = tmp_path / "tele"
+    try:
+        reset_port_names()
         cli.main(["train", "--config", str(path), "--device", "cpu",
-                  "--telemetry_dir", str(tmp_path)])
+                  "--telemetry_dir", str(tdir), "--snapshot_period", "0"])
+    finally:
+        observability.disable()
+    assert (tdir / "metrics.jsonl").exists()
+    assert (tdir / "trace.json").exists()
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        cli.main(["train", "--config", str(path), "--device", "cpu",
+                  "--compile_cache_dir", str(tmp_path)])
 
 
 # ------------------------------------------------------ what is refused

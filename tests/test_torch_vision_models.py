@@ -198,7 +198,8 @@ def _held_by_layer(jtopo, ttopo, values, feed):
                 ins[i] = x
             return jax_layer_def(spec.kind).apply(spec.attrs, p, ins, ctx)
 
-        jy, vjp = jax.vjp(jlayer, values.get(spec.name, {}),
+        # the layer jitted: its forward and backward one compile each
+        jy, vjp = jax.vjp(jax.jit(jlayer), values.get(spec.name, {}),
                           [jouts[spec.inputs[i]] for i in diff])
         ctx = ApplyContext(train=True, device=torch.device("cpu"),
                            generator=torch.Generator())

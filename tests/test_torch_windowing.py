@@ -57,8 +57,8 @@ def _jax(fa_mod, q, k, v, lens, causal, with_lse):
             loss = loss + jnp.where(jnp.isfinite(lse), lse, 0.0).sum()
         return loss, (o, lse)
 
-    (loss, (o, lse)), grads = jax.value_and_grad(
-        f, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    (loss, (o, lse)), grads = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True))(q, k, v)
     return (float(loss), np.asarray(o), np.asarray(lse),
             [np.asarray(g) for g in grads])
 
